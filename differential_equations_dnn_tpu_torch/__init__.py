@@ -2,15 +2,16 @@
 ``differential_equations_dnn_tpu``, for one NVIDIA H100.
 
 It imports ``torch`` and never ``jax``. The JAX package beside it is the
-reference the port is tested against. Ported so far: the fused heat-training
-path, ``solve("heat", engine="fused")``, through two hand-written CUDA
-kernels (csrc/): the fused heat training step and the MLP forward used for
-grid evaluation.
+reference the port is tested against. Ported so far: the fused training
+paths, ``solve(name, engine="fused")`` for simple_ode, heat, burgers, wave,
+advection, poisson and heat2d, through hand-written CUDA kernels (csrc/):
+the constant-lr heat trainer, the generic spec engine with its lr
+schedules, and the MLP forward used for grid evaluation.
 
 * ``core``       — fp32 policy, activations, initializers, step-keyed draws
 * ``models``     — the plain MLP (``nn.Module``) and JAX parameter import
 * ``ops``        — forward-mode taps (torch.func.jvp) and Taylor streams
-* ``equations``  — the heat problem
+* ``equations``  — the seven problems (residuals, grids, exact solutions)
 * ``train``      — result records and the MAE metric
 * ``kernels``    — the CUDA kernels' wrappers, plain versions and build
 """

@@ -12,12 +12,16 @@ import numpy as np
 import torch
 
 from differential_equations_dnn_tpu_torch.core.prng import generator
-from differential_equations_dnn_tpu_torch.equations import Problem, get_problem
+from differential_equations_dnn_tpu_torch.equations import (
+    NOT_PORTED,
+    Problem,
+    get_problem,
+)
+from differential_equations_dnn_tpu_torch.kernels import fused_engine
 from differential_equations_dnn_tpu_torch.kernels.fused_train import (
     resolve_device,
     train_heat_fused_result,
 )
-from differential_equations_dnn_tpu_torch.models import MLP
 from differential_equations_dnn_tpu_torch.train import (
     TrainConfig,
     mean_absolute_error,
@@ -43,34 +47,53 @@ class SolveResult:
                 f"{self.iters_per_sec:.0f} iters/s on {self.device})")
 
 
-def _fused_route(problem, model) -> str:
-    """Which fused engine trains (problem, model). Only the specialised heat
-    kernel (kernels.fused_train) is ported."""
-    if problem.name != "heat":
+def _fused_route(problem, model, schedule="constant") -> str:
+    """Which fused engine trains (problem, model): "heat" (the specialised
+    constant-lr heat kernel, kernels.fused_train) or "engine" (the generic
+    spec engine, kernels.fused_engine). Raises, naming the ROADMAP item,
+    for what the port does not run yet."""
+    if getattr(problem, "constraint", "soft") == "hard":
+        raise NotImplementedError(
+            f"{problem.name!r} with constraint='hard' is not ported yet "
+            f"(ROADMAP.md queue 1, item 10a: the hard specs with "
+            f"models/hard.py)")
+    if problem.name in NOT_PORTED:
         raise NotImplementedError(
             f"the fused engine for {problem.name!r} is not ported yet "
-            f"(ROADMAP.md queue 1, items 10-11)")
-    if not (isinstance(model, MLP) and model.activation == "tanh"):
-        raise ValueError("heat's fused path needs a plain tanh MLP "
-                         f"(got {type(model).__name__})")
-    return "heat"
+            f"(ROADMAP.md {NOT_PORTED[problem.name]})")
+    spec = fused_engine.spec_for(problem)  # raises for causal advection
+    if spec is None:
+        raise ValueError(f"no fused-engine spec for equation "
+                         f"{problem.name!r} (available: "
+                         f"{sorted(fused_engine.SPECS)})")
+    if not fused_engine.supports_model(spec, model):
+        raise ValueError(
+            f"{problem.name!r}'s fused path needs a plain tanh MLP "
+            f"{spec.input_dim} → H×L → 1 (got {type(model).__name__})")
+    if problem.name == "heat" and schedule == "constant":
+        return "heat"
+    return "engine"
 
 
 def solve(equation: str | Problem, *, iterations: int | None = None,
           batch_size: int | None = None, lrate: float | None = None,
           nodes: int | None = None, seed: int = 0, model=None,
           engine: str = "scan", precision: str = "highest",
-          schedule: str | None = None, device="cuda",
-          **problem_kwargs) -> SolveResult:
+          schedule: str | None = None, ensemble: int | None = None,
+          device="cuda", **problem_kwargs) -> SolveResult:
     """Train a network on ``equation`` and validate against its ground truth.
 
-    ``equation`` is a registry name ("heat") or a Problem instance. Unset
+    ``equation`` is a registry name (simple_ode, heat, burgers, wave,
+    advection, poisson, heat2d) or a Problem instance. Unset
     hyperparameters default to the reference's published configuration.
-    ``engine="fused"`` trains inside the hand-written CUDA kernels; the
-    generic ``"scan"`` trainer is not ported yet. ``model`` (a plain tanh
-    MLP, default ``problem.default_model()`` initialised from ``seed``) is
-    trained in place. ``device`` defaults to "cuda" and raises without a
-    GPU; "cpu" runs the kernels' plain PyTorch versions.
+    ``engine="fused"`` trains inside the hand-written CUDA kernels:
+    constant-lr heat on the specialised heat kernel, everything else on the
+    generic spec engine; the generic ``"scan"`` trainer is not ported yet.
+    ``schedule`` ("constant" | "cosine" | "exponential") overrides the
+    equation's default lr schedule. ``model`` (a plain tanh MLP, default
+    ``problem.default_model()`` initialised from ``seed``) is trained in
+    place. ``device`` defaults to "cuda" and raises without a GPU; "cpu"
+    runs the kernels' plain PyTorch versions.
     """
     problem = (get_problem(equation, **problem_kwargs)
                if isinstance(equation, str) else equation)
@@ -89,19 +112,25 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
         lrate=lrate if lrate is not None else d.lrate,
         schedule=schedule if schedule is not None else d.schedule,
     )
-    if config.schedule != "constant":
+    if ensemble is not None and ensemble > 1:
         raise NotImplementedError(
-            f"schedule={config.schedule!r} is not ported yet (ROADMAP.md "
-            f"queue 2: kernel #4, engine_core.fused_adam_kernel)")
+            "ensemble is not ported yet (ROADMAP.md queue 1, item 12: the "
+            "packed-replica trainers, kernel #5)")
     nodes = nodes if nodes is not None else d.nodes
     if model is None:
         model = problem.default_model(generator=generator(seed))
-    _fused_route(problem, model)
+    route = _fused_route(problem, model, config.schedule)
 
-    result = train_heat_fused_result(
-        problem, seed, config.iterations, batch_size=config.batch_size,
-        lrate=config.lrate, chunk_size=config.chunk_size, model=model,
-        precision=precision, device=device)
+    common = dict(batch_size=config.batch_size, lrate=config.lrate,
+                  chunk_size=config.chunk_size, model=model,
+                  precision=precision, device=device)
+    if route == "heat":
+        result = train_heat_fused_result(problem, seed, config.iterations,
+                                         **common)
+    else:
+        result = fused_engine.train_fused_result(
+            problem, seed, config.iterations, schedule=config.schedule,
+            **common)
     solution = problem.evaluate(result.params, nodes)
     exact = problem.exact(nodes)
     return SolveResult(

@@ -7,7 +7,9 @@ keys them with ``fold_in(run_key, i)`` (kernels/fused_train.py:508-516): the
 a run is cut into chunks or resumed.
 
 The draws come from a counter-based integer hash evaluated with tensor ops,
-so one seed gives bit-identical uniforms on the CPU and on the GPU. The
+so one seed gives bit-identical uniforms on the CPU and on the GPU. A step
+hashes the lane indices ``0 .. batch_size · n_uniform − 1``, so at
+``n_uniform=2`` the stream is the one the heat route has always drawn. The
 stream is NOT JAX's threefry: the same seed gives other numbers than the
 JAX package. Tests that compare the two hand both the same numpy uniforms.
 """
@@ -34,15 +36,16 @@ def _mix32(x):
 
 
 def step_uniforms(seed: int, start: int, n: int, batch_size: int,
-                  device=None) -> torch.Tensor:
-    """U[0, 1) draws of shape ``[n, batch_size, 2]`` for the steps
+                  device=None, n_uniform: int = 2) -> torch.Tensor:
+    """U[0, 1) draws of shape ``[n, batch_size, n_uniform]`` for the steps
     ``start .. start + n - 1``; float32 with 24 random bits each."""
     key = int(_mix32(torch.tensor(((seed ^ (seed >> 32)) ^ _DRAW_DOMAIN)
                                   & _M32)))
     steps = torch.arange(start, start + n, dtype=torch.int64, device=device)
     step_key = _mix32((steps * 0x9E3779B9 + key) & _M32)[:, None]
-    lane = torch.arange(2 * batch_size, dtype=torch.int64, device=device)
+    lane = torch.arange(n_uniform * batch_size, dtype=torch.int64,
+                        device=device)
     h = _mix32((lane * 0x85EBCA6B) & _M32 ^ step_key)
     h = _mix32((h + step_key) & _M32)
     u = (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
-    return u.reshape(n, batch_size, 2)
+    return u.reshape(n, batch_size, n_uniform)

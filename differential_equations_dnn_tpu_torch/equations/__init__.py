@@ -1,22 +1,52 @@
+from differential_equations_dnn_tpu_torch.equations.advection import (
+    Advection1D,
+)
 from differential_equations_dnn_tpu_torch.equations.base import (
     Problem,
     TrainDefaults,
 )
+from differential_equations_dnn_tpu_torch.equations.burgers import Burgers
 from differential_equations_dnn_tpu_torch.equations.heat import Heat1D
+from differential_equations_dnn_tpu_torch.equations.heat2d import Heat2D
+from differential_equations_dnn_tpu_torch.equations.poisson import Poisson2D
+from differential_equations_dnn_tpu_torch.equations.simple_ode import (
+    SimpleODE,
+)
+from differential_equations_dnn_tpu_torch.equations.wave import Wave1D
 
-# The other equations of the JAX package are ROADMAP.md queue 1, items 10-11.
-PROBLEMS = {"heat": Heat1D}
+PROBLEMS = {
+    "simple_ode": SimpleODE,
+    "heat": Heat1D,
+    "heat2d": Heat2D,
+    "burgers": Burgers,
+    "wave": Wave1D,
+    "advection": Advection1D,
+    "poisson": Poisson2D,
+}
+
+# Equations of the JAX package that the port does not have yet.
+NOT_PORTED = {
+    "fredholm": "queue 1, item 11: the DGM engine",
+    "fitzhugh_nagumo": "queue 1, item 11: the DGM engine",
+    "volterra": "queue 1, item 10b: volterra with ops/quad.py",
+    "uat": "queue 1, item 10c: uat with models/perceptron.py",
+    "inverse_heat": "queue 1, item 10d: inverse_heat with extra_shapes",
+}
 
 
 def get_problem(name: str, **kwargs) -> Problem:
     """The registered problem ``name``; raises ValueError naming what
-    exists."""
+    exists (and, for an equation still to port, its ROADMAP item)."""
     try:
         cls = PROBLEMS[name]
     except KeyError:
+        todo = (f" ({name} is not ported yet: ROADMAP.md {NOT_PORTED[name]})"
+                if name in NOT_PORTED else "")
         raise ValueError(f"unknown equation {name!r}; available: "
-                         f"{sorted(PROBLEMS)}") from None
+                         f"{sorted(PROBLEMS)}{todo}") from None
     return cls(**kwargs)
 
 
-__all__ = ["PROBLEMS", "Problem", "TrainDefaults", "Heat1D", "get_problem"]
+__all__ = ["PROBLEMS", "NOT_PORTED", "Problem", "TrainDefaults",
+           "SimpleODE", "Heat1D", "Heat2D", "Burgers", "Wave1D",
+           "Advection1D", "Poisson2D", "get_problem"]

@@ -3,7 +3,8 @@
 A Problem bundles, for one differential equation:
 
 * ``default_model()``      — the reference's network for this equation
-* ``sample(n)``            — one batch of collocation points
+* ``sample(n)``            — one batch of collocation points, built by
+                             ``batch_from_uniforms`` from U[0,1) draws
 * ``point_loss(model, batch)`` — per-point summed squared residuals
 * ``grid_inputs(nodes)``   — flattened evaluation-grid inputs [M, d]
 * ``solution_shape(nodes)``— shape the evaluated grid reshapes to
@@ -25,6 +26,23 @@ from differential_equations_dnn_tpu_torch.train.metrics import (
 )
 
 
+def require_soft(constraint: str) -> None:
+    """Hard-constraint trial functions (models/hard.py) are not ported."""
+    if constraint != "soft":
+        raise NotImplementedError(
+            f"constraint={constraint!r} is not ported yet (ROADMAP.md "
+            f"queue 1, item 10a: models/hard.py)")
+
+
+def grid_2d(x_max, t_max, nodes, device=None):
+    """The [nodes², 2] grid of (x, t) rows, time-major (rows = time, cols =
+    space), as the JAX package's PDE problems evaluate it."""
+    t = torch.linspace(0.0, t_max, nodes, device=device)
+    x = torch.linspace(0.0, x_max, nodes, device=device)
+    tt, xx = torch.meshgrid(t, x, indexing="ij")
+    return torch.stack([xx.reshape(-1), tt.reshape(-1)], 1)
+
+
 @dataclass(frozen=True)
 class TrainDefaults:
     iterations: int
@@ -37,11 +55,19 @@ class TrainDefaults:
 @dataclass(frozen=True)
 class Problem:
     name: str = "problem"
+    n_uniform = 2  # U[0,1) draws per collocation point
 
     def default_model(self, generator=None, device=None):
         raise NotImplementedError
 
     def sample(self, n, generator=None, device=None):
+        """One collocation batch: ``n_uniform`` U[0,1) draws per point."""
+        u = torch.rand((n, self.n_uniform), generator=generator)
+        return self.batch_from_uniforms(u.to(device))
+
+    def batch_from_uniforms(self, u):
+        """The collocation batch built from ``[B, n_uniform]`` draws, as
+        the fused engine's spec builds it."""
         raise NotImplementedError
 
     def point_loss(self, model, batch):

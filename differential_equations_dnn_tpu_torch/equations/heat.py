@@ -16,6 +16,8 @@ import torch
 from differential_equations_dnn_tpu_torch.equations.base import (
     Problem,
     TrainDefaults,
+    grid_2d,
+    require_soft,
 )
 from differential_equations_dnn_tpu_torch.models import MLP
 from differential_equations_dnn_tpu_torch.ops import (
@@ -40,10 +42,7 @@ class Heat1D(Problem):
     constraint: str = "soft"
 
     def __post_init__(self):
-        if self.constraint != "soft":
-            raise NotImplementedError(
-                f"constraint={self.constraint!r} is not ported yet "
-                f"(ROADMAP.md queue 1, item 10: models/hard.py)")
+        require_soft(self.constraint)
         if self.taps == "pallas":
             raise NotImplementedError(
                 "taps='pallas' is not ported yet (ROADMAP.md queue 2: "
@@ -54,10 +53,6 @@ class Heat1D(Problem):
     def default_model(self, generator=None, device=None):
         return MLP(input_dim=2, output_dim=1, hidden_size=128, num_layers=3,
                    activation="tanh", generator=generator, device=device)
-
-    def sample(self, n, generator=None, device=None):
-        u = torch.rand((n, 2), generator=generator).to(device)
-        return self.batch_from_uniforms(u)
 
     def batch_from_uniforms(self, u):
         """The collocation batch built from ``[B, 2]`` U[0,1) draws, as the
@@ -88,10 +83,7 @@ class Heat1D(Problem):
 
     def grid_inputs(self, nodes, device=None):
         # Grid rows = time, cols = space (heat.py:152-166: sol[i_t, j_x]).
-        t = torch.linspace(0.0, self.t_max, nodes, device=device)
-        x = torch.linspace(0.0, self.x_max, nodes, device=device)
-        tt, xx = torch.meshgrid(t, x, indexing="ij")
-        return torch.stack([xx.reshape(-1), tt.reshape(-1)], 1)
+        return grid_2d(self.x_max, self.t_max, nodes, device)
 
     def solution_shape(self, nodes):
         return (nodes, nodes)

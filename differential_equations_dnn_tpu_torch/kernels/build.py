@@ -1,8 +1,9 @@
 """Build the package's CUDA kernels and bind them with ctypes.
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` of this package (and
-nothing else) for ``sm_90a`` into one shared library with a plain C
-interface, under ``build/torch_kernels/`` beside the package. The library's
+nothing else) for ``sm_90a``, one compiler per source in parallel, and links
+them into one shared library with a plain C interface, under
+``build/torch_kernels/`` beside the package. The library's
 name carries a hash of its sources and flags, so an edit forces a rebuild
 and an unchanged tree reuses the build. There is no fallback: a missing
 ``nvcc`` or a failed build raises.
@@ -26,12 +27,14 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# name → argtypes of every C entry point (all return a cudaError_t as int).
+_CONSTS = ctypes.POINTER(ctypes.c_float)
+# name → argtypes of every C entry point (all return a cudaError_t as int,
+# except the scratch sizes).
 _SIGNATURES = {
     # x, w_in, b_in, w_hid, b_hid, w_out, b_out, y, n, d, h, l, o, act, stream
     "mlp_forward": [_P] * 8 + [_I] * 6 + [_P],
@@ -42,7 +45,19 @@ _SIGNATURES = {
     # p, m, v, u, scratch, losses, K, B, H, L, x_max, t_max, kappa, lr,
     # step0, stream
     "heat_train": [_P] * 6 + [_I] * 4 + [_F] * 4 + [_I, _P],
+    # spec, B, H, L
+    "engine_scratch_floats": [_I] * 4,
+    # spec, H
+    "engine_smem_bytes": [_I] * 2,
+    # spec, consts, p, u, scratch, grad, loss, B, H, L, stream
+    "engine_grad": [_I, _CONSTS] + [_P] * 5 + [_I] * 3 + [_P],
+    # spec, consts, p, m, v, u, scratch, losses, K, B, H, L, lr, step0,
+    # schedule, horizon, decay, half_span, log_decay, step_math_runs, stream
+    "engine_train": [_I, _CONSTS] + [_P] * 6 + [_I] * 4 + [_F, _I, _I]
+                    + [_F] * 4 + [ctypes.POINTER(_I), _P],
 }
+_RESTYPES = {"engine_scratch_floats": ctypes.c_longlong,
+             "engine_smem_bytes": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -70,22 +85,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a build of the same sources exists.
-    Returns the library path; the compiler's report is kept beside it."""
+    """Compile the kernels unless a build of the same sources exists: one
+    nvcc per source, all started together, then one link. Returns the
+    library path; the compilers' reports are kept beside it."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        report, failed = [], []
+        for cmd, obj, proc in jobs:  # waits for every compiler
+            out = proc.communicate()[0]
+            report.append(f"$ {' '.join(cmd)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out[-4000:]}")
+        so = os.path.join(tmp, lib.name)
+        if not failed:
+            cmd = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", so,
+                   *(obj for _, obj, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            report.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+        lib.with_suffix(".log").write_text("\n".join(report))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(so, lib)  # atomic: a concurrent build never sees half a file
     return lib
 
 
@@ -96,7 +129,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,685 @@
+"""The generic fused engine: K Adam steps of any stream spec per kernel call
+(csrc/engine_train.cu).
+
+Counterpart of the JAX package's kernels/fused_engine.py. A **stream spec**
+describes one equation's training step:
+
+* ``groups`` — the stream layout: each group is one network-input block of
+  B rows (an interior batch, an IC face, a boundary edge, ...) carrying a
+  value stream, ``n_second`` (first, second)-derivative Taylor pairs and
+  ``n_first`` first-only tangents;
+* ``build(u)`` — the stacked input rows ``[R·B, D]`` from the step's
+  ``[B, n_uniform]`` uniforms, plus the columns the loss needs;
+* ``loss(outs, ctx)`` — the equation's residual loss over the R stream
+  outputs, as a ``[1, 1]`` value.
+
+``engine_step_math`` is the plain PyTorch version of one step: the
+group-generic Taylor forward, the loss cotangent from ``torch.func.vjp`` of
+the spec's loss, and the hand-derived backward. In the CUDA kernel the same
+step runs with ``build`` and the loss cotangent written out by hand for each
+spec (selected by ``kernel_id``, with ``kernel_consts`` as its numbers).
+
+Ported specs: simple_ode, heat, burgers, wave, advection (``causal_eps=0``),
+poisson and heat2d, for plain tanh MLPs at ``precision="highest"``. The hard
+-constraint specs, volterra, uat, inverse_heat, the runtime masks, the const
+operand and the packed-replica kernel are not ported (ROADMAP.md).
+"""
+
+import ctypes
+import math
+from dataclasses import dataclass
+
+import torch
+
+from differential_equations_dnn_tpu_torch.core.prng import (
+    generator,
+    step_uniforms,
+)
+from differential_equations_dnn_tpu_torch.equations.advection import (
+    CAUSAL_TODO,
+)
+from differential_equations_dnn_tpu_torch.kernels import build
+from differential_equations_dnn_tpu_torch.kernels import engine_core
+from differential_equations_dnn_tpu_torch.kernels.fused_train import (
+    _check_state,
+    check_batch_tile,
+    check_precision,
+    pack_params,
+    resolve_device,
+    train_in_chunks,
+    unpack_params,
+)
+from differential_equations_dnn_tpu_torch.models import MLP
+
+_N_CONSTS = 8  # floats of kernel_consts the CUDA specs read
+
+# ---------------------------------------------------------------------------
+# Stream layout: groups of (value + Taylor pairs + first-only tangents)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Group:
+    """One network-input block of B rows in the stacked operand. Row order
+    within the group: value, then (first, second) per Taylor pair, then the
+    first-only tangents."""
+    n_second: int = 0
+    n_first: int = 0
+
+    @property
+    def n_rows(self):
+        return 1 + 2 * self.n_second + self.n_first
+
+
+def _n_rows(groups):
+    return sum(g.n_rows for g in groups)
+
+
+def _bias_mask(groups, B, like):
+    """Value streams receive the bias; tangent streams do not."""
+    parts = []
+    for g in groups:
+        parts.append(like.new_ones((B, 1)))
+        parts.append(like.new_zeros(((g.n_rows - 1) * B, 1)))
+    return torch.cat(parts, 0)
+
+
+def _act_fwd(groups, z, B):
+    """tanh on value streams, Taylor rules on tangents (per group state)."""
+    outs = []
+    off = 0
+    for g in groups:
+        a0 = torch.tanh(z[off * B:(off + 1) * B])
+        d = 1.0 - a0 * a0
+        outs.append(a0)
+        cur = off + 1
+        for _ in range(g.n_second):
+            z1 = z[cur * B:(cur + 1) * B]
+            z2 = z[(cur + 1) * B:(cur + 2) * B]
+            outs.append(d * z1)
+            outs.append(d * z2 - 2.0 * a0 * d * (z1 * z1))
+            cur += 2
+        for _ in range(g.n_first):
+            outs.append(d * z[cur * B:(cur + 1) * B])
+            cur += 1
+        off += g.n_rows
+    return torch.cat(outs, 0)
+
+
+def _act_bwd(groups, z, gr, B):
+    """VJP of :func:`_act_fwd`. With a0 = tanh(z0), d = 1 − a0²,
+    d' = −2·a0·d, the per-group rules are
+
+      dz0 = d·g0 + d'·Σ(z_t·g_t over all tangents)
+                 − Σ_pairs 2·z1²·d·(d − 2a0²)·g2
+      dz1 = d·g1 − 4·a0·d·z1·g2          (pair firsts)
+      dz2 = d·g2                          (pair seconds)
+      dzf = d·gf                          (first-only tangents)
+    """
+    outs = []
+    off = 0
+    for g in groups:
+        z0 = z[off * B:(off + 1) * B]
+        g0 = gr[off * B:(off + 1) * B]
+        a0 = torch.tanh(z0)
+        d = 1.0 - a0 * a0
+        dp = -2.0 * a0 * d
+        dz0 = d * g0
+        tail = []
+        cur = off + 1
+        for _ in range(g.n_second):
+            z1 = z[cur * B:(cur + 1) * B]
+            z2 = z[(cur + 1) * B:(cur + 2) * B]
+            g1 = gr[cur * B:(cur + 1) * B]
+            g2 = gr[(cur + 1) * B:(cur + 2) * B]
+            dz0 = (dz0 + dp * (z1 * g1 + z2 * g2)
+                   - 2.0 * (z1 * z1) * d * (d - 2.0 * a0 * a0) * g2)
+            tail.append(d * g1 - 4.0 * a0 * d * z1 * g2)
+            tail.append(d * g2)
+            cur += 2
+        for _ in range(g.n_first):
+            zf = z[cur * B:(cur + 1) * B]
+            gf = gr[cur * B:(cur + 1) * B]
+            dz0 = dz0 + dp * (zf * gf)
+            tail.append(d * gf)
+            cur += 1
+        outs.append(dz0)
+        outs.extend(tail)
+        off += g.n_rows
+    return torch.cat(outs, 0)
+
+
+# ---------------------------------------------------------------------------
+# Generic step math (the plain version of the kernel's step)
+# ---------------------------------------------------------------------------
+
+
+def engine_step_math(spec, params, u, B, L):
+    """One training step's loss ``[1, 1]`` and parameter gradients for any
+    stream spec. ``params`` = (w_in, b_in, w_hid, b_hid, w_out, b_out);
+    ``u`` = [B, spec.n_uniform] U[0,1) draws. Returns (loss, grads_tuple)."""
+    groups = spec.groups
+    w_in, b_in, w_hid, b_hid, w_out, b_out = params
+    X, ctx = spec.build(u)
+    mask = _bias_mask(groups, B, X)
+
+    zs = [X @ w_in + mask * b_in]
+    a = _act_fwd(groups, zs[0], B)
+    for l in range(L):
+        zs.append(a @ w_hid[l] + mask * b_hid[l])
+        a = _act_fwd(groups, zs[-1], B)
+    out = a @ w_out + mask * b_out
+
+    outs = tuple(out[k * B:(k + 1) * B] for k in range(_n_rows(groups)))
+    # The cotangent w.r.t. the stream outputs, from autodiff of the spec's
+    # small elementwise loss (the kernel writes it out by hand per spec).
+    loss, vjp_fn = torch.func.vjp(lambda *o: spec.loss(o, ctx), *outs)
+    G = torch.cat(vjp_fn(torch.ones_like(loss)), 0)
+
+    d_w_out = _act_fwd(groups, zs[L], B).T @ G
+    d_b_out = torch.sum(mask * G, 0)
+    g = G @ w_out.T
+    d_w_hid, d_b_hid = [], []
+    for l in range(L - 1, -1, -1):
+        dz = _act_bwd(groups, zs[l + 1], g, B)
+        d_w_hid.append(_act_fwd(groups, zs[l], B).T @ dz)
+        d_b_hid.append(torch.sum(mask * dz, 0))
+        g = dz @ w_hid[l].T
+    d_w_hid = torch.stack(d_w_hid[::-1]) if L else torch.zeros_like(w_hid)
+    d_b_hid = torch.stack(d_b_hid[::-1]) if L else torch.zeros_like(b_hid)
+    dz = _act_bwd(groups, zs[0], g, B)
+    d_w_in = X.T @ dz
+    d_b_in = torch.sum(mask * dz, 0)
+    return loss, (d_w_in, d_b_in, d_w_hid, d_b_hid, d_w_out, d_b_out)
+
+
+# ---------------------------------------------------------------------------
+# Equation specs
+# ---------------------------------------------------------------------------
+
+
+def _cat(*cols):
+    return torch.cat(cols, 1)
+
+
+def _smean(q):
+    """Batch mean of a pointwise [B, 1] quantity as a [1, 1] value."""
+    s = torch.sum(torch.sum(q, 0, keepdim=True), 1, keepdim=True)
+    return s * (1.0 / (q.shape[0] * q.shape[1]))
+
+
+@dataclass(frozen=True)
+class SimpleODESpec:
+    """dy/dt = −y, y(0) = y_ic (equations.simple_ode)."""
+    p: object
+    n_uniform: int = 1
+    input_dim = 1
+    kernel_id = 0
+    groups = (Group(n_first=1), Group())  # interior (v, t'), t=0 face
+
+    def kernel_consts(self):
+        return (self.p.sample_scale * self.p.t_max, self.p.y_ic)
+
+    def build(self, u):
+        t = (self.p.sample_scale * self.p.t_max) * u[:, :1]
+        X = torch.cat([t, torch.ones_like(t), torch.zeros_like(t)], 0)
+        return X, {}
+
+    def loss(self, outs, ctx):
+        y, dydt, y0 = outs
+        return _smean(torch.square(dydt + y)
+                      + torch.square(y0 - self.p.y_ic))
+
+
+@dataclass(frozen=True)
+class HeatSpec:
+    """u_t = κ·u_xx (equations.heat)."""
+    p: object
+    n_uniform: int = 2
+    input_dim = 2
+    kernel_id = 1
+    groups = (Group(n_second=1, n_first=1),  # interior: v, (x', x''), t'
+              Group(), Group(), Group())     # IC, x=0, x=x_max
+
+    def kernel_consts(self):
+        return (self.p.x_max, self.p.t_max, self.p.kappa)
+
+    def build(self, u):
+        x = self.p.x_max * u[:, :1]
+        t = self.p.t_max * u[:, 1:2]
+        zero = torch.zeros_like(x)
+        one = torch.ones_like(x)
+        xmax = torch.full_like(x, self.p.x_max)
+        X = torch.cat([
+            _cat(x, t), _cat(one, zero), _cat(zero, zero), _cat(zero, one),
+            _cat(x, zero), _cat(zero, t), _cat(xmax, t),
+        ], 0)
+        return X, {"x": x}
+
+    def loss(self, outs, ctx):
+        u_, u_x, u_xx, u_t, u0, ub1, ub2 = outs
+        r = u_t - self.p.kappa * u_xx
+        r0 = u0 - torch.sin(ctx["x"])
+        return _smean(torch.square(r) + torch.square(r0)
+                      + torch.square(ub1) + torch.square(ub2))
+
+
+@dataclass(frozen=True)
+class AdvectionSpec:
+    """u_t + c·u_x = 0 (equations.advection): first-order transport, R = 5.
+    Causal residual weighting (``causal_eps > 0``) is not ported."""
+    p: object
+    n_uniform: int = 2
+    input_dim = 2
+    kernel_id = 4
+    groups = (Group(n_first=2),    # interior: v, x-tangent, t-tangent
+              Group(), Group())    # t=0 face, inflow x=0
+
+    def __post_init__(self):
+        if getattr(self.p, "causal_eps", 0.0) > 0.0:
+            raise NotImplementedError(CAUSAL_TODO)
+
+    def kernel_consts(self):
+        return (self.p.x_max, self.p.t_max, self.p.c, -self.p.c)
+
+    def build(self, u):
+        x = self.p.x_max * u[:, :1]
+        t = self.p.t_max * u[:, 1:2]
+        zero = torch.zeros_like(x)
+        one = torch.ones_like(x)
+        X = torch.cat([
+            _cat(x, t), _cat(one, zero), _cat(zero, one),
+            _cat(x, zero), _cat(zero, t),
+        ], 0)
+        return X, {"x": x, "t": t}
+
+    def loss(self, outs, ctx):
+        u_, u_x, u_t, u0, ub = outs
+        r = torch.square(u_t + self.p.c * u_x)
+        icbc = (torch.square(u0 - torch.sin(ctx["x"]))
+                + torch.square(ub - torch.sin(-self.p.c * ctx["t"])))
+        return _smean(r + icbc)
+
+
+@dataclass(frozen=True)
+class BurgersSpec:
+    """u_t + u·u_x = ν·u_xx (equations.burgers): the value stream itself
+    enters the domain residual."""
+    p: object
+    n_uniform: int = 2
+    input_dim = 2
+    kernel_id = 2
+    groups = (Group(n_second=1, n_first=1), Group(), Group(), Group())
+
+    def kernel_consts(self):
+        p = self.p
+        return (p.x_max, p.t_max, p.nu, p.wave_amp, p.wave_speed, p.x0,
+                2.0 * p.nu)
+
+    def build(self, u):
+        x = self.p.x_max * u[:, :1]
+        t = self.p.t_max * u[:, 1:2]
+        zero = torch.zeros_like(x)
+        one = torch.ones_like(x)
+        xmax = torch.full_like(x, self.p.x_max)
+        X = torch.cat([
+            _cat(x, t), _cat(one, zero), _cat(zero, zero), _cat(zero, one),
+            _cat(x, zero), _cat(zero, t), _cat(xmax, t),
+        ], 0)
+        return X, {"x": x, "t": t}
+
+    def loss(self, outs, ctx):
+        u_, u_x, u_xx, u_t, u_ic, ub0, ub1 = outs
+        x, t = ctx["x"], ctx["t"]
+        zero = torch.zeros_like(x)
+        xmax = torch.full_like(x, self.p.x_max)
+        r = u_t + u_ * u_x - self.p.nu * u_xx
+        r_ic = u_ic - self.p._exact_fn(x, zero)
+        r_b0 = ub0 - self.p._exact_fn(zero, t)
+        r_b1 = ub1 - self.p._exact_fn(xmax, t)
+        return _smean(torch.square(r) + torch.square(r_ic)
+                      + torch.square(r_b0) + torch.square(r_b1))
+
+
+@dataclass(frozen=True)
+class WaveSpec:
+    """u_tt = c²·u_xx with a velocity IC (equations.wave): the t=0 face
+    carries its own first-order time tangent."""
+    p: object
+    n_uniform: int = 2
+    input_dim = 2
+    kernel_id = 3
+    groups = (Group(n_second=2),            # interior: v, (x',x''), (t',t'')
+              Group(n_first=1),             # t=0 face: v, t' (velocity IC)
+              Group(), Group())             # x=0, x=x_max
+
+    def kernel_consts(self):
+        return (self.p.x_max, self.p.t_max, self.p.c ** 2,
+                self.p.velocity_weight)
+
+    def build(self, u):
+        x = self.p.x_max * u[:, :1]
+        t = self.p.t_max * u[:, 1:2]
+        zero = torch.zeros_like(x)
+        one = torch.ones_like(x)
+        xmax = torch.full_like(x, self.p.x_max)
+        X = torch.cat([
+            _cat(x, t), _cat(one, zero), _cat(zero, zero),
+            _cat(zero, one), _cat(zero, zero),
+            _cat(x, zero), _cat(zero, one),
+            _cat(zero, t), _cat(xmax, t),
+        ], 0)
+        return X, {"x": x}
+
+    def loss(self, outs, ctx):
+        u_, u_x, u_xx, u_t, u_tt, u0, u0_t, ub1, ub2 = outs
+        r = u_tt - (self.p.c ** 2) * u_xx
+        r_pos = u0 - torch.sin(ctx["x"])
+        return _smean(torch.square(r) + torch.square(r_pos)
+                      + self.p.velocity_weight * torch.square(u0_t)
+                      + torch.square(ub1) + torch.square(ub2))
+
+
+@dataclass(frozen=True)
+class PoissonSpec:
+    """−Δu = f, elliptic BVP (equations.poisson): no time axis."""
+    p: object
+    n_uniform: int = 3
+    input_dim = 2
+    kernel_id = 5
+    groups = (Group(n_second=2),                       # interior Laplacian
+              Group(), Group(), Group(), Group())      # 4 boundary faces
+
+    def kernel_consts(self):
+        return (self.p.x_max,)
+
+    def build(self, u):
+        x = self.p.x_max * u[:, :1]
+        y = self.p.x_max * u[:, 1:2]
+        e = self.p.x_max * u[:, 2:3]
+        zero = torch.zeros_like(x)
+        one = torch.ones_like(x)
+        xmax = torch.full_like(x, self.p.x_max)
+        X = torch.cat([
+            _cat(x, y), _cat(one, zero), _cat(zero, zero),
+            _cat(zero, one), _cat(zero, zero),
+            _cat(zero, e), _cat(xmax, e), _cat(e, zero), _cat(e, xmax),
+        ], 0)
+        return X, {"x": x, "y": y}
+
+    def loss(self, outs, ctx):
+        u_, u_x, u_xx, u_y, u_yy, b1, b2, b3, b4 = outs
+        src = 2.0 * torch.sin(ctx["x"]) * torch.sin(ctx["y"])
+        r = -(u_xx + u_yy) - src
+        return _smean(torch.square(r) + torch.square(b1) + torch.square(b2)
+                      + torch.square(b3) + torch.square(b4))
+
+
+@dataclass(frozen=True)
+class Heat2DSpec:
+    """u_t = κ·(u_xx + u_yy) (equations.heat2d): 11 streams, D = 3."""
+    p: object
+    n_uniform: int = 4
+    input_dim = 3
+    kernel_id = 6
+    groups = (Group(n_second=2, n_first=1),            # interior
+              Group(),                                 # t=0 face
+              Group(), Group(), Group(), Group())      # 4 boundary faces
+
+    def kernel_consts(self):
+        return (self.p.x_max, self.p.t_max, self.p.kappa)
+
+    def build(self, u):
+        x = self.p.x_max * u[:, :1]
+        y = self.p.x_max * u[:, 1:2]
+        t = self.p.t_max * u[:, 2:3]
+        e = self.p.x_max * u[:, 3:4]
+        zero = torch.zeros_like(x)
+        one = torch.ones_like(x)
+        xmax = torch.full_like(x, self.p.x_max)
+        X = torch.cat([
+            _cat(x, y, t),
+            _cat(one, zero, zero), _cat(zero, zero, zero),
+            _cat(zero, one, zero), _cat(zero, zero, zero),
+            _cat(zero, zero, one),
+            _cat(x, y, zero),
+            _cat(zero, e, t), _cat(xmax, e, t),
+            _cat(e, zero, t), _cat(e, xmax, t),
+        ], 0)
+        return X, {"x": x, "y": y}
+
+    def loss(self, outs, ctx):
+        u_, u_x, u_xx, u_y, u_yy, u_t, u0, b1, b2, b3, b4 = outs
+        r = u_t - self.p.kappa * (u_xx + u_yy)
+        r0 = u0 - torch.sin(ctx["x"]) * torch.sin(ctx["y"])
+        return _smean(torch.square(r) + torch.square(r0) + torch.square(b1)
+                      + torch.square(b2) + torch.square(b3)
+                      + torch.square(b4))
+
+
+SPECS = {
+    "simple_ode": SimpleODESpec,
+    "heat": HeatSpec,
+    "burgers": BurgersSpec,
+    "wave": WaveSpec,
+    "advection": AdvectionSpec,
+    "poisson": PoissonSpec,
+    "heat2d": Heat2DSpec,
+}
+
+
+def spec_for(problem):
+    """The stream spec for ``problem``, or None if the port has no fused
+    engine spec for it (hard constraints, volterra, uat, inverse_heat and
+    the DGM equations are not ported)."""
+    if getattr(problem, "constraint", "soft") == "hard":
+        return None
+    cls = SPECS.get(problem.name)
+    return cls(problem) if cls else None
+
+
+def supports_model(spec, model) -> bool:
+    """A plain tanh MLP D → H×L → 1 with L ≥ 1, D the spec's input width."""
+    return (isinstance(model, MLP) and model.activation == "tanh"
+            and model.input_dim == spec.input_dim and model.output_dim == 1
+            and model.num_layers >= 1)
+
+
+def supports(problem, model=None) -> bool:
+    """True if (problem, model) can train on the generic fused engine."""
+    spec = spec_for(problem)
+    if spec is None:
+        return False
+    return supports_model(spec, model or problem.default_model())
+
+
+# ---------------------------------------------------------------------------
+# The kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_model(spec, model):
+    if not supports_model(spec, model):
+        raise ValueError(f"the fused engine trains plain tanh MLPs "
+                         f"{spec.input_dim} → H×L → 1 (L ≥ 1) for "
+                         f"{spec.p.name!r}")
+
+
+def _check_inputs(spec, model, tensors, lib):
+    """Device, dtype, shape and contiguity of the flat state and uniforms,
+    the uniforms' width, and the kernel's shared memory at this width."""
+    _check_state(model, tensors)
+    U = tensors["uniforms"].shape[-1]
+    if U != spec.n_uniform:
+        raise ValueError(f"uniforms have {U} columns, the {spec.p.name!r} "
+                         f"spec draws {spec.n_uniform}")
+    H = model.hidden_size
+    engine_core.check_state_fits(lib.engine_smem_bytes(spec.kernel_id, H),
+                                 _n_rows(spec.groups), H)
+
+
+def _consts(spec):
+    vals = [float(c) for c in spec.kernel_consts()]
+    return (ctypes.c_float * _N_CONSTS)(*vals, *[0.0] * (_N_CONSTS -
+                                                         len(vals)))
+
+
+def engine_loss_grad_plain(spec, model, params, u):
+    """Plain version of :func:`engine_loss_grad`."""
+    loss, grads = engine_step_math(spec, unpack_params(model, params), u,
+                                   u.shape[0], model.num_layers)
+    return loss.reshape(()), torch.cat([g.reshape(-1) for g in grads])
+
+
+def engine_loss_grad(spec, model, params, u):
+    """One step's loss and flat gradient at flat ``params`` on ``[B,
+    spec.n_uniform]`` uniforms: the step-math launches of the training
+    kernel without the Adam update. A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel (``engine_loss_grad.launches``
+    counts the launches; the training kernel's own step-math runs are
+    counted by :func:`fused_engine_chunk`)."""
+    _check_model(spec, model)
+    if u.device.type == "cpu":
+        return engine_loss_grad_plain(spec, model, params, u)
+    lib = build.library()
+    _check_inputs(spec, model, {"params": params, "uniforms": u}, lib)
+    B, H, L = u.shape[0], model.hidden_size, model.num_layers
+    scratch = torch.empty(lib.engine_scratch_floats(spec.kernel_id, B, H, L),
+                          device=u.device)
+    grad = torch.empty_like(params)
+    loss = torch.empty((), device=u.device)
+    with torch.cuda.device(u.device):
+        code = lib.engine_grad(spec.kernel_id, _consts(spec),
+                               params.data_ptr(), u.data_ptr(),
+                               scratch.data_ptr(), grad.data_ptr(),
+                               loss.data_ptr(), B, H, L,
+                               build.stream_ptr(u.device))
+    build.check(code, "engine_grad")
+    engine_loss_grad.launches += 1
+    return loss, grad
+
+
+engine_loss_grad.launches = 0
+
+
+def fused_engine_chunk_plain(spec, model, params, m, v, uniforms, step0,
+                             lrate, *, schedule="constant", total_steps=1,
+                             decay=0.1, batch_tile=None):
+    """Plain version of :func:`fused_engine_chunk`."""
+
+    def step_math(p, u):
+        return engine_loss_grad_plain(spec, model, p, u)
+
+    return engine_core.run_fused_chunk(
+        step_math, params, m, v, uniforms, step0, lrate, schedule=schedule,
+        total_steps=total_steps, decay=decay, batch_tile=batch_tile)
+
+
+def fused_engine_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
+                       schedule="constant", total_steps=1, decay=0.1,
+                       batch_tile=None, runtime_bs=None, runtime_steps=None,
+                       const=None):
+    """Run ``K = uniforms.shape[0]`` Adam steps of ``spec``'s equation.
+    ``params``/``m``/``v`` are flat fp32 buffers; ``uniforms`` is [K, B,
+    spec.n_uniform]; ``step0`` is the absolute index of the chunk's first
+    step. ``schedule`` ("constant" | "cosine" | "exponential") sets the
+    learning rate of step t = step0 + k + 1 over the horizon
+    ``total_steps``, decaying to ``lrate · decay``.
+
+    Returns new (params, m, v, losses[K]); the inputs are left unchanged.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (``fused_engine_chunk.launches`` counts the launches, and
+    ``fused_engine_chunk.step_math_runs`` the steps whose step math the
+    kernel enqueued, as it reports them)."""
+    for name, val in (("runtime_bs", runtime_bs),
+                      ("runtime_steps", runtime_steps), ("const", const)):
+        if val is not None:
+            raise engine_core.not_ported(name)
+    _check_model(spec, model)
+    engine_core.check_schedule(schedule)
+    K, B, _ = uniforms.shape
+    check_batch_tile(B, batch_tile)
+    if uniforms.device.type == "cpu":
+        return fused_engine_chunk_plain(
+            spec, model, params, m, v, uniforms, step0, lrate,
+            schedule=schedule, total_steps=total_steps, decay=decay)
+    lib = build.library()
+    _check_inputs(spec, model, {"params": params, "m": m, "v": v,
+                                "uniforms": uniforms}, lib)
+    H, L = model.hidden_size, model.num_layers
+    p, m, v = params.clone(), m.clone(), v.clone()
+    runs = ctypes.c_int(0)
+    scratch = torch.empty(lib.engine_scratch_floats(spec.kernel_id, B, H, L),
+                          device=uniforms.device)
+    losses = torch.empty(K, device=uniforms.device)
+    with torch.cuda.device(uniforms.device):
+        code = lib.engine_train(
+            spec.kernel_id, _consts(spec), p.data_ptr(), m.data_ptr(),
+            v.data_ptr(), uniforms.data_ptr(), scratch.data_ptr(),
+            losses.data_ptr(), K, B, H, L, float(lrate), int(step0),
+            engine_core.SCHEDULES.index(schedule), float(total_steps),
+            float(decay),
+            (1.0 - decay) * 0.5, math.log(decay) if decay > 0 else -math.inf,
+            ctypes.byref(runs), build.stream_ptr(uniforms.device))
+    build.check(code, "engine_train")
+    fused_engine_chunk.launches += 1
+    fused_engine_chunk.step_math_runs += runs.value
+    return p, m, v, losses
+
+
+fused_engine_chunk.launches = 0
+fused_engine_chunk.step_math_runs = 0
+
+
+# ---------------------------------------------------------------------------
+# The training loop
+# ---------------------------------------------------------------------------
+
+
+def train_fused_result(problem, seed, iterations, batch_size=64, lrate=1e-4,
+                       chunk_size=25_000, model=None, params=None,
+                       opt_state=None, start_step: int = 0,
+                       precision: str = "highest",
+                       schedule: str | None = None, decay: float = 0.1,
+                       total_steps: int | None = None, device="cuda"):
+    """Train any spec-registered equation with the generic fused kernel;
+    returns a TrainResult whose ``params`` is the trained model (timings as
+    in ``fused_train.train_in_chunks``).
+
+    ``model`` (default: ``problem.default_model()`` initialised from
+    ``seed``) is trained in place. ``params`` (a flat buffer) replaces its
+    parameters first; ``opt_state`` ({"m", "v"} of an earlier result) and
+    ``start_step`` resume a run: step ``i`` draws its collocation points
+    from ``(seed, i)`` alone, so a resumed or chunked run equals the uncut
+    run bit for bit. ``schedule`` (None = the problem's default) decays
+    over ``total_steps`` (default ``start_step + iterations``); a run that
+    will be resumed must pass its full planned budget here."""
+    spec = spec_for(problem)
+    if spec is None:
+        raise ValueError(f"no fused-engine spec for equation "
+                         f"{problem.name!r} (available: {sorted(SPECS)})")
+    check_precision(precision)
+    device = resolve_device(device)
+    if model is None:
+        model = problem.default_model(generator=generator(seed))
+    model.to(device)
+    _check_model(spec, model)
+    kw = dict(schedule=schedule or problem.defaults.schedule,
+              total_steps=total_steps or start_step + iterations,
+              decay=decay)
+    p = pack_params(model) if params is None else params.to(device).clone()
+    if opt_state is None:
+        m, v = torch.zeros_like(p), torch.zeros_like(p)
+    else:
+        m = opt_state["m"].to(device).clone()
+        v = opt_state["v"].to(device).clone()
+
+    def run_chunk(p, m, v, u, step0):
+        return fused_engine_chunk(spec, model, p, m, v, u, step0, lrate, **kw)
+
+    def draw(start, n):
+        return step_uniforms(seed, start, n, batch_size, device,
+                             spec.n_uniform)
+
+    return train_in_chunks(model, run_chunk, draw, p, m, v, iterations,
+                           chunk_size, device, start_step)

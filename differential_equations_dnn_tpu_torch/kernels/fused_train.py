@@ -33,7 +33,7 @@ from differential_equations_dnn_tpu_torch.train.trainer import TrainResult
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 _PRECISION_TODO = ("precision={!r} is not ported yet (ROADMAP.md queue 1, "
-                   "Slice A, next: bf16 tensor-core precision modes)")
+                   "item 7: the bf16 tensor-core precision modes)")
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +265,12 @@ def heat_fused_train_chunk_plain(model, params, m, v, uniforms, step0,
     return params, m, v, torch.stack(losses)
 
 
+def check_batch_tile(B: int, batch_tile: int | None) -> None:
+    """``batch_tile`` (None: the whole batch) must divide B."""
+    if batch_tile is not None and B % batch_tile:
+        raise ValueError(f"batch {B} not divisible by batch_tile {batch_tile}")
+
+
 def heat_fused_train_chunk(model, params, m, v, uniforms, step0, lrate,
                            x_max=math.pi, t_max=3.0, kappa=1.0,
                            batch_tile: int | None = None):
@@ -280,9 +286,7 @@ def heat_fused_train_chunk(model, params, m, v, uniforms, step0, lrate,
     (``heat_fused_train_chunk.launches`` counts the launches)."""
     _check_model(model)
     K, B, _ = uniforms.shape
-    batch_tile = batch_tile or B
-    if B % batch_tile:
-        raise ValueError(f"batch {B} not divisible by batch_tile {batch_tile}")
+    check_batch_tile(B, batch_tile)
     if uniforms.device.type == "cpu":
         return heat_fused_train_chunk_plain(model, params, m, v, uniforms,
                                             step0, lrate, x_max, t_max, kappa)
@@ -330,37 +334,26 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def train_heat_fused_result(problem, seed, iterations, batch_size=64,
-                            lrate=1e-4, chunk_size=25_000, model=None,
-                            precision="highest", device="cuda"):
-    """Train the heat equation with the fused kernel; returns a TrainResult.
-
-    ``model`` (default: ``problem.default_model()`` initialised from
-    ``seed``) is trained in place and returned as ``params``. Step ``i``
-    draws its collocation points from ``(seed, i)`` alone, so the chunk
-    layout cannot change the run.
-
-    ``compile_time`` is the kernel build plus one warm-up step on copies of
-    the state; ``wall_time`` and ``iters_per_sec`` cover the training steps
-    only, ending in ``torch.cuda.synchronize()``."""
+def check_precision(precision: str) -> None:
+    """Only ``precision="highest"`` (exact fp32) is ported."""
     if precision in ("default", "mixed"):
         raise NotImplementedError(_PRECISION_TODO.format(precision))
     if precision != "highest":
         raise ValueError(f"unknown precision {precision!r}")
-    device = resolve_device(device)
-    if model is None:
-        model = problem.default_model(generator=generator(seed))
-    model.to(device)
-    _check_model(model)
-    kw = dict(x_max=problem.x_max, t_max=problem.t_max, kappa=problem.kappa)
-    p = pack_params(model)
-    m = torch.zeros_like(p)
-    v = torch.zeros_like(p)
 
+
+def train_in_chunks(model, run_chunk, draw, p, m, v, iterations, chunk_size,
+                    device, start_step=0) -> TrainResult:
+    """The fused trainers' host loop. ``run_chunk(p, m, v, u, step0)`` runs
+    the steps of ``u = draw(step0, k)`` and returns new (p, m, v, losses).
+
+    One warm-up step on copies of the state is timed as ``compile_time``
+    (the kernel build plus the first dispatch); ``wall_time`` and
+    ``iters_per_sec`` cover the training steps only, ending in
+    ``torch.cuda.synchronize()``. The trained parameters are loaded into
+    ``model``, which the result returns as ``params``."""
     t0 = time.perf_counter()
-    heat_fused_train_chunk(model, p, m, v,
-                           step_uniforms(seed, 0, 1, batch_size, device), 0,
-                           lrate, **kw)
+    run_chunk(p, m, v, draw(start_step, 1), start_step)
     _sync(device)
     compile_time = time.perf_counter() - t0
 
@@ -370,9 +363,8 @@ def train_heat_fused_result(problem, seed, iterations, batch_size=64,
     t0 = time.perf_counter()
     while done < iterations:
         k = min(chunk, iterations - done)
-        u = step_uniforms(seed, done, k, batch_size, device)
-        p, m, v, chunk_losses = heat_fused_train_chunk(model, p, m, v, u,
-                                                       done, lrate, **kw)
+        step = start_step + done
+        p, m, v, chunk_losses = run_chunk(p, m, v, draw(step, k), step)
         losses.append(chunk_losses)
         done += k
     _sync(device)
@@ -386,3 +378,33 @@ def train_heat_fused_result(problem, seed, iterations, batch_size=64,
         iters_per_sec=iterations / wall if wall else float("inf"),
         compile_time=compile_time,
     )
+
+
+def train_heat_fused_result(problem, seed, iterations, batch_size=64,
+                            lrate=1e-4, chunk_size=25_000, model=None,
+                            precision="highest", device="cuda"):
+    """Train the heat equation with the fused kernel; returns a TrainResult
+    (see :func:`train_in_chunks` for its timings).
+
+    ``model`` (default: ``problem.default_model()`` initialised from
+    ``seed``) is trained in place and returned as ``params``. Step ``i``
+    draws its collocation points from ``(seed, i)`` alone, so the chunk
+    layout cannot change the run."""
+    check_precision(precision)
+    device = resolve_device(device)
+    if model is None:
+        model = problem.default_model(generator=generator(seed))
+    model.to(device)
+    _check_model(model)
+    kw = dict(x_max=problem.x_max, t_max=problem.t_max, kappa=problem.kappa)
+    p = pack_params(model)
+
+    def run_chunk(p, m, v, u, step0):
+        return heat_fused_train_chunk(model, p, m, v, u, step0, lrate, **kw)
+
+    def draw(start, n):
+        return step_uniforms(seed, start, n, batch_size, device)
+
+    return train_in_chunks(model, run_chunk, draw, p, torch.zeros_like(p),
+                           torch.zeros_like(p), iterations, chunk_size,
+                           device)

@@ -1,0 +1,105 @@
+"""Where one Adam step's device time goes, per CUDA kernel, on the card.
+
+    python -m differential_equations_dnn_tpu_torch.kernels.profile [NAME ...]
+
+For each equation NAME (default: all seven), at its reference defaults and
+seed 0, it runs one warm-up chunk of the fused trainer of its route
+(constant-lr heat: the heat kernel; the rest: the generic engine), then
+times one chunk of K steps with CUDA events and profiles another with
+``torch.profiler``. It prints the µs per step of each kernel name (device
+time summed over the chunk, over K), the launches per step, the summed
+kernel time against the event-timed step, and the card's name and power
+limit. Needs a CUDA device.
+"""
+
+import argparse
+import re
+import subprocess
+from collections import defaultdict
+
+import torch
+
+from differential_equations_dnn_tpu_torch.core.prng import (
+    generator,
+    step_uniforms,
+)
+from differential_equations_dnn_tpu_torch.equations import PROBLEMS
+from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
+from differential_equations_dnn_tpu_torch.kernels import fused_train as ft
+
+STEPS = 200
+
+
+def _chunk_fn(name, device):
+    """A closure running STEPS steps of NAME's fused route from step 0."""
+    prob = PROBLEMS[name]()
+    d = prob.defaults
+    model = prob.default_model(generator=generator(0), device=device)
+    p = ft.pack_params(model)
+    z = torch.zeros_like(p)
+    if name == "heat" and d.schedule == "constant":
+        u = step_uniforms(0, 0, STEPS, d.batch_size, device)
+        return lambda: ft.heat_fused_train_chunk(model, p, z, z, u, 0,
+                                                 d.lrate)
+    spec = fe.spec_for(prob)
+    u = step_uniforms(0, 0, STEPS, d.batch_size, device, spec.n_uniform)
+    return lambda: fe.fused_engine_chunk(spec, model, p, z, z, u, 0, d.lrate,
+                                         schedule=d.schedule,
+                                         total_steps=d.iterations)
+
+
+def _kernel_times(prof):
+    """{kernel name: (device µs, calls)} of the profiled CUDA kernels."""
+    out = defaultdict(lambda: [0.0, 0])
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0.0)
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            found = re.search(r"\w+_kernel", ev.key)
+            short = found.group(0) if found else ev.key[:40]
+            out[short][0] += us
+            out[short][1] += ev.count
+    return out
+
+
+def profile(name, device):
+    run = _chunk_fn(name, device)
+    run()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    step_us = start.elapsed_time(end) * 1e3 / STEPS
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize(device)
+    times = _kernel_times(prof)
+    total = sum(us for us, _ in times.values()) / STEPS
+    print(f"{name}: {step_us:.2f} us/step (CUDA events, K={STEPS}); "
+          f"kernels {total:.2f} us/step under the profiler "
+          f"(share of the event-timed step {total / step_us:.3f})")
+    for kernel, (us, calls) in sorted(times.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {kernel:24s} {us / STEPS:8.2f} us/step  "
+              f"{calls / STEPS:5.2f} launches/step  "
+              f"{us / calls:7.2f} us/launch")
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("names", nargs="*", default=sorted(fe.SPECS))
+    args = parser.parse_args()
+    device = ft.resolve_device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip())
+    for name in args.names:
+        profile(name, device)
+
+
+if __name__ == "__main__":
+    main()

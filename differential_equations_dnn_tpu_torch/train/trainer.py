@@ -1,7 +1,8 @@
 """Training configuration and result records.
 
 The generic (scan) trainer of the JAX package is not ported yet (ROADMAP.md
-queue 1, item 6); the fused heat trainer (kernels.fused_train) fills these.
+queue 1, item 6); the fused trainers (kernels.fused_train, kernels.
+fused_engine) fill these.
 """
 
 from dataclasses import dataclass

@@ -26,6 +26,9 @@ from differential_equations_dnn_tpu_torch.equations import (  # noqa: E402
     Heat1D,
 )
 from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
+    fused_engine as fe,
+)
+from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
     fused_train as ft,
 )
 from differential_equations_dnn_tpu_torch.models import (  # noqa: E402
@@ -91,7 +94,7 @@ def test_solve_is_reproducible_from_its_seed():
     (dict(engine="fused", precision="mixed"), NotImplementedError, "ROADMAP"),
     (dict(engine="fused", precision="default"), NotImplementedError,
      "ROADMAP"),
-    (dict(engine="fused", schedule="cosine"), NotImplementedError, "ROADMAP"),
+    (dict(engine="fused", ensemble=2), NotImplementedError, "ROADMAP"),
     (dict(engine="turbo"), ValueError, "unknown engine"),
     (dict(engine="fused", model=MLP(2, 1, 8, 1, "relu")), ValueError,
      "tanh"),
@@ -104,8 +107,30 @@ def test_unported_options_raise(kwargs, error, match):
 
 
 def test_other_equations_raise():
-    with pytest.raises(ValueError, match="available"):
-        solve("wave", engine="fused", device="cpu")
+    with pytest.raises(ValueError, match="available.*ROADMAP"):
+        solve("fredholm", engine="fused", device="cpu")
+
+
+def test_heat_with_a_decay_schedule_takes_the_engine(monkeypatch):
+    """Heat with ``schedule="cosine"`` trains on the generic engine (the
+    heat kernel is constant-lr only); constant-lr heat stays on it."""
+    calls = []
+    real = fe.fused_engine_chunk
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs["schedule"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(fe, "fused_engine_chunk", spy)
+    res = solve("heat", engine="fused", device="cpu", iterations=6,
+                batch_size=8, nodes=5, schedule="cosine",
+                model=_small_model())
+    assert calls and set(calls) == {"cosine"}
+    assert res.loss_history.shape == (6,)
+    calls.clear()
+    solve("heat", engine="fused", device="cpu", iterations=2, batch_size=8,
+          nodes=5, model=_small_model())
+    assert not calls
 
 
 def test_missing_gpu_raises(monkeypatch):

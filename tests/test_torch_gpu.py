@@ -16,7 +16,15 @@ from differential_equations_dnn_tpu_torch.core import (  # noqa: E402
     step_uniforms,
 )
 from differential_equations_dnn_tpu_torch.equations import (  # noqa: E402
+    PROBLEMS,
     Heat1D,
+)
+from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
+    build,
+    engine_core,
+)
+from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
+    fused_engine as fe,
 )
 from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
     fused_train as ft,
@@ -106,3 +114,85 @@ def test_solve_goes_through_both_kernels(cuda):
     assert ft.heat_fused_train_chunk.launches >= 1
     assert res.loss_history[-1] < res.loss_history[0] / 10
     assert res.device == torch.cuda.get_device_name(0)
+
+
+@pytest.mark.parametrize("name", sorted(fe.SPECS))
+def test_engine_kernels_match_plain(cuda, name):
+    """Each spec at its equation's default shapes: one step's loss to rtol
+    1e-5 and each gradient tensor to 1e-5 of its largest entry (fp32
+    reassociation of R·B-row sums); 20 Adam steps from step0=100 under a
+    decaying schedule, losses to rtol 1e-4 and parameters to rtol 1e-4
+    plus 2·lr (a gradient within rounding of zero can move a parameter by
+    up to 2·lr). The kernel's chunked run equals its uncut run bit for
+    bit."""
+    prob = PROBLEMS[name]()
+    spec = fe.spec_for(prob)
+    model = prob.default_model(generator=generator(0), device=cuda)
+    p = ft.pack_params(model)
+    u = step_uniforms(0, 100, 20, prob.defaults.batch_size, cuda,
+                      spec.n_uniform)
+    loss_k, grad_k = fe.engine_loss_grad(spec, model, p, u[0])
+    loss_p, grad_p = fe.engine_loss_grad_plain(spec, model, p, u[0])
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+    for gk, gp in zip(ft.unpack_params(model, grad_k),
+                      ft.unpack_params(model, grad_p)):
+        torch.testing.assert_close(gk, gp, rtol=1e-4,
+                                   atol=1e-5 * float(gp.abs().max()))
+    lr = prob.defaults.lrate
+    kw = dict(schedule="exponential" if name == "burgers" else "cosine",
+              total_steps=500)
+    z = torch.zeros_like(p)
+    pk, mk, vk, lk = fe.fused_engine_chunk(spec, model, p, z, z, u, 100, lr,
+                                           **kw)
+    pp, _, _, lp = fe.fused_engine_chunk_plain(spec, model, p, z, z, u, 100,
+                                               lr, **kw)
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=2 * lr)
+    p2, m2, v2, l2 = fe.fused_engine_chunk(spec, model, p, z, z, u[:7], 100,
+                                           lr, **kw)
+    p2, m2, v2, l2b = fe.fused_engine_chunk(spec, model, p2, m2, v2, u[7:],
+                                            107, lr, **kw)
+    assert torch.equal(torch.cat([l2, l2b]), lk) and torch.equal(p2, pk)
+    assert torch.equal(m2, mk) and torch.equal(v2, vk)
+
+
+@pytest.mark.parametrize("name, schedule, route", [
+    ("heat", "constant", "heat"), ("heat", "cosine", "engine"),
+    ("wave", None, "engine"),
+])
+def test_solve_routes_launch_their_kernels(cuda, name, schedule, route):
+    """A short ``solve`` per route launches that route's kernels, and only
+    those, and trains."""
+    counters = (taylor_mlp.mlp_forward, ft.heat_fused_train_chunk,
+                fe.fused_engine_chunk, fe.engine_loss_grad)
+    for fn in counters:
+        fn.launches = 0
+    fe.fused_engine_chunk.step_math_runs = 0
+    res = solve(name, engine="fused", iterations=300, lrate=1e-3,
+                schedule=schedule)
+    assert taylor_mlp.mlp_forward.launches == 1
+    heat, engine = (ft.heat_fused_train_chunk.launches,
+                    fe.fused_engine_chunk.launches)
+    assert (heat > 0, engine > 0) == (route == "heat", route == "engine")
+    # The step math runs inside the training kernel, once per step
+    # (warm-up + 300); the one-step kernel is not on the path.
+    runs = fe.fused_engine_chunk.step_math_runs
+    assert runs == (301 if route == "engine" else 0)
+    assert fe.engine_loss_grad.launches == 0
+    assert res.loss_history[-1] < res.loss_history[0]
+
+
+def test_engine_smem_rule(cuda):
+    """The library's shared memory per block fits the H100 at H=128 for
+    every spec and does not at H=256 for heat2d's 11 streams, where the
+    wrapper raises before launching."""
+    lib = build.library()
+    for spec in fe.SPECS.values():
+        assert 0 < lib.engine_smem_bytes(spec.kernel_id, 128) \
+            <= engine_core.SMEM_LIMIT
+    assert lib.engine_smem_bytes(99, 128) == -1
+    wide = MLP(3, 1, 256, 1, "tanh").to(cuda)
+    p = ft.pack_params(wide)
+    with pytest.raises(ValueError, match="shared memory"):
+        fe.engine_loss_grad(fe.spec_for(PROBLEMS["heat2d"]()), wide, p,
+                            torch.rand(4, 4, device=cuda))
