@@ -14,14 +14,17 @@ Phases (each raises on failure, so any failure exits non-zero):
 3. kernels  — each kernel against its plain PyTorch version on the card, on
               the same inputs at the main paths' shapes, with the tolerance
               stated beside each check; both timed with CUDA events. The
-              generic engine runs at each of its 7 specs' default shapes.
+              generic engine runs at each of its 7 specs' default shapes,
+              the DGM engine at FitzHugh–Nagumo's and Fredholm's.
 4. solve    — each main path through ``solve(..., engine="fused")`` at its
               equation's reference defaults (seed 0): constant-lr heat on
               the heat kernel, heat with a cosine schedule and the six other
-              equations on the generic engine. Each: a finite loss history
-              of the right length, a finite solution of the problem's
-              shape, MAE under its bound, and its kernels launched by that
-              run (counts set to 0 just before it and read just after).
+              MLP equations on the generic engine, FitzHugh–Nagumo (150 000
+              steps) and Fredholm on the DGM engine. Each: a finite loss
+              history of the right length, a finite solution of the
+              problem's shape, MAE under its bound, and its kernels
+              launched by that run (counts set to 0 just before it and read
+              just after).
 5. result   — a JSON line of the kernels, then as the last line
               {"ok": true, "device": {...}}.
 """
@@ -45,13 +48,17 @@ FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores
 HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 ENGINE = ["simple_ode", "heat", "burgers", "wave", "advection", "poisson",
           "heat2d"]
+DGM = ["fitzhugh_nagumo", "fredholm"]
 # (equation, schedule or None for its default, MAE bound). The bounds are
 # the JAX package's TPU smoke bounds (benchmarks/smoke_tpu.py); heat's
-# 0.05 is the reference's published 0.0529 at this budget (BASELINE.md).
+# 0.05 is the reference's published 0.0529 at this budget, and
+# FitzHugh–Nagumo's 0.0088 and Fredholm's 0.0134 are the reference's
+# published MAEs (BASELINE.md).
 SOLVES = [("heat", None, 0.05), ("heat", "cosine", 0.05),
           ("simple_ode", None, 0.01), ("burgers", None, 0.05),
           ("wave", None, 0.05), ("advection", None, 0.05),
-          ("poisson", None, 0.05), ("heat2d", None, 0.05)]
+          ("poisson", None, 0.05), ("heat2d", None, 0.05),
+          ("fitzhugh_nagumo", None, 0.0088), ("fredholm", None, 0.0134)]
 
 
 def cuda_ms(fn, reps=REPS):
@@ -115,6 +122,21 @@ def grad_bound(R, B, D, H, L, U):
     written once."""
     n = n_params(D, H, L)
     return bound(step_flops(R, B, D, H, L), 4 * (2 * n + B * U + 1))
+
+
+def dgm_step_flops(R, B, H, L, O):
+    """One DGM step (D = 1): the gate and H products forward, their weight
+    and data gradients backward, the input and output layers; 2 flops per
+    multiply-add, the elementwise stream rules not counted."""
+    N = R * B
+    fwd = 2 * N * (H + L * (3 * H * H + 3 * H + H * H + H) + H * O)
+    bwd = 2 * N * (L * ((H + 1) * 3 * H + (H + 1) * H + H * H + 3 * H * H)
+                   + 2 * H * O + H)
+    return fwd + bwd
+
+
+def dgm_n_params(H, L, O):
+    return 2 * H + L * (4 * H * H + 8 * H) + H * O + O
 
 
 def phase_device():
@@ -323,10 +345,98 @@ def check_engine_kernels(name):
     return grad_row, chunk_row
 
 
+def check_dgm_kernels(name):
+    """Kernels #7 and #4 (the DGM layout) at one DGM equation's default
+    shapes. Returns the rows of the two kernels."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import (
+        generator,
+        step_uniforms,
+    )
+    from differential_equations_dnn_tpu_torch.equations import PROBLEMS
+    from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
+
+    dev = torch.device("cuda")
+    prob = PROBLEMS[name]()
+    d = prob.defaults
+    B = d.batch_size
+    spec = fd.spec_for(prob, B)
+    const = fd.const_for(spec, prob, B, dev)
+    model = prob.default_model(generator=generator(1), device=dev)
+    R, _ = fd._layout(spec)
+    H, L, O = model.hidden_size, model.num_layers, model.output_dim
+    n = dgm_n_params(H, L, O)
+    n_const = 0 if const is None else const.numel()
+    shape = f"R={R}, B={B}, H={H}, L={L}, O={O}, {spec.act}"
+
+    # One step's loss and gradient. Tolerance: fp32 reassociation of the
+    # R·B-row sums; the loss to rtol 1e-5, each gradient tensor to 1e-5 of
+    # its own largest entry.
+    p = fd.pack_dgm(model)
+    u = step_uniforms(0, STEP0, CHUNK_STEPS, B, dev, spec.n_uniform)
+    loss_k, grad_k = fd.dgm_loss_grad(spec, model, p, u[0], const)
+    loss_p, grad_p = fd.dgm_loss_grad_plain(spec, model, p, u[0], const)
+    check_close(f"{name} step loss", loss_k, loss_p, rtol=1e-5, atol=0.0)
+    for part, gk, gp in zip(("w_in", "b_in", "Wzgr", "Uzgr", "bzgr", "Wh",
+                             "Uh", "bh", "w_out", "b_out"),
+                            fd.unpack_dgm(model, grad_k),
+                            fd.unpack_dgm(model, grad_p)):
+        check_close(f"{name} grad {part}", gk, gp, rtol=1e-4,
+                    atol=1e-5 * float(gp.abs().max()))
+    ms = cuda_ms(lambda: fd.dgm_loss_grad(spec, model, p, u[0], const))
+    plain_ms = cuda_ms(lambda: fd.dgm_loss_grad_plain(spec, model, p, u[0],
+                                                      const))
+    grad_row = dict(
+        name="dgm_loss_grad", route="cuda",
+        source=f"{PKG}/csrc/dgm_train.cu",
+        replaces=f"{JAX_KERNELS}/fused_dgm.py:197",
+        max_abs_err=max(max_abs(loss_k, loss_p), max_abs(grad_k, grad_p)),
+        ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(dgm_step_flops(R, B, H, L, O),
+                4 * (2 * n + B + n_const + 1)))
+    print(f"{name} dgm_loss_grad [{shape}]: loss {float(loss_k):.6g} vs "
+          f"{float(loss_p):.6g}, max|dgrad| {max_abs(grad_k, grad_p):.3g}; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+    # K Adam steps from STEP0 under a cosine schedule over HORIZON steps
+    # (lr 0.55-0.23 of constant across the chunk, so a kernel that got the
+    # schedule wrong fails), with Fredholm's const. Tolerances as for the
+    # engine chunks: losses rtol 1e-4; parameters rtol 1e-4 plus 2·lr.
+    lr = d.lrate
+    kw = dict(const=const, schedule="cosine", total_steps=HORIZON)
+    zeros = torch.zeros_like(p)
+    pk, mk, vk, lk = fd.fused_dgm_chunk(spec, model, p, zeros, zeros, u,
+                                        STEP0, lr, **kw)
+    pp, mp, vp, lp = fd.fused_dgm_chunk_plain(spec, model, p, zeros, zeros,
+                                              u, STEP0, lr, **kw)
+    check_close(f"{name} chunk losses", lk, lp, rtol=1e-4, atol=0.0)
+    check_close(f"{name} chunk params", pk, pp, rtol=1e-4, atol=2 * lr)
+    ms = cuda_ms(lambda: fd.fused_dgm_chunk(spec, model, p, zeros, zeros, u,
+                                            STEP0, lr, **kw))
+    plain_ms = cuda_ms(lambda: fd.fused_dgm_chunk_plain(
+        spec, model, p, zeros, zeros, u, STEP0, lr, **kw), reps=PLAIN_REPS)
+    chunk_row = dict(
+        name="fused_dgm_chunk", route="cuda",
+        source=f"{PKG}/csrc/dgm_train.cu",
+        replaces=f"{JAX_KERNELS}/engine_core.py:48",
+        max_abs_err=max(max_abs(lk, lp), max_abs(pk, pp)), ms=ms,
+        plain_ms=plain_ms, library_ms=None,
+        **bound(CHUNK_STEPS * (dgm_step_flops(R, B, H, L, O) + 12 * n),
+                4 * (6 * n + CHUNK_STEPS * B + CHUNK_STEPS + n_const)))
+    print(f"{name} fused_dgm_chunk [K={CHUNK_STEPS}, cosine]: max|dloss| "
+          f"{max_abs(lk, lp):.3g}, max|dparam| {max_abs(pk, pp):.3g}; kernel "
+          f"{ms:.4f} ms ({ms / CHUNK_STEPS * 1e3:.1f} us/step), plain "
+          f"{plain_ms:.4f} ms ({plain_ms / CHUNK_STEPS * 1e3:.1f} us/step); "
+          f"bound {chunk_row['bound_ms']:.4f} ms ({chunk_row['bound_by']})")
+    return grad_row, chunk_row
+
+
 def phase_kernels():
     """Each kernel against its plain version at the main paths' shapes.
     Returns the JSON rows: #2 and #1 at the heat shapes, #6 and #4 at the
-    widest spec (heat2d)."""
+    widest spec (heat2d), #7 and #4 at the DGM layout at the widest DGM
+    equation (FitzHugh–Nagumo)."""
     import torch
 
     from differential_equations_dnn_tpu_torch.core.prng import generator
@@ -338,29 +448,38 @@ def phase_kernels():
     rows = check_heat_kernels(model, prob)
     for name in ENGINE:
         engine_rows = check_engine_kernels(name)
-    return rows + list(engine_rows)
+    dgm_rows = [check_dgm_kernels(name) for name in DGM][0]
+    return rows + list(engine_rows) + list(dgm_rows)
 
 
 def wrappers():
+    from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
     from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
     from differential_equations_dnn_tpu_torch.kernels import fused_train as ft
     from differential_equations_dnn_tpu_torch.kernels import taylor_mlp as tm
 
     return [tm.mlp_forward, ft.heat_fused_train_chunk, fe.fused_engine_chunk,
-            fe.engine_loss_grad]
+            fe.engine_loss_grad, fd.fused_dgm_chunk, fd.dgm_loss_grad]
+
+
+# The training wrappers that report their step-math runs (#6, #7).
+STEP_MATH = {"engine_step_math": 2, "dgm_step_math": 4}
 
 
 def reset_counts():
     for fn in wrappers():
         fn.launches = 0
-    wrappers()[2].step_math_runs = 0
+    for index in STEP_MATH.values():
+        wrappers()[index].step_math_runs = 0
 
 
 def read_counts():
-    """Each wrapper's launches, and ``engine_step_math``: the steps whose
-    step math (#6) ``engine_train`` enqueued, as the library reports them."""
+    """Each wrapper's launches, and ``engine_step_math`` /
+    ``dgm_step_math``: the steps whose step math (#6, #7) ``engine_train``
+    / ``dgm_train`` enqueued, as the library reports them."""
     counts = {fn.__name__: fn.launches for fn in wrappers()}
-    counts["engine_step_math"] = wrappers()[2].step_math_runs
+    for counter, index in STEP_MATH.items():
+        counts[counter] = wrappers()[index].step_math_runs
     return counts
 
 
@@ -397,7 +516,8 @@ def solve_once(name, schedule, mae_bound):
     if not res.mae <= mae_bound:
         raise AssertionError(f"{label}: MAE {res.mae} above {mae_bound}")
     on_heat = name == "heat" and (schedule or d.schedule) == "constant"
-    path = (["mlp_forward", "heat_fused_train_chunk"] if on_heat else
+    path = (["fused_dgm_chunk", "dgm_step_math"] if name in DGM else
+            ["mlp_forward", "heat_fused_train_chunk"] if on_heat else
             ["mlp_forward", "fused_engine_chunk", "engine_step_math"])
     for kernel in path:
         if launches[kernel] <= 0:
@@ -420,20 +540,26 @@ def main():
     rows = phase_kernels()
     launches = phase_solve()
     # Launches from each kernel's own path: #2 and #1 from constant-lr
-    # heat, #6 and #4 from heat2d (the shape of their rows). On the main
-    # path #6 runs inside #4's launches, once per step: its row counts
-    # those runs, as engine_train reports them.
+    # heat, #6 and #4 from heat2d, #7 and #4 at the DGM layout from
+    # FitzHugh–Nagumo (the shapes of their rows). On the main path #6 and
+    # #7 run inside #4's launches, once per step: their rows count those
+    # runs, as engine_train and dgm_train report them.
     source = {"mlp_forward": ("heat", None, "mlp_forward"),
               "heat_fused_train_chunk": ("heat", None,
                                          "heat_fused_train_chunk"),
               "engine_loss_grad": ("heat2d", None, "engine_step_math"),
-              "fused_engine_chunk": ("heat2d", None, "fused_engine_chunk")}
+              "fused_engine_chunk": ("heat2d", None, "fused_engine_chunk"),
+              "dgm_loss_grad": ("fitzhugh_nagumo", None, "dgm_step_math"),
+              "fused_dgm_chunk": ("fitzhugh_nagumo", None,
+                                  "fused_dgm_chunk")}
+    inside = {"engine_step_math": "fused_engine_chunk",
+              "dgm_step_math": "fused_dgm_chunk"}
     for row in rows:
         name, schedule, counter = source[row["name"]]
         row["launches"] = launches[(name, schedule)][counter]
         if counter != row["name"]:
-            row["launches_counted_as"] = ("step-math runs inside "
-                                          "fused_engine_chunk")
+            row["launches_counted_as"] = (f"step-math runs inside "
+                                          f"{inside[counter]}")
         if not all(math.isfinite(row[k]) for k in ("max_abs_err", "ms",
                                                    "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite measurement in {row}")

@@ -4,14 +4,17 @@
 It imports ``torch`` and never ``jax``. The JAX package beside it is the
 reference the port is tested against. Ported so far: the fused training
 paths, ``solve(name, engine="fused")`` for simple_ode, heat, burgers, wave,
-advection, poisson and heat2d, through hand-written CUDA kernels (csrc/):
-the constant-lr heat trainer, the generic spec engine with its lr
-schedules, and the MLP forward used for grid evaluation.
+advection, poisson, heat2d, fitzhugh_nagumo and fredholm, through
+hand-written CUDA kernels (csrc/): the constant-lr heat trainer, the
+generic spec engine with its lr schedules, the DGM engine, and the MLP
+forward used for grid evaluation.
 
 * ``core``       — fp32 policy, activations, initializers, step-keyed draws
-* ``models``     — the plain MLP (``nn.Module``) and JAX parameter import
-* ``ops``        — forward-mode taps (torch.func.jvp) and Taylor streams
-* ``equations``  — the seven problems (residuals, grids, exact solutions)
+* ``models``     — the plain MLP and the DGM (``nn.Module``s), JAX
+                   parameter import
+* ``ops``        — forward-mode taps (torch.func.jvp), Taylor streams,
+                   Gauss–Legendre quadrature, the grid subsampler
+* ``equations``  — the nine problems (residuals, grids, exact solutions)
 * ``train``      — result records and the MAE metric
 * ``kernels``    — the CUDA kernels' wrappers, plain versions and build
 """

@@ -17,7 +17,10 @@ from differential_equations_dnn_tpu_torch.equations import (
     Problem,
     get_problem,
 )
-from differential_equations_dnn_tpu_torch.kernels import fused_engine
+from differential_equations_dnn_tpu_torch.kernels import (
+    fused_dgm,
+    fused_engine,
+)
 from differential_equations_dnn_tpu_torch.kernels.fused_train import (
     resolve_device,
     train_heat_fused_result,
@@ -47,11 +50,32 @@ class SolveResult:
                 f"{self.iters_per_sec:.0f} iters/s on {self.device})")
 
 
-def _fused_route(problem, model, schedule="constant") -> str:
+_ENSEMBLE_TODO = ("is not ported yet (ROADMAP.md queue 1, item 12: the "
+                  "packed-replica trainers, kernel #5, and the L-BFGS polish)")
+
+
+def _auto_defaults(problem, model) -> tuple[int, int]:
+    """(ensemble, finetune) used when the caller leaves them ``None``, as
+    the JAX package picks them: FitzHugh–Nagumo's DGM arch with causal
+    weighting turned off (``causal_eps=0``, the reference's multi-stable
+    training) gets a 16-replica ensemble and a 200-step L-BFGS polish;
+    everything else (causal FitzHugh–Nagumo included) trains one run,
+    unpolished."""
+    if model is not None:
+        return 0, 0
+    if (problem.name == "fitzhugh_nagumo"
+            and getattr(problem, "arch", None) == "dgm"
+            and getattr(problem, "causal_eps", 0.0) <= 0.0):
+        return 16, 200
+    return 0, 0
+
+
+def _fused_route(problem, model, schedule="constant", batch_size=None) -> str:
     """Which fused engine trains (problem, model): "heat" (the specialised
-    constant-lr heat kernel, kernels.fused_train) or "engine" (the generic
-    spec engine, kernels.fused_engine). Raises, naming the ROADMAP item,
-    for what the port does not run yet."""
+    constant-lr heat kernel, kernels.fused_train), "dgm" (the DGM engine,
+    kernels.fused_dgm) or "engine" (the generic spec engine,
+    kernels.fused_engine). Raises, naming the ROADMAP item, for what the
+    port does not run yet."""
     if getattr(problem, "constraint", "soft") == "hard":
         raise NotImplementedError(
             f"{problem.name!r} with constraint='hard' is not ported yet "
@@ -61,6 +85,26 @@ def _fused_route(problem, model, schedule="constant") -> str:
         raise NotImplementedError(
             f"the fused engine for {problem.name!r} is not ported yet "
             f"(ROADMAP.md {NOT_PORTED[problem.name]})")
+    dgm_spec = fused_dgm.spec_for(problem, batch_size)
+    if dgm_spec is not None:
+        if fused_dgm.supports_model(dgm_spec, model):
+            return "dgm"
+        raise ValueError(
+            f"{problem.name!r}'s fused path is the DGM engine, which needs "
+            f"a DGM 1 → H×L → {dgm_spec.output_dim} with {dgm_spec.act!r} "
+            f"gates (got {type(model).__name__}); pass model=None for the "
+            f"default")
+    if problem.name == "fredholm":
+        raise NotImplementedError(
+            "fredholm's fused path is the DGM engine, which needs "
+            "quadrature='gauss'; the montecarlo and halton modes are not "
+            "ported yet (ROADMAP.md queue 1, item 11: the DGM engine's "
+            "Monte-Carlo and Halton quadrature)")
+    if problem.name == "fitzhugh_nagumo":
+        raise NotImplementedError(
+            "fitzhugh_nagumo's fused path is the DGM engine, which needs "
+            "arch='dgm'; the fourier_mlp arch is not ported yet (ROADMAP.md "
+            "queue 1, item 13: Fourier-feature MLPs)")
     spec = fused_engine.spec_for(problem)  # raises for causal advection
     if spec is None:
         raise ValueError(f"no fused-engine spec for equation "
@@ -80,20 +124,26 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
           nodes: int | None = None, seed: int = 0, model=None,
           engine: str = "scan", precision: str = "highest",
           schedule: str | None = None, ensemble: int | None = None,
-          device="cuda", **problem_kwargs) -> SolveResult:
+          finetune: int | None = None, device="cuda",
+          **problem_kwargs) -> SolveResult:
     """Train a network on ``equation`` and validate against its ground truth.
 
     ``equation`` is a registry name (simple_ode, heat, burgers, wave,
-    advection, poisson, heat2d) or a Problem instance. Unset
-    hyperparameters default to the reference's published configuration.
-    ``engine="fused"`` trains inside the hand-written CUDA kernels:
-    constant-lr heat on the specialised heat kernel, everything else on the
-    generic spec engine; the generic ``"scan"`` trainer is not ported yet.
-    ``schedule`` ("constant" | "cosine" | "exponential") overrides the
-    equation's default lr schedule. ``model`` (a plain tanh MLP, default
+    advection, poisson, heat2d, fitzhugh_nagumo, fredholm) or a Problem
+    instance. Unset hyperparameters default to the reference's published
+    configuration. ``engine="fused"`` trains inside the hand-written CUDA
+    kernels: constant-lr heat on the specialised heat kernel, the DGM
+    equations (fitzhugh_nagumo, fredholm) on the DGM engine, everything
+    else on the generic spec engine; the generic ``"scan"`` trainer is not
+    ported yet. ``schedule`` ("constant" | "cosine" | "exponential")
+    overrides the equation's default lr schedule. ``model`` (default
     ``problem.default_model()`` initialised from ``seed``) is trained in
-    place. ``device`` defaults to "cuda" and raises without a GPU; "cpu"
-    runs the kernels' plain PyTorch versions.
+    place. ``ensemble`` and ``finetune`` (None = the JAX package's
+    automatic choice) are not ported: a value above 0 raises, and so does
+    FitzHugh–Nagumo with ``causal_eps=0``, for which the JAX package picks
+    a 16-replica ensemble and an L-BFGS polish. ``device`` defaults to
+    "cuda" and raises without a GPU; "cpu" runs the kernels' plain PyTorch
+    versions.
     """
     problem = (get_problem(equation, **problem_kwargs)
                if isinstance(equation, str) else equation)
@@ -112,14 +162,24 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
         lrate=lrate if lrate is not None else d.lrate,
         schedule=schedule if schedule is not None else d.schedule,
     )
-    if ensemble is not None and ensemble > 1:
-        raise NotImplementedError(
-            "ensemble is not ported yet (ROADMAP.md queue 1, item 12: the "
-            "packed-replica trainers, kernel #5)")
+    if ensemble is None or finetune is None:
+        auto_ens, auto_ft = _auto_defaults(problem, model)
+        if (ensemble, finetune) == (None, None) and auto_ens > 1:
+            raise NotImplementedError(
+                f"{problem.name!r} with causal_eps=0 trains a {auto_ens}-"
+                f"replica ensemble with a {auto_ft}-step L-BFGS polish, "
+                f"which {_ENSEMBLE_TODO}; pass ensemble=0, finetune=0 for "
+                f"one unpolished run")
+        ensemble = auto_ens if ensemble is None else ensemble
+        finetune = auto_ft if finetune is None else finetune
+    if ensemble > 1:
+        raise NotImplementedError(f"ensemble {_ENSEMBLE_TODO}")
+    if finetune > 0:
+        raise NotImplementedError(f"finetune {_ENSEMBLE_TODO}")
     nodes = nodes if nodes is not None else d.nodes
     if model is None:
         model = problem.default_model(generator=generator(seed))
-    route = _fused_route(problem, model, config.schedule)
+    route = _fused_route(problem, model, config.schedule, config.batch_size)
 
     common = dict(batch_size=config.batch_size, lrate=config.lrate,
                   chunk_size=config.chunk_size, model=model,
@@ -127,6 +187,10 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
     if route == "heat":
         result = train_heat_fused_result(problem, seed, config.iterations,
                                          **common)
+    elif route == "dgm":
+        result = fused_dgm.train_dgm_fused_result(
+            problem, seed, config.iterations, schedule=config.schedule,
+            **common)
     else:
         result = fused_engine.train_fused_result(
             problem, seed, config.iterations, schedule=config.schedule,

@@ -27,6 +27,7 @@
 //   bwd_weight x (L+2)  dW = act(z)^T dz and db, one partial per stream
 //   bwd_data   x (L+1)  g = dz W^T, then the group-generic Taylor VJP
 //   adam       x 1      sums the R partials in stream order, lr(t), Adam
+//                       (adam.cuh, shared with dgm_train.cu)
 // p, m and v are each one flat fp32 buffer (L2-resident at these sizes).
 // Every reduction runs in a fixed order with no atomics, so runs are
 // bit-identical and a run cut into chunks equals the uncut run. Every
@@ -38,9 +39,14 @@
 #include <algorithm>
 #include <cmath>
 
+#include "adam.cuh"
 #include "common.cuh"
 
 namespace {
+
+using dednn::adam_kernel;
+using dednn::Schedule;
+using dednn::sum_partials_kernel;
 
 constexpr int kTile = 32;          // bwd_weight: 32 x 32 outputs per block
 constexpr int kSplitWarps = 8;     // fwd_layer, bwd_data: warps per block
@@ -49,14 +55,6 @@ constexpr int kColsPerWarp = 32 * kColsPerLane;
 constexpr int kLossThreads = 1024;
 constexpr int kAdamThreads = 256;
 constexpr int kMaxConsts = 8;
-
-constexpr float kB1 = 0.9f, kB2 = 0.999f, kEps = 1e-8f;
-// As the JAX package rounds them: 1 - b in double, then to fp32.
-constexpr float kOneMinusB1 = static_cast<float>(1.0 - 0.9);
-constexpr float kOneMinusB2 = static_cast<float>(1.0 - 0.999);
-constexpr float kLogB1 = static_cast<float>(-0.10536051565782628);
-constexpr float kLogB2 = static_cast<float>(-0.0010005003335835344);
-constexpr float kPi = static_cast<float>(3.14159265358979323846);
 
 // The spec's numbers (fused_engine.<Spec>.kernel_consts), passed by value.
 struct Consts {
@@ -649,51 +647,6 @@ __global__ void bwd_data_kernel(const float* __restrict__ dz, int k_out,
     }
     __syncthreads();  // part_s is rewritten for the next k0
   }
-}
-
-// grad = the sum of the R per-stream partials, in stream order.
-__global__ void sum_partials_kernel(const float* __restrict__ partials, int R,
-                                    int n, float* __restrict__ grad) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float sum = partials[i];
-  for (int s = 1; s < R; ++s) sum += partials[static_cast<size_t>(s) * n + i];
-  grad[i] = sum;
-}
-
-// The learning-rate schedule of fused_adam_kernel (engine_core.py:128-151).
-struct Schedule {
-  int kind;         // 0 constant, 1 cosine, 2 exponential
-  float horizon;    // total_steps
-  float decay;      // lr decays to lr * decay
-  float half_span;  // (1 - decay) / 2, rounded from double
-  float log_decay;  // log(decay), rounded from double
-};
-
-// Adam with torch defaults on the summed partial gradients; t is the
-// 1-indexed global step, lr(t) the schedule's rate at that step.
-__global__ void adam_kernel(float* __restrict__ p, float* __restrict__ m,
-                            float* __restrict__ v,
-                            const float* __restrict__ partials, int R, int n,
-                            float lr, float t, Schedule sched) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float lr_t = lr;
-  if (sched.kind == 1) {
-    const float frac = fminf((t - 1.0f) / sched.horizon, 1.0f);
-    lr_t = lr * (sched.decay + sched.half_span * (1.0f + cosf(kPi * frac)));
-  } else if (sched.kind == 2) {
-    lr_t = lr * expf(((t - 1.0f) / sched.horizon) * sched.log_decay);
-  }
-  const float c1 = 1.0f - expf(t * kLogB1);
-  const float c2 = 1.0f - expf(t * kLogB2);
-  float gi = partials[i];
-  for (int s = 1; s < R; ++s) gi += partials[static_cast<size_t>(s) * n + i];
-  const float mi = kB1 * m[i] + kOneMinusB1 * gi;
-  const float vi = kB2 * v[i] + kOneMinusB2 * (gi * gi);
-  m[i] = mi;
-  v[i] = vi;
-  p[i] = p[i] - lr_t * (mi / c1) / (sqrtf(vi / c2) + kEps);
 }
 
 // ---------------------------------------------------------------------------

@@ -6,6 +6,10 @@ from differential_equations_dnn_tpu_torch.equations.base import (
     TrainDefaults,
 )
 from differential_equations_dnn_tpu_torch.equations.burgers import Burgers
+from differential_equations_dnn_tpu_torch.equations.fitzhugh_nagumo import (
+    FitzHughNagumo,
+)
+from differential_equations_dnn_tpu_torch.equations.fredholm import Fredholm2
 from differential_equations_dnn_tpu_torch.equations.heat import Heat1D
 from differential_equations_dnn_tpu_torch.equations.heat2d import Heat2D
 from differential_equations_dnn_tpu_torch.equations.poisson import Poisson2D
@@ -22,12 +26,12 @@ PROBLEMS = {
     "wave": Wave1D,
     "advection": Advection1D,
     "poisson": Poisson2D,
+    "fredholm": Fredholm2,
+    "fitzhugh_nagumo": FitzHughNagumo,
 }
 
 # Equations of the JAX package that the port does not have yet.
 NOT_PORTED = {
-    "fredholm": "queue 1, item 11: the DGM engine",
-    "fitzhugh_nagumo": "queue 1, item 11: the DGM engine",
     "volterra": "queue 1, item 10b: volterra with ops/quad.py",
     "uat": "queue 1, item 10c: uat with models/perceptron.py",
     "inverse_heat": "queue 1, item 10d: inverse_heat with extra_shapes",
@@ -49,4 +53,5 @@ def get_problem(name: str, **kwargs) -> Problem:
 
 __all__ = ["PROBLEMS", "NOT_PORTED", "Problem", "TrainDefaults",
            "SimpleODE", "Heat1D", "Heat2D", "Burgers", "Wave1D",
-           "Advection1D", "Poisson2D", "get_problem"]
+           "Advection1D", "Poisson2D", "Fredholm2", "FitzHughNagumo",
+           "get_problem"]

@@ -12,8 +12,8 @@ A Problem bundles, for one differential equation:
 * ``defaults``             — reference iteration budget / batch size / lr
 
 ``evaluate`` runs the whole grid through the MLP-forward kernel
-(kernels.taylor_mlp.mlp_forward) and ``mae`` is the reference's acceptance
-metric (sklearn.mean_absolute_error, heat.py:232).
+(kernels.taylor_mlp.mlp_forward), or a DGM's own forward, and ``mae`` is
+the reference's acceptance metric (sklearn.mean_absolute_error, heat.py:232).
 """
 
 from dataclasses import dataclass
@@ -93,10 +93,14 @@ class Problem:
         from differential_equations_dnn_tpu_torch.kernels.taylor_mlp import (
             mlp_forward,
         )
+        from differential_equations_dnn_tpu_torch.models import DGM
 
-        device = model.fc_in.w.device
+        device = next(model.parameters()).device
         with torch.no_grad():
-            y = mlp_forward(model, self.grid_inputs(nodes, device=device))
+            x = self.grid_inputs(nodes, device=device)
+            # A DGM evaluates through its own forward (the JAX package's
+            # model.apply, outside any kernel); kernel #2 is for MLPs.
+            y = model(x) if isinstance(model, DGM) else mlp_forward(model, x)
         return y.cpu().numpy().reshape(self.solution_shape(nodes))
 
     def mae(self, model, nodes):

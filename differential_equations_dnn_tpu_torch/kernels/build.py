@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
 _CONSTS = ctypes.POINTER(ctypes.c_float)
 # name → argtypes of every C entry point (all return a cudaError_t as int,
@@ -55,9 +56,21 @@ _SIGNATURES = {
     # schedule, horizon, decay, half_span, log_decay, step_math_runs, stream
     "engine_train": [_I, _CONSTS] + [_P] * 6 + [_I] * 4 + [_F, _I, _I]
                     + [_F] * 4 + [ctypes.POINTER(_I), _P],
+    # R, B, H, L, O
+    "dgm_scratch_floats": [_I] * 5,
+    "dgm_max_streams": [],
+    # spec, consts, const, p, u, scratch, grad, loss, R, B, H, L, O, act,
+    # value_mask, stream
+    "dgm_grad": [_I, _CONSTS] + [_P] * 6 + [_I] * 6 + [_U, _P],
+    # spec, consts, const, p, m, v, u, scratch, losses, K, R, B, H, L, O,
+    # act, value_mask, lr, step0, schedule, horizon, decay, half_span,
+    # log_decay, step_math_runs, stream
+    "dgm_train": [_I, _CONSTS] + [_P] * 7 + [_I] * 7 + [_U, _F, _I, _I]
+                 + [_F] * 4 + [ctypes.POINTER(_I), _P],
 }
 _RESTYPES = {"engine_scratch_floats": ctypes.c_longlong,
-             "engine_smem_bytes": ctypes.c_longlong}
+             "engine_smem_bytes": ctypes.c_longlong,
+             "dgm_scratch_floats": ctypes.c_longlong}
 
 
 def _nvcc() -> str:

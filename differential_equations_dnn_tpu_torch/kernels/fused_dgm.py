@@ -1,0 +1,660 @@
+"""The fused DGM engine: K Adam steps of a DGM equation per kernel call
+(csrc/dgm_train.cu).
+
+Counterpart of the JAX package's kernels/fused_dgm.py. The forward runs as
+stacked value / first-order-tangent streams through the gate recurrence
+
+    Z,G,R = act(s·Wzgr + x·Uzgr + b)   (fused 3-gate matmul)
+    H     = act((s⊙R)·Wh + x·Uh + bh)
+    s'    = (1−G)⊙H + Z⊙s
+
+with the stream rules (per group: one value row-block and ``n_first``
+tangent blocks)
+
+    act:  v → σ(v),  t_k → σ'(v)·t_k
+    mul:  v → a_v·b_v,  t_k → a_v·b_tk + a_tk·b_v
+
+for σ ∈ {tanh, relu}, and a hand-derived backward. ``dgm_step_math`` is the
+plain PyTorch version of one step: the loss cotangent comes from
+``torch.func.vjp`` of the spec's loss; in the CUDA kernel it is written out
+by hand for each spec.
+
+Specs: fitzhugh_nagumo (value + time tangent + the t=0 IC rows, with the
+causal weighting) and fredholm (value rows only: collocation points plus
+⌈k/B⌉ groups of Gauss–Legendre nodes, whose positions and weights arrive as
+the const operand). Only ``precision="highest"`` is ported; the packed
+replicas and the sweep evaluators are not (ROADMAP.md).
+"""
+
+import ctypes
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from differential_equations_dnn_tpu_torch.core.prng import (
+    generator,
+    step_uniforms,
+)
+from differential_equations_dnn_tpu_torch.kernels import build
+from differential_equations_dnn_tpu_torch.kernels import engine_core
+from differential_equations_dnn_tpu_torch.kernels.fused_engine import (
+    Group,
+    _bias_mask,
+    _n_rows,
+    _smean,
+)
+from differential_equations_dnn_tpu_torch.kernels.fused_train import (
+    check_precision,
+    resolve_device,
+    train_in_chunks,
+)
+from differential_equations_dnn_tpu_torch.kernels.taylor_mlp import _ACT_KIND
+from differential_equations_dnn_tpu_torch.models import DGM
+from differential_equations_dnn_tpu_torch.ops import gauss_legendre_nodes
+
+_N_CONSTS = 8  # floats of kernel_consts the CUDA specs read
+
+# ---------------------------------------------------------------------------
+# Flat parameter buffers
+# ---------------------------------------------------------------------------
+
+
+def param_shapes(model):
+    """The ten tensors' shapes, in the flat order of the JAX package's
+    ``pack_dgm``."""
+    D, H, L, O = (model.input_dim, model.hidden_size, model.num_layers,
+                  model.output_dim)
+    return [(D, H), (H,), (L, H, 3 * H), (L, D, 3 * H), (L, 3 * H),
+            (L, H, H), (L, D, H), (L, H), (H, O), (O,)]
+
+
+def _tensors(model):
+    return (model.s_in.w, model.s_in.b, model.layers.Wzgr, model.layers.Uzgr,
+            model.layers.bzgr, model.layers.Wh, model.layers.Uh,
+            model.layers.bh, model.s_out.w, model.s_out.b)
+
+
+def pack_dgm(model) -> torch.Tensor:
+    """The model's parameters as one flat fp32 buffer (a copy)."""
+    return torch.cat([t.detach().reshape(-1) for t in _tensors(model)])
+
+
+def unpack_dgm(model, flat):
+    """Views of the ten tensors inside a flat buffer."""
+    out, at = [], 0
+    for shape in param_shapes(model):
+        n = math.prod(shape)
+        out.append(flat[at:at + n].view(shape))
+        at += n
+    return tuple(out)
+
+
+def load_dgm(model, flat) -> None:
+    """Copy a flat buffer into the model's parameters."""
+    with torch.no_grad():
+        for dst, src in zip(_tensors(model), unpack_dgm(model, flat)):
+            dst.copy_(src)
+
+
+# ---------------------------------------------------------------------------
+# Stream algebra: activation + product, forward and VJP
+# ---------------------------------------------------------------------------
+
+
+def _act(z, act):
+    """(σ(z), σ'(z), σ''(z) or None) on value rows."""
+    if act == "tanh":
+        a = torch.tanh(z)
+        d = 1.0 - a * a
+        return a, d, -2.0 * a * d
+    return torch.clamp_min(z, 0.0), torch.where(z > 0.0, 1.0, 0.0), None
+
+
+def _act_fwd(groups, z, B, act):
+    outs = []
+    off = 0
+    for g in groups:
+        a, d, _ = _act(z[off * B:(off + 1) * B], act)
+        outs.append(a)
+        for k in range(g.n_first):
+            outs.append(d * z[(off + 1 + k) * B:(off + 2 + k) * B])
+        off += g.n_rows
+    return torch.cat(outs, 0)
+
+
+def _act_bwd(groups, z, u, B, act):
+    """VJP of :func:`_act_fwd`: with d = σ'(z_v), d' = σ''(z_v),
+
+        dz_v  = d·u_v + d'·Σ_k z_tk·u_tk      (d' = −2σd for tanh, 0 for relu)
+        dz_tk = d·u_tk
+    """
+    outs = []
+    off = 0
+    for g in groups:
+        _, d, dp = _act(z[off * B:(off + 1) * B], act)
+        dzv = d * u[off * B:(off + 1) * B]
+        tail = []
+        for k in range(g.n_first):
+            zt = z[(off + 1 + k) * B:(off + 2 + k) * B]
+            ut = u[(off + 1 + k) * B:(off + 2 + k) * B]
+            if dp is not None:
+                dzv = dzv + dp * (zt * ut)
+            tail.append(d * ut)
+        outs.append(dzv)
+        outs.extend(tail)
+        off += g.n_rows
+    return torch.cat(outs, 0)
+
+
+def _mul_fwd(groups, a, b, B):
+    """Stream product c = a ⊙ b: c_v = a_v·b_v, c_tk = a_v·b_tk + a_tk·b_v."""
+    outs = []
+    off = 0
+    for g in groups:
+        av = a[off * B:(off + 1) * B]
+        bv = b[off * B:(off + 1) * B]
+        outs.append(av * bv)
+        for k in range(g.n_first):
+            at = a[(off + 1 + k) * B:(off + 2 + k) * B]
+            bt = b[(off + 1 + k) * B:(off + 2 + k) * B]
+            outs.append(av * bt + at * bv)
+        off += g.n_rows
+    return torch.cat(outs, 0)
+
+
+def _mul_bwd(groups, u, b, B):
+    """VJP of :func:`_mul_fwd` w.r.t. its first operand (symmetric: call
+    with the operands swapped for the second):
+
+        da_v  = u_v·b_v + Σ_k u_tk·b_tk
+        da_tk = u_tk·b_v
+    """
+    outs = []
+    off = 0
+    for g in groups:
+        uv = u[off * B:(off + 1) * B]
+        bv = b[off * B:(off + 1) * B]
+        dav = uv * bv
+        tail = []
+        for k in range(g.n_first):
+            ut = u[(off + 1 + k) * B:(off + 2 + k) * B]
+            bt = b[(off + 1 + k) * B:(off + 2 + k) * B]
+            dav = dav + ut * bt
+            tail.append(ut * bv)
+        outs.append(dav)
+        outs.extend(tail)
+        off += g.n_rows
+    return torch.cat(outs, 0)
+
+
+# ---------------------------------------------------------------------------
+# The step math (the plain version of the kernel's step)
+# ---------------------------------------------------------------------------
+
+
+def dgm_step_math(spec, params, u, B, L, const=None):
+    """One training step's loss ``[1, 1]`` and parameter gradients for a
+    DGM stream spec. ``params`` = the ten tensors of :func:`unpack_dgm`;
+    ``u`` = [B, spec.n_uniform] U[0,1) draws; ``const`` = the spec's const
+    operand (Fredholm's nodes and weights). Returns (loss, grads_tuple)."""
+    groups = spec.groups
+    act = spec.act
+    w_in, b_in, Wzgr, Uzgr, bzgr, Wh, Uh, bh, w_out, b_out = params
+    X, ctx = spec.build(u, const)
+    mask = _bias_mask(groups, B, X)
+    H = w_in.shape[1]
+
+    # ---- forward, saving layer-input states + pre-activations ----
+    s_in_pre = X @ w_in + mask * b_in
+    s = _act_fwd(groups, s_in_pre, B, act)
+    states = [s]
+    zgr_pres, h_pres = [], []
+    for l in range(L):
+        zgr_pre = s @ Wzgr[l] + X @ Uzgr[l] + mask * bzgr[l]
+        zgr = _act_fwd(groups, zgr_pre, B, act)
+        z, g, r = zgr[:, :H], zgr[:, H:2 * H], zgr[:, 2 * H:]
+        sr = _mul_fwd(groups, s, r, B)
+        h_pre = sr @ Wh[l] + X @ Uh[l] + mask * bh[l]
+        h = _act_fwd(groups, h_pre, B, act)
+        om = mask - g  # one-minus-G under stream semantics (linear)
+        s = _mul_fwd(groups, om, h, B) + _mul_fwd(groups, z, s, B)
+        zgr_pres.append(zgr_pre)
+        h_pres.append(h_pre)
+        states.append(s)
+    out = s @ w_out + mask * b_out
+
+    outs = tuple(out[k * B:(k + 1) * B] for k in range(_n_rows(groups)))
+    # The cotangent w.r.t. the stream outputs, from autodiff of the spec's
+    # small loss (the kernel writes it out by hand per spec).
+    loss, vjp_fn = torch.func.vjp(lambda *o: spec.loss(o, ctx), *outs)
+    G = torch.cat(vjp_fn(torch.ones_like(loss)), 0)
+
+    # ---- hand backward through the gate recurrence ----
+    d_w_out = states[L].T @ G
+    d_b_out = torch.sum(mask * G, 0)
+    ds = G @ w_out.T
+    d_Wzgr, d_Uzgr, d_bzgr, d_Wh, d_Uh, d_bh = [], [], [], [], [], []
+    for l in range(L - 1, -1, -1):
+        s_prev, zgr_pre, h_pre = states[l], zgr_pres[l], h_pres[l]
+        zgr = _act_fwd(groups, zgr_pre, B, act)
+        z, g, r = zgr[:, :H], zgr[:, H:2 * H], zgr[:, 2 * H:]
+        h = _act_fwd(groups, h_pre, B, act)
+        om = mask - g
+        sr = _mul_fwd(groups, s_prev, r, B)
+
+        # s' = om⊙h + z⊙s_prev
+        d_om = _mul_bwd(groups, ds, h, B)
+        dh = _mul_bwd(groups, ds, om, B)
+        dz = _mul_bwd(groups, ds, s_prev, B)
+        ds_prev = _mul_bwd(groups, ds, z, B)
+        dg = -d_om
+        # h = act(h_pre);  h_pre = sr·Wh + X·Uh + bh
+        dh_pre = _act_bwd(groups, h_pre, dh, B, act)
+        d_Wh.append(sr.T @ dh_pre)
+        d_Uh.append(X.T @ dh_pre)
+        d_bh.append(torch.sum(mask * dh_pre, 0))
+        dsr = dh_pre @ Wh[l].T
+        # sr = s_prev ⊙ r
+        ds_prev = ds_prev + _mul_bwd(groups, dsr, r, B)
+        dr = _mul_bwd(groups, dsr, s_prev, B)
+        # zgr = act(zgr_pre);  zgr_pre = s_prev·Wzgr + X·Uzgr + bzgr
+        dzgr = torch.cat([dz, dg, dr], 1)
+        dzgr_pre = _act_bwd(groups, zgr_pre, dzgr, B, act)
+        d_Wzgr.append(s_prev.T @ dzgr_pre)
+        d_Uzgr.append(X.T @ dzgr_pre)
+        d_bzgr.append(torch.sum(mask * dzgr_pre, 0))
+        ds = ds_prev + dzgr_pre @ Wzgr[l].T
+
+    # s_0 = act(X·w_in + b_in)
+    dz0 = _act_bwd(groups, s_in_pre, ds, B, act)
+    d_w_in = X.T @ dz0
+    d_b_in = torch.sum(mask * dz0, 0)
+
+    def stack(gs):
+        return torch.stack(gs[::-1])
+
+    return loss, (d_w_in, d_b_in, stack(d_Wzgr), stack(d_Uzgr),
+                  stack(d_bzgr), stack(d_Wh), stack(d_Uh), stack(d_bh),
+                  d_w_out, d_b_out)
+
+
+# ---------------------------------------------------------------------------
+# Equation specs
+# ---------------------------------------------------------------------------
+
+
+def _ksum(q):
+    return torch.sum(torch.sum(q, 0, keepdim=True), 1, keepdim=True)
+
+
+@dataclass(frozen=True)
+class FNDGMSpec:
+    """FitzHugh–Nagumo, DGM arch (equations.fitzhugh_nagumo). Streams: the
+    value at t with its time tangent, and the t=0 IC rows.
+
+    With ``p.causal_eps > 0`` (the default) collocation is stratified
+    (t_i = (i + u_i)·t_max/B, time-sorted) and the residual at t_i is
+    weighted by exp(−ε·Δt·Σ_{j<i} ℓ_j), the weights held constant for the
+    gradient (the JAX kernel's strictly-lower-triangular matmul)."""
+    p: object
+    n_uniform: int = 1
+    act: str = "tanh"
+    kernel_id = 0
+    output_dim = 2
+    groups = (Group(n_first=1), Group())
+
+    def kernel_consts(self, B):
+        p = self.p
+        return (p.t_max, p.t_max / B, p.causal_eps, p.i_ext, p.alpha, p.beta,
+                p.tau, p.y_ic)
+
+    def build(self, u, const=None):
+        X = self.p.batch_from_uniforms(u)["t"]
+        return torch.cat([X, torch.ones_like(X), torch.zeros_like(X)], 0), {}
+
+    def loss(self, outs, ctx):
+        sv, dsdt, s0 = outs
+        p = self.p
+        rev = torch.flip(sv, (1,))  # the sibling component
+        col = torch.arange(2, device=sv.device)
+        f_y = sv ** 3 / 3.0 + rev - p.i_ext - sv          # col 0 (y, w=rev)
+        f_w = (p.beta * sv - p.alpha - rev) / p.tau       # col 1 (w, y=rev)
+        r = dsdt + torch.where(col == 0, f_y, f_w)
+        r2 = torch.square(r)
+        ic = _smean(torch.square(s0 - p.y_ic))
+        if p.causal_eps <= 0.0:
+            # mean(r_y²)+mean(r_w²)+mean((s0−ic)²) = 2·mean_full(r²) + ...
+            return 2.0 * _smean(r2) + ic
+        B = r2.shape[0]
+        ell = torch.sum(r2.detach(), 1, keepdim=True)
+        cum = (torch.cumsum(ell, 0) - ell) * (p.t_max / B)  # Σ_{j<i} ℓ_j
+        wgt = torch.exp(-p.causal_eps * cum)
+        return 2.0 * _smean(wgt * r2) + ic
+
+
+@dataclass(frozen=True)
+class FredholmDGMSpec:
+    """Fredholm II, DGM variant-A arch (equations.fredholm). Value-only
+    streams: the collocation points, then ⌈k/B⌉ groups of Gauss–Legendre
+    nodes. The const operand ``[2·(n_groups−1), B, 1]`` holds each node
+    group's (nodes, weights), zero-padded past k."""
+    p: object
+    n_groups: int
+    act: str = "relu"
+    n_uniform: int = 1
+    kernel_id = 1
+    output_dim = 1
+
+    @property
+    def n_const(self):
+        return 2 * (self.n_groups - 1)
+
+    @property
+    def groups(self):
+        return tuple(Group() for _ in range(self.n_groups))
+
+    def kernel_consts(self, B):
+        return (self.p.upper,)
+
+    def build(self, u, const=None):
+        x = self.p.upper * u[:, :1]
+        parts = [x] + [const[2 * j] for j in range(self.n_groups - 1)]
+        return torch.cat(parts, 0), {"x": x, "const": const}
+
+    def loss(self, outs, ctx):
+        x, const = ctx["x"], ctx["const"]
+        y_x = outs[0]
+        # integral ≈ Σ_j w_j·cos(t_j)·y(t_j): one value shared by all rows.
+        integral = y_x.new_zeros((1, 1))
+        for j in range(self.n_groups - 1):
+            t_j, w_j = const[2 * j], const[2 * j + 1]
+            integral = integral + _ksum(w_j * torch.cos(t_j) * outs[1 + j])
+        r = y_x - torch.sin(x) * (1.0 + integral)
+        return _smean(torch.square(r))
+
+
+def spec_for(problem, batch_size=None):
+    """The DGM stream spec for ``problem``, or None."""
+    if problem.name == "fitzhugh_nagumo" and getattr(problem, "arch",
+                                                     "dgm") == "dgm":
+        return FNDGMSpec(problem)
+    if problem.name == "fredholm" and problem.quadrature == "gauss":
+        n_node_groups = -(-problem.k // batch_size) if batch_size else 1
+        return FredholmDGMSpec(problem, n_groups=1 + n_node_groups)
+    return None
+
+
+def _fredholm_const(problem, batch_size, n_groups, device=None):
+    """[2·(n_groups−1), B, 1] stacked (nodes, weights), zero-padded."""
+    nodes, weights = (t.numpy() for t in gauss_legendre_nodes(
+        problem.k, 0.0, problem.upper))
+    cols = []
+    for j in range(n_groups - 1):
+        n_j = np.zeros((batch_size,), np.float32)
+        w_j = np.zeros((batch_size,), np.float32)
+        chunk = slice(j * batch_size, min((j + 1) * batch_size, problem.k))
+        size = chunk.stop - chunk.start
+        n_j[:size] = nodes[chunk]
+        w_j[:size] = weights[chunk]
+        cols.extend([n_j, w_j])
+    return torch.tensor(np.stack(cols, 0)[:, :, None], device=device)
+
+
+def const_for(spec, problem, batch_size, device=None):
+    """The spec's const operand at ``batch_size`` (None for a spec without
+    one)."""
+    if isinstance(spec, FredholmDGMSpec):
+        return _fredholm_const(problem, batch_size, spec.n_groups, device)
+    return None
+
+
+def supports_model(spec, model) -> bool:
+    """A DGM 1 → H×L → spec.output_dim with the spec's gate activation."""
+    return (isinstance(model, DGM) and model.activation == spec.act
+            and model.input_dim == 1 and model.output_dim == spec.output_dim)
+
+
+def supports(problem, model=None, batch_size=None) -> bool:
+    """True if (problem, model) can train on the fused DGM engine."""
+    spec = spec_for(problem, batch_size or 32)
+    if spec is None:
+        return False
+    return supports_model(spec, model or problem.default_model())
+
+
+# ---------------------------------------------------------------------------
+# The kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _layout(spec):
+    """(R, value mask): bit s is set for each value row of the layout."""
+    mask, off = 0, 0
+    for g in spec.groups:
+        mask |= 1 << off
+        off += g.n_rows
+    return off, mask
+
+
+def _check_model(spec, model):
+    if not supports_model(spec, model):
+        raise ValueError(f"the fused DGM engine trains DGMs 1 → H×L → "
+                         f"{spec.output_dim} with {spec.act!r} gates for "
+                         f"{spec.p.name!r}")
+
+
+def _check_inputs(spec, model, tensors, const, lib):
+    """Device, dtype, shape and contiguity of the flat state, uniforms and
+    const, the uniforms' width, and the stream count the kernel holds."""
+    n = sum(math.prod(s) for s in param_shapes(model))
+    uniforms = tensors["uniforms"]
+    B, U = uniforms.shape[-2:]
+    for name, t in tensors.items():
+        build.require_cuda_f32(name, t, None if name == "uniforms" else (n,))
+        if t.device != uniforms.device:
+            raise ValueError(f"{name} is on {t.device}, uniforms on "
+                             f"{uniforms.device}")
+    if U != spec.n_uniform:
+        raise ValueError(f"uniforms have {U} columns, the {spec.p.name!r} "
+                         f"spec draws {spec.n_uniform}")
+    R, _ = _layout(spec)
+    if R > lib.dgm_max_streams():
+        raise ValueError(
+            f"{spec.p.name!r} at batch {B} stacks {R} stream rows per point; "
+            f"the DGM kernel holds at most {lib.dgm_max_streams()} (raise "
+            f"batch_size or lower the node count)")
+    if const is not None:
+        build.require_cuda_f32("const", const)
+        if const.device != uniforms.device:
+            raise ValueError(f"const is on {const.device}, uniforms on "
+                             f"{uniforms.device}")
+
+
+def _check_const(spec, const, B):
+    """The spec's const operand: [n_const, B, 1], or None for a spec
+    without one."""
+    n_const = getattr(spec, "n_const", 0)
+    if n_const == 0:
+        if const is not None:
+            raise ValueError(f"the {spec.p.name!r} spec takes no const")
+        return
+    if const is None or tuple(const.shape) != (n_const, B, 1):
+        got = None if const is None else tuple(const.shape)
+        raise ValueError(f"the {spec.p.name!r} spec needs its const operand "
+                         f"of shape {(n_const, B, 1)} (got {got}; see "
+                         f"const_for)")
+
+
+def _call_args(spec, model, B, const):
+    """The spec-describing arguments every C entry point takes."""
+    vals = [float(c) for c in spec.kernel_consts(B)]
+    consts = (ctypes.c_float * _N_CONSTS)(*vals,
+                                          *[0.0] * (_N_CONSTS - len(vals)))
+    R, mask = _layout(spec)
+    return dict(consts=consts, const=const.data_ptr() if const is not None
+                else None, R=R, mask=mask, act=_ACT_KIND[spec.act],
+                H=model.hidden_size, L=model.num_layers, O=spec.output_dim)
+
+
+def dgm_loss_grad_plain(spec, model, params, u, const=None):
+    """Plain version of :func:`dgm_loss_grad`."""
+    loss, grads = dgm_step_math(spec, unpack_dgm(model, params), u,
+                                u.shape[0], model.num_layers, const)
+    return loss.reshape(()), torch.cat([g.reshape(-1) for g in grads])
+
+
+def dgm_loss_grad(spec, model, params, u, const=None):
+    """One step's loss and flat gradient at flat ``params`` on ``[B,
+    spec.n_uniform]`` uniforms (``const``: the spec's const operand): the
+    step-math launches of the training kernel without the Adam update. A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (``dgm_loss_grad.launches`` counts the launches; the training kernel's
+    own step-math runs are counted by :func:`fused_dgm_chunk`)."""
+    _check_model(spec, model)
+    _check_const(spec, const, u.shape[0])
+    if u.device.type == "cpu":
+        return dgm_loss_grad_plain(spec, model, params, u, const)
+    lib = build.library()
+    _check_inputs(spec, model, {"params": params, "uniforms": u}, const, lib)
+    B = u.shape[0]
+    a = _call_args(spec, model, B, const)
+    scratch = torch.empty(lib.dgm_scratch_floats(a["R"], B, a["H"], a["L"],
+                                                 a["O"]), device=u.device)
+    grad = torch.empty_like(params)
+    loss = torch.empty((), device=u.device)
+    with torch.cuda.device(u.device):
+        code = lib.dgm_grad(spec.kernel_id, a["consts"], a["const"],
+                            params.data_ptr(), u.data_ptr(),
+                            scratch.data_ptr(), grad.data_ptr(),
+                            loss.data_ptr(), a["R"], B, a["H"], a["L"],
+                            a["O"], a["act"], a["mask"],
+                            build.stream_ptr(u.device))
+    build.check(code, "dgm_grad")
+    dgm_loss_grad.launches += 1
+    return loss, grad
+
+
+dgm_loss_grad.launches = 0
+
+
+def fused_dgm_chunk_plain(spec, model, params, m, v, uniforms, step0, lrate,
+                          *, const=None, schedule="constant", total_steps=1,
+                          decay=0.1):
+    """Plain version of :func:`fused_dgm_chunk`."""
+
+    def step_math(p, u):
+        return dgm_loss_grad_plain(spec, model, p, u, const)
+
+    return engine_core.run_fused_chunk(
+        step_math, params, m, v, uniforms, step0, lrate, schedule=schedule,
+        total_steps=total_steps, decay=decay)
+
+
+def fused_dgm_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
+                    const=None, schedule="constant", total_steps=1,
+                    decay=0.1):
+    """Run ``K = uniforms.shape[0]`` Adam steps of ``spec``'s equation.
+    ``params``/``m``/``v`` are flat fp32 buffers (:func:`pack_dgm` order);
+    ``uniforms`` is [K, B, spec.n_uniform]; ``const`` the spec's const
+    operand (:func:`const_for`); ``step0`` the absolute index of the
+    chunk's first step. ``schedule`` ("constant" | "cosine" |
+    "exponential") sets the learning rate of step t = step0 + k + 1 over
+    the horizon ``total_steps``, decaying to ``lrate · decay``.
+
+    Returns new (params, m, v, losses[K]); the inputs are left unchanged.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (``fused_dgm_chunk.launches`` counts the launches, and
+    ``fused_dgm_chunk.step_math_runs`` the steps whose step math the kernel
+    enqueued, as it reports them)."""
+    _check_model(spec, model)
+    engine_core.check_schedule(schedule)
+    K, B, _ = uniforms.shape
+    _check_const(spec, const, B)
+    if uniforms.device.type == "cpu":
+        return fused_dgm_chunk_plain(
+            spec, model, params, m, v, uniforms, step0, lrate, const=const,
+            schedule=schedule, total_steps=total_steps, decay=decay)
+    lib = build.library()
+    _check_inputs(spec, model, {"params": params, "m": m, "v": v,
+                                "uniforms": uniforms}, const, lib)
+    a = _call_args(spec, model, B, const)
+    p, m, v = params.clone(), m.clone(), v.clone()
+    runs = ctypes.c_int(0)
+    scratch = torch.empty(lib.dgm_scratch_floats(a["R"], B, a["H"], a["L"],
+                                                 a["O"]),
+                          device=uniforms.device)
+    losses = torch.empty(K, device=uniforms.device)
+    with torch.cuda.device(uniforms.device):
+        code = lib.dgm_train(
+            spec.kernel_id, a["consts"], a["const"], p.data_ptr(),
+            m.data_ptr(), v.data_ptr(), uniforms.data_ptr(),
+            scratch.data_ptr(), losses.data_ptr(), K, a["R"], B, a["H"],
+            a["L"], a["O"], a["act"], a["mask"], float(lrate), int(step0),
+            engine_core.SCHEDULES.index(schedule), float(total_steps),
+            float(decay), (1.0 - decay) * 0.5,
+            math.log(decay) if decay > 0 else -math.inf, ctypes.byref(runs),
+            build.stream_ptr(uniforms.device))
+    build.check(code, "dgm_train")
+    fused_dgm_chunk.launches += 1
+    fused_dgm_chunk.step_math_runs += runs.value
+    return p, m, v, losses
+
+
+fused_dgm_chunk.launches = 0
+fused_dgm_chunk.step_math_runs = 0
+
+
+# ---------------------------------------------------------------------------
+# The training loop
+# ---------------------------------------------------------------------------
+
+
+def train_dgm_fused_result(problem, seed, iterations, batch_size=100,
+                           lrate=1e-4, chunk_size=25_000, model=None,
+                           params=None, opt_state=None, start_step: int = 0,
+                           precision: str = "highest",
+                           schedule: str | None = None, decay: float = 0.1,
+                           total_steps: int | None = None, device="cuda"):
+    """Train a DGM-spec'd equation with the fused kernel; returns a
+    TrainResult whose ``params`` is the trained model (timings as in
+    ``fused_train.train_in_chunks``).
+
+    ``model`` (default: ``problem.default_model()`` initialised from
+    ``seed``) is trained in place. ``params`` (a flat buffer) replaces its
+    parameters first; ``opt_state`` ({"m", "v"} of an earlier result) and
+    ``start_step`` resume a run: step ``i`` draws its collocation points
+    from ``(seed, i)`` alone, so a resumed or chunked run equals the uncut
+    run bit for bit. ``schedule`` (None = the problem's default) decays
+    over ``total_steps`` (default ``start_step + iterations``)."""
+    spec = spec_for(problem, batch_size)
+    if spec is None:
+        raise ValueError(f"no fused DGM spec for equation {problem.name!r} "
+                         f"(fitzhugh_nagumo dgm arch | fredholm gauss)")
+    check_precision(precision)
+    device = resolve_device(device)
+    if model is None:
+        model = problem.default_model(generator=generator(seed))
+    model.to(device)
+    _check_model(spec, model)
+    kw = dict(const=const_for(spec, problem, batch_size, device),
+              schedule=schedule or problem.defaults.schedule,
+              total_steps=total_steps or start_step + iterations,
+              decay=decay)
+    p = pack_dgm(model) if params is None else params.to(device).clone()
+    if opt_state is None:
+        m, v = torch.zeros_like(p), torch.zeros_like(p)
+    else:
+        m = opt_state["m"].to(device).clone()
+        v = opt_state["v"].to(device).clone()
+
+    def run_chunk(p, m, v, u, step0):
+        return fused_dgm_chunk(spec, model, p, m, v, u, step0, lrate, **kw)
+
+    def draw(start, n):
+        return step_uniforms(seed, start, n, batch_size, device,
+                             spec.n_uniform)
+
+    return train_in_chunks(model, run_chunk, draw, p, m, v, iterations,
+                           chunk_size, device, start_step, load=load_dgm)

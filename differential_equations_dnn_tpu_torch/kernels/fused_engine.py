@@ -470,8 +470,8 @@ SPECS = {
 
 def spec_for(problem):
     """The stream spec for ``problem``, or None if the port has no fused
-    engine spec for it (hard constraints, volterra, uat, inverse_heat and
-    the DGM equations are not ported)."""
+    engine spec for it (hard constraints, volterra, uat and inverse_heat
+    are not ported; the DGM equations train on kernels.fused_dgm)."""
     if getattr(problem, "constraint", "soft") == "hard":
         return None
     cls = SPECS.get(problem.name)

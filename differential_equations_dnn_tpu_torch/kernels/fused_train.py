@@ -343,9 +343,11 @@ def check_precision(precision: str) -> None:
 
 
 def train_in_chunks(model, run_chunk, draw, p, m, v, iterations, chunk_size,
-                    device, start_step=0) -> TrainResult:
+                    device, start_step=0, load=None) -> TrainResult:
     """The fused trainers' host loop. ``run_chunk(p, m, v, u, step0)`` runs
-    the steps of ``u = draw(step0, k)`` and returns new (p, m, v, losses).
+    the steps of ``u = draw(step0, k)`` and returns new (p, m, v, losses);
+    ``load(model, p)`` (default: the MLP's :func:`load_params`) copies the
+    trained flat buffer into the model.
 
     One warm-up step on copies of the state is timed as ``compile_time``
     (the kernel build plus the first dispatch); ``wall_time`` and
@@ -369,7 +371,7 @@ def train_in_chunks(model, run_chunk, draw, p, m, v, iterations, chunk_size,
         done += k
     _sync(device)
     wall = time.perf_counter() - t0
-    load_params(model, p)
+    (load or load_params)(model, p)
     return TrainResult(
         params=model,
         opt_state={"m": m, "v": v},

@@ -2,14 +2,17 @@
 
     python -m differential_equations_dnn_tpu_torch.kernels.profile [NAME ...]
 
-For each equation NAME (default: all seven), at its reference defaults and
+For each equation NAME (default: all nine), at its reference defaults and
 seed 0, it runs one warm-up chunk of the fused trainer of its route
-(constant-lr heat: the heat kernel; the rest: the generic engine), then
+(constant-lr heat: the heat kernel; fitzhugh_nagumo and fredholm: the DGM
+engine; the rest: the generic engine), then
 times one chunk of K steps with CUDA events and profiles another with
 ``torch.profiler``. It prints the µs per step of each kernel name (device
 time summed over the chunk, over K), the launches per step, the summed
 kernel time against the event-timed step, and the card's name and power
-limit. Needs a CUDA device.
+limit. With ``--solve-seeds N`` it also runs ``solve(NAME,
+engine="fused")`` at the reference defaults for seeds 0 .. N−1 and prints
+each MAE and warm it/s. Needs a CUDA device.
 """
 
 import argparse
@@ -24,10 +27,12 @@ from differential_equations_dnn_tpu_torch.core.prng import (
     step_uniforms,
 )
 from differential_equations_dnn_tpu_torch.equations import PROBLEMS
+from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
 from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
 from differential_equations_dnn_tpu_torch.kernels import fused_train as ft
 
 STEPS = 200
+DGM = ("fitzhugh_nagumo", "fredholm")
 
 
 def _chunk_fn(name, device):
@@ -35,6 +40,15 @@ def _chunk_fn(name, device):
     prob = PROBLEMS[name]()
     d = prob.defaults
     model = prob.default_model(generator=generator(0), device=device)
+    if name in DGM:
+        spec = fd.spec_for(prob, d.batch_size)
+        const = fd.const_for(spec, prob, d.batch_size, device)
+        p = fd.pack_dgm(model)
+        z = torch.zeros_like(p)
+        u = step_uniforms(0, 0, STEPS, d.batch_size, device, spec.n_uniform)
+        return lambda: fd.fused_dgm_chunk(spec, model, p, z, z, u, 0, d.lrate,
+                                          const=const, schedule=d.schedule,
+                                          total_steps=d.iterations)
     p = ft.pack_params(model)
     z = torch.zeros_like(p)
     if name == "heat" and d.schedule == "constant":
@@ -88,9 +102,27 @@ def profile(name, device):
               f"{us / calls:7.2f} us/launch")
 
 
+def solve_seeds(name, n_seeds):
+    """MAE and warm it/s of ``solve(name, engine="fused")`` per seed."""
+    from differential_equations_dnn_tpu_torch import solve
+
+    maes = []
+    for seed in range(n_seeds):
+        res = solve(name, engine="fused", seed=seed)
+        maes.append(res.mae)
+        print(f"  solve({name!r}, seed={seed}): MAE {res.mae:.6g}, "
+              f"{res.iters_per_sec:.1f} it/s warm, final loss "
+              f"{res.loss_history[-1]:.4g}")
+    print(f"  {name} MAE over seeds 0-{n_seeds - 1}: min {min(maes):.6g}, "
+          f"max {max(maes):.6g}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("names", nargs="*", default=sorted(fe.SPECS))
+    parser.add_argument("names", nargs="*",
+                        default=sorted(fe.SPECS) + list(DGM))
+    parser.add_argument("--solve-seeds", type=int, default=0, metavar="N",
+                        help="also solve each NAME at seeds 0 .. N-1")
     args = parser.parse_args()
     device = ft.resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -99,6 +131,8 @@ def main():
     print(smi.stdout.strip())
     for name in args.names:
         profile(name, device)
+        if args.solve_seeds:
+            solve_seeds(name, args.solve_seeds)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,13 @@
+from differential_equations_dnn_tpu_torch.models.dgm import (
+    DGM,
+    dgm_params_from_jax,
+    dgm_params_to_jax,
+)
 from differential_equations_dnn_tpu_torch.models.mlp import (
     MLP,
     params_from_jax,
     params_to_jax,
 )
 
-__all__ = ["MLP", "params_from_jax", "params_to_jax"]
+__all__ = ["DGM", "dgm_params_from_jax", "dgm_params_to_jax", "MLP",
+           "params_from_jax", "params_to_jax"]

@@ -4,6 +4,11 @@ from differential_equations_dnn_tpu_torch.ops.diff import (
     value_dt,
     value_dx_dxx,
 )
+from differential_equations_dnn_tpu_torch.ops.quad import (
+    gauss_legendre_nodes,
+    integrate,
+)
+from differential_equations_dnn_tpu_torch.ops.sampling import GridSubsample
 from differential_equations_dnn_tpu_torch.ops.taylor import (
     heat_fused_streams,
     mlp_streams,
@@ -14,6 +19,9 @@ __all__ = [
     "dirderiv2",
     "value_dt",
     "value_dx_dxx",
+    "gauss_legendre_nodes",
+    "integrate",
+    "GridSubsample",
     "heat_fused_streams",
     "mlp_streams",
 ]

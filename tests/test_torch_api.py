@@ -108,7 +108,7 @@ def test_unported_options_raise(kwargs, error, match):
 
 def test_other_equations_raise():
     with pytest.raises(ValueError, match="available.*ROADMAP"):
-        solve("fredholm", engine="fused", device="cpu")
+        solve("volterra", engine="fused", device="cpu")
 
 
 def test_heat_with_a_decay_schedule_takes_the_engine(monkeypatch):

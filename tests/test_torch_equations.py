@@ -110,7 +110,7 @@ def test_heat2d_taylor_taps_match_jvp():
 @pytest.mark.parametrize("problem, match", [
     (types.SimpleNamespace(name="heat", constraint="hard"), "hard"),
     (Advection1D(causal_eps=1.0), "causal"),
-    (types.SimpleNamespace(name="fredholm"), "DGM"),
+    (types.SimpleNamespace(name="fredholm", quadrature="montecarlo"), "DGM"),
     (types.SimpleNamespace(name="volterra"), "volterra"),
 ])
 def test_unported_routes_raise(problem, match):

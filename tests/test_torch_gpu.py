@@ -24,6 +24,9 @@ from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
     engine_core,
 )
 from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
+    fused_dgm as fd,
+)
+from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
     fused_engine as fe,
 )
 from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
@@ -196,3 +199,90 @@ def test_engine_smem_rule(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         fe.engine_loss_grad(fe.spec_for(PROBLEMS["heat2d"]()), wide, p,
                             torch.rand(4, 4, device=cuda))
+
+
+@pytest.mark.parametrize("name", ["fitzhugh_nagumo", "fredholm"])
+def test_dgm_kernels_match_plain(cuda, name):
+    """The DGM kernels at each equation's default shapes (FitzHugh–Nagumo:
+    R·B = 3·100, H = 128, L = 4; Fredholm: R·B = 3·32, H = 32, L = 1, its
+    const): one step's loss to rtol 1e-5 and each gradient tensor to 1e-5
+    of its largest entry (fp32 reassociation); 20 Adam steps from step 100
+    over a 200-step cosine horizon (lr 0.55-0.45 of constant, so a kernel
+    that ignored the schedule fails), losses to rtol 1e-4 and parameters
+    to rtol 1e-4 plus 2·lr (a gradient within rounding of zero can move a
+    parameter by up to 2·lr). The kernel's chunked run equals its uncut
+    run bit for bit."""
+    prob = PROBLEMS[name]()
+    B = prob.defaults.batch_size
+    spec = fd.spec_for(prob, B)
+    const = fd.const_for(spec, prob, B, cuda)
+    model = prob.default_model(generator=generator(0), device=cuda)
+    p = fd.pack_dgm(model)
+    u = step_uniforms(0, 100, 20, B, cuda, spec.n_uniform)
+    loss_k, grad_k = fd.dgm_loss_grad(spec, model, p, u[0], const)
+    loss_p, grad_p = fd.dgm_loss_grad_plain(spec, model, p, u[0], const)
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+    for gk, gp in zip(fd.unpack_dgm(model, grad_k),
+                      fd.unpack_dgm(model, grad_p)):
+        torch.testing.assert_close(gk, gp, rtol=1e-4,
+                                   atol=1e-5 * float(gp.abs().max()))
+    lr = prob.defaults.lrate
+    kw = dict(const=const, schedule="cosine", total_steps=200)
+    z = torch.zeros_like(p)
+    pk, mk, vk, lk = fd.fused_dgm_chunk(spec, model, p, z, z, u, 100, lr,
+                                        **kw)
+    pp, _, _, lp = fd.fused_dgm_chunk_plain(spec, model, p, z, z, u, 100, lr,
+                                            **kw)
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=2 * lr)
+    p2, m2, v2, l2 = fd.fused_dgm_chunk(spec, model, p, z, z, u[:7], 100, lr,
+                                        **kw)
+    p2, m2, v2, l2b = fd.fused_dgm_chunk(spec, model, p2, m2, v2, u[7:], 107,
+                                         lr, **kw)
+    assert torch.equal(torch.cat([l2, l2b]), lk) and torch.equal(p2, pk)
+    assert torch.equal(m2, mk) and torch.equal(v2, vk)
+
+
+def test_dgm_stream_limit(cuda):
+    """Fredholm's R = 1 + ⌈k/B⌉ is a run-time layout: k = 50 at B = 2 (R =
+    26) runs; at B = 1 (R = 51) the wrapper rejects it with the kernel's
+    limit, before launching."""
+    lib = build.library()
+    assert lib.dgm_max_streams() == 32
+    prob = PROBLEMS["fredholm"]()
+    model = prob.default_model(generator=generator(0), device=cuda)
+    p = fd.pack_dgm(model)
+    for B, ok in ((2, True), (1, False)):
+        spec = fd.spec_for(prob, B)
+        const = fd.const_for(spec, prob, B, cuda)
+        u = torch.rand((B, 1), device=cuda)
+        if ok:
+            loss_k, grad_k = fd.dgm_loss_grad(spec, model, p, u, const)
+            loss_p, grad_p = fd.dgm_loss_grad_plain(spec, model, p, u, const)
+            torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+            torch.testing.assert_close(grad_k, grad_p, rtol=1e-4,
+                                       atol=1e-5 * float(grad_p.abs().max()))
+        else:
+            with pytest.raises(ValueError, match="at most 32"):
+                fd.dgm_loss_grad(spec, model, p, u, const)
+
+
+@pytest.mark.parametrize("name", ["fitzhugh_nagumo", "fredholm"])
+def test_solve_dgm_launches_its_kernel(cuda, name):
+    """A short ``solve`` on the DGM route launches the DGM training kernel
+    (its step math once per step: warm-up + 300), not the MLP kernels, and
+    trains."""
+    counters = (taylor_mlp.mlp_forward, ft.heat_fused_train_chunk,
+                fe.fused_engine_chunk, fd.fused_dgm_chunk, fd.dgm_loss_grad)
+    for fn in counters:
+        fn.launches = 0
+    fd.fused_dgm_chunk.step_math_runs = 0
+    res = solve(name, engine="fused", iterations=300, lrate=1e-3)
+    assert fd.fused_dgm_chunk.launches == 2
+    assert fd.fused_dgm_chunk.step_math_runs == 301
+    assert (taylor_mlp.mlp_forward.launches, ft.heat_fused_train_chunk.launches,
+            fe.fused_engine_chunk.launches, fd.dgm_loss_grad.launches) == \
+        (0, 0, 0, 0)
+    assert res.loss_history[-20:].mean() < res.loss_history[:20].mean()
+    assert res.solution.shape == PROBLEMS[name]().solution_shape(
+        PROBLEMS[name]().defaults.nodes)
