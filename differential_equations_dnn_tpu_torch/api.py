@@ -27,6 +27,7 @@ from differential_equations_dnn_tpu_torch.kernels.fused_train import (
 )
 from differential_equations_dnn_tpu_torch.train import (
     TrainConfig,
+    finetune_lbfgs,
     mean_absolute_error,
 )
 
@@ -50,10 +51,6 @@ class SolveResult:
                 f"{self.iters_per_sec:.0f} iters/s on {self.device})")
 
 
-_ENSEMBLE_TODO = ("is not ported yet (ROADMAP.md queue 1, item 12: the "
-                  "packed-replica trainers, kernel #5, and the L-BFGS polish)")
-
-
 def _auto_defaults(problem, model) -> tuple[int, int]:
     """(ensemble, finetune) used when the caller leaves them ``None``, as
     the JAX package picks them: FitzHugh–Nagumo's DGM arch with causal
@@ -68,6 +65,34 @@ def _auto_defaults(problem, model) -> tuple[int, int]:
             and getattr(problem, "causal_eps", 0.0) <= 0.0):
         return 16, 200
     return 0, 0
+
+
+def _residual(problem, model, batch) -> float:
+    """The plain mean ``point_loss`` on ``batch``: the selection metric.
+    Not ``problem.loss``: a training protocol such as FitzHugh–Nagumo's
+    causal weighting would discount late-time divergence out of it."""
+    with torch.no_grad():
+        return float(torch.mean(problem.point_loss(model, batch)))
+
+
+def _polish_and_select(problem, models, val_losses, seed, steps):
+    """L-BFGS-polish the 3 replicas with the lowest validation residual (JAX
+    api.py:73-98), each on one 8192-point batch from ``seed + 3``, and keep
+    the one with the lowest residual on a fresh batch from ``seed + 4``:
+    which replica polishes best depends on the polish. Returns (picked
+    index, polished model, polish losses)."""
+    order = np.argsort(np.where(np.isfinite(val_losses), val_losses, np.inf))
+    device = next(models[0].parameters()).device
+    fresh = problem.validation_sample(4096, generator(seed + 4), device)
+    best = None
+    for i in order[:3]:
+        polished, losses = finetune_lbfgs(problem, models[i], steps,
+                                          batch_size=8192,
+                                          generator=generator(seed + 3))
+        r = _residual(problem, polished, fresh)
+        if best is None or r < best[0]:
+            best = (r, int(i), polished, losses)
+    return best[1:]
 
 
 def _fused_route(problem, model, schedule="constant", batch_size=None) -> str:
@@ -121,7 +146,7 @@ def _fused_route(problem, model, schedule="constant", batch_size=None) -> str:
 
 def solve(equation: str | Problem, *, iterations: int | None = None,
           batch_size: int | None = None, lrate: float | None = None,
-          nodes: int | None = None, seed: int = 0, model=None,
+          nodes: int | None = None, seed: int = 0, model=None, mesh=None,
           engine: str = "scan", precision: str = "highest",
           schedule: str | None = None, ensemble: int | None = None,
           finetune: int | None = None, device="cuda",
@@ -138,19 +163,38 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
     ported yet. ``schedule`` ("constant" | "cosine" | "exponential")
     overrides the equation's default lr schedule. ``model`` (default
     ``problem.default_model()`` initialised from ``seed``) is trained in
-    place. ``ensemble`` and ``finetune`` (None = the JAX package's
-    automatic choice) are not ported: a value above 0 raises, and so does
-    FitzHugh–Nagumo with ``causal_eps=0``, for which the JAX package picks
-    a 16-replica ensemble and an L-BFGS polish. ``device`` defaults to
-    "cuda" and raises without a GPU; "cpu" runs the kernels' plain PyTorch
-    versions.
+    place.
+
+    ``ensemble=N`` trains N replicas packed into every kernel launch (replica
+    r drawn from ``replica_generator(seed, r)``, all on the collocation
+    stream of ``seed``) and keeps the one with the lowest finite mean
+    residual on an off-grid validation batch from ``seed + 1``;
+    ``iters_per_sec`` is then population steps per second. ``finetune=N``
+    polishes with N full-batch L-BFGS steps: a single run on a batch from
+    ``seed + 3``; an ensemble polishes its best 3 replicas and keeps the one
+    with the lowest residual on a fresh batch from ``seed + 4``. Both
+    default to ``None`` = the JAX package's automatic choice:
+    FitzHugh–Nagumo with ``causal_eps=0`` trains 16 replicas and polishes
+    for 200 steps, everything else one unpolished run. ``device`` defaults
+    to "cuda" and raises without a GPU; "cpu" runs the kernels' plain
+    PyTorch versions. ``mesh`` (sharded ensembles) is not ported.
     """
     problem = (get_problem(equation, **problem_kwargs)
                if isinstance(equation, str) else equation)
-    if engine == "scan":
+    if ensemble is None or finetune is None:
+        auto_ens, auto_ft = _auto_defaults(problem, model)
+        ensemble = auto_ens if ensemble is None else ensemble
+        finetune = auto_ft if finetune is None else finetune
+    if mesh is not None:
         raise NotImplementedError(
-            "engine='scan' is not ported yet (ROADMAP.md queue 1, item 6: "
-            "train/trainer.py); use engine='fused'")
+            "mesh= is not ported yet (ROADMAP.md queue 1, item 14: the "
+            "sharded ensembles over several GPUs)")
+    if engine == "scan":
+        todo = ("queue 1, items 6 and 13: train/trainer.py and the "
+                "population ensembles" if ensemble > 1
+                else "queue 1, item 6: train/trainer.py")
+        raise NotImplementedError(f"engine='scan' is not ported yet "
+                                  f"(ROADMAP.md {todo}); use engine='fused'")
     if engine != "fused":
         raise ValueError(f"unknown engine {engine!r} (scan | fused)")
     device = resolve_device(device)
@@ -162,48 +206,56 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
         lrate=lrate if lrate is not None else d.lrate,
         schedule=schedule if schedule is not None else d.schedule,
     )
-    if ensemble is None or finetune is None:
-        auto_ens, auto_ft = _auto_defaults(problem, model)
-        if (ensemble, finetune) == (None, None) and auto_ens > 1:
-            raise NotImplementedError(
-                f"{problem.name!r} with causal_eps=0 trains a {auto_ens}-"
-                f"replica ensemble with a {auto_ft}-step L-BFGS polish, "
-                f"which {_ENSEMBLE_TODO}; pass ensemble=0, finetune=0 for "
-                f"one unpolished run")
-        ensemble = auto_ens if ensemble is None else ensemble
-        finetune = auto_ft if finetune is None else finetune
-    if ensemble > 1:
-        raise NotImplementedError(f"ensemble {_ENSEMBLE_TODO}")
-    if finetune > 0:
-        raise NotImplementedError(f"finetune {_ENSEMBLE_TODO}")
     nodes = nodes if nodes is not None else d.nodes
-    if model is None:
-        model = problem.default_model(generator=generator(seed))
-    route = _fused_route(problem, model, config.schedule, config.batch_size)
+    single = (model if model is not None
+              else problem.default_model(generator=generator(seed)))
+    route = _fused_route(problem, single, config.schedule, config.batch_size)
 
     common = dict(batch_size=config.batch_size, lrate=config.lrate,
-                  chunk_size=config.chunk_size, model=model,
-                  precision=precision, device=device)
-    if route == "heat":
-        result = train_heat_fused_result(problem, seed, config.iterations,
-                                         **common)
-    elif route == "dgm":
-        result = fused_dgm.train_dgm_fused_result(
-            problem, seed, config.iterations, schedule=config.schedule,
-            **common)
+                  chunk_size=config.chunk_size, precision=precision,
+                  device=device)
+    if ensemble > 1:
+        train = (fused_dgm.train_dgm_fused_ensemble_packed if route == "dgm"
+                 else fused_engine.train_fused_ensemble_packed)
+        result = train(problem, seed, config.iterations, ensemble,
+                       model=model, schedule=config.schedule, **common)
+        val = problem.validation_sample(4096, generator(seed + 1), device)
+        val_losses = np.array([_residual(problem, m, val)
+                               for m in result.params])
+        if finetune:
+            pick, trained, ft_losses = _polish_and_select(
+                problem, result.params, val_losses, seed, finetune)
+            loss_history = np.concatenate([result.loss_history[pick],
+                                           ft_losses])
+        else:
+            pick = int(np.argmin(np.where(np.isfinite(val_losses),
+                                          val_losses, np.inf)))
+            trained = result.params[pick]
+            loss_history = result.loss_history[pick]
     else:
-        result = fused_engine.train_fused_result(
-            problem, seed, config.iterations, schedule=config.schedule,
-            **common)
-    solution = problem.evaluate(result.params, nodes)
+        if route == "heat":
+            result = train_heat_fused_result(problem, seed,
+                                             config.iterations, model=single,
+                                             **common)
+        else:
+            train = (fused_dgm.train_dgm_fused_result if route == "dgm"
+                     else fused_engine.train_fused_result)
+            result = train(problem, seed, config.iterations, model=single,
+                           schedule=config.schedule, **common)
+        trained, loss_history = result.params, result.loss_history
+        if finetune:
+            trained, ft_losses = finetune_lbfgs(
+                problem, trained, finetune, generator=generator(seed + 3))
+            loss_history = np.concatenate([loss_history, ft_losses])
+    solution = problem.evaluate(trained, nodes)
     exact = problem.exact(nodes)
     return SolveResult(
         problem=problem,
-        params=result.params,
+        params=trained,
         solution=solution,
         exact=exact,
         mae=mean_absolute_error(exact, solution),
-        loss_history=result.loss_history,
+        loss_history=loss_history,
         iters_per_sec=result.iters_per_sec,
         wall_time=result.wall_time,
         compile_time=result.compile_time,

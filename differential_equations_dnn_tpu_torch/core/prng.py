@@ -18,11 +18,26 @@ import torch
 
 _M32 = 0xFFFFFFFF
 _DRAW_DOMAIN = 0x5EED0001  # separates the draw stream from the init stream
+_REPLICA_DOMAIN = 0x5EED0002  # and both from the replicas' init seeds
 
 
 def generator(seed: int) -> torch.Generator:
     """A CPU generator for weight initialisation."""
     return torch.Generator().manual_seed(int(seed))
+
+
+def replica_generator(seed: int, r: int) -> torch.Generator:
+    """The weight-init generator of replica ``r`` of an ensemble seeded
+    ``seed``: a CPU generator whose 64-bit seed is the counter hash of
+    ``(seed, r)``, the counterpart of the JAX package's ``fold_in(init_key,
+    r)`` (kernels/fused_engine.py:1398-1402). Each replica's draws depend on
+    ``(seed, r)`` alone, so replica r of an N-replica ensemble is the same
+    network whatever N is. The single-run init ``generator(seed)`` is none
+    of them."""
+    key = _mix32(torch.tensor(((seed ^ (seed >> 32)) ^ _REPLICA_DOMAIN)
+                              & _M32))
+    h = _mix32((key + int(r) * 0x9E3779B9) & _M32)
+    return torch.Generator().manual_seed((int(key) << 32) | int(h))
 
 
 def _mix32(x):

@@ -1,8 +1,9 @@
 // The update that ends every step of the fused engines (kernel #4,
-// engine_core.py::fused_adam_kernel): the gradient summed from its
-// per-stream partials in stream order, the learning rate of the step under
-// its schedule, and Adam with torch defaults. Shared by engine_train.cu
-// (the MLP engine) and dgm_train.cu (the DGM engine).
+// engine_core.py::fused_adam_kernel, and its packed-replica twin #5,
+// fused_packed_adam_kernel): the gradient summed from its per-stream
+// partials in stream order, the learning rate of the step under its
+// schedule, and Adam with torch defaults. Shared by engine_train.cu (the
+// MLP engine) and dgm_train.cu (the DGM engine).
 //
 // The kernels sit in an unnamed namespace: each source that includes this
 // header compiles its own instance (the library is built without
@@ -42,13 +43,23 @@ __global__ void sum_partials_kernel(const float* __restrict__ partials, int R,
 }
 
 // Adam with torch defaults on the summed partial gradients; t is the
-// 1-indexed global step, lr(t) the schedule's rate at that step.
+// 1-indexed global step, lr(t) the schedule's rate at that step. One launch
+// updates every replica: replica r = blockIdx.y owns p, m, v at r·n and its
+// R partials at r·part_stride (one replica: gridDim.y = 1). Each replica's
+// partials are summed in stream order, so a replica's update does not
+// depend on how many replicas share the launch.
 __global__ void adam_kernel(float* __restrict__ p, float* __restrict__ m,
                             float* __restrict__ v,
                             const float* __restrict__ partials, int R, int n,
-                            float lr, float t, Schedule sched) {
+                            size_t part_stride, float lr, float t,
+                            Schedule sched) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const size_t r = blockIdx.y;
+  p += r * n;
+  m += r * n;
+  v += r * n;
+  partials += r * part_stride;
   float lr_t = lr;
   if (sched.kind == 1) {
     const float frac = fminf((t - 1.0f) / sched.horizon, 1.0f);

@@ -25,6 +25,17 @@ __device__ __forceinline__ float activate(int kind, float z) {
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// The largest grid y or z extent: the packed engines put the replica (or
+// replica × stream) index there.
+constexpr int kMaxGridYZ = 65535;
+
+// p + off, or nullptr for an absent operand: the packed engines move each
+// pointer to its replica's copy.
+template <class T>
+__device__ __forceinline__ T* shift(T* p, size_t off) {
+  return p == nullptr ? p : p + off;
+}
+
 // dst[r * ld_dst + c] = src[r * ld_src + c] for r < rows, c < cols, by all
 // threads of the block. Aligned sources go as float4 loads, unrolled so
 // that many are in flight at once.

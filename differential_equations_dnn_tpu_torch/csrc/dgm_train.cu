@@ -39,6 +39,20 @@
 // so runs are bit-identical and a chunked run equals the uncut run. Every
 // product is fp32 FFMA: exact fp32 ("highest"), no tensor cores, no library.
 //
+// Packed replicas (kernel #5, engine_core.py::fused_packed_adam_kernel,
+// reached through fused_dgm_packed_chunk): dgm_train_packed advances N
+// independent runs that share the uniforms, the stream layout, the spec's
+// consts, Fredholm's const and the lr schedule. p, m, v are [N, n]
+// replica-major, each replica has its own scratch (stride scratch_floats),
+// and the loss history is [N, K]. A step is the same launch sequence as one
+// run's, each launch with N times the blocks: the replica is the grid's y
+// index (elementwise kernels), z (gemm), part of z (weight_grad: z = r·R +
+// stream) or x (the loss kernels, one block per replica). Every kernel
+// moves its pointers to its replica's copy and then runs the
+// single-replica code, so replica r of a packed call equals a one-replica
+// call on r's state bit for bit. A single run (fused_dgm_chunk) is the
+// packed call at N = 1.
+//
 // Row layout of every [R·B, width] activation: stream s, batch row b at row
 // s·B + b (fused_dgm.<Spec>.groups order: per group the value row, then its
 // first-order tangents). The input width D is 1 for both specs.
@@ -123,15 +137,22 @@ __device__ float fredholm_input(int s, int b, const float* u,
 
 // Thread (b, j): X's rows of batch point b (written once, by j == 0), the
 // input layer's pre-activation pre = X·w_in + mask·b_in and s0 = its stream
-// activation, at column j.
+// activation, at column j. Replica blockIdx.y: weights at y·ps, outputs at
+// y·ss (the uniforms and the const are shared).
 __global__ void input_kernel(int spec, const float* __restrict__ u,
                              const float* __restrict__ cnst, Consts c,
                              Layout lay, const float* __restrict__ w_in,
                              const float* __restrict__ b_in, int H, int act,
                              float* __restrict__ X, float* __restrict__ pre,
-                             float* __restrict__ s0) {
+                             float* __restrict__ s0, size_t ss, size_t ps) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= lay.B * H) return;
+  const size_t so = blockIdx.y * ss, po = blockIdx.y * ps;
+  w_in += po;
+  b_in += po;
+  X += so;
+  pre += so;
+  s0 += so;
   const int b = idx / H, j = idx - b * H;
   float a = 0.0f, d = 0.0f;
   for (int s = 0; s < lay.R; ++s) {
@@ -176,7 +197,8 @@ __device__ __forceinline__ void load_tiles(
 // Wᵀ (W [M, K]); then + x[n]·u[m] (the D = 1 input's term) and + bias[m]
 // on value rows, or addend[n, m] + the sum. Block (16, 16) owns a 32×32
 // tile, each thread 2×2 outputs, summed over k in order; the next k tile
-// is loaded into registers while the current one is multiplied.
+// is loaded into registers while the current one is multiplied. Replica
+// blockIdx.z: A, x, addend and C at z·ss; W, u and bias at z·ps.
 template <bool kTransW>
 __global__ void gemm_kernel(const float* __restrict__ A,
                             const float* __restrict__ W, int N, int K, int M,
@@ -184,10 +206,18 @@ __global__ void gemm_kernel(const float* __restrict__ A,
                             const float* __restrict__ u,
                             const float* __restrict__ bias, Layout lay,
                             const float* __restrict__ addend,
-                            float* __restrict__ C) {
+                            float* __restrict__ C, size_t ss, size_t ps) {
   constexpr int kPerThread = kTile * kTile / 256;
   __shared__ float a_s[kTile][kTile + 1];
   __shared__ float w_s[kTile][kTile + 1];
+  const size_t so = blockIdx.z * ss, po = blockIdx.z * ps;
+  A += so;
+  W += po;
+  x = dednn::shift(x, so);
+  u = dednn::shift(u, po);
+  bias = dednn::shift(bias, po);
+  addend = dednn::shift(addend, so);
+  C += so;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * 16 + tx;
   const int n0 = blockIdx.y * kTile, m0 = blockIdx.x * kTile;
@@ -244,12 +274,18 @@ __global__ void gemm_kernel(const float* __restrict__ A,
 }
 
 // Thread (b, j): R = act(zgr_pre[:, 2H + j]) under the stream rules and
-// sr = s ⊙ R (value: s_v·r_v; tangent: s_v·r_t + s_t·r_v).
+// sr = s ⊙ R (value: s_v·r_v; tangent: s_v·r_t + s_t·r_v). Replica
+// blockIdx.y at y·ss, as in every elementwise kernel below.
 __global__ void gate_fwd_kernel(const float* __restrict__ zgr_pre,
                                 const float* __restrict__ s, Layout lay,
-                                int H, int act, float* __restrict__ sr) {
+                                int H, int act, float* __restrict__ sr,
+                                size_t ss) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= lay.B * H) return;
+  const size_t so = blockIdx.y * ss;
+  zgr_pre += so;
+  s += so;
+  sr += so;
   const int b = idx / H, j = idx - b * H;
   const int B = lay.B;
   float r_v = 0.0f, d = 0.0f, s_v = 0.0f;
@@ -272,9 +308,15 @@ __global__ void gate_fwd_kernel(const float* __restrict__ zgr_pre,
 __global__ void state_fwd_kernel(const float* __restrict__ zgr_pre,
                                  const float* __restrict__ h_pre,
                                  const float* __restrict__ s, Layout lay,
-                                 int H, int act, float* __restrict__ s_out) {
+                                 int H, int act, float* __restrict__ s_out,
+                                 size_t ss) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= lay.B * H) return;
+  const size_t so = blockIdx.y * ss;
+  zgr_pre += so;
+  h_pre += so;
+  s += so;
+  s_out += so;
   const int b = idx / H, j = idx - b * H;
   const int B = lay.B;
   float z_v = 0.0f, g_v = 0.0f, h_v = 0.0f, s_v = 0.0f, om_v = 0.0f;
@@ -303,7 +345,8 @@ __global__ void state_fwd_kernel(const float* __restrict__ zgr_pre,
 }
 
 // ---------------------------------------------------------------------------
-// Output layer and the specs' losses (one block each)
+// Output layer and the specs' losses (one block per replica: blockIdx.x,
+// its scratch at x·ss, its weights at x·ps, its loss at x·ls)
 // ---------------------------------------------------------------------------
 
 // out[n, o] = S[n, :]·w_out[:, o] + mask·b_out[o] for the R·B rows: warp w
@@ -339,7 +382,15 @@ __global__ void fn_loss_kernel(const float* __restrict__ S, int H,
                                const float* __restrict__ w_out,
                                const float* __restrict__ b_out, Layout lay,
                                Consts c, float* out, float* G, float* aux,
-                               float* loss) {
+                               float* loss, size_t ss, size_t ps, size_t ls) {
+  const size_t so = blockIdx.x * ss, po = blockIdx.x * ps;
+  S += so;
+  out += so;
+  G += so;
+  aux += so;
+  w_out += po;
+  b_out += po;
+  loss += blockIdx.x * ls;
   output_layer(S, H, w_out, b_out, 2, lay, out);
   const int B = lay.B;
   const float t_max_over_b = c.c[1], eps = c.c[2], i_ext = c.c[3];
@@ -405,8 +456,17 @@ __global__ void fredholm_loss_kernel(const float* __restrict__ S, int H,
                                      Layout lay, const float* __restrict__ u,
                                      const float* __restrict__ cnst, Consts c,
                                      float* out, float* G, float* aux,
-                                     float* loss) {
+                                     float* loss, size_t ss, size_t ps,
+                                     size_t ls) {
   __shared__ float scalars[2];  // I, dL/dI
+  const size_t so = blockIdx.x * ss, po = blockIdx.x * ps;
+  S += so;
+  out += so;
+  G += so;
+  aux += so;
+  w_out += po;
+  b_out += po;
+  loss += blockIdx.x * ls;
   output_layer(S, H, w_out, b_out, 1, lay, out);
   const int B = lay.B, R = lay.R;
   const float upper = c.c[0];
@@ -457,12 +517,16 @@ __global__ void fredholm_loss_kernel(const float* __restrict__ S, int H,
 // Backward
 // ---------------------------------------------------------------------------
 
-// ds[n, j] = Σ_o G[n, o]·w_out[j, o].
+// ds[n, j] = Σ_o G[n, o]·w_out[j, o]; replica blockIdx.y.
 __global__ void out_bwd_kernel(const float* __restrict__ G,
                                const float* __restrict__ w_out, int N, int H,
-                               int O, float* __restrict__ ds) {
+                               int O, float* __restrict__ ds, size_t ss,
+                               size_t ps) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= N * H) return;
+  G += blockIdx.y * ss;
+  ds += blockIdx.y * ss;
+  w_out += blockIdx.y * ps;
   const int n = idx / H, j = idx - n * H;
   float acc = 0.0f;
   for (int o = 0; o < O; ++o) acc = fmaf(G[n * O + o], w_out[j * O + o], acc);
@@ -473,19 +537,27 @@ __global__ void out_bwd_kernel(const float* __restrict__ G,
 // dW[k, m] = Σ A[r, k]·dz[r, m] (k < KA; written at dwA + s·n), the D = 1
 // input row k = KA when x != nullptr (dwx + s·n), and db[m] = Σ dz[r, m] on
 // value streams, 0 on tangent streams (db + s·n). Block (32, 8) owns a
-// 32 × 32 tile of (k, m).
+// 32 × 32 tile of (k, m). blockIdx.z = r·R + s: replica r's operands and
+// partials at r·ss.
 __global__ void weight_grad_kernel(const float* __restrict__ A, int KA,
                                    const float* __restrict__ x,
                                    const float* __restrict__ dz, int M,
                                    Layout lay, int n, float* __restrict__ dwA,
                                    float* __restrict__ dwx,
-                                   float* __restrict__ db) {
+                                   float* __restrict__ db, size_t ss) {
   __shared__ float a_s[kTile][kTile + 1];
   __shared__ float d_s[kTile][kTile + 1];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int m = blockIdx.x * kTile + tx;
   const int k0 = blockIdx.y * kTile;
-  const int stream = blockIdx.z;
+  const int stream = blockIdx.z % lay.R;
+  const size_t so = (blockIdx.z / lay.R) * ss;
+  A += so;
+  x = dednn::shift(x, so);
+  dz += so;
+  dwA += so;
+  dwx = dednn::shift(dwx, so);
+  db = dednn::shift(db, so);
   const int end = (stream + 1) * lay.B;
   const bool bias = db != nullptr && blockIdx.y == 0 && ty == 0;
   float acc[kTile / 8] = {};
@@ -535,9 +607,17 @@ __global__ void gate_bwd1_kernel(const float* __restrict__ ds,
                                  const float* __restrict__ h_pre, Layout lay,
                                  int H, int act, float* __restrict__ dh_pre,
                                  float* __restrict__ dzgr_pre,
-                                 float* __restrict__ ds_prev) {
+                                 float* __restrict__ ds_prev, size_t ss) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= lay.B * H) return;
+  const size_t so = blockIdx.y * ss;
+  ds += so;
+  s_prev += so;
+  zgr_pre += so;
+  h_pre += so;
+  dh_pre += so;
+  dzgr_pre += so;
+  ds_prev += so;
   const int b = idx / H, j = idx - b * H;
   const int B = lay.B;
   for (int v = 0; v < lay.R; ++v) {
@@ -592,9 +672,15 @@ __global__ void gate_bwd2_kernel(const float* __restrict__ dsr,
                                  const float* __restrict__ zgr_pre,
                                  Layout lay, int H, int act,
                                  float* __restrict__ ds_prev,
-                                 float* __restrict__ dzgr_pre) {
+                                 float* __restrict__ dzgr_pre, size_t ss) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= lay.B * H) return;
+  const size_t so = blockIdx.y * ss;
+  dsr += so;
+  s_prev += so;
+  zgr_pre += so;
+  ds_prev += so;
+  dzgr_pre += so;
   const int b = idx / H, j = idx - b * H;
   const int B = lay.B;
   for (int v = 0; v < lay.R; ++v) {
@@ -625,9 +711,14 @@ __global__ void gate_bwd2_kernel(const float* __restrict__ dsr,
 // Thread (b, j): the input layer's activation VJP, dz0 = act_bwd(pre, ds).
 __global__ void input_bwd_kernel(const float* __restrict__ ds,
                                  const float* __restrict__ pre, Layout lay,
-                                 int H, int act, float* __restrict__ dz0) {
+                                 int H, int act, float* __restrict__ dz0,
+                                 size_t ss) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= lay.B * H) return;
+  const size_t so = blockIdx.y * ss;
+  ds += so;
+  pre += so;
+  dz0 += so;
   const int b = idx / H, j = idx - b * H;
   const int B = lay.B;
   for (int v = 0; v < lay.R; ++v) {
@@ -692,14 +783,17 @@ bool valid(int spec, int R, int O, unsigned value_mask) {
 }
 
 // Enqueue one step's forward and backward: loss -> *loss, the gradient's
-// per-stream partials -> partials_of(scratch).
+// per-stream partials -> partials_of(scratch). For `reps` replicas, replica
+// r's parameters are at p + r·n, its scratch at scratch + r·scratch_floats
+// and its loss at loss + r·ls; every launch covers all of them.
 cudaError_t grad_step(int spec, const Consts& c, const float* cnst,
                       const float* p, const float* u, float* scratch,
-                      float* loss, const Layout& lay, int H, int L, int O,
-                      int act, cudaStream_t stream) {
+                      float* loss, int reps, size_t ls, const Layout& lay,
+                      int H, int L, int O, int act, cudaStream_t stream) {
   const int R = lay.R, B = lay.B, N = R * B;
   const size_t layer = static_cast<size_t>(N) * H;
   const int n = static_cast<int>(n_params(H, L, O));
+  const size_t ss = scratch_floats(R, B, H, L, O);
   const Offsets off(H, L, O);
   float* X = scratch;                    // [N]
   float* PRE = X + N;                    // [N, H] input pre-activation
@@ -717,19 +811,20 @@ cudaError_t grad_step(int spec, const Consts& c, const float* cnst,
   float* DZ = DSR + layer;               // [N, 3H] of the gates' pre-acts
   float* part = partials_of(scratch, R, B, H, L, O);
 
-  const int ew = dednn::ceil_div(B * H, kEwThreads);
+  const dim3 ew(dednn::ceil_div(B * H, kEwThreads), reps);
   const dim3 sq(16, 16), wt(32, 8);
-  auto gemm_grid = [](int rows, int cols) {
-    return dim3(dednn::ceil_div(cols, kTile), dednn::ceil_div(rows, kTile));
+  auto gemm_grid = [reps](int rows, int cols) {
+    return dim3(dednn::ceil_div(cols, kTile), dednn::ceil_div(rows, kTile),
+                reps);
   };
-  auto wgrad_grid = [R](int k_rows, int cols) {
+  auto wgrad_grid = [R, reps](int k_rows, int cols) {
     return dim3(dednn::ceil_div(cols, kTile), dednn::ceil_div(k_rows, kTile),
-                R);
+                reps * R);
   };
 
   input_kernel<<<ew, kEwThreads, 0, stream>>>(spec, u, cnst, c, lay,
                                               p + off.w_in, p + off.b_in, H,
-                                              act, X, PRE, ST);
+                                              act, X, PRE, ST, ss, n);
   for (int l = 0; l < L; ++l) {
     const float* S = ST + l * layer;
     float* Z = ZG + 3 * l * layer;
@@ -739,29 +834,32 @@ cudaError_t grad_step(int spec, const Consts& c, const float* cnst,
     const size_t lw = static_cast<size_t>(l) * H;
     gemm_kernel<false><<<gemm_grid(N, 3 * H), sq, 0, stream>>>(
         S, p + off.Wzgr + lw3 * H, N, H, 3 * H, X, p + off.Uzgr + lw3,
-        p + off.bzgr + lw3, lay, nullptr, Z);
-    gate_fwd_kernel<<<ew, kEwThreads, 0, stream>>>(Z, S, lay, H, act, SRl);
+        p + off.bzgr + lw3, lay, nullptr, Z, ss, n);
+    gate_fwd_kernel<<<ew, kEwThreads, 0, stream>>>(Z, S, lay, H, act, SRl,
+                                                   ss);
     gemm_kernel<false><<<gemm_grid(N, H), sq, 0, stream>>>(
         SRl, p + off.Wh + lw * H, N, H, H, X, p + off.Uh + lw,
-        p + off.bh + lw, lay, nullptr, Hh);
+        p + off.bh + lw, lay, nullptr, Hh, ss, n);
     state_fwd_kernel<<<ew, kEwThreads, 0, stream>>>(Z, Hh, S, lay, H, act,
-                                                    ST + (l + 1) * layer);
+                                                    ST + (l + 1) * layer, ss);
   }
   const float* S_L = ST + L * layer;
   if (spec == kFitzHughNagumo) {
-    fn_loss_kernel<<<1, kLossThreads, 0, stream>>>(
-        S_L, H, p + off.w_out, p + off.b_out, lay, c, OUT, G, AUX, loss);
+    fn_loss_kernel<<<reps, kLossThreads, 0, stream>>>(
+        S_L, H, p + off.w_out, p + off.b_out, lay, c, OUT, G, AUX, loss, ss,
+        n, ls);
   } else {
-    fredholm_loss_kernel<<<1, kLossThreads, 0, stream>>>(
+    fredholm_loss_kernel<<<reps, kLossThreads, 0, stream>>>(
         S_L, H, p + off.w_out, p + off.b_out, lay, u, cnst, c, OUT, G, AUX,
-        loss);
+        loss, ss, n, ls);
   }
 
   weight_grad_kernel<<<wgrad_grid(H, O), wt, 0, stream>>>(
       S_L, H, nullptr, G, O, lay, n, part + off.w_out, nullptr,
-      part + off.b_out);
-  out_bwd_kernel<<<dednn::ceil_div(N * H, kAdamThreads), kAdamThreads, 0,
-                   stream>>>(G, p + off.w_out, N, H, O, DS);
+      part + off.b_out, ss);
+  out_bwd_kernel<<<dim3(dednn::ceil_div(N * H, kAdamThreads), reps),
+                   kAdamThreads, 0, stream>>>(G, p + off.w_out, N, H, O, DS,
+                                              ss, n);
   for (int l = L - 1; l >= 0; --l) {
     const float* S = ST + l * layer;
     const float* Z = ZG + 3 * l * layer;
@@ -770,26 +868,27 @@ cudaError_t grad_step(int spec, const Consts& c, const float* cnst,
     const size_t lw3 = static_cast<size_t>(l) * 3 * H;
     const size_t lw = static_cast<size_t>(l) * H;
     gate_bwd1_kernel<<<ew, kEwThreads, 0, stream>>>(DS, S, Z, Hh, lay, H, act,
-                                                    DHP, DZ, DSP);
+                                                    DHP, DZ, DSP, ss);
     weight_grad_kernel<<<wgrad_grid(H + 1, H), wt, 0, stream>>>(
         SRl, H, X, DHP, H, lay, n, part + off.Wh + lw * H, part + off.Uh + lw,
-        part + off.bh + lw);
+        part + off.bh + lw, ss);
     gemm_kernel<true><<<gemm_grid(N, H), sq, 0, stream>>>(
         DHP, p + off.Wh + lw * H, N, H, H, nullptr, nullptr, nullptr, lay,
-        nullptr, DSR);
+        nullptr, DSR, ss, n);
     gate_bwd2_kernel<<<ew, kEwThreads, 0, stream>>>(DSR, S, Z, lay, H, act,
-                                                    DSP, DZ);
+                                                    DSP, DZ, ss);
     weight_grad_kernel<<<wgrad_grid(H + 1, 3 * H), wt, 0, stream>>>(
         S, H, X, DZ, 3 * H, lay, n, part + off.Wzgr + lw3 * H,
-        part + off.Uzgr + lw3, part + off.bzgr + lw3);
+        part + off.Uzgr + lw3, part + off.bzgr + lw3, ss);
     gemm_kernel<true><<<gemm_grid(N, H), sq, 0, stream>>>(
         DZ, p + off.Wzgr + lw3 * H, N, 3 * H, H, nullptr, nullptr, nullptr,
-        lay, DSP, DS);
+        lay, DSP, DS, ss, n);
   }
-  input_bwd_kernel<<<ew, kEwThreads, 0, stream>>>(DS, PRE, lay, H, act, DHP);
+  input_bwd_kernel<<<ew, kEwThreads, 0, stream>>>(DS, PRE, lay, H, act, DHP,
+                                                  ss);
   weight_grad_kernel<<<wgrad_grid(1, H), wt, 0, stream>>>(
       X, 1, nullptr, DHP, H, lay, n, part + off.w_in, nullptr,
-      part + off.b_in);
+      part + off.b_in, ss);
   return cudaGetLastError();
 }
 
@@ -820,8 +919,8 @@ extern "C" int dgm_grad(int spec, const float* consts, const float* cnst,
   const Consts c = load_consts(consts);
   const Layout lay{R, B, value_mask};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = grad_step(spec, c, cnst, p, u, scratch, loss, lay, H, L,
-                              O, act, st);
+  cudaError_t err = grad_step(spec, c, cnst, p, u, scratch, loss, 1, 0, lay,
+                              H, L, O, act, st);
   if (err != cudaSuccess) return err;
   const int n = static_cast<int>(n_params(H, L, O));
   sum_partials_kernel<<<dednn::ceil_div(n, kAdamThreads), kAdamThreads, 0,
@@ -830,32 +929,40 @@ extern "C" int dgm_grad(int spec, const float* consts, const float* cnst,
   return cudaGetLastError();
 }
 
-// K Adam steps (kernel #4 around #7): p, m, v updated in place, losses[K];
-// *step_math_runs (host memory) is set to the number of steps whose step
-// math was enqueued.
-extern "C" int dgm_train(int spec, const float* consts, const float* cnst,
-                         float* p, float* m, float* v, const float* u,
-                         float* scratch, float* losses, int K, int R, int B,
-                         int H, int L, int O, int act, unsigned value_mask,
-                         float lr, int step0, int schedule, float horizon,
-                         float decay, float half_span, float log_decay,
-                         int* step_math_runs, void* stream) {
+// K Adam steps of N packed replicas (kernel #5 around #7): p, m, v [N, n]
+// updated in place, losses [N, K], scratch N·dgm_scratch_floats; the
+// uniforms [K, B], the layout, the consts, cnst and the schedule are
+// shared. *step_math_runs (host memory) is set to the number of
+// replica-steps whose step math was enqueued. N·R above the grid's 65 535
+// is refused.
+extern "C" int dgm_train_packed(int spec, const float* consts,
+                                const float* cnst, float* p, float* m,
+                                float* v, const float* u, float* scratch,
+                                float* losses, int N, int K, int R, int B,
+                                int H, int L, int O, int act,
+                                unsigned value_mask, float lr, int step0,
+                                int schedule, float horizon, float decay,
+                                float half_span, float log_decay,
+                                int* step_math_runs, void* stream) {
   *step_math_runs = 0;
   if (!valid(spec, R, O, value_mask)) return cudaErrorInvalidValue;
+  if (N < 1 || N > dednn::kMaxGridYZ / R) return cudaErrorInvalidValue;
   const Consts c = load_consts(consts);
   const Layout lay{R, B, value_mask};
   const Schedule sched{schedule, horizon, decay, half_span, log_decay};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(n_params(H, L, O));
   const float* part = partials_of(scratch, R, B, H, L, O);
+  const dim3 adam_grid(dednn::ceil_div(n, kAdamThreads), N);
   for (int k = 0; k < K; ++k) {
     cudaError_t err = grad_step(spec, c, cnst, p,
                                 u + static_cast<size_t>(k) * B, scratch,
-                                losses + k, lay, H, L, O, act, st);
+                                losses + k, N, K, lay, H, L, O, act, st);
     if (err != cudaSuccess) return err;
-    ++*step_math_runs;
-    adam_kernel<<<dednn::ceil_div(n, kAdamThreads), kAdamThreads, 0, st>>>(
-        p, m, v, part, R, n, lr, static_cast<float>(step0 + k + 1), sched);
+    *step_math_runs += N;
+    adam_kernel<<<adam_grid, kAdamThreads, 0, st>>>(
+        p, m, v, part, R, n, scratch_floats(R, B, H, L, O), lr,
+        static_cast<float>(step0 + k + 1), sched);
   }
   return cudaGetLastError();
 }

@@ -5,7 +5,7 @@
 // fused_adam_kernel (reached through run_fused_chunk; kernel #4) around
 // kernels/fused_engine.py::engine_step_math (kernel #6). The TPU kernel
 // keeps p, m, v in VMEM for all K steps and runs the spec's step math
-// (a group-generic Taylor forward, the loss cotangent from jax.vjp, a hand
+// (a group-generic Taylor forward, the loss cotangent by JAX's vjp, a hand
 // backward) inside each step, then Adam with a constant, cosine or
 // exponential learning rate computed from the absolute step.
 //
@@ -32,6 +32,18 @@
 // Every reduction runs in a fixed order with no atomics, so runs are
 // bit-identical and a run cut into chunks equals the uncut run. Every
 // product is fp32 FFMA: exact fp32 ("highest"), no tensor cores.
+//
+// Packed replicas (kernel #5, engine_core.py::fused_packed_adam_kernel,
+// reached through run_fused_packed): engine_train_packed advances N
+// independent runs that share the uniforms and the lr schedule. p, m and
+// v are [N, n] replica-major, each replica has its own scratch (stride
+// scratch_floats), and the loss history is [N, K]. A step is the same
+// launch sequence as one run's, each launch with N times the blocks: the
+// replica is the grid's z index (fwd_layer, bwd_data), part of it
+// (bwd_weight: z = r·R + stream), x (loss) or y (adam). Every kernel moves
+// its pointers to its replica's copy and then runs the single-replica code,
+// so replica r of a packed call equals a one-replica call on r's state bit
+// for bit. A single run (fused_engine_chunk) is the packed call at N = 1.
 //
 // Row layout of every [R·B, width] activation: stream s, batch row b at row
 // s·B + b, streams in fused_engine.Group order (per group: value, then the
@@ -344,7 +356,8 @@ struct Heat2D {
 // k range into an R x kColsPerLane register tile; the slices' partial sums
 // are added in warp order through shared memory. For the first layer
 // (u != nullptr) the spec builds the row's R input rows from its uniforms,
-// which are also written to x_out.
+// which are also written to x_out. Replica blockIdx.z: its activations at
+// z·ss (scratch stride), its weights at z·ps.
 template <class S>
 __global__ void fwd_layer_kernel(const float* __restrict__ in, int k_in,
                                  const float* __restrict__ u, Consts c,
@@ -352,9 +365,17 @@ __global__ void fwd_layer_kernel(const float* __restrict__ in, int k_in,
                                  const float* __restrict__ w,
                                  const float* __restrict__ b, int k_out, int B,
                                  float* __restrict__ z_out,
-                                 float* __restrict__ a_out) {
+                                 float* __restrict__ a_out, size_t ss,
+                                 size_t ps) {
   constexpr int R = S::R;
   extern __shared__ float smem[];
+  const size_t so = blockIdx.z * ss, po = blockIdx.z * ps;
+  in = dednn::shift(in, so);
+  x_out = dednn::shift(x_out, so);
+  w += po;
+  b += po;
+  z_out += so;
+  a_out += so;
   float* in_s = smem;                // [R][k_in]
   float* part_s = smem + R * k_in;   // [kSplitWarps][R][kColsPerWarp]
   const int lane = threadIdx.x, warp = threadIdx.y;
@@ -446,17 +467,25 @@ __global__ void fwd_layer_kernel(const float* __restrict__ in, int k_in,
 }
 
 // The output layer (O = 1), the spec's point loss, loss = the batch mean,
-// and the output gradient G [R·B] = (1/B) d(point loss)/d(out). One block;
-// warp w takes batch rows w, w + 32, ... and reduces each dot product with
-// a butterfly shuffle (fixed order).
+// and the output gradient G [R·B] = (1/B) d(point loss)/d(out). One block
+// per replica (blockIdx.x; its loss at x·ls); warp w takes batch rows w,
+// w + 32, ... and reduces each dot product with a butterfly shuffle (fixed
+// order).
 template <class S>
 __global__ void loss_kernel(const float* __restrict__ a, int h,
                             const float* __restrict__ w_out,
                             const float* __restrict__ b_out,
                             const float* __restrict__ u, Consts c, int B,
-                            float* __restrict__ loss, float* __restrict__ G) {
+                            float* __restrict__ loss, float* __restrict__ G,
+                            size_t ss, size_t ps, size_t ls) {
   constexpr int R = S::R;
   __shared__ float partial[kLossThreads / 32];
+  const size_t so = blockIdx.x * ss, po = blockIdx.x * ps;
+  a += so;
+  G += so;
+  w_out += po;
+  b_out += po;
+  loss += blockIdx.x * ls;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_warps = blockDim.x / 32;
   const float inv_b = 1.0f / static_cast<float>(B);
@@ -491,28 +520,32 @@ __global__ void loss_kernel(const float* __restrict__ a, int h,
   }
 }
 
-// The partial sums of stream s = blockIdx.z, written at dw + s * n, db + s * n
+// The partial sums of stream s, written at dw + s * n, db + s * n
 // (n = one flat parameter buffer): dw[k, j] = sum of a[r, k] dz[r, j] and
 // db[j] = sum of dz[r, j] over the stream's B rows in order (db is 0 for
 // tangent streams, which carry no bias: bit s of value_mask is clear).
 // Block (32, 8) owns a 32 x 32 tile of dw; blocks with blockIdx.y == 0
-// also produce db for their columns.
+// also produce db for their columns. blockIdx.z = r·R + s: replica r's
+// operands and partials at r·ss.
 __global__ void bwd_weight_kernel(const float* __restrict__ a, int k_in,
                                   const float* __restrict__ dz, int k_out,
-                                  int B, int n, unsigned value_mask,
+                                  int B, int n, int R, unsigned value_mask,
                                   float* __restrict__ dw,
-                                  float* __restrict__ db) {
+                                  float* __restrict__ db, size_t ss) {
   __shared__ float a_s[kTile][kTile + 1];
   __shared__ float d_s[kTile][kTile + 1];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int j = blockIdx.x * kTile + tx;
   const int k0 = blockIdx.y * kTile;
-  const int stream = blockIdx.z;
+  const int stream = blockIdx.z % R;
+  const size_t so = (blockIdx.z / R) * ss;
   const int end = (stream + 1) * B;
   const bool bias = blockIdx.y == 0 && ty == 0;
   const bool value = (value_mask >> stream) & 1u;
-  dw += static_cast<size_t>(stream) * n;
-  db += static_cast<size_t>(stream) * n;
+  a += so;
+  dz += so;
+  dw += so + static_cast<size_t>(stream) * n;
+  db += so + static_cast<size_t>(stream) * n;
   float acc[kTile / 8] = {};
   float bacc = 0.0f;
   for (int r0 = stream * B; r0 < end; r0 += kTile) {
@@ -553,15 +586,23 @@ __global__ void bwd_weight_kernel(const float* __restrict__ a, int k_in,
 //   dzf = d gf (first-only tangents).
 // Block (32, kSplitWarps): w is staged in shared memory with rows padded by
 // one float; warp y sums its own slice of the j range, and the slices'
-// partial sums are added in warp order through shared memory.
+// partial sums are added in warp order through shared memory. Replica
+// blockIdx.z stages its own weight (at z·ps); its streams are at z·ss.
 template <class S>
 __global__ void bwd_data_kernel(const float* __restrict__ dz, int k_out,
                                 const float* __restrict__ w, int k_in,
                                 const float* __restrict__ z_prev,
                                 const float* __restrict__ a_prev, int B,
-                                float* __restrict__ dz_prev) {
+                                float* __restrict__ dz_prev, size_t ss,
+                                size_t ps) {
   constexpr int R = S::R;
   extern __shared__ float smem[];
+  const size_t so = blockIdx.z * ss;
+  dz += so;
+  z_prev += so;
+  a_prev += so;
+  dz_prev += so;
+  w += blockIdx.z * ps;
   const int ldw = k_out + 1;
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int tid = warp * 32 + lane;
@@ -692,15 +733,19 @@ cudaError_t prepare(int H) {
 
 // Enqueue one step's forward and backward: loss -> *loss, the gradient's
 // per-stream partials -> partials_of(scratch) (each in the flat layout of
-// p). scratch holds scratch_floats<S>(B, H, L).
+// p). scratch holds scratch_floats<S>(B, H, L) per replica. For N
+// replicas, replica r's parameters are at p + r·n, its scratch at
+// scratch + r·scratch_floats, and its loss at loss + r·ls; every launch
+// covers all N.
 template <class S>
 cudaError_t grad_step(const float* p, const float* u, const Consts& c,
-                      float* scratch, float* loss, int B, int H, int L,
-                      cudaStream_t stream) {
+                      float* scratch, float* loss, int N, size_t ls, int B,
+                      int H, int L, cudaStream_t stream) {
   constexpr int R = S::R, D = S::D;
   const size_t rows = static_cast<size_t>(R) * B;
   const size_t layer = rows * H;
   const int n = n_params(D, H, L);
+  const size_t ss = scratch_floats<S>(B, H, L);
   float* X = scratch;                // [R·B, D]
   float* Z = X + rows * D;           // [L + 1][R·B, H] pre-activations
   float* A = Z + (L + 1) * layer;    // [L + 1][R·B, H] activations
@@ -722,37 +767,41 @@ cudaError_t grad_step(const float* p, const float* u, const Consts& c,
   float* gb_out = gw_out + H;
 
   const dim3 split(32, kSplitWarps);
-  const dim3 fwd_grid(B, dednn::ceil_div(H, kColsPerWarp));
+  const dim3 fwd_grid(B, dednn::ceil_div(H, kColsPerWarp), N);
   fwd_layer_kernel<S><<<fwd_grid, split, fwd_smem(R, D), stream>>>(
-      nullptr, D, u, c, X, w_in, b_in, H, B, Z, A);
+      nullptr, D, u, c, X, w_in, b_in, H, B, Z, A, ss, n);
   for (int l = 1; l <= L; ++l) {
     fwd_layer_kernel<S><<<fwd_grid, split, fwd_smem(R, H), stream>>>(
         A + (l - 1) * layer, H, nullptr, c, nullptr,
         w_hid + static_cast<size_t>(l - 1) * H * H, b_hid + (l - 1) * H, H, B,
-        Z + l * layer, A + l * layer);
+        Z + l * layer, A + l * layer, ss, n);
   }
-  loss_kernel<S><<<1, kLossThreads, 0, stream>>>(A + L * layer, H, w_out,
-                                                 b_out, u, c, B, loss, G);
+  loss_kernel<S><<<N, kLossThreads, 0, stream>>>(
+      A + L * layer, H, w_out, b_out, u, c, B, loss, G, ss, n, ls);
 
   const dim3 tile(32, 8);
-  bwd_weight_kernel<<<dim3(1, dednn::ceil_div(H, kTile), R), tile, 0,
-                      stream>>>(A + L * layer, H, G, 1, B, n, S::kValueMask,
-                                gw_out, gb_out);
-  bwd_data_kernel<S><<<B, split, bwd_data_smem(R, H, 1), stream>>>(
-      G, 1, w_out, H, Z + L * layer, A + L * layer, B, DZ + L * layer);
+  const dim3 data_grid(B, 1, N);
+  bwd_weight_kernel<<<dim3(1, dednn::ceil_div(H, kTile), N * R), tile, 0,
+                      stream>>>(A + L * layer, H, G, 1, B, n, R,
+                                S::kValueMask, gw_out, gb_out, ss);
+  bwd_data_kernel<S><<<data_grid, split, bwd_data_smem(R, H, 1), stream>>>(
+      G, 1, w_out, H, Z + L * layer, A + L * layer, B, DZ + L * layer, ss, n);
   for (int l = L; l >= 1; --l) {
-    const dim3 grid(dednn::ceil_div(H, kTile), dednn::ceil_div(H, kTile), R);
+    const dim3 grid(dednn::ceil_div(H, kTile), dednn::ceil_div(H, kTile),
+                    N * R);
     bwd_weight_kernel<<<grid, tile, 0, stream>>>(
-        A + (l - 1) * layer, H, DZ + l * layer, H, B, n, S::kValueMask,
-        gw_hid + static_cast<size_t>(l - 1) * H * H, gb_hid + (l - 1) * H);
-    bwd_data_kernel<S><<<B, split, bwd_data_smem(R, H, H), stream>>>(
+        A + (l - 1) * layer, H, DZ + l * layer, H, B, n, R, S::kValueMask,
+        gw_hid + static_cast<size_t>(l - 1) * H * H, gb_hid + (l - 1) * H,
+        ss);
+    bwd_data_kernel<S><<<data_grid, split, bwd_data_smem(R, H, H), stream>>>(
         DZ + l * layer, H, w_hid + static_cast<size_t>(l - 1) * H * H, H,
-        Z + (l - 1) * layer, A + (l - 1) * layer, B, DZ + (l - 1) * layer);
+        Z + (l - 1) * layer, A + (l - 1) * layer, B, DZ + (l - 1) * layer, ss,
+        n);
   }
   bwd_weight_kernel<<<dim3(dednn::ceil_div(H, kTile), dednn::ceil_div(D, kTile),
-                           R),
-                      tile, 0, stream>>>(X, D, DZ, H, B, n, S::kValueMask,
-                                         gw_in, gb_in);
+                           N * R),
+                      tile, 0, stream>>>(X, D, DZ, H, B, n, R, S::kValueMask,
+                                         gw_in, gb_in, ss);
   return cudaGetLastError();
 }
 
@@ -762,7 +811,7 @@ int grad_impl(const Consts& c, const float* p, const float* u, float* scratch,
               cudaStream_t stream) {
   cudaError_t err = prepare<S>(H);
   if (err != cudaSuccess) return err;
-  err = grad_step<S>(p, u, c, scratch, loss, B, H, L, stream);
+  err = grad_step<S>(p, u, c, scratch, loss, 1, 0, B, H, L, stream);
   if (err != cudaSuccess) return err;
   const int n = n_params(S::D, H, L);
   sum_partials_kernel<<<dednn::ceil_div(n, kAdamThreads), kAdamThreads, 0,
@@ -771,24 +820,28 @@ int grad_impl(const Consts& c, const float* p, const float* u, float* scratch,
   return cudaGetLastError();
 }
 
-// *step_math_runs counts the step-math launch sequences enqueued.
+// K Adam steps of N replicas, one launch sequence per step for all of
+// them; *step_math_runs counts the replica-steps whose step math was
+// enqueued.
 template <class S>
 int train_impl(const Consts& c, float* p, float* m, float* v, const float* u,
-               float* scratch, float* losses, int K, int B, int H, int L,
-               float lr, int step0, const Schedule& sched,
+               float* scratch, float* losses, int N, int K, int B, int H,
+               int L, float lr, int step0, const Schedule& sched,
                int* step_math_runs, cudaStream_t stream) {
+  if (N < 1 || N > dednn::kMaxGridYZ / S::R) return cudaErrorInvalidValue;
   cudaError_t err = prepare<S>(H);
   if (err != cudaSuccess) return err;
   const int n = n_params(S::D, H, L);
   const float* partials = partials_of<S>(scratch, B, H, L);
+  const dim3 adam_grid(dednn::ceil_div(n, kAdamThreads), N);
   for (int k = 0; k < K; ++k) {
     err = grad_step<S>(p, u + static_cast<size_t>(k) * B * S::U, c, scratch,
-                       losses + k, B, H, L, stream);
+                       losses + k, N, K, B, H, L, stream);
     if (err != cudaSuccess) return err;
-    ++*step_math_runs;
-    adam_kernel<<<dednn::ceil_div(n, kAdamThreads), kAdamThreads, 0,
-                  stream>>>(p, m, v, partials, S::R, n, lr,
-                            static_cast<float>(step0 + k + 1), sched);
+    *step_math_runs += N;
+    adam_kernel<<<adam_grid, kAdamThreads, 0, stream>>>(
+        p, m, v, partials, S::R, n, scratch_floats<S>(B, H, L), lr,
+        static_cast<float>(step0 + k + 1), sched);
   }
   return cudaGetLastError();
 }
@@ -848,22 +901,25 @@ extern "C" int engine_grad(int spec, const float* consts, const float* p,
   return code < 0 ? cudaErrorInvalidValue : code;
 }
 
-// K Adam steps (kernel #4 around #6): p, m, v updated in place, losses[K];
-// *step_math_runs (host memory) is set to the number of steps whose step
-// math was enqueued.
-extern "C" int engine_train(int spec, const float* consts, float* p, float* m,
-                            float* v, const float* u, float* scratch,
-                            float* losses, int K, int B, int H, int L,
-                            float lr, int step0, int schedule, float horizon,
-                            float decay, float half_span, float log_decay,
-                            int* step_math_runs, void* stream) {
+// K Adam steps of N packed replicas (kernel #5 around #6): p, m, v [N, n]
+// updated in place, losses [N, K], scratch N·engine_scratch_floats; the
+// uniforms [K, B, U] and the schedule are shared. *step_math_runs (host
+// memory) is set to the number of replica-steps whose step math was
+// enqueued. N·R above the grid's 65 535 is refused.
+extern "C" int engine_train_packed(int spec, const float* consts, float* p,
+                                   float* m, float* v, const float* u,
+                                   float* scratch, float* losses, int N, int K,
+                                   int B, int H, int L, float lr, int step0,
+                                   int schedule, float horizon, float decay,
+                                   float half_span, float log_decay,
+                                   int* step_math_runs, void* stream) {
   const Consts c = load_consts(consts);
   const Schedule sched{schedule, horizon, decay, half_span, log_decay};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   *step_math_runs = 0;
   const int code = dispatch(spec, [&](auto s) {
-    return train_impl<decltype(s)>(c, p, m, v, u, scratch, losses, K, B, H, L,
-                                   lr, step0, sched, step_math_runs, st);
+    return train_impl<decltype(s)>(c, p, m, v, u, scratch, losses, N, K, B, H,
+                                   L, lr, step0, sched, step_math_runs, st);
   });
   return code < 0 ? cudaErrorInvalidValue : code;
 }

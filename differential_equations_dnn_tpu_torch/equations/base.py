@@ -65,6 +65,14 @@ class Problem:
         u = torch.rand((n, self.n_uniform), generator=generator)
         return self.batch_from_uniforms(u.to(device))
 
+    def validation_sample(self, n, generator=None, device=None):
+        """A collocation batch for validation (replica selection, the
+        L-BFGS polish). Defaults to :meth:`sample`; a problem that trains
+        on a fixed grid overrides it with dense off-grid points, since a
+        net can zero its residual on the grid and oscillate between grid
+        points (JAX base.py:52-58)."""
+        return self.sample(n, generator, device)
+
     def batch_from_uniforms(self, u):
         """The collocation batch built from ``[B, n_uniform]`` draws, as
         the fused engine's spec builds it."""

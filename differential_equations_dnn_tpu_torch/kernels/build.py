@@ -52,21 +52,23 @@ _SIGNATURES = {
     "engine_smem_bytes": [_I] * 2,
     # spec, consts, p, u, scratch, grad, loss, B, H, L, stream
     "engine_grad": [_I, _CONSTS] + [_P] * 5 + [_I] * 3 + [_P],
-    # spec, consts, p, m, v, u, scratch, losses, K, B, H, L, lr, step0,
+    # spec, consts, p, m, v, u, scratch, losses, N, K, B, H, L, lr, step0,
     # schedule, horizon, decay, half_span, log_decay, step_math_runs, stream
-    "engine_train": [_I, _CONSTS] + [_P] * 6 + [_I] * 4 + [_F, _I, _I]
-                    + [_F] * 4 + [ctypes.POINTER(_I), _P],
+    "engine_train_packed": [_I, _CONSTS] + [_P] * 6 + [_I] * 5
+                           + [_F, _I, _I] + [_F] * 4
+                           + [ctypes.POINTER(_I), _P],
     # R, B, H, L, O
     "dgm_scratch_floats": [_I] * 5,
     "dgm_max_streams": [],
     # spec, consts, const, p, u, scratch, grad, loss, R, B, H, L, O, act,
     # value_mask, stream
     "dgm_grad": [_I, _CONSTS] + [_P] * 6 + [_I] * 6 + [_U, _P],
-    # spec, consts, const, p, m, v, u, scratch, losses, K, R, B, H, L, O,
+    # spec, consts, const, p, m, v, u, scratch, losses, N, K, R, B, H, L, O,
     # act, value_mask, lr, step0, schedule, horizon, decay, half_span,
     # log_decay, step_math_runs, stream
-    "dgm_train": [_I, _CONSTS] + [_P] * 7 + [_I] * 7 + [_U, _F, _I, _I]
-                 + [_F] * 4 + [ctypes.POINTER(_I), _P],
+    "dgm_train_packed": [_I, _CONSTS] + [_P] * 7 + [_I] * 8
+                        + [_U, _F, _I, _I] + [_F] * 4
+                        + [ctypes.POINTER(_I), _P],
 }
 _RESTYPES = {"engine_scratch_floats": ctypes.c_longlong,
              "engine_smem_bytes": ctypes.c_longlong,

@@ -2,14 +2,19 @@
 
 Counterpart of the JAX package's kernels/engine_core.py
 (``fused_adam_kernel`` around a pluggable ``step_math``). The CUDA version
-of the loop is ``engine_train`` in csrc/engine_train.cu, reached through
-``fused_engine.fused_engine_chunk``; this module holds what both share:
+of the loop is ``engine_train_packed`` in csrc/engine_train.cu, reached
+through ``fused_engine.fused_engine_chunk`` (one replica) and
+``fused_engine_packed_chunk``; this module holds what both share:
 
 * the per-step learning rate of the three schedules, computed in fp32 from
   the absolute step ``t = step0 + k + 1`` with the JAX kernel's formulas;
 * :func:`run_fused_chunk`, the plain loop the kernel is held against;
 * :func:`check_state_fits`, the H100 rule that replaces the JAX package's
-  VMEM rule (``_check_state_fits``).
+  VMEM rule (``_check_state_fits``);
+* the packed-replica layout (:func:`stack_replicas`,
+  :func:`unstack_replicas`), :func:`run_fused_packed`, the plain twin of
+  the packed kernel (#5, ``fused_packed_adam_kernel``), and
+  :func:`check_replicas`, the limits of a packed launch.
 
 The TPU kernel splits a large batch into T gradient-accumulation tiles;
 equal tiles average to the full-batch gradient, so the port always computes
@@ -29,11 +34,15 @@ SCHEDULES = ("constant", "cosine", "exponential")
 
 # Shared memory one block may take on an H100 (232 448 bytes).
 SMEM_LIMIT = 227 * 1024
+# The largest grid y or z extent; a packed launch puts N·R there.
+MAX_GRID_YZ = 65_535
 
 _TODO = {
     "runtime_bs": "queue 1, item 13: the sweep evaluators' runtime masks",
     "runtime_steps": "queue 1, item 13: the sweep evaluators' runtime masks",
     "const": "queue 1, item 10b: volterra's const operand",
+    "per_slot": "queue 1, item 13: the packed sweep mode's per-slot lr, "
+                "batch and step vectors",
 }
 
 
@@ -63,6 +72,13 @@ def scheduled_lr(lrate, t, schedule="constant", horizon=1.0, decay=0.1):
         return lr * torch.exp(((t - 1.0) / horizon) * math.log(decay))
     check_schedule(schedule)
     return lr
+
+
+def schedule_args(schedule, total_steps, decay):
+    """The schedule as the C entry points take it: kind, horizon, decay,
+    (1 − decay)/2 and log(decay), each rounded from double."""
+    return (SCHEDULES.index(schedule), float(total_steps), float(decay),
+            (1.0 - decay) * 0.5, math.log(decay) if decay > 0 else -math.inf)
 
 
 def check_state_fits(need: int, R: int, H: int) -> None:
@@ -98,3 +114,98 @@ def run_fused_chunk(step_math, params, m, v, uniforms, step0, lrate, *,
         params, m, v = adam_update(params, m, v, g, lr, t)
         losses.append(loss.reshape(()))
     return params, m, v, torch.stack(losses)
+
+
+# ---------------------------------------------------------------------------
+# Packed replicas (kernel #5)
+# ---------------------------------------------------------------------------
+
+
+def _lead(shape):
+    """The per-replica extent of the leading dim in the packed layout: the
+    replica axis is folded into the leading dim, [N, *s] stored as [N·s0,
+    s1, ...], and a 1-D tensor becomes [N, s0] (JAX engine_core.py:170)."""
+    return shape[0] if len(shape) >= 2 else 1
+
+
+def stack_replicas(flats):
+    """N per-replica tensors of one shape s in the packed layout [N·_lead(s),
+    *s[1:]]. The port keeps p, m and v as one flat buffer per replica, so
+    its packed state is ``[N, n_params]``, replica-major."""
+    return torch.cat([f.reshape((_lead(f.shape),) + tuple(f.shape[1:]))
+                      if f.dim() >= 2 else f[None] for f in flats], 0)
+
+
+def unstack_replicas(packed, shape, n):
+    """Inverse of :func:`stack_replicas`: the N per-replica tensors of
+    ``shape`` (views)."""
+    lead = _lead(shape)
+    return [packed[r * lead:(r + 1) * lead].reshape(shape) for r in range(n)]
+
+
+def check_replicas(n_replicas, R, scratch_bytes=0, free_bytes=None):
+    """The limits of a packed launch on the H100: N ≥ 1, N·R within the
+    grid's y/z extent (the weight-gradient kernels index replica × stream
+    there), and, where ``free_bytes`` is given, N copies of the per-replica
+    scratch in free device memory. Raises before anything is launched."""
+    if n_replicas < 1:
+        raise ValueError(f"n_replicas must be at least 1 (got {n_replicas})")
+    if n_replicas * R > MAX_GRID_YZ:
+        raise ValueError(
+            f"{n_replicas} replicas × {R} streams exceed the grid's "
+            f"{MAX_GRID_YZ} blocks along y/z; use at most "
+            f"{MAX_GRID_YZ // R} replicas per call")
+    need = n_replicas * scratch_bytes
+    if free_bytes is not None and need > free_bytes:
+        raise ValueError(
+            f"{n_replicas} replicas need {need} bytes of scratch; the device "
+            f"has {free_bytes} free; train fewer replicas per call")
+
+
+def check_rep_tile(n_replicas, rep_tile):
+    """``rep_tile`` (None: all) must divide N, as in the JAX package. On the
+    H100 every launch covers all N replicas: the TPU's replica tile existed
+    only to bound the VMEM grant."""
+    if rep_tile is not None and n_replicas % rep_tile:
+        raise ValueError(f"n_replicas {n_replicas} not divisible by "
+                         f"rep_tile {rep_tile}")
+
+
+def reject_per_slot(**options):
+    """The packed sweep mode (per-slot lr, batch and step vectors, masked
+    rows) is not ported."""
+    for name, val in options.items():
+        if val is not None and val is not False:
+            raise not_ported("per_slot")
+
+
+def run_fused_packed(step_math, params, m, v, uniforms, step0, lrate,
+                     n_replicas, *, rep_tile=None, schedule="constant",
+                     total_steps=1, decay=0.1, const=None, lr_vec=None,
+                     bs_vec=None, steps_vec=None, mask_rows=False):
+    """Plain twin of the packed kernel (JAX ``run_fused_packed``): ``K =
+    uniforms.shape[0]`` Adam steps for each of ``n_replicas`` independent
+    runs, with ``step_math(p, u, const) -> (loss, flat_grad)``. ``params``,
+    ``m`` and ``v`` are ``[N, n]`` (:func:`stack_replicas`); all replicas
+    share ``uniforms [K, B, U]``, ``const`` and the lr schedule. Returns new
+    (params, m, v, losses [N, K]); the inputs are left unchanged.
+
+    ``rep_tile`` must divide N; on the H100 every launch covers all N
+    replicas (the TPU tiled them to fit VMEM). The sweep mode (``lr_vec``,
+    ``bs_vec``, ``steps_vec``, ``mask_rows``) is not ported."""
+    reject_per_slot(lr_vec=lr_vec, bs_vec=bs_vec, steps_vec=steps_vec,
+                    mask_rows=mask_rows)
+    check_rep_tile(n_replicas, rep_tile)
+    if params.shape[0] != n_replicas:
+        raise ValueError(f"params hold {params.shape[0]} replicas, "
+                         f"n_replicas is {n_replicas}")
+
+    def one_step_math(p, u):
+        return step_math(p, u, const)
+
+    # The replicas are independent: each is the single-replica loop.
+    runs = [run_fused_chunk(one_step_math, params[r], m[r], v[r], uniforms,
+                            step0, lrate, schedule=schedule,
+                            total_steps=total_steps, decay=decay)
+            for r in range(n_replicas)]
+    return tuple(torch.stack(t) for t in zip(*runs))

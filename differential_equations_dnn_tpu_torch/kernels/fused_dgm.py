@@ -22,8 +22,10 @@ by hand for each spec.
 Specs: fitzhugh_nagumo (value + time tangent + the t=0 IC rows, with the
 causal weighting) and fredholm (value rows only: collocation points plus
 ⌈k/B⌉ groups of Gauss–Legendre nodes, whose positions and weights arrive as
-the const operand). Only ``precision="highest"`` is ported; the packed
-replicas and the sweep evaluators are not (ROADMAP.md).
+the const operand). Single runs (``fused_dgm_chunk``,
+``train_dgm_fused_result``) and packed-replica ensembles
+(``fused_dgm_packed_chunk``, ``train_dgm_fused_ensemble_packed``) run at
+``precision="highest"``; the sweep evaluators are not ported (ROADMAP.md).
 """
 
 import ctypes
@@ -47,6 +49,7 @@ from differential_equations_dnn_tpu_torch.kernels.fused_engine import (
 )
 from differential_equations_dnn_tpu_torch.kernels.fused_train import (
     check_precision,
+    replica_models,
     resolve_device,
     train_in_chunks,
 )
@@ -445,14 +448,16 @@ def _check_model(spec, model):
                          f"{spec.p.name!r}")
 
 
-def _check_inputs(spec, model, tensors, const, lib):
-    """Device, dtype, shape and contiguity of the flat state, uniforms and
-    const, the uniforms' width, and the stream count the kernel holds."""
+def _check_inputs(spec, model, tensors, const, lib, n_replicas=None):
+    """Device, dtype, shape and contiguity of the flat state (``[N, n]``
+    for N packed replicas), uniforms and const, the uniforms' width, and
+    the stream count the kernel holds."""
     n = sum(math.prod(s) for s in param_shapes(model))
+    shape = (n,) if n_replicas is None else (n_replicas, n)
     uniforms = tensors["uniforms"]
     B, U = uniforms.shape[-2:]
     for name, t in tensors.items():
-        build.require_cuda_f32(name, t, None if name == "uniforms" else (n,))
+        build.require_cuda_f32(name, t, None if name == "uniforms" else shape)
         if t.device != uniforms.device:
             raise ValueError(f"{name} is on {t.device}, uniforms on "
                              f"{uniforms.device}")
@@ -552,6 +557,36 @@ def fused_dgm_chunk_plain(spec, model, params, m, v, uniforms, step0, lrate,
         total_steps=total_steps, decay=decay)
 
 
+def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
+                  n_replicas, const, schedule, total_steps, decay):
+    """One ``dgm_train_packed`` call on CUDA ``[N, n]`` state, shared by
+    both chunk wrappers (a single run is N = 1). Returns the new (params, m,
+    v, losses [N, K]) and the replica-steps whose step math it enqueued."""
+    lib = build.library()
+    _check_inputs(spec, model, {"params": params, "m": m, "v": v,
+                                "uniforms": uniforms}, const, lib, n_replicas)
+    K, B, _ = uniforms.shape
+    a = _call_args(spec, model, B, const)
+    floats = lib.dgm_scratch_floats(a["R"], B, a["H"], a["L"], a["O"])
+    engine_core.check_replicas(n_replicas, a["R"], 4 * floats,
+                               torch.cuda.mem_get_info(uniforms.device)[0])
+    p, m, v = params.clone(), m.clone(), v.clone()
+    runs = ctypes.c_int(0)
+    scratch = torch.empty(n_replicas * floats, device=uniforms.device)
+    losses = torch.empty((n_replicas, K), device=uniforms.device)
+    with torch.cuda.device(uniforms.device):
+        code = lib.dgm_train_packed(
+            spec.kernel_id, a["consts"], a["const"], p.data_ptr(),
+            m.data_ptr(), v.data_ptr(), uniforms.data_ptr(),
+            scratch.data_ptr(), losses.data_ptr(), n_replicas, K, a["R"], B,
+            a["H"], a["L"], a["O"], a["act"], a["mask"], float(lrate),
+            int(step0),
+            *engine_core.schedule_args(schedule, total_steps, decay),
+            ctypes.byref(runs), build.stream_ptr(uniforms.device))
+    build.check(code, "dgm_train_packed")
+    return (p, m, v, losses), runs.value
+
+
 def fused_dgm_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
                     const=None, schedule="constant", total_steps=1,
                     decay=0.1):
@@ -570,40 +605,78 @@ def fused_dgm_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
     enqueued, as it reports them)."""
     _check_model(spec, model)
     engine_core.check_schedule(schedule)
-    K, B, _ = uniforms.shape
-    _check_const(spec, const, B)
+    _check_const(spec, const, uniforms.shape[1])
     if uniforms.device.type == "cpu":
         return fused_dgm_chunk_plain(
             spec, model, params, m, v, uniforms, step0, lrate, const=const,
             schedule=schedule, total_steps=total_steps, decay=decay)
-    lib = build.library()
-    _check_inputs(spec, model, {"params": params, "m": m, "v": v,
-                                "uniforms": uniforms}, const, lib)
-    a = _call_args(spec, model, B, const)
-    p, m, v = params.clone(), m.clone(), v.clone()
-    runs = ctypes.c_int(0)
-    scratch = torch.empty(lib.dgm_scratch_floats(a["R"], B, a["H"], a["L"],
-                                                 a["O"]),
-                          device=uniforms.device)
-    losses = torch.empty(K, device=uniforms.device)
-    with torch.cuda.device(uniforms.device):
-        code = lib.dgm_train(
-            spec.kernel_id, a["consts"], a["const"], p.data_ptr(),
-            m.data_ptr(), v.data_ptr(), uniforms.data_ptr(),
-            scratch.data_ptr(), losses.data_ptr(), K, a["R"], B, a["H"],
-            a["L"], a["O"], a["act"], a["mask"], float(lrate), int(step0),
-            engine_core.SCHEDULES.index(schedule), float(total_steps),
-            float(decay), (1.0 - decay) * 0.5,
-            math.log(decay) if decay > 0 else -math.inf, ctypes.byref(runs),
-            build.stream_ptr(uniforms.device))
-    build.check(code, "dgm_train")
+    (p, m, v, losses), runs = _train_packed(
+        spec, model, params[None], m[None], v[None], uniforms, step0, lrate,
+        1, const, schedule, total_steps, decay)
     fused_dgm_chunk.launches += 1
-    fused_dgm_chunk.step_math_runs += runs.value
-    return p, m, v, losses
+    fused_dgm_chunk.step_math_runs += runs
+    return p[0], m[0], v[0], losses[0]
 
 
 fused_dgm_chunk.launches = 0
 fused_dgm_chunk.step_math_runs = 0
+
+
+def fused_dgm_packed_chunk_plain(spec, model, params, m, v, uniforms, step0,
+                                 lrate, n_replicas, rep_tile=None, *,
+                                 const=None, schedule="constant",
+                                 total_steps=1, decay=0.1):
+    """Plain version of :func:`fused_dgm_packed_chunk`."""
+
+    def step_math(p, u, c):
+        return dgm_loss_grad_plain(spec, model, p, u, c)
+
+    return engine_core.run_fused_packed(
+        step_math, params, m, v, uniforms, step0, lrate, n_replicas,
+        rep_tile=rep_tile, schedule=schedule, total_steps=total_steps,
+        decay=decay, const=const)
+
+
+def fused_dgm_packed_chunk(spec, model, params, m, v, uniforms, step0, lrate,
+                           n_replicas, rep_tile=None, *, const=None,
+                           schedule="constant", total_steps=1, decay=0.1,
+                           lr_vec=None, bs_vec=None, steps_vec=None,
+                           mask_rows=False):
+    """Packed-replica twin of :func:`fused_dgm_chunk` (kernel #5 around
+    #7): one call advances ``n_replicas`` independent DGM runs by ``K =
+    uniforms.shape[0]`` Adam steps each. ``params``/``m``/``v`` are ``[N,
+    n]`` (``engine_core.stack_replicas`` of :func:`pack_dgm` buffers); every
+    replica reads the same ``uniforms [K, B, 1]``, ``const`` (Fredholm's
+    nodes and weights) and lr schedule. ``rep_tile`` must divide N (every
+    launch covers all N replicas on the H100).
+
+    Returns new (params, m, v, losses [N, K]); the inputs are left
+    unchanged. A CPU tensor takes the plain version; a CUDA tensor launches
+    ``dgm_train_packed`` once (``.launches``; ``.step_math_runs`` counts the
+    replica-steps whose step math it enqueued). The per-slot sweep vectors
+    are not ported."""
+    engine_core.reject_per_slot(lr_vec=lr_vec, bs_vec=bs_vec,
+                                steps_vec=steps_vec, mask_rows=mask_rows)
+    _check_model(spec, model)
+    engine_core.check_schedule(schedule)
+    engine_core.check_rep_tile(n_replicas, rep_tile)
+    _check_const(spec, const, uniforms.shape[1])
+    engine_core.check_replicas(n_replicas, _layout(spec)[0])
+    if uniforms.device.type == "cpu":
+        return fused_dgm_packed_chunk_plain(
+            spec, model, params, m, v, uniforms, step0, lrate, n_replicas,
+            const=const, schedule=schedule, total_steps=total_steps,
+            decay=decay)
+    out, runs = _train_packed(spec, model, params, m, v, uniforms, step0,
+                              lrate, n_replicas, const, schedule, total_steps,
+                              decay)
+    fused_dgm_packed_chunk.launches += 1
+    fused_dgm_packed_chunk.step_math_runs += runs
+    return out
+
+
+fused_dgm_packed_chunk.launches = 0
+fused_dgm_packed_chunk.step_math_runs = 0
 
 
 # ---------------------------------------------------------------------------
@@ -658,3 +731,53 @@ def train_dgm_fused_result(problem, seed, iterations, batch_size=100,
 
     return train_in_chunks(model, run_chunk, draw, p, m, v, iterations,
                            chunk_size, device, start_step, load=load_dgm)
+
+
+def train_dgm_fused_ensemble_packed(problem, seed, iterations, n_replicas,
+                                    batch_size=100, lrate=1e-4, model=None,
+                                    precision: str = "highest",
+                                    schedule: str | None = None,
+                                    decay: float = 0.1, chunk_size=25_000,
+                                    device="cuda"):
+    """Train ``n_replicas`` independently initialised DGM replicas, packed:
+    every chunk is one :func:`fused_dgm_packed_chunk` call that advances all
+    of them. Replica r is ``model``'s architecture (default: the problem's)
+    drawn from ``replica_generator(seed, r)``; all replicas share the
+    collocation stream ``step_uniforms(seed, ...)``, Fredholm's const and
+    the schedule (None = the problem's default) over ``iterations`` steps.
+    So replica r equals ``train_dgm_fused_result`` of that init, and a
+    chunked run equals an uncut one.
+
+    Returns a TrainResult whose ``params`` is the list of N trained models,
+    ``opt_state`` the ``[N, n]`` moments and ``loss_history`` ``[N,
+    iterations]``; ``compile_time``, ``wall_time`` and ``iters_per_sec``
+    (population steps per second) as ``fused_train.train_in_chunks``
+    reports them."""
+    spec = spec_for(problem, batch_size)
+    if spec is None:
+        raise ValueError(f"no fused DGM spec for equation {problem.name!r} "
+                         f"(fitzhugh_nagumo dgm arch | fredholm gauss)")
+    check_precision(precision)
+    device = resolve_device(device)
+    models = replica_models(problem, model, seed, n_replicas, device)
+    _check_model(spec, models[0])
+    kw = dict(const=const_for(spec, problem, batch_size, device),
+              schedule=schedule or problem.defaults.schedule,
+              total_steps=iterations, decay=decay)
+    p = engine_core.stack_replicas([pack_dgm(m) for m in models])
+
+    def run_chunk(p, m, v, u, step0):
+        return fused_dgm_packed_chunk(spec, models[0], p, m, v, u, step0,
+                                      lrate, n_replicas, **kw)
+
+    def draw(start, n):
+        return step_uniforms(seed, start, n, batch_size, device,
+                             spec.n_uniform)
+
+    def load(models, p):
+        for model, row in zip(models, p):
+            load_dgm(model, row)
+
+    return train_in_chunks(models, run_chunk, draw, p, torch.zeros_like(p),
+                           torch.zeros_like(p), iterations, chunk_size,
+                           device, load=load)

@@ -20,13 +20,14 @@ step runs with ``build`` and the loss cotangent written out by hand for each
 spec (selected by ``kernel_id``, with ``kernel_consts`` as its numbers).
 
 Ported specs: simple_ode, heat, burgers, wave, advection (``causal_eps=0``),
-poisson and heat2d, for plain tanh MLPs at ``precision="highest"``. The hard
--constraint specs, volterra, uat, inverse_heat, the runtime masks, the const
-operand and the packed-replica kernel are not ported (ROADMAP.md).
+poisson and heat2d, for plain tanh MLPs at ``precision="highest"``, as single
+runs (``fused_engine_chunk``, ``train_fused_result``) and as packed-replica
+ensembles (``fused_engine_packed_chunk``, ``train_fused_ensemble_packed``).
+The hard-constraint specs, volterra, uat, inverse_heat, the runtime masks,
+the const operand and the packed sweep mode are not ported (ROADMAP.md).
 """
 
 import ctypes
-import math
 from dataclasses import dataclass
 
 import torch
@@ -44,7 +45,9 @@ from differential_equations_dnn_tpu_torch.kernels.fused_train import (
     _check_state,
     check_batch_tile,
     check_precision,
+    load_params,
     pack_params,
+    replica_models,
     resolve_device,
     train_in_chunks,
     unpack_params,
@@ -505,10 +508,11 @@ def _check_model(spec, model):
                          f"{spec.p.name!r}")
 
 
-def _check_inputs(spec, model, tensors, lib):
-    """Device, dtype, shape and contiguity of the flat state and uniforms,
-    the uniforms' width, and the kernel's shared memory at this width."""
-    _check_state(model, tensors)
+def _check_inputs(spec, model, tensors, lib, n_replicas=None):
+    """Device, dtype, shape and contiguity of the flat state (``[N, n]``
+    for N packed replicas) and uniforms, the uniforms' width, and the
+    kernel's shared memory at this width."""
+    _check_state(model, tensors, n_replicas)
     U = tensors["uniforms"].shape[-1]
     if U != spec.n_uniform:
         raise ValueError(f"uniforms have {U} columns, the {spec.p.name!r} "
@@ -575,6 +579,34 @@ def fused_engine_chunk_plain(spec, model, params, m, v, uniforms, step0,
         total_steps=total_steps, decay=decay, batch_tile=batch_tile)
 
 
+def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
+                  n_replicas, schedule, total_steps, decay):
+    """One ``engine_train_packed`` call on CUDA ``[N, n]`` state, shared by
+    both chunk wrappers (a single run is N = 1). Returns the new (params, m,
+    v, losses [N, K]) and the replica-steps whose step math it enqueued."""
+    lib = build.library()
+    _check_inputs(spec, model, {"params": params, "m": m, "v": v,
+                                "uniforms": uniforms}, lib, n_replicas)
+    K, B, _ = uniforms.shape
+    H, L = model.hidden_size, model.num_layers
+    floats = lib.engine_scratch_floats(spec.kernel_id, B, H, L)
+    engine_core.check_replicas(n_replicas, _n_rows(spec.groups), 4 * floats,
+                               torch.cuda.mem_get_info(uniforms.device)[0])
+    p, m, v = params.clone(), m.clone(), v.clone()
+    runs = ctypes.c_int(0)
+    scratch = torch.empty(n_replicas * floats, device=uniforms.device)
+    losses = torch.empty((n_replicas, K), device=uniforms.device)
+    with torch.cuda.device(uniforms.device):
+        code = lib.engine_train_packed(
+            spec.kernel_id, _consts(spec), p.data_ptr(), m.data_ptr(),
+            v.data_ptr(), uniforms.data_ptr(), scratch.data_ptr(),
+            losses.data_ptr(), n_replicas, K, B, H, L, float(lrate),
+            int(step0), *engine_core.schedule_args(schedule, total_steps, decay),
+            ctypes.byref(runs), build.stream_ptr(uniforms.device))
+    build.check(code, "engine_train_packed")
+    return (p, m, v, losses), runs.value
+
+
 def fused_engine_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
                        schedule="constant", total_steps=1, decay=0.1,
                        batch_tile=None, runtime_bs=None, runtime_steps=None,
@@ -597,38 +629,74 @@ def fused_engine_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
             raise engine_core.not_ported(name)
     _check_model(spec, model)
     engine_core.check_schedule(schedule)
-    K, B, _ = uniforms.shape
-    check_batch_tile(B, batch_tile)
+    check_batch_tile(uniforms.shape[1], batch_tile)
     if uniforms.device.type == "cpu":
         return fused_engine_chunk_plain(
             spec, model, params, m, v, uniforms, step0, lrate,
             schedule=schedule, total_steps=total_steps, decay=decay)
-    lib = build.library()
-    _check_inputs(spec, model, {"params": params, "m": m, "v": v,
-                                "uniforms": uniforms}, lib)
-    H, L = model.hidden_size, model.num_layers
-    p, m, v = params.clone(), m.clone(), v.clone()
-    runs = ctypes.c_int(0)
-    scratch = torch.empty(lib.engine_scratch_floats(spec.kernel_id, B, H, L),
-                          device=uniforms.device)
-    losses = torch.empty(K, device=uniforms.device)
-    with torch.cuda.device(uniforms.device):
-        code = lib.engine_train(
-            spec.kernel_id, _consts(spec), p.data_ptr(), m.data_ptr(),
-            v.data_ptr(), uniforms.data_ptr(), scratch.data_ptr(),
-            losses.data_ptr(), K, B, H, L, float(lrate), int(step0),
-            engine_core.SCHEDULES.index(schedule), float(total_steps),
-            float(decay),
-            (1.0 - decay) * 0.5, math.log(decay) if decay > 0 else -math.inf,
-            ctypes.byref(runs), build.stream_ptr(uniforms.device))
-    build.check(code, "engine_train")
+    (p, m, v, losses), runs = _train_packed(
+        spec, model, params[None], m[None], v[None], uniforms, step0, lrate,
+        1, schedule, total_steps, decay)
     fused_engine_chunk.launches += 1
-    fused_engine_chunk.step_math_runs += runs.value
-    return p, m, v, losses
+    fused_engine_chunk.step_math_runs += runs
+    return p[0], m[0], v[0], losses[0]
 
 
 fused_engine_chunk.launches = 0
 fused_engine_chunk.step_math_runs = 0
+
+
+def fused_engine_packed_chunk_plain(spec, model, params, m, v, uniforms,
+                                    step0, lrate, n_replicas, rep_tile=None,
+                                    *, schedule="constant", total_steps=1,
+                                    decay=0.1):
+    """Plain version of :func:`fused_engine_packed_chunk`."""
+
+    def step_math(p, u, const):
+        return engine_loss_grad_plain(spec, model, p, u)
+
+    return engine_core.run_fused_packed(
+        step_math, params, m, v, uniforms, step0, lrate, n_replicas,
+        rep_tile=rep_tile, schedule=schedule, total_steps=total_steps,
+        decay=decay)
+
+
+def fused_engine_packed_chunk(spec, model, params, m, v, uniforms, step0,
+                              lrate, n_replicas, rep_tile=None, *,
+                              schedule="constant", total_steps=1, decay=0.1,
+                              lr_vec=None, bs_vec=None, steps_vec=None,
+                              mask_rows=False):
+    """Packed-replica twin of :func:`fused_engine_chunk` (kernel #5 around
+    #6): one call advances ``n_replicas`` independent runs by ``K =
+    uniforms.shape[0]`` Adam steps each. ``params``/``m``/``v`` are ``[N,
+    n]`` (``engine_core.stack_replicas``); every replica reads the same
+    ``uniforms [K, B, U]`` and lr schedule. ``rep_tile`` must divide N
+    (every launch covers all N replicas on the H100).
+
+    Returns new (params, m, v, losses [N, K]); the inputs are left
+    unchanged. A CPU tensor takes the plain version; a CUDA tensor launches
+    ``engine_train_packed`` once (``.launches``; ``.step_math_runs`` counts
+    the replica-steps whose step math it enqueued). The per-slot sweep
+    vectors are not ported."""
+    engine_core.reject_per_slot(lr_vec=lr_vec, bs_vec=bs_vec,
+                                steps_vec=steps_vec, mask_rows=mask_rows)
+    _check_model(spec, model)
+    engine_core.check_schedule(schedule)
+    engine_core.check_rep_tile(n_replicas, rep_tile)
+    engine_core.check_replicas(n_replicas, _n_rows(spec.groups))
+    if uniforms.device.type == "cpu":
+        return fused_engine_packed_chunk_plain(
+            spec, model, params, m, v, uniforms, step0, lrate, n_replicas,
+            schedule=schedule, total_steps=total_steps, decay=decay)
+    out, runs = _train_packed(spec, model, params, m, v, uniforms, step0,
+                              lrate, n_replicas, schedule, total_steps, decay)
+    fused_engine_packed_chunk.launches += 1
+    fused_engine_packed_chunk.step_math_runs += runs
+    return out
+
+
+fused_engine_packed_chunk.launches = 0
+fused_engine_packed_chunk.step_math_runs = 0
 
 
 # ---------------------------------------------------------------------------
@@ -683,3 +751,52 @@ def train_fused_result(problem, seed, iterations, batch_size=64, lrate=1e-4,
 
     return train_in_chunks(model, run_chunk, draw, p, m, v, iterations,
                            chunk_size, device, start_step)
+
+
+def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
+                                batch_size=64, lrate=1e-4, model=None,
+                                precision: str = "highest",
+                                schedule: str | None = None,
+                                decay: float = 0.1, chunk_size=25_000,
+                                device="cuda"):
+    """Train ``n_replicas`` independently initialised replicas, packed:
+    every chunk is one :func:`fused_engine_packed_chunk` call that advances
+    all of them. Replica r is ``model``'s architecture (default: the
+    problem's) drawn from ``replica_generator(seed, r)``; all replicas share
+    the collocation stream ``step_uniforms(seed, ...)`` and the schedule
+    (None = the problem's default) over ``iterations`` steps. So replica r
+    equals ``train_fused_result`` of that init, and a chunked run equals an
+    uncut one.
+
+    Returns a TrainResult whose ``params`` is the list of N trained models,
+    ``opt_state`` the ``[N, n]`` moments and ``loss_history`` ``[N,
+    iterations]``; ``compile_time``, ``wall_time`` and ``iters_per_sec``
+    (population steps per second) as ``fused_train.train_in_chunks``
+    reports them."""
+    spec = spec_for(problem)
+    if spec is None:
+        raise ValueError(f"no fused-engine spec for equation "
+                         f"{problem.name!r} (available: {sorted(SPECS)})")
+    check_precision(precision)
+    device = resolve_device(device)
+    models = replica_models(problem, model, seed, n_replicas, device)
+    _check_model(spec, models[0])
+    kw = dict(schedule=schedule or problem.defaults.schedule,
+              total_steps=iterations, decay=decay)
+    p = engine_core.stack_replicas([pack_params(m) for m in models])
+
+    def run_chunk(p, m, v, u, step0):
+        return fused_engine_packed_chunk(spec, models[0], p, m, v, u, step0,
+                                         lrate, n_replicas, **kw)
+
+    def draw(start, n):
+        return step_uniforms(seed, start, n, batch_size, device,
+                             spec.n_uniform)
+
+    def load(models, p):
+        for model, row in zip(models, p):
+            load_params(model, row)
+
+    return train_in_chunks(models, run_chunk, draw, p, torch.zeros_like(p),
+                           torch.zeros_like(p), iterations, chunk_size,
+                           device, load=load)

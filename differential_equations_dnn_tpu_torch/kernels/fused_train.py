@@ -25,6 +25,7 @@ import torch
 
 from differential_equations_dnn_tpu_torch.core.prng import (
     generator,
+    replica_generator,
     step_uniforms,
 )
 from differential_equations_dnn_tpu_torch.kernels import build
@@ -199,12 +200,14 @@ def _check_model(model):
                          "2 → H×L → 1 only")
 
 
-def _check_state(model, tensors):
-    """Device, dtype, shape and contiguity of the flat state and uniforms."""
+def _check_state(model, tensors, n_replicas=None):
+    """Device, dtype, shape and contiguity of the flat state (``[n]``, or
+    ``[N, n]`` for N packed replicas) and uniforms."""
     n = sum(math.prod(s) for s in param_shapes(model))
+    shape = (n,) if n_replicas is None else (n_replicas, n)
     device = tensors["uniforms"].device
     for name, t in tensors.items():
-        build.require_cuda_f32(name, t, None if name == "uniforms" else (n,))
+        build.require_cuda_f32(name, t, None if name == "uniforms" else shape)
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, uniforms on {device}")
 
@@ -329,6 +332,17 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def replica_models(problem, model, seed, n_replicas, device):
+    """The N replicas of an ensemble: replica r is ``model``'s architecture
+    (default: the problem's) drawn from ``replica_generator(seed, r)``, the
+    JAX package's ``model.init(fold_in(init_key, r))``."""
+    return [problem.default_model(generator=replica_generator(seed, r),
+                                  device=device) if model is None
+            else model.fresh(generator=replica_generator(seed, r),
+                             device=device)
+            for r in range(n_replicas)]
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -347,7 +361,9 @@ def train_in_chunks(model, run_chunk, draw, p, m, v, iterations, chunk_size,
     """The fused trainers' host loop. ``run_chunk(p, m, v, u, step0)`` runs
     the steps of ``u = draw(step0, k)`` and returns new (p, m, v, losses);
     ``load(model, p)`` (default: the MLP's :func:`load_params`) copies the
-    trained flat buffer into the model.
+    trained flat buffer into the model. Packed replicas pass ``[N, n]``
+    state, get ``[N, k]`` losses per chunk (joined along the steps) and
+    load their own ``model``, a list of N.
 
     One warm-up step on copies of the state is timed as ``compile_time``
     (the kernel build plus the first dispatch); ``wall_time`` and
@@ -375,7 +391,7 @@ def train_in_chunks(model, run_chunk, draw, p, m, v, iterations, chunk_size,
     return TrainResult(
         params=model,
         opt_state={"m": m, "v": v},
-        loss_history=torch.cat(losses).cpu().numpy(),
+        loss_history=torch.cat(losses, -1).cpu().numpy(),
         wall_time=wall,
         iters_per_sec=iterations / wall if wall else float("inf"),
         compile_time=compile_time,

@@ -10,9 +10,15 @@ times one chunk of K steps with CUDA events and profiles another with
 ``torch.profiler``. It prints the µs per step of each kernel name (device
 time summed over the chunk, over K), the launches per step, the summed
 kernel time against the event-timed step, and the card's name and power
-limit. With ``--solve-seeds N`` it also runs ``solve(NAME,
-engine="fused")`` at the reference defaults for seeds 0 .. N−1 and prints
-each MAE and warm it/s. Needs a CUDA device.
+limit. With ``--replicas N [N ...]`` it times the packed-replica kernel
+(#5) instead, one run per N: N replicas drawn from ``replica_generator(0,
+r)`` in every launch, with µs per packed step and per replica-step. With
+``--solve-seeds N`` it also runs ``solve(NAME, engine="fused")`` at the
+reference defaults for seeds 0 .. N−1 and prints each MAE and warm it/s.
+Needs a CUDA device.
+
+    python -m differential_equations_dnn_tpu_torch.kernels.profile \
+        fitzhugh_nagumo wave --replicas 1 4 8 16
 """
 
 import argparse
@@ -24,9 +30,11 @@ import torch
 
 from differential_equations_dnn_tpu_torch.core.prng import (
     generator,
+    replica_generator,
     step_uniforms,
 )
 from differential_equations_dnn_tpu_torch.equations import PROBLEMS
+from differential_equations_dnn_tpu_torch.kernels import engine_core
 from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
 from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
 from differential_equations_dnn_tpu_torch.kernels import fused_train as ft
@@ -62,6 +70,27 @@ def _chunk_fn(name, device):
                                          total_steps=d.iterations)
 
 
+def _packed_fn(name, device, n_replicas):
+    """A closure running STEPS steps of NAME's packed kernel, N replicas."""
+    prob = PROBLEMS[name]()
+    d = prob.defaults
+    models = [prob.default_model(generator=replica_generator(0, r),
+                                 device=device) for r in range(n_replicas)]
+    kw = dict(schedule=d.schedule, total_steps=d.iterations)
+    if name in DGM:
+        spec = fd.spec_for(prob, d.batch_size)
+        kw["const"] = fd.const_for(spec, prob, d.batch_size, device)
+        pack, chunk = fd.pack_dgm, fd.fused_dgm_packed_chunk
+    else:
+        spec = fe.spec_for(prob)
+        pack, chunk = ft.pack_params, fe.fused_engine_packed_chunk
+    p = engine_core.stack_replicas([pack(m) for m in models])
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, 0, STEPS, d.batch_size, device, spec.n_uniform)
+    return lambda: chunk(spec, models[0], p, z, z, u, 0, d.lrate, n_replicas,
+                         **kw)
+
+
 def _kernel_times(prof):
     """{kernel name: (device µs, calls)} of the profiled CUDA kernels."""
     out = defaultdict(lambda: [0.0, 0])
@@ -75,8 +104,9 @@ def _kernel_times(prof):
     return out
 
 
-def profile(name, device):
-    run = _chunk_fn(name, device)
+def profile(name, device, n_replicas=None):
+    run = (_chunk_fn(name, device) if n_replicas is None
+           else _packed_fn(name, device, n_replicas))
     run()
     torch.cuda.synchronize(device)
     start = torch.cuda.Event(enable_timing=True)
@@ -93,7 +123,10 @@ def profile(name, device):
         torch.cuda.synchronize(device)
     times = _kernel_times(prof)
     total = sum(us for us, _ in times.values()) / STEPS
-    print(f"{name}: {step_us:.2f} us/step (CUDA events, K={STEPS}); "
+    label = name if n_replicas is None else (
+        f"{name} packed, N={n_replicas} ({step_us / n_replicas:.2f} us per "
+        f"replica-step)")
+    print(f"{label}: {step_us:.2f} us/step (CUDA events, K={STEPS}); "
           f"kernels {total:.2f} us/step under the profiler "
           f"(share of the event-timed step {total / step_us:.3f})")
     for kernel, (us, calls) in sorted(times.items(), key=lambda kv: -kv[1][0]):
@@ -123,6 +156,8 @@ def main():
                         default=sorted(fe.SPECS) + list(DGM))
     parser.add_argument("--solve-seeds", type=int, default=0, metavar="N",
                         help="also solve each NAME at seeds 0 .. N-1")
+    parser.add_argument("--replicas", type=int, nargs="+", metavar="N",
+                        help="time the packed kernel at N replicas instead")
     args = parser.parse_args()
     device = ft.resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -130,7 +165,8 @@ def main():
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip())
     for name in args.names:
-        profile(name, device)
+        for n_replicas in args.replicas or [None]:
+            profile(name, device, n_replicas)
         if args.solve_seeds:
             solve_seeds(name, args.solve_seeds)
 

@@ -104,6 +104,13 @@ class DGM(nn.Module):
         self.s_out = _Affine(w_out, b_out)
         self.to(device)
 
+    def fresh(self, generator=None, device=None) -> "DGM":
+        """A new DGM of this architecture, initialised from ``generator``
+        (an ensemble's replica, as the JAX package's ``model.init(key)``)."""
+        return DGM(self.input_dim, self.output_dim, self.hidden_size,
+                   self.num_layers, self.activation, self.init_scheme,
+                   generator=generator, device=device)
+
     def forward(self, x):
         act = get_activation(self.activation)
         s = act(dense(x, self.s_in.w, self.s_in.b))

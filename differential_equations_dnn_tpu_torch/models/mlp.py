@@ -81,6 +81,13 @@ class MLP(nn.Module):
         self.fc_out = _Affine(w_out, b_out)
         self.to(device)
 
+    def fresh(self, generator=None, device=None) -> "MLP":
+        """A new MLP of this architecture, initialised from ``generator``
+        (an ensemble's replica, as the JAX package's ``model.init(key)``)."""
+        return MLP(self.input_dim, self.output_dim, self.hidden_size,
+                   self.num_layers, self.activation, generator=generator,
+                   device=device)
+
     def forward(self, x):
         act = get_activation(self.activation)
         h = act(dense(x, self.fc_in.w, self.fc_in.b))

@@ -1,3 +1,6 @@
+from differential_equations_dnn_tpu_torch.train.finetune import (
+    finetune_lbfgs,
+)
 from differential_equations_dnn_tpu_torch.train.metrics import (
     mean_absolute_error,
 )
@@ -6,4 +9,5 @@ from differential_equations_dnn_tpu_torch.train.trainer import (
     TrainResult,
 )
 
-__all__ = ["mean_absolute_error", "TrainConfig", "TrainResult"]
+__all__ = ["finetune_lbfgs", "mean_absolute_error", "TrainConfig",
+           "TrainResult"]

@@ -2,7 +2,7 @@
 
 The generic (scan) trainer of the JAX package is not ported yet (ROADMAP.md
 queue 1, item 6); the fused trainers (kernels.fused_train, kernels.
-fused_engine) fill these.
+fused_engine, kernels.fused_dgm) fill these.
 """
 
 from dataclasses import dataclass
@@ -22,9 +22,10 @@ class TrainConfig:
 
 @dataclass
 class TrainResult:
-    params: Any                 # the trained model
+    params: Any                 # the trained model (a list of N for packed
+                                # replicas)
     opt_state: Any              # {"m": flat tensor, "v": flat tensor}
-    loss_history: np.ndarray
+    loss_history: np.ndarray    # [iterations] ([N, iterations] packed)
     wall_time: float            # steady-state seconds, after synchronize
     iters_per_sec: float        # iterations / wall_time
     compile_time: float = 0.0   # kernel build + first dispatch

@@ -94,7 +94,7 @@ def test_solve_is_reproducible_from_its_seed():
     (dict(engine="fused", precision="mixed"), NotImplementedError, "ROADMAP"),
     (dict(engine="fused", precision="default"), NotImplementedError,
      "ROADMAP"),
-    (dict(engine="fused", ensemble=2), NotImplementedError, "ROADMAP"),
+    (dict(engine="scan", ensemble=2), NotImplementedError, "ROADMAP"),
     (dict(engine="turbo"), ValueError, "unknown engine"),
     (dict(engine="fused", model=MLP(2, 1, 8, 1, "relu")), ValueError,
      "tanh"),

@@ -401,12 +401,12 @@ def test_solve_dgm_on_cpu(name):
     (lambda: FitzHughNagumo(constraint="hard"), "item 10a"),
     (lambda: Fredholm2(quadrature="montecarlo"), "item 11"),
     (lambda: Fredholm2(quadrature="halton"), "item 11"),
-    (lambda: solve("fitzhugh_nagumo", engine="fused", device="cpu",
-                   causal_eps=0.0), "item 12"),
-    (lambda: solve("fredholm", engine="fused", device="cpu", finetune=5),
-     "item 12"),
-    (lambda: solve("fredholm", engine="fused", device="cpu", ensemble=4),
-     "item 12"),
+    (lambda: solve("fitzhugh_nagumo", engine="scan", device="cpu",
+                   causal_eps=0.0), "items 6 and 13"),
+    (lambda: solve("fredholm", engine="fused", device="cpu", finetune=5,
+                   precision="default"), "item 7"),
+    (lambda: solve("fredholm", engine="fused", device="cpu", ensemble=4,
+                   mesh=object()), "item 14"),
     (lambda: _fused_route(types.SimpleNamespace(name="fitzhugh_nagumo",
                                                 arch="fourier_mlp"),
                           MLP(1, 2, 8, 1, "tanh")), "item 13"),

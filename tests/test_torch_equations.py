@@ -142,5 +142,7 @@ def test_routes():
 
 
 def test_ensemble_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve("wave", engine="fused", device="cpu", ensemble=4)
+    """A packed ensemble at a bf16 precision names its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+        solve("wave", engine="fused", device="cpu", ensemble=4,
+              precision="mixed")

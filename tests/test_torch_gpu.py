@@ -15,6 +15,9 @@ from differential_equations_dnn_tpu_torch.core import (  # noqa: E402
     generator,
     step_uniforms,
 )
+from differential_equations_dnn_tpu_torch.core.prng import (  # noqa: E402
+    replica_generator,
+)
 from differential_equations_dnn_tpu_torch.equations import (  # noqa: E402
     PROBLEMS,
     Heat1D,
@@ -286,3 +289,77 @@ def test_solve_dgm_launches_its_kernel(cuda, name):
     assert res.loss_history[-20:].mean() < res.loss_history[:20].mean()
     assert res.solution.shape == PROBLEMS[name]().solution_shape(
         PROBLEMS[name]().defaults.nodes)
+
+
+def _packed_case(name, cuda, n_replicas):
+    """(chunk, plain chunk, single chunk, state, uniforms, kwargs) at NAME's
+    default shapes: N replicas from replica_generator(0, r), 10 steps from
+    step 100 over a 200-step cosine horizon."""
+    prob = PROBLEMS[name]()
+    B = prob.defaults.batch_size
+    if name in ("fitzhugh_nagumo", "fredholm"):
+        spec = fd.spec_for(prob, B)
+        models = [prob.default_model(generator=replica_generator(0, r),
+                                     device=cuda) for r in range(n_replicas)]
+        p = engine_core.stack_replicas([fd.pack_dgm(m) for m in models])
+        kw = dict(const=fd.const_for(spec, prob, B, cuda))
+        chunks = (fd.fused_dgm_packed_chunk, fd.fused_dgm_packed_chunk_plain,
+                  fd.fused_dgm_chunk)
+    else:
+        spec = fe.spec_for(prob)
+        models = [prob.default_model(generator=replica_generator(0, r),
+                                     device=cuda) for r in range(n_replicas)]
+        p = engine_core.stack_replicas([ft.pack_params(m) for m in models])
+        kw = {}
+        chunks = (fe.fused_engine_packed_chunk,
+                  fe.fused_engine_packed_chunk_plain, fe.fused_engine_chunk)
+    u = step_uniforms(0, 100, 10, B, cuda, spec.n_uniform)
+    kw.update(schedule="cosine", total_steps=200)
+    return spec, models[0], chunks, p, u, kw
+
+
+@pytest.mark.parametrize("name, n_replicas", [
+    ("wave", 4), ("heat2d", 2), ("fitzhugh_nagumo", 3), ("fredholm", 4),
+])
+def test_packed_kernels_match_plain_and_single(cuda, name, n_replicas):
+    """Kernel #5 at each engine's default shapes: the packed kernel against
+    the packed plain version (losses rtol 1e-4; parameters rtol 1e-4 plus
+    2·lr, as for the single chunks), and each packed replica equals the
+    single-replica kernel on that replica's state, bit for bit (every
+    replica runs the single-replica code on its own copy)."""
+    spec, model, (packed, plain, single), p, u, kw = _packed_case(
+        name, cuda, n_replicas)
+    lr = PROBLEMS[name]().defaults.lrate
+    z = torch.zeros_like(p)
+    pk, mk, vk, lk = packed(spec, model, p, z, z, u, 100, lr, n_replicas,
+                            **kw)
+    pp, _, _, lp = plain(spec, model, p, z, z, u, 100, lr, n_replicas, **kw)
+    assert lk.shape == (n_replicas, 10)
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=2 * lr)
+    for r in range(n_replicas):
+        p1, m1, v1, l1 = single(spec, model, p[r].contiguous(), z[r].clone(),
+                                z[r].clone(), u, 100, lr, **kw)
+        assert torch.equal(l1, lk[r]) and torch.equal(p1, pk[r])
+        assert torch.equal(m1, mk[r]) and torch.equal(v1, vk[r])
+
+
+@pytest.mark.parametrize("name, route", [("wave", "engine"),
+                                         ("fredholm", "dgm")])
+def test_solve_ensemble_launches_the_packed_kernel(cuda, name, route):
+    """A short ensemble ``solve`` launches its packed kernel once per chunk
+    (warm-up + one chunk), with N step-math runs per step, and no
+    single-replica trainer."""
+    packed = (fd.fused_dgm_packed_chunk if route == "dgm"
+              else fe.fused_engine_packed_chunk)
+    counters = (packed, fe.fused_engine_chunk, fd.fused_dgm_chunk,
+                ft.heat_fused_train_chunk)
+    for fn in counters:
+        fn.launches = 0
+    packed.step_math_runs = 0
+    res = solve(name, engine="fused", iterations=300, ensemble=4)
+    assert packed.launches == 2 and packed.step_math_runs == 4 * 301
+    assert (fe.fused_engine_chunk.launches, fd.fused_dgm_chunk.launches,
+            ft.heat_fused_train_chunk.launches) == (0, 0, 0)
+    assert res.loss_history.shape == (300,)
+    assert res.loss_history[-20:].mean() < res.loss_history[:20].mean()
