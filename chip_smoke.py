@@ -14,7 +14,13 @@ Phases (each raises on failure, so any failure exits non-zero):
 3. kernels  — each kernel against its plain PyTorch version on the card, on
               the same inputs at the main paths' shapes, with the tolerance
               stated beside each check; both timed with CUDA events. The
-              generic engine runs at each of its 7 specs' default shapes,
+              heat-streams kernel (#3) runs at heat's shape and at a ragged
+              B = 1000 for tanh, sigmoid and relu, and its gradient through
+              the rematerialised backward is held against the Taylor taps'
+              autograd; #3 and its plain version are timed by their device
+              time (events around calls queued behind a spin kernel), since
+              one call's host work outlasts it. The generic engine runs at
+              each of its 7 specs' default shapes,
               the DGM engine at FitzHugh–Nagumo's and Fredholm's, and the
               packed-replica kernel (#5) at the ensembles' shapes (wave
               N=8, FitzHugh–Nagumo N=16, Fredholm N=4), where every
@@ -26,9 +32,12 @@ Phases (each raises on failure, so any failure exits non-zero):
               steps) and Fredholm on the DGM engine; then the packed
               ensembles: FitzHugh–Nagumo with causal_eps=0 (16 replicas and
               the 200-step L-BFGS polish the JAX package picks for it),
-              wave with 8 replicas and Fredholm with 4. Each: a finite loss
-              history of the right length, a finite solution of the
-              problem's shape, MAE under its bound, and its kernels
+              wave with 8 replicas and Fredholm with 4; then three solves
+              on the scan trainer (``engine="scan"``, the default): heat
+              with ``taps="pallas"`` (kernel #3 once per step plus the
+              warm-up), heat with its default jvp taps, simple_ode. Each: a
+              finite loss history of the right length, a finite solution of
+              the problem's shape, MAE under its bound, and its kernels
               launched by that run (counts set to 0 just before it and read
               just after).
 5. result   — a JSON line of the kernels, then as the last line
@@ -50,6 +59,10 @@ STEP0 = 100        # the engine chunks' first step
 HORIZON = 200      # their schedule's horizon: lr falls by tens of percent
 REPS = 20          # timed calls per measurement, after one warm-up call
 PLAIN_REPS = 2     # timed calls of a plain K-step chunk (slow: 50 steps)
+SPIN_CYCLES = 500_000_000  # about 0.3 s of the card's clock: device_ms
+# Calls device_ms queues behind one spin: the launch queue holds about a
+# thousand launches, and a plain heat-streams call makes about 80.
+SPIN_REPS = 5
 FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores
 HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 ENGINE = ["simple_ode", "heat", "burgers", "wave", "advection", "poisson",
@@ -71,6 +84,11 @@ SOLVES = [("heat", None, 0.05), ("heat", "cosine", 0.05),
 ENSEMBLES = [("fitzhugh_nagumo", {"causal_eps": 0.0}, 0.0088),
              ("wave", {"ensemble": 8}, 0.05),
              ("fredholm", {"ensemble": 4}, 0.0134)]
+# The scan trainer's solves: (equation, solve's extra arguments, MAE bound),
+# the bounds as for the fused solves.
+SCAN_SOLVES = [("heat", {"taps": "pallas"}, 0.05), ("heat", {}, 0.05),
+               ("simple_ode", {}, 0.01)]
+ACTIVATIONS = ("tanh", "sigmoid", "relu")
 # (equation, replicas, rtol of the losses against the plain version) of
 # the packed-kernel checks; the first two give the JSON rows. Fredholm's
 # losses are not held to a tolerance (None) but printed per replica: at lr
@@ -94,6 +112,34 @@ def cuda_ms(fn, reps=REPS):
     for _ in range(reps):
         fn()
     end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=SPIN_REPS):
+    """Mean milliseconds per call of ``fn`` on the card alone, after a
+    warm-up: for a call whose host work outlasts its device work, where CUDA
+    events around the calls would time the host. A spin kernel holds the
+    card while the host queues all ``reps`` calls, so the events time them
+    back to back; it fails if the spin ended before the host was done. It
+    takes no profiler, so nothing of a profiler session stays in the
+    process for the solves after it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    if start.query():
+        raise AssertionError("the spin kernel ended before the host had "
+                             "queued the timed calls (a full launch queue "
+                             "waits for it): lower SPIN_REPS or raise "
+                             "SPIN_CYCLES")
     end.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -285,6 +331,73 @@ def check_heat_kernels(model, prob):
           f"{ms:.4f} ms ({ms / CHUNK_STEPS * 1e3:.1f} us/step), plain "
           f"{plain_ms:.4f} ms ({plain_ms / CHUNK_STEPS * 1e3:.1f} us/step)")
     return rows
+
+
+def check_heat_streams():
+    """Kernel #3 against its plain version: at heat's shape (B = 64, H =
+    128, L = 3, tanh; the JSON row) and at a ragged B = 1000 for each
+    activation, all seven streams; then the gradient of the pallas-taps
+    loss through the kernel's Function against the Taylor taps' autograd.
+    Returns the kernel's row."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import generator
+    from differential_equations_dnn_tpu_torch.equations import Heat1D
+    from differential_equations_dnn_tpu_torch.kernels import taylor_mlp as tm
+    from differential_equations_dnn_tpu_torch.models import MLP
+
+    dev = torch.device("cuda")
+    H, L, O = 128, 3, 1
+    row = None
+    for act, B in [("tanh", 64)] + [(a, 1000) for a in ACTIVATIONS]:
+        model = MLP(2, O, H, L, act, generator=generator(1), device=dev)
+        b = Heat1D().sample(B, generator(2), dev)
+        pts = (b["xt"], b["x0"], b["xb1"], b["xb2"])
+        # Tolerance: the JAX package's for its kernel against the plain
+        # streams (tests/test_kernels.py:45-53), fp32 reassociation of
+        # 128-term dot products through 4 layers.
+        with torch.no_grad():
+            got = tm.heat_fused_streams(model, *pts)
+            want = tm.heat_fused_streams_plain(model, *pts)
+            for s, (g, w) in enumerate(zip(got, want)):
+                check_close(f"heat_fused_streams {act} B={B} stream {s}", g,
+                            w, rtol=1e-5, atol=1e-5)
+            err = max(max_abs(g, w) for g, w in zip(got, want))
+            # One call's device work (tens of microseconds) is shorter than
+            # its host work, so the row takes the device time of each; the
+            # CUDA-event time per call is printed beside it.
+            kernel = lambda: tm.heat_fused_streams(model, *pts)  # noqa: E731
+            plain = lambda: tm.heat_fused_streams_plain(  # noqa: E731
+                model, *pts)
+            ms, plain_ms = device_ms(kernel), device_ms(plain)
+            wall, plain_wall = cuda_ms(kernel), cuda_ms(plain)
+        print(f"heat_fused_streams [{act}, B={B}, H={H}, L={L}]: max|diff| "
+              f"{err:.3g}; device time: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; per call on the stream (CUDA events): "
+              f"kernel {wall:.4f} ms, plain {plain_wall:.4f} ms")
+        if row is None:
+            row = dict(
+                name="heat_fused_streams", route="cuda",
+                source=f"{PKG}/csrc/heat_streams.cu",
+                replaces=f"{JAX_KERNELS}/taylor_mlp.py:65",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound(2 * 7 * B * (2 * H + L * H * H + H * O),
+                        4 * (4 * B * 2 + n_params(2, H, L, O) + 7 * B * O)))
+            print(f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    # The gradient through the Function's rematerialised backward against
+    # autograd through the Taylor taps, at heat's shape. Tolerance: rtol
+    # 1e-4 / atol 1e-6, the two forwards differing by fp32 reassociation.
+    model = Heat1D().default_model(generator=generator(1), device=dev)
+    b = Heat1D().sample(64, generator(2), dev)
+    params = list(model.parameters())
+    grads = [torch.autograd.grad(Heat1D(taps=taps).loss(model, b), params)
+             for taps in ("pallas", "taylor")]
+    for gp, gt in zip(*grads):
+        check_close("heat_fused_streams gradient", gp, gt, rtol=1e-4,
+                    atol=1e-6)
+    print(f"heat pallas-taps gradient vs taylor taps: max|diff| "
+          f"{max(max_abs(a, c) for a, c in zip(*grads)):.3g}")
+    return row
 
 
 def check_engine_kernels(name):
@@ -577,7 +690,7 @@ def check_packed_kernels(name, n_replicas, loss_rtol):
 
 def phase_kernels():
     """Each kernel against its plain version at the main paths' shapes.
-    Returns the JSON rows: #2 and #1 at the heat shapes, #6 and #4 at the
+    Returns the JSON rows: #2, #1 and #3 at the heat shapes, #6 and #4 at the
     widest spec (heat2d), #7 and #4 at the DGM layout at the widest DGM
     equation (FitzHugh–Nagumo), #5 at the wave and FitzHugh–Nagumo
     ensembles."""
@@ -589,7 +702,7 @@ def phase_kernels():
     prob = Heat1D()
     model = prob.default_model(generator=generator(1),
                                device=torch.device("cuda"))
-    rows = check_heat_kernels(model, prob)
+    rows = check_heat_kernels(model, prob) + [check_heat_streams()]
     for name in ENGINE:
         engine_rows = check_engine_kernels(name)
     dgm_rows = [check_dgm_kernels(name) for name in DGM][0]
@@ -605,7 +718,8 @@ def wrappers():
 
     return [tm.mlp_forward, ft.heat_fused_train_chunk, fe.fused_engine_chunk,
             fe.engine_loss_grad, fd.fused_dgm_chunk, fd.dgm_loss_grad,
-            fe.fused_engine_packed_chunk, fd.fused_dgm_packed_chunk]
+            fe.fused_engine_packed_chunk, fd.fused_dgm_packed_chunk,
+            tm.heat_fused_streams]
 
 
 # The training wrappers that report their step-math runs (#6, #7; inside
@@ -631,11 +745,12 @@ def read_counts():
     return counts
 
 
-def solve_once(name, schedule, mae_bound, **extra):
+def solve_once(name, schedule, mae_bound, engine="fused", **extra):
     """One main path through the entry point a user calls; returns the
-    launches of each kernel in that run. ``extra`` (ensemble, causal_eps)
-    goes to solve; an ensemble must go through its packed kernel and no
-    single-replica trainer."""
+    launches of each kernel in that run. ``extra`` (ensemble, causal_eps,
+    taps) goes to solve; an ensemble must go through its packed kernel and
+    no single-replica trainer; a scan solve through no training kernel, and
+    with pallas taps through kernel #3 once per step plus the warm-up."""
     import numpy as np
 
     from differential_equations_dnn_tpu_torch import solve
@@ -643,14 +758,15 @@ def solve_once(name, schedule, mae_bound, **extra):
 
     reset_counts()
     t0 = time.perf_counter()
-    res = solve(name, engine="fused", schedule=schedule, **extra)
+    res = solve(name, engine=engine, schedule=schedule, **extra)
     total = time.perf_counter() - t0
     launches = read_counts()
 
     d = res.problem.defaults
     ensemble, finetune = _auto_defaults(res.problem, None)
     ensemble = extra.get("ensemble", ensemble)
-    label = (f"solve({name!r}, schedule={schedule or d.schedule!r}"
+    label = (f"solve({name!r}, engine={engine!r}, "
+             f"schedule={schedule or d.schedule!r}"
              + "".join(f", {k}={v!r}" for k, v in extra.items()) + ")")
     rate = (f"{res.iters_per_sec:.1f} it/s warm ({ensemble} replicas: "
             f"{ensemble * res.iters_per_sec:.1f} replica-steps/s)"
@@ -672,13 +788,27 @@ def solve_once(name, schedule, mae_bound, **extra):
     if not res.mae <= mae_bound:
         raise AssertionError(f"{label}: MAE {res.mae} above {mae_bound}")
     on_heat = name == "heat" and (schedule or d.schedule) == "constant"
-    if ensemble > 1:
+    trainers = ("fused_engine_chunk", "fused_dgm_chunk",
+                "heat_fused_train_chunk", "fused_engine_packed_chunk",
+                "fused_dgm_packed_chunk")
+    if engine == "scan":
+        pallas = extra.get("taps") == "pallas"
+        path = ["mlp_forward"] + (["heat_fused_streams"] if pallas else [])
+        for kernel in trainers:
+            if launches[kernel]:
+                raise AssertionError(f"{label}: the scan solve ran {kernel}")
+        expected = {"mlp_forward": 1,
+                    "heat_fused_streams": d.iterations + 1 if pallas else 0}
+        for kernel, n in expected.items():
+            if launches[kernel] != n:
+                raise AssertionError(f"{label}: {kernel} launched "
+                                     f"{launches[kernel]} times, not {n}")
+    elif ensemble > 1:
         path = (["fused_dgm_packed_chunk", "dgm_packed_step_math"]
                 if name in DGM else
                 ["mlp_forward", "fused_engine_packed_chunk",
                  "engine_packed_step_math"])
-        for kernel in ("fused_engine_chunk", "fused_dgm_chunk",
-                       "heat_fused_train_chunk"):
+        for kernel in trainers[:3]:
             if launches[kernel]:
                 raise AssertionError(f"{label}: the ensemble ran the "
                                      f"single-replica {kernel}")
@@ -693,11 +823,15 @@ def solve_once(name, schedule, mae_bound, **extra):
 
 
 def phase_solve():
-    """Each main path; returns {(name, schedule or "ensemble"): launches}."""
+    """Each main path; returns {(name, schedule or "ensemble"), or (name,
+    "scan", taps): launches}."""
     out = {(name, schedule): solve_once(name, schedule, mae_bound)
            for name, schedule, mae_bound in SOLVES}
     for name, extra, mae_bound in ENSEMBLES:
         out[(name, "ensemble")] = solve_once(name, None, mae_bound, **extra)
+    for name, extra, mae_bound in SCAN_SOLVES:
+        out[(name, "scan", extra.get("taps"))] = solve_once(
+            name, None, mae_bound, engine="scan", **extra)
     return out
 
 
@@ -710,28 +844,31 @@ def main():
     rows = phase_kernels()
     launches = phase_solve()
     # Launches from each kernel's own path: #2 and #1 from constant-lr
-    # heat, #6 and #4 from heat2d, #7 and #4 at the DGM layout from
+    # heat, #3 from the scan solve of heat with pallas taps, #6 and #4 from
+    # heat2d, #7 and #4 at the DGM layout from
     # FitzHugh–Nagumo, #5 from the wave and FitzHugh–Nagumo ensembles (the
     # shapes of their rows). On the main path #6 and #7 run inside #4's
     # launches, once per step: their rows count those runs, as
     # engine_train_packed and dgm_train_packed report them.
-    source = {"mlp_forward": ("heat", None, "mlp_forward"),
-              "heat_fused_train_chunk": ("heat", None,
+    source = {"mlp_forward": (("heat", None), "mlp_forward"),
+              "heat_fused_train_chunk": (("heat", None),
                                          "heat_fused_train_chunk"),
-              "engine_loss_grad": ("heat2d", None, "engine_step_math"),
-              "fused_engine_chunk": ("heat2d", None, "fused_engine_chunk"),
-              "dgm_loss_grad": ("fitzhugh_nagumo", None, "dgm_step_math"),
-              "fused_dgm_chunk": ("fitzhugh_nagumo", None,
+              "heat_fused_streams": (("heat", "scan", "pallas"),
+                                     "heat_fused_streams"),
+              "engine_loss_grad": (("heat2d", None), "engine_step_math"),
+              "fused_engine_chunk": (("heat2d", None), "fused_engine_chunk"),
+              "dgm_loss_grad": (("fitzhugh_nagumo", None), "dgm_step_math"),
+              "fused_dgm_chunk": (("fitzhugh_nagumo", None),
                                   "fused_dgm_chunk"),
-              "fused_engine_packed_chunk": ("wave", "ensemble",
+              "fused_engine_packed_chunk": (("wave", "ensemble"),
                                             "fused_engine_packed_chunk"),
-              "fused_dgm_packed_chunk": ("fitzhugh_nagumo", "ensemble",
+              "fused_dgm_packed_chunk": (("fitzhugh_nagumo", "ensemble"),
                                          "fused_dgm_packed_chunk")}
     inside = {"engine_step_math": "fused_engine_chunk",
               "dgm_step_math": "fused_dgm_chunk"}
     for row in rows:
-        name, schedule, counter = source[row["name"]]
-        row["launches"] = launches[(name, schedule)][counter]
+        run, counter = source[row["name"]]
+        row["launches"] = launches[run][counter]
         if counter != row["name"]:
             row["launches_counted_as"] = (f"step-math runs inside "
                                           f"{inside[counter]}")

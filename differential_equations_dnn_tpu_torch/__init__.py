@@ -2,12 +2,15 @@
 ``differential_equations_dnn_tpu``, for one NVIDIA H100.
 
 It imports ``torch`` and never ``jax``. The JAX package beside it is the
-reference the port is tested against. Ported so far: the fused training
-paths, ``solve(name, engine="fused")`` for simple_ode, heat, burgers, wave,
-advection, poisson, heat2d, fitzhugh_nagumo and fredholm, through
-hand-written CUDA kernels (csrc/): the constant-lr heat trainer, the
-generic spec engine with its lr schedules, the DGM engine, and the MLP
-forward used for grid evaluation.
+reference the port is tested against. Ported so far: ``solve(name)`` for
+simple_ode, heat, burgers, wave, advection, poisson, heat2d,
+fitzhugh_nagumo and fredholm on both engines. ``engine="scan"`` (the
+default) is the generic trainer, torch ops per step, with heat's
+``taps="pallas"`` streams from a hand-written kernel; ``engine="fused"``
+trains inside hand-written CUDA kernels (csrc/): the constant-lr heat
+trainer, the generic spec engine with its lr schedules, the DGM engine and
+their packed-replica ensembles. Grid evaluation runs the MLP-forward
+kernel.
 
 * ``core``       — fp32 policy, activations, initializers, step-keyed draws
 * ``models``     — the plain MLP and the DGM (``nn.Module``s), JAX
@@ -15,7 +18,10 @@ forward used for grid evaluation.
 * ``ops``        — forward-mode taps (torch.func.jvp), Taylor streams,
                    Gauss–Legendre quadrature, the grid subsampler
 * ``equations``  — the nine problems (residuals, grids, exact solutions)
-* ``train``      — result records and the MAE metric
+* ``train``      — the scan trainer (``train``, ``make_train_step``,
+                   ``TrainConfig``, ``TrainResult``, ``inject_fault``,
+                   ``opt_state_from_jax``), the L-BFGS polish, the MAE
+                   metric
 * ``kernels``    — the CUDA kernels' wrappers, plain versions and build
 """
 

@@ -1,7 +1,8 @@
 """High-level one-call API: ``solve(...)``.
 
     from differential_equations_dnn_tpu_torch import solve
-    result = solve("heat", engine="fused")   # reference defaults, on the GPU
+    result = solve("heat")                   # reference defaults, on the GPU
+    result = solve("heat", engine="fused")   # the same, in the fused kernels
     result.mae, result.solution, result.loss_history
 """
 
@@ -21,8 +22,8 @@ from differential_equations_dnn_tpu_torch.kernels import (
     fused_dgm,
     fused_engine,
 )
+from differential_equations_dnn_tpu_torch.kernels.build import resolve_device
 from differential_equations_dnn_tpu_torch.kernels.fused_train import (
-    resolve_device,
     train_heat_fused_result,
 )
 from differential_equations_dnn_tpu_torch.train import (
@@ -30,6 +31,7 @@ from differential_equations_dnn_tpu_torch.train import (
     finetune_lbfgs,
     mean_absolute_error,
 )
+from differential_equations_dnn_tpu_torch.train import train as train_scan
 
 
 @dataclass
@@ -132,9 +134,12 @@ def _fused_route(problem, model, schedule="constant", batch_size=None) -> str:
             "queue 1, item 13: Fourier-feature MLPs)")
     spec = fused_engine.spec_for(problem)  # raises for causal advection
     if spec is None:
+        taps = getattr(problem, "taps", None)
         raise ValueError(f"no fused-engine spec for equation "
-                         f"{problem.name!r} (available: "
-                         f"{sorted(fused_engine.SPECS)})")
+                         f"{problem.name!r}"
+                         + (f" with taps={taps!r}" if taps == "pallas" else "")
+                         + f" (available: {sorted(fused_engine.SPECS)}); "
+                         f"use engine='scan'")
     if not fused_engine.supports_model(spec, model):
         raise ValueError(
             f"{problem.name!r}'s fused path needs a plain tanh MLP "
@@ -156,14 +161,19 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
     ``equation`` is a registry name (simple_ode, heat, burgers, wave,
     advection, poisson, heat2d, fitzhugh_nagumo, fredholm) or a Problem
     instance. Unset hyperparameters default to the reference's published
-    configuration. ``engine="fused"`` trains inside the hand-written CUDA
-    kernels: constant-lr heat on the specialised heat kernel, the DGM
-    equations (fitzhugh_nagumo, fredholm) on the DGM engine, everything
-    else on the generic spec engine; the generic ``"scan"`` trainer is not
-    ported yet. ``schedule`` ("constant" | "cosine" | "exponential")
-    overrides the equation's default lr schedule. ``model`` (default
+    configuration. ``engine="scan"`` (the default) trains with the generic
+    trainer (train.trainer.train): any equation and model, one optimizer
+    step of torch ops per batch; heat with ``taps="pallas"`` takes its
+    streams from the heat-streams kernel there. ``engine="fused"`` trains
+    inside the hand-written CUDA training kernels: constant-lr heat on the
+    specialised heat kernel, the DGM equations (fitzhugh_nagumo, fredholm)
+    on the DGM engine, everything else on the generic spec engine.
+    ``schedule`` ("constant" | "cosine" | "exponential") overrides the
+    equation's default lr schedule. ``model`` (default
     ``problem.default_model()`` initialised from ``seed``) is trained in
-    place.
+    place. ``precision`` picks the fused kernels' mode (only "highest" is
+    ported); the scan trainer ignores it, as in the JAX package, and runs
+    the port's strict-fp32 policy.
 
     ``ensemble=N`` trains N replicas packed into every kernel launch (replica
     r drawn from ``replica_generator(seed, r)``, all on the collocation
@@ -175,9 +185,11 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
     with the lowest residual on a fresh batch from ``seed + 4``. Both
     default to ``None`` = the JAX package's automatic choice:
     FitzHugh–Nagumo with ``causal_eps=0`` trains 16 replicas and polishes
-    for 200 steps, everything else one unpolished run. ``device`` defaults
-    to "cuda" and raises without a GPU; "cpu" runs the kernels' plain
-    PyTorch versions. ``mesh`` (sharded ensembles) is not ported.
+    for 200 steps, everything else one unpolished run. Ensembles run on the
+    fused engine only: the scan engine's vmapped populations are not
+    ported. ``device`` defaults to "cuda" and raises without a GPU; "cpu"
+    runs the kernels' plain PyTorch versions. ``mesh`` (sharded ensembles)
+    is not ported.
     """
     problem = (get_problem(equation, **problem_kwargs)
                if isinstance(equation, str) else equation)
@@ -189,14 +201,13 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
         raise NotImplementedError(
             "mesh= is not ported yet (ROADMAP.md queue 1, item 14: the "
             "sharded ensembles over several GPUs)")
-    if engine == "scan":
-        todo = ("queue 1, items 6 and 13: train/trainer.py and the "
-                "population ensembles" if ensemble > 1
-                else "queue 1, item 6: train/trainer.py")
-        raise NotImplementedError(f"engine='scan' is not ported yet "
-                                  f"(ROADMAP.md {todo}); use engine='fused'")
-    if engine != "fused":
+    if engine not in ("scan", "fused"):
         raise ValueError(f"unknown engine {engine!r} (scan | fused)")
+    if engine == "scan" and ensemble > 1:
+        raise NotImplementedError(
+            "ensembles on engine='scan' are not ported yet (ROADMAP.md "
+            "queue 1, item 13: the vmapped populations, "
+            "parallel/population.py); use engine='fused'")
     device = resolve_device(device)
 
     d = problem.defaults
@@ -205,11 +216,13 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
         batch_size=batch_size if batch_size is not None else d.batch_size,
         lrate=lrate if lrate is not None else d.lrate,
         schedule=schedule if schedule is not None else d.schedule,
+        verbose=False,
     )
     nodes = nodes if nodes is not None else d.nodes
     single = (model if model is not None
               else problem.default_model(generator=generator(seed)))
-    route = _fused_route(problem, single, config.schedule, config.batch_size)
+    route = ("scan" if engine == "scan" else
+             _fused_route(problem, single, config.schedule, config.batch_size))
 
     common = dict(batch_size=config.batch_size, lrate=config.lrate,
                   chunk_size=config.chunk_size, precision=precision,
@@ -233,7 +246,10 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
             trained = result.params[pick]
             loss_history = result.loss_history[pick]
     else:
-        if route == "heat":
+        if route == "scan":
+            result = train_scan(problem, seed, config, model=single,
+                                device=device)
+        elif route == "heat":
             result = train_heat_fused_result(problem, seed,
                                              config.iterations, model=single,
                                              **common)

@@ -11,6 +11,7 @@ from differential_equations_dnn_tpu_torch.core.init import (
 from differential_equations_dnn_tpu_torch.core.precision import dense
 from differential_equations_dnn_tpu_torch.core.prng import (
     generator,
+    step_generator,
     step_uniforms,
 )
 
@@ -23,5 +24,6 @@ __all__ = [
     "xavier_uniform",
     "dense",
     "generator",
+    "step_generator",
     "step_uniforms",
 ]

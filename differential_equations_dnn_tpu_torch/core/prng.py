@@ -19,11 +19,24 @@ import torch
 _M32 = 0xFFFFFFFF
 _DRAW_DOMAIN = 0x5EED0001  # separates the draw stream from the init stream
 _REPLICA_DOMAIN = 0x5EED0002  # and both from the replicas' init seeds
+_STEP_DOMAIN = 0x5EED0003  # and all three from the scan trainer's steps
 
 
 def generator(seed: int) -> torch.Generator:
     """A CPU generator for weight initialisation."""
     return torch.Generator().manual_seed(int(seed))
+
+
+def step_generator(seed: int, i: int) -> torch.Generator:
+    """The generator of step ``i`` of the scan trainer seeded ``seed``: a
+    CPU generator whose 64-bit seed is the counter hash of ``(seed, i)``,
+    the counterpart of the JAX package's ``fold_index(run_key, i)``
+    (train/trainer.py:255-256). A step's draws depend on ``(seed, i)``
+    alone, so a chunked run equals an uncut one, a resumed run an unbroken
+    one, and the CPU and the GPU see the same batches."""
+    key = _mix32(((seed ^ (seed >> 32)) ^ _STEP_DOMAIN) & _M32)
+    h = _mix32((key + int(i) * 0x9E3779B9) & _M32)
+    return torch.Generator().manual_seed((key << 32) | h)
 
 
 def replica_generator(seed: int, r: int) -> torch.Generator:
@@ -41,8 +54,9 @@ def replica_generator(seed: int, r: int) -> torch.Generator:
 
 
 def _mix32(x):
-    """lowbias32 (C. Wellons) on int64 tensors holding uint32 values. The
-    products wrap modulo 2^64, whose low 32 bits are the uint32 product."""
+    """lowbias32 (C. Wellons) on int64 tensors (or Python ints) holding
+    uint32 values. Tensor products wrap modulo 2^64, whose low 32 bits are
+    the uint32 product."""
     x = x ^ (x >> 16)
     x = (x * 0x7FEB352D) & _M32
     x = x ^ (x >> 15)

@@ -18,7 +18,7 @@ from differential_equations_dnn_tpu_torch.equations.base import (
     grid_2d,
 )
 from differential_equations_dnn_tpu_torch.models import MLP
-from differential_equations_dnn_tpu_torch.ops import value_dt
+from differential_equations_dnn_tpu_torch.ops import coordinate_taps
 
 CAUSAL_TODO = ("advection with causal_eps > 0 is not ported yet (ROADMAP.md "
                "queue 1, item 10e: causal advection's [B, B] weighting)")
@@ -53,8 +53,7 @@ class Advection1D(Problem):
         }
 
     def point_loss(self, model, batch):
-        _, u_t = value_dt(model, batch["xt"], t_axis=1)
-        _, u_x = value_dt(model, batch["xt"], t_axis=0)
+        _, (u_t, u_x), _ = coordinate_taps(model, batch["xt"], first=(1, 0))
         r = u_t + self.c * u_x
         r0 = model(batch["x0"]) - torch.sin(batch["x0"][:, :1])
         rb = model(batch["xb"]) - torch.sin(-self.c * batch["xb"][:, 1:2])

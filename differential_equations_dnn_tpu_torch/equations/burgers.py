@@ -18,7 +18,7 @@ from differential_equations_dnn_tpu_torch.equations.base import (
     grid_2d,
 )
 from differential_equations_dnn_tpu_torch.models import MLP
-from differential_equations_dnn_tpu_torch.ops import value_dt, value_dx_dxx
+from differential_equations_dnn_tpu_torch.ops import coordinate_taps
 
 
 @dataclass(frozen=True)
@@ -54,8 +54,8 @@ class Burgers(Problem):
         }
 
     def point_loss(self, model, batch):
-        u, u_x, u_xx = value_dx_dxx(model, batch["xt"], x_axis=0)
-        _, u_t = value_dt(model, batch["xt"], t_axis=1)
+        u, (u_x, u_t), (u_xx,) = coordinate_taps(model, batch["xt"],
+                                                 first=(0, 1), second=(0,))
         r_domain = u_t + u * u_x - self.nu * u_xx
         res = [model(batch[k]) - self._exact_fn(batch[k][:, :1],
                                                 batch[k][:, 1:])

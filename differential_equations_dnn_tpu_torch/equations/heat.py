@@ -19,11 +19,11 @@ from differential_equations_dnn_tpu_torch.equations.base import (
     grid_2d,
     require_soft,
 )
+from differential_equations_dnn_tpu_torch.kernels import taylor_mlp
 from differential_equations_dnn_tpu_torch.models import MLP
 from differential_equations_dnn_tpu_torch.ops import (
+    coordinate_taps,
     heat_fused_streams,
-    value_dt,
-    value_dx_dxx,
 )
 
 
@@ -33,8 +33,11 @@ class Heat1D(Problem):
     kappa: float = 1.0
     x_max: float = math.pi
     t_max: float = 3.0
-    # Derivative taps: "jvp" (torch.func.jvp over any model) or "taylor"
-    # (stacked Taylor streams, ops.taylor; plain MLPs).
+    # Derivative taps: "jvp" (autodiff taps over any model, ops.diff), "taylor"
+    # (stacked Taylor streams, ops.taylor; plain MLPs) or "pallas" (the
+    # same streams from the heat-streams kernel, kernels.taylor_mlp; plain
+    # MLPs). The port's point_loss takes the module itself, so the JAX
+    # package's taps_model field has no counterpart.
     taps: str = "jvp"
     defaults: TrainDefaults = field(
         default_factory=lambda: TrainDefaults(iterations=15000, batch_size=64,
@@ -43,11 +46,7 @@ class Heat1D(Problem):
 
     def __post_init__(self):
         require_soft(self.constraint)
-        if self.taps == "pallas":
-            raise NotImplementedError(
-                "taps='pallas' is not ported yet (ROADMAP.md queue 2: "
-                "kernel #3, taylor_mlp._heat_kernel)")
-        if self.taps not in ("jvp", "taylor"):
+        if self.taps not in ("jvp", "taylor", "pallas"):
             raise ValueError(f"unknown taps mode {self.taps!r}")
 
     def default_model(self, generator=None, device=None):
@@ -69,13 +68,15 @@ class Heat1D(Problem):
 
     def point_loss(self, model, batch):
         if self.taps == "jvp":
-            _, _, u_xx = value_dx_dxx(model, batch["xt"], x_axis=0)
-            _, u_t = value_dt(model, batch["xt"], t_axis=1)
-            u0 = model(batch["x0"])
-            ub1 = model(batch["xb1"])
-            ub2 = model(batch["xb2"])
+            _, (u_t,), (u_xx,) = coordinate_taps(model, batch["xt"],
+                                                 first=(1,), second=(0,))
+            # The three constraint sets in one forward (rows independent).
+            u0, ub1, ub2 = model(torch.cat([batch["x0"], batch["xb1"],
+                                            batch["xb2"]])).chunk(3)
         else:
-            _, _, u_xx, u_t, u0, ub1, ub2 = heat_fused_streams(
+            streams = (taylor_mlp.heat_fused_streams if self.taps == "pallas"
+                       else heat_fused_streams)
+            _, _, u_xx, u_t, u0, ub1, ub2 = streams(
                 model, batch["xt"], batch["x0"], batch["xb1"], batch["xb2"])
         r_domain = u_t - self.kappa * u_xx
         r_init = u0 - torch.sin(batch["x0"][:, :1])

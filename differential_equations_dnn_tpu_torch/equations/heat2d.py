@@ -21,9 +21,8 @@ from differential_equations_dnn_tpu_torch.equations.base import (
 )
 from differential_equations_dnn_tpu_torch.models import MLP
 from differential_equations_dnn_tpu_torch.ops import (
+    coordinate_taps,
     mlp_streams,
-    value_dt,
-    value_dx_dxx,
 )
 
 _FACES = ("b_x0", "b_x1", "b_y0", "b_y1")
@@ -76,9 +75,8 @@ class Heat2D(Problem):
                 first_dirs=([0.0, 0.0, 1.0],),
                 constraints=tuple(batch[k] for k in ("x0",) + _FACES))
         else:
-            _, _, u_xx = value_dx_dxx(model, batch["xt"], x_axis=0)
-            _, _, u_yy = value_dx_dxx(model, batch["xt"], x_axis=1)
-            _, u_t = value_dt(model, batch["xt"], t_axis=2)
+            _, (u_t,), (u_xx, u_yy) = coordinate_taps(
+                model, batch["xt"], first=(2,), second=(0, 1))
             u0 = model(batch["x0"])
             faces = [model(batch[k]) for k in _FACES]
         r_init = u0 - (torch.sin(batch["x0"][:, :1])

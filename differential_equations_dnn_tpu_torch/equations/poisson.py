@@ -17,7 +17,7 @@ from differential_equations_dnn_tpu_torch.equations.base import (
     require_soft,
 )
 from differential_equations_dnn_tpu_torch.models import MLP
-from differential_equations_dnn_tpu_torch.ops import value_dx_dxx
+from differential_equations_dnn_tpu_torch.ops import coordinate_taps
 
 _FACES = ("b_x0", "b_x1", "b_y0", "b_y1")
 
@@ -56,8 +56,8 @@ class Poisson2D(Problem):
         }
 
     def point_loss(self, model, batch):
-        _, _, u_xx = value_dx_dxx(model, batch["xy"], x_axis=0)
-        _, _, u_yy = value_dx_dxx(model, batch["xy"], x_axis=1)
+        _, _, (u_xx, u_yy) = coordinate_taps(model, batch["xy"],
+                                             second=(0, 1))
         r_domain = -(u_xx + u_yy) - self.source(batch["xy"])
         r_b = sum(torch.square(model(batch[k])) for k in _FACES)
         return (torch.square(r_domain) + r_b)[:, 0]

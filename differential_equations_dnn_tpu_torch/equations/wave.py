@@ -19,7 +19,7 @@ from differential_equations_dnn_tpu_torch.equations.base import (
     require_soft,
 )
 from differential_equations_dnn_tpu_torch.models import MLP
-from differential_equations_dnn_tpu_torch.ops import value_dt, value_dx_dxx
+from differential_equations_dnn_tpu_torch.ops import coordinate_taps, value_dt
 
 
 @dataclass(frozen=True)
@@ -54,8 +54,8 @@ class Wave1D(Problem):
         }
 
     def point_loss(self, model, batch):
-        _, _, u_xx = value_dx_dxx(model, batch["xt"], x_axis=0)
-        _, _, u_tt = value_dx_dxx(model, batch["xt"], x_axis=1)
+        _, _, (u_xx, u_tt) = coordinate_taps(model, batch["xt"],
+                                             second=(0, 1))
         r_domain = u_tt - (self.c ** 2) * u_xx
         u0, u0_t = value_dt(model, batch["x0"], t_axis=1)
         r_pos = u0 - torch.sin(batch["x0"][:, :1])

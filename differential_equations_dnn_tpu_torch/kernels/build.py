@@ -39,6 +39,11 @@ _CONSTS = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     # x, w_in, b_in, w_hid, b_hid, w_out, b_out, y, n, d, h, l, o, act, stream
     "mlp_forward": [_P] * 8 + [_I] * 6 + [_P],
+    # xt, x0, xb1, xb2, w_in, b_in, w_hid, b_hid, w_out, b_out, out, n, h,
+    # l, o, act, stream
+    "heat_streams": [_P] * 11 + [_I] * 5 + [_P],
+    # h, o
+    "heat_streams_smem_bytes": [_I] * 2,
     # B, H, L
     "heat_scratch_floats": [_I] * 3,
     # p, u, scratch, grad, loss, B, H, L, x_max, t_max, kappa, stream
@@ -70,7 +75,8 @@ _SIGNATURES = {
                         + [_U, _F, _I, _I] + [_F] * 4
                         + [ctypes.POINTER(_I), _P],
 }
-_RESTYPES = {"engine_scratch_floats": ctypes.c_longlong,
+_RESTYPES = {"heat_streams_smem_bytes": ctypes.c_longlong,
+             "engine_scratch_floats": ctypes.c_longlong,
              "engine_smem_bytes": ctypes.c_longlong,
              "dgm_scratch_floats": ctypes.c_longlong}
 
@@ -155,6 +161,23 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises if it names CUDA and there is
+    no GPU (the CPU runs only when a caller asks for it)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; the port runs on "
+                           "the GPU (pass device='cpu' to run the plain "
+                           "PyTorch versions)")
+    return device
+
+
+def sync(device) -> None:
+    """Wait for ``device``'s work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def stream_ptr(device) -> int:

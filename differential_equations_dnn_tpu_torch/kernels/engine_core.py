@@ -7,7 +7,9 @@ through ``fused_engine.fused_engine_chunk`` (one replica) and
 ``fused_engine_packed_chunk``; this module holds what both share:
 
 * the per-step learning rate of the three schedules, computed in fp32 from
-  the absolute step ``t = step0 + k + 1`` with the JAX kernel's formulas;
+  the absolute step ``t = step0 + k + 1`` with the JAX kernel's formulas,
+  and the plain Adam update (:func:`adam_update`) every fused trainer's
+  plain version applies;
 * :func:`run_fused_chunk`, the plain loop the kernel is held against;
 * :func:`check_state_fits`, the H100 rule that replaces the JAX package's
   VMEM rule (``_check_state_fits``);
@@ -25,11 +27,7 @@ import math
 
 import torch
 
-from differential_equations_dnn_tpu_torch.kernels.fused_train import (
-    adam_update,
-    check_batch_tile,
-)
-
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
 SCHEDULES = ("constant", "cosine", "exponential")
 
 # Shared memory one block may take on an H100 (232 448 bytes).
@@ -94,6 +92,23 @@ def check_state_fits(need: int, R: int, H: int) -> None:
             f"hidden width {H} with {R} streams needs {need} bytes of shared "
             f"memory per block in the fused engine's backward (the H100 "
             f"allows {SMEM_LIMIT}); use a smaller hidden size")
+
+
+def adam_update(p, m, v, g, lr, t):
+    """Adam with torch defaults; ``t`` is the 1-indexed global step as an
+    fp32 tensor."""
+    m = _B1 * m + (1.0 - _B1) * g
+    v = _B2 * v + (1.0 - _B2) * (g * g)
+    c1 = 1.0 - torch.exp(t * math.log(_B1))
+    c2 = 1.0 - torch.exp(t * math.log(_B2))
+    p = p - lr * (m / c1) / (torch.sqrt(v / c2) + _EPS)
+    return p, m, v
+
+
+def check_batch_tile(B: int, batch_tile: int | None) -> None:
+    """``batch_tile`` (None: the whole batch) must divide B."""
+    if batch_tile is not None and B % batch_tile:
+        raise ValueError(f"batch {B} not divisible by batch_tile {batch_tile}")
 
 
 def run_fused_chunk(step_math, params, m, v, uniforms, step0, lrate, *,

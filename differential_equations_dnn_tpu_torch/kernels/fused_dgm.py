@@ -50,7 +50,6 @@ from differential_equations_dnn_tpu_torch.kernels.fused_engine import (
 from differential_equations_dnn_tpu_torch.kernels.fused_train import (
     check_precision,
     replica_models,
-    resolve_device,
     train_in_chunks,
 )
 from differential_equations_dnn_tpu_torch.kernels.taylor_mlp import _ACT_KIND
@@ -706,7 +705,7 @@ def train_dgm_fused_result(problem, seed, iterations, batch_size=100,
         raise ValueError(f"no fused DGM spec for equation {problem.name!r} "
                          f"(fitzhugh_nagumo dgm arch | fredholm gauss)")
     check_precision(precision)
-    device = resolve_device(device)
+    device = build.resolve_device(device)
     if model is None:
         model = problem.default_model(generator=generator(seed))
     model.to(device)
@@ -758,7 +757,7 @@ def train_dgm_fused_ensemble_packed(problem, seed, iterations, n_replicas,
         raise ValueError(f"no fused DGM spec for equation {problem.name!r} "
                          f"(fitzhugh_nagumo dgm arch | fredholm gauss)")
     check_precision(precision)
-    device = resolve_device(device)
+    device = build.resolve_device(device)
     models = replica_models(problem, model, seed, n_replicas, device)
     _check_model(spec, models[0])
     kw = dict(const=const_for(spec, problem, batch_size, device),

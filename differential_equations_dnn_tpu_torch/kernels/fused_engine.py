@@ -41,14 +41,15 @@ from differential_equations_dnn_tpu_torch.equations.advection import (
 )
 from differential_equations_dnn_tpu_torch.kernels import build
 from differential_equations_dnn_tpu_torch.kernels import engine_core
+from differential_equations_dnn_tpu_torch.kernels.engine_core import (
+    check_batch_tile,
+)
 from differential_equations_dnn_tpu_torch.kernels.fused_train import (
     _check_state,
-    check_batch_tile,
     check_precision,
     load_params,
     pack_params,
     replica_models,
-    resolve_device,
     train_in_chunks,
     unpack_params,
 )
@@ -474,8 +475,11 @@ SPECS = {
 def spec_for(problem):
     """The stream spec for ``problem``, or None if the port has no fused
     engine spec for it (hard constraints, volterra, uat and inverse_heat
-    are not ported; the DGM equations train on kernels.fused_dgm)."""
+    are not ported; the DGM equations train on kernels.fused_dgm; heat with
+    ``taps="pallas"`` trains on the scan trainer, as in the JAX package)."""
     if getattr(problem, "constraint", "soft") == "hard":
+        return None
+    if getattr(problem, "taps", "jvp") == "pallas":
         return None
     cls = SPECS.get(problem.name)
     return cls(problem) if cls else None
@@ -727,7 +731,7 @@ def train_fused_result(problem, seed, iterations, batch_size=64, lrate=1e-4,
         raise ValueError(f"no fused-engine spec for equation "
                          f"{problem.name!r} (available: {sorted(SPECS)})")
     check_precision(precision)
-    device = resolve_device(device)
+    device = build.resolve_device(device)
     if model is None:
         model = problem.default_model(generator=generator(seed))
     model.to(device)
@@ -778,7 +782,7 @@ def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
         raise ValueError(f"no fused-engine spec for equation "
                          f"{problem.name!r} (available: {sorted(SPECS)})")
     check_precision(precision)
-    device = resolve_device(device)
+    device = build.resolve_device(device)
     models = replica_models(problem, model, seed, n_replicas, device)
     _check_model(spec, models[0])
     kw = dict(schedule=schedule or problem.defaults.schedule,

@@ -9,8 +9,8 @@ Counterpart of the JAX package's kernels/fused_train.py. Each step:
 * applies Adam with torch-default hyperparameters and bias correction by the
   absolute step ``t = step0 + k + 1``.
 
-``fused_step_math`` and ``adam_update`` are the plain PyTorch version of
-that step; the CPU tests hold them against the JAX package, and
+``fused_step_math`` and ``engine_core.adam_update`` are the plain PyTorch
+version of that step; the CPU tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernel against them on the card.
 
 Parameters and both Adam moments are each ONE flat fp32 buffer in the order
@@ -29,10 +29,13 @@ from differential_equations_dnn_tpu_torch.core.prng import (
     step_uniforms,
 )
 from differential_equations_dnn_tpu_torch.kernels import build
+from differential_equations_dnn_tpu_torch.kernels.engine_core import (
+    adam_update,
+    check_batch_tile,
+)
 from differential_equations_dnn_tpu_torch.models import MLP
 from differential_equations_dnn_tpu_torch.train.trainer import TrainResult
 
-_B1, _B2, _EPS = 0.9, 0.999, 1e-8
 _PRECISION_TODO = ("precision={!r} is not ported yet (ROADMAP.md queue 1, "
                    "item 7: the bf16 tensor-core precision modes)")
 
@@ -142,17 +145,6 @@ def fused_step_math(params, u, B, L, x_max=math.pi, t_max=3.0, kappa=1.0):
     d_w_in = X.T @ dz
     d_b_in = torch.sum(mask * dz, 0)
     return loss, (d_w_in, d_b_in, d_w_hid, d_b_hid, d_w_out, d_b_out)
-
-
-def adam_update(p, m, v, g, lr, t):
-    """Adam with torch defaults; ``t`` is the 1-indexed global step as an
-    fp32 tensor."""
-    m = _B1 * m + (1.0 - _B1) * g
-    v = _B2 * v + (1.0 - _B2) * (g * g)
-    c1 = 1.0 - torch.exp(t * math.log(_B1))
-    c2 = 1.0 - torch.exp(t * math.log(_B2))
-    p = p - lr * (m / c1) / (torch.sqrt(v / c2) + _EPS)
-    return p, m, v
 
 
 # ---------------------------------------------------------------------------
@@ -268,12 +260,6 @@ def heat_fused_train_chunk_plain(model, params, m, v, uniforms, step0,
     return params, m, v, torch.stack(losses)
 
 
-def check_batch_tile(B: int, batch_tile: int | None) -> None:
-    """``batch_tile`` (None: the whole batch) must divide B."""
-    if batch_tile is not None and B % batch_tile:
-        raise ValueError(f"batch {B} not divisible by batch_tile {batch_tile}")
-
-
 def heat_fused_train_chunk(model, params, m, v, uniforms, step0, lrate,
                            x_max=math.pi, t_max=3.0, kappa=1.0,
                            batch_tile: int | None = None):
@@ -321,17 +307,6 @@ heat_fused_train_chunk.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raises if it names CUDA and there is
-    no GPU (the CPU runs only when a caller asks for it)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; the port runs on "
-                           "the GPU (pass device='cpu' to run the plain "
-                           "PyTorch versions)")
-    return device
-
-
 def replica_models(problem, model, seed, n_replicas, device):
     """The N replicas of an ensemble: replica r is ``model``'s architecture
     (default: the problem's) drawn from ``replica_generator(seed, r)``, the
@@ -343,11 +318,6 @@ def replica_models(problem, model, seed, n_replicas, device):
             for r in range(n_replicas)]
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def check_precision(precision: str) -> None:
     """Only ``precision="highest"`` (exact fp32) is ported."""
     if precision in ("default", "mixed"):
@@ -357,7 +327,8 @@ def check_precision(precision: str) -> None:
 
 
 def train_in_chunks(model, run_chunk, draw, p, m, v, iterations, chunk_size,
-                    device, start_step=0, load=None) -> TrainResult:
+                    device, start_step=0,
+                    load=None) -> TrainResult:
     """The fused trainers' host loop. ``run_chunk(p, m, v, u, step0)`` runs
     the steps of ``u = draw(step0, k)`` and returns new (p, m, v, losses);
     ``load(model, p)`` (default: the MLP's :func:`load_params`) copies the
@@ -372,7 +343,7 @@ def train_in_chunks(model, run_chunk, draw, p, m, v, iterations, chunk_size,
     ``model``, which the result returns as ``params``."""
     t0 = time.perf_counter()
     run_chunk(p, m, v, draw(start_step, 1), start_step)
-    _sync(device)
+    build.sync(device)
     compile_time = time.perf_counter() - t0
 
     chunk = max(1, min(chunk_size, iterations))
@@ -385,7 +356,7 @@ def train_in_chunks(model, run_chunk, draw, p, m, v, iterations, chunk_size,
         p, m, v, chunk_losses = run_chunk(p, m, v, draw(step, k), step)
         losses.append(chunk_losses)
         done += k
-    _sync(device)
+    build.sync(device)
     wall = time.perf_counter() - t0
     (load or load_params)(model, p)
     return TrainResult(
@@ -409,7 +380,7 @@ def train_heat_fused_result(problem, seed, iterations, batch_size=64,
     draws its collocation points from ``(seed, i)`` alone, so the chunk
     layout cannot change the run."""
     check_precision(precision)
-    device = resolve_device(device)
+    device = build.resolve_device(device)
     if model is None:
         model = problem.default_model(generator=generator(seed))
     model.to(device)

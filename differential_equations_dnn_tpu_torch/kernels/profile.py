@@ -14,18 +14,37 @@ limit. With ``--replicas N [N ...]`` it times the packed-replica kernel
 (#5) instead, one run per N: N replicas drawn from ``replica_generator(0,
 r)`` in every launch, with µs per packed step and per replica-step. With
 ``--solve-seeds N`` it also runs ``solve(NAME, engine="fused")`` at the
-reference defaults for seeds 0 .. N−1 and prints each MAE and warm it/s.
-Needs a CUDA device.
+reference defaults (or with ``--solve-args``) for seeds 0 .. N−1 and
+prints each MAE and warm it/s. With ``--scan NAME [NAME ...]`` it times
+steps of the scan trainer (train.trainer.make_train_step, default model
+and config, seed 0) instead, ``--taps`` choosing heat's taps: the same
+per-kernel lines, launches per step, and the device's idle share of the
+event-timed step. ``--scan NAME --solve-seeds N`` runs
+``solve(NAME, engine="scan")`` for every taps of ``--taps``, Adam update of
+``--adam`` (torch's fused or foreach) and seed, ``--workers`` at a time,
+and compares the taps' loss histories. Needs a CUDA device.
 
     python -m differential_equations_dnn_tpu_torch.kernels.profile \
         fitzhugh_nagumo wave --replicas 1 4 8 16
+    python -m differential_equations_dnn_tpu_torch.kernels.profile \
+        --scan heat --taps pallas
+    python -m differential_equations_dnn_tpu_torch.kernels.profile \
+        --scan heat --solve-seeds 5 --taps taylor pallas jvp \
+        --adam fused foreach --workers 8 --out scan_seeds.json
 """
 
 import argparse
+import functools
+import json
+import multiprocessing
 import re
 import subprocess
 from collections import defaultdict
+from concurrent import futures
+from pathlib import Path
+from unittest import mock
 
+import numpy as np
 import torch
 
 from differential_equations_dnn_tpu_torch.core.prng import (
@@ -34,10 +53,16 @@ from differential_equations_dnn_tpu_torch.core.prng import (
     step_uniforms,
 )
 from differential_equations_dnn_tpu_torch.equations import PROBLEMS
-from differential_equations_dnn_tpu_torch.kernels import engine_core
+from differential_equations_dnn_tpu_torch.kernels import build, engine_core
 from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
 from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
 from differential_equations_dnn_tpu_torch.kernels import fused_train as ft
+from differential_equations_dnn_tpu_torch.train.trainer import (
+    TrainConfig,
+    draw_batches,
+    make_optimizer,
+    make_train_step,
+)
 
 STEPS = 200
 DGM = ("fitzhugh_nagumo", "fredholm")
@@ -91,12 +116,34 @@ def _packed_fn(name, device, n_replicas):
                          **kw)
 
 
+def _scan_fn(name, device, taps=None):
+    """A closure running STEPS scan-trainer steps of NAME, each on its own
+    batch (drawn up front, on the device), from the default model."""
+    prob = PROBLEMS[name](**({"taps": taps} if taps else {}))
+    d = prob.defaults
+    model = prob.default_model(generator=generator(0), device=device)
+    config = TrainConfig(iterations=d.iterations, batch_size=d.batch_size,
+                         lrate=d.lrate, schedule=d.schedule, verbose=False)
+    step = make_train_step(prob, model,
+                           make_optimizer(config, model.parameters()),
+                           d.batch_size)
+    block = draw_batches(prob, 0, 0, STEPS, step.draw_size, device)
+
+    def run():
+        for j in range(STEPS):
+            step({k: v[j] for k, v in block.items()})
+    return run
+
+
 def _kernel_times(prof):
-    """{kernel name: (device µs, calls)} of the profiled CUDA kernels."""
+    """{kernel name: (device µs, calls)} of the profiled CUDA kernels and
+    copies. A user annotation's range on the device timeline (such as
+    ``Optimizer.step#Adam.step``, gaps included) is not a kernel."""
     out = defaultdict(lambda: [0.0, 0])
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", 0.0)
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+        if (us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA
+                and not ev.is_user_annotation):
             found = re.search(r"\w+_kernel", ev.key)
             short = found.group(0) if found else ev.key[:40]
             out[short][0] += us
@@ -104,50 +151,144 @@ def _kernel_times(prof):
     return out
 
 
-def profile(name, device, n_replicas=None):
-    run = (_chunk_fn(name, device) if n_replicas is None
-           else _packed_fn(name, device, n_replicas))
-    run()
-    torch.cuda.synchronize(device)
+def _event_us(run):
+    """µs per step of ``run()`` (STEPS steps) between CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     run()
     end.record()
     end.synchronize()
-    step_us = start.elapsed_time(end) * 1e3 / STEPS
+    return start.elapsed_time(end) * 1e3 / STEPS
+
+
+def profile(name, device, n_replicas=None, scan_taps=False):
+    """``scan_taps``: profile the scan trainer's step (None: the equation's
+    default taps) rather than the fused route."""
+    if scan_taps is not False:
+        run = _scan_fn(name, device, scan_taps)
+    elif n_replicas is None:
+        run = _chunk_fn(name, device)
+    else:
+        run = _packed_fn(name, device, n_replicas)
+    run()
+    torch.cuda.synchronize(device)
+    step_us = _event_us(run)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         run()
         torch.cuda.synchronize(device)
+    # Timed again: what a profiler session leaves behind in the process
+    # (its host-side hooks) shows in a host-bound step.
+    after_us = _event_us(run)
     times = _kernel_times(prof)
     total = sum(us for us, _ in times.values()) / STEPS
     label = name if n_replicas is None else (
         f"{name} packed, N={n_replicas} ({step_us / n_replicas:.2f} us per "
         f"replica-step)")
+    if scan_taps is not False:
+        label = f"{name} scan step (taps={scan_taps or 'default'})"
+    launches = sum(calls for _, calls in times.values()) / STEPS
     print(f"{label}: {step_us:.2f} us/step (CUDA events, K={STEPS}); "
           f"kernels {total:.2f} us/step under the profiler "
-          f"(share of the event-timed step {total / step_us:.3f})")
+          f"(share of the event-timed step {total / step_us:.3f}, idle "
+          f"{1 - total / step_us:.3f}); {launches:.1f} launches/step; "
+          f"{after_us:.2f} us/step after the profiler session")
     for kernel, (us, calls) in sorted(times.items(), key=lambda kv: -kv[1][0]):
         print(f"  {kernel:24s} {us / STEPS:8.2f} us/step  "
               f"{calls / STEPS:5.2f} launches/step  "
               f"{us / calls:7.2f} us/launch")
 
 
-def solve_seeds(name, n_seeds):
-    """MAE and warm it/s of ``solve(name, engine="fused")`` per seed."""
+def solve_seeds(name, n_seeds, **solve_kw):
+    """MAE and warm it/s of ``solve(name, engine="fused", **solve_kw)`` per
+    seed."""
     from differential_equations_dnn_tpu_torch import solve
 
     maes = []
     for seed in range(n_seeds):
-        res = solve(name, engine="fused", seed=seed)
+        res = solve(name, engine="fused", seed=seed, **solve_kw)
         maes.append(res.mae)
-        print(f"  solve({name!r}, seed={seed}): MAE {res.mae:.6g}, "
-              f"{res.iters_per_sec:.1f} it/s warm, final loss "
+        print(f"  solve({name!r}, seed={seed}, **{solve_kw}): MAE "
+              f"{res.mae:.6g}, {res.iters_per_sec:.1f} it/s warm (wall "
+              f"{res.wall_time:.3f} s), final loss "
               f"{res.loss_history[-1]:.4g}")
     print(f"  {name} MAE over seeds 0-{n_seeds - 1}: min {min(maes):.6g}, "
           f"max {max(maes):.6g}")
+
+
+def _scan_solve(job):
+    """One ``solve(name, engine="scan")`` of :func:`scan_seeds`, in a worker
+    process: (name, taps, adam, seed) → (MAE, it/s, loss history)."""
+    from differential_equations_dnn_tpu_torch import solve
+    from differential_equations_dnn_tpu_torch.train import trainer
+
+    name, taps, adam, seed = job
+    with mock.patch.object(trainer, "make_optimizer", functools.partial(
+            trainer.make_optimizer, fused=adam == "fused")):
+        res = solve(name, engine="scan", seed=seed,
+                    **({"taps": taps} if taps else {}))
+    return res.mae, res.iters_per_sec, res.loss_history
+
+
+def scan_seeds(name, taps_list, adams, n_seeds, workers, out=None):
+    """MAE, warm it/s and loss history of ``solve(name, engine="scan")`` at
+    the reference defaults for every (taps, Adam update, seed), ``workers``
+    runs at a time, each in its own process (the scan step is host-bound:
+    one core drives the card well under 10 % busy). Then, per Adam update
+    and seed, where the loss histories of each taps part from the first's:
+    the first step whose relative difference exceeds 1e-3 and 1e-1, and the
+    mean loss of the last 1 000 steps."""
+    jobs = [(name, taps, adam, seed) for seed in range(n_seeds)
+            for adam in adams for taps in taps_list]
+    build.library()  # built once, before the workers load it
+    runs = {}
+    ctx = multiprocessing.get_context("spawn")
+    with futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        pending = {pool.submit(_scan_solve, job): job for job in jobs}
+        for done in futures.as_completed(pending):
+            job = pending[done]
+            mae, rate, history = done.result()
+            runs[job[1:]] = (mae, rate, history)
+            print(f"  solve({name!r}, engine='scan', taps={job[1]!r}, "
+                  f"seed={job[3]}) with {job[2]} Adam: MAE {mae:.6g}, "
+                  f"{rate:.1f} it/s warm ({workers} runs at a time), final "
+                  f"loss {history[-1]:.4g}, mean of the last 1000 "
+                  f"{np.mean(history[-1000:]):.4g}", flush=True)
+    summary = {"runs": [], "divergence": []}
+    for adam in adams:
+        for taps in taps_list:
+            maes = [runs[(taps, adam, s)][0] for s in range(n_seeds)]
+            summary["runs"].append({"taps": taps, "adam": adam,
+                                    "mae": maes})
+            print(f"  {name} taps={taps!r}, {adam} Adam, MAE over seeds 0-"
+                  f"{n_seeds - 1}: " + ", ".join(f"{m:.6g}" for m in maes)
+                  + f" (median {np.median(maes):.6g})")
+    # Pairs of runs on the same draws: each taps against the first (same
+    # Adam), and each Adam against the first (same taps), the rounding
+    # noise a change of update alone brings.
+    pairs = ([((taps, adam), (taps_list[0], adam)) for adam in adams
+              for taps in taps_list[1:]]
+             + [((taps, adam), (taps, adams[0])) for taps in taps_list
+                for adam in adams[1:]])
+    for (a, b) in pairs:
+        for seed in range(n_seeds):
+            ref = runs[(*b, seed)][2]
+            rel = (np.abs(runs[(*a, seed)][2] - ref)
+                   / np.maximum(np.abs(ref), 1e-30))
+            first = {f"{tol:g}": int(np.argmax(rel > tol))
+                     if np.any(rel > tol) else None for tol in (1e-3, 1e-1)}
+            summary["divergence"].append({"run": a, "against": b,
+                                          "seed": seed,
+                                          "first_step_above": first})
+            print(f"  seed {seed}: taps={a[0]!r} with {a[1]} Adam against "
+                  f"taps={b[0]!r} with {b[1]} Adam: first step with "
+                  f"relative loss difference > 1e-3: {first['0.001']}, "
+                  f"> 1e-1: {first['0.1']}")
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(json.dumps(summary, indent=1))
 
 
 def main():
@@ -158,17 +299,42 @@ def main():
                         help="also solve each NAME at seeds 0 .. N-1")
     parser.add_argument("--replicas", type=int, nargs="+", metavar="N",
                         help="time the packed kernel at N replicas instead")
+    parser.add_argument("--scan", nargs="+", metavar="NAME",
+                        help="time the scan trainer's step of each NAME")
+    parser.add_argument("--taps", nargs="+", default=[None],
+                        help="heat's taps for --scan (several: one study "
+                             "each with --solve-seeds)")
+    parser.add_argument("--adam", nargs="+", default=["fused"],
+                        choices=["fused", "foreach"],
+                        help="the Adam updates of a --scan --solve-seeds "
+                             "study")
+    parser.add_argument("--workers", type=int, default=1,
+                        help="scan solves run at a time")
+    parser.add_argument("--out", help="JSON summary of a scan study")
+    parser.add_argument("--solve-args", type=json.loads, default={},
+                        metavar="JSON", help="more arguments of the fused "
+                        "--solve-seeds solves, as a JSON object (such as "
+                        '\'{"iterations": 50000}\')')
     args = parser.parse_args()
-    device = ft.resolve_device("cuda")
+    device = build.resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip())
+    for name in args.scan or []:
+        if args.solve_seeds:
+            scan_seeds(name, args.taps, args.adam, args.solve_seeds,
+                       args.workers, args.out)
+            continue
+        for taps in args.taps:
+            profile(name, device, scan_taps=taps)
+    if args.scan:
+        return
     for name in args.names:
         for n_replicas in args.replicas or [None]:
             profile(name, device, n_replicas)
         if args.solve_seeds:
-            solve_seeds(name, args.solve_seeds)
+            solve_seeds(name, args.solve_seeds, **args.solve_args)
 
 
 if __name__ == "__main__":

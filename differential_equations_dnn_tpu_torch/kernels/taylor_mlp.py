@@ -1,12 +1,23 @@
-"""The MLP-forward kernel (csrc/mlp_forward.cu) and its plain version.
+"""The MLP-forward kernel (csrc/mlp_forward.cu), the heat-streams kernel
+(csrc/heat_streams.cu), and their plain versions.
 
-Counterpart of the JAX package's kernels/taylor_mlp.py::mlp_forward_pallas.
-``Problem.evaluate`` runs the evaluation grid through it.
+Counterparts of the JAX package's kernels/taylor_mlp.py:
+``mlp_forward_pallas`` (``Problem.evaluate`` runs the evaluation grid
+through :func:`mlp_forward`) and ``heat_fused_streams_pallas``
+(``Heat1D(taps="pallas")`` takes its 7 streams from
+:func:`heat_fused_streams` in every training step).
 """
+
+import types
 
 import torch
 
 from differential_equations_dnn_tpu_torch.kernels import build
+from differential_equations_dnn_tpu_torch.kernels.engine_core import (
+    SMEM_LIMIT,
+)
+from differential_equations_dnn_tpu_torch.models import MLP
+from differential_equations_dnn_tpu_torch.ops import taylor
 
 _ACT_KIND = {"tanh": 0, "relu": 1, "sigmoid": 2}
 
@@ -58,3 +69,126 @@ def mlp_forward(model, x):
 
 
 mlp_forward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The heat step's 7 streams (kernel #3)
+# ---------------------------------------------------------------------------
+
+_STREAM_WEIGHTS = ("fc_in.w", "fc_in.b", "hidden.w", "hidden.b", "fc_out.w",
+                   "fc_out.b")
+
+
+def heat_fused_streams_plain(model, xt, x0, xb1, xb2):
+    """The plain version: ``ops.taylor.heat_fused_streams``, the same
+    products, value-stream biases and Taylor rules. Returns (u, u_x, u_xx,
+    u_t, u0, ub1, ub2), each [B, O]."""
+    return taylor.heat_fused_streams(model, xt, x0, xb1, xb2)
+
+
+def _with_weights(model, weights):
+    """A stand-in for ``model`` that ``ops.taylor.mlp_streams`` reads,
+    holding the given six tensors in place of the module's parameters."""
+    w_in, b_in, w_hid, b_hid, w_out, b_out = weights
+    return types.SimpleNamespace(
+        activation=model.activation, num_layers=model.num_layers,
+        fc_in=types.SimpleNamespace(w=w_in, b=b_in),
+        hidden=types.SimpleNamespace(w=w_hid, b=b_hid),
+        fc_out=types.SimpleNamespace(w=w_out, b=b_out))
+
+
+def _check_streams_model(model):
+    """The kernel takes a plain MLP 2 → H×L → O with a tanh, sigmoid or
+    relu activation, as the TPU kernel does (taylor_mlp.py:33-57, 166)."""
+    if not isinstance(model, MLP):
+        raise ValueError(f"heat_fused_streams supports plain MLPs only "
+                         f"(got {type(model).__name__})")
+    if model.activation not in _ACT_KIND:
+        raise ValueError(f"heat_fused_streams supports {sorted(_ACT_KIND)} "
+                         f"activations, not {model.activation!r}")
+    if model.input_dim != 2:
+        raise ValueError(f"heat_fused_streams takes (x, t) inputs: the "
+                         f"model's input width is {model.input_dim}, not 2")
+
+
+def _launch_heat_streams(model, points, weights):
+    """One launch of csrc/heat_streams.cu: the 7 streams as views of one
+    [7, B, O] tensor."""
+    xt = points[0]
+    B = xt.shape[0]
+    H, L, O = model.hidden_size, model.num_layers, model.output_dim
+    shapes = ((2, H), (H,), (L, H, H), (L, H), (H, O), (O,))
+    for name, t in zip(("xt", "x0", "xb1", "xb2"), points):
+        build.require_cuda_f32(name, t, (B, 2))
+    for name, t, shape in zip(_STREAM_WEIGHTS, weights, shapes):
+        build.require_cuda_f32(name, t, shape)
+    for name, t in zip(("x0", "xb1", "xb2") + _STREAM_WEIGHTS,
+                       points[1:] + weights):
+        if t.device != xt.device:
+            raise ValueError(f"{name} is on {t.device}, xt on {xt.device}")
+    lib = build.library()
+    need = lib.heat_streams_smem_bytes(H, O)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"hidden width {H} needs {need} bytes of shared memory per block "
+            f"in the heat-streams kernel (the H100 allows {SMEM_LIMIT}); use "
+            f"a smaller hidden size")
+    out = torch.empty((7, B, O), dtype=torch.float32, device=xt.device)
+    with torch.cuda.device(xt.device):
+        code = lib.heat_streams(*(t.data_ptr() for t in points + weights),
+                                out.data_ptr(), B, H, L, O,
+                                _ACT_KIND[model.activation],
+                                build.stream_ptr(xt.device))
+    build.check(code, "heat_streams")
+    heat_fused_streams.launches += 1
+    return tuple(out.unbind(0))
+
+
+class _HeatStreams(torch.autograd.Function):
+    """Forward: the kernel (CUDA tensors) or the plain version (CPU
+    tensors). Backward, as the JAX package's custom VJP
+    (taylor_mlp.py:171-187): the plain stream math re-run on the saved
+    inputs and weights under autograd, and its VJP taken, torch ops as the
+    JAX backward is XLA outside any Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, model, xt, x0, xb1, xb2, *weights):
+        ctx.model = model
+        ctx.save_for_backward(xt, x0, xb1, xb2, *weights)
+        points = (xt, x0, xb1, xb2)
+        if xt.device.type == "cpu":
+            return heat_fused_streams_plain(_with_weights(model, weights),
+                                            *points)
+        return _launch_heat_streams(model, points, weights)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        needs = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, needs)]
+            outs = heat_fused_streams_plain(
+                _with_weights(ctx.model, inputs[4:]), *inputs[:4])
+            wrt = [t for t, need in zip(inputs, needs) if need]
+            grads = iter(torch.autograd.grad(outs, wrt, cotangents,
+                                             allow_unused=True))
+        return (None,) + tuple(next(grads) if need else None
+                               for need in needs)
+
+
+def heat_fused_streams(model, xt, x0, xb1, xb2):
+    """(u, u_x, u_xx, u_t, u0, ub1, ub2), each [B, O], of a plain MLP 2 →
+    H×L → O (tanh, sigmoid or relu) at the interior points ``xt`` and the
+    constraint points ``x0``, ``xb1``, ``xb2`` (each [B, 2]): one kernel
+    launch, differentiable in the points and the weights.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (``heat_fused_streams.launches`` counts the launches). Raises
+    ValueError, on any device, for another model or activation."""
+    _check_streams_model(model)
+    weights = (model.fc_in.w, model.fc_in.b, model.hidden.w, model.hidden.b,
+               model.fc_out.w, model.fc_out.b)
+    return _HeatStreams.apply(model, xt, x0, xb1, xb2, *weights)
+
+
+heat_fused_streams.launches = 0

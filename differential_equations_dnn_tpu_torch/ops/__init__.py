@@ -1,6 +1,5 @@
 from differential_equations_dnn_tpu_torch.ops.diff import (
-    dirderiv,
-    dirderiv2,
+    coordinate_taps,
     value_dt,
     value_dx_dxx,
 )
@@ -15,8 +14,7 @@ from differential_equations_dnn_tpu_torch.ops.taylor import (
 )
 
 __all__ = [
-    "dirderiv",
-    "dirderiv2",
+    "coordinate_taps",
     "value_dt",
     "value_dx_dxx",
     "gauss_legendre_nodes",

@@ -40,6 +40,17 @@ def _act_state(name, z0):
                      f"propagation (supported: {_TAYLOR_ACTS})")
 
 
+def _direction(v, x):
+    """The direction ``v`` (a sequence of floats) as a row per point of
+    ``x``, filled in place on ``x``'s device: no host-to-device copy, which
+    would make every training step wait for the device."""
+    row = torch.zeros_like(x)
+    for i, c in enumerate(v):
+        if c:
+            row[:, i] = c
+    return row
+
+
 def mlp_streams(model, x, second_dirs=(), first_dirs=(), constraints=()):
     """Stacked-stream evaluation of a plain MLP.
 
@@ -59,12 +70,10 @@ def mlp_streams(model, x, second_dirs=(), first_dirs=(), constraints=()):
 
     rows = [x]
     for v in second_dirs:
-        rows.append(torch.as_tensor(v, dtype=x.dtype,
-                                    device=x.device).expand_as(x))
+        rows.append(_direction(v, x))
         rows.append(torch.zeros_like(x))
     for w in first_dirs:
-        rows.append(torch.as_tensor(w, dtype=x.dtype,
-                                    device=x.device).expand_as(x))
+        rows.append(_direction(w, x))
     rows.extend(constraints)
     stacked = torch.cat(rows, 0)
 

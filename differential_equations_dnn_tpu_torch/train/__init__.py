@@ -7,7 +7,12 @@ from differential_equations_dnn_tpu_torch.train.metrics import (
 from differential_equations_dnn_tpu_torch.train.trainer import (
     TrainConfig,
     TrainResult,
+    inject_fault,
+    make_train_step,
+    opt_state_from_jax,
+    train,
 )
 
 __all__ = ["finetune_lbfgs", "mean_absolute_error", "TrainConfig",
-           "TrainResult"]
+           "TrainResult", "inject_fault", "make_train_step",
+           "opt_state_from_jax", "train"]

@@ -1,14 +1,92 @@
-"""Training configuration and result records.
+"""The generic (scan) trainer, and the training records every trainer fills.
 
-The generic (scan) trainer of the JAX package is not ported yet (ROADMAP.md
-queue 1, item 6); the fused trainers (kernels.fused_train, kernels.
-fused_engine, kernels.fused_dgm) fill these.
+Counterpart of the JAX package's train/trainer.py. One trainer serves every
+equation and model: each step draws a collocation batch, takes
+``problem.loss`` and its gradient with autograd, and applies one optimizer
+update. The JAX package scans the steps of a chunk inside one jit; here
+they run eagerly, each a sequence of kernel launches, and:
+
+* Step ``i`` draws its batch from ``step_generator(seed, i)``, the
+  counterpart of ``fold_in(run_key, i)``: a chunked run equals an uncut
+  one and a resumed run an unbroken one. The draws are made on the host in
+  blocks of steps, pinned, and copied to the device once per block.
+* The loss history stays on the device and is fetched once per chunk, for
+  ``log_every`` and ``metrics_file``; no step waits for the device.
+* The learning rate follows ``kernels.engine_core.scheduled_lr`` at the
+  optimizer's own update count, as optax's schedules do; the count is part
+  of the optimizer state, so a resumed run continues its schedule.
+* Host snapshots of the model and optimizer state every ``snapshot_every``
+  chunks back the retry of a failed chunk (``inject_fault`` tests it).
+
+The fused trainers (kernels.fused_train, kernels.fused_engine,
+kernels.fused_dgm) fill the same ``TrainResult``.
 """
 
+import contextlib
+import copy
+import json
+import math
+import os
+import time
 from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
+import torch
+
+from differential_equations_dnn_tpu_torch.core.prng import (
+    generator,
+    step_generator,
+)
+from differential_equations_dnn_tpu_torch.kernels import build
+from differential_equations_dnn_tpu_torch.kernels.engine_core import (
+    check_schedule,
+    scheduled_lr,
+)
+
+# Steps whose batches are drawn, pinned and copied to the device together.
+DRAW_BLOCK = 256
+
+# ---------------------------------------------------------------------------
+# Fault injection (the test hook of the snapshot/retry recovery)
+# ---------------------------------------------------------------------------
+
+_FAULT_QUEUE: list[int] = []
+
+
+class _InjectedFault(Exception):
+    pass
+
+
+def inject_fault(at_dispatch: int):
+    """Context manager: make the ``at_dispatch``-th chunk of the next
+    training run raise, exercising snapshot/retry recovery in tests."""
+
+    @contextlib.contextmanager
+    def _ctx():
+        _FAULT_QUEUE.append(at_dispatch)
+        try:
+            yield
+        finally:
+            _FAULT_QUEUE.clear()
+
+    return _ctx()
+
+
+# Device-failure signatures (substring match) a retry from the host snapshot
+# could cure. The JAX package lists the TPU runtime's worker crashes; on a
+# GPU none qualifies: a CUDA fault inside a kernel (an illegal address, a
+# launch failure) poisons the process's CUDA context, so every later call
+# in the same process fails too, and out-of-memory or shape errors recur on
+# every retry. Only the injected fault is retried.
+_RECOVERABLE: tuple[str, ...] = ()
+
+
+def _is_recoverable(err: Exception) -> bool:
+    if isinstance(err, _InjectedFault):
+        return True
+    msg = str(err)
+    return any(sig in msg for sig in _RECOVERABLE)
 
 
 @dataclass(frozen=True)
@@ -16,15 +94,35 @@ class TrainConfig:
     iterations: int = 1000
     batch_size: int = 32
     lrate: float = 1e-4
-    chunk_size: int = 25_000
+    log_every: int = 100        # host-side loss print cadence (0 = silent)
+    chunk_size: int = 25_000    # steps between host fetches of the losses
+    optimizer: str = "adam"     # "adam" | "adamw" | "sgd"
+    # Learning-rate schedule: "constant" | "cosine" | "exponential", over
+    # ``iterations`` steps; the final lr is lrate · schedule_decay.
     schedule: str = "constant"
+    schedule_decay: float = 0.1
+    # Residual-based adaptive collocation: draw adaptive_oversample × the
+    # batch each step and keep the batch_size points with the largest
+    # current residual. 0/1 disables.
+    adaptive_oversample: int = 0
+    data_axis: str = "data"     # mesh axis name (mesh= is not ported)
+    verbose: bool = True
+    # Optional JSONL metrics stream: one record per chunk (step, loss stats,
+    # iters/s).
+    metrics_file: str | None = None
+    # Host snapshots of (model, optimizer state) every ``snapshot_every``
+    # chunks; a recoverable failure restores the last one and retries, up
+    # to ``max_retries`` times. 0 disables snapshots and recovery.
+    snapshot_every: int = 1
+    max_retries: int = 2
 
 
 @dataclass
 class TrainResult:
     params: Any                 # the trained model (a list of N for packed
                                 # replicas)
-    opt_state: Any              # {"m": flat tensor, "v": flat tensor}
+    opt_state: Any              # scan: the optimizer's state_dict; fused:
+                                # {"m": flat tensor, "v": flat tensor}
     loss_history: np.ndarray    # [iterations] ([N, iterations] packed)
     wall_time: float            # steady-state seconds, after synchronize
     iters_per_sec: float        # iterations / wall_time
@@ -33,3 +131,329 @@ class TrainResult:
     @property
     def final_loss(self) -> float:
         return float(self.loss_history[-1])
+
+
+# ---------------------------------------------------------------------------
+# The optimizer and the step
+# ---------------------------------------------------------------------------
+
+
+def make_optimizer(config: TrainConfig, params,
+                   fused: bool | None = None) -> torch.optim.Optimizer:
+    """The optimizer of ``config`` over ``params``, set up as the JAX
+    package's optax one (train/trainer.py:163-174): Adam with torch's
+    defaults (eps outside the square root, as ``optax.adam(eps=1e-8)``),
+    AdamW with optax's weight decay 1e-4 (torch's own default is 1e-2), or
+    plain SGD. ``fused=None`` gives Adam and AdamW torch's fused update on
+    the GPU (one launch for all parameters instead of seven and far less
+    host work per step) and the default on the CPU; ``False`` asks for the
+    default (foreach) update everywhere. Each param group also carries the
+    lr schedule (``lrate``, ``schedule``, ``horizon``, ``decay``) and the
+    update ``count``, so the count travels with ``state_dict()`` as optax's
+    does."""
+    check_schedule(config.schedule)
+    params = list(params)
+    if fused is None:
+        fused = bool(params) and all(p.is_cuda for p in params)
+    if config.optimizer == "adam":
+        opt = torch.optim.Adam(params, lr=config.lrate, betas=(0.9, 0.999),
+                               eps=1e-8, fused=fused)
+    elif config.optimizer == "adamw":
+        opt = torch.optim.AdamW(params, lr=config.lrate, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=1e-4, fused=fused)
+    elif config.optimizer == "sgd":
+        opt = torch.optim.SGD(params, lr=config.lrate)
+    else:
+        raise ValueError(f"unknown optimizer {config.optimizer!r} "
+                         f"(adam | adamw | sgd)")
+    for group in opt.param_groups:
+        group.update(lrate=float(config.lrate), schedule=config.schedule,
+                     horizon=float(config.iterations),
+                     decay=float(config.schedule_decay), count=0)
+    return opt
+
+
+def load_opt_state(optimizer, opt_state) -> None:
+    """Load a state_dict (``TrainResult.opt_state``, or
+    :func:`opt_state_from_jax`) into ``optimizer``: the moments and the
+    update count come from ``opt_state``, the hyperparameters and the
+    schedule from the optimizer's own config, as a resumed JAX run rebuilds
+    its optimizer from the config and takes only ``opt_state``. A copy is
+    loaded, so ``opt_state`` itself is never trained on."""
+    state = copy.deepcopy(opt_state)
+    state["param_groups"] = [
+        {**{k: v for k, v in group.items() if k != "params"},
+         "params": saved["params"], "count": int(saved.get("count", 0))}
+        for group, saved in zip(optimizer.param_groups,
+                                state["param_groups"])]
+    optimizer.load_state_dict(state)
+
+
+def _set_lr(optimizer) -> None:
+    """The lr of the coming update, from its group's count: step 0 gets
+    ``lrate`` (optax evaluates a schedule at its count before updating)."""
+    for group in optimizer.param_groups:
+        if group["schedule"] != "constant":
+            t = torch.tensor(group["count"] + 1, dtype=torch.float32)
+            group["lr"] = float(scheduled_lr(group["lrate"], t,
+                                             group["schedule"],
+                                             group["horizon"],
+                                             group["decay"]))
+        group["count"] += 1
+
+
+def make_train_step(problem, model, optimizer, batch_size,
+                    adaptive_oversample=0):
+    """The per-iteration step: ``step(batch) -> loss`` (a detached 0-d
+    tensor on the batch's device) trains ``model`` in place with one update
+    of ``optimizer`` on ``problem.loss``.
+
+    With ``adaptive_oversample = k > 1`` the batch holds ``k · batch_size``
+    candidates: the step keeps the ``batch_size`` with the largest current
+    ``point_loss`` (computed without gradient, as JAX's stop_gradient) and
+    trains on those. ``step.draw_size`` is the number of points a batch
+    must hold."""
+    oversample = adaptive_oversample > 1
+
+    def step(batch):
+        if oversample:
+            with torch.no_grad():
+                r = problem.point_loss(model, batch)
+            idx = torch.topk(r, batch_size).indices
+            batch = {k: v[idx] for k, v in batch.items()}
+        _set_lr(optimizer)
+        optimizer.zero_grad(set_to_none=True)
+        loss = problem.loss(model, batch)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    step.draw_size = batch_size * adaptive_oversample if oversample \
+        else batch_size
+    return step
+
+
+def draw_batches(problem, seed, start, n, size, device):
+    """The batches of steps ``start .. start + n − 1``, each drawn on the
+    host by ``problem.sample(size, step_generator(seed, i))`` and stacked
+    along a leading step axis; on a CUDA device the block goes through
+    pinned memory in one asynchronous copy per array."""
+    batches = [problem.sample(size, step_generator(seed, i))
+               for i in range(start, start + n)]
+    block = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    if device.type == "cuda":
+        block = {k: v.pin_memory().to(device, non_blocking=True)
+                 for k, v in block.items()}
+    return block
+
+
+# ---------------------------------------------------------------------------
+# The training loop
+# ---------------------------------------------------------------------------
+
+
+def _check_stateless(model) -> None:
+    if any(True for _ in model.buffers()):
+        raise NotImplementedError(
+            "models with running state (BatchNorm) are not ported yet "
+            "(ROADMAP.md queue 1, item 13: models/stateful.py)")
+
+
+def _snapshot(model, optimizer):
+    """Host copies of the model's and the optimizer's state."""
+    def host(obj):
+        if torch.is_tensor(obj):
+            return obj.detach().to("cpu", copy=True)
+        if isinstance(obj, dict):
+            return {k: host(v) for k, v in obj.items()}
+        if isinstance(obj, list):
+            return [host(v) for v in obj]
+        return copy.deepcopy(obj)
+
+    return host(model.state_dict()), host(optimizer.state_dict())
+
+
+def train(problem, seed: int, config: TrainConfig | None = None, model=None,
+          opt_state=None, start_step: int = 0, device="cuda", mesh=None,
+          profile_dir: str | None = None) -> TrainResult:
+    """Train ``model`` (default: ``problem.default_model()`` initialised
+    from ``generator(seed)``) on ``problem``, in place; it stands for the
+    JAX package's ``params`` and comes back as ``TrainResult.params``.
+    ``opt_state`` (a previous ``TrainResult.opt_state``) and ``start_step``
+    resume a run; step ``i`` draws from ``step_generator(seed, i)``.
+    ``config=None`` takes the iterations, batch size and lr of
+    ``problem.defaults`` (not its schedule), as the JAX trainer does.
+
+    Steps run in chunks of ``config.chunk_size``; ``compile_time`` is the
+    kernel build plus one warm-up step on copies of the model and optimizer
+    state; ``wall_time`` and ``iters_per_sec`` cover the training steps
+    only, ending in ``torch.cuda.synchronize()``. ``profile_dir`` writes a
+    ``torch.profiler`` trace of the run there. ``device`` defaults to
+    "cuda" and raises without a GPU."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet (ROADMAP.md queue 1, item 14: "
+            "data-parallel training over several GPUs)")
+    config = config or TrainConfig(
+        iterations=problem.defaults.iterations,
+        batch_size=problem.defaults.batch_size,
+        lrate=problem.defaults.lrate,
+    )
+    device = build.resolve_device(device)
+    if model is None:
+        model = problem.default_model(generator=generator(seed))
+    _check_stateless(model)
+    model.to(device)
+    optimizer = make_optimizer(config, model.parameters())
+    if opt_state is not None:
+        load_opt_state(optimizer, opt_state)
+    step = make_train_step(problem, model, optimizer, config.batch_size,
+                           config.adaptive_oversample)
+
+    def run_chunk(start, n):
+        losses = []
+        for b0 in range(0, n, DRAW_BLOCK):
+            k = min(DRAW_BLOCK, n - b0)
+            block = draw_batches(problem, seed, start + b0, k,
+                                 step.draw_size, device)
+            for j in range(k):
+                losses.append(step({key: v[j] for key, v in block.items()}))
+        return torch.stack(losses).cpu().numpy()
+
+    # Warm-up: the kernel build and one step on copies of the state.
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        build.library()
+    warm_model = copy.deepcopy(model)
+    warm_opt = make_optimizer(config, warm_model.parameters())
+    warm_opt.load_state_dict(copy.deepcopy(optimizer.state_dict()))
+    warm_step = make_train_step(problem, warm_model, warm_opt,
+                                config.batch_size, config.adaptive_oversample)
+    block = draw_batches(problem, seed, start_step, 1, step.draw_size, device)
+    warm_step({key: v[0] for key, v in block.items()})
+    build.sync(device)
+    compile_time = time.perf_counter() - t0
+    del warm_model, warm_opt, warm_step
+
+    chunk = max(1, min(config.chunk_size, config.iterations))
+    n_full, rem = divmod(config.iterations, chunk)
+    chunks = [chunk] * n_full + ([rem] if rem else [])
+    metrics_fh = open(config.metrics_file, "a") if config.metrics_file \
+        else None
+    snapshot = ((_snapshot(model, optimizer), start_step, 0)
+                if config.snapshot_every else None)
+    retries = dispatch_idx = 0
+    losses_out = []
+    profiler = contextlib.nullcontext()
+    if profile_dir:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=acts)
+    t0 = time.perf_counter()
+    done = start_step
+    try:
+        with profiler as prof:
+            ci = 0
+            while ci < len(chunks):
+                n = chunks[ci]
+                try:
+                    if _FAULT_QUEUE and dispatch_idx == _FAULT_QUEUE[0]:
+                        _FAULT_QUEUE.pop(0)
+                        raise _InjectedFault(
+                            f"injected at dispatch {dispatch_idx}")
+                    c0 = time.perf_counter()
+                    losses = run_chunk(done, n)
+                    chunk_s = time.perf_counter() - c0
+                except Exception as err:  # noqa: BLE001 — filtered below
+                    dispatch_idx += 1
+                    if (snapshot is None or retries >= config.max_retries
+                            or not _is_recoverable(err)):
+                        raise
+                    retries += 1
+                    (model_state, opt_saved), done, ci = snapshot
+                    model.load_state_dict(model_state)
+                    optimizer.load_state_dict(copy.deepcopy(opt_saved))
+                    losses_out = losses_out[:ci]
+                    print(f"[recovery] device failure "
+                          f"({type(err).__name__}); restored snapshot at "
+                          f"step {done}, retry {retries}/{config.max_retries}")
+                    continue
+                dispatch_idx += 1
+                losses_out.append(losses)
+                if config.verbose and config.log_every:
+                    for j in range(0, n, config.log_every):
+                        i = done + j
+                        if i % config.log_every == 0:
+                            print(f"Iteration: {i}, Loss: {losses[j]}, "
+                                  f"LR: {config.lrate}")
+                done += n
+                ci += 1
+                if config.snapshot_every and ci % config.snapshot_every == 0:
+                    snapshot = (_snapshot(model, optimizer), done, ci)
+                if metrics_fh:
+                    metrics_fh.write(json.dumps({
+                        "step": done,
+                        "loss": float(losses[-1]),
+                        "loss_mean": float(losses.mean()),
+                        "loss_min": float(losses.min()),
+                        "iters_per_sec": round(n / chunk_s, 1),
+                    }) + "\n")
+                    metrics_fh.flush()
+            build.sync(device)
+    finally:
+        if metrics_fh:
+            metrics_fh.close()
+    wall = time.perf_counter() - t0
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+    loss_history = (np.concatenate(losses_out) if losses_out
+                    else np.zeros((0,), np.float32))
+    return TrainResult(
+        params=model,
+        opt_state=optimizer.state_dict(),
+        loss_history=loss_history,
+        wall_time=wall,
+        iters_per_sec=config.iterations / wall if wall else math.inf,
+        compile_time=compile_time,
+    )
+
+
+def opt_state_from_jax(optax_state, model) -> dict:
+    """The port's optimizer state (a state_dict :func:`load_opt_state` and
+    ``train(opt_state=...)`` take) holding an optax Adam state's ``count``,
+    ``mu`` and ``nu`` for ``model``. ``optax_state`` is the optimizer state
+    of the JAX trainer (a chain whose ``ScaleByAdamState`` is found by its
+    fields), with the moments as nested dicts of arrays in the JAX layout
+    (``{"fc_in": {"w", "b"}, ...}``), as ``params_from_jax`` takes them."""
+    adam = _find_adam(optax_state)
+    if adam is None:
+        raise ValueError("optax_state holds no Adam state (count, mu, nu)")
+    count = int(np.asarray(adam.count))
+    names = [name for name, _ in model.named_parameters()]
+
+    def leaf(tree, name):
+        for part in name.split("."):
+            tree = tree[part]
+        return torch.tensor(np.asarray(tree, np.float32))
+
+    state = {i: {"step": torch.tensor(float(count)),
+                 "exp_avg": leaf(adam.mu, name),
+                 "exp_avg_sq": leaf(adam.nu, name)}
+             for i, name in enumerate(names)}
+    return {"state": state,
+            "param_groups": [{"params": list(range(len(names))),
+                              "count": count}]}
+
+
+def _find_adam(state):
+    if all(hasattr(state, f) for f in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_adam(s)
+            if found is not None:
+                return found
+    return None

@@ -90,7 +90,7 @@ def test_solve_is_reproducible_from_its_seed():
 
 
 @pytest.mark.parametrize("kwargs, error, match", [
-    (dict(engine="scan"), NotImplementedError, "ROADMAP"),
+    (dict(engine="fused", taps="pallas"), ValueError, "scan"),
     (dict(engine="fused", precision="mixed"), NotImplementedError, "ROADMAP"),
     (dict(engine="fused", precision="default"), NotImplementedError,
      "ROADMAP"),

@@ -402,7 +402,7 @@ def test_solve_dgm_on_cpu(name):
     (lambda: Fredholm2(quadrature="montecarlo"), "item 11"),
     (lambda: Fredholm2(quadrature="halton"), "item 11"),
     (lambda: solve("fitzhugh_nagumo", engine="scan", device="cpu",
-                   causal_eps=0.0), "items 6 and 13"),
+                   causal_eps=0.0), "item 13"),
     (lambda: solve("fredholm", engine="fused", device="cpu", finetune=5,
                    precision="default"), "item 7"),
     (lambda: solve("fredholm", engine="fused", device="cpu", ensemble=4,

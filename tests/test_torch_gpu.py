@@ -6,6 +6,7 @@ no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -39,6 +40,10 @@ from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
     taylor_mlp,
 )
 from differential_equations_dnn_tpu_torch.models import MLP  # noqa: E402
+from differential_equations_dnn_tpu_torch.train import (  # noqa: E402
+    TrainConfig,
+    train,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -361,5 +366,99 @@ def test_solve_ensemble_launches_the_packed_kernel(cuda, name, route):
     assert packed.launches == 2 and packed.step_math_runs == 4 * 301
     assert (fe.fused_engine_chunk.launches, fd.fused_dgm_chunk.launches,
             ft.heat_fused_train_chunk.launches) == (0, 0, 0)
+    assert res.loss_history.shape == (300,)
+    assert res.loss_history[-20:].mean() < res.loss_history[:20].mean()
+
+
+# ---------------------------------------------------------------------------
+# Kernel #3 (csrc/heat_streams.cu) and the scan trainer
+# ---------------------------------------------------------------------------
+
+
+def _stream_case(cuda, activation, B, H=128, L=3, seed=0):
+    model = MLP(2, 1, H, L, activation, generator=generator(seed),
+                device=cuda)
+    batch = Heat1D().sample(B, generator(seed + 1), cuda)
+    return model, batch
+
+
+@pytest.mark.parametrize("activation, B, L", [
+    ("tanh", 64, 3), ("tanh", 1000, 3), ("sigmoid", 1000, 3),
+    ("relu", 1000, 3), ("tanh", 77, 0),
+])
+def test_heat_streams_kernel_matches_plain(cuda, activation, B, L):
+    """Kernel #3 at heat's shape (B = 64, H = 128, L = 3), at a ragged
+    B = 1000 for each activation, and at L = 0: all seven streams to rtol
+    1e-5 / atol 1e-5, the JAX package's tolerance for its kernel against
+    the plain streams (fp32 reassociation of 128-term dot products)."""
+    model, b = _stream_case(cuda, activation, B, L=L)
+    taylor_mlp.heat_fused_streams.launches = 0
+    with torch.no_grad():
+        got = taylor_mlp.heat_fused_streams(model, b["xt"], b["x0"],
+                                            b["xb1"], b["xb2"])
+        want = taylor_mlp.heat_fused_streams_plain(model, b["xt"], b["x0"],
+                                                   b["xb1"], b["xb2"])
+    assert taylor_mlp.heat_fused_streams.launches == 1
+    for g, w in zip(got, want):
+        assert g.shape == (B, 1)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_heat_streams_gradient_matches_taylor(cuda):
+    """The gradient of Heat1D(taps="pallas").loss through the kernel's
+    Function (rematerialised plain backward) against autograd through
+    Heat1D(taps="taylor").loss on the same batch: rtol 1e-4 / atol 1e-6
+    (the two forwards differ by fp32 reassociation)."""
+    model, b = _stream_case(cuda, "tanh", 64)
+    params = list(model.parameters())
+    lp = Heat1D(taps="pallas").loss(model, b)
+    gp = torch.autograd.grad(lp, params)
+    lt = Heat1D(taps="taylor").loss(model, b)
+    gt = torch.autograd.grad(lt, params)
+    torch.testing.assert_close(lp, lt, rtol=1e-5, atol=0)
+    for a, c in zip(gp, gt):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-6)
+
+
+def test_heat_streams_smem_rule(cuda):
+    """At H = 256 the kernel's two 7-stream buffers and one layer's W need
+    more than a block's 227 KB: the wrapper raises before launching, with
+    no fallback to the plain version."""
+    model, b = _stream_case(cuda, "tanh", 16, H=256, L=1)
+    taylor_mlp.heat_fused_streams.launches = 0
+    with pytest.raises(ValueError, match="shared memory"):
+        taylor_mlp.heat_fused_streams(model, b["xt"], b["x0"], b["xb1"],
+                                      b["xb2"])
+    assert taylor_mlp.heat_fused_streams.launches == 0
+
+
+@pytest.mark.parametrize("name, kw", [
+    ("heat", {"taps": "pallas"}), ("heat", {}), ("simple_ode", {}),
+])
+def test_scan_losses_match_cpu(cuda, name, kw):
+    """The first 20 scan steps on the card against the same seed on the
+    CPU (the same host draws, the same initial weights): losses to rtol
+    1e-4 (fp32 reassociation, compounded over 20 Adam steps)."""
+    prob = PROBLEMS[name](**kw)
+    cfg = TrainConfig(iterations=20, batch_size=prob.defaults.batch_size,
+                      lrate=1e-3, verbose=False)
+    runs = [train(prob, 0, cfg, device=dev).loss_history
+            for dev in (cuda, torch.device("cpu"))]
+    np.testing.assert_allclose(runs[0], runs[1], rtol=1e-4)
+
+
+def test_scan_solve_goes_through_the_streams_kernel(cuda):
+    """``solve("heat", taps="pallas")`` on the scan engine launches kernel
+    #3 once per step plus the warm-up, #2 once, no fused trainer, and
+    trains."""
+    counters = (taylor_mlp.mlp_forward, taylor_mlp.heat_fused_streams,
+                ft.heat_fused_train_chunk, fe.fused_engine_chunk)
+    for fn in counters:
+        fn.launches = 0
+    res = solve("heat", taps="pallas", iterations=300, lrate=1e-3)
+    assert taylor_mlp.heat_fused_streams.launches == 301
+    assert taylor_mlp.mlp_forward.launches == 1
+    assert (ft.heat_fused_train_chunk.launches,
+            fe.fused_engine_chunk.launches) == (0, 0)
     assert res.loss_history.shape == (300,)
     assert res.loss_history[-20:].mean() < res.loss_history[:20].mean()

@@ -27,6 +27,7 @@ from differential_equations_dnn_tpu_torch.models import (  # noqa: E402
     params_from_jax,
 )
 from differential_equations_dnn_tpu_torch.ops import (  # noqa: E402
+    coordinate_taps,
     heat_fused_streams,
     value_dt,
     value_dx_dxx,
@@ -73,7 +74,8 @@ def test_heat_fused_streams_match_jax(nets, batch):
 
 
 def test_jvp_taps_match_jax(nets, batch):
-    """(c) value_dx_dxx and value_dt (torch.func.jvp) against ops.diff."""
+    """(c) value_dx_dxx and value_dt (reverse-mode taps) against ops.diff
+    (jvp)."""
     jm, jp, tm = nets
     f = lambda z: jm.apply(jp, z)  # noqa: E731
     xt = batch["xt"]
@@ -84,6 +86,22 @@ def test_jvp_taps_match_jax(nets, batch):
     for g, w in zip(list(got2) + list(got1), list(want2) + list(want1)):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
                                    rtol=RTOL, atol=ATOL)
+
+
+def test_coordinate_taps_match_jax(nets, batch):
+    """coordinate_taps (one forward, every coordinate's first and second
+    derivative) against ops.diff's value_dx_dxx and value_dt on each axis."""
+    jm, jp, tm = nets
+    f = lambda z: jm.apply(jp, z)  # noqa: E731
+    xt = jnp.asarray(batch["xt"])
+    u, firsts, seconds = coordinate_taps(tm, torch.from_numpy(batch["xt"]),
+                                         first=(0, 1), second=(0, 1))
+    for axis in (0, 1):
+        want_u, want_d, want_dd = jdiff.value_dx_dxx(f, xt, x_axis=axis)
+        for g, w in ((u, want_u), (firsts[axis], want_d),
+                     (seconds[axis], want_dd)):
+            np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                       rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("taps", ["jvp", "taylor"])
@@ -118,8 +136,8 @@ def test_sample_builds_the_four_point_sets():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Heat1D(taps="pallas")
+    with pytest.raises(ValueError, match="unknown taps"):
+        Heat1D(taps="bogus")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Heat1D(constraint="hard")
     with pytest.raises(ValueError, match="available: .*'heat'.*ROADMAP"):

@@ -1,0 +1,173 @@
+"""Kernel #3's wrapper (kernels/taylor_mlp.heat_fused_streams) against the
+JAX package's ``heat_fused_streams_pallas``, which runs its Pallas kernel in
+interpret mode on the CPU, as the JAX package's own tests run it; on the
+CPU the port's wrapper takes the plain stream math inside its autograd
+Function. Small sizes: H = 16, L = 2 (and L = 0), B = 48 (not a multiple of
+the TPU tile)."""
+
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+
+from differential_equations_dnn_tpu.equations import (  # noqa: E402
+    Heat1D as JaxHeat1D,
+)
+from differential_equations_dnn_tpu.kernels.taylor_mlp import (  # noqa: E402
+    heat_fused_streams_pallas,
+)
+from differential_equations_dnn_tpu.models import MLP as JaxMLP  # noqa: E402
+from differential_equations_dnn_tpu.ops import taylor as jtaylor  # noqa: E402
+from differential_equations_dnn_tpu_torch import solve  # noqa: E402
+from differential_equations_dnn_tpu_torch.api import (  # noqa: E402
+    _fused_route,
+)
+from differential_equations_dnn_tpu_torch.core import generator  # noqa: E402
+from differential_equations_dnn_tpu_torch.equations import (  # noqa: E402
+    Heat1D,
+)
+from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
+    fused_engine as fe,
+)
+from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
+    taylor_mlp as tm,
+)
+from differential_equations_dnn_tpu_torch.models import (  # noqa: E402
+    DGM,
+    MLP,
+    params_from_jax,
+)
+
+H, B = 16, 48
+NAMES = ("u", "u_x", "u_xx", "u_t", "u0", "ub1", "ub2")
+
+
+def _nets(activation, L=2, seed=0):
+    jm = JaxMLP(input_dim=2, output_dim=1, hidden_size=H, num_layers=L,
+                activation=activation)
+    jp = jax.tree.map(np.asarray, jm.init(jax.random.key(seed)))
+    return jm, jp, params_from_jax(jp, activation)
+
+
+def _batch(seed=0):
+    u = np.random.default_rng(seed).uniform(size=(B, 2)).astype(np.float32)
+    x = (math.pi * u[:, :1]).astype(np.float32)
+    t = (3.0 * u[:, 1:]).astype(np.float32)
+    z = np.zeros_like(x)
+    return {"xt": np.concatenate([x, t], 1),
+            "x0": np.concatenate([x, z], 1),
+            "xb1": np.concatenate([z, t], 1),
+            "xb2": np.concatenate([np.full_like(x, math.pi), t], 1)}
+
+
+def _points(batch, requires_grad=False):
+    return [torch.tensor(batch[k], requires_grad=requires_grad)
+            for k in ("xt", "x0", "xb1", "xb2")]
+
+
+@pytest.mark.parametrize("activation, L", [
+    ("tanh", 2), ("sigmoid", 2), ("relu", 2), ("tanh", 0),
+])
+def test_streams_match_jax_pallas(activation, L):
+    """All seven streams against the JAX kernel (interpret mode) at B = 48,
+    which the JAX side pads to its tile: rtol 1e-5 / atol 1e-5, the JAX
+    package's own tolerance for its kernel (fp32 reassociation). At L = 0
+    the reference is the JAX package's plain streams (ops.taylor), which its
+    kernel is held to: the JAX kernel itself fails at L = 0, handing Pallas
+    an empty [0, H, H] hidden stack for its [1, H, H] block."""
+    jm, jp, model = _nets(activation, L)
+    batch = _batch()
+    ref = heat_fused_streams_pallas if L else jtaylor.heat_fused_streams
+    want = ref(jm, jp, *(batch[k] for k in ("xt", "x0", "xb1", "xb2")))
+    tm.heat_fused_streams.launches = 0
+    got = tm.heat_fused_streams(model, *_points(batch))
+    assert tm.heat_fused_streams.launches == 0  # the CPU runs no kernel
+    for name, g, w in zip(NAMES, got, want):
+        assert g.shape == (B, 1)
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid"])
+def test_pallas_loss_gradient_matches_jax(activation):
+    """The gradient of Heat1D(taps="pallas").loss through the Function's
+    rematerialised backward against jax.grad of the JAX package's
+    Heat1D(taps="pallas", taps_model=<the small MLP>).loss: rtol 1e-3 /
+    atol 1e-5, as the JAX package holds its kernel's gradients
+    (tests/test_kernels.py:56-66)."""
+    jm, jp, model = _nets(activation, seed=1)
+    batch = _batch(1)
+    jprob = JaxHeat1D(taps="pallas", taps_model=jm)
+    jloss, jgrad = jax.value_and_grad(
+        lambda p: jprob.loss(jm.apply, p, batch))(jp)
+    b = dict(zip(("xt", "x0", "xb1", "xb2"), _points(batch)))
+    loss = Heat1D(taps="pallas").loss(model, b)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               rtol=1e-5)
+    for name, p in model.named_parameters():
+        layer, leaf = name.split(".")
+        np.testing.assert_allclose(p.grad.numpy(),
+                                   np.asarray(jgrad[layer][leaf]),
+                                   rtol=1e-3, atol=1e-5, err_msg=name)
+
+
+def test_point_gradients_match_plain_autograd():
+    """Where the points need a gradient too (``needs_input_grad``), the
+    Function's backward gives what autograd gives through the plain streams:
+    the same math, so to fp32 rounding (rtol 1e-6 / atol 1e-7)."""
+    _, _, model = _nets("tanh", seed=2)
+    batch = _batch(2)
+    ct = [torch.tensor(np.random.default_rng(k).normal(size=(B, 1)),
+                       dtype=torch.float32) for k in range(7)]
+    grads = []
+    for fn in (tm.heat_fused_streams, tm.heat_fused_streams_plain):
+        pts = _points(batch, requires_grad=True)
+        outs = fn(model, *pts)
+        grads.append(torch.autograd.grad(
+            outs, pts + list(model.parameters()), ct))
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("model, match", [
+    (DGM(1, 1, 8, 1, "tanh", "torch"), "plain MLPs"),
+    (MLP(2, 1, 8, 1, "leaky_relu"), "activations"),
+    (MLP(2, 1, 8, 1, "identity"), "activations"),
+    (MLP(3, 1, 8, 1, "tanh"), "input width"),
+])
+def test_streams_reject_other_models(model, match):
+    """As the TPU kernel (taylor_mlp.py:33-57, 166): a plain MLP 2 → H×L →
+    O with tanh, sigmoid or relu, on any device."""
+    pts = [torch.zeros(4, 2) for _ in range(4)]
+    with pytest.raises(ValueError, match=match):
+        tm.heat_fused_streams(model, *pts)
+
+
+def test_pallas_taps_train_on_scan_only():
+    """As in the JAX package (fused_engine.py:1050-1051, api.py:147-150):
+    the fused engine has no spec for pallas taps and tells the caller to
+    use the scan engine, which trains them."""
+    prob = Heat1D(taps="pallas")
+    assert fe.spec_for(prob) is None and fe.spec_for(Heat1D()) is not None
+    with pytest.raises(ValueError, match="engine='scan'"):
+        _fused_route(prob, MLP(2, 1, 8, 1, "tanh"))
+    with pytest.raises(ValueError, match="engine='scan'"):
+        solve("heat", engine="fused", taps="pallas", device="cpu",
+              iterations=2, batch_size=8, nodes=5)
+
+
+def test_pallas_taps_point_loss_matches_taylor():
+    """Heat1D's point_loss with pallas taps equals the Taylor taps' on the
+    CPU (the plain version is their stream math)."""
+    model = MLP(2, 1, H, 2, "tanh", generator=generator(3))
+    b = Heat1D().sample(B, generator(4))
+    torch.testing.assert_close(Heat1D(taps="pallas").point_loss(model, b),
+                               Heat1D(taps="taylor").point_loss(model, b),
+                               rtol=0, atol=0)
+
