@@ -25,6 +25,11 @@ Phases (each raises on failure, so any failure exits non-zero):
               packed-replica kernel (#5) at the ensembles' shapes (wave
               N=8, FitzHugh–Nagumo N=16, Fredholm N=4), where every
               replica must also equal the single-replica chunk bit for bit.
+              The DGM chunks replay a captured CUDA graph of
+              fused_dgm.GRAPH_STEPS steps: its capture and instantiation
+              are timed apart from the chunks (the first call of a shape),
+              and a 1 000-step FitzHugh–Nagumo chunk, single and N=16, gives
+              the steady-state time per step.
 4. solve    — each main path through ``solve(..., engine="fused")`` at its
               equation's reference defaults (seed 0): constant-lr heat on
               the heat kernel, heat with a cosine schedule and the six other
@@ -59,6 +64,8 @@ STEP0 = 100        # the engine chunks' first step
 HORIZON = 200      # their schedule's horizon: lr falls by tens of percent
 REPS = 20          # timed calls per measurement, after one warm-up call
 PLAIN_REPS = 2     # timed calls of a plain K-step chunk (slow: 50 steps)
+STEADY_STEPS = 1000  # the DGM chunks' steady state: 20 graph replays
+STEADY_REPS = 3
 SPIN_CYCLES = 500_000_000  # about 0.3 s of the card's clock: device_ms
 # Calls device_ms queues behind one spin: the launch queue holds about a
 # thousand launches, and a plain heat-streams call makes about 80.
@@ -578,7 +585,32 @@ def check_dgm_kernels(name):
           f"{ms:.4f} ms ({ms / CHUNK_STEPS * 1e3:.1f} us/step), plain "
           f"{plain_ms:.4f} ms ({plain_ms / CHUNK_STEPS * 1e3:.1f} us/step); "
           f"bound {chunk_row['bound_ms']:.4f} ms ({chunk_row['bound_by']})")
+    if name == "fitzhugh_nagumo":
+        steady_state(name, spec, model, p[None], B, 1, lr, kw)
     return grad_row, chunk_row
+
+
+def steady_state(name, spec, model, p, B, n_replicas, lr, kw):
+    """Milliseconds of a STEADY_STEPS-step chunk (20 replays of the captured
+    graph) of N replicas, after a warm-up call, and the µs per step."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import step_uniforms
+    from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
+
+    u = step_uniforms(0, STEP0, STEADY_STEPS, B, p.device, spec.n_uniform)
+    z = torch.zeros_like(p)
+    if n_replicas == 1:
+        run = lambda: fd.fused_dgm_chunk(  # noqa: E731
+            spec, model, p[0], z[0], z[0], u, STEP0, lr, **kw)
+    else:
+        run = lambda: fd.fused_dgm_packed_chunk(  # noqa: E731
+            spec, model, p, z, z, u, STEP0, lr, n_replicas, **kw)
+    ms = cuda_ms(run, reps=STEADY_REPS)
+    print(f"{name} steady state [N={n_replicas}, K={STEADY_STEPS}]: "
+          f"{ms:.4f} ms per chunk, {ms / STEADY_STEPS * 1e3:.2f} us per "
+          f"{'packed ' if n_replicas > 1 else ''}step")
+
 
 
 def check_packed_kernels(name, n_replicas, loss_rtol):
@@ -677,6 +709,8 @@ def check_packed_kernels(name, n_replicas, loss_rtol):
           f"step, {step_us / N:.2f} us per replica-step), plain "
           f"{plain_ms:.4f} ms; bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']})")
+    if name == "fitzhugh_nagumo":
+        steady_state(name, spec, model, p, B, N, lr, kw)
     for r in range(N):
         drift = (lk[r] - lp[r]).abs()
         rel = drift / lp[r].abs()
@@ -707,7 +741,22 @@ def phase_kernels():
         engine_rows = check_engine_kernels(name)
     dgm_rows = [check_dgm_kernels(name) for name in DGM][0]
     packed_rows = [check_packed_kernels(*case) for case in PACKED][:2]
+    report_graphs()
     return rows + list(engine_rows) + list(dgm_rows) + packed_rows
+
+
+def report_graphs():
+    """The DGM graphs captured so far: their capture and instantiation, in
+    host seconds, apart from the chunks' times (each chunk time above was
+    taken after a warm-up call, which captured its shape's graph)."""
+    from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
+
+    secs = fd.graph_stats["build_seconds"]
+    if not secs:
+        raise AssertionError("no DGM chunk captured a CUDA graph")
+    print(f"DGM CUDA graphs of {fd.GRAPH_STEPS} steps: {len(secs)} captured "
+          f"and instantiated, " + ", ".join(f"{t:.4f}" for t in secs)
+          + " s each")
 
 
 def wrappers():

@@ -1,9 +1,10 @@
 // The update that ends every step of the fused engines (kernel #4,
 // engine_core.py::fused_adam_kernel, and its packed-replica twin #5,
-// fused_packed_adam_kernel): the gradient summed from its per-stream
-// partials in stream order, the learning rate of the step under its
-// schedule, and Adam with torch defaults. Shared by engine_train.cu (the
-// MLP engine) and dgm_train.cu (the DGM engine).
+// fused_packed_adam_kernel): the learning rate of the step under its
+// schedule and Adam with torch defaults, per element (adam_step,
+// adam_apply). engine_train.cu (the MLP engine) applies them in
+// adam_kernel to the gradient summed from its per-stream partials in stream
+// order; dgm_train.cu (the DGM engine) in its weight-gradient epilogue.
 //
 // The kernels sit in an unnamed namespace: each source that includes this
 // header compiles its own instance (the library is built without
@@ -42,6 +43,34 @@ __global__ void sum_partials_kernel(const float* __restrict__ partials, int R,
   grad[i] = sum;
 }
 
+// The scalars of Adam's step t (1-indexed): lr(t) under the schedule and
+// the two bias corrections.
+struct AdamStep {
+  float lr_t, c1, c2;
+};
+
+__device__ __forceinline__ AdamStep adam_step(float lr, float t,
+                                              const Schedule& sched) {
+  float lr_t = lr;
+  if (sched.kind == 1) {
+    const float frac = fminf((t - 1.0f) / sched.horizon, 1.0f);
+    lr_t = lr * (sched.decay + sched.half_span * (1.0f + cosf(kPi * frac)));
+  } else if (sched.kind == 2) {
+    lr_t = lr * expf(((t - 1.0f) / sched.horizon) * sched.log_decay);
+  }
+  return {lr_t, 1.0f - expf(t * kLogB1), 1.0f - expf(t * kLogB2)};
+}
+
+// Adam with torch defaults on one element's p, m, v (in registers), given
+// its gradient: the per-element update of adam_kernel, and of the DGM
+// engine's fused weight-gradient epilogue.
+__device__ __forceinline__ void adam_apply(float& p, float& m, float& v,
+                                           float gi, const AdamStep& s) {
+  m = kB1 * m + kOneMinusB1 * gi;
+  v = kB2 * v + kOneMinusB2 * (gi * gi);
+  p = p - s.lr_t * (m / s.c1) / (sqrtf(v / s.c2) + kEps);
+}
+
 // Adam with torch defaults on the summed partial gradients; t is the
 // 1-indexed global step, lr(t) the schedule's rate at that step. One launch
 // updates every replica: replica r = blockIdx.y owns p, m, v at r·n and its
@@ -56,26 +85,16 @@ __global__ void adam_kernel(float* __restrict__ p, float* __restrict__ m,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const size_t r = blockIdx.y;
-  p += r * n;
-  m += r * n;
-  v += r * n;
   partials += r * part_stride;
-  float lr_t = lr;
-  if (sched.kind == 1) {
-    const float frac = fminf((t - 1.0f) / sched.horizon, 1.0f);
-    lr_t = lr * (sched.decay + sched.half_span * (1.0f + cosf(kPi * frac)));
-  } else if (sched.kind == 2) {
-    lr_t = lr * expf(((t - 1.0f) / sched.horizon) * sched.log_decay);
-  }
-  const float c1 = 1.0f - expf(t * kLogB1);
-  const float c2 = 1.0f - expf(t * kLogB2);
+  const AdamStep step = adam_step(lr, t, sched);
   float gi = partials[i];
   for (int s = 1; s < R; ++s) gi += partials[static_cast<size_t>(s) * n + i];
-  const float mi = kB1 * m[i] + kOneMinusB1 * gi;
-  const float vi = kB2 * v[i] + kOneMinusB2 * (gi * gi);
-  m[i] = mi;
-  v[i] = vi;
-  p[i] = p[i] - lr_t * (mi / c1) / (sqrtf(vi / c2) + kEps);
+  const size_t j = r * n + i;
+  float pj = p[j], mj = m[j], vj = v[j];
+  adam_apply(pj, mj, vj, gi, step);
+  m[j] = mj;
+  v[j] = vj;
+  p[j] = pj;
 }
 
 }  // namespace

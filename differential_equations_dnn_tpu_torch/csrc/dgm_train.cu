@@ -4,8 +4,10 @@
 // Replaces: differential_equations_dnn_tpu/kernels/fused_dgm.py::
 // dgm_step_math (kernel #7, with its stream ops _act_fwd, _act_bwd,
 // _mul_fwd, _mul_bwd) inside kernels/engine_core.py::fused_adam_kernel
-// (kernel #4, reached through fused_dgm_chunk). Each step pushes stacked
-// value / first-order-tangent stream rows through the gate recurrence
+// (kernel #4, reached through fused_dgm_chunk) and fused_packed_adam_kernel
+// (kernel #5, reached through fused_dgm_packed_chunk). Each step pushes
+// stacked value / first-order-tangent stream rows through the gate
+// recurrence
 //   Z,G,R = act(s·Wzgr + x·Uzgr + bzgr)
 //   H     = act((s⊙R)·Wh + x·Uh + bh)
 //   s'    = (1 − G)⊙H + Z⊙s
@@ -16,39 +18,72 @@
 //
 // What bounds it on the H100: one FitzHugh–Nagumo step (R·B = 300 rows,
 // H = 128, L = 4) is about 0.5 GFLOP of fp32 products, 7 µs at the
-// 67 TFLOP/s fp32 peak, but it is a chain of ~47 dependent phases of a few
-// tens of thousands of outputs each (Fredholm: 17 phases at H = 32). The
-// latency of each phase and of the launches between them is the limit.
+// 67 TFLOP/s fp32 peak, but it is a chain of 46 dependent phases of a few
+// tens of thousands of outputs each (Fredholm: 16 phases at H = 32); packed
+// replicas make every phase N times wider. Each phase's latency, how well
+// its blocks fill the 132 SMs, and the gaps between launches are the limit.
 //
-// What the design does about it: the simple version first. Every phase is
-// one launch from a host loop in C, with p, m, v as flat L2-resident
-// buffers:
+// What the design does about it:
+//   * The products are register-blocked fp32 FFMA. gemm_kernel gives each
+//     thread an 8×4 or 2×4 tile of outputs, read from shared memory as
+//     float4s four k at a time, over k-tiles staged by cp.async (16 bytes
+//     per copy where the block's operands are aligned) into a ring of four
+//     buffers; weight_grad_kernel a 4×4, 4×2 or 2×2 tile of (k, m) over
+//     rows staged 16 or 32 at a time the same way, three streams at once in
+//     three thread groups where the card would otherwise be underfilled.
+//     Each launch takes its tile from (rows, cols, replicas).
+//   * weight_grad_kernel sums all R streams of its tile in one block and
+//     ends with one gradient per tensor: no [R][n] partials. In training its
+//     epilogue applies Adam to the tile (adam.cuh), so the gradient never
+//     reaches device memory; each layer's backward takes the data gradient
+//     through a weight before that weight's update. The weight gradients
+//     run on two side streams, forked from the data path once their inputs
+//     are written and joined at the end of the step, so they overlap the
+//     rest of the backward.
+//   * A step is 10L + 6 launches (46 at L = 4). dgm_train_packed replays a
+//     CUDA graph of S steps (dgm_graph_build; the wrapper caches it by
+//     shape) and runs the K mod S steps left over as the same launches from
+//     C. Kernels read what changes per call (p, m, v, the uniforms, the
+//     losses, Fredholm's const, the spec's consts, lr and the schedule) from
+//     a device argument block, StepArgs, written by one copy per call, and
+//     take their step as base + j: j, the step's slot in the graph, is a
+//     launch argument; base, the call's steps before this replay, is
+//     advanced once per replay by the graph's last node.
+//   * Every shared-memory staging copy, every chain of products and the
+//     epilogue's loads are arranged so that a block's warps are not held up
+//     one row or one output at a time: the row loop has no branch (the bias
+//     chain is fmaf(1, dz, chain), exactly chain + dz), and the epilogue
+//     loads all its operands before its first store.
+//
+// One step's launches:
 //   input      x 1      the spec's rows X from the uniforms (and the const),
 //                       s0 = act(X·w_in + b_in)
-//   gemm       x 4L     32×32-tiled fp32 products: the gate and H
-//                       pre-activations forward; dh_pre·Whᵀ and
-//                       dzgr_pre·Wzgrᵀ backward
+//   gemm       x 4L     the gate and H pre-activations forward; dh_pre·Whᵀ
+//                       and dzgr_pre·Wzgrᵀ backward
 //   gate/state x 2L     the stream rules of R, s⊙R, H and s' (forward)
 //   loss       x 1      output layer, the spec's loss and cotangent G
+//   out_bwd    x 1      ds = G·w_outᵀ
 //   gate_bwd   x 2L     the stream VJPs of s' and of s⊙R and the gates
-//   weight     x 2L+2   dW = Aᵀ·dZ and db, one partial per stream
-//   adam       x 1      sums the R partials in stream order, lr(t), Adam
+//   input_bwd  x 1      the input layer's activation VJP
+//   weight     x 2L+2   dW = Aᵀ·dZ, the x row and db; Adam in training (on
+//                       the two side streams)
 // The stream layout (R rows per batch point, a bit per value row) is a
 // run-time argument, so Fredholm's R = 1 + ⌈k/B⌉ needs no rebuild; R is at
-// most kMaxStreams. Every reduction runs in a fixed order with no atomics,
-// so runs are bit-identical and a chunked run equals the uncut run. Every
+// most kMaxStreams. Every reduction runs in a fixed order with no atomics:
+// each product output is one fmaf chain over k from 0 in ascending order,
+// whatever the tile, and each weight gradient the sum in stream order of
+// per-stream fmaf chains over the stream's B rows in order. So runs are
+// bit-identical and a chunk cut anywhere equals the uncut run. Every
 // product is fp32 FFMA: exact fp32 ("highest"), no tensor cores, no library.
 //
-// Packed replicas (kernel #5, engine_core.py::fused_packed_adam_kernel,
-// reached through fused_dgm_packed_chunk): dgm_train_packed advances N
-// independent runs that share the uniforms, the stream layout, the spec's
-// consts, Fredholm's const and the lr schedule. p, m, v are [N, n]
-// replica-major, each replica has its own scratch (stride scratch_floats),
-// and the loss history is [N, K]. A step is the same launch sequence as one
-// run's, each launch with N times the blocks: the replica is the grid's y
-// index (elementwise kernels), z (gemm), part of z (weight_grad: z = r·R +
-// stream) or x (the loss kernels, one block per replica). Every kernel
-// moves its pointers to its replica's copy and then runs the
+// Packed replicas: dgm_train_packed advances N independent runs that share
+// the uniforms, the stream layout, the spec's consts, Fredholm's const and
+// the lr schedule. p, m, v are [N, n] replica-major, each replica has its
+// own scratch (stride scratch_floats), and the loss history is [N, K]. A
+// step is the same launch sequence as one run's, each launch with N times
+// the blocks: the replica is the grid's y index (elementwise kernels), z
+// (the products) or x (the loss kernels, one block per replica). Every
+// kernel moves its pointers to its replica's copy and then runs the
 // single-replica code, so replica r of a packed call equals a one-replica
 // call on r's state bit for bit. A single run (fused_dgm_chunk) is the
 // packed call at N = 1.
@@ -57,26 +92,26 @@
 // s·B + b (fused_dgm.<Spec>.groups order: per group the value row, then its
 // first-order tangents). The input width D is 1 for both specs.
 #include <cmath>
+#include <type_traits>
 
 #include "adam.cuh"
 #include "common.cuh"
 
 namespace {
 
-using dednn::adam_kernel;
+using dednn::AdamStep;
 using dednn::Schedule;
-using dednn::sum_partials_kernel;
 
 constexpr int kMaxStreams = 32;  // bits of Layout::value_mask
 constexpr int kMaxConsts = 8;
-constexpr int kTile = 32;        // gemm and weight_grad: 32 × 32 outputs
+constexpr int kSMs = 132;        // H100 SXM: a launch of fewer blocks idles SMs
 constexpr int kEwThreads = 128;  // elementwise kernels
 constexpr int kLossThreads = 1024;
-constexpr int kAdamThreads = 256;
+constexpr int kOutThreads = 256;
 
 enum SpecId : int { kFitzHughNagumo = 0, kFredholm = 1 };
 
-// The spec's numbers (fused_dgm.<Spec>.kernel_consts), passed by value.
+// The spec's numbers (fused_dgm.<Spec>.kernel_consts).
 struct Consts {
   float c[kMaxConsts];
 };
@@ -87,6 +122,25 @@ struct Layout {
   int R, B;
   unsigned value_mask;
   __device__ bool is_value(int s) const { return (value_mask >> s) & 1u; }
+};
+
+// What a call changes, in device memory (one copy per call), so that a
+// captured step serves every call of its shape. Step j of a launch is the
+// call's step base + j.
+struct StepArgs {
+  float* p;            // [N, n] parameters
+  float* m;            // [N, n] Adam moments (training)
+  float* v;
+  const float* u;      // [K, B] uniforms (n_uniform = 1 for both specs)
+  float* losses;       // loss of replica r, call step k at r·ls + k
+  float* grad;         // dgm_grad: the [n] gradient
+  const float* cnst;   // Fredholm's [2(R−1), B] nodes and weights
+  long long ls;
+  int step0;           // absolute index of the call's first step
+  int base;            // the call's steps before this replay
+  float lr;
+  Schedule sched;
+  Consts c;
 };
 
 __device__ __forceinline__ size_t at(int s, int b, int B, int width,
@@ -132,24 +186,118 @@ __device__ float fredholm_input(int s, int b, const float* u,
 }
 
 // ---------------------------------------------------------------------------
+// Staging and register tiles
+// ---------------------------------------------------------------------------
+
+// One float from global to shared memory, asynchronously (cp.async); zeros
+// when !valid (src is then not read).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// Four floats, 16-byte aligned at both ends (cp.async.cg: through L2 only);
+// zeros when !valid.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15u) == 0;
+}
+
+// Copies a rows × cols tile (cols a multiple of 4) from src (row stride
+// ld) into dst (row stride ld_dst, a multiple of 4), by all kThreads threads;
+// element (r, c) counts only where ok(r, c) (else 0). With vec, four floats
+// per cp.async (src and ld 16-byte aligned, ok the same for each four).
+template <int kThreads, int kRowsT, int kCols, class Ok>
+__device__ __forceinline__ void stage_tile(float* dst, int ld_dst,
+                                           const float* src, size_t ld,
+                                           bool vec, Ok ok) {
+  if (vec) {
+    constexpr int kChunks = kRowsT * kCols / 4;
+#pragma unroll
+    for (int it = 0; it < (kChunks + kThreads - 1) / kThreads; ++it) {
+      const int e = threadIdx.x + it * kThreads;
+      if (kChunks % kThreads != 0 && e >= kChunks) break;
+      const int r = e / (kCols / 4), c = 4 * (e - r * (kCols / 4));
+      const bool valid = ok(r, c);
+      cp_async16(dst + r * ld_dst + c, valid ? src + r * ld + c : src, valid);
+    }
+  } else {
+    constexpr int kElems = kRowsT * kCols;
+#pragma unroll 4
+    for (int it = 0; it < (kElems + kThreads - 1) / kThreads; ++it) {
+      const int e = threadIdx.x + it * kThreads;
+      if (kElems % kThreads != 0 && e >= kElems) break;
+      const int r = e / kCols, c = e - r * kCols;
+      const bool valid = ok(r, c);
+      cp_async4(dst + r * ld_dst + c, valid ? src + r * ld + c : src, valid);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most kPending committed groups are still in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// dst = src[0..T) from shared memory, as float4 (or float2) reads.
+template <int T>
+__device__ __forceinline__ void load_frag(const float* src, float (&dst)[T]) {
+  if constexpr (T % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < T / 4; ++i) {
+      const float4 q = reinterpret_cast<const float4*>(src)[i];
+      dst[4 * i] = q.x;
+      dst[4 * i + 1] = q.y;
+      dst[4 * i + 2] = q.z;
+      dst[4 * i + 3] = q.w;
+    }
+  } else {
+    static_assert(T % 2 == 0, "fragments of 2, 4 or 8");
+#pragma unroll
+    for (int i = 0; i < T / 2; ++i) {
+      const float2 q = reinterpret_cast<const float2*>(src)[i];
+      dst[2 * i] = q.x;
+      dst[2 * i + 1] = q.y;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Forward
 // ---------------------------------------------------------------------------
 
 // Thread (b, j): X's rows of batch point b (written once, by j == 0), the
 // input layer's pre-activation pre = X·w_in + mask·b_in and s0 = its stream
-// activation, at column j. Replica blockIdx.y: weights at y·ps, outputs at
-// y·ss (the uniforms and the const are shared).
-__global__ void input_kernel(int spec, const float* __restrict__ u,
-                             const float* __restrict__ cnst, Consts c,
-                             Layout lay, const float* __restrict__ w_in,
-                             const float* __restrict__ b_in, int H, int act,
+// activation, at column j, for step base + j_step's uniforms. Replica
+// blockIdx.y: weights at y·ps, outputs at y·ss (the uniforms and the const
+// are shared).
+__global__ void input_kernel(int spec, const StepArgs* __restrict__ args,
+                             int j_step, Layout lay, size_t w_in_off,
+                             size_t b_in_off, int H, int act,
                              float* __restrict__ X, float* __restrict__ pre,
                              float* __restrict__ s0, size_t ss, size_t ps) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= lay.B * H) return;
   const size_t so = blockIdx.y * ss, po = blockIdx.y * ps;
-  w_in += po;
-  b_in += po;
+  const float* u =
+      args->u + static_cast<size_t>(args->base + j_step) * lay.B;
+  const float* cnst = args->cnst;
+  const Consts c = args->c;
+  const float* w_in = args->p + po + w_in_off;
+  const float* b_in = args->p + po + b_in_off;
   X += so;
   pre += so;
   s0 += so;
@@ -175,100 +323,143 @@ __global__ void input_kernel(int spec, const float* __restrict__ u,
   }
 }
 
-// One element of the k0 tiles of A and W' (i < 32·32; q runs along
-// memory): the A tile's [r][q] into a, the W' tile's into w.
-template <bool kTransW>
-__device__ __forceinline__ void load_tiles(
-    const float* __restrict__ A, const float* __restrict__ W, int N, int K,
-    int M, int n0, int m0, int k0, int i, float& a, float& w) {
-  const int r = i / kTile, q = i - r * kTile;
-  const int n = n0 + r, k = k0 + q;
-  a = (n < N && k < K) ? A[static_cast<size_t>(n) * K + k] : 0.0f;
-  if (kTransW) {  // w_s[k][m] = W[m, k]
-    const int m = m0 + r;
-    w = (m < M && k < K) ? W[static_cast<size_t>(m) * K + k] : 0.0f;
-  } else {        // w_s[k][m] = W[k, m]
-    const int kk = k0 + r, m = m0 + q;
-    w = (kk < K && m < M) ? W[static_cast<size_t>(kk) * M + m] : 0.0f;
-  }
-}
-
 // C[n, m] = Σ_k A[n, k]·W'[k, m] over the N = R·B rows, W' = W ([K, M]) or
-// Wᵀ (W [M, K]); then + x[n]·u[m] (the D = 1 input's term) and + bias[m]
-// on value rows, or addend[n, m] + the sum. Block (16, 16) owns a 32×32
-// tile, each thread 2×2 outputs, summed over k in order; the next k tile
-// is loaded into registers while the current one is multiplied. Replica
-// blockIdx.z: A, x, addend and C at z·ss; W, u and bias at z·ps.
-template <bool kTransW>
-__global__ void gemm_kernel(const float* __restrict__ A,
-                            const float* __restrict__ W, int N, int K, int M,
-                            const float* __restrict__ x,
-                            const float* __restrict__ u,
-                            const float* __restrict__ bias, Layout lay,
-                            const float* __restrict__ addend,
-                            float* __restrict__ C, size_t ss, size_t ps) {
-  constexpr int kPerThread = kTile * kTile / 256;
-  __shared__ float a_s[kTile][kTile + 1];
-  __shared__ float w_s[kTile][kTile + 1];
-  const size_t so = blockIdx.z * ss, po = blockIdx.z * ps;
+// Wᵀ (W [M, K]), W at w_off in the replica's parameters; then + x[n]·u[m]
+// (the D = 1 input's term, u at u_off) and + bias[m] on value rows (at
+// b_off; an offset < 0 is an absent operand), or addend[n, m] + the sum.
+// Block of (BM/TM)·(BN/TN) threads owns a BM × BN tile, each thread TM × TN
+// outputs, each output one fmaf chain over k in order from 0. k-tiles of BK
+// are staged as they lie in memory (A [n][k]; W [k][m] or Wᵀ's rows [m][k])
+// by cp.async, 16 bytes at a time where the block's operands are aligned,
+// into a ring of kStages buffers, kStages − 1 tiles in flight while one is
+// multiplied four k at a time from float4 reads. Replica blockIdx.z: A, x,
+// addend and C at z·ss; the parameters at z·ps.
+template <bool kTransW, int BM, int BN, int TM, int TN, int BK, int kStages>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+    gemm_kernel(const float* __restrict__ A,
+                const StepArgs* __restrict__ args, long long w_off, int N,
+                int K, int M, const float* __restrict__ x, long long u_off,
+                long long b_off, Layout lay,
+                const float* __restrict__ addend, float* __restrict__ C,
+                size_t ss, size_t ps) {
+  constexpr int kThreads = (BM / TM) * (BN / TN);
+  constexpr int kColThreads = BN / TN;
+  constexpr int kWRows = kTransW ? BN : BK, kWCols = kTransW ? BK : BN;
+  static_assert(BK % 4 == 0 && BN % 4 == 0 && TN % 4 == 0, "float4 tiles");
+  __shared__ __align__(16) float a_s[kStages][BM][BK + 4];
+  __shared__ __align__(16) float w_s[kStages][kWRows][kWCols + 4];
+  const size_t so = blockIdx.z * ss;
+  const float* P = args->p + blockIdx.z * ps;
+  const float* W = P + w_off;
+  const float* u = u_off < 0 ? nullptr : P + u_off;
+  const float* bias = b_off < 0 ? nullptr : P + b_off;
   A += so;
-  W += po;
   x = dednn::shift(x, so);
-  u = dednn::shift(u, po);
-  bias = dednn::shift(bias, po);
   addend = dednn::shift(addend, so);
   C += so;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * 16 + tx;
-  const int n0 = blockIdx.y * kTile, m0 = blockIdx.x * kTile;
-  float a_next[kPerThread], w_next[kPerThread];
-#pragma unroll
-  for (int t = 0; t < kPerThread; ++t)
-    load_tiles<kTransW>(A, W, N, K, M, n0, m0, 0, tid + 256 * t, a_next[t],
-                        w_next[t]);
-  float acc[2][2] = {};
-  for (int k0 = 0; k0 < K; k0 += kTile) {
-#pragma unroll
-    for (int t = 0; t < kPerThread; ++t) {
-      const int i = tid + 256 * t;
-      const int r = i / kTile, q = i - r * kTile;
-      a_s[r][q] = a_next[t];
-      if (kTransW) w_s[q][r] = w_next[t];
-      else w_s[r][q] = w_next[t];
+  const int tid = threadIdx.x;
+  const int tx = tid % kColThreads, ty = tid / kColThreads;
+  const int n0 = blockIdx.y * BM, m0 = blockIdx.x * BN;
+  const int tiles = (K + BK - 1) / BK;
+  const bool vec = K % 4 == 0 && M % 4 == 0 && aligned16(A) && aligned16(W);
+  // The thread's columns: TN adjacent ones (float4 reads of W's rows), or,
+  // for Wᵀ, every kColThreads-th (its rows in shared memory then fall in
+  // distinct banks).
+  auto col = [&](int jj) {
+    return kTransW ? tx + kColThreads * jj : tx * TN + jj;
+  };
+
+  // k-tile t into its buffer; every call commits one group.
+  auto load = [&](int t) {
+    if (t < tiles) {
+      const int buf = t % kStages, k0 = t * BK;
+      stage_tile<kThreads, BM, BK>(
+          &a_s[buf][0][0], BK + 4, A + static_cast<size_t>(n0) * K + k0, K,
+          vec, [&](int r, int c) { return n0 + r < N && k0 + c < K; });
+      if (kTransW)
+        stage_tile<kThreads, BN, BK>(
+            &w_s[buf][0][0], BK + 4, W + static_cast<size_t>(m0) * K + k0,
+            K, vec, [&](int r, int c) { return m0 + r < M && k0 + c < K; });
+      else
+        stage_tile<kThreads, BK, BN>(
+            &w_s[buf][0][0], BN + 4, W + static_cast<size_t>(k0) * M + m0,
+            M, vec, [&](int r, int c) { return k0 + r < K && m0 + c < M; });
     }
-    __syncthreads();
-    if (k0 + kTile < K) {
+    cp_async_commit();
+  };
+
+  float acc[TM][TN] = {};
 #pragma unroll
-      for (int t = 0; t < kPerThread; ++t)
-        load_tiles<kTransW>(A, W, N, K, M, n0, m0, k0 + kTile, tid + 256 * t,
-                            a_next[t], w_next[t]);
+  for (int t = 0; t < kStages - 1; ++t) load(t);
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t has landed
+    __syncthreads();               // and every thread is done with t − 1
+    load(t + kStages - 1);         // into t − 1's buffer
+    const int buf = t % kStages;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      float a4[TM][4], w4[4][TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) load_frag<4>(&a_s[buf][ty * TM + i][kk], a4[i]);
+      if (kTransW) {
+#pragma unroll
+        for (int jj = 0; jj < TN; ++jj) {
+          float c4[4];
+          load_frag<4>(&w_s[buf][col(jj)][kk], c4);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) w4[q][jj] = c4[q];
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) load_frag<TN>(&w_s[buf][kk + q][tx * TN], w4[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int jj = 0; jj < TN; ++jj)
+            acc[i][jj] = fmaf(a4[i][q], w4[q][jj], acc[i][jj]);
     }
-#pragma unroll 8
-    for (int kk = 0; kk < kTile; ++kk) {
-      const float a0 = a_s[ty][kk], a1 = a_s[ty + 16][kk];
-      const float w0 = w_s[kk][tx], w1 = w_s[kk][tx + 16];
-      acc[0][0] = fmaf(a0, w0, acc[0][0]);
-      acc[0][1] = fmaf(a0, w1, acc[0][1]);
-      acc[1][0] = fmaf(a1, w0, acc[1][0]);
-      acc[1][1] = fmaf(a1, w1, acc[1][1]);
-    }
-    __syncthreads();
+  }
+  // The epilogue's operands are all loaded before the first store, so
+  // they are in flight together (a store to C could alias them).
+  float xv[TM], uv[TN], bv[TN], ad[TM][TN];
+  bool value[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int n = n0 + ty * TM + i;
+    value[i] = n < N && lay.is_value(n / lay.B);
+    xv[i] = u != nullptr && n < N ? x[n] : 0.0f;
   }
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int n = n0 + ty + 16 * i;
-    if (n >= N) continue;
-    const bool value = lay.is_value(n / lay.B);
+  for (int jj = 0; jj < TN; ++jj) {
+    const int m = m0 + col(jj);
+    uv[jj] = u != nullptr && m < M ? u[m] : 0.0f;
+    bv[jj] = bias != nullptr && m < M ? bias[m] : 0.0f;
+  }
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int m = m0 + tx + 16 * jj;
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) {
+      const int n = n0 + ty * TM + i, m = m0 + col(jj);
+      ad[i][jj] = addend != nullptr && n < N && m < M
+                      ? addend[static_cast<size_t>(n) * M + m]
+                      : 0.0f;
+    }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int n = n0 + ty * TM + i;
+    if (n >= N) continue;
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) {
+      const int m = m0 + col(jj);
       if (m >= M) continue;
       float out = acc[i][jj];
-      if (u != nullptr) out = out + x[n] * u[m];
-      if (bias != nullptr && value) out = out + bias[m];
-      const size_t o = static_cast<size_t>(n) * M + m;
-      if (addend != nullptr) out = addend[o] + out;
-      C[o] = out;
+      if (u != nullptr) out = out + xv[i] * uv[jj];
+      if (bias != nullptr && value[i]) out = out + bv[jj];
+      if (addend != nullptr) out = ad[i][jj] + out;
+      C[static_cast<size_t>(n) * M + m] = out;
     }
   }
 }
@@ -377,20 +568,22 @@ __device__ void output_layer(const float* __restrict__ S, int H,
 // ds/dt, s(0). Residuals r_y = y' + y³/3 + w − I − y, r_w = w' + (βw − α −
 // y)/τ; causal weights w_i = exp(−ε·Δt·Σ_{j<i} ℓ_j), ℓ = r_y² + r_w², held
 // constant for the gradient (stop-gradient); loss = 2·mean(w⊙r²) +
-// mean((s(0) − y_ic)²) over [B, 2]. aux: 5B floats.
+// mean((s(0) − y_ic)²) over [B, 2]. aux: 5B floats. The loss goes to the
+// replica's slot of call step base + j.
 __global__ void fn_loss_kernel(const float* __restrict__ S, int H,
-                               const float* __restrict__ w_out,
-                               const float* __restrict__ b_out, Layout lay,
-                               Consts c, float* out, float* G, float* aux,
-                               float* loss, size_t ss, size_t ps, size_t ls) {
+                               const StepArgs* __restrict__ args, int j,
+                               size_t w_out_off, size_t b_out_off, Layout lay,
+                               float* out, float* G, float* aux, size_t ss,
+                               size_t ps) {
   const size_t so = blockIdx.x * ss, po = blockIdx.x * ps;
   S += so;
   out += so;
   G += so;
   aux += so;
-  w_out += po;
-  b_out += po;
-  loss += blockIdx.x * ls;
+  const float* w_out = args->p + po + w_out_off;
+  const float* b_out = args->p + po + b_out_off;
+  float* loss = args->losses + blockIdx.x * args->ls + args->base + j;
+  const Consts c = args->c;
   output_layer(S, H, w_out, b_out, 2, lay, out);
   const int B = lay.B;
   const float t_max_over_b = c.c[1], eps = c.c[2], i_ext = c.c[3];
@@ -451,25 +644,25 @@ __global__ void fn_loss_kernel(const float* __restrict__ S, int H,
 // global word that every thread had already read once, the second scalar
 // came back stale to other warps on the H100).
 __global__ void fredholm_loss_kernel(const float* __restrict__ S, int H,
-                                     const float* __restrict__ w_out,
-                                     const float* __restrict__ b_out,
-                                     Layout lay, const float* __restrict__ u,
-                                     const float* __restrict__ cnst, Consts c,
-                                     float* out, float* G, float* aux,
-                                     float* loss, size_t ss, size_t ps,
-                                     size_t ls) {
+                                     const StepArgs* __restrict__ args, int j,
+                                     size_t w_out_off, size_t b_out_off,
+                                     Layout lay, float* out, float* G,
+                                     float* aux, size_t ss, size_t ps) {
   __shared__ float scalars[2];  // I, dL/dI
   const size_t so = blockIdx.x * ss, po = blockIdx.x * ps;
   S += so;
   out += so;
   G += so;
   aux += so;
-  w_out += po;
-  b_out += po;
-  loss += blockIdx.x * ls;
+  const float* w_out = args->p + po + w_out_off;
+  const float* b_out = args->p + po + b_out_off;
+  const int step = args->base + j;
+  float* loss = args->losses + blockIdx.x * args->ls + step;
+  const float* u = args->u + static_cast<size_t>(step) * lay.B;
+  const float* cnst = args->cnst;
   output_layer(S, H, w_out, b_out, 1, lay, out);
   const int B = lay.B, R = lay.R;
-  const float upper = c.c[0];
+  const float upper = args->c.c[0];
   const float inv_b = 1.0f / static_cast<float>(B);
   float* terms = aux;
   float* ctr = aux + B;
@@ -519,81 +712,260 @@ __global__ void fredholm_loss_kernel(const float* __restrict__ S, int H,
 
 // ds[n, j] = Σ_o G[n, o]·w_out[j, o]; replica blockIdx.y.
 __global__ void out_bwd_kernel(const float* __restrict__ G,
-                               const float* __restrict__ w_out, int N, int H,
-                               int O, float* __restrict__ ds, size_t ss,
-                               size_t ps) {
+                               const StepArgs* __restrict__ args,
+                               size_t w_out_off, int N, int H, int O,
+                               float* __restrict__ ds, size_t ss, size_t ps) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= N * H) return;
   G += blockIdx.y * ss;
   ds += blockIdx.y * ss;
-  w_out += blockIdx.y * ps;
+  const float* w_out = args->p + blockIdx.y * ps + w_out_off;
   const int n = idx / H, j = idx - n * H;
   float acc = 0.0f;
   for (int o = 0; o < O; ++o) acc = fmaf(G[n * O + o], w_out[j * O + o], acc);
   ds[idx] = acc;
 }
 
-// The partial of stream s = blockIdx.z over its B rows, in order:
-// dW[k, m] = Σ A[r, k]·dz[r, m] (k < KA; written at dwA + s·n), the D = 1
-// input row k = KA when x != nullptr (dwx + s·n), and db[m] = Σ dz[r, m] on
-// value streams, 0 on tangent streams (db + s·n). Block (32, 8) owns a
-// 32 × 32 tile of (k, m). blockIdx.z = r·R + s: replica r's operands and
-// partials at r·ss.
-__global__ void weight_grad_kernel(const float* __restrict__ A, int KA,
-                                   const float* __restrict__ x,
-                                   const float* __restrict__ dz, int M,
-                                   Layout lay, int n, float* __restrict__ dwA,
-                                   float* __restrict__ dwx,
-                                   float* __restrict__ db, size_t ss) {
-  __shared__ float a_s[kTile][kTile + 1];
-  __shared__ float d_s[kTile][kTile + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int m = blockIdx.x * kTile + tx;
-  const int k0 = blockIdx.y * kTile;
-  const int stream = blockIdx.z % lay.R;
-  const size_t so = (blockIdx.z / lay.R) * ss;
+// The gradient of one layer over all R streams: dW[k, m] = Σ_r A[r, k]·
+// dz[r, m] (k < KA; W at w_off), the D = 1 input row dU[m] = Σ_r x[r]·
+// dz[r, m] (U at u_off, when x != nullptr) and db[m] = Σ dz[r, m] over the
+// value streams (b at b_off); an offset < 0 is an absent tensor.
+//
+// Block of kGroups groups of (BK/TK)·(BM/TM) threads owns a BK × BM tile of
+// (k, m), each thread TK × TM of it; in the blocks of the first k-tile,
+// thread t < BM of a group also keeps the bias chain of column t and thread
+// BM + t the x-row chain. The streams go kGroups at a time, one per group;
+// their rows come kRows at a time through a ring of kStages cp.async
+// buffers, kStages − 1 chunks in flight while one is summed. Each stream's
+// rows make one fmaf chain per output, in row order from 0; when a round of
+// streams ends, the groups' chains pass through shared memory and are added
+// to the tile's sums in stream order: sum = s_0, sum += s_1, ... The
+// epilogue then walks the tile's sums in memory order, kBatch elements per
+// thread at a time (all loads before any store). Rows are staged 16 bytes
+// per cp.async where the block's operands are aligned. kAdam: Adam on p, m,
+// v of the replica (blockIdx.z) at step step0 + base + j + 1; otherwise the
+// gradient to args->grad (one replica). Dynamic shared memory:
+// wg_smem_bytes<...>().
+template <int BK, int BM, int kRows, int kStages, int kGroups>
+constexpr size_t wg_smem_bytes() {
+  return sizeof(float) *
+         (static_cast<size_t>(kStages) * kGroups * kRows *
+              ((BK + 4) + (BM + 4) + 1) +
+          static_cast<size_t>(kGroups + 1) * (BK * BM + 2 * BM));
+}
+
+template <bool kAdam, int BK, int BM, int TK, int TM, int kRows, int kStages,
+          int kGroups>
+__global__ void __launch_bounds__(kGroups * (BK / TK) * (BM / TM))
+    weight_grad_kernel(const float* __restrict__ A, int KA,
+                       const float* __restrict__ x,
+                       const float* __restrict__ dz, int M, Layout lay,
+                       const StepArgs* __restrict__ args, int j,
+                       long long w_off, long long u_off, long long b_off,
+                       size_t ss, size_t ps) {
+  constexpr int kTile = (BK / TK) * (BM / TM);
+  constexpr int kThreads = kGroups * kTile;
+  constexpr int kColThreads = BM / TM;
+  constexpr int kOut = BK * BM + 2 * BM;  // the W tile, its bias, its x row
+  // Epilogue elements per thread and pass: all of them, up to 16.
+  constexpr int kBatch = (kOut + kThreads - 1) / kThreads < 16
+                             ? (kOut + kThreads - 1) / kThreads
+                             : 16;
+  static_assert(kTile >= 2 * BM, "a thread per bias and x-row column");
+  static_assert(kGroups * kRows <= kThreads, "a thread per row of x");
+  extern __shared__ __align__(16) float smem[];
+  using ATile = float[kGroups][kRows][BK + 4];
+  using DTile = float[kGroups][kRows][BM + 4];
+  using XTile = float[kGroups][kRows];
+  ATile* a_s = reinterpret_cast<ATile*>(smem);
+  DTile* d_s = reinterpret_cast<DTile*>(smem + kStages * sizeof(ATile) / 4);
+  XTile* x_s = reinterpret_cast<XTile*>(
+      smem + kStages * (sizeof(ATile) + sizeof(DTile)) / 4);
+  float* red_s = smem + kStages * (sizeof(ATile) + sizeof(DTile) +
+                                   sizeof(XTile)) / 4;  // [kGroups][kOut]
+  float* tot_s = red_s + kGroups * kOut;                 // [kOut]
+  const int tid = threadIdx.x;
+  const int g = tid / kTile, lt = tid - g * kTile;
+  const int tm = lt % kColThreads, tk = lt / kColThreads;
+  const int m0 = blockIdx.x * BM, k0 = blockIdx.y * BK;
+  const size_t so = blockIdx.z * ss;
   A += so;
   x = dednn::shift(x, so);
   dz += so;
-  dwA += so;
-  dwx = dednn::shift(dwx, so);
-  db = dednn::shift(db, so);
-  const int end = (stream + 1) * lay.B;
-  const bool bias = db != nullptr && blockIdx.y == 0 && ty == 0;
-  float acc[kTile / 8] = {};
-  float bacc = 0.0f;
-  for (int r0 = stream * lay.B; r0 < end; r0 += kTile) {
-    for (int rr = ty; rr < kTile; rr += 8) {
-      const int r = r0 + rr, k = k0 + tx;
-      float a = 0.0f;
-      if (r < end) {
-        if (k < KA) a = A[static_cast<size_t>(r) * KA + k];
-        else if (k == KA && x != nullptr) a = x[r];
+  const bool first = blockIdx.y == 0;
+  const bool with_bias = first && b_off >= 0;
+  const bool with_x = first && x != nullptr && u_off >= 0;
+  const int col = lt % BM;  // of the bias or x-row chain
+  const bool do_bias = with_bias && lt < BM;
+  const bool do_x = with_x && lt >= BM && lt < 2 * BM;
+  const int B = lay.B, R = lay.R;
+  const int per_stream = (B + kRows - 1) / kRows;
+  const int n_steps = (R + kGroups - 1) / kGroups * per_stream;
+
+  const bool vec = KA % 4 == 0 && M % 4 == 0 && aligned16(A) && aligned16(dz);
+
+  // Step q: chunk q % per_stream of each group's stream in round
+  // q / per_stream, into its buffer: the rows of A and dz of every group
+  // spread over all threads, 16 bytes per cp.async where aligned (else 4);
+  // every call commits one group.
+  auto load = [&](int q) {
+    if (q < n_steps) {
+      const int buf = q % kStages;
+      const int rho = q / per_stream, c = q - rho * per_stream;
+      const int rows = min(kRows, B - c * kRows);
+      auto copy = [&](auto width) {
+        constexpr int w = decltype(width)::value;
+        constexpr int per_row = (BK + BM) / w;
+        constexpr int items = kGroups * kRows * per_row;
+#pragma unroll
+        for (int it = 0; it < (items + kThreads - 1) / kThreads; ++it) {
+          const int e = tid + it * kThreads;
+          if (items % kThreads != 0 && e >= items) break;
+          const int gr = e / per_row, i = (e - gr * per_row) * w;
+          const int gg = gr / kRows, rr = gr - gg * kRows;
+          const int s = rho * kGroups + gg;
+          const size_t r = static_cast<size_t>(s) * B + c * kRows + rr;
+          const bool row_ok = s < R && rr < rows;
+          if (i < BK) {
+            const bool ok = row_ok && k0 + i < KA;
+            float* dst = &a_s[buf][gg][rr][i];
+            const float* src = ok ? A + r * KA + k0 + i : A;
+            if (w == 4) cp_async16(dst, src, ok);
+            else cp_async4(dst, src, ok);
+          } else {
+            const int mq = i - BK;
+            const bool ok = row_ok && m0 + mq < M;
+            float* dst = &d_s[buf][gg][rr][mq];
+            const float* src = ok ? dz + r * M + m0 + mq : dz;
+            if (w == 4) cp_async16(dst, src, ok);
+            else cp_async4(dst, src, ok);
+          }
+        }
+      };
+      if (vec) copy(std::integral_constant<int, 4>{});
+      else copy(std::integral_constant<int, 1>{});
+      if (with_x && tid < kGroups * kRows) {
+        const int gg = tid / kRows, rr = tid - gg * kRows;
+        const int s = rho * kGroups + gg;
+        const bool ok = s < R && rr < rows;
+        cp_async4(&x_s[buf][gg][rr],
+                  ok ? x + static_cast<size_t>(s) * B + c * kRows + rr : x,
+                  ok);
       }
-      a_s[rr][tx] = a;
-      d_s[rr][tx] =
-          (r < end && m < M) ? dz[static_cast<size_t>(r) * M + m] : 0.0f;
     }
-    __syncthreads();
-    const int rows = min(kTile, end - r0);
-    for (int rr = 0; rr < rows; ++rr) {
-      const float d = d_s[rr][tx];
+    cp_async_commit();
+  };
+
+  float acc[TK][TM] = {};
+  float chain = 0.0f;
 #pragma unroll
-      for (int i = 0; i < kTile / 8; ++i)
-        acc[i] = fmaf(a_s[rr][ty + 8 * i], d, acc[i]);
-      if (bias) bacc += d;
+  for (int q = 0; q < kStages - 1; ++q) load(q);
+  for (int q = 0; q < n_steps; ++q) {
+    cp_async_wait<kStages - 2>();  // step q has landed
+    __syncthreads();               // and every thread is done with q − 1
+    load(q + kStages - 1);         // into q − 1's buffers
+    const int buf = q % kStages;
+    const int rho = q / per_stream, c = q - rho * per_stream;
+    const int s = rho * kGroups + g;
+    if (s < R) {
+      const int rows = min(kRows, B - c * kRows);
+      const float* a_row = &a_s[buf][g][0][tk * TK];
+      const float* d_row = &d_s[buf][g][0][tm * TM];
+      const float* c_row = &d_s[buf][g][0][col];
+      const float* x_row = &x_s[buf][g][0];
+      // No branch in the row loop, so rows overlap: the bias chain is
+      // fmaf(1, dz, chain), which is chain + dz exactly.
+#pragma unroll 4
+      for (int rr = 0; rr < rows; ++rr) {
+        float af[TK], df[TM];
+        load_frag<TK>(a_row + rr * (BK + 4), af);
+        load_frag<TM>(d_row + rr * (BM + 4), df);
+        const float xr = do_x ? x_row[rr] : 1.0f;
+        const float cd = c_row[rr * (BM + 4)];
+#pragma unroll
+        for (int i = 0; i < TK; ++i)
+#pragma unroll
+          for (int jj = 0; jj < TM; ++jj)
+            acc[i][jj] = fmaf(af[i], df[jj], acc[i][jj]);
+        chain = fmaf(xr, cd, chain);
+      }
     }
-    __syncthreads();
-  }
-  if (m >= M) return;
-  const size_t part = static_cast<size_t>(stream) * n;
+    if (c == per_stream - 1) {  // the round's streams end
+      float* red = red_s + g * kOut;
 #pragma unroll
-  for (int i = 0; i < kTile / 8; ++i) {
-    const int k = k0 + ty + 8 * i;
-    if (k < KA) dwA[part + static_cast<size_t>(k) * M + m] = acc[i];
-    else if (k == KA && x != nullptr) dwx[part + m] = acc[i];
+      for (int i = 0; i < TK; ++i)
+#pragma unroll
+        for (int jj = 0; jj < TM; ++jj) {
+          red[(tk * TK + i) * BM + tm * TM + jj] = acc[i][jj];
+          acc[i][jj] = 0.0f;
+        }
+      if (do_bias)
+        red[BK * BM + col] = s < R && lay.is_value(s) ? chain : 0.0f;
+      if (do_x) red[BK * BM + BM + col] = chain;
+      chain = 0.0f;
+      __syncthreads();
+      for (int e = tid; e < kOut; e += kThreads) {
+        float t = rho == 0 ? red_s[e] : tot_s[e] + red_s[e];
+        for (int gg = 1; gg < kGroups && rho * kGroups + gg < R; ++gg)
+          t = t + red_s[gg * kOut + e];
+        tot_s[e] = t;
+      }
+    }
   }
-  if (bias) db[part + m] = lay.is_value(stream) ? bacc : 0.0f;
+  __syncthreads();
+
+  const size_t po = blockIdx.z * ps;
+  AdamStep step{};
+  if (kAdam)
+    step = dednn::adam_step(
+        args->lr,
+        static_cast<float>(args->step0 + args->base + j + 1), args->sched);
+  for (int e0 = tid; e0 < kOut; e0 += kBatch * kThreads) {
+    long long idx[kBatch];
+    float gv[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int e = e0 + b * kThreads;
+      idx[b] = -1;
+      gv[b] = 0.0f;
+      if (e >= kOut) continue;
+      gv[b] = tot_s[e];
+      if (e < BK * BM) {
+        const int k = k0 + e / BM, m = m0 + e % BM;
+        if (k < KA && m < M) idx[b] = w_off + static_cast<long long>(k) * M + m;
+      } else {
+        const bool bias_row = e < BK * BM + BM;
+        const int m = m0 + (bias_row ? e - BK * BM : e - BK * BM - BM);
+        if (m < M && (bias_row ? with_bias : with_x))
+          idx[b] = (bias_row ? b_off : u_off) + m;
+      }
+    }
+    if (kAdam) {
+      float* p = args->p + po;
+      float* mo = args->m + po;
+      float* vo = args->v + po;
+      float pv[kBatch], mv[kBatch], vv[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (idx[b] < 0) continue;
+        pv[b] = p[idx[b]];
+        mv[b] = mo[idx[b]];
+        vv[b] = vo[idx[b]];
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (idx[b] < 0) continue;
+        dednn::adam_apply(pv[b], mv[b], vv[b], gv[b], step);
+        mo[idx[b]] = mv[b];
+        vo[idx[b]] = vv[b];
+        p[idx[b]] = pv[b];
+      }
+    } else {
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (idx[b] >= 0) args->grad[idx[b]] = gv[b];
+    }
+  }
 }
 
 // Thread (b, j), the VJP of s' = om⊙H + Z⊙s (om = mask − G) at column j
@@ -735,6 +1107,12 @@ __global__ void input_bwd_kernel(const float* __restrict__ ds,
   }
 }
 
+// The last node of a captured graph: the call's steps before the next
+// replay.
+__global__ void advance_kernel(StepArgs* args, int steps) {
+  args->base += steps;
+}
+
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
@@ -765,12 +1143,7 @@ struct Offsets {
 long long scratch_floats(int R, int B, int H, int L, int O) {
   const long long N = static_cast<long long>(R) * B, layer = N * H;
   return N + layer + (L + 1) * layer + 3LL * L * layer + 2LL * L * layer +
-         2 * N * O + 5LL * B + 7 * layer + R * n_params(H, L, O);
-}
-
-// The per-stream gradient partials [R][n] at the end of scratch.
-float* partials_of(float* scratch, int R, int B, int H, int L, int O) {
-  return scratch + scratch_floats(R, B, H, L, O) - R * n_params(H, L, O);
+         2 * N * O + 5LL * B + 4 * layer + 4LL * L * layer;
 }
 
 bool valid(int spec, int R, int O, unsigned value_mask) {
@@ -782,17 +1155,141 @@ bool valid(int spec, int R, int O, unsigned value_mask) {
   return false;
 }
 
-// Enqueue one step's forward and backward: loss -> *loss, the gradient's
-// per-stream partials -> partials_of(scratch). For `reps` replicas, replica
-// r's parameters are at p + r·n, its scratch at scratch + r·scratch_floats
-// and its loss at loss + r·ls; every launch covers all of them.
-cudaError_t grad_step(int spec, const Consts& c, const float* cnst,
-                      const float* p, const float* u, float* scratch,
-                      float* loss, int reps, size_t ls, const Layout& lay,
-                      int H, int L, int O, int act, cudaStream_t stream) {
+long long blocks(int rows, int cols, int tile_rows, int tile_cols, int reps) {
+  return static_cast<long long>(dednn::ceil_div(rows, tile_rows)) *
+         dednn::ceil_div(cols, tile_cols) * reps;
+}
+
+// A gemm_kernel or weight_grad_kernel instance: its tile and launch.
+template <class Kernel, class... Args>
+void launch(Kernel kernel, int threads, size_t smem, int tile_rows,
+            int tile_cols, int rows, int cols, int reps, cudaStream_t stream,
+            Args... args) {
+  const dim3 grid(dednn::ceil_div(cols, tile_cols),
+                  dednn::ceil_div(rows, tile_rows), reps);
+  kernel<<<grid, threads, smem, stream>>>(args...);
+}
+
+// C = A·W' (+ x·u, + bias on value rows, or addend +) for `reps` replicas.
+// The tile, chosen from timings of the candidates at FitzHugh–Nagumo's
+// shapes on the H100: 64 × 64 (8 × 4 outputs per thread) while that still
+// gives three blocks per SM, else 32 × 32 (2 × 4) while one per SM, else
+// 16 × 32 (2 × 4), whose more blocks win where the card is underfilled.
+template <bool kT>
+void gemm(const float* A, const StepArgs* args, long long w_off, int N, int K,
+          int M, const float* x, long long u_off, long long b_off,
+          const Layout& lay, const float* addend, float* C, size_t ss,
+          size_t ps, int reps, cudaStream_t stream) {
+  if (blocks(N, M, 64, 64, reps) >= 3 * kSMs)
+    launch(gemm_kernel<kT, 64, 64, 8, 4, 16, 4>, 128, 0, 64, 64, N, M, reps,
+           stream, A, args, w_off, N, K, M, x, u_off, b_off, lay, addend, C,
+           ss, ps);
+  else if (blocks(N, M, 32, 32, reps) >= kSMs)
+    launch(gemm_kernel<kT, 32, 32, 2, 4, 32, 4>, 128, 0, 32, 32, N, M, reps,
+           stream, A, args, w_off, N, K, M, x, u_off, b_off, lay, addend, C,
+           ss, ps);
+  else
+    launch(gemm_kernel<kT, 16, 32, 2, 4, 32, 4>, 64, 0, 16, 32, N, M, reps,
+           stream, A, args, w_off, N, K, M, x, u_off, b_off, lay, addend, C,
+           ss, ps);
+}
+
+// The weight-gradient instances, largest first (chosen as the gemm's):
+// 32 × 64 tiles (4 × 4 per thread, 32-row chunks, one
+// stream at a time; kWg[0]) while that gives two blocks per SM; 32 × 32
+// (4 × 2, 16-row chunks, three streams at a time in three thread groups;
+// kWg[1]) while one per SM; else 16 × 16 (2 × 2, three groups; kWg[2]).
+struct WgConfig {
+  int tile_k, tile_m, threads, min_blocks;
+  size_t smem;
+};
+constexpr WgConfig kWg[3] = {
+    {32, 64, 128, 2 * kSMs, wg_smem_bytes<32, 64, 32, 3, 1>()},
+    {32, 32, 384, kSMs, wg_smem_bytes<32, 32, 16, 4, 3>()},
+    {16, 16, 192, 0, wg_smem_bytes<16, 16, 16, 4, 3>()}};
+
+template <bool kAdam>
+auto wg_kernel(int config) {
+  return config == 0   ? weight_grad_kernel<kAdam, 32, 64, 4, 4, 32, 3, 1>
+         : config == 1 ? weight_grad_kernel<kAdam, 32, 32, 4, 2, 16, 4, 3>
+                       : weight_grad_kernel<kAdam, 16, 16, 2, 2, 16, 4, 3>;
+}
+
+// Lets the weight-gradient instances take their dynamic shared memory
+// (above the default 48 KB); before any launch or capture.
+cudaError_t prepare() {
+  for (int c = 0; c < 3; ++c) {
+    cudaError_t err = dednn::allow_smem(wg_kernel<true>(c), kWg[c].smem);
+    if (err == cudaSuccess)
+      err = dednn::allow_smem(wg_kernel<false>(c), kWg[c].smem);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// One layer's weight gradient (and Adam, kAdam) for `reps` replicas, with
+// the first instance of kWg that gets its blocks.
+template <bool kAdam>
+void weight_grad(const float* A, int KA, const float* x, const float* dz,
+                 int M, const Layout& lay, const StepArgs* args, int j,
+                 long long w_off, long long u_off, long long b_off, size_t ss,
+                 size_t ps, int reps, cudaStream_t stream) {
+  int c = 0;
+  while (blocks(KA, M, kWg[c].tile_k, kWg[c].tile_m, reps) <
+         kWg[c].min_blocks)
+    ++c;
+  launch(wg_kernel<kAdam>(c), kWg[c].threads, kWg[c].smem, kWg[c].tile_k,
+         kWg[c].tile_m, KA, M, reps, stream, A, KA, x, dz, M, lay, args, j,
+         w_off, u_off, b_off, ss, ps);
+}
+
+// The streams of one step: the data path on `main`, the weight gradients
+// (with their Adam updates) on two side streams in turn, each forked once
+// its inputs are written and its weights' last read in the step is done,
+// all joined back into `main` at the end of the step. Sides equal to main
+// run everything in order. In a capture the forks and the joins become the
+// graph's branches.
+struct Streams {
+  cudaStream_t main, side[2];
+  cudaEvent_t fork, join;
+  int next = 0;  // the side of the next branch
+
+  // The stream of the next weight gradient, made to wait for main's work so
+  // far.
+  cudaError_t branch(cudaStream_t* out) {
+    const cudaStream_t s = side[next];
+    next ^= 1;
+    *out = s;
+    if (s == main) return cudaSuccess;
+    const cudaError_t err = cudaEventRecord(fork, main);
+    return err != cudaSuccess ? err : cudaStreamWaitEvent(s, fork, 0);
+  }
+  // main waits for both sides' work so far.
+  cudaError_t merge() {
+    next = 0;
+    for (const cudaStream_t s : side) {
+      if (s == main) continue;
+      cudaError_t err = cudaEventRecord(join, s);
+      if (err == cudaSuccess) err = cudaStreamWaitEvent(main, join, 0);
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+  }
+};
+
+// Enqueue call step base + j of `reps` replicas: the forward, the loss into
+// its slot, and the backward, each layer's weights updated by Adam after
+// their last read in the step (kAdam), or the gradient written to
+// args->grad. Replica r's scratch is at scratch + r·scratch_floats; each
+// layer's dh_pre and dzgr_pre have their own buffers, so that a layer's
+// weight gradient on the side stream reads them while the data path goes on.
+template <bool kAdam>
+cudaError_t enqueue_step(int spec, const StepArgs* args, int j,
+                         float* scratch, int reps, const Layout& lay, int H,
+                         int L, int O, int act, Streams& st) {
   const int R = lay.R, B = lay.B, N = R * B;
   const size_t layer = static_cast<size_t>(N) * H;
-  const int n = static_cast<int>(n_params(H, L, O));
+  const size_t n = n_params(H, L, O);
   const size_t ss = scratch_floats(R, B, H, L, O);
   const Offsets off(H, L, O);
   float* X = scratch;                    // [N]
@@ -804,103 +1301,129 @@ cudaError_t grad_step(int spec, const Consts& c, const float* cnst,
   float* OUT = SR + L * layer;           // [N, O]
   float* G = OUT + static_cast<size_t>(N) * O;  // [N, O] output cotangent
   float* AUX = G + static_cast<size_t>(N) * O;  // [5B] loss scratch
-  float* DS = AUX + 5 * B;           // [N, H] cotangent of the state
+  float* DS = AUX + 5 * B;               // [N, H] cotangent of the state
   float* DSP = DS + layer;               // [N, H] of the previous state
-  float* DHP = DSP + layer;              // [N, H] of h_pre (and dz0)
-  float* DSR = DHP + layer;              // [N, H] of s ⊙ R
-  float* DZ = DSR + layer;               // [N, 3H] of the gates' pre-acts
-  float* part = partials_of(scratch, R, B, H, L, O);
+  float* DSR = DSP + layer;              // [N, H] of s ⊙ R
+  float* D0 = DSR + layer;               // [N, H] of the input layer's pre
+  float* DHP = D0 + layer;               // [L][N, H] of h_pre
+  float* DZ = DHP + L * layer;           // [L][N, 3H] of the gates' pre-acts
+  const long long none = -1;
+  const cudaStream_t main = st.main;
+  cudaStream_t side;
 
   const dim3 ew(dednn::ceil_div(B * H, kEwThreads), reps);
-  const dim3 sq(16, 16), wt(32, 8);
-  auto gemm_grid = [reps](int rows, int cols) {
-    return dim3(dednn::ceil_div(cols, kTile), dednn::ceil_div(rows, kTile),
-                reps);
-  };
-  auto wgrad_grid = [R, reps](int k_rows, int cols) {
-    return dim3(dednn::ceil_div(cols, kTile), dednn::ceil_div(k_rows, kTile),
-                reps * R);
-  };
-
-  input_kernel<<<ew, kEwThreads, 0, stream>>>(spec, u, cnst, c, lay,
-                                              p + off.w_in, p + off.b_in, H,
-                                              act, X, PRE, ST, ss, n);
+  input_kernel<<<ew, kEwThreads, 0, main>>>(spec, args, j, lay, off.w_in,
+                                            off.b_in, H, act, X, PRE, ST, ss,
+                                            n);
   for (int l = 0; l < L; ++l) {
     const float* S = ST + l * layer;
     float* Z = ZG + 3 * l * layer;
     float* Hh = HP + l * layer;
     float* SRl = SR + l * layer;
-    const size_t lw3 = static_cast<size_t>(l) * 3 * H;
-    const size_t lw = static_cast<size_t>(l) * H;
-    gemm_kernel<false><<<gemm_grid(N, 3 * H), sq, 0, stream>>>(
-        S, p + off.Wzgr + lw3 * H, N, H, 3 * H, X, p + off.Uzgr + lw3,
-        p + off.bzgr + lw3, lay, nullptr, Z, ss, n);
-    gate_fwd_kernel<<<ew, kEwThreads, 0, stream>>>(Z, S, lay, H, act, SRl,
-                                                   ss);
-    gemm_kernel<false><<<gemm_grid(N, H), sq, 0, stream>>>(
-        SRl, p + off.Wh + lw * H, N, H, H, X, p + off.Uh + lw,
-        p + off.bh + lw, lay, nullptr, Hh, ss, n);
-    state_fwd_kernel<<<ew, kEwThreads, 0, stream>>>(Z, Hh, S, lay, H, act,
-                                                    ST + (l + 1) * layer, ss);
+    const long long lw3 = static_cast<long long>(l) * 3 * H;
+    const long long lw = static_cast<long long>(l) * H;
+    gemm<false>(S, args, off.Wzgr + lw3 * H, N, H, 3 * H, X, off.Uzgr + lw3,
+                off.bzgr + lw3, lay, nullptr, Z, ss, n, reps, main);
+    gate_fwd_kernel<<<ew, kEwThreads, 0, main>>>(Z, S, lay, H, act, SRl, ss);
+    gemm<false>(SRl, args, off.Wh + lw * H, N, H, H, X, off.Uh + lw,
+                off.bh + lw, lay, nullptr, Hh, ss, n, reps, main);
+    state_fwd_kernel<<<ew, kEwThreads, 0, main>>>(Z, Hh, S, lay, H, act,
+                                                  ST + (l + 1) * layer, ss);
   }
   const float* S_L = ST + L * layer;
   if (spec == kFitzHughNagumo) {
-    fn_loss_kernel<<<reps, kLossThreads, 0, stream>>>(
-        S_L, H, p + off.w_out, p + off.b_out, lay, c, OUT, G, AUX, loss, ss,
-        n, ls);
+    fn_loss_kernel<<<reps, kLossThreads, 0, main>>>(
+        S_L, H, args, j, off.w_out, off.b_out, lay, OUT, G, AUX, ss, n);
   } else {
-    fredholm_loss_kernel<<<reps, kLossThreads, 0, stream>>>(
-        S_L, H, p + off.w_out, p + off.b_out, lay, u, cnst, c, OUT, G, AUX,
-        loss, ss, n, ls);
+    fredholm_loss_kernel<<<reps, kLossThreads, 0, main>>>(
+        S_L, H, args, j, off.w_out, off.b_out, lay, OUT, G, AUX, ss, n);
   }
 
-  weight_grad_kernel<<<wgrad_grid(H, O), wt, 0, stream>>>(
-      S_L, H, nullptr, G, O, lay, n, part + off.w_out, nullptr,
-      part + off.b_out, ss);
-  out_bwd_kernel<<<dim3(dednn::ceil_div(N * H, kAdamThreads), reps),
-                   kAdamThreads, 0, stream>>>(G, p + off.w_out, N, H, O, DS,
-                                              ss, n);
+  out_bwd_kernel<<<dim3(dednn::ceil_div(N * H, kOutThreads), reps),
+                   kOutThreads, 0, main>>>(G, args, off.w_out, N, H, O, DS,
+                                           ss, n);
+  cudaError_t err = st.branch(&side);
+  if (err != cudaSuccess) return err;
+  weight_grad<kAdam>(S_L, H, nullptr, G, O, lay, args, j, off.w_out, none,
+                     off.b_out, ss, n, reps, side);
   for (int l = L - 1; l >= 0; --l) {
     const float* S = ST + l * layer;
     const float* Z = ZG + 3 * l * layer;
     const float* Hh = HP + l * layer;
     const float* SRl = SR + l * layer;
-    const size_t lw3 = static_cast<size_t>(l) * 3 * H;
-    const size_t lw = static_cast<size_t>(l) * H;
-    gate_bwd1_kernel<<<ew, kEwThreads, 0, stream>>>(DS, S, Z, Hh, lay, H, act,
-                                                    DHP, DZ, DSP, ss);
-    weight_grad_kernel<<<wgrad_grid(H + 1, H), wt, 0, stream>>>(
-        SRl, H, X, DHP, H, lay, n, part + off.Wh + lw * H, part + off.Uh + lw,
-        part + off.bh + lw, ss);
-    gemm_kernel<true><<<gemm_grid(N, H), sq, 0, stream>>>(
-        DHP, p + off.Wh + lw * H, N, H, H, nullptr, nullptr, nullptr, lay,
-        nullptr, DSR, ss, n);
-    gate_bwd2_kernel<<<ew, kEwThreads, 0, stream>>>(DSR, S, Z, lay, H, act,
-                                                    DSP, DZ, ss);
-    weight_grad_kernel<<<wgrad_grid(H + 1, 3 * H), wt, 0, stream>>>(
-        S, H, X, DZ, 3 * H, lay, n, part + off.Wzgr + lw3 * H,
-        part + off.Uzgr + lw3, part + off.bzgr + lw3, ss);
-    gemm_kernel<true><<<gemm_grid(N, H), sq, 0, stream>>>(
-        DZ, p + off.Wzgr + lw3 * H, N, 3 * H, H, nullptr, nullptr, nullptr,
-        lay, DSP, DS, ss, n);
+    float* DHPl = DHP + l * layer;
+    float* DZl = DZ + 3 * l * layer;
+    const long long lw3 = static_cast<long long>(l) * 3 * H;
+    const long long lw = static_cast<long long>(l) * H;
+    gate_bwd1_kernel<<<ew, kEwThreads, 0, main>>>(DS, S, Z, Hh, lay, H, act,
+                                                  DHPl, DZl, DSP, ss);
+    gemm<true>(DHPl, args, off.Wh + lw * H, N, H, H, nullptr, none, none,
+               lay, nullptr, DSR, ss, n, reps, main);
+    err = st.branch(&side);
+    if (err != cudaSuccess) return err;
+    weight_grad<kAdam>(SRl, H, X, DHPl, H, lay, args, j, off.Wh + lw * H,
+                       off.Uh + lw, off.bh + lw, ss, n, reps, side);
+    gate_bwd2_kernel<<<ew, kEwThreads, 0, main>>>(DSR, S, Z, lay, H, act,
+                                                  DSP, DZl, ss);
+    gemm<true>(DZl, args, off.Wzgr + lw3 * H, N, 3 * H, H, nullptr, none,
+               none, lay, DSP, DS, ss, n, reps, main);
+    err = st.branch(&side);
+    if (err != cudaSuccess) return err;
+    weight_grad<kAdam>(S, H, X, DZl, 3 * H, lay, args, j, off.Wzgr + lw3 * H,
+                       off.Uzgr + lw3, off.bzgr + lw3, ss, n, reps, side);
   }
-  input_bwd_kernel<<<ew, kEwThreads, 0, stream>>>(DS, PRE, lay, H, act, DHP,
-                                                  ss);
-  weight_grad_kernel<<<wgrad_grid(1, H), wt, 0, stream>>>(
-      X, 1, nullptr, DHP, H, lay, n, part + off.w_in, nullptr,
-      part + off.b_in, ss);
-  return cudaGetLastError();
+  input_bwd_kernel<<<ew, kEwThreads, 0, main>>>(DS, PRE, lay, H, act, D0,
+                                                ss);
+  err = st.branch(&side);
+  if (err != cudaSuccess) return err;
+  weight_grad<kAdam>(X, 1, nullptr, D0, H, lay, args, j, off.w_in, none,
+                     off.b_in, ss, n, reps, side);
+  err = st.merge();
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-Consts load_consts(const float* consts) {
-  Consts c;
-  for (int i = 0; i < kMaxConsts; ++i) c.c[i] = consts[i];
-  return c;
+// The events of a step's forks and joins (none when the sides are main).
+cudaError_t make_streams(cudaStream_t main, cudaStream_t side0,
+                         cudaStream_t side1, Streams* st) {
+  *st = Streams{main, {side0, side1}, nullptr, nullptr};
+  if (side0 == main && side1 == main) return cudaSuccess;
+  cudaError_t err = cudaEventCreateWithFlags(&st->fork,
+                                             cudaEventDisableTiming);
+  if (err == cudaSuccess)
+    err = cudaEventCreateWithFlags(&st->join, cudaEventDisableTiming);
+  return err;
+}
+
+void free_streams(const Streams& st) {
+  if (st.fork != nullptr) cudaEventDestroy(st.fork);
+  if (st.join != nullptr) cudaEventDestroy(st.join);
+}
+
+StepArgs host_args(const float* consts, const float* cnst, float* p,
+                   float* m, float* v, const float* u, float* losses,
+                   long long ls, float* grad) {
+  StepArgs a{};
+  a.p = p;
+  a.m = m;
+  a.v = v;
+  a.u = u;
+  a.losses = losses;
+  a.ls = ls;
+  a.grad = grad;
+  a.cnst = cnst;
+  for (int i = 0; i < kMaxConsts; ++i) a.c.c[i] = consts[i];
+  return a;
+}
+
+cudaError_t write_args(StepArgs* dst, const StepArgs& a,
+                       cudaStream_t stream) {
+  return cudaMemcpyAsync(dst, &a, sizeof(StepArgs), cudaMemcpyHostToDevice,
+                         stream);
 }
 
 }  // namespace
 
-// Floats of scratch one call needs at R streams of B rows (D = 1).
+// Floats of scratch one replica needs at R streams of B rows (D = 1).
 extern "C" long long dgm_scratch_floats(int R, int B, int H, int L, int O) {
   return scratch_floats(R, B, H, L, O);
 }
@@ -908,61 +1431,165 @@ extern "C" long long dgm_scratch_floats(int R, int B, int H, int L, int O) {
 // The most stream rows per batch point the kernels hold.
 extern "C" int dgm_max_streams() { return kMaxStreams; }
 
+// Bytes of the device argument block (StepArgs) every entry point takes.
+extern "C" int dgm_args_bytes() { return sizeof(StepArgs); }
+
 // One step's loss and flat gradient (kernel #7 alone). consts: the spec's
 // kMaxConsts numbers, in host memory; cnst: Fredholm's [2(R−1), B] nodes
-// and weights on the device (unused by FitzHugh–Nagumo).
+// and weights on the device (unused by FitzHugh–Nagumo); args: a device
+// block of dgm_args_bytes().
 extern "C" int dgm_grad(int spec, const float* consts, const float* cnst,
                         const float* p, const float* u, float* scratch,
-                        float* grad, float* loss, int R, int B, int H, int L,
-                        int O, int act, unsigned value_mask, void* stream) {
+                        float* grad, float* loss, void* args, int R, int B,
+                        int H, int L, int O, int act, unsigned value_mask,
+                        void* stream) {
   if (!valid(spec, R, O, value_mask)) return cudaErrorInvalidValue;
-  const Consts c = load_consts(consts);
-  const Layout lay{R, B, value_mask};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = grad_step(spec, c, cnst, p, u, scratch, loss, 1, 0, lay,
-                              H, L, O, act, st);
+  cudaError_t err = prepare();
   if (err != cudaSuccess) return err;
-  const int n = static_cast<int>(n_params(H, L, O));
-  sum_partials_kernel<<<dednn::ceil_div(n, kAdamThreads), kAdamThreads, 0,
-                        st>>>(partials_of(scratch, R, B, H, L, O), R, n,
-                              grad);
-  return cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  StepArgs* dev = static_cast<StepArgs*>(args);
+  const StepArgs a = host_args(consts, cnst, const_cast<float*>(p), nullptr,
+                               nullptr, u, loss, 0, grad);
+  err = write_args(dev, a, st);
+  if (err != cudaSuccess) return err;
+  const Layout lay{R, B, value_mask};
+  Streams one{st, {st, st}, nullptr, nullptr};
+  return enqueue_step<false>(spec, dev, 0, scratch, 1, lay, H, L, O, act,
+                             one);
+}
+
+// Capture S training steps of N packed replicas, and the advance of the
+// argument block's base, as one CUDA graph (on streams of its own: the data
+// path and the weight gradients' two branches), and instantiate it into
+// *exec.
+// The graph holds the scratch and argument-block pointers and the shape: it
+// serves every call of that shape whose per-call values come through args
+// (dgm_train_packed writes them).
+extern "C" int dgm_graph_build(int spec, int R, int B, int H, int L, int O,
+                               int act, unsigned value_mask, int N, int S,
+                               void* args, float* scratch, void** exec) {
+  *exec = nullptr;
+  if (!valid(spec, R, O, value_mask) || S < 1) return cudaErrorInvalidValue;
+  const Layout lay{R, B, value_mask};
+  StepArgs* dev = static_cast<StepArgs*>(args);
+  cudaError_t err = prepare();
+  if (err != cudaSuccess) return err;
+  cudaStream_t cs = nullptr, side[2] = {nullptr, nullptr};
+  Streams st{};
+  err = cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
+  for (cudaStream_t& s : side)
+    if (err == cudaSuccess)
+      err = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+  if (err == cudaSuccess) err = make_streams(cs, side[0], side[1], &st);
+  if (err == cudaSuccess)
+    err = cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
+  if (err == cudaSuccess) {
+    for (int j = 0; j < S && err == cudaSuccess; ++j)
+      err = enqueue_step<true>(spec, dev, j, scratch, N, lay, H, L, O, act,
+                               st);
+    if (err == cudaSuccess) {
+      advance_kernel<<<1, 1, 0, cs>>>(dev, S);
+      err = cudaGetLastError();
+    }
+    cudaGraph_t graph = nullptr;
+    const cudaError_t end = cudaStreamEndCapture(cs, &graph);
+    if (err == cudaSuccess) err = end;
+    if (err == cudaSuccess) {
+      cudaGraphExec_t ge = nullptr;
+      err = cudaGraphInstantiateWithFlags(&ge, graph, 0);
+      if (err == cudaSuccess) *exec = ge;
+    }
+    if (graph != nullptr) cudaGraphDestroy(graph);
+  }
+  free_streams(st);
+  for (cudaStream_t s : side)
+    if (s != nullptr) cudaStreamDestroy(s);
+  if (cs != nullptr) cudaStreamDestroy(cs);
+  return err;
+}
+
+extern "C" int dgm_graph_free(void* exec) {
+  return exec == nullptr
+             ? cudaSuccess
+             : cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec));
 }
 
 // K Adam steps of N packed replicas (kernel #5 around #7): p, m, v [N, n]
-// updated in place, losses [N, K], scratch N·dgm_scratch_floats; the
-// uniforms [K, B], the layout, the consts, cnst and the schedule are
-// shared. *step_math_runs (host memory) is set to the number of
-// replica-steps whose step math was enqueued. N·R above the grid's 65 535
-// is refused.
+// updated in place, losses [N, K]; the uniforms [K, B], the layout, the
+// consts, cnst and the schedule are shared. scratch (N·dgm_scratch_floats)
+// and args (dgm_args_bytes) are the ones exec was built with, if exec is
+// not null: then ⌊K/S⌋ replays of its S steps on `stream`, and the other K
+// mod S steps as the same launches from here, the weight gradients on side0
+// and side1 (all K, without exec). *step_math_runs
+// (host memory) is set to the number of replica-steps whose step math was
+// enqueued. N above the grid's 65 535 is refused.
 extern "C" int dgm_train_packed(int spec, const float* consts,
                                 const float* cnst, float* p, float* m,
                                 float* v, const float* u, float* scratch,
-                                float* losses, int N, int K, int R, int B,
-                                int H, int L, int O, int act,
-                                unsigned value_mask, float lr, int step0,
-                                int schedule, float horizon, float decay,
-                                float half_span, float log_decay,
-                                int* step_math_runs, void* stream) {
+                                float* losses, void* args, void* exec, int S,
+                                int N, int K, int R, int B, int H, int L,
+                                int O, int act, unsigned value_mask, float lr,
+                                int step0, int schedule, float horizon,
+                                float decay, float half_span, float log_decay,
+                                int* step_math_runs, void* stream,
+                                void* side0, void* side1) {
   *step_math_runs = 0;
   if (!valid(spec, R, O, value_mask)) return cudaErrorInvalidValue;
-  if (N < 1 || N > dednn::kMaxGridYZ / R) return cudaErrorInvalidValue;
-  const Consts c = load_consts(consts);
+  if (N < 1 || N > dednn::kMaxGridYZ) return cudaErrorInvalidValue;
+  if (exec != nullptr && S < 1) return cudaErrorInvalidValue;
   const Layout lay{R, B, value_mask};
-  const Schedule sched{schedule, horizon, decay, half_span, log_decay};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n = static_cast<int>(n_params(H, L, O));
-  const float* part = partials_of(scratch, R, B, H, L, O);
-  const dim3 adam_grid(dednn::ceil_div(n, kAdamThreads), N);
-  for (int k = 0; k < K; ++k) {
-    cudaError_t err = grad_step(spec, c, cnst, p,
-                                u + static_cast<size_t>(k) * B, scratch,
-                                losses + k, N, K, lay, H, L, O, act, st);
+  StepArgs* dev = static_cast<StepArgs*>(args);
+  StepArgs a = host_args(consts, cnst, p, m, v, u, losses, K, nullptr);
+  a.step0 = step0;
+  a.lr = lr;
+  a.sched = Schedule{schedule, horizon, decay, half_span, log_decay};
+  cudaError_t err = prepare();
+  if (err == cudaSuccess) err = write_args(dev, a, st);
+  if (err != cudaSuccess) return err;
+  const int replays = exec == nullptr ? 0 : K / S;
+  for (int i = 0; i < replays; ++i) {
+    err = cudaGraphLaunch(static_cast<cudaGraphExec_t>(exec), st);
     if (err != cudaSuccess) return err;
-    *step_math_runs += N;
-    adam_kernel<<<adam_grid, kAdamThreads, 0, st>>>(
-        p, m, v, part, R, n, scratch_floats(R, B, H, L, O), lr,
-        static_cast<float>(step0 + k + 1), sched);
+    *step_math_runs += S * N;
+  }
+  if (K == replays * S) return cudaGetLastError();
+  Streams two{};
+  err = make_streams(st, static_cast<cudaStream_t>(side0),
+                     static_cast<cudaStream_t>(side1), &two);
+  for (int j = 0; j < K - replays * S && err == cudaSuccess; ++j) {
+    err = enqueue_step<true>(spec, dev, j, scratch, N, lay, H, L, O, act,
+                             two);
+    if (err == cudaSuccess) *step_math_runs += N;
+  }
+  free_streams(two);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The forward product of the training step at [rows, K]·[K, M] (trans = 0)
+// or its backward [rows, K]·[M, K]ᵀ (trans = 1), for `replicas` replicas:
+// A and C at stride ss, W at stride K·M, through the tile the step picks;
+// `launches` launches back to back (the timing of kernels/profile.py
+// --probe). args: a device block of dgm_args_bytes().
+extern "C" int dgm_gemm_probe(int trans, const float* A, const float* W,
+                              float* C, void* args, int rows, int K, int M,
+                              int replicas, long long ss, int launches,
+                              void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  StepArgs* dev = static_cast<StepArgs*>(args);
+  StepArgs a{};
+  a.p = const_cast<float*>(W);
+  cudaError_t err = write_args(dev, a, st);
+  if (err != cudaSuccess) return err;
+  const Layout lay{1, rows, 1u};
+  const size_t ps = static_cast<size_t>(K) * M;
+  for (int i = 0; i < launches; ++i) {
+    if (trans)
+      gemm<true>(A, dev, 0, rows, K, M, nullptr, -1, -1, lay, nullptr, C, ss,
+                 ps, replicas, st);
+    else
+      gemm<false>(A, dev, 0, rows, K, M, nullptr, -1, -1, lay, nullptr, C, ss,
+                  ps, replicas, st);
   }
   return cudaGetLastError();
 }

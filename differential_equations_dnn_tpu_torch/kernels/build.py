@@ -39,6 +39,9 @@ _CONSTS = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     # x, w_in, b_in, w_hid, b_hid, w_out, b_out, y, n, d, h, l, o, act, stream
     "mlp_forward": [_P] * 8 + [_I] * 6 + [_P],
+    # d, h, o
+    "mlp_forward_rows": [_I] * 3,
+    "mlp_forward_smem_bytes": [_I] * 3,
     # xt, x0, xb1, xb2, w_in, b_in, w_hid, b_hid, w_out, b_out, out, n, h,
     # l, o, act, stream
     "heat_streams": [_P] * 11 + [_I] * 5 + [_P],
@@ -65,17 +68,31 @@ _SIGNATURES = {
     # R, B, H, L, O
     "dgm_scratch_floats": [_I] * 5,
     "dgm_max_streams": [],
-    # spec, consts, const, p, u, scratch, grad, loss, R, B, H, L, O, act,
-    # value_mask, stream
-    "dgm_grad": [_I, _CONSTS] + [_P] * 6 + [_I] * 6 + [_U, _P],
-    # spec, consts, const, p, m, v, u, scratch, losses, N, K, R, B, H, L, O,
-    # act, value_mask, lr, step0, schedule, horizon, decay, half_span,
-    # log_decay, step_math_runs, stream
-    "dgm_train_packed": [_I, _CONSTS] + [_P] * 7 + [_I] * 8
+    "dgm_args_bytes": [],
+    # spec, consts, const, p, u, scratch, grad, loss, args, R, B, H, L, O,
+    # act, value_mask, stream
+    "dgm_grad": [_I, _CONSTS] + [_P] * 7 + [_I] * 6 + [_U, _P],
+    # spec, R, B, H, L, O, act, value_mask, N, S, args, scratch, exec (out)
+    "dgm_graph_build": [_I] * 7 + [_U, _I, _I, _P, _P,
+                                   ctypes.POINTER(ctypes.c_void_p)],
+    # exec
+    "dgm_graph_free": [_P],
+    # spec, consts, const, p, m, v, u, scratch, losses, args, exec, S, N, K,
+    # R, B, H, L, O, act, value_mask, lr, step0, schedule, horizon, decay,
+    # half_span, log_decay, step_math_runs, stream, side0, side1
+    "dgm_train_packed": [_I, _CONSTS] + [_P] * 9 + [_I] * 9
                         + [_U, _F, _I, _I] + [_F] * 4
-                        + [ctypes.POINTER(_I), _P],
+                        + [ctypes.POINTER(_I), _P, _P, _P],
+    # trans, A, W, C, args, rows, K, M, replicas, ss, launches, stream
+    "dgm_gemm_probe": [_I] + [_P] * 4 + [_I] * 4
+                      + [ctypes.c_longlong, _I, _P],
+    # nodes, blocks, threads, reps, out[2]
+    "probe_graph_gap": [_I] * 4 + [_P],
+    # blocks, threads, syncs, out[2]
+    "probe_grid_sync": [_I] * 3 + [_P],
 }
-_RESTYPES = {"heat_streams_smem_bytes": ctypes.c_longlong,
+_RESTYPES = {"mlp_forward_smem_bytes": ctypes.c_longlong,
+             "heat_streams_smem_bytes": ctypes.c_longlong,
              "engine_scratch_floats": ctypes.c_longlong,
              "engine_smem_bytes": ctypes.c_longlong,
              "dgm_scratch_floats": ctypes.c_longlong}

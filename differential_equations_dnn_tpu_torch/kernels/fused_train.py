@@ -30,6 +30,7 @@ from differential_equations_dnn_tpu_torch.core.prng import (
 )
 from differential_equations_dnn_tpu_torch.kernels import build
 from differential_equations_dnn_tpu_torch.kernels.engine_core import (
+    SMEM_LIMIT,
     adam_update,
     check_batch_tile,
 )
@@ -185,11 +186,43 @@ def _tensors(model):
             model.fc_out.w, model.fc_out.b)
 
 
-def _check_model(model):
+# csrc/heat_train.cu's layout: 7 streams; fwd_layer and bwd_data split
+# each contraction over 8 warps of 128 columns.
+_STREAMS, _SPLIT_WARPS, _COLS_PER_WARP = 7, 8, 128
+
+
+def heat_smem_bytes(H):
+    """The most shared memory one block of csrc/heat_train.cu takes at
+    width H: the larger of ``fwd_smem(H)`` and ``bwd_data_smem(H, H)``,
+    which the kernel's ``prepare`` asks for whatever the depth."""
+    partials = _STREAMS * (H + _SPLIT_WARPS * _COLS_PER_WARP)
+    return 4 * max(partials, H * (H + 1) + partials)
+
+
+def _widest_heat():
+    H = 1
+    while heat_smem_bytes(H + 1) <= SMEM_LIMIT:
+        H += 1
+    return H
+
+
+def _check_model(model, device=None):
+    """A plain tanh MLP 2 → H×L → 1; on a CUDA ``device`` also a width
+    whose kernels fit a block's shared memory (checked before the library
+    is loaded, so nothing launches). The plain version takes any width."""
     if not isinstance(model, MLP) or model.activation != "tanh" \
             or model.input_dim != 2 or model.output_dim != 1:
         raise ValueError("the fused heat kernel trains plain tanh MLPs "
                          "2 → H×L → 1 only")
+    H = model.hidden_size
+    if device is not None and torch.device(device).type == "cuda" \
+            and heat_smem_bytes(H) > SMEM_LIMIT:
+        raise ValueError(
+            f"the fused heat kernel at hidden width {H} needs "
+            f"{heat_smem_bytes(H)} bytes of shared memory per block, past "
+            f"the {SMEM_LIMIT} (227 KB) an H100 block may take; the widest "
+            f"it takes is H = {_widest_heat()} (engine='scan' takes any "
+            f"width)")
 
 
 def _check_state(model, tensors, n_replicas=None):
@@ -222,7 +255,7 @@ def heat_loss_grad(model, params, u, x_max=math.pi, t_max=3.0, kappa=1.0):
     """One step's loss and flat gradient at flat ``params`` on ``[B, 2]``
     uniforms: the forward and backward launches of the training kernel
     without the Adam update. A CPU tensor takes the plain version."""
-    _check_model(model)
+    _check_model(model, u.device)
     if u.device.type == "cpu":
         return heat_loss_grad_plain(model, params, u, x_max, t_max, kappa)
     _check_state(model, {"params": params, "uniforms": u})
@@ -273,7 +306,7 @@ def heat_fused_train_chunk(model, params, m, v, uniforms, step0, lrate,
     Returns new (params, m, v, losses[K]); the inputs are left unchanged.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (``heat_fused_train_chunk.launches`` counts the launches)."""
-    _check_model(model)
+    _check_model(model, uniforms.device)
     K, B, _ = uniforms.shape
     check_batch_tile(B, batch_tile)
     if uniforms.device.type == "cpu":
@@ -384,7 +417,7 @@ def train_heat_fused_result(problem, seed, iterations, batch_size=64,
     if model is None:
         model = problem.default_model(generator=generator(seed))
     model.to(device)
-    _check_model(model)
+    _check_model(model, device)
     kw = dict(x_max=problem.x_max, t_max=problem.t_max, kappa=problem.kappa)
     p = pack_params(model)
 

@@ -22,7 +22,20 @@ per-kernel lines, launches per step, and the device's idle share of the
 event-timed step. ``--scan NAME --solve-seeds N`` runs
 ``solve(NAME, engine="scan")`` for every taps of ``--taps``, Adam update of
 ``--adam`` (torch's fused or foreach) and seed, ``--workers`` at a time,
-and compares the taps' loss histories. Needs a CUDA device.
+and compares the taps' loss histories. ``--probe`` times what a fused
+DGM step is built from instead: the gap between the kernel nodes of a CUDA
+graph, a grid-wide barrier (the floor of one persistent kernel per step),
+and the DGM gemm at its four product shapes for 1 and 16 replicas beside
+one fp32 ``torch.addmm`` / ``torch.baddbmm`` call (TF32 off) on the same
+operands, a yardstick the port never calls. ``--dgm-outputs PATH`` saves
+the DGM kernels' outputs at fixed inputs (FitzHugh–Nagumo and Fredholm:
+one step's loss and gradient, a 120-step single chunk, a 53-step packed
+chunk of 16 and 4 replicas); with ``--compare-to OLD`` it compares them
+with a file that an earlier tree saved, tensor by tensor, bit for bit. It
+uses only entry points every version of the DGM engine has, so an earlier
+tree's package can run it: ``PYTHONPATH=<that tree> python -P <this file>
+--dgm-outputs OLD`` (``-P`` keeps this file's directory off the path).
+Needs a CUDA device.
 
     python -m differential_equations_dnn_tpu_torch.kernels.profile \
         fitzhugh_nagumo wave --replicas 1 4 8 16
@@ -31,9 +44,11 @@ and compares the taps' loss histories. Needs a CUDA device.
     python -m differential_equations_dnn_tpu_torch.kernels.profile \
         --scan heat --solve-seeds 5 --taps taylor pallas jvp \
         --adam fused foreach --workers 8 --out scan_seeds.json
+    python -m differential_equations_dnn_tpu_torch.kernels.profile --probe
 """
 
 import argparse
+import ctypes
 import functools
 import json
 import multiprocessing
@@ -66,6 +81,7 @@ from differential_equations_dnn_tpu_torch.train.trainer import (
 
 STEPS = 200
 DGM = ("fitzhugh_nagumo", "fredholm")
+SPIN_CYCLES = 500_000_000  # about 0.3 s: the host queues a timed run behind it
 
 
 def _chunk_fn(name, device):
@@ -144,7 +160,7 @@ def _kernel_times(prof):
         us = getattr(ev, "device_time_total", 0.0)
         if (us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA
                 and not ev.is_user_annotation):
-            found = re.search(r"\w+_kernel", ev.key)
+            found = re.search(r"\w+_kernel(<[^>]*>)?", ev.key)
             short = found.group(0) if found else ev.key[:40]
             out[short][0] += us
             out[short][1] += ev.count
@@ -190,10 +206,15 @@ def profile(name, device, n_replicas=None, scan_taps=False):
     if scan_taps is not False:
         label = f"{name} scan step (taps={scan_taps or 'default'})"
     launches = sum(calls for _, calls in times.values()) / STEPS
+    share = total / step_us
+    # Above 1 the kernels overlap (the DGM step's weight-gradient branches),
+    # and the idle share is not defined by this sum.
+    idle = (f"idle {1 - share:.3f}" if share <= 1 else
+            "kernels overlap on parallel streams")
     print(f"{label}: {step_us:.2f} us/step (CUDA events, K={STEPS}); "
           f"kernels {total:.2f} us/step under the profiler "
-          f"(share of the event-timed step {total / step_us:.3f}, idle "
-          f"{1 - total / step_us:.3f}); {launches:.1f} launches/step; "
+          f"(share of the event-timed step {share:.3f}, {idle}); "
+          f"{launches:.1f} launches/step; "
           f"{after_us:.2f} us/step after the profiler session")
     for kernel, (us, calls) in sorted(times.items(), key=lambda kv: -kv[1][0]):
         print(f"  {kernel:24s} {us / STEPS:8.2f} us/step  "
@@ -291,6 +312,133 @@ def scan_seeds(name, taps_list, adams, n_seeds, workers, out=None):
         Path(out).write_text(json.dumps(summary, indent=1))
 
 
+def _spin_ms(run, calls):
+    """Milliseconds per call of ``run()`` (which makes ``calls`` calls) on
+    the card alone: queued behind a spin kernel, so the events time the
+    calls back to back and not the host; fails if the spin ended first."""
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    run()
+    end.record()
+    if start.query():
+        raise RuntimeError("the spin ended before the host queued the run")
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def probe(device):
+    """The floors of the two designs of a fused step (CUDA-graph nodes, or
+    one persistent kernel with grid-wide barriers between its ~46 phases),
+    and the DGM gemm at its shapes beside the fp32 library product."""
+    lib = build.library()
+    out = (ctypes.c_float * 2)()
+    for blocks, threads in ((1, 32), (132, 128), (528, 128)):
+        build.check(lib.probe_graph_gap(46, blocks, threads, 200,
+                                        ctypes.addressof(out)),
+                    "probe_graph_gap")
+        print(f"graph of 46 empty kernels of {blocks} x {threads}: "
+              f"{out[0] * 1e3:.3f} us per node replayed, "
+              f"{out[1] * 1e3:.3f} us per kernel launched from the host")
+    for blocks in (132, 264):
+        build.check(lib.probe_grid_sync(blocks, 128, 2000,
+                                        ctypes.addressof(out)),
+                    "probe_grid_sync")
+        print(f"grid-wide barrier (cooperative_groups, {blocks} x 128): "
+              f"{out[0] * 1e3:.3f} us per barrier, the launch alone "
+              f"{out[1] * 1e3:.3f} us; 46 phases: "
+              f"{46 * out[0] * 1e3:.1f} us per step")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = torch.empty(lib.dgm_args_bytes(), dtype=torch.uint8,
+                       device=device)
+    rows, launches = 300, 200
+    gen = torch.Generator(device=device).manual_seed(0)
+    for n in (1, 16):
+        for trans, K, M in ((0, 128, 384), (0, 128, 128), (1, 128, 128),
+                            (1, 384, 128)):
+            ss = rows * max(K, M)
+            a = torch.randn(n * ss, device=device, generator=gen)
+            w = torch.randn(n * K * M, device=device, generator=gen)
+            c = torch.empty(n * ss, device=device)
+            stream = build.stream_ptr(device)
+
+            def kernel(calls=launches):
+                build.check(lib.dgm_gemm_probe(
+                    trans, a.data_ptr(), w.data_ptr(), c.data_ptr(),
+                    args.data_ptr(), rows, K, M, n, ss, calls, stream),
+                    "dgm_gemm_probe")
+
+            ms = _spin_ms(kernel, launches)
+            a3 = a.view(n, ss)[:, :rows * K].reshape(n, rows, K)
+            w3 = (w.view(n, M, K).transpose(1, 2) if trans
+                  else w.view(n, K, M))
+            got = c.view(n, ss)[:, :rows * M].reshape(n, rows, M)
+            want = torch.bmm(a3, w3)
+            err = float((got - want).abs().max())
+            add = torch.zeros((n, rows, M), device=device)
+            res = torch.empty((n, rows, M), device=device)
+
+            def library():
+                for _ in range(launches):
+                    if n == 1:
+                        torch.addmm(add[0], a3[0], w3[0], out=res[0])
+                    else:
+                        torch.baddbmm(add, a3, w3, out=res)
+
+            lib_ms = _spin_ms(library, launches)
+            flops = 2 * n * rows * K * M
+            print(f"gemm N={n} [{rows}, {K}] x {'Wt' if trans else 'W'} -> "
+                  f"[{rows}, {M}]: kernel {ms * 1e3:.2f} us "
+                  f"({flops / ms / 1e9:.2f} TFLOP/s; max|diff| against "
+                  f"torch.bmm {err:.3g}), library_ms {lib_ms:.5f} "
+                  f"({'addmm' if n == 1 else 'baddbmm'}, fp32, TF32 off)")
+
+
+def dgm_outputs(device):
+    """The DGM kernels' outputs at fixed inputs, as CPU tensors by name."""
+    out = {}
+    for name, n_replicas in (("fitzhugh_nagumo", 16), ("fredholm", 4)):
+        prob = PROBLEMS[name]()
+        d = prob.defaults
+        B = d.batch_size
+        spec = fd.spec_for(prob, B)
+        const = fd.const_for(spec, prob, B, device)
+        models = [prob.default_model(generator=replica_generator(0, r),
+                                     device=device)
+                  for r in range(n_replicas)]
+        p = engine_core.stack_replicas([fd.pack_dgm(m) for m in models])
+        z = torch.zeros_like(p)
+        u = step_uniforms(0, 100, 120, B, device, spec.n_uniform)
+        kw = dict(const=const, schedule="cosine", total_steps=300)
+        loss, grad = fd.dgm_loss_grad(spec, models[0], p[0].contiguous(),
+                                      u[0], const)
+        out[f"{name} step loss"] = loss.reshape(1)
+        out[f"{name} step grad"] = grad
+        single = fd.fused_dgm_chunk(spec, models[0], p[0].contiguous(),
+                                    z[0].clone(), z[0].clone(), u, 100,
+                                    d.lrate, **kw)
+        packed = fd.fused_dgm_packed_chunk(spec, models[0], p, z, z, u[:53],
+                                           100, d.lrate, n_replicas, **kw)
+        for what, tensors in (("single", single), ("packed", packed)):
+            for part, t in zip(("p", "m", "v", "losses"), tensors):
+                out[f"{name} {what} {part}"] = t
+    torch.cuda.synchronize()
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def compare_outputs(new, old):
+    """Tensor by tensor: bit for bit, or the largest difference."""
+    for key, t in new.items():
+        ref = old[key]
+        same = torch.equal(t, ref)
+        diff = float((t - ref).abs().max())
+        print(f"  {key} {tuple(t.shape)}: "
+              + ("bit for bit" if same else f"max|diff| {diff:.3g}"))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("names", nargs="*",
@@ -311,6 +459,14 @@ def main():
     parser.add_argument("--workers", type=int, default=1,
                         help="scan solves run at a time")
     parser.add_argument("--out", help="JSON summary of a scan study")
+    parser.add_argument("--probe", action="store_true",
+                        help="time the graph gap, the grid barrier and the "
+                        "DGM gemm against the library instead")
+    parser.add_argument("--dgm-outputs", metavar="PATH",
+                        help="save the DGM kernels' outputs at fixed inputs")
+    parser.add_argument("--compare-to", metavar="OLD",
+                        help="with --dgm-outputs: compare with OLD, saved "
+                        "by an earlier tree")
     parser.add_argument("--solve-args", type=json.loads, default={},
                         metavar="JSON", help="more arguments of the fused "
                         "--solve-seeds solves, as a JSON object (such as "
@@ -321,6 +477,16 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip())
+    if args.dgm_outputs:
+        outs = dgm_outputs(device)
+        torch.save(outs, args.dgm_outputs)
+        if args.compare_to:
+            print(f"DGM outputs against {args.compare_to}:")
+            compare_outputs(outs, torch.load(args.compare_to))
+        return
+    if args.probe:
+        probe(device)
+        return
     for name in args.scan or []:
         if args.solve_seeds:
             scan_seeds(name, args.taps, args.adam, args.solve_seeds,

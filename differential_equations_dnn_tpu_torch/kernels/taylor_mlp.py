@@ -21,6 +21,24 @@ from differential_equations_dnn_tpu_torch.ops import taylor
 
 _ACT_KIND = {"tanh": 0, "relu": 1, "sigmoid": 2}
 
+# csrc/mlp_forward.cu's tiling: a W tile of _W_TILE_K rows by _W_TILE_COLS
+# columns, and the rows per block it tries, most first.
+_W_TILE_K, _W_TILE_COLS = 64, 128
+_ROWS_PER_BLOCK = (32, 16, 8)
+
+
+def mlp_forward_plan(D, H, O):
+    """(rows per block, shared-memory bytes per block) of the forward
+    kernel at these widths, as csrc/mlp_forward.cu plans them: the most
+    rows whose two activation tiles, 2 · rows · (max(D, H, O) + 1) floats,
+    fit beside the W tile in a block's 227 KB; (0, None) if none does."""
+    ld = max(D, H, O) + 1
+    for rows in _ROWS_PER_BLOCK:
+        need = 4 * (_W_TILE_K * _W_TILE_COLS + 2 * rows * ld)
+        if need <= SMEM_LIMIT:
+            return rows, need
+    return 0, None
+
 
 def mlp_forward_plain(model, x):
     """The plain PyTorch version: the same products, biases and activation."""
@@ -44,6 +62,13 @@ def mlp_forward(model, x):
                   model.output_dim)
     if d != D:
         raise ValueError(f"x has {d} columns, the model takes {D}")
+    if mlp_forward_plan(D, H, O)[0] == 0:
+        rows = _ROWS_PER_BLOCK[-1]
+        raise ValueError(
+            f"mlp_forward at width {max(D, H, O)} needs more than the "
+            f"{SMEM_LIMIT} bytes of shared memory an H100 block may take "
+            f"(two {rows}-row activation tiles); the widest it takes is "
+            f"{_widest()}")
     weights = [
         ("fc_in.w", model.fc_in.w, (D, H)), ("fc_in.b", model.fc_in.b, (H,)),
         ("hidden.w", model.hidden.w, (L, H, H)),
@@ -69,6 +94,12 @@ def mlp_forward(model, x):
 
 
 mlp_forward.launches = 0
+
+
+def _widest():
+    """The widest max(D, H, O) that :func:`mlp_forward_plan` fits."""
+    rows = _ROWS_PER_BLOCK[-1]
+    return (SMEM_LIMIT // 4 - _W_TILE_K * _W_TILE_COLS) // (2 * rows) - 1
 
 
 # ---------------------------------------------------------------------------

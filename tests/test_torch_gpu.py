@@ -462,3 +462,155 @@ def test_scan_solve_goes_through_the_streams_kernel(cuda):
             fe.fused_engine_chunk.launches) == (0, 0)
     assert res.loss_history.shape == (300,)
     assert res.loss_history[-20:].mean() < res.loss_history[:20].mean()
+
+
+# ---------------------------------------------------------------------------
+# Widths: kernel #2 takes any width the trainers train, #1 refuses before
+# launching a width it cannot hold
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("H", [256, 1024])
+def test_mlp_forward_wide_matches_plain(cuda, H):
+    """Past the 211 of a whole staged W: the k-tiled kernel at H = 256 (32
+    rows per block) and 1 024 (16) against the plain version, at the H =
+    128 test's tolerance; the library plans the tile as the Python mirror
+    does."""
+    lib = build.library()
+    rows, need = taylor_mlp.mlp_forward_plan(2, H, 1)
+    assert (lib.mlp_forward_rows(2, H, 1),
+            lib.mlp_forward_smem_bytes(2, H, 1)) == (rows, need)
+    model = MLP(2, 1, H, 3, "tanh", generator=generator(0), device=cuda)
+    for n in (1600, 77):
+        x = torch.rand((n, 2), generator=generator(n)).to(cuda)
+        with torch.no_grad():
+            got = taylor_mlp.mlp_forward(model, x)
+            want = taylor_mlp.mlp_forward_plain(model, x)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_scan_heat_solve_evaluates_wide_model(cuda):
+    """``solve("heat", model=MLP(2, 1, 256, 3))`` trains on the scan engine
+    and evaluates its grid through kernel #2 with no CUDA error."""
+    taylor_mlp.mlp_forward.launches = 0
+    res = solve("heat", model=MLP(2, 1, 256, 3, activation="tanh"),
+                iterations=50)
+    assert taylor_mlp.mlp_forward.launches == 1
+    assert np.isfinite(res.mae)
+
+
+def test_heat_fused_chunk_refuses_wide_model(cuda):
+    """At H = 256 the heat kernel's backward needs more than 227 KB per
+    block: the wrapper raises ValueError before launching."""
+    model = MLP(2, 1, 256, 1, "tanh", generator=generator(0), device=cuda)
+    p = ft.pack_params(model)
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, 0, 2, 64, cuda)
+    ft.heat_fused_train_chunk.launches = 0
+    with pytest.raises(ValueError, match="227 KB"):
+        ft.heat_fused_train_chunk(model, p, z, z, u, 0, 1e-4)
+    assert ft.heat_fused_train_chunk.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The DGM engine's graph replay (kernels #7 and #5)
+# ---------------------------------------------------------------------------
+
+
+def _dgm_case(cuda, name, n_replicas, K, step0=100):
+    """NAME's default shapes: N replicas from replica_generator(0, r) (one:
+    generator(0)), K uniforms from step0, a cosine schedule over 300."""
+    prob = PROBLEMS[name]()
+    B = prob.defaults.batch_size
+    spec = fd.spec_for(prob, B)
+    gens = ([generator(0)] if n_replicas is None else
+            [replica_generator(0, r) for r in range(n_replicas)])
+    models = [prob.default_model(generator=g, device=cuda) for g in gens]
+    p = engine_core.stack_replicas([fd.pack_dgm(m) for m in models])
+    u = step_uniforms(0, step0, K, B, cuda, spec.n_uniform)
+    kw = dict(const=fd.const_for(spec, prob, B, cuda), schedule="cosine",
+              total_steps=300)
+    return spec, models[0], p, u, prob.defaults.lrate, kw
+
+
+@pytest.mark.parametrize("name", ["fitzhugh_nagumo", "fredholm"])
+def test_dgm_graph_chunk_matches_plain(cuda, name):
+    """53 steps (one 50-step graph replay and 3 steps from C) against the
+    plain version: losses rtol 1e-4, parameters rtol 1e-4 plus 2·lr, as
+    the eager chunk's test."""
+    spec, model, p, u, lr, kw = _dgm_case(cuda, name, None, 53)
+    p, z = p[0], torch.zeros_like(p[0])
+    pk, _, _, lk = fd.fused_dgm_chunk(spec, model, p, z, z, u, 100, lr, **kw)
+    pp, _, _, lp = fd.fused_dgm_chunk_plain(spec, model, p, z, z, u, 100, lr,
+                                            **kw)
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=2 * lr)
+
+
+@pytest.mark.parametrize("K", [1, 7, 50, 53, 120])
+def test_dgm_graph_boundaries_equal_single_steps(cuda, K):
+    """K steps in one call (⌊K/50⌋ graph replays, K mod 50 steps from C)
+    equal the same steps run one call per step (no graph), bit for bit; so
+    does the run cut at 53."""
+    spec, model, p, u, lr, kw = _dgm_case(cuda, "fitzhugh_nagumo", None, K)
+    state = (p[0], torch.zeros_like(p[0]), torch.zeros_like(p[0]))
+    ref = []
+    for k in range(K):
+        *state, loss = fd.fused_dgm_chunk(spec, model, *state, u[k:k + 1],
+                                          100 + k, lr, **kw)
+        ref.append(loss)
+    z = torch.zeros_like(p[0])
+    pk, mk, vk, lk = fd.fused_dgm_chunk(spec, model, p[0], z, z, u, 100, lr,
+                                        **kw)
+    assert torch.equal(lk, torch.cat(ref))
+    assert all(torch.equal(a, b) for a, b in zip((pk, mk, vk), state))
+    if K > 53:
+        p2, m2, v2, l2 = fd.fused_dgm_chunk(spec, model, p[0], z, z, u[:53],
+                                            100, lr, **kw)
+        p2, m2, v2, l2b = fd.fused_dgm_chunk(spec, model, p2, m2, v2, u[53:],
+                                             153, lr, **kw)
+        assert torch.equal(torch.cat([l2, l2b]), lk)
+        assert torch.equal(p2, pk) and torch.equal(m2, mk)
+        assert torch.equal(v2, vk)
+
+
+@pytest.mark.parametrize("n_replicas", [1, 4, 16])
+def test_dgm_packed_graph_equals_single(cuda, n_replicas):
+    """FitzHugh–Nagumo × N over 53 steps (the packed graph at N): every
+    replica equals the single chunk on its state bit for bit."""
+    spec, model, p, u, lr, kw = _dgm_case(cuda, "fitzhugh_nagumo",
+                                          n_replicas, 53)
+    z = torch.zeros_like(p)
+    pk, mk, vk, lk = fd.fused_dgm_packed_chunk(spec, model, p, z, z, u, 100,
+                                               lr, n_replicas, **kw)
+    for r in range(n_replicas):
+        p1, m1, v1, l1 = fd.fused_dgm_chunk(spec, model, p[r].contiguous(),
+                                            z[r].clone(), z[r].clone(), u,
+                                            100, lr, **kw)
+        assert torch.equal(l1, lk[r]) and torch.equal(p1, pk[r])
+        assert torch.equal(m1, mk[r]) and torch.equal(v1, vk[r])
+
+
+def test_dgm_graph_is_captured_once_per_shape(cuda):
+    """Two calls in a row with fresh tensors replay one captured graph and
+    give the same result, which a graph captured anew (the cache cleared,
+    as in a fresh process) gives too; the step-math runs count every
+    step."""
+    spec, model, p, u, lr, kw = _dgm_case(cuda, "fitzhugh_nagumo", None, 60)
+    fd.clear_graphs()
+    builds = fd.graph_stats["builds"]
+    fd.fused_dgm_chunk.step_math_runs = 0
+    outs = []
+    for _ in range(2):
+        fresh = p[0].clone()
+        z = torch.zeros_like(fresh)
+        outs.append(fd.fused_dgm_chunk(spec, model, fresh, z, z.clone(),
+                                       u.clone(), 100, lr, **kw))
+    assert fd.graph_stats["builds"] == builds + 1
+    assert fd.fused_dgm_chunk.step_math_runs == 120
+    fd.clear_graphs()
+    z = torch.zeros_like(p[0])
+    outs.append(fd.fused_dgm_chunk(spec, model, p[0], z, z, u, 100, lr, **kw))
+    assert fd.graph_stats["builds"] == builds + 2
+    for out in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
