@@ -25,11 +25,13 @@ Phases (each raises on failure, so any failure exits non-zero):
               packed-replica kernel (#5) at the ensembles' shapes (wave
               N=8, FitzHugh–Nagumo N=16, Fredholm N=4), where every
               replica must also equal the single-replica chunk bit for bit.
-              The DGM chunks replay a captured CUDA graph of
-              fused_dgm.GRAPH_STEPS steps: its capture and instantiation
-              are timed apart from the chunks (the first call of a shape),
-              and a 1 000-step FitzHugh–Nagumo chunk, single and N=16, gives
-              the steady-state time per step.
+              The chunks of both engines replay a captured CUDA graph of
+              graphs.GRAPH_STEPS steps: its capture and instantiation are
+              timed apart from the chunks (the first call of a shape), and
+              1 000-step chunks (FitzHugh–Nagumo single and N=16, heat2d
+              single, wave N=8) give the steady-state time per step; a
+              heat2d chunk at hidden width 256 is held against its plain
+              version.
 4. solve    — each main path through ``solve(..., engine="fused")`` at its
               equation's reference defaults (seed 0): constant-lr heat on
               the heat kernel, heat with a cosine schedule and the six other
@@ -91,6 +93,10 @@ SOLVES = [("heat", None, 0.05), ("heat", "cosine", 0.05),
 ENSEMBLES = [("fitzhugh_nagumo", {"causal_eps": 0.0}, 0.0088),
              ("wave", {"ensemble": 8}, 0.05),
              ("fredholm", {"ensemble": 4}, 0.0134)]
+# A fused solve at hidden width 256, which the MLP engine's first design
+# refused for heat2d's 11 streams: (equation, model widths (D, O, H, L), MAE
+# bound as for the default width).
+WIDE_SOLVES = [("heat2d", (3, 1, 256, 3), 0.05)]
 # The scan trainer's solves: (equation, solve's extra arguments, MAE bound),
 # the bounds as for the fused solves.
 SCAN_SOLVES = [("heat", {"taps": "pallas"}, 0.05), ("heat", {}, 0.05),
@@ -498,7 +504,41 @@ def check_engine_kernels(name):
           f"({ms / CHUNK_STEPS * 1e3:.1f} us/step), plain {plain_ms:.4f} ms "
           f"({plain_ms / CHUNK_STEPS * 1e3:.1f} us/step); bound "
           f"{chunk_row['bound_ms']:.4f} ms ({chunk_row['bound_by']})")
+    if name == "heat2d":
+        steady_state(name, spec, model, p[None], B, 1, lr, kw)
+        check_wide_engine(name, spec, u, lr, kw)
     return grad_row, chunk_row
+
+
+def check_wide_engine(name, spec, u, lr, kw, hidden=256):
+    """A CHUNK_STEPS-step chunk of NAME at hidden width 256 (a width the
+    MLP engine's first design refused for heat2d's 11 streams) against its
+    plain version, tolerances as for the default width."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import generator
+    from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
+    from differential_equations_dnn_tpu_torch.kernels import fused_train as ft
+    from differential_equations_dnn_tpu_torch.models import MLP
+
+    model = MLP(spec.input_dim, 1, hidden, 3, "tanh", generator=generator(1),
+                device=u.device)
+    p = ft.pack_params(model)
+    z = torch.zeros_like(p)
+    pk, _, _, lk = fe.fused_engine_chunk(spec, model, p, z, z, u, STEP0, lr,
+                                         **kw)
+    pp, _, _, lp = fe.fused_engine_chunk_plain(spec, model, p, z, z, u,
+                                               STEP0, lr, **kw)
+    check_close(f"{name} H={hidden} chunk losses", lk, lp, rtol=1e-4,
+                atol=0.0)
+    check_close(f"{name} H={hidden} chunk params", pk, pp, rtol=1e-4,
+                atol=2 * lr)
+    ms = cuda_ms(lambda: fe.fused_engine_chunk(spec, model, p, z, z, u,
+                                               STEP0, lr, **kw))
+    print(f"{name} fused_engine_chunk at H={hidden} [K={CHUNK_STEPS}]: "
+          f"max|dloss| {max_abs(lk, lp):.3g}, max|dparam| "
+          f"{max_abs(pk, pp):.3g}; kernel {ms:.4f} ms "
+          f"({ms / CHUNK_STEPS * 1e3:.1f} us/step)")
 
 
 def check_dgm_kernels(name):
@@ -592,19 +632,24 @@ def check_dgm_kernels(name):
 
 def steady_state(name, spec, model, p, B, n_replicas, lr, kw):
     """Milliseconds of a STEADY_STEPS-step chunk (20 replays of the captured
-    graph) of N replicas, after a warm-up call, and the µs per step."""
+    graph) of N replicas on NAME's engine, after a warm-up call, and the µs
+    per step."""
     import torch
 
     from differential_equations_dnn_tpu_torch.core.prng import step_uniforms
     from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
+    from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
 
     u = step_uniforms(0, STEP0, STEADY_STEPS, B, p.device, spec.n_uniform)
     z = torch.zeros_like(p)
+    single, packed = ((fd.fused_dgm_chunk, fd.fused_dgm_packed_chunk)
+                      if name in DGM else
+                      (fe.fused_engine_chunk, fe.fused_engine_packed_chunk))
     if n_replicas == 1:
-        run = lambda: fd.fused_dgm_chunk(  # noqa: E731
+        run = lambda: single(  # noqa: E731
             spec, model, p[0], z[0], z[0], u, STEP0, lr, **kw)
     else:
-        run = lambda: fd.fused_dgm_packed_chunk(  # noqa: E731
+        run = lambda: packed(  # noqa: E731
             spec, model, p, z, z, u, STEP0, lr, n_replicas, **kw)
     ms = cuda_ms(run, reps=STEADY_REPS)
     print(f"{name} steady state [N={n_replicas}, K={STEADY_STEPS}]: "
@@ -709,7 +754,7 @@ def check_packed_kernels(name, n_replicas, loss_rtol):
           f"step, {step_us / N:.2f} us per replica-step), plain "
           f"{plain_ms:.4f} ms; bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']})")
-    if name == "fitzhugh_nagumo":
+    if name in ("fitzhugh_nagumo", "wave"):
         steady_state(name, spec, model, p, B, N, lr, kw)
     for r in range(N):
         drift = (lk[r] - lp[r]).abs()
@@ -746,17 +791,21 @@ def phase_kernels():
 
 
 def report_graphs():
-    """The DGM graphs captured so far: their capture and instantiation, in
-    host seconds, apart from the chunks' times (each chunk time above was
-    taken after a warm-up call, which captured its shape's graph)."""
-    from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
+    """The graphs both engines captured so far: their capture and
+    instantiation, in host seconds, apart from the chunks' times (each
+    chunk time above was taken after a warm-up call, which captured its
+    shape's graph)."""
+    from differential_equations_dnn_tpu_torch.kernels import graphs
 
-    secs = fd.graph_stats["build_seconds"]
-    if not secs:
-        raise AssertionError("no DGM chunk captured a CUDA graph")
-    print(f"DGM CUDA graphs of {fd.GRAPH_STEPS} steps: {len(secs)} captured "
-          f"and instantiated, " + ", ".join(f"{t:.4f}" for t in secs)
-          + " s each")
+    stats = graphs.graph_stats
+    for engine, what in (("engine", "MLP engine"), ("dgm", "DGM")):
+        secs = [t for t, e in zip(stats["build_seconds"], stats["engines"])
+                if e == engine]
+        if not secs:
+            raise AssertionError(f"no {what} chunk captured a CUDA graph")
+        print(f"{what} CUDA graphs of {graphs.GRAPH_STEPS} steps: "
+              f"{len(secs)} captured and instantiated, "
+              + ", ".join(f"{t:.4f}" for t in secs) + " s each")
 
 
 def wrappers():
@@ -794,6 +843,14 @@ def read_counts():
     return counts
 
 
+def short(value):
+    """A solve argument as a label shows it (a model by its widths)."""
+    if hasattr(value, "hidden_size"):
+        return (f"MLP({value.input_dim}, {value.output_dim}, "
+                f"{value.hidden_size}, {value.num_layers})")
+    return repr(value)
+
+
 def solve_once(name, schedule, mae_bound, engine="fused", **extra):
     """One main path through the entry point a user calls; returns the
     launches of each kernel in that run. ``extra`` (ensemble, causal_eps,
@@ -816,7 +873,7 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
     ensemble = extra.get("ensemble", ensemble)
     label = (f"solve({name!r}, engine={engine!r}, "
              f"schedule={schedule or d.schedule!r}"
-             + "".join(f", {k}={v!r}" for k, v in extra.items()) + ")")
+             + "".join(f", {k}={short(v)}" for k, v in extra.items()) + ")")
     rate = (f"{res.iters_per_sec:.1f} it/s warm ({ensemble} replicas: "
             f"{ensemble * res.iters_per_sec:.1f} replica-steps/s)"
             if ensemble > 1 else f"{res.iters_per_sec:.1f} it/s warm")
@@ -878,6 +935,13 @@ def phase_solve():
            for name, schedule, mae_bound in SOLVES}
     for name, extra, mae_bound in ENSEMBLES:
         out[(name, "ensemble")] = solve_once(name, None, mae_bound, **extra)
+    from differential_equations_dnn_tpu_torch.core.prng import generator
+    from differential_equations_dnn_tpu_torch.models import MLP
+
+    for name, (D, O, H, L), mae_bound in WIDE_SOLVES:
+        out[(name, "wide")] = solve_once(
+            name, None, mae_bound,
+            model=MLP(D, O, H, L, "tanh", generator=generator(0)))
     for name, extra, mae_bound in SCAN_SOLVES:
         out[(name, "scan", extra.get("taps"))] = solve_once(
             name, None, mae_bound, engine="scan", **extra)

@@ -2,9 +2,9 @@
 // engine_core.py::fused_adam_kernel, and its packed-replica twin #5,
 // fused_packed_adam_kernel): the learning rate of the step under its
 // schedule and Adam with torch defaults, per element (adam_step,
-// adam_apply). engine_train.cu (the MLP engine) applies them in
-// adam_kernel to the gradient summed from its per-stream partials in stream
-// order; dgm_train.cu (the DGM engine) in its weight-gradient epilogue.
+// adam_apply). Both engines apply them in the epilogue of the shared weight
+// gradient (fused_step.cuh), to the gradient summed over the streams in
+// stream order.
 //
 // The kernels sit in an unnamed namespace: each source that includes this
 // header compiles its own instance (the library is built without
@@ -33,16 +33,6 @@ struct Schedule {
   float log_decay;  // log(decay), rounded from double
 };
 
-// grad = the sum of the R per-stream partials, in stream order.
-__global__ void sum_partials_kernel(const float* __restrict__ partials, int R,
-                                    int n, float* __restrict__ grad) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float sum = partials[i];
-  for (int s = 1; s < R; ++s) sum += partials[static_cast<size_t>(s) * n + i];
-  grad[i] = sum;
-}
-
 // The scalars of Adam's step t (1-indexed): lr(t) under the schedule and
 // the two bias corrections.
 struct AdamStep {
@@ -62,39 +52,12 @@ __device__ __forceinline__ AdamStep adam_step(float lr, float t,
 }
 
 // Adam with torch defaults on one element's p, m, v (in registers), given
-// its gradient: the per-element update of adam_kernel, and of the DGM
-// engine's fused weight-gradient epilogue.
+// its gradient.
 __device__ __forceinline__ void adam_apply(float& p, float& m, float& v,
                                            float gi, const AdamStep& s) {
   m = kB1 * m + kOneMinusB1 * gi;
   v = kB2 * v + kOneMinusB2 * (gi * gi);
   p = p - s.lr_t * (m / s.c1) / (sqrtf(v / s.c2) + kEps);
-}
-
-// Adam with torch defaults on the summed partial gradients; t is the
-// 1-indexed global step, lr(t) the schedule's rate at that step. One launch
-// updates every replica: replica r = blockIdx.y owns p, m, v at r·n and its
-// R partials at r·part_stride (one replica: gridDim.y = 1). Each replica's
-// partials are summed in stream order, so a replica's update does not
-// depend on how many replicas share the launch.
-__global__ void adam_kernel(float* __restrict__ p, float* __restrict__ m,
-                            float* __restrict__ v,
-                            const float* __restrict__ partials, int R, int n,
-                            size_t part_stride, float lr, float t,
-                            Schedule sched) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t r = blockIdx.y;
-  partials += r * part_stride;
-  const AdamStep step = adam_step(lr, t, sched);
-  float gi = partials[i];
-  for (int s = 1; s < R; ++s) gi += partials[static_cast<size_t>(s) * n + i];
-  const size_t j = r * n + i;
-  float pj = p[j], mj = m[j], vj = v[j];
-  adam_apply(pj, mj, vj, gi, step);
-  m[j] = mj;
-  v[j] = vj;
-  p[j] = pj;
 }
 
 }  // namespace

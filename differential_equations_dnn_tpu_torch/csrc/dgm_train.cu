@@ -14,7 +14,9 @@
 // under the stream rules (act: v → σ(v), t → σ'(v)·t; product: v → a_v·b_v,
 // t → a_v·b_t + a_t·b_v; biases and the "1" of 1 − G on value rows only),
 // takes the spec's loss and its cotangent by hand, runs the hand backward
-// through the recurrence, and applies Adam (adam.cuh).
+// through the recurrence, and applies Adam (adam.cuh). The weight gradient,
+// the staging helpers, the argument block and the graph capture and replay
+// are shared with the MLP engine (fused_step.cuh).
 //
 // What bounds it on the H100: one FitzHugh–Nagumo step (R·B = 300 rows,
 // H = 128, L = 4) is about 0.5 GFLOP of fp32 products, 7 µs at the
@@ -92,56 +94,37 @@
 // s·B + b (fused_dgm.<Spec>.groups order: per group the value row, then its
 // first-order tangents). The input width D is 1 for both specs.
 #include <cmath>
-#include <type_traits>
 
-#include "adam.cuh"
 #include "common.cuh"
+#include "fused_step.cuh"
 
 namespace {
 
-using dednn::AdamStep;
+using dednn::aligned16;
+using dednn::blocks;
+using dednn::Consts;
+using dednn::cp_async16;
+using dednn::cp_async4;
+using dednn::cp_async_commit;
+using dednn::cp_async_wait;
+using dednn::kMaxConsts;
+using dednn::kSMs;
+using dednn::launch;
+using dednn::Layout;
+using dednn::load_frag;
 using dednn::Schedule;
+using dednn::StepArgs;
+using dednn::Streams;
+using dednn::weight_grad_kernel;
+using dednn::wg_smem_bytes;
+using dednn::write_args;
 
 constexpr int kMaxStreams = 32;  // bits of Layout::value_mask
-constexpr int kMaxConsts = 8;
-constexpr int kSMs = 132;        // H100 SXM: a launch of fewer blocks idles SMs
 constexpr int kEwThreads = 128;  // elementwise kernels
 constexpr int kLossThreads = 1024;
 constexpr int kOutThreads = 256;
 
 enum SpecId : int { kFitzHughNagumo = 0, kFredholm = 1 };
-
-// The spec's numbers (fused_dgm.<Spec>.kernel_consts).
-struct Consts {
-  float c[kMaxConsts];
-};
-
-// R stream rows per batch point; bit s of value_mask is set for a value
-// row, and the tangent rows of a group follow its value row.
-struct Layout {
-  int R, B;
-  unsigned value_mask;
-  __device__ bool is_value(int s) const { return (value_mask >> s) & 1u; }
-};
-
-// What a call changes, in device memory (one copy per call), so that a
-// captured step serves every call of its shape. Step j of a launch is the
-// call's step base + j.
-struct StepArgs {
-  float* p;            // [N, n] parameters
-  float* m;            // [N, n] Adam moments (training)
-  float* v;
-  const float* u;      // [K, B] uniforms (n_uniform = 1 for both specs)
-  float* losses;       // loss of replica r, call step k at r·ls + k
-  float* grad;         // dgm_grad: the [n] gradient
-  const float* cnst;   // Fredholm's [2(R−1), B] nodes and weights
-  long long ls;
-  int step0;           // absolute index of the call's first step
-  int base;            // the call's steps before this replay
-  float lr;
-  Schedule sched;
-  Consts c;
-};
 
 __device__ __forceinline__ size_t at(int s, int b, int B, int width,
                                      int col) {
@@ -186,30 +169,8 @@ __device__ float fredholm_input(int s, int b, const float* u,
 }
 
 // ---------------------------------------------------------------------------
-// Staging and register tiles
+// Staging
 // ---------------------------------------------------------------------------
-
-// One float from global to shared memory, asynchronously (cp.async); zeros
-// when !valid (src is then not read).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-// Four floats, 16-byte aligned at both ends (cp.async.cg: through L2 only);
-// zeros when !valid.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<size_t>(p) & 15u) == 0;
-}
 
 // Copies a rows × cols tile (cols a multiple of 4) from src (row stride
 // ld) into dst (row stride ld_dst, a multiple of 4), by all kThreads threads;
@@ -238,39 +199,6 @@ __device__ __forceinline__ void stage_tile(float* dst, int ld_dst,
       const int r = e / kCols, c = e - r * kCols;
       const bool valid = ok(r, c);
       cp_async4(dst + r * ld_dst + c, valid ? src + r * ld + c : src, valid);
-    }
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most kPending committed groups are still in flight.
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// dst = src[0..T) from shared memory, as float4 (or float2) reads.
-template <int T>
-__device__ __forceinline__ void load_frag(const float* src, float (&dst)[T]) {
-  if constexpr (T % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < T / 4; ++i) {
-      const float4 q = reinterpret_cast<const float4*>(src)[i];
-      dst[4 * i] = q.x;
-      dst[4 * i + 1] = q.y;
-      dst[4 * i + 2] = q.z;
-      dst[4 * i + 3] = q.w;
-    }
-  } else {
-    static_assert(T % 2 == 0, "fragments of 2, 4 or 8");
-#pragma unroll
-    for (int i = 0; i < T / 2; ++i) {
-      const float2 q = reinterpret_cast<const float2*>(src)[i];
-      dst[2 * i] = q.x;
-      dst[2 * i + 1] = q.y;
     }
   }
 }
@@ -726,248 +654,6 @@ __global__ void out_bwd_kernel(const float* __restrict__ G,
   ds[idx] = acc;
 }
 
-// The gradient of one layer over all R streams: dW[k, m] = Σ_r A[r, k]·
-// dz[r, m] (k < KA; W at w_off), the D = 1 input row dU[m] = Σ_r x[r]·
-// dz[r, m] (U at u_off, when x != nullptr) and db[m] = Σ dz[r, m] over the
-// value streams (b at b_off); an offset < 0 is an absent tensor.
-//
-// Block of kGroups groups of (BK/TK)·(BM/TM) threads owns a BK × BM tile of
-// (k, m), each thread TK × TM of it; in the blocks of the first k-tile,
-// thread t < BM of a group also keeps the bias chain of column t and thread
-// BM + t the x-row chain. The streams go kGroups at a time, one per group;
-// their rows come kRows at a time through a ring of kStages cp.async
-// buffers, kStages − 1 chunks in flight while one is summed. Each stream's
-// rows make one fmaf chain per output, in row order from 0; when a round of
-// streams ends, the groups' chains pass through shared memory and are added
-// to the tile's sums in stream order: sum = s_0, sum += s_1, ... The
-// epilogue then walks the tile's sums in memory order, kBatch elements per
-// thread at a time (all loads before any store). Rows are staged 16 bytes
-// per cp.async where the block's operands are aligned. kAdam: Adam on p, m,
-// v of the replica (blockIdx.z) at step step0 + base + j + 1; otherwise the
-// gradient to args->grad (one replica). Dynamic shared memory:
-// wg_smem_bytes<...>().
-template <int BK, int BM, int kRows, int kStages, int kGroups>
-constexpr size_t wg_smem_bytes() {
-  return sizeof(float) *
-         (static_cast<size_t>(kStages) * kGroups * kRows *
-              ((BK + 4) + (BM + 4) + 1) +
-          static_cast<size_t>(kGroups + 1) * (BK * BM + 2 * BM));
-}
-
-template <bool kAdam, int BK, int BM, int TK, int TM, int kRows, int kStages,
-          int kGroups>
-__global__ void __launch_bounds__(kGroups * (BK / TK) * (BM / TM))
-    weight_grad_kernel(const float* __restrict__ A, int KA,
-                       const float* __restrict__ x,
-                       const float* __restrict__ dz, int M, Layout lay,
-                       const StepArgs* __restrict__ args, int j,
-                       long long w_off, long long u_off, long long b_off,
-                       size_t ss, size_t ps) {
-  constexpr int kTile = (BK / TK) * (BM / TM);
-  constexpr int kThreads = kGroups * kTile;
-  constexpr int kColThreads = BM / TM;
-  constexpr int kOut = BK * BM + 2 * BM;  // the W tile, its bias, its x row
-  // Epilogue elements per thread and pass: all of them, up to 16.
-  constexpr int kBatch = (kOut + kThreads - 1) / kThreads < 16
-                             ? (kOut + kThreads - 1) / kThreads
-                             : 16;
-  static_assert(kTile >= 2 * BM, "a thread per bias and x-row column");
-  static_assert(kGroups * kRows <= kThreads, "a thread per row of x");
-  extern __shared__ __align__(16) float smem[];
-  using ATile = float[kGroups][kRows][BK + 4];
-  using DTile = float[kGroups][kRows][BM + 4];
-  using XTile = float[kGroups][kRows];
-  ATile* a_s = reinterpret_cast<ATile*>(smem);
-  DTile* d_s = reinterpret_cast<DTile*>(smem + kStages * sizeof(ATile) / 4);
-  XTile* x_s = reinterpret_cast<XTile*>(
-      smem + kStages * (sizeof(ATile) + sizeof(DTile)) / 4);
-  float* red_s = smem + kStages * (sizeof(ATile) + sizeof(DTile) +
-                                   sizeof(XTile)) / 4;  // [kGroups][kOut]
-  float* tot_s = red_s + kGroups * kOut;                 // [kOut]
-  const int tid = threadIdx.x;
-  const int g = tid / kTile, lt = tid - g * kTile;
-  const int tm = lt % kColThreads, tk = lt / kColThreads;
-  const int m0 = blockIdx.x * BM, k0 = blockIdx.y * BK;
-  const size_t so = blockIdx.z * ss;
-  A += so;
-  x = dednn::shift(x, so);
-  dz += so;
-  const bool first = blockIdx.y == 0;
-  const bool with_bias = first && b_off >= 0;
-  const bool with_x = first && x != nullptr && u_off >= 0;
-  const int col = lt % BM;  // of the bias or x-row chain
-  const bool do_bias = with_bias && lt < BM;
-  const bool do_x = with_x && lt >= BM && lt < 2 * BM;
-  const int B = lay.B, R = lay.R;
-  const int per_stream = (B + kRows - 1) / kRows;
-  const int n_steps = (R + kGroups - 1) / kGroups * per_stream;
-
-  const bool vec = KA % 4 == 0 && M % 4 == 0 && aligned16(A) && aligned16(dz);
-
-  // Step q: chunk q % per_stream of each group's stream in round
-  // q / per_stream, into its buffer: the rows of A and dz of every group
-  // spread over all threads, 16 bytes per cp.async where aligned (else 4);
-  // every call commits one group.
-  auto load = [&](int q) {
-    if (q < n_steps) {
-      const int buf = q % kStages;
-      const int rho = q / per_stream, c = q - rho * per_stream;
-      const int rows = min(kRows, B - c * kRows);
-      auto copy = [&](auto width) {
-        constexpr int w = decltype(width)::value;
-        constexpr int per_row = (BK + BM) / w;
-        constexpr int items = kGroups * kRows * per_row;
-#pragma unroll
-        for (int it = 0; it < (items + kThreads - 1) / kThreads; ++it) {
-          const int e = tid + it * kThreads;
-          if (items % kThreads != 0 && e >= items) break;
-          const int gr = e / per_row, i = (e - gr * per_row) * w;
-          const int gg = gr / kRows, rr = gr - gg * kRows;
-          const int s = rho * kGroups + gg;
-          const size_t r = static_cast<size_t>(s) * B + c * kRows + rr;
-          const bool row_ok = s < R && rr < rows;
-          if (i < BK) {
-            const bool ok = row_ok && k0 + i < KA;
-            float* dst = &a_s[buf][gg][rr][i];
-            const float* src = ok ? A + r * KA + k0 + i : A;
-            if (w == 4) cp_async16(dst, src, ok);
-            else cp_async4(dst, src, ok);
-          } else {
-            const int mq = i - BK;
-            const bool ok = row_ok && m0 + mq < M;
-            float* dst = &d_s[buf][gg][rr][mq];
-            const float* src = ok ? dz + r * M + m0 + mq : dz;
-            if (w == 4) cp_async16(dst, src, ok);
-            else cp_async4(dst, src, ok);
-          }
-        }
-      };
-      if (vec) copy(std::integral_constant<int, 4>{});
-      else copy(std::integral_constant<int, 1>{});
-      if (with_x && tid < kGroups * kRows) {
-        const int gg = tid / kRows, rr = tid - gg * kRows;
-        const int s = rho * kGroups + gg;
-        const bool ok = s < R && rr < rows;
-        cp_async4(&x_s[buf][gg][rr],
-                  ok ? x + static_cast<size_t>(s) * B + c * kRows + rr : x,
-                  ok);
-      }
-    }
-    cp_async_commit();
-  };
-
-  float acc[TK][TM] = {};
-  float chain = 0.0f;
-#pragma unroll
-  for (int q = 0; q < kStages - 1; ++q) load(q);
-  for (int q = 0; q < n_steps; ++q) {
-    cp_async_wait<kStages - 2>();  // step q has landed
-    __syncthreads();               // and every thread is done with q − 1
-    load(q + kStages - 1);         // into q − 1's buffers
-    const int buf = q % kStages;
-    const int rho = q / per_stream, c = q - rho * per_stream;
-    const int s = rho * kGroups + g;
-    if (s < R) {
-      const int rows = min(kRows, B - c * kRows);
-      const float* a_row = &a_s[buf][g][0][tk * TK];
-      const float* d_row = &d_s[buf][g][0][tm * TM];
-      const float* c_row = &d_s[buf][g][0][col];
-      const float* x_row = &x_s[buf][g][0];
-      // No branch in the row loop, so rows overlap: the bias chain is
-      // fmaf(1, dz, chain), which is chain + dz exactly.
-#pragma unroll 4
-      for (int rr = 0; rr < rows; ++rr) {
-        float af[TK], df[TM];
-        load_frag<TK>(a_row + rr * (BK + 4), af);
-        load_frag<TM>(d_row + rr * (BM + 4), df);
-        const float xr = do_x ? x_row[rr] : 1.0f;
-        const float cd = c_row[rr * (BM + 4)];
-#pragma unroll
-        for (int i = 0; i < TK; ++i)
-#pragma unroll
-          for (int jj = 0; jj < TM; ++jj)
-            acc[i][jj] = fmaf(af[i], df[jj], acc[i][jj]);
-        chain = fmaf(xr, cd, chain);
-      }
-    }
-    if (c == per_stream - 1) {  // the round's streams end
-      float* red = red_s + g * kOut;
-#pragma unroll
-      for (int i = 0; i < TK; ++i)
-#pragma unroll
-        for (int jj = 0; jj < TM; ++jj) {
-          red[(tk * TK + i) * BM + tm * TM + jj] = acc[i][jj];
-          acc[i][jj] = 0.0f;
-        }
-      if (do_bias)
-        red[BK * BM + col] = s < R && lay.is_value(s) ? chain : 0.0f;
-      if (do_x) red[BK * BM + BM + col] = chain;
-      chain = 0.0f;
-      __syncthreads();
-      for (int e = tid; e < kOut; e += kThreads) {
-        float t = rho == 0 ? red_s[e] : tot_s[e] + red_s[e];
-        for (int gg = 1; gg < kGroups && rho * kGroups + gg < R; ++gg)
-          t = t + red_s[gg * kOut + e];
-        tot_s[e] = t;
-      }
-    }
-  }
-  __syncthreads();
-
-  const size_t po = blockIdx.z * ps;
-  AdamStep step{};
-  if (kAdam)
-    step = dednn::adam_step(
-        args->lr,
-        static_cast<float>(args->step0 + args->base + j + 1), args->sched);
-  for (int e0 = tid; e0 < kOut; e0 += kBatch * kThreads) {
-    long long idx[kBatch];
-    float gv[kBatch];
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      const int e = e0 + b * kThreads;
-      idx[b] = -1;
-      gv[b] = 0.0f;
-      if (e >= kOut) continue;
-      gv[b] = tot_s[e];
-      if (e < BK * BM) {
-        const int k = k0 + e / BM, m = m0 + e % BM;
-        if (k < KA && m < M) idx[b] = w_off + static_cast<long long>(k) * M + m;
-      } else {
-        const bool bias_row = e < BK * BM + BM;
-        const int m = m0 + (bias_row ? e - BK * BM : e - BK * BM - BM);
-        if (m < M && (bias_row ? with_bias : with_x))
-          idx[b] = (bias_row ? b_off : u_off) + m;
-      }
-    }
-    if (kAdam) {
-      float* p = args->p + po;
-      float* mo = args->m + po;
-      float* vo = args->v + po;
-      float pv[kBatch], mv[kBatch], vv[kBatch];
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        if (idx[b] < 0) continue;
-        pv[b] = p[idx[b]];
-        mv[b] = mo[idx[b]];
-        vv[b] = vo[idx[b]];
-      }
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        if (idx[b] < 0) continue;
-        dednn::adam_apply(pv[b], mv[b], vv[b], gv[b], step);
-        mo[idx[b]] = mv[b];
-        vo[idx[b]] = vv[b];
-        p[idx[b]] = pv[b];
-      }
-    } else {
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b)
-        if (idx[b] >= 0) args->grad[idx[b]] = gv[b];
-    }
-  }
-}
-
 // Thread (b, j), the VJP of s' = om⊙H + Z⊙s (om = mask − G) at column j
 // (fused_dgm.py:265-272): d_om, dH, dZ and ds_prev by the product rule
 // (value: u_v·b_v + Σ u_t·b_t; tangent: u_t·b_v), dG = −d_om, and the
@@ -1107,12 +793,6 @@ __global__ void input_bwd_kernel(const float* __restrict__ ds,
   }
 }
 
-// The last node of a captured graph: the call's steps before the next
-// replay.
-__global__ void advance_kernel(StepArgs* args, int steps) {
-  args->base += steps;
-}
-
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
@@ -1153,21 +833,6 @@ bool valid(int spec, int R, int O, unsigned value_mask) {
     return R >= 2 && O == 1 &&
            value_mask == (R == 32 ? 0xffffffffu : (1u << R) - 1u);
   return false;
-}
-
-long long blocks(int rows, int cols, int tile_rows, int tile_cols, int reps) {
-  return static_cast<long long>(dednn::ceil_div(rows, tile_rows)) *
-         dednn::ceil_div(cols, tile_cols) * reps;
-}
-
-// A gemm_kernel or weight_grad_kernel instance: its tile and launch.
-template <class Kernel, class... Args>
-void launch(Kernel kernel, int threads, size_t smem, int tile_rows,
-            int tile_cols, int rows, int cols, int reps, cudaStream_t stream,
-            Args... args) {
-  const dim3 grid(dednn::ceil_div(cols, tile_cols),
-                  dednn::ceil_div(rows, tile_rows), reps);
-  kernel<<<grid, threads, smem, stream>>>(args...);
 }
 
 // C = A·W' (+ x·u, + bias on value rows, or addend +) for `reps` replicas.
@@ -1242,40 +907,6 @@ void weight_grad(const float* A, int KA, const float* x, const float* dz,
          kWg[c].tile_m, KA, M, reps, stream, A, KA, x, dz, M, lay, args, j,
          w_off, u_off, b_off, ss, ps);
 }
-
-// The streams of one step: the data path on `main`, the weight gradients
-// (with their Adam updates) on two side streams in turn, each forked once
-// its inputs are written and its weights' last read in the step is done,
-// all joined back into `main` at the end of the step. Sides equal to main
-// run everything in order. In a capture the forks and the joins become the
-// graph's branches.
-struct Streams {
-  cudaStream_t main, side[2];
-  cudaEvent_t fork, join;
-  int next = 0;  // the side of the next branch
-
-  // The stream of the next weight gradient, made to wait for main's work so
-  // far.
-  cudaError_t branch(cudaStream_t* out) {
-    const cudaStream_t s = side[next];
-    next ^= 1;
-    *out = s;
-    if (s == main) return cudaSuccess;
-    const cudaError_t err = cudaEventRecord(fork, main);
-    return err != cudaSuccess ? err : cudaStreamWaitEvent(s, fork, 0);
-  }
-  // main waits for both sides' work so far.
-  cudaError_t merge() {
-    next = 0;
-    for (const cudaStream_t s : side) {
-      if (s == main) continue;
-      cudaError_t err = cudaEventRecord(join, s);
-      if (err == cudaSuccess) err = cudaStreamWaitEvent(main, join, 0);
-      if (err != cudaSuccess) return err;
-    }
-    return cudaSuccess;
-  }
-};
 
 // Enqueue call step base + j of `reps` replicas: the forward, the loss into
 // its slot, and the backward, each layer's weights updated by Adam after
@@ -1382,23 +1013,6 @@ cudaError_t enqueue_step(int spec, const StepArgs* args, int j,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The events of a step's forks and joins (none when the sides are main).
-cudaError_t make_streams(cudaStream_t main, cudaStream_t side0,
-                         cudaStream_t side1, Streams* st) {
-  *st = Streams{main, {side0, side1}, nullptr, nullptr};
-  if (side0 == main && side1 == main) return cudaSuccess;
-  cudaError_t err = cudaEventCreateWithFlags(&st->fork,
-                                             cudaEventDisableTiming);
-  if (err == cudaSuccess)
-    err = cudaEventCreateWithFlags(&st->join, cudaEventDisableTiming);
-  return err;
-}
-
-void free_streams(const Streams& st) {
-  if (st.fork != nullptr) cudaEventDestroy(st.fork);
-  if (st.join != nullptr) cudaEventDestroy(st.join);
-}
-
 StepArgs host_args(const float* consts, const float* cnst, float* p,
                    float* m, float* v, const float* u, float* losses,
                    long long ls, float* grad) {
@@ -1413,12 +1027,6 @@ StepArgs host_args(const float* consts, const float* cnst, float* p,
   a.cnst = cnst;
   for (int i = 0; i < kMaxConsts; ++i) a.c.c[i] = consts[i];
   return a;
-}
-
-cudaError_t write_args(StepArgs* dst, const StepArgs& a,
-                       cudaStream_t stream) {
-  return cudaMemcpyAsync(dst, &a, sizeof(StepArgs), cudaMemcpyHostToDevice,
-                         stream);
 }
 
 }  // namespace
@@ -1458,13 +1066,11 @@ extern "C" int dgm_grad(int spec, const float* consts, const float* cnst,
                              one);
 }
 
-// Capture S training steps of N packed replicas, and the advance of the
-// argument block's base, as one CUDA graph (on streams of its own: the data
-// path and the weight gradients' two branches), and instantiate it into
-// *exec.
-// The graph holds the scratch and argument-block pointers and the shape: it
-// serves every call of that shape whose per-call values come through args
-// (dgm_train_packed writes them).
+// Capture S training steps of N packed replicas as one CUDA graph
+// (dednn::capture_steps) and instantiate it into *exec. The graph holds the
+// scratch and argument-block pointers and the shape: it serves every call
+// of that shape whose per-call values come through args (dgm_train_packed
+// writes them).
 extern "C" int dgm_graph_build(int spec, int R, int B, int H, int L, int O,
                                int act, unsigned value_mask, int N, int S,
                                void* args, float* scratch, void** exec) {
@@ -1472,47 +1078,18 @@ extern "C" int dgm_graph_build(int spec, int R, int B, int H, int L, int O,
   if (!valid(spec, R, O, value_mask) || S < 1) return cudaErrorInvalidValue;
   const Layout lay{R, B, value_mask};
   StepArgs* dev = static_cast<StepArgs*>(args);
-  cudaError_t err = prepare();
+  const cudaError_t err = prepare();
   if (err != cudaSuccess) return err;
-  cudaStream_t cs = nullptr, side[2] = {nullptr, nullptr};
-  Streams st{};
-  err = cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
-  for (cudaStream_t& s : side)
-    if (err == cudaSuccess)
-      err = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
-  if (err == cudaSuccess) err = make_streams(cs, side[0], side[1], &st);
-  if (err == cudaSuccess)
-    err = cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
-  if (err == cudaSuccess) {
-    for (int j = 0; j < S && err == cudaSuccess; ++j)
-      err = enqueue_step<true>(spec, dev, j, scratch, N, lay, H, L, O, act,
-                               st);
-    if (err == cudaSuccess) {
-      advance_kernel<<<1, 1, 0, cs>>>(dev, S);
-      err = cudaGetLastError();
-    }
-    cudaGraph_t graph = nullptr;
-    const cudaError_t end = cudaStreamEndCapture(cs, &graph);
-    if (err == cudaSuccess) err = end;
-    if (err == cudaSuccess) {
-      cudaGraphExec_t ge = nullptr;
-      err = cudaGraphInstantiateWithFlags(&ge, graph, 0);
-      if (err == cudaSuccess) *exec = ge;
-    }
-    if (graph != nullptr) cudaGraphDestroy(graph);
-  }
-  free_streams(st);
-  for (cudaStream_t s : side)
-    if (s != nullptr) cudaStreamDestroy(s);
-  if (cs != nullptr) cudaStreamDestroy(cs);
-  return err;
+  return dednn::capture_steps(
+      dev, S,
+      [&](int j, Streams& st) {
+        return enqueue_step<true>(spec, dev, j, scratch, N, lay, H, L, O, act,
+                                  st);
+      },
+      exec);
 }
 
-extern "C" int dgm_graph_free(void* exec) {
-  return exec == nullptr
-             ? cudaSuccess
-             : cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec));
-}
+extern "C" int dgm_graph_free(void* exec) { return dednn::free_graph(exec); }
 
 // K Adam steps of N packed replicas (kernel #5 around #7): p, m, v [N, n]
 // updated in place, losses [N, K]; the uniforms [K, B], the layout, the
@@ -1547,23 +1124,14 @@ extern "C" int dgm_train_packed(int spec, const float* consts,
   cudaError_t err = prepare();
   if (err == cudaSuccess) err = write_args(dev, a, st);
   if (err != cudaSuccess) return err;
-  const int replays = exec == nullptr ? 0 : K / S;
-  for (int i = 0; i < replays; ++i) {
-    err = cudaGraphLaunch(static_cast<cudaGraphExec_t>(exec), st);
-    if (err != cudaSuccess) return err;
-    *step_math_runs += S * N;
-  }
-  if (K == replays * S) return cudaGetLastError();
-  Streams two{};
-  err = make_streams(st, static_cast<cudaStream_t>(side0),
-                     static_cast<cudaStream_t>(side1), &two);
-  for (int j = 0; j < K - replays * S && err == cudaSuccess; ++j) {
-    err = enqueue_step<true>(spec, dev, j, scratch, N, lay, H, L, O, act,
-                             two);
-    if (err == cudaSuccess) *step_math_runs += N;
-  }
-  free_streams(two);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return dednn::run_steps(
+      exec, S, K, N, st, static_cast<cudaStream_t>(side0),
+      static_cast<cudaStream_t>(side1),
+      [&](int j, Streams& two) {
+        return enqueue_step<true>(spec, dev, j, scratch, N, lay, H, L, O, act,
+                                  two);
+      },
+      step_math_runs);
 }
 
 // The forward product of the training step at [rows, K]·[K, M] (trans = 0)

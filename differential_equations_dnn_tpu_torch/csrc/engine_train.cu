@@ -12,26 +12,57 @@
 // What bounds it on the H100: one step is 6·R·B·L·H² fp32 operations or so
 // (heat2d, the widest: R = 11 streams, B = 256, H = 128, L = 3: about 0.8
 // GFLOP, 12 µs at the 67 TFLOP/s fp32 peak) spread over a dozen dependent
-// phases with a few thousand to a few tens of thousands of outputs each.
-// As for csrc/heat_train.cu, the latency of each phase and of the launches
-// between them, not the fp32 pipes or HBM, is the limit.
+// phases of a few thousand to a few tens of thousands of outputs each.
+// Each phase's latency, how well its blocks fill the 132 SMs, and the gaps
+// between launches are the limit, not the fp32 pipes or HBM.
 //
-// What the design does about it: the launch sequence of heat_train.cu,
-// generalised from heat's 7 hard-wired streams and D = 2 to a stream layout
-// given at compile time by the spec (a template over the spec struct; one
-// instantiation each for R = 3, 5, 7, 9, 11):
-//   fwd_layer  x (L+1)  R-stream stacked Taylor forward; the first layer
-//                       builds the spec's input rows from the uniforms
-//   loss       x 1      output layer, the spec's point loss and its
-//                       cotangent written out by hand, loss[k], G [R·B]
-//   bwd_weight x (L+2)  dW = act(z)^T dz and db, one partial per stream
-//   bwd_data   x (L+1)  g = dz W^T, then the group-generic Taylor VJP
-//   adam       x 1      sums the R partials in stream order, lr(t), Adam
-//                       (adam.cuh, shared with dgm_train.cu)
-// p, m and v are each one flat fp32 buffer (L2-resident at these sizes).
-// Every reduction runs in a fixed order with no atomics, so runs are
-// bit-identical and a run cut into chunks equals the uncut run. Every
-// product is fp32 FFMA: exact fp32 ("highest"), no tensor cores.
+// What the design does about it (the DGM engine's, csrc/dgm_train.cu, whose
+// shared pieces are in fused_step.cuh):
+//   * The products are register-blocked fp32 FFMA (TM × TN outputs per
+//     thread) over a tile of batch points × all R streams × a column tile,
+//     so the tile holds every stream of its batch points: the Taylor rules
+//     of tanh (forward) and their VJP (backward) run on it in the same
+//     kernel, one thread per (batch point, column) reading its R streams'
+//     sums from shared memory. k-tiles of the operand rows and of the
+//     weight are staged by cp.async (16 bytes per copy where the block's
+//     operands are aligned) into a ring of buffers: shared memory per block
+//     depends on the tile and R, not on H.
+//   * The loss kernel spreads the output layer's dot products, the spec's
+//     point loss and the output layer's data gradient over the batch, one
+//     warp per batch point; a one-warp kernel on a side branch sums the
+//     point losses.
+//   * weight_grad_kernel (fused_step.cuh) sums all R streams of its tile in
+//     one block, one thread group per stream, and applies Adam in its
+//     epilogue, so no per-stream partials are written. The weight gradients
+//     run side by side on three lanes (two side streams and the data path's
+//     own) once every layer's data gradient has read its weight.
+//   * dednn::capture_steps records GRAPH_STEPS steps as one CUDA graph that
+//     engine_train_packed replays; per-call values (p, m, v, the uniforms,
+//     the losses, lr, the schedule) come from a device argument block
+//     written by one copy per call. The spec's numbers are kernel arguments,
+//     as in the first design (the wrapper keys its graphs by them).
+//
+// One step's launches (L hidden layers):
+//   input      x 1      the spec's rows X from the uniforms (one thread per
+//                       batch point), the first layer and its Taylor rules
+//   layer      x L      hidden layers forward: z = a·W + mask·b, tanh rules
+//   loss       x 1      output layer, the spec's loss and cotangent G, the
+//                       point losses, and the output layer's data gradient
+//                       through the tanh VJP at layer L
+//   layer      x L      hidden layers backward: g = dz·Wᵀ, the tanh VJP
+//   loss_sum   x 1      loss = the point losses' batch mean (a side lane)
+//   weight     x L + 2  dW = Aᵀ·dz and db over all streams; Adam in training
+//                       (three lanes)
+// Every reduction runs in the order of the engine's first design: each
+// product output is the sum, in slice order, of 8 k-slices of ⌈K/8⌉, each
+// an fmaf chain from 0 (a tile folds its running sum at each slice
+// boundary), then the bias; each loss dot product lane-strided fmaf chains
+// and a butterfly shuffle; the batch loss warp w's rows w, w + 32, ... in
+// row order, then the warps in order; each weight gradient the sum in
+// stream order of per-stream fmaf chains over the stream's B rows in
+// order. So runs are bit-identical, a chunk cut anywhere equals the uncut
+// run, and the outputs equal the first design's. Every product is fp32 FFMA:
+// exact fp32 ("highest"), no tensor cores.
 //
 // Packed replicas (kernel #5, engine_core.py::fused_packed_adam_kernel,
 // reached through run_fused_packed): engine_train_packed advances N
@@ -39,8 +70,7 @@
 // v are [N, n] replica-major, each replica has its own scratch (stride
 // scratch_floats), and the loss history is [N, K]. A step is the same
 // launch sequence as one run's, each launch with N times the blocks: the
-// replica is the grid's z index (fwd_layer, bwd_data), part of it
-// (bwd_weight: z = r·R + stream), x (loss) or y (adam). Every kernel moves
+// replica is the grid's z index (y for the loss kernels). Every kernel moves
 // its pointers to its replica's copy and then runs the single-replica code,
 // so replica r of a packed call equals a one-replica call on r's state bit
 // for bit. A single run (fused_engine_chunk) is the packed call at N = 1.
@@ -51,27 +81,32 @@
 #include <algorithm>
 #include <cmath>
 
-#include "adam.cuh"
 #include "common.cuh"
+#include "fused_step.cuh"
 
 namespace {
 
-using dednn::adam_kernel;
+using dednn::blocks;
+using dednn::Consts;
+using dednn::cp_async16;
+using dednn::cp_async4;
+using dednn::cp_async_commit;
+using dednn::cp_async_wait;
+using dednn::kMaxConsts;
+using dednn::kSMs;
+using dednn::launch;
+using dednn::Layout;
+using dednn::load_frag;
 using dednn::Schedule;
-using dednn::sum_partials_kernel;
+using dednn::StepArgs;
+using dednn::Streams;
+using dednn::write_args;
 
-constexpr int kTile = 32;          // bwd_weight: 32 x 32 outputs per block
-constexpr int kSplitWarps = 8;     // fwd_layer, bwd_data: warps per block
-constexpr int kColsPerLane = 4;
-constexpr int kColsPerWarp = 32 * kColsPerLane;
-constexpr int kLossThreads = 1024;
-constexpr int kAdamThreads = 256;
-constexpr int kMaxConsts = 8;
-
-// The spec's numbers (fused_engine.<Spec>.kernel_consts), passed by value.
-struct Consts {
-  float c[kMaxConsts];
-};
+constexpr int kSlices = 8;      // k-slices of every product, summed in order
+constexpr int kInputBB = 4;     // input kernel: batch points per block
+constexpr int kInputBN = 32;    //   and columns
+constexpr int kLossWarps = 4;   // loss kernel: batch points (warps) per block
+constexpr int kLossLanes = 32;  // the batch loss: 32 lane sums in order
 
 // ---------------------------------------------------------------------------
 // Stream layouts
@@ -347,503 +382,713 @@ struct Heat2D {
 };
 
 // ---------------------------------------------------------------------------
-// Kernels
+// The Taylor rules of tanh and their VJP, on one (batch point, column)
 // ---------------------------------------------------------------------------
 
-// z = in @ w + mask * b for the R streams of batch row blockIdx.x, then the
-// Taylor rules of tanh (fused_engine._act_fwd), for the kColsPerWarp columns
-// of blockIdx.y. Block (32, kSplitWarps): warp y sums its own slice of the
-// k range into an R x kColsPerLane register tile; the slices' partial sums
-// are added in warp order through shared memory. For the first layer
-// (u != nullptr) the spec builds the row's R input rows from its uniforms,
-// which are also written to x_out. Replica blockIdx.z: its activations at
-// z·ss (scratch stride), its weights at z·ps.
+// a = the stream activations of the pre-activations zc (value rows: tanh;
+// pair seconds: d·z2 − 2·a0·d·z1²; other tangents: d·z), as
+// fused_engine._act_fwd.
 template <class S>
-__global__ void fwd_layer_kernel(const float* __restrict__ in, int k_in,
-                                 const float* __restrict__ u, Consts c,
-                                 float* __restrict__ x_out,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ b, int k_out, int B,
-                                 float* __restrict__ z_out,
-                                 float* __restrict__ a_out, size_t ss,
-                                 size_t ps) {
+__device__ __forceinline__ void act_fwd(const float (&zc)[S::R],
+                                        float (&a)[S::R]) {
   constexpr int R = S::R;
-  extern __shared__ float smem[];
-  const size_t so = blockIdx.z * ss, po = blockIdx.z * ps;
-  in = dednn::shift(in, so);
-  x_out = dednn::shift(x_out, so);
-  w += po;
-  b += po;
-  z_out += so;
-  a_out += so;
-  float* in_s = smem;                // [R][k_in]
-  float* part_s = smem + R * k_in;   // [kSplitWarps][R][kColsPerWarp]
-  const int lane = threadIdx.x, warp = threadIdx.y;
-  const int tid = warp * 32 + lane;
-  const int row = blockIdx.x;
-  const int j0 = blockIdx.y * kColsPerWarp;
-  if (u != nullptr) {  // k_in == S::D
-    if (tid == 0) {
-      float X[R * S::D];
-      S::build(u + static_cast<size_t>(row) * S::U, c, X);
-      for (int i = 0; i < R * S::D; ++i) in_s[i] = X[i];
-      if (blockIdx.y == 0) {
-        for (int s = 0; s < R; ++s)
-          for (int d = 0; d < S::D; ++d)
-            x_out[static_cast<size_t>(s * B + row) * S::D + d] = X[s * S::D + d];
-      }
-    }
-  } else {
-    for (int i = tid; i < R * k_in; i += 32 * kSplitWarps) {
-      const int s = i / k_in, k = i - s * k_in;
-      in_s[i] = in[static_cast<size_t>(s * B + row) * k_in + k];
-    }
-  }
-  __syncthreads();
-
-  const int k_per_warp = (k_in + kSplitWarps - 1) / kSplitWarps;
-  const int k_begin = warp * k_per_warp;
-  const int k_end = min(k_in, k_begin + k_per_warp);
-  int col[kColsPerLane];
+  float a0[R], d[R];
 #pragma unroll
-  for (int cc = 0; cc < kColsPerLane; ++cc)
-    col[cc] = min(j0 + lane + 32 * cc, k_out - 1);
-  float z[R][kColsPerLane] = {};
-#pragma unroll 4
-  for (int k = k_begin; k < k_end; ++k) {
-    float wk[kColsPerLane];
-#pragma unroll
-    for (int cc = 0; cc < kColsPerLane; ++cc)
-      wk[cc] = w[static_cast<size_t>(k) * k_out + col[cc]];
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-      const float x = in_s[s * k_in + k];
-#pragma unroll
-      for (int cc = 0; cc < kColsPerLane; ++cc)
-        z[s][cc] = fmaf(x, wk[cc], z[s][cc]);
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < R; ++s)
-#pragma unroll
-    for (int cc = 0; cc < kColsPerLane; ++cc)
-      part_s[(warp * R + s) * kColsPerWarp + lane + 32 * cc] = z[s][cc];
-  __syncthreads();
-
-  for (int jj = tid; jj < kColsPerWarp; jj += 32 * kSplitWarps) {
-    const int j = j0 + jj;
-    if (j >= k_out) break;
-    const float bj = b[j];
-    float zc[R], a[R], a0[R], d[R];
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-      float sum = part_s[s * kColsPerWarp + jj];
-      for (int p = 1; p < kSplitWarps; ++p)
-        sum += part_s[(p * R + s) * kColsPerWarp + jj];
-      zc[s] = kind_of<S>(s) == kValue ? sum + bj : sum;
-    }
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-      const int v = value_of<S>(s);
-      const unsigned kind = kind_of<S>(s);
-      if (kind == kValue) {
-        a0[s] = tanhf(zc[s]);
-        d[s] = 1.0f - a0[s] * a0[s];
-        a[s] = a0[s];
-      } else if (kind == kPairSecond) {
-        const float z1 = zc[s > 0 ? s - 1 : 0];
-        a[s] = d[v] * zc[s] - 2.0f * a0[v] * d[v] * (z1 * z1);
-      } else {
-        a[s] = d[v] * zc[s];
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-      const size_t at = static_cast<size_t>(s * B + row) * k_out + j;
-      z_out[at] = zc[s];
-      a_out[at] = a[s];
+  for (int s = 0; s < R; ++s) {
+    const int v = value_of<S>(s);
+    const unsigned kind = kind_of<S>(s);
+    if (kind == kValue) {
+      a0[s] = tanhf(zc[s]);
+      d[s] = 1.0f - a0[s] * a0[s];
+      a[s] = a0[s];
+    } else if (kind == kPairSecond) {
+      const float z1 = zc[s > 0 ? s - 1 : 0];
+      a[s] = d[v] * zc[s] - 2.0f * a0[v] * d[v] * (z1 * z1);
+    } else {
+      a[s] = d[v] * zc[s];
     }
   }
 }
 
-// The output layer (O = 1), the spec's point loss, loss = the batch mean,
-// and the output gradient G [R·B] = (1/B) d(point loss)/d(out). One block
-// per replica (blockIdx.x; its loss at x·ls); warp w takes batch rows w,
-// w + 32, ... and reduces each dot product with a butterfly shuffle (fixed
-// order).
+// dzs = the VJP of act_fwd at the previous layer (fused_engine._act_bwd),
+// given g = the gradient w.r.t. the activations and, per stream, prev =
+// the activation of a value row (a0 = tanh(z0)) or the pre-activation of a
+// tangent row. Per group, with d = 1 − a0², d' = −2·a0·d:
+//   dz0 = d·g0 + d'·Σ(z_t·g_t over the tangents)
+//              − Σ over pairs of 2·z1²·d·(d − 2·a0²)·g2
+//   dz1 = d·g1 − 4·a0·d·z1·g2 (pair firsts),  dz2 = d·g2 (pair seconds),
+//   dzf = d·gf (first-only tangents).
 template <class S>
-__global__ void loss_kernel(const float* __restrict__ a, int h,
-                            const float* __restrict__ w_out,
-                            const float* __restrict__ b_out,
-                            const float* __restrict__ u, Consts c, int B,
-                            float* __restrict__ loss, float* __restrict__ G,
-                            size_t ss, size_t ps, size_t ls) {
+__device__ __forceinline__ void act_bwd(const float (&gs)[S::R],
+                                        const float (&prev)[S::R],
+                                        float (&dzs)[S::R]) {
   constexpr int R = S::R;
-  __shared__ float partial[kLossThreads / 32];
-  const size_t so = blockIdx.x * ss, po = blockIdx.x * ps;
+  float a0[R], d[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int v = value_of<S>(s);
+    const unsigned kind = kind_of<S>(s);
+    if (kind == kValue) {
+      a0[s] = prev[s];
+      d[s] = 1.0f - a0[s] * a0[s];
+      dzs[s] = d[s] * gs[s];
+    } else if (kind == kPairSecond) {  // closes the pair (s - 1, s)
+      const int f = s > 0 ? s - 1 : 0;
+      const float z1 = prev[f];
+      const float z2 = prev[s];
+      const float dp = -2.0f * a0[v] * d[v];
+      dzs[v] = dzs[v] + dp * (z1 * gs[f] + z2 * gs[s]) -
+               2.0f * (z1 * z1) * d[v] * (d[v] - 2.0f * a0[v] * a0[v]) *
+                   gs[s];
+      dzs[f] = d[v] * gs[f] - 4.0f * a0[v] * d[v] * z1 * gs[s];
+      dzs[s] = d[v] * gs[s];
+    } else if (kind == kFirst) {
+      const float zf = prev[s];
+      const float dp = -2.0f * a0[v] * d[v];
+      dzs[v] = dzs[v] + dp * (zf * gs[s]);
+      dzs[s] = d[v] * gs[s];
+    }
+  }
+}
+
+// x, hidden from the optimizer: the Taylor rules see a value of unknown
+// origin, as the first design's did (each read from memory), so their
+// products fuse into FMAs the same way.
+__device__ __forceinline__ float opaque(float x) {
+  asm volatile("" : "+f"(x));
+  return x;
+}
+
+// What act_bwd reads of stream s at flat index i of the previous layer:
+// the activation of a value row, the pre-activation of a tangent row.
+template <class S>
+__device__ __forceinline__ float bwd_operand(int s, const float* z,
+                                             const float* a, size_t i) {
+  return kind_of<S>(s) == kValue ? a[i] : z[i];
+}
+
+// ---------------------------------------------------------------------------
+// Kernels
+// ---------------------------------------------------------------------------
+
+// The first layer, for step base + j: one thread per batch point builds its
+// R input rows from the uniforms (S::build; written to X by the blocks of
+// the first column tile), then thread (b, m) takes z = X·w_in + mask·b_in
+// for the R streams at column m (the 8-slice sum of the first design: slice
+// d < D is the one product x_d·w_dm) and the tanh rules. Block of kInputBB
+// batch points × kInputBN columns; replica blockIdx.z: weights at z·ps,
+// outputs at z·ss.
+template <class S>
+__global__ void __launch_bounds__(kInputBB* kInputBN)
+    input_kernel(const StepArgs* __restrict__ args, int j, Consts c,
+                 long long b_off, int H, int B, float* __restrict__ X,
+                 float* __restrict__ Z, float* __restrict__ A, size_t ss,
+                 size_t ps) {
+  constexpr int R = S::R, D = S::D;
+  __shared__ float x_s[kInputBB][R * D];
+  const size_t so = blockIdx.z * ss;
+  const float* w_in = args->p + blockIdx.z * ps;  // at offset 0
+  const float* b_in = w_in + b_off;
+  X += so;
+  Z += so;
+  A += so;
+  const int b0 = blockIdx.y * kInputBB;
+  const int tid = threadIdx.x;
+  if (tid < kInputBB && b0 + tid < B) {
+    const int b = b0 + tid;
+    const float* u =
+        args->u + (static_cast<size_t>(args->base + j) * B + b) * S::U;
+    float rows[R * D];
+    S::build(u, c, rows);
+#pragma unroll
+    for (int i = 0; i < R * D; ++i) x_s[tid][i] = rows[i];
+    if (blockIdx.x == 0) {
+#pragma unroll
+      for (int s = 0; s < R; ++s)
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          X[static_cast<size_t>(s * B + b) * D + d] = rows[s * D + d];
+    }
+  }
+  __syncthreads();
+  const int bl = tid / kInputBN, m = blockIdx.x * kInputBN + tid % kInputBN;
+  const int b = b0 + bl;
+  if (b >= B || m >= H) return;
+  float w[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) w[d] = w_in[static_cast<size_t>(d) * H + m];
+  const float bm = b_in[m];
+  float zc[R], a[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    float sum = fmaf(x_s[bl][s * D], w[0], 0.0f);
+#pragma unroll
+    for (int d = 1; d < D; ++d)
+      sum = sum + fmaf(x_s[bl][s * D + d], w[d], 0.0f);
+    if (D < kSlices) sum = sum + 0.0f;  // the empty slices D .. 7
+    zc[s] = kind_of<S>(s) == kValue ? sum + bm : sum;
+  }
+  act_fwd<S>(zc, a);
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const size_t at = static_cast<size_t>(s * B + b) * H + m;
+    Z[at] = zc[s];
+    A[at] = a[s];
+  }
+}
+
+// Shared memory of a layer_kernel instance: kStages k-tiles of the R·BB
+// operand rows and of the weight, and the tile's running sums.
+template <int R, int BB, int BN, int BK, int kStages>
+constexpr size_t layer_smem_bytes() {
+  return sizeof(float) *
+         (static_cast<size_t>(kStages) *
+              (static_cast<size_t>(R) * BB * (BK + 4) +
+               std::max(BK * (BN + 4), BN * (BK + 4))) +
+          static_cast<size_t>(R) * BB * (BN + 4));
+}
+
+// One hidden layer over a tile of BB batch points × all R streams × BN
+// columns, for step j's launch (the weight at w_off, the bias at b_off in
+// the replica's parameters, read through args).
+//   Forward (!kBwd): in [R·B, K] activations, W [K, M]; out = in·W, plus
+//     the bias on value rows, then the tanh rules: z_out = Z, a_out = A.
+//   Backward (kBwd): in = dz [R·B, K] of this layer, W [M, K] (the layer's
+//     [k_in, k_out] weight: the product is dz·Wᵀ over j < K); then the VJP
+//     at the previous layer (z_prev, a_prev [R·B, M]): a_out = its dz.
+// The tile's R·BB rows are row s·BB + bl for stream s, batch point b0 + bl.
+// Thread (ty, tx) owns TM of them at TN columns (adjacent ones; for Wᵀ
+// every BN/TN-th, so that its rows of the staged weight fall in distinct
+// banks). The reduction runs over 8 slices of kps = ⌈K/8⌉, each padded
+// with zeros to a multiple of 4, in k-tiles of BK staged by cp.async into a
+// ring of kStages buffers; each output's chain restarts from 0 at a slice
+// and is added to its running sum when the slice ends (sum = slice 0, then
+// sum + slice s), as the first design's slice order. The sums then go through
+// shared memory to the epilogue, where thread (bl, column) reads the R
+// streams of its batch point and applies the Taylor rules. Replica
+// blockIdx.z: activations at z·ss, weights at z·ps.
+template <class S, bool kBwd, int BB, int BN, int TM, int TN, int BK,
+          int kStages>
+__global__ void __launch_bounds__((S::R * BB / TM) * (BN / TN))
+    layer_kernel(const float* __restrict__ in,
+                 const StepArgs* __restrict__ args, long long w_off,
+                 long long b_off, int K, int M, int B,
+                 const float* __restrict__ z_prev,
+                 const float* __restrict__ a_prev, float* __restrict__ z_out,
+                 float* __restrict__ a_out, size_t ss, size_t ps) {
+  constexpr int R = S::R;
+  constexpr int kRowsA = R * BB;
+  constexpr int kColThreads = BN / TN;
+  constexpr int kThreads = (kRowsA / TM) * kColThreads;
+  constexpr int kWRows = kBwd ? BN : BK, kWCols = kBwd ? BK : BN;
+  constexpr int kLdC = BN + 4;
+  static_assert(kRowsA % TM == 0, "whole thread rows");
+  static_assert(BK % 4 == 0 && BN % 4 == 0 && TN % 2 == 0, "float4 tiles");
+  extern __shared__ __align__(16) float smem[];
+  using ATile = float[kRowsA][BK + 4];
+  using WTile = float[kWRows][kWCols + 4];
+  ATile* a_s = reinterpret_cast<ATile*>(smem);
+  WTile* w_s = reinterpret_cast<WTile*>(smem + kStages * sizeof(ATile) / 4);
+  float* c_s = smem + kStages * (sizeof(ATile) + sizeof(WTile)) / 4;
+  const size_t so = blockIdx.z * ss;
+  const float* P = args->p + blockIdx.z * ps;
+  const float* W = P + w_off;
+  in += so;
+  if (kBwd) {
+    z_prev += so;
+    a_prev += so;
+  } else {
+    z_out += so;
+  }
+  a_out += so;
+  const int tid = threadIdx.x;
+  const int tx = tid % kColThreads, ty = tid / kColThreads;
+  const int m0 = blockIdx.x * BN, b0 = blockIdx.y * BB;
+  // The reduction's padded index kp: slice kp / kpp at k = slice·kps + kp
+  // mod kpp, zero past the slice's kps (or K); kpp, a multiple of 4, puts
+  // every slice boundary at the start of a 4-wide step.
+  const int kps = (K + kSlices - 1) / kSlices;
+  const int kpp = (kps + 3) / 4 * 4;
+  const int kp_end = kSlices * kpp;
+  const int tiles = (kp_end + BK - 1) / BK;
+  // 16-byte copies of the operand rows and of the weight where aligned
+  // (an odd replica's weights are not: 4-byte copies).
+  const bool vec_a = K % 4 == 0 && kps == kpp && dednn::aligned16(in);
+  const bool vec_w = K % 4 == 0 && kps == kpp && M % 4 == 0 &&
+                     dednn::aligned16(W);
+  auto col = [&](int jj) { return kBwd ? tx + kColThreads * jj : tx * TN + jj; };
+
+  // The real k of padded kp, or -1 where the tile holds a zero.
+  auto real_k = [&](int kp) {
+    if (kps == kpp) return kp < K ? kp : -1;
+    const int slice = kp / kpp, i = kp - slice * kpp;
+    const int k = slice * kps + i;
+    return kp < kp_end && i < kps && k < K ? k : -1;
+  };
+  // Staging: thread tid copies operand row tid mod kRowsA and weight row
+  // tid mod kWRows of every tile, part tid / kRowsA (tid / kWRows) of their
+  // columns; its rows' sources and destinations are fixed, so a tile costs
+  // it a few address additions.
+  static_assert(kThreads >= kRowsA && kThreads >= kWRows,
+                "a thread per staged row");
+  constexpr int kPartsA = kThreads / kRowsA, kPartsW = kThreads / kWRows;
+  const int ra = tid % kRowsA, pa = tid / kRowsA;
+  const int rw = tid % kWRows, pw = tid / kWRows;
+  const int sa = ra / BB, ba = b0 + ra - sa * BB;
+  const bool a_ok = ba < B;
+  const float* a_row = in + static_cast<size_t>(sa * B + min(ba, B - 1)) * K;
+  const bool w_ok = !kBwd || m0 + rw < M;
+  const float* w_row =
+      kBwd ? W + static_cast<size_t>(min(m0 + rw, M - 1)) * K : W;
+
+  // Padded k-tile t into its buffer; every call commits one group.
+  auto load = [&](int t) {
+    if (t < tiles) {
+      const int buf = t % kStages, kp0 = t * BK;
+      auto copy = [&](auto width, bool on, const float* row, int parts,
+                      int part, float* dst, int cols, bool k_cols) {
+        constexpr int w = decltype(width)::value;
+        if (part >= parts) return;  // a thread past the last part copies nothing
+#pragma unroll 1
+        for (int i = w * part; i < cols; i += w * parts) {
+          // Columns are k (the operand rows, Wᵀ's rows) or m (W's rows,
+          // whose k is the row's).
+          const int k = real_k(kp0 + (k_cols ? i : rw));
+          const bool ok = on && k >= 0 && (k_cols || m0 + i < M);
+          const float* src = k_cols ? row + k : W + static_cast<size_t>(k) * M + m0 + i;
+          if (w == 4) cp_async16(dst + i, ok ? src : W, ok);
+          else cp_async4(dst + i, ok ? src : W, ok);
+        }
+      };
+      using V = std::integral_constant<int, 4>;
+      using S1 = std::integral_constant<int, 1>;
+      if (vec_a) copy(V{}, a_ok, a_row, kPartsA, pa, &a_s[buf][ra][0], BK, true);
+      else copy(S1{}, a_ok, a_row, kPartsA, pa, &a_s[buf][ra][0], BK, true);
+      if (vec_w) copy(V{}, w_ok, w_row, kPartsW, pw, &w_s[buf][rw][0], kWCols, kBwd);
+      else copy(S1{}, w_ok, w_row, kPartsW, pw, &w_s[buf][rw][0], kWCols, kBwd);
+    }
+    cp_async_commit();
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) acc[i][jj] = 0.0f;
+  // A slice ends: its chains join the running sums in shared memory (sum =
+  // slice 0, then sum + slice s; each thread its own entries) and restart
+  // from 0.
+  auto fold = [&](bool first) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int jj = 0; jj < TN; ++jj) {
+        float* c = &c_s[(ty * TM + i) * kLdC + col(jj)];
+        *c = first ? acc[i][jj] : *c + acc[i][jj];
+        acc[i][jj] = 0.0f;
+      }
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) load(t);
+  int next_slice = kpp;  // the padded k where the next slice starts
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t has landed
+    __syncthreads();               // and every thread is done with t − 1
+    load(t + kStages - 1);         // into t − 1's buffer
+    const int buf = t % kStages;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      if (t * BK + kk == next_slice && next_slice < kp_end) {
+        fold(next_slice == kpp);
+        next_slice += kpp;
+      }
+      float a4[TM][4], w4[4][TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) load_frag<4>(&a_s[buf][ty * TM + i][kk], a4[i]);
+      if (kBwd) {
+#pragma unroll
+        for (int jj = 0; jj < TN; ++jj) {
+          float c4[4];
+          load_frag<4>(&w_s[buf][col(jj)][kk], c4);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) w4[q][jj] = c4[q];
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) load_frag<TN>(&w_s[buf][kk + q][tx * TN], w4[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int jj = 0; jj < TN; ++jj)
+            acc[i][jj] = fmaf(a4[i][q], w4[q][jj], acc[i][jj]);
+    }
+  }
+  fold(false);  // the last slice
+  __syncthreads();
+
+  for (int e = tid; e < BB * BN; e += kThreads) {
+    const int bl = e / BN, c = e - bl * BN;
+    const int b = b0 + bl, m = m0 + c;
+    if (b >= B || m >= M) continue;
+    if (!kBwd) {
+      const float bias = P[b_off + m];
+      float zc[R], a[R];
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        const float v = c_s[(s * BB + bl) * kLdC + c];
+        zc[s] = kind_of<S>(s) == kValue ? v + bias : v;
+      }
+      act_fwd<S>(zc, a);
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        const size_t at = static_cast<size_t>(s * B + b) * M + m;
+        z_out[at] = zc[s];
+        a_out[at] = a[s];
+      }
+    } else {
+      float gs[R], prev[R], dzs[R];
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        gs[s] = c_s[(s * BB + bl) * kLdC + c];
+        prev[s] = bwd_operand<S>(s, z_prev, a_prev,
+                                 static_cast<size_t>(s * B + b) * M + m);
+      }
+      act_bwd<S>(gs, prev, dzs);
+#pragma unroll
+      for (int s = 0; s < R; ++s)
+        a_out[static_cast<size_t>(s * B + b) * M + m] = dzs[s];
+    }
+  }
+}
+
+// The output layer (O = 1) and the spec's point loss, for step base + j,
+// one warp per batch point b (kLossWarps per block; replica blockIdx.y;
+// the spec's numbers c by value, as the first design's loss kernel took
+// them, so that the loss compiles to the same arithmetic):
+// out_s = a_L[s, b]·w_out (+ b_out on value rows), each dot product
+// lane-strided fmaf chains and a butterfly shuffle; the point loss to
+// PL[b]; G[s·B + b] = (1/B)·d(point loss)/d(out_s); then the output layer's
+// data gradient g = G·w_outᵀ and its VJP at layer L into DZ_L (z_L, a_L).
+template <class S>
+__global__ void __launch_bounds__(32 * kLossWarps)
+    loss_kernel(const StepArgs* __restrict__ args, int j, Consts c,
+                long long w_off, long long b_off, int H, int B,
+                const float* __restrict__ z, const float* __restrict__ a,
+                float* __restrict__ G, float* __restrict__ PL,
+                float* __restrict__ dz, size_t ss, size_t ps) {
+  constexpr int R = S::R;
+  const int lane = threadIdx.x % 32;
+  const int warps = gridDim.x * kLossWarps;
+  const size_t so = blockIdx.y * ss;
+  const float* w_out = args->p + blockIdx.y * ps + w_off;
+  const float bo = args->p[blockIdx.y * ps + b_off];
+  z += so;
   a += so;
   G += so;
-  w_out += po;
-  b_out += po;
-  loss += blockIdx.x * ls;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
+  PL += so;
+  dz += so;
+  const float* u = args->u + static_cast<size_t>(args->base + j) * B * S::U;
   const float inv_b = 1.0f / static_cast<float>(B);
-  const float bo = b_out[0];
-  float sum = 0.0f;
-  for (int row = warp; row < B; row += n_warps) {
+  for (int b = blockIdx.x * kLossWarps + threadIdx.x / 32; b < B;
+       b += warps) {
     float out[R], g[R];
 #pragma unroll
     for (int s = 0; s < R; ++s) {
-      const float* ar = a + static_cast<size_t>(s * B + row) * h;
+      const float* ar = a + static_cast<size_t>(s * B + b) * H;
       float acc = 0.0f;
 #pragma unroll 4
-      for (int k = lane; k < h; k += 32) acc = fmaf(ar[k], w_out[k], acc);
+      for (int k = lane; k < H; k += 32) acc = fmaf(ar[k], w_out[k], acc);
       for (int off = 16; off > 0; off >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
       out[s] = kind_of<S>(s) == kValue ? acc + bo : acc;
     }
+    // Every lane holds the same outputs (the butterfly's sums commute), so
+    // every lane computes the same loss and cotangent.
     const float point =
-        S::loss(u + static_cast<size_t>(row) * S::U, c, out, g);
+        S::loss(u + static_cast<size_t>(b) * S::U, c, out, g);
     if (lane == 0) {
-      sum += point;
+      PL[b] = point;
 #pragma unroll
-      for (int s = 0; s < R; ++s) G[s * B + row] = g[s] * inv_b;
+      for (int s = 0; s < R; ++s) G[s * B + b] = g[s] * inv_b;
     }
-  }
-  if (lane == 0) partial[warp] = sum;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.0f;
-    for (int i = 0; i < n_warps; ++i) total += partial[i];
-    *loss = total * inv_b;
+    for (int k = lane; k < H; k += 32) {
+      const float w = w_out[k];
+      float gs[R], prev[R], dzs[R];
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        // The product over the one output column, then the 7 empty
+        // slices; opaque, as the first design's sums read back from shared
+        // memory, so that the VJP's products fuse as they did there (equal
+        // cotangents of two streams must not become one value).
+        gs[s] = opaque(fmaf(g[s] * inv_b, w, 0.0f) + 0.0f);
+        prev[s] =
+            bwd_operand<S>(s, z, a, static_cast<size_t>(s * B + b) * H + k);
+      }
+      act_bwd<S>(gs, prev, dzs);
+#pragma unroll
+      for (int s = 0; s < R; ++s)
+        dz[static_cast<size_t>(s * B + b) * H + k] = dzs[s];
+    }
   }
 }
 
-// The partial sums of stream s, written at dw + s * n, db + s * n
-// (n = one flat parameter buffer): dw[k, j] = sum of a[r, k] dz[r, j] and
-// db[j] = sum of dz[r, j] over the stream's B rows in order (db is 0 for
-// tangent streams, which carry no bias: bit s of value_mask is clear).
-// Block (32, 8) owns a 32 x 32 tile of dw; blocks with blockIdx.y == 0
-// also produce db for their columns. blockIdx.z = r·R + s: replica r's
-// operands and partials at r·ss.
-__global__ void bwd_weight_kernel(const float* __restrict__ a, int k_in,
-                                  const float* __restrict__ dz, int k_out,
-                                  int B, int n, int R, unsigned value_mask,
-                                  float* __restrict__ dw,
-                                  float* __restrict__ db, size_t ss) {
-  __shared__ float a_s[kTile][kTile + 1];
-  __shared__ float d_s[kTile][kTile + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int j = blockIdx.x * kTile + tx;
-  const int k0 = blockIdx.y * kTile;
-  const int stream = blockIdx.z % R;
-  const size_t so = (blockIdx.z / R) * ss;
-  const int end = (stream + 1) * B;
-  const bool bias = blockIdx.y == 0 && ty == 0;
-  const bool value = (value_mask >> stream) & 1u;
-  a += so;
-  dz += so;
-  dw += so + static_cast<size_t>(stream) * n;
-  db += so + static_cast<size_t>(stream) * n;
-  float acc[kTile / 8] = {};
-  float bacc = 0.0f;
-  for (int r0 = stream * B; r0 < end; r0 += kTile) {
-    for (int rr = ty; rr < kTile; rr += 8) {
-      const int r = r0 + rr;
-      a_s[rr][tx] = (r < end && k0 + tx < k_in)
-                        ? a[static_cast<size_t>(r) * k_in + k0 + tx]
-                        : 0.0f;
-      d_s[rr][tx] =
-          (r < end && j < k_out) ? dz[static_cast<size_t>(r) * k_out + j] : 0.0f;
-    }
-    __syncthreads();
-    const int rows = min(kTile, end - r0);
-    for (int rr = 0; rr < rows; ++rr) {
-      const float d = d_s[rr][tx];
-#pragma unroll
-      for (int i = 0; i < kTile / 8; ++i)
-        acc[i] = fmaf(a_s[rr][ty + 8 * i], d, acc[i]);
-      if (bias) bacc += d;
-    }
-    __syncthreads();
-  }
-  if (j >= k_out) return;
-#pragma unroll
-  for (int i = 0; i < kTile / 8; ++i) {
-    const int k = k0 + ty + 8 * i;
-    if (k < k_in) dw[static_cast<size_t>(k) * k_out + j] = acc[i];
-  }
-  if (bias) db[j] = value ? bacc : 0.0f;
-}
-
-// g = dz @ w^T for the R streams of batch row blockIdx.x, then the VJP of
-// the Taylor rules at the previous layer (fused_engine._act_bwd): per group
-// with a0 = tanh(z0), d = 1 - a0^2, d' = -2 a0 d,
-//   dz0 = d g0 + d' sum(z_t g_t over the tangents)
-//              - sum over pairs of 2 z1^2 d (d - 2 a0^2) g2
-//   dz1 = d g1 - 4 a0 d z1 g2 (pair firsts),  dz2 = d g2 (pair seconds),
-//   dzf = d gf (first-only tangents).
-// Block (32, kSplitWarps): w is staged in shared memory with rows padded by
-// one float; warp y sums its own slice of the j range, and the slices'
-// partial sums are added in warp order through shared memory. Replica
-// blockIdx.z stages its own weight (at z·ps); its streams are at z·ss.
-template <class S>
-__global__ void bwd_data_kernel(const float* __restrict__ dz, int k_out,
-                                const float* __restrict__ w, int k_in,
-                                const float* __restrict__ z_prev,
-                                const float* __restrict__ a_prev, int B,
-                                float* __restrict__ dz_prev, size_t ss,
-                                size_t ps) {
-  constexpr int R = S::R;
-  extern __shared__ float smem[];
-  const size_t so = blockIdx.z * ss;
-  dz += so;
-  z_prev += so;
-  a_prev += so;
-  dz_prev += so;
-  w += blockIdx.z * ps;
-  const int ldw = k_out + 1;
-  const int lane = threadIdx.x, warp = threadIdx.y;
-  const int tid = warp * 32 + lane;
-  const int row = blockIdx.x;
-  float* w_s = smem;                  // [k_in][k_out + 1]
-  float* d_s = w_s + k_in * ldw;      // [R][k_out]
-  float* part_s = d_s + R * k_out;    // [kSplitWarps][R][kColsPerWarp]
-  dednn::stage(w_s, ldw, w, k_out, k_in, k_out);
-  for (int i = tid; i < R * k_out; i += 32 * kSplitWarps) {
-    const int s = i / k_out, j = i - s * k_out;
-    d_s[i] = dz[static_cast<size_t>(s * B + row) * k_out + j];
-  }
-  __syncthreads();
-
-  const int j_per_warp = (k_out + kSplitWarps - 1) / kSplitWarps;
-  const int j_begin = warp * j_per_warp;
-  const int j_end = min(k_out, j_begin + j_per_warp);
-  const size_t stride = static_cast<size_t>(B) * k_in;  // one stream
-  for (int k0 = 0; k0 < k_in; k0 += kColsPerWarp) {
-    int kk[kColsPerLane];
-#pragma unroll
-    for (int cc = 0; cc < kColsPerLane; ++cc)
-      kk[cc] = min(k0 + lane + 32 * cc, k_in - 1);
-    float g[R][kColsPerLane] = {};
-    for (int j = j_begin; j < j_end; ++j) {
-      float wk[kColsPerLane];
-#pragma unroll
-      for (int cc = 0; cc < kColsPerLane; ++cc) wk[cc] = w_s[kk[cc] * ldw + j];
-#pragma unroll
-      for (int s = 0; s < R; ++s) {
-        const float d = d_s[s * k_out + j];
-#pragma unroll
-        for (int cc = 0; cc < kColsPerLane; ++cc)
-          g[s][cc] = fmaf(d, wk[cc], g[s][cc]);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < R; ++s)
-#pragma unroll
-      for (int cc = 0; cc < kColsPerLane; ++cc)
-        part_s[(warp * R + s) * kColsPerWarp + lane + 32 * cc] = g[s][cc];
-    __syncthreads();
-
-    for (int kl = tid; kl < kColsPerWarp; kl += 32 * kSplitWarps) {
-      const int k = k0 + kl;
-      if (k >= k_in) break;
-      const size_t at = static_cast<size_t>(row) * k_in + k;
-      float gs[R], a0[R], d[R], dzs[R];
-#pragma unroll
-      for (int s = 0; s < R; ++s) {
-        float sum = part_s[s * kColsPerWarp + kl];
-        for (int p = 1; p < kSplitWarps; ++p)
-          sum += part_s[(p * R + s) * kColsPerWarp + kl];
-        gs[s] = sum;
-      }
-#pragma unroll
-      for (int s = 0; s < R; ++s) {
-        const int v = value_of<S>(s);
-        const unsigned kind = kind_of<S>(s);
-        if (kind == kValue) {
-          a0[s] = a_prev[at + s * stride];
-          d[s] = 1.0f - a0[s] * a0[s];
-          dzs[s] = d[s] * gs[s];
-        } else if (kind == kPairSecond) {  // closes the pair (s - 1, s)
-          const int f = s > 0 ? s - 1 : 0;
-          const float z1 = z_prev[at + f * stride];
-          const float z2 = z_prev[at + s * stride];
-          const float dp = -2.0f * a0[v] * d[v];
-          dzs[v] = dzs[v] + dp * (z1 * gs[f] + z2 * gs[s]) -
-                   2.0f * (z1 * z1) * d[v] * (d[v] - 2.0f * a0[v] * a0[v]) *
-                       gs[s];
-          dzs[f] = d[v] * gs[f] - 4.0f * a0[v] * d[v] * z1 * gs[s];
-          dzs[s] = d[v] * gs[s];
-        } else if (kind == kFirst) {
-          const float zf = z_prev[at + s * stride];
-          const float dp = -2.0f * a0[v] * d[v];
-          dzs[v] = dzs[v] + dp * (zf * gs[s]);
-          dzs[s] = d[v] * gs[s];
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < R; ++s) dz_prev[at + s * stride] = dzs[s];
-    }
-    __syncthreads();  // part_s is rewritten for the next k0
-  }
+// The step's loss = the batch mean of the point losses, into the replica's
+// slot (blockIdx.x) of call step base + j: lane w sums rows w, w + 32, ...
+// in row order, then lane 0 the 32 sums in lane order.
+__global__ void loss_sum_kernel(const StepArgs* __restrict__ args, int j,
+                                const float* __restrict__ PL, int B,
+                                size_t ss) {
+  PL += blockIdx.x * ss;
+  const int lane = threadIdx.x;
+  float sum = 0.0f;
+  for (int row = lane; row < B; row += kLossLanes) sum += PL[row];
+  float total = 0.0f;
+  for (int i = 0; i < kLossLanes; ++i)
+    total += __shfl_sync(0xffffffffu, sum, i);
+  if (lane == 0)
+    args->losses[blockIdx.x * args->ls + args->base + j] =
+        total * (1.0f / static_cast<float>(B));
 }
 
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
-size_t fwd_smem(int R, int k_in) {
-  return static_cast<size_t>(R) * (k_in + kSplitWarps * kColsPerWarp) *
-         sizeof(float);
+long long n_params(int D, int H, int L) {
+  return static_cast<long long>(D) * H + H + static_cast<long long>(L) * H * H +
+         static_cast<long long>(L) * H + H + 1;
 }
 
-size_t bwd_data_smem(int R, int k_in, int k_out) {
-  return (static_cast<size_t>(k_in) * (k_out + 1) +
-          static_cast<size_t>(R) * (k_out + kSplitWarps * kColsPerWarp)) *
-         sizeof(float);
-}
-
-int n_params(int D, int H, int L) {
-  return D * H + H + L * H * H + L * H + H + 1;
-}
-
-template <class S>
-size_t scratch_floats(int B, int H, int L) {
-  const size_t rows = static_cast<size_t>(S::R) * B;
-  return rows * S::D + 3 * static_cast<size_t>(L + 1) * rows * H + rows +
-         static_cast<size_t>(S::R) * n_params(S::D, H, L);
-}
-
-// The per-stream gradient partials [R][n] at the end of scratch.
-template <class S>
-float* partials_of(float* scratch, int B, int H, int L) {
-  return scratch + scratch_floats<S>(B, H, L) -
-         static_cast<size_t>(S::R) * n_params(S::D, H, L);
-}
-
-template <class S>
-cudaError_t prepare(int H) {
-  cudaError_t err =
-      dednn::allow_smem(bwd_data_kernel<S>, bwd_data_smem(S::R, H, H));
-  if (err != cudaSuccess) return err;
-  return dednn::allow_smem(fwd_layer_kernel<S>, fwd_smem(S::R, H));
-}
-
-// Enqueue one step's forward and backward: loss -> *loss, the gradient's
-// per-stream partials -> partials_of(scratch) (each in the flat layout of
-// p). scratch holds scratch_floats<S>(B, H, L) per replica. For N
-// replicas, replica r's parameters are at p + r·n, its scratch at
-// scratch + r·scratch_floats, and its loss at loss + r·ls; every launch
-// covers all N.
-template <class S>
-cudaError_t grad_step(const float* p, const float* u, const Consts& c,
-                      float* scratch, float* loss, int N, size_t ls, int B,
-                      int H, int L, cudaStream_t stream) {
-  constexpr int R = S::R, D = S::D;
-  const size_t rows = static_cast<size_t>(R) * B;
-  const size_t layer = rows * H;
-  const int n = n_params(D, H, L);
-  const size_t ss = scratch_floats<S>(B, H, L);
-  float* X = scratch;                // [R·B, D]
-  float* Z = X + rows * D;           // [L + 1][R·B, H] pre-activations
-  float* A = Z + (L + 1) * layer;    // [L + 1][R·B, H] activations
-  float* G = A + (L + 1) * layer;    // [R·B] output gradient
-  float* DZ = G + rows;              // [L + 1][R·B, H] gradients w.r.t. Z
-  float* grad = partials_of<S>(scratch, B, H, L);
-
-  const float* w_in = p;
-  const float* b_in = w_in + D * H;
-  const float* w_hid = b_in + H;
-  const float* b_hid = w_hid + static_cast<size_t>(L) * H * H;
-  const float* w_out = b_hid + static_cast<size_t>(L) * H;
-  const float* b_out = w_out + H;
-  float* gw_in = grad;
-  float* gb_in = gw_in + D * H;
-  float* gw_hid = gb_in + H;
-  float* gb_hid = gw_hid + static_cast<size_t>(L) * H * H;
-  float* gw_out = gb_hid + static_cast<size_t>(L) * H;
-  float* gb_out = gw_out + H;
-
-  const dim3 split(32, kSplitWarps);
-  const dim3 fwd_grid(B, dednn::ceil_div(H, kColsPerWarp), N);
-  fwd_layer_kernel<S><<<fwd_grid, split, fwd_smem(R, D), stream>>>(
-      nullptr, D, u, c, X, w_in, b_in, H, B, Z, A, ss, n);
-  for (int l = 1; l <= L; ++l) {
-    fwd_layer_kernel<S><<<fwd_grid, split, fwd_smem(R, H), stream>>>(
-        A + (l - 1) * layer, H, nullptr, c, nullptr,
-        w_hid + static_cast<size_t>(l - 1) * H * H, b_hid + (l - 1) * H, H, B,
-        Z + l * layer, A + l * layer, ss, n);
+// Offsets of the flat buffer's tensors (fused_train.pack_params order).
+struct Offsets {
+  long long w_in, b_in, w_hid, b_hid, w_out, b_out;
+  Offsets(int D, int H, int L) {
+    const long long h = H, l = L;
+    w_in = 0;
+    b_in = D * h;
+    w_hid = b_in + h;
+    b_hid = w_hid + l * h * h;
+    w_out = b_hid + l * h;
+    b_out = w_out + h;
   }
-  loss_kernel<S><<<N, kLossThreads, 0, stream>>>(
-      A + L * layer, H, w_out, b_out, u, c, B, loss, G, ss, n, ls);
+};
 
-  const dim3 tile(32, 8);
-  const dim3 data_grid(B, 1, N);
-  bwd_weight_kernel<<<dim3(1, dednn::ceil_div(H, kTile), N * R), tile, 0,
-                      stream>>>(A + L * layer, H, G, 1, B, n, R,
-                                S::kValueMask, gw_out, gb_out, ss);
-  bwd_data_kernel<S><<<data_grid, split, bwd_data_smem(R, H, 1), stream>>>(
-      G, 1, w_out, H, Z + L * layer, A + L * layer, B, DZ + L * layer, ss, n);
-  for (int l = L; l >= 1; --l) {
-    const dim3 grid(dednn::ceil_div(H, kTile), dednn::ceil_div(H, kTile),
-                    N * R);
-    bwd_weight_kernel<<<grid, tile, 0, stream>>>(
-        A + (l - 1) * layer, H, DZ + l * layer, H, B, n, R, S::kValueMask,
-        gw_hid + static_cast<size_t>(l - 1) * H * H, gb_hid + (l - 1) * H,
-        ss);
-    bwd_data_kernel<S><<<data_grid, split, bwd_data_smem(R, H, H), stream>>>(
-        DZ + l * layer, H, w_hid + static_cast<size_t>(l - 1) * H * H, H,
-        Z + (l - 1) * layer, A + (l - 1) * layer, B, DZ + (l - 1) * layer, ss,
-        n);
+size_t align4(size_t floats) { return (floats + 3) / 4 * 4; }
+
+// The per-replica scratch: X [R·B, D]; Z, A and DZ [L + 1][R·B, H]; G
+// [R·B]; the point losses [B]; each region 16-byte aligned.
+struct Scratch {
+  size_t X, Z, A, G, DZ, PL, total;
+  Scratch(int R, int B, int D, int H, int L) {
+    const size_t rows = static_cast<size_t>(R) * B;
+    const size_t layers = static_cast<size_t>(L + 1) * rows * H;
+    X = 0;
+    Z = align4(X + rows * D);
+    A = align4(Z + layers);
+    G = align4(A + layers);
+    DZ = align4(G + rows);
+    PL = align4(DZ + layers);
+    total = align4(PL + B);
   }
-  bwd_weight_kernel<<<dim3(dednn::ceil_div(H, kTile), dednn::ceil_div(D, kTile),
-                           N * R),
-                      tile, 0, stream>>>(X, D, DZ, H, B, n, R, S::kValueMask,
-                                         gw_in, gb_in, ss);
-  return cudaGetLastError();
+};
+
+// The layer_kernel instances (batch points BB × columns BN per block, rows
+// TM × columns TN per thread, k-tile BK, ring depth), largest first: 8 × 64
+// (4 × 4) while that gives a block per SM, 8 × 32 (4 × 2) while a block per
+// four SMs, else 2 × 32 (2 × 2); chosen from timings of the candidates at
+// heat2d's and wave's shapes on the H100 (kernels/profile.py). R·BB/TM ·
+// BN/TN threads per block.
+struct LayerConfig {
+  int bb, bn, tm, tn, bk, stages, min_blocks;
+};
+constexpr LayerConfig kLayer[] = {{8, 64, 4, 4, 32, 3, kSMs},
+                                  {8, 32, 4, 2, 32, 3, kSMs / 4},
+                                  {2, 32, 2, 2, 32, 3, 0}};
+
+template <class S, bool kBwd, int C>
+auto layer_instance() {
+  constexpr LayerConfig c = kLayer[C];
+  return layer_kernel<S, kBwd, c.bb, c.bn, c.tm, c.tn, c.bk, c.stages>;
 }
 
-template <class S>
-int grad_impl(const Consts& c, const float* p, const float* u, float* scratch,
-              float* grad, float* loss, int B, int H, int L,
-              cudaStream_t stream) {
-  cudaError_t err = prepare<S>(H);
-  if (err != cudaSuccess) return err;
-  err = grad_step<S>(p, u, c, scratch, loss, 1, 0, B, H, L, stream);
-  if (err != cudaSuccess) return err;
-  const int n = n_params(S::D, H, L);
-  sum_partials_kernel<<<dednn::ceil_div(n, kAdamThreads), kAdamThreads, 0,
-                        stream>>>(partials_of<S>(scratch, B, H, L), S::R, n,
-                                  grad);
-  return cudaGetLastError();
+template <int R, int C>
+constexpr size_t layer_config_smem() {
+  constexpr LayerConfig c = kLayer[C];
+  return layer_smem_bytes<R, c.bb, c.bn, c.bk, c.stages>();
 }
 
-// K Adam steps of N replicas, one launch sequence per step for all of
-// them; *step_math_runs counts the replica-steps whose step math was
-// enqueued.
+template <class S, bool kBwd>
+void layer(const float* in, const StepArgs* args, long long w_off,
+           long long b_off, int K, int M, int B, const float* z_prev,
+           const float* a_prev, float* z_out, float* a_out, size_t ss,
+           size_t ps, int reps, cudaStream_t stream) {
+  auto go = [&](auto config) {
+    constexpr int C = decltype(config)::value;
+    constexpr LayerConfig c = kLayer[C];
+    launch(layer_instance<S, kBwd, C>(), (S::R * c.bb / c.tm) * (c.bn / c.tn),
+           layer_config_smem<S::R, C>(), c.bb, c.bn, B, M, reps, stream, in,
+           args, w_off, b_off, K, M, B, z_prev, a_prev, z_out, a_out, ss, ps);
+  };
+  auto fits = [&](int c) {
+    return blocks(B, M, kLayer[c].bb, kLayer[c].bn, reps) >=
+           kLayer[c].min_blocks;
+  };
+  if (fits(0)) go(std::integral_constant<int, 0>{});
+  else if (fits(1)) go(std::integral_constant<int, 1>{});
+  else go(std::integral_constant<int, 2>{});
+}
+
+// The weight-gradient instances of the MLP engine: fused_step.cuh's kernel
+// with one thread group per stream, so that all R streams of a tile run at
+// once, rows 16 at a time through a ring of 4 buffers; 32 × 16 tiles (4 × 2
+// per thread) while that gives a block per SM, else 16 × 16 (2 × 4; chosen
+// as the layer tiles).
+constexpr int kWgRows = 16, kWgStages = 4;
+struct WgTile {
+  int bk, bm, tk, tm, min_blocks;
+};
+constexpr WgTile kWgTile[] = {{32, 16, 4, 2, kSMs}, {16, 16, 2, 4, 0}};
+
+template <bool kAdam, int R, int C>
+auto wg_instance() {
+  constexpr WgTile t = kWgTile[C];
+  return dednn::weight_grad_kernel<kAdam, t.bk, t.bm, t.tk, t.tm, kWgRows,
+                                   kWgStages, R>;
+}
+
+template <int R, int C>
+constexpr size_t wg_config_smem() {
+  return dednn::wg_smem_bytes<kWgTile[C].bk, kWgTile[C].bm, kWgRows,
+                              kWgStages, R>();
+}
+
+template <class S, bool kAdam>
+void weight_grad(const float* A, int KA, const float* dz, int M, int B,
+                 const StepArgs* args, int j, long long w_off,
+                 long long b_off, size_t ss, size_t ps, int reps,
+                 cudaStream_t stream) {
+  constexpr int R = S::R;
+  const Layout lay{R, B, S::kValueMask};
+  const float* none = nullptr;
+  auto go = [&](auto config) {
+    constexpr int C = decltype(config)::value;
+    constexpr WgTile t = kWgTile[C];
+    launch(wg_instance<kAdam, R, C>(), (t.bk / t.tk) * (t.bm / t.tm) * R,
+           wg_config_smem<R, C>(), t.bk, t.bm, KA, M, reps, stream, A, KA,
+           none, dz, M, lay, args, j, w_off, -1LL, b_off, ss, ps);
+  };
+  if (blocks(KA, M, kWgTile[0].bk, kWgTile[0].bm, reps) >=
+      kWgTile[0].min_blocks)
+    go(std::integral_constant<int, 0>{});
+  else
+    go(std::integral_constant<int, 1>{});
+}
+
+// The most dynamic shared memory any kernel of spec S takes per block, at
+// any width.
 template <class S>
-int train_impl(const Consts& c, float* p, float* m, float* v, const float* u,
-               float* scratch, float* losses, int N, int K, int B, int H,
-               int L, float lr, int step0, const Schedule& sched,
-               int* step_math_runs, cudaStream_t stream) {
-  if (N < 1 || N > dednn::kMaxGridYZ / S::R) return cudaErrorInvalidValue;
-  cudaError_t err = prepare<S>(H);
-  if (err != cudaSuccess) return err;
-  const int n = n_params(S::D, H, L);
-  const float* partials = partials_of<S>(scratch, B, H, L);
-  const dim3 adam_grid(dednn::ceil_div(n, kAdamThreads), N);
-  for (int k = 0; k < K; ++k) {
-    err = grad_step<S>(p, u + static_cast<size_t>(k) * B * S::U, c, scratch,
-                       losses + k, N, K, B, H, L, stream);
+size_t smem_bytes() {
+  constexpr int R = S::R;
+  return std::max({layer_config_smem<R, 0>(), layer_config_smem<R, 1>(),
+                   layer_config_smem<R, 2>(), wg_config_smem<R, 0>(),
+                   wg_config_smem<R, 1>()});
+}
+
+template <class S, int C>
+cudaError_t allow_layer() {
+  constexpr size_t bytes = layer_config_smem<S::R, C>();
+  const cudaError_t err =
+      dednn::allow_smem(layer_instance<S, false, C>(), bytes);
+  return err != cudaSuccess
+             ? err
+             : dednn::allow_smem(layer_instance<S, true, C>(), bytes);
+}
+
+template <class S, int C>
+cudaError_t allow_weight_grad() {
+  constexpr size_t bytes = wg_config_smem<S::R, C>();
+  const cudaError_t err =
+      dednn::allow_smem(wg_instance<true, S::R, C>(), bytes);
+  return err != cudaSuccess
+             ? err
+             : dednn::allow_smem(wg_instance<false, S::R, C>(), bytes);
+}
+
+// Lets every instance take its dynamic shared memory; before any launch or
+// capture.
+template <class S>
+cudaError_t prepare() {
+  for (const cudaError_t err :
+       {allow_layer<S, 0>(), allow_layer<S, 1>(), allow_layer<S, 2>(),
+        allow_weight_grad<S, 0>(), allow_weight_grad<S, 1>()})
     if (err != cudaSuccess) return err;
-    *step_math_runs += N;
-    adam_kernel<<<adam_grid, kAdamThreads, 0, stream>>>(
-        p, m, v, partials, S::R, n, scratch_floats<S>(B, H, L), lr,
-        static_cast<float>(step0 + k + 1), sched);
-  }
-  return cudaGetLastError();
+  return cudaSuccess;
+}
+
+// Enqueue call step base + j of `reps` replicas: the forward, the loss into
+// its slot, the data path of the backward, then every layer's weight
+// gradient (with Adam, kAdam; else the gradient to args->grad) on three
+// lanes: the two side streams and main. They start together once every
+// layer's data gradient has read its weight (the Adam epilogue rewrites
+// it): timed on the H100 (kernels/profile.py), that beat forking each one
+// as soon as its layer's data gradient was done, when the weight gradients
+// slowed the data path they shared the SMs with. Replica r's scratch is at
+// scratch + r·Scratch::total; each layer keeps its own Z, A and dz.
+template <class S, bool kAdam>
+cudaError_t enqueue_step(const StepArgs* args, const Consts& c, int j,
+                         float* scratch, int reps, int B, int H, int L,
+                         Streams& st) {
+  constexpr int R = S::R, D = S::D;
+  const Scratch sc(R, B, D, H, L);
+  const Offsets off(D, H, L);
+  const size_t layer_floats = static_cast<size_t>(R) * B * H;
+  const size_t ss = sc.total, n = n_params(D, H, L);
+  float* X = scratch + sc.X;
+  float* Z = scratch + sc.Z;
+  float* A = scratch + sc.A;
+  float* G = scratch + sc.G;
+  float* DZ = scratch + sc.DZ;
+  float* PL = scratch + sc.PL;
+  auto at = [&](float* base, int l) { return base + l * layer_floats; };
+  auto w_hid = [&](int l) { return off.w_hid + static_cast<long long>(l) * H * H; };
+  auto b_hid = [&](int l) { return off.b_hid + static_cast<long long>(l) * H; };
+  const cudaStream_t main = st.main;
+
+  input_kernel<S><<<dim3(dednn::ceil_div(H, kInputBN),
+                         dednn::ceil_div(B, kInputBB), reps),
+                    kInputBB * kInputBN, 0, main>>>(args, j, c, off.b_in, H,
+                                                    B, X, Z, A, ss, n);
+  for (int l = 1; l <= L; ++l)
+    layer<S, false>(at(A, l - 1), args, w_hid(l - 1), b_hid(l - 1), H, H, B,
+                    nullptr, nullptr, at(Z, l), at(A, l), ss, n, reps, main);
+  loss_kernel<S><<<dim3(dednn::ceil_div(B, kLossWarps), reps),
+                   32 * kLossWarps, 0, main>>>(args, j, c, off.w_out,
+                                               off.b_out, H, B, at(Z, L),
+                                               at(A, L), G, PL, at(DZ, L), ss,
+                                               n);
+  for (int l = L; l >= 1; --l)
+    layer<S, true>(at(DZ, l), args, w_hid(l - 1), -1LL, H, H, B, at(Z, l - 1),
+                   at(A, l - 1), nullptr, at(DZ, l - 1), ss, n, reps, main);
+
+  cudaStream_t lanes[3];
+  cudaError_t err = st.branch(&lanes[0]);
+  if (err == cudaSuccess) err = st.branch(&lanes[1]);
+  if (err != cudaSuccess) return err;
+  lanes[2] = main;
+  for (int l = L; l >= 1; --l)  // the hidden layers, one lane each in turn
+    weight_grad<S, kAdam>(at(A, l - 1), H, at(DZ, l), H, B, args, j,
+                          w_hid(l - 1), b_hid(l - 1), ss, n, reps,
+                          lanes[(L - l) % 3]);
+  loss_sum_kernel<<<reps, kLossLanes, 0, lanes[1]>>>(args, j, PL, B, ss);
+  weight_grad<S, kAdam>(at(A, L), H, G, 1, B, args, j, off.w_out, off.b_out,
+                        ss, n, reps, lanes[1]);
+  weight_grad<S, kAdam>(X, D, DZ, H, B, args, j, off.w_in, off.b_in, ss, n,
+                        reps, lanes[(L + 1) % 2]);
+  err = st.merge();
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // Calls f(S{}) with the spec struct of fused_engine.<Spec>.kernel_id;
@@ -862,64 +1107,204 @@ auto dispatch(int spec, F&& f) -> decltype(f(Heat{})) {
   }
 }
 
-Consts load_consts(const float* consts) {
-  Consts c;
-  for (int i = 0; i < kMaxConsts; ++i) c.c[i] = consts[i];
-  return c;
+StepArgs host_args(const float* consts, float* p, float* m, float* v,
+                   const float* u, float* losses, long long ls, float* grad) {
+  StepArgs a{};
+  a.p = p;
+  a.m = m;
+  a.v = v;
+  a.u = u;
+  a.losses = losses;
+  a.ls = ls;
+  a.grad = grad;
+  for (int i = 0; i < kMaxConsts; ++i) a.c.c[i] = consts[i];
+  return a;
 }
 
 }  // namespace
 
-// Floats of scratch one call needs, or -1 for an unknown spec.
+// Floats of scratch one replica needs, or -1 for an unknown spec.
 extern "C" long long engine_scratch_floats(int spec, int B, int H, int L) {
   return dispatch(spec, [&](auto s) -> long long {
-    return static_cast<long long>(scratch_floats<decltype(s)>(B, H, L));
+    using S = decltype(s);
+    return static_cast<long long>(Scratch(S::R, B, S::D, H, L).total);
   });
 }
 
-// Bytes of dynamic shared memory per block that the largest layer kernel
-// of a call at hidden width H takes (bwd_data's staged H×H weight beside
-// the streams' gradients and partial sums); -1 for an unknown spec.
+// Bytes of dynamic shared memory per block that the largest instance of
+// the spec's kernels takes (a layer tile's k-tiles of the R·BB operand rows
+// and of the weight, or a weight-gradient tile): the same at every hidden
+// width H. -1 for an unknown spec.
 extern "C" long long engine_smem_bytes(int spec, int H) {
+  (void)H;
   return dispatch(spec, [&](auto s) -> long long {
-    constexpr int R = decltype(s)::R;
-    return static_cast<long long>(
-        std::max(bwd_data_smem(R, H, H), fwd_smem(R, H)));
+    return static_cast<long long>(smem_bytes<decltype(s)>());
   });
 }
 
-// One step's loss and flat gradient (kernel #6 alone). consts: the spec's
-// kMaxConsts numbers, in host memory.
+// Bytes of the device argument block (StepArgs) every entry point takes.
+extern "C" int engine_args_bytes() { return sizeof(StepArgs); }
+
+// One step's loss and flat gradient (kernel #6 alone), its launches on one
+// stream. consts: the spec's kMaxConsts numbers, in host memory; args: a
+// device block of engine_args_bytes().
 extern "C" int engine_grad(int spec, const float* consts, const float* p,
                            const float* u, float* scratch, float* grad,
-                           float* loss, int B, int H, int L, void* stream) {
-  const Consts c = load_consts(consts);
+                           float* loss, void* args, int B, int H, int L,
+                           void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int code = dispatch(spec, [&](auto s) {
-    return grad_impl<decltype(s)>(c, p, u, scratch, grad, loss, B, H, L, st);
+  StepArgs* dev = static_cast<StepArgs*>(args);
+  const StepArgs a = host_args(consts, const_cast<float*>(p), nullptr,
+                               nullptr, u, loss, 0, grad);
+  const int code = dispatch(spec, [&](auto s) -> int {
+    using S = decltype(s);
+    cudaError_t err = prepare<S>();
+    if (err == cudaSuccess) err = write_args(dev, a, st);
+    if (err != cudaSuccess) return err;
+    Streams one{st, {st, st}, nullptr, nullptr};
+    return enqueue_step<S, false>(dev, a.c, 0, scratch, 1, B, H, L, one);
   });
   return code < 0 ? cudaErrorInvalidValue : code;
+}
+
+// Capture S training steps of N packed replicas as one CUDA graph
+// (dednn::capture_steps) and instantiate it into *exec. The graph holds
+// the scratch and argument-block pointers, the shape and the spec's
+// numbers (consts, in host memory): it serves every call of that shape and
+// those numbers whose per-call values come through args
+// (engine_train_packed writes them).
+extern "C" int engine_graph_build(int spec, const float* consts, int B, int H,
+                                  int L, int N, int S, void* args,
+                                  float* scratch, void** exec) {
+  *exec = nullptr;
+  if (S < 1 || N < 1 || N > dednn::kMaxGridYZ) return cudaErrorInvalidValue;
+  StepArgs* dev = static_cast<StepArgs*>(args);
+  const Consts c = host_args(consts, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, 0, nullptr).c;
+  const int code = dispatch(spec, [&](auto s) -> int {
+    using Spec = decltype(s);
+    const cudaError_t err = prepare<Spec>();
+    if (err != cudaSuccess) return err;
+    return dednn::capture_steps(
+        dev, S,
+        [&](int j, Streams& st) {
+          return enqueue_step<Spec, true>(dev, c, j, scratch, N, B, H, L,
+                                          st);
+        },
+        exec);
+  });
+  return code < 0 ? cudaErrorInvalidValue : code;
+}
+
+extern "C" int engine_graph_free(void* exec) {
+  return dednn::free_graph(exec);
 }
 
 // K Adam steps of N packed replicas (kernel #5 around #6): p, m, v [N, n]
-// updated in place, losses [N, K], scratch N·engine_scratch_floats; the
-// uniforms [K, B, U] and the schedule are shared. *step_math_runs (host
-// memory) is set to the number of replica-steps whose step math was
-// enqueued. N·R above the grid's 65 535 is refused.
+// updated in place, losses [N, K]; the uniforms [K, B, U] and the schedule
+// are shared. scratch (N·engine_scratch_floats) and args
+// (engine_args_bytes) are the ones exec was built with, if exec is not
+// null: then ⌊K/S⌋ replays of its S steps on `stream`, and the other K mod
+// S steps as the same launches from here, the weight gradients on side0
+// and side1 (all K, without exec). *step_math_runs (host memory) is set to
+// the number of replica-steps whose step math was enqueued. N above the
+// grid's 65 535 is refused.
 extern "C" int engine_train_packed(int spec, const float* consts, float* p,
                                    float* m, float* v, const float* u,
-                                   float* scratch, float* losses, int N, int K,
-                                   int B, int H, int L, float lr, int step0,
+                                   float* scratch, float* losses, void* args,
+                                   void* exec, int S, int N, int K, int B,
+                                   int H, int L, float lr, int step0,
                                    int schedule, float horizon, float decay,
                                    float half_span, float log_decay,
-                                   int* step_math_runs, void* stream) {
-  const Consts c = load_consts(consts);
-  const Schedule sched{schedule, horizon, decay, half_span, log_decay};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                   int* step_math_runs, void* stream,
+                                   void* side0, void* side1) {
   *step_math_runs = 0;
-  const int code = dispatch(spec, [&](auto s) {
-    return train_impl<decltype(s)>(c, p, m, v, u, scratch, losses, N, K, B, H,
-                                   L, lr, step0, sched, step_math_runs, st);
+  if (N < 1 || N > dednn::kMaxGridYZ) return cudaErrorInvalidValue;
+  if (exec != nullptr && S < 1) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  StepArgs* dev = static_cast<StepArgs*>(args);
+  StepArgs a = host_args(consts, p, m, v, u, losses, K, nullptr);
+  a.step0 = step0;
+  a.lr = lr;
+  a.sched = Schedule{schedule, horizon, decay, half_span, log_decay};
+  const int code = dispatch(spec, [&](auto s) -> int {
+    using Spec = decltype(s);
+    cudaError_t err = prepare<Spec>();
+    if (err == cudaSuccess) err = write_args(dev, a, st);
+    if (err != cudaSuccess) return err;
+    return dednn::run_steps(
+        exec, S, K, N, st, static_cast<cudaStream_t>(side0),
+        static_cast<cudaStream_t>(side1),
+        [&](int j, Streams& two) {
+          return enqueue_step<Spec, true>(dev, a.c, j, scratch, N, B, H, L,
+                                          two);
+        },
+        step_math_runs);
   });
   return code < 0 ? cudaErrorInvalidValue : code;
+}
+
+// Times what one step is built from (kernels/profile.py --probe-engine):
+// `launches` back-to-back launches of one kernel, at the tile the step
+// picks, at heat2d's layout (R = 11, D = 3) with batch B and width H on
+// `stream`, one hidden layer's buffers in scratch
+// (engine_scratch_floats(6, B, H, 1)) and its parameters in params (2·n
+// floats: p, then the gradient). kind 0: the forward layer, 1: the
+// backward layer, 2: the hidden layer's weight gradient (no Adam), 3: the
+// loss kernel, 4: the input kernel.
+extern "C" int engine_probe(int kind, int B, int H, int launches,
+                            float* params, float* scratch, void* args,
+                            void* stream) {
+  using S = Heat2D;
+  constexpr int R = S::R, D = S::D;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  StepArgs* dev = static_cast<StepArgs*>(args);
+  const Offsets off(D, H, 1);
+  const size_t n = n_params(D, H, 1);
+  const float zeros[kMaxConsts] = {};
+  const StepArgs a = host_args(zeros, params, nullptr, nullptr, scratch,
+                               params, 0, params + n);
+  cudaError_t err = prepare<S>();
+  if (err == cudaSuccess) err = write_args(dev, a, st);
+  if (err != cudaSuccess) return err;
+  const Scratch sc(R, B, D, H, 1);
+  const size_t layer_floats = static_cast<size_t>(R) * B * H;
+  float* Z = scratch + sc.Z;
+  float* A = scratch + sc.A;
+  float* DZ = scratch + sc.DZ;
+  for (int i = 0; i < launches; ++i) {
+    switch (kind) {
+      case 0:
+        layer<S, false>(A, dev, off.w_hid, off.b_hid, H, H, B, nullptr,
+                        nullptr, Z + layer_floats, A + layer_floats, sc.total,
+                        n, 1, st);
+        break;
+      case 1:
+        layer<S, true>(DZ + layer_floats, dev, off.w_hid, -1LL, H, H, B, Z, A,
+                       nullptr, DZ, sc.total, n, 1, st);
+        break;
+      case 2:
+        weight_grad<S, false>(A, H, DZ + layer_floats, H, B, dev, 0,
+                              off.w_hid, off.b_hid, sc.total, n, 1, st);
+        break;
+      case 3:
+        loss_kernel<S><<<dim3(dednn::ceil_div(B, kLossWarps), 1),
+                         32 * kLossWarps, 0, st>>>(
+            dev, 0, Consts{}, off.w_out, off.b_out, H, B, Z, A, scratch + sc.G,
+            scratch + sc.PL, DZ, sc.total, n);
+        break;
+      case 4:
+        input_kernel<S><<<dim3(dednn::ceil_div(H, kInputBN),
+                               dednn::ceil_div(B, kInputBB), 1),
+                          kInputBB * kInputBN, 0, st>>>(
+            dev, 0, Consts{}, off.b_in, H, B, scratch + sc.X, Z, A, sc.total,
+            n);
+        break;
+      default:
+        return cudaErrorInvalidValue;
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }

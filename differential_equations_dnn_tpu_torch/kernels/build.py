@@ -58,13 +58,22 @@ _SIGNATURES = {
     "engine_scratch_floats": [_I] * 4,
     # spec, H
     "engine_smem_bytes": [_I] * 2,
-    # spec, consts, p, u, scratch, grad, loss, B, H, L, stream
-    "engine_grad": [_I, _CONSTS] + [_P] * 5 + [_I] * 3 + [_P],
-    # spec, consts, p, m, v, u, scratch, losses, N, K, B, H, L, lr, step0,
-    # schedule, horizon, decay, half_span, log_decay, step_math_runs, stream
-    "engine_train_packed": [_I, _CONSTS] + [_P] * 6 + [_I] * 5
+    "engine_args_bytes": [],
+    # spec, consts, p, u, scratch, grad, loss, args, B, H, L, stream
+    "engine_grad": [_I, _CONSTS] + [_P] * 6 + [_I] * 3 + [_P],
+    # spec, consts, B, H, L, N, S, args, scratch, exec (out)
+    "engine_graph_build": [_I, _CONSTS] + [_I] * 5
+                          + [_P, _P, ctypes.POINTER(ctypes.c_void_p)],
+    # exec
+    "engine_graph_free": [_P],
+    # spec, consts, p, m, v, u, scratch, losses, args, exec, S, N, K, B, H,
+    # L, lr, step0, schedule, horizon, decay, half_span, log_decay,
+    # step_math_runs, stream, side0, side1
+    "engine_train_packed": [_I, _CONSTS] + [_P] * 8 + [_I] * 6
                            + [_F, _I, _I] + [_F] * 4
-                           + [ctypes.POINTER(_I), _P],
+                           + [ctypes.POINTER(_I), _P, _P, _P],
+    # kind, B, H, launches, params, scratch, args, stream
+    "engine_probe": [_I] * 4 + [_P] * 4,
     # R, B, H, L, O
     "dgm_scratch_floats": [_I] * 5,
     "dgm_max_streams": [],

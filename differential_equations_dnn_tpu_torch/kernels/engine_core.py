@@ -80,13 +80,16 @@ def schedule_args(schedule, total_steps, decay):
 
 
 def check_state_fits(need: int, R: int, H: int) -> None:
-    """Reject widths whose layer kernels cannot be staged on one SM.
+    """Reject a plan whose kernels cannot be staged on one SM.
 
     The Adam state lives in device memory (L2-resident at these sizes) and
-    never limits the model; what does is the shared memory a layer kernel
+    never limits the model; what could is the shared memory a kernel
     stages per block: ``need`` bytes, as csrc/engine_train.cu reports it
-    (``engine_smem_bytes``), against the 227 KB a block may take on an
-    H100. The plain version has no such limit."""
+    (``engine_smem_bytes``; ``fused_engine.engine_plan`` mirrors it),
+    against the 227 KB a block may take on an H100. The kernels stage every
+    operand in k-tiles, so ``need`` depends on R and the tiles, not on H;
+    the widest width is ``fused_engine.MAX_WIDTH``. The plain version has
+    no such limit."""
     if need > SMEM_LIMIT:
         raise ValueError(
             f"hidden width {H} with {R} streams needs {need} bytes of shared "
@@ -160,9 +163,11 @@ def unstack_replicas(packed, shape, n):
 
 def check_replicas(n_replicas, R, scratch_bytes=0, free_bytes=None):
     """The limits of a packed launch on the H100: N ≥ 1, N·R within the
-    grid's y/z extent (the weight-gradient kernels index replica × stream
-    there), and, where ``free_bytes`` is given, N copies of the per-replica
-    scratch in free device memory. Raises before anything is launched."""
+    grid's y/z extent (the bound of a packed call since the engines' first
+    design, which indexed replica × stream there; the kernels now index the
+    replica alone), and, where ``free_bytes`` is given, N copies of the
+    per-replica scratch in free device memory. Raises before anything is
+    launched."""
     if n_replicas < 1:
         raise ValueError(f"n_replicas must be at least 1 (got {n_replicas})")
     if n_replicas * R > MAX_GRID_YZ:

@@ -28,15 +28,14 @@ the const operand). Single runs (``fused_dgm_chunk``,
 ``precision="highest"``; the sweep evaluators are not ported (ROADMAP.md).
 
 On the card a chunk replays a CUDA graph of GRAPH_STEPS training steps,
-captured on the first call of its shape and cached (``clear_graphs``,
-``graph_stats``), on a side stream ordered after and before the caller's
-stream by events; the steps left over run as the same launches.
+captured on the first call of its shape and cached (kernels/graphs.py:
+``clear_graphs``, ``graph_stats``), on a side stream ordered after and
+before the caller's stream by events; the steps left over run as the same
+launches.
 """
 
-import collections
 import ctypes
 import math
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -48,6 +47,12 @@ from differential_equations_dnn_tpu_torch.core.prng import (
 )
 from differential_equations_dnn_tpu_torch.kernels import build
 from differential_equations_dnn_tpu_torch.kernels import engine_core
+from differential_equations_dnn_tpu_torch.kernels import graphs
+from differential_equations_dnn_tpu_torch.kernels.graphs import (  # noqa: F401
+    GRAPH_STEPS,
+    clear_graphs,
+    graph_stats,
+)
 from differential_equations_dnn_tpu_torch.kernels.fused_engine import (
     Group,
     _bias_mask,
@@ -64,10 +69,6 @@ from differential_equations_dnn_tpu_torch.models import DGM
 from differential_equations_dnn_tpu_torch.ops import gauss_legendre_nodes
 
 _N_CONSTS = 8  # floats of kernel_consts the CUDA specs read
-# Training steps of one captured CUDA graph (S): a call of K steps replays
-# it ⌊K/S⌋ times and runs the K mod S steps left over as the same launches.
-GRAPH_STEPS = 50
-_GRAPH_CACHE_SIZE = 4  # shapes whose graphs (and scratch) stay cached
 
 # ---------------------------------------------------------------------------
 # Flat parameter buffers
@@ -539,7 +540,7 @@ def dgm_loss_grad(spec, model, params, u, const=None):
                                                  a["O"]), device=u.device)
     grad = torch.empty_like(params)
     loss = torch.empty((), device=u.device)
-    args = _args_block(lib, u.device)
+    args = graphs.args_block(lib.dgm_args_bytes(), u.device)
     with torch.cuda.device(u.device):
         code = lib.dgm_grad(spec.kernel_id, a["consts"], a["const"],
                             params.data_ptr(), u.data_ptr(),
@@ -568,85 +569,14 @@ def fused_dgm_chunk_plain(spec, model, params, m, v, uniforms, step0, lrate,
         total_steps=total_steps, decay=decay)
 
 
-def _args_block(lib, device):
-    """Device memory for the kernels' argument block (``StepArgs``), which
-    each C entry point fills with one copy on its stream."""
-    return torch.empty(lib.dgm_args_bytes(), dtype=torch.uint8, device=device)
-
-
-class _StepGraph:
-    """What the training launches of one shape keep between calls: the
-    argument block and the per-replica scratch that a captured graph holds
-    pointers to, the side stream it is replayed on (capture and replay
-    cannot use the legacy default stream, which ``current_stream()`` often
-    is), two more streams for the weight gradients of the steps run outside
-    the graph, and the instantiated graph of GRAPH_STEPS steps, once a call
-    needs it."""
-
-    def __init__(self, lib, device, n_replicas, floats):
-        self.lib = lib
-        self.args = _args_block(lib, device)
-        self.scratch = torch.empty(n_replicas * floats, device=device)
-        self.stream = torch.cuda.Stream(device)
-        self.branches = [torch.cuda.Stream(device) for _ in range(2)]
-        self.exec = None
-
-    def capture(self, spec_id, a, B, n_replicas):
-        """Capture and instantiate the graph (host seconds are recorded in
-        ``graph_stats``); raises if CUDA refuses either."""
-        exec_ = ctypes.c_void_p()
-        t0 = time.perf_counter()
-        code = self.lib.dgm_graph_build(
-            spec_id, a["R"], B, a["H"], a["L"], a["O"], a["act"], a["mask"],
-            n_replicas, GRAPH_STEPS, self.args.data_ptr(),
-            self.scratch.data_ptr(), ctypes.byref(exec_))
-        build.check(code, "dgm_graph_build")
-        self.exec = exec_.value
-        graph_stats["builds"] += 1
-        graph_stats["build_seconds"].append(time.perf_counter() - t0)
-
-    def free(self):
-        self.stream.synchronize()
-        if self.exec is not None:
-            build.check(self.lib.dgm_graph_free(self.exec), "dgm_graph_free")
-            self.exec = None
-
-
-_GRAPHS: "collections.OrderedDict[tuple, _StepGraph]" = \
-    collections.OrderedDict()
-# Graphs captured in this process and the host seconds each capture and
-# instantiation took (kept apart from the chunks' own timings).
-graph_stats = {"builds": 0, "build_seconds": []}
-
-
-def _step_graph(lib, key, device, n_replicas, floats):
-    """The cached :class:`_StepGraph` of ``key``, made on first use; the
-    least recently used of more than _GRAPH_CACHE_SIZE is freed."""
-    entry = _GRAPHS.get(key)
-    if entry is None:
-        entry = _GRAPHS[key] = _StepGraph(lib, device, n_replicas, floats)
-        while len(_GRAPHS) > _GRAPH_CACHE_SIZE:
-            _GRAPHS.popitem(last=False)[1].free()
-    _GRAPHS.move_to_end(key)
-    return entry
-
-
-def clear_graphs():
-    """Free every cached graph (the next call of each shape captures
-    anew)."""
-    while _GRAPHS:
-        _GRAPHS.popitem()[1].free()
-
-
 def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
                   n_replicas, const, schedule, total_steps, decay):
     """One ``dgm_train_packed`` call on CUDA ``[N, n]`` state, shared by
     both chunk wrappers (a single run is N = 1). The launches run on the
-    shape's side stream, which waits for the caller's stream and which the
-    caller's stream then waits for; a call of at least GRAPH_STEPS steps
-    first captures the shape's graph if it is not cached. Returns the new
-    (params, m, v, losses [N, K]) and the replica-steps whose step math it
-    enqueued."""
+    shape's side stream (graphs.StepGraph.run); a call of at least
+    GRAPH_STEPS steps first captures the shape's graph if it is not cached.
+    Returns the new (params, m, v, losses [N, K]) and the replica-steps whose
+    step math it enqueued."""
     lib = build.library()
     _check_inputs(spec, model, {"params": params, "m": m, "v": v,
                                 "uniforms": uniforms}, const, lib, n_replicas)
@@ -654,31 +584,31 @@ def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
     device = uniforms.device
     a = _call_args(spec, model, B, const)
     floats = lib.dgm_scratch_floats(a["R"], B, a["H"], a["L"], a["O"])
-    key = (spec.kernel_id, a["R"], B, a["H"], a["L"], a["O"], n_replicas,
-           a["act"], a["mask"], GRAPH_STEPS, device)
-    if key not in _GRAPHS:
+    key = ("dgm", spec.kernel_id, a["R"], B, a["H"], a["L"], a["O"],
+           n_replicas, a["act"], a["mask"], GRAPH_STEPS, device)
+    if not graphs.cached(key):
         engine_core.check_replicas(n_replicas, a["R"], 4 * floats,
                                    torch.cuda.mem_get_info(device)[0])
-    entry = _step_graph(lib, key, device, n_replicas, floats)
+    entry = graphs.step_graph(key, lambda: graphs.StepGraph(
+        "dgm", device, n_replicas, floats, lib.dgm_args_bytes(),
+        lib.dgm_graph_free))
     p, m, v = params.clone(), m.clone(), v.clone()
     runs = ctypes.c_int(0)
     losses = torch.empty((n_replicas, K), device=device)
-    caller = torch.cuda.current_stream(device)
-    entry.stream.wait_stream(caller)
-    with torch.cuda.device(device):
-        if K >= GRAPH_STEPS and entry.exec is None:
-            entry.capture(spec.kernel_id, a, B, n_replicas)
-        code = lib.dgm_train_packed(
-            spec.kernel_id, a["consts"], a["const"], p.data_ptr(),
-            m.data_ptr(), v.data_ptr(), uniforms.data_ptr(),
-            entry.scratch.data_ptr(), losses.data_ptr(),
-            entry.args.data_ptr(), entry.exec, GRAPH_STEPS, n_replicas, K,
-            a["R"], B, a["H"], a["L"], a["O"], a["act"], a["mask"],
-            float(lrate), int(step0),
-            *engine_core.schedule_args(schedule, total_steps, decay),
-            ctypes.byref(runs), entry.stream.cuda_stream,
-            *(b.cuda_stream for b in entry.branches))
-    caller.wait_stream(entry.stream)
+    if K >= GRAPH_STEPS and entry.exec is None:
+        with torch.cuda.device(device):
+            entry.capture(lambda args, scratch, out: lib.dgm_graph_build(
+                spec.kernel_id, a["R"], B, a["H"], a["L"], a["O"], a["act"],
+                a["mask"], n_replicas, GRAPH_STEPS, args, scratch, out),
+                "dgm_graph_build")
+    code = entry.run(lambda stream, side0, side1: lib.dgm_train_packed(
+        spec.kernel_id, a["consts"], a["const"], p.data_ptr(), m.data_ptr(),
+        v.data_ptr(), uniforms.data_ptr(), entry.scratch.data_ptr(),
+        losses.data_ptr(), entry.args.data_ptr(), entry.exec, GRAPH_STEPS,
+        n_replicas, K, a["R"], B, a["H"], a["L"], a["O"], a["act"],
+        a["mask"], float(lrate), int(step0),
+        *engine_core.schedule_args(schedule, total_steps, decay),
+        ctypes.byref(runs), stream, side0, side1), device)
     build.check(code, "dgm_train_packed")
     return (p, m, v, losses), runs.value
 

@@ -25,6 +25,12 @@ runs (``fused_engine_chunk``, ``train_fused_result``) and as packed-replica
 ensembles (``fused_engine_packed_chunk``, ``train_fused_ensemble_packed``).
 The hard-constraint specs, volterra, uat, inverse_heat, the runtime masks,
 the const operand and the packed sweep mode are not ported (ROADMAP.md).
+
+On the card a chunk replays a CUDA graph of GRAPH_STEPS training steps,
+captured on the first call of its shape and cached (kernels/graphs.py), as
+the DGM engine's chunks do; the steps left over run as the same launches.
+The kernels stage every operand in k-tiles, so they take any hidden width
+up to MAX_WIDTH (:func:`engine_plan`).
 """
 
 import ctypes
@@ -41,6 +47,12 @@ from differential_equations_dnn_tpu_torch.equations.advection import (
 )
 from differential_equations_dnn_tpu_torch.kernels import build
 from differential_equations_dnn_tpu_torch.kernels import engine_core
+from differential_equations_dnn_tpu_torch.kernels import graphs
+from differential_equations_dnn_tpu_torch.kernels.graphs import (  # noqa: F401
+    GRAPH_STEPS,
+    clear_graphs,
+    graph_stats,
+)
 from differential_equations_dnn_tpu_torch.kernels.engine_core import (
     check_batch_tile,
 )
@@ -56,6 +68,17 @@ from differential_equations_dnn_tpu_torch.kernels.fused_train import (
 from differential_equations_dnn_tpu_torch.models import MLP
 
 _N_CONSTS = 8  # floats of kernel_consts the CUDA specs read
+
+# csrc/engine_train.cu's plan: the layer kernel's tiles (batch points ×
+# columns), its k-tile and ring depth, and the weight gradient's tiles (k ×
+# m, rows per chunk, ring depth; one thread group per stream).
+_LAYER_TILES = ((8, 64), (8, 32), (2, 32))
+_K_TILE, _STAGES = 32, 3
+_WG_TILES = ((32, 16), (16, 16))
+_WG_ROWS, _WG_STAGES = 16, 4
+# The widest hidden width the plan holds: the weight gradient's k-tiles (16
+# rows at the smallest) along the grid's y extent.
+MAX_WIDTH = engine_core.MAX_GRID_YZ * 16
 
 # ---------------------------------------------------------------------------
 # Stream layout: groups of (value + Taylor pairs + first-only tangents)
@@ -512,18 +535,42 @@ def _check_model(spec, model):
                          f"{spec.p.name!r}")
 
 
+def engine_plan(R, H):
+    """Bytes of shared memory per block that the largest kernel of
+    csrc/engine_train.cu takes at R streams and hidden width H, as the
+    library plans it (``engine_smem_bytes``): the layer kernel's ring of
+    k-tiles of its R·BB operand rows and of the weight beside the tile's
+    running sums, or a weight-gradient tile. Every operand is
+    staged in k-tiles, so the plan is the same at every width; past
+    MAX_WIDTH it raises a ValueError that names the width."""
+    if H > MAX_WIDTH:
+        raise ValueError(
+            f"hidden width {H} is past the {MAX_WIDTH} the fused engine's "
+            f"weight gradient tiles along the grid's y extent")
+    layer = max(4 * (_STAGES * (R * bb * (_K_TILE + 4)
+                                + max(_K_TILE * (bn + 4),
+                                      bn * (_K_TILE + 4)))
+                     + R * bb * (bn + 4))
+                for bb, bn in _LAYER_TILES)
+    weight = max(4 * (_WG_STAGES * R * _WG_ROWS * ((bk + 4) + (bm + 4) + 1)
+                      + (R + 1) * (bk * bm + 2 * bm))
+                 for bk, bm in _WG_TILES)
+    return max(layer, weight)
+
+
 def _check_inputs(spec, model, tensors, lib, n_replicas=None):
     """Device, dtype, shape and contiguity of the flat state (``[N, n]``
     for N packed replicas) and uniforms, the uniforms' width, and the
-    kernel's shared memory at this width."""
+    width and shared memory the kernels' plan holds."""
+    R, H = _n_rows(spec.groups), model.hidden_size
+    engine_plan(R, H)
     _check_state(model, tensors, n_replicas)
     U = tensors["uniforms"].shape[-1]
     if U != spec.n_uniform:
         raise ValueError(f"uniforms have {U} columns, the {spec.p.name!r} "
                          f"spec draws {spec.n_uniform}")
-    H = model.hidden_size
     engine_core.check_state_fits(lib.engine_smem_bytes(spec.kernel_id, H),
-                                 _n_rows(spec.groups), H)
+                                 R, H)
 
 
 def _consts(spec):
@@ -556,11 +603,12 @@ def engine_loss_grad(spec, model, params, u):
                           device=u.device)
     grad = torch.empty_like(params)
     loss = torch.empty((), device=u.device)
+    args = graphs.args_block(lib.engine_args_bytes(), u.device)
     with torch.cuda.device(u.device):
         code = lib.engine_grad(spec.kernel_id, _consts(spec),
                                params.data_ptr(), u.data_ptr(),
                                scratch.data_ptr(), grad.data_ptr(),
-                               loss.data_ptr(), B, H, L,
+                               loss.data_ptr(), args.data_ptr(), B, H, L,
                                build.stream_ptr(u.device))
     build.check(code, "engine_grad")
     engine_loss_grad.launches += 1
@@ -586,27 +634,44 @@ def fused_engine_chunk_plain(spec, model, params, m, v, uniforms, step0,
 def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
                   n_replicas, schedule, total_steps, decay):
     """One ``engine_train_packed`` call on CUDA ``[N, n]`` state, shared by
-    both chunk wrappers (a single run is N = 1). Returns the new (params, m,
-    v, losses [N, K]) and the replica-steps whose step math it enqueued."""
+    both chunk wrappers (a single run is N = 1). The launches run on the
+    shape's side stream (graphs.StepGraph.run); a call of at least
+    GRAPH_STEPS steps first captures the shape's graph if it is not cached.
+    Returns the new (params, m, v, losses [N, K]) and the replica-steps
+    whose step math it enqueued."""
     lib = build.library()
     _check_inputs(spec, model, {"params": params, "m": m, "v": v,
                                 "uniforms": uniforms}, lib, n_replicas)
     K, B, _ = uniforms.shape
     H, L = model.hidden_size, model.num_layers
+    device = uniforms.device
     floats = lib.engine_scratch_floats(spec.kernel_id, B, H, L)
-    engine_core.check_replicas(n_replicas, _n_rows(spec.groups), 4 * floats,
-                               torch.cuda.mem_get_info(uniforms.device)[0])
+    consts = _consts(spec)
+    # The spec's numbers are kernel arguments of the captured graph.
+    key = ("engine", spec.kernel_id, tuple(consts), B, H, L, n_replicas,
+           GRAPH_STEPS, device)
+    if not graphs.cached(key):
+        engine_core.check_replicas(n_replicas, _n_rows(spec.groups),
+                                   4 * floats,
+                                   torch.cuda.mem_get_info(device)[0])
+    entry = graphs.step_graph(key, lambda: graphs.StepGraph(
+        "engine", device, n_replicas, floats, lib.engine_args_bytes(),
+        lib.engine_graph_free))
     p, m, v = params.clone(), m.clone(), v.clone()
     runs = ctypes.c_int(0)
-    scratch = torch.empty(n_replicas * floats, device=uniforms.device)
-    losses = torch.empty((n_replicas, K), device=uniforms.device)
-    with torch.cuda.device(uniforms.device):
-        code = lib.engine_train_packed(
-            spec.kernel_id, _consts(spec), p.data_ptr(), m.data_ptr(),
-            v.data_ptr(), uniforms.data_ptr(), scratch.data_ptr(),
-            losses.data_ptr(), n_replicas, K, B, H, L, float(lrate),
-            int(step0), *engine_core.schedule_args(schedule, total_steps, decay),
-            ctypes.byref(runs), build.stream_ptr(uniforms.device))
+    losses = torch.empty((n_replicas, K), device=device)
+    if K >= GRAPH_STEPS and entry.exec is None:
+        with torch.cuda.device(device):
+            entry.capture(lambda args, scratch, out: lib.engine_graph_build(
+                spec.kernel_id, consts, B, H, L, n_replicas, GRAPH_STEPS,
+                args, scratch, out), "engine_graph_build")
+    code = entry.run(lambda stream, side0, side1: lib.engine_train_packed(
+        spec.kernel_id, consts, p.data_ptr(), m.data_ptr(),
+        v.data_ptr(), uniforms.data_ptr(), entry.scratch.data_ptr(),
+        losses.data_ptr(), entry.args.data_ptr(), entry.exec, GRAPH_STEPS,
+        n_replicas, K, B, H, L, float(lrate), int(step0),
+        *engine_core.schedule_args(schedule, total_steps, decay),
+        ctypes.byref(runs), stream, side0, side1), device)
     build.check(code, "engine_train_packed")
     return (p, m, v, losses), runs.value
 

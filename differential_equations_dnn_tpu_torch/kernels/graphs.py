@@ -1,0 +1,119 @@
+"""The CUDA-graph replay both fused engines share (csrc/fused_step.cuh).
+
+A training chunk of K steps on the card replays a CUDA graph of
+GRAPH_STEPS steps ⌊K/GRAPH_STEPS⌋ times and runs the steps left over as the
+same launches. What a shape's graph holds pointers to stays alive between
+calls in a :class:`StepGraph`: the device argument block each call fills
+with one copy (p, m, v, the uniforms, the losses, lr, the schedule, the
+spec's numbers), the per-replica scratch, and the streams. The graphs are
+cached by shape, least recently used first out (``clear_graphs``), and
+every capture is timed in ``graph_stats``, apart from the chunks' own
+times.
+
+Capture and replay never use the legacy default stream (which
+``current_stream()`` often is): a call's launches run on its shape's side
+stream, which first waits for the caller's stream, and the caller's stream
+then waits for it.
+"""
+
+import collections
+import ctypes
+import time
+
+import torch
+
+from differential_equations_dnn_tpu_torch.kernels import build
+
+# Training steps of one captured CUDA graph (S): a call of K steps replays
+# it ⌊K/S⌋ times and runs the K mod S steps left over as the same launches.
+GRAPH_STEPS = 50
+# Shapes whose graphs (and scratch) stay cached, over both engines.
+GRAPH_CACHE_SIZE = 8
+
+# Graphs captured in this process: their count, the host seconds each
+# capture and instantiation took (kept apart from the chunks' own
+# timings), and the engine of each ("engine" or "dgm").
+graph_stats = {"builds": 0, "build_seconds": [], "engines": []}
+
+
+def args_block(nbytes, device):
+    """Device memory for a kernels' argument block (``StepArgs``), which
+    each C entry point fills with one copy on its stream."""
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+class StepGraph:
+    """What the training launches of one shape keep between calls: the
+    argument block and the per-replica scratch that a captured graph holds
+    pointers to, the side stream it is replayed on, two more streams for
+    the weight gradients of the steps run outside the graph, and the
+    instantiated graph of GRAPH_STEPS steps, once a call needs it."""
+
+    def __init__(self, engine, device, n_replicas, floats, args_bytes,
+                 free):
+        self.engine = engine
+        self.args = args_block(args_bytes, device)
+        self.scratch = torch.empty(n_replicas * floats, device=device)
+        self.stream = torch.cuda.Stream(device)
+        self.branches = [torch.cuda.Stream(device) for _ in range(2)]
+        self.exec = None
+        self._free = free
+
+    def capture(self, build_graph, what):
+        """Capture and instantiate the graph: ``build_graph(args, scratch,
+        exec_out)`` is the engine's C entry point bound to its shape; raises
+        if CUDA refuses either."""
+        exec_ = ctypes.c_void_p()
+        t0 = time.perf_counter()
+        build.check(build_graph(self.args.data_ptr(), self.scratch.data_ptr(),
+                                ctypes.byref(exec_)), what)
+        self.exec = exec_.value
+        graph_stats["builds"] += 1
+        graph_stats["build_seconds"].append(time.perf_counter() - t0)
+        graph_stats["engines"].append(self.engine)
+
+    def free(self):
+        self.stream.synchronize()
+        if self.exec is not None:
+            build.check(self._free(self.exec), "graph free")
+            self.exec = None
+
+    def run(self, call, device):
+        """``call(stream, side0, side1)`` (the engine's training entry point)
+        on this shape's streams, ordered after and before the caller's."""
+        caller = torch.cuda.current_stream(device)
+        self.stream.wait_stream(caller)
+        with torch.cuda.device(device):
+            code = call(self.stream.cuda_stream,
+                        *(b.cuda_stream for b in self.branches))
+        caller.wait_stream(self.stream)
+        return code
+
+
+_GRAPHS: "collections.OrderedDict[tuple, StepGraph]" = \
+    collections.OrderedDict()
+
+
+def cached(key):
+    """True if ``key``'s shape has a cached entry."""
+    return key in _GRAPHS
+
+
+def step_graph(key, make):
+    """The cached :class:`StepGraph` of ``key``, made by ``make()`` on
+    first use; the least recently used of more than GRAPH_CACHE_SIZE is
+    freed."""
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        entry = _GRAPHS[key] = make()
+        while len(_GRAPHS) > GRAPH_CACHE_SIZE:
+            _GRAPHS.popitem(last=False)[1].free()
+    _GRAPHS.move_to_end(key)
+    return entry
+
+
+def clear_graphs():
+    """Free every cached graph (the next call of each shape captures
+    anew)."""
+    while _GRAPHS:
+        _GRAPHS.popitem()[1].free()

@@ -30,12 +30,18 @@ one fp32 ``torch.addmm`` / ``torch.baddbmm`` call (TF32 off) on the same
 operands, a yardstick the port never calls. ``--dgm-outputs PATH`` saves
 the DGM kernels' outputs at fixed inputs (FitzHugh–Nagumo and Fredholm:
 one step's loss and gradient, a 120-step single chunk, a 53-step packed
-chunk of 16 and 4 replicas); with ``--compare-to OLD`` it compares them
-with a file that an earlier tree saved, tensor by tensor, bit for bit. It
-uses only entry points every version of the DGM engine has, so an earlier
-tree's package can run it: ``PYTHONPATH=<that tree> python -P <this file>
---dgm-outputs OLD`` (``-P`` keeps this file's directory off the path).
-Needs a CUDA device.
+chunk of 16 and 4 replicas), ``--engine-outputs PATH`` the MLP engine's
+(heat2d, wave, simple_ode and poisson at H = 128: one step's loss and
+gradient, a 120-step single chunk, a 53-step packed chunk of 8 replicas);
+with ``--compare-to OLD`` either compares them with a file that an earlier
+tree saved, tensor by tensor, bit for bit. Both use only entry points every
+version of the engines has, so an earlier tree's package can run them:
+``PYTHONPATH=<that tree> python -P <this file> --dgm-outputs OLD`` (``-P``
+keeps this file's directory off the path). ``--engine`` times constant-lr
+heat on the generic engine instead of kernel #1. ``--probe-engine`` times
+each kernel of the MLP engine alone (back to back, behind a spin kernel) at
+heat2d's layout: B = 256 and 2 048 at H = 128, B = 256 at H = 512. Needs a
+CUDA device.
 
     python -m differential_equations_dnn_tpu_torch.kernels.profile \
         fitzhugh_nagumo wave --replicas 1 4 8 16
@@ -84,8 +90,9 @@ DGM = ("fitzhugh_nagumo", "fredholm")
 SPIN_CYCLES = 500_000_000  # about 0.3 s: the host queues a timed run behind it
 
 
-def _chunk_fn(name, device):
-    """A closure running STEPS steps of NAME's fused route from step 0."""
+def _chunk_fn(name, device, engine=False):
+    """A closure running STEPS steps of NAME's fused route from step 0
+    (``engine``: constant-lr heat on the generic engine, not kernel #1)."""
     prob = PROBLEMS[name]()
     d = prob.defaults
     model = prob.default_model(generator=generator(0), device=device)
@@ -100,7 +107,7 @@ def _chunk_fn(name, device):
                                           total_steps=d.iterations)
     p = ft.pack_params(model)
     z = torch.zeros_like(p)
-    if name == "heat" and d.schedule == "constant":
+    if name == "heat" and d.schedule == "constant" and not engine:
         u = step_uniforms(0, 0, STEPS, d.batch_size, device)
         return lambda: ft.heat_fused_train_chunk(model, p, z, z, u, 0,
                                                  d.lrate)
@@ -178,13 +185,14 @@ def _event_us(run):
     return start.elapsed_time(end) * 1e3 / STEPS
 
 
-def profile(name, device, n_replicas=None, scan_taps=False):
+def profile(name, device, n_replicas=None, scan_taps=False, engine=False):
     """``scan_taps``: profile the scan trainer's step (None: the equation's
-    default taps) rather than the fused route."""
+    default taps) rather than the fused route; ``engine``: constant-lr heat
+    on the generic engine."""
     if scan_taps is not False:
         run = _scan_fn(name, device, scan_taps)
     elif n_replicas is None:
-        run = _chunk_fn(name, device)
+        run = _chunk_fn(name, device, engine)
     else:
         run = _packed_fn(name, device, n_replicas)
     run()
@@ -205,6 +213,8 @@ def profile(name, device, n_replicas=None, scan_taps=False):
         f"replica-step)")
     if scan_taps is not False:
         label = f"{name} scan step (taps={scan_taps or 'default'})"
+    elif engine and name == "heat":
+        label = f"{name} on the generic engine (constant lr)"
     launches = sum(calls for _, calls in times.values()) / STEPS
     share = total / step_us
     # Above 1 the kernels overlap (the DGM step's weight-gradient branches),
@@ -397,6 +407,37 @@ def probe(device):
                   f"({'addmm' if n == 1 else 'baddbmm'}, fp32, TF32 off)")
 
 
+# engine_probe's kernels, as csrc/engine_train.cu numbers them.
+_ENGINE_PROBES = ("layer forward", "layer backward", "weight gradient",
+                  "loss", "input")
+
+
+def probe_engine(device, B=256, H=128, launches=200):
+    """Device µs per launch of each MLP-engine kernel at heat2d's layout (R =
+    11, D = 3) with batch B and width H, at the tile a step picks, launched
+    back to back behind a spin kernel (each alone on the card, unlike in a
+    step, where the weight gradients run side by side)."""
+    from differential_equations_dnn_tpu_torch.kernels import graphs
+
+    lib = build.library()
+    n = 3 * H + H + H * H + H + H + 1
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = 0.1 * torch.randn(2 * n, device=device, generator=gen)
+    scratch = torch.rand(lib.engine_scratch_floats(6, B, H, 1),
+                         device=device, generator=gen)
+    args = graphs.args_block(lib.engine_args_bytes(), device)
+    stream = build.stream_ptr(device)
+    for kind, what in enumerate(_ENGINE_PROBES):
+        def run(calls=launches):
+            build.check(lib.engine_probe(
+                kind, B, H, calls, params.data_ptr(), scratch.data_ptr(),
+                args.data_ptr(), stream), "engine_probe")
+
+        ms = _spin_ms(run, launches)
+        print(f"engine probe B={B} H={H}: {what}: {ms * 1e3:.2f} us per "
+              f"launch")
+
+
 def dgm_outputs(device):
     """The DGM kernels' outputs at fixed inputs, as CPU tensors by name."""
     out = {}
@@ -422,6 +463,52 @@ def dgm_outputs(device):
                                     d.lrate, **kw)
         packed = fd.fused_dgm_packed_chunk(spec, models[0], p, z, z, u[:53],
                                            100, d.lrate, n_replicas, **kw)
+        for what, tensors in (("single", single), ("packed", packed)):
+            for part, t in zip(("p", "m", "v", "losses"), tensors):
+                out[f"{name} {what} {part}"] = t
+    torch.cuda.synchronize()
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+# The MLP engine's outputs: (equation, hidden layers) at H = 128.
+ENGINE_OUTPUTS = (("heat2d", 3), ("wave", 3), ("simple_ode", 1),
+                  ("poisson", 3))
+
+
+def engine_outputs(device):
+    """The MLP engine's outputs at fixed inputs, as CPU tensors by name:
+    per equation of ENGINE_OUTPUTS (tanh MLP D → 128×L → 1, replica r drawn
+    from replica_generator(0, r)), one step's loss and gradient, a 120-step
+    single chunk (graph boundaries at 50 and 100) and a 53-step packed
+    chunk of 8 replicas, each from step 100 under a cosine schedule over
+    300 steps; p, m, v and the losses. Only entry points every version of
+    the engine has."""
+    from differential_equations_dnn_tpu_torch.models import MLP
+
+    out = {}
+    n_replicas = 8
+    for name, L in ENGINE_OUTPUTS:
+        prob = PROBLEMS[name]()
+        d = prob.defaults
+        B = d.batch_size
+        spec = fe.spec_for(prob)
+        models = [MLP(spec.input_dim, 1, 128, L, "tanh",
+                      generator=replica_generator(0, r), device=device)
+                  for r in range(n_replicas)]
+        p = engine_core.stack_replicas([ft.pack_params(m) for m in models])
+        z = torch.zeros_like(p)
+        u = step_uniforms(0, 100, 120, B, device, spec.n_uniform)
+        kw = dict(schedule="cosine", total_steps=300)
+        loss, grad = fe.engine_loss_grad(spec, models[0], p[0].contiguous(),
+                                         u[0])
+        out[f"{name} step loss"] = loss.reshape(1)
+        out[f"{name} step grad"] = grad
+        single = fe.fused_engine_chunk(spec, models[0], p[0].contiguous(),
+                                       z[0].clone(), z[0].clone(), u, 100,
+                                       d.lrate, **kw)
+        packed = fe.fused_engine_packed_chunk(spec, models[0], p, z, z,
+                                              u[:53], 100, d.lrate,
+                                              n_replicas, **kw)
         for what, tensors in (("single", single), ("packed", packed)):
             for part, t in zip(("p", "m", "v", "losses"), tensors):
                 out[f"{name} {what} {part}"] = t
@@ -464,9 +551,17 @@ def main():
                         "DGM gemm against the library instead")
     parser.add_argument("--dgm-outputs", metavar="PATH",
                         help="save the DGM kernels' outputs at fixed inputs")
+    parser.add_argument("--engine-outputs", metavar="PATH",
+                        help="save the MLP engine's outputs at fixed inputs")
     parser.add_argument("--compare-to", metavar="OLD",
-                        help="with --dgm-outputs: compare with OLD, saved "
-                        "by an earlier tree")
+                        help="with --dgm-outputs or --engine-outputs: "
+                        "compare with OLD, saved by an earlier tree")
+    parser.add_argument("--probe-engine", action="store_true",
+                        help="time each MLP-engine kernel and tile variant "
+                        "at heat2d's layout instead")
+    parser.add_argument("--engine", action="store_true",
+                        help="time constant-lr heat on the generic engine "
+                        "instead of kernel #1")
     parser.add_argument("--solve-args", type=json.loads, default={},
                         metavar="JSON", help="more arguments of the fused "
                         "--solve-seeds solves, as a JSON object (such as "
@@ -477,15 +572,22 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip())
-    if args.dgm_outputs:
-        outs = dgm_outputs(device)
-        torch.save(outs, args.dgm_outputs)
-        if args.compare_to:
-            print(f"DGM outputs against {args.compare_to}:")
-            compare_outputs(outs, torch.load(args.compare_to))
-        return
+    for path, make, what in ((args.dgm_outputs, dgm_outputs, "DGM"),
+                             (args.engine_outputs, engine_outputs,
+                              "MLP engine")):
+        if path:
+            outs = make(device)
+            torch.save(outs, path)
+            if args.compare_to:
+                print(f"{what} outputs against {args.compare_to}:")
+                compare_outputs(outs, torch.load(args.compare_to))
+            return
     if args.probe:
         probe(device)
+        return
+    if args.probe_engine:
+        for B, H in ((256, 128), (2048, 128), (256, 512)):
+            probe_engine(device, B, H)  # heat2d, its ×8 batch, H = 512
         return
     for name in args.scan or []:
         if args.solve_seeds:
@@ -498,7 +600,7 @@ def main():
         return
     for name in args.names:
         for n_replicas in args.replicas or [None]:
-            profile(name, device, n_replicas)
+            profile(name, device, n_replicas, engine=args.engine)
         if args.solve_seeds:
             solve_seeds(name, args.solve_seeds, **args.solve_args)
 

@@ -52,9 +52,9 @@ SPEC_NAMES = sorted(fe.SPECS)
 _DIM = {"simple_ode": 1, "heat2d": 3}
 
 
-def _pair(name, seed=0):
+def _pair(name, seed=0, hidden=H):
     """A JAX MLP's parameters and the same parameters as a port MLP."""
-    jm = JaxMLP(input_dim=_DIM.get(name, 2), output_dim=1, hidden_size=H,
+    jm = JaxMLP(input_dim=_DIM.get(name, 2), output_dim=1, hidden_size=hidden,
                 num_layers=L, activation="tanh")
     jp = jax.tree.map(np.asarray, jm.init(jax.random.key(seed)))
     return jm, jp, params_from_jax(jp, "tanh")
@@ -82,6 +82,27 @@ def test_step_math_matches_jax(name):
         spec, ft.unpack_params(tm, ft.pack_params(tm)), torch.from_numpy(u),
         B, L)
     assert loss_t.shape == (1, 1)
+    np.testing.assert_allclose(loss_t.numpy(), np.asarray(loss_j), rtol=1e-5)
+    for gt, gj in zip(grads_t, grads_j):
+        gj = np.asarray(gj)
+        np.testing.assert_allclose(gt.numpy(), gj, rtol=1e-5,
+                                   atol=1e-6 * max(1.0, np.abs(gj).max()))
+
+
+@pytest.mark.parametrize("name", ["heat2d", "wave"])
+def test_step_math_matches_jax_at_width_256(name):
+    """(a) At H = 256, a width the H100 engine took only after its k-tiled
+    redesign: the port's plain step math against JAX engine_step_math (its
+    plain form, no Pallas) on B = 8 points, tolerances as at H = 16."""
+    jm, jp, tm = _pair(name, seed=5, hidden=256)
+    jspec = jfe.spec_for(JAX_PROBLEMS[name]())
+    spec = fe.spec_for(PROBLEMS[name]())
+    u = _uniforms(spec, (8,), seed=5)
+    loss_j, grads_j = jfe.engine_step_math(jspec, jft.pack_params(jm, jp),
+                                           jnp.asarray(u), 8, L)
+    loss_t, grads_t = fe.engine_step_math(
+        spec, ft.unpack_params(tm, ft.pack_params(tm)), torch.from_numpy(u),
+        8, L)
     np.testing.assert_allclose(loss_t.numpy(), np.asarray(loss_j), rtol=1e-5)
     for gt, gj in zip(grads_t, grads_j):
         gj = np.asarray(gj)
@@ -244,13 +265,18 @@ def test_chunk_checks_its_inputs():
 
 
 def test_state_fits_the_h100_rule():
-    """The rule holds the kernel's shared memory per block (which the
-    library reports; tests/test_torch_gpu.py checks it at heat2d's widths)
-    to the H100's 227 KB. The plain version has no such limit: heat2d's 11
-    streams at H=256 run on the CPU."""
-    engine_core.check_state_fits(engine_core.SMEM_LIMIT, 11, 128)
+    """The rule holds the kernels' shared memory per block (which the
+    library reports and fused_engine.engine_plan mirrors;
+    tests/test_torch_gpu.py checks the two agree) to the H100's 227 KB: the
+    k-tiled plan fits heat2d's 11 streams at H = 256 and 512, a plan past
+    227 KB raises, and so does a width past MAX_WIDTH. The plain version
+    has no such limit: heat2d's 11 streams at H=256 run on the CPU."""
+    for width in (128, 256, 512):
+        engine_core.check_state_fits(fe.engine_plan(11, width), 11, width)
     with pytest.raises(ValueError, match="shared memory"):
         engine_core.check_state_fits(engine_core.SMEM_LIMIT + 1, 11, 256)
+    with pytest.raises(ValueError, match="width"):
+        fe.engine_plan(11, fe.MAX_WIDTH + 1)
     wide = MLP(3, 1, 256, 1, "tanh")
     loss, grad = fe.engine_loss_grad(fe.spec_for(PROBLEMS["heat2d"]()), wide,
                                      ft.pack_params(wide), torch.rand(4, 4))

@@ -194,19 +194,27 @@ def test_solve_routes_launch_their_kernels(cuda, name, schedule, route):
 
 
 def test_engine_smem_rule(cuda):
-    """The library's shared memory per block fits the H100 at H=128 for
-    every spec and does not at H=256 for heat2d's 11 streams, where the
-    wrapper raises before launching."""
+    """The library's shared memory per block is fused_engine.engine_plan's
+    for every spec at H = 128, 256 and 512, the same at every width and
+    within the H100's 227 KB; an unknown spec gets -1. So heat2d's 11
+    streams at H = 256, which the first design refused, train: its chunk
+    runs and lowers the loss; past MAX_WIDTH the plan names the width."""
     lib = build.library()
     for spec in fe.SPECS.values():
-        assert 0 < lib.engine_smem_bytes(spec.kernel_id, 128) \
-            <= engine_core.SMEM_LIMIT
+        R = fe._n_rows(spec.groups)
+        for H in (128, 256, 512):
+            need = lib.engine_smem_bytes(spec.kernel_id, H)
+            assert need == fe.engine_plan(R, H) <= engine_core.SMEM_LIMIT
     assert lib.engine_smem_bytes(99, 128) == -1
-    wide = MLP(3, 1, 256, 1, "tanh").to(cuda)
+    spec = fe.spec_for(PROBLEMS["heat2d"]())
+    wide = MLP(3, 1, 256, 3, "tanh", generator=generator(0), device=cuda)
     p = ft.pack_params(wide)
-    with pytest.raises(ValueError, match="shared memory"):
-        fe.engine_loss_grad(fe.spec_for(PROBLEMS["heat2d"]()), wide, p,
-                            torch.rand(4, 4, device=cuda))
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, 0, 60, 256, cuda, spec.n_uniform)
+    _, _, _, losses = fe.fused_engine_chunk(spec, wide, p, z, z, u, 0, 1e-3)
+    assert torch.isfinite(losses).all() and losses[-1] < losses[0]
+    with pytest.raises(ValueError, match=f"width {fe.MAX_WIDTH + 1}"):
+        fe.engine_plan(11, fe.MAX_WIDTH + 1)
 
 
 @pytest.mark.parametrize("name", ["fitzhugh_nagumo", "fredholm"])
@@ -612,5 +620,146 @@ def test_dgm_graph_is_captured_once_per_shape(cuda):
     z = torch.zeros_like(p[0])
     outs.append(fd.fused_dgm_chunk(spec, model, p[0], z, z, u, 100, lr, **kw))
     assert fd.graph_stats["builds"] == builds + 2
+    for out in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
+
+
+# ---------------------------------------------------------------------------
+# The MLP engine's graph replay (kernels #6 and #4/#5 at the MLP layout)
+# ---------------------------------------------------------------------------
+
+
+def _engine_case(cuda, name, n_replicas, K, step0=100, hidden=None):
+    """NAME's default shapes (hidden: the width of a tanh MLP of the default
+    depth instead): N replicas from replica_generator(0, r) (one:
+    generator(0)), K uniforms from step0, a cosine schedule over 300."""
+    prob = PROBLEMS[name]()
+    spec = fe.spec_for(prob)
+    gens = ([generator(0)] if n_replicas is None else
+            [replica_generator(0, r) for r in range(n_replicas)])
+    if hidden is None:
+        models = [prob.default_model(generator=g, device=cuda) for g in gens]
+    else:
+        L = prob.default_model().num_layers
+        models = [MLP(spec.input_dim, 1, hidden, L, "tanh", generator=g,
+                      device=cuda) for g in gens]
+    p = engine_core.stack_replicas([ft.pack_params(m) for m in models])
+    u = step_uniforms(0, step0, K, prob.defaults.batch_size, cuda,
+                      spec.n_uniform)
+    kw = dict(schedule="cosine", total_steps=300)
+    return spec, models[0], p, u, prob.defaults.lrate, kw
+
+
+def _single_steps(spec, model, state, u, step0, lr, kw):
+    """The K steps of u run one call per step (no graph), and their
+    losses."""
+    losses = []
+    for k in range(u.shape[0]):
+        *state, loss = fe.fused_engine_chunk(spec, model, *state, u[k:k + 1],
+                                             step0 + k, lr, **kw)
+        losses.append(loss)
+    return state, torch.cat(losses)
+
+
+@pytest.mark.parametrize("K", [1, 7, 50, 53, 120])
+def test_engine_graph_boundaries_equal_single_steps(cuda, K):
+    """heat2d, K steps in one call (⌊K/50⌋ graph replays, K mod 50 steps
+    launched from C) equal the same steps run one call per step, bit for
+    bit; so does the run cut at 53."""
+    spec, model, p, u, lr, kw = _engine_case(cuda, "heat2d", None, K)
+    z = torch.zeros_like(p[0])
+    state, ref = _single_steps(spec, model, (p[0], z, z), u, 100, lr, kw)
+    pk, mk, vk, lk = fe.fused_engine_chunk(spec, model, p[0], z, z, u, 100,
+                                           lr, **kw)
+    assert torch.equal(lk, ref)
+    assert all(torch.equal(a, b) for a, b in zip((pk, mk, vk), state))
+    if K > 53:
+        p2, m2, v2, l2 = fe.fused_engine_chunk(spec, model, p[0], z, z,
+                                               u[:53], 100, lr, **kw)
+        p2, m2, v2, l2b = fe.fused_engine_chunk(spec, model, p2, m2, v2,
+                                                u[53:], 153, lr, **kw)
+        assert torch.equal(torch.cat([l2, l2b]), lk)
+        assert torch.equal(p2, pk) and torch.equal(m2, mk)
+        assert torch.equal(v2, vk)
+
+
+@pytest.mark.parametrize("n_replicas", [1, 4, 8])
+def test_engine_packed_graph_equals_single(cuda, n_replicas):
+    """wave × N over 53 steps (the packed graph at N; heat2d's odd n puts
+    odd replicas' weights off 16-byte alignment, wave's too): every replica
+    equals the single chunk on its state bit for bit."""
+    spec, model, p, u, lr, kw = _engine_case(cuda, "wave", n_replicas, 53)
+    z = torch.zeros_like(p)
+    pk, mk, vk, lk = fe.fused_engine_packed_chunk(spec, model, p, z, z, u,
+                                                  100, lr, n_replicas, **kw)
+    for r in range(n_replicas):
+        p1, m1, v1, l1 = fe.fused_engine_chunk(spec, model, p[r].contiguous(),
+                                               z[r].clone(), z[r].clone(), u,
+                                               100, lr, **kw)
+        assert torch.equal(l1, lk[r]) and torch.equal(p1, pk[r])
+        assert torch.equal(m1, mk[r]) and torch.equal(v1, vk[r])
+
+
+def test_engine_graph_replays_each_calls_values(cuda):
+    """Two calls of one shape with different step0, lr and schedule replay
+    one captured graph, and each equals its own steps run one call per step
+    (no graph): the argument block never serves a stale value."""
+    spec, model, p, u, _, _ = _engine_case(cuda, "heat2d", None, 53)
+    z = torch.zeros_like(p[0])
+    fe.clear_graphs()
+    builds = fe.graph_stats["builds"]
+    for step0, lr, kw in ((100, 1e-3, dict(schedule="cosine",
+                                           total_steps=300)),
+                          (7, 3e-4, dict(schedule="exponential",
+                                         total_steps=90, decay=0.3))):
+        state, ref = _single_steps(spec, model, (p[0], z, z), u, step0, lr,
+                                   kw)
+        out = fe.fused_engine_chunk(spec, model, p[0], z, z, u, step0, lr,
+                                    **kw)
+        assert torch.equal(out[3], ref)
+        assert all(torch.equal(a, b) for a, b in zip(out[:3], state))
+    assert fe.graph_stats["builds"] == builds + 1
+
+
+@pytest.mark.parametrize("name", ["heat2d", "simple_ode"])
+@pytest.mark.parametrize("hidden", [256, 512])
+def test_engine_wide_chunks_match_plain(cuda, name, hidden):
+    """53 steps (a graph replay and 3 steps from C) at H = 256 and 512,
+    widths the first design refused for heat2d: against the plain version,
+    losses rtol 1e-4 and parameters rtol 1e-4 plus 2·lr, as at H = 128."""
+    spec, model, p, u, lr, kw = _engine_case(cuda, name, None, 53,
+                                             hidden=hidden)
+    z = torch.zeros_like(p[0])
+    pk, _, _, lk = fe.fused_engine_chunk(spec, model, p[0], z, z, u, 100, lr,
+                                         **kw)
+    pp, _, _, lp = fe.fused_engine_chunk_plain(spec, model, p[0], z, z, u,
+                                               100, lr, **kw)
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=2 * lr)
+
+
+def test_engine_graph_is_captured_once_per_shape(cuda):
+    """Two calls in a row with fresh tensors replay one captured graph and
+    give the same result, which a graph captured anew (the cache cleared,
+    as in a fresh process) gives too; the step-math runs count every
+    step."""
+    spec, model, p, u, lr, kw = _engine_case(cuda, "wave", None, 60)
+    fe.clear_graphs()
+    builds = fe.graph_stats["builds"]
+    fe.fused_engine_chunk.step_math_runs = 0
+    outs = []
+    for _ in range(2):
+        fresh = p[0].clone()
+        z = torch.zeros_like(fresh)
+        outs.append(fe.fused_engine_chunk(spec, model, fresh, z, z.clone(),
+                                          u.clone(), 100, lr, **kw))
+    assert fe.graph_stats["builds"] == builds + 1
+    assert fe.graph_stats["engines"][-1] == "engine"
+    assert fe.fused_engine_chunk.step_math_runs == 120
+    fe.clear_graphs()
+    z = torch.zeros_like(p[0])
+    outs.append(fe.fused_engine_chunk(spec, model, p[0], z, z, u, 100, lr,
+                                      **kw))
+    assert fe.graph_stats["builds"] == builds + 2
     for out in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))

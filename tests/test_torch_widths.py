@@ -2,7 +2,10 @@
 of their shared-memory formulas (the checks a wrapper makes before it
 loads the library): kernel #1 (csrc/heat_train.cu) refuses a width it
 cannot hold, kernel #2 (csrc/mlp_forward.cu) plans a tile for any width
-the trainers train. No card is needed: the checks run before any launch."""
+the trainers train, and the MLP engine (csrc/engine_train.cu, kernels #4,
+#5, #6) stages every operand in k-tiles, so its plan is the same at every
+width up to its stated limit. No card is needed: the checks run before any
+launch."""
 
 import pytest
 
@@ -11,6 +14,9 @@ torch = pytest.importorskip("torch")
 from differential_equations_dnn_tpu_torch.core import generator  # noqa: E402
 from differential_equations_dnn_tpu_torch.core.prng import (  # noqa: E402
     step_uniforms,
+)
+from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
+    fused_engine as fe,
 )
 from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
     fused_train as ft,
@@ -75,3 +81,29 @@ def test_mlp_forward_width_limit():
     assert taylor_mlp.mlp_forward_plan(2, 3119, 1)[0] == 8
     assert taylor_mlp.mlp_forward_plan(2, 3120, 1) == (0, None)
     assert taylor_mlp._widest() == 3119
+
+
+ENGINE_STREAMS = (3, 5, 7, 9, 11)  # simple_ode, advection, heat, wave, heat2d
+
+
+@pytest.mark.parametrize("R", ENGINE_STREAMS)
+@pytest.mark.parametrize("H", [128, 256, 512])
+def test_engine_plan_takes_width(R, H):
+    """The MLP engine's shared memory per block fits the H100 at every
+    stream count and width the JAX engine trains, and does not grow with H:
+    its largest kernel at R = 11 is the 32 × 16 weight-gradient tile (four
+    16-row chunks of 11 streams, 186 624 B)."""
+    need = fe.engine_plan(R, H)
+    assert 0 < need <= SMEM_LIMIT
+    assert need == fe.engine_plan(R, 32) == fe.engine_plan(R, 4096)
+    assert fe.engine_plan(11, H) == 186_624
+
+
+@pytest.mark.parametrize("R", ENGINE_STREAMS)
+def test_engine_plan_width_limit(R):
+    """Past MAX_WIDTH (65 535 k-tiles of 16 along the grid's y extent) the
+    plan raises a ValueError that names the width."""
+    assert fe.MAX_WIDTH == 65_535 * 16
+    fe.engine_plan(R, fe.MAX_WIDTH)
+    with pytest.raises(ValueError, match=f"width {fe.MAX_WIDTH + 1}"):
+        fe.engine_plan(R, fe.MAX_WIDTH + 1)
