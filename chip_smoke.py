@@ -25,13 +25,14 @@ Phases (each raises on failure, so any failure exits non-zero):
               packed-replica kernel (#5) at the ensembles' shapes (wave
               N=8, FitzHugh–Nagumo N=16, Fredholm N=4), where every
               replica must also equal the single-replica chunk bit for bit.
-              The chunks of both engines replay a captured CUDA graph of
-              graphs.GRAPH_STEPS steps: its capture and instantiation are
-              timed apart from the chunks (the first call of a shape), and
-              1 000-step chunks (FitzHugh–Nagumo single and N=16, heat2d
-              single, wave N=8) give the steady-state time per step; a
-              heat2d chunk at hidden width 256 is held against its plain
-              version.
+              The chunks of the heat kernel (#1) and both engines replay a
+              captured CUDA graph of graphs.GRAPH_STEPS steps: its capture
+              and instantiation are timed apart from the chunks (the first
+              call of a shape), and 1 000-step chunks (FitzHugh–Nagumo
+              single and N=16, heat2d single, wave N=8) give the
+              steady-state time per step; a heat2d chunk and a heat (#1)
+              chunk at hidden width 256, and #3 at H = 256 and 512 for each
+              activation, are held against their plain versions.
 4. solve    — each main path through ``solve(..., engine="fused")`` at its
               equation's reference defaults (seed 0): constant-lr heat on
               the heat kernel, heat with a cosine schedule and the six other
@@ -46,7 +47,8 @@ Phases (each raises on failure, so any failure exits non-zero):
               finite loss history of the right length, a finite solution of
               the problem's shape, MAE under its bound, and its kernels
               launched by that run (counts set to 0 just before it and read
-              just after).
+              just after). Two fused solves run at hidden width 256:
+              heat2d on the generic engine and heat on the heat kernel.
 5. result   — a JSON line of the kernels, then as the last line
               {"ok": true, "device": {...}}.
 """
@@ -93,10 +95,14 @@ SOLVES = [("heat", None, 0.05), ("heat", "cosine", 0.05),
 ENSEMBLES = [("fitzhugh_nagumo", {"causal_eps": 0.0}, 0.0088),
              ("wave", {"ensemble": 8}, 0.05),
              ("fredholm", {"ensemble": 4}, 0.0134)]
-# A fused solve at hidden width 256, which the MLP engine's first design
-# refused for heat2d's 11 streams: (equation, model widths (D, O, H, L), MAE
-# bound as for the default width).
-WIDE_SOLVES = [("heat2d", (3, 1, 256, 3), 0.05)]
+# Fused solves at hidden width 256, which the first designs refused (the
+# MLP engine for heat2d's 11 streams, the heat kernel #1): (equation, model
+# widths (D, O, H, L), MAE bound as for the default width).
+WIDE_SOLVES = [("heat2d", (3, 1, 256, 3), 0.05),
+               ("heat", (2, 1, 256, 3), 0.05)]
+# Widths past the first designs of kernels #1 (H = 221) and #3 (H = 191).
+HEAT_WIDE = 256
+STREAMS_WIDE = (256, 512)
 # The scan trainer's solves: (equation, solve's extra arguments, MAE bound),
 # the bounds as for the fused solves.
 SCAN_SOLVES = [("heat", {"taps": "pallas"}, 0.05), ("heat", {}, 0.05),
@@ -343,6 +349,27 @@ def check_heat_kernels(model, prob):
           f"({n_far} of {p.numel()} params differ by > 1e-5); kernel "
           f"{ms:.4f} ms ({ms / CHUNK_STEPS * 1e3:.1f} us/step), plain "
           f"{plain_ms:.4f} ms ({plain_ms / CHUNK_STEPS * 1e3:.1f} us/step)")
+
+    # The same chunk at H = HEAT_WIDE, a width the first design refused;
+    # the same tolerances.
+    from differential_equations_dnn_tpu_torch.core.prng import generator
+    from differential_equations_dnn_tpu_torch.models import MLP
+
+    wide = MLP(2, 1, HEAT_WIDE, 3, "tanh", generator=generator(1), device=dev)
+    pw = ft.pack_params(wide)
+    zw = torch.zeros_like(pw)
+    pk, _, _, lk = ft.heat_fused_train_chunk(wide, pw, zw, zw, uk, 0, lr)
+    pp, _, _, lp = ft.heat_fused_train_chunk_plain(wide, pw, zw, zw, uk, 0,
+                                                   lr)
+    check_close(f"chunk losses H={HEAT_WIDE}", lk, lp, rtol=1e-4, atol=0.0)
+    check_close(f"chunk params H={HEAT_WIDE}", pk, pp, rtol=1e-4,
+                atol=2 * lr)
+    ms = cuda_ms(lambda: ft.heat_fused_train_chunk(wide, pw, zw, zw, uk, 0,
+                                                   lr))
+    print(f"heat_fused_train_chunk [K={CHUNK_STEPS}, B=64, H={HEAT_WIDE}]: "
+          f"max|dloss| {max_abs(lk, lp):.3g}, max|dparam| "
+          f"{max_abs(pk, pp):.3g}; kernel {ms:.4f} ms "
+          f"({ms / CHUNK_STEPS * 1e3:.1f} us/step)")
     return rows
 
 
@@ -397,6 +424,26 @@ def check_heat_streams():
                 **bound(2 * 7 * B * (2 * H + L * H * H + H * O),
                         4 * (4 * B * 2 + n_params(2, H, L, O) + 7 * B * O)))
             print(f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    # Widths past the first design's H = 191, at heat's batch, with the
+    # same tolerance.
+    for H_wide in STREAMS_WIDE:
+        for act in ACTIVATIONS:
+            model = MLP(2, O, H_wide, L, act, generator=generator(1),
+                        device=dev)
+            b = Heat1D().sample(64, generator(2), dev)
+            pts = (b["xt"], b["x0"], b["xb1"], b["xb2"])
+            with torch.no_grad():
+                got = tm.heat_fused_streams(model, *pts)
+                want = tm.heat_fused_streams_plain(model, *pts)
+            for s, (g, w) in enumerate(zip(got, want)):
+                check_close(f"heat_fused_streams {act} H={H_wide} stream "
+                            f"{s}", g, w, rtol=1e-5, atol=1e-5)
+            ms = device_ms(lambda: tm.heat_fused_streams(model, *pts))
+            print(f"heat_fused_streams [{act}, B=64, H={H_wide}, L={L}]: "
+                  f"max|diff| "
+                  f"{max(max_abs(g, w) for g, w in zip(got, want)):.3g}; "
+                  f"device time {ms:.4f} ms; plan "
+                  f"{tm.heat_streams_plan(H_wide, O)}")
     # The gradient through the Function's rematerialised backward against
     # autograd through the Taylor taps, at heat's shape. Tolerance: rtol
     # 1e-4 / atol 1e-6, the two forwards differing by fp32 reassociation.
@@ -791,14 +838,15 @@ def phase_kernels():
 
 
 def report_graphs():
-    """The graphs both engines captured so far: their capture and
+    """The graphs the fused trainers captured so far: their capture and
     instantiation, in host seconds, apart from the chunks' times (each
     chunk time above was taken after a warm-up call, which captured its
     shape's graph)."""
     from differential_equations_dnn_tpu_torch.kernels import graphs
 
     stats = graphs.graph_stats
-    for engine, what in (("engine", "MLP engine"), ("dgm", "DGM")):
+    for engine, what in (("engine", "MLP engine"), ("dgm", "DGM"),
+                         ("heat", "heat kernel (#1)")):
         secs = [t for t, e in zip(stats["build_seconds"], stats["engines"])
                 if e == engine]
         if not secs:

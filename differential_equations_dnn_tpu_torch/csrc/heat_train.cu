@@ -1,4 +1,5 @@
-// K Adam steps of the heat-equation PINN (tanh MLP 2 -> H x L -> 1).
+// K Adam steps of the heat-equation PINN (tanh MLP 2 -> H x L -> 1), and one
+// step's loss and gradient.
 //
 // Replaces: differential_equations_dnn_tpu/kernels/fused_train.py::
 // _train_kernel (reached through heat_fused_train_chunk). That kernel keeps
@@ -7,521 +8,508 @@
 // (about 600 KB) against 227 KB of shared memory per block. They do fit the
 // 50 MB L2 many times over, with the step's activations (about 2.8 MB).
 //
-// What bounds it on the H100: one step at batch 64 is about 0.1 GFLOP of
-// fp32 spread over a dozen dependent phases (forward layers, loss, backward
-// layers, Adam), each with a few thousand outputs. The card is far from its
-// fp32 or HBM limits; launch latency and the serial dependence between the
-// phases are the limit.
+// What bounds it on the H100: one step at batch 64 is about 0.13 GFLOP of
+// fp32 (2 us at the 67 TFLOP/s peak) spread over a dozen dependent phases,
+// each with a few thousand outputs. The card is far from its fp32 or HBM
+// limits; the gaps between launches, each phase's latency and how well its
+// blocks fill the 132 SMs are the limit.
 //
-// What the design does about it (the simple, right design of this slice):
-// p, m and v are each ONE flat fp32 buffer, with the six tensors at fixed
-// offsets. Each step is a fixed sequence of launches, enqueued by a host
-// loop in C with no synchronisation and no copy back to the host:
-//   fwd_layer  x (L+1)  7-stream stacked Taylor forward; z and act(z) saved
-//   loss       x 1      output layer, residuals, loss[k], output gradient G
-//   bwd_weight x (L+2)  dW = act(z)^T dz and db, block-tiled; one partial
-//                       sum per stream (7x the blocks of one whole-batch
-//                       reduction, 64 rows each at B = 64)
-//   bwd_data   x (L+1)  g = dz W^T, then the Taylor VJP (act_bwd)
-//   adam       x 1      sums the 7 partials, then Adam over the whole flat
-//                       buffer, bias correction exp(t log b)
-// Every reduction runs in a fixed order with no atomics, so every run is
-// bit-identical to the last and a run cut into chunks (step0) equals the
-// uncut run bit for bit. Every product is fp32 FFMA: exact fp32
-// ("highest"), no tensor cores.
+// What the design does about it (the MLP engine's, csrc/engine_train.cu,
+// with heat's 7 streams, Taylor rules, VJP and loss; the layer kernel and
+// the weight gradient are the engine's own, csrc/stream_layer.cuh and
+// csrc/fused_step.cuh):
+//   * dednn::capture_steps records GRAPH_STEPS steps as one CUDA graph that
+//     heat_train replays; the per-call values (p, m, v, the uniforms, the
+//     losses, lr, step0) come from a device argument block (StepArgs)
+//     written by one copy per call, so one graph serves every call of its
+//     shape. A call of K steps replays it floor(K/S) times and enqueues the
+//     K mod S steps left over as the same launches.
+//   * The layer products are register-blocked fp32 FFMA over a tile of
+//     batch points x all 7 streams x a column tile, so the tile holds every
+//     stream of its points: heat's Taylor rules of tanh (forward) and their
+//     VJP (backward, in the first design's association) run in the same
+//     kernel's epilogue (HeatRules), one thread per (point, column) reading
+//     the 7 streams' sums from shared memory. k-tiles of the operand rows
+//     and of W are staged by cp.async into a ring of buffers, so shared
+//     memory per block does not grow with H.
+//   * The loss kernel spreads the output layer's dot products, heat's point
+//     loss, its cotangent G and the output layer's data gradient over the
+//     batch, one warp per batch point; a one-warp kernel on a side lane sums
+//     the point losses.
+//   * The weight gradients (fused_step.cuh's weight_grad_kernel) sum all 7
+//     streams of their tile in one block and apply Adam in their epilogue.
+//     Each forks onto a side stream (a graph branch, the two sides in turn)
+//     as soon as its inputs are written and the data path's last read of
+//     its weight is done, so they run beside the backward's data path; the
+//     input layer's runs last, on the data path. (At B = 64 the card has
+//     room for both: timed on the H100, this beat running them all after
+//     the data path on three lanes, as the MLP engine does at its larger
+//     batches.)
 //
-// At these sizes latency, not bandwidth or arithmetic, sets each kernel's
-// time, so each one keeps the chain of loads per thread short: fwd_layer
-// and bwd_data give every batch row a block of 8 warps that split the
-// contraction (partial sums added in warp order), bwd_weight splits its
-// reduction by stream, and weights are staged with unrolled float4 loads
-// that are all in flight at once.
+// One step's launches (L hidden layers):
+//   input      x 1      the 7 stacked input rows X from the uniforms, the
+//                       first layer and its Taylor rules
+//   layer      x L      hidden layers forward: z = a W + mask b, tanh rules
+//   loss       x 1      output layer, residuals, point losses, G, and the
+//                       output layer's data gradient through the VJP at L
+//   layer      x L      hidden layers backward: g = dz W^T, the tanh VJP
+//   loss_sum   x 1      loss = the point losses' batch mean (a side stream)
+//   weight     x L + 2  dW = A^T dz and db over all streams; Adam (training)
+// Every reduction runs in the first design's order, with no atomics: each
+// product output is the sum, in slice order, of 8 k-slices of ceil(K/8),
+// each an fmaf chain from 0 (a tile folds its running sum at each slice
+// boundary), then the bias; each output-layer dot product lane-strided fmaf
+// chains and a butterfly shuffle; the batch loss lane w's rows w, w + 32,
+// ... in row order, then the 32 lanes in order, over B; each weight
+// gradient the sum in stream order of per-stream fmaf chains over the
+// stream's B rows in order. So runs are bit-identical, a chunk cut anywhere
+// equals the uncut run, and the outputs equal the first design's. Every
+// product is fp32 FFMA: exact fp32 ("highest"), no tensor cores.
 //
 // Row layout of every [7B, width] activation: stream s, batch row b at row
 // s*B + b, streams (value, x-tangent, xx-tangent, t-tangent, IC, BC x=0,
 // BC x=x_max), as fused_train._stack_inputs orders them.
 #include "common.cuh"
+#include "fused_step.cuh"
+#include "stream_layer.cuh"
 
 namespace {
 
-constexpr int kStreams = 7;
-constexpr int kTile = 32;          // bwd_weight: 32 x 32 outputs per block
-// fwd_layer and bwd_data: one block per batch row; kSplitWarps warps split
-// the contraction, and each lane keeps a register tile of kStreams x
-// kColsPerLane outputs at columns lane, lane + 32, ... (coalesced global
-// and conflict-free shared-memory reads).
-constexpr int kSplitWarps = 8;
-constexpr int kColsPerLane = 4;
-constexpr int kColsPerWarp = 32 * kColsPerLane;
-constexpr int kLossThreads = 1024;
-constexpr int kAdamThreads = 256;
+using dednn::Layout;
+using dednn::StepArgs;
+using dednn::Streams;
+using dednn::write_args;
 
-constexpr float kB1 = 0.9f, kB2 = 0.999f, kEps = 1e-8f;
-// As the JAX package rounds them: 1 - b in double, then to fp32.
-constexpr float kOneMinusB1 = static_cast<float>(1.0 - 0.9);
-constexpr float kOneMinusB2 = static_cast<float>(1.0 - 0.999);
-constexpr float kLogB1 = static_cast<float>(-0.10536051565782628);
-constexpr float kLogB2 = static_cast<float>(-0.0010005003335835344);
+constexpr int kR = 7;                   // streams per batch point
+constexpr int kD = 2;                   // the inputs (x, t)
+constexpr unsigned kValueMask = 0x71u;  // streams 0, 4, 5, 6 take the bias
+constexpr int kInputBB = 4;             // input kernel: batch points per block
+constexpr int kInputBN = 32;            //   and columns
+constexpr int kLossWarps = 4;           // loss kernel: points (warps) per block
+constexpr int kLossLanes = 32;          // the batch loss: 32 lane sums in order
 
-__device__ __forceinline__ bool value_row(int row, int B) {
-  return row < B || row >= 4 * B;  // value, IC and BC streams get the bias
+__device__ __forceinline__ constexpr bool is_value(int s) {
+  return s == 0 || s >= 4;
 }
 
-// z = in @ w + mask * b for the 7 streams of batch row blockIdx.x, then the
-// Taylor rules of tanh, for the kColsPerWarp columns j0.. of blockIdx.y.
-// Block (32, kSplitWarps): warp y sums its own slice of the k range (a short
-// chain of loads straight from L2) into a kStreams x kColsPerLane register
-// tile; the slices' partial sums are then added in warp order through
-// shared memory. For the first layer (u != nullptr) the 7 input rows are
-// built from the row's uniforms and also written to x_out.
-__global__ void fwd_layer_kernel(const float* __restrict__ in, int k_in,
-                                 const float* __restrict__ u, float x_max,
-                                 float t_max, float* __restrict__ x_out,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ b, int k_out, int B,
-                                 float* __restrict__ z_out,
-                                 float* __restrict__ a_out) {
-  extern __shared__ float smem[];
-  float* in_s = smem;                          // [kStreams][k_in]
-  float* part_s = smem + kStreams * k_in;      // [kSplitWarps][kStreams][kColsPerWarp]
-  const int lane = threadIdx.x, warp = threadIdx.y;
-  const int tid = warp * 32 + lane;
-  const int row = blockIdx.x;
-  const int j0 = blockIdx.y * kColsPerWarp;
-  if (u != nullptr) {  // k_in == 2
-    if (tid == 0) {
-      const float x = x_max * u[2 * row], t = t_max * u[2 * row + 1];
-      const float rows[2 * kStreams] = {x,    t,    1.0f, 0.0f, 0.0f,
-                                        0.0f, 0.0f, 1.0f, x,    0.0f,
-                                        0.0f, t,    x_max, t};
-      for (int i = 0; i < 2 * kStreams; ++i) in_s[i] = rows[i];
-      if (blockIdx.y == 0) {
-        for (int s = 0; s < kStreams; ++s) {
-          x_out[2 * (s * B + row)] = rows[2 * s];
-          x_out[2 * (s * B + row) + 1] = rows[2 * s + 1];
-        }
-      }
-    }
-  } else {
-    for (int i = tid; i < kStreams * k_in; i += 32 * kSplitWarps) {
-      const int s = i / k_in, k = i - s * k_in;
-      in_s[i] = in[static_cast<size_t>(s * B + row) * k_in + k];
-    }
-  }
-  __syncthreads();
+// The heat problem's numbers, by value (as the first design took them).
+struct HeatConsts {
+  float x_max, t_max, kappa;
+};
 
-  const int k_per_warp = (k_in + kSplitWarps - 1) / kSplitWarps;
-  const int k_begin = warp * k_per_warp;
-  const int k_end = min(k_in, k_begin + k_per_warp);
-  int col[kColsPerLane];
+// a = the Taylor rules of tanh on the 7 pre-activations zc
+// (fused_train._act_fwd).
+__device__ __forceinline__ void act_fwd(const float (&zc)[kR],
+                                        float (&a)[kR]) {
+  const float a0 = tanhf(zc[0]);
+  const float d = 1.0f - a0 * a0;
+  a[0] = a0;
+  a[1] = d * zc[1];
+  a[2] = d * zc[2] - 2.0f * a0 * d * (zc[1] * zc[1]);
+  a[3] = d * zc[3];
 #pragma unroll
-  for (int c = 0; c < kColsPerLane; ++c)
-    col[c] = min(j0 + lane + 32 * c, k_out - 1);
-  float z[kStreams][kColsPerLane] = {};
-#pragma unroll 4
-  for (int k = k_begin; k < k_end; ++k) {
-    float wk[kColsPerLane];
-#pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c)
-      wk[c] = w[static_cast<size_t>(k) * k_out + col[c]];
-#pragma unroll
-    for (int s = 0; s < kStreams; ++s) {
-      const float x = in_s[s * k_in + k];
-#pragma unroll
-      for (int c = 0; c < kColsPerLane; ++c) z[s][c] = fmaf(x, wk[c], z[s][c]);
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < kStreams; ++s)
-#pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c)
-      part_s[(warp * kStreams + s) * kColsPerWarp + lane + 32 * c] = z[s][c];
-  __syncthreads();
-
-  for (int jj = tid; jj < kColsPerWarp; jj += 32 * kSplitWarps) {
-    const int j = j0 + jj;
-    if (j >= k_out) break;
-    float zc[kStreams];
-#pragma unroll
-    for (int s = 0; s < kStreams; ++s) {
-      float sum = part_s[s * kColsPerWarp + jj];
-      for (int p = 1; p < kSplitWarps; ++p)
-        sum += part_s[(p * kStreams + s) * kColsPerWarp + jj];
-      zc[s] = sum;
-    }
-    const float bj = b[j];
-    zc[0] += bj;
-    zc[4] += bj;
-    zc[5] += bj;
-    zc[6] += bj;
-    const float a0 = tanhf(zc[0]);
-    const float d = 1.0f - a0 * a0;
-    float a[kStreams];
-    a[0] = a0;
-    a[1] = d * zc[1];
-    a[2] = d * zc[2] - 2.0f * a0 * d * (zc[1] * zc[1]);
-    a[3] = d * zc[3];
-#pragma unroll
-    for (int s = 4; s < kStreams; ++s) a[s] = tanhf(zc[s]);
-#pragma unroll
-    for (int s = 0; s < kStreams; ++s) {
-      const size_t at = static_cast<size_t>(s * B + row) * k_out + j;
-      z_out[at] = zc[s];
-      a_out[at] = a[s];
-    }
-  }
+  for (int s = 4; s < kR; ++s) a[s] = tanhf(zc[s]);
 }
 
-// The output layer (O = 1), the residuals, loss = mean point loss, and the
-// output gradient G [7B]. One block; warp w takes batch rows w, w + 32, ...
-// and reduces each dot product with a butterfly shuffle (fixed order).
-__global__ void loss_kernel(const float* __restrict__ a, int h,
-                            const float* __restrict__ w_out,
-                            const float* __restrict__ b_out,
-                            const float* __restrict__ u, int B, float x_max,
-                            float kappa, float* __restrict__ loss,
-                            float* __restrict__ G) {
-  __shared__ float partial[kLossThreads / 32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  const float s2 = 2.0f / B;
-  const float bo = b_out[0];
-  float sum = 0.0f;
-  for (int row = warp; row < B; row += n_warps) {
-    float out[kStreams];
-#pragma unroll
-    for (int s = 0; s < kStreams; ++s) {
-      const float* ar = a + static_cast<size_t>(s * B + row) * h;
-      float acc = 0.0f;
-#pragma unroll 4
-      for (int k = lane; k < h; k += 32) acc = fmaf(ar[k], w_out[k], acc);
-      for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      out[s] = acc;
-    }
-    out[0] += bo;
-    out[4] += bo;
-    out[5] += bo;
-    out[6] += bo;
-    const float r = out[3] - kappa * out[2];          // u_t - kappa u_xx
-    const float r0 = out[4] - sinf(x_max * u[2 * row]);  // IC residual
-    if (lane == 0) {
-      sum += r * r + r0 * r0 + out[5] * out[5] + out[6] * out[6];
-      G[row] = 0.0f;
-      G[B + row] = 0.0f;
-      G[2 * B + row] = (-kappa * s2) * r;
-      G[3 * B + row] = s2 * r;
-      G[4 * B + row] = s2 * r0;
-      G[5 * B + row] = s2 * out[5];
-      G[6 * B + row] = s2 * out[6];
-    }
-  }
-  if (lane == 0) partial[warp] = sum;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.0f;
-    for (int i = 0; i < n_warps; ++i) total += partial[i];
-    *loss = total / B;
-  }
-}
-
-// The partial sums of stream s = blockIdx.z, written at dw + s * n, db + s * n
-// (n = one flat parameter buffer): dw[k, j] = sum of a[r, k] dz[r, j] and
-// db[j] = sum of dz[r, j] over the stream's B rows in order (db is 0 for
-// the tangent streams, which carry no bias). Block (32, 8) owns a 32 x 32
-// tile of dw; blocks with blockIdx.y == 0 also produce db for their columns.
-__global__ void bwd_weight_kernel(const float* __restrict__ a, int k_in,
-                                  const float* __restrict__ dz, int k_out,
-                                  int B, int n, float* __restrict__ dw,
-                                  float* __restrict__ db) {
-  __shared__ float a_s[kTile][kTile + 1];
-  __shared__ float d_s[kTile][kTile + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int j = blockIdx.x * kTile + tx;
-  const int k0 = blockIdx.y * kTile;
-  const int stream = blockIdx.z;
-  const int R = (stream + 1) * B;
-  const bool bias = blockIdx.y == 0 && ty == 0;
-  const bool value = value_row(stream * B, B);
-  dw += static_cast<size_t>(stream) * n;
-  db += static_cast<size_t>(stream) * n;
-  float acc[kTile / 8] = {};
-  float bacc = 0.0f;
-  for (int r0 = stream * B; r0 < R; r0 += kTile) {
-    for (int rr = ty; rr < kTile; rr += 8) {
-      const int r = r0 + rr;
-      a_s[rr][tx] = (r < R && k0 + tx < k_in)
-                        ? a[static_cast<size_t>(r) * k_in + k0 + tx]
-                        : 0.0f;
-      d_s[rr][tx] =
-          (r < R && j < k_out) ? dz[static_cast<size_t>(r) * k_out + j] : 0.0f;
-    }
-    __syncthreads();
-    const int rows = min(kTile, R - r0);
-    for (int rr = 0; rr < rows; ++rr) {
-      const float d = d_s[rr][tx];
-#pragma unroll
-      for (int i = 0; i < kTile / 8; ++i)
-        acc[i] = fmaf(a_s[rr][ty + 8 * i], d, acc[i]);
-      if (bias) bacc += d;
-    }
-    __syncthreads();
-  }
-  if (j >= k_out) return;
-#pragma unroll
-  for (int i = 0; i < kTile / 8; ++i) {
-    const int k = k0 + ty + 8 * i;
-    if (k < k_in) dw[static_cast<size_t>(k) * k_out + j] = acc[i];
-  }
-  if (bias) db[j] = value ? bacc : 0.0f;
-}
-
-// g = dz @ w^T for the 7 streams of batch row blockIdx.x, then the VJP of
-// the tanh Taylor rules (fused_train._act_bwd) at the previous layer: with
-// a0 = tanh(z0), d = 1 - a0^2, d' = -2 a0 d,
+// dz = the VJP of act_fwd at the previous layer (fused_train._act_bwd),
+// given gs = the gradient w.r.t. the 7 activations, a0 = tanh(z0), the
+// tangents' pre-activations z1, z2, z3 and the constraint streams'
+// activations ac: with d = 1 - a0^2, d' = -2 a0 d,
 //   dz0 = d g0 + d'(z1 g1 + z2 g2 + z3 g3) - 2 z1^2 d (d - 2 a0^2) g2
 //   dz1 = d g1 - 4 a0 d z1 g2,  dz2 = d g2,  dz3 = d g3
-//   dzc = (1 - tanh^2 zc) gc for the three constraint streams.
-// Block (32, kSplitWarps): w is staged in shared memory with rows padded by
-// one float (lane l reading row k = l + 32 c hits bank (l + j) mod 32);
-// warp y sums its own slice of the j range, and the slices' partial sums
-// are added in warp order through shared memory.
-__global__ void bwd_data_kernel(const float* __restrict__ dz, int k_out,
-                                const float* __restrict__ w, int k_in,
-                                const float* __restrict__ z_prev,
-                                const float* __restrict__ a_prev, int B,
-                                float* __restrict__ dz_prev) {
-  extern __shared__ float smem[];
-  const int ldw = k_out + 1;
-  const int lane = threadIdx.x, warp = threadIdx.y;
-  const int tid = warp * 32 + lane;
-  const int row = blockIdx.x;
-  float* w_s = smem;                        // [k_in][k_out + 1]
-  float* d_s = w_s + k_in * ldw;            // [kStreams][k_out]
-  float* part_s = d_s + kStreams * k_out;   // [kSplitWarps][kStreams][kColsPerWarp]
-  dednn::stage(w_s, ldw, w, k_out, k_in, k_out);
-  for (int i = tid; i < kStreams * k_out; i += 32 * kSplitWarps) {
-    const int s = i / k_out, j = i - s * k_out;
-    d_s[i] = dz[static_cast<size_t>(s * B + row) * k_out + j];
+//   dzc = (1 - ac^2) gc for the three constraint streams.
+__device__ __forceinline__ void act_bwd(const float (&gs)[kR], float a0,
+                                        float z1, float z2, float z3,
+                                        const float (&ac)[kR],
+                                        float (&dz)[kR]) {
+  const float d = 1.0f - a0 * a0;
+  const float dp = -2.0f * a0 * d;
+  dz[0] = d * gs[0] + dp * (z1 * gs[1] + z2 * gs[2] + z3 * gs[3]) -
+          2.0f * (z1 * z1) * d * (d - 2.0f * a0 * a0) * gs[2];
+  dz[1] = d * gs[1] - 4.0f * a0 * d * z1 * gs[2];
+  dz[2] = d * gs[2];
+  dz[3] = d * gs[3];
+#pragma unroll
+  for (int s = 4; s < kR; ++s) dz[s] = (1.0f - ac[s] * ac[s]) * gs[s];
+}
+
+// x, hidden from the optimizer: the VJP sees a value of unknown origin, as
+// the first design's did (each read from memory), so its products fuse into
+// FMAs the same way.
+__device__ __forceinline__ float opaque(float x) {
+  asm volatile("" : "+f"(x));
+  return x;
+}
+
+// The VJP at flat index i of a [7B, H] layer whose streams are `stride`
+// apart: dz[i + s stride] from the gradient gs and the layer's z and a.
+__device__ __forceinline__ void vjp_at(const float (&gs)[kR],
+                                       const float* __restrict__ z,
+                                       const float* __restrict__ a, size_t i,
+                                       size_t stride, float* __restrict__ dz) {
+  float ac[kR] = {}, out[kR];
+#pragma unroll
+  for (int s = 4; s < kR; ++s) ac[s] = a[i + s * stride];
+  act_bwd(gs, a[i], z[i + stride], z[i + 2 * stride], z[i + 3 * stride], ac,
+          out);
+#pragma unroll
+  for (int s = 0; s < kR; ++s) dz[i + s * stride] = out[s];
+}
+
+// Heat's Taylor rules and their VJP as the shared layer kernel's epilogue
+// (stream_layer.cuh).
+struct HeatRules {
+  static constexpr int R = kR;
+  __device__ static void fwd(const float (&sums)[kR], float bias,
+                             float* __restrict__ z_out,
+                             float* __restrict__ a_out, size_t at,
+                             size_t stride) {
+    float zc[kR], a[kR];
+#pragma unroll
+    for (int s = 0; s < kR; ++s) zc[s] = is_value(s) ? sums[s] + bias : sums[s];
+    act_fwd(zc, a);
+#pragma unroll
+    for (int s = 0; s < kR; ++s) {
+      z_out[at + s * stride] = zc[s];
+      a_out[at + s * stride] = a[s];
+    }
+  }
+  __device__ static void bwd(const float (&gs)[kR],
+                             const float* __restrict__ z_prev,
+                             const float* __restrict__ a_prev,
+                             float* __restrict__ dz, size_t at,
+                             size_t stride) {
+    vjp_at(gs, z_prev, a_prev, at, stride, dz);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Kernels
+// ---------------------------------------------------------------------------
+
+// The first layer, for step base + j: one thread per batch point builds its
+// 7 input rows from the uniforms (written to X by the blocks of the first
+// column tile), then thread (b, m) takes z = X w_in + mask b_in for the 7
+// streams at column m (the 8-slice sum of the first design: slice d < 2 is
+// the one product x_d w_dm) and the Taylor rules. Block of kInputBB batch
+// points x kInputBN columns.
+__global__ void __launch_bounds__(kInputBB* kInputBN)
+    input_kernel(const StepArgs* __restrict__ args, int j, HeatConsts c,
+                 int H, int B, float* __restrict__ X, float* __restrict__ Z,
+                 float* __restrict__ A) {
+  __shared__ float x_s[kInputBB][kR * kD];
+  const float* w_in = args->p;  // at offset 0
+  const float* b_in = w_in + kD * H;
+  const int b0 = blockIdx.y * kInputBB;
+  const int tid = threadIdx.x;
+  if (tid < kInputBB && b0 + tid < B) {
+    const int b = b0 + tid;
+    const float* u =
+        args->u + (static_cast<size_t>(args->base + j) * B + b) * kD;
+    const float x = c.x_max * u[0], t = c.t_max * u[1];
+    const float rows[kR * kD] = {x,    t, 1.0f, 0.0f, 0.0f,    0.0f, 0.0f,
+                                 1.0f, x, 0.0f, 0.0f, t,       c.x_max, t};
+#pragma unroll
+    for (int i = 0; i < kR * kD; ++i) x_s[tid][i] = rows[i];
+    if (blockIdx.x == 0) {
+#pragma unroll
+      for (int i = 0; i < kR * kD; ++i)
+        X[static_cast<size_t>((i / kD) * B + b) * kD + i % kD] = rows[i];
+    }
   }
   __syncthreads();
+  const int bl = tid / kInputBN, m = blockIdx.x * kInputBN + tid % kInputBN;
+  const int b = b0 + bl;
+  if (b >= B || m >= H) return;
+  const float w0 = w_in[m], w1 = w_in[H + m], bm = b_in[m];
+  float zc[kR], a[kR];
+#pragma unroll
+  for (int s = 0; s < kR; ++s) {
+    float sum = fmaf(x_s[bl][s * kD], w0, 0.0f);
+    sum = sum + fmaf(x_s[bl][s * kD + 1], w1, 0.0f);
+    sum = sum + 0.0f;  // the empty slices 2 .. 7
+    zc[s] = is_value(s) ? sum + bm : sum;
+  }
+  act_fwd(zc, a);
+#pragma unroll
+  for (int s = 0; s < kR; ++s) {
+    const size_t at = static_cast<size_t>(s * B + b) * H + m;
+    Z[at] = zc[s];
+    A[at] = a[s];
+  }
+}
 
-  const int j_per_warp = (k_out + kSplitWarps - 1) / kSplitWarps;
-  const int j_begin = warp * j_per_warp;
-  const int j_end = min(k_out, j_begin + j_per_warp);
-  const size_t stride = static_cast<size_t>(B) * k_in;  // one stream
-  for (int k0 = 0; k0 < k_in; k0 += kColsPerWarp) {
-    int kk[kColsPerLane];
+// The output layer (O = 1) and heat's point loss, for step base + j, one
+// warp per batch point b (kLossWarps per block): out_s = a_L[s, b] w_out
+// (+ b_out on the value streams), each dot product lane-strided fmaf chains
+// and a butterfly shuffle; the residuals r = u_t - kappa u_xx and r0 = u0 -
+// sin x; the point loss to PL[b]; G[s B + b] = the loss's cotangent of
+// out_s (2/B times the residual terms); then the output layer's data
+// gradient g = G w_out^T and its VJP at layer L into DZ_L.
+__global__ void __launch_bounds__(32 * kLossWarps)
+    loss_kernel(const StepArgs* __restrict__ args, int j, HeatConsts c,
+                long long w_off, long long b_off, int H, int B,
+                const float* __restrict__ z, const float* __restrict__ a,
+                float* __restrict__ G, float* __restrict__ PL,
+                float* __restrict__ dz) {
+  const int lane = threadIdx.x % 32;
+  const int warps = gridDim.x * kLossWarps;
+  const float* w_out = args->p + w_off;
+  const float bo = args->p[b_off];
+  const float* u = args->u + static_cast<size_t>(args->base + j) * B * kD;
+  const float s2 = 2.0f / B;
+  const size_t stride = static_cast<size_t>(B) * H;
+  for (int b = blockIdx.x * kLossWarps + threadIdx.x / 32; b < B;
+       b += warps) {
+    float out[kR];
 #pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c)
-      kk[c] = min(k0 + lane + 32 * c, k_in - 1);
-    float g[kStreams][kColsPerLane] = {};
-    for (int j = j_begin; j < j_end; ++j) {
-      float wk[kColsPerLane];
-#pragma unroll
-      for (int c = 0; c < kColsPerLane; ++c) wk[c] = w_s[kk[c] * ldw + j];
-#pragma unroll
-      for (int s = 0; s < kStreams; ++s) {
-        const float d = d_s[s * k_out + j];
-#pragma unroll
-        for (int c = 0; c < kColsPerLane; ++c)
-          g[s][c] = fmaf(d, wk[c], g[s][c]);
-      }
+    for (int s = 0; s < kR; ++s) {
+      const float* ar = a + static_cast<size_t>(s * B + b) * H;
+      float acc = 0.0f;
+#pragma unroll 4
+      for (int k = lane; k < H; k += 32) acc = fmaf(ar[k], w_out[k], acc);
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      out[s] = is_value(s) ? acc + bo : acc;
     }
+    // Every lane holds the same outputs (the butterfly's sums commute), so
+    // every lane computes the same loss and cotangent.
+    const float r = out[3] - c.kappa * out[2];            // u_t - kappa u_xx
+    const float r0 = out[4] - sinf(c.x_max * u[kD * b]);  // IC residual
+    float g[kR];
+    g[0] = 0.0f;
+    g[1] = 0.0f;
+    g[2] = (-c.kappa * s2) * r;
+    g[3] = s2 * r;
+    g[4] = s2 * r0;
+    g[5] = s2 * out[5];
+    g[6] = s2 * out[6];
+    if (lane == 0) {
+      PL[b] = r * r + r0 * r0 + out[5] * out[5] + out[6] * out[6];
 #pragma unroll
-    for (int s = 0; s < kStreams; ++s)
-#pragma unroll
-      for (int c = 0; c < kColsPerLane; ++c)
-        part_s[(warp * kStreams + s) * kColsPerWarp + lane + 32 * c] = g[s][c];
-    __syncthreads();
-
-    for (int kl = tid; kl < kColsPerWarp; kl += 32 * kSplitWarps) {
-      const int k = k0 + kl;
-      if (k >= k_in) break;
-      float gs[kStreams];
-#pragma unroll
-      for (int s = 0; s < kStreams; ++s) {
-        float sum = part_s[s * kColsPerWarp + kl];
-        for (int p = 1; p < kSplitWarps; ++p)
-          sum += part_s[(p * kStreams + s) * kColsPerWarp + kl];
-        gs[s] = sum;
-      }
-      const size_t at = static_cast<size_t>(row) * k_in + k;
-      const float z1 = z_prev[at + stride], z2 = z_prev[at + 2 * stride];
-      const float z3 = z_prev[at + 3 * stride];
-      const float a0 = a_prev[at];
-      const float d = 1.0f - a0 * a0;
-      const float dp = -2.0f * a0 * d;
-      dz_prev[at] = d * gs[0] + dp * (z1 * gs[1] + z2 * gs[2] + z3 * gs[3]) -
-                    2.0f * (z1 * z1) * d * (d - 2.0f * a0 * a0) * gs[2];
-      dz_prev[at + stride] = d * gs[1] - 4.0f * a0 * d * z1 * gs[2];
-      dz_prev[at + 2 * stride] = d * gs[2];
-      dz_prev[at + 3 * stride] = d * gs[3];
-#pragma unroll
-      for (int s = 4; s < kStreams; ++s) {
-        const float ac = a_prev[at + s * stride];
-        dz_prev[at + s * stride] = (1.0f - ac * ac) * gs[s];
-      }
+      for (int s = 0; s < kR; ++s) G[s * B + b] = g[s];
     }
-    __syncthreads();  // part_s is rewritten for the next k0
-  }
-}
-
-__device__ __forceinline__ float sum_partials(const float* g, int n, int i) {
-  float sum = g[i];
+#pragma unroll 4
+    for (int k = lane; k < H; k += 32) {
+      const float w = w_out[k];
+      float gs[kR];
+      // The product over the one output column, then the 7 empty slices;
+      // opaque, as the first design's sums read back from shared memory.
 #pragma unroll
-  for (int s = 1; s < kStreams; ++s) sum += g[static_cast<size_t>(s) * n + i];
-  return sum;
-}
-
-// grad = the sum of the 7 per-stream partials, in stream order.
-__global__ void sum_partials_kernel(const float* __restrict__ partials, int n,
-                                    float* __restrict__ grad) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) grad[i] = sum_partials(partials, n, i);
-}
-
-// Adam with torch defaults on the summed partial gradients; t is the
-// 1-indexed global step.
-__global__ void adam_kernel(float* __restrict__ p, float* __restrict__ m,
-                            float* __restrict__ v,
-                            const float* __restrict__ partials, int n,
-                            float lr, float t) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float c1 = 1.0f - expf(t * kLogB1);
-  const float c2 = 1.0f - expf(t * kLogB2);
-  const float gi = sum_partials(partials, n, i);
-  const float mi = kB1 * m[i] + kOneMinusB1 * gi;
-  const float vi = kB2 * v[i] + kOneMinusB2 * (gi * gi);
-  m[i] = mi;
-  v[i] = vi;
-  p[i] = p[i] - lr * (mi / c1) / (sqrtf(vi / c2) + kEps);
-}
-
-size_t fwd_smem(int k_in) {
-  return static_cast<size_t>(kStreams) * (k_in + kSplitWarps * kColsPerWarp) *
-         sizeof(float);
-}
-
-size_t bwd_data_smem(int k_in, int k_out) {
-  return (static_cast<size_t>(k_in) * (k_out + 1) +
-          kStreams * (k_out + kSplitWarps * kColsPerWarp)) *
-         sizeof(float);
-}
-
-int n_params(int H, int L) { return 3 * H + L * H * H + L * H + H + 1; }
-
-// The per-stream gradient partials [kStreams][n] at the end of scratch.
-float* partials_of(float* scratch, int B, int H, int L) {
-  const int R = kStreams * B;
-  return scratch + 2 * R + 3 * static_cast<size_t>(L + 1) * R * H + R;
-}
-
-// Enqueue one step's forward and backward: loss -> *loss, the gradient's
-// per-stream partials -> partials_of(scratch) (each in the flat layout of
-// p). scratch holds heat_scratch_floats(B, H, L).
-cudaError_t grad_step(const float* p, const float* u, float* scratch,
-                      float* loss, int B, int H, int L, float x_max,
-                      float t_max, float kappa, cudaStream_t stream) {
-  const int R = kStreams * B;
-  const size_t layer = static_cast<size_t>(R) * H;
-  const int n = n_params(H, L);
-  float* X = scratch;                // [R, 2]
-  float* Z = X + 2 * R;              // [L + 1][R, H] pre-activations
-  float* A = Z + (L + 1) * layer;    // [L + 1][R, H] activations
-  float* G = A + (L + 1) * layer;    // [R] output gradient
-  float* DZ = G + R;                 // [L + 1][R, H] gradients w.r.t. Z
-  float* grad = partials_of(scratch, B, H, L);
-
-  const float* w_in = p;
-  const float* b_in = w_in + 2 * H;
-  const float* w_hid = b_in + H;
-  const float* b_hid = w_hid + static_cast<size_t>(L) * H * H;
-  const float* w_out = b_hid + static_cast<size_t>(L) * H;
-  const float* b_out = w_out + H;
-  float* gw_in = grad;
-  float* gb_in = gw_in + 2 * H;
-  float* gw_hid = gb_in + H;
-  float* gb_hid = gw_hid + static_cast<size_t>(L) * H * H;
-  float* gw_out = gb_hid + static_cast<size_t>(L) * H;
-  float* gb_out = gw_out + H;
-
-  const dim3 split(32, kSplitWarps);
-  const dim3 fwd_grid(B, dednn::ceil_div(H, kColsPerWarp));
-  fwd_layer_kernel<<<fwd_grid, split, fwd_smem(2), stream>>>(
-      nullptr, 2, u, x_max, t_max, X, w_in, b_in, H, B, Z, A);
-  for (int l = 1; l <= L; ++l) {
-    fwd_layer_kernel<<<fwd_grid, split, fwd_smem(H), stream>>>(
-        A + (l - 1) * layer, H, nullptr, x_max, t_max, nullptr,
-        w_hid + (l - 1) * H * H, b_hid + (l - 1) * H, H, B, Z + l * layer,
-        A + l * layer);
+      for (int s = 0; s < kR; ++s) gs[s] = opaque(fmaf(g[s], w, 0.0f) + 0.0f);
+      vjp_at(gs, z, a, static_cast<size_t>(b) * H + k, stride, dz);
+    }
   }
-  loss_kernel<<<1, kLossThreads, 0, stream>>>(A + L * layer, H, w_out, b_out,
-                                              u, B, x_max, kappa, loss, G);
-
-  const dim3 tile(32, 8);
-  bwd_weight_kernel<<<dim3(1, dednn::ceil_div(H, kTile), kStreams), tile, 0,
-                      stream>>>(A + L * layer, H, G, 1, B, n, gw_out, gb_out);
-  bwd_data_kernel<<<B, split, bwd_data_smem(H, 1), stream>>>(
-      G, 1, w_out, H, Z + L * layer, A + L * layer, B, DZ + L * layer);
-  for (int l = L; l >= 1; --l) {
-    const dim3 grid(dednn::ceil_div(H, kTile), dednn::ceil_div(H, kTile),
-                    kStreams);
-    bwd_weight_kernel<<<grid, tile, 0, stream>>>(
-        A + (l - 1) * layer, H, DZ + l * layer, H, B, n,
-        gw_hid + (l - 1) * H * H, gb_hid + (l - 1) * H);
-    bwd_data_kernel<<<B, split, bwd_data_smem(H, H), stream>>>(
-        DZ + l * layer, H, w_hid + (l - 1) * H * H, H, Z + (l - 1) * layer,
-        A + (l - 1) * layer, B, DZ + (l - 1) * layer);
-  }
-  bwd_weight_kernel<<<dim3(dednn::ceil_div(H, kTile), 1, kStreams), tile, 0,
-                      stream>>>(X, 2, DZ, H, B, n, gw_in, gb_in);
-  return cudaGetLastError();
 }
 
-cudaError_t prepare(int H) {
-  cudaError_t err = dednn::allow_smem(bwd_data_kernel, bwd_data_smem(H, H));
+// The step's loss = the batch mean of the point losses, into slot base + j:
+// lane w sums rows w, w + 32, ... in row order, then the 32 sums in lane
+// order, over B.
+__global__ void loss_sum_kernel(const StepArgs* __restrict__ args, int j,
+                                const float* __restrict__ PL, int B) {
+  const int lane = threadIdx.x;
+  float sum = 0.0f;
+  for (int row = lane; row < B; row += kLossLanes) sum += PL[row];
+  float total = 0.0f;
+  for (int i = 0; i < kLossLanes; ++i)
+    total += __shfl_sync(0xffffffffu, sum, i);
+  if (lane == 0) args->losses[args->base + j] = total / B;
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+// Offsets of the flat buffer's tensors (fused_train.pack_params order).
+struct Offsets {
+  long long w_in, b_in, w_hid, b_hid, w_out, b_out;
+  Offsets(int H, int L) {
+    const long long h = H, l = L;
+    w_in = 0;
+    b_in = kD * h;
+    w_hid = b_in + h;
+    b_hid = w_hid + l * h * h;
+    w_out = b_hid + l * h;
+    b_out = w_out + h;
+  }
+};
+
+size_t align4(size_t floats) { return (floats + 3) / 4 * 4; }
+
+// The scratch: X [7B, 2]; Z, A and DZ [L + 1][7B, H]; G [7B]; the point
+// losses [B]; heat_grad's argument block; each region 16-byte aligned.
+struct Scratch {
+  size_t X, Z, A, G, DZ, PL, args, total;
+  Scratch(int B, int H, int L) {
+    const size_t rows = static_cast<size_t>(kR) * B;
+    const size_t layers = static_cast<size_t>(L + 1) * rows * H;
+    X = 0;
+    Z = align4(X + rows * kD);
+    A = align4(Z + layers);
+    G = align4(A + layers);
+    DZ = align4(G + rows);
+    PL = align4(DZ + layers);
+    args = align4(PL + B);
+    total = align4(args + (sizeof(StepArgs) + 3) / 4);
+  }
+};
+
+// Enqueue call step base + j: the forward, the loss into its slot, the data
+// path of the backward, and every layer's weight gradient (with Adam,
+// kAdam; else the gradient to args->grad), each forked onto a side stream
+// once its layer's data gradient has read its weight (the Adam epilogue
+// rewrites it): the output layer's after the loss kernel, hidden layer l's
+// after the backward layer l, the input layer's last on main. Each layer
+// keeps its own Z, A and dz in scratch.
+template <bool kAdam>
+cudaError_t enqueue_step(const StepArgs* args, const HeatConsts& c, int j,
+                         float* scratch, int B, int H, int L, Streams& st) {
+  const Scratch sc(B, H, L);
+  const Offsets off(H, L);
+  const size_t layer_floats = static_cast<size_t>(kR) * B * H;
+  float* X = scratch + sc.X;
+  float* Z = scratch + sc.Z;
+  float* A = scratch + sc.A;
+  float* G = scratch + sc.G;
+  float* DZ = scratch + sc.DZ;
+  float* PL = scratch + sc.PL;
+  auto at = [&](float* base, int l) { return base + l * layer_floats; };
+  auto w_hid = [&](int l) { return off.w_hid + static_cast<long long>(l) * H * H; };
+  auto b_hid = [&](int l) { return off.b_hid + static_cast<long long>(l) * H; };
+  const cudaStream_t main = st.main;
+  const Layout lay{kR, B, kValueMask};
+  auto weight_grad = [&](const float* a, int k_in, const float* dz,
+                         int k_out, long long w_off, long long b_off,
+                         cudaStream_t stream) {
+    dednn::weight_grad<kAdam, kR>(a, k_in, dz, k_out, lay, args, j, w_off,
+                                  b_off, 0, 0, 1, stream);
+  };
+
+  input_kernel<<<dim3(dednn::ceil_div(H, kInputBN),
+                      dednn::ceil_div(B, kInputBB)),
+                 kInputBB * kInputBN, 0, main>>>(args, j, c, H, B, X, Z, A);
+  for (int l = 1; l <= L; ++l)
+    dednn::layer<HeatRules, false>(at(A, l - 1), args, w_hid(l - 1),
+                                   b_hid(l - 1), H, H, B, nullptr, nullptr,
+                                   at(Z, l), at(A, l), 0, 0, 1, main);
+  loss_kernel<<<dednn::ceil_div(B, kLossWarps), 32 * kLossWarps, 0, main>>>(
+      args, j, c, off.w_out, off.b_out, H, B, at(Z, L), at(A, L), G, PL,
+      at(DZ, L));
+  cudaStream_t side;
+  cudaError_t err = st.branch(&side);
   if (err != cudaSuccess) return err;
-  return dednn::allow_smem(fwd_layer_kernel, fwd_smem(H));
+  loss_sum_kernel<<<1, kLossLanes, 0, side>>>(args, j, PL, B);
+  weight_grad(at(A, L), H, G, 1, off.w_out, off.b_out, side);
+  for (int l = L; l >= 1; --l) {
+    dednn::layer<HeatRules, true>(at(DZ, l), args, w_hid(l - 1), -1LL, H, H,
+                                  B, at(Z, l - 1), at(A, l - 1), nullptr,
+                                  at(DZ, l - 1), 0, 0, 1, main);
+    err = st.branch(&side);
+    if (err != cudaSuccess) return err;
+    weight_grad(at(A, l - 1), H, at(DZ, l), H, w_hid(l - 1), b_hid(l - 1),
+                side);
+  }
+  weight_grad(X, kD, DZ, H, off.w_in, off.b_in, main);
+  err = st.merge();
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+StepArgs host_args(float* p, float* m, float* v, const float* u,
+                   float* losses, float* grad) {
+  StepArgs a{};
+  a.p = p;
+  a.m = m;
+  a.v = v;
+  a.u = u;
+  a.losses = losses;
+  a.grad = grad;
+  return a;  // a.sched.kind = 0: the first design's constant lr
 }
 
 }  // namespace
 
-extern "C" int heat_scratch_floats(int B, int H, int L) {
-  const int R = kStreams * B;
-  return 2 * R + 3 * (L + 1) * R * H + R + kStreams * n_params(H, L);
+// Floats of scratch one call needs (heat_grad's argument block included).
+extern "C" long long heat_scratch_floats(int B, int H, int L) {
+  return static_cast<long long>(Scratch(B, H, L).total);
 }
 
+// Bytes of dynamic shared memory per block that the largest kernel takes
+// (a layer tile's ring of k-tiles or a weight-gradient tile): the same at
+// every width (kernels/fused_train.heat_train_plan mirrors it).
+extern "C" long long heat_train_smem_bytes() {
+  return static_cast<long long>(dednn::step_smem_bytes<kR>());
+}
+
+// Bytes of the device argument block (StepArgs) heat_train takes.
+extern "C" int heat_args_bytes() { return sizeof(StepArgs); }
+
+// One step's loss and flat gradient, its launches on one stream; the
+// argument block at the end of scratch (heat_scratch_floats).
 extern "C" int heat_grad(const float* p, const float* u, float* scratch,
                          float* grad, float* loss, int B, int H, int L,
                          float x_max, float t_max, float kappa, void* stream) {
-  cudaError_t err = prepare(H);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  StepArgs* dev = reinterpret_cast<StepArgs*>(scratch + Scratch(B, H, L).args);
+  const StepArgs a =
+      host_args(const_cast<float*>(p), nullptr, nullptr, u, loss, grad);
+  cudaError_t err = dednn::prepare_step<HeatRules>();
+  if (err == cudaSuccess) err = write_args(dev, a, st);
   if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = grad_step(p, u, scratch, loss, B, H, L, x_max, t_max, kappa, s);
-  if (err != cudaSuccess) return err;
-  const int n = n_params(H, L);
-  sum_partials_kernel<<<dednn::ceil_div(n, kAdamThreads), kAdamThreads, 0,
-                        s>>>(partials_of(scratch, B, H, L), n, grad);
-  return cudaGetLastError();
+  Streams one{st, {st, st}, nullptr, nullptr};
+  return enqueue_step<false>(dev, HeatConsts{x_max, t_max, kappa}, 0, scratch,
+                             B, H, L, one);
 }
 
+// Capture S training steps as one CUDA graph (dednn::capture_steps) and
+// instantiate it into *exec. The graph holds the scratch and argument-block
+// pointers, the shape and the problem's numbers: it serves every call of
+// that shape whose per-call values come through args (heat_train writes
+// them).
+extern "C" int heat_graph_build(int B, int H, int L, float x_max, float t_max,
+                                float kappa, int S, void* args, float* scratch,
+                                void** exec) {
+  *exec = nullptr;
+  if (S < 1) return cudaErrorInvalidValue;
+  StepArgs* dev = static_cast<StepArgs*>(args);
+  const HeatConsts c{x_max, t_max, kappa};
+  const cudaError_t err = dednn::prepare_step<HeatRules>();
+  if (err != cudaSuccess) return err;
+  return dednn::capture_steps(
+      dev, S,
+      [&](int j, Streams& st) {
+        return enqueue_step<true>(dev, c, j, scratch, B, H, L, st);
+      },
+      exec);
+}
+
+extern "C" int heat_graph_free(void* exec) { return dednn::free_graph(exec); }
+
+// K Adam steps at the constant rate lr: p, m, v updated in place, losses
+// [K]. scratch (heat_scratch_floats) and args (heat_args_bytes) are the
+// ones exec was built with, if exec is not null: then floor(K/S) replays of
+// its S steps on `stream`, and the other K mod S steps as the same launches
+// from here, the weight gradients on side0 and side1 (all K, without exec).
 extern "C" int heat_train(float* p, float* m, float* v, const float* u,
                           float* scratch, float* losses, int K, int B, int H,
                           int L, float x_max, float t_max, float kappa,
-                          float lr, int step0, void* stream) {
-  cudaError_t err = prepare(H);
+                          float lr, int step0, void* stream, void* args,
+                          void* exec, int S, void* side0, void* side1) {
+  if (exec != nullptr && S < 1) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  StepArgs* dev = static_cast<StepArgs*>(args);
+  StepArgs a = host_args(p, m, v, u, losses, nullptr);
+  a.step0 = step0;
+  a.lr = lr;
+  const HeatConsts c{x_max, t_max, kappa};
+  cudaError_t err = dednn::prepare_step<HeatRules>();
+  if (err == cudaSuccess) err = write_args(dev, a, st);
   if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n = n_params(H, L);
-  const float* partials = partials_of(scratch, B, H, L);
-  for (int k = 0; k < K; ++k) {
-    err = grad_step(p, u + static_cast<size_t>(k) * B * 2, scratch,
-                    losses + k, B, H, L, x_max, t_max, kappa, s);
-    if (err != cudaSuccess) return err;
-    adam_kernel<<<dednn::ceil_div(n, kAdamThreads), kAdamThreads, 0, s>>>(
-        p, m, v, partials, n, lr, static_cast<float>(step0 + k + 1));
-  }
-  return cudaGetLastError();
+  int runs = 0;
+  return dednn::run_steps(
+      exec, S, K, 1, st, static_cast<cudaStream_t>(side0),
+      static_cast<cudaStream_t>(side1),
+      [&](int j, Streams& two) {
+        return enqueue_step<true>(dev, c, j, scratch, B, H, L, two);
+      },
+      &runs);
 }

@@ -2,8 +2,10 @@
 // the H100 (kernels/profile.py --probe): the phases as the kernel nodes of
 // a CUDA graph, whose floor is the gap from one node to the next, or one
 // persistent kernel with a grid-wide barrier between phases, whose floor is
-// the barrier. Neither is a kernel of the port's paths; they time the
-// card's launch and barrier machinery with empty work.
+// the barrier; and the thread block cluster barrier between the layers of
+// the heat-streams kernel (csrc/heat_streams.cu). None is a kernel of the
+// port's paths; they time the card's launch and barrier machinery with
+// empty work.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -16,6 +18,15 @@ __global__ void empty_kernel() {}
 __global__ void grid_sync_kernel(int syncs) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   for (int i = 0; i < syncs; ++i) grid.sync();
+}
+
+// `syncs` cluster barriers (barrier.cluster arrive and wait, as
+// heat_streams_kernel meets its peers between layers).
+__global__ void cluster_sync_kernel(int syncs) {
+  for (int i = 0; i < syncs; ++i) {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  }
 }
 
 // Milliseconds between two events around `run`, on stream s.
@@ -109,6 +120,44 @@ extern "C" int probe_grid_sync(int blocks, int threads, int syncs,
     return cudaLaunchCooperativeKernel(
         reinterpret_cast<const void*>(grid_sync_kernel), dim3(blocks),
         dim3(threads), args, 0, s);
+  };
+  float with = 0.0f, without = 0.0f;
+  err = launch(syncs);  // warm-up
+  if (err == cudaSuccess) err = cudaStreamSynchronize(s);
+  if (err == cudaSuccess) err = time_ms(s, [&] { return launch(0); }, &without);
+  if (err == cudaSuccess)
+    err = time_ms(s, [&] { return launch(syncs); }, &with);
+  if (err == cudaSuccess) {
+    out[0] = (with - without) / syncs;
+    out[1] = without;
+  }
+  cudaStreamDestroy(s);
+  return err;
+}
+
+// out[0]: ms per cluster barrier of one kernel of `clusters` clusters of
+// `cluster` CTAs of 128 threads running `syncs` barriers, less the same
+// launch with none; out[1]: ms of that launch with none.
+extern "C" int probe_cluster_sync(int cluster, int clusters, int syncs,
+                                  float* out) {
+  if (cluster < 1 || cluster > 8 || clusters < 1 || syncs < 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t s;
+  cudaError_t err = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+  if (err != cudaSuccess) return err;
+  auto launch = [&](int n) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster * clusters);
+    cfg.blockDim = dim3(128);
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, cluster_sync_kernel, n);
   };
   float with = 0.0f, without = 0.0f;
   err = launch(syncs);  // warm-up

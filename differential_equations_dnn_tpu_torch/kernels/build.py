@@ -45,15 +45,24 @@ _SIGNATURES = {
     # xt, x0, xb1, xb2, w_in, b_in, w_hid, b_hid, w_out, b_out, out, n, h,
     # l, o, act, stream
     "heat_streams": [_P] * 11 + [_I] * 5 + [_P],
-    # h, o
-    "heat_streams_smem_bytes": [_I] * 2,
+    # h, o, out[6]: cluster size, points per cluster, k-tile, threads,
+    # ring depth, shared memory bytes
+    "heat_streams_plan": [_I] * 2 + [_P],
     # B, H, L
     "heat_scratch_floats": [_I] * 3,
+    "heat_train_smem_bytes": [],
+    "heat_args_bytes": [],
     # p, u, scratch, grad, loss, B, H, L, x_max, t_max, kappa, stream
     "heat_grad": [_P] * 5 + [_I] * 3 + [_F] * 3 + [_P],
+    # B, H, L, x_max, t_max, kappa, S, args, scratch, exec (out)
+    "heat_graph_build": [_I] * 3 + [_F] * 3 + [_I, _P, _P,
+                                               ctypes.POINTER(ctypes.c_void_p)],
+    # exec
+    "heat_graph_free": [_P],
     # p, m, v, u, scratch, losses, K, B, H, L, x_max, t_max, kappa, lr,
-    # step0, stream
-    "heat_train": [_P] * 6 + [_I] * 4 + [_F] * 4 + [_I, _P],
+    # step0, stream, args, exec, S, side0, side1
+    "heat_train": [_P] * 6 + [_I] * 4 + [_F] * 4 + [_I, _P, _P, _P, _I, _P,
+                                                     _P],
     # spec, B, H, L
     "engine_scratch_floats": [_I] * 4,
     # spec, H
@@ -99,9 +108,12 @@ _SIGNATURES = {
     "probe_graph_gap": [_I] * 4 + [_P],
     # blocks, threads, syncs, out[2]
     "probe_grid_sync": [_I] * 3 + [_P],
+    # cluster size, clusters, syncs, out[2]
+    "probe_cluster_sync": [_I] * 3 + [_P],
 }
 _RESTYPES = {"mlp_forward_smem_bytes": ctypes.c_longlong,
-             "heat_streams_smem_bytes": ctypes.c_longlong,
+             "heat_scratch_floats": ctypes.c_longlong,
+             "heat_train_smem_bytes": ctypes.c_longlong,
              "engine_scratch_floats": ctypes.c_longlong,
              "engine_smem_bytes": ctypes.c_longlong,
              "dgm_scratch_floats": ctypes.c_longlong}

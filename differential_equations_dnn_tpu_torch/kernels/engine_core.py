@@ -35,6 +35,34 @@ SMEM_LIMIT = 227 * 1024
 # The largest grid y or z extent; a packed launch puts N·R there.
 MAX_GRID_YZ = 65_535
 
+# csrc/stream_layer.cuh's plan, shared by the MLP engine and the heat kernel:
+# the layer kernel's tiles (batch points × columns), its k-tile and ring
+# depth, and the weight gradient's tiles (k × m, rows per chunk, ring depth;
+# one thread group per stream).
+LAYER_TILES = ((8, 64), (8, 32), (2, 32))
+K_TILE, STAGES = 32, 3
+WG_TILES = ((32, 16), (16, 16))
+WG_ROWS, WG_STAGES = 16, 4
+# The widest hidden width the plan holds: the weight gradient's k-tiles (16
+# rows at the smallest) along the grid's y extent.
+MAX_WIDTH = MAX_GRID_YZ * 16
+
+
+def step_plan(R):
+    """(layer, weight_grad): the bytes of shared memory per block of the
+    largest layer tile (its ring of k-tiles of the R·BB operand rows and of
+    the weight, beside the tile's running sums) and of the largest
+    weight-gradient tile at R streams, as ``dednn::step_smem_bytes`` plans
+    them; the same at every width."""
+    layer = max(4 * (STAGES * (R * bb * (K_TILE + 4)
+                               + max(K_TILE * (bn + 4), bn * (K_TILE + 4)))
+                     + R * bb * (bn + 4))
+                for bb, bn in LAYER_TILES)
+    weight = max(4 * (WG_STAGES * R * WG_ROWS * ((bk + 4) + (bm + 4) + 1)
+                      + (R + 1) * (bk * bm + 2 * bm))
+                 for bk, bm in WG_TILES)
+    return layer, weight
+
 _TODO = {
     "runtime_bs": "queue 1, item 13: the sweep evaluators' runtime masks",
     "runtime_steps": "queue 1, item 13: the sweep evaluators' runtime masks",

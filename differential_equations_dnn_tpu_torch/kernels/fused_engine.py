@@ -69,16 +69,8 @@ from differential_equations_dnn_tpu_torch.models import MLP
 
 _N_CONSTS = 8  # floats of kernel_consts the CUDA specs read
 
-# csrc/engine_train.cu's plan: the layer kernel's tiles (batch points ×
-# columns), its k-tile and ring depth, and the weight gradient's tiles (k ×
-# m, rows per chunk, ring depth; one thread group per stream).
-_LAYER_TILES = ((8, 64), (8, 32), (2, 32))
-_K_TILE, _STAGES = 32, 3
-_WG_TILES = ((32, 16), (16, 16))
-_WG_ROWS, _WG_STAGES = 16, 4
-# The widest hidden width the plan holds: the weight gradient's k-tiles (16
-# rows at the smallest) along the grid's y extent.
-MAX_WIDTH = engine_core.MAX_GRID_YZ * 16
+# The widest hidden width the plan holds (csrc/stream_layer.cuh).
+MAX_WIDTH = engine_core.MAX_WIDTH
 
 # ---------------------------------------------------------------------------
 # Stream layout: groups of (value + Taylor pairs + first-only tangents)
@@ -547,14 +539,7 @@ def engine_plan(R, H):
         raise ValueError(
             f"hidden width {H} is past the {MAX_WIDTH} the fused engine's "
             f"weight gradient tiles along the grid's y extent")
-    layer = max(4 * (_STAGES * (R * bb * (_K_TILE + 4)
-                                + max(_K_TILE * (bn + 4),
-                                      bn * (_K_TILE + 4)))
-                     + R * bb * (bn + 4))
-                for bb, bn in _LAYER_TILES)
-    weight = max(4 * (_WG_STAGES * R * _WG_ROWS * ((bk + 4) + (bm + 4) + 1)
-                      + (R + 1) * (bk * bm + 2 * bm))
-                 for bk, bm in _WG_TILES)
+    layer, weight = engine_core.step_plan(R)
     return max(layer, weight)
 
 

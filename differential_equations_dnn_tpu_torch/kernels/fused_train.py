@@ -15,7 +15,11 @@ version of that step; the CPU tests hold them against the JAX package, and
 
 Parameters and both Adam moments are each ONE flat fp32 buffer in the order
 (w_in, b_in, w_hid, b_hid, w_out, b_out); ``unpack_params`` gives views.
-Only ``precision="highest"`` (exact fp32) is ported.
+Only ``precision="highest"`` (exact fp32) is ported. On the card a chunk
+replays a CUDA graph of GRAPH_STEPS steps, captured on the first call of
+its shape and cached (kernels/graphs.py), as the MLP engine's does; every
+operand is staged in k-tiles, so the kernels take any width up to
+MAX_HEAT_WIDTH (:func:`heat_train_plan`).
 """
 
 import math
@@ -28,9 +32,12 @@ from differential_equations_dnn_tpu_torch.core.prng import (
     replica_generator,
     step_uniforms,
 )
-from differential_equations_dnn_tpu_torch.kernels import build
+from differential_equations_dnn_tpu_torch.kernels import (
+    build,
+    engine_core,
+    graphs,
+)
 from differential_equations_dnn_tpu_torch.kernels.engine_core import (
-    SMEM_LIMIT,
     adam_update,
     check_batch_tile,
 )
@@ -186,43 +193,40 @@ def _tensors(model):
             model.fc_out.w, model.fc_out.b)
 
 
-# csrc/heat_train.cu's layout: 7 streams; fwd_layer and bwd_data split
-# each contraction over 8 warps of 128 columns.
-_STREAMS, _SPLIT_WARPS, _COLS_PER_WARP = 7, 8, 128
+_STREAMS = 7  # heat's stream rows per batch point
+# The widest hidden width the plan holds (csrc/stream_layer.cuh; the MLP
+# engine's MAX_WIDTH).
+MAX_HEAT_WIDTH = engine_core.MAX_WIDTH
 
 
-def heat_smem_bytes(H):
-    """The most shared memory one block of csrc/heat_train.cu takes at
-    width H: the larger of ``fwd_smem(H)`` and ``bwd_data_smem(H, H)``,
-    which the kernel's ``prepare`` asks for whatever the depth."""
-    partials = _STREAMS * (H + _SPLIT_WARPS * _COLS_PER_WARP)
-    return 4 * max(partials, H * (H + 1) + partials)
-
-
-def _widest_heat():
-    H = 1
-    while heat_smem_bytes(H + 1) <= SMEM_LIMIT:
-        H += 1
-    return H
+def heat_train_plan(H):
+    """Bytes of dynamic shared memory per block of csrc/heat_train.cu's
+    kernels at hidden width H, as the library plans them
+    (``heat_train_smem_bytes``): ``layer``, the largest layer tile's ring
+    of k-tiles of its 7·BB operand rows and of the weight beside the tile's
+    running sums; ``weight_grad``, the largest weight-gradient tile; their
+    maximum ``smem``; and ``limit``, the widest H. Every operand is staged
+    in k-tiles, so the bytes are the same at every width; past the limit it
+    raises a ValueError that names it."""
+    if H > MAX_HEAT_WIDTH:
+        raise ValueError(
+            f"hidden width {H} is past the {MAX_HEAT_WIDTH} the fused heat "
+            f"kernel's weight gradient tiles along the grid's y extent")
+    layer, weight = engine_core.step_plan(_STREAMS)
+    return {"layer": layer, "weight_grad": weight,
+            "smem": max(layer, weight), "limit": MAX_HEAT_WIDTH}
 
 
 def _check_model(model, device=None):
-    """A plain tanh MLP 2 → H×L → 1; on a CUDA ``device`` also a width
-    whose kernels fit a block's shared memory (checked before the library
-    is loaded, so nothing launches). The plain version takes any width."""
+    """A plain tanh MLP 2 → H×L → 1; on a CUDA ``device`` also a width the
+    kernels' plan holds (checked before the library is loaded, so nothing
+    launches). The plain version takes any width."""
     if not isinstance(model, MLP) or model.activation != "tanh" \
             or model.input_dim != 2 or model.output_dim != 1:
         raise ValueError("the fused heat kernel trains plain tanh MLPs "
                          "2 → H×L → 1 only")
-    H = model.hidden_size
-    if device is not None and torch.device(device).type == "cuda" \
-            and heat_smem_bytes(H) > SMEM_LIMIT:
-        raise ValueError(
-            f"the fused heat kernel at hidden width {H} needs "
-            f"{heat_smem_bytes(H)} bytes of shared memory per block, past "
-            f"the {SMEM_LIMIT} (227 KB) an H100 block may take; the widest "
-            f"it takes is H = {_widest_heat()} (engine='scan' takes any "
-            f"width)")
+    if device is not None and torch.device(device).type == "cuda":
+        heat_train_plan(model.hidden_size)
 
 
 def _check_state(model, tensors, n_replicas=None):
@@ -305,7 +309,10 @@ def heat_fused_train_chunk(model, params, m, v, uniforms, step0, lrate,
 
     Returns new (params, m, v, losses[K]); the inputs are left unchanged.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (``heat_fused_train_chunk.launches`` counts the launches)."""
+    (``heat_fused_train_chunk.launches`` counts the launches): its steps
+    replay the shape's cached CUDA graph of GRAPH_STEPS steps
+    (kernels/graphs.py), captured by the first call of at least
+    GRAPH_STEPS steps, on the shape's side stream."""
     _check_model(model, uniforms.device)
     K, B, _ = uniforms.shape
     check_batch_tile(B, batch_tile)
@@ -315,18 +322,26 @@ def heat_fused_train_chunk(model, params, m, v, uniforms, step0, lrate,
     _check_state(model, {"params": params, "m": m, "v": v,
                          "uniforms": uniforms})
     H, L = model.hidden_size, model.num_layers
-    p, m, v = params.clone(), m.clone(), v.clone()
+    device = uniforms.device
     lib = build.library()
-    scratch = torch.empty(lib.heat_scratch_floats(B, H, L),
-                          device=uniforms.device)
-    losses = torch.empty(K, device=uniforms.device)
-    with torch.cuda.device(uniforms.device):
-        code = lib.heat_train(p.data_ptr(), m.data_ptr(), v.data_ptr(),
-                              uniforms.data_ptr(), scratch.data_ptr(),
-                              losses.data_ptr(), K, B, H, L,
-                              float(x_max), float(t_max), float(kappa),
-                              float(lrate), int(step0),
-                              build.stream_ptr(uniforms.device))
+    consts = (float(x_max), float(t_max), float(kappa))
+    # The problem's numbers are kernel arguments of the captured graph.
+    key = ("heat", B, H, L, consts, graphs.GRAPH_STEPS, device)
+    entry = graphs.step_graph(key, lambda: graphs.StepGraph(
+        "heat", device, 1, lib.heat_scratch_floats(B, H, L),
+        lib.heat_args_bytes(), lib.heat_graph_free))
+    p, m, v = params.clone(), m.clone(), v.clone()
+    losses = torch.empty(K, device=device)
+    if K >= graphs.GRAPH_STEPS and entry.exec is None:
+        with torch.cuda.device(device):
+            entry.capture(lambda args, scratch, out: lib.heat_graph_build(
+                B, H, L, *consts, graphs.GRAPH_STEPS, args, scratch, out),
+                "heat_graph_build")
+    code = entry.run(lambda stream, side0, side1: lib.heat_train(
+        p.data_ptr(), m.data_ptr(), v.data_ptr(), uniforms.data_ptr(),
+        entry.scratch.data_ptr(), losses.data_ptr(), K, B, H, L, *consts,
+        float(lrate), int(step0), stream, entry.args.data_ptr(), entry.exec,
+        graphs.GRAPH_STEPS, side0, side1), device)
     build.check(code, "heat_train")
     heat_fused_train_chunk.launches += 1
     return p, m, v, losses

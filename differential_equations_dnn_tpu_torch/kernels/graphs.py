@@ -1,4 +1,5 @@
-"""The CUDA-graph replay both fused engines share (csrc/fused_step.cuh).
+"""The CUDA-graph replay the fused trainers share (csrc/fused_step.cuh):
+the heat kernel (#1) and both engines.
 
 A training chunk of K steps on the card replays a CUDA graph of
 GRAPH_STEPS steps ⌊K/GRAPH_STEPS⌋ times and runs the steps left over as the
@@ -27,12 +28,12 @@ from differential_equations_dnn_tpu_torch.kernels import build
 # Training steps of one captured CUDA graph (S): a call of K steps replays
 # it ⌊K/S⌋ times and runs the K mod S steps left over as the same launches.
 GRAPH_STEPS = 50
-# Shapes whose graphs (and scratch) stay cached, over both engines.
+# Shapes whose graphs (and scratch) stay cached, over all fused trainers.
 GRAPH_CACHE_SIZE = 8
 
 # Graphs captured in this process: their count, the host seconds each
 # capture and instantiation took (kept apart from the chunks' own
-# timings), and the engine of each ("engine" or "dgm").
+# timings), and the trainer of each ("heat", "engine" or "dgm").
 graph_stats = {"builds": 0, "build_seconds": [], "engines": []}
 
 

@@ -25,6 +25,7 @@ event-timed step. ``--scan NAME --solve-seeds N`` runs
 and compares the taps' loss histories. ``--probe`` times what a fused
 DGM step is built from instead: the gap between the kernel nodes of a CUDA
 graph, a grid-wide barrier (the floor of one persistent kernel per step),
+a thread block cluster barrier (the heat-streams kernel's between layers),
 and the DGM gemm at its four product shapes for 1 and 16 replicas beside
 one fp32 ``torch.addmm`` / ``torch.baddbmm`` call (TF32 off) on the same
 operands, a yardstick the port never calls. ``--dgm-outputs PATH`` saves
@@ -33,12 +34,17 @@ one step's loss and gradient, a 120-step single chunk, a 53-step packed
 chunk of 16 and 4 replicas), ``--engine-outputs PATH`` the MLP engine's
 (heat2d, wave, simple_ode and poisson at H = 128: one step's loss and
 gradient, a 120-step single chunk, a 53-step packed chunk of 8 replicas);
-with ``--compare-to OLD`` either compares them with a file that an earlier
-tree saved, tensor by tensor, bit for bit. Both use only entry points every
-version of the engines has, so an earlier tree's package can run them:
+``--heat-outputs PATH`` kernel #1's (heat at H = 128: one step's loss and
+gradient, a 120-step chunk), ``--streams-outputs PATH`` kernel #3's (the 7
+streams for tanh, sigmoid and relu at B = 64 and 1 000, H = 128, L = 3);
+with ``--compare-to OLD`` each compares them with a file that an earlier
+tree saved, tensor by tensor, bit for bit. All use only entry points every
+version of the kernels has, so an earlier tree's package can run them:
 ``PYTHONPATH=<that tree> python -P <this file> --dgm-outputs OLD`` (``-P``
 keeps this file's directory off the path). ``--engine`` times constant-lr
-heat on the generic engine instead of kernel #1. ``--probe-engine`` times
+heat on the generic engine instead of kernel #1. ``--streams`` times
+kernel #3's device time per call instead (B = 64 and 1 000, H = 128, 256
+and 512). ``--probe-engine`` times
 each kernel of the MLP engine alone (back to back, behind a spin kernel) at
 heat2d's layout: B = 256 and 2 048 at H = 128, B = 256 at H = 512. Needs a
 CUDA device.
@@ -361,6 +367,14 @@ def probe(device):
               f"{out[0] * 1e3:.3f} us per barrier, the launch alone "
               f"{out[1] * 1e3:.3f} us; 46 phases: "
               f"{46 * out[0] * 1e3:.1f} us per step")
+    for cluster, clusters in ((8, 8), (8, 16)):
+        build.check(lib.probe_cluster_sync(cluster, clusters, 2000,
+                                           ctypes.addressof(out)),
+                    "probe_cluster_sync")
+        print(f"cluster barrier ({clusters} clusters of {cluster} x 128, "
+              f"as the heat-streams kernel between layers): "
+              f"{out[0] * 1e3:.3f} us per barrier, the launch alone "
+              f"{out[1] * 1e3:.3f} us")
     torch.backends.cuda.matmul.allow_tf32 = False
     args = torch.empty(lib.dgm_args_bytes(), dtype=torch.uint8,
                        device=device)
@@ -516,6 +530,80 @@ def engine_outputs(device):
     return {k: v.detach().cpu() for k, v in out.items()}
 
 
+def heat_outputs(device):
+    """Kernel #1's outputs at fixed inputs, as CPU tensors by name: heat's
+    default model (2 → 128×3 → 1 from generator(0)), one step's loss and
+    gradient, and a 120-step chunk from step 100 (graph boundaries at 50 and
+    100; p, m, v and the losses). Only entry points every version of the
+    kernel has."""
+    prob = PROBLEMS["heat"]()
+    d = prob.defaults
+    model = prob.default_model(generator=generator(0), device=device)
+    p = ft.pack_params(model)
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, 100, 120, d.batch_size, device)
+    loss, grad = ft.heat_loss_grad(model, p, u[0])
+    out = {"heat step loss": loss.reshape(1), "heat step grad": grad}
+    chunk = ft.heat_fused_train_chunk(model, p, z, z, u, 100, d.lrate)
+    for part, t in zip(("p", "m", "v", "losses"), chunk):
+        out[f"heat chunk {part}"] = t
+    torch.cuda.synchronize()
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def streams_outputs(device):
+    """Kernel #3's 7 streams at fixed inputs, as CPU tensors by name: a
+    2 → 128×3 → 1 MLP (generator(1)) per activation, at B = 64 and a ragged
+    1 000 points of Heat1D's sampler (generator(2))."""
+    from differential_equations_dnn_tpu_torch.equations import Heat1D
+    from differential_equations_dnn_tpu_torch.kernels import taylor_mlp
+    from differential_equations_dnn_tpu_torch.models import MLP
+
+    out = {}
+    for act in ("tanh", "sigmoid", "relu"):
+        model = MLP(2, 1, 128, 3, act, generator=generator(1), device=device)
+        for B in (64, 1000):
+            b = Heat1D().sample(B, generator(2), device)
+            with torch.no_grad():
+                streams = taylor_mlp.heat_fused_streams(
+                    model, b["xt"], b["x0"], b["xb1"], b["xb2"])
+            for s, t in enumerate(streams):
+                out[f"{act} B={B} stream {s}"] = t
+    torch.cuda.synchronize()
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def streams_times(device, calls=5):
+    """Device ms per call of kernel #3 (queued behind a spin kernel, so the
+    events time the calls back to back and not the host) at heat's shape (B
+    = 64, H = 128, L = 3, tanh), at B = 1 000 for each activation, and at H
+    = 256 and 512 where the kernel takes them."""
+    from differential_equations_dnn_tpu_torch.equations import Heat1D
+    from differential_equations_dnn_tpu_torch.kernels import taylor_mlp
+    from differential_equations_dnn_tpu_torch.models import MLP
+
+    cases = [("tanh", 64, 128)] + [(a, 1000, 128) for a in
+                                   ("tanh", "sigmoid", "relu")]
+    cases += [("tanh", 64, 256), ("tanh", 64, 512)]
+    for act, B, H in cases:
+        model = MLP(2, 1, H, 3, act, generator=generator(1), device=device)
+        b = Heat1D().sample(B, generator(2), device)
+        pts = (b["xt"], b["x0"], b["xb1"], b["xb2"])
+
+        def run():
+            with torch.no_grad():
+                for _ in range(calls):
+                    taylor_mlp.heat_fused_streams(model, *pts)
+
+        try:
+            ms = _spin_ms(run, calls)
+        except ValueError as err:  # a width this tree's kernel refuses
+            print(f"heat streams [{act}, B={B}, H={H}, L=3]: {err}")
+            continue
+        print(f"heat streams [{act}, B={B}, H={H}, L=3]: {ms * 1e3:.2f} us "
+              f"device time per call")
+
+
 def compare_outputs(new, old):
     """Tensor by tensor: bit for bit, or the largest difference."""
     for key, t in new.items():
@@ -553,12 +641,19 @@ def main():
                         help="save the DGM kernels' outputs at fixed inputs")
     parser.add_argument("--engine-outputs", metavar="PATH",
                         help="save the MLP engine's outputs at fixed inputs")
+    parser.add_argument("--heat-outputs", metavar="PATH",
+                        help="save kernel #1's outputs at fixed inputs")
+    parser.add_argument("--streams-outputs", metavar="PATH",
+                        help="save kernel #3's outputs at fixed inputs")
     parser.add_argument("--compare-to", metavar="OLD",
-                        help="with --dgm-outputs or --engine-outputs: "
+                        help="with one of the --*-outputs options: "
                         "compare with OLD, saved by an earlier tree")
     parser.add_argument("--probe-engine", action="store_true",
                         help="time each MLP-engine kernel and tile variant "
                         "at heat2d's layout instead")
+    parser.add_argument("--streams", action="store_true",
+                        help="time kernel #3's device time per call "
+                        "instead")
     parser.add_argument("--engine", action="store_true",
                         help="time constant-lr heat on the generic engine "
                         "instead of kernel #1")
@@ -574,7 +669,11 @@ def main():
     print(smi.stdout.strip())
     for path, make, what in ((args.dgm_outputs, dgm_outputs, "DGM"),
                              (args.engine_outputs, engine_outputs,
-                              "MLP engine")):
+                              "MLP engine"),
+                             (args.heat_outputs, heat_outputs,
+                              "heat kernel (#1)"),
+                             (args.streams_outputs, streams_outputs,
+                              "heat streams (#3)")):
         if path:
             outs = make(device)
             torch.save(outs, path)
@@ -584,6 +683,9 @@ def main():
             return
     if args.probe:
         probe(device)
+        return
+    if args.streams:
+        streams_times(device)
         return
     if args.probe_engine:
         for B, H in ((256, 128), (2048, 128), (256, 512)):

@@ -8,6 +8,7 @@ through :func:`mlp_forward`) and ``heat_fused_streams_pallas``
 :func:`heat_fused_streams` in every training step).
 """
 
+import functools
 import types
 
 import torch
@@ -142,12 +143,64 @@ def _check_streams_model(model):
                          f"model's input width is {model.input_dim}, not 2")
 
 
+# csrc/heat_streams.cu's plan: threads per CTA, rows of a W k-tile, ring
+# depths (the deeper where it fits), the portable cluster size and the
+# columns per CTA it aims for.
+_STREAM_THREADS, _STREAM_K_TILE, _STREAM_STAGES = 128, 32, (8, 3)
+_MAX_CLUSTER, _SLICE_COLS = 8, 16
+
+
+def _streams_fit(H):
+    """The plan at width H, or None if no points-per-cluster count fits."""
+    C = min(_MAX_CLUSTER, max(1, -(-H // _SLICE_COLS)))
+    ld = -(-max(2, H) // 32) * 32 + 4
+    for P in (8, 4, 2, 1):
+        lanes = _STREAM_THREADS // P
+        for stages in _STREAM_STAGES:
+            need = 4 * (2 * 7 * P * ld + stages * _STREAM_K_TILE * lanes)
+            if need <= SMEM_LIMIT:
+                return {"cluster": C, "points": P, "k_tile": _STREAM_K_TILE,
+                        "threads": _STREAM_THREADS, "stages": stages,
+                        "smem": need}
+    return None
+
+
+@functools.cache
+def _widest_streams():
+    """The widest H that :func:`heat_streams_plan` fits (3 264)."""
+    H = 1
+    while _streams_fit(H + 1) is not None:
+        H += 1
+    return H
+
+
+def heat_streams_plan(H, O=1):
+    """The launch of csrc/heat_streams.cu at hidden width H, as the library
+    plans it (``heat_streams_plan``): a thread block cluster of ``cluster``
+    CTAs (8 from H = 113) takes ``points`` points, each CTA a column slice
+    of every layer; its shared memory holds
+    two buffers of the 7 streams of those points at width H (a layer's
+    input and its output, which every CTA of the cluster stores into) and
+    a ring of ``stages`` ``k_tile``-row tiles of its W slice, so it grows
+    with H and not with H². The output width O is not staged whole and does
+    not count. Past the widest H that fits a block's 227 KB with one point
+    per cluster, a ValueError names that limit."""
+    plan = _streams_fit(H)
+    if plan is None:
+        raise ValueError(
+            f"the heat-streams kernel at hidden width {H} needs more than "
+            f"the {SMEM_LIMIT} bytes of shared memory an H100 block may "
+            f"take; the widest it takes is H = {_widest_streams()}")
+    return plan
+
+
 def _launch_heat_streams(model, points, weights):
     """One launch of csrc/heat_streams.cu: the 7 streams as views of one
     [7, B, O] tensor."""
     xt = points[0]
     B = xt.shape[0]
     H, L, O = model.hidden_size, model.num_layers, model.output_dim
+    heat_streams_plan(H, O)
     shapes = ((2, H), (H,), (L, H, H), (L, H), (H, O), (O,))
     for name, t in zip(("xt", "x0", "xb1", "xb2"), points):
         build.require_cuda_f32(name, t, (B, 2))
@@ -158,12 +211,6 @@ def _launch_heat_streams(model, points, weights):
         if t.device != xt.device:
             raise ValueError(f"{name} is on {t.device}, xt on {xt.device}")
     lib = build.library()
-    need = lib.heat_streams_smem_bytes(H, O)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"hidden width {H} needs {need} bytes of shared memory per block "
-            f"in the heat-streams kernel (the H100 allows {SMEM_LIMIT}); use "
-            f"a smaller hidden size")
     out = torch.empty((7, B, O), dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
         code = lib.heat_streams(*(t.data_ptr() for t in points + weights),

@@ -110,6 +110,41 @@ def test_train_chunk_matches_jax(nets, uniforms):
                                        atol=1e-6)
 
 
+def test_wide_chunk_plain_matches_jax_step_math():
+    """At H = 256 (a width the first CUDA design refused; L = 1, B = 8): two
+    steps of heat_fused_train_chunk_plain against a loop of the JAX
+    package's fused_step_math and its Adam update on the same numpy
+    parameters and uniforms: losses to rtol 1e-5 / atol 1e-6, as at H = 16;
+    parameters to rtol 1e-5 plus 2·lr, since among 66 000 parameters an
+    Adam step on a gradient within fp32 reassociation of zero can move one
+    by up to 2·lr in either implementation (the card's tests hold the
+    kernel to its plain version the same way)."""
+    Hw, Lw, Bw, Kw = 256, 1, 8, 2
+    jm = JaxMLP(input_dim=2, output_dim=1, hidden_size=Hw, num_layers=Lw,
+                activation="tanh")
+    jp = jax.tree.map(np.asarray, jm.init(jax.random.key(7)))
+    tm = params_from_jax(jp, "tanh")
+    u = np.random.default_rng(7).uniform(size=(Kw, Bw, 2)).astype(
+        np.float32)
+    flat = jft.pack_params(jm, jp)
+    m = v = tuple(jnp.zeros_like(t) for t in flat)
+    losses = []
+    for k in range(Kw):
+        loss, grads = jft.fused_step_math(flat, jnp.asarray(u[k]), Bw, Lw)
+        new = [jft._adam_update(*args, LR, jnp.float32(k + 1))
+               for args in zip(flat, m, v, grads)]
+        flat, m, v = (tuple(t[i] for t in new) for i in range(3))
+        losses.append(float(loss))
+    p = ft.pack_params(tm)
+    z = torch.zeros_like(p)
+    pt, _, _, lt = ft.heat_fused_train_chunk_plain(tm, p, z, z,
+                                                   torch.from_numpy(u), 0, LR)
+    np.testing.assert_allclose(lt.numpy(), losses, rtol=1e-5, atol=1e-6)
+    for a, b in zip(ft.unpack_params(tm, pt), flat):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=2 * LR)
+
+
 def test_chunked_run_is_bit_identical(nets, uniforms):
     """(f) Two chunks (step0 = 0, 4) equal one chunk of 8, bit for bit."""
     _, _, tm = nets

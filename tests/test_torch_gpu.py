@@ -6,6 +6,8 @@ no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -428,13 +430,37 @@ def test_heat_streams_gradient_matches_taylor(cuda):
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-6)
 
 
-def test_heat_streams_smem_rule(cuda):
-    """At H = 256 the kernel's two 7-stream buffers and one layer's W need
-    more than a block's 227 KB: the wrapper raises before launching, with
-    no fallback to the plain version."""
-    model, b = _stream_case(cuda, "tanh", 16, H=256, L=1)
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "relu"])
+@pytest.mark.parametrize("H", [256, 512])
+def test_heat_streams_smem_rule(cuda, H, activation):
+    """Past the first design's H = 191 (two whole 7-stream buffers and one
+    layer's W per block): the cluster-split kernel at H = 256 and 512
+    against the plain version at the H = 128 test's tolerance; the library
+    plans the launch as the Python mirror does."""
+    lib = build.library()
+    plan = taylor_mlp.heat_streams_plan(H, 1)
+    out = (ctypes.c_int * 6)()
+    build.check(lib.heat_streams_plan(H, 1, out), "heat_streams_plan")
+    assert tuple(out) == (plan["cluster"], plan["points"], plan["k_tile"],
+                          plan["threads"], plan["stages"], plan["smem"])
+    model, b = _stream_case(cuda, activation, 64, H=H, L=3)
     taylor_mlp.heat_fused_streams.launches = 0
-    with pytest.raises(ValueError, match="shared memory"):
+    with torch.no_grad():
+        got = taylor_mlp.heat_fused_streams(model, b["xt"], b["x0"],
+                                            b["xb1"], b["xb2"])
+        want = taylor_mlp.heat_fused_streams_plain(model, b["xt"], b["x0"],
+                                                   b["xb1"], b["xb2"])
+    assert taylor_mlp.heat_fused_streams.launches == 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_heat_streams_refuse_past_limit(cuda):
+    """Past the plan's widest H (3 264) the wrapper raises ValueError
+    naming it before launching, with no fallback to the plain version."""
+    model, b = _stream_case(cuda, "tanh", 16, H=3265, L=0)
+    taylor_mlp.heat_fused_streams.launches = 0
+    with pytest.raises(ValueError, match="H = 3264"):
         taylor_mlp.heat_fused_streams(model, b["xt"], b["x0"], b["xb1"],
                                       b["xb2"])
     assert taylor_mlp.heat_fused_streams.launches == 0
@@ -473,8 +499,8 @@ def test_scan_solve_goes_through_the_streams_kernel(cuda):
 
 
 # ---------------------------------------------------------------------------
-# Widths: kernel #2 takes any width the trainers train, #1 refuses before
-# launching a width it cannot hold
+# Widths: kernels #2, #1 and #3 take any width the trainers train, up to
+# their stated limits, past which they raise before launching
 # ---------------------------------------------------------------------------
 
 
@@ -507,17 +533,86 @@ def test_scan_heat_solve_evaluates_wide_model(cuda):
     assert np.isfinite(res.mae)
 
 
-def test_heat_fused_chunk_refuses_wide_model(cuda):
-    """At H = 256 the heat kernel's backward needs more than 227 KB per
-    block: the wrapper raises ValueError before launching."""
-    model = MLP(2, 1, 256, 1, "tanh", generator=generator(0), device=cuda)
+def test_heat_fused_chunk_wide_matches_plain(cuda):
+    """At H = 256, which the first design refused (its backward staged a
+    whole H × H weight per block): 53 steps (a graph replay and 3 steps
+    from C) against the plain version, at the H = 128 test's tolerances;
+    the library's shared memory per block is the Python plan's."""
+    assert build.library().heat_train_smem_bytes() == \
+        ft.heat_train_plan(256)["smem"]
+    model = MLP(2, 1, 256, 3, "tanh", generator=generator(0), device=cuda)
     p = ft.pack_params(model)
     z = torch.zeros_like(p)
+    u = step_uniforms(0, 0, 53, 64, cuda)
+    pk, _, _, lk = ft.heat_fused_train_chunk(model, p, z, z, u, 0, 1e-4)
+    pp, _, _, lp = ft.heat_fused_train_chunk_plain(model, p, z, z, u, 0, 1e-4)
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=2e-4)
+
+
+def test_heat_fused_chunk_refuses_past_limit(cuda):
+    """Past MAX_HEAT_WIDTH the wrapper raises ValueError naming it before
+    launching (L = 0 keeps the model small)."""
+    H = ft.MAX_HEAT_WIDTH + 1
+    model = MLP(2, 1, H, 0, "tanh", generator=generator(0), device=cuda)
+    p = ft.pack_params(model)
     u = step_uniforms(0, 0, 2, 64, cuda)
     ft.heat_fused_train_chunk.launches = 0
-    with pytest.raises(ValueError, match="227 KB"):
-        ft.heat_fused_train_chunk(model, p, z, z, u, 0, 1e-4)
+    with pytest.raises(ValueError, match=f"past the {ft.MAX_HEAT_WIDTH}"):
+        ft.heat_fused_train_chunk(model, p, p, p, u, 0, 1e-4)
     assert ft.heat_fused_train_chunk.launches == 0
+
+
+@pytest.mark.parametrize("K", [1, 7, 50, 53, 120])
+def test_heat_graph_boundaries_equal_single_steps(cuda, K):
+    """Heat's default model, K steps in one call (⌊K/50⌋ graph replays, K
+    mod 50 steps launched from C) equal the same steps run one call per
+    step, bit for bit; so does the run cut at 53; and a second shape's call
+    between them does not disturb the cached graph."""
+    model = Heat1D().default_model(generator=generator(0), device=cuda)
+    p = ft.pack_params(model)
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, 100, K, 64, cuda)
+    state, ref = (p, z, z), []
+    for k in range(K):
+        *state, loss = ft.heat_fused_train_chunk(model, *state, u[k:k + 1],
+                                                 100 + k, 1e-4)
+        ref.append(loss)
+    pk, mk, vk, lk = ft.heat_fused_train_chunk(model, p, z, z, u, 100, 1e-4)
+    assert torch.equal(lk, torch.cat(ref))
+    assert all(torch.equal(a, b) for a, b in zip((pk, mk, vk), state))
+    if K > 53:
+        p2, m2, v2, l2 = ft.heat_fused_train_chunk(model, p, z, z, u[:53],
+                                                   100, 1e-4)
+        p2, m2, v2, l2b = ft.heat_fused_train_chunk(model, p2, m2, v2,
+                                                    u[53:], 153, 1e-4)
+        assert torch.equal(torch.cat([l2, l2b]), lk)
+        assert torch.equal(p2, pk) and torch.equal(m2, mk)
+        assert torch.equal(v2, vk)
+
+
+def test_heat_graph_is_captured_once_per_shape(cuda):
+    """Two calls of one shape with different step0 and lr replay one
+    captured graph (the cache cleared first, as in a fresh process)."""
+    from differential_equations_dnn_tpu_torch.kernels import graphs
+
+    model = Heat1D().default_model(generator=generator(0), device=cuda)
+    p = ft.pack_params(model)
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, 0, 60, 64, cuda)
+    graphs.clear_graphs()
+    builds = graphs.graph_stats["builds"]
+    for step0, lr in ((0, 1e-4), (500, 3e-4)):
+        state, ref = (p, z, z), []
+        for k in range(60):
+            *state, loss = ft.heat_fused_train_chunk(
+                model, *state, u[k:k + 1], step0 + k, lr)
+            ref.append(loss)
+        out = ft.heat_fused_train_chunk(model, p, z, z, u, step0, lr)
+        assert torch.equal(out[3], torch.cat(ref))
+        assert all(torch.equal(a, b) for a, b in zip(out[:3], state))
+    assert graphs.graph_stats["builds"] == builds + 1
+    assert graphs.graph_stats["engines"][-1] == "heat"
 
 
 # ---------------------------------------------------------------------------

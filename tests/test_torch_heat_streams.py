@@ -47,15 +47,15 @@ H, B = 16, 48
 NAMES = ("u", "u_x", "u_xx", "u_t", "u0", "ub1", "ub2")
 
 
-def _nets(activation, L=2, seed=0):
-    jm = JaxMLP(input_dim=2, output_dim=1, hidden_size=H, num_layers=L,
+def _nets(activation, L=2, seed=0, hidden=H):
+    jm = JaxMLP(input_dim=2, output_dim=1, hidden_size=hidden, num_layers=L,
                 activation=activation)
     jp = jax.tree.map(np.asarray, jm.init(jax.random.key(seed)))
     return jm, jp, params_from_jax(jp, activation)
 
 
-def _batch(seed=0):
-    u = np.random.default_rng(seed).uniform(size=(B, 2)).astype(np.float32)
+def _batch(seed=0, n=B):
+    u = np.random.default_rng(seed).uniform(size=(n, 2)).astype(np.float32)
     x = (math.pi * u[:, :1]).astype(np.float32)
     t = (3.0 * u[:, 1:]).astype(np.float32)
     z = np.zeros_like(x)
@@ -91,6 +91,23 @@ def test_streams_match_jax_pallas(activation, L):
         assert g.shape == (B, 1)
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
                                    rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "relu"])
+def test_wide_streams_plain_match_jax_pallas(activation):
+    """At H = 256, a width the first CUDA design refused (L = 1, B = 8):
+    heat_fused_streams_plain against the JAX kernel (interpret mode), all
+    seven streams to the same rtol 1e-5 / atol 1e-5."""
+    jm, jp, model = _nets(activation, L=1, seed=3, hidden=256)
+    batch = _batch(3, n=8)
+    pts = [batch[k] for k in ("xt", "x0", "xb1", "xb2")]
+    want = heat_fused_streams_pallas(jm, jp, *pts)
+    with torch.no_grad():
+        got = tm.heat_fused_streams_plain(model, *map(torch.from_numpy, pts))
+    for name, g, w in zip(NAMES, got, want):
+        assert g.shape == (8, 1)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
 
 
 @pytest.mark.parametrize("activation", ["tanh", "sigmoid"])

@@ -1,11 +1,13 @@
 """The widths the port's kernels take on the card, from the Python mirrors
 of their shared-memory formulas (the checks a wrapper makes before it
-loads the library): kernel #1 (csrc/heat_train.cu) refuses a width it
-cannot hold, kernel #2 (csrc/mlp_forward.cu) plans a tile for any width
-the trainers train, and the MLP engine (csrc/engine_train.cu, kernels #4,
-#5, #6) stages every operand in k-tiles, so its plan is the same at every
-width up to its stated limit. No card is needed: the checks run before any
-launch."""
+loads the library): kernel #1 (csrc/heat_train.cu) and the MLP engine
+(csrc/engine_train.cu, kernels #4, #5, #6) stage every operand in k-tiles,
+so their plans are the same at every width up to their stated limit;
+kernel #2 (csrc/mlp_forward.cu) plans a tile for any width the trainers
+train; kernel #3 (csrc/heat_streams.cu) spreads a point tile over a thread
+block cluster, so its shared memory grows with H and not with H². Past
+each stated limit a ValueError names it. No card is needed: the checks run
+before any launch."""
 
 import pytest
 
@@ -36,21 +38,31 @@ def test_smem_limit_is_the_h100s():
     assert SMEM_LIMIT == 232_448
 
 
-@pytest.mark.parametrize("H", [128, 221])
+@pytest.mark.parametrize("H", [128, 221, 222, 256, 512])
 def test_heat_kernel_takes_width(H):
-    """bwd_data_smem(H, H) = (H(H+1) + 7(H + 1 024))·4 B fits up to H =
-    221 (231 108 B)."""
-    assert ft.heat_smem_bytes(H) <= SMEM_LIMIT
+    """Every operand is staged in k-tiles, so the plan's shared memory per
+    block is the same at every width: the 16 × 16 weight-gradient tile of
+    the 7 streams (119 552 B) is the largest. H = 222 and 256, which the
+    first design refused, pass the check for a CUDA device."""
+    plan = ft.heat_train_plan(H)
+    assert plan == ft.heat_train_plan(32) == ft.heat_train_plan(4096)
+    assert plan["smem"] == max(plan["layer"], plan["weight_grad"])
+    assert plan["smem"] == 119_552 <= SMEM_LIMIT
+    assert plan["limit"] == fe.MAX_WIDTH
     ft._check_model(MLP(2, 1, H, 1, "tanh"), CUDA)
 
 
-@pytest.mark.parametrize("H", [222, 256])
-def test_heat_kernel_refuses_width(H):
-    """From H = 222 (232 912 B) the check names the limit and the widest
-    width, for a CUDA device, without loading the library."""
-    assert ft.heat_smem_bytes(H) > SMEM_LIMIT
-    with pytest.raises(ValueError, match=r"227 KB.*H = 221"):
-        ft._check_model(MLP(2, 1, H, 1, "tanh"), CUDA)
+@pytest.mark.parametrize("extra", [1, 16])
+def test_heat_kernel_refuses_width(extra):
+    """Past its stated limit (the weight gradient's 16-row k-tiles along
+    the grid's y extent, the MLP engine's MAX_WIDTH) the check names the
+    limit, for a CUDA device, without loading the library (L = 0 keeps the
+    model small)."""
+    H = ft.MAX_HEAT_WIDTH + extra
+    ft.heat_train_plan(ft.MAX_HEAT_WIDTH)
+    with pytest.raises(ValueError, match=f"width {H} is past the "
+                                         f"{ft.MAX_HEAT_WIDTH}"):
+        ft._check_model(MLP(2, 1, H, 0, "tanh"), CUDA)
 
 
 def test_heat_width_limit_is_the_cards_only():
@@ -107,3 +119,45 @@ def test_engine_plan_width_limit(R):
     fe.engine_plan(R, fe.MAX_WIDTH)
     with pytest.raises(ValueError, match=f"width {fe.MAX_WIDTH + 1}"):
         fe.engine_plan(R, fe.MAX_WIDTH + 1)
+
+
+@pytest.mark.parametrize("H, cluster, points, stages", [
+    (128, 8, 8, 8), (191, 8, 8, 8), (192, 8, 8, 8), (256, 8, 8, 8),
+    (512, 8, 4, 8), (3119, 8, 1, 3), (32, 2, 8, 8), (16, 1, 8, 8),
+])
+def test_heat_streams_plan_takes_width(H, cluster, points, stages):
+    """Kernel #3 at heat's width and past the first design's H = 191: a
+    cluster of 8 CTAs from H = 113, 8 points per cluster while they fit,
+    one at kernel #2's limit 3 119. The shared memory is two buffers of the
+    7 streams of the points at width H and a ring of 8 (where they fit,
+    else 3) 32-row k-tiles of the W slice, within a block's 227 KB."""
+    plan = taylor_mlp.heat_streams_plan(H, 1)
+    assert (plan["cluster"], plan["points"], plan["stages"]) == \
+        (cluster, points, stages)
+    assert (plan["k_tile"], plan["threads"]) == (32, 128)
+    ld = -(-H // 32) * 32 + 4
+    assert plan["smem"] == 4 * (2 * 7 * points * ld + stages * 32
+                                * (128 // points)) <= SMEM_LIMIT
+
+
+def test_heat_streams_plan_width_limit():
+    """The widest plan is H = 3 264 (one point per cluster), past kernel
+    #2's 3 119; past it a ValueError names the limit, before any launch."""
+    assert taylor_mlp._widest_streams() == 3264
+    assert taylor_mlp.heat_streams_plan(3264)["points"] == 1
+    with pytest.raises(ValueError, match="widest it takes is H = 3264"):
+        taylor_mlp.heat_streams_plan(3265)
+
+
+def test_heat_streams_wrapper_refuses_past_limit():
+    """The kernel's launch checks the plan before it checks the tensors or
+    loads the library: past the limit it raises and launches nothing (the
+    check needs only the widths, so CPU tensors show it here)."""
+    model = MLP(2, 1, 3265, 0, "tanh", generator=generator(0))
+    pts = [torch.zeros((4, 2)) for _ in range(4)]
+    weights = (model.fc_in.w, model.fc_in.b, model.hidden.w, model.hidden.b,
+               model.fc_out.w, model.fc_out.b)
+    before = taylor_mlp.heat_fused_streams.launches
+    with pytest.raises(ValueError, match="widest it takes is H = 3264"):
+        taylor_mlp._launch_heat_streams(model, pts, weights)
+    assert taylor_mlp.heat_fused_streams.launches == before
