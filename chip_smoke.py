@@ -14,6 +14,11 @@ Phases (each raises on failure, so any failure exits non-zero):
 3. kernels  — each kernel against its plain PyTorch version on the card, on
               the same inputs at the main paths' shapes, with the tolerance
               stated beside each check; both timed with CUDA events. The
+              MLP forward (#2) runs at every MLP_SHAPES row (simple_ode's,
+              heat's and heat2d's grids, H = 32 to 1 024, and a 1024 ×
+              1024 grid), and it and its plain version are timed by their
+              device time (events around calls queued behind a spin
+              kernel), each shape beside its bound. The
               heat-streams kernel (#3) runs at heat's shape and at a ragged
               B = 1000 for tanh, sigmoid and relu, and its gradient through
               the rematerialised backward is held against the Taylor taps'
@@ -100,6 +105,16 @@ ENSEMBLES = [("fitzhugh_nagumo", {"causal_eps": 0.0}, 0.0088),
 # widths (D, O, H, L), MAE bound as for the default width).
 WIDE_SOLVES = [("heat2d", (3, 1, 256, 3), 0.05),
                ("heat", (2, 1, 256, 3), 0.05)]
+# Kernel #2's shapes: (grid, D, H, L, activation), output width 1. The
+# grids of simple_ode, of heat (and burgers, wave, advection, poisson: the
+# same 40 × 40) for the three activations, and of heat2d (24³); the
+# WIDE_SOLVES widths on heat's and heat2d's grids; the widest width tested;
+# a 1024 × 1024 grid, large-batch inference.
+MLP_SHAPES = [("simple_ode", 1, 32, 1, "tanh"), ("heat", 2, 128, 3, "tanh"),
+              ("heat", 2, 128, 3, "relu"), ("heat", 2, 128, 3, "sigmoid"),
+              ("heat2d", 3, 128, 3, "tanh"), ("heat", 2, 256, 3, "tanh"),
+              ("heat2d", 3, 256, 3, "tanh"), ("heat", 2, 1024, 3, "tanh"),
+              ("1024x1024", 2, 128, 3, "tanh")]
 # Widths past the first designs of kernels #1 (H = 221) and #3 (H = 191).
 HEAT_WIDE = 256
 STREAMS_WIDE = (256, 512)
@@ -268,38 +283,82 @@ def phase_build():
                 print(f"  ptxas: {line.split(':', 1)[-1].strip()}")
 
 
-def check_heat_kernels(model, prob):
-    """Kernels #2 and #1 at the heat route's shapes."""
+def mlp_grid(name, D, H, L, act):
+    """Kernel #2's inputs at one MLP_SHAPES row: the named grid's points
+    and a D → H×L → 1 MLP from generator(1)."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import generator
+    from differential_equations_dnn_tpu_torch.equations import PROBLEMS
+    from differential_equations_dnn_tpu_torch.models import MLP
+
+    dev = torch.device("cuda")
+    if name == "1024x1024":
+        axis = torch.linspace(0.0, 1.0, 1024, device=dev)
+        x = torch.cartesian_prod(axis, axis)
+    else:
+        prob = PROBLEMS[name]()
+        x = prob.grid_inputs(prob.defaults.nodes, device=dev)
+    return MLP(D, 1, H, L, act, generator=generator(1), device=dev), x
+
+
+def check_mlp_forward():
+    """Kernel #2 against its plain version at every MLP_SHAPES row, both
+    timed by their device time (events around calls queued behind a spin
+    kernel: one call's host work outlasts a small grid's device work).
+    Returns the JSON row: heat's 40 × 40 grid through heat's default model
+    (generator(1)), with every shape's numbers under "shapes"."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.kernels import taylor_mlp as tm
+
+    shapes = []
+    for name, D, H, L, act in MLP_SHAPES:
+        model, x = mlp_grid(name, D, H, L, act)
+        N = x.shape[0]
+        label = f"{N}x{D} -> {H}x{L} -> 1, {act}"
+        # Tolerance: fp32 reassociation of H-term dot products through L + 2
+        # layers, outputs of order 1.
+        with torch.no_grad():
+            got = tm.mlp_forward(model, x)
+            want = tm.mlp_forward_plain(model, x)
+            check_close(f"mlp_forward [{label}]", got, want, rtol=1e-5,
+                        atol=1e-5)
+            kernel = lambda: tm.mlp_forward(model, x)  # noqa: E731
+            plain = lambda: tm.mlp_forward_plain(model, x)  # noqa: E731
+            ms, plain_ms = device_ms(kernel), device_ms(plain)
+            wall = cuda_ms(kernel)
+        shapes.append(dict(
+            shape=label, grid=name, max_abs_err=max_abs(got, want), ms=ms,
+            plain_ms=plain_ms,
+            **bound(2 * N * (D * H + L * H * H + H),
+                    4 * (N * D + n_params(D, H, L) + N))))
+        print(f"mlp_forward [{label}] ({name} grid): max|diff| "
+              f"{shapes[-1]['max_abs_err']:.3g}; device time: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+              f"{shapes[-1]['bound_ms']:.3g} ms "
+              f"({shapes[-1]['bound_by']}); per call on the stream (CUDA "
+              f"events): kernel {wall:.4f} ms; plan "
+              f"{tm.mlp_forward_plan(N, D, H, 1)}")
+    row = next(r for r in shapes if r["shape"] == "1600x2 -> 128x3 -> 1, tanh")
+    return dict(name="mlp_forward", route="cuda",
+                source=f"{PKG}/csrc/mlp_forward.cu",
+                replaces=f"{JAX_KERNELS}/taylor_mlp.py:195",
+                max_abs_err=row["max_abs_err"], ms=row["ms"],
+                plain_ms=row["plain_ms"], library_ms=None,
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                shapes=shapes)
+
+
+def check_heat_kernels(model):
+    """Kernel #1 at the heat route's shapes."""
     import torch
 
     from differential_equations_dnn_tpu_torch.core.prng import step_uniforms
     from differential_equations_dnn_tpu_torch.kernels import fused_train as ft
-    from differential_equations_dnn_tpu_torch.kernels import taylor_mlp as tm
 
     dev = torch.device("cuda")
     rows = []
-    # mlp_forward on the 40×40 evaluation grid, H=128, L=3. Tolerance: fp32
-    # reassociation of 128-term dot products through 4 layers, outputs O(1).
-    x = prob.grid_inputs(prob.defaults.nodes, device=dev)
-    with torch.no_grad():
-        got = tm.mlp_forward(model, x)
-        want = tm.mlp_forward_plain(model, x)
-        check_close("mlp_forward", got, want, rtol=1e-5, atol=1e-5)
-        ms = cuda_ms(lambda: tm.mlp_forward(model, x))
-        plain_ms = cuda_ms(lambda: tm.mlp_forward_plain(model, x))
-    N = x.shape[0]
-    rows.append(dict(
-        name="mlp_forward", route="cuda",
-        source=f"{PKG}/csrc/mlp_forward.cu",
-        replaces=f"{JAX_KERNELS}/taylor_mlp.py:195",
-        max_abs_err=max_abs(got, want), ms=ms, plain_ms=plain_ms,
-        library_ms=None,
-        **bound(2 * N * (2 * 128 + 3 * 128 * 128 + 128),
-                4 * (N * 2 + n_params(2, 128, 3) + N))))
-    print(f"mlp_forward [{N}x2 -> 128x3 -> 1]: max|diff| "
-          f"{rows[-1]['max_abs_err']:.3g}; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-
     # One step's loss and gradient (the training kernel without Adam) at
     # B=64. Tolerance: fp32 reassociation of the 448-row weight-gradient
     # sums; each gradient tensor is held to 1e-5 of its own largest entry.
@@ -828,7 +887,8 @@ def phase_kernels():
     prob = Heat1D()
     model = prob.default_model(generator=generator(1),
                                device=torch.device("cuda"))
-    rows = check_heat_kernels(model, prob) + [check_heat_streams()]
+    rows = ([check_mlp_forward()] + check_heat_kernels(model)
+            + [check_heat_streams()])
     for name in ENGINE:
         engine_rows = check_engine_kernels(name)
     dgm_rows = [check_dgm_kernels(name) for name in DGM][0]

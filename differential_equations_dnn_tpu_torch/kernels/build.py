@@ -39,9 +39,9 @@ _CONSTS = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     # x, w_in, b_in, w_hid, b_hid, w_out, b_out, y, n, d, h, l, o, act, stream
     "mlp_forward": [_P] * 8 + [_I] * 6 + [_P],
-    # d, h, o
-    "mlp_forward_rows": [_I] * 3,
-    "mlp_forward_smem_bytes": [_I] * 3,
+    # n, d, h, o, out[5]: rows per CTA tile, threads per CTA, ring depth,
+    # shared memory bytes, CTAs per cluster
+    "mlp_forward_plan": [_I] * 4 + [_P],
     # xt, x0, xb1, xb2, w_in, b_in, w_hid, b_hid, w_out, b_out, out, n, h,
     # l, o, act, stream
     "heat_streams": [_P] * 11 + [_I] * 5 + [_P],
@@ -111,8 +111,7 @@ _SIGNATURES = {
     # cluster size, clusters, syncs, out[2]
     "probe_cluster_sync": [_I] * 3 + [_P],
 }
-_RESTYPES = {"mlp_forward_smem_bytes": ctypes.c_longlong,
-             "heat_scratch_floats": ctypes.c_longlong,
+_RESTYPES = {"heat_scratch_floats": ctypes.c_longlong,
              "heat_train_smem_bytes": ctypes.c_longlong,
              "engine_scratch_floats": ctypes.c_longlong,
              "engine_smem_bytes": ctypes.c_longlong,

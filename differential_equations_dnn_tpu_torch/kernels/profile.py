@@ -36,7 +36,10 @@ chunk of 16 and 4 replicas), ``--engine-outputs PATH`` the MLP engine's
 gradient, a 120-step single chunk, a 53-step packed chunk of 8 replicas);
 ``--heat-outputs PATH`` kernel #1's (heat at H = 128: one step's loss and
 gradient, a 120-step chunk), ``--streams-outputs PATH`` kernel #3's (the 7
-streams for tanh, sigmoid and relu at B = 64 and 1 000, H = 128, L = 3);
+streams for tanh, sigmoid and relu at B = 64 and 1 000, H = 128, L = 3),
+``--mlp-outputs PATH`` kernel #2's (each shape of ``MLP_SHAPES``, and every
+activation, depth 0, 1, 3, input width 1-3, output width 1-2 and ragged N
+in {1, 25, 77} at H = 50 and 128);
 with ``--compare-to OLD`` each compares them with a file that an earlier
 tree saved, tensor by tensor, bit for bit. All use only entry points every
 version of the kernels has, so an earlier tree's package can run them:
@@ -44,9 +47,10 @@ version of the kernels has, so an earlier tree's package can run them:
 keeps this file's directory off the path). ``--engine`` times constant-lr
 heat on the generic engine instead of kernel #1. ``--streams`` times
 kernel #3's device time per call instead (B = 64 and 1 000, H = 128, 256
-and 512). ``--probe-engine`` times
-each kernel of the MLP engine alone (back to back, behind a spin kernel) at
-heat2d's layout: B = 256 and 2 048 at H = 128, B = 256 at H = 512. Needs a
+and 512). ``--mlp`` times kernel #2's device time per call at each shape
+of ``MLP_SHAPES`` (N = 25 to 2^20, H = 32 to 1 024). ``--probe-engine``
+times each kernel of the MLP engine alone (back to back, behind a spin
+kernel) at heat2d's layout: B = 256 and 2 048 at H = 128, B = 256 at H = 512. Needs a
 CUDA device.
 
     python -m differential_equations_dnn_tpu_torch.kernels.profile \
@@ -604,14 +608,79 @@ def streams_times(device, calls=5):
               f"device time per call")
 
 
+# Kernel #2's shapes (N, D, H, L, activation), output width 1: simple_ode's
+# grid, the 40 × 40 grid of heat, burgers, wave, advection and poisson (the
+# three activations), heat2d's 24³, the smoke's H = 256 solves, the widest
+# tested, and a 1024 × 1024 grid (large-batch inference).
+MLP_SHAPES = [(25, 1, 32, 1, "tanh"), (1600, 2, 128, 3, "tanh"),
+              (1600, 2, 128, 3, "relu"), (1600, 2, 128, 3, "sigmoid"),
+              (13824, 3, 128, 3, "tanh"), (1600, 2, 256, 3, "tanh"),
+              (13824, 3, 256, 3, "tanh"), (1600, 2, 1024, 3, "tanh"),
+              (1 << 20, 2, 128, 3, "tanh")]
+
+
+def mlp_case(N, D, H, L, act, device, O=1):
+    """A D → H×L → O MLP (generator(H + L)) and N points in [0, 1)^D
+    (generator(N)): the same inputs on every tree."""
+    from differential_equations_dnn_tpu_torch.models import MLP
+
+    model = MLP(D, O, H, L, act, generator=generator(H + L), device=device)
+    x = torch.rand((N, D), generator=generator(N)).to(device)
+    return model, x
+
+
+def mlp_times(device, calls=5):
+    """Device ms per call of kernel #2 (queued behind a spin kernel) at each
+    of MLP_SHAPES."""
+    from differential_equations_dnn_tpu_torch.kernels import taylor_mlp
+
+    for N, D, H, L, act in MLP_SHAPES:
+        model, x = mlp_case(N, D, H, L, act, device)
+
+        def run():
+            with torch.no_grad():
+                for _ in range(calls):
+                    taylor_mlp.mlp_forward(model, x)
+
+        ms = _spin_ms(run, calls)
+        print(f"mlp_forward [{N}x{D} -> {H}x{L} -> 1, {act}]: "
+              f"{ms * 1e3:.2f} us device time per call")
+
+
+def mlp_outputs(device):
+    """Kernel #2's outputs at fixed inputs, as CPU tensors by name: each of
+    MLP_SHAPES, then every activation, depth L in {0, 1, 3}, input width D
+    in {1, 2, 3}, output width O in {1, 2} and ragged N in {1, 25, 77} at
+    H = 50 (neither a multiple of 4 nor of a k-tile) and 128. Only entry
+    points every version of the kernel has."""
+    from differential_equations_dnn_tpu_torch.kernels import taylor_mlp
+
+    cases = [(N, D, H, L, act, 1) for N, D, H, L, act in MLP_SHAPES]
+    cases += [(N, D, H, L, act, O) for act in ("tanh", "sigmoid", "relu")
+              for L in (0, 1, 3) for D in (1, 2, 3) for O in (1, 2)
+              for N in (1, 25, 77) for H in (50, 128)]
+    out = {}
+    for N, D, H, L, act, O in cases:
+        model, x = mlp_case(N, D, H, L, act, device, O)
+        with torch.no_grad():
+            y = taylor_mlp.mlp_forward(model, x)
+        out[f"{N}x{D} -> {H}x{L} -> {O}, {act}"] = y.cpu()
+    torch.cuda.synchronize()
+    return out
+
+
 def compare_outputs(new, old):
-    """Tensor by tensor: bit for bit, or the largest difference."""
+    """Tensor by tensor: bit for bit, or the largest difference; then the
+    count of equal tensors."""
+    equal = 0
     for key, t in new.items():
         ref = old[key]
         same = torch.equal(t, ref)
-        diff = float((t - ref).abs().max())
+        equal += same
+        diff = float((t - ref).abs().max()) if t.numel() else 0.0
         print(f"  {key} {tuple(t.shape)}: "
               + ("bit for bit" if same else f"max|diff| {diff:.3g}"))
+    print(f"  {equal}/{len(new)} tensors bit for bit")
 
 
 def main():
@@ -645,6 +714,8 @@ def main():
                         help="save kernel #1's outputs at fixed inputs")
     parser.add_argument("--streams-outputs", metavar="PATH",
                         help="save kernel #3's outputs at fixed inputs")
+    parser.add_argument("--mlp-outputs", metavar="PATH",
+                        help="save kernel #2's outputs at fixed inputs")
     parser.add_argument("--compare-to", metavar="OLD",
                         help="with one of the --*-outputs options: "
                         "compare with OLD, saved by an earlier tree")
@@ -654,6 +725,9 @@ def main():
     parser.add_argument("--streams", action="store_true",
                         help="time kernel #3's device time per call "
                         "instead")
+    parser.add_argument("--mlp", action="store_true",
+                        help="time kernel #2's device time per call at "
+                        "each of its shapes instead")
     parser.add_argument("--engine", action="store_true",
                         help="time constant-lr heat on the generic engine "
                         "instead of kernel #1")
@@ -673,7 +747,9 @@ def main():
                              (args.heat_outputs, heat_outputs,
                               "heat kernel (#1)"),
                              (args.streams_outputs, streams_outputs,
-                              "heat streams (#3)")):
+                              "heat streams (#3)"),
+                             (args.mlp_outputs, mlp_outputs,
+                              "MLP forward (#2)")):
         if path:
             outs = make(device)
             torch.save(outs, path)
@@ -686,6 +762,9 @@ def main():
         return
     if args.streams:
         streams_times(device)
+        return
+    if args.mlp:
+        mlp_times(device)
         return
     if args.probe_engine:
         for B, H in ((256, 128), (2048, 128), (256, 512)):

@@ -8,6 +8,7 @@ through :func:`mlp_forward`) and ``heat_fused_streams_pallas``
 :func:`heat_fused_streams` in every training step).
 """
 
+import ctypes
 import functools
 import types
 
@@ -22,23 +23,37 @@ from differential_equations_dnn_tpu_torch.ops import taylor
 
 _ACT_KIND = {"tanh": 0, "relu": 1, "sigmoid": 2}
 
-# csrc/mlp_forward.cu's tiling: a W tile of _W_TILE_K rows by _W_TILE_COLS
-# columns, and the rows per block it tries, most first.
-_W_TILE_K, _W_TILE_COLS = 64, 128
-_ROWS_PER_BLOCK = (32, 16, 8)
+# The widest max(D, H) csrc/mlp_forward.cu takes: its narrowest tile, 8
+# rows, holds two k-major activation buffers of width × 8 floats, a ring of
+# 2 W k-tiles of 32 × 128 floats and two 8-byte barriers a k-tile within a
+# block's 227 KB: 3 119. The library plans everything else
+# (:func:`mlp_forward_plan`); a GPU test holds it to this limit.
+MAX_MLP_WIDTH = (SMEM_LIMIT - 2 * 16 - 4 * 2 * 32 * 128) // (4 * 2 * 8)
 
 
-def mlp_forward_plan(D, H, O):
-    """(rows per block, shared-memory bytes per block) of the forward
-    kernel at these widths, as csrc/mlp_forward.cu plans them: the most
-    rows whose two activation tiles, 2 · rows · (max(D, H, O) + 1) floats,
-    fit beside the W tile in a block's 227 KB; (0, None) if none does."""
-    ld = max(D, H, O) + 1
-    for rows in _ROWS_PER_BLOCK:
-        need = 4 * (_W_TILE_K * _W_TILE_COLS + 2 * rows * ld)
-        if need <= SMEM_LIMIT:
-            return rows, need
-    return 0, None
+def check_mlp_width(D, H):
+    """Raise a ValueError naming MAX_MLP_WIDTH if max(D, H) passes it."""
+    width = max(D, H)
+    if width > MAX_MLP_WIDTH:
+        raise ValueError(
+            f"mlp_forward at width {width} needs more than the {SMEM_LIMIT} "
+            f"bytes of shared memory an H100 block may take (two 8-row "
+            f"activation buffers and the weight ring); the widest it takes "
+            f"is {MAX_MLP_WIDTH}")
+
+
+def mlp_forward_plan(N, D, H, O=1):
+    """The library's launch of csrc/mlp_forward.cu at N rows and widths D →
+    H → O on the current card (``mlp_forward_plan``; needs the card): CTA
+    tiles of ``rows`` rows (64, 32, 16 or 8, from N, the card's SMs and
+    the width), ``threads`` per CTA, a ring of ``stages`` W k-tiles,
+    ``smem`` bytes of shared memory and a ``cluster`` of CTAs that share
+    each W tile's copy. Past MAX_MLP_WIDTH a ValueError names the limit."""
+    check_mlp_width(D, H)
+    out = (ctypes.c_int * 5)()
+    build.check(build.library().mlp_forward_plan(N, D, H, O, out),
+                "mlp_forward_plan")
+    return dict(zip(("rows", "threads", "stages", "smem", "cluster"), out))
 
 
 def mlp_forward_plain(model, x):
@@ -63,13 +78,7 @@ def mlp_forward(model, x):
                   model.output_dim)
     if d != D:
         raise ValueError(f"x has {d} columns, the model takes {D}")
-    if mlp_forward_plan(D, H, O)[0] == 0:
-        rows = _ROWS_PER_BLOCK[-1]
-        raise ValueError(
-            f"mlp_forward at width {max(D, H, O)} needs more than the "
-            f"{SMEM_LIMIT} bytes of shared memory an H100 block may take "
-            f"(two {rows}-row activation tiles); the widest it takes is "
-            f"{_widest()}")
+    check_mlp_width(D, H)
     weights = [
         ("fc_in.w", model.fc_in.w, (D, H)), ("fc_in.b", model.fc_in.b, (H,)),
         ("hidden.w", model.hidden.w, (L, H, H)),
@@ -95,12 +104,6 @@ def mlp_forward(model, x):
 
 
 mlp_forward.launches = 0
-
-
-def _widest():
-    """The widest max(D, H, O) that :func:`mlp_forward_plan` fits."""
-    rows = _ROWS_PER_BLOCK[-1]
-    return (SMEM_LIMIT // 4 - _W_TILE_K * _W_TILE_COLS) // (2 * rows) - 1
 
 
 # ---------------------------------------------------------------------------

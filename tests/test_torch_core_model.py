@@ -72,6 +72,23 @@ def test_mlp_forward_plain_matches_pallas(activation):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("activation", ACTS)
+def test_mlp_forward_plain_matches_apply_without_hidden_layers(activation):
+    """(c) L = 0, which the port's kernel takes: the plain version (what
+    ``mlp_forward`` runs for a CPU tensor) against JAX's ``model.apply``,
+    not against ``mlp_forward_pallas``, which fails for an empty hidden
+    stack (ROADMAP queue 3). N = 77 points; fp32 reassociation of 16-term
+    dot products, atol 1e-6."""
+    jm, jp, tm = _jax_pair(activation, seed=3, L=0)
+    assert tm.num_layers == 0 and jp["hidden"]["w"].shape == (0, 16, 16)
+    x = np.random.default_rng(3).uniform(0, 3, (77, 2)).astype(np.float32)
+    want = np.asarray(jm.apply(jp, x))
+    with torch.no_grad():
+        got = taylor_mlp.mlp_forward(tm, torch.from_numpy(x)).numpy()
+    assert got.shape == (77, 1)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
 def test_params_roundtrip_through_numpy():
     jm, jp, tm = _jax_pair("tanh", seed=2)
     back = params_to_jax(tm)

@@ -59,15 +59,53 @@ def cuda():
 
 @pytest.mark.parametrize("activation", ["tanh", "relu", "sigmoid"])
 def test_mlp_forward_kernel_matches_plain(cuda, activation):
-    """At the evaluation-grid shape (1600 rows, H=128, L=3) and a ragged N;
-    fp32 reassociation of 128-term dot products, outputs of order 1."""
-    model = MLP(2, 1, 128, 3, activation, generator=generator(0), device=cuda)
-    for n in (1600, 77):
-        x = torch.rand((n, 2), generator=generator(n)).to(cuda)
-        with torch.no_grad():
-            got = taylor_mlp.mlp_forward(model, x)
-            want = taylor_mlp.mlp_forward_plain(model, x)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    """At the evaluation grids' row counts (1 600, heat2d's 13 824) and a
+    large one (2^18: 64-row tiles, persistent CTAs), at ragged N = 1, 25,
+    77 (a last tile of a few rows), for L = 0 and 3 at H = 128: fp32
+    reassociation of 128-term dot products, outputs of order 1."""
+    for L in (0, 3):
+        model = MLP(2, 1, 128, L, activation, generator=generator(L),
+                    device=cuda)
+        for n in (1, 25, 77, 1600, 13824, 1 << 18):
+            x = torch.rand((n, 2), generator=generator(n)).to(cuda)
+            with torch.no_grad():
+                got = taylor_mlp.mlp_forward(model, x)
+                want = taylor_mlp.mlp_forward_plain(model, x)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("D, H, L, O, tiles", [
+    (2, 128, 3, 1, {(16, 1), (32, 1), (64, 2)}),
+    (3, 50, 1, 2, {(16, 1), (32, 1), (64, 1)}),
+    (1, 260, 0, 3, {(16, 1), (32, 1)}),
+    (3, 256, 2, 2, {(16, 1), (16, 2), (16, 4), (16, 8), (32, 8)}),
+    (2, 1312, 1, 1, {(8, 1), (8, 4), (8, 8)}),
+])
+def test_mlp_forward_tiles_agree_bit_for_bit(cuda, D, H, L, O, tiles):
+    """The first n rows of N = 40 000 (persistent CTAs) through the planned
+    launch at n = 1, 25, 77, 1 601, 8 001, 13 825: the plan takes each
+    (rows per CTA tile, CTAs per cluster) of ``tiles`` on the H100's 132
+    SMs, and every n gives the same bits as N (each output is one
+    k-ascending chain in any tile, and a staging race, or a cluster's
+    ragged last group, would show as a difference); N against the plain
+    version. H = 50 takes 4-byte cp.async copies, H = 260 per-row bulk
+    copies, and neither is a multiple of the 32- or 64-row k-tile, so
+    neither takes a cluster; H = 256 and 260 take two or three 128-column
+    passes, H = 1 312 eleven at 8 rows per CTA."""
+    model = MLP(D, O, H, L, "tanh", generator=generator(H), device=cuda)
+    x = torch.rand((40_000, D), generator=generator(D)).to(cuda)
+    with torch.no_grad():
+        want = taylor_mlp.mlp_forward(model, x)
+        torch.testing.assert_close(
+            want, taylor_mlp.mlp_forward_plain(model, x), rtol=1e-5,
+            atol=1e-5)
+        seen = set()
+        for n in (1, 25, 77, 1601, 8001, 13825, 40_000):
+            plan = taylor_mlp.mlp_forward_plan(n, D, H, O)
+            seen.add((plan["rows"], plan["cluster"]))
+            got = taylor_mlp.mlp_forward(model, x[:n])
+            assert torch.equal(got, want[:n]), n
+    assert seen == tiles
 
 
 def test_train_chunk_kernel_matches_plain(cuda):
@@ -506,21 +544,67 @@ def test_scan_solve_goes_through_the_streams_kernel(cuda):
 
 @pytest.mark.parametrize("H", [256, 1024])
 def test_mlp_forward_wide_matches_plain(cuda, H):
-    """Past the 211 of a whole staged W: the k-tiled kernel at H = 256 (32
-    rows per block) and 1 024 (16) against the plain version, at the H =
-    128 test's tolerance; the library plans the tile as the Python mirror
-    does."""
-    lib = build.library()
-    rows, need = taylor_mlp.mlp_forward_plan(2, H, 1)
-    assert (lib.mlp_forward_rows(2, H, 1),
-            lib.mlp_forward_smem_bytes(2, H, 1)) == (rows, need)
+    """Past the 211 of a whole staged W: H = 256 (two 128-column passes)
+    and 1 024 (eight) against the plain version, at the H = 128 test's
+    tolerance, at the heat grid, a ragged N and heat2d's grid."""
     model = MLP(2, 1, H, 3, "tanh", generator=generator(0), device=cuda)
-    for n in (1600, 77):
+    for n in (1600, 77, 13824):
         x = torch.rand((n, 2), generator=generator(n)).to(cuda)
         with torch.no_grad():
             got = taylor_mlp.mlp_forward(model, x)
             want = taylor_mlp.mlp_forward_plain(model, x)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("N, D, H, rows, stages, cluster", [
+    (25, 1, 32, 16, 4, 1), (1600, 2, 128, 16, 4, 1), (8000, 2, 256, 32, 4, 8),
+    (13824, 3, 128, 64, 3, 2), (13824, 3, 256, 32, 4, 8),
+    (1 << 20, 2, 128, 64, 3, 2), (1600, 2, 1024, 16, 3, 8),
+    (1600, 2, 1303, 16, 2, 1), (1600, 2, 1304, 8, 6, 1),
+    (1 << 20, 3119, 2, 8, 2, 1), (1 << 20, 2, 3119, 8, 2, 1),
+])
+def test_mlp_forward_plan(cuda, N, D, H, rows, stages, cluster):
+    """The library's plan on the H100's 132 SMs. Rows per CTA tile from N:
+    64 where every SM gets a 64-row tile (N ≥ 8 385) and two such CTAs
+    share an SM (not at H = 256), else 32 where each gets one of those
+    (N ≥ 4 193), else 16; fewer where two k-major buffers of max(D, H) ×
+    rows floats and a ring of at least 2 W k-tiles (of 32 rows at 64 and 8
+    rows per CTA, 64 at 32 and 16) and its two 8-byte barriers a tile would
+    pass a block's 227 KB (16 rows to width 1 303, 8 to MAX_MLP_WIDTH). The
+    ring is as deep as fits, up to 3 k-tiles at 64 rows, 6 at 8 and 4 else.
+    A CTA has one warp more than its compute warps, the one that fills the
+    ring. Clusters of 8 CTAs from H = 256 and of 2 at 64-row tiles share
+    each W tile's copy, where every tile goes by bulk copies (H a multiple
+    of the k-tile, the output layer in one pass), and never more CTAs than
+    row tiles. The output width counts for nothing else."""
+    plan = taylor_mlp.mlp_forward_plan(N, D, H, 1)
+    assert (plan["rows"], plan["stages"], plan["cluster"]) == (
+        rows, stages, cluster)
+    assert plan["threads"] == 32 + {64: 128, 32: 256, 16: 128, 8: 128}[rows]
+    k_tile = {64: 32, 32: 64, 16: 64, 8: 32}[rows]
+    assert plan["smem"] == 16 * stages + 4 * (2 * max(D, H) * rows
+                                              + stages * k_tile * 128)
+    assert plan["smem"] <= engine_core.SMEM_LIMIT
+    assert taylor_mlp.mlp_forward_plan(N, D, H, 64) == dict(plan, cluster=1)
+    assert taylor_mlp.mlp_forward_plan(3, D, H, 1)["cluster"] == 1  # 1 tile
+
+
+def test_mlp_forward_refuses_past_limit(cuda):
+    """Past MAX_MLP_WIDTH the wrapper raises a ValueError naming it before
+    any launch (L = 0 keeps the model small); the library plans
+    MAX_MLP_WIDTH, of D or H, and refuses one more."""
+    M = taylor_mlp.MAX_MLP_WIDTH
+    model = MLP(2, 1, M + 1, 0, "tanh", generator=generator(0), device=cuda)
+    taylor_mlp.mlp_forward.launches = 0
+    with pytest.raises(ValueError, match=f"widest it takes is "
+                                         f"{taylor_mlp.MAX_MLP_WIDTH}"):
+        taylor_mlp.mlp_forward(model, torch.zeros((4, 2), device=cuda))
+    assert taylor_mlp.mlp_forward.launches == 0
+    lib, out = build.library(), (ctypes.c_int * 5)()
+    for width in (M, M + 1):
+        for D, H in ((2, width), (width, 2)):
+            code = lib.mlp_forward_plan(4, D, H, 1, out)
+            assert (code == 0) == (width == M), (D, H)
 
 
 def test_scan_heat_solve_evaluates_wide_model(cuda):

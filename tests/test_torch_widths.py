@@ -3,9 +3,10 @@ of their shared-memory formulas (the checks a wrapper makes before it
 loads the library): kernel #1 (csrc/heat_train.cu) and the MLP engine
 (csrc/engine_train.cu, kernels #4, #5, #6) stage every operand in k-tiles,
 so their plans are the same at every width up to their stated limit;
-kernel #2 (csrc/mlp_forward.cu) plans a tile for any width the trainers
-train; kernel #3 (csrc/heat_streams.cu) spreads a point tile over a thread
-block cluster, so its shared memory grows with H and not with H². Past
+kernel #2 (csrc/mlp_forward.cu) takes any width the trainers train (its
+plan lives in the library alone; the card's tests check it); kernel #3
+(csrc/heat_streams.cu) spreads a point tile over a thread block cluster,
+so its shared memory grows with H and not with H². Past
 each stated limit a ValueError names it. No card is needed: the checks run
 before any launch."""
 
@@ -77,22 +78,28 @@ def test_heat_width_limit_is_the_cards_only():
     assert ft.heat_fused_train_chunk.launches == before
 
 
-@pytest.mark.parametrize("H", [32, 128, 212, 256, 512, 1024])
+@pytest.mark.parametrize("H", [32, 128, 212, 256, 512, 1024, 1303, 1304,
+                               3119])
 def test_mlp_forward_plans_width(H):
-    """Two activation tiles of rows·(H + 1) floats and a 64 × 128 W tile
-    fit a block at every width up to 1 024 and beyond; 32 rows up to
-    H = 779, as the kernel's H = 128 run always took."""
-    rows, need = taylor_mlp.mlp_forward_plan(2, H, 1)
-    assert rows in (32, 16, 8) and need <= SMEM_LIMIT
-    assert need == 4 * (64 * 128 + 2 * rows * (H + 1))
-    assert rows == (32 if H <= 779 else 16)
+    """The kernel's narrowest tile, 8 rows (two k-major activation buffers
+    of width × 8 floats, a ring of two 32 × 128 W k-tiles and their 8-byte
+    barriers), fits a block's 227 KB at every width the trainers train and
+    to 3 119, of D or H, so the wrapper takes it; the library plans wider
+    tiles where they fit (16 rows to 1 303)."""
+    assert 2 * 16 + 4 * (2 * H * 8 + 2 * 32 * 128) <= SMEM_LIMIT
+    taylor_mlp.check_mlp_width(2, H)
+    taylor_mlp.check_mlp_width(H, 2)
 
 
 def test_mlp_forward_width_limit():
-    """Past 8-row tiles (width 3 120) no plan fits; the widest is 3 119."""
-    assert taylor_mlp.mlp_forward_plan(2, 3119, 1)[0] == 8
-    assert taylor_mlp.mlp_forward_plan(2, 3120, 1) == (0, None)
-    assert taylor_mlp._widest() == 3119
+    """Past 8-row tiles with a 2-deep ring of 32-row k-tiles (width 3 120,
+    of D or H) no tile fits; the widest is 3 119, as before the redesign,
+    and the ValueError names it."""
+    assert taylor_mlp.MAX_MLP_WIDTH == 3119
+    assert 2 * 16 + 4 * (2 * 3120 * 8 + 2 * 32 * 128) > SMEM_LIMIT
+    for D, H in ((2, 3120), (3120, 2)):
+        with pytest.raises(ValueError, match="widest it takes is 3119"):
+            taylor_mlp.check_mlp_width(D, H)
 
 
 ENGINE_STREAMS = (3, 5, 7, 9, 11)  # simple_ode, advection, heat, wave, heat2d
