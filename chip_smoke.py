@@ -25,7 +25,12 @@ Phases (each raises on failure, so any failure exits non-zero):
               autograd; #3 and its plain version are timed by their device
               time (events around calls queued behind a spin kernel), since
               one call's host work outlasts it. The generic engine runs at
-              each of its 7 specs' default shapes,
+              each of its 7 MLP specs' default shapes and at volterra's
+              (51 groups folded into one stream), uat's (the Perceptron at
+              L = 0, H = 3) and inverse_heat's (log κ̂ an extra trainable
+              tensor; both take a const operand), each of these three also
+              timed at 1 000 steps, and #2 at uat's and inverse_heat's
+              evaluation shapes;
               the DGM engine at FitzHugh–Nagumo's and Fredholm's, and the
               packed-replica kernel (#5) at the ensembles' shapes (wave
               N=8, FitzHugh–Nagumo N=16, Fredholm N=4), where every
@@ -40,22 +45,25 @@ Phases (each raises on failure, so any failure exits non-zero):
               activation, are held against their plain versions.
 4. solve    — each main path through ``solve(..., engine="fused")`` at its
               equation's reference defaults (seed 0): constant-lr heat on
-              the heat kernel, heat with a cosine schedule and the six other
-              MLP equations on the generic engine, FitzHugh–Nagumo (150 000
+              the heat kernel, heat with a cosine schedule and the nine
+              other MLP-engine equations (volterra, uat 100 000 steps,
+              inverse_heat with its κ̂ error under 0.15 among them) on the
+              generic engine, FitzHugh–Nagumo (150 000
               steps) and Fredholm on the DGM engine; then the packed
               ensembles: FitzHugh–Nagumo with causal_eps=0 (16 replicas and
               the 200-step L-BFGS polish the JAX package picks for it),
               wave with 8 replicas and Fredholm with 4; then three solves
               on the scan trainer (``engine="scan"``, the default): heat
               with ``taps="pallas"`` (kernel #3 once per step plus the
-              warm-up), heat with its default jvp taps, simple_ode. Each: a
+              warm-up), heat with its default jvp taps, simple_ode,
+              volterra and Fredholm with Monte-Carlo quadrature. Each: a
               finite loss history of the right length, a finite solution of
               the problem's shape, MAE under its bound, and its kernels
               launched by that run (counts set to 0 just before it and read
               just after). Two fused solves run at hidden width 256:
               heat2d on the generic engine and heat on the heat kernel.
-5. result   — a JSON line of the kernels, then as the last line
-              {"ok": true, "device": {...}}.
+5. result   — the smoke's total seconds, a JSON line of the kernels,
+              then as the last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -84,6 +92,13 @@ HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 ENGINE = ["simple_ode", "heat", "burgers", "wave", "advection", "poisson",
           "heat2d"]
 DGM = ["fitzhugh_nagumo", "fredholm"]
+# The MLP-engine specs past the plain MLP layout: a folded const-operand
+# spec, the L = 0 Perceptron, an extra trainable tensor. Their rows nest
+# under the engine kernels' rows ("specs").
+LAST = ["volterra", "uat", "inverse_heat"]
+# inverse_heat's κ̂ error bound, the JAX package's own
+# (tests/test_equations.py:208).
+KAPPA_BOUND = 0.15
 # (equation, schedule or None for its default, MAE bound). The bounds are
 # the JAX package's TPU smoke bounds (benchmarks/smoke_tpu.py); heat's
 # 0.05 is the reference's published 0.0529 at this budget, and
@@ -93,6 +108,8 @@ SOLVES = [("heat", None, 0.05), ("heat", "cosine", 0.05),
           ("simple_ode", None, 0.01), ("burgers", None, 0.05),
           ("wave", None, 0.05), ("advection", None, 0.05),
           ("poisson", None, 0.05), ("heat2d", None, 0.05),
+          ("volterra", None, 0.05), ("uat", None, 0.05),
+          ("inverse_heat", None, 0.05),
           ("fitzhugh_nagumo", None, 0.0088), ("fredholm", None, 0.0134)]
 # The packed ensembles: (equation, solve's extra arguments, MAE bound).
 # FitzHugh–Nagumo with causal_eps=0 takes the JAX package's automatic 16
@@ -109,19 +126,23 @@ WIDE_SOLVES = [("heat2d", (3, 1, 256, 3), 0.05),
 # grids of simple_ode, of heat (and burgers, wave, advection, poisson: the
 # same 40 × 40) for the three activations, and of heat2d (24³); the
 # WIDE_SOLVES widths on heat's and heat2d's grids; the widest width tested;
-# a 1024 × 1024 grid, large-batch inference.
+# a 1024 × 1024 grid, large-batch inference; uat's grid through its
+# Perceptron (L = 0, H = 3) and inverse_heat's through its net.
 MLP_SHAPES = [("simple_ode", 1, 32, 1, "tanh"), ("heat", 2, 128, 3, "tanh"),
               ("heat", 2, 128, 3, "relu"), ("heat", 2, 128, 3, "sigmoid"),
               ("heat2d", 3, 128, 3, "tanh"), ("heat", 2, 256, 3, "tanh"),
               ("heat2d", 3, 256, 3, "tanh"), ("heat", 2, 1024, 3, "tanh"),
-              ("1024x1024", 2, 128, 3, "tanh")]
+              ("1024x1024", 2, 128, 3, "tanh"), ("uat", 1, 3, 0, "tanh"),
+              ("inverse_heat", 2, 128, 3, "tanh")]
 # Widths past the first designs of kernels #1 (H = 221) and #3 (H = 191).
 HEAT_WIDE = 256
 STREAMS_WIDE = (256, 512)
 # The scan trainer's solves: (equation, solve's extra arguments, MAE bound),
 # the bounds as for the fused solves.
 SCAN_SOLVES = [("heat", {"taps": "pallas"}, 0.05), ("heat", {}, 0.05),
-               ("simple_ode", {}, 0.01)]
+               ("simple_ode", {}, 0.01),
+               ("volterra", {"quadrature": "montecarlo"}, 0.05),
+               ("fredholm", {"quadrature": "montecarlo"}, 0.05)]
 ACTIVATIONS = ("tanh", "sigmoid", "relu")
 # (equation, replicas, rtol of the losses against the plain version) of
 # the packed-kernel checks; the first two give the JSON rows. Fredholm's
@@ -225,19 +246,21 @@ def step_flops(R, B, D, H, L):
     return fwd + fwd + 2 * R * B * (L * H * H + H)
 
 
-def chunk_bound(K, R, B, D, H, L, U):
+def chunk_bound(K, R, B, D, H, L, U, n_const=0):
     """K steps plus Adam (about 12 flops per parameter); p, m, v read and
-    written once, the uniforms read once, K losses written."""
+    written once, the uniforms and the const operand read once, K losses
+    written."""
     n = n_params(D, H, L)
     return bound(K * (step_flops(R, B, D, H, L) + 12 * n),
-                 4 * (6 * n + K * B * U + K))
+                 4 * (6 * n + K * B * U + K + n_const))
 
 
-def grad_bound(R, B, D, H, L, U):
-    """One step: params and uniforms read once, the gradient and the loss
-    written once."""
+def grad_bound(R, B, D, H, L, U, n_const=0):
+    """One step: params, uniforms and the const operand read once, the
+    gradient and the loss written once."""
     n = n_params(D, H, L)
-    return bound(step_flops(R, B, D, H, L), 4 * (2 * n + B * U + 1))
+    return bound(step_flops(R, B, D, H, L),
+                 4 * (2 * n + B * U + 1 + n_const))
 
 
 def dgm_step_flops(R, B, H, L, O):
@@ -290,7 +313,7 @@ def mlp_grid(name, D, H, L, act):
 
     from differential_equations_dnn_tpu_torch.core.prng import generator
     from differential_equations_dnn_tpu_torch.equations import PROBLEMS
-    from differential_equations_dnn_tpu_torch.models import MLP
+    from differential_equations_dnn_tpu_torch.models import MLP, Perceptron
 
     dev = torch.device("cuda")
     if name == "1024x1024":
@@ -299,6 +322,8 @@ def mlp_grid(name, D, H, L, act):
     else:
         prob = PROBLEMS[name]()
         x = prob.grid_inputs(prob.defaults.nodes, device=dev)
+    if name == "uat":
+        return Perceptron(D, 1, H, generator=generator(1), device=dev), x
     return MLP(D, 1, H, L, act, generator=generator(1), device=dev), x
 
 
@@ -521,7 +546,9 @@ def check_heat_streams():
 
 def check_engine_kernels(name):
     """Kernels #6 and #4 (and #2 on the equation's grid) at one spec's
-    default shapes. Returns the rows of the two engine kernels."""
+    default shapes, with the spec's const operand where it has one; for the
+    LAST specs also the per-step time of a STEADY_STEPS-step chunk. Returns
+    the rows of the two engine kernels."""
     import torch
 
     from differential_equations_dnn_tpu_torch.core.prng import (
@@ -530,7 +557,6 @@ def check_engine_kernels(name):
     )
     from differential_equations_dnn_tpu_torch.equations import PROBLEMS
     from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
-    from differential_equations_dnn_tpu_torch.kernels import fused_train as ft
     from differential_equations_dnn_tpu_torch.kernels import taylor_mlp as tm
 
     dev = torch.device("cuda")
@@ -539,8 +565,12 @@ def check_engine_kernels(name):
     model = prob.default_model(generator=generator(1), device=dev)
     d = prob.defaults
     R, B, U = fe._n_rows(spec.groups), d.batch_size, spec.n_uniform
-    D, H, L = model.input_dim, model.hidden_size, model.num_layers
-    shape = f"R={R}, B={B}, D={D}, H={H}, L={L}, U={U}"
+    D, H, L = spec.dims(model)
+    const = spec.make_const(B, dev)
+    n_const = 0 if const is None else const.numel()
+    shape = (f"R={R}, B={B}, D={D}, H={H}, L={L}, U={U}"
+             + (f", kernel streams {spec.kernel_streams}"
+                if spec.kernel_streams != R else ""))
 
     # The evaluation grid through mlp_forward (tolerance as for heat's).
     x = prob.grid_inputs(d.nodes, device=dev)
@@ -551,29 +581,32 @@ def check_engine_kernels(name):
     # One step's loss and gradient. Tolerance: fp32 reassociation of the
     # R·B-row sums; the loss to rtol 1e-5, each gradient tensor to 1e-5 of
     # its own largest entry.
-    p = ft.pack_params(model)
+    p = fe.pack_state(spec, model)
     u = step_uniforms(0, STEP0, CHUNK_STEPS, B, dev, U)
-    loss_k, grad_k = fe.engine_loss_grad(spec, model, p, u[0])
-    loss_p, grad_p = fe.engine_loss_grad_plain(spec, model, p, u[0])
+    loss_k, grad_k = fe.engine_loss_grad(spec, model, p, u[0], const)
+    loss_p, grad_p = fe.engine_loss_grad_plain(spec, model, p, u[0], const)
     check_close(f"{name} step loss", loss_k, loss_p, rtol=1e-5, atol=0.0)
-    for part, gk, gp in zip(("w_in", "b_in", "w_hid", "b_hid", "w_out",
-                             "b_out"), ft.unpack_params(model, grad_k),
-                            ft.unpack_params(model, grad_p)):
-        check_close(f"{name} grad {part}", gk, gp, rtol=1e-4,
-                    atol=1e-5 * float(gp.abs().max()))
-    ms = cuda_ms(lambda: fe.engine_loss_grad(spec, model, p, u[0]))
+    parts = ("w_in", "b_in", "w_hid", "b_hid", "w_out", "b_out",
+             "log_kappa")
+    for part, gk, gp in zip(parts, fe.unpack_state(spec, model, grad_k),
+                            fe.unpack_state(spec, model, grad_p)):
+        if gp.numel():  # uat's hidden stack has none
+            check_close(f"{name} grad {part}", gk, gp, rtol=1e-4,
+                        atol=1e-5 * float(gp.abs().max()))
+    ms = cuda_ms(lambda: fe.engine_loss_grad(spec, model, p, u[0], const))
     plain_ms = cuda_ms(lambda: fe.engine_loss_grad_plain(spec, model, p,
-                                                         u[0]))
+                                                         u[0], const))
     grad_row = dict(
         name="engine_loss_grad", route="cuda",
         source=f"{PKG}/csrc/engine_train.cu",
         replaces=f"{JAX_KERNELS}/fused_engine.py:235",
         max_abs_err=max(max_abs(loss_k, loss_p), max_abs(grad_k, grad_p)),
         ms=ms, plain_ms=plain_ms, library_ms=None,
-        **grad_bound(R, B, D, H, L, U))
+        **grad_bound(R, B, D, H, L, U, n_const))
     print(f"{name} engine_loss_grad [{shape}]: loss {float(loss_k):.6g} vs "
           f"{float(loss_p):.6g}, max|dgrad| {max_abs(grad_k, grad_p):.3g}; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{grad_row['bound_ms']:.4g} ms ({grad_row['bound_by']})")
 
     # K Adam steps from STEP0 under the equation's default schedule
     # (exponential for burgers, so that all three schedules run) over a
@@ -585,7 +618,7 @@ def check_engine_kernels(name):
     # by up to 2·lr.
     lr = d.lrate
     kw = dict(schedule="exponential" if name == "burgers" else d.schedule,
-              total_steps=HORIZON)
+              total_steps=HORIZON, const=const)
     zeros = torch.zeros_like(p)
     pk, mk, vk, lk = fe.fused_engine_chunk(spec, model, p, zeros, zeros, u,
                                            STEP0, lr, **kw)
@@ -603,7 +636,7 @@ def check_engine_kernels(name):
         replaces=f"{JAX_KERNELS}/engine_core.py:48",
         max_abs_err=max(max_abs(lk, lp), max_abs(pk, pp)), ms=ms,
         plain_ms=plain_ms, library_ms=None,
-        **chunk_bound(CHUNK_STEPS, R, B, D, H, L, U))
+        **chunk_bound(CHUNK_STEPS, R, B, D, H, L, U, n_const))
     print(f"{name} fused_engine_chunk [K={CHUNK_STEPS}, {kw['schedule']}]: "
           f"max|dloss| {max_abs(lk, lp):.3g}, max|dparam| "
           f"{max_abs(pk, pp):.3g}; kernel {ms:.4f} ms "
@@ -613,6 +646,14 @@ def check_engine_kernels(name):
     if name == "heat2d":
         steady_state(name, spec, model, p[None], B, 1, lr, kw)
         check_wide_engine(name, spec, u, lr, kw)
+    if name in LAST:
+        steady_ms = steady_state(name, spec, model, p[None], B, 1, lr, kw)
+        chunk_row.update(
+            steady_steps=STEADY_STEPS, steady_ms=steady_ms,
+            steady_bound_ms=chunk_bound(STEADY_STEPS, R, B, D, H, L, U,
+                                        n_const)["bound_ms"])
+        for row in (grad_row, chunk_row):
+            row.update(spec=name, shape=shape)
     return grad_row, chunk_row
 
 
@@ -761,6 +802,7 @@ def steady_state(name, spec, model, p, B, n_replicas, lr, kw):
     print(f"{name} steady state [N={n_replicas}, K={STEADY_STEPS}]: "
           f"{ms:.4f} ms per chunk, {ms / STEADY_STEPS * 1e3:.2f} us per "
           f"{'packed ' if n_replicas > 1 else ''}step")
+    return ms
 
 
 
@@ -876,7 +918,8 @@ def check_packed_kernels(name, n_replicas, loss_rtol):
 def phase_kernels():
     """Each kernel against its plain version at the main paths' shapes.
     Returns the JSON rows: #2, #1 and #3 at the heat shapes, #6 and #4 at the
-    widest spec (heat2d), #7 and #4 at the DGM layout at the widest DGM
+    widest spec (heat2d; volterra's, uat's and inverse_heat's numbers under
+    their "specs"), #7 and #4 at the DGM layout at the widest DGM
     equation (FitzHugh–Nagumo), #5 at the wave and FitzHugh–Nagumo
     ensembles."""
     import torch
@@ -891,6 +934,9 @@ def phase_kernels():
             + [check_heat_streams()])
     for name in ENGINE:
         engine_rows = check_engine_kernels(name)
+    for row, last in zip(engine_rows, zip(*(check_engine_kernels(name)
+                                            for name in LAST))):
+        row["specs"] = list(last)
     dgm_rows = [check_dgm_kernels(name) for name in DGM][0]
     packed_rows = [check_packed_kernels(*case) for case in PACKED][:2]
     report_graphs()
@@ -1001,17 +1047,27 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
                              f"grid")
     if not res.mae <= mae_bound:
         raise AssertionError(f"{label}: MAE {res.mae} above {mae_bound}")
+    if name == "inverse_heat":
+        err = res.problem.kappa_error(res.params)
+        print(f"{label}: kappa {float(res.params.kappa().detach()):.6g}, "
+              f"error {err:.6g} (bound {KAPPA_BOUND})")
+        if not err < KAPPA_BOUND:
+            raise AssertionError(f"{label}: kappa error {err} above "
+                                 f"{KAPPA_BOUND}")
     on_heat = name == "heat" and (schedule or d.schedule) == "constant"
     trainers = ("fused_engine_chunk", "fused_dgm_chunk",
                 "heat_fused_train_chunk", "fused_engine_packed_chunk",
                 "fused_dgm_packed_chunk")
     if engine == "scan":
+        # A DGM (Fredholm's) evaluates through its own forward, no kernel.
         pallas = extra.get("taps") == "pallas"
-        path = ["mlp_forward"] + (["heat_fused_streams"] if pallas else [])
+        grid = 0 if name in DGM else 1
+        path = (["mlp_forward"] * grid
+                + (["heat_fused_streams"] if pallas else []))
         for kernel in trainers:
             if launches[kernel]:
                 raise AssertionError(f"{label}: the scan solve ran {kernel}")
-        expected = {"mlp_forward": 1,
+        expected = {"mlp_forward": grid,
                     "heat_fused_streams": d.iterations + 1 if pallas else 0}
         for kernel, n in expected.items():
             if launches[kernel] != n:
@@ -1057,6 +1113,7 @@ def phase_solve():
 
 
 def main():
+    t0 = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     phase_device()
     import torch
@@ -1088,6 +1145,12 @@ def main():
     inside = {"engine_step_math": "fused_engine_chunk",
               "dgm_step_math": "fused_dgm_chunk"}
     for row in rows:
+        for spec_row in row.get("specs", ()):  # the LAST specs' own solves
+            spec_row["launches"] = launches[(spec_row["spec"], None)][
+                source[row["name"]][1]]
+            if spec_row["launches"] <= 0:
+                raise AssertionError(f"{row['name']} at {spec_row['spec']} "
+                                     f"has no launches")
         run, counter = source[row["name"]]
         row["launches"] = launches[run][counter]
         if counter != row["name"]:
@@ -1098,6 +1161,7 @@ def main():
             raise AssertionError(f"non-finite measurement in {row}")
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} has no launches")
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

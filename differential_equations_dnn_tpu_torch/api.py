@@ -14,7 +14,6 @@ import torch
 
 from differential_equations_dnn_tpu_torch.core.prng import generator
 from differential_equations_dnn_tpu_torch.equations import (
-    NOT_PORTED,
     Problem,
     get_problem,
 )
@@ -108,10 +107,6 @@ def _fused_route(problem, model, schedule="constant", batch_size=None) -> str:
             f"{problem.name!r} with constraint='hard' is not ported yet "
             f"(ROADMAP.md queue 1, item 10a: the hard specs with "
             f"models/hard.py)")
-    if problem.name in NOT_PORTED:
-        raise NotImplementedError(
-            f"the fused engine for {problem.name!r} is not ported yet "
-            f"(ROADMAP.md {NOT_PORTED[problem.name]})")
     dgm_spec = fused_dgm.spec_for(problem, batch_size)
     if dgm_spec is not None:
         if fused_dgm.supports_model(dgm_spec, model):
@@ -122,11 +117,11 @@ def _fused_route(problem, model, schedule="constant", batch_size=None) -> str:
             f"gates (got {type(model).__name__}); pass model=None for the "
             f"default")
     if problem.name == "fredholm":
-        raise NotImplementedError(
-            "fredholm's fused path is the DGM engine, which needs "
-            "quadrature='gauss'; the montecarlo and halton modes are not "
-            "ported yet (ROADMAP.md queue 1, item 11: the DGM engine's "
-            "Monte-Carlo and Halton quadrature)")
+        raise ValueError(
+            f"fredholm's fused path is the DGM engine, which needs "
+            f"quadrature='gauss' (the {problem.quadrature} mode draws fresh "
+            f"nodes per step); drop quadrature={problem.quadrature!r} or use "
+            f"engine='scan'")
     if problem.name == "fitzhugh_nagumo":
         raise NotImplementedError(
             "fitzhugh_nagumo's fused path is the DGM engine, which needs "
@@ -140,10 +135,11 @@ def _fused_route(problem, model, schedule="constant", batch_size=None) -> str:
                          + (f" with taps={taps!r}" if taps == "pallas" else "")
                          + f" (available: {sorted(fused_engine.SPECS)}); "
                          f"use engine='scan'")
-    if not fused_engine.supports_model(spec, model):
+    if not spec.supports_model(model):
         raise ValueError(
-            f"{problem.name!r}'s fused path needs a plain tanh MLP "
-            f"{spec.input_dim} → H×L → 1 (got {type(model).__name__})")
+            f"{problem.name!r}'s fused path needs "
+            f"{spec.model_text.format(D=spec.input_dim)} (got "
+            f"{type(model).__name__}); use engine='scan'")
     if problem.name == "heat" and schedule == "constant":
         return "heat"
     return "engine"
@@ -159,15 +155,18 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
     """Train a network on ``equation`` and validate against its ground truth.
 
     ``equation`` is a registry name (simple_ode, heat, burgers, wave,
-    advection, poisson, heat2d, fitzhugh_nagumo, fredholm) or a Problem
-    instance. Unset hyperparameters default to the reference's published
+    advection, poisson, heat2d, fitzhugh_nagumo, fredholm, volterra, uat,
+    inverse_heat) or a Problem instance. Unset hyperparameters default to the reference's published
     configuration. ``engine="scan"`` (the default) trains with the generic
     trainer (train.trainer.train): any equation and model, one optimizer
     step of torch ops per batch; heat with ``taps="pallas"`` takes its
     streams from the heat-streams kernel there. ``engine="fused"`` trains
     inside the hand-written CUDA training kernels: constant-lr heat on the
     specialised heat kernel, the DGM equations (fitzhugh_nagumo, fredholm)
-    on the DGM engine, everything else on the generic spec engine.
+    on the DGM engine, everything else on the generic spec engine (uat's
+    Perceptron and inverse_heat's net with its learnable κ̂ too);
+    Fredholm's and Volterra's stochastic quadratures train on the scan
+    engine only, as in the JAX package.
     ``schedule`` ("constant" | "cosine" | "exponential") overrides the
     equation's default lr schedule. ``model`` (default
     ``problem.default_model()`` initialised from ``seed``) is trained in

@@ -49,9 +49,11 @@
 //   layer      x L      hidden layers forward: z = a·W + mask·b, tanh rules
 //   loss       x 1      output layer, the spec's loss and cotangent G, the
 //                       point losses, and the output layer's data gradient
-//                       through the tanh VJP at layer L
+//                       through the tanh VJP at layer L (a folded spec:
+//                       fold_loss, one block per batch point)
 //   layer      x L      hidden layers backward: g = dz·Wᵀ, the tanh VJP
-//   loss_sum   x 1      loss = the point losses' batch mean (a side lane)
+//   loss_sum   x 1      loss = the point losses' batch mean (a side lane);
+//                       the extra scalar's gradient and Adam step
 //   weight     x L + 2  dW = Aᵀ·dz and db over all streams; Adam in training
 //                       (three lanes)
 // Every reduction runs in the order of the engine's first design: each
@@ -79,6 +81,30 @@
 // Row layout of every [R·B, width] activation: stream s, batch row b at row
 // s·B + b, streams in fused_engine.Group order (per group: value, then the
 // (first, second) Taylor pairs, then the first-only tangents).
+//
+// Beyond the MLP layout of the first specs (fused_engine.py:797-1016 of the
+// JAX package: VolterraSpec, UATSpec, InverseHeatSpec):
+//   * The const operand (engine_core.py:67-69, :94): one device buffer per
+//     call, shared by every replica, reached through StepArgs::cnst (so a
+//     replayed graph reads the call's buffer, never a captured one).
+//     Volterra's node fractions and weights and inverse_heat's observation
+//     table ride it; inverse_heat picks its rows by a gather where the TPU
+//     kernel multiplied by a one-hot matrix (the same values: the product
+//     is exact).
+//   * A folded spec (volterra: 1 + k value-only groups, 51 at k = 50) runs
+//     as one value stream of (1 + k)·B rows, so its layer kernels are the
+//     R = 1 instances whatever k is; its weight gradients take the groups
+//     kFoldGroups at a time, one thread group each (a block walking all
+//     (1 + k)·B rows in order took 7× longer on the H100); its loss kernel
+//     (fold_loss_kernel) sums each point's quadrature in node order where
+//     the TPU kernel multiplied by a host-built selection matrix.
+//   * L = 0 (uat's Perceptron, _engine_dims): input, loss, and the input
+//     and output layers' weight gradients; the flat state carries no
+//     hidden tensors. H = 3 stages its rows by 4-byte copies.
+//   * An extra trainable scalar after the MLP's tensors (inverse_heat's
+//     log κ̂, extra_shapes): the loss kernel writes each point's gradient
+//     beside its point loss, and loss_sum_kernel sums both in the same fixed
+//     order and applies Adam to it in the same launch.
 #include <algorithm>
 #include <cmath>
 
@@ -101,6 +127,11 @@ constexpr int kInputBB = 4;     // input kernel: batch points per block
 constexpr int kInputBN = 32;    //   and columns
 constexpr int kLossWarps = 4;   // loss kernel: batch points (warps) per block
 constexpr int kLossLanes = 32;  // the batch loss: 32 lane sums in order
+constexpr int kFoldWarps = 8;   // fold_loss_kernel: warps per batch point
+// The most groups a spec may fold: fold_loss_kernel keeps a point's F
+// outputs in the 48 KB of shared memory a block takes by default.
+constexpr int kMaxFold = 48 * 1024 / 4;
+constexpr int kFoldGroups = 8;  // a folded spec's weight gradients: groups
 
 // ---------------------------------------------------------------------------
 // Stream layouts
@@ -154,21 +185,47 @@ __device__ __forceinline__ int value_of(int s) {
 // ---------------------------------------------------------------------------
 // Specs: build (input rows from the uniforms) and the point loss with its
 // cotangent by hand. loss(...) returns the point's summed loss terms and
-// writes g[s] = d(point loss)/d(out_s); the loss kernel scales by 1/B (the
-// batch mean, fused_engine._smean). Constants are fp32 (kernel_consts).
+// writes g[s] = d(point loss)/d(out_s), and for a spec with an extra
+// trainable scalar (kExtra) g[R] = d(point loss)/d(extra); the kernels
+// scale by 1/B (the batch mean, fused_engine._smean). Constants are fp32
+// (kernel_consts).
 // ---------------------------------------------------------------------------
 
+// What a spec's build and loss read of one batch point: its draws u, its
+// index b in the batch of B (in a folded spec's input kernel, b is the row
+// of the F·B value rows), the call's const operand, and the replica's extra
+// trainable tensors (after the MLP's six).
+struct Point {
+  const float* u;
+  int b, B;
+  const float* cnst;
+  const float* extras;
+};
+
+// A spec's defaults: no extra trainable tensor, groups not folded. A
+// folded spec (kFolded: every group a value row, volterra's 1 + k) lays
+// its F groups out as one value stream of F·B rows (row s·B + b, the
+// engine's usual layout), so its layer kernels run at R = 1 whatever F is
+// (its weight gradients see the F groups of B rows: wg_groups); its loss is
+// fold_loss over a point's F outputs.
+struct SpecBase {
+  static constexpr int kExtra = 0;
+  static constexpr bool kFolded = false;
+};
+
 // dy/dt = -y, y(0) = y_ic. c: sample_scale·t_max, y_ic.
-struct SimpleOde {
+struct SimpleOde : SpecBase {
   static constexpr int R = 3, D = 1, U = 1;
   DEDNN_LAYOUT(kValue, kFirst, kValue)
-  __device__ static void build(const float* u, const Consts& c, float* X) {
+  __device__ static void build(const Point& pt, const Consts& c,
+                                float* X) {
+    const float* u = pt.u;
     X[0] = c.c[0] * u[0];  // t
     X[1] = 1.0f;           // t-tangent
     X[2] = 0.0f;           // t = 0
   }
-  __device__ static float loss(const float*, const Consts& c, const float* o,
-                               float* g) {
+  __device__ static float loss(const Point&, const Consts& c,
+                               const float* o, float* g) {
     const float r = o[1] + o[0];     // y' + y
     const float r0 = o[2] - c.c[1];  // y(0) - y_ic
     g[0] = 2.0f * r;
@@ -189,15 +246,18 @@ __device__ __forceinline__ void build_xt7(const float* u, const Consts& c,
 }
 
 // u_t = kappa u_xx. c: x_max, t_max, kappa.
-struct Heat {
+struct Heat : SpecBase {
   static constexpr int R = 7, D = 2, U = 2;
   DEDNN_LAYOUT(kValue, kPairFirst, kPairSecond, kFirst, kValue, kValue,
                kValue)
-  __device__ static void build(const float* u, const Consts& c, float* X) {
+  __device__ static void build(const Point& pt, const Consts& c,
+                                float* X) {
+    const float* u = pt.u;
     build_xt7(u, c, X);
   }
-  __device__ static float loss(const float* u, const Consts& c,
+  __device__ static float loss(const Point& pt, const Consts& c,
                                const float* o, float* g) {
+    const float* u = pt.u;
     const float kappa = c.c[2];
     const float r = o[3] - kappa * o[2];
     const float r0 = o[4] - sinf(c.c[0] * u[0]);
@@ -215,18 +275,21 @@ struct Heat {
 // u_t + u u_x = nu u_xx against the travelling wave
 // E(x,t) = c - a tanh(a (x - c t - x0) / (2 nu)).
 // c: x_max, t_max, nu, a, c, x0, 2 nu.
-struct Burgers {
+struct Burgers : SpecBase {
   static constexpr int R = 7, D = 2, U = 2;
   DEDNN_LAYOUT(kValue, kPairFirst, kPairSecond, kFirst, kValue, kValue,
                kValue)
   __device__ static float exact(const Consts& c, float x, float t) {
     return c.c[4] - c.c[3] * tanhf(c.c[3] * (x - c.c[4] * t - c.c[5]) / c.c[6]);
   }
-  __device__ static void build(const float* u, const Consts& c, float* X) {
+  __device__ static void build(const Point& pt, const Consts& c,
+                                float* X) {
+    const float* u = pt.u;
     build_xt7(u, c, X);
   }
-  __device__ static float loss(const float* u, const Consts& c,
+  __device__ static float loss(const Point& pt, const Consts& c,
                                const float* o, float* g) {
+    const float* u = pt.u;
     const float x = c.c[0] * u[0], t = c.c[1] * u[1];
     const float nu = c.c[2];
     // The value stream enters the residual: g0 = 2 r u_x, g1 = 2 r u.
@@ -247,19 +310,22 @@ struct Burgers {
 
 // u_tt = c² u_xx, u(x,0) = sin x, u_t(x,0) = 0, u = 0 at x = 0, x_max.
 // c: x_max, t_max, c², velocity weight.
-struct Wave {
+struct Wave : SpecBase {
   static constexpr int R = 9, D = 2, U = 2;
   DEDNN_LAYOUT(kValue, kPairFirst, kPairSecond, kPairFirst, kPairSecond,
                kValue, kFirst, kValue, kValue)
-  __device__ static void build(const float* u, const Consts& c, float* X) {
+  __device__ static void build(const Point& pt, const Consts& c,
+                                float* X) {
+    const float* u = pt.u;
     const float x = c.c[0] * u[0], t = c.c[1] * u[1];
     const float rows[18] = {x,    t,    1.0f, 0.0f, 0.0f, 0.0f,
                             0.0f, 1.0f, 0.0f, 0.0f, x,    0.0f,
                             0.0f, 1.0f, 0.0f, t,    c.c[0], t};
     for (int i = 0; i < 18; ++i) X[i] = rows[i];
   }
-  __device__ static float loss(const float* u, const Consts& c,
+  __device__ static float loss(const Point& pt, const Consts& c,
                                const float* o, float* g) {
+    const float* u = pt.u;
     const float c2 = c.c[2], vw = c.c[3];
     const float r = o[4] - c2 * o[2];
     const float r_pos = o[5] - sinf(c.c[0] * u[0]);
@@ -279,16 +345,19 @@ struct Wave {
 
 // u_t + c u_x = 0, u(x,0) = sin x, u(0,t) = sin(-c t).
 // c: x_max, t_max, c, -c.
-struct Advection {
+struct Advection : SpecBase {
   static constexpr int R = 5, D = 2, U = 2;
   DEDNN_LAYOUT(kValue, kFirst, kFirst, kValue, kValue)
-  __device__ static void build(const float* u, const Consts& c, float* X) {
+  __device__ static void build(const Point& pt, const Consts& c,
+                                float* X) {
+    const float* u = pt.u;
     const float x = c.c[0] * u[0], t = c.c[1] * u[1];
     const float rows[10] = {x, t, 1.0f, 0.0f, 0.0f, 1.0f, x, 0.0f, 0.0f, t};
     for (int i = 0; i < 10; ++i) X[i] = rows[i];
   }
-  __device__ static float loss(const float* u, const Consts& c,
+  __device__ static float loss(const Point& pt, const Consts& c,
                                const float* o, float* g) {
+    const float* u = pt.u;
     const float x = c.c[0] * u[0], t = c.c[1] * u[1];
     const float q = o[2] + c.c[2] * o[1];
     const float r0 = o[3] - sinf(x);
@@ -303,11 +372,13 @@ struct Advection {
 };
 
 // -(u_xx + u_yy) = 2 sin x sin y, u = 0 on the four faces. c: x_max.
-struct Poisson {
+struct Poisson : SpecBase {
   static constexpr int R = 9, D = 2, U = 3;
   DEDNN_LAYOUT(kValue, kPairFirst, kPairSecond, kPairFirst, kPairSecond,
                kValue, kValue, kValue, kValue)
-  __device__ static void build(const float* u, const Consts& c, float* X) {
+  __device__ static void build(const Point& pt, const Consts& c,
+                                float* X) {
+    const float* u = pt.u;
     const float xm = c.c[0];
     const float x = xm * u[0], y = xm * u[1], e = xm * u[2];
     const float rows[18] = {x,    y,    1.0f, 0.0f, 0.0f, 0.0f,
@@ -315,8 +386,9 @@ struct Poisson {
                             xm,   e,    e,    0.0f, e,    xm};
     for (int i = 0; i < 18; ++i) X[i] = rows[i];
   }
-  __device__ static float loss(const float* u, const Consts& c,
+  __device__ static float loss(const Point& pt, const Consts& c,
                                const float* o, float* g) {
+    const float* u = pt.u;
     const float x = c.c[0] * u[0], y = c.c[0] * u[1];
     const float src = 2.0f * sinf(x) * sinf(y);
     const float r = -(o[2] + o[4]) - src;
@@ -337,11 +409,13 @@ struct Poisson {
 
 // u_t = kappa (u_xx + u_yy), u(x,y,0) = sin x sin y, u = 0 on the faces.
 // c: x_max, t_max, kappa.
-struct Heat2D {
+struct Heat2D : SpecBase {
   static constexpr int R = 11, D = 3, U = 4;
   DEDNN_LAYOUT(kValue, kPairFirst, kPairSecond, kPairFirst, kPairSecond,
                kFirst, kValue, kValue, kValue, kValue, kValue)
-  __device__ static void build(const float* u, const Consts& c, float* X) {
+  __device__ static void build(const Point& pt, const Consts& c,
+                                float* X) {
+    const float* u = pt.u;
     const float xm = c.c[0];
     const float x = xm * u[0], y = xm * u[1], t = c.c[1] * u[2];
     const float e = xm * u[3];
@@ -352,8 +426,9 @@ struct Heat2D {
                             0.0f, t,    e,    xm,   t};
     for (int i = 0; i < 33; ++i) X[i] = rows[i];
   }
-  __device__ static float loss(const float* u, const Consts& c,
+  __device__ static float loss(const Point& pt, const Consts& c,
                                const float* o, float* g) {
+    const float* u = pt.u;
     const float x = c.c[0] * u[0], y = c.c[0] * u[1];
     const float kappa = c.c[2];
     const float r = o[5] - kappa * (o[2] + o[4]);
@@ -372,6 +447,92 @@ struct Heat2D {
       sum += o[s] * o[s];
     }
     return sum;
+  }
+};
+
+// y(x) = x + ∫₀ˣ (t − x)·y(t) dt by the k-node Gauss rule rescaled to (0, x):
+// F = 1 + k value groups folded into one stream, group 0 at x, group 1 + j
+// at x·c_j. The const operand is [k, 2]: c_j and (c_j − 1)·w_j. c: upper.
+struct Volterra : SpecBase {
+  static constexpr int R = 1, D = 1, U = 1;
+  static constexpr bool kFolded = true;
+  DEDNN_LAYOUT(kValue)
+  __device__ static void build(const Point& pt, const Consts& c, float* X) {
+    const int s = pt.b / pt.B;
+    const float x = c.c[0] * pt.u[0];
+    X[0] = s == 0 ? x : x * pt.cnst[2 * (s - 1)];
+  }
+  // The point loss r² from its F outputs o, r = y(x) − x − x²·Σ_j
+  // (c_j − 1)·w_j·y(x·c_j) (the sum in node order); *g0 = 2r is the
+  // cotangent of o[0], and o[1 + j]'s is *q times (c_j − 1)·w_j.
+  __device__ static float fold_loss(const Point& pt, const Consts& c,
+                                    const float* o, int F, float* g0,
+                                    float* q) {
+    const float x = c.c[0] * pt.u[0];
+    float acc = 0.0f;
+    for (int j = 0; j + 1 < F; ++j) acc = fmaf(pt.cnst[2 * j + 1], o[1 + j], acc);
+    const float r = o[0] - x - (x * x) * acc;
+    *g0 = 2.0f * r;
+    *q = -2.0f * r * (x * x);
+    return r * r;
+  }
+  __device__ static float fold_coef(const Point& pt, int s) {
+    return pt.cnst[2 * (s - 1) + 1];
+  }
+};
+
+// Full-batch fit of sin(freq·x) on the B-point grid x_b = low + (high −
+// low)·b/(B − 1) (the draws are not read). c: low, high − low, freq.
+struct Uat : SpecBase {
+  static constexpr int R = 1, D = 1, U = 1;
+  DEDNN_LAYOUT(kValue)
+  __device__ static float grid(const Point& pt, const Consts& c) {
+    const float i = static_cast<float>(pt.b);
+    return c.c[0] + (c.c[1] * i) / static_cast<float>(max(pt.B - 1, 1));
+  }
+  __device__ static void build(const Point& pt, const Consts& c, float* X) {
+    X[0] = grid(pt, c);
+  }
+  __device__ static float loss(const Point& pt, const Consts& c,
+                               const float* o, float* g) {
+    const float r = o[0] - sinf(c.c[2] * grid(pt, c));
+    g[0] = 2.0f * r;
+    return r * r;
+  }
+};
+
+// u_t = κ̂ u_xx with log κ̂ trained beside the net (kExtra), and a data term
+// on the observation row floor(u_2·n_obs) of the const [n_obs, 3] (x, t,
+// u_obs; a row past the table, which fp32 rounding can give, is zeros).
+// c: x_max, t_max, data weight, n_obs.
+struct InverseHeat : SpecBase {
+  static constexpr int R = 5, D = 2, U = 3;
+  static constexpr int kExtra = 1;
+  DEDNN_LAYOUT(kValue, kPairFirst, kPairSecond, kFirst, kValue)
+  __device__ static const float* obs(const Point& pt, const Consts& c) {
+    const float sel = floorf(pt.u[2] * c.c[3]);
+    return sel < c.c[3] ? pt.cnst + 3 * static_cast<int>(sel) : nullptr;
+  }
+  __device__ static void build(const Point& pt, const Consts& c, float* X) {
+    const float x = c.c[0] * pt.u[0], t = c.c[1] * pt.u[1];
+    const float* row = obs(pt, c);
+    const float rows[10] = {x,    t,    1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f,
+                            row ? row[0] : 0.0f, row ? row[1] : 0.0f};
+    for (int i = 0; i < 10; ++i) X[i] = rows[i];
+  }
+  __device__ static float loss(const Point& pt, const Consts& c,
+                               const float* o, float* g) {
+    const float kappa = expf(pt.extras[0]);
+    const float* row = obs(pt, c);
+    const float r = o[3] - kappa * o[2];
+    const float d = o[4] - (row ? row[2] : 0.0f);
+    g[0] = 0.0f;
+    g[1] = 0.0f;
+    g[2] = -2.0f * kappa * r;
+    g[3] = 2.0f * r;
+    g[4] = 2.0f * c.c[2] * d;
+    g[R] = -2.0f * r * (kappa * o[2]);  // d/d log κ̂: dr = −κ̂·u_xx
+    return r * r + c.c[2] * (d * d);
   }
 };
 
@@ -507,13 +668,14 @@ struct Rules {
 // for the R streams at column m (the 8-slice sum of the first design: slice
 // d < D is the one product x_d·w_dm) and the tanh rules. Block of kInputBB
 // batch points × kInputBN columns; replica blockIdx.z: weights at z·ps,
-// outputs at z·ss.
+// outputs at z·ss. B counts the rows of a stream: the batch, or a folded
+// spec's F·batch rows, row b drawing on point b mod batch.
 template <class S>
 __global__ void __launch_bounds__(kInputBB* kInputBN)
     input_kernel(const StepArgs* __restrict__ args, int j, Consts c,
-                 long long b_off, int H, int B, float* __restrict__ X,
-                 float* __restrict__ Z, float* __restrict__ A, size_t ss,
-                 size_t ps) {
+                 long long b_off, int H, int B, int batch,
+                 float* __restrict__ X, float* __restrict__ Z,
+                 float* __restrict__ A, size_t ss, size_t ps) {
   constexpr int R = S::R, D = S::D;
   __shared__ float x_s[kInputBB][R * D];
   const size_t so = blockIdx.z * ss;
@@ -526,10 +688,12 @@ __global__ void __launch_bounds__(kInputBB* kInputBN)
   const int tid = threadIdx.x;
   if (tid < kInputBB && b0 + tid < B) {
     const int b = b0 + tid;
+    const int point = S::kFolded ? b % batch : b;
     const float* u =
-        args->u + (static_cast<size_t>(args->base + j) * B + b) * S::U;
+        args->u + (static_cast<size_t>(args->base + j) * batch + point) *
+                      S::U;
     float rows[R * D];
-    S::build(u, c, rows);
+    S::build(Point{u, b, batch, args->cnst, nullptr}, c, rows);
 #pragma unroll
     for (int i = 0; i < R * D; ++i) x_s[tid][i] = rows[i];
     if (blockIdx.x == 0) {
@@ -573,14 +737,17 @@ __global__ void __launch_bounds__(kInputBB* kInputBN)
 // them, so that the loss compiles to the same arithmetic):
 // out_s = a_L[s, b]·w_out (+ b_out on value rows), each dot product
 // lane-strided fmaf chains and a butterfly shuffle; the point loss to
-// PL[b]; G[s·B + b] = (1/B)·d(point loss)/d(out_s); then the output layer's
-// data gradient g = G·w_outᵀ and its VJP at layer L into DZ_L (z_L, a_L).
+// PL[b] (and a kExtra spec's d(point loss)/d(extra) to PE[b]);
+// G[s·B + b] = (1/B)·d(point loss)/d(out_s); then the output layer's data
+// gradient g = G·w_outᵀ and its VJP at layer L into DZ_L (z_L, a_L). The
+// extra tensors are the replica's, at x_off.
 template <class S>
 __global__ void __launch_bounds__(32 * kLossWarps)
     loss_kernel(const StepArgs* __restrict__ args, int j, Consts c,
-                long long w_off, long long b_off, int H, int B,
-                const float* __restrict__ z, const float* __restrict__ a,
-                float* __restrict__ G, float* __restrict__ PL,
+                long long w_off, long long b_off, long long x_off, int H,
+                int B, const float* __restrict__ z,
+                const float* __restrict__ a, float* __restrict__ G,
+                float* __restrict__ PL, float* __restrict__ PE,
                 float* __restrict__ dz, size_t ss, size_t ps) {
   constexpr int R = S::R;
   const int lane = threadIdx.x % 32;
@@ -588,16 +755,18 @@ __global__ void __launch_bounds__(32 * kLossWarps)
   const size_t so = blockIdx.y * ss;
   const float* w_out = args->p + blockIdx.y * ps + w_off;
   const float bo = args->p[blockIdx.y * ps + b_off];
+  const float* extras = args->p + blockIdx.y * ps + x_off;
   z += so;
   a += so;
   G += so;
   PL += so;
+  PE = dednn::shift(PE, so);
   dz += so;
   const float* u = args->u + static_cast<size_t>(args->base + j) * B * S::U;
   const float inv_b = 1.0f / static_cast<float>(B);
   for (int b = blockIdx.x * kLossWarps + threadIdx.x / 32; b < B;
        b += warps) {
-    float out[R], g[R];
+    float out[R], g[R + 1];
 #pragma unroll
     for (int s = 0; s < R; ++s) {
       const float* ar = a + static_cast<size_t>(s * B + b) * H;
@@ -610,10 +779,12 @@ __global__ void __launch_bounds__(32 * kLossWarps)
     }
     // Every lane holds the same outputs (the butterfly's sums commute), so
     // every lane computes the same loss and cotangent.
-    const float point =
-        S::loss(u + static_cast<size_t>(b) * S::U, c, out, g);
+    const float point = S::loss(
+        Point{u + static_cast<size_t>(b) * S::U, b, B, args->cnst, extras}, c,
+        out, g);
     if (lane == 0) {
       PL[b] = point;
+      if (S::kExtra) PE[b] = g[R];
 #pragma unroll
       for (int s = 0; s < R; ++s) G[s * B + b] = g[s] * inv_b;
     }
@@ -638,22 +809,103 @@ __global__ void __launch_bounds__(32 * kLossWarps)
   }
 }
 
+// A folded spec's output layer and loss (kFolded: volterra), for step
+// base + j: block (b, replica) of kFoldWarps warps takes point b's F
+// outputs out_s = a_L[s·B + b]·w_out + b_out (warp w: s = w, w + kFoldWarps,
+// ...; each dot product as in loss_kernel) into shared memory, then thread
+// 0 the point loss (S::fold_loss, to PL[b]), then each warp its rows'
+// G[s·B + b] = (1/B)·g_s and the data gradient through the tanh VJP at
+// layer L into DZ_L. Dynamic shared memory: F floats.
+template <class S>
+__global__ void __launch_bounds__(32 * kFoldWarps)
+    fold_loss_kernel(const StepArgs* __restrict__ args, int j, Consts c,
+                     long long w_off, long long b_off, int H, int B, int F,
+                     const float* __restrict__ a, float* __restrict__ G,
+                     float* __restrict__ PL, float* __restrict__ dz,
+                     size_t ss, size_t ps) {
+  extern __shared__ float out_s[];  // [F]
+  __shared__ float coef_s[2];        // g_0 and q of S::fold_loss
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int b = blockIdx.x;
+  const size_t so = blockIdx.y * ss;
+  const float* w_out = args->p + blockIdx.y * ps + w_off;
+  const float bo = args->p[blockIdx.y * ps + b_off];
+  a += so;
+  G += so;
+  PL += so;
+  dz += so;
+  const Point pt{args->u + (static_cast<size_t>(args->base + j) * B + b) *
+                               S::U,
+                 b, B, args->cnst, nullptr};
+  for (int s = warp; s < F; s += kFoldWarps) {
+    const float* ar = a + (static_cast<size_t>(s) * B + b) * H;
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int k = lane; k < H; k += 32) acc = fmaf(ar[k], w_out[k], acc);
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) out_s[s] = acc + bo;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    PL[b] = S::fold_loss(pt, c, out_s, F, &coef_s[0], &coef_s[1]);
+  __syncthreads();
+  const float inv_b = 1.0f / static_cast<float>(B);
+  for (int s = warp; s < F; s += kFoldWarps) {
+    const float gs = s == 0 ? coef_s[0] : coef_s[1] * S::fold_coef(pt, s);
+    const size_t row = static_cast<size_t>(s) * B + b;
+    if (lane == 0) G[row] = gs * inv_b;
+    for (int k = lane; k < H; k += 32) {
+      const float av = a[row * H + k];
+      // act_bwd at a value row: (1 − a²)·g, g through the one output
+      // column and the 7 empty slices, as in loss_kernel.
+      const float gk = opaque(fmaf(gs * inv_b, w_out[k], 0.0f) + 0.0f);
+      dz[row * H + k] = (1.0f - av * av) * gk;
+    }
+  }
+}
+
 // The step's loss = the batch mean of the point losses, into the replica's
 // slot (blockIdx.x) of call step base + j: lane w sums rows w, w + 32, ...
-// in row order, then lane 0 the 32 sums in lane order.
+// in row order, then lane 0 the 32 sums in lane order. With PE (a spec
+// with an extra trainable scalar, at x_off of the replica's parameters),
+// its gradient, the batch mean of PE summed in the same order, then Adam
+// on it at step step0 + base + j + 1 (kAdam), or the gradient to
+// args->grad.
+template <bool kAdam>
 __global__ void loss_sum_kernel(const StepArgs* __restrict__ args, int j,
-                                const float* __restrict__ PL, int B,
-                                size_t ss) {
-  PL += blockIdx.x * ss;
-  const int lane = threadIdx.x;
-  float sum = 0.0f;
-  for (int row = lane; row < B; row += kLossLanes) sum += PL[row];
-  float total = 0.0f;
-  for (int i = 0; i < kLossLanes; ++i)
-    total += __shfl_sync(0xffffffffu, sum, i);
-  if (lane == 0)
-    args->losses[blockIdx.x * args->ls + args->base + j] =
-        total * (1.0f / static_cast<float>(B));
+                                const float* __restrict__ PL,
+                                const float* __restrict__ PE, int B,
+                                size_t ss, size_t ps, long long x_off) {
+  const float inv_b = 1.0f / static_cast<float>(B);
+  auto batch_sum = [&](const float* v) {
+    const int lane = threadIdx.x;
+    float sum = 0.0f;
+    for (int row = lane; row < B; row += kLossLanes) sum += v[row];
+    float total = 0.0f;
+    for (int i = 0; i < kLossLanes; ++i)
+      total += __shfl_sync(0xffffffffu, sum, i);
+    return total * inv_b;
+  };
+  const float loss = batch_sum(PL + blockIdx.x * ss);
+  if (threadIdx.x == 0)
+    args->losses[blockIdx.x * args->ls + args->base + j] = loss;
+  if (PE == nullptr) return;
+  const float ge = batch_sum(PE + blockIdx.x * ss);
+  if (threadIdx.x != 0) return;
+  const size_t at = blockIdx.x * ps + x_off;
+  if (kAdam) {
+    const dednn::AdamStep step = dednn::adam_step(
+        args->lr, static_cast<float>(args->step0 + args->base + j + 1),
+        args->sched);
+    float pv = args->p[at], mv = args->m[at], vv = args->v[at];
+    dednn::adam_apply(pv, mv, vv, ge, step);
+    args->m[at] = mv;
+    args->v[at] = vv;
+    args->p[at] = pv;
+  } else {
+    args->grad[x_off] = ge;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -665,9 +917,10 @@ long long n_params(int D, int H, int L) {
          static_cast<long long>(L) * H + H + 1;
 }
 
-// Offsets of the flat buffer's tensors (fused_train.pack_params order).
+// Offsets of the flat buffer's tensors (fused_engine.pack_state order: the
+// MLP's six, then the spec's extra tensors at `extras`).
 struct Offsets {
-  long long w_in, b_in, w_hid, b_hid, w_out, b_out;
+  long long w_in, b_in, w_hid, b_hid, w_out, b_out, extras;
   Offsets(int D, int H, int L) {
     const long long h = H, l = L;
     w_in = 0;
@@ -676,17 +929,20 @@ struct Offsets {
     b_hid = w_hid + l * h * h;
     w_out = b_hid + l * h;
     b_out = w_out + h;
+    extras = b_out + 1;
   }
 };
 
 size_t align4(size_t floats) { return (floats + 3) / 4 * 4; }
 
-// The per-replica scratch: X [R·B, D]; Z, A and DZ [L + 1][R·B, H]; G
-// [R·B]; the point losses [B]; each region 16-byte aligned.
+// The per-replica scratch at `rows` rows per stream (the batch, or a folded
+// spec's F·batch): X [R·rows, D]; Z, A and DZ [L + 1][R·rows, H]; G
+// [R·rows]; the point losses PL and the extra's point gradients PE [rows];
+// each region 16-byte aligned.
 struct Scratch {
-  size_t X, Z, A, G, DZ, PL, total;
-  Scratch(int R, int B, int D, int H, int L) {
-    const size_t rows = static_cast<size_t>(R) * B;
+  size_t X, Z, A, G, DZ, PL, PE, total;
+  Scratch(int R, int rows_per_stream, int D, int H, int L) {
+    const size_t rows = static_cast<size_t>(R) * rows_per_stream;
     const size_t layers = static_cast<size_t>(L + 1) * rows * H;
     X = 0;
     Z = align4(X + rows * D);
@@ -694,56 +950,79 @@ struct Scratch {
     G = align4(A + layers);
     DZ = align4(G + rows);
     PL = align4(DZ + layers);
-    total = align4(PL + B);
+    PE = align4(PL + rows_per_stream);
+    total = align4(PE + rows_per_stream);
   }
 };
+
+// Thread groups of a spec's weight gradients: one per stream, or a folded
+// spec's F groups kFoldGroups at a time (so its gradients' blocks walk
+// ⌈F/kFoldGroups⌉·⌈B/16⌉ row chunks, not ⌈F·B/16⌉ as at R = 1).
+template <class S>
+constexpr int wg_groups() {
+  return S::kFolded ? kFoldGroups : S::R;
+}
 
 // Enqueue call step base + j of `reps` replicas: the forward, the loss into
 // its slot, the data path of the backward, then every layer's weight
 // gradient (with Adam, kAdam; else the gradient to args->grad) on three
-// lanes: the two side streams and main. They start together once every
+// lanes: the two side streams and main, in turn, the input layer's on the
+// least loaded. They start together once every
 // layer's data gradient has read its weight (the Adam epilogue rewrites
 // it): timed on the H100 (kernels/profile.py), that beat forking each one
 // as soon as its layer's data gradient was done, when the weight gradients
 // slowed the data path they shared the SMs with. Replica r's scratch is at
-// scratch + r·Scratch::total; each layer keeps its own Z, A and dz.
+// scratch + r·Scratch::total; each layer keeps its own Z, A and dz. F is a
+// folded spec's group count (1 for the others): its streams have F·B rows.
+// At L = 0 (uat's Perceptron) the step is the input layer, the loss, and
+// the weight gradients of the input and output layers.
 template <class S, bool kAdam>
 cudaError_t enqueue_step(const StepArgs* args, const Consts& c, int j,
-                         float* scratch, int reps, int B, int H, int L,
+                         float* scratch, int reps, int B, int H, int L, int F,
                          Streams& st) {
-  constexpr int R = S::R, D = S::D;
-  const Scratch sc(R, B, D, H, L);
+  constexpr int R = S::R, D = S::D, kWg = wg_groups<S>();
+  const int rows = S::kFolded ? F * B : B;
+  const Scratch sc(R, rows, D, H, L);
   const Offsets off(D, H, L);
-  const Layout lay{R, B, S::kValueMask};
-  const size_t layer_floats = static_cast<size_t>(R) * B * H;
-  const size_t ss = sc.total, n = n_params(D, H, L);
+  // The weight gradients' streams: a folded spec's F groups of B rows.
+  const Layout lay = S::kFolded ? Layout{F, B, ~0u}
+                                : Layout{R, rows, S::kValueMask};
+  const size_t layer_floats = static_cast<size_t>(R) * rows * H;
+  const size_t ss = sc.total, n = n_params(D, H, L) + S::kExtra;
   float* X = scratch + sc.X;
   float* Z = scratch + sc.Z;
   float* A = scratch + sc.A;
   float* G = scratch + sc.G;
   float* DZ = scratch + sc.DZ;
   float* PL = scratch + sc.PL;
+  float* PE = S::kExtra ? scratch + sc.PE : nullptr;
   auto at = [&](float* base, int l) { return base + l * layer_floats; };
   auto w_hid = [&](int l) { return off.w_hid + static_cast<long long>(l) * H * H; };
   auto b_hid = [&](int l) { return off.b_hid + static_cast<long long>(l) * H; };
   const cudaStream_t main = st.main;
 
   input_kernel<S><<<dim3(dednn::ceil_div(H, kInputBN),
-                         dednn::ceil_div(B, kInputBB), reps),
+                         dednn::ceil_div(rows, kInputBB), reps),
                     kInputBB * kInputBN, 0, main>>>(args, j, c, off.b_in, H,
-                                                    B, X, Z, A, ss, n);
+                                                    rows, B, X, Z, A, ss, n);
   for (int l = 1; l <= L; ++l)
     dednn::layer<Rules<S>, false>(at(A, l - 1), args, w_hid(l - 1),
-                                  b_hid(l - 1), H, H, B, nullptr, nullptr,
+                                  b_hid(l - 1), H, H, rows, nullptr, nullptr,
                                   at(Z, l), at(A, l), ss, n, reps, main);
-  loss_kernel<S><<<dim3(dednn::ceil_div(B, kLossWarps), reps),
-                   32 * kLossWarps, 0, main>>>(args, j, c, off.w_out,
-                                               off.b_out, H, B, at(Z, L),
-                                               at(A, L), G, PL, at(DZ, L), ss,
-                                               n);
+  if constexpr (S::kFolded) {
+    fold_loss_kernel<S><<<dim3(B, reps), 32 * kFoldWarps,
+                          F * sizeof(float), main>>>(
+        args, j, c, off.w_out, off.b_out, H, B, F, at(A, L), G, PL,
+        at(DZ, L), ss, n);
+  } else {
+    loss_kernel<S><<<dim3(dednn::ceil_div(B, kLossWarps), reps),
+                     32 * kLossWarps, 0, main>>>(
+        args, j, c, off.w_out, off.b_out, off.extras, H, B, at(Z, L),
+        at(A, L), G, PL, PE, at(DZ, L), ss, n);
+  }
   for (int l = L; l >= 1; --l)
     dednn::layer<Rules<S>, true>(at(DZ, l), args, w_hid(l - 1), -1LL, H, H,
-                                 B, at(Z, l - 1), at(A, l - 1), nullptr,
+                                 rows, at(Z, l - 1), at(A, l - 1), nullptr,
                                  at(DZ, l - 1), ss, n, reps, main);
 
   cudaStream_t lanes[3];
@@ -751,15 +1030,26 @@ cudaError_t enqueue_step(const StepArgs* args, const Consts& c, int j,
   if (err == cudaSuccess) err = st.branch(&lanes[1]);
   if (err != cudaSuccess) return err;
   lanes[2] = main;
-  for (int l = L; l >= 1; --l)  // the hidden layers, one lane each in turn
-    dednn::weight_grad<kAdam, R>(at(A, l - 1), H, at(DZ, l), H, lay, args,
-                                 j, w_hid(l - 1), b_hid(l - 1), ss, n, reps,
-                                 lanes[(L - l) % 3]);
-  loss_sum_kernel<<<reps, kLossLanes, 0, lanes[1]>>>(args, j, PL, B, ss);
-  dednn::weight_grad<kAdam, R>(at(A, L), H, G, 1, lay, args, j, off.w_out,
-                               off.b_out, ss, n, reps, lanes[1]);
-  dednn::weight_grad<kAdam, R>(X, D, DZ, H, lay, args, j, off.w_in, off.b_in,
-                               ss, n, reps, lanes[(L + 1) % 2]);
+  int load[3] = {0, 0, 0};  // weight gradients per lane
+  for (int l = L; l >= 1; --l) {  // the hidden layers, one lane each in turn
+    ++load[(L - l) % 3];
+    dednn::weight_grad<kAdam, kWg>(at(A, l - 1), H, at(DZ, l), H, lay,
+                                   args, j, w_hid(l - 1), b_hid(l - 1), ss,
+                                   n, reps, lanes[(L - l) % 3]);
+  }
+  loss_sum_kernel<kAdam><<<reps, kLossLanes, 0, lanes[1]>>>(
+      args, j, PL, PE, B, ss, n, off.extras);
+  ++load[1];
+  dednn::weight_grad<kAdam, kWg>(at(A, L), H, G, 1, lay, args, j, off.w_out,
+                                 off.b_out, ss, n, reps, lanes[1]);
+  // The input layer's on the least loaded lane, the first of equals (at
+  // L = 3 lanes[0], as before; at L = 2 not a third one on lanes[1], which
+  // held volterra's step to its three weight gradients in a row).
+  int in = 0;
+  for (int i = 1; i < 3; ++i)
+    if (load[i] < load[in]) in = i;
+  dednn::weight_grad<kAdam, kWg>(X, D, DZ, H, lay, args, j, off.w_in,
+                                 off.b_in, ss, n, reps, lanes[in]);
   err = st.merge();
   return err != cudaSuccess ? err : cudaGetLastError();
 }
@@ -776,12 +1066,16 @@ auto dispatch(int spec, F&& f) -> decltype(f(Heat{})) {
     case 4: return f(Advection{});
     case 5: return f(Poisson{});
     case 6: return f(Heat2D{});
+    case 7: return f(Volterra{});
+    case 8: return f(Uat{});
+    case 9: return f(InverseHeat{});
     default: return -1;
   }
 }
 
-StepArgs host_args(const float* consts, float* p, float* m, float* v,
-                   const float* u, float* losses, long long ls, float* grad) {
+StepArgs host_args(const float* consts, const float* cnst, float* p,
+                   float* m, float* v, const float* u, float* losses,
+                   long long ls, float* grad) {
   StepArgs a{};
   a.p = p;
   a.m = m;
@@ -790,17 +1084,25 @@ StepArgs host_args(const float* consts, float* p, float* m, float* v,
   a.losses = losses;
   a.ls = ls;
   a.grad = grad;
+  a.cnst = cnst;
   for (int i = 0; i < kMaxConsts; ++i) a.c.c[i] = consts[i];
   return a;
 }
 
+// A folded spec's F groups: at least 1, and its loss kernel's outputs in
+// the 48 KB of shared memory a block takes without opting in.
+bool fold_ok(int F) { return F >= 1 && F <= kMaxFold; }
+
 }  // namespace
 
-// Floats of scratch one replica needs, or -1 for an unknown spec.
-extern "C" long long engine_scratch_floats(int spec, int B, int H, int L) {
+// Floats of scratch one replica needs at F folded groups (1 for a spec
+// that does not fold), or -1 for an unknown spec.
+extern "C" long long engine_scratch_floats(int spec, int B, int H, int L,
+                                           int F) {
   return dispatch(spec, [&](auto s) -> long long {
     using S = decltype(s);
-    return static_cast<long long>(Scratch(S::R, B, S::D, H, L).total);
+    return static_cast<long long>(
+        Scratch(S::R, S::kFolded ? F * B : B, S::D, H, L).total);
   });
 }
 
@@ -811,7 +1113,9 @@ extern "C" long long engine_scratch_floats(int spec, int B, int H, int L) {
 extern "C" long long engine_smem_bytes(int spec, int H) {
   (void)H;
   return dispatch(spec, [&](auto s) -> long long {
-    return static_cast<long long>(dednn::step_smem_bytes<decltype(s)::R>());
+    using S = decltype(s);
+    return static_cast<long long>(
+        dednn::step_smem_bytes<S::R, wg_groups<S>()>());
   });
 }
 
@@ -819,49 +1123,54 @@ extern "C" long long engine_smem_bytes(int spec, int H) {
 extern "C" int engine_args_bytes() { return sizeof(StepArgs); }
 
 // One step's loss and flat gradient (kernel #6 alone), its launches on one
-// stream. consts: the spec's kMaxConsts numbers, in host memory; args: a
-// device block of engine_args_bytes().
-extern "C" int engine_grad(int spec, const float* consts, const float* p,
-                           const float* u, float* scratch, float* grad,
-                           float* loss, void* args, int B, int H, int L,
-                           void* stream) {
+// stream. consts: the spec's kMaxConsts numbers, in host memory; cnst: its
+// const operand on the device (nullptr: none); args: a device block of
+// engine_args_bytes(); F: the folded groups (1 unless the spec folds).
+extern "C" int engine_grad(int spec, const float* consts, const float* cnst,
+                           const float* p, const float* u, float* scratch,
+                           float* grad, float* loss, void* args, int B, int H,
+                           int L, int F, void* stream) {
+  if (!fold_ok(F)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   StepArgs* dev = static_cast<StepArgs*>(args);
-  const StepArgs a = host_args(consts, const_cast<float*>(p), nullptr,
+  const StepArgs a = host_args(consts, cnst, const_cast<float*>(p), nullptr,
                                nullptr, u, loss, 0, grad);
   const int code = dispatch(spec, [&](auto s) -> int {
     using S = decltype(s);
-    cudaError_t err = dednn::prepare_step<Rules<S>>();
+    cudaError_t err = dednn::prepare_step<Rules<S>, wg_groups<S>()>();
     if (err == cudaSuccess) err = write_args(dev, a, st);
     if (err != cudaSuccess) return err;
     Streams one{st, {st, st}, nullptr, nullptr};
-    return enqueue_step<S, false>(dev, a.c, 0, scratch, 1, B, H, L, one);
+    return enqueue_step<S, false>(dev, a.c, 0, scratch, 1, B, H, L, F, one);
   });
   return code < 0 ? cudaErrorInvalidValue : code;
 }
 
 // Capture S training steps of N packed replicas as one CUDA graph
 // (dednn::capture_steps) and instantiate it into *exec. The graph holds
-// the scratch and argument-block pointers, the shape and the spec's
-// numbers (consts, in host memory): it serves every call of that shape and
-// those numbers whose per-call values come through args
-// (engine_train_packed writes them).
+// the scratch and argument-block pointers, the shape (F folded groups
+// included) and the spec's numbers (consts, in host memory): it serves
+// every call of that shape and those numbers whose per-call values come
+// through args (engine_train_packed writes them, the const operand's
+// pointer among them).
 extern "C" int engine_graph_build(int spec, const float* consts, int B, int H,
-                                  int L, int N, int S, void* args,
+                                  int L, int F, int N, int S, void* args,
                                   float* scratch, void** exec) {
   *exec = nullptr;
-  if (S < 1 || N < 1 || N > dednn::kMaxGridYZ) return cudaErrorInvalidValue;
+  if (S < 1 || N < 1 || N > dednn::kMaxGridYZ || !fold_ok(F))
+    return cudaErrorInvalidValue;
   StepArgs* dev = static_cast<StepArgs*>(args);
   const Consts c = host_args(consts, nullptr, nullptr, nullptr, nullptr,
-                             nullptr, 0, nullptr).c;
+                             nullptr, nullptr, 0, nullptr).c;
   const int code = dispatch(spec, [&](auto s) -> int {
     using Spec = decltype(s);
-    const cudaError_t err = dednn::prepare_step<Rules<Spec>>();
+    const cudaError_t err =
+        dednn::prepare_step<Rules<Spec>, wg_groups<Spec>()>();
     if (err != cudaSuccess) return err;
     return dednn::capture_steps(
         dev, S,
         [&](int j, Streams& st) {
-          return enqueue_step<Spec, true>(dev, c, j, scratch, N, B, H, L,
+          return enqueue_step<Spec, true>(dev, c, j, scratch, N, B, H, L, F,
                                           st);
         },
         exec);
@@ -874,42 +1183,44 @@ extern "C" int engine_graph_free(void* exec) {
 }
 
 // K Adam steps of N packed replicas (kernel #5 around #6): p, m, v [N, n]
-// updated in place, losses [N, K]; the uniforms [K, B, U] and the schedule
-// are shared. scratch (N·engine_scratch_floats) and args
-// (engine_args_bytes) are the ones exec was built with, if exec is not
-// null: then ⌊K/S⌋ replays of its S steps on `stream`, and the other K mod
-// S steps as the same launches from here, the weight gradients on side0
-// and side1 (all K, without exec). *step_math_runs (host memory) is set to
-// the number of replica-steps whose step math was enqueued. N above the
-// grid's 65 535 is refused.
-extern "C" int engine_train_packed(int spec, const float* consts, float* p,
-                                   float* m, float* v, const float* u,
-                                   float* scratch, float* losses, void* args,
-                                   void* exec, int S, int N, int K, int B,
-                                   int H, int L, float lr, int step0,
-                                   int schedule, float horizon, float decay,
+// updated in place, losses [N, K]; the uniforms [K, B, U], the const
+// operand cnst (nullptr: none) and the schedule are shared. scratch
+// (N·engine_scratch_floats) and args (engine_args_bytes) are the ones exec
+// was built with, if exec is not null: then ⌊K/S⌋ replays of its S steps
+// on `stream`, and the other K mod S steps as the same launches from here,
+// the weight gradients on side0 and side1 (all K, without exec).
+// *step_math_runs (host memory) is set to the number of replica-steps whose
+// step math was enqueued. N above the grid's 65 535 is refused.
+extern "C" int engine_train_packed(int spec, const float* consts,
+                                   const float* cnst, float* p, float* m,
+                                   float* v, const float* u, float* scratch,
+                                   float* losses, void* args, void* exec,
+                                   int S, int N, int K, int B, int H, int L,
+                                   int F, float lr, int step0, int schedule,
+                                   float horizon, float decay,
                                    float half_span, float log_decay,
                                    int* step_math_runs, void* stream,
                                    void* side0, void* side1) {
   *step_math_runs = 0;
-  if (N < 1 || N > dednn::kMaxGridYZ) return cudaErrorInvalidValue;
+  if (N < 1 || N > dednn::kMaxGridYZ || !fold_ok(F))
+    return cudaErrorInvalidValue;
   if (exec != nullptr && S < 1) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   StepArgs* dev = static_cast<StepArgs*>(args);
-  StepArgs a = host_args(consts, p, m, v, u, losses, K, nullptr);
+  StepArgs a = host_args(consts, cnst, p, m, v, u, losses, K, nullptr);
   a.step0 = step0;
   a.lr = lr;
   a.sched = Schedule{schedule, horizon, decay, half_span, log_decay};
   const int code = dispatch(spec, [&](auto s) -> int {
     using Spec = decltype(s);
-    cudaError_t err = dednn::prepare_step<Rules<Spec>>();
+    cudaError_t err = dednn::prepare_step<Rules<Spec>, wg_groups<Spec>()>();
     if (err == cudaSuccess) err = write_args(dev, a, st);
     if (err != cudaSuccess) return err;
     return dednn::run_steps(
         exec, S, K, N, st, static_cast<cudaStream_t>(side0),
         static_cast<cudaStream_t>(side1),
         [&](int j, Streams& two) {
-          return enqueue_step<Spec, true>(dev, a.c, j, scratch, N, B, H, L,
+          return enqueue_step<Spec, true>(dev, a.c, j, scratch, N, B, H, L, F,
                                           two);
         },
         step_math_runs);
@@ -921,7 +1232,7 @@ extern "C" int engine_train_packed(int spec, const float* consts, float* p,
 // `launches` back-to-back launches of one kernel, at the tile the step
 // picks, at heat2d's layout (R = 11, D = 3) with batch B and width H on
 // `stream`, one hidden layer's buffers in scratch
-// (engine_scratch_floats(6, B, H, 1)) and its parameters in params (2·n
+// (engine_scratch_floats(6, B, H, 1, 1)) and its parameters in params (2·n
 // floats: p, then the gradient). kind 0: the forward layer, 1: the
 // backward layer, 2: the hidden layer's weight gradient (no Adam), 3: the
 // loss kernel, 4: the input kernel.
@@ -935,8 +1246,8 @@ extern "C" int engine_probe(int kind, int B, int H, int launches,
   const Offsets off(D, H, 1);
   const size_t n = n_params(D, H, 1);
   const float zeros[kMaxConsts] = {};
-  const StepArgs a = host_args(zeros, params, nullptr, nullptr, scratch,
-                               params, 0, params + n);
+  const StepArgs a = host_args(zeros, nullptr, params, nullptr, nullptr,
+                               scratch, params, 0, params + n);
   cudaError_t err = dednn::prepare_step<Rules<S>>();
   if (err == cudaSuccess) err = write_args(dev, a, st);
   if (err != cudaSuccess) return err;
@@ -965,15 +1276,16 @@ extern "C" int engine_probe(int kind, int B, int H, int launches,
       case 3:
         loss_kernel<S><<<dim3(dednn::ceil_div(B, kLossWarps), 1),
                          32 * kLossWarps, 0, st>>>(
-            dev, 0, Consts{}, off.w_out, off.b_out, H, B, Z, A, scratch + sc.G,
-            scratch + sc.PL, DZ, sc.total, n);
+            dev, 0, Consts{}, off.w_out, off.b_out, off.extras, H, B, Z, A,
+            scratch + sc.G, scratch + sc.PL, scratch + sc.PE, DZ, sc.total,
+            n);
         break;
       case 4:
         input_kernel<S><<<dim3(dednn::ceil_div(H, kInputBN),
                                dednn::ceil_div(B, kInputBB), 1),
                           kInputBB * kInputBN, 0, st>>>(
-            dev, 0, Consts{}, off.b_in, H, B, scratch + sc.X, Z, A, sc.total,
-            n);
+            dev, 0, Consts{}, off.b_in, H, B, B, scratch + sc.X, Z, A,
+            sc.total, n);
         break;
       default:
         return cudaErrorInvalidValue;

@@ -30,11 +30,15 @@ struct Consts {
 };
 
 // R stream rows per batch point; bit s of value_mask is set for a value
-// row, and the tangent rows of a group follow its value row.
+// row, and the tangent rows of a group follow its value row. Stream s reads
+// bit s mod 32: a layout of more than 32 streams (the MLP engine's folded
+// groups, all value rows) sets every bit.
 struct Layout {
   int R, B;
   unsigned value_mask;
-  __device__ bool is_value(int s) const { return (value_mask >> s) & 1u; }
+  __device__ bool is_value(int s) const {
+    return (value_mask >> (s & 31)) & 1u;
+  }
 };
 
 // What a call changes, in device memory (one copy per call), so that a
@@ -47,7 +51,9 @@ struct StepArgs {
   const float* u;      // [K, B, n_uniform] uniforms
   float* losses;       // loss of replica r, call step k at r·ls + k
   float* grad;         // one step's gradient: the [n] gradient
-  const float* cnst;   // the DGM engine's Fredholm nodes and weights
+  const float* cnst;   // the call's const operand: the DGM engine's
+                       // Fredholm nodes and weights, the MLP engine's
+                       // Volterra nodes or inverse-heat observations
   long long ls;
   int step0;           // absolute index of the call's first step
   int base;            // the call's steps before this replay

@@ -244,23 +244,35 @@ __global__ void __launch_bounds__((Rules::R * BB / TM) * (BN / TN))
 // (4 × 4) while that gives a block per SM, 8 × 32 (4 × 2) while a block per
 // four SMs, else 2 × 32 (2 × 2); chosen from timings of the candidates at
 // heat2d's and wave's shapes on the H100 (kernels/profile.py). R·BB/TM ·
-// BN/TN threads per block. kernels/engine_core.LAYER_TILES mirrors them.
+// BN/TN threads per block. At R = 1 (one value stream: uat, and volterra's
+// groups folded into one) a block of those tiles would have fewer threads
+// than it stages rows, so the tiles take 4 times the rows: 32 × 64, 32 ×
+// 32, 8 × 32. kernels/engine_core.LAYER_TILES and LAYER_TILES_R1 mirror
+// them.
 struct LayerConfig {
   int bb, bn, tm, tn, bk, stages, min_blocks;
 };
 constexpr LayerConfig kLayer[] = {{8, 64, 4, 4, 32, 3, kSMs},
                                   {8, 32, 4, 2, 32, 3, kSMs / 4},
                                   {2, 32, 2, 2, 32, 3, 0}};
+constexpr LayerConfig kLayerR1[] = {{32, 64, 4, 4, 32, 3, kSMs},
+                                    {32, 32, 4, 2, 32, 3, kSMs / 4},
+                                    {8, 32, 2, 2, 32, 3, 0}};
+
+template <int R>
+constexpr LayerConfig layer_config(int C) {
+  return R == 1 ? kLayerR1[C] : kLayer[C];
+}
 
 template <class Rules, bool kBwd, int C>
 auto layer_instance() {
-  constexpr LayerConfig c = kLayer[C];
+  constexpr LayerConfig c = layer_config<Rules::R>(C);
   return layer_kernel<Rules, kBwd, c.bb, c.bn, c.tm, c.tn, c.bk, c.stages>;
 }
 
 template <int R, int C>
 constexpr size_t layer_config_smem() {
-  constexpr LayerConfig c = kLayer[C];
+  constexpr LayerConfig c = layer_config<R>(C);
   return layer_smem_bytes<R, c.bb, c.bn, c.bk, c.stages>();
 }
 
@@ -272,15 +284,15 @@ void layer(const float* in, const StepArgs* args, long long w_off,
   constexpr int R = Rules::R;
   auto go = [&](auto config) {
     constexpr int C = decltype(config)::value;
-    constexpr LayerConfig c = kLayer[C];
+    constexpr LayerConfig c = layer_config<R>(C);
     launch(layer_instance<Rules, kBwd, C>(),
            (R * c.bb / c.tm) * (c.bn / c.tn), layer_config_smem<R, C>(), c.bb,
            c.bn, B, M, reps, stream, in, args, w_off, b_off, K, M, B, z_prev,
            a_prev, z_out, a_out, ss, ps);
   };
-  auto fits = [&](int c) {
-    return blocks(B, M, kLayer[c].bb, kLayer[c].bn, reps) >=
-           kLayer[c].min_blocks;
+  auto fits = [&](int i) {
+    const LayerConfig c = layer_config<R>(i);
+    return blocks(B, M, c.bb, c.bn, reps) >= c.min_blocks;
   };
   if (fits(0)) go(std::integral_constant<int, 0>{});
   else if (fits(1)) go(std::integral_constant<int, 1>{});
@@ -310,8 +322,9 @@ constexpr size_t wg_config_smem() {
   return wg_smem_bytes<kWgTile[C].bk, kWgTile[C].bm, kWgRows, kWgStages, R>();
 }
 
-// One layer's weight gradient over the R = lay.R streams (Adam in the
-// epilogue, kAdam; else the gradient to args->grad).
+// One layer's weight gradient over the lay.R streams, R at a time (one
+// thread group each; Adam in the epilogue, kAdam; else the gradient to
+// args->grad).
 template <bool kAdam, int R>
 void weight_grad(const float* A, int KA, const float* dz, int M,
                  const Layout& lay, const StepArgs* args, int j,
@@ -332,13 +345,14 @@ void weight_grad(const float* A, int KA, const float* dz, int M,
     go(std::integral_constant<int, 1>{});
 }
 
-// The most dynamic shared memory any layer or weight-gradient instance of R
-// streams takes per block, at any width.
-template <int R>
+// The most dynamic shared memory any layer instance of R streams or
+// weight-gradient instance of G thread groups takes per block, at any
+// width.
+template <int R, int G = R>
 size_t step_smem_bytes() {
   return std::max({layer_config_smem<R, 0>(), layer_config_smem<R, 1>(),
-                   layer_config_smem<R, 2>(), wg_config_smem<R, 0>(),
-                   wg_config_smem<R, 1>()});
+                   layer_config_smem<R, 2>(), wg_config_smem<G, 0>(),
+                   wg_config_smem<G, 1>()});
 }
 
 template <class Rules, int C>
@@ -358,15 +372,14 @@ cudaError_t allow_weight_grad() {
                             : allow_smem(wg_instance<false, R, C>(), bytes);
 }
 
-// Lets every layer and weight-gradient instance take its dynamic shared
-// memory; before any launch or capture.
-template <class Rules>
+// Lets every layer and weight-gradient instance (G thread groups) take its
+// dynamic shared memory; before any launch or capture.
+template <class Rules, int G = Rules::R>
 cudaError_t prepare_step() {
-  constexpr int R = Rules::R;
   for (const cudaError_t err :
        {allow_layer<Rules, 0>(), allow_layer<Rules, 1>(),
-        allow_layer<Rules, 2>(), allow_weight_grad<R, 0>(),
-        allow_weight_grad<R, 1>()})
+        allow_layer<Rules, 2>(), allow_weight_grad<G, 0>(),
+        allow_weight_grad<G, 1>()})
     if (err != cudaSuccess) return err;
   return cudaSuccess;
 }

@@ -12,10 +12,17 @@ from differential_equations_dnn_tpu_torch.equations.fitzhugh_nagumo import (
 from differential_equations_dnn_tpu_torch.equations.fredholm import Fredholm2
 from differential_equations_dnn_tpu_torch.equations.heat import Heat1D
 from differential_equations_dnn_tpu_torch.equations.heat2d import Heat2D
+from differential_equations_dnn_tpu_torch.equations.inverse_heat import (
+    InverseHeat1D,
+    inverse_params_from_jax,
+    inverse_params_to_jax,
+)
 from differential_equations_dnn_tpu_torch.equations.poisson import Poisson2D
 from differential_equations_dnn_tpu_torch.equations.simple_ode import (
     SimpleODE,
 )
+from differential_equations_dnn_tpu_torch.equations.uat import SineFit
+from differential_equations_dnn_tpu_torch.equations.volterra import Volterra2
 from differential_equations_dnn_tpu_torch.equations.wave import Wave1D
 
 PROBLEMS = {
@@ -28,14 +35,13 @@ PROBLEMS = {
     "poisson": Poisson2D,
     "fredholm": Fredholm2,
     "fitzhugh_nagumo": FitzHughNagumo,
+    "volterra": Volterra2,
+    "uat": SineFit,
+    "inverse_heat": InverseHeat1D,
 }
 
-# Equations of the JAX package that the port does not have yet.
-NOT_PORTED = {
-    "volterra": "queue 1, item 10b: volterra with ops/quad.py",
-    "uat": "queue 1, item 10c: uat with models/perceptron.py",
-    "inverse_heat": "queue 1, item 10d: inverse_heat with extra_shapes",
-}
+# Equations of the JAX package that the port does not have yet: none.
+NOT_PORTED: dict[str, str] = {}
 
 
 def get_problem(name: str, **kwargs) -> Problem:
@@ -54,4 +60,5 @@ def get_problem(name: str, **kwargs) -> Problem:
 __all__ = ["PROBLEMS", "NOT_PORTED", "Problem", "TrainDefaults",
            "SimpleODE", "Heat1D", "Heat2D", "Burgers", "Wave1D",
            "Advection1D", "Poisson2D", "Fredholm2", "FitzHughNagumo",
-           "get_problem"]
+           "Volterra2", "SineFit", "InverseHeat1D", "inverse_params_from_jax",
+           "inverse_params_to_jax", "get_problem"]

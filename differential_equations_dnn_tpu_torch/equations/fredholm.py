@@ -4,10 +4,13 @@
 
 Reference: fredholm.py — loss :47-74 (k = 50 quadrature draws), DGM
 variant A with hidden 32 :173, exact 2·sin(t) :40-44. The integral is
-taken with a k-node Gauss–Legendre rule in one batched forward over all
-nodes; defaults are the JAX package's tuned ones (3000 iters / batch 32 /
-lr 3e-3 cosine / 50-node grid). The Monte-Carlo and Halton rules are not
-ported.
+taken in one batched forward over all nodes: with a k-node Gauss–Legendre
+rule (the default), fresh uniform Monte-Carlo nodes per collocation point
+and step (``quadrature="montecarlo"``, the reference-parity mode, matching
+its ``rand_like`` draws, fredholm.py:66) or a Halton window drawn per step
+(``"halton"``). Defaults are the JAX package's tuned ones (3000 iters /
+batch 32 / lr 3e-3 cosine / 50-node grid). The stochastic modes train on
+the scan engine only, as in the JAX package.
 """
 
 import math
@@ -21,11 +24,13 @@ from differential_equations_dnn_tpu_torch.equations.base import (
     TrainDefaults,
 )
 from differential_equations_dnn_tpu_torch.models import DGM
-from differential_equations_dnn_tpu_torch.ops import gauss_legendre_nodes
+from differential_equations_dnn_tpu_torch.ops import (
+    gauss_legendre_nodes,
+    halton_nodes,
+    montecarlo_nodes,
+)
 
-QUADRATURE_TODO = ("quadrature={!r} is not ported yet (ROADMAP.md queue 1, "
-                   "item 11: the DGM engine's Monte-Carlo and Halton "
-                   "quadrature)")
+QUADRATURES = ("gauss", "montecarlo", "halton")
 
 
 @dataclass(frozen=True)
@@ -41,11 +46,9 @@ class Fredholm2(Problem):
     n_uniform = 1
 
     def __post_init__(self):
-        if self.quadrature in ("montecarlo", "halton"):
-            raise NotImplementedError(QUADRATURE_TODO.format(self.quadrature))
-        if self.quadrature != "gauss":
+        if self.quadrature not in QUADRATURES:
             raise ValueError(f"unknown quadrature {self.quadrature!r} "
-                             f"(gauss | montecarlo | halton)")
+                             f"({' | '.join(QUADRATURES)})")
 
     def default_model(self, generator=None, device=None):
         # DGM variant A, hidden 32, relu gates (fredholm.py:173).
@@ -53,7 +56,27 @@ class Fredholm2(Problem):
                    activation="relu", init_scheme="xavier_relu",
                    generator=generator, device=device)
 
+    def sample(self, n, generator=None, device=None):
+        """One collocation batch; the stochastic rules draw their nodes from
+        ``generator`` after the points: Monte-Carlo nodes per point, or
+        one Halton window whose offset is a draw in [0, 2^20)."""
+        if self.quadrature == "gauss":
+            return super().sample(n, generator, device)
+        x = self.upper * torch.rand((n, 1), generator=generator)
+        if self.quadrature == "halton":
+            offset = torch.randint(0, 1 << 20, (), generator=generator)
+            nodes, weights = halton_nodes(self.k, 0.0, self.upper,
+                                          offset=offset)
+            tq = nodes[None, :].expand(n, self.k)
+        else:
+            tq, weights = montecarlo_nodes(generator, self.k, 0.0,
+                                           self.upper, (n,))
+        batch = {"x": x, "tq": tq, "wq": weights[None, :].expand(n, self.k)}
+        return {key: v.to(device) for key, v in batch.items()}
+
     def batch_from_uniforms(self, u):
+        """The Gauss-rule batch as the fused DGM spec builds it from ``[B,
+        1]`` draws."""
         x = self.upper * u[:, :1]
         n = x.shape[0]
         nodes, weights = gauss_legendre_nodes(self.k, 0.0, self.upper,

@@ -63,22 +63,23 @@ _SIGNATURES = {
     # step0, stream, args, exec, S, side0, side1
     "heat_train": [_P] * 6 + [_I] * 4 + [_F] * 4 + [_I, _P, _P, _P, _I, _P,
                                                      _P],
-    # spec, B, H, L
-    "engine_scratch_floats": [_I] * 4,
+    # spec, B, H, L, F (folded groups)
+    "engine_scratch_floats": [_I] * 5,
     # spec, H
     "engine_smem_bytes": [_I] * 2,
     "engine_args_bytes": [],
-    # spec, consts, p, u, scratch, grad, loss, args, B, H, L, stream
-    "engine_grad": [_I, _CONSTS] + [_P] * 6 + [_I] * 3 + [_P],
-    # spec, consts, B, H, L, N, S, args, scratch, exec (out)
-    "engine_graph_build": [_I, _CONSTS] + [_I] * 5
+    # spec, consts, const, p, u, scratch, grad, loss, args, B, H, L, F,
+    # stream
+    "engine_grad": [_I, _CONSTS] + [_P] * 7 + [_I] * 4 + [_P],
+    # spec, consts, B, H, L, F, N, S, args, scratch, exec (out)
+    "engine_graph_build": [_I, _CONSTS] + [_I] * 6
                           + [_P, _P, ctypes.POINTER(ctypes.c_void_p)],
     # exec
     "engine_graph_free": [_P],
-    # spec, consts, p, m, v, u, scratch, losses, args, exec, S, N, K, B, H,
-    # L, lr, step0, schedule, horizon, decay, half_span, log_decay,
-    # step_math_runs, stream, side0, side1
-    "engine_train_packed": [_I, _CONSTS] + [_P] * 8 + [_I] * 6
+    # spec, consts, const, p, m, v, u, scratch, losses, args, exec, S, N, K,
+    # B, H, L, F, lr, step0, schedule, horizon, decay, half_span,
+    # log_decay, step_math_runs, stream, side0, side1
+    "engine_train_packed": [_I, _CONSTS] + [_P] * 9 + [_I] * 7
                            + [_F, _I, _I] + [_F] * 4
                            + [ctypes.POINTER(_I), _P, _P, _P],
     # kind, B, H, launches, params, scratch, args, stream

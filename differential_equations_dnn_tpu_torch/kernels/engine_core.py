@@ -16,7 +16,13 @@ through ``fused_engine.fused_engine_chunk`` (one replica) and
 * the packed-replica layout (:func:`stack_replicas`,
   :func:`unstack_replicas`), :func:`run_fused_packed`, the plain twin of
   the packed kernel (#5, ``fused_packed_adam_kernel``), and
-  :func:`check_replicas`, the limits of a packed launch.
+  :func:`check_replicas`, the limits of a packed launch;
+* :func:`check_const`, the checks of the const operand a step math may
+  read (one buffer per call, shared by every replica).
+
+The flat state is the six MLP tensors followed by a spec's extra trainable
+tensors (``fused_engine.pack_state``): the plain loops update it as one
+buffer, so an extra tensor takes the same Adam step as the rest.
 
 The TPU kernel splits a large batch into T gradient-accumulation tiles;
 equal tiles average to the full-batch gradient, so the port always computes
@@ -40,6 +46,9 @@ MAX_GRID_YZ = 65_535
 # depth, and the weight gradient's tiles (k × m, rows per chunk, ring depth;
 # one thread group per stream).
 LAYER_TILES = ((8, 64), (8, 32), (2, 32))
+# At R = 1 (uat's one value stream, volterra's folded groups) the tiles
+# take 4 times the rows, so that a block has a thread per staged row.
+LAYER_TILES_R1 = ((32, 64), (32, 32), (8, 32))
 K_TILE, STAGES = 32, 3
 WG_TILES = ((32, 16), (16, 16))
 WG_ROWS, WG_STAGES = 16, 4
@@ -48,25 +57,27 @@ WG_ROWS, WG_STAGES = 16, 4
 MAX_WIDTH = MAX_GRID_YZ * 16
 
 
-def step_plan(R):
+def step_plan(R, groups=None):
     """(layer, weight_grad): the bytes of shared memory per block of the
     largest layer tile (its ring of k-tiles of the R·BB operand rows and of
-    the weight, beside the tile's running sums) and of the largest
-    weight-gradient tile at R streams, as ``dednn::step_smem_bytes`` plans
-    them; the same at every width."""
+    the weight, beside the tile's running sums) at R streams and of the
+    largest weight-gradient tile at ``groups`` thread groups (default R:
+    one per stream), as ``dednn::step_smem_bytes`` plans them; the same at
+    every width."""
+    G = R if groups is None else groups
+    tiles = LAYER_TILES_R1 if R == 1 else LAYER_TILES
     layer = max(4 * (STAGES * (R * bb * (K_TILE + 4)
                                + max(K_TILE * (bn + 4), bn * (K_TILE + 4)))
                      + R * bb * (bn + 4))
-                for bb, bn in LAYER_TILES)
-    weight = max(4 * (WG_STAGES * R * WG_ROWS * ((bk + 4) + (bm + 4) + 1)
-                      + (R + 1) * (bk * bm + 2 * bm))
+                for bb, bn in tiles)
+    weight = max(4 * (WG_STAGES * G * WG_ROWS * ((bk + 4) + (bm + 4) + 1)
+                      + (G + 1) * (bk * bm + 2 * bm))
                  for bk, bm in WG_TILES)
     return layer, weight
 
 _TODO = {
     "runtime_bs": "queue 1, item 13: the sweep evaluators' runtime masks",
     "runtime_steps": "queue 1, item 13: the sweep evaluators' runtime masks",
-    "const": "queue 1, item 10b: volterra's const operand",
     "per_slot": "queue 1, item 13: the packed sweep mode's per-slot lr, "
                 "batch and step vectors",
 }
@@ -123,6 +134,20 @@ def check_state_fits(need: int, R: int, H: int) -> None:
             f"hidden width {H} with {R} streams needs {need} bytes of shared "
             f"memory per block in the fused engine's backward (the H100 "
             f"allows {SMEM_LIMIT}); use a smaller hidden size")
+
+
+def check_const(const, shape, what: str) -> None:
+    """``const`` must have ``shape`` (None: the step math takes no const
+    operand, and ``const`` must be None too); raises a ValueError naming
+    ``what`` before anything launches."""
+    if shape is None:
+        if const is not None:
+            raise ValueError(f"{what} takes no const operand")
+        return
+    got = None if const is None else tuple(const.shape)
+    if got != tuple(shape):
+        raise ValueError(f"{what} needs its const operand of shape "
+                         f"{tuple(shape)} (got {got})")
 
 
 def adam_update(p, m, v, g, lr, t):

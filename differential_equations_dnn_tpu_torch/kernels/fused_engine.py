@@ -19,12 +19,27 @@ the spec's loss, and the hand-derived backward. In the CUDA kernel the same
 step runs with ``build`` and the loss cotangent written out by hand for each
 spec (selected by ``kernel_id``, with ``kernel_consts`` as its numbers).
 
+A spec may also declare (with the defaults of :class:`_Spec`):
+
+* ``extra_shapes`` — extra trainable tensors appended to the flat state
+  after the six MLP tensors (inverse_heat's log κ̂); the loss reads them as
+  ``ctx["extras"]`` and their gradient comes through the same vjp;
+* ``make_const(B)`` / ``const_shape(B)`` — the const operand the step reads
+  (volterra's nodes, inverse_heat's observations), one buffer per call
+  shared by every replica; ``build_with_const`` hands it to ``build``;
+* ``dims`` / ``tensors`` / ``supports_model`` — the model's engine view: a
+  plain tanh MLP by default, uat's Perceptron at L = 0 (no hidden tensors
+  in the flat state), inverse_heat's net and κ̂;
+* ``fold`` — value-only groups the kernels lay out as one stream of
+  ``fold``·B rows (volterra's 1 + k), so that they tile R = 1 rows.
+
 Ported specs: simple_ode, heat, burgers, wave, advection (``causal_eps=0``),
-poisson and heat2d, for plain tanh MLPs at ``precision="highest"``, as single
-runs (``fused_engine_chunk``, ``train_fused_result``) and as packed-replica
-ensembles (``fused_engine_packed_chunk``, ``train_fused_ensemble_packed``).
-The hard-constraint specs, volterra, uat, inverse_heat, the runtime masks,
-the const operand and the packed sweep mode are not ported (ROADMAP.md).
+poisson, heat2d, volterra (Gauss rule), uat and inverse_heat, at
+``precision="highest"``, as single runs (``fused_engine_chunk``,
+``train_fused_result``) and as packed-replica ensembles
+(``fused_engine_packed_chunk``, ``train_fused_ensemble_packed``). The
+hard-constraint specs, the runtime masks and the packed sweep mode are not
+ported (ROADMAP.md).
 
 On the card a chunk replays a CUDA graph of GRAPH_STEPS training steps,
 captured on the first call of its shape and cached (kernels/graphs.py), as
@@ -34,8 +49,10 @@ up to MAX_WIDTH (:func:`engine_plan`).
 """
 
 import ctypes
+import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from differential_equations_dnn_tpu_torch.core.prng import (
@@ -44,6 +61,10 @@ from differential_equations_dnn_tpu_torch.core.prng import (
 )
 from differential_equations_dnn_tpu_torch.equations.advection import (
     CAUSAL_TODO,
+)
+from differential_equations_dnn_tpu_torch.equations.inverse_heat import (
+    _InverseModel,
+    pick_rows,
 )
 from differential_equations_dnn_tpu_torch.kernels import build
 from differential_equations_dnn_tpu_torch.kernels import engine_core
@@ -57,17 +78,18 @@ from differential_equations_dnn_tpu_torch.kernels.engine_core import (
     check_batch_tile,
 )
 from differential_equations_dnn_tpu_torch.kernels.fused_train import (
-    _check_state,
     check_precision,
-    load_params,
-    pack_params,
     replica_models,
     train_in_chunks,
-    unpack_params,
 )
-from differential_equations_dnn_tpu_torch.models import MLP
+from differential_equations_dnn_tpu_torch.models import MLP, Perceptron
 
 _N_CONSTS = 8  # floats of kernel_consts the CUDA specs read
+# The most groups a spec may fold (csrc/engine_train.cu kMaxFold: a point's
+# outputs in 48 KB of shared memory), and the thread groups over which the
+# weight gradients take a folded spec's groups (kFoldGroups).
+MAX_FOLD = 48 * 1024 // 4
+FOLD_GROUPS = 8
 
 # The widest hidden width the plan holds (csrc/stream_layer.cuh).
 MAX_WIDTH = engine_core.MAX_WIDTH
@@ -173,13 +195,20 @@ def _act_bwd(groups, z, gr, B):
 # ---------------------------------------------------------------------------
 
 
-def engine_step_math(spec, params, u, B, L):
+def engine_step_math(spec, params, u, B, L, const=None):
     """One training step's loss ``[1, 1]`` and parameter gradients for any
-    stream spec. ``params`` = (w_in, b_in, w_hid, b_hid, w_out, b_out);
-    ``u`` = [B, spec.n_uniform] U[0,1) draws. Returns (loss, grads_tuple)."""
+    stream spec. ``params`` = (w_in, b_in, w_hid, b_hid, w_out, b_out) and
+    the spec's extra tensors; ``u`` = [B, spec.n_uniform] U[0,1) draws;
+    ``const`` = the spec's const operand (None: built by ``make_const``).
+    Returns (loss, grads_tuple), the extras' gradients last."""
     groups = spec.groups
-    w_in, b_in, w_hid, b_hid, w_out, b_out = params
-    X, ctx = spec.build(u)
+    w_in, b_in, w_hid, b_hid, w_out, b_out = params[:6]
+    extras = tuple(params[6:])
+    if const is None:
+        const = spec.make_const(B, u.device)
+    X, ctx = spec.build(u, const) if spec.build_with_const else spec.build(u)
+    if const is not None:
+        ctx = {**ctx, "const": const}
     mask = _bias_mask(groups, B, X)
 
     zs = [X @ w_in + mask * b_in]
@@ -192,8 +221,15 @@ def engine_step_math(spec, params, u, B, L):
     outs = tuple(out[k * B:(k + 1) * B] for k in range(_n_rows(groups)))
     # The cotangent w.r.t. the stream outputs, from autodiff of the spec's
     # small elementwise loss (the kernel writes it out by hand per spec).
-    loss, vjp_fn = torch.func.vjp(lambda *o: spec.loss(o, ctx), *outs)
-    G = torch.cat(vjp_fn(torch.ones_like(loss)), 0)
+    # Extra trainable tensors ride the same vjp: they enter the loss only.
+    if extras:
+        loss, vjp_fn = torch.func.vjp(
+            lambda o, e: spec.loss(o, {**ctx, "extras": e}), outs, extras)
+        gouts, gextras = vjp_fn(torch.ones_like(loss))
+    else:
+        loss, vjp_fn = torch.func.vjp(lambda *o: spec.loss(o, ctx), *outs)
+        gouts, gextras = vjp_fn(torch.ones_like(loss)), ()
+    G = torch.cat(gouts, 0)
 
     d_w_out = _act_fwd(groups, zs[L], B).T @ G
     d_b_out = torch.sum(mask * G, 0)
@@ -209,7 +245,8 @@ def engine_step_math(spec, params, u, B, L):
     dz = _act_bwd(groups, zs[0], g, B)
     d_w_in = X.T @ dz
     d_b_in = torch.sum(mask * dz, 0)
-    return loss, (d_w_in, d_b_in, d_w_hid, d_b_hid, d_w_out, d_b_out)
+    return loss, (d_w_in, d_b_in, d_w_hid, d_b_hid, d_w_out,
+                  d_b_out) + tuple(gextras)
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +258,48 @@ def _cat(*cols):
     return torch.cat(cols, 1)
 
 
+class _Spec:
+    """What a spec declares unless it says otherwise: the engine view of a
+    plain tanh MLP D → H×L → 1 (L ≥ 1) as the six state tensors, no extra
+    trainable tensor, no const operand, and one kernel stream per row of
+    its groups."""
+    extra_shapes = ()
+    build_with_const = False
+    fold = 1  # groups laid out as one value stream (volterra: 1 + k)
+    model_text = "a plain tanh MLP {D} → H×L → 1 (L ≥ 1)"
+
+    @property
+    def kernel_streams(self):
+        """The streams the CUDA kernels tile (R, or 1 when folded)."""
+        return _n_rows(self.groups)
+
+    @property
+    def weight_groups(self):
+        """The thread groups of the weight gradients' blocks (one per
+        stream; a folded spec's groups FOLD_GROUPS at a time)."""
+        return FOLD_GROUPS if self.fold > 1 else self.kernel_streams
+
+    def const_shape(self, B):
+        return None
+
+    def make_const(self, B, device=None):
+        return None
+
+    def supports_model(self, model):
+        return (isinstance(model, MLP) and model.activation == "tanh"
+                and model.input_dim == self.input_dim
+                and model.output_dim == 1 and model.num_layers >= 1)
+
+    def dims(self, model):
+        """(D, H, L) of the model's engine view."""
+        return model.input_dim, model.hidden_size, model.num_layers
+
+    def tensors(self, model):
+        """The trainable tensors in flat-state order."""
+        return (model.fc_in.w, model.fc_in.b, model.hidden.w, model.hidden.b,
+                model.fc_out.w, model.fc_out.b)
+
+
 def _smean(q):
     """Batch mean of a pointwise [B, 1] quantity as a [1, 1] value."""
     s = torch.sum(torch.sum(q, 0, keepdim=True), 1, keepdim=True)
@@ -228,7 +307,7 @@ def _smean(q):
 
 
 @dataclass(frozen=True)
-class SimpleODESpec:
+class SimpleODESpec(_Spec):
     """dy/dt = −y, y(0) = y_ic (equations.simple_ode)."""
     p: object
     n_uniform: int = 1
@@ -251,7 +330,7 @@ class SimpleODESpec:
 
 
 @dataclass(frozen=True)
-class HeatSpec:
+class HeatSpec(_Spec):
     """u_t = κ·u_xx (equations.heat)."""
     p: object
     n_uniform: int = 2
@@ -284,7 +363,7 @@ class HeatSpec:
 
 
 @dataclass(frozen=True)
-class AdvectionSpec:
+class AdvectionSpec(_Spec):
     """u_t + c·u_x = 0 (equations.advection): first-order transport, R = 5.
     Causal residual weighting (``causal_eps > 0``) is not ported."""
     p: object
@@ -321,7 +400,7 @@ class AdvectionSpec:
 
 
 @dataclass(frozen=True)
-class BurgersSpec:
+class BurgersSpec(_Spec):
     """u_t + u·u_x = ν·u_xx (equations.burgers): the value stream itself
     enters the domain residual."""
     p: object
@@ -361,7 +440,7 @@ class BurgersSpec:
 
 
 @dataclass(frozen=True)
-class WaveSpec:
+class WaveSpec(_Spec):
     """u_tt = c²·u_xx with a velocity IC (equations.wave): the t=0 face
     carries its own first-order time tangent."""
     p: object
@@ -400,7 +479,7 @@ class WaveSpec:
 
 
 @dataclass(frozen=True)
-class PoissonSpec:
+class PoissonSpec(_Spec):
     """−Δu = f, elliptic BVP (equations.poisson): no time axis."""
     p: object
     n_uniform: int = 3
@@ -435,7 +514,7 @@ class PoissonSpec:
 
 
 @dataclass(frozen=True)
-class Heat2DSpec:
+class Heat2DSpec(_Spec):
     """u_t = κ·(u_xx + u_yy) (equations.heat2d): 11 streams, D = 3."""
     p: object
     n_uniform: int = 4
@@ -476,6 +555,157 @@ class Heat2DSpec:
                       + torch.square(b4))
 
 
+@dataclass(frozen=True)
+class VolterraSpec(_Spec):
+    """Volterra II integral equation with the rescaled k-node Gauss rule
+    (equations.volterra): 1 + k value-only groups, the collocation batch x
+    and one group per node at x·c_j. The const operand ``[k, 2]`` holds c_j
+    and (c_j − 1)·w_j, computed on the host in double as the JAX package's
+    ``VolterraSpec._nodes``; the loss sums each point's nodes directly (the
+    JAX kernel's selection matrix existed because Mosaic cannot gather)."""
+    p: object
+    n_uniform: int = 1
+    input_dim = 1
+    kernel_id = 7
+    build_with_const = True
+    kernel_streams = 1
+
+    @property
+    def groups(self):
+        return tuple(Group() for _ in range(1 + self.p.k))
+
+    @property
+    def fold(self):
+        return 1 + self.p.k
+
+    def kernel_consts(self):
+        return (self.p.upper,)
+
+    def const_shape(self, B):
+        return (self.p.k, 2)
+
+    def make_const(self, B, device=None):
+        u, w = np.polynomial.legendre.leggauss(self.p.k)
+        c = (u + 1.0) * 0.5
+        coef = (c - 1.0) * (w * 0.5)
+        return torch.tensor(np.stack([c, coef], 1), dtype=torch.float32,
+                            device=device)
+
+    def build(self, u, const):
+        x = self.p.upper * u[:, :1]
+        nodes = (x * const[None, :, 0]).T.reshape(-1, 1)  # row j·B + b
+        return torch.cat([x, nodes], 0), {"x": x}
+
+    def loss(self, outs, ctx):
+        x = ctx["x"]
+        # ∫₀ˣ (t − x)·y(t) dt ≈ Σ_j (x·c_j − x)·y_j·(x·w_j)
+        #                   = x²·Σ_j (c_j − 1)·w_j·y_j.
+        acc = torch.sum(torch.cat(outs[1:], 1) * ctx["const"][None, :, 1],
+                        1, keepdim=True)
+        r = outs[0] - x - (x * x) * acc
+        return _smean(torch.square(r))
+
+
+@dataclass(frozen=True)
+class UATSpec(_Spec):
+    """Universal-approximation demo (equations.uat): full-batch MSE fit of
+    sin(freq·x) on the B-point grid x_b = low + (high − low)·b/(B − 1),
+    one value-only group; the draws are read for their shape only. Trains
+    the reference's Perceptron 1 → H → 1 as the engine's L = 0 layout, its
+    flat state the input and output layers alone (the JAX kernel carries
+    zero hidden tensors, which Adam leaves at zero)."""
+    p: object
+    n_uniform: int = 1
+    input_dim = 1
+    kernel_id = 8
+    groups = (Group(),)
+    model_text = "a Perceptron 1 → H → 1"
+
+    def kernel_consts(self):
+        return (self.p.low, self.p.high - self.p.low, self.p.freq)
+
+    def build(self, u):
+        B = u.shape[0]
+        i = torch.arange(B, dtype=torch.float32, device=u.device)[:, None]
+        x = self.p.low + (self.p.high - self.p.low) * i / max(B - 1, 1)
+        return x, {"x": x}
+
+    def loss(self, outs, ctx):
+        return _smean(torch.square(outs[0]
+                                   - torch.sin(self.p.freq * ctx["x"])))
+
+    def supports_model(self, model):
+        return (isinstance(model, Perceptron) and model.input_dim == 1
+                and model.output_dim == 1)
+
+    def dims(self, model):
+        return model.input_dim, model.hidden_size, 0
+
+    def tensors(self, model):
+        H, w = model.hidden_size, model.fc1.w
+        return (w, model.fc1.b, w.new_zeros((0, H, H)), w.new_zeros((0, H)),
+                model.fc2.w, model.fc2.b)
+
+
+@dataclass(frozen=True)
+class InverseHeatSpec(_Spec):
+    """Inverse heat problem (equations.inverse_heat): the solution MLP and
+    log κ̂, an extra [1, 1] state tensor Adam-updated with the rest, its
+    gradient through the loss vjp (the residual u_t − exp(log κ̂)·u_xx).
+    Streams: interior value + (x', x'') pair + t' tangent, and one value
+    group for the observation rows, picked from the const ``[n_obs, 3]``
+    (x, t, u_obs) by floor(u·n_obs) of the third draw."""
+    p: object
+    n_uniform: int = 3
+    input_dim = 2
+    kernel_id = 9
+    groups = (Group(n_second=1, n_first=1),  # interior: v, (x', x''), t'
+              Group())                       # observation rows
+    extra_shapes = ((1, 1),)                 # log κ̂
+    build_with_const = True
+    model_text = "an _InverseModel of a plain tanh MLP {D} → H×L → 1 (L ≥ 1)"
+
+    def kernel_consts(self):
+        p = self.p
+        return (p.x_max, p.t_max, p.data_weight, p.n_obs)
+
+    def const_shape(self, B):
+        return (self.p.n_obs, 3)
+
+    def make_const(self, B, device=None):
+        return torch.cat(self.p.observations(device), 1)
+
+    def build(self, u, const):
+        x = self.p.x_max * u[:, :1]
+        t = self.p.t_max * u[:, 1:2]
+        zero = torch.zeros_like(x)
+        one = torch.ones_like(x)
+        obs = pick_rows(const, u[:, 2:3])
+        X = torch.cat([
+            _cat(x, t), _cat(one, zero), _cat(zero, zero), _cat(zero, one),
+            obs[:, :2],
+        ], 0)
+        return X, {"obs_u": obs[:, 2:3]}
+
+    def loss(self, outs, ctx):
+        u_, u_x, u_xx, u_t, y_obs = outs
+        kappa = torch.exp(ctx["extras"][0])  # [1, 1]
+        r = u_t - kappa * u_xx
+        d = y_obs - ctx["obs_u"]
+        return _smean(torch.square(r)
+                      + self.p.data_weight * torch.square(d))
+
+    def supports_model(self, model):
+        return (isinstance(model, _InverseModel)
+                and super().supports_model(model.net))
+
+    def dims(self, model):
+        return super().dims(model.net)
+
+    def tensors(self, model):
+        return super().tensors(model.net) + (model.log_kappa,)
+
+
 SPECS = {
     "simple_ode": SimpleODESpec,
     "heat": HeatSpec,
@@ -484,27 +714,68 @@ SPECS = {
     "advection": AdvectionSpec,
     "poisson": PoissonSpec,
     "heat2d": Heat2DSpec,
+    "volterra": VolterraSpec,
+    "uat": UATSpec,
+    "inverse_heat": InverseHeatSpec,
 }
 
 
 def spec_for(problem):
     """The stream spec for ``problem``, or None if the port has no fused
-    engine spec for it (hard constraints, volterra, uat and inverse_heat
-    are not ported; the DGM equations train on kernels.fused_dgm; heat with
-    ``taps="pallas"`` trains on the scan trainer, as in the JAX package)."""
+    engine spec for it (hard constraints are not ported; the DGM equations
+    train on kernels.fused_dgm; heat with ``taps="pallas"`` and volterra's
+    Monte-Carlo rule, which draws fresh nodes per step, train on the scan
+    trainer, as in the JAX package)."""
     if getattr(problem, "constraint", "soft") == "hard":
         return None
     if getattr(problem, "taps", "jvp") == "pallas":
+        return None
+    if problem.name == "volterra" and problem.quadrature != "gauss":
         return None
     cls = SPECS.get(problem.name)
     return cls(problem) if cls else None
 
 
-def supports_model(spec, model) -> bool:
-    """A plain tanh MLP D → H×L → 1 with L ≥ 1, D the spec's input width."""
-    return (isinstance(model, MLP) and model.activation == "tanh"
-            and model.input_dim == spec.input_dim and model.output_dim == 1
-            and model.num_layers >= 1)
+# ---------------------------------------------------------------------------
+# The flat state: the six MLP tensors, then the spec's extras
+# ---------------------------------------------------------------------------
+
+
+def state_shapes(spec, model):
+    """The shapes of the flat state's tensors (an absent hidden stack, at
+    L = 0, has zero size)."""
+    D, H, L = spec.dims(model)
+    return ([(D, H), (H,), (L, H, H), (L, H), (H, 1), (1,)]
+            + [tuple(s) for s in spec.extra_shapes])
+
+
+def state_size(spec, model) -> int:
+    return sum(math.prod(s) for s in state_shapes(spec, model))
+
+
+def pack_state(spec, model) -> torch.Tensor:
+    """The model's trainable tensors as one flat fp32 buffer (a copy); for
+    a plain MLP, ``fused_train.pack_params``."""
+    return torch.cat([t.detach().reshape(-1) for t in spec.tensors(model)])
+
+
+def unpack_state(spec, model, flat):
+    """Views of the state's tensors inside a flat buffer."""
+    out, at = [], 0
+    for shape in state_shapes(spec, model):
+        n = math.prod(shape)
+        out.append(flat[at:at + n].view(shape))
+        at += n
+    return tuple(out)
+
+
+def load_state(spec, model, flat) -> None:
+    """Copy a flat buffer into the model's trainable tensors."""
+    with torch.no_grad():
+        for dst, src in zip(spec.tensors(model),
+                            unpack_state(spec, model, flat)):
+            if dst.numel():
+                dst.copy_(src.reshape(dst.shape))
 
 
 def supports(problem, model=None) -> bool:
@@ -512,7 +783,7 @@ def supports(problem, model=None) -> bool:
     spec = spec_for(problem)
     if spec is None:
         return False
-    return supports_model(spec, model or problem.default_model())
+    return spec.supports_model(model or problem.default_model())
 
 
 # ---------------------------------------------------------------------------
@@ -521,39 +792,66 @@ def supports(problem, model=None) -> bool:
 
 
 def _check_model(spec, model):
-    if not supports_model(spec, model):
-        raise ValueError(f"the fused engine trains plain tanh MLPs "
-                         f"{spec.input_dim} → H×L → 1 (L ≥ 1) for "
-                         f"{spec.p.name!r}")
+    if not spec.supports_model(model):
+        raise ValueError(f"the fused engine trains "
+                         f"{spec.model_text.format(D=spec.input_dim)} for "
+                         f"{spec.p.name!r} (got {type(model).__name__})")
 
 
-def engine_plan(R, H):
+def engine_plan(R, H, groups=None):
     """Bytes of shared memory per block that the largest kernel of
-    csrc/engine_train.cu takes at R streams and hidden width H, as the
-    library plans it (``engine_smem_bytes``): the layer kernel's ring of
-    k-tiles of its R·BB operand rows and of the weight beside the tile's
-    running sums, or a weight-gradient tile. Every operand is
-    staged in k-tiles, so the plan is the same at every width; past
-    MAX_WIDTH it raises a ValueError that names the width."""
+    csrc/engine_train.cu takes at R streams (``spec.kernel_streams``: 1
+    for a folded spec), ``groups`` weight-gradient thread groups
+    (``spec.weight_groups``; default R) and hidden width H, as the library
+    plans it (``engine_smem_bytes``): the layer kernel's ring of k-tiles of
+    its R·BB operand rows and of the weight beside the tile's running sums,
+    or a weight-gradient tile. Every operand is staged in k-tiles, so the
+    plan is the same at every width; past MAX_WIDTH it raises a ValueError
+    that names the width."""
     if H > MAX_WIDTH:
         raise ValueError(
             f"hidden width {H} is past the {MAX_WIDTH} the fused engine's "
             f"weight gradient tiles along the grid's y extent")
-    layer, weight = engine_core.step_plan(R)
+    layer, weight = engine_core.step_plan(R, groups)
     return max(layer, weight)
 
 
-def _check_inputs(spec, model, tensors, lib, n_replicas=None):
+def _resolve_const(spec, const, B, device):
+    """``const``, or the spec's own one where it is None, checked against
+    the spec's shape."""
+    if const is None:
+        const = spec.make_const(B, device)
+    engine_core.check_const(const, spec.const_shape(B),
+                            f"the {spec.p.name!r} spec")
+    return const
+
+
+def _check_inputs(spec, model, tensors, const, lib, n_replicas=None):
     """Device, dtype, shape and contiguity of the flat state (``[N, n]``
-    for N packed replicas) and uniforms, the uniforms' width, and the
-    width and shared memory the kernels' plan holds."""
-    R, H = _n_rows(spec.groups), model.hidden_size
-    engine_plan(R, H)
-    _check_state(model, tensors, n_replicas)
-    U = tensors["uniforms"].shape[-1]
+    for N packed replicas), uniforms and const, the uniforms' width, the
+    rows a folded spec lays out, and the width and shared memory the
+    kernels' plan holds."""
+    R, (_, H, _) = spec.kernel_streams, spec.dims(model)
+    engine_plan(R, H, spec.weight_groups)
+    n = state_size(spec, model)
+    shape = (n,) if n_replicas is None else (n_replicas, n)
+    uniforms = tensors["uniforms"]
+    for name, t in {**tensors, "const": const}.items():
+        if t is None:
+            continue
+        build.require_cuda_f32(name, t, None if name in ("uniforms", "const")
+                               else shape)
+        if t.device != uniforms.device:
+            raise ValueError(f"{name} is on {t.device}, uniforms on "
+                             f"{uniforms.device}")
+    U = uniforms.shape[-1]
     if U != spec.n_uniform:
         raise ValueError(f"uniforms have {U} columns, the {spec.p.name!r} "
                          f"spec draws {spec.n_uniform}")
+    if spec.fold > MAX_FOLD:
+        raise ValueError(f"the {spec.p.name!r} spec folds {spec.fold} "
+                         f"groups; the fused engine's loss kernel holds at "
+                         f"most {MAX_FOLD}")
     engine_core.check_state_fits(lib.engine_smem_bytes(spec.kernel_id, H),
                                  R, H)
 
@@ -564,37 +862,40 @@ def _consts(spec):
                                                          len(vals)))
 
 
-def engine_loss_grad_plain(spec, model, params, u):
+def engine_loss_grad_plain(spec, model, params, u, const=None):
     """Plain version of :func:`engine_loss_grad`."""
-    loss, grads = engine_step_math(spec, unpack_params(model, params), u,
-                                   u.shape[0], model.num_layers)
+    loss, grads = engine_step_math(spec, unpack_state(spec, model, params), u,
+                                   u.shape[0], spec.dims(model)[2], const)
     return loss.reshape(()), torch.cat([g.reshape(-1) for g in grads])
 
 
-def engine_loss_grad(spec, model, params, u):
+def engine_loss_grad(spec, model, params, u, const=None):
     """One step's loss and flat gradient at flat ``params`` on ``[B,
-    spec.n_uniform]`` uniforms: the step-math launches of the training
-    kernel without the Adam update. A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel (``engine_loss_grad.launches``
-    counts the launches; the training kernel's own step-math runs are
-    counted by :func:`fused_engine_chunk`)."""
+    spec.n_uniform]`` uniforms (``const``: the spec's const operand, None
+    for its own): the step-math launches of the training kernel without the
+    Adam update. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (``engine_loss_grad.launches`` counts the launches;
+    the training kernel's own step-math runs are counted by
+    :func:`fused_engine_chunk`)."""
     _check_model(spec, model)
+    const = _resolve_const(spec, const, u.shape[0], u.device)
     if u.device.type == "cpu":
-        return engine_loss_grad_plain(spec, model, params, u)
+        return engine_loss_grad_plain(spec, model, params, u, const)
     lib = build.library()
-    _check_inputs(spec, model, {"params": params, "uniforms": u}, lib)
-    B, H, L = u.shape[0], model.hidden_size, model.num_layers
-    scratch = torch.empty(lib.engine_scratch_floats(spec.kernel_id, B, H, L),
-                          device=u.device)
+    _check_inputs(spec, model, {"params": params, "uniforms": u}, const, lib)
+    B, (_, H, L) = u.shape[0], spec.dims(model)
+    scratch = torch.empty(
+        lib.engine_scratch_floats(spec.kernel_id, B, H, L, spec.fold),
+        device=u.device)
     grad = torch.empty_like(params)
     loss = torch.empty((), device=u.device)
     args = graphs.args_block(lib.engine_args_bytes(), u.device)
     with torch.cuda.device(u.device):
         code = lib.engine_grad(spec.kernel_id, _consts(spec),
-                               params.data_ptr(), u.data_ptr(),
+                               _ptr(const), params.data_ptr(), u.data_ptr(),
                                scratch.data_ptr(), grad.data_ptr(),
                                loss.data_ptr(), args.data_ptr(), B, H, L,
-                               build.stream_ptr(u.device))
+                               spec.fold, build.stream_ptr(u.device))
     build.check(code, "engine_grad")
     engine_loss_grad.launches += 1
     return loss, grad
@@ -603,13 +904,18 @@ def engine_loss_grad(spec, model, params, u):
 engine_loss_grad.launches = 0
 
 
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
 def fused_engine_chunk_plain(spec, model, params, m, v, uniforms, step0,
                              lrate, *, schedule="constant", total_steps=1,
-                             decay=0.1, batch_tile=None):
+                             decay=0.1, batch_tile=None, const=None):
     """Plain version of :func:`fused_engine_chunk`."""
+    const = _resolve_const(spec, const, uniforms.shape[1], uniforms.device)
 
     def step_math(p, u):
-        return engine_loss_grad_plain(spec, model, p, u)
+        return engine_loss_grad_plain(spec, model, p, u, const)
 
     return engine_core.run_fused_chunk(
         step_math, params, m, v, uniforms, step0, lrate, schedule=schedule,
@@ -617,26 +923,29 @@ def fused_engine_chunk_plain(spec, model, params, m, v, uniforms, step0,
 
 
 def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
-                  n_replicas, schedule, total_steps, decay):
+                  n_replicas, schedule, total_steps, decay, const):
     """One ``engine_train_packed`` call on CUDA ``[N, n]`` state, shared by
     both chunk wrappers (a single run is N = 1). The launches run on the
     shape's side stream (graphs.StepGraph.run); a call of at least
     GRAPH_STEPS steps first captures the shape's graph if it is not cached.
-    Returns the new (params, m, v, losses [N, K]) and the replica-steps
-    whose step math it enqueued."""
+    The const operand's pointer reaches the kernels through the argument
+    block each call writes, so the graph never holds it. Returns the new
+    (params, m, v, losses [N, K]) and the replica-steps whose step math it
+    enqueued."""
     lib = build.library()
     _check_inputs(spec, model, {"params": params, "m": m, "v": v,
-                                "uniforms": uniforms}, lib, n_replicas)
+                                "uniforms": uniforms}, const, lib, n_replicas)
     K, B, _ = uniforms.shape
-    H, L = model.hidden_size, model.num_layers
+    _, H, L = spec.dims(model)
+    F = spec.fold
     device = uniforms.device
-    floats = lib.engine_scratch_floats(spec.kernel_id, B, H, L)
+    floats = lib.engine_scratch_floats(spec.kernel_id, B, H, L, F)
     consts = _consts(spec)
     # The spec's numbers are kernel arguments of the captured graph.
-    key = ("engine", spec.kernel_id, tuple(consts), B, H, L, n_replicas,
+    key = ("engine", spec.kernel_id, tuple(consts), B, H, L, F, n_replicas,
            GRAPH_STEPS, device)
     if not graphs.cached(key):
-        engine_core.check_replicas(n_replicas, _n_rows(spec.groups),
+        engine_core.check_replicas(n_replicas, spec.kernel_streams,
                                    4 * floats,
                                    torch.cuda.mem_get_info(device)[0])
     entry = graphs.step_graph(key, lambda: graphs.StepGraph(
@@ -648,13 +957,13 @@ def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
     if K >= GRAPH_STEPS and entry.exec is None:
         with torch.cuda.device(device):
             entry.capture(lambda args, scratch, out: lib.engine_graph_build(
-                spec.kernel_id, consts, B, H, L, n_replicas, GRAPH_STEPS,
+                spec.kernel_id, consts, B, H, L, F, n_replicas, GRAPH_STEPS,
                 args, scratch, out), "engine_graph_build")
     code = entry.run(lambda stream, side0, side1: lib.engine_train_packed(
-        spec.kernel_id, consts, p.data_ptr(), m.data_ptr(),
+        spec.kernel_id, consts, _ptr(const), p.data_ptr(), m.data_ptr(),
         v.data_ptr(), uniforms.data_ptr(), entry.scratch.data_ptr(),
         losses.data_ptr(), entry.args.data_ptr(), entry.exec, GRAPH_STEPS,
-        n_replicas, K, B, H, L, float(lrate), int(step0),
+        n_replicas, K, B, H, L, F, float(lrate), int(step0),
         *engine_core.schedule_args(schedule, total_steps, decay),
         ctypes.byref(runs), stream, side0, side1), device)
     build.check(code, "engine_train_packed")
@@ -666,11 +975,13 @@ def fused_engine_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
                        batch_tile=None, runtime_bs=None, runtime_steps=None,
                        const=None):
     """Run ``K = uniforms.shape[0]`` Adam steps of ``spec``'s equation.
-    ``params``/``m``/``v`` are flat fp32 buffers; ``uniforms`` is [K, B,
-    spec.n_uniform]; ``step0`` is the absolute index of the chunk's first
-    step. ``schedule`` ("constant" | "cosine" | "exponential") sets the
-    learning rate of step t = step0 + k + 1 over the horizon
-    ``total_steps``, decaying to ``lrate · decay``.
+    ``params``/``m``/``v`` are flat fp32 buffers (:func:`pack_state`);
+    ``uniforms`` is [K, B, spec.n_uniform]; ``step0`` is the absolute index
+    of the chunk's first step. ``schedule`` ("constant" | "cosine" |
+    "exponential") sets the learning rate of step t = step0 + k + 1 over
+    the horizon ``total_steps``, decaying to ``lrate · decay``. ``const``
+    is the spec's const operand (``spec.make_const``; None: the spec's own),
+    a ValueError if its shape is not the spec's.
 
     Returns new (params, m, v, losses[K]); the inputs are left unchanged.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
@@ -678,19 +989,21 @@ def fused_engine_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
     ``fused_engine_chunk.step_math_runs`` the steps whose step math the
     kernel enqueued, as it reports them)."""
     for name, val in (("runtime_bs", runtime_bs),
-                      ("runtime_steps", runtime_steps), ("const", const)):
+                      ("runtime_steps", runtime_steps)):
         if val is not None:
             raise engine_core.not_ported(name)
     _check_model(spec, model)
     engine_core.check_schedule(schedule)
     check_batch_tile(uniforms.shape[1], batch_tile)
+    const = _resolve_const(spec, const, uniforms.shape[1], uniforms.device)
     if uniforms.device.type == "cpu":
         return fused_engine_chunk_plain(
             spec, model, params, m, v, uniforms, step0, lrate,
-            schedule=schedule, total_steps=total_steps, decay=decay)
+            schedule=schedule, total_steps=total_steps, decay=decay,
+            const=const)
     (p, m, v, losses), runs = _train_packed(
         spec, model, params[None], m[None], v[None], uniforms, step0, lrate,
-        1, schedule, total_steps, decay)
+        1, schedule, total_steps, decay, const)
     fused_engine_chunk.launches += 1
     fused_engine_chunk.step_math_runs += runs
     return p[0], m[0], v[0], losses[0]
@@ -703,29 +1016,30 @@ fused_engine_chunk.step_math_runs = 0
 def fused_engine_packed_chunk_plain(spec, model, params, m, v, uniforms,
                                     step0, lrate, n_replicas, rep_tile=None,
                                     *, schedule="constant", total_steps=1,
-                                    decay=0.1):
+                                    decay=0.1, const=None):
     """Plain version of :func:`fused_engine_packed_chunk`."""
+    const = _resolve_const(spec, const, uniforms.shape[1], uniforms.device)
 
     def step_math(p, u, const):
-        return engine_loss_grad_plain(spec, model, p, u)
+        return engine_loss_grad_plain(spec, model, p, u, const)
 
     return engine_core.run_fused_packed(
         step_math, params, m, v, uniforms, step0, lrate, n_replicas,
         rep_tile=rep_tile, schedule=schedule, total_steps=total_steps,
-        decay=decay)
+        decay=decay, const=const)
 
 
 def fused_engine_packed_chunk(spec, model, params, m, v, uniforms, step0,
                               lrate, n_replicas, rep_tile=None, *,
                               schedule="constant", total_steps=1, decay=0.1,
-                              lr_vec=None, bs_vec=None, steps_vec=None,
-                              mask_rows=False):
+                              const=None, lr_vec=None, bs_vec=None,
+                              steps_vec=None, mask_rows=False):
     """Packed-replica twin of :func:`fused_engine_chunk` (kernel #5 around
     #6): one call advances ``n_replicas`` independent runs by ``K =
     uniforms.shape[0]`` Adam steps each. ``params``/``m``/``v`` are ``[N,
     n]`` (``engine_core.stack_replicas``); every replica reads the same
-    ``uniforms [K, B, U]`` and lr schedule. ``rep_tile`` must divide N
-    (every launch covers all N replicas on the H100).
+    ``uniforms [K, B, U]``, const operand and lr schedule. ``rep_tile``
+    must divide N (every launch covers all N replicas on the H100).
 
     Returns new (params, m, v, losses [N, K]); the inputs are left
     unchanged. A CPU tensor takes the plain version; a CUDA tensor launches
@@ -737,13 +1051,16 @@ def fused_engine_packed_chunk(spec, model, params, m, v, uniforms, step0,
     _check_model(spec, model)
     engine_core.check_schedule(schedule)
     engine_core.check_rep_tile(n_replicas, rep_tile)
-    engine_core.check_replicas(n_replicas, _n_rows(spec.groups))
+    engine_core.check_replicas(n_replicas, spec.kernel_streams)
+    const = _resolve_const(spec, const, uniforms.shape[1], uniforms.device)
     if uniforms.device.type == "cpu":
         return fused_engine_packed_chunk_plain(
             spec, model, params, m, v, uniforms, step0, lrate, n_replicas,
-            schedule=schedule, total_steps=total_steps, decay=decay)
+            schedule=schedule, total_steps=total_steps, decay=decay,
+            const=const)
     out, runs = _train_packed(spec, model, params, m, v, uniforms, step0,
-                              lrate, n_replicas, schedule, total_steps, decay)
+                              lrate, n_replicas, schedule, total_steps, decay,
+                              const)
     fused_engine_packed_chunk.launches += 1
     fused_engine_packed_chunk.step_math_runs += runs
     return out
@@ -769,13 +1086,14 @@ def train_fused_result(problem, seed, iterations, batch_size=64, lrate=1e-4,
     in ``fused_train.train_in_chunks``).
 
     ``model`` (default: ``problem.default_model()`` initialised from
-    ``seed``) is trained in place. ``params`` (a flat buffer) replaces its
-    parameters first; ``opt_state`` ({"m", "v"} of an earlier result) and
-    ``start_step`` resume a run: step ``i`` draws its collocation points
-    from ``(seed, i)`` alone, so a resumed or chunked run equals the uncut
-    run bit for bit. ``schedule`` (None = the problem's default) decays
-    over ``total_steps`` (default ``start_step + iterations``); a run that
-    will be resumed must pass its full planned budget here."""
+    ``seed``) is trained in place. ``params`` (a flat buffer,
+    :func:`pack_state`) replaces its parameters first; ``opt_state`` ({"m",
+    "v"} of an earlier result) and ``start_step`` resume a run: step ``i``
+    draws its collocation points from ``(seed, i)`` alone, so a resumed or
+    chunked run equals the uncut run bit for bit. ``schedule`` (None = the
+    problem's default) decays over ``total_steps`` (default ``start_step +
+    iterations``); a run that will be resumed must pass its full planned
+    budget here. The spec's const operand is built once, on the device."""
     spec = spec_for(problem)
     if spec is None:
         raise ValueError(f"no fused-engine spec for equation "
@@ -788,8 +1106,9 @@ def train_fused_result(problem, seed, iterations, batch_size=64, lrate=1e-4,
     _check_model(spec, model)
     kw = dict(schedule=schedule or problem.defaults.schedule,
               total_steps=total_steps or start_step + iterations,
-              decay=decay)
-    p = pack_params(model) if params is None else params.to(device).clone()
+              decay=decay, const=spec.make_const(batch_size, device))
+    p = (pack_state(spec, model) if params is None
+         else params.to(device).clone())
     if opt_state is None:
         m, v = torch.zeros_like(p), torch.zeros_like(p)
     else:
@@ -803,8 +1122,11 @@ def train_fused_result(problem, seed, iterations, batch_size=64, lrate=1e-4,
         return step_uniforms(seed, start, n, batch_size, device,
                              spec.n_uniform)
 
+    def load(model, p):
+        load_state(spec, model, p)
+
     return train_in_chunks(model, run_chunk, draw, p, m, v, iterations,
-                           chunk_size, device, start_step)
+                           chunk_size, device, start_step, load=load)
 
 
 def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
@@ -817,10 +1139,10 @@ def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
     every chunk is one :func:`fused_engine_packed_chunk` call that advances
     all of them. Replica r is ``model``'s architecture (default: the
     problem's) drawn from ``replica_generator(seed, r)``; all replicas share
-    the collocation stream ``step_uniforms(seed, ...)`` and the schedule
-    (None = the problem's default) over ``iterations`` steps. So replica r
-    equals ``train_fused_result`` of that init, and a chunked run equals an
-    uncut one.
+    the collocation stream ``step_uniforms(seed, ...)``, the const operand
+    and the schedule (None = the problem's default) over ``iterations``
+    steps. So replica r equals ``train_fused_result`` of that init, and a
+    chunked run equals an uncut one.
 
     Returns a TrainResult whose ``params`` is the list of N trained models,
     ``opt_state`` the ``[N, n]`` moments and ``loss_history`` ``[N,
@@ -836,8 +1158,9 @@ def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
     models = replica_models(problem, model, seed, n_replicas, device)
     _check_model(spec, models[0])
     kw = dict(schedule=schedule or problem.defaults.schedule,
-              total_steps=iterations, decay=decay)
-    p = engine_core.stack_replicas([pack_params(m) for m in models])
+              total_steps=iterations, decay=decay,
+              const=spec.make_const(batch_size, device))
+    p = engine_core.stack_replicas([pack_state(spec, m) for m in models])
 
     def run_chunk(p, m, v, u, step0):
         return fused_engine_packed_chunk(spec, models[0], p, m, v, u, step0,
@@ -849,7 +1172,7 @@ def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
 
     def load(models, p):
         for model, row in zip(models, p):
-            load_params(model, row)
+            load_state(spec, model, row)
 
     return train_in_chunks(models, run_chunk, draw, p, torch.zeros_like(p),
                            torch.zeros_like(p), iterations, chunk_size,

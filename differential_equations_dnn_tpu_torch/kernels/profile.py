@@ -2,10 +2,11 @@
 
     python -m differential_equations_dnn_tpu_torch.kernels.profile [NAME ...]
 
-For each equation NAME (default: all nine), at its reference defaults and
-seed 0, it runs one warm-up chunk of the fused trainer of its route
+For each equation NAME (default: all twelve), at its reference defaults
+and seed 0, it runs one warm-up chunk of the fused trainer of its route
 (constant-lr heat: the heat kernel; fitzhugh_nagumo and fredholm: the DGM
-engine; the rest: the generic engine), then
+engine; the rest, volterra, uat and inverse_heat among them, with their
+const operands: the generic engine), then
 times one chunk of K steps with CUDA events and profiles another with
 ``torch.profiler``. It prints the µs per step of each kernel name (device
 time summed over the chunk, over K), the launches per step, the summed
@@ -115,17 +116,21 @@ def _chunk_fn(name, device, engine=False):
         return lambda: fd.fused_dgm_chunk(spec, model, p, z, z, u, 0, d.lrate,
                                           const=const, schedule=d.schedule,
                                           total_steps=d.iterations)
-    p = ft.pack_params(model)
-    z = torch.zeros_like(p)
     if name == "heat" and d.schedule == "constant" and not engine:
+        p = ft.pack_params(model)
+        z = torch.zeros_like(p)
         u = step_uniforms(0, 0, STEPS, d.batch_size, device)
         return lambda: ft.heat_fused_train_chunk(model, p, z, z, u, 0,
                                                  d.lrate)
     spec = fe.spec_for(prob)
+    p = fe.pack_state(spec, model)
+    z = torch.zeros_like(p)
+    const = spec.make_const(d.batch_size, device)
     u = step_uniforms(0, 0, STEPS, d.batch_size, device, spec.n_uniform)
     return lambda: fe.fused_engine_chunk(spec, model, p, z, z, u, 0, d.lrate,
                                          schedule=d.schedule,
-                                         total_steps=d.iterations)
+                                         total_steps=d.iterations,
+                                         const=const)
 
 
 def _packed_fn(name, device, n_replicas):
@@ -141,7 +146,11 @@ def _packed_fn(name, device, n_replicas):
         pack, chunk = fd.pack_dgm, fd.fused_dgm_packed_chunk
     else:
         spec = fe.spec_for(prob)
-        pack, chunk = ft.pack_params, fe.fused_engine_packed_chunk
+        kw["const"] = spec.make_const(d.batch_size, device)
+        chunk = fe.fused_engine_packed_chunk
+
+        def pack(model):
+            return fe.pack_state(spec, model)
     p = engine_core.stack_replicas([pack(m) for m in models])
     z = torch.zeros_like(p)
     u = step_uniforms(0, 0, STEPS, d.batch_size, device, spec.n_uniform)
@@ -244,16 +253,18 @@ def profile(name, device, n_replicas=None, scan_taps=False, engine=False):
 
 def solve_seeds(name, n_seeds, **solve_kw):
     """MAE and warm it/s of ``solve(name, engine="fused", **solve_kw)`` per
-    seed."""
+    seed (inverse_heat: and the κ̂ error)."""
     from differential_equations_dnn_tpu_torch import solve
 
     maes = []
     for seed in range(n_seeds):
         res = solve(name, engine="fused", seed=seed, **solve_kw)
         maes.append(res.mae)
+        kappa = (f", kappa error {res.problem.kappa_error(res.params):.6g}"
+                 if hasattr(res.problem, "kappa_error") else "")
         print(f"  solve({name!r}, seed={seed}, **{solve_kw}): MAE "
-              f"{res.mae:.6g}, {res.iters_per_sec:.1f} it/s warm (wall "
-              f"{res.wall_time:.3f} s), final loss "
+              f"{res.mae:.6g}{kappa}, {res.iters_per_sec:.1f} it/s warm "
+              f"(wall {res.wall_time:.3f} s), final loss "
               f"{res.loss_history[-1]:.4g}")
     print(f"  {name} MAE over seeds 0-{n_seeds - 1}: min {min(maes):.6g}, "
           f"max {max(maes):.6g}")
@@ -441,7 +452,7 @@ def probe_engine(device, B=256, H=128, launches=200):
     n = 3 * H + H + H * H + H + H + 1
     gen = torch.Generator(device=device).manual_seed(0)
     params = 0.1 * torch.randn(2 * n, device=device, generator=gen)
-    scratch = torch.rand(lib.engine_scratch_floats(6, B, H, 1),
+    scratch = torch.rand(lib.engine_scratch_floats(6, B, H, 1, 1),
                          device=device, generator=gen)
     args = graphs.args_block(lib.engine_args_bytes(), device)
     stream = build.stream_ptr(device)

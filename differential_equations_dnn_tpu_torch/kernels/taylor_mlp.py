@@ -18,7 +18,7 @@ from differential_equations_dnn_tpu_torch.kernels import build
 from differential_equations_dnn_tpu_torch.kernels.engine_core import (
     SMEM_LIMIT,
 )
-from differential_equations_dnn_tpu_torch.models import MLP
+from differential_equations_dnn_tpu_torch.models import MLP, Perceptron
 from differential_equations_dnn_tpu_torch.ops import taylor
 
 _ACT_KIND = {"tanh": 0, "relu": 1, "sigmoid": 2}
@@ -61,31 +61,50 @@ def mlp_forward_plain(model, x):
     return model(x)
 
 
+def _mlp_view(model):
+    """The model as the kernel reads it: (activation, D, H, L, O, the six
+    named tensors). A plain MLP; a Perceptron is one at L = 0 (its hidden
+    stack empty); an inverse-problem model is its solution net."""
+    if isinstance(model, Perceptron):
+        D, H, O = model.input_dim, model.hidden_size, model.output_dim
+        w1 = model.fc1.w
+        return ("tanh", D, H, 0, O, [
+            ("fc1.w", w1, (D, H)), ("fc1.b", model.fc1.b, (H,)),
+            ("hidden.w", w1.new_zeros((0, H, H)), (0, H, H)),
+            ("hidden.b", w1.new_zeros((0, H)), (0, H)),
+            ("fc2.w", model.fc2.w, (H, O)), ("fc2.b", model.fc2.b, (O,))])
+    net = getattr(model, "net", model)
+    if not isinstance(net, MLP):
+        raise ValueError(f"mlp_forward takes an MLP, a Perceptron or a "
+                         f"model around an MLP (got {type(model).__name__})")
+    D, H, L, O = net.input_dim, net.hidden_size, net.num_layers, \
+        net.output_dim
+    return (net.activation, D, H, L, O, [
+        ("fc_in.w", net.fc_in.w, (D, H)), ("fc_in.b", net.fc_in.b, (H,)),
+        ("hidden.w", net.hidden.w, (L, H, H)),
+        ("hidden.b", net.hidden.b, (L, H)),
+        ("fc_out.w", net.fc_out.w, (H, O)),
+        ("fc_out.b", net.fc_out.b, (O,))])
+
+
 def mlp_forward(model, x):
-    """``model(x)`` for a plain MLP with a tanh, relu or sigmoid activation:
-    ``x [N, D]`` → ``[N, O]``, one kernel launch for any N.
+    """``model(x)`` for a plain MLP with a tanh, relu or sigmoid activation
+    (or a Perceptron, or a model whose ``net`` is such an MLP): ``x [N,
+    D]`` → ``[N, O]``, one kernel launch for any N.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (``mlp_forward.launches`` counts the launches)."""
     if x.device.type == "cpu":
         return mlp_forward_plain(model, x)
-    kind = _ACT_KIND.get(model.activation)
+    activation, D, H, L, O, weights = _mlp_view(model)
+    kind = _ACT_KIND.get(activation)
     if kind is None:
         raise ValueError(f"mlp_forward supports {sorted(_ACT_KIND)} "
-                         f"activations, not {model.activation!r}")
+                         f"activations, not {activation!r}")
     n, d = x.shape
-    D, H, L, O = (model.input_dim, model.hidden_size, model.num_layers,
-                  model.output_dim)
     if d != D:
         raise ValueError(f"x has {d} columns, the model takes {D}")
     check_mlp_width(D, H)
-    weights = [
-        ("fc_in.w", model.fc_in.w, (D, H)), ("fc_in.b", model.fc_in.b, (H,)),
-        ("hidden.w", model.hidden.w, (L, H, H)),
-        ("hidden.b", model.hidden.b, (L, H)),
-        ("fc_out.w", model.fc_out.w, (H, O)),
-        ("fc_out.b", model.fc_out.b, (O,)),
-    ]
     build.require_cuda_f32("x", x)
     for name, t, shape in weights:
         build.require_cuda_f32(name, t, shape)

@@ -8,6 +8,12 @@ from differential_equations_dnn_tpu_torch.models.mlp import (
     params_from_jax,
     params_to_jax,
 )
+from differential_equations_dnn_tpu_torch.models.perceptron import (
+    Perceptron,
+    perceptron_params_from_jax,
+    perceptron_params_to_jax,
+)
 
 __all__ = ["DGM", "dgm_params_from_jax", "dgm_params_to_jax", "MLP",
-           "params_from_jax", "params_to_jax"]
+           "params_from_jax", "params_to_jax", "Perceptron",
+           "perceptron_params_from_jax", "perceptron_params_to_jax"]

@@ -5,7 +5,9 @@ from differential_equations_dnn_tpu_torch.ops.diff import (
 )
 from differential_equations_dnn_tpu_torch.ops.quad import (
     gauss_legendre_nodes,
+    halton_nodes,
     integrate,
+    montecarlo_nodes,
 )
 from differential_equations_dnn_tpu_torch.ops.sampling import GridSubsample
 from differential_equations_dnn_tpu_torch.ops.taylor import (
@@ -18,7 +20,9 @@ __all__ = [
     "value_dt",
     "value_dx_dxx",
     "gauss_legendre_nodes",
+    "halton_nodes",
     "integrate",
+    "montecarlo_nodes",
     "GridSubsample",
     "heat_fused_streams",
     "mlp_streams",

@@ -107,8 +107,11 @@ def test_unported_options_raise(kwargs, error, match):
 
 
 def test_other_equations_raise():
-    with pytest.raises(ValueError, match="available.*ROADMAP"):
-        solve("volterra", engine="fused", device="cpu")
+    """Every equation of the JAX package is ported (volterra, uat and
+    inverse_heat last); an unknown name still raises, naming what
+    exists."""
+    with pytest.raises(ValueError, match="available.*'volterra'"):
+        solve("volterra2", engine="fused", device="cpu")
 
 
 def test_heat_with_a_decay_schedule_takes_the_engine(monkeypatch):

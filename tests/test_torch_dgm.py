@@ -396,25 +396,34 @@ def test_solve_dgm_on_cpu(name):
     assert _fused_route(PROBLEMS[name](), model, "constant", B) == "dgm"
 
 
-@pytest.mark.parametrize("call, match", [
-    (lambda: FitzHughNagumo(arch="fourier_mlp"), "item 13"),
-    (lambda: FitzHughNagumo(constraint="hard"), "item 10a"),
-    (lambda: Fredholm2(quadrature="montecarlo"), "item 11"),
-    (lambda: Fredholm2(quadrature="halton"), "item 11"),
+def _unported(item):
+    return NotImplementedError, f"ROADMAP.*item {item}"
+
+
+@pytest.mark.parametrize("call, error, match", [
+    (lambda: FitzHughNagumo(arch="fourier_mlp"), *_unported("13")),
+    (lambda: FitzHughNagumo(constraint="hard"), *_unported("10a")),
+    (lambda: solve("fredholm", quadrature="montecarlo", engine="fused",
+                   device="cpu"), ValueError, "engine='scan'"),
+    (lambda: solve("fredholm", quadrature="halton", engine="fused",
+                   device="cpu"), ValueError, "engine='scan'"),
     (lambda: solve("fitzhugh_nagumo", engine="scan", device="cpu",
-                   causal_eps=0.0), "item 13"),
+                   causal_eps=0.0), *_unported("13")),
     (lambda: solve("fredholm", engine="fused", device="cpu", finetune=5,
-                   precision="default"), "item 7"),
+                   precision="default"), *_unported("7")),
     (lambda: solve("fredholm", engine="fused", device="cpu", ensemble=4,
-                   mesh=object()), "item 14"),
+                   mesh=object()), *_unported("14")),
     (lambda: _fused_route(types.SimpleNamespace(name="fitzhugh_nagumo",
                                                 arch="fourier_mlp"),
-                          MLP(1, 2, 8, 1, "tanh")), "item 13"),
+                          MLP(1, 2, 8, 1, "tanh")), *_unported("13")),
 ], ids=["fourier_mlp", "hard", "montecarlo", "halton", "causal_eps0",
         "finetune", "ensemble", "route_fourier"])
-def test_dgm_unported_routes_raise(call, match):
-    """What the DGM slice does not run raises, naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
+def test_dgm_unported_routes_raise(call, error, match):
+    """What the DGM slice does not run raises, naming its ROADMAP item;
+    Fredholm's stochastic quadratures train on the scan engine, and the
+    fused route refuses them with the JAX package's ValueError naming
+    engine='scan'."""
+    with pytest.raises(error, match=match):
         call()
 
 

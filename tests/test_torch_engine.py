@@ -48,7 +48,11 @@ from differential_equations_dnn_tpu_torch.models import (  # noqa: E402
 
 H, L, B, K = 16, 2, 16, 8
 LR = 1e-3
-SPEC_NAMES = sorted(fe.SPECS)
+# The specs of a plain MLP D → H×L → 1; volterra, uat and inverse_heat
+# (other models, a const operand, an extra tensor) have their own file,
+# test_torch_last_specs.py.
+LAST_SPECS = ("volterra", "uat", "inverse_heat")
+SPEC_NAMES = sorted(set(fe.SPECS) - set(LAST_SPECS))
 _DIM = {"simple_ode": 1, "heat2d": 3}
 
 
@@ -237,10 +241,25 @@ def test_train_fused_result_trains():
     ("runtime_bs", 8), ("runtime_steps", 4), ("const", torch.zeros(2)),
 ])
 def test_unported_chunk_options_raise(option, value):
+    """The sweep evaluators' runtime masks are not ported and raise, naming
+    their ROADMAP item; the const operand is ported, and one of the wrong
+    shape (heat's spec takes none; volterra's is [k, 2]) raises a
+    ValueError before anything runs."""
     _, _, tm = _pair("heat")
     spec = fe.spec_for(PROBLEMS["heat"]())
     p = ft.pack_params(tm)
     u = torch.zeros(2, B, 2)
+    if option == "const":
+        with pytest.raises(ValueError, match="takes no const"):
+            fe.fused_engine_chunk(spec, tm, p, p, p, u, 0, LR, const=value)
+        prob = PROBLEMS["volterra"](k=8)
+        vspec = fe.spec_for(prob)
+        model = prob.default_model(generator=generator(0))
+        vp = fe.pack_state(vspec, model)
+        with pytest.raises(ValueError, match=r"shape \(8, 2\)"):
+            fe.fused_engine_chunk(vspec, model, vp, vp, vp,
+                                  torch.zeros(2, B, 1), 0, LR, const=value)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fe.fused_engine_chunk(spec, tm, p, p, p, u, 0, LR, **{option: value})
 

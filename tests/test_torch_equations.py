@@ -28,6 +28,7 @@ from differential_equations_dnn_tpu_torch.equations import (  # noqa: E402
     Heat2D,
     Poisson2D,
     SimpleODE,
+    Volterra2,
     Wave1D,
 )
 from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
@@ -107,15 +108,20 @@ def test_heat2d_taylor_taps_match_jvp():
         rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("problem, match", [
-    (types.SimpleNamespace(name="heat", constraint="hard"), "hard"),
-    (Advection1D(causal_eps=1.0), "causal"),
-    (types.SimpleNamespace(name="fredholm", quadrature="montecarlo"), "DGM"),
-    (types.SimpleNamespace(name="volterra"), "volterra"),
+@pytest.mark.parametrize("problem, error, match", [
+    (types.SimpleNamespace(name="heat", constraint="hard"),
+     NotImplementedError, "ROADMAP.*hard"),
+    (Advection1D(causal_eps=1.0), NotImplementedError, "ROADMAP.*causal"),
+    (types.SimpleNamespace(name="fredholm", quadrature="montecarlo"),
+     ValueError, "DGM.*engine='scan'"),
+    (Volterra2(quadrature="montecarlo"), ValueError,
+     "volterra.*engine='scan'"),
 ])
-def test_unported_routes_raise(problem, match):
-    """(g) What the fused route does not run yet raises, naming ROADMAP."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
+def test_unported_routes_raise(problem, error, match):
+    """(g) What the fused route does not run yet raises, naming ROADMAP;
+    the stochastic quadratures, which train on the scan engine only (as in
+    the JAX package), raise a ValueError naming engine='scan'."""
+    with pytest.raises(error, match=match):
         _fused_route(problem, MLP(2, 1, 8, 1, "tanh"))
 
 

@@ -179,16 +179,17 @@ def test_engine_kernels_match_plain(cuda, name):
     prob = PROBLEMS[name]()
     spec = fe.spec_for(prob)
     model = prob.default_model(generator=generator(0), device=cuda)
-    p = ft.pack_params(model)
+    p = fe.pack_state(spec, model)
     u = step_uniforms(0, 100, 20, prob.defaults.batch_size, cuda,
                       spec.n_uniform)
     loss_k, grad_k = fe.engine_loss_grad(spec, model, p, u[0])
     loss_p, grad_p = fe.engine_loss_grad_plain(spec, model, p, u[0])
     torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
-    for gk, gp in zip(ft.unpack_params(model, grad_k),
-                      ft.unpack_params(model, grad_p)):
-        torch.testing.assert_close(gk, gp, rtol=1e-4,
-                                   atol=1e-5 * float(gp.abs().max()))
+    for gk, gp in zip(fe.unpack_state(spec, model, grad_k),
+                      fe.unpack_state(spec, model, grad_p)):
+        if gp.numel():  # uat's hidden stack has none
+            torch.testing.assert_close(gk, gp, rtol=1e-4,
+                                       atol=1e-5 * float(gp.abs().max()))
     lr = prob.defaults.lrate
     kw = dict(schedule="exponential" if name == "burgers" else "cosine",
               total_steps=500)
@@ -240,11 +241,13 @@ def test_engine_smem_rule(cuda):
     streams at H = 256, which the first design refused, train: its chunk
     runs and lowers the loss; past MAX_WIDTH the plan names the width."""
     lib = build.library()
-    for spec in fe.SPECS.values():
-        R = fe._n_rows(spec.groups)
+    for name in fe.SPECS:
+        spec = fe.spec_for(PROBLEMS[name]())
+        R = spec.kernel_streams
         for H in (128, 256, 512):
             need = lib.engine_smem_bytes(spec.kernel_id, H)
-            assert need == fe.engine_plan(R, H) <= engine_core.SMEM_LIMIT
+            assert need == fe.engine_plan(R, H, spec.weight_groups) <= \
+                engine_core.SMEM_LIMIT
     assert lib.engine_smem_bytes(99, 128) == -1
     spec = fe.spec_for(PROBLEMS["heat2d"]())
     wide = MLP(3, 1, 256, 3, "tanh", generator=generator(0), device=cuda)
@@ -942,3 +945,101 @@ def test_engine_graph_is_captured_once_per_shape(cuda):
     assert fe.graph_stats["builds"] == builds + 2
     for out in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
+
+
+# ---------------------------------------------------------------------------
+# volterra (folded groups, const), uat (L = 0, H = 3), inverse_heat (extra
+# tensor, const)
+# ---------------------------------------------------------------------------
+
+LAST_SPECS = ["volterra", "uat", "inverse_heat"]
+
+
+@pytest.mark.parametrize("name", LAST_SPECS)
+def test_last_specs_packed_and_cut_equal_single(cuda, name):
+    """At the equation's default shapes, 53 steps (a graph replay and 3
+    steps from C): a packed chunk of N = 2 replicas equals the single chunk
+    on each replica's state bit for bit, and the single chunk cut at step
+    25 equals the uncut one bit for bit (the const operand and, for
+    inverse_heat, log κ̂'s Adam step ride both)."""
+    prob = PROBLEMS[name]()
+    spec = fe.spec_for(prob)
+    B, lr = prob.defaults.batch_size, prob.defaults.lrate
+    models = [prob.default_model(generator=replica_generator(0, r),
+                                 device=cuda) for r in range(2)]
+    p = engine_core.stack_replicas([fe.pack_state(spec, m) for m in models])
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, 100, 53, B, cuda, spec.n_uniform)
+    kw = dict(schedule="cosine", total_steps=300)
+    pk, mk, vk, lk = fe.fused_engine_packed_chunk(spec, models[0], p, z, z,
+                                                  u, 100, lr, 2, **kw)
+    for r in range(2):
+        p1, m1, v1, l1 = fe.fused_engine_chunk(spec, models[0],
+                                               p[r].contiguous(),
+                                               z[r].clone(), z[r].clone(), u,
+                                               100, lr, **kw)
+        assert torch.equal(l1, lk[r]) and torch.equal(p1, pk[r])
+        assert torch.equal(m1, mk[r]) and torch.equal(v1, vk[r])
+    a = fe.fused_engine_chunk(spec, models[0], p[0].contiguous(), z[0],
+                              z[0], u[:25], 100, lr, **kw)
+    b = fe.fused_engine_chunk(spec, models[0], *a[:3], u[25:], 125, lr, **kw)
+    assert torch.equal(torch.cat([a[3], b[3]]), lk[0])
+    assert all(torch.equal(x, y) for x, y in zip(b[:3], (pk[0], mk[0],
+                                                          vk[0])))
+
+
+def test_last_specs_plans(cuda):
+    """Volterra's 51 groups fold into one stream: the library plans the
+    R = 1 layer tiles and weight gradients of FOLD_GROUPS thread groups
+    (step_plan(1, 8)), within the H100's 227 KB, whatever k is; uat's
+    Perceptron trains at L = 0 and H = 3 with a flat state of the input
+    and output layers alone; inverse_heat's state ends in log κ̂."""
+    lib = build.library()
+    for k in (8, 50, 400):
+        spec = fe.spec_for(PROBLEMS["volterra"](k=k))
+        assert spec.kernel_streams == 1 and spec.fold == k + 1
+        assert spec.weight_groups == fe.FOLD_GROUPS
+        assert lib.engine_smem_bytes(spec.kernel_id, 64) == \
+            fe.engine_plan(1, 64, fe.FOLD_GROUPS) <= engine_core.SMEM_LIMIT
+    prob = PROBLEMS["uat"]()
+    spec = fe.spec_for(prob)
+    model = prob.default_model(generator=generator(0), device=cuda)
+    assert fe.state_size(spec, model) == 3 + 3 + 3 + 1
+    prob = PROBLEMS["inverse_heat"]()
+    spec = fe.spec_for(prob)
+    model = prob.default_model(generator=generator(0), device=cuda)
+    flat = fe.pack_state(spec, model)
+    assert float(flat[-1]) == float(model.log_kappa.detach())
+
+
+def test_mlp_forward_takes_perceptron_and_inverse_model(cuda):
+    """Kernel #2 on uat's Perceptron (L = 0, H = 3: rows not 16-byte
+    aligned) at its 50-point grid and a ragged 77, and on inverse_heat's
+    net at its 40 × 40 grid, against ``model(x)``: fp32 reassociation of
+    H-term dot products, outputs of order 1."""
+    for name, n in (("uat", 50), ("uat", 77), ("inverse_heat", 40)):
+        prob = PROBLEMS[name]()
+        model = prob.default_model(generator=generator(3), device=cuda)
+        x = prob.grid_inputs(n, device=cuda)
+        taylor_mlp.mlp_forward.launches = 0
+        with torch.no_grad():
+            got = taylor_mlp.mlp_forward(model, x)
+            torch.testing.assert_close(got, model(x), rtol=1e-5, atol=1e-5)
+        assert taylor_mlp.mlp_forward.launches == 1
+
+
+@pytest.mark.parametrize("name", LAST_SPECS)
+def test_solve_last_specs_launch_the_engine(cuda, name):
+    """A short fused ``solve`` of each new equation launches the MLP engine
+    (one step-math run per step and the warm-up) and kernel #2 once, and
+    trains; inverse_heat's κ̂ moves from its initial 0.5."""
+    for fn in (taylor_mlp.mlp_forward, fe.fused_engine_chunk):
+        fn.launches = 0
+    fe.fused_engine_chunk.step_math_runs = 0
+    res = solve(name, engine="fused", iterations=300)
+    assert taylor_mlp.mlp_forward.launches == 1
+    assert fe.fused_engine_chunk.step_math_runs == 301
+    assert np.all(np.isfinite(res.loss_history))
+    assert res.loss_history[-20:].mean() < res.loss_history[:20].mean()
+    if name == "inverse_heat":
+        assert float(res.params.kappa()) != 0.5
