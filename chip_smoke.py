@@ -42,7 +42,14 @@ Phases (each raises on failure, so any failure exits non-zero):
               single and N=16, heat2d single, wave N=8) give the
               steady-state time per step; a heat2d chunk and a heat (#1)
               chunk at hidden width 256, and #3 at H = 256 and 512 for each
-              activation, are held against their plain versions.
+              activation, are held against their plain versions. The five
+              hard-constraint specs (simple_ode, heat, heat2d, wave,
+              poisson: a HardConstraint's raw net, interior streams only)
+              get the same #6 and 50-step #4 checks and a 1 000-step
+              chunk each, and hard heat a packed N = 4 chunk (every
+              replica bit for bit against the single chunk). #2's row
+              carries the time of the cuBLAS addmm + tanh chain (TF32
+              off) on the same inputs as its library yardstick.
 4. solve    — each main path through ``solve(..., engine="fused")`` at its
               equation's reference defaults (seed 0): constant-lr heat on
               the heat kernel, heat with a cosine schedule and the nine
@@ -62,6 +69,14 @@ Phases (each raises on failure, so any failure exits non-zero):
               launched by that run (counts set to 0 just before it and read
               just after). Two fused solves run at hidden width 256:
               heat2d on the generic engine and heat on the heat kernel.
+              Then ``constraint="hard"`` at the JAX package's TPU smoke
+              configuration (5 000 steps, seed 42, no polish, MAE < 0.05):
+              the five hard specs on the generic engine (constant-lr heat
+              too, never on kernel #1), hard heat as a 4-replica ensemble,
+              simple_ode on the scan trainer, and FitzHugh–Nagumo's DGM on
+              the scan trainer at 1 000 steps (no MAE bound: a finite
+              history and s(0) = y_ic); every hard solve's grid holds its
+              IC and BC rows to 1e-6.
 5. result   — the smoke's total seconds, a JSON line of the kernels,
               then as the last line {"ok": true, "device": {...}}.
 """
@@ -96,6 +111,33 @@ DGM = ["fitzhugh_nagumo", "fredholm"]
 # spec, the L = 0 Perceptron, an extra trainable tensor. Their rows nest
 # under the engine kernels' rows ("specs").
 LAST = ["volterra", "uat", "inverse_heat"]
+# The hard-constraint specs (fused_engine.HARD_SPECS): their rows nest under
+# the engine kernels' rows too, and their solves run at the JAX package's
+# TPU smoke configuration (benchmarks/smoke_tpu.py:101-109): 5 000 steps,
+# seed 42, no polish, MAE bound 0.05.
+HARD = ["simple_ode", "heat", "heat2d", "wave", "poisson"]
+HARD_SOLVE = dict(constraint="hard", iterations=5000, seed=42, finetune=0)
+HARD_BOUND = 0.05
+# The packed hard case: heat's hard spec at N = 4 (its replicas bit for bit
+# against the single chunk), and the ensemble solve that launches it.
+HARD_PACKED = ("heat", 4, 1e-5)
+# The grid rows on which each hard trial function holds its IC or BC
+# exactly: (axis of solution_shape, index); held to the ground truth there
+# to atol HARD_ATOL, as the JAX package's
+# test_hard_constraint_trains_on_fused_engine holds them.
+HARD_ROWS = {"simple_ode": [(0, 0)], "fitzhugh_nagumo": [(0, 0)],
+             "heat": [(0, 0), (1, 0), (1, -1)],
+             "wave": [(0, 0), (1, 0), (1, -1)],
+             "poisson": [(0, 0), (0, -1), (1, 0), (1, -1)],
+             "heat2d": [(0, 0), (1, 0), (1, -1), (2, 0), (2, -1)]}
+HARD_ATOL = 1e-6
+# The scan trainer's hard solves: simple_ode at 5 000 steps under the MAE
+# bound, and FitzHugh–Nagumo's DGM at 1 000 steps with no MAE bound (None):
+# 1 000 steps cannot reach the reference's 0.0088, so only a finite history
+# and s(0) = y_ic are held.
+HARD_SCAN = [("simple_ode", dict(constraint="hard", iterations=5000), 0.05),
+             ("fitzhugh_nagumo", dict(constraint="hard", iterations=1000),
+              None)]
 # inverse_heat's κ̂ error bound, the JAX package's own
 # (tests/test_equations.py:208).
 KAPPA_BOUND = 0.15
@@ -327,12 +369,24 @@ def mlp_grid(name, D, H, L, act):
     return MLP(D, 1, H, L, act, generator=generator(1), device=dev), x
 
 
+def addmm_chain(model, x):
+    """#2's function as a chain of library calls: cuBLAS addmm per layer
+    and tanh (TF32 is off: core.precision)."""
+    import torch
+
+    h = torch.tanh(torch.addmm(model.fc_in.b, x, model.fc_in.w))
+    for l in range(model.num_layers):
+        h = torch.tanh(torch.addmm(model.hidden.b[l], h, model.hidden.w[l]))
+    return torch.addmm(model.fc_out.b, h, model.fc_out.w)
+
+
 def check_mlp_forward():
     """Kernel #2 against its plain version at every MLP_SHAPES row, both
     timed by their device time (events around calls queued behind a spin
     kernel: one call's host work outlasts a small grid's device work).
     Returns the JSON row: heat's 40 × 40 grid through heat's default model
-    (generator(1)), with every shape's numbers under "shapes"."""
+    (generator(1)), with every shape's numbers under "shapes", and as its
+    library time the device time of :func:`addmm_chain` there."""
     import torch
 
     from differential_equations_dnn_tpu_torch.kernels import taylor_mlp as tm
@@ -366,11 +420,19 @@ def check_mlp_forward():
               f"events): kernel {wall:.4f} ms; plan "
               f"{tm.mlp_forward_plan(N, D, H, 1)}")
     row = next(r for r in shapes if r["shape"] == "1600x2 -> 128x3 -> 1, tanh")
+    model, x = mlp_grid(*MLP_SHAPES[1])
+    with torch.no_grad():
+        # The same function to fp32 reassociation (tolerance as above).
+        check_close("addmm chain", addmm_chain(model, x),
+                    tm.mlp_forward_plain(model, x), rtol=1e-5, atol=1e-5)
+        library_ms = device_ms(lambda: addmm_chain(model, x))
+    print(f"mlp_forward's library yardstick (cuBLAS addmm + tanh, TF32 off) "
+          f"at the heat grid: device time {library_ms:.4f} ms")
     return dict(name="mlp_forward", route="cuda",
                 source=f"{PKG}/csrc/mlp_forward.cu",
                 replaces=f"{JAX_KERNELS}/taylor_mlp.py:195",
                 max_abs_err=row["max_abs_err"], ms=row["ms"],
-                plain_ms=row["plain_ms"], library_ms=None,
+                plain_ms=row["plain_ms"], library_ms=library_ms,
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 shapes=shapes)
 
@@ -544,11 +606,13 @@ def check_heat_streams():
     return row
 
 
-def check_engine_kernels(name):
+def check_engine_kernels(name, hard=False):
     """Kernels #6 and #4 (and #2 on the equation's grid) at one spec's
     default shapes, with the spec's const operand where it has one; for the
-    LAST specs also the per-step time of a STEADY_STEPS-step chunk. Returns
-    the rows of the two engine kernels."""
+    LAST and the hard specs also the per-step time of a STEADY_STEPS-step
+    chunk. ``hard`` takes the equation's hard spec (its model a
+    HardConstraint, #2 on its raw net). Returns the rows of the two engine
+    kernels."""
     import torch
 
     from differential_equations_dnn_tpu_torch.core.prng import (
@@ -560,7 +624,7 @@ def check_engine_kernels(name):
     from differential_equations_dnn_tpu_torch.kernels import taylor_mlp as tm
 
     dev = torch.device("cuda")
-    prob = PROBLEMS[name]()
+    prob = PROBLEMS[name](**({"constraint": "hard"} if hard else {}))
     spec = fe.spec_for(prob)
     model = prob.default_model(generator=generator(1), device=dev)
     d = prob.defaults
@@ -572,11 +636,15 @@ def check_engine_kernels(name):
              + (f", kernel streams {spec.kernel_streams}"
                 if spec.kernel_streams != R else ""))
 
-    # The evaluation grid through mlp_forward (tolerance as for heat's).
+    # The evaluation grid through mlp_forward (tolerance as for heat's); a
+    # HardConstraint's raw net, as Problem.evaluate runs it.
     x = prob.grid_inputs(d.nodes, device=dev)
+    net = model.net if hard else model
     with torch.no_grad():
-        check_close(f"{name} mlp_forward", tm.mlp_forward(model, x),
-                    tm.mlp_forward_plain(model, x), rtol=1e-5, atol=1e-5)
+        check_close(f"{name} mlp_forward", tm.mlp_forward(net, x),
+                    tm.mlp_forward_plain(net, x), rtol=1e-5, atol=1e-5)
+    if hard:
+        name = f"{name} (hard)"
 
     # One step's loss and gradient. Tolerance: fp32 reassociation of the
     # R·B-row sums; the loss to rtol 1e-5, each gradient tensor to 1e-5 of
@@ -646,14 +714,15 @@ def check_engine_kernels(name):
     if name == "heat2d":
         steady_state(name, spec, model, p[None], B, 1, lr, kw)
         check_wide_engine(name, spec, u, lr, kw)
-    if name in LAST:
+    if name in LAST or hard:
         steady_ms = steady_state(name, spec, model, p[None], B, 1, lr, kw)
         chunk_row.update(
             steady_steps=STEADY_STEPS, steady_ms=steady_ms,
             steady_bound_ms=chunk_bound(STEADY_STEPS, R, B, D, H, L, U,
                                         n_const)["bound_ms"])
         for row in (grad_row, chunk_row):
-            row.update(spec=name, shape=shape)
+            row.update(spec=prob.name, shape=shape,
+                       **({"constraint": "hard"} if hard else {}))
     return grad_row, chunk_row
 
 
@@ -805,15 +874,14 @@ def steady_state(name, spec, model, p, B, n_replicas, lr, kw):
     return ms
 
 
-
-def check_packed_kernels(name, n_replicas, loss_rtol):
+def check_packed_kernels(name, n_replicas, loss_rtol, hard=False):
     """Kernel #5 at one ensemble's shapes: the packed chunk (N replicas
     drawn from replica_generator(0, r), CHUNK_STEPS steps from STEP0 under a
     cosine schedule over HORIZON steps, so a wrong schedule fails): every
     replica against the single-replica chunk on its own state, bit for bit,
     then all against the plain version (the losses to ``loss_rtol``, or,
-    where it is None, each replica's loss drift printed). Returns the
-    kernel's row."""
+    where it is None, each replica's loss drift printed).
+    ``hard`` takes the equation's hard spec. Returns the kernel's row."""
     import torch
 
     from differential_equations_dnn_tpu_torch.core.prng import (
@@ -827,7 +895,7 @@ def check_packed_kernels(name, n_replicas, loss_rtol):
     from differential_equations_dnn_tpu_torch.kernels import fused_train as ft
 
     dev = torch.device("cuda")
-    prob = PROBLEMS[name]()
+    prob = PROBLEMS[name](**({"constraint": "hard"} if hard else {}))
     d = prob.defaults
     B, lr, N = d.batch_size, d.lrate, n_replicas
     models = [prob.default_model(generator=replica_generator(0, r),
@@ -856,10 +924,13 @@ def check_packed_kernels(name, n_replicas, loss_rtol):
         flops = step_flops(R, B, D, H, L)
         in_bytes = 4 * CHUNK_STEPS * B * spec.n_uniform
         pack, packed, plain, single = (
-            ft.pack_params, fe.fused_engine_packed_chunk,
+            (lambda m: fe.pack_state(spec, m)) if hard else ft.pack_params,
+            fe.fused_engine_packed_chunk,
             fe.fused_engine_packed_chunk_plain, fe.fused_engine_chunk)
         row_name, source = "fused_engine_packed_chunk", "engine_train.cu"
         shape = f"R={R}, B={B}, D={D}, H={H}, L={L}"
+        if hard:
+            name = f"{name} (hard)"
     label = f"{name} {row_name} [N={N}, {shape}, K={CHUNK_STEPS}, cosine]"
     p = engine_core.stack_replicas([pack(m) for m in models])
     z = torch.zeros_like(p)
@@ -896,6 +967,8 @@ def check_packed_kernels(name, n_replicas, loss_rtol):
         plain_ms=plain_ms, library_ms=None,
         **bound(N * CHUNK_STEPS * (flops + 12 * n),
                 in_bytes + 4 * N * (6 * n + CHUNK_STEPS)))
+    if hard:
+        row.update(spec=prob.name, constraint="hard", shape=shape)
     print(f"{label}: max|dloss| {max_abs(lk, lp):.3g}, max|dparam| "
           f"{max_abs(pk, pp):.3g}; all {N} replicas equal the single chunk "
           f"bit for bit; kernel {ms:.4f} ms ({step_us:.1f} us per packed "
@@ -918,10 +991,11 @@ def check_packed_kernels(name, n_replicas, loss_rtol):
 def phase_kernels():
     """Each kernel against its plain version at the main paths' shapes.
     Returns the JSON rows: #2, #1 and #3 at the heat shapes, #6 and #4 at the
-    widest spec (heat2d; volterra's, uat's and inverse_heat's numbers under
-    their "specs"), #7 and #4 at the DGM layout at the widest DGM
-    equation (FitzHugh–Nagumo), #5 at the wave and FitzHugh–Nagumo
-    ensembles."""
+    widest spec (heat2d; volterra's, uat's, inverse_heat's and the five hard
+    specs' numbers under their "specs"), #7 and #4 at the DGM layout at the
+    widest DGM equation (FitzHugh–Nagumo), #5 at the wave and
+    FitzHugh–Nagumo ensembles (hard heat's N = 4 under the first's
+    "specs")."""
     import torch
 
     from differential_equations_dnn_tpu_torch.core.prng import generator
@@ -934,11 +1008,14 @@ def phase_kernels():
             + [check_heat_streams()])
     for name in ENGINE:
         engine_rows = check_engine_kernels(name)
-    for row, last in zip(engine_rows, zip(*(check_engine_kernels(name)
-                                            for name in LAST))):
-        row["specs"] = list(last)
+    nested = ([check_engine_kernels(name) for name in LAST]
+              + [check_engine_kernels(name, hard=True) for name in HARD])
+    for row, specs in zip(engine_rows, zip(*nested)):
+        row["specs"] = list(specs)
     dgm_rows = [check_dgm_kernels(name) for name in DGM][0]
     packed_rows = [check_packed_kernels(*case) for case in PACKED][:2]
+    packed_rows[0]["specs"] = [check_packed_kernels(*HARD_PACKED,
+                                                    hard=True)]
     report_graphs()
     return rows + list(engine_rows) + list(dgm_rows) + packed_rows
 
@@ -1008,9 +1085,13 @@ def short(value):
 def solve_once(name, schedule, mae_bound, engine="fused", **extra):
     """One main path through the entry point a user calls; returns the
     launches of each kernel in that run. ``extra`` (ensemble, causal_eps,
-    taps) goes to solve; an ensemble must go through its packed kernel and
-    no single-replica trainer; a scan solve through no training kernel, and
-    with pallas taps through kernel #3 once per step plus the warm-up."""
+    taps, constraint, iterations, seed, finetune) goes to solve; an
+    ensemble must go through its packed kernel and no single-replica
+    trainer; a scan solve through no training kernel, and with pallas taps
+    through kernel #3 once per step plus the warm-up. A hard solve must
+    hold its IC and BC exactly on the grid (HARD_ROWS) and, on the fused
+    engine, train on the generic engine (constant-lr heat too); a
+    ``mae_bound`` of None holds no MAE."""
     import numpy as np
 
     from differential_equations_dnn_tpu_torch import solve
@@ -1025,18 +1106,21 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
     d = res.problem.defaults
     ensemble, finetune = _auto_defaults(res.problem, None)
     ensemble = extra.get("ensemble", ensemble)
+    finetune = extra.get("finetune", finetune)
+    steps = extra.get("iterations", d.iterations)
+    hard = extra.get("constraint") == "hard"
     label = (f"solve({name!r}, engine={engine!r}, "
              f"schedule={schedule or d.schedule!r}"
              + "".join(f", {k}={short(v)}" for k, v in extra.items()) + ")")
     rate = (f"{res.iters_per_sec:.1f} it/s warm ({ensemble} replicas: "
             f"{ensemble * res.iters_per_sec:.1f} replica-steps/s)"
             if ensemble > 1 else f"{res.iters_per_sec:.1f} it/s warm")
-    print(f"{label}: {d.iterations} steps, batch {d.batch_size}, "
+    print(f"{label}: {steps} steps, batch {d.batch_size}, "
           f"{finetune} L-BFGS steps, MAE {res.mae:.6g} (bound {mae_bound}), "
           f"final loss {res.loss_history[-1]:.4g}, {rate} (wall "
           f"{res.wall_time:.3f} s), build + warm-up {res.compile_time:.3f} s, "
           f"total {total:.2f} s; launches {launches}")
-    if res.loss_history.shape != (d.iterations + finetune,):
+    if res.loss_history.shape != (steps + finetune,):
         raise AssertionError(f"{label}: loss history "
                              f"{res.loss_history.shape}")
     if not np.all(np.isfinite(res.loss_history)):
@@ -1045,8 +1129,19 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
     if res.solution.shape != want or not np.all(np.isfinite(res.solution)):
         raise AssertionError(f"{label}: solution is not a finite {want} "
                              f"grid")
-    if not res.mae <= mae_bound:
+    if mae_bound is not None and not res.mae <= mae_bound:
         raise AssertionError(f"{label}: MAE {res.mae} above {mae_bound}")
+    if hard:
+        exact = res.problem.exact(d.nodes)
+        for axis, index in HARD_ROWS[name]:
+            err = float(np.max(np.abs(np.take(res.solution, index, axis)
+                                      - np.take(exact, index, axis))))
+            print(f"{label}: constraint rows (axis {axis}, index {index}) "
+                  f"max|u - exact| {err:.3g} (atol {HARD_ATOL})")
+            if not err <= HARD_ATOL:
+                raise AssertionError(f"{label}: the trial function misses "
+                                     f"its constraint by {err} on axis "
+                                     f"{axis}, index {index}")
     if name == "inverse_heat":
         err = res.problem.kappa_error(res.params)
         print(f"{label}: kappa {float(res.params.kappa().detach()):.6g}, "
@@ -1054,7 +1149,8 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
         if not err < KAPPA_BOUND:
             raise AssertionError(f"{label}: kappa error {err} above "
                                  f"{KAPPA_BOUND}")
-    on_heat = name == "heat" and (schedule or d.schedule) == "constant"
+    on_heat = (name == "heat" and (schedule or d.schedule) == "constant"
+               and not hard)
     trainers = ("fused_engine_chunk", "fused_dgm_chunk",
                 "heat_fused_train_chunk", "fused_engine_packed_chunk",
                 "fused_dgm_packed_chunk")
@@ -1068,7 +1164,7 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
             if launches[kernel]:
                 raise AssertionError(f"{label}: the scan solve ran {kernel}")
         expected = {"mlp_forward": grid,
-                    "heat_fused_streams": d.iterations + 1 if pallas else 0}
+                    "heat_fused_streams": steps + 1 if pallas else 0}
         for kernel, n in expected.items():
             if launches[kernel] != n:
                 raise AssertionError(f"{label}: {kernel} launched "
@@ -1086,6 +1182,9 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
         path = (["fused_dgm_chunk", "dgm_step_math"] if name in DGM else
                 ["mlp_forward", "heat_fused_train_chunk"] if on_heat else
                 ["mlp_forward", "fused_engine_chunk", "engine_step_math"])
+        if hard and launches["heat_fused_train_chunk"]:
+            raise AssertionError(f"{label}: a hard solve ran the soft heat "
+                                 f"kernel (#1)")
     for kernel in path:
         if launches[kernel] <= 0:
             raise AssertionError(f"{label}: {kernel} was not launched")
@@ -1093,8 +1192,9 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
 
 
 def phase_solve():
-    """Each main path; returns {(name, schedule or "ensemble"), or (name,
-    "scan", taps): launches}."""
+    """Each main path; returns {(name, schedule or "ensemble"), (name,
+    "scan", taps), or (name, "hard" | "hard ensemble" | "hard scan"):
+    launches}."""
     out = {(name, schedule): solve_once(name, schedule, mae_bound)
            for name, schedule, mae_bound in SOLVES}
     for name, extra, mae_bound in ENSEMBLES:
@@ -1109,6 +1209,14 @@ def phase_solve():
     for name, extra, mae_bound in SCAN_SOLVES:
         out[(name, "scan", extra.get("taps"))] = solve_once(
             name, None, mae_bound, engine="scan", **extra)
+    for name in HARD:
+        out[(name, "hard")] = solve_once(name, None, HARD_BOUND, **HARD_SOLVE)
+    name, n_replicas, _ = HARD_PACKED
+    out[(name, "hard ensemble")] = solve_once(
+        name, None, HARD_BOUND, ensemble=n_replicas, **HARD_SOLVE)
+    for name, extra, mae_bound in HARD_SCAN:
+        out[(name, "hard scan")] = solve_once(name, None, mae_bound,
+                                              engine="scan", **extra)
     return out
 
 
@@ -1145,9 +1253,15 @@ def main():
     inside = {"engine_step_math": "fused_engine_chunk",
               "dgm_step_math": "fused_dgm_chunk"}
     for row in rows:
-        for spec_row in row.get("specs", ()):  # the LAST specs' own solves
-            spec_row["launches"] = launches[(spec_row["spec"], None)][
-                source[row["name"]][1]]
+        # The LAST and hard specs' own solves (the hard packed row's: its
+        # ensemble solve).
+        for spec_row in row.get("specs", ()):
+            run = ((spec_row["spec"], None)
+                   if "constraint" not in spec_row else
+                   (spec_row["spec"], "hard ensemble")
+                   if row["name"] == "fused_engine_packed_chunk" else
+                   (spec_row["spec"], "hard"))
+            spec_row["launches"] = launches[run][source[row["name"]][1]]
             if spec_row["launches"] <= 0:
                 raise AssertionError(f"{row['name']} at {spec_row['spec']} "
                                      f"has no launches")

@@ -25,6 +25,7 @@ from differential_equations_dnn_tpu_torch.kernels.build import resolve_device
 from differential_equations_dnn_tpu_torch.kernels.fused_train import (
     train_heat_fused_result,
 )
+from differential_equations_dnn_tpu_torch.models import HardConstraint
 from differential_equations_dnn_tpu_torch.train import (
     TrainConfig,
     finetune_lbfgs,
@@ -101,12 +102,21 @@ def _fused_route(problem, model, schedule="constant", batch_size=None) -> str:
     constant-lr heat kernel, kernels.fused_train), "dgm" (the DGM engine,
     kernels.fused_dgm) or "engine" (the generic spec engine,
     kernels.fused_engine). Raises, naming the ROADMAP item, for what the
-    port does not run yet."""
-    if getattr(problem, "constraint", "soft") == "hard":
-        raise NotImplementedError(
-            f"{problem.name!r} with constraint='hard' is not ported yet "
-            f"(ROADMAP.md queue 1, item 10a: the hard specs with "
-            f"models/hard.py)")
+    port does not run yet.
+
+    A HardConstraint is routed first, as in the JAX package: the generic
+    engine's hard specs train it (constant-lr heat included, which the heat
+    kernel's soft loss must not take), and any other wrapped model (a
+    custom ansatz, fitzhugh_nagumo's DGM) raises a ValueError naming the
+    scan engine."""
+    if isinstance(model, HardConstraint):
+        if fused_engine.supports(problem, model):
+            return "engine"
+        raise ValueError(
+            f"{problem.name!r} with constraint='hard' trains on the scan "
+            f"engine (fused hard-constraint specs exist for "
+            f"{sorted(fused_engine.HARD_SPECS)} with the default ansatz + "
+            f"plain tanh MLP)")
     dgm_spec = fused_dgm.spec_for(problem, batch_size)
     if dgm_spec is not None:
         if fused_dgm.supports_model(dgm_spec, model):
@@ -166,7 +176,10 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
     on the DGM engine, everything else on the generic spec engine (uat's
     Perceptron and inverse_heat's net with its learnable κ̂ too);
     Fredholm's and Volterra's stochastic quadratures train on the scan
-    engine only, as in the JAX package.
+    engine only, as in the JAX package. ``constraint="hard"`` (simple_ode,
+    heat, heat2d, wave, poisson, fitzhugh_nagumo) wraps the net in the
+    equation's Lagaris trial function (models/hard.py); it trains on either
+    engine, fitzhugh_nagumo's DGM on the scan engine only.
     ``schedule`` ("constant" | "cosine" | "exponential") overrides the
     equation's default lr schedule. ``model`` (default
     ``problem.default_model()`` initialised from ``seed``) is trained in

@@ -105,6 +105,14 @@
 //     log κ̂, extra_shapes): the loss kernel writes each point's gradient
 //     beside its point loss, and loss_sum_kernel sums both in the same fixed
 //     order and applies Adam to it in the same launch.
+//
+// The hard-constraint specs (fused_engine.py:611-796 of the JAX package:
+// HardSimpleODESpec, HardHeatSpec, HardHeat2DSpec, HardWaveSpec,
+// HardPoissonSpec) are stream layouts like the soft ones, of 2 to 6
+// interior streams: only their build and loss are their own (the spec
+// structs HardSimpleOde ... HardPoisson); the layer, loss-sum and
+// weight-gradient kernels, the packed launch and the graph replay take
+// them unchanged.
 #include <algorithm>
 #include <cmath>
 
@@ -533,6 +541,183 @@ struct InverseHeat : SpecBase {
     g[4] = 2.0f * c.c[2] * d;
     g[R] = -2.0f * r * (kappa * o[2]);  // d/d log κ̂: dr = −κ̂·u_xx
     return r * r + c.c[2] * (d * d);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Hard-constraint specs (models/hard.py; fused_engine.HARD_SPECS, kernel
+// ids 10-14): the raw net N of the trial function u = A + Dv·N, interior
+// streams only, since A and Dv hold the IC and BC exactly. The loss
+// composes the analytic derivatives of A and Dv with N's streams, so the
+// value stream's cotangent is not zero (N enters through Dv's
+// derivatives). x and t come from the point's draws as the soft specs take
+// them; scale, Dv's normalisation, is the spec's last number (computed in
+// double on the host).
+// ---------------------------------------------------------------------------
+
+// y = y_ic + s·N with s = t/t_max; residual y' + y, y' = N/t_max + s·N_t.
+// c: sample_scale·t_max, t_max, y_ic.
+struct HardSimpleOde : SpecBase {
+  static constexpr int R = 2, D = 1, U = 1;
+  DEDNN_LAYOUT(kValue, kFirst)
+  __device__ static void build(const Point& pt, const Consts& c, float* X) {
+    X[0] = c.c[0] * pt.u[0];  // t
+    X[1] = 1.0f;              // t-tangent
+  }
+  __device__ static float loss(const Point& pt, const Consts& c,
+                               const float* o, float* g) {
+    const float t = c.c[0] * pt.u[0];
+    const float s = t / c.c[1];
+    const float y = c.c[2] + s * o[0];
+    const float dydt = o[0] / c.c[1] + s * o[1];
+    const float r = dydt + y;
+    g[0] = 2.0f * r * (1.0f / c.c[1] + s);
+    g[1] = 2.0f * r * s;
+    return r * r;
+  }
+};
+
+// Heat, u = sin x + Dv·N, Dv = t·x·(x_max − x)/scale:
+//   r = Dv_t·N + Dv·N_t − κ(−sin x + Dv_xx·N + 2·Dv_x·N_x + Dv·N_xx).
+// c: x_max, t_max, kappa, scale.
+struct HardHeat : SpecBase {
+  static constexpr int R = 4, D = 2, U = 2;
+  DEDNN_LAYOUT(kValue, kPairFirst, kPairSecond, kFirst)
+  __device__ static void build(const Point& pt, const Consts& c, float* X) {
+    const float x = c.c[0] * pt.u[0], t = c.c[1] * pt.u[1];
+    const float rows[8] = {x, t, 1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+    for (int i = 0; i < 8; ++i) X[i] = rows[i];
+  }
+  __device__ static float loss(const Point& pt, const Consts& c,
+                               const float* o, float* g) {
+    const float xm = c.c[0], kappa = c.c[2], scale = c.c[3];
+    const float x = xm * pt.u[0], t = c.c[1] * pt.u[1];
+    const float gx = x * (xm - x);
+    const float dv = t * gx / scale;
+    const float dv_t = gx / scale;
+    const float dv_x = t * (xm - 2.0f * x) / scale;
+    const float dv_xx = -2.0f * t / scale;
+    const float u_t = dv_t * o[0] + dv * o[3];
+    const float u_xx =
+        -sinf(x) + dv_xx * o[0] + 2.0f * dv_x * o[1] + dv * o[2];
+    const float r = u_t - kappa * u_xx;
+    g[0] = 2.0f * r * (dv_t - kappa * dv_xx);
+    g[1] = -4.0f * kappa * r * dv_x;
+    g[2] = -2.0f * kappa * r * dv;
+    g[3] = 2.0f * r * dv;
+    return r * r;
+  }
+};
+
+// 2-D heat, u = sin x·sin y + Dv·N, Dv = t·x(x_max − x)·y(x_max − y)/scale:
+//   r = Dv_t·N + Dv·N_t − κ(u_xx + u_yy), each Laplacian term as heat's.
+// c: x_max, t_max, kappa, scale.
+struct HardHeat2D : SpecBase {
+  static constexpr int R = 6, D = 3, U = 3;
+  DEDNN_LAYOUT(kValue, kPairFirst, kPairSecond, kPairFirst, kPairSecond,
+               kFirst)
+  __device__ static void build(const Point& pt, const Consts& c, float* X) {
+    const float xm = c.c[0];
+    const float x = xm * pt.u[0], y = xm * pt.u[1], t = c.c[1] * pt.u[2];
+    const float rows[18] = {x,    y,    t,    1.0f, 0.0f, 0.0f,
+                            0.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f,
+                            0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+    for (int i = 0; i < 18; ++i) X[i] = rows[i];
+  }
+  __device__ static float loss(const Point& pt, const Consts& c,
+                               const float* o, float* g) {
+    const float xm = c.c[0], kappa = c.c[2], scale = c.c[3];
+    const float x = xm * pt.u[0], y = xm * pt.u[1], t = c.c[1] * pt.u[2];
+    const float gx = x * (xm - x), gy = y * (xm - y);
+    const float dv = t * gx * gy / scale;
+    const float dv_t = gx * gy / scale;
+    const float dv_x = t * (xm - 2.0f * x) * gy / scale;
+    const float dv_xx = -2.0f * t * gy / scale;
+    const float dv_y = t * gx * (xm - 2.0f * y) / scale;
+    const float dv_yy = -2.0f * t * gx / scale;
+    const float a = sinf(x) * sinf(y);
+    const float u_t = dv_t * o[0] + dv * o[5];
+    const float u_xx = -a + dv_xx * o[0] + 2.0f * dv_x * o[1] + dv * o[2];
+    const float u_yy = -a + dv_yy * o[0] + 2.0f * dv_y * o[3] + dv * o[4];
+    const float r = u_t - kappa * (u_xx + u_yy);
+    g[0] = 2.0f * r * (dv_t - kappa * (dv_xx + dv_yy));
+    g[1] = -4.0f * kappa * r * dv_x;
+    g[2] = -2.0f * kappa * r * dv;
+    g[3] = -4.0f * kappa * r * dv_y;
+    g[4] = -2.0f * kappa * r * dv;
+    g[5] = 2.0f * r * dv;
+    return r * r;
+  }
+};
+
+// Wave, u = sin x + Dv·N, Dv = t²·x·(x_max − x)/scale:
+//   r = Dv_tt·N + 2·Dv_t·N_t + Dv·N_tt − c²(−sin x + Dv_xx·N + 2·Dv_x·N_x
+//       + Dv·N_xx).
+// c: x_max, t_max, c², scale.
+struct HardWave : SpecBase {
+  static constexpr int R = 5, D = 2, U = 2;
+  DEDNN_LAYOUT(kValue, kPairFirst, kPairSecond, kPairFirst, kPairSecond)
+  __device__ static void build(const Point& pt, const Consts& c, float* X) {
+    const float x = c.c[0] * pt.u[0], t = c.c[1] * pt.u[1];
+    const float rows[10] = {x,    t,    1.0f, 0.0f, 0.0f,
+                            0.0f, 0.0f, 1.0f, 0.0f, 0.0f};
+    for (int i = 0; i < 10; ++i) X[i] = rows[i];
+  }
+  __device__ static float loss(const Point& pt, const Consts& c,
+                               const float* o, float* g) {
+    const float xm = c.c[0], c2 = c.c[2], scale = c.c[3];
+    const float x = xm * pt.u[0], t = c.c[1] * pt.u[1];
+    const float gx = x * (xm - x);
+    const float dv = t * t * gx / scale;
+    const float dv_t = 2.0f * t * gx / scale;
+    const float dv_tt = 2.0f * gx / scale;
+    const float dv_x = t * t * (xm - 2.0f * x) / scale;
+    const float dv_xx = -2.0f * t * t / scale;
+    const float u_tt = dv_tt * o[0] + 2.0f * dv_t * o[3] + dv * o[4];
+    const float u_xx =
+        -sinf(x) + dv_xx * o[0] + 2.0f * dv_x * o[1] + dv * o[2];
+    const float r = u_tt - c2 * u_xx;
+    g[0] = 2.0f * r * (dv_tt - c2 * dv_xx);
+    g[1] = -4.0f * c2 * r * dv_x;
+    g[2] = -2.0f * c2 * r * dv;
+    g[3] = 4.0f * r * dv_t;
+    g[4] = 2.0f * r * dv;
+    return r * r;
+  }
+};
+
+// Poisson, u = Dv·N, Dv = x(x_max − x)·y(x_max − y)/scale:
+//   r = −(u_xx + u_yy) − 2 sin x sin y, u_xx = Dv_xx·N + 2·Dv_x·N_x +
+//   Dv·N_xx (and in y). c: x_max, scale.
+struct HardPoisson : SpecBase {
+  static constexpr int R = 5, D = 2, U = 2;
+  DEDNN_LAYOUT(kValue, kPairFirst, kPairSecond, kPairFirst, kPairSecond)
+  __device__ static void build(const Point& pt, const Consts& c, float* X) {
+    const float x = c.c[0] * pt.u[0], y = c.c[0] * pt.u[1];
+    const float rows[10] = {x,    y,    1.0f, 0.0f, 0.0f,
+                            0.0f, 0.0f, 1.0f, 0.0f, 0.0f};
+    for (int i = 0; i < 10; ++i) X[i] = rows[i];
+  }
+  __device__ static float loss(const Point& pt, const Consts& c,
+                               const float* o, float* g) {
+    const float xm = c.c[0], scale = c.c[1];
+    const float x = xm * pt.u[0], y = xm * pt.u[1];
+    const float gx = x * (xm - x), gy = y * (xm - y);
+    const float dv = gx * gy / scale;
+    const float dv_x = (xm - 2.0f * x) * gy / scale;
+    const float dv_xx = -2.0f * gy / scale;
+    const float dv_y = gx * (xm - 2.0f * y) / scale;
+    const float dv_yy = -2.0f * gx / scale;
+    const float u_xx = dv_xx * o[0] + 2.0f * dv_x * o[1] + dv * o[2];
+    const float u_yy = dv_yy * o[0] + 2.0f * dv_y * o[3] + dv * o[4];
+    const float src = 2.0f * sinf(x) * sinf(y);
+    const float r = -(u_xx + u_yy) - src;
+    g[0] = -2.0f * r * (dv_xx + dv_yy);
+    g[1] = -4.0f * r * dv_x;
+    g[2] = -2.0f * r * dv;
+    g[3] = -4.0f * r * dv_y;
+    g[4] = -2.0f * r * dv;
+    return r * r;
   }
 };
 
@@ -1069,6 +1254,11 @@ auto dispatch(int spec, F&& f) -> decltype(f(Heat{})) {
     case 7: return f(Volterra{});
     case 8: return f(Uat{});
     case 9: return f(InverseHeat{});
+    case 10: return f(HardSimpleOde{});
+    case 11: return f(HardHeat{});
+    case 12: return f(HardHeat2D{});
+    case 13: return f(HardWave{});
+    case 14: return f(HardPoisson{});
     default: return -1;
   }
 }

@@ -12,26 +12,18 @@ A Problem bundles, for one differential equation:
 * ``defaults``             — reference iteration budget / batch size / lr
 
 ``evaluate`` runs the whole grid through the MLP-forward kernel
-(kernels.taylor_mlp.mlp_forward), or a DGM's own forward, and ``mae`` is
-the reference's acceptance metric (sklearn.mean_absolute_error, heat.py:232).
+(kernels.taylor_mlp.mlp_forward), or a DGM's own forward, then a
+hard-constraint model's ansatz; ``mae`` is the reference's acceptance
+metric (sklearn.mean_absolute_error, heat.py:232).
 """
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from differential_equations_dnn_tpu_torch.train.metrics import (
     mean_absolute_error,
 )
-
-
-def require_soft(constraint: str) -> None:
-    """Hard-constraint trial functions (models/hard.py) are not ported."""
-    if constraint != "soft":
-        raise NotImplementedError(
-            f"constraint={constraint!r} is not ported yet (ROADMAP.md "
-            f"queue 1, item 10a: models/hard.py)")
 
 
 def grid_2d(x_max, t_max, nodes, device=None):
@@ -97,18 +89,26 @@ class Problem:
 
     def evaluate(self, model, nodes):
         """The trained net on the problem's grid, as a numpy array of
-        ``solution_shape(nodes)``: one kernel launch over the whole grid."""
+        ``solution_shape(nodes)``: one kernel launch over the whole grid.
+        A HardConstraint runs its raw net so, then its ansatz as plain
+        tensor ops (the JAX package applies it outside any kernel)."""
         from differential_equations_dnn_tpu_torch.kernels.taylor_mlp import (
             mlp_forward,
         )
-        from differential_equations_dnn_tpu_torch.models import DGM
+        from differential_equations_dnn_tpu_torch.models import (
+            DGM,
+            HardConstraint,
+        )
 
         device = next(model.parameters()).device
         with torch.no_grad():
             x = self.grid_inputs(nodes, device=device)
+            net = model.net if isinstance(model, HardConstraint) else model
             # A DGM evaluates through its own forward (the JAX package's
             # model.apply, outside any kernel); kernel #2 is for MLPs.
-            y = model(x) if isinstance(model, DGM) else mlp_forward(model, x)
+            y = net(x) if isinstance(net, DGM) else mlp_forward(net, x)
+            if net is not model:
+                y = model.ansatz(x, y)
         return y.cpu().numpy().reshape(self.solution_shape(nodes))
 
     def mae(self, model, nodes):

@@ -10,7 +10,10 @@ scipy odeint ground truth :231, defaults 150 000 iters / batch 100 / lr
 0. Training is causal by default (``causal_eps = 5``, Wang, Sankaran &
 Perdikaris 2022): the residual at t_i is weighted by exp(−ε·Δt·Σ_{j<i} ℓ_j).
 
-The Fourier-feature MLP arch and the hard IC constraint are not ported.
+``constraint="hard"`` wraps the DGM in the trial function y = y_ic +
+(t/t_max)·N(t) (models/hard.py), which holds the IC exactly; it trains on
+the scan trainer, as in the JAX package. The Fourier-feature MLP arch is not
+ported.
 """
 
 from dataclasses import dataclass, field
@@ -21,9 +24,12 @@ import torch
 from differential_equations_dnn_tpu_torch.equations.base import (
     Problem,
     TrainDefaults,
-    require_soft,
 )
-from differential_equations_dnn_tpu_torch.models import DGM
+from differential_equations_dnn_tpu_torch.models import (
+    DGM,
+    HardConstraint,
+    time_ic_ansatz,
+)
 from differential_equations_dnn_tpu_torch.ops import GridSubsample, value_dt
 
 FOURIER_TODO = ("arch='fourier_mlp' is not ported yet (ROADMAP.md queue 1, "
@@ -55,16 +61,21 @@ class FitzHughNagumo(Problem):
     n_uniform = 1
 
     def __post_init__(self):
-        require_soft(self.constraint)
         if self.arch == "fourier_mlp":
             raise NotImplementedError(FOURIER_TODO)
         if self.arch != "dgm":
             raise ValueError(f"unknown arch {self.arch!r} (dgm | fourier_mlp)")
 
+    def hard_ansatz(self):
+        return time_ic_ansatz(self.y_ic, self.t_max)
+
     def default_model(self, generator=None, device=None):
-        return DGM(input_dim=1, output_dim=2, hidden_size=128, num_layers=4,
-                   activation="tanh", init_scheme="torch",
-                   generator=generator, device=device)
+        net = DGM(input_dim=1, output_dim=2, hidden_size=128, num_layers=4,
+                  activation="tanh", init_scheme="torch", generator=generator,
+                  device=device)
+        if self.constraint == "hard":
+            return HardConstraint(net, self.hard_ansatz())
+        return net
 
     @property
     def max_sample_size(self):

@@ -17,10 +17,13 @@ from differential_equations_dnn_tpu_torch.equations.base import (
     Problem,
     TrainDefaults,
     grid_2d,
-    require_soft,
 )
 from differential_equations_dnn_tpu_torch.kernels import taylor_mlp
-from differential_equations_dnn_tpu_torch.models import MLP
+from differential_equations_dnn_tpu_torch.models import (
+    MLP,
+    HardConstraint,
+    heat1d_ansatz,
+)
 from differential_equations_dnn_tpu_torch.ops import (
     coordinate_taps,
     heat_fused_streams,
@@ -42,16 +45,28 @@ class Heat1D(Problem):
     defaults: TrainDefaults = field(
         default_factory=lambda: TrainDefaults(iterations=15000, batch_size=64,
                                               nodes=40))
+    # "soft" = the reference's weighted loss terms; "hard" = the Lagaris
+    # trial function (models/hard.py), which satisfies IC and BC exactly
+    # (jvp taps).
     constraint: str = "soft"
 
     def __post_init__(self):
-        require_soft(self.constraint)
         if self.taps not in ("jvp", "taylor", "pallas"):
             raise ValueError(f"unknown taps mode {self.taps!r}")
 
+    def hard_ansatz(self):
+        return heat1d_ansatz(self.x_max, self.t_max)
+
     def default_model(self, generator=None, device=None):
-        return MLP(input_dim=2, output_dim=1, hidden_size=128, num_layers=3,
-                   activation="tanh", generator=generator, device=device)
+        net = MLP(input_dim=2, output_dim=1, hidden_size=128, num_layers=3,
+                  activation="tanh", generator=generator, device=device)
+        if self.constraint == "hard":
+            if self.taps != "jvp":
+                raise ValueError("constraint='hard' wraps the model, so the "
+                                 "fused Taylor-stream taps cannot read its "
+                                 "MLP structure — use Heat1D(taps='jvp')")
+            return HardConstraint(net, self.hard_ansatz())
+        return net
 
     def batch_from_uniforms(self, u):
         """The collocation batch built from ``[B, 2]`` U[0,1) draws, as the

@@ -17,9 +17,12 @@ import torch
 from differential_equations_dnn_tpu_torch.equations.base import (
     Problem,
     TrainDefaults,
-    require_soft,
 )
-from differential_equations_dnn_tpu_torch.models import MLP
+from differential_equations_dnn_tpu_torch.models import (
+    MLP,
+    HardConstraint,
+    heat2d_ansatz,
+)
 from differential_equations_dnn_tpu_torch.ops import (
     coordinate_taps,
     mlp_streams,
@@ -39,17 +42,25 @@ class Heat2D(Problem):
         default_factory=lambda: TrainDefaults(iterations=20000, batch_size=256,
                                               lrate=1e-3, nodes=24,
                                               schedule="cosine"))
-    constraint: str = "soft"
+    constraint: str = "soft"  # "hard" = Lagaris trial function (jvp taps)
     n_uniform = 4
 
     def __post_init__(self):
-        require_soft(self.constraint)
         if self.taps not in ("jvp", "taylor"):
             raise ValueError(f"unknown taps mode {self.taps!r}")
 
+    def hard_ansatz(self):
+        return heat2d_ansatz(self.x_max, self.t_max)
+
     def default_model(self, generator=None, device=None):
-        return MLP(input_dim=3, output_dim=1, hidden_size=128, num_layers=3,
-                   activation="tanh", generator=generator, device=device)
+        net = MLP(input_dim=3, output_dim=1, hidden_size=128, num_layers=3,
+                  activation="tanh", generator=generator, device=device)
+        if self.constraint == "hard":
+            if self.taps != "jvp":
+                raise ValueError("constraint='hard' wraps the model — use "
+                                 "Heat2D(taps='jvp')")
+            return HardConstraint(net, self.hard_ansatz())
+        return net
 
     def batch_from_uniforms(self, u):
         x = self.x_max * u[:, :1]

@@ -14,9 +14,12 @@ import torch
 from differential_equations_dnn_tpu_torch.equations.base import (
     Problem,
     TrainDefaults,
-    require_soft,
 )
-from differential_equations_dnn_tpu_torch.models import MLP
+from differential_equations_dnn_tpu_torch.models import (
+    MLP,
+    HardConstraint,
+    poisson_ansatz,
+)
 from differential_equations_dnn_tpu_torch.ops import coordinate_taps
 
 _FACES = ("b_x0", "b_x1", "b_y0", "b_y1")
@@ -30,15 +33,20 @@ class Poisson2D(Problem):
         default_factory=lambda: TrainDefaults(iterations=10000, batch_size=256,
                                               lrate=1e-3, nodes=40,
                                               schedule="cosine"))
+    # "soft" = the reference's weighted loss terms; "hard" = the Lagaris
+    # trial function (models/hard.py), which satisfies IC and BC exactly.
     constraint: str = "soft"
     n_uniform = 3
 
-    def __post_init__(self):
-        require_soft(self.constraint)
+    def hard_ansatz(self):
+        return poisson_ansatz(self.x_max)
 
     def default_model(self, generator=None, device=None):
-        return MLP(input_dim=2, output_dim=1, hidden_size=128, num_layers=3,
-                   activation="tanh", generator=generator, device=device)
+        net = MLP(input_dim=2, output_dim=1, hidden_size=128, num_layers=3,
+                  activation="tanh", generator=generator, device=device)
+        if self.constraint == "hard":
+            return HardConstraint(net, self.hard_ansatz())
+        return net
 
     def source(self, xy):
         return 2.0 * torch.sin(xy[:, :1]) * torch.sin(xy[:, 1:2])

@@ -13,9 +13,12 @@ import torch
 from differential_equations_dnn_tpu_torch.equations.base import (
     Problem,
     TrainDefaults,
-    require_soft,
 )
-from differential_equations_dnn_tpu_torch.models import MLP
+from differential_equations_dnn_tpu_torch.models import (
+    MLP,
+    HardConstraint,
+    time_ic_ansatz,
+)
 from differential_equations_dnn_tpu_torch.ops import value_dt
 
 
@@ -28,15 +31,20 @@ class SimpleODE(Problem):
     defaults: TrainDefaults = field(
         default_factory=lambda: TrainDefaults(iterations=5000, batch_size=64,
                                               nodes=25))
+    # "soft" = the reference's weighted loss terms; "hard" = the Lagaris
+    # trial function (models/hard.py), which satisfies IC and BC exactly.
     constraint: str = "soft"
     n_uniform = 1
 
-    def __post_init__(self):
-        require_soft(self.constraint)
+    def hard_ansatz(self):
+        return time_ic_ansatz(self.y_ic, self.t_max)
 
     def default_model(self, generator=None, device=None):
-        return MLP(input_dim=1, output_dim=1, hidden_size=32, num_layers=1,
-                   activation="tanh", generator=generator, device=device)
+        net = MLP(input_dim=1, output_dim=1, hidden_size=32, num_layers=1,
+                  activation="tanh", generator=generator, device=device)
+        if self.constraint == "hard":
+            return HardConstraint(net, self.hard_ansatz())
+        return net
 
     def batch_from_uniforms(self, u):
         t = (self.sample_scale * self.t_max) * u[:, :1]

@@ -16,9 +16,12 @@ from differential_equations_dnn_tpu_torch.equations.base import (
     Problem,
     TrainDefaults,
     grid_2d,
-    require_soft,
 )
-from differential_equations_dnn_tpu_torch.models import MLP
+from differential_equations_dnn_tpu_torch.models import (
+    MLP,
+    HardConstraint,
+    wave1d_ansatz,
+)
 from differential_equations_dnn_tpu_torch.ops import coordinate_taps, value_dt
 
 
@@ -33,14 +36,19 @@ class Wave1D(Problem):
         default_factory=lambda: TrainDefaults(iterations=15000, batch_size=128,
                                               lrate=1e-3, nodes=40,
                                               schedule="cosine"))
+    # "soft" = the reference's weighted loss terms; "hard" = the Lagaris
+    # trial function (models/hard.py), which satisfies IC and BC exactly.
     constraint: str = "soft"
 
-    def __post_init__(self):
-        require_soft(self.constraint)
+    def hard_ansatz(self):
+        return wave1d_ansatz(self.x_max, self.t_max)
 
     def default_model(self, generator=None, device=None):
-        return MLP(input_dim=2, output_dim=1, hidden_size=128, num_layers=3,
-                   activation="tanh", generator=generator, device=device)
+        net = MLP(input_dim=2, output_dim=1, hidden_size=128, num_layers=3,
+                  activation="tanh", generator=generator, device=device)
+        if self.constraint == "hard":
+            return HardConstraint(net, self.hard_ansatz())
+        return net
 
     def batch_from_uniforms(self, u):
         x = self.x_max * u[:, :1]

@@ -34,12 +34,15 @@ A spec may also declare (with the defaults of :class:`_Spec`):
   ``fold``·B rows (volterra's 1 + k), so that they tile R = 1 rows.
 
 Ported specs: simple_ode, heat, burgers, wave, advection (``causal_eps=0``),
-poisson, heat2d, volterra (Gauss rule), uat and inverse_heat, at
+poisson, heat2d, volterra (Gauss rule), uat and inverse_heat, and the
+hard-constraint specs of simple_ode, heat, heat2d, wave and poisson
+(``HARD_SPECS``: the raw net of a models.hard.HardConstraint, interior rows
+only, the ansatz derivatives composed in the loss), at
 ``precision="highest"``, as single runs (``fused_engine_chunk``,
 ``train_fused_result``) and as packed-replica ensembles
-(``fused_engine_packed_chunk``, ``train_fused_ensemble_packed``). The
-hard-constraint specs, the runtime masks and the packed sweep mode are not
-ported (ROADMAP.md).
+(``fused_engine_packed_chunk``, ``train_fused_ensemble_packed``). Causal
+advection, the runtime masks and the packed sweep mode are not ported
+(ROADMAP.md).
 
 On the card a chunk replays a CUDA graph of GRAPH_STEPS training steps,
 captured on the first call of its shape and cached (kernels/graphs.py), as
@@ -82,7 +85,11 @@ from differential_equations_dnn_tpu_torch.kernels.fused_train import (
     replica_models,
     train_in_chunks,
 )
-from differential_equations_dnn_tpu_torch.models import MLP, Perceptron
+from differential_equations_dnn_tpu_torch.models import (
+    MLP,
+    HardConstraint,
+    Perceptron,
+)
 
 _N_CONSTS = 8  # floats of kernel_consts the CUDA specs read
 # The most groups a spec may fold (csrc/engine_train.cu kMaxFold: a point's
@@ -706,6 +713,251 @@ class InverseHeatSpec(_Spec):
         return super().tensors(model.net) + (model.log_kappa,)
 
 
+# ---------------------------------------------------------------------------
+# Hard-constraint specs (models/hard.py): interior rows only
+# ---------------------------------------------------------------------------
+
+
+class _HardSpec(_Spec):
+    """A hard-constraint spec trains the raw net N of the problem's
+    HardConstraint u = A + D·N (its default ansatz, compared by tag) and
+    composes the analytic derivatives of A and D with N's streams in its
+    loss: the constraints hold exactly, so only the interior group remains.
+    The flat state is the raw net's six tensors; ``scale`` (D's
+    normalisation, computed in double as models/hard.py does) is one of the
+    kernel's numbers."""
+    model_text = ("a HardConstraint of the problem's own ansatz around a "
+                  "plain tanh MLP {D} → H×L → 1 (L ≥ 1)")
+
+    def supports_model(self, model):
+        return (isinstance(model, HardConstraint)
+                and getattr(model.ansatz, "tag", None)
+                == self.p.hard_ansatz().tag
+                and super().supports_model(model.net))
+
+    def dims(self, model):
+        return super().dims(model.net)
+
+    def tensors(self, model):
+        return super().tensors(model.net)
+
+
+@dataclass(frozen=True)
+class HardSimpleODESpec(_HardSpec):
+    """simple_ode with y = y_ic + (t/t_max)·N (time_ic_ansatz): R = 2
+    streams against the soft spec's 3. Residual y' + y with y' = N/t_max +
+    (t/t_max)·N_t."""
+    p: object
+    n_uniform: int = 1
+    input_dim = 1
+    kernel_id = 10
+    groups = (Group(n_first=1),)   # N, N_t
+
+    def kernel_consts(self):
+        p = self.p
+        return (p.sample_scale * p.t_max, p.t_max, p.y_ic)
+
+    def build(self, u):
+        t = (self.p.sample_scale * self.p.t_max) * u[:, :1]
+        return torch.cat([t, torch.ones_like(t)], 0), {"t": t}
+
+    def loss(self, outs, ctx):
+        n, n_t = outs
+        p = self.p
+        t = ctx["t"]
+        y = p.y_ic + (t / p.t_max) * n
+        dydt = n / p.t_max + (t / p.t_max) * n_t
+        return _smean(torch.square(dydt + y))
+
+
+@dataclass(frozen=True)
+class HardHeatSpec(_HardSpec):
+    """Heat with u = sin(x) + D·N, D = t·x·(x_max−x)/scale
+    (heat1d_ansatz): R = 4 streams against the soft spec's 7, with
+
+        u_t  = D_t·N + D·N_t
+        u_xx = −sin(x) + D_xx·N + 2·D_x·N_x + D·N_xx."""
+    p: object
+    n_uniform: int = 2
+    input_dim = 2
+    kernel_id = 11
+    groups = (Group(n_second=1, n_first=1),)   # N, (N_x, N_xx), N_t
+
+    @property
+    def scale(self):
+        return self.p.t_max * (self.p.x_max / 2.0) ** 2
+
+    def kernel_consts(self):
+        p = self.p
+        return (p.x_max, p.t_max, p.kappa, self.scale)
+
+    def build(self, u):
+        x = self.p.x_max * u[:, :1]
+        t = self.p.t_max * u[:, 1:2]
+        zero = torch.zeros_like(x)
+        one = torch.ones_like(x)
+        X = torch.cat([
+            _cat(x, t), _cat(one, zero), _cat(zero, zero), _cat(zero, one),
+        ], 0)
+        return X, {"x": x, "t": t}
+
+    def loss(self, outs, ctx):
+        n, n_x, n_xx, n_t = outs
+        p, scale = self.p, self.scale
+        x, t = ctx["x"], ctx["t"]
+        g = x * (p.x_max - x)
+        D = t * g / scale
+        D_t = g / scale
+        D_x = t * (p.x_max - 2.0 * x) / scale
+        D_xx = -2.0 * t / scale
+        u_t = D_t * n + D * n_t
+        u_xx = -torch.sin(x) + D_xx * n + 2.0 * D_x * n_x + D * n_xx
+        return _smean(torch.square(u_t - p.kappa * u_xx))
+
+
+@dataclass(frozen=True)
+class HardHeat2DSpec(_HardSpec):
+    """2-D heat with u = sin(x)sin(y) + D·N, D = t·x(x_max−x)·y(x_max−y)
+    /scale (heat2d_ansatz): R = 6 streams against the soft spec's 11, and 3
+    draws per point against 4 (no boundary-face sampling)."""
+    p: object
+    n_uniform: int = 3
+    input_dim = 3
+    kernel_id = 12
+    groups = (Group(n_second=2, n_first=1),)  # N, (N_x,N_xx), (N_y,N_yy), N_t
+
+    @property
+    def scale(self):
+        return self.p.t_max * (self.p.x_max / 2.0) ** 4
+
+    def kernel_consts(self):
+        p = self.p
+        return (p.x_max, p.t_max, p.kappa, self.scale)
+
+    def build(self, u):
+        x = self.p.x_max * u[:, :1]
+        y = self.p.x_max * u[:, 1:2]
+        t = self.p.t_max * u[:, 2:3]
+        zero = torch.zeros_like(x)
+        one = torch.ones_like(x)
+        X = torch.cat([
+            _cat(x, y, t),
+            _cat(one, zero, zero), _cat(zero, zero, zero),
+            _cat(zero, one, zero), _cat(zero, zero, zero),
+            _cat(zero, zero, one),
+        ], 0)
+        return X, {"x": x, "y": y, "t": t}
+
+    def loss(self, outs, ctx):
+        n, n_x, n_xx, n_y, n_yy, n_t = outs
+        p, scale = self.p, self.scale
+        x, y, t = ctx["x"], ctx["y"], ctx["t"]
+        gx = x * (p.x_max - x)
+        gy = y * (p.x_max - y)
+        D = t * gx * gy / scale
+        D_t = gx * gy / scale
+        D_x = t * (p.x_max - 2.0 * x) * gy / scale
+        D_xx = -2.0 * t * gy / scale
+        D_y = t * gx * (p.x_max - 2.0 * y) / scale
+        D_yy = -2.0 * t * gx / scale
+        A = torch.sin(x) * torch.sin(y)
+        u_t = D_t * n + D * n_t
+        u_xx = -A + D_xx * n + 2.0 * D_x * n_x + D * n_xx
+        u_yy = -A + D_yy * n + 2.0 * D_y * n_y + D * n_yy
+        return _smean(torch.square(u_t - p.kappa * (u_xx + u_yy)))
+
+
+@dataclass(frozen=True)
+class HardWaveSpec(_HardSpec):
+    """Wave with u = sin(x) + D·N, D = t²·x·(x_max−x)/scale
+    (wave1d_ansatz; the t² factor holds position and velocity ICs): R = 5
+    streams against the soft spec's 9."""
+    p: object
+    n_uniform: int = 2
+    input_dim = 2
+    kernel_id = 13
+    groups = (Group(n_second=2),)   # N, (N_x, N_xx), (N_t, N_tt)
+
+    @property
+    def scale(self):
+        return self.p.t_max ** 2 * (self.p.x_max / 2.0) ** 2
+
+    def kernel_consts(self):
+        p = self.p
+        return (p.x_max, p.t_max, p.c ** 2, self.scale)
+
+    def build(self, u):
+        x = self.p.x_max * u[:, :1]
+        t = self.p.t_max * u[:, 1:2]
+        zero = torch.zeros_like(x)
+        one = torch.ones_like(x)
+        X = torch.cat([
+            _cat(x, t), _cat(one, zero), _cat(zero, zero),
+            _cat(zero, one), _cat(zero, zero),
+        ], 0)
+        return X, {"x": x, "t": t}
+
+    def loss(self, outs, ctx):
+        n, n_x, n_xx, n_t, n_tt = outs
+        p, scale = self.p, self.scale
+        x, t = ctx["x"], ctx["t"]
+        g = x * (p.x_max - x)
+        D = t * t * g / scale
+        D_t = 2.0 * t * g / scale
+        D_tt = 2.0 * g / scale
+        D_x = t * t * (p.x_max - 2.0 * x) / scale
+        D_xx = -2.0 * t * t / scale
+        u_tt = D_tt * n + 2.0 * D_t * n_t + D * n_tt
+        u_xx = -torch.sin(x) + D_xx * n + 2.0 * D_x * n_x + D * n_xx
+        return _smean(torch.square(u_tt - (p.c ** 2) * u_xx))
+
+
+@dataclass(frozen=True)
+class HardPoissonSpec(_HardSpec):
+    """Poisson with u = D·N, D = x(x_max−x)·y(x_max−y)/scale
+    (poisson_ansatz): R = 5 streams against the soft spec's 9, and 2 draws
+    per point against 3."""
+    p: object
+    n_uniform: int = 2
+    input_dim = 2
+    kernel_id = 14
+    groups = (Group(n_second=2),)   # N, (N_x, N_xx), (N_y, N_yy)
+
+    @property
+    def scale(self):
+        return (self.p.x_max / 2.0) ** 4
+
+    def kernel_consts(self):
+        return (self.p.x_max, self.scale)
+
+    def build(self, u):
+        x = self.p.x_max * u[:, :1]
+        y = self.p.x_max * u[:, 1:2]
+        zero = torch.zeros_like(x)
+        one = torch.ones_like(x)
+        X = torch.cat([
+            _cat(x, y), _cat(one, zero), _cat(zero, zero),
+            _cat(zero, one), _cat(zero, zero),
+        ], 0)
+        return X, {"x": x, "y": y}
+
+    def loss(self, outs, ctx):
+        n, n_x, n_xx, n_y, n_yy = outs
+        p, scale = self.p, self.scale
+        x, y = ctx["x"], ctx["y"]
+        gx = x * (p.x_max - x)
+        gy = y * (p.x_max - y)
+        D = gx * gy / scale
+        D_x = (p.x_max - 2.0 * x) * gy / scale
+        D_xx = -2.0 * gy / scale
+        D_y = gx * (p.x_max - 2.0 * y) / scale
+        D_yy = -2.0 * gx / scale
+        u_xx = D_xx * n + 2.0 * D_x * n_x + D * n_xx
+        u_yy = D_yy * n + 2.0 * D_y * n_y + D * n_yy
+        src = 2.0 * torch.sin(x) * torch.sin(y)
+        return _smean(torch.square(-(u_xx + u_yy) - src))
+
+
 SPECS = {
     "simple_ode": SimpleODESpec,
     "heat": HeatSpec,
@@ -719,15 +971,24 @@ SPECS = {
     "inverse_heat": InverseHeatSpec,
 }
 
+HARD_SPECS = {
+    "simple_ode": HardSimpleODESpec,
+    "heat": HardHeatSpec,
+    "heat2d": HardHeat2DSpec,
+    "wave": HardWaveSpec,
+    "poisson": HardPoissonSpec,
+}
+
 
 def spec_for(problem):
     """The stream spec for ``problem``, or None if the port has no fused
-    engine spec for it (hard constraints are not ported; the DGM equations
-    train on kernels.fused_dgm; heat with ``taps="pallas"`` and volterra's
-    Monte-Carlo rule, which draws fresh nodes per step, train on the scan
-    trainer, as in the JAX package)."""
+    engine spec for it (a hard problem takes its HARD_SPECS entry, none for
+    fitzhugh_nagumo; the DGM equations train on kernels.fused_dgm; heat with
+    ``taps="pallas"`` and volterra's Monte-Carlo rule, which draws fresh
+    nodes per step, train on the scan trainer, as in the JAX package)."""
     if getattr(problem, "constraint", "soft") == "hard":
-        return None
+        cls = HARD_SPECS.get(problem.name)
+        return cls(problem) if cls else None
     if getattr(problem, "taps", "jvp") == "pallas":
         return None
     if problem.name == "volterra" and problem.quadrature != "gauss":
@@ -779,7 +1040,10 @@ def load_state(spec, model, flat) -> None:
 
 
 def supports(problem, model=None) -> bool:
-    """True if (problem, model) can train on the generic fused engine."""
+    """True if (problem, model) can train on the generic fused engine: a
+    HardConstraint only on a hard problem and with the problem's own ansatz
+    (a custom one trains on the scan engine), a hard problem only with
+    one."""
     spec = spec_for(problem)
     if spec is None:
         return False

@@ -18,7 +18,11 @@ from differential_equations_dnn_tpu_torch.kernels import build
 from differential_equations_dnn_tpu_torch.kernels.engine_core import (
     SMEM_LIMIT,
 )
-from differential_equations_dnn_tpu_torch.models import MLP, Perceptron
+from differential_equations_dnn_tpu_torch.models import (
+    MLP,
+    HardConstraint,
+    Perceptron,
+)
 from differential_equations_dnn_tpu_torch.ops import taylor
 
 _ACT_KIND = {"tanh": 0, "relu": 1, "sigmoid": 2}
@@ -93,7 +97,14 @@ def mlp_forward(model, x):
     D]`` → ``[N, O]``, one kernel launch for any N.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (``mlp_forward.launches`` counts the launches)."""
+    (``mlp_forward.launches`` counts the launches). A HardConstraint raises
+    a ValueError on either device: its ``net`` is an MLP, but the model's
+    function is the ansatz around it, which the kernel must not drop."""
+    if isinstance(model, HardConstraint):
+        raise ValueError("mlp_forward evaluates an MLP, not a "
+                         "HardConstraint's ansatz around one: pass "
+                         "model.net and apply model.ansatz to the result, "
+                         "as Problem.evaluate does")
     if x.device.type == "cpu":
         return mlp_forward_plain(model, x)
     activation, D, H, L, O, weights = _mlp_view(model)

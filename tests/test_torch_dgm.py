@@ -402,7 +402,8 @@ def _unported(item):
 
 @pytest.mark.parametrize("call, error, match", [
     (lambda: FitzHughNagumo(arch="fourier_mlp"), *_unported("13")),
-    (lambda: FitzHughNagumo(constraint="hard"), *_unported("10a")),
+    (lambda: solve("fitzhugh_nagumo", constraint="hard", engine="fused",
+                   device="cpu", iterations=10), ValueError, "scan engine"),
     (lambda: solve("fredholm", quadrature="montecarlo", engine="fused",
                    device="cpu"), ValueError, "engine='scan'"),
     (lambda: solve("fredholm", quadrature="halton", engine="fused",
@@ -420,9 +421,9 @@ def _unported(item):
         "finetune", "ensemble", "route_fourier"])
 def test_dgm_unported_routes_raise(call, error, match):
     """What the DGM slice does not run raises, naming its ROADMAP item;
-    Fredholm's stochastic quadratures train on the scan engine, and the
-    fused route refuses them with the JAX package's ValueError naming
-    engine='scan'."""
+    Fredholm's stochastic quadratures and FitzHugh–Nagumo's hard trial
+    function train on the scan engine, and the fused route refuses them
+    with the JAX package's ValueError naming the scan engine."""
     with pytest.raises(error, match=match):
         call()
 

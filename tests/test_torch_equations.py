@@ -25,6 +25,7 @@ from differential_equations_dnn_tpu_torch.core import (  # noqa: E402
 from differential_equations_dnn_tpu_torch.equations import (  # noqa: E402
     PROBLEMS,
     Advection1D,
+    Heat1D,
     Heat2D,
     Poisson2D,
     SimpleODE,
@@ -34,8 +35,12 @@ from differential_equations_dnn_tpu_torch.equations import (  # noqa: E402
 from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
     fused_engine as fe,
 )
+from differential_equations_dnn_tpu_torch.kernels.taylor_mlp import (  # noqa: E402,E501
+    mlp_forward,
+)
 from differential_equations_dnn_tpu_torch.models import (  # noqa: E402
     MLP,
+    HardConstraint,
     params_from_jax,
 )
 
@@ -109,8 +114,7 @@ def test_heat2d_taylor_taps_match_jvp():
 
 
 @pytest.mark.parametrize("problem, error, match", [
-    (types.SimpleNamespace(name="heat", constraint="hard"),
-     NotImplementedError, "ROADMAP.*hard"),
+    (Heat1D(constraint="hard"), ValueError, "HardConstraint.*engine='scan'"),
     (Advection1D(causal_eps=1.0), NotImplementedError, "ROADMAP.*causal"),
     (types.SimpleNamespace(name="fredholm", quadrature="montecarlo"),
      ValueError, "DGM.*engine='scan'"),
@@ -120,15 +124,27 @@ def test_heat2d_taylor_taps_match_jvp():
 def test_unported_routes_raise(problem, error, match):
     """(g) What the fused route does not run yet raises, naming ROADMAP;
     the stochastic quadratures, which train on the scan engine only (as in
-    the JAX package), raise a ValueError naming engine='scan'."""
+    the JAX package), raise a ValueError naming engine='scan', and so does a
+    plain MLP on a hard problem (the JAX package's fused_engine.supports:
+    the hard spec trains the problem's HardConstraint)."""
     with pytest.raises(error, match=match):
         _fused_route(problem, MLP(2, 1, 8, 1, "tanh"))
 
 
 @pytest.mark.parametrize("cls", [SimpleODE, Wave1D, Poisson2D, Heat2D])
 def test_hard_constraints_raise(cls):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cls(constraint="hard")
+    """constraint="hard" wraps the default net in the equation's own
+    trial function (the JAX package's default_model), and kernel #2 raises
+    rather than evaluate the wrapper's raw net in its place
+    (Problem.evaluate applies the ansatz after it)."""
+    prob = cls(constraint="hard")
+    model = prob.default_model(generator=generator(0))
+    assert isinstance(model, HardConstraint)
+    assert model.ansatz.tag == prob.hard_ansatz().tag
+    assert isinstance(model.net, MLP) and model.net.activation == "tanh"
+    x = prob.grid_inputs(3)
+    with pytest.raises(ValueError, match="HardConstraint"):
+        mlp_forward(model, x)
 
 
 def test_routes():

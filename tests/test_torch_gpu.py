@@ -1043,3 +1043,89 @@ def test_solve_last_specs_launch_the_engine(cuda, name):
     assert res.loss_history[-20:].mean() < res.loss_history[:20].mean()
     if name == "inverse_heat":
         assert float(res.params.kappa()) != 0.5
+
+
+# ---------------------------------------------------------------------------
+# The hard-constraint specs (fused_engine.HARD_SPECS)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(fe.HARD_SPECS))
+def test_hard_specs_match_plain(cuda, name):
+    """Each hard spec at its equation's default shapes, with the tolerances
+    of the soft specs: one step's loss to rtol 1e-5 and each gradient
+    tensor to 1e-5 of its largest entry; a 50-step chunk (one graph replay)
+    from step0 = 100 under a cosine schedule over 200 steps, losses to rtol
+    1e-4 and parameters to rtol 1e-4 plus 2·lr."""
+    prob = PROBLEMS[name](constraint="hard")
+    spec = fe.spec_for(prob)
+    model = prob.default_model(generator=generator(0), device=cuda)
+    p = fe.pack_state(spec, model)
+    u = step_uniforms(0, 100, 50, prob.defaults.batch_size, cuda,
+                      spec.n_uniform)
+    loss_k, grad_k = fe.engine_loss_grad(spec, model, p, u[0])
+    loss_p, grad_p = fe.engine_loss_grad_plain(spec, model, p, u[0])
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+    for gk, gp in zip(fe.unpack_state(spec, model, grad_k),
+                      fe.unpack_state(spec, model, grad_p)):
+        torch.testing.assert_close(gk, gp, rtol=1e-4,
+                                   atol=1e-5 * float(gp.abs().max()))
+    lr = prob.defaults.lrate
+    kw = dict(schedule="cosine", total_steps=200)
+    z = torch.zeros_like(p)
+    pk, _, _, lk = fe.fused_engine_chunk(spec, model, p, z, z, u, 100, lr,
+                                         **kw)
+    pp, _, _, lp = fe.fused_engine_chunk_plain(spec, model, p, z, z, u, 100,
+                                               lr, **kw)
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=2 * lr)
+
+
+def test_hard_packed_equals_single(cuda):
+    """Hard heat's packed chunk of N = 4 replicas (50 steps: one graph
+    replay): every replica equals the single chunk on its state bit for
+    bit, and the packed plain version within the soft specs' tolerances."""
+    prob = PROBLEMS["heat"](constraint="hard")
+    spec = fe.spec_for(prob)
+    B, lr = prob.defaults.batch_size, prob.defaults.lrate
+    models = [prob.default_model(generator=replica_generator(0, r),
+                                 device=cuda) for r in range(4)]
+    p = engine_core.stack_replicas([fe.pack_state(spec, m) for m in models])
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, 100, 50, B, cuda, spec.n_uniform)
+    kw = dict(schedule="cosine", total_steps=200)
+    pk, mk, vk, lk = fe.fused_engine_packed_chunk(spec, models[0], p, z, z,
+                                                  u, 100, lr, 4, **kw)
+    for r in range(4):
+        p1, m1, v1, l1 = fe.fused_engine_chunk(spec, models[0],
+                                               p[r].contiguous(),
+                                               z[r].clone(), z[r].clone(), u,
+                                               100, lr, **kw)
+        assert torch.equal(l1, lk[r]) and torch.equal(p1, pk[r])
+        assert torch.equal(m1, mk[r]) and torch.equal(v1, vk[r])
+    pp, _, _, lp = fe.fused_engine_packed_chunk_plain(spec, models[0], p, z,
+                                                      z, u, 100, lr, 4, **kw)
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=2 * lr)
+
+
+@pytest.mark.parametrize("name", sorted(fe.HARD_SPECS))
+def test_solve_hard_launches_the_engine(cuda, name):
+    """A short hard fused ``solve`` trains on the generic engine (hard heat
+    at a constant lr too, never on the soft heat kernel #1), evaluates its
+    raw net through #2 once, and holds its trial function's constraint on
+    the grid to 1e-6: x = 0 for heat, wave and poisson, t = 0 for heat2d
+    and simple_ode."""
+    for fn in (taylor_mlp.mlp_forward, fe.fused_engine_chunk,
+               ft.heat_fused_train_chunk):
+        fn.launches = 0
+    fe.fused_engine_chunk.step_math_runs = 0
+    res = solve(name, constraint="hard", engine="fused", iterations=300,
+                schedule="constant")
+    assert taylor_mlp.mlp_forward.launches == 1
+    assert fe.fused_engine_chunk.step_math_runs == 301
+    assert ft.heat_fused_train_chunk.launches == 0
+    assert np.all(np.isfinite(res.loss_history))
+    want = np.take(res.exact, 0, axis=1 if name in ("heat", "wave") else 0)
+    got = np.take(res.solution, 0, axis=1 if name in ("heat", "wave") else 0)
+    np.testing.assert_allclose(got, want, atol=1e-6)

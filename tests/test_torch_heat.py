@@ -138,8 +138,8 @@ def test_sample_builds_the_four_point_sets():
 def test_unported_modes_raise():
     with pytest.raises(ValueError, match="unknown taps"):
         Heat1D(taps="bogus")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Heat1D(constraint="hard")
+    with pytest.raises(ValueError, match=r"Heat1D\(taps='jvp'\)"):
+        Heat1D(constraint="hard", taps="taylor").default_model()
     with pytest.raises(ValueError, match="available: .*'heat'"):
         get_problem("volterra2")
     assert PROBLEMS["heat"] is Heat1D

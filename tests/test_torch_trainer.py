@@ -466,8 +466,8 @@ class _Stateful(torch.nn.Module):
      "ROADMAP.*item 14"),
     (lambda: train(Advection1D(causal_eps=1.0), 0, _cfg(), device="cpu",
                    model=MLP(2, 1, 4, 1, "tanh")), "ROADMAP.*item 10e"),
-    (lambda: solve("heat", constraint="hard", device="cpu"),
-     "ROADMAP.*item 10a"),
+    (lambda: solve("heat", constraint="hard", taps="taylor", device="cpu"),
+     r"Heat1D\(taps='jvp'\)"),
     (lambda: solve("volterra", quadrature="montecarlo", engine="fused",
                    device="cpu"), "engine='scan'"),
     (lambda: train(SimpleODE(), 0, _cfg(), model=_Stateful(),
@@ -480,6 +480,7 @@ def test_unported_scan_routes_raise(call, match):
     """What the scan engine does not run yet raises, naming its ROADMAP
     item. Volterra's Monte-Carlo and Fredholm's Halton rules run on the
     scan engine alone: the fused route refuses them, naming
-    engine='scan'."""
+    engine='scan'. Hard heat takes the jvp taps only (the JAX package's
+    ValueError)."""
     with pytest.raises((NotImplementedError, ValueError), match=match):
         call()
