@@ -47,7 +47,10 @@ Phases (each raises on failure, so any failure exits non-zero):
               poisson: a HardConstraint's raw net, interior streams only)
               get the same #6 and 50-step #4 checks and a 1 000-step
               chunk each, and hard heat a packed N = 4 chunk (every
-              replica bit for bit against the single chunk). #2's row
+              replica bit for bit against the single chunk). Causal
+              advection (c = 50, ε = 5: the cross-point loss kernel) gets
+              the same #6, 50- and 1 000-step checks and a packed N = 2
+              chunk (bit for bit per replica). #2's row
               carries the time of the cuBLAS addmm + tanh chain (TF32
               off) on the same inputs as its library yardstick.
 4. solve    — each main path through ``solve(..., engine="fused")`` at its
@@ -76,7 +79,12 @@ Phases (each raises on failure, so any failure exits non-zero):
               simple_ode on the scan trainer, and FitzHugh–Nagumo's DGM on
               the scan trainer at 1 000 steps (no MAE bound: a finite
               history and s(0) = y_ic); every hard solve's grid holds its
-              IC and BC rows to 1e-6.
+              IC and BC rows to 1e-6. Then causal advection at the JAX
+              package's TPU smoke configuration (c = 50, causal_eps = 5,
+              30 000 steps, seed 42, MAE < 0.05) on the fused engine, as a
+              2-replica ensemble, and on the scan trainer. Every scan solve
+              replays one captured CUDA graph per whole 256-step block of
+              each chunk (a replay count), and runs the rest eagerly.
 5. result   — the smoke's total seconds, a JSON line of the kernels,
               then as the last line {"ok": true, "device": {...}}.
 """
@@ -131,6 +139,19 @@ HARD_ROWS = {"simple_ode": [(0, 0)], "fitzhugh_nagumo": [(0, 0)],
              "poisson": [(0, 0), (0, -1), (1, 0), (1, -1)],
              "heat2d": [(0, 0), (1, 0), (1, -1), (2, 0), (2, -1)]}
 HARD_ATOL = 1e-6
+# Causal advection: the JAX package's high-speed transport case
+# (benchmarks/smoke_tpu.py:59-62): c = 50, causal_eps = 5, 30 000 steps,
+# seed 42, MAE bound 0.05 (the plain loss settles on a damped branch at
+# MAE about 0.2 there). Its spec's rows nest under the engine kernels'
+# rows, its packed N = 2 chunk under #5's; it solves on the fused engine,
+# as a 2-replica ensemble and on the scan trainer.
+CAUSAL = dict(c=50.0, causal_eps=5.0)
+CAUSAL_SOLVE = dict(iterations=30_000, seed=42, **CAUSAL)
+# The scan solve takes the same bound: the JAX package's own scan solve at
+# this configuration reached MAE 0.00872 on the CPU.
+CAUSAL_BOUND = 0.05
+# Its packed chunk's losses to rtol 1e-4, as its single chunk's.
+CAUSAL_PACKED = ("advection", 2, 1e-4)
 # The scan trainer's hard solves: simple_ode at 5 000 steps under the MAE
 # bound, and FitzHugh–Nagumo's DGM at 1 000 steps with no MAE bound (None):
 # 1 000 steps cannot reach the reference's 0.0088, so only a finite history
@@ -288,20 +309,21 @@ def step_flops(R, B, D, H, L):
     return fwd + fwd + 2 * R * B * (L * H * H + H)
 
 
-def chunk_bound(K, R, B, D, H, L, U, n_const=0):
+def chunk_bound(K, R, B, D, H, L, U, n_const=0, cross=0):
     """K steps plus Adam (about 12 flops per parameter); p, m, v read and
     written once, the uniforms and the const operand read once, K losses
-    written."""
+    written. ``cross``: a cross-point loss's operations per step (causal
+    advection's B² comparisons and their sums, 2·B²)."""
     n = n_params(D, H, L)
-    return bound(K * (step_flops(R, B, D, H, L) + 12 * n),
+    return bound(K * (step_flops(R, B, D, H, L) + 12 * n + cross),
                  4 * (6 * n + K * B * U + K + n_const))
 
 
-def grad_bound(R, B, D, H, L, U, n_const=0):
+def grad_bound(R, B, D, H, L, U, n_const=0, cross=0):
     """One step: params, uniforms and the const operand read once, the
-    gradient and the loss written once."""
+    gradient and the loss written once (``cross`` as for chunk_bound)."""
     n = n_params(D, H, L)
-    return bound(step_flops(R, B, D, H, L),
+    return bound(step_flops(R, B, D, H, L) + cross,
                  4 * (2 * n + B * U + 1 + n_const))
 
 
@@ -606,13 +628,14 @@ def check_heat_streams():
     return row
 
 
-def check_engine_kernels(name, hard=False):
+def check_engine_kernels(name, hard=False, causal=False):
     """Kernels #6 and #4 (and #2 on the equation's grid) at one spec's
     default shapes, with the spec's const operand where it has one; for the
-    LAST and the hard specs also the per-step time of a STEADY_STEPS-step
-    chunk. ``hard`` takes the equation's hard spec (its model a
-    HardConstraint, #2 on its raw net). Returns the rows of the two engine
-    kernels."""
+    LAST, the hard and the causal specs also the per-step time of a
+    STEADY_STEPS-step chunk. ``hard`` takes the equation's hard spec (its
+    model a HardConstraint, #2 on its raw net), ``causal`` advection's
+    causal spec at CAUSAL (its cross-point loss kernel). Returns the rows of
+    the two engine kernels."""
     import torch
 
     from differential_equations_dnn_tpu_torch.core.prng import (
@@ -624,11 +647,13 @@ def check_engine_kernels(name, hard=False):
     from differential_equations_dnn_tpu_torch.kernels import taylor_mlp as tm
 
     dev = torch.device("cuda")
-    prob = PROBLEMS[name](**({"constraint": "hard"} if hard else {}))
+    variant = ({"constraint": "hard"} if hard else CAUSAL if causal else {})
+    prob = PROBLEMS[name](**variant)
     spec = fe.spec_for(prob)
     model = prob.default_model(generator=generator(1), device=dev)
     d = prob.defaults
     R, B, U = fe._n_rows(spec.groups), d.batch_size, spec.n_uniform
+    cross = 2 * B * B if causal else 0
     D, H, L = spec.dims(model)
     const = spec.make_const(B, dev)
     n_const = 0 if const is None else const.numel()
@@ -645,6 +670,8 @@ def check_engine_kernels(name, hard=False):
                     tm.mlp_forward_plain(net, x), rtol=1e-5, atol=1e-5)
     if hard:
         name = f"{name} (hard)"
+    if causal:
+        name = f"{name} (causal)"
 
     # One step's loss and gradient. Tolerance: fp32 reassociation of the
     # R·B-row sums; the loss to rtol 1e-5, each gradient tensor to 1e-5 of
@@ -670,7 +697,7 @@ def check_engine_kernels(name, hard=False):
         replaces=f"{JAX_KERNELS}/fused_engine.py:235",
         max_abs_err=max(max_abs(loss_k, loss_p), max_abs(grad_k, grad_p)),
         ms=ms, plain_ms=plain_ms, library_ms=None,
-        **grad_bound(R, B, D, H, L, U, n_const))
+        **grad_bound(R, B, D, H, L, U, n_const, cross))
     print(f"{name} engine_loss_grad [{shape}]: loss {float(loss_k):.6g} vs "
           f"{float(loss_p):.6g}, max|dgrad| {max_abs(grad_k, grad_p):.3g}; "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
@@ -704,7 +731,7 @@ def check_engine_kernels(name, hard=False):
         replaces=f"{JAX_KERNELS}/engine_core.py:48",
         max_abs_err=max(max_abs(lk, lp), max_abs(pk, pp)), ms=ms,
         plain_ms=plain_ms, library_ms=None,
-        **chunk_bound(CHUNK_STEPS, R, B, D, H, L, U, n_const))
+        **chunk_bound(CHUNK_STEPS, R, B, D, H, L, U, n_const, cross))
     print(f"{name} fused_engine_chunk [K={CHUNK_STEPS}, {kw['schedule']}]: "
           f"max|dloss| {max_abs(lk, lp):.3g}, max|dparam| "
           f"{max_abs(pk, pp):.3g}; kernel {ms:.4f} ms "
@@ -714,15 +741,14 @@ def check_engine_kernels(name, hard=False):
     if name == "heat2d":
         steady_state(name, spec, model, p[None], B, 1, lr, kw)
         check_wide_engine(name, spec, u, lr, kw)
-    if name in LAST or hard:
+    if name in LAST or hard or causal:
         steady_ms = steady_state(name, spec, model, p[None], B, 1, lr, kw)
         chunk_row.update(
             steady_steps=STEADY_STEPS, steady_ms=steady_ms,
             steady_bound_ms=chunk_bound(STEADY_STEPS, R, B, D, H, L, U,
-                                        n_const)["bound_ms"])
+                                        n_const, cross)["bound_ms"])
         for row in (grad_row, chunk_row):
-            row.update(spec=prob.name, shape=shape,
-                       **({"constraint": "hard"} if hard else {}))
+            row.update(spec=prob.name, shape=shape, **variant)
     return grad_row, chunk_row
 
 
@@ -874,14 +900,16 @@ def steady_state(name, spec, model, p, B, n_replicas, lr, kw):
     return ms
 
 
-def check_packed_kernels(name, n_replicas, loss_rtol, hard=False):
+def check_packed_kernels(name, n_replicas, loss_rtol, hard=False,
+                         causal=False):
     """Kernel #5 at one ensemble's shapes: the packed chunk (N replicas
     drawn from replica_generator(0, r), CHUNK_STEPS steps from STEP0 under a
     cosine schedule over HORIZON steps, so a wrong schedule fails): every
     replica against the single-replica chunk on its own state, bit for bit,
     then all against the plain version (the losses to ``loss_rtol``, or,
     where it is None, each replica's loss drift printed).
-    ``hard`` takes the equation's hard spec. Returns the kernel's row."""
+    ``hard`` takes the equation's hard spec, ``causal`` advection's causal
+    spec at CAUSAL. Returns the kernel's row."""
     import torch
 
     from differential_equations_dnn_tpu_torch.core.prng import (
@@ -895,7 +923,8 @@ def check_packed_kernels(name, n_replicas, loss_rtol, hard=False):
     from differential_equations_dnn_tpu_torch.kernels import fused_train as ft
 
     dev = torch.device("cuda")
-    prob = PROBLEMS[name](**({"constraint": "hard"} if hard else {}))
+    variant = ({"constraint": "hard"} if hard else CAUSAL if causal else {})
+    prob = PROBLEMS[name](**variant)
     d = prob.defaults
     B, lr, N = d.batch_size, d.lrate, n_replicas
     models = [prob.default_model(generator=replica_generator(0, r),
@@ -921,7 +950,7 @@ def check_packed_kernels(name, n_replicas, loss_rtol, hard=False):
         spec = fe.spec_for(prob)
         R, D = fe._n_rows(spec.groups), model.input_dim
         n = n_params(D, H, L)
-        flops = step_flops(R, B, D, H, L)
+        flops = step_flops(R, B, D, H, L) + (2 * B * B if causal else 0)
         in_bytes = 4 * CHUNK_STEPS * B * spec.n_uniform
         pack, packed, plain, single = (
             (lambda m: fe.pack_state(spec, m)) if hard else ft.pack_params,
@@ -931,6 +960,8 @@ def check_packed_kernels(name, n_replicas, loss_rtol, hard=False):
         shape = f"R={R}, B={B}, D={D}, H={H}, L={L}"
         if hard:
             name = f"{name} (hard)"
+        if causal:
+            name = f"{name} (causal)"
     label = f"{name} {row_name} [N={N}, {shape}, K={CHUNK_STEPS}, cosine]"
     p = engine_core.stack_replicas([pack(m) for m in models])
     z = torch.zeros_like(p)
@@ -967,8 +998,8 @@ def check_packed_kernels(name, n_replicas, loss_rtol, hard=False):
         plain_ms=plain_ms, library_ms=None,
         **bound(N * CHUNK_STEPS * (flops + 12 * n),
                 in_bytes + 4 * N * (6 * n + CHUNK_STEPS)))
-    if hard:
-        row.update(spec=prob.name, constraint="hard", shape=shape)
+    if hard or causal:
+        row.update(spec=prob.name, shape=shape, **variant)
     print(f"{label}: max|dloss| {max_abs(lk, lp):.3g}, max|dparam| "
           f"{max_abs(pk, pp):.3g}; all {N} replicas equal the single chunk "
           f"bit for bit; kernel {ms:.4f} ms ({step_us:.1f} us per packed "
@@ -1009,13 +1040,15 @@ def phase_kernels():
     for name in ENGINE:
         engine_rows = check_engine_kernels(name)
     nested = ([check_engine_kernels(name) for name in LAST]
-              + [check_engine_kernels(name, hard=True) for name in HARD])
+              + [check_engine_kernels(name, hard=True) for name in HARD]
+              + [check_engine_kernels("advection", causal=True)])
     for row, specs in zip(engine_rows, zip(*nested)):
         row["specs"] = list(specs)
     dgm_rows = [check_dgm_kernels(name) for name in DGM][0]
     packed_rows = [check_packed_kernels(*case) for case in PACKED][:2]
-    packed_rows[0]["specs"] = [check_packed_kernels(*HARD_PACKED,
-                                                    hard=True)]
+    packed_rows[0]["specs"] = [
+        check_packed_kernels(*HARD_PACKED, hard=True),
+        check_packed_kernels(*CAUSAL_PACKED, causal=True)]
     report_graphs()
     return rows + list(engine_rows) + list(dgm_rows) + packed_rows
 
@@ -1087,8 +1120,10 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
     launches of each kernel in that run. ``extra`` (ensemble, causal_eps,
     taps, constraint, iterations, seed, finetune) goes to solve; an
     ensemble must go through its packed kernel and no single-replica
-    trainer; a scan solve through no training kernel, and with pallas taps
-    through kernel #3 once per step plus the warm-up. A hard solve must
+    trainer; a scan solve through no training kernel, through one captured
+    CUDA graph replayed once per whole block of GRAPH_STEPS steps of each
+    chunk, and with pallas taps through kernel #3 once per step plus the
+    two warm-ups (the build's, and the capture's). A hard solve must
     hold its IC and BC exactly on the grid (HARD_ROWS) and, on the fused
     engine, train on the generic engine (constant-lr heat too); a
     ``mae_bound`` of None holds no MAE."""
@@ -1096,12 +1131,16 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
 
     from differential_equations_dnn_tpu_torch import solve
     from differential_equations_dnn_tpu_torch.api import _auto_defaults
+    from differential_equations_dnn_tpu_torch.train import trainer
 
+    graphs = dict(trainer.graph_stats)
     reset_counts()
     t0 = time.perf_counter()
     res = solve(name, engine=engine, schedule=schedule, **extra)
     total = time.perf_counter() - t0
     launches = read_counts()
+    captures = trainer.graph_stats["captures"] - graphs["captures"]
+    replays = trainer.graph_stats["replays"] - graphs["replays"]
 
     d = res.problem.defaults
     ensemble, finetune = _auto_defaults(res.problem, None)
@@ -1118,8 +1157,10 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
     print(f"{label}: {steps} steps, batch {d.batch_size}, "
           f"{finetune} L-BFGS steps, MAE {res.mae:.6g} (bound {mae_bound}), "
           f"final loss {res.loss_history[-1]:.4g}, {rate} (wall "
-          f"{res.wall_time:.3f} s), build + warm-up {res.compile_time:.3f} s, "
-          f"total {total:.2f} s; launches {launches}")
+          f"{res.wall_time:.3f} s), build + warm-up {res.compile_time:.3f} s"
+          + (f" (graph capture {trainer.graph_stats['capture_seconds'][-1]:.3f}"
+             f" s), {replays} graph replays" if captures else "")
+          + f", total {total:.2f} s; launches {launches}")
     if res.loss_history.shape != (steps + finetune,):
         raise AssertionError(f"{label}: loss history "
                              f"{res.loss_history.shape}")
@@ -1163,8 +1204,15 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
         for kernel in trainers:
             if launches[kernel]:
                 raise AssertionError(f"{label}: the scan solve ran {kernel}")
+        n_full, rem = divmod(steps, trainer.TrainConfig.chunk_size)
+        want = (n_full * (trainer.TrainConfig.chunk_size
+                          // trainer.GRAPH_STEPS)
+                + rem // trainer.GRAPH_STEPS)
+        if (captures, replays) != (1, want):
+            raise AssertionError(f"{label}: {captures} graph captures and "
+                                 f"{replays} replays, not 1 and {want}")
         expected = {"mlp_forward": grid,
-                    "heat_fused_streams": steps + 1 if pallas else 0}
+                    "heat_fused_streams": steps + 2 if pallas else 0}
         for kernel, n in expected.items():
             if launches[kernel] != n:
                 raise AssertionError(f"{label}: {kernel} launched "
@@ -1217,6 +1265,13 @@ def phase_solve():
     for name, extra, mae_bound in HARD_SCAN:
         out[(name, "hard scan")] = solve_once(name, None, mae_bound,
                                               engine="scan", **extra)
+    out[("advection", "causal")] = solve_once("advection", None,
+                                              CAUSAL_BOUND, **CAUSAL_SOLVE)
+    out[("advection", "causal ensemble")] = solve_once(
+        "advection", None, CAUSAL_BOUND, ensemble=CAUSAL_PACKED[1],
+        **CAUSAL_SOLVE)
+    out[("advection", "causal scan")] = solve_once(
+        "advection", None, CAUSAL_BOUND, engine="scan", **CAUSAL_SOLVE)
     return out
 
 
@@ -1253,14 +1308,14 @@ def main():
     inside = {"engine_step_math": "fused_engine_chunk",
               "dgm_step_math": "fused_dgm_chunk"}
     for row in rows:
-        # The LAST and hard specs' own solves (the hard packed row's: its
-        # ensemble solve).
+        # The LAST, hard and causal specs' own solves (the packed row's:
+        # their ensemble solves).
         for spec_row in row.get("specs", ()):
-            run = ((spec_row["spec"], None)
-                   if "constraint" not in spec_row else
-                   (spec_row["spec"], "hard ensemble")
-                   if row["name"] == "fused_engine_packed_chunk" else
-                   (spec_row["spec"], "hard"))
+            kind = ("hard" if "constraint" in spec_row else
+                    "causal" if "causal_eps" in spec_row else None)
+            run = ((spec_row["spec"], kind) if kind is None
+                   or row["name"] != "fused_engine_packed_chunk" else
+                   (spec_row["spec"], f"{kind} ensemble"))
             spec_row["launches"] = launches[run][source[row["name"]][1]]
             if spec_row["launches"] <= 0:
                 raise AssertionError(f"{row['name']} at {spec_row['spec']} "

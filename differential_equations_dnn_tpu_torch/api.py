@@ -137,7 +137,7 @@ def _fused_route(problem, model, schedule="constant", batch_size=None) -> str:
             "fitzhugh_nagumo's fused path is the DGM engine, which needs "
             "arch='dgm'; the fourier_mlp arch is not ported yet (ROADMAP.md "
             "queue 1, item 13: Fourier-feature MLPs)")
-    spec = fused_engine.spec_for(problem)  # raises for causal advection
+    spec = fused_engine.spec_for(problem)
     if spec is None:
         taps = getattr(problem, "taps", None)
         raise ValueError(f"no fused-engine spec for equation "

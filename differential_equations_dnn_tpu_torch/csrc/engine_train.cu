@@ -50,7 +50,8 @@
 //   loss       x 1      output layer, the spec's loss and cotangent G, the
 //                       point losses, and the output layer's data gradient
 //                       through the tanh VJP at layer L (a folded spec:
-//                       fold_loss, one block per batch point)
+//                       fold_loss, one block per batch point; causal
+//                       advection: causal_loss, one block per replica)
 //   layer      x L      hidden layers backward: g = dz·Wᵀ, the tanh VJP
 //   loss_sum   x 1      loss = the point losses' batch mean (a side lane);
 //                       the extra scalar's gradient and Adam step
@@ -106,6 +107,23 @@
 //     beside its point loss, and loss_sum_kernel sums both in the same fixed
 //     order and applies Adam to it in the same launch.
 //
+// Causal advection (fused_engine.py:407-475 of the JAX package,
+// AdvectionSpec at causal_eps > 0; kernel id 15) is the one spec whose loss
+// couples the batch: each point's interior residual energy r_i is weighted
+// by w_i = exp(−ε·Δt·Σ_{t_j < t_i} r_j), the TPU kernel's [B, B]
+// comparison-mask product. loss_kernel gives each point its own warp, so
+// the spec takes causal_loss_kernel instead: one block per replica holds
+// every point's residuals and t in shared memory (six floats a point, so
+// a batch of at most kCausalMaxBatch), forms each w_i by B strict
+// comparisons (equal t do not count, as in JAX: fp32 can round two
+// adjacent strata's t to one value), then writes the point losses, the
+// cotangents (the interior's scaled by w_i) and the output layer's data
+// gradient as loss_kernel does. B² comparisons at B = 128 are 16 K a step.
+// Its build puts row b in stratum (b·m) mod B in integers, where the TPU
+// kernel computed the same values in fp32 with a floor (exact below 2^24).
+// The layer, loss-sum and weight-gradient kernels, the packed launch and
+// the graph replay take it unchanged.
+//
 // The hard-constraint specs (fused_engine.py:611-796 of the JAX package:
 // HardSimpleODESpec, HardHeatSpec, HardHeat2DSpec, HardWaveSpec,
 // HardPoissonSpec) are stream layouts like the soft ones, of 2 to 6
@@ -140,6 +158,12 @@ constexpr int kFoldWarps = 8;   // fold_loss_kernel: warps per batch point
 // outputs in the 48 KB of shared memory a block takes by default.
 constexpr int kMaxFold = 48 * 1024 / 4;
 constexpr int kFoldGroups = 8;  // a folded spec's weight gradients: groups
+// causal_loss_kernel: threads of the one block per replica, and the batch
+// its six floats a point hold in the 48 KB of shared memory a block takes
+// by default (fused_engine.CAUSAL_MAX_BATCH).
+constexpr int kCausalThreads = 512;
+constexpr int kCausalFloats = 6;
+constexpr int kCausalMaxBatch = 48 * 1024 / (4 * kCausalFloats);
 
 // ---------------------------------------------------------------------------
 // Stream layouts
@@ -219,6 +243,7 @@ struct Point {
 struct SpecBase {
   static constexpr int kExtra = 0;
   static constexpr bool kFolded = false;
+  static constexpr bool kCausal = false;  // a cross-point loss
 };
 
 // dy/dt = -y, y(0) = y_ic. c: sample_scale·t_max, y_ic.
@@ -376,6 +401,44 @@ struct Advection : SpecBase {
     g[3] = 2.0f * r0;
     g[4] = 2.0f * rb;
     return q * q + (r0 * r0 + rb * rb);
+  }
+};
+
+// Advection with causal weighting (kCausal: causal_loss_kernel). Row b's t
+// lies in stratum (b·m) mod B: t = (stratum + u_1)·t_max/B. c: x_max,
+// t_max, c, -c, eps, t_max/B, m.
+struct CausalAdvection : SpecBase {
+  static constexpr int R = 5, D = 2, U = 2;
+  static constexpr bool kCausal = true;
+  DEDNN_LAYOUT(kValue, kFirst, kFirst, kValue, kValue)
+  __device__ static float time(const Point& pt, const Consts& c) {
+    const long long m = static_cast<long long>(c.c[6]);
+    const int stratum = static_cast<int>((pt.b * m) % pt.B);
+    return (static_cast<float>(stratum) + pt.u[1]) * c.c[5];
+  }
+  __device__ static void build(const Point& pt, const Consts& c, float* X) {
+    const float x = c.c[0] * pt.u[0], t = time(pt, c);
+    const float rows[10] = {x, t, 1.0f, 0.0f, 0.0f, 1.0f, x, 0.0f, 0.0f, t};
+    for (int i = 0; i < 10; ++i) X[i] = rows[i];
+  }
+  // The point's residuals e = (interior q, IC r0, inflow rb) and its t.
+  __device__ static void residuals(const Point& pt, const Consts& c,
+                                   const float* o, float* e, float* t) {
+    *t = time(pt, c);
+    e[0] = o[2] + c.c[2] * o[1];
+    e[1] = o[3] - sinf(c.c[0] * pt.u[0]);
+    e[2] = o[4] - sinf(c.c[3] * *t);
+  }
+  // The point loss w·q² + r0² + rb² and its cotangents at weight w.
+  __device__ static float weighted_loss(const Consts& c, const float* e,
+                                        float w, float* g) {
+    const float q = e[0], r0 = e[1], rb = e[2];
+    g[0] = 0.0f;
+    g[1] = 2.0f * c.c[2] * q * w;
+    g[2] = 2.0f * q * w;
+    g[3] = 2.0f * r0;
+    g[4] = 2.0f * rb;
+    return w * (q * q) + (r0 * r0 + rb * rb);
   }
 };
 
@@ -994,6 +1057,97 @@ __global__ void __launch_bounds__(32 * kLossWarps)
   }
 }
 
+// A causal spec's output layer and loss (kCausal: causal advection), for
+// step base + j, one block per replica (blockIdx.y) of kCausalThreads:
+//   1. warp w takes points w, w + 16, ...: its R outputs (each dot product
+//      as in loss_kernel), then S::residuals into shared memory: the three
+//      residuals e, t and the interior energy r = q²;
+//   2. thread i takes point i, ...: cum = Σ_{j : t_j < t_i} r_j in j
+//      order (strict, as the TPU kernel's comparison mask), and the weight
+//      w_i = exp(−ε·Δt·cum);
+//   3. warp w again takes its points: PL[b] = S::weighted_loss,
+//      G[s·B + b] = (1/B)·g_s, and the output layer's data gradient through
+//      the tanh VJP at layer L into DZ_L, as loss_kernel writes them.
+// Dynamic shared memory: kCausalFloats·B floats.
+template <class S>
+__global__ void __launch_bounds__(kCausalThreads)
+    causal_loss_kernel(const StepArgs* __restrict__ args, int j, Consts c,
+                       long long w_off, long long b_off, int H, int B,
+                       const float* __restrict__ z,
+                       const float* __restrict__ a, float* __restrict__ G,
+                       float* __restrict__ PL, float* __restrict__ dz,
+                       size_t ss, size_t ps) {
+  constexpr int R = S::R, kWarps = kCausalThreads / 32;
+  extern __shared__ float sh[];
+  float* e_s = sh;          // [B][3]: the residuals q, r0, rb
+  float* t_s = sh + 3 * B;  // [B]: t
+  float* r_s = t_s + B;     // [B]: q²
+  float* w_s = r_s + B;     // [B]: the causal weight
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const size_t so = blockIdx.y * ss;
+  const float* w_out = args->p + blockIdx.y * ps + w_off;
+  const float bo = args->p[blockIdx.y * ps + b_off];
+  z += so;
+  a += so;
+  G += so;
+  PL += so;
+  dz += so;
+  const float* u = args->u + static_cast<size_t>(args->base + j) * B * S::U;
+  for (int b = warp; b < B; b += kWarps) {
+    float out[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      const float* ar = a + static_cast<size_t>(s * B + b) * H;
+      float acc = 0.0f;
+#pragma unroll 4
+      for (int k = lane; k < H; k += 32) acc = fmaf(ar[k], w_out[k], acc);
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      out[s] = kind_of<S>(s) == kValue ? acc + bo : acc;
+    }
+    if (lane == 0) {
+      S::residuals(Point{u + static_cast<size_t>(b) * S::U, b, B, args->cnst,
+                         nullptr},
+                   c, out, e_s + 3 * b, t_s + b);
+      r_s[b] = e_s[3 * b] * e_s[3 * b];
+    }
+  }
+  __syncthreads();
+  const float eps = c.c[4], dt = c.c[5];
+  for (int i = threadIdx.x; i < B; i += kCausalThreads) {
+    const float ti = t_s[i];
+    float cum = 0.0f;
+    for (int k = 0; k < B; ++k)
+      if (t_s[k] < ti) cum += r_s[k];
+    w_s[i] = expf(-eps * (cum * dt));
+  }
+  __syncthreads();
+  const float inv_b = 1.0f / static_cast<float>(B);
+  for (int b = warp; b < B; b += kWarps) {
+    float g[R];
+    const float point = S::weighted_loss(c, e_s + 3 * b, w_s[b], g);
+    if (lane == 0) {
+      PL[b] = point;
+#pragma unroll
+      for (int s = 0; s < R; ++s) G[s * B + b] = g[s] * inv_b;
+    }
+    for (int k = lane; k < H; k += 32) {
+      const float w = w_out[k];
+      float gs[R], prev[R], dzs[R];
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        gs[s] = opaque(fmaf(g[s] * inv_b, w, 0.0f) + 0.0f);
+        prev[s] =
+            bwd_operand<S>(s, z, a, static_cast<size_t>(s * B + b) * H + k);
+      }
+      act_bwd<S>(gs, prev, dzs);
+#pragma unroll
+      for (int s = 0; s < R; ++s)
+        dz[static_cast<size_t>(s * B + b) * H + k] = dzs[s];
+    }
+  }
+}
+
 // A folded spec's output layer and loss (kFolded: volterra), for step
 // base + j: block (b, replica) of kFoldWarps warps takes point b's F
 // outputs out_s = a_L[s·B + b]·w_out + b_out (warp w: s = w, w + kFoldWarps,
@@ -1199,6 +1353,11 @@ cudaError_t enqueue_step(const StepArgs* args, const Consts& c, int j,
                           F * sizeof(float), main>>>(
         args, j, c, off.w_out, off.b_out, H, B, F, at(A, L), G, PL,
         at(DZ, L), ss, n);
+  } else if constexpr (S::kCausal) {
+    causal_loss_kernel<S><<<dim3(1, reps), kCausalThreads,
+                            kCausalFloats * B * sizeof(float), main>>>(
+        args, j, c, off.w_out, off.b_out, H, B, at(Z, L), at(A, L), G, PL,
+        at(DZ, L), ss, n);
   } else {
     loss_kernel<S><<<dim3(dednn::ceil_div(B, kLossWarps), reps),
                      32 * kLossWarps, 0, main>>>(
@@ -1259,6 +1418,7 @@ auto dispatch(int spec, F&& f) -> decltype(f(Heat{})) {
     case 12: return f(HardHeat2D{});
     case 13: return f(HardWave{});
     case 14: return f(HardPoisson{});
+    case 15: return f(CausalAdvection{});
     default: return -1;
   }
 }
@@ -1282,6 +1442,12 @@ StepArgs host_args(const float* consts, const float* cnst, float* p,
 // A folded spec's F groups: at least 1, and its loss kernel's outputs in
 // the 48 KB of shared memory a block takes without opting in.
 bool fold_ok(int F) { return F >= 1 && F <= kMaxFold; }
+
+// The batch of spec S's loss kernel: a causal spec's in its shared memory.
+template <class S>
+bool batch_ok(int B) {
+  return !S::kCausal || (B >= 1 && B <= kCausalMaxBatch);
+}
 
 }  // namespace
 
@@ -1327,6 +1493,7 @@ extern "C" int engine_grad(int spec, const float* consts, const float* cnst,
                                nullptr, u, loss, 0, grad);
   const int code = dispatch(spec, [&](auto s) -> int {
     using S = decltype(s);
+    if (!batch_ok<S>(B)) return cudaErrorInvalidValue;
     cudaError_t err = dednn::prepare_step<Rules<S>, wg_groups<S>()>();
     if (err == cudaSuccess) err = write_args(dev, a, st);
     if (err != cudaSuccess) return err;
@@ -1354,6 +1521,7 @@ extern "C" int engine_graph_build(int spec, const float* consts, int B, int H,
                              nullptr, nullptr, 0, nullptr).c;
   const int code = dispatch(spec, [&](auto s) -> int {
     using Spec = decltype(s);
+    if (!batch_ok<Spec>(B)) return cudaErrorInvalidValue;
     const cudaError_t err =
         dednn::prepare_step<Rules<Spec>, wg_groups<Spec>()>();
     if (err != cudaSuccess) return err;
@@ -1403,6 +1571,7 @@ extern "C" int engine_train_packed(int spec, const float* consts,
   a.sched = Schedule{schedule, horizon, decay, half_span, log_decay};
   const int code = dispatch(spec, [&](auto s) -> int {
     using Spec = decltype(s);
+    if (!batch_ok<Spec>(B)) return cudaErrorInvalidValue;
     cudaError_t err = dednn::prepare_step<Rules<Spec>, wg_groups<Spec>()>();
     if (err == cudaSuccess) err = write_args(dev, a, st);
     if (err != cudaSuccess) return err;

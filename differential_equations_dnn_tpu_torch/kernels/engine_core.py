@@ -98,8 +98,10 @@ def scheduled_lr(lrate, t, schedule="constant", horizon=1.0, decay=0.1):
     """The learning rate of step ``t`` (a 1-indexed fp32 tensor), as the JAX
     kernel computes it (engine_core.py:128-151): cosine decays from lrate to
     lrate·decay over ``horizon`` steps and then holds; exponential reaches
-    lrate·decay at ``horizon``."""
-    lr = torch.tensor(lrate, dtype=torch.float32, device=t.device)
+    lrate·decay at ``horizon``. ``lrate`` is a float or, for a CUDA graph
+    (which cannot copy a host number in), an fp32 tensor on t's device."""
+    lr = (lrate if torch.is_tensor(lrate)
+          else torch.tensor(lrate, dtype=torch.float32, device=t.device))
     horizon = float(horizon)
     if schedule == "cosine":
         frac = torch.clamp_max((t - 1.0) / horizon, 1.0)

@@ -33,16 +33,15 @@ A spec may also declare (with the defaults of :class:`_Spec`):
 * ``fold`` — value-only groups the kernels lay out as one stream of
   ``fold``·B rows (volterra's 1 + k), so that they tile R = 1 rows.
 
-Ported specs: simple_ode, heat, burgers, wave, advection (``causal_eps=0``),
-poisson, heat2d, volterra (Gauss rule), uat and inverse_heat, and the
+Ported specs: simple_ode, heat, burgers, wave, advection (causal too:
+its ``[B, B]`` weighting in a cross-point loss kernel), poisson, heat2d, volterra (Gauss rule), uat and inverse_heat, and the
 hard-constraint specs of simple_ode, heat, heat2d, wave and poisson
 (``HARD_SPECS``: the raw net of a models.hard.HardConstraint, interior rows
 only, the ansatz derivatives composed in the loss), at
 ``precision="highest"``, as single runs (``fused_engine_chunk``,
 ``train_fused_result``) and as packed-replica ensembles
-(``fused_engine_packed_chunk``, ``train_fused_ensemble_packed``). Causal
-advection, the runtime masks and the packed sweep mode are not ported
-(ROADMAP.md).
+(``fused_engine_packed_chunk``, ``train_fused_ensemble_packed``). The
+runtime masks and the packed sweep mode are not ported (ROADMAP.md).
 
 On the card a chunk replays a CUDA graph of GRAPH_STEPS training steps,
 captured on the first call of its shape and cached (kernels/graphs.py), as
@@ -61,9 +60,6 @@ import torch
 from differential_equations_dnn_tpu_torch.core.prng import (
     generator,
     step_uniforms,
-)
-from differential_equations_dnn_tpu_torch.equations.advection import (
-    CAUSAL_TODO,
 )
 from differential_equations_dnn_tpu_torch.equations.inverse_heat import (
     _InverseModel,
@@ -90,6 +86,10 @@ from differential_equations_dnn_tpu_torch.models import (
     HardConstraint,
     Perceptron,
 )
+from differential_equations_dnn_tpu_torch.ops.sampling import (
+    coprime_stride as _coprime_stride,
+)
+from differential_equations_dnn_tpu_torch.ops.sampling import stride_strata
 
 _N_CONSTS = 8  # floats of kernel_consts the CUDA specs read
 # The most groups a spec may fold (csrc/engine_train.cu kMaxFold: a point's
@@ -97,6 +97,9 @@ _N_CONSTS = 8  # floats of kernel_consts the CUDA specs read
 # weight gradients take a folded spec's groups (kFoldGroups).
 MAX_FOLD = 48 * 1024 // 4
 FOLD_GROUPS = 8
+# The largest batch of causal advection's loss kernel (csrc/engine_train.cu
+# kCausalMaxBatch): six floats a point in 48 KB of shared memory.
+CAUSAL_MAX_BATCH = 48 * 1024 // (6 * 4)
 
 # The widest hidden width the plan holds (csrc/stream_layer.cuh).
 MAX_WIDTH = engine_core.MAX_WIDTH
@@ -272,6 +275,7 @@ class _Spec:
     its groups."""
     extra_shapes = ()
     build_with_const = False
+    causal = False  # a cross-point loss (causal advection's weighting)
     fold = 1  # groups laid out as one value stream (volterra: 1 + k)
     model_text = "a plain tanh MLP {D} → H×L → 1 (L ≥ 1)"
 
@@ -291,6 +295,11 @@ class _Spec:
 
     def make_const(self, B, device=None):
         return None
+
+    def batch_consts(self, B):
+        """The numbers of the kernel's spec that depend on the batch size,
+        after ``kernel_consts()``."""
+        return ()
 
     def supports_model(self, model):
         return (isinstance(model, MLP) and model.activation == "tanh"
@@ -372,24 +381,43 @@ class HeatSpec(_Spec):
 @dataclass(frozen=True)
 class AdvectionSpec(_Spec):
     """u_t + c·u_x = 0 (equations.advection): first-order transport, R = 5.
-    Causal residual weighting (``causal_eps > 0``) is not ported."""
+    With ``causal_eps > 0`` row i's t lies in stratum (i·m) mod B
+    (ops.stride_strata: every prefix of rows spreads over [0, t_max]), and
+    the loss weights the interior residual energies r by exp(−ε·cum),
+    cum = Δt·Σ_{t_j < t_i} r_j (strict: equal t do not count), without
+    gradient: the JAX package's [B, B] comparison-mask product. The kernel
+    is its own (kernel id 15): a loss kernel across the batch."""
     p: object
     n_uniform: int = 2
     input_dim = 2
-    kernel_id = 4
     groups = (Group(n_first=2),    # interior: v, x-tangent, t-tangent
               Group(), Group())    # t=0 face, inflow x=0
 
-    def __post_init__(self):
-        if getattr(self.p, "causal_eps", 0.0) > 0.0:
-            raise NotImplementedError(CAUSAL_TODO)
+    @property
+    def causal(self):
+        return self.p.causal_eps > 0.0
+
+    @property
+    def kernel_id(self):
+        return 15 if self.causal else 4
 
     def kernel_consts(self):
-        return (self.p.x_max, self.p.t_max, self.p.c, -self.p.c)
+        p = self.p
+        return ((p.x_max, p.t_max, p.c, -p.c)
+                + ((p.causal_eps,) if self.causal else ()))
+
+    def batch_consts(self, B):
+        if not self.causal:
+            return ()
+        return (self.p.t_max / B, _coprime_stride(B))
 
     def build(self, u):
         x = self.p.x_max * u[:, :1]
-        t = self.p.t_max * u[:, 1:2]
+        if self.causal:
+            B = u.shape[0]
+            t = (stride_strata(B, u.device) + u[:, 1:2]) * (self.p.t_max / B)
+        else:
+            t = self.p.t_max * u[:, 1:2]
         zero = torch.zeros_like(x)
         one = torch.ones_like(x)
         X = torch.cat([
@@ -403,7 +431,13 @@ class AdvectionSpec(_Spec):
         r = torch.square(u_t + self.p.c * u_x)
         icbc = (torch.square(u0 - torch.sin(ctx["x"]))
                 + torch.square(ub - torch.sin(-self.p.c * ctx["t"])))
-        return _smean(r + icbc)
+        if not self.causal:
+            return _smean(r + icbc)
+        t = ctx["t"]                                    # [B, 1]
+        earlier = (t.T < t).to(r.dtype)                 # [B, B]
+        cum = (earlier @ r.detach()) * (self.p.t_max / r.shape[0])
+        wgt = torch.exp(-self.p.causal_eps * cum).detach()
+        return _smean(wgt * r) + _smean(icbc)
 
 
 @dataclass(frozen=True)
@@ -1116,12 +1150,16 @@ def _check_inputs(spec, model, tensors, const, lib, n_replicas=None):
         raise ValueError(f"the {spec.p.name!r} spec folds {spec.fold} "
                          f"groups; the fused engine's loss kernel holds at "
                          f"most {MAX_FOLD}")
+    if spec.causal and uniforms.shape[-2] > CAUSAL_MAX_BATCH:
+        raise ValueError(f"causal advection's loss kernel holds a batch of "
+                         f"at most {CAUSAL_MAX_BATCH} points in shared "
+                         f"memory (got {uniforms.shape[-2]})")
     engine_core.check_state_fits(lib.engine_smem_bytes(spec.kernel_id, H),
                                  R, H)
 
 
-def _consts(spec):
-    vals = [float(c) for c in spec.kernel_consts()]
+def _consts(spec, B):
+    vals = [float(c) for c in spec.kernel_consts() + spec.batch_consts(B)]
     return (ctypes.c_float * _N_CONSTS)(*vals, *[0.0] * (_N_CONSTS -
                                                          len(vals)))
 
@@ -1155,7 +1193,7 @@ def engine_loss_grad(spec, model, params, u, const=None):
     loss = torch.empty((), device=u.device)
     args = graphs.args_block(lib.engine_args_bytes(), u.device)
     with torch.cuda.device(u.device):
-        code = lib.engine_grad(spec.kernel_id, _consts(spec),
+        code = lib.engine_grad(spec.kernel_id, _consts(spec, B),
                                _ptr(const), params.data_ptr(), u.data_ptr(),
                                scratch.data_ptr(), grad.data_ptr(),
                                loss.data_ptr(), args.data_ptr(), B, H, L,
@@ -1204,7 +1242,7 @@ def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
     F = spec.fold
     device = uniforms.device
     floats = lib.engine_scratch_floats(spec.kernel_id, B, H, L, F)
-    consts = _consts(spec)
+    consts = _consts(spec, B)
     # The spec's numbers are kernel arguments of the captured graph.
     key = ("engine", spec.kernel_id, tuple(consts), B, H, L, F, n_replicas,
            GRAPH_STEPS, device)

@@ -15,12 +15,14 @@ limit. With ``--replicas N [N ...]`` it times the packed-replica kernel
 (#5) instead, one run per N: N replicas drawn from ``replica_generator(0,
 r)`` in every launch, with µs per packed step and per replica-step. With
 ``--solve-seeds N`` it also runs ``solve(NAME, engine="fused")`` at the
-reference defaults (or with ``--solve-args``) for seeds 0 .. N−1 and
-prints each MAE and warm it/s. With ``--scan NAME [NAME ...]`` it times
+reference defaults (or with ``--solve-args``, which may name
+``"engine": "scan"``) for seeds 0 .. N−1 and prints each MAE and warm
+it/s. With ``--scan NAME [NAME ...]`` it times
 steps of the scan trainer (train.trainer.make_train_step, default model
-and config, seed 0) instead, ``--taps`` choosing heat's taps: the same
-per-kernel lines, launches per step, and the device's idle share of the
-event-timed step. ``--scan NAME --solve-seeds N`` runs
+and config, seed 0) instead, as ``train`` runs them on the card: replays
+of one captured CUDA graph of GRAPH_STEPS steps (train.trainer.ScanGraph),
+``--taps`` choosing heat's taps: the same per-kernel lines, launches per
+step, and the device's idle share of the event-timed step. ``--scan NAME --solve-seeds N`` runs
 ``solve(NAME, engine="scan")`` for every taps of ``--taps``, Adam update of
 ``--adam`` (torch's fused or foreach) and seed, ``--workers`` at a time,
 and compares the taps' loss histories. ``--probe`` times what a fused
@@ -159,21 +161,32 @@ def _packed_fn(name, device, n_replicas):
 
 
 def _scan_fn(name, device, taps=None):
-    """A closure running STEPS scan-trainer steps of NAME, each on its own
-    batch (drawn up front, on the device), from the default model."""
+    """A closure replaying one CUDA graph of GRAPH_STEPS scan-trainer steps
+    of NAME (``run.steps``), each on its own batch (drawn up front, on the
+    device), from the default model, as ``train`` replays them. (Imported
+    here, so that an earlier tree's package can run this file's other
+    modes.)"""
+    from differential_equations_dnn_tpu_torch.train.trainer import (
+        GRAPH_STEPS,
+        DeviceSchedule,
+        ScanGraph,
+    )
+
     prob = PROBLEMS[name](**({"taps": taps} if taps else {}))
     d = prob.defaults
     model = prob.default_model(generator=generator(0), device=device)
     config = TrainConfig(iterations=d.iterations, batch_size=d.batch_size,
                          lrate=d.lrate, schedule=d.schedule, verbose=False)
-    step = make_train_step(prob, model,
-                           make_optimizer(config, model.parameters()),
-                           d.batch_size)
-    block = draw_batches(prob, 0, 0, STEPS, step.draw_size, device)
+    optimizer = make_optimizer(config, model.parameters())
+    schedule = DeviceSchedule(optimizer)
+    step = make_train_step(prob, model, optimizer, d.batch_size,
+                           schedule=schedule)
+    block = draw_batches(prob, 0, 0, GRAPH_STEPS, step.draw_size, device)
+    graph = ScanGraph(step, block, model, optimizer, schedule, name)
 
     def run():
-        for j in range(STEPS):
-            step({k: v[j] for k, v in block.items()})
+        graph.replay(block)
+    run.steps = GRAPH_STEPS
     return run
 
 
@@ -194,14 +207,15 @@ def _kernel_times(prof):
 
 
 def _event_us(run):
-    """µs per step of ``run()`` (STEPS steps) between CUDA events."""
+    """µs per step of ``run()`` (``run.steps`` steps, else STEPS) between
+    CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     run()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) * 1e3 / STEPS
+    return start.elapsed_time(end) * 1e3 / getattr(run, "steps", STEPS)
 
 
 def profile(name, device, n_replicas=None, scan_taps=False, engine=False):
@@ -216,6 +230,7 @@ def profile(name, device, n_replicas=None, scan_taps=False, engine=False):
         run = _packed_fn(name, device, n_replicas)
     run()
     torch.cuda.synchronize(device)
+    steps = getattr(run, "steps", STEPS)
     step_us = _event_us(run)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -226,7 +241,7 @@ def profile(name, device, n_replicas=None, scan_taps=False, engine=False):
     # (its host-side hooks) shows in a host-bound step.
     after_us = _event_us(run)
     times = _kernel_times(prof)
-    total = sum(us for us, _ in times.values()) / STEPS
+    total = sum(us for us, _ in times.values()) / steps
     label = name if n_replicas is None else (
         f"{name} packed, N={n_replicas} ({step_us / n_replicas:.2f} us per "
         f"replica-step)")
@@ -234,31 +249,33 @@ def profile(name, device, n_replicas=None, scan_taps=False, engine=False):
         label = f"{name} scan step (taps={scan_taps or 'default'})"
     elif engine and name == "heat":
         label = f"{name} on the generic engine (constant lr)"
-    launches = sum(calls for _, calls in times.values()) / STEPS
+    launches = sum(calls for _, calls in times.values()) / steps
     share = total / step_us
     # Above 1 the kernels overlap (the DGM step's weight-gradient branches),
     # and the idle share is not defined by this sum.
     idle = (f"idle {1 - share:.3f}" if share <= 1 else
             "kernels overlap on parallel streams")
-    print(f"{label}: {step_us:.2f} us/step (CUDA events, K={STEPS}); "
+    print(f"{label}: {step_us:.2f} us/step (CUDA events, K={steps}); "
           f"kernels {total:.2f} us/step under the profiler "
           f"(share of the event-timed step {share:.3f}, {idle}); "
           f"{launches:.1f} launches/step; "
           f"{after_us:.2f} us/step after the profiler session")
     for kernel, (us, calls) in sorted(times.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {kernel:24s} {us / STEPS:8.2f} us/step  "
-              f"{calls / STEPS:5.2f} launches/step  "
+        print(f"  {kernel:24s} {us / steps:8.2f} us/step  "
+              f"{calls / steps:5.2f} launches/step  "
               f"{us / calls:7.2f} us/launch")
 
 
 def solve_seeds(name, n_seeds, **solve_kw):
     """MAE and warm it/s of ``solve(name, engine="fused", **solve_kw)`` per
-    seed (inverse_heat: and the κ̂ error)."""
+    seed (inverse_heat: and the κ̂ error); ``solve_kw`` may name another
+    engine."""
     from differential_equations_dnn_tpu_torch import solve
 
+    solve_kw = {"engine": "fused", **solve_kw}
     maes = []
     for seed in range(n_seeds):
-        res = solve(name, engine="fused", seed=seed, **solve_kw)
+        res = solve(name, seed=seed, **solve_kw)
         maes.append(res.mae)
         kappa = (f", kappa error {res.problem.kappa_error(res.params):.6g}"
                  if hasattr(res.problem, "kappa_error") else "")
@@ -743,9 +760,10 @@ def main():
                         help="time constant-lr heat on the generic engine "
                         "instead of kernel #1")
     parser.add_argument("--solve-args", type=json.loads, default={},
-                        metavar="JSON", help="more arguments of the fused "
+                        metavar="JSON", help="more arguments of the "
                         "--solve-seeds solves, as a JSON object (such as "
-                        '\'{"iterations": 50000}\')')
+                        '\'{"iterations": 50000}\' or \'{"engine": '
+                        '"scan"}\')')
     args = parser.parse_args()
     device = build.resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -9,7 +9,11 @@ from differential_equations_dnn_tpu_torch.ops.quad import (
     integrate,
     montecarlo_nodes,
 )
-from differential_equations_dnn_tpu_torch.ops.sampling import GridSubsample
+from differential_equations_dnn_tpu_torch.ops.sampling import (
+    GridSubsample,
+    coprime_stride,
+    stride_strata,
+)
 from differential_equations_dnn_tpu_torch.ops.taylor import (
     heat_fused_streams,
     mlp_streams,
@@ -24,6 +28,8 @@ __all__ = [
     "integrate",
     "montecarlo_nodes",
     "GridSubsample",
+    "coprime_stride",
+    "stride_strata",
     "heat_fused_streams",
     "mlp_streams",
 ]

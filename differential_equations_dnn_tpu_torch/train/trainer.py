@@ -3,8 +3,11 @@
 Counterpart of the JAX package's train/trainer.py. One trainer serves every
 equation and model: each step draws a collocation batch, takes
 ``problem.loss`` and its gradient with autograd, and applies one optimizer
-update. The JAX package scans the steps of a chunk inside one jit; here
-they run eagerly, each a sequence of kernel launches, and:
+update. The JAX package scans the steps of a chunk inside one jit; here, on
+a CUDA device, GRAPH_STEPS steps are captured once per ``train`` call as one
+CUDA graph (:class:`ScanGraph`) and replayed for every whole block of
+draws, the steps left over run eagerly, and on the CPU every step runs
+eagerly. Further:
 
 * Step ``i`` draws its batch from ``step_generator(seed, i)``, the
   counterpart of ``fold_in(run_key, i)``: a chunked run equals an uncut
@@ -14,9 +17,15 @@ they run eagerly, each a sequence of kernel launches, and:
   ``log_every`` and ``metrics_file``; no step waits for the device.
 * The learning rate follows ``kernels.engine_core.scheduled_lr`` at the
   optimizer's own update count, as optax's schedules do; the count is part
-  of the optimizer state, so a resumed run continues its schedule.
+  of the optimizer state, so a resumed run continues its schedule. On a
+  CUDA device the lr and the count are device tensors that the step itself
+  advances (:class:`DeviceSchedule`), and Adam and AdamW run torch's fused,
+  capturable update with that lr tensor, so a replayed graph and an eager
+  step give the same bits.
 * Host snapshots of the model and optimizer state every ``snapshot_every``
-  chunks back the retry of a failed chunk (``inject_fault`` tests it).
+  chunks back the retry of a failed chunk (``inject_fault`` tests it); a
+  retry captures the graph anew, since restoring replaces the tensors the
+  old one read.
 
 The fused trainers (kernels.fused_train, kernels.fused_engine,
 kernels.fused_dgm) fill the same ``TrainResult``.
@@ -38,14 +47,25 @@ from differential_equations_dnn_tpu_torch.core.prng import (
     generator,
     step_generator,
 )
-from differential_equations_dnn_tpu_torch.kernels import build
+from differential_equations_dnn_tpu_torch.kernels import build, taylor_mlp
 from differential_equations_dnn_tpu_torch.kernels.engine_core import (
     check_schedule,
     scheduled_lr,
 )
 
-# Steps whose batches are drawn, pinned and copied to the device together.
+# Steps whose batches are drawn, pinned and copied to the device together,
+# and the steps of one captured CUDA graph of the scan step.
 DRAW_BLOCK = 256
+GRAPH_STEPS = DRAW_BLOCK
+
+# Graphs of the scan step captured in this process, the host seconds each
+# capture took (its warm-up step and instantiation included), and their
+# replays.
+graph_stats = {"captures": 0, "capture_seconds": [], "replays": 0}
+
+# The wrappers of hand-written kernels a scan step may launch: a replay
+# adds each one's launches per graph to its count, as eager steps do.
+_COUNTED = (taylor_mlp.heat_fused_streams,)
 
 # ---------------------------------------------------------------------------
 # Fault injection (the test hook of the snapshot/retry recovery)
@@ -144,25 +164,31 @@ def make_optimizer(config: TrainConfig, params,
     package's optax one (train/trainer.py:163-174): Adam with torch's
     defaults (eps outside the square root, as ``optax.adam(eps=1e-8)``),
     AdamW with optax's weight decay 1e-4 (torch's own default is 1e-2), or
-    plain SGD. ``fused=None`` gives Adam and AdamW torch's fused update on
-    the GPU (one launch for all parameters instead of seven and far less
-    host work per step) and the default on the CPU; ``False`` asks for the
-    default (foreach) update everywhere. Each param group also carries the
+    plain SGD. ``fused=None`` gives torch's fused update on the GPU (one
+    launch for all parameters instead of seven and far less host work per
+    step) and the default on the CPU; ``False`` asks for the default
+    (foreach) update everywhere, which SGD cannot run inside a CUDA graph.
+    On the GPU the lr is a device tensor (:class:`DeviceSchedule` sets it)
+    and Adam and AdamW are capturable. Each param group also carries the
     lr schedule (``lrate``, ``schedule``, ``horizon``, ``decay``) and the
     update ``count``, so the count travels with ``state_dict()`` as optax's
     does."""
     check_schedule(config.schedule)
     params = list(params)
+    cuda = bool(params) and all(p.is_cuda for p in params)
     if fused is None:
-        fused = bool(params) and all(p.is_cuda for p in params)
+        fused = cuda
+    lr = (torch.tensor(config.lrate, dtype=torch.float32,
+                       device=params[0].device) if cuda else config.lrate)
     if config.optimizer == "adam":
-        opt = torch.optim.Adam(params, lr=config.lrate, betas=(0.9, 0.999),
-                               eps=1e-8, fused=fused)
+        opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                               fused=fused, capturable=cuda)
     elif config.optimizer == "adamw":
-        opt = torch.optim.AdamW(params, lr=config.lrate, betas=(0.9, 0.999),
-                                eps=1e-8, weight_decay=1e-4, fused=fused)
+        opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4, fused=fused,
+                                capturable=cuda)
     elif config.optimizer == "sgd":
-        opt = torch.optim.SGD(params, lr=config.lrate)
+        opt = torch.optim.SGD(params, lr=lr, fused=fused)
     else:
         raise ValueError(f"unknown optimizer {config.optimizer!r} "
                          f"(adam | adamw | sgd)")
@@ -202,11 +228,57 @@ def _set_lr(optimizer) -> None:
         group["count"] += 1
 
 
+class DeviceSchedule:
+    """The lr of each param group as a device tensor, which the optimizer
+    reads, computed on the device by ``scheduled_lr`` from a device update
+    count: what a CUDA graph of the step can advance (the host float
+    ``_set_lr`` writes would be frozen into the graph). It takes each
+    group's ``lrate``, schedule and ``count`` when made; the host count
+    moves on by :meth:`count_steps`, never inside a step."""
+
+    def __init__(self, optimizer):
+        self.reset(optimizer)
+
+    def reset(self, optimizer):
+        """New lr and count tensors from ``optimizer``'s groups (after a
+        ``load_state_dict``, which replaces the groups)."""
+        self.rows = []
+        for group in optimizer.param_groups:
+            device = group["params"][0].device
+            lrate = torch.tensor(float(group["lrate"]), dtype=torch.float32,
+                                 device=device)
+            group["lr"] = lrate.clone()
+            count = torch.tensor(float(group["count"]), dtype=torch.float32,
+                                 device=device)
+            self.rows.append((group, lrate, count))
+
+    def advance(self):
+        """The lr of the coming update (at count + 1), then count + 1."""
+        for group, lrate, count in self.rows:
+            if group["schedule"] != "constant":
+                group["lr"].copy_(scheduled_lr(lrate, count + 1.0,
+                                               group["schedule"],
+                                               group["horizon"],
+                                               group["decay"]))
+            count.add_(1.0)
+
+    def state(self):
+        """The device lr and count tensors (what a retry restores)."""
+        return [t for group, _, count in self.rows
+                for t in (group["lr"], count)]
+
+    def count_steps(self, n):
+        for group, _, _ in self.rows:
+            group["count"] += n
+
+
 def make_train_step(problem, model, optimizer, batch_size,
-                    adaptive_oversample=0):
+                    adaptive_oversample=0, schedule=None):
     """The per-iteration step: ``step(batch) -> loss`` (a detached 0-d
     tensor on the batch's device) trains ``model`` in place with one update
-    of ``optimizer`` on ``problem.loss``.
+    of ``optimizer`` on ``problem.loss``. ``schedule`` (a
+    :class:`DeviceSchedule`, on a CUDA device) sets the lr on the device;
+    without it the host sets it (``_set_lr``).
 
     With ``adaptive_oversample = k > 1`` the batch holds ``k · batch_size``
     candidates: the step keeps the ``batch_size`` with the largest current
@@ -221,7 +293,10 @@ def make_train_step(problem, model, optimizer, batch_size,
                 r = problem.point_loss(model, batch)
             idx = torch.topk(r, batch_size).indices
             batch = {k: v[idx] for k, v in batch.items()}
-        _set_lr(optimizer)
+        if schedule is None:
+            _set_lr(optimizer)
+        else:
+            schedule.advance()
         optimizer.zero_grad(set_to_none=True)
         loss = problem.loss(model, batch)
         loss.backward()
@@ -245,6 +320,78 @@ def draw_batches(problem, seed, start, n, size, device):
         block = {k: v.pin_memory().to(device, non_blocking=True)
                  for k, v in block.items()}
     return block
+
+
+class ScanGraph:
+    """GRAPH_STEPS scan steps captured as one CUDA graph: step j reads batch
+    j of a static device block and writes its loss to slot j of a static
+    ``[GRAPH_STEPS]`` buffer. :meth:`replay` copies a block of draws in,
+    replays, and returns the losses.
+
+    Capture, from ``block`` (the first block of draws): one warm-up step
+    on a side stream (which creates the optimizer's lazy state, as
+    torch.cuda.graphs asks), then the model's parameters, the optimizer's
+    state (moments zeroed where the warm-up created them) and the device
+    schedule are put back in place, and the steps are captured; capture runs
+    nothing. A step that cannot be captured raises, naming the cause: there
+    is no eager fallback."""
+
+    def __init__(self, step, block, model, optimizer, schedule, name):
+        t0 = time.perf_counter()
+        device = next(iter(block.values())).device
+        self.static = {k: v.clone() for k, v in block.items()}
+        self.losses = torch.empty(GRAPH_STEPS, device=device)
+        params = list(model.parameters())
+        saved = [t.detach().clone() for t in params + schedule.state()]
+        states = {id(p): {k: v.clone() for k, v in optimizer.state[p].items()
+                          if torch.is_tensor(v)}
+                  for p in params if optimizer.state.get(p)}
+        first = {k: v[0] for k, v in self.static.items()}
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            step(first)
+        torch.cuda.current_stream(device).wait_stream(side)
+        with torch.no_grad():
+            for t, v in zip(params + schedule.state(), saved):
+                t.copy_(v)
+            for p in params:
+                for key, v in optimizer.state[p].items():
+                    if torch.is_tensor(v):
+                        old = states.get(id(p), {}).get(key)
+                        if old is None:
+                            v.zero_()
+                        else:
+                            v.copy_(old)
+        optimizer.zero_grad(set_to_none=True)
+        before = [f.launches for f in _COUNTED]
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                for j in range(GRAPH_STEPS):
+                    batch = {k: v[j] for k, v in self.static.items()}
+                    self.losses[j].copy_(step(batch))
+        except Exception as err:
+            raise RuntimeError(
+                f"the scan trainer's step of {name!r} cannot be captured as "
+                f"a CUDA graph ({type(err).__name__}: {err}); a chunk_size "
+                f"below {GRAPH_STEPS} runs every step eagerly") from err
+        self.launches = [f.launches - b for f, b in zip(_COUNTED, before)]
+        for f, b in zip(_COUNTED, before):
+            f.launches = b  # captured, not launched
+        build.sync(device)
+        graph_stats["captures"] += 1
+        graph_stats["capture_seconds"].append(time.perf_counter() - t0)
+
+    def replay(self, block):
+        """The GRAPH_STEPS steps on ``block``'s batches; their losses."""
+        for k, v in block.items():
+            self.static[k].copy_(v)
+        self.graph.replay()
+        for f, n in zip(_COUNTED, self.launches):
+            f.launches += n
+        graph_stats["replays"] += 1
+        return self.losses.clone()
 
 
 # ---------------------------------------------------------------------------
@@ -284,10 +431,15 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
     ``config=None`` takes the iterations, batch size and lr of
     ``problem.defaults`` (not its schedule), as the JAX trainer does.
 
-    Steps run in chunks of ``config.chunk_size``; ``compile_time`` is the
-    kernel build plus one warm-up step on copies of the model and optimizer
-    state; ``wall_time`` and ``iters_per_sec`` cover the training steps
-    only, ending in ``torch.cuda.synchronize()``. ``profile_dir`` writes a
+    Steps run in chunks of ``config.chunk_size``; on a CUDA device each
+    whole block of GRAPH_STEPS steps of a chunk replays one CUDA graph
+    (:class:`ScanGraph`, captured once per call) and the rest run eagerly,
+    with the same bits: a ``chunk_size`` below GRAPH_STEPS runs every step
+    eagerly.
+    ``compile_time`` is the kernel build, one warm-up step on copies of the
+    model and optimizer state, and the graph's capture; ``wall_time`` and
+    ``iters_per_sec`` cover the training steps only, ending in
+    ``torch.cuda.synchronize()``. ``profile_dir`` writes a
     ``torch.profiler`` trace of the run there. ``device`` defaults to
     "cuda" and raises without a GPU."""
     if mesh is not None:
@@ -307,18 +459,32 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
     optimizer = make_optimizer(config, model.parameters())
     if opt_state is not None:
         load_opt_state(optimizer, opt_state)
+    cuda = device.type == "cuda"
+    schedule = DeviceSchedule(optimizer) if cuda else None
     step = make_train_step(problem, model, optimizer, config.batch_size,
-                           config.adaptive_oversample)
+                           config.adaptive_oversample, schedule)
+    chunk = max(1, min(config.chunk_size, config.iterations))
+    graphs = cuda and chunk >= GRAPH_STEPS
+    graph = None
 
     def run_chunk(start, n):
+        nonlocal graph
         losses = []
         for b0 in range(0, n, DRAW_BLOCK):
             k = min(DRAW_BLOCK, n - b0)
             block = draw_batches(problem, seed, start + b0, k,
                                  step.draw_size, device)
-            for j in range(k):
-                losses.append(step({key: v[j] for key, v in block.items()}))
-        return torch.stack(losses).cpu().numpy()
+            if graphs and k == GRAPH_STEPS:
+                if graph is None:
+                    graph = ScanGraph(step, block, model, optimizer,
+                                      schedule, problem.name)
+                losses.append(graph.replay(block))
+            else:
+                losses.extend(step({key: v[j] for key, v in block.items()})
+                              [None] for j in range(k))
+            if schedule is not None:
+                schedule.count_steps(k)
+        return torch.cat(losses).cpu().numpy()
 
     # Warm-up: the kernel build and one step on copies of the state.
     t0 = time.perf_counter()
@@ -328,14 +494,18 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
     warm_opt = make_optimizer(config, warm_model.parameters())
     warm_opt.load_state_dict(copy.deepcopy(optimizer.state_dict()))
     warm_step = make_train_step(problem, warm_model, warm_opt,
-                                config.batch_size, config.adaptive_oversample)
-    block = draw_batches(problem, seed, start_step, 1, step.draw_size, device)
+                                config.batch_size, config.adaptive_oversample,
+                                DeviceSchedule(warm_opt) if cuda else None)
+    block = draw_batches(problem, seed, start_step,
+                         GRAPH_STEPS if graphs else 1, step.draw_size, device)
     warm_step({key: v[0] for key, v in block.items()})
+    del warm_model, warm_opt, warm_step
+    if graphs:
+        graph = ScanGraph(step, block, model, optimizer, schedule,
+                          problem.name)
     build.sync(device)
     compile_time = time.perf_counter() - t0
-    del warm_model, warm_opt, warm_step
 
-    chunk = max(1, min(config.chunk_size, config.iterations))
     n_full, rem = divmod(config.iterations, chunk)
     chunks = [chunk] * n_full + ([rem] if rem else [])
     metrics_fh = open(config.metrics_file, "a") if config.metrics_file \
@@ -374,6 +544,11 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
                     (model_state, opt_saved), done, ci = snapshot
                     model.load_state_dict(model_state)
                     optimizer.load_state_dict(copy.deepcopy(opt_saved))
+                    if cuda:
+                        # The optimizer's tensors were replaced: a new lr
+                        # and count, and a graph captured on them.
+                        schedule.reset(optimizer)
+                        graph = None
                     losses_out = losses_out[:ci]
                     print(f"[recovery] device failure "
                           f"({type(err).__name__}); restored snapshot at "

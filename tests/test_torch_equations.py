@@ -24,7 +24,6 @@ from differential_equations_dnn_tpu_torch.core import (  # noqa: E402
 )
 from differential_equations_dnn_tpu_torch.equations import (  # noqa: E402
     PROBLEMS,
-    Advection1D,
     Heat1D,
     Heat2D,
     Poisson2D,
@@ -115,7 +114,6 @@ def test_heat2d_taylor_taps_match_jvp():
 
 @pytest.mark.parametrize("problem, error, match", [
     (Heat1D(constraint="hard"), ValueError, "HardConstraint.*engine='scan'"),
-    (Advection1D(causal_eps=1.0), NotImplementedError, "ROADMAP.*causal"),
     (types.SimpleNamespace(name="fredholm", quadrature="montecarlo"),
      ValueError, "DGM.*engine='scan'"),
     (Volterra2(quadrature="montecarlo"), ValueError,

@@ -42,9 +42,16 @@ from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
     taylor_mlp,
 )
 from differential_equations_dnn_tpu_torch.models import MLP  # noqa: E402
+from differential_equations_dnn_tpu_torch.ops import (  # noqa: E402
+    stride_strata,
+)
 from differential_equations_dnn_tpu_torch.train import (  # noqa: E402
     TrainConfig,
+    inject_fault,
     train,
+)
+from differential_equations_dnn_tpu_torch.train import (  # noqa: E402
+    trainer,
 )
 
 pytestmark = pytest.mark.gpu
@@ -524,14 +531,15 @@ def test_scan_losses_match_cpu(cuda, name, kw):
 
 def test_scan_solve_goes_through_the_streams_kernel(cuda):
     """``solve("heat", taps="pallas")`` on the scan engine launches kernel
-    #3 once per step plus the warm-up, #2 once, no fused trainer, and
-    trains."""
+    #3 once per step plus the two warm-ups (the build's and the CUDA graph
+    capture's: 256 of the 300 steps replay the graph), #2 once, no fused
+    trainer, and trains."""
     counters = (taylor_mlp.mlp_forward, taylor_mlp.heat_fused_streams,
                 ft.heat_fused_train_chunk, fe.fused_engine_chunk)
     for fn in counters:
         fn.launches = 0
     res = solve("heat", taps="pallas", iterations=300, lrate=1e-3)
-    assert taylor_mlp.heat_fused_streams.launches == 301
+    assert taylor_mlp.heat_fused_streams.launches == 302
     assert taylor_mlp.mlp_forward.launches == 1
     assert (ft.heat_fused_train_chunk.launches,
             fe.fused_engine_chunk.launches) == (0, 0)
@@ -1129,3 +1137,231 @@ def test_solve_hard_launches_the_engine(cuda, name):
     want = np.take(res.exact, 0, axis=1 if name in ("heat", "wave") else 0)
     got = np.take(res.solution, 0, axis=1 if name in ("heat", "wave") else 0)
     np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Causal advection's cross-point loss kernel (kernel id 15)
+# ---------------------------------------------------------------------------
+
+CAUSAL = dict(c=50.0, causal_eps=5.0)
+
+
+def _causal_uniforms(B, tie, device, steps=1):
+    """Draws of ``steps`` steps at batch B; with ``tie``, the rows of strata
+    2 and 3 of every step get the same fp32 t ((2 + 1 − 2^-24)·Δt rounds to
+    3·Δt)."""
+    u = step_uniforms(0, 100, steps, B, None, 2)
+    if tie:
+        strata = stride_strata(B)[:, 0].long()
+        u[:, int((strata == 2).nonzero()[0]), 1] = 1.0 - 2.0 ** -24
+        u[:, int((strata == 3).nonzero()[0]), 1] = 0.0
+    return u.to(device)
+
+
+@pytest.mark.parametrize("B, tie", [(128, False), (100, False), (128, True)])
+def test_causal_loss_kernel_matches_plain(cuda, B, tie):
+    """The causal spec at c = 50, ε = 5: one step's loss to rtol 1e-5 and
+    each gradient tensor to 1e-5 of its largest entry (fp32 reassociation,
+    and the B-term weight sums in another order); at B = 128, at B = 100
+    (not a multiple of the 32 lanes), and with two rows of equal t, which
+    the kernel's strict comparison must not count, as the plain version's
+    does not. A 50-step chunk (one graph replay) to rtol 1e-4 / parameters
+    rtol 1e-4 plus 2·lr, cut at 25 bit for bit with the uncut chunk."""
+    prob = PROBLEMS["advection"](**CAUSAL)
+    spec = fe.spec_for(prob)
+    model = prob.default_model(generator=generator(0), device=cuda)
+    p = fe.pack_state(spec, model)
+    u = _causal_uniforms(B, tie, cuda, steps=50)
+    if tie:
+        t = spec.build(u[0].cpu())[1]["t"][:, 0]
+        assert len(set(t.tolist())) == B - 1
+    loss_k, grad_k = fe.engine_loss_grad(spec, model, p, u[0])
+    loss_p, grad_p = fe.engine_loss_grad_plain(spec, model, p, u[0])
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+    for gk, gp in zip(fe.unpack_state(spec, model, grad_k),
+                      fe.unpack_state(spec, model, grad_p)):
+        torch.testing.assert_close(gk, gp, rtol=1e-4,
+                                   atol=1e-5 * float(gp.abs().max()))
+    lr = prob.defaults.lrate
+    kw = dict(schedule="cosine", total_steps=200)
+    z = torch.zeros_like(p)
+    pk, mk, vk, lk = fe.fused_engine_chunk(spec, model, p, z, z, u, 100, lr,
+                                           **kw)
+    pp, _, _, lp = fe.fused_engine_chunk_plain(spec, model, p, z, z, u, 100,
+                                               lr, **kw)
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=2 * lr)
+    p2, m2, v2, l2 = fe.fused_engine_chunk(spec, model, p, z, z, u[:25], 100,
+                                           lr, **kw)
+    p2, m2, v2, l2b = fe.fused_engine_chunk(spec, model, p2, m2, v2, u[25:],
+                                            125, lr, **kw)
+    assert torch.equal(torch.cat([l2, l2b]), lk) and torch.equal(p2, pk)
+    assert torch.equal(m2, mk) and torch.equal(v2, vk)
+
+
+def test_causal_packed_equals_single(cuda):
+    """The causal spec packed at N = 2 (50 steps: one graph replay): each
+    replica equals the single chunk on its state bit for bit, and the
+    packed plain version within the single chunk's tolerances."""
+    prob = PROBLEMS["advection"](**CAUSAL)
+    spec = fe.spec_for(prob)
+    B, lr = prob.defaults.batch_size, prob.defaults.lrate
+    models = [prob.default_model(generator=replica_generator(0, r),
+                                 device=cuda) for r in range(2)]
+    p = engine_core.stack_replicas([fe.pack_state(spec, m) for m in models])
+    z = torch.zeros_like(p)
+    u = _causal_uniforms(B, False, cuda, steps=50)
+    kw = dict(schedule="cosine", total_steps=200)
+    pk, mk, vk, lk = fe.fused_engine_packed_chunk(spec, models[0], p, z, z,
+                                                  u, 100, lr, 2, **kw)
+    for r in range(2):
+        p1, m1, v1, l1 = fe.fused_engine_chunk(spec, models[0],
+                                               p[r].contiguous(),
+                                               z[r].clone(), z[r].clone(), u,
+                                               100, lr, **kw)
+        assert torch.equal(l1, lk[r]) and torch.equal(p1, pk[r])
+        assert torch.equal(m1, mk[r]) and torch.equal(v1, vk[r])
+    pp, _, _, lp = fe.fused_engine_packed_chunk_plain(spec, models[0], p, z,
+                                                      z, u, 100, lr, 2, **kw)
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=2 * lr)
+
+
+def test_causal_batch_limit(cuda):
+    """Past CAUSAL_MAX_BATCH points (the loss kernel's shared memory) both
+    entry points raise a ValueError naming it, before any launch; the
+    limit itself runs."""
+    prob = PROBLEMS["advection"](**CAUSAL)
+    spec = fe.spec_for(prob)
+    model = MLP(2, 1, 16, 1, "tanh", generator=generator(0), device=cuda)
+    p = fe.pack_state(spec, model)
+    fe.engine_loss_grad.launches = 0
+    fe.fused_engine_chunk.launches = 0
+    B = fe.CAUSAL_MAX_BATCH
+    u = torch.rand((1, B + 1, 2), generator=generator(1)).to(cuda)
+    with pytest.raises(ValueError, match=str(B)):
+        fe.engine_loss_grad(spec, model, p, u[0])
+    with pytest.raises(ValueError, match=str(B)):
+        fe.fused_engine_chunk(spec, model, p, p, p, u, 0, 1e-3)
+    assert (fe.engine_loss_grad.launches,
+            fe.fused_engine_chunk.launches) == (0, 0)
+    loss_k, _ = fe.engine_loss_grad(spec, model, p, u[0, :B])
+    loss_p, _ = fe.engine_loss_grad_plain(spec, model, p, u[0, :B])
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("ensemble", [None, 2])
+def test_solve_causal_launches_the_engine(cuda, ensemble):
+    """A short causal fused ``solve`` runs the causal spec's step math once
+    per step and in the warm-up inside #4, or inside #5 for 2 replicas, and
+    evaluates through #2 once."""
+    for fn in (taylor_mlp.mlp_forward, fe.fused_engine_chunk,
+               fe.fused_engine_packed_chunk):
+        fn.launches = 0
+    fe.fused_engine_chunk.step_math_runs = 0
+    fe.fused_engine_packed_chunk.step_math_runs = 0
+    res = solve("advection", engine="fused", iterations=300,
+                ensemble=ensemble, **CAUSAL)
+    assert taylor_mlp.mlp_forward.launches == 1
+    if ensemble:
+        assert fe.fused_engine_packed_chunk.step_math_runs == 2 * 301
+        assert fe.fused_engine_chunk.launches == 0
+    else:
+        assert fe.fused_engine_chunk.step_math_runs == 301
+    assert np.all(np.isfinite(res.loss_history))
+
+
+# ---------------------------------------------------------------------------
+# The scan trainer's CUDA graphs
+# ---------------------------------------------------------------------------
+
+SCAN_CASES = {
+    "heat_jvp": ("heat", {}, {}),
+    "heat_pallas": ("heat", {"taps": "pallas"}, {}),
+    "simple_ode": ("simple_ode", {}, {}),
+    "causal_advection": ("advection", CAUSAL, {}),
+    "volterra_mc": ("volterra", {"quadrature": "montecarlo"}, {}),
+    "fredholm_mc": ("fredholm", {"quadrature": "montecarlo"}, {}),
+    "oversample": ("simple_ode", {}, {"adaptive_oversample": 2}),
+}
+
+
+def _scan_run(name, kw, cfg_kw, device, **train_kw):
+    prob = PROBLEMS[name](**kw)
+    d = prob.defaults
+    cfg = TrainConfig(**{**dict(iterations=300, batch_size=d.batch_size,
+                                lrate=d.lrate, schedule=d.schedule,
+                                verbose=False), **cfg_kw})
+    res = train(prob, 0, cfg, device=device, **train_kw)
+    return res, [t.detach().cpu() for t in res.params.parameters()]
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_scan_graph_equals_eager(cuda, case):
+    """300 scan steps (one 256-step CUDA graph replay, then 44 eager steps)
+    against the same 300 steps all eager under the same optimizer settings
+    (capturable Adam, the lr a device tensor; chunks of 100 steps, shorter
+    than a graph): losses and parameters bit for bit; one capture and one
+    replay."""
+    name, kw, cfg_kw = SCAN_CASES[case]
+    before = dict(trainer.graph_stats)
+    graphed, pg = _scan_run(name, kw, cfg_kw, cuda)
+    assert trainer.graph_stats["captures"] == before["captures"] + 1
+    assert trainer.graph_stats["replays"] == before["replays"] + 1
+    eager, pe = _scan_run(name, kw, {**cfg_kw, "chunk_size": 100}, cuda)
+    assert trainer.graph_stats["replays"] == before["replays"] + 1
+    np.testing.assert_array_equal(graphed.loss_history, eager.loss_history)
+    assert all(torch.equal(a, b) for a, b in zip(pg, pe))
+    assert graphed.opt_state["param_groups"][0]["count"] == 300
+
+
+def test_scan_graph_chunked_and_resumed_equal_uncut(cuda):
+    """Under graphs, chunks of 300 steps (a replay and 44 eager steps each)
+    equal one uncut run of 600 (two replays, 88 eager steps), and so does
+    a run of 300 resumed for 300 more from its model, opt_state and
+    start_step, bit for bit (constant lr: a config's schedule spans its own
+    iterations)."""
+    uncut, pu = _scan_run("heat", {}, dict(iterations=600), cuda)
+    chunked, pc = _scan_run("heat", {}, dict(iterations=600, chunk_size=300),
+                            cuda)
+    np.testing.assert_array_equal(chunked.loss_history, uncut.loss_history)
+    assert all(torch.equal(a, b) for a, b in zip(pc, pu))
+    first, _ = _scan_run("heat", {}, {}, cuda)
+    second, ps = _scan_run("heat", {}, {}, cuda, model=first.params,
+                           opt_state=first.opt_state, start_step=300)
+    np.testing.assert_array_equal(
+        np.concatenate([first.loss_history, second.loss_history]),
+        uncut.loss_history)
+    assert all(torch.equal(a, b) for a, b in zip(ps, pu))
+
+
+def test_scan_graph_recovers_from_a_fault(cuda):
+    """A fault injected at the second chunk of a graphed run restores the
+    host snapshot, captures anew and retries: the result equals the
+    unbroken run bit for bit."""
+    base = dict(iterations=600, chunk_size=300)
+    clean, pc = _scan_run("simple_ode", {}, base, cuda)
+    before = trainer.graph_stats["captures"]
+    with inject_fault(1):
+        faulty, pf = _scan_run("simple_ode", {}, base, cuda)
+    assert trainer.graph_stats["captures"] == before + 2
+    np.testing.assert_array_equal(faulty.loss_history, clean.loss_history)
+    assert all(torch.equal(a, b) for a, b in zip(pf, pc))
+
+
+def test_scan_graph_refuses_an_uncapturable_step(cuda):
+    """A loss that reads a number back to the host mid-step cannot be
+    captured: ``train`` raises, naming the capture, and does not fall back
+    to eager steps."""
+
+    class _HostSync(PROBLEMS["simple_ode"]):
+        def loss(self, model, batch):
+            loss = super().loss(model, batch)
+            if float(loss.detach()) < 0:  # a host read: illegal under capture
+                raise AssertionError
+            return loss
+
+    prob = _HostSync()
+    cfg = TrainConfig(iterations=256, batch_size=8, verbose=False)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        train(prob, 0, cfg, device=cuda)

@@ -40,7 +40,6 @@ from differential_equations_dnn_tpu_torch.core.prng import (  # noqa: E402
 )
 from differential_equations_dnn_tpu_torch.equations import (  # noqa: E402
     PROBLEMS,
-    Advection1D,
     Heat1D,
     SimpleODE,
 )
@@ -464,8 +463,6 @@ class _Stateful(torch.nn.Module):
     (lambda: solve("heat", ensemble=2, device="cpu"), "ROADMAP.*item 13"),
     (lambda: train(SimpleODE(), 0, _cfg(), mesh=object(), device="cpu"),
      "ROADMAP.*item 14"),
-    (lambda: train(Advection1D(causal_eps=1.0), 0, _cfg(), device="cpu",
-                   model=MLP(2, 1, 4, 1, "tanh")), "ROADMAP.*item 10e"),
     (lambda: solve("heat", constraint="hard", taps="taylor", device="cpu"),
      r"Heat1D\(taps='jvp'\)"),
     (lambda: solve("volterra", quadrature="montecarlo", engine="fused",
@@ -474,8 +471,7 @@ class _Stateful(torch.nn.Module):
                    device="cpu"), "ROADMAP.*item 13"),
     (lambda: solve("fredholm", quadrature="halton", engine="fused",
                    device="cpu"), "engine='scan'"),
-], ids=["ensemble", "mesh", "causal_advection", "hard", "volterra",
-        "stateful", "halton"])
+], ids=["ensemble", "mesh", "hard", "volterra", "stateful", "halton"])
 def test_unported_scan_routes_raise(call, match):
     """What the scan engine does not run yet raises, naming its ROADMAP
     item. Volterra's Monte-Carlo and Fredholm's Halton rules run on the
