@@ -52,7 +52,21 @@ Phases (each raises on failure, so any failure exits non-zero):
               the same #6, 50- and 1 000-step checks and a packed N = 2
               chunk (bit for bit per replica). #2's row
               carries the time of the cuBLAS addmm + tanh chain (TF32
-              off) on the same inputs as its library yardstick.
+              off) on the same inputs as its library yardstick. Since PR
+              13 the "default" precision's bf16 tensor-core instances
+              (BF16_CHECKS): one step and a 50-step chunk of #1 at heat,
+              of the MLP engine at heat2d and volterra and of the DGM
+              engine at FitzHugh–Nagumo and Fredholm, each trainable
+              tensor against its plain version at "default" and several
+              times as far from its own "highest" (BF16_STEP_TOL,
+              BF16_SEPARATION, BF16_CHUNK_TOL, BF16_CHUNK_SEPARATION);
+              the packed kernel at wave N = 8, Fredholm N = 4 (the shapes
+              of the bf16 ensemble solves) and FitzHugh–Nagumo N = 16
+              (every replica bit for bit against the single chunk);
+              1 000-step chunks at "default" beside "highest" in turns
+              (#1, heat2d, wave N = 8, FitzHugh–Nagumo N = 16); each row
+              with the cuBLAS bf16 torch.matmul at its layer product's
+              shape as its library yardstick.
 4. solve    — each main path through ``solve(..., engine="fused")`` at its
               equation's reference defaults (seed 0): constant-lr heat on
               the heat kernel, heat with a cosine schedule and the nine
@@ -85,6 +99,13 @@ Phases (each raises on failure, so any failure exits non-zero):
               2-replica ensemble, and on the scan trainer. Every scan solve
               replays one captured CUDA graph per whole 256-step block of
               each chunk (a replay count), and runs the rest eagerly.
+              Since PR 13 the bf16 precisions (PRECISION_SOLVES): heat at
+              "mixed" and "default", heat2d, wave × 8 and FitzHugh–Nagumo
+              (150 000 steps) at "mixed", Fredholm × 4 at "mixed", each
+              under its equation's MAE bound, through the "default"
+              instances (a "mixed" run through both), printed beside the
+              same configuration's "highest" run; a "highest" run launches
+              no "default" instance.
 5. result   — the smoke's total seconds, a JSON line of the kernels,
               then as the last line {"ok": true, "device": {...}}.
 """
@@ -111,6 +132,7 @@ SPIN_CYCLES = 500_000_000  # about 0.3 s of the card's clock: device_ms
 # thousand launches, and a plain heat-streams call makes about 80.
 SPIN_REPS = 5
 FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 ENGINE = ["simple_ode", "heat", "burgers", "wave", "advection", "poisson",
           "heat2d"]
@@ -216,6 +238,52 @@ ACTIVATIONS = ("tanh", "sigmoid", "relu")
 # every replica to the single chunk bit for bit, as in the other cases.
 PACKED = [("wave", 8, 1e-5), ("fitzhugh_nagumo", 16, 1e-5),
           ("fredholm", 4, None)]
+# The "default" precision's checks (PR 13), tensor by tensor (w_in, b_in,
+# w_h, ...: the small input and output tensors too, which a norm of the
+# whole flat gradient would hardly see), by relative L2 norms. Both the
+# kernel and the plain version round the same operands to bf16, but they
+# compute the operands of later products an fp32 ulp apart, and such an
+# operand can round to the next bf16 value (a 2^-8 change). One step: each
+# tensor's gradient within BF16_STEP_TOL of the plain version's and at
+# least BF16_SEPARATION times as far from the kernel's own "highest" (on the
+# H100 at every checked shape, tests/test_torch_gpu.py's too: at most
+# 1.04e-3 from the plain version, inverse_heat's b_in; at least 8.6 times as
+# far from "highest", FitzHugh–Nagumo's Wh).
+BF16_STEP_TOL = 2e-3
+BF16_SEPARATION = 4
+# 50 steps: each tensor's update p_K − p_0, where Adam carries the flips
+# forward: within BF16_CHUNK_TOL of the plain version's and at least
+# BF16_CHUNK_SEPARATION times as far from "highest" (on the H100: at most
+# 1.45e-2 from the plain version and 2.6 times as far from "highest",
+# Fredholm × 4's Uh). A tensor of fewer than BF16_CHUNK_ENTRIES entries (the
+# output bias, O ≤ 2 entries; inverse_heat's κ̂) is held by the one-step
+# check alone: Adam moves each entry by about lr a step whatever its
+# gradient, so its 50-step update hardly depends on the precision
+# (FitzHugh–Nagumo's s_out.b: 1.47e-3 from the plain version, 2.02e-3 from
+# "highest").
+BF16_CHUNK_TOL = 2e-2
+BF16_CHUNK_SEPARATION = 2
+BF16_CHUNK_ENTRIES = 8
+# (route, equation, replicas): one step and a 50-step chunk each; the
+# packed cases against the single chunk bit for bit per replica. The first
+# case of each kernel gives its JSON row: the shape its PRECISION_SOLVES run
+# launches it at (the packed DGM kernel at Fredholm N = 4).
+BF16_CHECKS = [("heat", "heat", 1), ("engine", "heat2d", 1),
+               ("engine", "volterra", 1), ("engine", "wave", 8),
+               ("dgm", "fitzhugh_nagumo", 1), ("dgm", "fredholm", 4),
+               ("dgm", "fitzhugh_nagumo", 16), ("dgm", "fredholm", 1)]
+# The 1 000-step timings at "default" beside "highest": (equation, N).
+BF16_STEADY = [("heat", 1), ("heat2d", 1), ("wave", 8),
+               ("fitzhugh_nagumo", 16)]
+# The bf16 solves: (equation, solve's extra arguments, MAE bound as for the
+# equation's "highest" run).
+PRECISION_SOLVES = [("heat", {"precision": "mixed"}, 0.05),
+                    ("heat", {"precision": "default"}, 0.05),
+                    ("heat2d", {"precision": "mixed"}, 0.05),
+                    ("wave", {"ensemble": 8, "precision": "mixed"}, 0.05),
+                    ("fitzhugh_nagumo", {"precision": "mixed"}, 0.0088),
+                    ("fredholm", {"ensemble": 4, "precision": "mixed"},
+                     0.0134)]
 
 
 def cuda_ms(fn, reps=REPS):
@@ -1019,6 +1087,332 @@ def check_packed_kernels(name, n_replicas, loss_rtol, hard=False,
     return row
 
 
+def bound_bf16(product_flops, other_flops, nbytes):
+    """The least time the card could take at "default": the products on the
+    bf16 tensor cores, the rest (the stream rules, Adam) on the fp32
+    pipes, against the bytes over the HBM rate."""
+    t_ops = product_flops / BF16_FLOPS + other_flops / FP32_FLOPS
+    t_bytes = nbytes / HBM_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def rel_l2(a, b) -> float:
+    """|a − b| / |b|; 0 where both are zero."""
+    diff, ref = float((a - b).norm()), float(b.norm())
+    return diff / ref if ref else (0.0 if diff == 0 else math.inf)
+
+
+MLP_TENSORS = ("w_in", "b_in", "w_h", "b_h", "w_out", "b_out")
+DGM_TENSORS = ("s_in.w", "s_in.b", "Wzgr", "Uzgr", "bzgr", "Wh", "Uh", "bh",
+               "s_out.w", "s_out.b")
+
+
+def bf16_tensors(c, flat):
+    """{name: tensor} of case c's trainable tensors inside a flat gradient
+    or update ([P]; packed [N, P]: each tensor over all N replicas); the
+    empty tensors of an L = 0 layout left out."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
+    from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
+    from differential_equations_dnn_tpu_torch.kernels import fused_train as ft
+
+    unpack = {"heat": lambda x: ft.unpack_params(c["model"], x),
+              "engine": lambda x: fe.unpack_state(c["spec"], c["model"], x),
+              "dgm": lambda x: fd.unpack_dgm(c["model"], x)}[c["route"]]
+    tensors = (unpack(flat) if flat.dim() == 1 else
+               [torch.stack(ts) for ts in zip(*map(unpack, flat))])
+    names = DGM_TENSORS if c["route"] == "dgm" else MLP_TENSORS
+    return {names[i] if i < len(names) else f"extra{i - len(names)}": t
+            for i, t in enumerate(tensors) if t.numel()}
+
+
+def bf16_readings(c, got, plain, highest):
+    """{name: (relative L2 of got against plain, against highest, entries
+    per replica)} over case c's tensors."""
+    g, p, h = (bf16_tensors(c, x) for x in (got, plain, highest))
+    return {k: (rel_l2(g[k], p[k]), rel_l2(g[k], h[k]),
+                g[k].numel() // c["N"]) for k in g}
+
+
+def check_by_tensor(label, what, readings, tol, separation, min_entries=1):
+    """Print each tensor's relative L2 against the plain version and against
+    the kernel's own "highest"; fail unless every tensor of at least
+    min_entries entries lies within tol of the plain version and at least
+    ``separation`` times as far from "highest". Returns (the largest
+    distance from the plain version, the smallest from "highest") of the
+    tensors checked."""
+    print(f"{label} {what} by tensor, relative L2 against the plain version "
+          f"/ against \"highest\" (tolerance {tol}, separation "
+          f"{separation}x, tensors of at least {min_entries} entries): "
+          + ", ".join(f"{k} {m:.3g} / {h:.3g}"
+                      for k, (m, h, _) in readings.items()))
+    held = {k: r for k, r in readings.items() if r[2] >= min_entries}
+    bad = [k for k, (m, h, _) in held.items()
+           if not (m <= tol and separation * m < h)]
+    if bad:
+        raise AssertionError(f"{label}: {what} outside its tolerance at "
+                             f"{bad}")
+    return (max(m for m, _, _ in held.values()),
+            min(h for _, h, _ in held.values()))
+
+
+def bf16_matmul_ms(shape_a, shape_b):
+    """The library yardstick of a "default" row: one cuBLAS bf16
+    torch.matmul at the layer product's shape (batched for N replicas),
+    never called by the port; its milliseconds on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.rand(shape_a, device="cuda", generator=g).bfloat16()
+    b = torch.rand(shape_b, device="cuda", generator=g).bfloat16()
+    return cuda_ms(lambda: torch.matmul(a, b))
+
+
+def bf16_route(route, name, N):
+    """One BF16_CHECKS case: (spec or None, model(s), p, the step and chunk
+    callables by precision, lr, shapes for the bound and the library
+    yardstick)."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import (
+        generator,
+        replica_generator,
+        step_uniforms,
+    )
+    from differential_equations_dnn_tpu_torch.equations import PROBLEMS
+    from differential_equations_dnn_tpu_torch.kernels import engine_core
+    from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
+    from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
+    from differential_equations_dnn_tpu_torch.kernels import fused_train as ft
+
+    dev = torch.device("cuda")
+    prob = PROBLEMS[name]()
+    d = prob.defaults
+    B, lr = d.batch_size, d.lrate
+    gens = ([generator(1)] if N == 1 else
+            [replica_generator(0, r) for r in range(N)])
+    models = [prob.default_model(generator=g, device=dev) for g in gens]
+    model = models[0]
+    c = dict(route=route, name=name, N=N, lr=lr, B=B)
+    if route == "heat":
+        p = ft.pack_params(model)
+        u = step_uniforms(0, 0, STEADY_STEPS, B, dev)
+        c.update(p=p, U=2, R=7, D=2, H=model.hidden_size,
+                 L=model.num_layers, n_const=0, model=model)
+        c["step"] = (lambda pr: ft.heat_loss_grad(model, p, u[0],
+                                                  precision=pr),
+                     lambda pr: ft.heat_loss_grad_plain(model, p, u[0],
+                                                        precision=pr))
+        c["chunk"] = lambda fn, pr, k=CHUNK_STEPS: fn(
+            model, p, torch.zeros_like(p), torch.zeros_like(p), u[:k], 0,
+            lr, precision=pr)
+        c["fns"] = (ft.heat_fused_train_chunk,
+                    ft.heat_fused_train_chunk_plain)
+        c["shape"] = ((7 * B, c["H"]), (c["H"], c["H"]))
+        return c
+    u = None
+    if route == "engine":
+        spec = fe.spec_for(prob)
+        const = spec.make_const(B, dev)
+        pack = lambda m: fe.pack_state(spec, m)  # noqa: E731
+        kw = dict(schedule=d.schedule, total_steps=HORIZON, const=const)
+        D, H, L = spec.dims(model)
+        R, U = fe._n_rows(spec.groups), spec.n_uniform
+        fns = ((fe.fused_engine_chunk, fe.fused_engine_chunk_plain) if N == 1
+               else (fe.fused_engine_packed_chunk,
+                     fe.fused_engine_packed_chunk_plain))
+        grad = (fe.engine_loss_grad, fe.engine_loss_grad_plain)
+        rows = spec.kernel_streams * B * (spec.fold if spec.fold > 1 else 1)
+        c["shape"] = ((rows, H), (H, H))
+        c.update(D=D, single=fe.fused_engine_chunk,
+                 n_const=0 if const is None else const.numel())
+    else:
+        spec = fd.spec_for(prob, B)
+        const = fd.const_for(spec, prob, B, dev)
+        pack = fd.pack_dgm
+        kw = dict(schedule="cosine", total_steps=HORIZON, const=const)
+        H, L, O = model.hidden_size, model.num_layers, model.output_dim
+        R, U = fd._layout(spec)[0], spec.n_uniform
+        fns = ((fd.fused_dgm_chunk, fd.fused_dgm_chunk_plain) if N == 1
+               else (fd.fused_dgm_packed_chunk,
+                     fd.fused_dgm_packed_chunk_plain))
+        grad = (fd.dgm_loss_grad, fd.dgm_loss_grad_plain)
+        c["shape"] = ((R * B, H), (H, 3 * H))
+        c.update(O=O, single=fd.fused_dgm_chunk,
+                 n_const=0 if const is None else const.numel())
+    u = step_uniforms(0, STEP0, STEADY_STEPS, B, dev, U)
+    p = (pack(model) if N == 1 else
+         engine_core.stack_replicas([pack(m) for m in models]))
+    c.update(p=p, R=R, U=U, H=H, L=L, spec=spec, kw=kw, fns=fns, u=u)
+    if N == 1:
+        c["step"] = tuple(
+            (lambda f: lambda pr: f(spec, model, p, u[0], const,
+                                    precision=pr))(f) for f in grad)
+        c["chunk"] = lambda fn, pr, k=CHUNK_STEPS: fn(
+            spec, model, p, torch.zeros_like(p), torch.zeros_like(p), u[:k],
+            STEP0, lr, precision=pr, **kw)
+    else:
+        c["shape"] = ((N,) + c["shape"][0], (N,) + c["shape"][1])
+        c["chunk"] = lambda fn, pr, k=CHUNK_STEPS: fn(
+            spec, model, p, torch.zeros_like(p), torch.zeros_like(p), u[:k],
+            STEP0, lr, N, precision=pr, **kw)
+    c["model"] = model
+    return c
+
+
+def bf16_flops(c):
+    """(product flops, other flops, parameters) of one step of case c, all
+    N replicas: the step's products (step_flops, dgm_step_flops) and Adam's
+    12 flops per parameter."""
+    if c["route"] == "dgm":
+        n = dgm_n_params(c["H"], c["L"], c["O"])
+        prod = dgm_step_flops(c["R"], c["B"], c["H"], c["L"], c["O"])
+    else:
+        n = n_params(c["D"], c["H"], c["L"])
+        prod = step_flops(c["R"], c["B"], c["D"], c["H"], c["L"])
+    return c["N"] * prod, c["N"] * 12 * n, n
+
+
+def check_bf16_case(route, name, N):
+    """One BF16_CHECKS case at "default": one step (single runs) and a
+    CHUNK_STEPS-step chunk against the plain versions at "default" and
+    against the kernel's own "highest", tensor by tensor (BF16_STEP_TOL,
+    BF16_SEPARATION; BF16_CHUNK_TOL, BF16_CHUNK_SEPARATION);
+    packed cases every replica bit for bit against the single chunk.
+    Returns the JSON rows of its kernels."""
+    import torch
+
+    c = bf16_route(route, name, N)
+    label = f"{name} [N={N}, \"default\"]"
+    kernel_fn, plain_fn = c["fns"]
+    prod, other, n = bf16_flops(c)
+    library_ms = bf16_matmul_ms(*c["shape"])
+    rows = []
+    kinds = {"heat": ("heat_fused_train_chunk", "heat_train.cu",
+                      "fused_train.py:237"),
+             "engine": ("fused_engine_chunk", "engine_train_bf16.cu",
+                        "engine_core.py:48"),
+             "dgm": ("fused_dgm_chunk", "dgm_train.cu",
+                     "engine_core.py:48")}
+    chunk_name, source, replaces = kinds[route]
+    if N > 1:
+        chunk_name = chunk_name.replace("_chunk", "_packed_chunk")
+        replaces = "engine_core.py:202"
+    if N == 1 and route != "heat":
+        (lkd, gkd), (lkh, gkh) = (c["step"][0](pr)
+                                  for pr in ("default", "highest"))
+        lpd, gpd = c["step"][1]("default")
+        check_close(f"{label} step loss", lkd, lpd, rtol=1e-3, atol=0.0)
+        print(f"{label} one step: loss {float(lkd):.7g} (plain "
+              f"{float(lpd):.7g}, \"highest\" {float(lkh):.7g})")
+        e_match, e_prec = check_by_tensor(
+            label, "one step's gradient", bf16_readings(c, gkd, gpd, gkh),
+            BF16_STEP_TOL, BF16_SEPARATION)
+        ms = cuda_ms(lambda: c["step"][0]("default"))
+        plain_ms = cuda_ms(lambda: c["step"][1]("default"))
+        grad_name = ("engine_loss_grad" if route == "engine"
+                     else "dgm_loss_grad")
+        rows.append(dict(
+            name=f"{grad_name}[default]", route="cuda",
+            source=f"{PKG}/csrc/{source}",
+            replaces=(f"{JAX_KERNELS}/fused_engine.py:235" if route == "engine"
+                      else f"{JAX_KERNELS}/fused_dgm.py:197"),
+            max_abs_err=max_abs(gkd, gpd), rel_l2_err=e_match,
+            rel_l2_to_highest=e_prec, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms,
+            library_call=f"torch.matmul bf16 {c['shape']}",
+            **bound_bf16(prod, 0, 4 * (2 * n + c["B"] * c["U"] + 1
+                                       + c["n_const"]))))
+    elif route == "heat":
+        (lkd, gkd), (lkh, gkh) = (c["step"][0](pr)
+                                  for pr in ("default", "highest"))
+        lpd, gpd = c["step"][1]("default")
+        check_close(f"{label} step loss", lkd, lpd, rtol=1e-3, atol=0.0)
+        print(f"{label} one step (heat_loss_grad): loss {float(lkd):.7g} "
+              f"(plain {float(lpd):.7g}, \"highest\" {float(lkh):.7g})")
+        check_by_tensor(label, "one step's gradient",
+                        bf16_readings(c, gkd, gpd, gkh), BF16_STEP_TOL,
+                        BF16_SEPARATION)
+
+    # The chunk.
+    p0 = c["p"]
+    pk, mk, vk, lk = c["chunk"](kernel_fn, "default")
+    ph, _, _, lh = c["chunk"](kernel_fn, "highest")
+    (pp, _, _, lp), plain_ms = timed_once(
+        lambda: c["chunk"](plain_fn, "default"))
+    drift = float(((lk - lp) / lp).abs().max())
+    print(f"{label} {chunk_name} [K={CHUNK_STEPS}]: loss drift from the "
+          f"plain version {drift:.3g} relative, from \"highest\" "
+          f"{float(((lk - lh) / lh).abs().max()):.3g}")
+    e_match, e_prec = check_by_tensor(
+        label, f"{chunk_name}'s update", bf16_readings(c, pk - p0, pp - p0,
+                                                       ph - p0),
+        BF16_CHUNK_TOL, BF16_CHUNK_SEPARATION, BF16_CHUNK_ENTRIES)
+    if N > 1:
+        spec, model, u = c["spec"], c["model"], c["u"][:CHUNK_STEPS]
+        for r in range(N):
+            z = torch.zeros_like(p0[r])
+            p1, m1, v1, l1 = c["single"](spec, model, p0[r].contiguous(), z,
+                                         z.clone(), u, STEP0, c["lr"],
+                                         precision="default", **c["kw"])
+            if not (torch.equal(l1, lk[r]) and torch.equal(p1, pk[r])
+                    and torch.equal(m1, mk[r]) and torch.equal(v1, vk[r])):
+                raise AssertionError(f"{label}: packed replica {r} differs "
+                                     f"from the single-replica chunk")
+        print(f"{label}: all {N} replicas equal the single chunk at "
+              f"\"default\" bit for bit")
+    ms = cuda_ms(lambda: c["chunk"](kernel_fn, "default"))
+    nbytes = 4 * (6 * n * N + CHUNK_STEPS * (c["B"] * c["U"] + N)
+                  + c["n_const"])
+    rows.append(dict(
+        name=f"{chunk_name}[default]", route="cuda",
+        source=f"{PKG}/csrc/{source}",
+        replaces=f"{JAX_KERNELS}/{replaces}",
+        max_abs_err=max(max_abs(lk, lp), max_abs(pk, pp)),
+        rel_l2_err=e_match, rel_l2_to_highest=e_prec, ms=ms,
+        plain_ms=plain_ms, library_ms=library_ms,
+        library_call=f"torch.matmul bf16 {c['shape']}",
+        **bound_bf16(CHUNK_STEPS * prod, CHUNK_STEPS * other, nbytes)))
+    print(f"{label} {chunk_name}: kernel {ms:.4f} ms "
+          f"({ms / CHUNK_STEPS * 1e3:.1f} us per step), plain {plain_ms:.4f}"
+          f" ms; bound {rows[-1]['bound_ms']:.4g} ms "
+          f"({rows[-1]['bound_by']}); cuBLAS bf16 matmul at "
+          f"{c['shape']} {library_ms:.4f} ms")
+    if (name, N) in BF16_STEADY:
+        times = {}
+        for pr in ("highest", "default", "default", "highest"):
+            times.setdefault(pr, []).append(cuda_ms(
+                lambda: c["chunk"](kernel_fn, pr, STEADY_STEPS),
+                reps=STEADY_REPS))
+        for row in rows[-1:]:
+            row.update(steady_steps=STEADY_STEPS,
+                       steady_ms=times["default"],
+                       steady_ms_highest=times["highest"],
+                       steady_bound_ms=bound_bf16(
+                           STEADY_STEPS * prod, STEADY_STEPS * other,
+                           nbytes)["bound_ms"])
+        print(f"{label} steady state [K={STEADY_STEPS}], timed in turns "
+              f"(highest, default, default, highest): "
+              + "; ".join(f"{pr} " + ", ".join(
+                  f"{t:.4f} ms ({t / STEADY_STEPS * 1e3:.2f} us per step)"
+                  for t in times[pr]) for pr in ("highest", "default")))
+    return rows
+
+
+def check_bf16_kernels():
+    """Every BF16_CHECKS case; returns the rows of the "default" kernels at
+    the first case of each (#1 at heat; #6 and #4 at heat2d; #5 at wave N =
+    8; #7 and #4 at FitzHugh–Nagumo; #5 at Fredholm N = 4), the shapes at
+    which the PRECISION_SOLVES drive them; the other cases are printed."""
+    rows = {}
+    for route, name, N in BF16_CHECKS:
+        for row in check_bf16_case(route, name, N):
+            rows.setdefault(row["name"], row)
+    return list(rows.values())
+
+
 def phase_kernels():
     """Each kernel against its plain version at the main paths' shapes.
     Returns the JSON rows: #2, #1 and #3 at the heat shapes, #6 and #4 at the
@@ -1049,8 +1443,9 @@ def phase_kernels():
     packed_rows[0]["specs"] = [
         check_packed_kernels(*HARD_PACKED, hard=True),
         check_packed_kernels(*CAUSAL_PACKED, causal=True)]
+    bf16_rows = check_bf16_kernels()
     report_graphs()
-    return rows + list(engine_rows) + list(dgm_rows) + packed_rows
+    return rows + list(engine_rows) + list(dgm_rows) + packed_rows + bf16_rows
 
 
 def report_graphs():
@@ -1093,18 +1488,33 @@ STEP_MATH = {"engine_step_math": 2, "dgm_step_math": 4,
 def reset_counts():
     for fn in wrappers():
         fn.launches = 0
+        if hasattr(fn, "bf16_launches"):
+            fn.bf16_launches = 0
     for index in STEP_MATH.values():
         wrappers()[index].step_math_runs = 0
+        wrappers()[index].bf16_step_math_runs = 0
 
 
 def read_counts():
     """Each wrapper's launches, and ``*_step_math``: the (replica-)steps
     whose step math (#6, #7) ``engine_train_packed`` / ``dgm_train_packed``
-    enqueued for each wrapper, as the library reports them."""
+    enqueued for each wrapper, as the library reports them; under
+    ``name[default]`` those of the "default" precision's instances."""
     counts = {fn.__name__: fn.launches for fn in wrappers()}
+    for fn in wrappers():
+        if hasattr(fn, "bf16_launches"):
+            counts[f"{fn.__name__}[default]"] = fn.bf16_launches
     for counter, index in STEP_MATH.items():
         counts[counter] = wrappers()[index].step_math_runs
+        counts[f"{counter}[default]"] = \
+            wrappers()[index].bf16_step_math_runs
     return counts
+
+
+# (equation, engine, schedule, solve's extras but precision) ->
+# {precision: (MAE, it/s)}: the bf16 solves beside the same
+# configuration's "highest" run.
+SOLVED = {}
 
 
 def short(value):
@@ -1126,7 +1536,10 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
     two warm-ups (the build's, and the capture's). A hard solve must
     hold its IC and BC exactly on the grid (HARD_ROWS) and, on the fused
     engine, train on the generic engine (constant-lr heat too); a
-    ``mae_bound`` of None holds no MAE."""
+    ``mae_bound`` of None holds no MAE. A fused solve at ``precision``
+    "default" must launch only its kernels' "default" instances, at
+    "mixed" both those and the "highest" ones, at "highest" no "default"
+    one."""
     import numpy as np
 
     from differential_equations_dnn_tpu_torch import solve
@@ -1148,6 +1561,7 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
     finetune = extra.get("finetune", finetune)
     steps = extra.get("iterations", d.iterations)
     hard = extra.get("constraint") == "hard"
+    precision = extra.get("precision", "highest")
     label = (f"solve({name!r}, engine={engine!r}, "
              f"schedule={schedule or d.schedule!r}"
              + "".join(f", {k}={short(v)}" for k, v in extra.items()) + ")")
@@ -1236,6 +1650,18 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
     for kernel in path:
         if launches[kernel] <= 0:
             raise AssertionError(f"{label}: {kernel} was not launched")
+        bf16 = launches.get(f"{kernel}[default]")
+        if engine == "scan" or bf16 is None:
+            continue
+        want = {"highest": bf16 == 0, "default": bf16 == launches[kernel],
+                "mixed": 0 < bf16 < launches[kernel]}[precision]
+        if not want:
+            raise AssertionError(f"{label}: {kernel} launched {bf16} of its "
+                                 f"{launches[kernel]} times at \"default\"")
+    key = (name, engine, schedule or d.schedule,
+           tuple(sorted((k, v) for k, v in extra.items()
+                        if k != "precision")))
+    SOLVED.setdefault(key, {})[precision] = (res.mae, res.iters_per_sec)
     return launches
 
 
@@ -1272,6 +1698,16 @@ def phase_solve():
         **CAUSAL_SOLVE)
     out[("advection", "causal scan")] = solve_once(
         "advection", None, CAUSAL_BOUND, engine="scan", **CAUSAL_SOLVE)
+    for name, extra, mae_bound in PRECISION_SOLVES:
+        kind = extra["precision"] + (" ensemble" if "ensemble" in extra
+                                     else "")
+        out[(name, kind)] = solve_once(name, None, mae_bound, **extra)
+    for (name, _, _, extra), runs in SOLVED.items():
+        if len(runs) > 1:
+            print(f"precisions of solve({name!r}"
+                  + "".join(f", {k}={v!r}" for k, v in extra) + "): "
+                  + "; ".join(f"{p}: MAE {mae:.6g}, {rate:.1f} it/s"
+                              for p, (mae, rate) in runs.items()))
     return out
 
 
@@ -1304,9 +1740,28 @@ def main():
               "fused_engine_packed_chunk": (("wave", "ensemble"),
                                             "fused_engine_packed_chunk"),
               "fused_dgm_packed_chunk": (("fitzhugh_nagumo", "ensemble"),
-                                         "fused_dgm_packed_chunk")}
+                                         "fused_dgm_packed_chunk"),
+              # The "default" instances (PR 13), from the bf16 solves.
+              "heat_fused_train_chunk[default]": (
+                  ("heat", "mixed"), "heat_fused_train_chunk[default]"),
+              "engine_loss_grad[default]": (("heat2d", "mixed"),
+                                            "engine_step_math[default]"),
+              "fused_engine_chunk[default]": (
+                  ("heat2d", "mixed"), "fused_engine_chunk[default]"),
+              "dgm_loss_grad[default]": (("fitzhugh_nagumo", "mixed"),
+                                         "dgm_step_math[default]"),
+              "fused_dgm_chunk[default]": (("fitzhugh_nagumo", "mixed"),
+                                           "fused_dgm_chunk[default]"),
+              "fused_engine_packed_chunk[default]": (
+                  ("wave", "mixed ensemble"),
+                  "fused_engine_packed_chunk[default]"),
+              "fused_dgm_packed_chunk[default]": (
+                  ("fredholm", "mixed ensemble"),
+                  "fused_dgm_packed_chunk[default]")}
     inside = {"engine_step_math": "fused_engine_chunk",
-              "dgm_step_math": "fused_dgm_chunk"}
+              "dgm_step_math": "fused_dgm_chunk",
+              "engine_step_math[default]": "fused_engine_chunk[default]",
+              "dgm_step_math[default]": "fused_dgm_chunk[default]"}
     for row in rows:
         # The LAST, hard and causal specs' own solves (the packed row's:
         # their ensemble solves).

@@ -12,6 +12,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from differential_equations_dnn_tpu_torch.core.precision import (
+    check_precision,
+)
 from differential_equations_dnn_tpu_torch.core.prng import generator
 from differential_equations_dnn_tpu_torch.equations import (
     Problem,
@@ -183,9 +186,13 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
     ``schedule`` ("constant" | "cosine" | "exponential") overrides the
     equation's default lr schedule. ``model`` (default
     ``problem.default_model()`` initialised from ``seed``) is trained in
-    place. ``precision`` picks the fused kernels' mode (only "highest" is
-    ported); the scan trainer ignores it, as in the JAX package, and runs
-    the port's strict-fp32 policy.
+    place. ``precision`` picks the fused kernels' mode on every fused route,
+    single runs and ensembles: "highest" (exact fp32), "default" (the layer
+    products take bf16 operands and accumulate in fp32: the kernels' bf16
+    tensor-core instances on the card) or "mixed" (the first 65 % of the
+    steps at "default", the rest at "highest", on the same state); the scan
+    trainer ignores it, as in the JAX package, and runs the port's
+    strict-fp32 policy. An unknown precision raises a ValueError.
 
     ``ensemble=N`` trains N replicas packed into every kernel launch (replica
     r drawn from ``replica_generator(seed, r)``, all on the collocation
@@ -203,6 +210,7 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
     runs the kernels' plain PyTorch versions. ``mesh`` (sharded ensembles)
     is not ported.
     """
+    check_precision(precision)
     problem = (get_problem(equation, **problem_kwargs)
                if isinstance(equation, str) else equation)
     if ensemble is None or finetune is None:

@@ -2,7 +2,8 @@
 //
 // Every product here is a plain fp32 FFMA (no tensor cores, no TF32): the
 // port's "highest" precision is exact IEEE fp32, as the JAX package's
-// lax.Precision.HIGHEST is. Built without --use_fast_math, so tanhf, expf,
+// lax.Precision.HIGHEST is. The "default" precision's bf16 products (the
+// kernels' kBf16 instances) are in mma_bf16.cuh. Built without --use_fast_math, so tanhf, expf,
 // sinf, sqrtf and division are the accurate CUDA versions.
 #pragma once
 

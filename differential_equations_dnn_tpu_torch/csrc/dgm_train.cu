@@ -76,7 +76,18 @@
 // whatever the tile, and each weight gradient the sum in stream order of
 // per-stream fmaf chains over the stream's B rows in order. So runs are
 // bit-identical and a chunk cut anywhere equals the uncut run. Every
-// product is fp32 FFMA: exact fp32 ("highest"), no tensor cores, no library.
+// product of the "highest" instances is fp32 FFMA: exact fp32, no tensor
+// cores, no library.
+//
+// At the "default" precision (bf16 != 0 at the entry points) every launch
+// is its kBf16 instance: gemm_kernel and the weight gradients multiply on
+// the tensor cores (mma_bf16.cuh: bf16 operands, fp32 accumulation, in a
+// fixed order, so runs stay bit-identical and chunk-invariant); the D = 1
+// products (x·w_in, x·U in the gemm's epilogue, the x row of the weight
+// gradients) and the output layer's (S·w_out, G·w_outᵀ) take their operands
+// rounded to bf16 as they load, as the JAX step math gives each of those
+// products its precision. The stream rules, the losses (FitzHugh–Nagumo's
+// causal weights, Fredholm's quadrature), the bias sums and Adam stay fp32.
 //
 // Packed replicas: dgm_train_packed advances N independent runs that share
 // the uniforms, the stream layout, the spec's consts, Fredholm's const and
@@ -211,7 +222,9 @@ __device__ __forceinline__ void stage_tile(float* dst, int ld_dst,
 // input layer's pre-activation pre = X·w_in + mask·b_in and s0 = its stream
 // activation, at column j, for step base + j_step's uniforms. Replica
 // blockIdx.y: weights at y·ps, outputs at y·ss (the uniforms and the const
-// are shared).
+// are shared). kBf16: x and w_in enter the product rounded to bf16 (X is
+// written unrounded).
+template <bool kBf16>
 __global__ void input_kernel(int spec, const StepArgs* __restrict__ args,
                              int j_step, Layout lay, size_t w_in_off,
                              size_t b_in_off, int H, int act,
@@ -237,14 +250,18 @@ __global__ void input_kernel(int spec, const StepArgs* __restrict__ args,
                         : fredholm_input(s, b, u, cnst, lay.B, c);
     if (j == 0) X[s * lay.B + b] = x;
     const size_t i = at(s, b, lay.B, H, j);
+    // The product written out in each branch, so that the value row's
+    // contracts into one FMA with the bias, as it always has.
+    const float xo = dednn::operand<kBf16>(x);
+    const float wo = dednn::operand<kBf16>(w_in[j]);
     if (lay.is_value(s)) {
-      const float z = x * w_in[j] + b_in[j];
+      const float z = xo * wo + b_in[j];
       a = act_value(act, z);
       d = act_slope(act, z, a);
       pre[i] = z;
       s0[i] = a;
     } else {
-      const float z = x * w_in[j];
+      const float z = xo * wo;
       pre[i] = z;
       s0[i] = d * z;
     }
@@ -262,7 +279,16 @@ __global__ void input_kernel(int spec, const StepArgs* __restrict__ args,
 // into a ring of kStages buffers, kStages − 1 tiles in flight while one is
 // multiplied four k at a time from float4 reads. Replica blockIdx.z: A, x,
 // addend and C at z·ss; the parameters at z·ps.
-template <bool kTransW, int BM, int BN, int TM, int TN, int BK, int kStages>
+//
+// kBf16 (the "default" precision): the same staging, but the block's warps
+// split its BM × BN tile into m16n8 tiles on the tensor cores (mma_bf16.cuh)
+// over the k-tiles in order, 16 k at a time, the operands rounded to bf16
+// as they are read from the ring; the sums then pass through the freed
+// ring to the threads' TM × TN outputs, whose epilogue is the fp32 one with
+// x and u rounded to bf16 (x·U is a product the JAX step math gives
+// precision).
+template <bool kTransW, int BM, int BN, int TM, int TN, int BK, int kStages,
+          bool kBf16 = false>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     gemm_kernel(const float* __restrict__ A,
                 const StepArgs* __restrict__ args, long long w_off, int N,
@@ -319,6 +345,61 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   float acc[TM][TN] = {};
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) load(t);
+  if constexpr (kBf16) {
+    constexpr int kWarps = kThreads / 32, kLdC = BN + 4;
+    static_assert(kThreads % 32 == 0 && BK % 16 == 0, "whole warps, k16");
+    static_assert(kStages * BM * (BK + 4) >= BM * kLdC,
+                  "the C tile fits the ring");
+    using Tiles = dednn::MmaTiles<BM, BN, kWarps>;
+    const int warp = tid / 32;
+    float d[Tiles::kPer][4] = {};
+    auto tile_of = [&](int i, int& tr, int& tc) {
+      const int tile = warp + i * kWarps;
+      tr = tile / Tiles::kNT * 16;
+      tc = tile % Tiles::kNT * 8;
+      return tile < Tiles::kTiles;
+    };
+    for (int t = 0; t < tiles; ++t) {
+      cp_async_wait<kStages - 2>();  // tile t has landed
+      __syncthreads();               // and every thread is done with t − 1
+      load(t + kStages - 1);         // into t − 1's buffer
+      const int buf = t % kStages;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16)
+#pragma unroll
+        for (int i = 0; i < Tiles::kPer; ++i) {
+          int tr, tc;
+          if (!tile_of(i, tr, tc)) continue;
+          unsigned fa[4], fb[2];
+          dednn::frag_a(
+              [&](int r, int k) { return a_s[buf][tr + r][kk + k]; }, fa);
+          if constexpr (kTransW)
+            dednn::frag_b(
+                [&](int k, int n) { return w_s[buf][tc + n][kk + k]; }, fb);
+          else
+            dednn::frag_b(
+                [&](int k, int n) { return w_s[buf][kk + k][tc + n]; }, fb);
+          dednn::mma_bf16(d[i], fa, fb);
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free
+    float* c_s = &a_s[0][0][0];
+#pragma unroll
+    for (int i = 0; i < Tiles::kPer; ++i) {
+      int tr, tc;
+      if (!tile_of(i, tr, tc)) continue;
+      dednn::frag_c(d[i], [&](int r, int n, float v) {
+        c_s[(tr + r) * kLdC + tc + n] = v;
+      });
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int jj = 0; jj < TN; ++jj)
+        acc[i][jj] = c_s[(ty * TM + i) * kLdC + col(jj)];
+  } else {
   for (int t = 0; t < tiles; ++t) {
     cp_async_wait<kStages - 2>();  // tile t has landed
     __syncthreads();               // and every thread is done with t − 1
@@ -350,6 +431,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
             acc[i][jj] = fmaf(a4[i][q], w4[q][jj], acc[i][jj]);
     }
   }
+  }
   // The epilogue's operands are all loaded before the first store, so
   // they are in flight together (a store to C could alias them).
   float xv[TM], uv[TN], bv[TN], ad[TM][TN];
@@ -358,12 +440,12 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   for (int i = 0; i < TM; ++i) {
     const int n = n0 + ty * TM + i;
     value[i] = n < N && lay.is_value(n / lay.B);
-    xv[i] = u != nullptr && n < N ? x[n] : 0.0f;
+    xv[i] = u != nullptr && n < N ? dednn::operand<kBf16>(x[n]) : 0.0f;
   }
 #pragma unroll
   for (int jj = 0; jj < TN; ++jj) {
     const int m = m0 + col(jj);
-    uv[jj] = u != nullptr && m < M ? u[m] : 0.0f;
+    uv[jj] = u != nullptr && m < M ? dednn::operand<kBf16>(u[m]) : 0.0f;
     bv[jj] = bias != nullptr && m < M ? bias[m] : 0.0f;
   }
 #pragma unroll
@@ -470,7 +552,8 @@ __global__ void state_fwd_kernel(const float* __restrict__ zgr_pre,
 
 // out[n, o] = S[n, :]·w_out[:, o] + mask·b_out[o] for the R·B rows: warp w
 // takes rows w, w + 32, ...; a butterfly shuffle sums each dot product in a
-// fixed order.
+// fixed order. kBf16: S and w_out enter the products rounded to bf16.
+template <bool kBf16>
 __device__ void output_layer(const float* __restrict__ S, int H,
                              const float* __restrict__ w_out,
                              const float* __restrict__ b_out, int O,
@@ -483,7 +566,9 @@ __device__ void output_layer(const float* __restrict__ S, int H,
     const bool value = lay.is_value(n / lay.B);
     for (int o = 0; o < O; ++o) {
       float acc = 0.0f;
-      for (int k = lane; k < H; k += 32) acc = fmaf(row[k], w_out[k * O + o], acc);
+      for (int k = lane; k < H; k += 32)
+        acc = fmaf(dednn::operand<kBf16>(row[k]),
+                   dednn::operand<kBf16>(w_out[k * O + o]), acc);
       for (int off = 16; off > 0; off >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
       if (lane == 0) out[n * O + o] = value ? acc + b_out[o] : acc;
@@ -498,6 +583,7 @@ __device__ void output_layer(const float* __restrict__ S, int H,
 // constant for the gradient (stop-gradient); loss = 2·mean(w⊙r²) +
 // mean((s(0) − y_ic)²) over [B, 2]. aux: 5B floats. The loss goes to the
 // replica's slot of call step base + j.
+template <bool kBf16>
 __global__ void fn_loss_kernel(const float* __restrict__ S, int H,
                                const StepArgs* __restrict__ args, int j,
                                size_t w_out_off, size_t b_out_off, Layout lay,
@@ -512,7 +598,7 @@ __global__ void fn_loss_kernel(const float* __restrict__ S, int H,
   const float* b_out = args->p + po + b_out_off;
   float* loss = args->losses + blockIdx.x * args->ls + args->base + j;
   const Consts c = args->c;
-  output_layer(S, H, w_out, b_out, 2, lay, out);
+  output_layer<kBf16>(S, H, w_out, b_out, 2, lay, out);
   const int B = lay.B;
   const float t_max_over_b = c.c[1], eps = c.c[2], i_ext = c.c[3];
   const float alpha = c.c[4], beta = c.c[5], tau = c.c[6], y_ic = c.c[7];
@@ -571,6 +657,7 @@ __global__ void fn_loss_kernel(const float* __restrict__ S, int H,
 // The two scalars pass between threads through shared memory (through a
 // global word that every thread had already read once, the second scalar
 // came back stale to other warps on the H100).
+template <bool kBf16>
 __global__ void fredholm_loss_kernel(const float* __restrict__ S, int H,
                                      const StepArgs* __restrict__ args, int j,
                                      size_t w_out_off, size_t b_out_off,
@@ -588,7 +675,7 @@ __global__ void fredholm_loss_kernel(const float* __restrict__ S, int H,
   float* loss = args->losses + blockIdx.x * args->ls + step;
   const float* u = args->u + static_cast<size_t>(step) * lay.B;
   const float* cnst = args->cnst;
-  output_layer(S, H, w_out, b_out, 1, lay, out);
+  output_layer<kBf16>(S, H, w_out, b_out, 1, lay, out);
   const int B = lay.B, R = lay.R;
   const float upper = args->c.c[0];
   const float inv_b = 1.0f / static_cast<float>(B);
@@ -638,7 +725,9 @@ __global__ void fredholm_loss_kernel(const float* __restrict__ S, int H,
 // Backward
 // ---------------------------------------------------------------------------
 
-// ds[n, j] = Σ_o G[n, o]·w_out[j, o]; replica blockIdx.y.
+// ds[n, j] = Σ_o G[n, o]·w_out[j, o]; replica blockIdx.y. kBf16: G and
+// w_out enter the product rounded to bf16.
+template <bool kBf16>
 __global__ void out_bwd_kernel(const float* __restrict__ G,
                                const StepArgs* __restrict__ args,
                                size_t w_out_off, int N, int H, int O,
@@ -650,7 +739,9 @@ __global__ void out_bwd_kernel(const float* __restrict__ G,
   const float* w_out = args->p + blockIdx.y * ps + w_out_off;
   const int n = idx / H, j = idx - n * H;
   float acc = 0.0f;
-  for (int o = 0; o < O; ++o) acc = fmaf(G[n * O + o], w_out[j * O + o], acc);
+  for (int o = 0; o < O; ++o)
+    acc = fmaf(dednn::operand<kBf16>(G[n * O + o]),
+               dednn::operand<kBf16>(w_out[j * O + o]), acc);
   ds[idx] = acc;
 }
 
@@ -840,23 +931,24 @@ bool valid(int spec, int R, int O, unsigned value_mask) {
 // shapes on the H100: 64 × 64 (8 × 4 outputs per thread) while that still
 // gives three blocks per SM, else 32 × 32 (2 × 4) while one per SM, else
 // 16 × 32 (2 × 4), whose more blocks win where the card is underfilled.
-template <bool kT>
+// kBf16: the "default" precision's instance of the same tile.
+template <bool kT, bool kBf16 = false>
 void gemm(const float* A, const StepArgs* args, long long w_off, int N, int K,
           int M, const float* x, long long u_off, long long b_off,
           const Layout& lay, const float* addend, float* C, size_t ss,
           size_t ps, int reps, cudaStream_t stream) {
   if (blocks(N, M, 64, 64, reps) >= 3 * kSMs)
-    launch(gemm_kernel<kT, 64, 64, 8, 4, 16, 4>, 128, 0, 64, 64, N, M, reps,
-           stream, A, args, w_off, N, K, M, x, u_off, b_off, lay, addend, C,
-           ss, ps);
+    launch(gemm_kernel<kT, 64, 64, 8, 4, 16, 4, kBf16>, 128, 0, 64, 64, N, M,
+           reps, stream, A, args, w_off, N, K, M, x, u_off, b_off, lay,
+           addend, C, ss, ps);
   else if (blocks(N, M, 32, 32, reps) >= kSMs)
-    launch(gemm_kernel<kT, 32, 32, 2, 4, 32, 4>, 128, 0, 32, 32, N, M, reps,
-           stream, A, args, w_off, N, K, M, x, u_off, b_off, lay, addend, C,
-           ss, ps);
+    launch(gemm_kernel<kT, 32, 32, 2, 4, 32, 4, kBf16>, 128, 0, 32, 32, N, M,
+           reps, stream, A, args, w_off, N, K, M, x, u_off, b_off, lay,
+           addend, C, ss, ps);
   else
-    launch(gemm_kernel<kT, 16, 32, 2, 4, 32, 4>, 64, 0, 16, 32, N, M, reps,
-           stream, A, args, w_off, N, K, M, x, u_off, b_off, lay, addend, C,
-           ss, ps);
+    launch(gemm_kernel<kT, 16, 32, 2, 4, 32, 4, kBf16>, 64, 0, 16, 32, N, M,
+           reps, stream, A, args, w_off, N, K, M, x, u_off, b_off, lay,
+           addend, C, ss, ps);
 }
 
 // The weight-gradient instances, largest first (chosen as the gemm's):
@@ -873,28 +965,33 @@ constexpr WgConfig kWg[3] = {
     {32, 32, 384, kSMs, wg_smem_bytes<32, 32, 16, 4, 3>()},
     {16, 16, 192, 0, wg_smem_bytes<16, 16, 16, 4, 3>()}};
 
-template <bool kAdam>
+template <bool kAdam, bool kBf16>
 auto wg_kernel(int config) {
-  return config == 0   ? weight_grad_kernel<kAdam, 32, 64, 4, 4, 32, 3, 1>
-         : config == 1 ? weight_grad_kernel<kAdam, 32, 32, 4, 2, 16, 4, 3>
-                       : weight_grad_kernel<kAdam, 16, 16, 2, 2, 16, 4, 3>;
+  return config == 0
+             ? weight_grad_kernel<kAdam, 32, 64, 4, 4, 32, 3, 1, kBf16>
+         : config == 1
+             ? weight_grad_kernel<kAdam, 32, 32, 4, 2, 16, 4, 3, kBf16>
+             : weight_grad_kernel<kAdam, 16, 16, 2, 2, 16, 4, 3, kBf16>;
 }
 
-// Lets the weight-gradient instances take their dynamic shared memory
-// (above the default 48 KB); before any launch or capture.
+// Lets the weight-gradient instances of one precision take their dynamic
+// shared memory (above the default 48 KB); before any launch or capture.
+template <bool kBf16>
 cudaError_t prepare() {
   for (int c = 0; c < 3; ++c) {
-    cudaError_t err = dednn::allow_smem(wg_kernel<true>(c), kWg[c].smem);
+    cudaError_t err =
+        dednn::allow_smem(wg_kernel<true, kBf16>(c), kWg[c].smem);
     if (err == cudaSuccess)
-      err = dednn::allow_smem(wg_kernel<false>(c), kWg[c].smem);
+      err = dednn::allow_smem(wg_kernel<false, kBf16>(c), kWg[c].smem);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
 // One layer's weight gradient (and Adam, kAdam) for `reps` replicas, with
-// the first instance of kWg that gets its blocks.
-template <bool kAdam>
+// the first instance of kWg that gets its blocks (kBf16: its "default"
+// instance).
+template <bool kAdam, bool kBf16>
 void weight_grad(const float* A, int KA, const float* x, const float* dz,
                  int M, const Layout& lay, const StepArgs* args, int j,
                  long long w_off, long long u_off, long long b_off, size_t ss,
@@ -903,7 +1000,8 @@ void weight_grad(const float* A, int KA, const float* x, const float* dz,
   while (blocks(KA, M, kWg[c].tile_k, kWg[c].tile_m, reps) <
          kWg[c].min_blocks)
     ++c;
-  launch(wg_kernel<kAdam>(c), kWg[c].threads, kWg[c].smem, kWg[c].tile_k,
+  launch(wg_kernel<kAdam, kBf16>(c), kWg[c].threads, kWg[c].smem,
+         kWg[c].tile_k,
          kWg[c].tile_m, KA, M, reps, stream, A, KA, x, dz, M, lay, args, j,
          w_off, u_off, b_off, ss, ps);
 }
@@ -914,7 +1012,8 @@ void weight_grad(const float* A, int KA, const float* x, const float* dz,
 // args->grad. Replica r's scratch is at scratch + r·scratch_floats; each
 // layer's dh_pre and dzgr_pre have their own buffers, so that a layer's
 // weight gradient on the side stream reads them while the data path goes on.
-template <bool kAdam>
+// kBf16: every launch's "default" instance.
+template <bool kAdam, bool kBf16>
 cudaError_t enqueue_step(int spec, const StepArgs* args, int j,
                          float* scratch, int reps, const Layout& lay, int H,
                          int L, int O, int act, Streams& st) {
@@ -943,9 +1042,8 @@ cudaError_t enqueue_step(int spec, const StepArgs* args, int j,
   cudaStream_t side;
 
   const dim3 ew(dednn::ceil_div(B * H, kEwThreads), reps);
-  input_kernel<<<ew, kEwThreads, 0, main>>>(spec, args, j, lay, off.w_in,
-                                            off.b_in, H, act, X, PRE, ST, ss,
-                                            n);
+  input_kernel<kBf16><<<ew, kEwThreads, 0, main>>>(
+      spec, args, j, lay, off.w_in, off.b_in, H, act, X, PRE, ST, ss, n);
   for (int l = 0; l < L; ++l) {
     const float* S = ST + l * layer;
     float* Z = ZG + 3 * l * layer;
@@ -953,30 +1051,31 @@ cudaError_t enqueue_step(int spec, const StepArgs* args, int j,
     float* SRl = SR + l * layer;
     const long long lw3 = static_cast<long long>(l) * 3 * H;
     const long long lw = static_cast<long long>(l) * H;
-    gemm<false>(S, args, off.Wzgr + lw3 * H, N, H, 3 * H, X, off.Uzgr + lw3,
-                off.bzgr + lw3, lay, nullptr, Z, ss, n, reps, main);
+    gemm<false, kBf16>(S, args, off.Wzgr + lw3 * H, N, H, 3 * H, X,
+                       off.Uzgr + lw3, off.bzgr + lw3, lay, nullptr, Z, ss, n,
+                       reps, main);
     gate_fwd_kernel<<<ew, kEwThreads, 0, main>>>(Z, S, lay, H, act, SRl, ss);
-    gemm<false>(SRl, args, off.Wh + lw * H, N, H, H, X, off.Uh + lw,
-                off.bh + lw, lay, nullptr, Hh, ss, n, reps, main);
+    gemm<false, kBf16>(SRl, args, off.Wh + lw * H, N, H, H, X, off.Uh + lw,
+                       off.bh + lw, lay, nullptr, Hh, ss, n, reps, main);
     state_fwd_kernel<<<ew, kEwThreads, 0, main>>>(Z, Hh, S, lay, H, act,
                                                   ST + (l + 1) * layer, ss);
   }
   const float* S_L = ST + L * layer;
   if (spec == kFitzHughNagumo) {
-    fn_loss_kernel<<<reps, kLossThreads, 0, main>>>(
+    fn_loss_kernel<kBf16><<<reps, kLossThreads, 0, main>>>(
         S_L, H, args, j, off.w_out, off.b_out, lay, OUT, G, AUX, ss, n);
   } else {
-    fredholm_loss_kernel<<<reps, kLossThreads, 0, main>>>(
+    fredholm_loss_kernel<kBf16><<<reps, kLossThreads, 0, main>>>(
         S_L, H, args, j, off.w_out, off.b_out, lay, OUT, G, AUX, ss, n);
   }
 
-  out_bwd_kernel<<<dim3(dednn::ceil_div(N * H, kOutThreads), reps),
-                   kOutThreads, 0, main>>>(G, args, off.w_out, N, H, O, DS,
-                                           ss, n);
+  out_bwd_kernel<kBf16><<<dim3(dednn::ceil_div(N * H, kOutThreads), reps),
+                          kOutThreads, 0, main>>>(G, args, off.w_out, N, H, O,
+                                                  DS, ss, n);
   cudaError_t err = st.branch(&side);
   if (err != cudaSuccess) return err;
-  weight_grad<kAdam>(S_L, H, nullptr, G, O, lay, args, j, off.w_out, none,
-                     off.b_out, ss, n, reps, side);
+  weight_grad<kAdam, kBf16>(S_L, H, nullptr, G, O, lay, args, j, off.w_out,
+                            none, off.b_out, ss, n, reps, side);
   for (int l = L - 1; l >= 0; --l) {
     const float* S = ST + l * layer;
     const float* Z = ZG + 3 * l * layer;
@@ -988,27 +1087,29 @@ cudaError_t enqueue_step(int spec, const StepArgs* args, int j,
     const long long lw = static_cast<long long>(l) * H;
     gate_bwd1_kernel<<<ew, kEwThreads, 0, main>>>(DS, S, Z, Hh, lay, H, act,
                                                   DHPl, DZl, DSP, ss);
-    gemm<true>(DHPl, args, off.Wh + lw * H, N, H, H, nullptr, none, none,
-               lay, nullptr, DSR, ss, n, reps, main);
+    gemm<true, kBf16>(DHPl, args, off.Wh + lw * H, N, H, H, nullptr, none,
+                      none, lay, nullptr, DSR, ss, n, reps, main);
     err = st.branch(&side);
     if (err != cudaSuccess) return err;
-    weight_grad<kAdam>(SRl, H, X, DHPl, H, lay, args, j, off.Wh + lw * H,
-                       off.Uh + lw, off.bh + lw, ss, n, reps, side);
+    weight_grad<kAdam, kBf16>(SRl, H, X, DHPl, H, lay, args, j,
+                              off.Wh + lw * H, off.Uh + lw, off.bh + lw, ss,
+                              n, reps, side);
     gate_bwd2_kernel<<<ew, kEwThreads, 0, main>>>(DSR, S, Z, lay, H, act,
                                                   DSP, DZl, ss);
-    gemm<true>(DZl, args, off.Wzgr + lw3 * H, N, 3 * H, H, nullptr, none,
-               none, lay, DSP, DS, ss, n, reps, main);
+    gemm<true, kBf16>(DZl, args, off.Wzgr + lw3 * H, N, 3 * H, H, nullptr,
+                      none, none, lay, DSP, DS, ss, n, reps, main);
     err = st.branch(&side);
     if (err != cudaSuccess) return err;
-    weight_grad<kAdam>(S, H, X, DZl, 3 * H, lay, args, j, off.Wzgr + lw3 * H,
-                       off.Uzgr + lw3, off.bzgr + lw3, ss, n, reps, side);
+    weight_grad<kAdam, kBf16>(S, H, X, DZl, 3 * H, lay, args, j,
+                              off.Wzgr + lw3 * H, off.Uzgr + lw3,
+                              off.bzgr + lw3, ss, n, reps, side);
   }
   input_bwd_kernel<<<ew, kEwThreads, 0, main>>>(DS, PRE, lay, H, act, D0,
                                                 ss);
   err = st.branch(&side);
   if (err != cudaSuccess) return err;
-  weight_grad<kAdam>(X, 1, nullptr, D0, H, lay, args, j, off.w_in, none,
-                     off.b_in, ss, n, reps, side);
+  weight_grad<kAdam, kBf16>(X, 1, nullptr, D0, H, lay, args, j, off.w_in,
+                            none, off.b_in, ss, n, reps, side);
   err = st.merge();
   return err != cudaSuccess ? err : cudaGetLastError();
 }
@@ -1045,25 +1146,28 @@ extern "C" int dgm_args_bytes() { return sizeof(StepArgs); }
 // One step's loss and flat gradient (kernel #7 alone). consts: the spec's
 // kMaxConsts numbers, in host memory; cnst: Fredholm's [2(R−1), B] nodes
 // and weights on the device (unused by FitzHugh–Nagumo); args: a device
-// block of dgm_args_bytes().
+// block of dgm_args_bytes(); bf16: the "default" precision's instances
+// (else "highest"), here and below.
 extern "C" int dgm_grad(int spec, const float* consts, const float* cnst,
                         const float* p, const float* u, float* scratch,
                         float* grad, float* loss, void* args, int R, int B,
                         int H, int L, int O, int act, unsigned value_mask,
-                        void* stream) {
+                        int bf16, void* stream) {
   if (!valid(spec, R, O, value_mask)) return cudaErrorInvalidValue;
-  cudaError_t err = prepare();
-  if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   StepArgs* dev = static_cast<StepArgs*>(args);
   const StepArgs a = host_args(consts, cnst, const_cast<float*>(p), nullptr,
                                nullptr, u, loss, 0, grad);
-  err = write_args(dev, a, st);
-  if (err != cudaSuccess) return err;
   const Layout lay{R, B, value_mask};
-  Streams one{st, {st, st}, nullptr, nullptr};
-  return enqueue_step<false>(spec, dev, 0, scratch, 1, lay, H, L, O, act,
-                             one);
+  return dednn::with_precision(bf16, [&](auto prec) -> int {
+    constexpr bool kBf16 = decltype(prec)::value;
+    cudaError_t err = prepare<kBf16>();
+    if (err == cudaSuccess) err = write_args(dev, a, st);
+    if (err != cudaSuccess) return err;
+    Streams one{st, {st, st}, nullptr, nullptr};
+    return enqueue_step<false, kBf16>(spec, dev, 0, scratch, 1, lay, H, L, O,
+                                      act, one);
+  });
 }
 
 // Capture S training steps of N packed replicas as one CUDA graph
@@ -1072,21 +1176,25 @@ extern "C" int dgm_grad(int spec, const float* consts, const float* cnst,
 // of that shape whose per-call values come through args (dgm_train_packed
 // writes them).
 extern "C" int dgm_graph_build(int spec, int R, int B, int H, int L, int O,
-                               int act, unsigned value_mask, int N, int S,
-                               void* args, float* scratch, void** exec) {
+                               int act, unsigned value_mask, int N, int bf16,
+                               int S, void* args, float* scratch,
+                               void** exec) {
   *exec = nullptr;
   if (!valid(spec, R, O, value_mask) || S < 1) return cudaErrorInvalidValue;
   const Layout lay{R, B, value_mask};
   StepArgs* dev = static_cast<StepArgs*>(args);
-  const cudaError_t err = prepare();
-  if (err != cudaSuccess) return err;
-  return dednn::capture_steps(
-      dev, S,
-      [&](int j, Streams& st) {
-        return enqueue_step<true>(spec, dev, j, scratch, N, lay, H, L, O, act,
-                                  st);
-      },
-      exec);
+  return dednn::with_precision(bf16, [&](auto prec) -> int {
+    constexpr bool kBf16 = decltype(prec)::value;
+    const cudaError_t err = prepare<kBf16>();
+    if (err != cudaSuccess) return err;
+    return dednn::capture_steps(
+        dev, S,
+        [&](int j, Streams& st) {
+          return enqueue_step<true, kBf16>(spec, dev, j, scratch, N, lay, H,
+                                           L, O, act, st);
+        },
+        exec);
+  });
 }
 
 extern "C" int dgm_graph_free(void* exec) { return dednn::free_graph(exec); }
@@ -1105,8 +1213,9 @@ extern "C" int dgm_train_packed(int spec, const float* consts,
                                 float* v, const float* u, float* scratch,
                                 float* losses, void* args, void* exec, int S,
                                 int N, int K, int R, int B, int H, int L,
-                                int O, int act, unsigned value_mask, float lr,
-                                int step0, int schedule, float horizon,
+                                int O, int act, unsigned value_mask,
+                                int bf16, float lr, int step0, int schedule,
+                                float horizon,
                                 float decay, float half_span, float log_decay,
                                 int* step_math_runs, void* stream,
                                 void* side0, void* side1) {
@@ -1121,17 +1230,20 @@ extern "C" int dgm_train_packed(int spec, const float* consts,
   a.step0 = step0;
   a.lr = lr;
   a.sched = Schedule{schedule, horizon, decay, half_span, log_decay};
-  cudaError_t err = prepare();
-  if (err == cudaSuccess) err = write_args(dev, a, st);
-  if (err != cudaSuccess) return err;
-  return dednn::run_steps(
-      exec, S, K, N, st, static_cast<cudaStream_t>(side0),
-      static_cast<cudaStream_t>(side1),
-      [&](int j, Streams& two) {
-        return enqueue_step<true>(spec, dev, j, scratch, N, lay, H, L, O, act,
-                                  two);
-      },
-      step_math_runs);
+  return dednn::with_precision(bf16, [&](auto prec) -> int {
+    constexpr bool kBf16 = decltype(prec)::value;
+    cudaError_t err = prepare<kBf16>();
+    if (err == cudaSuccess) err = write_args(dev, a, st);
+    if (err != cudaSuccess) return err;
+    return dednn::run_steps(
+        exec, S, K, N, st, static_cast<cudaStream_t>(side0),
+        static_cast<cudaStream_t>(side1),
+        [&](int j, Streams& two) {
+          return enqueue_step<true, kBf16>(spec, dev, j, scratch, N, lay, H,
+                                           L, O, act, two);
+        },
+        step_math_runs);
+  });
 }
 
 // The forward product of the training step at [rows, K]·[K, M] (trans = 0)

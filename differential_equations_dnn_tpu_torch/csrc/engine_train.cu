@@ -65,8 +65,22 @@
 // row order, then the warps in order; each weight gradient the sum in
 // stream order of per-stream fmaf chains over the stream's B rows in
 // order. So runs are bit-identical, a chunk cut anywhere equals the uncut
-// run, and the outputs equal the first design's. Every product is fp32 FFMA:
-// exact fp32 ("highest"), no tensor cores.
+// run, and the outputs equal the first design's. Every product of the
+// "highest" instances is fp32 FFMA: exact fp32, no tensor cores.
+//
+// At the "default" precision (bf16 != 0 at the entry points) every launch
+// is its kBf16 instance: the layer products and the weight gradients on the
+// tensor cores (mma_bf16.cuh: bf16 operands, fp32 accumulation, in a fixed
+// order, so runs stay bit-identical and chunk-invariant), and the small
+// products of the input and loss kernels (X·w_in, a_L·w_out, G·w_outᵀ) on
+// operands rounded to bf16 as they load, as the JAX step math gives each of
+// those products its precision. The Taylor rules, the spec's loss (its
+// own products, such as volterra's node sums and inverse_heat's observation
+// rows, which the JAX step math pins to HIGHEST), the bias sums and Adam
+// stay fp32. The "default" instances of every spec double the templates
+// to build, so they build in a translation unit of their own,
+// engine_train_bf16.cu (this source with DEDNN_ENGINE_BF16 = 1), beside
+// this one: the entry points here call its engine_*_bf16 for bf16 != 0.
 //
 // Packed replicas (kernel #5, engine_core.py::fused_packed_adam_kernel,
 // reached through run_fused_packed): engine_train_packed advances N
@@ -133,6 +147,13 @@
 // them unchanged.
 #include <algorithm>
 #include <cmath>
+
+// 1 where engine_train_bf16.cu includes this source: that translation unit
+// holds the "default" precision's instances and entry points, this one the
+// "highest" ones and every other entry point.
+#ifndef DEDNN_ENGINE_BF16
+#define DEDNN_ENGINE_BF16 0
+#endif
 
 #include "common.cuh"
 #include "fused_step.cuh"
@@ -917,8 +938,9 @@ struct Rules {
 // d < D is the one product x_d·w_dm) and the tanh rules. Block of kInputBB
 // batch points × kInputBN columns; replica blockIdx.z: weights at z·ps,
 // outputs at z·ss. B counts the rows of a stream: the batch, or a folded
-// spec's F·batch rows, row b drawing on point b mod batch.
-template <class S>
+// spec's F·batch rows, row b drawing on point b mod batch. kBf16: X and
+// w_in enter the product rounded to bf16 (X is written unrounded).
+template <class S, bool kBf16>
 __global__ void __launch_bounds__(kInputBB* kInputBN)
     input_kernel(const StepArgs* __restrict__ args, int j, Consts c,
                  long long b_off, int H, int B, int batch,
@@ -943,7 +965,8 @@ __global__ void __launch_bounds__(kInputBB* kInputBN)
     float rows[R * D];
     S::build(Point{u, b, batch, args->cnst, nullptr}, c, rows);
 #pragma unroll
-    for (int i = 0; i < R * D; ++i) x_s[tid][i] = rows[i];
+    for (int i = 0; i < R * D; ++i)
+      x_s[tid][i] = dednn::operand<kBf16>(rows[i]);
     if (blockIdx.x == 0) {
 #pragma unroll
       for (int s = 0; s < R; ++s)
@@ -958,7 +981,8 @@ __global__ void __launch_bounds__(kInputBB* kInputBN)
   if (b >= B || m >= H) return;
   float w[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) w[d] = w_in[static_cast<size_t>(d) * H + m];
+  for (int d = 0; d < D; ++d)
+    w[d] = dednn::operand<kBf16>(w_in[static_cast<size_t>(d) * H + m]);
   const float bm = b_in[m];
   float zc[R], a[R];
 #pragma unroll
@@ -988,8 +1012,9 @@ __global__ void __launch_bounds__(kInputBB* kInputBN)
 // PL[b] (and a kExtra spec's d(point loss)/d(extra) to PE[b]);
 // G[s·B + b] = (1/B)·d(point loss)/d(out_s); then the output layer's data
 // gradient g = G·w_outᵀ and its VJP at layer L into DZ_L (z_L, a_L). The
-// extra tensors are the replica's, at x_off.
-template <class S>
+// extra tensors are the replica's, at x_off. kBf16: both products take
+// their operands rounded to bf16.
+template <class S, bool kBf16>
 __global__ void __launch_bounds__(32 * kLossWarps)
     loss_kernel(const StepArgs* __restrict__ args, int j, Consts c,
                 long long w_off, long long b_off, long long x_off, int H,
@@ -1020,7 +1045,9 @@ __global__ void __launch_bounds__(32 * kLossWarps)
       const float* ar = a + static_cast<size_t>(s * B + b) * H;
       float acc = 0.0f;
 #pragma unroll 4
-      for (int k = lane; k < H; k += 32) acc = fmaf(ar[k], w_out[k], acc);
+      for (int k = lane; k < H; k += 32)
+        acc = fmaf(dednn::operand<kBf16>(ar[k]),
+                   dednn::operand<kBf16>(w_out[k]), acc);
       for (int off = 16; off > 0; off >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
       out[s] = kind_of<S>(s) == kValue ? acc + bo : acc;
@@ -1036,8 +1063,11 @@ __global__ void __launch_bounds__(32 * kLossWarps)
 #pragma unroll
       for (int s = 0; s < R; ++s) G[s * B + b] = g[s] * inv_b;
     }
+    float gr[R];  // G's entries as the product's operand
+#pragma unroll
+    for (int s = 0; s < R; ++s) gr[s] = dednn::operand<kBf16>(g[s] * inv_b);
     for (int k = lane; k < H; k += 32) {
-      const float w = w_out[k];
+      const float w = dednn::operand<kBf16>(w_out[k]);
       float gs[R], prev[R], dzs[R];
 #pragma unroll
       for (int s = 0; s < R; ++s) {
@@ -1045,7 +1075,7 @@ __global__ void __launch_bounds__(32 * kLossWarps)
         // slices; opaque, as the first design's sums read back from shared
         // memory, so that the VJP's products fuse as they did there (equal
         // cotangents of two streams must not become one value).
-        gs[s] = opaque(fmaf(g[s] * inv_b, w, 0.0f) + 0.0f);
+        gs[s] = opaque(fmaf(gr[s], w, 0.0f) + 0.0f);
         prev[s] =
             bwd_operand<S>(s, z, a, static_cast<size_t>(s * B + b) * H + k);
       }
@@ -1068,8 +1098,8 @@ __global__ void __launch_bounds__(32 * kLossWarps)
 //   3. warp w again takes its points: PL[b] = S::weighted_loss,
 //      G[s·B + b] = (1/B)·g_s, and the output layer's data gradient through
 //      the tanh VJP at layer L into DZ_L, as loss_kernel writes them.
-// Dynamic shared memory: kCausalFloats·B floats.
-template <class S>
+// Dynamic shared memory: kCausalFloats·B floats. kBf16 as in loss_kernel.
+template <class S, bool kBf16>
 __global__ void __launch_bounds__(kCausalThreads)
     causal_loss_kernel(const StepArgs* __restrict__ args, int j, Consts c,
                        long long w_off, long long b_off, int H, int B,
@@ -1100,7 +1130,9 @@ __global__ void __launch_bounds__(kCausalThreads)
       const float* ar = a + static_cast<size_t>(s * B + b) * H;
       float acc = 0.0f;
 #pragma unroll 4
-      for (int k = lane; k < H; k += 32) acc = fmaf(ar[k], w_out[k], acc);
+      for (int k = lane; k < H; k += 32)
+        acc = fmaf(dednn::operand<kBf16>(ar[k]),
+                   dednn::operand<kBf16>(w_out[k]), acc);
       for (int off = 16; off > 0; off >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
       out[s] = kind_of<S>(s) == kValue ? acc + bo : acc;
@@ -1131,12 +1163,15 @@ __global__ void __launch_bounds__(kCausalThreads)
 #pragma unroll
       for (int s = 0; s < R; ++s) G[s * B + b] = g[s] * inv_b;
     }
+    float gr[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s) gr[s] = dednn::operand<kBf16>(g[s] * inv_b);
     for (int k = lane; k < H; k += 32) {
-      const float w = w_out[k];
+      const float w = dednn::operand<kBf16>(w_out[k]);
       float gs[R], prev[R], dzs[R];
 #pragma unroll
       for (int s = 0; s < R; ++s) {
-        gs[s] = opaque(fmaf(g[s] * inv_b, w, 0.0f) + 0.0f);
+        gs[s] = opaque(fmaf(gr[s], w, 0.0f) + 0.0f);
         prev[s] =
             bwd_operand<S>(s, z, a, static_cast<size_t>(s * B + b) * H + k);
       }
@@ -1154,8 +1189,9 @@ __global__ void __launch_bounds__(kCausalThreads)
 // ...; each dot product as in loss_kernel) into shared memory, then thread
 // 0 the point loss (S::fold_loss, to PL[b]), then each warp its rows'
 // G[s·B + b] = (1/B)·g_s and the data gradient through the tanh VJP at
-// layer L into DZ_L. Dynamic shared memory: F floats.
-template <class S>
+// layer L into DZ_L. Dynamic shared memory: F floats. kBf16 as in
+// loss_kernel.
+template <class S, bool kBf16>
 __global__ void __launch_bounds__(32 * kFoldWarps)
     fold_loss_kernel(const StepArgs* __restrict__ args, int j, Consts c,
                      long long w_off, long long b_off, int H, int B, int F,
@@ -1180,7 +1216,9 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
     const float* ar = a + (static_cast<size_t>(s) * B + b) * H;
     float acc = 0.0f;
 #pragma unroll 4
-    for (int k = lane; k < H; k += 32) acc = fmaf(ar[k], w_out[k], acc);
+    for (int k = lane; k < H; k += 32)
+      acc = fmaf(dednn::operand<kBf16>(ar[k]),
+                 dednn::operand<kBf16>(w_out[k]), acc);
     for (int off = 16; off > 0; off >>= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, off);
     if (lane == 0) out_s[s] = acc + bo;
@@ -1194,11 +1232,13 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
     const float gs = s == 0 ? coef_s[0] : coef_s[1] * S::fold_coef(pt, s);
     const size_t row = static_cast<size_t>(s) * B + b;
     if (lane == 0) G[row] = gs * inv_b;
+    const float gr = dednn::operand<kBf16>(gs * inv_b);
     for (int k = lane; k < H; k += 32) {
       const float av = a[row * H + k];
       // act_bwd at a value row: (1 − a²)·g, g through the one output
       // column and the 7 empty slices, as in loss_kernel.
-      const float gk = opaque(fmaf(gs * inv_b, w_out[k], 0.0f) + 0.0f);
+      const float gk = opaque(
+          fmaf(gr, dednn::operand<kBf16>(w_out[k]), 0.0f) + 0.0f);
       dz[row * H + k] = (1.0f - av * av) * gk;
     }
   }
@@ -1314,8 +1354,9 @@ constexpr int wg_groups() {
 // scratch + r·Scratch::total; each layer keeps its own Z, A and dz. F is a
 // folded spec's group count (1 for the others): its streams have F·B rows.
 // At L = 0 (uat's Perceptron) the step is the input layer, the loss, and
-// the weight gradients of the input and output layers.
-template <class S, bool kAdam>
+// the weight gradients of the input and output layers. kBf16: every
+// launch's "default" instance.
+template <class S, bool kAdam, bool kBf16>
 cudaError_t enqueue_step(const StepArgs* args, const Consts& c, int j,
                          float* scratch, int reps, int B, int H, int L, int F,
                          Streams& st) {
@@ -1340,34 +1381,36 @@ cudaError_t enqueue_step(const StepArgs* args, const Consts& c, int j,
   auto b_hid = [&](int l) { return off.b_hid + static_cast<long long>(l) * H; };
   const cudaStream_t main = st.main;
 
-  input_kernel<S><<<dim3(dednn::ceil_div(H, kInputBN),
-                         dednn::ceil_div(rows, kInputBB), reps),
-                    kInputBB * kInputBN, 0, main>>>(args, j, c, off.b_in, H,
-                                                    rows, B, X, Z, A, ss, n);
+  input_kernel<S, kBf16><<<dim3(dednn::ceil_div(H, kInputBN),
+                                dednn::ceil_div(rows, kInputBB), reps),
+                           kInputBB * kInputBN, 0, main>>>(
+      args, j, c, off.b_in, H, rows, B, X, Z, A, ss, n);
   for (int l = 1; l <= L; ++l)
-    dednn::layer<Rules<S>, false>(at(A, l - 1), args, w_hid(l - 1),
-                                  b_hid(l - 1), H, H, rows, nullptr, nullptr,
-                                  at(Z, l), at(A, l), ss, n, reps, main);
+    dednn::layer<Rules<S>, false, kBf16>(at(A, l - 1), args, w_hid(l - 1),
+                                         b_hid(l - 1), H, H, rows, nullptr,
+                                         nullptr, at(Z, l), at(A, l), ss, n,
+                                         reps, main);
   if constexpr (S::kFolded) {
-    fold_loss_kernel<S><<<dim3(B, reps), 32 * kFoldWarps,
-                          F * sizeof(float), main>>>(
+    fold_loss_kernel<S, kBf16><<<dim3(B, reps), 32 * kFoldWarps,
+                                 F * sizeof(float), main>>>(
         args, j, c, off.w_out, off.b_out, H, B, F, at(A, L), G, PL,
         at(DZ, L), ss, n);
   } else if constexpr (S::kCausal) {
-    causal_loss_kernel<S><<<dim3(1, reps), kCausalThreads,
-                            kCausalFloats * B * sizeof(float), main>>>(
+    causal_loss_kernel<S, kBf16><<<dim3(1, reps), kCausalThreads,
+                                   kCausalFloats * B * sizeof(float), main>>>(
         args, j, c, off.w_out, off.b_out, H, B, at(Z, L), at(A, L), G, PL,
         at(DZ, L), ss, n);
   } else {
-    loss_kernel<S><<<dim3(dednn::ceil_div(B, kLossWarps), reps),
-                     32 * kLossWarps, 0, main>>>(
+    loss_kernel<S, kBf16><<<dim3(dednn::ceil_div(B, kLossWarps), reps),
+                            32 * kLossWarps, 0, main>>>(
         args, j, c, off.w_out, off.b_out, off.extras, H, B, at(Z, L),
         at(A, L), G, PL, PE, at(DZ, L), ss, n);
   }
   for (int l = L; l >= 1; --l)
-    dednn::layer<Rules<S>, true>(at(DZ, l), args, w_hid(l - 1), -1LL, H, H,
-                                 rows, at(Z, l - 1), at(A, l - 1), nullptr,
-                                 at(DZ, l - 1), ss, n, reps, main);
+    dednn::layer<Rules<S>, true, kBf16>(at(DZ, l), args, w_hid(l - 1), -1LL,
+                                        H, H, rows, at(Z, l - 1),
+                                        at(A, l - 1), nullptr, at(DZ, l - 1),
+                                        ss, n, reps, main);
 
   cudaStream_t lanes[3];
   cudaError_t err = st.branch(&lanes[0]);
@@ -1377,23 +1420,24 @@ cudaError_t enqueue_step(const StepArgs* args, const Consts& c, int j,
   int load[3] = {0, 0, 0};  // weight gradients per lane
   for (int l = L; l >= 1; --l) {  // the hidden layers, one lane each in turn
     ++load[(L - l) % 3];
-    dednn::weight_grad<kAdam, kWg>(at(A, l - 1), H, at(DZ, l), H, lay,
-                                   args, j, w_hid(l - 1), b_hid(l - 1), ss,
-                                   n, reps, lanes[(L - l) % 3]);
+    dednn::weight_grad<kAdam, kWg, kBf16>(at(A, l - 1), H, at(DZ, l), H, lay,
+                                          args, j, w_hid(l - 1), b_hid(l - 1),
+                                          ss, n, reps, lanes[(L - l) % 3]);
   }
   loss_sum_kernel<kAdam><<<reps, kLossLanes, 0, lanes[1]>>>(
       args, j, PL, PE, B, ss, n, off.extras);
   ++load[1];
-  dednn::weight_grad<kAdam, kWg>(at(A, L), H, G, 1, lay, args, j, off.w_out,
-                                 off.b_out, ss, n, reps, lanes[1]);
+  dednn::weight_grad<kAdam, kWg, kBf16>(at(A, L), H, G, 1, lay, args, j,
+                                        off.w_out, off.b_out, ss, n, reps,
+                                        lanes[1]);
   // The input layer's on the least loaded lane, the first of equals (at
   // L = 3 lanes[0], as before; at L = 2 not a third one on lanes[1], which
   // held volterra's step to its three weight gradients in a row).
   int in = 0;
   for (int i = 1; i < 3; ++i)
     if (load[i] < load[in]) in = i;
-  dednn::weight_grad<kAdam, kWg>(X, D, DZ, H, lay, args, j, off.w_in,
-                                 off.b_in, ss, n, reps, lanes[in]);
+  dednn::weight_grad<kAdam, kWg, kBf16>(X, D, DZ, H, lay, args, j, off.w_in,
+                                        off.b_in, ss, n, reps, lanes[in]);
   err = st.merge();
   return err != cudaSuccess ? err : cudaGetLastError();
 }
@@ -1449,8 +1493,166 @@ bool batch_ok(int B) {
   return !S::kCausal || (B >= 1 && B <= kCausalMaxBatch);
 }
 
+
+// One step's loss and flat gradient (kernel #6 alone), its launches on one
+// stream, at kBf16's precision. consts: the spec's kMaxConsts numbers, in
+// host memory; cnst: its const operand on the device (nullptr: none);
+// args: a device block of engine_args_bytes(); F: the folded groups (1
+// unless the spec folds).
+template <bool kBf16>
+int grad_steps(int spec, const float* consts, const float* cnst,
+               const float* p, const float* u, float* scratch, float* grad,
+               float* loss, void* args, int B, int H, int L, int F,
+               void* stream) {
+  if (!fold_ok(F)) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  StepArgs* dev = static_cast<StepArgs*>(args);
+  const StepArgs a = host_args(consts, cnst, const_cast<float*>(p), nullptr,
+                               nullptr, u, loss, 0, grad);
+  const int code = dispatch(spec, [&](auto s) -> int {
+    using S = decltype(s);
+    if (!batch_ok<S>(B)) return cudaErrorInvalidValue;
+    cudaError_t err = dednn::prepare_step<Rules<S>, wg_groups<S>(), kBf16>();
+    if (err == cudaSuccess) err = write_args(dev, a, st);
+    if (err != cudaSuccess) return err;
+    Streams one{st, {st, st}, nullptr, nullptr};
+    return enqueue_step<S, false, kBf16>(dev, a.c, 0, scratch, 1, B, H, L, F,
+                                         one);
+  });
+  return code < 0 ? cudaErrorInvalidValue : code;
+}
+
+// Capture S training steps of N packed replicas at kBf16's precision as one
+// CUDA graph (dednn::capture_steps) and instantiate it into *exec. The
+// graph holds the scratch and argument-block pointers, the shape (F folded
+// groups included) and the spec's numbers (consts, in host memory): it
+// serves every call of that shape and those numbers whose per-call values
+// come through args (engine_train_packed writes them, the const operand's
+// pointer among them).
+template <bool kBf16>
+int capture_graph(int spec, const float* consts, int B, int H, int L, int F,
+                  int N, int S, void* args, float* scratch, void** exec) {
+  *exec = nullptr;
+  if (S < 1 || N < 1 || N > dednn::kMaxGridYZ || !fold_ok(F))
+    return cudaErrorInvalidValue;
+  StepArgs* dev = static_cast<StepArgs*>(args);
+  const Consts c = host_args(consts, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, nullptr, 0, nullptr).c;
+  const int code = dispatch(spec, [&](auto s) -> int {
+    using Spec = decltype(s);
+    if (!batch_ok<Spec>(B)) return cudaErrorInvalidValue;
+    const cudaError_t err =
+        dednn::prepare_step<Rules<Spec>, wg_groups<Spec>(), kBf16>();
+    if (err != cudaSuccess) return err;
+    return dednn::capture_steps(
+        dev, S,
+        [&](int j, Streams& st) {
+          return enqueue_step<Spec, true, kBf16>(dev, c, j, scratch, N, B, H,
+                                                 L, F, st);
+        },
+        exec);
+  });
+  return code < 0 ? cudaErrorInvalidValue : code;
+}
+
+// K Adam steps of N packed replicas (kernel #5 around #6) at kBf16's
+// precision: p, m, v [N, n] updated in place, losses [N, K]; the uniforms
+// [K, B, U], the const operand cnst (nullptr: none) and the schedule are
+// shared. scratch (N·engine_scratch_floats) and args (engine_args_bytes)
+// are the ones exec was built with, if exec is not null: then ⌊K/S⌋
+// replays of its S steps on `stream`, and the other K mod S steps as the
+// same launches from here, the weight gradients on side0 and side1 (all K,
+// without exec). *step_math_runs (host memory) is set to the number of
+// replica-steps whose step math was enqueued. N above the grid's 65 535 is
+// refused.
+template <bool kBf16>
+int train_steps(int spec, const float* consts, const float* cnst, float* p,
+                float* m, float* v, const float* u, float* scratch,
+                float* losses, void* args, void* exec, int S, int N, int K,
+                int B, int H, int L, int F, float lr, int step0, int schedule,
+                float horizon, float decay, float half_span, float log_decay,
+                int* step_math_runs, void* stream, void* side0, void* side1) {
+  *step_math_runs = 0;
+  if (N < 1 || N > dednn::kMaxGridYZ || !fold_ok(F))
+    return cudaErrorInvalidValue;
+  if (exec != nullptr && S < 1) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  StepArgs* dev = static_cast<StepArgs*>(args);
+  StepArgs a = host_args(consts, cnst, p, m, v, u, losses, K, nullptr);
+  a.step0 = step0;
+  a.lr = lr;
+  a.sched = Schedule{schedule, horizon, decay, half_span, log_decay};
+  const int code = dispatch(spec, [&](auto s) -> int {
+    using Spec = decltype(s);
+    if (!batch_ok<Spec>(B)) return cudaErrorInvalidValue;
+    cudaError_t err =
+        dednn::prepare_step<Rules<Spec>, wg_groups<Spec>(), kBf16>();
+    if (err == cudaSuccess) err = write_args(dev, a, st);
+    if (err != cudaSuccess) return err;
+    return dednn::run_steps(
+        exec, S, K, N, st, static_cast<cudaStream_t>(side0),
+        static_cast<cudaStream_t>(side1),
+        [&](int j, Streams& two) {
+          return enqueue_step<Spec, true, kBf16>(dev, a.c, j, scratch, N, B,
+                                                 H, L, F, two);
+        },
+        step_math_runs);
+  });
+  return code < 0 ? cudaErrorInvalidValue : code;
+}
+
 }  // namespace
 
+// The "default" precision's entry points, compiled from this source by
+// engine_train_bf16.cu (its own nvcc, beside this one's: the bf16 instances
+// of every spec's kernels double the build, so each precision builds in a
+// translation unit of its own).
+extern "C" int engine_grad_bf16(int spec, const float* consts,
+                                const float* cnst, const float* p,
+                                const float* u, float* scratch, float* grad,
+                                float* loss, void* args, int B, int H, int L,
+                                int F, void* stream)
+#if DEDNN_ENGINE_BF16
+{
+  return grad_steps<true>(spec, consts, cnst, p, u, scratch, grad, loss, args,
+                          B, H, L, F, stream);
+}
+#else
+    ;
+#endif
+
+extern "C" int engine_graph_build_bf16(int spec, const float* consts, int B,
+                                       int H, int L, int F, int N, int S,
+                                       void* args, float* scratch,
+                                       void** exec)
+#if DEDNN_ENGINE_BF16
+{
+  return capture_graph<true>(spec, consts, B, H, L, F, N, S, args, scratch,
+                             exec);
+}
+#else
+    ;
+#endif
+
+extern "C" int engine_train_packed_bf16(
+    int spec, const float* consts, const float* cnst, float* p, float* m,
+    float* v, const float* u, float* scratch, float* losses, void* args,
+    void* exec, int S, int N, int K, int B, int H, int L, int F, float lr,
+    int step0, int schedule, float horizon, float decay, float half_span,
+    float log_decay, int* step_math_runs, void* stream, void* side0,
+    void* side1)
+#if DEDNN_ENGINE_BF16
+{
+  return train_steps<true>(spec, consts, cnst, p, m, v, u, scratch, losses,
+                           args, exec, S, N, K, B, H, L, F, lr, step0,
+                           schedule, horizon, decay, half_span, log_decay,
+                           step_math_runs, stream, side0, side1);
+}
+#else
+    ;
+#endif
+
+#if !DEDNN_ENGINE_BF16
 // Floats of scratch one replica needs at F folded groups (1 for a spec
 // that does not fold), or -1 for an unknown spec.
 extern "C" long long engine_scratch_floats(int spec, int B, int H, int L,
@@ -1479,112 +1681,53 @@ extern "C" long long engine_smem_bytes(int spec, int H) {
 extern "C" int engine_args_bytes() { return sizeof(StepArgs); }
 
 // One step's loss and flat gradient (kernel #6 alone), its launches on one
-// stream. consts: the spec's kMaxConsts numbers, in host memory; cnst: its
-// const operand on the device (nullptr: none); args: a device block of
-// engine_args_bytes(); F: the folded groups (1 unless the spec folds).
+// stream (grad_steps); bf16: the "default" precision's instances (else
+// "highest"), here and below.
 extern "C" int engine_grad(int spec, const float* consts, const float* cnst,
                            const float* p, const float* u, float* scratch,
                            float* grad, float* loss, void* args, int B, int H,
-                           int L, int F, void* stream) {
-  if (!fold_ok(F)) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  StepArgs* dev = static_cast<StepArgs*>(args);
-  const StepArgs a = host_args(consts, cnst, const_cast<float*>(p), nullptr,
-                               nullptr, u, loss, 0, grad);
-  const int code = dispatch(spec, [&](auto s) -> int {
-    using S = decltype(s);
-    if (!batch_ok<S>(B)) return cudaErrorInvalidValue;
-    cudaError_t err = dednn::prepare_step<Rules<S>, wg_groups<S>()>();
-    if (err == cudaSuccess) err = write_args(dev, a, st);
-    if (err != cudaSuccess) return err;
-    Streams one{st, {st, st}, nullptr, nullptr};
-    return enqueue_step<S, false>(dev, a.c, 0, scratch, 1, B, H, L, F, one);
-  });
-  return code < 0 ? cudaErrorInvalidValue : code;
+                           int L, int F, int bf16, void* stream) {
+  return bf16 ? engine_grad_bf16(spec, consts, cnst, p, u, scratch, grad,
+                                 loss, args, B, H, L, F, stream)
+              : grad_steps<false>(spec, consts, cnst, p, u, scratch, grad,
+                                  loss, args, B, H, L, F, stream);
 }
 
-// Capture S training steps of N packed replicas as one CUDA graph
-// (dednn::capture_steps) and instantiate it into *exec. The graph holds
-// the scratch and argument-block pointers, the shape (F folded groups
-// included) and the spec's numbers (consts, in host memory): it serves
-// every call of that shape and those numbers whose per-call values come
-// through args (engine_train_packed writes them, the const operand's
-// pointer among them).
+// S training steps of N packed replicas as one CUDA graph (capture_graph).
 extern "C" int engine_graph_build(int spec, const float* consts, int B, int H,
-                                  int L, int F, int N, int S, void* args,
-                                  float* scratch, void** exec) {
-  *exec = nullptr;
-  if (S < 1 || N < 1 || N > dednn::kMaxGridYZ || !fold_ok(F))
-    return cudaErrorInvalidValue;
-  StepArgs* dev = static_cast<StepArgs*>(args);
-  const Consts c = host_args(consts, nullptr, nullptr, nullptr, nullptr,
-                             nullptr, nullptr, 0, nullptr).c;
-  const int code = dispatch(spec, [&](auto s) -> int {
-    using Spec = decltype(s);
-    if (!batch_ok<Spec>(B)) return cudaErrorInvalidValue;
-    const cudaError_t err =
-        dednn::prepare_step<Rules<Spec>, wg_groups<Spec>()>();
-    if (err != cudaSuccess) return err;
-    return dednn::capture_steps(
-        dev, S,
-        [&](int j, Streams& st) {
-          return enqueue_step<Spec, true>(dev, c, j, scratch, N, B, H, L, F,
-                                          st);
-        },
-        exec);
-  });
-  return code < 0 ? cudaErrorInvalidValue : code;
+                                  int L, int F, int N, int bf16, int S,
+                                  void* args, float* scratch, void** exec) {
+  return bf16 ? engine_graph_build_bf16(spec, consts, B, H, L, F, N, S, args,
+                                        scratch, exec)
+              : capture_graph<false>(spec, consts, B, H, L, F, N, S, args,
+                                     scratch, exec);
 }
 
 extern "C" int engine_graph_free(void* exec) {
   return dednn::free_graph(exec);
 }
 
-// K Adam steps of N packed replicas (kernel #5 around #6): p, m, v [N, n]
-// updated in place, losses [N, K]; the uniforms [K, B, U], the const
-// operand cnst (nullptr: none) and the schedule are shared. scratch
-// (N·engine_scratch_floats) and args (engine_args_bytes) are the ones exec
-// was built with, if exec is not null: then ⌊K/S⌋ replays of its S steps
-// on `stream`, and the other K mod S steps as the same launches from here,
-// the weight gradients on side0 and side1 (all K, without exec).
-// *step_math_runs (host memory) is set to the number of replica-steps whose
-// step math was enqueued. N above the grid's 65 535 is refused.
+// K Adam steps of N packed replicas (train_steps).
 extern "C" int engine_train_packed(int spec, const float* consts,
                                    const float* cnst, float* p, float* m,
                                    float* v, const float* u, float* scratch,
                                    float* losses, void* args, void* exec,
                                    int S, int N, int K, int B, int H, int L,
-                                   int F, float lr, int step0, int schedule,
-                                   float horizon, float decay,
+                                   int F, int bf16, float lr, int step0,
+                                   int schedule, float horizon, float decay,
                                    float half_span, float log_decay,
                                    int* step_math_runs, void* stream,
                                    void* side0, void* side1) {
-  *step_math_runs = 0;
-  if (N < 1 || N > dednn::kMaxGridYZ || !fold_ok(F))
-    return cudaErrorInvalidValue;
-  if (exec != nullptr && S < 1) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  StepArgs* dev = static_cast<StepArgs*>(args);
-  StepArgs a = host_args(consts, cnst, p, m, v, u, losses, K, nullptr);
-  a.step0 = step0;
-  a.lr = lr;
-  a.sched = Schedule{schedule, horizon, decay, half_span, log_decay};
-  const int code = dispatch(spec, [&](auto s) -> int {
-    using Spec = decltype(s);
-    if (!batch_ok<Spec>(B)) return cudaErrorInvalidValue;
-    cudaError_t err = dednn::prepare_step<Rules<Spec>, wg_groups<Spec>()>();
-    if (err == cudaSuccess) err = write_args(dev, a, st);
-    if (err != cudaSuccess) return err;
-    return dednn::run_steps(
-        exec, S, K, N, st, static_cast<cudaStream_t>(side0),
-        static_cast<cudaStream_t>(side1),
-        [&](int j, Streams& two) {
-          return enqueue_step<Spec, true>(dev, a.c, j, scratch, N, B, H, L, F,
-                                          two);
-        },
-        step_math_runs);
-  });
-  return code < 0 ? cudaErrorInvalidValue : code;
+  return bf16 ? engine_train_packed_bf16(
+                    spec, consts, cnst, p, m, v, u, scratch, losses, args,
+                    exec, S, N, K, B, H, L, F, lr, step0, schedule, horizon,
+                    decay, half_span, log_decay, step_math_runs, stream,
+                    side0, side1)
+              : train_steps<false>(
+                    spec, consts, cnst, p, m, v, u, scratch, losses, args,
+                    exec, S, N, K, B, H, L, F, lr, step0, schedule, horizon,
+                    decay, half_span, log_decay, step_math_runs, stream,
+                    side0, side1);
 }
 
 // Times what one step is built from (kernels/profile.py --probe-engine):
@@ -1633,15 +1776,15 @@ extern "C" int engine_probe(int kind, int B, int H, int launches,
                                      off.w_hid, off.b_hid, sc.total, n, 1, st);
         break;
       case 3:
-        loss_kernel<S><<<dim3(dednn::ceil_div(B, kLossWarps), 1),
+        loss_kernel<S, false><<<dim3(dednn::ceil_div(B, kLossWarps), 1),
                          32 * kLossWarps, 0, st>>>(
             dev, 0, Consts{}, off.w_out, off.b_out, off.extras, H, B, Z, A,
             scratch + sc.G, scratch + sc.PL, scratch + sc.PE, DZ, sc.total,
             n);
         break;
       case 4:
-        input_kernel<S><<<dim3(dednn::ceil_div(H, kInputBN),
-                               dednn::ceil_div(B, kInputBB), 1),
+        input_kernel<S, false><<<dim3(dednn::ceil_div(H, kInputBN),
+                                      dednn::ceil_div(B, kInputBB), 1),
                           kInputBB * kInputBN, 0, st>>>(
             dev, 0, Consts{}, off.b_in, H, B, B, scratch + sc.X, Z, A,
             sc.total, n);
@@ -1654,3 +1797,5 @@ extern "C" int engine_probe(int kind, int B, int H, int launches,
   }
   return cudaSuccess;
 }
+
+#endif  // !DEDNN_ENGINE_BF16

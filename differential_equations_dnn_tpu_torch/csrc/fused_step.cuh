@@ -16,6 +16,7 @@
 
 #include "adam.cuh"
 #include "common.cuh"
+#include "mma_bf16.cuh"
 
 namespace dednn {
 namespace {
@@ -146,6 +147,15 @@ __device__ __forceinline__ void load_frag(const float* src, float (&dst)[T]) {
 // v of the replica (blockIdx.z) at step step0 + base + j + 1; otherwise the
 // gradient to args->grad (one replica). Dynamic shared memory:
 // wg_smem_bytes<...>().
+//
+// kBf16 (the "default" precision): the same staging, rounds and epilogue,
+// but each group's product runs on the tensor cores (mma_bf16.cuh) with the
+// chunk's rows as the reduction: its warps split the BK × BM tile into
+// m16n8 tiles (k as rows, m as columns) and accumulate each 16-row step of
+// the stream's chunks in order, the operands rounded to bf16 as they are
+// read from the ring. The bias chain stays an fp32 sum of dz (the JAX step
+// math's jnp.sum); the x-row chain, a product the JAX step math gives
+// precision (x·dz over the rows), sums bf16-rounded x and dz in fp32.
 template <int BK, int BM, int kRows, int kStages, int kGroups>
 constexpr size_t wg_smem_bytes() {
   return sizeof(float) *
@@ -155,7 +165,7 @@ constexpr size_t wg_smem_bytes() {
 }
 
 template <bool kAdam, int BK, int BM, int TK, int TM, int kRows, int kStages,
-          int kGroups>
+          int kGroups, bool kBf16 = false>
 __global__ void __launch_bounds__(kGroups * (BK / TK) * (BM / TM))
     weight_grad_kernel(const float* __restrict__ A, int KA,
                        const float* __restrict__ x,
@@ -270,6 +280,19 @@ __global__ void __launch_bounds__(kGroups * (BK / TK) * (BM / TM))
     }
   };
 
+  // The kBf16 product: the group's warps and their m16n8 tiles.
+  static_assert(!kBf16 || (kTile % 32 == 0 && kRows % 16 == 0 && BK % 16 == 0),
+                "whole warps per group, whole 16-row steps and m-tiles");
+  using Tiles = MmaTiles<BK, BM, kBf16 ? kTile / 32 : 1>;
+  const int gw = lt / 32;  // the warp within the group
+  float dacc[Tiles::kPer][4] = {};
+  auto tile_of = [&](int i, int& r0, int& n0) {
+    const int tile = gw + i * (kTile / 32);
+    r0 = tile / Tiles::kNT * 16;
+    n0 = tile % Tiles::kNT * 8;
+    return tile < Tiles::kTiles;
+  };
+
   float acc[TK][TM] = {};
   float chain = 0.0f;
 #pragma unroll
@@ -281,7 +304,33 @@ __global__ void __launch_bounds__(kGroups * (BK / TK) * (BM / TM))
     load_next();                   // step q + kStages − 1, into q − 1's
     const int buf = q % kStages;
     const int s = rho * kGroups + g;
-    if (s < R) {
+    if (kBf16 && s < R) {
+      const int rows = min(kRows, B - c * kRows);
+      // Rows past the stream's end were staged as zeros, so every chunk
+      // runs whole 16-row steps.
+#pragma unroll
+      for (int k0r = 0; k0r < kRows; k0r += 16)
+#pragma unroll
+        for (int i = 0; i < Tiles::kPer; ++i) {
+          int r0, n0;
+          if (!tile_of(i, r0, n0)) continue;
+          unsigned fa[4], fb[2];
+          frag_a([&](int r, int k) { return a_s[buf][g][k0r + k][r0 + r]; },
+                 fa);
+          frag_b([&](int k, int n) { return d_s[buf][g][k0r + k][n0 + n]; },
+                 fb);
+          mma_bf16(dacc[i], fa, fb);
+        }
+      if (do_bias || do_x) {
+        const float* c_row = &d_s[buf][g][0][col];
+        const float* x_row = &x_s[buf][g][0];
+        for (int rr = 0; rr < rows; ++rr) {
+          const float cd = c_row[rr * (BM + 4)];
+          chain = do_x ? fmaf(bf16r(x_row[rr]), bf16r(cd), chain)
+                       : chain + cd;
+        }
+      }
+    } else if (!kBf16 && s < R) {
       const int rows = min(kRows, B - c * kRows);
       const float* a_row = &a_s[buf][g][0][tk * TK];
       const float* d_row = &d_s[buf][g][0][tm * TM];
@@ -306,13 +355,26 @@ __global__ void __launch_bounds__(kGroups * (BK / TK) * (BM / TM))
     }
     if (c == per_stream - 1) {  // the round's streams end
       float* red = red_s + g * kOut;
+      if constexpr (kBf16) {
 #pragma unroll
-      for (int i = 0; i < TK; ++i)
+        for (int i = 0; i < Tiles::kPer; ++i) {
+          int r0, n0;
+          if (!tile_of(i, r0, n0)) continue;
+          frag_c(dacc[i], [&](int r, int n, float v) {
+            red[(r0 + r) * BM + n0 + n] = v;
+          });
 #pragma unroll
-        for (int jj = 0; jj < TM; ++jj) {
-          red[(tk * TK + i) * BM + tm * TM + jj] = acc[i][jj];
-          acc[i][jj] = 0.0f;
+          for (int e = 0; e < 4; ++e) dacc[i][e] = 0.0f;
         }
+      } else {
+#pragma unroll
+        for (int i = 0; i < TK; ++i)
+#pragma unroll
+          for (int jj = 0; jj < TM; ++jj) {
+            red[(tk * TK + i) * BM + tm * TM + jj] = acc[i][jj];
+            acc[i][jj] = 0.0f;
+          }
+      }
       if (do_bias)
         red[BK * BM + col] = s < R && lay.is_value(s) ? chain : 0.0f;
       if (do_x) red[BK * BM + BM + col] = chain;
@@ -395,6 +457,13 @@ __global__ void advance_kernel(StepArgs* args, int steps) {
 // ---------------------------------------------------------------------------
 // Host side: launches
 // ---------------------------------------------------------------------------
+
+// f(std::true_type{}) for the "default" precision's bf16 instances (a C
+// entry point's bf16 != 0), else f(std::false_type{}) ("highest").
+template <class F>
+auto with_precision(int bf16, F&& f) {
+  return bf16 != 0 ? f(std::true_type{}) : f(std::false_type{});
+}
 
 long long blocks(int rows, int cols, int tile_rows, int tile_cols, int reps) {
   return static_cast<long long>(dednn::ceil_div(rows, tile_rows)) *

@@ -55,6 +55,14 @@
 //   layer      x L      hidden layers backward: g = dz W^T, the tanh VJP
 //   loss_sum   x 1      loss = the point losses' batch mean (a side stream)
 //   weight     x L + 2  dW = A^T dz and db over all streams; Adam (training)
+// At the "default" precision (bf16 != 0 at the entry points) every launch
+// is its kBf16 instance: the layer products and the weight gradients on the
+// tensor cores (mma_bf16.cuh: bf16 operands, fp32 accumulation, in a fixed
+// order), and the small products of the input and loss kernels (X·w_in,
+// a_L·w_out, G·w_outᵀ) on operands rounded to bf16 as they load, as the
+// JAX step math gives each of those products its precision; the Taylor
+// rules, the loss, the bias sums and Adam stay fp32.
+//
 // Every reduction runs in the first design's order, with no atomics: each
 // product output is the sum, in slice order, of 8 k-slices of ceil(K/8),
 // each an fmaf chain from 0 (a tile folds its running sum at each slice
@@ -64,7 +72,8 @@
 // gradient the sum in stream order of per-stream fmaf chains over the
 // stream's B rows in order. So runs are bit-identical, a chunk cut anywhere
 // equals the uncut run, and the outputs equal the first design's. Every
-// product is fp32 FFMA: exact fp32 ("highest"), no tensor cores.
+// product of the "highest" instances is fp32 FFMA: exact fp32, no tensor
+// cores.
 //
 // Row layout of every [7B, width] activation: stream s, batch row b at row
 // s*B + b, streams (value, x-tangent, xx-tangent, t-tangent, IC, BC x=0,
@@ -192,7 +201,9 @@ struct HeatRules {
 // column tile), then thread (b, m) takes z = X w_in + mask b_in for the 7
 // streams at column m (the 8-slice sum of the first design: slice d < 2 is
 // the one product x_d w_dm) and the Taylor rules. Block of kInputBB batch
-// points x kInputBN columns.
+// points x kInputBN columns. kBf16: X and w_in enter the product rounded to
+// bf16 (X itself is written unrounded, for the weight gradient to round).
+template <bool kBf16>
 __global__ void __launch_bounds__(kInputBB* kInputBN)
     input_kernel(const StepArgs* __restrict__ args, int j, HeatConsts c,
                  int H, int B, float* __restrict__ X, float* __restrict__ Z,
@@ -210,7 +221,7 @@ __global__ void __launch_bounds__(kInputBB* kInputBN)
     const float rows[kR * kD] = {x,    t, 1.0f, 0.0f, 0.0f,    0.0f, 0.0f,
                                  1.0f, x, 0.0f, 0.0f, t,       c.x_max, t};
 #pragma unroll
-    for (int i = 0; i < kR * kD; ++i) x_s[tid][i] = rows[i];
+    for (int i = 0; i < kR * kD; ++i) x_s[tid][i] = dednn::operand<kBf16>(rows[i]);
     if (blockIdx.x == 0) {
 #pragma unroll
       for (int i = 0; i < kR * kD; ++i)
@@ -221,7 +232,8 @@ __global__ void __launch_bounds__(kInputBB* kInputBN)
   const int bl = tid / kInputBN, m = blockIdx.x * kInputBN + tid % kInputBN;
   const int b = b0 + bl;
   if (b >= B || m >= H) return;
-  const float w0 = w_in[m], w1 = w_in[H + m], bm = b_in[m];
+  const float w0 = dednn::operand<kBf16>(w_in[m]);
+  const float w1 = dednn::operand<kBf16>(w_in[H + m]), bm = b_in[m];
   float zc[kR], a[kR];
 #pragma unroll
   for (int s = 0; s < kR; ++s) {
@@ -245,7 +257,9 @@ __global__ void __launch_bounds__(kInputBB* kInputBN)
 // and a butterfly shuffle; the residuals r = u_t - kappa u_xx and r0 = u0 -
 // sin x; the point loss to PL[b]; G[s B + b] = the loss's cotangent of
 // out_s (2/B times the residual terms); then the output layer's data
-// gradient g = G w_out^T and its VJP at layer L into DZ_L.
+// gradient g = G w_out^T and its VJP at layer L into DZ_L. kBf16: both
+// products take their operands rounded to bf16.
+template <bool kBf16>
 __global__ void __launch_bounds__(32 * kLossWarps)
     loss_kernel(const StepArgs* __restrict__ args, int j, HeatConsts c,
                 long long w_off, long long b_off, int H, int B,
@@ -267,7 +281,9 @@ __global__ void __launch_bounds__(32 * kLossWarps)
       const float* ar = a + static_cast<size_t>(s * B + b) * H;
       float acc = 0.0f;
 #pragma unroll 4
-      for (int k = lane; k < H; k += 32) acc = fmaf(ar[k], w_out[k], acc);
+      for (int k = lane; k < H; k += 32)
+        acc = fmaf(dednn::operand<kBf16>(ar[k]),
+                   dednn::operand<kBf16>(w_out[k]), acc);
       for (int off = 16; off > 0; off >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
       out[s] = is_value(s) ? acc + bo : acc;
@@ -289,14 +305,17 @@ __global__ void __launch_bounds__(32 * kLossWarps)
 #pragma unroll
       for (int s = 0; s < kR; ++s) G[s * B + b] = g[s];
     }
+    float gr[kR];  // G's entries as the product's operand
+#pragma unroll
+    for (int s = 0; s < kR; ++s) gr[s] = dednn::operand<kBf16>(g[s]);
 #pragma unroll 4
     for (int k = lane; k < H; k += 32) {
-      const float w = w_out[k];
+      const float w = dednn::operand<kBf16>(w_out[k]);
       float gs[kR];
       // The product over the one output column, then the 7 empty slices;
       // opaque, as the first design's sums read back from shared memory.
 #pragma unroll
-      for (int s = 0; s < kR; ++s) gs[s] = opaque(fmaf(g[s], w, 0.0f) + 0.0f);
+      for (int s = 0; s < kR; ++s) gs[s] = opaque(fmaf(gr[s], w, 0.0f) + 0.0f);
       vjp_at(gs, z, a, static_cast<size_t>(b) * H + k, stride, dz);
     }
   }
@@ -360,8 +379,9 @@ struct Scratch {
 // once its layer's data gradient has read its weight (the Adam epilogue
 // rewrites it): the output layer's after the loss kernel, hidden layer l's
 // after the backward layer l, the input layer's last on main. Each layer
-// keeps its own Z, A and dz in scratch.
-template <bool kAdam>
+// keeps its own Z, A and dz in scratch. kBf16: every launch's "default"
+// instance.
+template <bool kAdam, bool kBf16>
 cudaError_t enqueue_step(const StepArgs* args, const HeatConsts& c, int j,
                          float* scratch, int B, int H, int L, Streams& st) {
   const Scratch sc(B, H, L);
@@ -381,18 +401,21 @@ cudaError_t enqueue_step(const StepArgs* args, const HeatConsts& c, int j,
   auto weight_grad = [&](const float* a, int k_in, const float* dz,
                          int k_out, long long w_off, long long b_off,
                          cudaStream_t stream) {
-    dednn::weight_grad<kAdam, kR>(a, k_in, dz, k_out, lay, args, j, w_off,
-                                  b_off, 0, 0, 1, stream);
+    dednn::weight_grad<kAdam, kR, kBf16>(a, k_in, dz, k_out, lay, args, j,
+                                         w_off, b_off, 0, 0, 1, stream);
   };
 
-  input_kernel<<<dim3(dednn::ceil_div(H, kInputBN),
-                      dednn::ceil_div(B, kInputBB)),
-                 kInputBB * kInputBN, 0, main>>>(args, j, c, H, B, X, Z, A);
+  input_kernel<kBf16><<<dim3(dednn::ceil_div(H, kInputBN),
+                             dednn::ceil_div(B, kInputBB)),
+                        kInputBB * kInputBN, 0, main>>>(args, j, c, H, B, X,
+                                                        Z, A);
   for (int l = 1; l <= L; ++l)
-    dednn::layer<HeatRules, false>(at(A, l - 1), args, w_hid(l - 1),
-                                   b_hid(l - 1), H, H, B, nullptr, nullptr,
-                                   at(Z, l), at(A, l), 0, 0, 1, main);
-  loss_kernel<<<dednn::ceil_div(B, kLossWarps), 32 * kLossWarps, 0, main>>>(
+    dednn::layer<HeatRules, false, kBf16>(at(A, l - 1), args, w_hid(l - 1),
+                                          b_hid(l - 1), H, H, B, nullptr,
+                                          nullptr, at(Z, l), at(A, l), 0, 0,
+                                          1, main);
+  loss_kernel<kBf16><<<dednn::ceil_div(B, kLossWarps), 32 * kLossWarps, 0,
+                       main>>>(
       args, j, c, off.w_out, off.b_out, H, B, at(Z, L), at(A, L), G, PL,
       at(DZ, L));
   cudaStream_t side;
@@ -401,9 +424,10 @@ cudaError_t enqueue_step(const StepArgs* args, const HeatConsts& c, int j,
   loss_sum_kernel<<<1, kLossLanes, 0, side>>>(args, j, PL, B);
   weight_grad(at(A, L), H, G, 1, off.w_out, off.b_out, side);
   for (int l = L; l >= 1; --l) {
-    dednn::layer<HeatRules, true>(at(DZ, l), args, w_hid(l - 1), -1LL, H, H,
-                                  B, at(Z, l - 1), at(A, l - 1), nullptr,
-                                  at(DZ, l - 1), 0, 0, 1, main);
+    dednn::layer<HeatRules, true, kBf16>(at(DZ, l), args, w_hid(l - 1), -1LL,
+                                         H, H, B, at(Z, l - 1), at(A, l - 1),
+                                         nullptr, at(DZ, l - 1), 0, 0, 1,
+                                         main);
     err = st.branch(&side);
     if (err != cudaSuccess) return err;
     weight_grad(at(A, l - 1), H, at(DZ, l), H, w_hid(l - 1), b_hid(l - 1),
@@ -444,20 +468,25 @@ extern "C" long long heat_train_smem_bytes() {
 extern "C" int heat_args_bytes() { return sizeof(StepArgs); }
 
 // One step's loss and flat gradient, its launches on one stream; the
-// argument block at the end of scratch (heat_scratch_floats).
+// argument block at the end of scratch (heat_scratch_floats). bf16: the
+// "default" precision's instances (else "highest"), here and below.
 extern "C" int heat_grad(const float* p, const float* u, float* scratch,
                          float* grad, float* loss, int B, int H, int L,
-                         float x_max, float t_max, float kappa, void* stream) {
+                         float x_max, float t_max, float kappa, int bf16,
+                         void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   StepArgs* dev = reinterpret_cast<StepArgs*>(scratch + Scratch(B, H, L).args);
   const StepArgs a =
       host_args(const_cast<float*>(p), nullptr, nullptr, u, loss, grad);
-  cudaError_t err = dednn::prepare_step<HeatRules>();
-  if (err == cudaSuccess) err = write_args(dev, a, st);
-  if (err != cudaSuccess) return err;
-  Streams one{st, {st, st}, nullptr, nullptr};
-  return enqueue_step<false>(dev, HeatConsts{x_max, t_max, kappa}, 0, scratch,
-                             B, H, L, one);
+  return dednn::with_precision(bf16, [&](auto prec) -> int {
+    constexpr bool kBf16 = decltype(prec)::value;
+    cudaError_t err = dednn::prepare_step<HeatRules, kR, kBf16>();
+    if (err == cudaSuccess) err = write_args(dev, a, st);
+    if (err != cudaSuccess) return err;
+    Streams one{st, {st, st}, nullptr, nullptr};
+    return enqueue_step<false, kBf16>(dev, HeatConsts{x_max, t_max, kappa},
+                                      0, scratch, B, H, L, one);
+  });
 }
 
 // Capture S training steps as one CUDA graph (dednn::capture_steps) and
@@ -466,20 +495,23 @@ extern "C" int heat_grad(const float* p, const float* u, float* scratch,
 // that shape whose per-call values come through args (heat_train writes
 // them).
 extern "C" int heat_graph_build(int B, int H, int L, float x_max, float t_max,
-                                float kappa, int S, void* args, float* scratch,
-                                void** exec) {
+                                float kappa, int bf16, int S, void* args,
+                                float* scratch, void** exec) {
   *exec = nullptr;
   if (S < 1) return cudaErrorInvalidValue;
   StepArgs* dev = static_cast<StepArgs*>(args);
   const HeatConsts c{x_max, t_max, kappa};
-  const cudaError_t err = dednn::prepare_step<HeatRules>();
-  if (err != cudaSuccess) return err;
-  return dednn::capture_steps(
-      dev, S,
-      [&](int j, Streams& st) {
-        return enqueue_step<true>(dev, c, j, scratch, B, H, L, st);
-      },
-      exec);
+  return dednn::with_precision(bf16, [&](auto prec) -> int {
+    constexpr bool kBf16 = decltype(prec)::value;
+    const cudaError_t err = dednn::prepare_step<HeatRules, kR, kBf16>();
+    if (err != cudaSuccess) return err;
+    return dednn::capture_steps(
+        dev, S,
+        [&](int j, Streams& st) {
+          return enqueue_step<true, kBf16>(dev, c, j, scratch, B, H, L, st);
+        },
+        exec);
+  });
 }
 
 extern "C" int heat_graph_free(void* exec) { return dednn::free_graph(exec); }
@@ -492,8 +524,9 @@ extern "C" int heat_graph_free(void* exec) { return dednn::free_graph(exec); }
 extern "C" int heat_train(float* p, float* m, float* v, const float* u,
                           float* scratch, float* losses, int K, int B, int H,
                           int L, float x_max, float t_max, float kappa,
-                          float lr, int step0, void* stream, void* args,
-                          void* exec, int S, void* side0, void* side1) {
+                          float lr, int step0, int bf16, void* stream,
+                          void* args, void* exec, int S, void* side0,
+                          void* side1) {
   if (exec != nullptr && S < 1) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   StepArgs* dev = static_cast<StepArgs*>(args);
@@ -501,15 +534,18 @@ extern "C" int heat_train(float* p, float* m, float* v, const float* u,
   a.step0 = step0;
   a.lr = lr;
   const HeatConsts c{x_max, t_max, kappa};
-  cudaError_t err = dednn::prepare_step<HeatRules>();
-  if (err == cudaSuccess) err = write_args(dev, a, st);
-  if (err != cudaSuccess) return err;
-  int runs = 0;
-  return dednn::run_steps(
-      exec, S, K, 1, st, static_cast<cudaStream_t>(side0),
-      static_cast<cudaStream_t>(side1),
-      [&](int j, Streams& two) {
-        return enqueue_step<true>(dev, c, j, scratch, B, H, L, two);
-      },
-      &runs);
+  return dednn::with_precision(bf16, [&](auto prec) -> int {
+    constexpr bool kBf16 = decltype(prec)::value;
+    cudaError_t err = dednn::prepare_step<HeatRules, kR, kBf16>();
+    if (err == cudaSuccess) err = write_args(dev, a, st);
+    if (err != cudaSuccess) return err;
+    int runs = 0;
+    return dednn::run_steps(
+        exec, S, K, 1, st, static_cast<cudaStream_t>(side0),
+        static_cast<cudaStream_t>(side1),
+        [&](int j, Streams& two) {
+          return enqueue_step<true, kBf16>(dev, c, j, scratch, B, H, L, two);
+        },
+        &runs);
+  });
 }

@@ -61,8 +61,16 @@ constexpr size_t layer_smem_bytes() {
 // a_out) or Rules::bwd (the VJP at the previous layer, into a_out), each at
 // flat index at + s·stride of stream s. Replica blockIdx.z: activations at
 // z·ss, weights at z·ps.
+//
+// kBf16 (the "default" precision): the same staging and epilogue, but the
+// product runs on the tensor cores (mma_bf16.cuh): the block's whole warps
+// split its R·BB × BN tile into m16n8 tiles (rows past R·BB read as zeros)
+// and accumulate every k-tile in order, 16 k at a time, the operands
+// rounded to bf16 as they are read from the ring; the padded slices'
+// zeros add nothing. The sums then reach the epilogue through shared memory
+// as the fp32 sums do.
 template <class Rules, bool kBwd, int BB, int BN, int TM, int TN, int BK,
-          int kStages>
+          int kStages, bool kBf16 = false>
 __global__ void __launch_bounds__((Rules::R * BB / TM) * (BN / TN))
     layer_kernel(const float* __restrict__ in,
                  const StepArgs* __restrict__ args, long long w_off,
@@ -184,6 +192,50 @@ __global__ void __launch_bounds__((Rules::R * BB / TM) * (BN / TN))
   };
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) load(t);
+  if constexpr (kBf16) {
+    constexpr int kWarps = kThreads / 32;  // a partial last warp idles
+    static_assert(BK % 16 == 0, "whole k16 steps");
+    using Tiles = MmaTiles<kRowsA, BN, kWarps>;
+    const int warp = tid / 32;
+    float d[Tiles::kPer][4] = {};
+    auto tile_of = [&](int i, int& r0, int& n0) {
+      const int tile = warp + i * kWarps;
+      r0 = tile / Tiles::kNT * 16;
+      n0 = tile % Tiles::kNT * 8;
+      return warp < kWarps && tile < Tiles::kTiles;
+    };
+    for (int t = 0; t < tiles; ++t) {
+      cp_async_wait<kStages - 2>();  // tile t has landed
+      __syncthreads();               // and every thread is done with t − 1
+      load(t + kStages - 1);         // into t − 1's buffer
+      const int buf = t % kStages;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16)
+#pragma unroll
+        for (int i = 0; i < Tiles::kPer; ++i) {
+          int r0, n0;
+          if (!tile_of(i, r0, n0)) continue;
+          unsigned fa[4], fb[2];
+          frag_a([&](int r, int k) {
+            return r0 + r < kRowsA ? a_s[buf][r0 + r][kk + k] : 0.0f;
+          }, fa);
+          if constexpr (kBwd)
+            frag_b([&](int k, int n) { return w_s[buf][n0 + n][kk + k]; }, fb);
+          else
+            frag_b([&](int k, int n) { return w_s[buf][kk + k][n0 + n]; }, fb);
+          mma_bf16(d[i], fa, fb);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < Tiles::kPer; ++i) {
+      int r0, n0;
+      if (!tile_of(i, r0, n0)) continue;
+      frag_c(d[i], [&](int r, int n, float v) {
+        if (r0 + r < kRowsA) c_s[(r0 + r) * kLdC + n0 + n] = v;
+      });
+    }
+    __syncthreads();
+  } else {
   int next_slice = kpp;  // the padded k where the next slice starts
   for (int t = 0; t < tiles; ++t) {
     cp_async_wait<kStages - 2>();  // tile t has landed
@@ -222,6 +274,7 @@ __global__ void __launch_bounds__((Rules::R * BB / TM) * (BN / TN))
   }
   fold(false);  // the last slice
   __syncthreads();
+  }
 
   const size_t stride = static_cast<size_t>(B) * M;  // one stream
   for (int e = tid; e < BB * BN; e += kThreads) {
@@ -264,10 +317,11 @@ constexpr LayerConfig layer_config(int C) {
   return R == 1 ? kLayerR1[C] : kLayer[C];
 }
 
-template <class Rules, bool kBwd, int C>
+template <class Rules, bool kBwd, int C, bool kBf16 = false>
 auto layer_instance() {
   constexpr LayerConfig c = layer_config<Rules::R>(C);
-  return layer_kernel<Rules, kBwd, c.bb, c.bn, c.tm, c.tn, c.bk, c.stages>;
+  return layer_kernel<Rules, kBwd, c.bb, c.bn, c.tm, c.tn, c.bk, c.stages,
+                      kBf16>;
 }
 
 template <int R, int C>
@@ -276,7 +330,9 @@ constexpr size_t layer_config_smem() {
   return layer_smem_bytes<R, c.bb, c.bn, c.bk, c.stages>();
 }
 
-template <class Rules, bool kBwd>
+// One hidden layer (layer_kernel; the tile by the blocks it gives), at
+// the "default" precision's bf16 instance where kBf16.
+template <class Rules, bool kBwd, bool kBf16 = false>
 void layer(const float* in, const StepArgs* args, long long w_off,
            long long b_off, int K, int M, int B, const float* z_prev,
            const float* a_prev, float* z_out, float* a_out, size_t ss,
@@ -285,7 +341,7 @@ void layer(const float* in, const StepArgs* args, long long w_off,
   auto go = [&](auto config) {
     constexpr int C = decltype(config)::value;
     constexpr LayerConfig c = layer_config<R>(C);
-    launch(layer_instance<Rules, kBwd, C>(),
+    launch(layer_instance<Rules, kBwd, C, kBf16>(),
            (R * c.bb / c.tm) * (c.bn / c.tn), layer_config_smem<R, C>(), c.bb,
            c.bn, B, M, reps, stream, in, args, w_off, b_off, K, M, B, z_prev,
            a_prev, z_out, a_out, ss, ps);
@@ -310,11 +366,11 @@ struct WgTile {
 };
 constexpr WgTile kWgTile[] = {{32, 16, 4, 2, kSMs}, {16, 16, 2, 4, 0}};
 
-template <bool kAdam, int R, int C>
+template <bool kAdam, int R, int C, bool kBf16 = false>
 auto wg_instance() {
   constexpr WgTile t = kWgTile[C];
   return weight_grad_kernel<kAdam, t.bk, t.bm, t.tk, t.tm, kWgRows, kWgStages,
-                            R>;
+                            R, kBf16>;
 }
 
 template <int R, int C>
@@ -324,8 +380,8 @@ constexpr size_t wg_config_smem() {
 
 // One layer's weight gradient over the lay.R streams, R at a time (one
 // thread group each; Adam in the epilogue, kAdam; else the gradient to
-// args->grad).
-template <bool kAdam, int R>
+// args->grad), at the bf16 instance where kBf16.
+template <bool kAdam, int R, bool kBf16 = false>
 void weight_grad(const float* A, int KA, const float* dz, int M,
                  const Layout& lay, const StepArgs* args, int j,
                  long long w_off, long long b_off, size_t ss, size_t ps,
@@ -334,7 +390,7 @@ void weight_grad(const float* A, int KA, const float* dz, int M,
   auto go = [&](auto config) {
     constexpr int C = decltype(config)::value;
     constexpr WgTile t = kWgTile[C];
-    launch(wg_instance<kAdam, R, C>(), (t.bk / t.tk) * (t.bm / t.tm) * R,
+    launch(wg_instance<kAdam, R, C, kBf16>(), (t.bk / t.tk) * (t.bm / t.tm) * R,
            wg_config_smem<R, C>(), t.bk, t.bm, KA, M, reps, stream, A, KA,
            none, dz, M, lay, args, j, w_off, -1LL, b_off, ss, ps);
   };
@@ -355,31 +411,34 @@ size_t step_smem_bytes() {
                    wg_config_smem<G, 1>()});
 }
 
-template <class Rules, int C>
+template <class Rules, int C, bool kBf16>
 cudaError_t allow_layer() {
   constexpr size_t bytes = layer_config_smem<Rules::R, C>();
-  const cudaError_t err = allow_smem(layer_instance<Rules, false, C>(), bytes);
+  const cudaError_t err =
+      allow_smem(layer_instance<Rules, false, C, kBf16>(), bytes);
   return err != cudaSuccess
              ? err
-             : allow_smem(layer_instance<Rules, true, C>(), bytes);
+             : allow_smem(layer_instance<Rules, true, C, kBf16>(), bytes);
 }
 
-template <int R, int C>
+template <int R, int C, bool kBf16>
 cudaError_t allow_weight_grad() {
   constexpr size_t bytes = wg_config_smem<R, C>();
-  const cudaError_t err = allow_smem(wg_instance<true, R, C>(), bytes);
-  return err != cudaSuccess ? err
-                            : allow_smem(wg_instance<false, R, C>(), bytes);
+  const cudaError_t err = allow_smem(wg_instance<true, R, C, kBf16>(), bytes);
+  return err != cudaSuccess
+             ? err
+             : allow_smem(wg_instance<false, R, C, kBf16>(), bytes);
 }
 
-// Lets every layer and weight-gradient instance (G thread groups) take its
-// dynamic shared memory; before any launch or capture.
-template <class Rules, int G = Rules::R>
+// Lets every layer and weight-gradient instance (G thread groups) of one
+// precision (kBf16: "default") take its dynamic shared memory; before any
+// launch or capture.
+template <class Rules, int G = Rules::R, bool kBf16 = false>
 cudaError_t prepare_step() {
   for (const cudaError_t err :
-       {allow_layer<Rules, 0>(), allow_layer<Rules, 1>(),
-        allow_layer<Rules, 2>(), allow_weight_grad<G, 0>(),
-        allow_weight_grad<G, 1>()})
+       {allow_layer<Rules, 0, kBf16>(), allow_layer<Rules, 1, kBf16>(),
+        allow_layer<Rules, 2, kBf16>(), allow_weight_grad<G, 0, kBf16>(),
+        allow_weight_grad<G, 1, kBf16>()})
     if (err != cudaSuccess) return err;
   return cudaSuccess;
 }

@@ -52,34 +52,35 @@ _SIGNATURES = {
     "heat_scratch_floats": [_I] * 3,
     "heat_train_smem_bytes": [],
     "heat_args_bytes": [],
-    # p, u, scratch, grad, loss, B, H, L, x_max, t_max, kappa, stream
-    "heat_grad": [_P] * 5 + [_I] * 3 + [_F] * 3 + [_P],
-    # B, H, L, x_max, t_max, kappa, S, args, scratch, exec (out)
-    "heat_graph_build": [_I] * 3 + [_F] * 3 + [_I, _P, _P,
+    # p, u, scratch, grad, loss, B, H, L, x_max, t_max, kappa, bf16, stream
+    # (bf16: 1 for the "default" precision's instances, 0 for "highest")
+    "heat_grad": [_P] * 5 + [_I] * 3 + [_F] * 3 + [_I, _P],
+    # B, H, L, x_max, t_max, kappa, bf16, S, args, scratch, exec (out)
+    "heat_graph_build": [_I] * 3 + [_F] * 3 + [_I, _I, _P, _P,
                                                ctypes.POINTER(ctypes.c_void_p)],
     # exec
     "heat_graph_free": [_P],
     # p, m, v, u, scratch, losses, K, B, H, L, x_max, t_max, kappa, lr,
-    # step0, stream, args, exec, S, side0, side1
-    "heat_train": [_P] * 6 + [_I] * 4 + [_F] * 4 + [_I, _P, _P, _P, _I, _P,
-                                                     _P],
+    # step0, bf16, stream, args, exec, S, side0, side1
+    "heat_train": [_P] * 6 + [_I] * 4 + [_F] * 4 + [_I, _I, _P, _P, _P, _I,
+                                                     _P, _P],
     # spec, B, H, L, F (folded groups)
     "engine_scratch_floats": [_I] * 5,
     # spec, H
     "engine_smem_bytes": [_I] * 2,
     "engine_args_bytes": [],
     # spec, consts, const, p, u, scratch, grad, loss, args, B, H, L, F,
-    # stream
-    "engine_grad": [_I, _CONSTS] + [_P] * 7 + [_I] * 4 + [_P],
-    # spec, consts, B, H, L, F, N, S, args, scratch, exec (out)
-    "engine_graph_build": [_I, _CONSTS] + [_I] * 6
+    # bf16, stream
+    "engine_grad": [_I, _CONSTS] + [_P] * 7 + [_I] * 5 + [_P],
+    # spec, consts, B, H, L, F, N, bf16, S, args, scratch, exec (out)
+    "engine_graph_build": [_I, _CONSTS] + [_I] * 7
                           + [_P, _P, ctypes.POINTER(ctypes.c_void_p)],
     # exec
     "engine_graph_free": [_P],
     # spec, consts, const, p, m, v, u, scratch, losses, args, exec, S, N, K,
-    # B, H, L, F, lr, step0, schedule, horizon, decay, half_span,
+    # B, H, L, F, bf16, lr, step0, schedule, horizon, decay, half_span,
     # log_decay, step_math_runs, stream, side0, side1
-    "engine_train_packed": [_I, _CONSTS] + [_P] * 9 + [_I] * 7
+    "engine_train_packed": [_I, _CONSTS] + [_P] * 9 + [_I] * 8
                            + [_F, _I, _I] + [_F] * 4
                            + [ctypes.POINTER(_I), _P, _P, _P],
     # kind, B, H, launches, params, scratch, args, stream
@@ -89,18 +90,19 @@ _SIGNATURES = {
     "dgm_max_streams": [],
     "dgm_args_bytes": [],
     # spec, consts, const, p, u, scratch, grad, loss, args, R, B, H, L, O,
-    # act, value_mask, stream
-    "dgm_grad": [_I, _CONSTS] + [_P] * 7 + [_I] * 6 + [_U, _P],
-    # spec, R, B, H, L, O, act, value_mask, N, S, args, scratch, exec (out)
-    "dgm_graph_build": [_I] * 7 + [_U, _I, _I, _P, _P,
+    # act, value_mask, bf16, stream
+    "dgm_grad": [_I, _CONSTS] + [_P] * 7 + [_I] * 6 + [_U, _I, _P],
+    # spec, R, B, H, L, O, act, value_mask, N, bf16, S, args, scratch, exec
+    # (out)
+    "dgm_graph_build": [_I] * 7 + [_U, _I, _I, _I, _P, _P,
                                    ctypes.POINTER(ctypes.c_void_p)],
     # exec
     "dgm_graph_free": [_P],
     # spec, consts, const, p, m, v, u, scratch, losses, args, exec, S, N, K,
-    # R, B, H, L, O, act, value_mask, lr, step0, schedule, horizon, decay,
-    # half_span, log_decay, step_math_runs, stream, side0, side1
+    # R, B, H, L, O, act, value_mask, bf16, lr, step0, schedule, horizon,
+    # decay, half_span, log_decay, step_math_runs, stream, side0, side1
     "dgm_train_packed": [_I, _CONSTS] + [_P] * 9 + [_I] * 9
-                        + [_U, _F, _I, _I] + [_F] * 4
+                        + [_U, _I, _F, _I, _I] + [_F] * 4
                         + [ctypes.POINTER(_I), _P, _P, _P],
     # trans, A, W, C, args, rows, K, M, replicas, ss, launches, stream
     "dgm_gemm_probe": [_I] + [_P] * 4 + [_I] * 4

@@ -33,6 +33,10 @@ import math
 
 import torch
 
+from differential_equations_dnn_tpu_torch.core.precision import (
+    check_precision,
+)
+
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 SCHEDULES = ("constant", "cosine", "exponential")
 
@@ -171,16 +175,20 @@ def check_batch_tile(B: int, batch_tile: int | None) -> None:
 
 def run_fused_chunk(step_math, params, m, v, uniforms, step0, lrate, *,
                     schedule="constant", total_steps=1, decay=0.1,
-                    batch_tile=None):
+                    batch_tile=None, precision="highest"):
     """Run ``K = uniforms.shape[0]`` Adam steps with ``step_math(params,
-    u) -> (loss, flat_grad)`` on flat fp32 buffers. Returns new (params, m,
-    v, losses[K]); the inputs are left unchanged."""
+    u, precision) -> (loss, flat_grad)`` on flat fp32 buffers, every step at
+    ``precision`` ("highest" | "default"). The schedule's horizon is
+    ``total_steps`` whatever the precision, so the two phases of a "mixed"
+    run share one lr curve. Returns new (params, m, v, losses[K]); the
+    inputs are left unchanged."""
     K, B, _ = uniforms.shape
     check_schedule(schedule)
     check_batch_tile(B, batch_tile)
+    check_precision(precision, ("highest", "default"))
     losses = []
     for k in range(K):
-        loss, g = step_math(params, uniforms[k])
+        loss, g = step_math(params, uniforms[k], precision)
         t = torch.tensor(step0 + k + 1, dtype=torch.float32,
                          device=params.device)
         lr = scheduled_lr(lrate, t, schedule, total_steps, decay)
@@ -257,10 +265,12 @@ def reject_per_slot(**options):
 def run_fused_packed(step_math, params, m, v, uniforms, step0, lrate,
                      n_replicas, *, rep_tile=None, schedule="constant",
                      total_steps=1, decay=0.1, const=None, lr_vec=None,
-                     bs_vec=None, steps_vec=None, mask_rows=False):
+                     bs_vec=None, steps_vec=None, mask_rows=False,
+                     precision="highest"):
     """Plain twin of the packed kernel (JAX ``run_fused_packed``): ``K =
     uniforms.shape[0]`` Adam steps for each of ``n_replicas`` independent
-    runs, with ``step_math(p, u, const) -> (loss, flat_grad)``. ``params``,
+    runs at ``precision``, with ``step_math(p, u, const, precision) ->
+    (loss, flat_grad)``. ``params``,
     ``m`` and ``v`` are ``[N, n]`` (:func:`stack_replicas`); all replicas
     share ``uniforms [K, B, U]``, ``const`` and the lr schedule. Returns new
     (params, m, v, losses [N, K]); the inputs are left unchanged.
@@ -275,12 +285,13 @@ def run_fused_packed(step_math, params, m, v, uniforms, step0, lrate,
         raise ValueError(f"params hold {params.shape[0]} replicas, "
                          f"n_replicas is {n_replicas}")
 
-    def one_step_math(p, u):
-        return step_math(p, u, const)
+    def one_step_math(p, u, precision):
+        return step_math(p, u, const, precision)
 
     # The replicas are independent: each is the single-replica loop.
     runs = [run_fused_chunk(one_step_math, params[r], m[r], v[r], uniforms,
                             step0, lrate, schedule=schedule,
-                            total_steps=total_steps, decay=decay)
+                            total_steps=total_steps, decay=decay,
+                            precision=precision)
             for r in range(n_replicas)]
     return tuple(torch.stack(t) for t in zip(*runs))

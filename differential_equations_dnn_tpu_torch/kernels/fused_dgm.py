@@ -25,7 +25,11 @@ causal weighting) and fredholm (value rows only: collocation points plus
 the const operand). Single runs (``fused_dgm_chunk``,
 ``train_dgm_fused_result``) and packed-replica ensembles
 (``fused_dgm_packed_chunk``, ``train_dgm_fused_ensemble_packed``) run at
-``precision="highest"``; the sweep evaluators are not ported (ROADMAP.md).
+``precision`` "highest" (exact fp32) or "default" (the products the JAX
+step math gives ``precision``, x·U and the x-row gradients among them,
+take bf16 operands and accumulate in fp32; the loss's own products stay
+fp32), and the trainers at "mixed" too (core/precision.py); the sweep
+evaluators are not ported (ROADMAP.md).
 
 On the card a chunk replays a CUDA graph of GRAPH_STEPS training steps,
 captured on the first call of its shape and cached (kernels/graphs.py:
@@ -41,6 +45,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from differential_equations_dnn_tpu_torch.core.precision import (
+    check_precision,
+    default_steps,
+    matmul,
+)
 from differential_equations_dnn_tpu_torch.core.prng import (
     generator,
     step_uniforms,
@@ -60,7 +69,8 @@ from differential_equations_dnn_tpu_torch.kernels.fused_engine import (
     _smean,
 )
 from differential_equations_dnn_tpu_torch.kernels.fused_train import (
-    check_precision,
+    CHUNK_PRECISIONS,
+    count_launch,
     replica_models,
     train_in_chunks,
 )
@@ -208,36 +218,42 @@ def _mul_bwd(groups, u, b, B):
 # ---------------------------------------------------------------------------
 
 
-def dgm_step_math(spec, params, u, B, L, const=None):
+def dgm_step_math(spec, params, u, B, L, const=None, precision="highest"):
     """One training step's loss ``[1, 1]`` and parameter gradients for a
     DGM stream spec. ``params`` = the ten tensors of :func:`unpack_dgm`;
     ``u`` = [B, spec.n_uniform] U[0,1) draws; ``const`` = the spec's const
-    operand (Fredholm's nodes and weights). Returns (loss, grads_tuple)."""
+    operand (Fredholm's nodes and weights); ``precision`` ("highest" |
+    "default") that of the products the JAX step math gives it. Returns
+    (loss, grads_tuple)."""
     groups = spec.groups
     act = spec.act
     w_in, b_in, Wzgr, Uzgr, bzgr, Wh, Uh, bh, w_out, b_out = params
+
+    def mm(a, b):
+        return matmul(a, b, precision)
+
     X, ctx = spec.build(u, const)
     mask = _bias_mask(groups, B, X)
     H = w_in.shape[1]
 
     # ---- forward, saving layer-input states + pre-activations ----
-    s_in_pre = X @ w_in + mask * b_in
+    s_in_pre = mm(X, w_in) + mask * b_in
     s = _act_fwd(groups, s_in_pre, B, act)
     states = [s]
     zgr_pres, h_pres = [], []
     for l in range(L):
-        zgr_pre = s @ Wzgr[l] + X @ Uzgr[l] + mask * bzgr[l]
+        zgr_pre = mm(s, Wzgr[l]) + mm(X, Uzgr[l]) + mask * bzgr[l]
         zgr = _act_fwd(groups, zgr_pre, B, act)
         z, g, r = zgr[:, :H], zgr[:, H:2 * H], zgr[:, 2 * H:]
         sr = _mul_fwd(groups, s, r, B)
-        h_pre = sr @ Wh[l] + X @ Uh[l] + mask * bh[l]
+        h_pre = mm(sr, Wh[l]) + mm(X, Uh[l]) + mask * bh[l]
         h = _act_fwd(groups, h_pre, B, act)
         om = mask - g  # one-minus-G under stream semantics (linear)
         s = _mul_fwd(groups, om, h, B) + _mul_fwd(groups, z, s, B)
         zgr_pres.append(zgr_pre)
         h_pres.append(h_pre)
         states.append(s)
-    out = s @ w_out + mask * b_out
+    out = mm(s, w_out) + mask * b_out
 
     outs = tuple(out[k * B:(k + 1) * B] for k in range(_n_rows(groups)))
     # The cotangent w.r.t. the stream outputs, from autodiff of the spec's
@@ -246,9 +262,9 @@ def dgm_step_math(spec, params, u, B, L, const=None):
     G = torch.cat(vjp_fn(torch.ones_like(loss)), 0)
 
     # ---- hand backward through the gate recurrence ----
-    d_w_out = states[L].T @ G
+    d_w_out = mm(states[L].T, G)
     d_b_out = torch.sum(mask * G, 0)
-    ds = G @ w_out.T
+    ds = mm(G, w_out.T)
     d_Wzgr, d_Uzgr, d_bzgr, d_Wh, d_Uh, d_bh = [], [], [], [], [], []
     for l in range(L - 1, -1, -1):
         s_prev, zgr_pre, h_pre = states[l], zgr_pres[l], h_pres[l]
@@ -266,24 +282,24 @@ def dgm_step_math(spec, params, u, B, L, const=None):
         dg = -d_om
         # h = act(h_pre);  h_pre = sr·Wh + X·Uh + bh
         dh_pre = _act_bwd(groups, h_pre, dh, B, act)
-        d_Wh.append(sr.T @ dh_pre)
-        d_Uh.append(X.T @ dh_pre)
+        d_Wh.append(mm(sr.T, dh_pre))
+        d_Uh.append(mm(X.T, dh_pre))
         d_bh.append(torch.sum(mask * dh_pre, 0))
-        dsr = dh_pre @ Wh[l].T
+        dsr = mm(dh_pre, Wh[l].T)
         # sr = s_prev ⊙ r
         ds_prev = ds_prev + _mul_bwd(groups, dsr, r, B)
         dr = _mul_bwd(groups, dsr, s_prev, B)
         # zgr = act(zgr_pre);  zgr_pre = s_prev·Wzgr + X·Uzgr + bzgr
         dzgr = torch.cat([dz, dg, dr], 1)
         dzgr_pre = _act_bwd(groups, zgr_pre, dzgr, B, act)
-        d_Wzgr.append(s_prev.T @ dzgr_pre)
-        d_Uzgr.append(X.T @ dzgr_pre)
+        d_Wzgr.append(mm(s_prev.T, dzgr_pre))
+        d_Uzgr.append(mm(X.T, dzgr_pre))
         d_bzgr.append(torch.sum(mask * dzgr_pre, 0))
-        ds = ds_prev + dzgr_pre @ Wzgr[l].T
+        ds = ds_prev + mm(dzgr_pre, Wzgr[l].T)
 
     # s_0 = act(X·w_in + b_in)
     dz0 = _act_bwd(groups, s_in_pre, ds, B, act)
-    d_w_in = X.T @ dz0
+    d_w_in = mm(X.T, dz0)
     d_b_in = torch.sum(mask * dz0, 0)
 
     def stack(gs):
@@ -514,24 +530,28 @@ def _call_args(spec, model, B, const):
                 H=model.hidden_size, L=model.num_layers, O=spec.output_dim)
 
 
-def dgm_loss_grad_plain(spec, model, params, u, const=None):
+def dgm_loss_grad_plain(spec, model, params, u, const=None,
+                        precision="highest"):
     """Plain version of :func:`dgm_loss_grad`."""
     loss, grads = dgm_step_math(spec, unpack_dgm(model, params), u,
-                                u.shape[0], model.num_layers, const)
+                                u.shape[0], model.num_layers, const,
+                                precision)
     return loss.reshape(()), torch.cat([g.reshape(-1) for g in grads])
 
 
-def dgm_loss_grad(spec, model, params, u, const=None):
+def dgm_loss_grad(spec, model, params, u, const=None, precision="highest"):
     """One step's loss and flat gradient at flat ``params`` on ``[B,
-    spec.n_uniform]`` uniforms (``const``: the spec's const operand): the
-    step-math launches of the training kernel without the Adam update. A
-    CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (``dgm_loss_grad.launches`` counts the launches; the training kernel's
-    own step-math runs are counted by :func:`fused_dgm_chunk`)."""
+    spec.n_uniform]`` uniforms (``const``: the spec's const operand) at
+    ``precision`` ("highest" | "default"): the step-math launches of the
+    training kernel without the Adam update. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (``dgm_loss_grad.launches``
+    counts the launches, ``.bf16_launches`` those at "default"; the training
+    kernel's own step-math runs are counted by :func:`fused_dgm_chunk`)."""
+    check_precision(precision, CHUNK_PRECISIONS)
     _check_model(spec, model)
     _check_const(spec, const, u.shape[0])
     if u.device.type == "cpu":
-        return dgm_loss_grad_plain(spec, model, params, u, const)
+        return dgm_loss_grad_plain(spec, model, params, u, const, precision)
     lib = build.library()
     _check_inputs(spec, model, {"params": params, "uniforms": u}, const, lib)
     B = u.shape[0]
@@ -547,36 +567,40 @@ def dgm_loss_grad(spec, model, params, u, const=None):
                             scratch.data_ptr(), grad.data_ptr(),
                             loss.data_ptr(), args.data_ptr(), a["R"], B,
                             a["H"], a["L"], a["O"], a["act"], a["mask"],
+                            int(precision == "default"),
                             build.stream_ptr(u.device))
     build.check(code, "dgm_grad")
-    dgm_loss_grad.launches += 1
+    count_launch(dgm_loss_grad, precision)
     return loss, grad
 
 
 dgm_loss_grad.launches = 0
+dgm_loss_grad.bf16_launches = 0
 
 
 def fused_dgm_chunk_plain(spec, model, params, m, v, uniforms, step0, lrate,
                           *, const=None, schedule="constant", total_steps=1,
-                          decay=0.1):
+                          decay=0.1, precision="highest"):
     """Plain version of :func:`fused_dgm_chunk`."""
 
-    def step_math(p, u):
-        return dgm_loss_grad_plain(spec, model, p, u, const)
+    def step_math(p, u, precision):
+        return dgm_loss_grad_plain(spec, model, p, u, const, precision)
 
     return engine_core.run_fused_chunk(
         step_math, params, m, v, uniforms, step0, lrate, schedule=schedule,
-        total_steps=total_steps, decay=decay)
+        total_steps=total_steps, decay=decay, precision=precision)
 
 
 def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
-                  n_replicas, const, schedule, total_steps, decay):
+                  n_replicas, const, schedule, total_steps, decay,
+                  precision):
     """One ``dgm_train_packed`` call on CUDA ``[N, n]`` state, shared by
     both chunk wrappers (a single run is N = 1). The launches run on the
     shape's side stream (graphs.StepGraph.run); a call of at least
-    GRAPH_STEPS steps first captures the shape's graph if it is not cached.
-    Returns the new (params, m, v, losses [N, K]) and the replica-steps whose
-    step math it enqueued."""
+    GRAPH_STEPS steps first captures the shape's graph if it is not cached;
+    ``precision`` ("highest" | "default") picks the kernels' instances, and
+    each has its own graph. Returns the new (params, m, v, losses [N, K])
+    and the replica-steps whose step math it enqueued."""
     lib = build.library()
     _check_inputs(spec, model, {"params": params, "m": m, "v": v,
                                 "uniforms": uniforms}, const, lib, n_replicas)
@@ -584,8 +608,9 @@ def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
     device = uniforms.device
     a = _call_args(spec, model, B, const)
     floats = lib.dgm_scratch_floats(a["R"], B, a["H"], a["L"], a["O"])
+    bf16 = int(precision == "default")
     key = ("dgm", spec.kernel_id, a["R"], B, a["H"], a["L"], a["O"],
-           n_replicas, a["act"], a["mask"], GRAPH_STEPS, device)
+           n_replicas, a["act"], a["mask"], precision, GRAPH_STEPS, device)
     if not graphs.cached(key):
         engine_core.check_replicas(n_replicas, a["R"], 4 * floats,
                                    torch.cuda.mem_get_info(device)[0])
@@ -599,14 +624,14 @@ def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
         with torch.cuda.device(device):
             entry.capture(lambda args, scratch, out: lib.dgm_graph_build(
                 spec.kernel_id, a["R"], B, a["H"], a["L"], a["O"], a["act"],
-                a["mask"], n_replicas, GRAPH_STEPS, args, scratch, out),
-                "dgm_graph_build")
+                a["mask"], n_replicas, bf16, GRAPH_STEPS, args, scratch,
+                out), "dgm_graph_build")
     code = entry.run(lambda stream, side0, side1: lib.dgm_train_packed(
         spec.kernel_id, a["consts"], a["const"], p.data_ptr(), m.data_ptr(),
         v.data_ptr(), uniforms.data_ptr(), entry.scratch.data_ptr(),
         losses.data_ptr(), entry.args.data_ptr(), entry.exec, GRAPH_STEPS,
         n_replicas, K, a["R"], B, a["H"], a["L"], a["O"], a["act"],
-        a["mask"], float(lrate), int(step0),
+        a["mask"], bf16, float(lrate), int(step0),
         *engine_core.schedule_args(schedule, total_steps, decay),
         ctypes.byref(runs), stream, side0, side1), device)
     build.check(code, "dgm_train_packed")
@@ -615,8 +640,9 @@ def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
 
 def fused_dgm_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
                     const=None, schedule="constant", total_steps=1,
-                    decay=0.1):
-    """Run ``K = uniforms.shape[0]`` Adam steps of ``spec``'s equation.
+                    decay=0.1, precision="highest"):
+    """Run ``K = uniforms.shape[0]`` Adam steps of ``spec``'s equation at
+    ``precision`` ("highest" | "default").
     ``params``/``m``/``v`` are flat fp32 buffers (:func:`pack_dgm` order);
     ``uniforms`` is [K, B, spec.n_uniform]; ``const`` the spec's const
     operand (:func:`const_for`); ``step0`` the absolute index of the
@@ -626,48 +652,52 @@ def fused_dgm_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
 
     Returns new (params, m, v, losses[K]); the inputs are left unchanged.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (``fused_dgm_chunk.launches`` counts the launches, and
-    ``fused_dgm_chunk.step_math_runs`` the steps whose step math the kernel
-    enqueued, as it reports them)."""
+    (``fused_dgm_chunk.launches`` counts the launches, ``.bf16_launches``
+    those at "default", and ``fused_dgm_chunk.step_math_runs`` the steps
+    whose step math the kernel enqueued, as it reports them)."""
+    check_precision(precision, CHUNK_PRECISIONS)
     _check_model(spec, model)
     engine_core.check_schedule(schedule)
     _check_const(spec, const, uniforms.shape[1])
     if uniforms.device.type == "cpu":
         return fused_dgm_chunk_plain(
             spec, model, params, m, v, uniforms, step0, lrate, const=const,
-            schedule=schedule, total_steps=total_steps, decay=decay)
+            schedule=schedule, total_steps=total_steps, decay=decay,
+            precision=precision)
     (p, m, v, losses), runs = _train_packed(
         spec, model, params[None], m[None], v[None], uniforms, step0, lrate,
-        1, const, schedule, total_steps, decay)
-    fused_dgm_chunk.launches += 1
-    fused_dgm_chunk.step_math_runs += runs
+        1, const, schedule, total_steps, decay, precision)
+    count_launch(fused_dgm_chunk, precision, runs)
     return p[0], m[0], v[0], losses[0]
 
 
 fused_dgm_chunk.launches = 0
+fused_dgm_chunk.bf16_launches = 0
 fused_dgm_chunk.step_math_runs = 0
+fused_dgm_chunk.bf16_step_math_runs = 0
 
 
 def fused_dgm_packed_chunk_plain(spec, model, params, m, v, uniforms, step0,
                                  lrate, n_replicas, rep_tile=None, *,
                                  const=None, schedule="constant",
-                                 total_steps=1, decay=0.1):
+                                 total_steps=1, decay=0.1,
+                                 precision="highest"):
     """Plain version of :func:`fused_dgm_packed_chunk`."""
 
-    def step_math(p, u, c):
-        return dgm_loss_grad_plain(spec, model, p, u, c)
+    def step_math(p, u, c, precision):
+        return dgm_loss_grad_plain(spec, model, p, u, c, precision)
 
     return engine_core.run_fused_packed(
         step_math, params, m, v, uniforms, step0, lrate, n_replicas,
         rep_tile=rep_tile, schedule=schedule, total_steps=total_steps,
-        decay=decay, const=const)
+        decay=decay, const=const, precision=precision)
 
 
 def fused_dgm_packed_chunk(spec, model, params, m, v, uniforms, step0, lrate,
                            n_replicas, rep_tile=None, *, const=None,
                            schedule="constant", total_steps=1, decay=0.1,
                            lr_vec=None, bs_vec=None, steps_vec=None,
-                           mask_rows=False):
+                           mask_rows=False, precision="highest"):
     """Packed-replica twin of :func:`fused_dgm_chunk` (kernel #5 around
     #7): one call advances ``n_replicas`` independent DGM runs by ``K =
     uniforms.shape[0]`` Adam steps each. ``params``/``m``/``v`` are ``[N,
@@ -677,12 +707,14 @@ def fused_dgm_packed_chunk(spec, model, params, m, v, uniforms, step0, lrate,
     launch covers all N replicas on the H100).
 
     Returns new (params, m, v, losses [N, K]); the inputs are left
-    unchanged. A CPU tensor takes the plain version; a CUDA tensor launches
-    ``dgm_train_packed`` once (``.launches``; ``.step_math_runs`` counts the
-    replica-steps whose step math it enqueued). The per-slot sweep vectors
-    are not ported."""
+    unchanged. ``precision`` is "highest" or "default", as for the single
+    chunk. A CPU tensor takes the plain version; a CUDA tensor launches
+    ``dgm_train_packed`` once (``.launches``, ``.bf16_launches`` at
+    "default"; ``.step_math_runs`` counts the replica-steps whose step math
+    it enqueued). The per-slot sweep vectors are not ported."""
     engine_core.reject_per_slot(lr_vec=lr_vec, bs_vec=bs_vec,
                                 steps_vec=steps_vec, mask_rows=mask_rows)
+    check_precision(precision, CHUNK_PRECISIONS)
     _check_model(spec, model)
     engine_core.check_schedule(schedule)
     engine_core.check_rep_tile(n_replicas, rep_tile)
@@ -692,17 +724,18 @@ def fused_dgm_packed_chunk(spec, model, params, m, v, uniforms, step0, lrate,
         return fused_dgm_packed_chunk_plain(
             spec, model, params, m, v, uniforms, step0, lrate, n_replicas,
             const=const, schedule=schedule, total_steps=total_steps,
-            decay=decay)
+            decay=decay, precision=precision)
     out, runs = _train_packed(spec, model, params, m, v, uniforms, step0,
                               lrate, n_replicas, const, schedule, total_steps,
-                              decay)
-    fused_dgm_packed_chunk.launches += 1
-    fused_dgm_packed_chunk.step_math_runs += runs
+                              decay, precision)
+    count_launch(fused_dgm_packed_chunk, precision, runs)
     return out
 
 
 fused_dgm_packed_chunk.launches = 0
+fused_dgm_packed_chunk.bf16_launches = 0
 fused_dgm_packed_chunk.step_math_runs = 0
+fused_dgm_packed_chunk.bf16_step_math_runs = 0
 
 
 # ---------------------------------------------------------------------------
@@ -726,12 +759,15 @@ def train_dgm_fused_result(problem, seed, iterations, batch_size=100,
     ``start_step`` resume a run: step ``i`` draws its collocation points
     from ``(seed, i)`` alone, so a resumed or chunked run equals the uncut
     run bit for bit. ``schedule`` (None = the problem's default) decays
-    over ``total_steps`` (default ``start_step + iterations``)."""
+    over ``total_steps`` (default ``start_step + iterations``), both phases
+    of a "mixed" run on the one curve. ``precision`` is "highest",
+    "default" or "mixed" (the first ``int(iterations·0.65)`` steps at
+    "default", then "highest"; 0.65 is ``core.precision.MIXED_SPLIT``)."""
     spec = spec_for(problem, batch_size)
     if spec is None:
         raise ValueError(f"no fused DGM spec for equation {problem.name!r} "
                          f"(fitzhugh_nagumo dgm arch | fredholm gauss)")
-    check_precision(precision)
+    n_default = default_steps(iterations, precision)
     device = build.resolve_device(device)
     if model is None:
         model = problem.default_model(generator=generator(seed))
@@ -748,15 +784,17 @@ def train_dgm_fused_result(problem, seed, iterations, batch_size=100,
         m = opt_state["m"].to(device).clone()
         v = opt_state["v"].to(device).clone()
 
-    def run_chunk(p, m, v, u, step0):
-        return fused_dgm_chunk(spec, model, p, m, v, u, step0, lrate, **kw)
+    def run_chunk(p, m, v, u, step0, precision):
+        return fused_dgm_chunk(spec, model, p, m, v, u, step0, lrate,
+                               precision=precision, **kw)
 
     def draw(start, n):
         return step_uniforms(seed, start, n, batch_size, device,
                              spec.n_uniform)
 
     return train_in_chunks(model, run_chunk, draw, p, m, v, iterations,
-                           chunk_size, device, start_step, load=load_dgm)
+                           chunk_size, device, start_step, load=load_dgm,
+                           n_default=n_default)
 
 
 def train_dgm_fused_ensemble_packed(problem, seed, iterations, n_replicas,
@@ -778,12 +816,13 @@ def train_dgm_fused_ensemble_packed(problem, seed, iterations, n_replicas,
     ``opt_state`` the ``[N, n]`` moments and ``loss_history`` ``[N,
     iterations]``; ``compile_time``, ``wall_time`` and ``iters_per_sec``
     (population steps per second) as ``fused_train.train_in_chunks``
-    reports them."""
+    reports them. ``precision`` as for :func:`train_dgm_fused_result`,
+    every replica on the same schedule."""
     spec = spec_for(problem, batch_size)
     if spec is None:
         raise ValueError(f"no fused DGM spec for equation {problem.name!r} "
                          f"(fitzhugh_nagumo dgm arch | fredholm gauss)")
-    check_precision(precision)
+    n_default = default_steps(iterations, precision)
     device = build.resolve_device(device)
     models = replica_models(problem, model, seed, n_replicas, device)
     _check_model(spec, models[0])
@@ -792,9 +831,10 @@ def train_dgm_fused_ensemble_packed(problem, seed, iterations, n_replicas,
               total_steps=iterations, decay=decay)
     p = engine_core.stack_replicas([pack_dgm(m) for m in models])
 
-    def run_chunk(p, m, v, u, step0):
+    def run_chunk(p, m, v, u, step0, precision):
         return fused_dgm_packed_chunk(spec, models[0], p, m, v, u, step0,
-                                      lrate, n_replicas, **kw)
+                                      lrate, n_replicas, precision=precision,
+                                      **kw)
 
     def draw(start, n):
         return step_uniforms(seed, start, n, batch_size, device,
@@ -806,4 +846,4 @@ def train_dgm_fused_ensemble_packed(problem, seed, iterations, n_replicas,
 
     return train_in_chunks(models, run_chunk, draw, p, torch.zeros_like(p),
                            torch.zeros_like(p), iterations, chunk_size,
-                           device, load=load)
+                           device, load=load, n_default=n_default)

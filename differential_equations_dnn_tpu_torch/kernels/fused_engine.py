@@ -37,10 +37,14 @@ Ported specs: simple_ode, heat, burgers, wave, advection (causal too:
 its ``[B, B]`` weighting in a cross-point loss kernel), poisson, heat2d, volterra (Gauss rule), uat and inverse_heat, and the
 hard-constraint specs of simple_ode, heat, heat2d, wave and poisson
 (``HARD_SPECS``: the raw net of a models.hard.HardConstraint, interior rows
-only, the ansatz derivatives composed in the loss), at
-``precision="highest"``, as single runs (``fused_engine_chunk``,
-``train_fused_result``) and as packed-replica ensembles
-(``fused_engine_packed_chunk``, ``train_fused_ensemble_packed``). The
+only, the ansatz derivatives composed in the loss), as single runs
+(``fused_engine_chunk``, ``train_fused_result``) and as packed-replica
+ensembles (``fused_engine_packed_chunk``, ``train_fused_ensemble_packed``),
+each at ``precision`` "highest" (exact fp32) or "default" (the products the
+JAX step math gives ``precision`` take bf16 operands and accumulate in fp32;
+products it pins to HIGHEST or leaves without one, such as volterra's node
+sums, inverse_heat's observation rows and causal advection's ``earlier @
+r``, stay fp32), and the trainers at "mixed" too (core/precision.py). The
 runtime masks and the packed sweep mode are not ported (ROADMAP.md).
 
 On the card a chunk replays a CUDA graph of GRAPH_STEPS training steps,
@@ -57,6 +61,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from differential_equations_dnn_tpu_torch.core.precision import (
+    check_precision,
+    default_steps,
+    matmul,
+)
 from differential_equations_dnn_tpu_torch.core.prng import (
     generator,
     step_uniforms,
@@ -77,7 +86,8 @@ from differential_equations_dnn_tpu_torch.kernels.engine_core import (
     check_batch_tile,
 )
 from differential_equations_dnn_tpu_torch.kernels.fused_train import (
-    check_precision,
+    CHUNK_PRECISIONS,
+    count_launch,
     replica_models,
     train_in_chunks,
 )
@@ -205,15 +215,22 @@ def _act_bwd(groups, z, gr, B):
 # ---------------------------------------------------------------------------
 
 
-def engine_step_math(spec, params, u, B, L, const=None):
+def engine_step_math(spec, params, u, B, L, const=None,
+                     precision="highest"):
     """One training step's loss ``[1, 1]`` and parameter gradients for any
     stream spec. ``params`` = (w_in, b_in, w_hid, b_hid, w_out, b_out) and
     the spec's extra tensors; ``u`` = [B, spec.n_uniform] U[0,1) draws;
-    ``const`` = the spec's const operand (None: built by ``make_const``).
-    Returns (loss, grads_tuple), the extras' gradients last."""
+    ``const`` = the spec's const operand (None: built by ``make_const``);
+    ``precision`` ("highest" | "default") that of the layer products, the
+    ones the JAX step math gives it (the spec's loss keeps its own fp32
+    products). Returns (loss, grads_tuple), the extras' gradients last."""
     groups = spec.groups
     w_in, b_in, w_hid, b_hid, w_out, b_out = params[:6]
     extras = tuple(params[6:])
+
+    def mm(a, b):
+        return matmul(a, b, precision)
+
     if const is None:
         const = spec.make_const(B, u.device)
     X, ctx = spec.build(u, const) if spec.build_with_const else spec.build(u)
@@ -221,12 +238,12 @@ def engine_step_math(spec, params, u, B, L, const=None):
         ctx = {**ctx, "const": const}
     mask = _bias_mask(groups, B, X)
 
-    zs = [X @ w_in + mask * b_in]
+    zs = [mm(X, w_in) + mask * b_in]
     a = _act_fwd(groups, zs[0], B)
     for l in range(L):
-        zs.append(a @ w_hid[l] + mask * b_hid[l])
+        zs.append(mm(a, w_hid[l]) + mask * b_hid[l])
         a = _act_fwd(groups, zs[-1], B)
-    out = a @ w_out + mask * b_out
+    out = mm(a, w_out) + mask * b_out
 
     outs = tuple(out[k * B:(k + 1) * B] for k in range(_n_rows(groups)))
     # The cotangent w.r.t. the stream outputs, from autodiff of the spec's
@@ -241,19 +258,19 @@ def engine_step_math(spec, params, u, B, L, const=None):
         gouts, gextras = vjp_fn(torch.ones_like(loss)), ()
     G = torch.cat(gouts, 0)
 
-    d_w_out = _act_fwd(groups, zs[L], B).T @ G
+    d_w_out = mm(_act_fwd(groups, zs[L], B).T, G)
     d_b_out = torch.sum(mask * G, 0)
-    g = G @ w_out.T
+    g = mm(G, w_out.T)
     d_w_hid, d_b_hid = [], []
     for l in range(L - 1, -1, -1):
         dz = _act_bwd(groups, zs[l + 1], g, B)
-        d_w_hid.append(_act_fwd(groups, zs[l], B).T @ dz)
+        d_w_hid.append(mm(_act_fwd(groups, zs[l], B).T, dz))
         d_b_hid.append(torch.sum(mask * dz, 0))
-        g = dz @ w_hid[l].T
+        g = mm(dz, w_hid[l].T)
     d_w_hid = torch.stack(d_w_hid[::-1]) if L else torch.zeros_like(w_hid)
     d_b_hid = torch.stack(d_b_hid[::-1]) if L else torch.zeros_like(b_hid)
     dz = _act_bwd(groups, zs[0], g, B)
-    d_w_in = X.T @ dz
+    d_w_in = mm(X.T, dz)
     d_b_in = torch.sum(mask * dz, 0)
     return loss, (d_w_in, d_b_in, d_w_hid, d_b_hid, d_w_out,
                   d_b_out) + tuple(gextras)
@@ -1164,25 +1181,31 @@ def _consts(spec, B):
                                                          len(vals)))
 
 
-def engine_loss_grad_plain(spec, model, params, u, const=None):
+def engine_loss_grad_plain(spec, model, params, u, const=None,
+                           precision="highest"):
     """Plain version of :func:`engine_loss_grad`."""
     loss, grads = engine_step_math(spec, unpack_state(spec, model, params), u,
-                                   u.shape[0], spec.dims(model)[2], const)
+                                   u.shape[0], spec.dims(model)[2], const,
+                                   precision)
     return loss.reshape(()), torch.cat([g.reshape(-1) for g in grads])
 
 
-def engine_loss_grad(spec, model, params, u, const=None):
+def engine_loss_grad(spec, model, params, u, const=None,
+                     precision="highest"):
     """One step's loss and flat gradient at flat ``params`` on ``[B,
     spec.n_uniform]`` uniforms (``const``: the spec's const operand, None
-    for its own): the step-math launches of the training kernel without the
-    Adam update. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (``engine_loss_grad.launches`` counts the launches;
-    the training kernel's own step-math runs are counted by
-    :func:`fused_engine_chunk`)."""
+    for its own) at ``precision`` ("highest" | "default"): the step-math
+    launches of the training kernel without the Adam update. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel
+    (``engine_loss_grad.launches`` counts the launches, ``.bf16_launches``
+    those at "default"; the training kernel's own step-math runs are
+    counted by :func:`fused_engine_chunk`)."""
+    check_precision(precision, CHUNK_PRECISIONS)
     _check_model(spec, model)
     const = _resolve_const(spec, const, u.shape[0], u.device)
     if u.device.type == "cpu":
-        return engine_loss_grad_plain(spec, model, params, u, const)
+        return engine_loss_grad_plain(spec, model, params, u, const,
+                                      precision)
     lib = build.library()
     _check_inputs(spec, model, {"params": params, "uniforms": u}, const, lib)
     B, (_, H, L) = u.shape[0], spec.dims(model)
@@ -1197,13 +1220,15 @@ def engine_loss_grad(spec, model, params, u, const=None):
                                _ptr(const), params.data_ptr(), u.data_ptr(),
                                scratch.data_ptr(), grad.data_ptr(),
                                loss.data_ptr(), args.data_ptr(), B, H, L,
-                               spec.fold, build.stream_ptr(u.device))
+                               spec.fold, int(precision == "default"),
+                               build.stream_ptr(u.device))
     build.check(code, "engine_grad")
-    engine_loss_grad.launches += 1
+    count_launch(engine_loss_grad, precision)
     return loss, grad
 
 
 engine_loss_grad.launches = 0
+engine_loss_grad.bf16_launches = 0
 
 
 def _ptr(t):
@@ -1212,26 +1237,31 @@ def _ptr(t):
 
 def fused_engine_chunk_plain(spec, model, params, m, v, uniforms, step0,
                              lrate, *, schedule="constant", total_steps=1,
-                             decay=0.1, batch_tile=None, const=None):
+                             decay=0.1, batch_tile=None, const=None,
+                             precision="highest"):
     """Plain version of :func:`fused_engine_chunk`."""
     const = _resolve_const(spec, const, uniforms.shape[1], uniforms.device)
 
-    def step_math(p, u):
-        return engine_loss_grad_plain(spec, model, p, u, const)
+    def step_math(p, u, precision):
+        return engine_loss_grad_plain(spec, model, p, u, const, precision)
 
     return engine_core.run_fused_chunk(
         step_math, params, m, v, uniforms, step0, lrate, schedule=schedule,
-        total_steps=total_steps, decay=decay, batch_tile=batch_tile)
+        total_steps=total_steps, decay=decay, batch_tile=batch_tile,
+        precision=precision)
 
 
 def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
-                  n_replicas, schedule, total_steps, decay, const):
+                  n_replicas, schedule, total_steps, decay, const,
+                  precision):
     """One ``engine_train_packed`` call on CUDA ``[N, n]`` state, shared by
     both chunk wrappers (a single run is N = 1). The launches run on the
     shape's side stream (graphs.StepGraph.run); a call of at least
     GRAPH_STEPS steps first captures the shape's graph if it is not cached.
     The const operand's pointer reaches the kernels through the argument
-    block each call writes, so the graph never holds it. Returns the new
+    block each call writes, so the graph never holds it; ``precision``
+    ("highest" | "default") picks the kernels' instances, and each has its
+    own graph. Returns the new
     (params, m, v, losses [N, K]) and the replica-steps whose step math it
     enqueued."""
     lib = build.library()
@@ -1243,9 +1273,11 @@ def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
     device = uniforms.device
     floats = lib.engine_scratch_floats(spec.kernel_id, B, H, L, F)
     consts = _consts(spec, B)
-    # The spec's numbers are kernel arguments of the captured graph.
+    bf16 = int(precision == "default")
+    # The spec's numbers are kernel arguments of the captured graph, and the
+    # precision picks its kernel instances.
     key = ("engine", spec.kernel_id, tuple(consts), B, H, L, F, n_replicas,
-           GRAPH_STEPS, device)
+           precision, GRAPH_STEPS, device)
     if not graphs.cached(key):
         engine_core.check_replicas(n_replicas, spec.kernel_streams,
                                    4 * floats,
@@ -1259,13 +1291,13 @@ def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
     if K >= GRAPH_STEPS and entry.exec is None:
         with torch.cuda.device(device):
             entry.capture(lambda args, scratch, out: lib.engine_graph_build(
-                spec.kernel_id, consts, B, H, L, F, n_replicas, GRAPH_STEPS,
-                args, scratch, out), "engine_graph_build")
+                spec.kernel_id, consts, B, H, L, F, n_replicas, bf16,
+                GRAPH_STEPS, args, scratch, out), "engine_graph_build")
     code = entry.run(lambda stream, side0, side1: lib.engine_train_packed(
         spec.kernel_id, consts, _ptr(const), p.data_ptr(), m.data_ptr(),
         v.data_ptr(), uniforms.data_ptr(), entry.scratch.data_ptr(),
         losses.data_ptr(), entry.args.data_ptr(), entry.exec, GRAPH_STEPS,
-        n_replicas, K, B, H, L, F, float(lrate), int(step0),
+        n_replicas, K, B, H, L, F, bf16, float(lrate), int(step0),
         *engine_core.schedule_args(schedule, total_steps, decay),
         ctypes.byref(runs), stream, side0, side1), device)
     build.check(code, "engine_train_packed")
@@ -1275,8 +1307,9 @@ def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
 def fused_engine_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
                        schedule="constant", total_steps=1, decay=0.1,
                        batch_tile=None, runtime_bs=None, runtime_steps=None,
-                       const=None):
-    """Run ``K = uniforms.shape[0]`` Adam steps of ``spec``'s equation.
+                       const=None, precision="highest"):
+    """Run ``K = uniforms.shape[0]`` Adam steps of ``spec``'s equation at
+    ``precision`` ("highest" | "default").
     ``params``/``m``/``v`` are flat fp32 buffers (:func:`pack_state`);
     ``uniforms`` is [K, B, spec.n_uniform]; ``step0`` is the absolute index
     of the chunk's first step. ``schedule`` ("constant" | "cosine" |
@@ -1287,13 +1320,14 @@ def fused_engine_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
 
     Returns new (params, m, v, losses[K]); the inputs are left unchanged.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (``fused_engine_chunk.launches`` counts the launches, and
-    ``fused_engine_chunk.step_math_runs`` the steps whose step math the
-    kernel enqueued, as it reports them)."""
+    (``fused_engine_chunk.launches`` counts the launches, ``.bf16_launches``
+    those at "default", and ``fused_engine_chunk.step_math_runs`` the steps
+    whose step math the kernel enqueued, as it reports them)."""
     for name, val in (("runtime_bs", runtime_bs),
                       ("runtime_steps", runtime_steps)):
         if val is not None:
             raise engine_core.not_ported(name)
+    check_precision(precision, CHUNK_PRECISIONS)
     _check_model(spec, model)
     engine_core.check_schedule(schedule)
     check_batch_tile(uniforms.shape[1], batch_tile)
@@ -1302,40 +1336,43 @@ def fused_engine_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
         return fused_engine_chunk_plain(
             spec, model, params, m, v, uniforms, step0, lrate,
             schedule=schedule, total_steps=total_steps, decay=decay,
-            const=const)
+            const=const, precision=precision)
     (p, m, v, losses), runs = _train_packed(
         spec, model, params[None], m[None], v[None], uniforms, step0, lrate,
-        1, schedule, total_steps, decay, const)
-    fused_engine_chunk.launches += 1
-    fused_engine_chunk.step_math_runs += runs
+        1, schedule, total_steps, decay, const, precision)
+    count_launch(fused_engine_chunk, precision, runs)
     return p[0], m[0], v[0], losses[0]
 
 
 fused_engine_chunk.launches = 0
+fused_engine_chunk.bf16_launches = 0
 fused_engine_chunk.step_math_runs = 0
+fused_engine_chunk.bf16_step_math_runs = 0
 
 
 def fused_engine_packed_chunk_plain(spec, model, params, m, v, uniforms,
                                     step0, lrate, n_replicas, rep_tile=None,
                                     *, schedule="constant", total_steps=1,
-                                    decay=0.1, const=None):
+                                    decay=0.1, const=None,
+                                    precision="highest"):
     """Plain version of :func:`fused_engine_packed_chunk`."""
     const = _resolve_const(spec, const, uniforms.shape[1], uniforms.device)
 
-    def step_math(p, u, const):
-        return engine_loss_grad_plain(spec, model, p, u, const)
+    def step_math(p, u, const, precision):
+        return engine_loss_grad_plain(spec, model, p, u, const, precision)
 
     return engine_core.run_fused_packed(
         step_math, params, m, v, uniforms, step0, lrate, n_replicas,
         rep_tile=rep_tile, schedule=schedule, total_steps=total_steps,
-        decay=decay, const=const)
+        decay=decay, const=const, precision=precision)
 
 
 def fused_engine_packed_chunk(spec, model, params, m, v, uniforms, step0,
                               lrate, n_replicas, rep_tile=None, *,
                               schedule="constant", total_steps=1, decay=0.1,
                               const=None, lr_vec=None, bs_vec=None,
-                              steps_vec=None, mask_rows=False):
+                              steps_vec=None, mask_rows=False,
+                              precision="highest"):
     """Packed-replica twin of :func:`fused_engine_chunk` (kernel #5 around
     #6): one call advances ``n_replicas`` independent runs by ``K =
     uniforms.shape[0]`` Adam steps each. ``params``/``m``/``v`` are ``[N,
@@ -1344,12 +1381,14 @@ def fused_engine_packed_chunk(spec, model, params, m, v, uniforms, step0,
     must divide N (every launch covers all N replicas on the H100).
 
     Returns new (params, m, v, losses [N, K]); the inputs are left
-    unchanged. A CPU tensor takes the plain version; a CUDA tensor launches
-    ``engine_train_packed`` once (``.launches``; ``.step_math_runs`` counts
-    the replica-steps whose step math it enqueued). The per-slot sweep
-    vectors are not ported."""
+    unchanged. ``precision`` is "highest" or "default", as for the single
+    chunk. A CPU tensor takes the plain version; a CUDA tensor launches
+    ``engine_train_packed`` once (``.launches``, ``.bf16_launches`` at
+    "default"; ``.step_math_runs`` counts the replica-steps whose step math
+    it enqueued). The per-slot sweep vectors are not ported."""
     engine_core.reject_per_slot(lr_vec=lr_vec, bs_vec=bs_vec,
                                 steps_vec=steps_vec, mask_rows=mask_rows)
+    check_precision(precision, CHUNK_PRECISIONS)
     _check_model(spec, model)
     engine_core.check_schedule(schedule)
     engine_core.check_rep_tile(n_replicas, rep_tile)
@@ -1359,17 +1398,18 @@ def fused_engine_packed_chunk(spec, model, params, m, v, uniforms, step0,
         return fused_engine_packed_chunk_plain(
             spec, model, params, m, v, uniforms, step0, lrate, n_replicas,
             schedule=schedule, total_steps=total_steps, decay=decay,
-            const=const)
+            const=const, precision=precision)
     out, runs = _train_packed(spec, model, params, m, v, uniforms, step0,
                               lrate, n_replicas, schedule, total_steps, decay,
-                              const)
-    fused_engine_packed_chunk.launches += 1
-    fused_engine_packed_chunk.step_math_runs += runs
+                              const, precision)
+    count_launch(fused_engine_packed_chunk, precision, runs)
     return out
 
 
 fused_engine_packed_chunk.launches = 0
+fused_engine_packed_chunk.bf16_launches = 0
 fused_engine_packed_chunk.step_math_runs = 0
+fused_engine_packed_chunk.bf16_step_math_runs = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1395,12 +1435,16 @@ def train_fused_result(problem, seed, iterations, batch_size=64, lrate=1e-4,
     chunked run equals the uncut run bit for bit. ``schedule`` (None = the
     problem's default) decays over ``total_steps`` (default ``start_step +
     iterations``); a run that will be resumed must pass its full planned
-    budget here. The spec's const operand is built once, on the device."""
+    budget here, and both phases of a "mixed" run share it. ``precision``
+    is "highest", "default" or "mixed" (the first ``int(iterations·0.65)``
+    steps at "default", then "highest"; 0.65 is
+    ``core.precision.MIXED_SPLIT``).
+    The spec's const operand is built once, on the device."""
     spec = spec_for(problem)
     if spec is None:
         raise ValueError(f"no fused-engine spec for equation "
                          f"{problem.name!r} (available: {sorted(SPECS)})")
-    check_precision(precision)
+    n_default = default_steps(iterations, precision)
     device = build.resolve_device(device)
     if model is None:
         model = problem.default_model(generator=generator(seed))
@@ -1417,8 +1461,9 @@ def train_fused_result(problem, seed, iterations, batch_size=64, lrate=1e-4,
         m = opt_state["m"].to(device).clone()
         v = opt_state["v"].to(device).clone()
 
-    def run_chunk(p, m, v, u, step0):
-        return fused_engine_chunk(spec, model, p, m, v, u, step0, lrate, **kw)
+    def run_chunk(p, m, v, u, step0, precision):
+        return fused_engine_chunk(spec, model, p, m, v, u, step0, lrate,
+                                  precision=precision, **kw)
 
     def draw(start, n):
         return step_uniforms(seed, start, n, batch_size, device,
@@ -1428,7 +1473,8 @@ def train_fused_result(problem, seed, iterations, batch_size=64, lrate=1e-4,
         load_state(spec, model, p)
 
     return train_in_chunks(model, run_chunk, draw, p, m, v, iterations,
-                           chunk_size, device, start_step, load=load)
+                           chunk_size, device, start_step, load=load,
+                           n_default=n_default)
 
 
 def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
@@ -1450,12 +1496,13 @@ def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
     ``opt_state`` the ``[N, n]`` moments and ``loss_history`` ``[N,
     iterations]``; ``compile_time``, ``wall_time`` and ``iters_per_sec``
     (population steps per second) as ``fused_train.train_in_chunks``
-    reports them."""
+    reports them. ``precision`` as for :func:`train_fused_result`, every
+    replica on the same schedule."""
     spec = spec_for(problem)
     if spec is None:
         raise ValueError(f"no fused-engine spec for equation "
                          f"{problem.name!r} (available: {sorted(SPECS)})")
-    check_precision(precision)
+    n_default = default_steps(iterations, precision)
     device = build.resolve_device(device)
     models = replica_models(problem, model, seed, n_replicas, device)
     _check_model(spec, models[0])
@@ -1464,9 +1511,10 @@ def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
               const=spec.make_const(batch_size, device))
     p = engine_core.stack_replicas([pack_state(spec, m) for m in models])
 
-    def run_chunk(p, m, v, u, step0):
+    def run_chunk(p, m, v, u, step0, precision):
         return fused_engine_packed_chunk(spec, models[0], p, m, v, u, step0,
-                                         lrate, n_replicas, **kw)
+                                         lrate, n_replicas,
+                                         precision=precision, **kw)
 
     def draw(start, n):
         return step_uniforms(seed, start, n, batch_size, device,
@@ -1478,4 +1526,4 @@ def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
 
     return train_in_chunks(models, run_chunk, draw, p, torch.zeros_like(p),
                            torch.zeros_like(p), iterations, chunk_size,
-                           device, load=load)
+                           device, load=load, n_default=n_default)

@@ -15,11 +15,16 @@ version of that step; the CPU tests hold them against the JAX package, and
 
 Parameters and both Adam moments are each ONE flat fp32 buffer in the order
 (w_in, b_in, w_hid, b_hid, w_out, b_out); ``unpack_params`` gives views.
-Only ``precision="highest"`` (exact fp32) is ported. On the card a chunk
-replays a CUDA graph of GRAPH_STEPS steps, captured on the first call of
-its shape and cached (kernels/graphs.py), as the MLP engine's does; every
-operand is staged in k-tiles, so the kernels take any width up to
-MAX_HEAT_WIDTH (:func:`heat_train_plan`).
+A chunk runs at ``precision="highest"`` (every product exact fp32) or
+``"default"`` (the products the JAX step math gives ``precision`` take
+bf16 operands and accumulate in fp32: on the card the bf16 tensor-core
+instances of the same kernels); ``train_heat_fused_result`` also takes
+``"mixed"``, its first ``int(K·mixed_split)`` steps at "default" and the
+rest at "highest" on the same state (core/precision.py). On the card a
+chunk replays a CUDA graph of GRAPH_STEPS steps, captured on the first call
+of its shape and precision and cached (kernels/graphs.py), as the MLP
+engine's does; every operand is staged in k-tiles, so the kernels take any
+width up to MAX_HEAT_WIDTH (:func:`heat_train_plan`).
 """
 
 import math
@@ -27,6 +32,12 @@ import time
 
 import torch
 
+from differential_equations_dnn_tpu_torch.core.precision import (
+    MIXED_SPLIT,
+    check_precision,
+    default_steps,
+    matmul,
+)
 from differential_equations_dnn_tpu_torch.core.prng import (
     generator,
     replica_generator,
@@ -44,8 +55,8 @@ from differential_equations_dnn_tpu_torch.kernels.engine_core import (
 from differential_equations_dnn_tpu_torch.models import MLP
 from differential_equations_dnn_tpu_torch.train.trainer import TrainResult
 
-_PRECISION_TODO = ("precision={!r} is not ported yet (ROADMAP.md queue 1, "
-                   "item 7: the bf16 tensor-core precision modes)")
+# The precisions one chunk runs at ("mixed" is a schedule of chunks).
+CHUNK_PRECISIONS = ("highest", "default")
 
 
 # ---------------------------------------------------------------------------
@@ -109,20 +120,27 @@ def _act_bwd(z, g, B):
     return torch.cat([dz0, dz1, d * g2, d * g3, (1.0 - ac * ac) * gc], 0)
 
 
-def fused_step_math(params, u, B, L, x_max=math.pi, t_max=3.0, kappa=1.0):
+def fused_step_math(params, u, B, L, x_max=math.pi, t_max=3.0, kappa=1.0,
+                    precision="highest"):
     """One training step's loss and parameter gradients, in plain PyTorch.
     ``params`` = (w_in, b_in, w_hid [L,H,H], b_hid [L,H], w_out, b_out);
-    ``u`` = [B, 2] uniforms. Returns (loss, grads_tuple)."""
+    ``u`` = [B, 2] uniforms; ``precision`` ("highest" | "default") that of
+    every product, as the JAX step math gives it to each. Returns (loss,
+    grads_tuple)."""
     w_in, b_in, w_hid, b_hid, w_out, b_out = params
+
+    def mm(a, b):
+        return matmul(a, b, precision)
+
     X, x_interior = _stack_inputs(u, x_max, t_max)
     mask = _bias_mask(B, X)
 
-    zs = [X @ w_in + mask * b_in]
+    zs = [mm(X, w_in) + mask * b_in]
     a = _act_fwd(zs[0], B)
     for l in range(L):
-        zs.append(a @ w_hid[l] + mask * b_hid[l])
+        zs.append(mm(a, w_hid[l]) + mask * b_hid[l])
         a = _act_fwd(zs[-1], B)
-    out = a @ w_out + mask * b_out
+    out = mm(a, w_out) + mask * b_out
 
     u_xx = out[2 * B:3 * B]
     u_t = out[3 * B:4 * B]
@@ -138,19 +156,19 @@ def fused_step_math(params, u, B, L, x_max=math.pi, t_max=3.0, kappa=1.0):
     G = torch.cat([zeros, zeros, -kappa * s * r, s * r, s * r0, s * ub1,
                    s * ub2], 0)
 
-    d_w_out = _act_fwd(zs[L], B).T @ G
+    d_w_out = mm(_act_fwd(zs[L], B).T, G)
     d_b_out = torch.sum(mask * G, 0)
-    g = G @ w_out.T
+    g = mm(G, w_out.T)
     d_w_hid, d_b_hid = [], []
     for l in range(L - 1, -1, -1):
         dz = _act_bwd(zs[l + 1], g, B)
-        d_w_hid.append(_act_fwd(zs[l], B).T @ dz)
+        d_w_hid.append(mm(_act_fwd(zs[l], B).T, dz))
         d_b_hid.append(torch.sum(mask * dz, 0))
-        g = dz @ w_hid[l].T
+        g = mm(dz, w_hid[l].T)
     d_w_hid = torch.stack(d_w_hid[::-1]) if L else torch.zeros_like(w_hid)
     d_b_hid = torch.stack(d_b_hid[::-1]) if L else torch.zeros_like(b_hid)
     dz = _act_bwd(zs[0], g, B)
-    d_w_in = X.T @ dz
+    d_w_in = mm(X.T, dz)
     d_b_in = torch.sum(mask * dz, 0)
     return loss, (d_w_in, d_b_in, d_w_hid, d_b_hid, d_w_out, d_b_out)
 
@@ -247,21 +265,40 @@ def _check_state(model, tensors, n_replicas=None):
 
 
 def heat_loss_grad_plain(model, params, u, x_max=math.pi, t_max=3.0,
-                         kappa=1.0):
+                         kappa=1.0, precision="highest"):
     """Plain version of :func:`heat_loss_grad`."""
     loss, grads = fused_step_math(unpack_params(model, params), u,
                                   u.shape[0], model.num_layers, x_max, t_max,
-                                  kappa)
+                                  kappa, precision)
     return loss, torch.cat([g.reshape(-1) for g in grads])
 
 
-def heat_loss_grad(model, params, u, x_max=math.pi, t_max=3.0, kappa=1.0):
+def count_launch(fn, precision, step_math_runs=None):
+    """One launch of ``fn``'s kernel: ``fn.launches`` counts every launch,
+    ``fn.bf16_launches`` those of its "default" (bf16 tensor-core)
+    instances; a training wrapper also adds the (replica-)steps whose step
+    math the launch enqueued to ``fn.step_math_runs`` (and to
+    ``fn.bf16_step_math_runs`` at "default")."""
+    fn.launches += 1
+    if precision == "default":
+        fn.bf16_launches += 1
+    if step_math_runs is not None:
+        fn.step_math_runs += step_math_runs
+        if precision == "default":
+            fn.bf16_step_math_runs += step_math_runs
+
+
+def heat_loss_grad(model, params, u, x_max=math.pi, t_max=3.0, kappa=1.0,
+                   precision="highest"):
     """One step's loss and flat gradient at flat ``params`` on ``[B, 2]``
-    uniforms: the forward and backward launches of the training kernel
-    without the Adam update. A CPU tensor takes the plain version."""
+    uniforms, at ``precision`` ("highest" | "default"): the forward and
+    backward launches of the training kernel without the Adam update. A CPU
+    tensor takes the plain version."""
+    check_precision(precision, CHUNK_PRECISIONS)
     _check_model(model, u.device)
     if u.device.type == "cpu":
-        return heat_loss_grad_plain(model, params, u, x_max, t_max, kappa)
+        return heat_loss_grad_plain(model, params, u, x_max, t_max, kappa,
+                                    precision)
     _check_state(model, {"params": params, "uniforms": u})
     B, H, L = u.shape[0], model.hidden_size, model.num_layers
     lib = build.library()
@@ -273,23 +310,27 @@ def heat_loss_grad(model, params, u, x_max=math.pi, t_max=3.0, kappa=1.0):
                              scratch.data_ptr(), grad.data_ptr(),
                              loss.data_ptr(), B, H, L, float(x_max),
                              float(t_max), float(kappa),
+                             int(precision == "default"),
                              build.stream_ptr(u.device))
     build.check(code, "heat_grad")
-    heat_loss_grad.launches += 1
+    count_launch(heat_loss_grad, precision)
     return loss, grad
 
 
 heat_loss_grad.launches = 0
+heat_loss_grad.bf16_launches = 0
 
 
 def heat_fused_train_chunk_plain(model, params, m, v, uniforms, step0,
-                                 lrate, x_max=math.pi, t_max=3.0, kappa=1.0):
+                                 lrate, x_max=math.pi, t_max=3.0, kappa=1.0,
+                                 precision="highest"):
     """Plain version of :func:`heat_fused_train_chunk`."""
+    check_precision(precision, CHUNK_PRECISIONS)
     K, B, _ = uniforms.shape
     losses = []
     for k in range(K):
         loss, g = heat_loss_grad_plain(model, params, uniforms[k], x_max,
-                                       t_max, kappa)
+                                       t_max, kappa, precision)
         t = torch.tensor(step0 + k + 1, dtype=torch.float32,
                          device=params.device)
         params, m, v = adam_update(params, m, v, g, lrate, t)
@@ -299,34 +340,41 @@ def heat_fused_train_chunk_plain(model, params, m, v, uniforms, step0,
 
 def heat_fused_train_chunk(model, params, m, v, uniforms, step0, lrate,
                            x_max=math.pi, t_max=3.0, kappa=1.0,
-                           batch_tile: int | None = None):
-    """Run ``K = uniforms.shape[0]`` Adam steps. ``params``/``m``/``v`` are
-    flat fp32 buffers; ``uniforms`` is [K, B, 2] of U[0,1) draws; ``step0``
-    is the absolute index of the chunk's first step.
+                           batch_tile: int | None = None,
+                           precision="highest"):
+    """Run ``K = uniforms.shape[0]`` Adam steps at ``precision`` ("highest"
+    | "default"). ``params``/``m``/``v`` are flat fp32 buffers;
+    ``uniforms`` is [K, B, 2] of U[0,1) draws; ``step0`` is the absolute
+    index of the chunk's first step.
 
     ``batch_tile`` must divide B. Averaging equal tiles' gradients IS the
     full-batch gradient, so the kernel always computes the whole batch.
 
     Returns new (params, m, v, losses[K]); the inputs are left unchanged.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (``heat_fused_train_chunk.launches`` counts the launches): its steps
-    replay the shape's cached CUDA graph of GRAPH_STEPS steps
-    (kernels/graphs.py), captured by the first call of at least
+    (``heat_fused_train_chunk.launches`` counts the launches,
+    ``.bf16_launches`` those at "default"): its steps replay the shape's
+    cached CUDA graph of GRAPH_STEPS steps (kernels/graphs.py; one per
+    shape and precision), captured by the first call of at least
     GRAPH_STEPS steps, on the shape's side stream."""
+    check_precision(precision, CHUNK_PRECISIONS)
     _check_model(model, uniforms.device)
     K, B, _ = uniforms.shape
     check_batch_tile(B, batch_tile)
     if uniforms.device.type == "cpu":
         return heat_fused_train_chunk_plain(model, params, m, v, uniforms,
-                                            step0, lrate, x_max, t_max, kappa)
+                                            step0, lrate, x_max, t_max, kappa,
+                                            precision)
     _check_state(model, {"params": params, "m": m, "v": v,
                          "uniforms": uniforms})
     H, L = model.hidden_size, model.num_layers
     device = uniforms.device
     lib = build.library()
     consts = (float(x_max), float(t_max), float(kappa))
-    # The problem's numbers are kernel arguments of the captured graph.
-    key = ("heat", B, H, L, consts, graphs.GRAPH_STEPS, device)
+    bf16 = int(precision == "default")
+    # The problem's numbers are kernel arguments of the captured graph, and
+    # the precision picks its kernel instances.
+    key = ("heat", B, H, L, consts, precision, graphs.GRAPH_STEPS, device)
     entry = graphs.step_graph(key, lambda: graphs.StepGraph(
         "heat", device, 1, lib.heat_scratch_floats(B, H, L),
         lib.heat_args_bytes(), lib.heat_graph_free))
@@ -335,19 +383,20 @@ def heat_fused_train_chunk(model, params, m, v, uniforms, step0, lrate,
     if K >= graphs.GRAPH_STEPS and entry.exec is None:
         with torch.cuda.device(device):
             entry.capture(lambda args, scratch, out: lib.heat_graph_build(
-                B, H, L, *consts, graphs.GRAPH_STEPS, args, scratch, out),
-                "heat_graph_build")
+                B, H, L, *consts, bf16, graphs.GRAPH_STEPS, args, scratch,
+                out), "heat_graph_build")
     code = entry.run(lambda stream, side0, side1: lib.heat_train(
         p.data_ptr(), m.data_ptr(), v.data_ptr(), uniforms.data_ptr(),
         entry.scratch.data_ptr(), losses.data_ptr(), K, B, H, L, *consts,
-        float(lrate), int(step0), stream, entry.args.data_ptr(), entry.exec,
-        graphs.GRAPH_STEPS, side0, side1), device)
+        float(lrate), int(step0), bf16, stream, entry.args.data_ptr(),
+        entry.exec, graphs.GRAPH_STEPS, side0, side1), device)
     build.check(code, "heat_train")
-    heat_fused_train_chunk.launches += 1
+    count_launch(heat_fused_train_chunk, precision)
     return p, m, v, losses
 
 
 heat_fused_train_chunk.launches = 0
+heat_fused_train_chunk.bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -366,42 +415,57 @@ def replica_models(problem, model, seed, n_replicas, device):
             for r in range(n_replicas)]
 
 
-def check_precision(precision: str) -> None:
-    """Only ``precision="highest"`` (exact fp32) is ported."""
-    if precision in ("default", "mixed"):
-        raise NotImplementedError(_PRECISION_TODO.format(precision))
-    if precision != "highest":
-        raise ValueError(f"unknown precision {precision!r}")
+def _warm_steps(phase, chunk, device):
+    """Steps of a phase's warm-up call: on the card enough for the graph
+    capture its chunks will replay (GRAPH_STEPS, where a chunk of the phase
+    has that many), else 1."""
+    if torch.device(device).type != "cuda":
+        return 1
+    return max(1, min(graphs.GRAPH_STEPS, phase, chunk))
 
 
 def train_in_chunks(model, run_chunk, draw, p, m, v, iterations, chunk_size,
-                    device, start_step=0,
-                    load=None) -> TrainResult:
-    """The fused trainers' host loop. ``run_chunk(p, m, v, u, step0)`` runs
-    the steps of ``u = draw(step0, k)`` and returns new (p, m, v, losses);
-    ``load(model, p)`` (default: the MLP's :func:`load_params`) copies the
-    trained flat buffer into the model. Packed replicas pass ``[N, n]``
-    state, get ``[N, k]`` losses per chunk (joined along the steps) and
-    load their own ``model``, a list of N.
+                    device, start_step=0, load=None,
+                    n_default=0) -> TrainResult:
+    """The fused trainers' host loop. ``run_chunk(p, m, v, u, step0,
+    precision)`` runs the steps of ``u = draw(step0, k)`` at ``precision``
+    ("highest" | "default") and returns new (p, m, v, losses); the run's
+    first ``n_default`` steps run at "default", the rest at "highest"
+    (core.precision.default_steps), chained on the same state with no host
+    synchronisation between them. ``load(model, p)`` (default: the MLP's
+    :func:`load_params`) copies the trained flat buffer into the model.
+    Packed replicas pass ``[N, n]`` state, get ``[N, k]`` losses per chunk
+    (joined along the steps) and load their own ``model``, a list of N.
 
-    One warm-up step on copies of the state is timed as ``compile_time``
-    (the kernel build plus the first dispatch); ``wall_time`` and
-    ``iters_per_sec`` cover the training steps only, ending in
+    A warm-up call per precision the run uses, on copies of the state, is
+    timed as ``compile_time``: the kernel build, the first dispatch and, on
+    the card, the capture of the CUDA graph its chunks replay (the warm-up
+    takes GRAPH_STEPS steps where a chunk of the phase does). ``wall_time``
+    and ``iters_per_sec`` cover the training steps only, ending in
     ``torch.cuda.synchronize()``. The trained parameters are loaded into
     ``model``, which the result returns as ``params``."""
+    chunk = max(1, min(chunk_size, iterations))
+    phases = [("default", n_default), ("highest", iterations - n_default)]
     t0 = time.perf_counter()
-    run_chunk(p, m, v, draw(start_step, 1), start_step)
+    for precision, steps in phases:
+        if steps > 0:
+            k = _warm_steps(steps, chunk, device)
+            run_chunk(p, m, v, draw(start_step, k), start_step, precision)
     build.sync(device)
     compile_time = time.perf_counter() - t0
 
-    chunk = max(1, min(chunk_size, iterations))
     losses = []
     done = 0
     t0 = time.perf_counter()
     while done < iterations:
         k = min(chunk, iterations - done)
+        if done < n_default:
+            k, precision = min(k, n_default - done), "default"
+        else:
+            precision = "highest"
         step = start_step + done
-        p, m, v, chunk_losses = run_chunk(p, m, v, draw(step, k), step)
+        p, m, v, chunk_losses = run_chunk(p, m, v, draw(step, k), step,
+                                          precision)
         losses.append(chunk_losses)
         done += k
     build.sync(device)
@@ -419,15 +483,18 @@ def train_in_chunks(model, run_chunk, draw, p, m, v, iterations, chunk_size,
 
 def train_heat_fused_result(problem, seed, iterations, batch_size=64,
                             lrate=1e-4, chunk_size=25_000, model=None,
-                            precision="highest", device="cuda"):
+                            precision="highest", mixed_split=MIXED_SPLIT,
+                            device="cuda"):
     """Train the heat equation with the fused kernel; returns a TrainResult
     (see :func:`train_in_chunks` for its timings).
 
     ``model`` (default: ``problem.default_model()`` initialised from
     ``seed``) is trained in place and returned as ``params``. Step ``i``
     draws its collocation points from ``(seed, i)`` alone, so the chunk
-    layout cannot change the run."""
-    check_precision(precision)
+    layout cannot change the run. ``precision`` is "highest", "default" or
+    "mixed" (its first ``int(iterations·mixed_split)`` steps at "default",
+    then "highest"; all "highest" where a phase would be empty)."""
+    n_default = default_steps(iterations, precision, mixed_split)
     device = build.resolve_device(device)
     if model is None:
         model = problem.default_model(generator=generator(seed))
@@ -436,12 +503,13 @@ def train_heat_fused_result(problem, seed, iterations, batch_size=64,
     kw = dict(x_max=problem.x_max, t_max=problem.t_max, kappa=problem.kappa)
     p = pack_params(model)
 
-    def run_chunk(p, m, v, u, step0):
-        return heat_fused_train_chunk(model, p, m, v, u, step0, lrate, **kw)
+    def run_chunk(p, m, v, u, step0, precision):
+        return heat_fused_train_chunk(model, p, m, v, u, step0, lrate,
+                                      precision=precision, **kw)
 
     def draw(start, n):
         return step_uniforms(seed, start, n, batch_size, device)
 
     return train_in_chunks(model, run_chunk, draw, p, torch.zeros_like(p),
                            torch.zeros_like(p), iterations, chunk_size,
-                           device)
+                           device, n_default=n_default)

@@ -7,9 +7,10 @@ same launches. What a shape's graph holds pointers to stays alive between
 calls in a :class:`StepGraph`: the device argument block each call fills
 with one copy (p, m, v, the uniforms, the losses, lr, the schedule, the
 spec's numbers), the per-replica scratch, and the streams. The graphs are
-cached by shape, least recently used first out (``clear_graphs``), and
-every capture is timed in ``graph_stats``, apart from the chunks' own
-times.
+cached by shape and precision (a "mixed" run holds two: its "default"
+instances' and its "highest" ones'), least recently used first out
+(``clear_graphs``), and every capture is timed in ``graph_stats``, apart
+from the chunks' own times.
 
 Capture and replay never use the legacy default stream (which
 ``current_stream()`` often is): a call's launches run on its shape's side

@@ -91,9 +91,10 @@ def test_solve_is_reproducible_from_its_seed():
 
 @pytest.mark.parametrize("kwargs, error, match", [
     (dict(engine="fused", taps="pallas"), ValueError, "scan"),
-    (dict(engine="fused", precision="mixed"), NotImplementedError, "ROADMAP"),
-    (dict(engine="fused", precision="default"), NotImplementedError,
-     "ROADMAP"),
+    (dict(engine="fused", precision="mixed", mesh=object()),
+     NotImplementedError, "ROADMAP"),
+    (dict(engine="fused", precision="default", mesh=object()),
+     NotImplementedError, "ROADMAP"),
     (dict(engine="scan", ensemble=2), NotImplementedError, "ROADMAP"),
     (dict(engine="turbo"), ValueError, "unknown engine"),
     (dict(engine="fused", model=MLP(2, 1, 8, 1, "relu")), ValueError,

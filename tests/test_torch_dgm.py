@@ -411,7 +411,7 @@ def _unported(item):
     (lambda: solve("fitzhugh_nagumo", engine="scan", device="cpu",
                    causal_eps=0.0), *_unported("13")),
     (lambda: solve("fredholm", engine="fused", device="cpu", finetune=5,
-                   precision="default"), *_unported("7")),
+                   precision="bf16"), ValueError, "unknown precision"),
     (lambda: solve("fredholm", engine="fused", device="cpu", ensemble=4,
                    mesh=object()), *_unported("14")),
     (lambda: _fused_route(types.SimpleNamespace(name="fitzhugh_nagumo",

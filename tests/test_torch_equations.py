@@ -162,7 +162,9 @@ def test_routes():
 
 
 def test_ensemble_raises():
-    """A packed ensemble at a bf16 precision names its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+    """A packed ensemble at an unknown precision raises before it trains
+    (the bf16 precisions "default" and "mixed" are ported:
+    tests/test_torch_precision.py)."""
+    with pytest.raises(ValueError, match="unknown precision"):
         solve("wave", engine="fused", device="cpu", ensemble=4,
-              precision="mixed")
+              precision="fp16")

@@ -7,6 +7,7 @@ no JAX, so it runs on a machine that has only PyTorch:
 """
 
 import ctypes
+import math
 
 import numpy as np
 import pytest
@@ -55,6 +56,12 @@ from differential_equations_dnn_tpu_torch.train import (  # noqa: E402
 )
 
 pytestmark = pytest.mark.gpu
+
+# The step-math runs of a 300-step fused solve: its steps and the warm-up's
+# GRAPH_STEPS (the warm-up captures the CUDA graph its chunks replay and
+# replays it once, so that compile_time holds both and iters_per_sec
+# neither).
+RUNS_300 = 300 + fe.GRAPH_STEPS
 
 
 @pytest.fixture
@@ -236,7 +243,7 @@ def test_solve_routes_launch_their_kernels(cuda, name, schedule, route):
     # The step math runs inside the training kernel, once per step
     # (warm-up + 300); the one-step kernel is not on the path.
     runs = fe.fused_engine_chunk.step_math_runs
-    assert runs == (301 if route == "engine" else 0)
+    assert runs == (RUNS_300 if route == "engine" else 0)
     assert fe.engine_loss_grad.launches == 0
     assert res.loss_history[-1] < res.loss_history[0]
 
@@ -345,7 +352,7 @@ def test_solve_dgm_launches_its_kernel(cuda, name):
     fd.fused_dgm_chunk.step_math_runs = 0
     res = solve(name, engine="fused", iterations=300, lrate=1e-3)
     assert fd.fused_dgm_chunk.launches == 2
-    assert fd.fused_dgm_chunk.step_math_runs == 301
+    assert fd.fused_dgm_chunk.step_math_runs == RUNS_300
     assert (taylor_mlp.mlp_forward.launches, ft.heat_fused_train_chunk.launches,
             fe.fused_engine_chunk.launches, fd.dgm_loss_grad.launches) == \
         (0, 0, 0, 0)
@@ -421,7 +428,7 @@ def test_solve_ensemble_launches_the_packed_kernel(cuda, name, route):
         fn.launches = 0
     packed.step_math_runs = 0
     res = solve(name, engine="fused", iterations=300, ensemble=4)
-    assert packed.launches == 2 and packed.step_math_runs == 4 * 301
+    assert packed.launches == 2 and packed.step_math_runs == 4 * RUNS_300
     assert (fe.fused_engine_chunk.launches, fd.fused_dgm_chunk.launches,
             ft.heat_fused_train_chunk.launches) == (0, 0, 0)
     assert res.loss_history.shape == (300,)
@@ -1046,7 +1053,7 @@ def test_solve_last_specs_launch_the_engine(cuda, name):
     fe.fused_engine_chunk.step_math_runs = 0
     res = solve(name, engine="fused", iterations=300)
     assert taylor_mlp.mlp_forward.launches == 1
-    assert fe.fused_engine_chunk.step_math_runs == 301
+    assert fe.fused_engine_chunk.step_math_runs == RUNS_300
     assert np.all(np.isfinite(res.loss_history))
     assert res.loss_history[-20:].mean() < res.loss_history[:20].mean()
     if name == "inverse_heat":
@@ -1131,7 +1138,7 @@ def test_solve_hard_launches_the_engine(cuda, name):
     res = solve(name, constraint="hard", engine="fused", iterations=300,
                 schedule="constant")
     assert taylor_mlp.mlp_forward.launches == 1
-    assert fe.fused_engine_chunk.step_math_runs == 301
+    assert fe.fused_engine_chunk.step_math_runs == RUNS_300
     assert ft.heat_fused_train_chunk.launches == 0
     assert np.all(np.isfinite(res.loss_history))
     want = np.take(res.exact, 0, axis=1 if name in ("heat", "wave") else 0)
@@ -1264,10 +1271,10 @@ def test_solve_causal_launches_the_engine(cuda, ensemble):
                 ensemble=ensemble, **CAUSAL)
     assert taylor_mlp.mlp_forward.launches == 1
     if ensemble:
-        assert fe.fused_engine_packed_chunk.step_math_runs == 2 * 301
+        assert fe.fused_engine_packed_chunk.step_math_runs == 2 * RUNS_300
         assert fe.fused_engine_chunk.launches == 0
     else:
-        assert fe.fused_engine_chunk.step_math_runs == 301
+        assert fe.fused_engine_chunk.step_math_runs == RUNS_300
     assert np.all(np.isfinite(res.loss_history))
 
 
@@ -1365,3 +1372,349 @@ def test_scan_graph_refuses_an_uncapturable_step(cuda):
     cfg = TrainConfig(iterations=256, batch_size=8, verbose=False)
     with pytest.raises(RuntimeError, match="cannot be captured"):
         train(prob, 0, cfg, device=cuda)
+
+
+# ---------------------------------------------------------------------------
+# The "default" precision: the bf16 tensor-core instances (#1, #4-#7)
+# ---------------------------------------------------------------------------
+
+# Tensor by tensor (w_in, b_in, w_h, ...: the small input and output
+# tensors too, which a norm of the whole flat gradient would hardly see),
+# by relative L2 norms. Both the kernel and the plain version round the same
+# operands to bf16, but they compute the operands of later products an fp32
+# ulp apart, and such an operand can round to the next bf16 value (a 2^-8
+# change). One step: each tensor's gradient within BF16_STEP_TOL of the
+# plain version's and at least BF16_SEPARATION times as far from the
+# kernel's own "highest" (on the H100: at most 1.04e-3, inverse_heat's
+# b_in; at least 8.6 times, FitzHugh–Nagumo's Wh).
+BF16_STEP_TOL = 2e-3
+BF16_SEPARATION = 4
+# 50 steps: each tensor's update p_K − p_0, where Adam carries the flips
+# forward: within BF16_CHUNK_TOL of the plain version's and at least
+# BF16_CHUNK_SEPARATION times as far from "highest" (on the H100: at most
+# 1.05e-2 from the plain version, causal advection's w_in; at least 2.66
+# times as far from "highest", FitzHugh–Nagumo's Uh). A tensor of fewer than
+# BF16_CHUNK_ENTRIES entries (the output bias, O ≤ 2 entries; inverse_heat's
+# κ̂) is held by the one-step check alone: Adam moves each entry by about lr
+# a step whatever its gradient, so its 50-step update hardly depends on the
+# precision.
+BF16_CHUNK_TOL = 2e-2
+BF16_CHUNK_SEPARATION = 2
+BF16_CHUNK_ENTRIES = 8
+
+
+def _rel(a, b):
+    """|a − b| / |b|; 0 where both are zero."""
+    diff, ref = float((a - b).norm()), float(b.norm())
+    return diff / ref if ref else (0.0 if diff == 0 else math.inf)
+
+
+def _check_by_tensor(split, got, plain, highest, tol, separation,
+                     min_entries=1):
+    """Each tensor of split(flat) of at least min_entries entries: within
+    tol of the plain version's and at least ``separation`` times as far
+    from the kernel's own "highest"."""
+    got, plain, highest = split(got), split(plain), split(highest)
+    readings = {i: (_rel(got[i], plain[i]), _rel(got[i], highest[i]))
+                for i in range(len(got)) if got[i].numel() >= min_entries}
+    print("relative L2 by tensor, against the plain version / against "
+          "\"highest\": " + ", ".join(f"{i}: {m:.3g} / {h:.3g}"
+                                      for i, (m, h) in readings.items()))
+    assert readings and all(m <= tol and separation * m < h
+                            for m, h in readings.values()), readings
+
+
+def _assert_bf16_step(kernel, plain, split):
+    """kernel(precision), plain(precision) -> (loss, flat gradient);
+    split(flat) -> the trainable tensors."""
+    (lkd, gkd), (lkh, gkh) = kernel("default"), kernel("highest")
+    lpd, gpd = plain("default")
+    torch.testing.assert_close(lkd, lpd, rtol=1e-3, atol=0)
+    _check_by_tensor(split, gkd, gpd, gkh, BF16_STEP_TOL, BF16_SEPARATION)
+
+
+def _assert_bf16_chunk(p0, kernel, plain, split):
+    """kernel(precision), plain(precision) -> (p, m, v, losses): finite
+    losses, and each tensor's update of BF16_CHUNK_ENTRIES entries or more
+    within
+    BF16_CHUNK_TOL of the plain version's and BF16_CHUNK_SEPARATION times
+    as far from the kernel's own "highest" run."""
+    pk, _, _, lk = kernel("default")
+    ph = kernel("highest")[0]
+    pp = plain("default")[0]
+    assert torch.isfinite(lk).all()
+    _check_by_tensor(split, pk - p0, pp - p0, ph - p0, BF16_CHUNK_TOL,
+                     BF16_CHUNK_SEPARATION, BF16_CHUNK_ENTRIES)
+
+
+@pytest.mark.parametrize("H", [128, 40, 100])
+def test_bf16_heat_kernel_matches_plain(cuda, H):
+    """Kernel #1 at "default" (B = 64, L = 3): one step and a 50-step
+    chunk against the plain version at "default" (tolerances above), at
+    heat's width and at widths whose mma tiles are partial."""
+    model = MLP(2, 1, H, 3, "tanh", generator=generator(1), device=cuda)
+    p = ft.pack_params(model)
+    u = step_uniforms(0, 0, 50, 64, cuda)
+    split = lambda flat: ft.unpack_params(model, flat)  # noqa: E731
+    _assert_bf16_step(
+        lambda pr: ft.heat_loss_grad(model, p, u[0], precision=pr),
+        lambda pr: ft.heat_loss_grad_plain(model, p, u[0], precision=pr),
+        split)
+    z = torch.zeros_like(p)
+    _assert_bf16_chunk(
+        p, lambda pr: ft.heat_fused_train_chunk(model, p, z, z, u, 0, 1e-4,
+                                                precision=pr),
+        lambda pr: ft.heat_fused_train_chunk_plain(model, p, z, z, u, 0,
+                                                   1e-4, precision=pr),
+        split)
+
+
+# (equation, its arguments, hidden width or None for the default model,
+# batch or None for the default, whether to check a 50-step chunk).
+BF16_ENGINE_CASES = {
+    "heat2d": ("heat2d", {}, None, None, True),
+    "heat2d-H40": ("heat2d", {}, 40, None, True),
+    "heat2d-H100": ("heat2d", {}, 100, None, True),
+    "wave": ("wave", {}, None, None, True),
+    "volterra": ("volterra", {}, None, None, True),
+    "uat": ("uat", {}, None, None, False),
+    "inverse_heat": ("inverse_heat", {}, None, None, False),
+    "causal-B128": ("advection", CAUSAL, None, 128, True),
+    # At B = 100 the 50-step chunk is chaotic: on the H100 the kernel's
+    # update lay 0.45 (w_in) from the plain version's and 0.26 from its own
+    # "highest", and the plain chunk moves about as far under a one-ulp
+    # change of its start; its chunk is held bit for bit by
+    # test_bf16_chunks_are_bit_identical, its products by the one step.
+    "causal-B100": ("advection", CAUSAL, None, 100, False),
+    **{f"hard-{n}": (n, {"constraint": "hard"}, None, None, True)
+       for n in sorted(fe.HARD_SPECS)}}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_ENGINE_CASES))
+def test_bf16_engine_kernels_match_plain(cuda, case):
+    """#6 and #4 at "default" at the spec's default shapes (heat2d also at
+    widths of partial mma tiles; causal advection also at B = 100, not a
+    multiple of the 32 lanes; every hard spec): one step, and but for uat
+    and inverse_heat a 50-step chunk, against the plain versions at
+    "default"."""
+    name, args, hidden, batch, chunk = BF16_ENGINE_CASES[case]
+    prob = PROBLEMS[name](**args)
+    spec = fe.spec_for(prob)
+    d = prob.defaults
+    B = batch or d.batch_size
+    model = (prob.default_model(generator=generator(1), device=cuda)
+             if hidden is None else
+             MLP(spec.input_dim, 1, hidden, 3, "tanh", generator=generator(1),
+                 device=cuda))
+    const = spec.make_const(B, cuda)
+    p = fe.pack_state(spec, model)
+    u = step_uniforms(0, 100, 50, B, cuda, spec.n_uniform)
+    split = lambda flat: fe.unpack_state(spec, model, flat)  # noqa: E731
+    _assert_bf16_step(
+        lambda pr: fe.engine_loss_grad(spec, model, p, u[0], const,
+                                       precision=pr),
+        lambda pr: fe.engine_loss_grad_plain(spec, model, p, u[0], const,
+                                             precision=pr), split)
+    if chunk:
+        z = torch.zeros_like(p)
+        kw = dict(schedule=d.schedule, total_steps=200, const=const)
+        _assert_bf16_chunk(
+            p, lambda pr: fe.fused_engine_chunk(spec, model, p, z, z, u, 100,
+                                                d.lrate, precision=pr, **kw),
+            lambda pr: fe.fused_engine_chunk_plain(
+                spec, model, p, z, z, u, 100, d.lrate, precision=pr, **kw),
+            split)
+
+
+@pytest.mark.parametrize("name", ["fitzhugh_nagumo", "fredholm"])
+def test_bf16_dgm_kernels_match_plain(cuda, name):
+    """#7 and #4 at the DGM layout at "default": one step and a 50-step
+    cosine chunk against the plain versions at "default"."""
+    prob = PROBLEMS[name]()
+    d = prob.defaults
+    spec = fd.spec_for(prob, d.batch_size)
+    const = fd.const_for(spec, prob, d.batch_size, cuda)
+    model = prob.default_model(generator=generator(1), device=cuda)
+    p = fd.pack_dgm(model)
+    u = step_uniforms(0, 100, 50, d.batch_size, cuda, spec.n_uniform)
+    split = lambda flat: fd.unpack_dgm(model, flat)  # noqa: E731
+    _assert_bf16_step(
+        lambda pr: fd.dgm_loss_grad(spec, model, p, u[0], const,
+                                    precision=pr),
+        lambda pr: fd.dgm_loss_grad_plain(spec, model, p, u[0], const,
+                                          precision=pr), split)
+    z = torch.zeros_like(p)
+    kw = dict(const=const, schedule="cosine", total_steps=200)
+    _assert_bf16_chunk(
+        p, lambda pr: fd.fused_dgm_chunk(spec, model, p, z, z, u, 100,
+                                         d.lrate, precision=pr, **kw),
+        lambda pr: fd.fused_dgm_chunk_plain(spec, model, p, z, z, u, 100,
+                                            d.lrate, precision=pr, **kw),
+        split)
+
+
+def _bf16_chunks(run, state, u, step0):
+    """run(state, u, step0) over u: uncut (graph replays and the steps left
+    over), cut at 53, and one call per step (no graph)."""
+    uncut = run(state, u, step0)
+    a = run(state, u[:53], step0)
+    cut = run(a[:3], u[53:], step0 + 53)
+    single, losses = state, []
+    for k in range(u.shape[0]):
+        *single, loss = run(single, u[k:k + 1], step0 + k)
+        losses.append(loss)
+    return uncut, (cut[:3], torch.cat([a[3], cut[3]], -1)), (
+        single, torch.cat(losses, -1))
+
+
+@pytest.mark.parametrize("route", ["heat", "heat2d", "causal-B100",
+                                   "fitzhugh_nagumo"])
+def test_bf16_chunks_are_bit_identical(cuda, route):
+    """At "default" a 120-step chunk (two graph replays and 20 steps
+    launched from C) equals the run cut at 53 and the 120 steps run one
+    call per step, bit for bit (causal advection at B = 100, not a multiple
+    of the 32 lanes)."""
+    if route == "heat":
+        model = Heat1D().default_model(generator=generator(0), device=cuda)
+        p = ft.pack_params(model)
+        u = step_uniforms(0, 100, 120, 64, cuda)
+
+        def run(state, uu, step0):
+            return ft.heat_fused_train_chunk(model, *state, uu, step0, 1e-4,
+                                             precision="default")
+    elif route == "heat2d":
+        spec, model, pp, u, lr, kw = _engine_case(cuda, "heat2d", None, 120)
+        p = pp[0]
+
+        def run(state, uu, step0):
+            return fe.fused_engine_chunk(spec, model, *state, uu, step0, lr,
+                                         precision="default", **kw)
+    elif route == "causal-B100":
+        prob = PROBLEMS["advection"](**CAUSAL)
+        spec = fe.spec_for(prob)
+        model = prob.default_model(generator=generator(0), device=cuda)
+        p = fe.pack_state(spec, model)
+        u = step_uniforms(0, 100, 120, 100, cuda, spec.n_uniform)
+
+        def run(state, uu, step0):
+            return fe.fused_engine_chunk(spec, model, *state, uu, step0,
+                                         prob.defaults.lrate,
+                                         precision="default",
+                                         schedule="cosine", total_steps=300)
+    else:
+        prob = PROBLEMS[route]()
+        d = prob.defaults
+        spec = fd.spec_for(prob, d.batch_size)
+        model = prob.default_model(generator=generator(0), device=cuda)
+        p = fd.pack_dgm(model)
+        u = step_uniforms(0, 100, 120, d.batch_size, cuda, 1)
+
+        def run(state, uu, step0):
+            return fd.fused_dgm_chunk(spec, model, *state, uu, step0,
+                                      d.lrate, precision="default",
+                                      schedule="cosine", total_steps=300)
+    z = torch.zeros_like(p)
+    uncut, cut, single = _bf16_chunks(run, (p, z, z), u, 100)
+    for state, losses in (cut, single):
+        assert torch.equal(losses, uncut[3])
+        assert all(torch.equal(a, b) for a, b in zip(state, uncut[:3]))
+
+
+@pytest.mark.parametrize("name, n_replicas", [("wave", 4),
+                                              ("fitzhugh_nagumo", 4)])
+def test_bf16_packed_equals_single(cuda, name, n_replicas):
+    """At "default" packed replica r (#5) equals the single chunk on its
+    state bit for bit (53 steps: a graph replay and three steps from C)."""
+    if name in fe.SPECS:
+        spec, model, p, u, lr, kw = _engine_case(cuda, name, n_replicas, 53)
+        packed, single = fe.fused_engine_packed_chunk, fe.fused_engine_chunk
+    else:
+        prob = PROBLEMS[name]()
+        d = prob.defaults
+        spec = fd.spec_for(prob, d.batch_size)
+        models = [prob.default_model(generator=replica_generator(0, r),
+                                     device=cuda) for r in range(n_replicas)]
+        p = engine_core.stack_replicas([fd.pack_dgm(m) for m in models])
+        model, lr = models[0], d.lrate
+        u = step_uniforms(0, 100, 53, d.batch_size, cuda, 1)
+        kw = dict(schedule="cosine", total_steps=300)
+        packed, single = fd.fused_dgm_packed_chunk, fd.fused_dgm_chunk
+    z = torch.zeros_like(p)
+    pk, mk, vk, lk = packed(spec, model, p, z, z, u, 100, lr, n_replicas,
+                            precision="default", **kw)
+    for r in range(n_replicas):
+        p1, m1, v1, l1 = single(spec, model, p[r].contiguous(), z[r].clone(),
+                                z[r].clone(), u, 100, lr,
+                                precision="default", **kw)
+        assert torch.equal(l1, lk[r]) and torch.equal(p1, pk[r])
+        assert torch.equal(m1, mk[r]) and torch.equal(v1, vk[r])
+
+
+@pytest.mark.parametrize("route", ["heat", "heat2d", "fitzhugh_nagumo"])
+def test_bf16_mixed_is_default_then_highest(cuda, route):
+    """A "mixed" run of 200 steps (130 at "default": the first chunk two
+    graph replays and 30 steps from C) equals its chunks run by hand, the
+    first 130 steps at "default" and the rest at "highest" on the same
+    state, bit for bit; its first 130 losses equal a "default" run's."""
+    K = 200
+    n1 = int(K * 0.65)
+    kw = dict(batch_size=64, lrate=1e-3, device=cuda)
+    if route == "heat":
+        prob = Heat1D()
+
+        def train(precision):
+            model = prob.default_model(generator=generator(0))
+            return model, ft.train_heat_fused_result(
+                prob, 0, K, model=model, precision=precision, **kw)
+
+        def chunk(model, state, u, step0, precision):
+            return ft.heat_fused_train_chunk(model, *state, u, step0, 1e-3,
+                                             precision=precision)
+        pack = ft.pack_params
+        n_u = 2
+    elif route == "heat2d":
+        prob = PROBLEMS["heat2d"]()
+        spec = fe.spec_for(prob)
+
+        def train(precision):
+            model = prob.default_model(generator=generator(0))
+            return model, fe.train_fused_result(
+                prob, 0, K, model=model, precision=precision,
+                schedule="cosine", **kw)
+
+        def chunk(model, state, u, step0, precision):
+            return fe.fused_engine_chunk(spec, model, *state, u, step0, 1e-3,
+                                         precision=precision,
+                                         schedule="cosine", total_steps=K,
+                                         const=None)
+        pack = ft.pack_params
+        n_u = spec.n_uniform
+    else:
+        prob = PROBLEMS[route]()
+        spec = fd.spec_for(prob, 64)
+
+        def train(precision):
+            model = prob.default_model(generator=generator(0))
+            return model, fd.train_dgm_fused_result(
+                prob, 0, K, model=model, precision=precision, **kw)
+
+        def chunk(model, state, u, step0, precision):
+            return fd.fused_dgm_chunk(spec, model, *state, u, step0, 1e-3,
+                                      precision=precision,
+                                      schedule=prob.defaults.schedule,
+                                      total_steps=K)
+        pack = fd.pack_dgm
+        n_u = 1
+    fresh = prob.default_model(generator=generator(0), device=cuda)
+    p = pack(fresh)
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, 0, K, 64, cuda, n_u)
+    a = chunk(fresh, (p, z, z), u[:n1], 0, "default")
+    b = chunk(fresh, a[:3], u[n1:], n1, "highest")
+    model, mixed = train("mixed")
+    _, default = train("default")
+    np.testing.assert_array_equal(mixed.loss_history,
+                                  torch.cat([a[3], b[3]]).cpu().numpy())
+    np.testing.assert_array_equal(mixed.loss_history[:n1],
+                                  default.loss_history[:n1])
+    assert torch.equal(pack(model), b[0])
