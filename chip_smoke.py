@@ -286,6 +286,69 @@ PRECISION_SOLVES = [("heat", {"precision": "mixed"}, 0.05),
                      0.0134)]
 
 
+# The sweep mode (the JAX kernels' run-time batch mask, step budget
+# and trial horizon of #4, the per-slot vectors of #5, the masked losses of
+# #6 and #7). Phase 3 holds each masked and gated chunk against its plain
+# version over CHUNK_STEPS steps from STEP0 under a cosine schedule, at
+# "highest" (losses rtol 1e-4, parameters rtol 1e-4 plus 2·lr, as the chunk
+# checks above; the losses past the budget 0 in both) and at "default"
+# (each tensor's update within BF16_CHUNK_TOL of the plain version's and
+# BF16_CHUNK_SEPARATION times as far from "highest"): (route, equation,
+# problem arguments, tile B, masked batch bs, budget, horizons). Tile 512
+# is the sweep phase's: its heat and Fredholm trials of bs 257-511 (the
+# best heat TPE trial's bs 485, Fredholm's 370) run there, at other layer
+# and weight-gradient instances than tile 64's.
+MASKED_CHECKS = [
+    ("engine", "heat", {}, 64, 37, 30, ("trial", "fixed")),
+    ("engine", "heat", {}, 512, 485, 30, ("trial", "fixed")),
+    ("engine", "inverse_heat", {}, 128, 77, CHUNK_STEPS, ("trial",)),
+    ("engine", "volterra", {}, 64, 41, 40, ("trial",)),
+    ("dgm", "fitzhugh_nagumo", {"causal_eps": 0.0}, 256, 150, 30,
+     ("trial",)),
+    ("dgm", "fredholm", {"k": 16}, 64, 37, 30, ("trial",)),
+    ("dgm", "fredholm", {"k": 16}, 512, 370, 30, ("trial",)),
+]
+# The packed per-slot checks: (route, equation, problem arguments, tile,
+# per-slot lr, bs (None: no row mask), budget). A budget of 0 is a pruned
+# slot, which must come back as it went in with losses 0; every slot must
+# equal the single chunk of its values bit for bit. Heat at tile 512 with
+# 5 slots is a q = 5 TPE round's call (its halving rungs of 27 slots take
+# the same instances); FitzHugh–Nagumo at tile 100 with 9 slots and no
+# mask is its halving rungs' call (lr-only: 9, then 3, then 1 live).
+PER_SLOT_CHECKS = [
+    ("engine", "heat", {}, 64, (1e-3, 3e-3, 1e-2, 1e-4), (64, 37, 1, 20),
+     (50, 30, 0, 7)),
+    ("engine", "heat", {}, 512, (1e-3, 3e-4, 3e-3, 1e-2, 1e-4),
+     (485, 429, 348, 300, 1), (50, 30, 45, 7, 0)),
+    ("dgm", "fitzhugh_nagumo", {"causal_eps": 0.0}, 256, (1e-4, 1e-3, 3e-3),
+     (256, 100, 17), (50, 0, 23)),
+    ("dgm", "fitzhugh_nagumo", {"causal_eps": 0.0}, 100,
+     (1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 2e-4, 5e-4, 2e-3, 5e-3), None,
+     (50, 0, 0, 50, 0, 0, 30, 0, 0)),
+    ("dgm", "fredholm", {"k": 16}, 64, (3e-3, 1e-3, 1e-2), (64, 37, 9),
+     (50, 0, 23)),
+]
+# A halving rung's cost against its live slots: heat at tile 64, RUNG_SLOTS
+# slots of which the first k train RUNG_STEPS steps (the rest pruned).
+RUNG_SLOTS, RUNG_LIVE, RUNG_STEPS = 27, (27, 9, 3, 1), 500
+# The sweep phase (the fused sweep tier, sweep/search.py) on the reference's
+# slice (optimize_heat_ray.py:173-181: heat, 2 -> 128x3 -> 1 tanh, 10
+# samples, 5 concurrent): n_iters ~ randint[1000, SWEEP_MAX_ITERS), cut from
+# the reference's 50 000 to keep the smoke's time; halving over 27 heat
+# trials (eta 3, budgets 500 to 15 000); FitzHugh–Nagumo's DGM (lr only,
+# causal_eps 0) over 9 trials to 5 000 steps, cut from its 150 000; Fredholm
+# (gauss, k = 16) on the full space at its 3 000-step budget.
+SWEEP_SEED = 0
+SWEEP_MAX_ITERS = 10_000
+HEAT_HALVING = dict(num_samples=27, eta=3, min_budget=500,
+                    max_budget=15_000)
+FN_HALVING = dict(num_samples=9, eta=3, min_budget=500, max_budget=5_000)
+FREDHOLM_TPE = dict(num_samples=4, max_iters=3_000)
+# Check (a): a trial's score against a standalone unmasked chunk of its
+# config on the first bs rows of its tile's stream (the chunk tolerance).
+SWEEP_RTOL = 1e-4
+
+
 def cuda_ms(fn, reps=REPS):
     """Mean milliseconds per call of ``fn`` on the card, after a warm-up."""
     import torch
@@ -1401,6 +1464,319 @@ def check_bf16_case(route, name, N):
     return rows
 
 
+def masked_setup(route, name, extra, tile, gen_seeds):
+    """What a sweep-mode check needs at one tile: the problem, spec, const,
+    models from generator(1) (``gen_seeds`` None) or replica_generator(0,
+    r), the single and packed wrappers and plain versions, the pack and
+    unpack functions and the bound's step flops and operand counts."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import (
+        generator,
+        replica_generator,
+    )
+    from differential_equations_dnn_tpu_torch.equations import PROBLEMS
+    from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
+    from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
+
+    dev = torch.device("cuda")
+    prob = PROBLEMS[name](**extra)
+    gens = ([generator(1)] if gen_seeds is None
+            else [replica_generator(0, r) for r in gen_seeds])
+    models = [prob.default_model(generator=g, device=dev) for g in gens]
+    model = models[0]
+    c = dict(route=route, name=name, prob=prob, model=model, models=models,
+             N=1, lr=prob.defaults.lrate, B=tile)
+    if route == "engine":
+        spec = fe.spec_for(prob)
+        D, H, L = spec.dims(model)
+        c.update(spec=spec, const=spec.make_const(tile, dev), D=D, H=H, L=L,
+                 R=fe._n_rows(spec.groups), U=spec.n_uniform,
+                 pack=lambda m: fe.pack_state(spec, m),
+                 unpack=lambda x: fe.unpack_state(spec, model, x),
+                 fns=(fe.fused_engine_chunk, fe.fused_engine_chunk_plain,
+                      fe.fused_engine_packed_chunk,
+                      fe.fused_engine_packed_chunk_plain),
+                 source="engine_train.cu",
+                 n=n_params(D, H, L) + sum(
+                     math.prod(s) for s in spec.extra_shapes))
+        c["flops"] = lambda bs: step_flops(c["R"], bs, D, H, L)
+    else:
+        spec = fd.spec_for(prob, tile)
+        H, L, O = model.hidden_size, model.num_layers, model.output_dim
+        R = fd._layout(spec)[0]
+        k = getattr(prob, "k", 0) if name == "fredholm" else 0
+        c.update(spec=spec, const=fd.const_for(spec, prob, tile, dev), H=H,
+                 L=L, O=O, R=R, U=spec.n_uniform, pack=fd.pack_dgm,
+                 unpack=lambda x: fd.unpack_dgm(model, x),
+                 fns=(fd.fused_dgm_chunk, fd.fused_dgm_chunk_plain,
+                      fd.fused_dgm_packed_chunk,
+                      fd.fused_dgm_packed_chunk_plain),
+                 source="dgm_train.cu", n=dgm_n_params(H, L, O))
+        # The rows this run's data needs: the bs live points' R streams, or
+        # Fredholm's bs points and its k nodes.
+        c["flops"] = lambda bs: (dgm_step_flops(1, bs + k, H, L, O) if k
+                                 else dgm_step_flops(R, bs, H, L, O))
+    c["n_const"] = 0 if c["const"] is None else c["const"].numel()
+    return c
+
+
+def masked_bound(c, bss, budgets, K):
+    """The least time of a sweep-mode call (fp32): what the data needs, each
+    slot's budget of steps at its own bs rows (None: the tile's) plus Adam,
+    p, m, v read and written once per slot, the uniforms of the steps run
+    and the losses."""
+    bss = [c["B"]] * len(budgets) if bss is None else bss
+    flops = sum(n * (c["flops"](bs) + 12 * c["n"])
+                for bs, n in zip(bss, budgets))
+    nbytes = 4 * (6 * c["n"] * len(bss) + K * c["B"] * c["U"]
+                  + K * len(bss) + c["n_const"])
+    return bound(flops, nbytes)
+
+
+def check_masked_case(route, name, extra, tile, bs, budget, horizons):
+    """One MASKED_CHECKS case: the masked and gated chunk against its plain
+    version at "highest" for each horizon and at "default" (trial
+    horizon). Returns (the readings of the first horizon at "highest",
+    kernel ms, plain ms) for the JSON row."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import step_uniforms
+
+    c = masked_setup(route, name, extra, tile, None)
+    single, plain = c["fns"][:2]
+    spec, model, lr = c["spec"], c["model"], c["lr"]
+    p = c["pack"](model)
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, STEP0, CHUNK_STEPS, tile, p.device, c["U"])
+    label = f"{name} [tile {tile}, bs {bs}, budget {budget} of {CHUNK_STEPS}]"
+    first = None
+    for horizon in horizons:
+        kw = dict(schedule="cosine", total_steps=HORIZON, const=c["const"],
+                  runtime_bs=bs, runtime_steps=budget,
+                  trial_horizon=horizon == "trial")
+
+        def run(fn, pr="highest", kw=kw):
+            return fn(spec, model, p, z, z, u, STEP0, lr, precision=pr, **kw)
+
+        pk, mk, vk, lk = run(single)
+        pp, mp, vp, lp = run(plain)
+        check_close(f"{label} {horizon} losses", lk[:budget], lp[:budget],
+                    rtol=1e-4, atol=0.0)
+        if lk[budget:].any() or lp[budget:].any():
+            raise AssertionError(f"{label}: a loss past the budget is not 0")
+        check_close(f"{label} {horizon} params", pk, pp, rtol=1e-4,
+                    atol=2 * lr)
+        err = max(max_abs(lk, lp), max_abs(pk, pp))
+        print(f"{label} {horizon} horizon: max|dloss| {max_abs(lk, lp):.3g},"
+              f" max|dparam| {max_abs(pk, pp):.3g}")
+        if first is None:
+            ms = cuda_ms(lambda: run(single))
+            plain_ms = cuda_ms(lambda: run(plain), reps=PLAIN_REPS)
+            first = (err, ms, plain_ms, c)
+        if horizon == "trial":
+            pd, _, _, _ = run(single, "default")
+            ppd, _, _, _ = run(plain, "default")
+            check_by_tensor(f"{label} \"default\"", "the chunk's update",
+                            bf16_readings(c, pd - p, ppd - p, pk - p),
+                            BF16_CHUNK_TOL, BF16_CHUNK_SEPARATION,
+                            BF16_CHUNK_ENTRIES)
+    return first
+
+
+def masked_steady(c, bs):
+    """µs per step of STEADY_STEPS-step chunks at the tile, masked at bs
+    (every step live) and unmasked, timed in turns (unmasked, masked,
+    masked, unmasked)."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import step_uniforms
+
+    single = c["fns"][0]
+    p = c["pack"](c["model"])
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, STEP0, STEADY_STEPS, c["B"], p.device, c["U"])
+    kw = dict(schedule="cosine", total_steps=HORIZON, const=c["const"])
+    calls = {
+        "unmasked": lambda: single(c["spec"], c["model"], p, z, z, u, STEP0,
+                                   c["lr"], **kw),
+        "masked": lambda: single(c["spec"], c["model"], p, z, z, u, STEP0,
+                                 c["lr"], runtime_bs=bs,
+                                 runtime_steps=STEADY_STEPS, **kw)}
+    times = {}
+    for what in ("unmasked", "masked", "masked", "unmasked"):
+        times.setdefault(what, []).append(
+            cuda_ms(calls[what], reps=STEADY_REPS) / STEADY_STEPS * 1e3)
+    us = {k: sum(v) / len(v) for k, v in times.items()}
+    cost = 100 * (us["masked"] / us["unmasked"] - 1)
+    print(f"{c['name']} steady state at tile {c['B']} [K={STEADY_STEPS}], "
+          f"in turns: unmasked " + ", ".join(f"{t:.2f}" for t in
+                                            times["unmasked"])
+          + " us/step; masked at bs " + str(bs) + " "
+          + ", ".join(f"{t:.2f}" for t in times["masked"])
+          + f" us/step: the mask costs {cost:.2f} %")
+    return us
+
+
+def check_per_slot_case(route, name, extra, tile, lrs, bss, budgets):
+    """One PER_SLOT_CHECKS case: the packed call with per-slot vectors
+    against its plain version (as the masked chunk), a pruned slot's state
+    bit for bit as it went in with losses 0, and every slot bit for bit
+    against the single chunk of its values (masked, unless bss is None).
+    Returns (max error, ms, plain ms, the case) for the JSON row."""
+    import numpy as np
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import step_uniforms
+    from differential_equations_dnn_tpu_torch.kernels import engine_core
+
+    N = len(lrs)
+    c = masked_setup(route, name, extra, tile, range(N))
+    single, _, packed, plain = c["fns"]
+    spec, model = c["spec"], c["model"]
+    p = engine_core.stack_replicas([c["pack"](m) for m in c["models"]])
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, STEP0, CHUNK_STEPS, tile, p.device, c["U"])
+    kw = dict(schedule="cosine", total_steps=HORIZON, const=c["const"],
+              lr_vec=np.asarray(lrs, np.float32),
+              bs_vec=None if bss is None else np.asarray(bss),
+              steps_vec=np.asarray(budgets), mask_rows=bss is not None)
+
+    def run(fn):
+        return fn(spec, model, p, z, z, u, STEP0, 0.0, N, **kw)
+
+    pk, mk, vk, lk = run(packed)
+    (pp, _, _, lp), plain_ms = timed_once(lambda: run(plain))
+    label = (f"{name} per-slot [N={N}, tile {tile}, lr {lrs}, bs {bss}, "
+             f"budgets {budgets}]")
+    check_close(f"{label} losses", lk, lp, rtol=1e-4, atol=0.0)
+    check_close(f"{label} params", pk, pp, rtol=1e-4, atol=2 * max(lrs))
+    for r in range(N):
+        p1, m1, v1, l1 = single(spec, model, p[r].contiguous(),
+                                z[r].clone(), z[r].clone(), u, STEP0,
+                                float(np.float32(lrs[r])),
+                                schedule="cosine", total_steps=HORIZON,
+                                const=c["const"],
+                                runtime_bs=None if bss is None else bss[r],
+                                runtime_steps=budgets[r])
+        if not (torch.equal(l1, lk[r]) and torch.equal(p1, pk[r])
+                and torch.equal(m1, mk[r]) and torch.equal(v1, vk[r])):
+            raise AssertionError(f"{label}: slot {r} differs from the single "
+                                 f"chunk")
+        if budgets[r] == 0 and not (torch.equal(pk[r], p[r])
+                                    and not lk[r].any()):
+            raise AssertionError(f"{label}: pruned slot {r} changed")
+    ms = cuda_ms(lambda: run(packed))
+    print(f"{label}: max|dloss| {max_abs(lk, lp):.3g}, max|dparam| "
+          f"{max_abs(pk, pp):.3g}; every slot equals the single chunk of its "
+          f"values bit for bit, the pruned ones their input; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return max(max_abs(lk, lp), max_abs(pk, pp)), ms, plain_ms, c
+
+
+def rung_costs():
+    """A packed call of RUNG_SLOTS heat slots at tile 64 with the first k
+    slots live for RUNG_STEPS steps and the rest pruned, for each k of
+    RUNG_LIVE, beside the unmasked packed call of the same N: ms per call
+    and µs per live slot-step."""
+    import numpy as np
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import step_uniforms
+    from differential_equations_dnn_tpu_torch.kernels import engine_core
+
+    N = RUNG_SLOTS
+    c = masked_setup("engine", "heat", {}, 64, range(N))
+    _, _, packed, _ = c["fns"]
+    p = engine_core.stack_replicas([c["pack"](m) for m in c["models"]])
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, 0, RUNG_STEPS, 64, p.device, c["U"])
+    out = {}
+
+    def call(k=None):
+        kw = {} if k is None else dict(
+            lr_vec=np.full(N, 1e-3, np.float32), bs_vec=np.full(N, 64),
+            steps_vec=np.asarray([RUNG_STEPS] * k + [0] * (N - k)),
+            mask_rows=True)
+        return packed(c["spec"], c["model"], p, z, z, u, 0, 1e-3, N,
+                      schedule="constant", const=None, **kw)
+
+    out["unmasked"] = cuda_ms(call, reps=STEADY_REPS)
+    for k in RUNG_LIVE:
+        out[k] = cuda_ms(lambda: call(k), reps=STEADY_REPS)
+    full = out["unmasked"] / (N * RUNG_STEPS) * 1e3
+    print(f"heat rung of {N} slots at tile 64, {RUNG_STEPS} steps: unmasked "
+          f"{out['unmasked']:.3f} ms ({full:.2f} us per slot-step); "
+          + "; ".join(f"{k} live {out[k]:.3f} ms ("
+                      f"{out[k] / (k * RUNG_STEPS) * 1e3:.2f} us per live "
+                      f"slot-step)" for k in RUNG_LIVE))
+    return out
+
+
+def check_masked_kernels():
+    """The sweep mode on the card: MASKED_CHECKS, PER_SLOT_CHECKS,
+    the mask's cost per step and a rung's cost against its live slots.
+    Returns the rows of the kernels the sweep phase drives in their sweep
+    mode, each measured at a shape (tile B, replicas N) the sweep phase
+    launches it at, whose launches it counts (main()): the masked #4
+    (fused_engine_chunk[masked], heat at tile 512, the heat TPE's q = 1
+    trial of bs 370), the per-slot #5 (fused_engine_packed_chunk[per-slot],
+    heat at tile 512 with 5 slots, a q = 5 round), the masked #7
+    (fused_dgm_chunk[masked], Fredholm at tile 512) and the per-slot #5
+    around #7 (fused_dgm_packed_chunk[per-slot], FitzHugh–Nagumo's halving
+    rungs: tile 100, 9 slots); the other cases are printed."""
+    readings = {}
+    for route, name, extra, tile, bs, budget, horizons in MASKED_CHECKS:
+        readings[name, tile] = check_masked_case(
+            route, name, extra, tile, bs, budget, horizons) + (bs, budget)
+    steady = {key: masked_steady(readings[key][3], readings[key][4])
+              for key in (("heat", 64), ("heat", 512),
+                          ("fitzhugh_nagumo", 256))}
+    slots = {(case[1], case[3]): check_per_slot_case(*case)
+             for case in PER_SLOT_CHECKS}
+    rung = rung_costs()
+
+    def masked_row(key, kernel, wrapper, replaces):
+        err, ms, plain_ms, c, bs, budget = readings[key]
+        return dict(
+            name=f"{wrapper}[masked]", kernel=kernel, route="cuda",
+            source=f"{PKG}/csrc/{c['source']}",
+            replaces=f"{JAX_KERNELS}/{replaces}",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+            spec=key[0], tile=c["B"], n_replicas=1, bs=bs, budget=budget,
+            steps=CHUNK_STEPS,
+            **masked_bound(c, [bs], [budget], CHUNK_STEPS))
+
+    engine = masked_row(("heat", 512), "4 masked", "fused_engine_chunk",
+                        "engine_core.py:48")
+    engine.update(steady_us_per_step={
+        f"tile {key[1]}": steady[key] for key in (("heat", 64),
+                                                  ("heat", 512))})
+    dgm = masked_row(("fredholm", 512), "7 masked", "fused_dgm_chunk",
+                     "fused_dgm.py:197")
+    dgm.update(fitzhugh_nagumo_steady_us_per_step=steady[
+        "fitzhugh_nagumo", 256])
+
+    def slot_row(key, wrapper):
+        route, name, _, tile, lrs, bss, budgets = next(
+            case for case in PER_SLOT_CHECKS if (case[1], case[3]) == key)
+        err, ms, plain_ms, c = slots[key]
+        return dict(
+            name=f"{wrapper}[per-slot]", kernel="5 per-slot", route="cuda",
+            source=f"{PKG}/csrc/{c['source']}",
+            replaces=f"{JAX_KERNELS}/engine_core.py:202",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+            spec=name, tile=tile, n_replicas=len(lrs), lr=list(lrs),
+            bs=None if bss is None else list(bss), budgets=list(budgets),
+            steps=CHUNK_STEPS, **masked_bound(c, bss, budgets, CHUNK_STEPS))
+
+    packed = slot_row(("heat", 512), "fused_engine_packed_chunk")
+    packed.update(rung_slots=RUNG_SLOTS, rung_tile=64, rung_steps=RUNG_STEPS,
+                  rung_ms={str(k): v for k, v in rung.items()})
+    return [engine, packed, dgm,
+            slot_row(("fitzhugh_nagumo", 100), "fused_dgm_packed_chunk")]
+
+
 def check_bf16_kernels():
     """Every BF16_CHECKS case; returns the rows of the "default" kernels at
     the first case of each (#1 at heat; #6 and #4 at heat2d; #5 at wave N =
@@ -1444,8 +1820,10 @@ def phase_kernels():
         check_packed_kernels(*HARD_PACKED, hard=True),
         check_packed_kernels(*CAUSAL_PACKED, causal=True)]
     bf16_rows = check_bf16_kernels()
+    masked_rows = check_masked_kernels()
     report_graphs()
-    return rows + list(engine_rows) + list(dgm_rows) + packed_rows + bf16_rows
+    return (rows + list(engine_rows) + list(dgm_rows) + packed_rows
+            + bf16_rows + masked_rows)
 
 
 def report_graphs():
@@ -1490,6 +1868,9 @@ def reset_counts():
         fn.launches = 0
         if hasattr(fn, "bf16_launches"):
             fn.bf16_launches = 0
+        if hasattr(fn, "sweep_launches"):
+            fn.sweep_launches = 0
+            fn.sweep_shapes = {}
     for index in STEP_MATH.values():
         wrappers()[index].step_math_runs = 0
         wrappers()[index].bf16_step_math_runs = 0
@@ -1499,11 +1880,14 @@ def read_counts():
     """Each wrapper's launches, and ``*_step_math``: the (replica-)steps
     whose step math (#6, #7) ``engine_train_packed`` / ``dgm_train_packed``
     enqueued for each wrapper, as the library reports them; under
-    ``name[default]`` those of the "default" precision's instances."""
+    ``name[default]`` those of the "default" precision's instances, under
+    ``name[sweep]`` the launches in the sweep mode."""
     counts = {fn.__name__: fn.launches for fn in wrappers()}
     for fn in wrappers():
         if hasattr(fn, "bf16_launches"):
             counts[f"{fn.__name__}[default]"] = fn.bf16_launches
+        if hasattr(fn, "sweep_launches"):
+            counts[f"{fn.__name__}[sweep]"] = fn.sweep_launches
     for counter, index in STEP_MATH.items():
         counts[counter] = wrappers()[index].step_math_runs
         counts[f"{counter}[default]"] = \
@@ -1711,6 +2095,224 @@ def phase_solve():
     return out
 
 
+def sweep_trial_state(prob, t, pack):
+    """Trial t's initial flat state, as every sweep evaluator draws it."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
+
+    return fe.trial_state(prob, None, SWEEP_SEED, [t], pack,
+                          torch.device("cuda"))[0]
+
+
+def check_standalone(label, prob, route, result, tile):
+    """(a): the best trial's score against a standalone unmasked chunk of
+    its config (trial horizon, constant lr) on the first bs rows of its
+    tile's stream, to SWEEP_RTOL."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import step_uniforms
+    from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
+    from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
+
+    t, cfg = result.best_index, result.best_config
+    bs, n, lr = cfg["batch_size"], cfg["n_iters"], cfg["lrate"]
+    model = prob.default_model()
+    if route == "engine":
+        spec = fe.spec_for(prob)
+        p = sweep_trial_state(prob, t, lambda m: fe.pack_state(spec, m))
+        run, const = fe.fused_engine_chunk, spec.make_const(bs, p.device)
+    else:
+        spec = fd.spec_for(prob, bs)
+        p = sweep_trial_state(prob, t, fd.pack_dgm)
+        run, const = fd.fused_dgm_chunk, fd.const_for(spec, prob, bs,
+                                                      p.device)
+    u = step_uniforms(SWEEP_SEED, 0, n, tile, p.device,
+                      spec.n_uniform)[:, :bs].contiguous()
+    z = torch.zeros_like(p)
+    _, _, _, losses = run(spec, model.to(p.device), p, z, z, u, 0, lr,
+                          schedule="constant", total_steps=n, const=const)
+    got = float(losses[-1])
+    rel = abs(got - result.best_score) / abs(result.best_score)
+    print(f"(a) {label}: trial {t} {cfg}, score {result.best_score:.8g}; "
+          f"standalone unmasked chunk on its first {bs} rows "
+          f"{got:.8g} (relative {rel:.3g}, tolerance {SWEEP_RTOL})")
+    if not rel <= SWEEP_RTOL:
+        raise AssertionError(f"(a) {label}: the best trial's score and its "
+                             f"standalone run differ by {rel:.3g}")
+
+
+def check_same(label, what, got, want):
+    import torch
+
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: {what} differ "
+                             f"(max {max_abs(got, want):.3g})")
+
+
+def phase_sweep():
+    """The fused sweep tier (sweep/search.py) on the card: TPE over the
+    reference's slice (heat, q = 5 and q = 1), halving over heat, the DGM
+    route (FitzHugh–Nagumo halving, Fredholm TPE), lr_sweep; then the
+    identities (a) a best trial equals a standalone run of its config, (b)
+    a packed slot equals the sequential evaluator's trial, bit for bit,
+    (c) halving's winner equals a standalone max_budget run, bit for bit;
+    and the best heat trial's grid MAE through kernel #2. Returns the
+    launches of the drivers' run (counts set to 0 just before it) and the
+    sweep-mode wrappers' launches by shape ({name: {(B, N): count}})."""
+    import numpy as np
+    import torch
+
+    from differential_equations_dnn_tpu_torch.equations import (
+        FitzHughNagumo,
+        Fredholm2,
+        Heat1D,
+    )
+    from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
+    from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
+    from differential_equations_dnn_tpu_torch.kernels import graphs
+    from differential_equations_dnn_tpu_torch.sweep import (
+        BUCKET_TILES,
+        SearchSpace,
+        halving_search_fused,
+        heat_search_space,
+        randint,
+        tpe_search_fused,
+    )
+    from differential_equations_dnn_tpu_torch.sweep.search import _tiles_for
+
+    dev = torch.device("cuda")
+    space = heat_search_space()
+    space = SearchSpace({**space.specs,
+                         "n_iters": randint(1000, SWEEP_MAX_ITERS)})
+    print(f"sweep: heat's space with n_iters ~ randint[1000, "
+          f"{SWEEP_MAX_ITERS}) (the reference's 50 000 cut); FitzHugh–"
+          f"Nagumo's halving to {FN_HALVING['max_budget']} steps (its "
+          f"150 000 cut)")
+    heat, fn = Heat1D(), FitzHughNagumo(arch="dgm", causal_eps=0.0)
+    fred = Fredholm2(quadrature="gauss", k=16)
+    builds, evictions = graphs.graph_stats["builds"], \
+        graphs.graph_stats["evictions"]
+    reset_counts()
+    runs = {}
+
+    def timed(label, fn_, trials):
+        torch.cuda.synchronize()
+        captured = graphs.graph_stats["builds"]
+        t0 = time.perf_counter()
+        out = fn_()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs[label] = (out, secs)
+        best = out.best_config
+        print(f"sweep {label}: {trials} trials in {secs:.2f} s, "
+              f"{60 * trials / secs:.1f} trials per minute, "
+              f"{graphs.graph_stats['builds'] - captured} CUDA graphs "
+              f"captured; best {best}, score {out.best_score:.6g}")
+        if best is not None and not math.isfinite(out.best_score):
+            raise AssertionError(f"sweep {label}: no finite score")
+        return out
+
+    tpe5 = timed("tpe q=5 heat", lambda: tpe_search_fused(
+        heat, seed=SWEEP_SEED, num_samples=10, space=space, q=5), 10)
+    tpe1 = timed("tpe q=1 heat", lambda: tpe_search_fused(
+        heat, seed=SWEEP_SEED, num_samples=4, space=space), 4)
+    halv = timed("halving heat", lambda: halving_search_fused(
+        heat, seed=SWEEP_SEED, **HEAT_HALVING), HEAT_HALVING["num_samples"])
+    fnh = timed("halving fitzhugh_nagumo", lambda: halving_search_fused(
+        fn, seed=SWEEP_SEED, **FN_HALVING), FN_HALVING["num_samples"])
+    fred_res = timed("tpe fredholm", lambda: tpe_search_fused(
+        fred, seed=SWEEP_SEED, space=heat_search_space(), **FREDHOLM_TPE),
+        FREDHOLM_TPE["num_samples"])
+    lrs = (1e-3, 3e-3, 1e-2)
+    (finals, states), secs = timed_once(lambda: fe.lr_sweep(
+        heat, SWEEP_SEED, lrs, 2000, device="cuda"))
+    print(f"sweep lr_sweep heat {lrs} x 2000 steps: final losses "
+          f"{[f'{x:.4g}' for x in finals]} ({secs / 1e3:.2f} s)")
+    if not np.all(np.isfinite(finals)):
+        raise AssertionError("lr_sweep: a non-finite final loss")
+    launches = read_counts()
+    shapes = {fn.__name__: dict(fn.sweep_shapes) for fn in wrappers()
+              if hasattr(fn, "sweep_shapes")}
+    print(f"sweep: {graphs.graph_stats['builds'] - builds} CUDA graphs "
+          f"captured, {graphs.graph_stats['evictions'] - evictions} cached "
+          f"shapes freed; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + "; in the sweep mode by tile x replicas: "
+          + "; ".join(f"{name} " + ", ".join(
+              f"{B}x{N} {n}" for (B, N), n in sorted(by.items()))
+                      for name, by in shapes.items() if by))
+
+    # Halving heat's work: live slot-steps per second of its rungs.
+    iters = np.asarray([c["n_iters"] for c in halv.configs])
+    slot_steps = int(iters.sum())
+    print(f"sweep halving heat: {slot_steps} live slot-steps in "
+          f"{runs['halving heat'][1]:.2f} s, "
+          f"{runs['halving heat'][1] / slot_steps * 1e6:.2f} us per live "
+          f"slot-step")
+
+    heat_tiles = _tiles_for(511, BUCKET_TILES)
+    tile_of = lambda bs: next(t for t in heat_tiles if t >= bs)  # noqa: E731
+    # (a) at "highest": the best trials of the heat TPE and of Fredholm's.
+    check_standalone("tpe q=5 heat", heat, "engine", tpe5,
+                     tile_of(tpe5.best_config["batch_size"]))
+    fred_tiles = _tiles_for(511, BUCKET_TILES, 64)
+    check_standalone("tpe fredholm", fred, "dgm", fred_res,
+                     next(t for t in fred_tiles
+                          if t >= fred_res.best_config["batch_size"]))
+    # (b): the q = 5 TPE's best slot against the sequential evaluator.
+    cfg, t = tpe5.best_config, tpe5.best_index
+    ev = fe.make_sweep_evaluator(heat, SWEEP_SEED, SWEEP_MAX_ITERS - 1,
+                                 max_batch=tile_of(cfg["batch_size"]),
+                                 schedule="constant")
+    losses, p = ev(t, cfg["lrate"], cfg["batch_size"], cfg["n_iters"])
+    if losses[-1] != tpe5.best_score:
+        raise AssertionError(f"(b) the packed slot's score "
+                             f"{tpe5.best_score!r} and the sequential "
+                             f"trial's {losses[-1]!r} differ")
+    check_same("(b) tpe q=5 heat", "the packed slot's and the sequential "
+               "trial's parameters", tpe5.params[0], p)
+    print(f"(b) tpe q=5 heat: trial {t}'s packed slot equals the sequential "
+          f"evaluator's trial bit for bit")
+    # (c): each halving winner against a standalone max_budget run.
+    cfg, t = halv.best_config, halv.best_index
+    ev = fe.make_sweep_evaluator(heat, SWEEP_SEED,
+                                 HEAT_HALVING["max_budget"],
+                                 max_batch=tile_of(cfg["batch_size"]),
+                                 schedule="constant", horizon="fixed")
+    losses, p = ev(t, cfg["lrate"], cfg["batch_size"],
+                   HEAT_HALVING["max_budget"])
+    pos = int(np.where(halv.param_indices == t)[0][0])
+    check_same("(c) halving heat", "the winner's and the standalone run's "
+               "parameters", halv.params[pos], p)
+    if losses[-1] != halv.best_score:
+        raise AssertionError("(c) halving heat: the winner's score and the "
+                             "standalone run's differ")
+    cfg, t = fnh.best_config, fnh.best_index
+    ev = fd.make_sweep_evaluator(fn, SWEEP_SEED, FN_HALVING["max_budget"],
+                                 batch_size=fn.defaults.batch_size,
+                                 schedule="constant", horizon="fixed")
+    losses, p = ev(t, cfg["lrate"], FN_HALVING["max_budget"])
+    pos = int(np.where(fnh.param_indices == t)[0][0])
+    check_same("(c) halving fitzhugh_nagumo", "the winner's and the "
+               "standalone run's parameters", fnh.params[pos], p)
+    if losses[-1] != fnh.best_score:
+        raise AssertionError("(c) halving fitzhugh_nagumo: the winner's "
+                             "score and the standalone run's differ")
+    print(f"(c) both halving winners (heat trial {halv.best_index}, "
+          f"FitzHugh–Nagumo trial {fnh.best_index}) equal standalone "
+          f"max_budget runs bit for bit")
+    # The best heat trial's grid MAE through kernel #2 (mlp_forward).
+    model = heat.default_model(device=dev)
+    fe.load_state(fe.spec_for(heat), model, tpe5.params[0])
+    mae = heat.mae(model, heat.defaults.nodes)
+    print(f"sweep tpe q=5 heat: best trial's grid MAE {mae:.6g} "
+          f"(kernel #2 on its {heat.defaults.nodes}² grid)")
+    if not math.isfinite(mae):
+        raise AssertionError("the best heat trial's MAE is not finite")
+    return launches, shapes
+
+
 def main():
     t0 = time.perf_counter()
     sys.path.insert(0, str(ROOT))
@@ -1720,6 +2322,7 @@ def main():
     phase_build()
     rows = phase_kernels()
     launches = phase_solve()
+    launches[("sweep",)], sweep_shapes = phase_sweep()
     # Launches from each kernel's own path: #2 and #1 from constant-lr
     # heat, #3 from the scan solve of heat with pallas taps, #6 and #4 from
     # heat2d, #7 and #4 at the DGM layout from
@@ -1757,7 +2360,16 @@ def main():
                   "fused_engine_packed_chunk[default]"),
               "fused_dgm_packed_chunk[default]": (
                   ("fredholm", "mixed ensemble"),
-                  "fused_dgm_packed_chunk[default]")}
+                  "fused_dgm_packed_chunk[default]"),
+              # The sweep mode, from the sweep phase's drivers.
+              "fused_engine_chunk[masked]": (("sweep",),
+                                             "fused_engine_chunk[sweep]"),
+              "fused_engine_packed_chunk[per-slot]": (
+                  ("sweep",), "fused_engine_packed_chunk[sweep]"),
+              "fused_dgm_chunk[masked]": (("sweep",),
+                                          "fused_dgm_chunk[sweep]"),
+              "fused_dgm_packed_chunk[per-slot]": (
+                  ("sweep",), "fused_dgm_packed_chunk[sweep]")}
     inside = {"engine_step_math": "fused_engine_chunk",
               "dgm_step_math": "fused_dgm_chunk",
               "engine_step_math[default]": "fused_engine_chunk[default]",
@@ -1777,7 +2389,18 @@ def main():
                                      f"has no launches")
         run, counter = source[row["name"]]
         row["launches"] = launches[run][counter]
-        if counter != row["name"]:
+        if counter.endswith("[sweep]"):
+            # The sweep phase's launches at the row's own shape; all its
+            # shapes beside them.
+            by_shape = sweep_shapes[counter.split("[")[0]]
+            row["launches"] = by_shape.get((row["tile"], row["n_replicas"]),
+                                           0)
+            row["sweep_launches_by_shape"] = {
+                f"{B}x{N}": n for (B, N), n in sorted(by_shape.items())}
+            row["launches_counted_as"] = (
+                f"launches in the sweep mode in the sweep phase at tile "
+                f"{row['tile']} with {row['n_replicas']} replicas")
+        elif counter != row["name"]:
             row["launches_counted_as"] = (f"step-math runs inside "
                                           f"{inside[counter]}")
         if not all(math.isfinite(row[k]) for k in ("max_abs_err", "ms",

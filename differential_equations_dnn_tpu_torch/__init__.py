@@ -23,6 +23,8 @@ kernel.
                    ``opt_state_from_jax``), the L-BFGS polish, the MAE
                    metric
 * ``kernels``    — the CUDA kernels' wrappers, plain versions and build
+* ``sweep``      — hyperparameter search on the fused tier (TPE, successive
+                   halving, TPE × halving), every trial inside the kernels
 """
 
 __version__ = "0.1.0"
@@ -33,9 +35,15 @@ from differential_equations_dnn_tpu_torch import (
     kernels,
     models,
     ops,
+    sweep,
     train,
 )
 from differential_equations_dnn_tpu_torch.api import SolveResult, solve
+from differential_equations_dnn_tpu_torch.sweep import (
+    halving_search_fused,
+    tpe_halving_fused,
+    tpe_search_fused,
+)
 
 __all__ = [
     "core",
@@ -44,7 +52,11 @@ __all__ = [
     "equations",
     "train",
     "kernels",
+    "sweep",
     "solve",
+    "tpe_search_fused",
+    "halving_search_fused",
+    "tpe_halving_fused",
     "SolveResult",
     "__version__",
 ]

@@ -104,6 +104,13 @@
 // Row layout of every [R·B, width] activation: stream s, batch row b at row
 // s·B + b (fused_dgm.<Spec>.groups order: per group the value row, then its
 // first-order tangents). The input width D is 1 for both specs.
+//
+// The sweep mode (engine_train.cu's, through fused_step.cuh): a batch mask
+// takes collocation rows only (Fredholm's node rows never), FitzHugh–
+// Nagumo's masked loss is the plain one over the bs live rows, and a
+// replica past its budget returns at the entry of its input, gemm, loss,
+// output-backward and weight-gradient blocks (the elementwise stream
+// kernels still run, on its stale rows, whose results nothing reads).
 #include <cmath>
 
 #include "common.cuh"
@@ -226,12 +233,14 @@ __device__ __forceinline__ void stage_tile(float* dst, int ld_dst,
 // written unrounded).
 template <bool kBf16>
 __global__ void input_kernel(int spec, const StepArgs* __restrict__ args,
-                             int j_step, Layout lay, size_t w_in_off,
+                             int j_step, bool sweep, Layout lay,
+                             size_t w_in_off,
                              size_t b_in_off, int H, int act,
                              float* __restrict__ X, float* __restrict__ pre,
                              float* __restrict__ s0, size_t ss, size_t ps) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= lay.B * H) return;
+  if (idx >= lay.B * H || dednn::gated(args, sweep, blockIdx.y, j_step))
+    return;
   const size_t so = blockIdx.y * ss, po = blockIdx.y * ps;
   const float* u =
       args->u + static_cast<size_t>(args->base + j_step) * lay.B;
@@ -278,7 +287,8 @@ __global__ void input_kernel(int spec, const StepArgs* __restrict__ args,
 // by cp.async, 16 bytes at a time where the block's operands are aligned,
 // into a ring of kStages buffers, kStages − 1 tiles in flight while one is
 // multiplied four k at a time from float4 reads. Replica blockIdx.z: A, x,
-// addend and C at z·ss; the parameters at z·ps.
+// addend and C at z·ss; the parameters at z·ps; a replica past its step
+// budget at call step base + j returns at entry (fused_step.cuh's gated).
 //
 // kBf16 (the "default" precision): the same staging, but the block's warps
 // split its BM × BN tile into m16n8 tiles on the tensor cores (mma_bf16.cuh)
@@ -291,8 +301,9 @@ template <bool kTransW, int BM, int BN, int TM, int TN, int BK, int kStages,
           bool kBf16 = false>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     gemm_kernel(const float* __restrict__ A,
-                const StepArgs* __restrict__ args, long long w_off, int N,
-                int K, int M, const float* __restrict__ x, long long u_off,
+                const StepArgs* __restrict__ args, int j, bool sweep,
+                long long w_off, int N, int K, int M,
+                const float* __restrict__ x, long long u_off,
                 long long b_off, Layout lay,
                 const float* __restrict__ addend, float* __restrict__ C,
                 size_t ss, size_t ps) {
@@ -302,6 +313,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   static_assert(BK % 4 == 0 && BN % 4 == 0 && TN % 4 == 0, "float4 tiles");
   __shared__ __align__(16) float a_s[kStages][BM][BK + 4];
   __shared__ __align__(16) float w_s[kStages][kWRows][kWCols + 4];
+  if (dednn::gated(args, sweep, blockIdx.z, j)) return;
   const size_t so = blockIdx.z * ss;
   const float* P = args->p + blockIdx.z * ps;
   const float* W = P + w_off;
@@ -586,9 +598,11 @@ __device__ void output_layer(const float* __restrict__ S, int H,
 template <bool kBf16>
 __global__ void fn_loss_kernel(const float* __restrict__ S, int H,
                                const StepArgs* __restrict__ args, int j,
-                               size_t w_out_off, size_t b_out_off, Layout lay,
+                               bool sweep, size_t w_out_off, size_t b_out_off,
+                               Layout lay,
                                float* out, float* G, float* aux, size_t ss,
                                size_t ps) {
+  if (dednn::gated(args, sweep, blockIdx.x, j)) return;
   const size_t so = blockIdx.x * ss, po = blockIdx.x * ps;
   S += so;
   out += so;
@@ -600,9 +614,16 @@ __global__ void fn_loss_kernel(const float* __restrict__ S, int H,
   const Consts c = args->c;
   output_layer<kBf16>(S, H, w_out, b_out, 2, lay, out);
   const int B = lay.B;
-  const float t_max_over_b = c.c[1], eps = c.c[2], i_ext = c.c[3];
+  const float t_max_over_b = c.c[1], i_ext = c.c[3];
   const float alpha = c.c[4], beta = c.c[5], tau = c.c[6], y_ic = c.c[7];
-  const float inv_2b = 1.0f / static_cast<float>(2 * B);
+  // Under a batch mask bs (live > 0) rows past bs contribute nothing, the
+  // causal weights are 1, and both sums are scaled by 1/(2·bs): the loss
+  // Σ(r_y² + r_w²)/bs + Σ(e_y² + e_w²)/(2·bs), which at bs = B is the
+  // unmasked loss (the JAX kernel's masked branch scales the IC sum by
+  // 1/bs, twice its unmasked weight: fused_dgm.py:363-364).
+  const int live = dednn::live_batch(args, sweep, blockIdx.x);
+  const float eps = live > 0 ? 0.0f : c.c[2];
+  const float inv_2b = 1.0f / static_cast<float>(2 * (live > 0 ? live : B));
   float* r0s = aux;
   float* r1s = aux + B;
   float* wgt = aux + 2 * B;
@@ -624,19 +645,23 @@ __global__ void fn_loss_kernel(const float* __restrict__ S, int H,
   }
   __syncthreads();
   for (int i = threadIdx.x; i < B; i += blockDim.x) {
+    const float keep = live > 0 && i >= live ? 0.0f : 1.0f;
+    const float scale = live > 0 ? inv_2b * keep : inv_2b;
     const float y = out[2 * i];
     const float r0 = r0s[i], r1 = r1s[i], wi = wgt[i];
     const float e0 = out[2 * (2 * B + i)] - y_ic;
     const float e1 = out[2 * (2 * B + i) + 1] - y_ic;
-    res[i] = wi * (r0 * r0) + wi * (r1 * r1);
-    ic[i] = e0 * e0 + e1 * e1;
-    const float q0 = 4.0f * inv_2b * wi * r0, q1 = 4.0f * inv_2b * wi * r1;
+    const float rs = wi * (r0 * r0) + wi * (r1 * r1);
+    const float is = e0 * e0 + e1 * e1;
+    res[i] = live > 0 ? rs * keep : rs;
+    ic[i] = live > 0 ? is * keep : is;
+    const float q0 = 4.0f * scale * wi * r0, q1 = 4.0f * scale * wi * r1;
     G[2 * i] = q0 * (y * y - 1.0f) - q1 / tau;
     G[2 * i + 1] = q0 + q1 * (beta / tau);
     G[2 * (B + i)] = q0;
     G[2 * (B + i) + 1] = q1;
-    G[2 * (2 * B + i)] = 2.0f * inv_2b * e0;
-    G[2 * (2 * B + i) + 1] = 2.0f * inv_2b * e1;
+    G[2 * (2 * B + i)] = 2.0f * scale * e0;
+    G[2 * (2 * B + i) + 1] = 2.0f * scale * e1;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -660,10 +685,12 @@ __global__ void fn_loss_kernel(const float* __restrict__ S, int H,
 template <bool kBf16>
 __global__ void fredholm_loss_kernel(const float* __restrict__ S, int H,
                                      const StepArgs* __restrict__ args, int j,
-                                     size_t w_out_off, size_t b_out_off,
+                                     bool sweep, size_t w_out_off,
+                                     size_t b_out_off,
                                      Layout lay, float* out, float* G,
                                      float* aux, size_t ss, size_t ps) {
   __shared__ float scalars[2];  // I, dL/dI
+  if (dednn::gated(args, sweep, blockIdx.x, j)) return;
   const size_t so = blockIdx.x * ss, po = blockIdx.x * ps;
   S += so;
   out += so;
@@ -678,7 +705,10 @@ __global__ void fredholm_loss_kernel(const float* __restrict__ S, int H,
   output_layer<kBf16>(S, H, w_out, b_out, 1, lay, out);
   const int B = lay.B, R = lay.R;
   const float upper = args->c.c[0];
-  const float inv_b = 1.0f / static_cast<float>(B);
+  // Under a batch mask bs (live > 0) collocation rows past bs contribute
+  // nothing and the mean runs over bs; the node rows are never masked.
+  const int live = dednn::live_batch(args, sweep, blockIdx.x);
+  const float inv_b = 1.0f / static_cast<float>(live > 0 ? live : B);
   float* terms = aux;
   float* ctr = aux + B;
   if (threadIdx.x == 0) {
@@ -695,10 +725,12 @@ __global__ void fredholm_loss_kernel(const float* __restrict__ S, int H,
   __syncthreads();
   const float integral = scalars[0];
   for (int i = threadIdx.x; i < B; i += blockDim.x) {
+    const float keep = live > 0 && i >= live ? 0.0f : 1.0f;
+    const float scale = live > 0 ? inv_b * keep : inv_b;
     const float sx = sinf(upper * u[i]);
     const float r = out[i] - sx * (1.0f + integral);
-    const float g = 2.0f * r * inv_b;
-    terms[i] = r * r;
+    const float g = 2.0f * r * scale;
+    terms[i] = live > 0 ? r * r * keep : r * r;
     ctr[i] = g * -sx;
     G[i] = g;
   }
@@ -730,10 +762,11 @@ __global__ void fredholm_loss_kernel(const float* __restrict__ S, int H,
 template <bool kBf16>
 __global__ void out_bwd_kernel(const float* __restrict__ G,
                                const StepArgs* __restrict__ args,
-                               size_t w_out_off, int N, int H, int O,
-                               float* __restrict__ ds, size_t ss, size_t ps) {
+                               int j_step, bool sweep, size_t w_out_off,
+                               int N, int H, int O, float* __restrict__ ds,
+                               size_t ss, size_t ps) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= N * H) return;
+  if (idx >= N * H || dednn::gated(args, sweep, blockIdx.y, j_step)) return;
   G += blockIdx.y * ss;
   ds += blockIdx.y * ss;
   const float* w_out = args->p + blockIdx.y * ps + w_out_off;
@@ -933,22 +966,23 @@ bool valid(int spec, int R, int O, unsigned value_mask) {
 // 16 × 32 (2 × 4), whose more blocks win where the card is underfilled.
 // kBf16: the "default" precision's instance of the same tile.
 template <bool kT, bool kBf16 = false>
-void gemm(const float* A, const StepArgs* args, long long w_off, int N, int K,
-          int M, const float* x, long long u_off, long long b_off,
-          const Layout& lay, const float* addend, float* C, size_t ss,
-          size_t ps, int reps, cudaStream_t stream) {
+void gemm(const float* A, const StepArgs* args, int j, bool sweep,
+          long long w_off, int N, int K, int M, const float* x,
+          long long u_off, long long b_off, const Layout& lay,
+          const float* addend, float* C, size_t ss, size_t ps, int reps,
+          cudaStream_t stream) {
   if (blocks(N, M, 64, 64, reps) >= 3 * kSMs)
     launch(gemm_kernel<kT, 64, 64, 8, 4, 16, 4, kBf16>, 128, 0, 64, 64, N, M,
-           reps, stream, A, args, w_off, N, K, M, x, u_off, b_off, lay,
-           addend, C, ss, ps);
+           reps, stream, A, args, j, sweep, w_off, N, K, M, x, u_off, b_off,
+           lay, addend, C, ss, ps);
   else if (blocks(N, M, 32, 32, reps) >= kSMs)
     launch(gemm_kernel<kT, 32, 32, 2, 4, 32, 4, kBf16>, 128, 0, 32, 32, N, M,
-           reps, stream, A, args, w_off, N, K, M, x, u_off, b_off, lay,
-           addend, C, ss, ps);
+           reps, stream, A, args, j, sweep, w_off, N, K, M, x, u_off, b_off,
+           lay, addend, C, ss, ps);
   else
     launch(gemm_kernel<kT, 16, 32, 2, 4, 32, 4, kBf16>, 64, 0, 16, 32, N, M,
-           reps, stream, A, args, w_off, N, K, M, x, u_off, b_off, lay,
-           addend, C, ss, ps);
+           reps, stream, A, args, j, sweep, w_off, N, K, M, x, u_off, b_off,
+           lay, addend, C, ss, ps);
 }
 
 // The weight-gradient instances, largest first (chosen as the gemm's):
@@ -994,8 +1028,9 @@ cudaError_t prepare() {
 template <bool kAdam, bool kBf16>
 void weight_grad(const float* A, int KA, const float* x, const float* dz,
                  int M, const Layout& lay, const StepArgs* args, int j,
-                 long long w_off, long long u_off, long long b_off, size_t ss,
-                 size_t ps, int reps, cudaStream_t stream) {
+                 bool sweep, long long w_off, long long u_off,
+                 long long b_off, size_t ss, size_t ps, int reps,
+                 cudaStream_t stream) {
   int c = 0;
   while (blocks(KA, M, kWg[c].tile_k, kWg[c].tile_m, reps) <
          kWg[c].min_blocks)
@@ -1003,7 +1038,7 @@ void weight_grad(const float* A, int KA, const float* x, const float* dz,
   launch(wg_kernel<kAdam, kBf16>(c), kWg[c].threads, kWg[c].smem,
          kWg[c].tile_k,
          kWg[c].tile_m, KA, M, reps, stream, A, KA, x, dz, M, lay, args, j,
-         w_off, u_off, b_off, ss, ps);
+         sweep, w_off, u_off, b_off, ss, ps);
 }
 
 // Enqueue call step base + j of `reps` replicas: the forward, the loss into
@@ -1014,7 +1049,7 @@ void weight_grad(const float* A, int KA, const float* x, const float* dz,
 // weight gradient on the side stream reads them while the data path goes on.
 // kBf16: every launch's "default" instance.
 template <bool kAdam, bool kBf16>
-cudaError_t enqueue_step(int spec, const StepArgs* args, int j,
+cudaError_t enqueue_step(int spec, const StepArgs* args, int j, bool sweep,
                          float* scratch, int reps, const Layout& lay, int H,
                          int L, int O, int act, Streams& st) {
   const int R = lay.R, B = lay.B, N = R * B;
@@ -1043,7 +1078,8 @@ cudaError_t enqueue_step(int spec, const StepArgs* args, int j,
 
   const dim3 ew(dednn::ceil_div(B * H, kEwThreads), reps);
   input_kernel<kBf16><<<ew, kEwThreads, 0, main>>>(
-      spec, args, j, lay, off.w_in, off.b_in, H, act, X, PRE, ST, ss, n);
+      spec, args, j, sweep, lay, off.w_in, off.b_in, H, act, X, PRE, ST, ss,
+      n);
   for (int l = 0; l < L; ++l) {
     const float* S = ST + l * layer;
     float* Z = ZG + 3 * l * layer;
@@ -1051,31 +1087,33 @@ cudaError_t enqueue_step(int spec, const StepArgs* args, int j,
     float* SRl = SR + l * layer;
     const long long lw3 = static_cast<long long>(l) * 3 * H;
     const long long lw = static_cast<long long>(l) * H;
-    gemm<false, kBf16>(S, args, off.Wzgr + lw3 * H, N, H, 3 * H, X,
+    gemm<false, kBf16>(S, args, j, sweep, off.Wzgr + lw3 * H, N, H, 3 * H, X,
                        off.Uzgr + lw3, off.bzgr + lw3, lay, nullptr, Z, ss, n,
                        reps, main);
     gate_fwd_kernel<<<ew, kEwThreads, 0, main>>>(Z, S, lay, H, act, SRl, ss);
-    gemm<false, kBf16>(SRl, args, off.Wh + lw * H, N, H, H, X, off.Uh + lw,
-                       off.bh + lw, lay, nullptr, Hh, ss, n, reps, main);
+    gemm<false, kBf16>(SRl, args, j, sweep, off.Wh + lw * H, N, H, H, X,
+                       off.Uh + lw, off.bh + lw, lay, nullptr, Hh, ss, n,
+                       reps, main);
     state_fwd_kernel<<<ew, kEwThreads, 0, main>>>(Z, Hh, S, lay, H, act,
                                                   ST + (l + 1) * layer, ss);
   }
   const float* S_L = ST + L * layer;
   if (spec == kFitzHughNagumo) {
     fn_loss_kernel<kBf16><<<reps, kLossThreads, 0, main>>>(
-        S_L, H, args, j, off.w_out, off.b_out, lay, OUT, G, AUX, ss, n);
+        S_L, H, args, j, sweep, off.w_out, off.b_out, lay, OUT, G, AUX, ss, n);
   } else {
     fredholm_loss_kernel<kBf16><<<reps, kLossThreads, 0, main>>>(
-        S_L, H, args, j, off.w_out, off.b_out, lay, OUT, G, AUX, ss, n);
+        S_L, H, args, j, sweep, off.w_out, off.b_out, lay, OUT, G, AUX, ss, n);
   }
 
   out_bwd_kernel<kBf16><<<dim3(dednn::ceil_div(N * H, kOutThreads), reps),
-                          kOutThreads, 0, main>>>(G, args, off.w_out, N, H, O,
-                                                  DS, ss, n);
+                          kOutThreads, 0, main>>>(G, args, j, sweep,
+                                                  off.w_out, N, H, O, DS, ss,
+                                                  n);
   cudaError_t err = st.branch(&side);
   if (err != cudaSuccess) return err;
-  weight_grad<kAdam, kBf16>(S_L, H, nullptr, G, O, lay, args, j, off.w_out,
-                            none, off.b_out, ss, n, reps, side);
+  weight_grad<kAdam, kBf16>(S_L, H, nullptr, G, O, lay, args, j, sweep,
+                            off.w_out, none, off.b_out, ss, n, reps, side);
   for (int l = L - 1; l >= 0; --l) {
     const float* S = ST + l * layer;
     const float* Z = ZG + 3 * l * layer;
@@ -1087,20 +1125,20 @@ cudaError_t enqueue_step(int spec, const StepArgs* args, int j,
     const long long lw = static_cast<long long>(l) * H;
     gate_bwd1_kernel<<<ew, kEwThreads, 0, main>>>(DS, S, Z, Hh, lay, H, act,
                                                   DHPl, DZl, DSP, ss);
-    gemm<true, kBf16>(DHPl, args, off.Wh + lw * H, N, H, H, nullptr, none,
-                      none, lay, nullptr, DSR, ss, n, reps, main);
+    gemm<true, kBf16>(DHPl, args, j, sweep, off.Wh + lw * H, N, H, H, nullptr,
+                      none, none, lay, nullptr, DSR, ss, n, reps, main);
     err = st.branch(&side);
     if (err != cudaSuccess) return err;
-    weight_grad<kAdam, kBf16>(SRl, H, X, DHPl, H, lay, args, j,
+    weight_grad<kAdam, kBf16>(SRl, H, X, DHPl, H, lay, args, j, sweep,
                               off.Wh + lw * H, off.Uh + lw, off.bh + lw, ss,
                               n, reps, side);
     gate_bwd2_kernel<<<ew, kEwThreads, 0, main>>>(DSR, S, Z, lay, H, act,
                                                   DSP, DZl, ss);
-    gemm<true, kBf16>(DZl, args, off.Wzgr + lw3 * H, N, 3 * H, H, nullptr,
-                      none, none, lay, DSP, DS, ss, n, reps, main);
+    gemm<true, kBf16>(DZl, args, j, sweep, off.Wzgr + lw3 * H, N, 3 * H, H,
+                      nullptr, none, none, lay, DSP, DS, ss, n, reps, main);
     err = st.branch(&side);
     if (err != cudaSuccess) return err;
-    weight_grad<kAdam, kBf16>(S, H, X, DZl, 3 * H, lay, args, j,
+    weight_grad<kAdam, kBf16>(S, H, X, DZl, 3 * H, lay, args, j, sweep,
                               off.Wzgr + lw3 * H, off.Uzgr + lw3,
                               off.bzgr + lw3, ss, n, reps, side);
   }
@@ -1108,8 +1146,8 @@ cudaError_t enqueue_step(int spec, const StepArgs* args, int j,
                                                 ss);
   err = st.branch(&side);
   if (err != cudaSuccess) return err;
-  weight_grad<kAdam, kBf16>(X, 1, nullptr, D0, H, lay, args, j, off.w_in,
-                            none, off.b_in, ss, n, reps, side);
+  weight_grad<kAdam, kBf16>(X, 1, nullptr, D0, H, lay, args, j, sweep,
+                            off.w_in, none, off.b_in, ss, n, reps, side);
   err = st.merge();
   return err != cudaSuccess ? err : cudaGetLastError();
 }
@@ -1165,8 +1203,8 @@ extern "C" int dgm_grad(int spec, const float* consts, const float* cnst,
     if (err == cudaSuccess) err = write_args(dev, a, st);
     if (err != cudaSuccess) return err;
     Streams one{st, {st, st}, nullptr, nullptr};
-    return enqueue_step<false, kBf16>(spec, dev, 0, scratch, 1, lay, H, L, O,
-                                      act, one);
+    return enqueue_step<false, kBf16>(spec, dev, 0, false, scratch, 1, lay, H,
+                                      L, O, act, one);
   });
 }
 
@@ -1174,10 +1212,11 @@ extern "C" int dgm_grad(int spec, const float* consts, const float* cnst,
 // (dednn::capture_steps) and instantiate it into *exec. The graph holds the
 // scratch and argument-block pointers and the shape: it serves every call
 // of that shape whose per-call values come through args (dgm_train_packed
-// writes them).
+// writes them); sweep != 0: its launches read the sweep mode's fields, and
+// it serves the calls in that mode alone.
 extern "C" int dgm_graph_build(int spec, int R, int B, int H, int L, int O,
                                int act, unsigned value_mask, int N, int bf16,
-                               int S, void* args, float* scratch,
+                               int S, int sweep, void* args, float* scratch,
                                void** exec) {
   *exec = nullptr;
   if (!valid(spec, R, O, value_mask) || S < 1) return cudaErrorInvalidValue;
@@ -1190,8 +1229,8 @@ extern "C" int dgm_graph_build(int spec, int R, int B, int H, int L, int O,
     return dednn::capture_steps(
         dev, S,
         [&](int j, Streams& st) {
-          return enqueue_step<true, kBf16>(spec, dev, j, scratch, N, lay, H,
-                                           L, O, act, st);
+          return enqueue_step<true, kBf16>(spec, dev, j, sweep != 0, scratch,
+                                           N, lay, H, L, O, act, st);
         },
         exec);
   });
@@ -1207,7 +1246,12 @@ extern "C" int dgm_graph_free(void* exec) { return dednn::free_graph(exec); }
 // mod S steps as the same launches from here, the weight gradients on side0
 // and side1 (all K, without exec). *step_math_runs
 // (host memory) is set to the number of replica-steps whose step math was
-// enqueued. N above the grid's 65 535 is refused.
+// enqueued. N above the grid's 65 535 is refused. The sweep mode
+// (StepArgs::lr_vec, bs_vec, steps_vec, trial_horizon; device vectors of
+// N, or nullptr) rides the argument block, so one graph captured in that
+// mode serves every trial; a call is in it when lr_vec and steps_vec are
+// given (bs_vec too, or not: no mask), and exec must then have been
+// captured with sweep != 0.
 extern "C" int dgm_train_packed(int spec, const float* consts,
                                 const float* cnst, float* p, float* m,
                                 float* v, const float* u, float* scratch,
@@ -1217,6 +1261,8 @@ extern "C" int dgm_train_packed(int spec, const float* consts,
                                 int bf16, float lr, int step0, int schedule,
                                 float horizon,
                                 float decay, float half_span, float log_decay,
+                                const float* lr_vec, const int* bs_vec,
+                                const int* steps_vec, int trial_horizon,
                                 int* step_math_runs, void* stream,
                                 void* side0, void* side1) {
   *step_math_runs = 0;
@@ -1230,6 +1276,14 @@ extern "C" int dgm_train_packed(int spec, const float* consts,
   a.step0 = step0;
   a.lr = lr;
   a.sched = Schedule{schedule, horizon, decay, half_span, log_decay};
+  a.lr_vec = lr_vec;
+  a.bs_vec = bs_vec;
+  a.steps_vec = steps_vec;
+  a.trial_horizon = trial_horizon;
+  // The sweep mode takes lr_vec and steps_vec together (bs_vec: a mask).
+  const bool sweep = steps_vec != nullptr;
+  if ((lr_vec != nullptr) != sweep || (bs_vec != nullptr && !sweep))
+    return cudaErrorInvalidValue;
   return dednn::with_precision(bf16, [&](auto prec) -> int {
     constexpr bool kBf16 = decltype(prec)::value;
     cudaError_t err = prepare<kBf16>();
@@ -1239,8 +1293,8 @@ extern "C" int dgm_train_packed(int spec, const float* consts,
         exec, S, K, N, st, static_cast<cudaStream_t>(side0),
         static_cast<cudaStream_t>(side1),
         [&](int j, Streams& two) {
-          return enqueue_step<true, kBf16>(spec, dev, j, scratch, N, lay, H,
-                                           L, O, act, two);
+          return enqueue_step<true, kBf16>(spec, dev, j, sweep, scratch, N,
+                                           lay, H, L, O, act, two);
         },
         step_math_runs);
   });
@@ -1265,11 +1319,11 @@ extern "C" int dgm_gemm_probe(int trans, const float* A, const float* W,
   const size_t ps = static_cast<size_t>(K) * M;
   for (int i = 0; i < launches; ++i) {
     if (trans)
-      gemm<true>(A, dev, 0, rows, K, M, nullptr, -1, -1, lay, nullptr, C, ss,
-                 ps, replicas, st);
+      gemm<true>(A, dev, 0, false, 0, rows, K, M, nullptr, -1, -1, lay,
+                 nullptr, C, ss, ps, replicas, st);
     else
-      gemm<false>(A, dev, 0, rows, K, M, nullptr, -1, -1, lay, nullptr, C, ss,
-                  ps, replicas, st);
+      gemm<false>(A, dev, 0, false, 0, rows, K, M, nullptr, -1, -1, lay,
+                  nullptr, C, ss, ps, replicas, st);
   }
   return cudaGetLastError();
 }

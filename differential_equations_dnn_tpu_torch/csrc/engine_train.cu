@@ -97,6 +97,17 @@
 // s·B + b, streams in fused_engine.Group order (per group: value, then the
 // (first, second) Taylor pairs, then the first-only tangents).
 //
+// The sweep mode (engine_core.py:60-64, :97-105, :140-143, :157-162 and
+// :233-237 of the JAX package; fused_step.cuh's StepArgs): replica r's
+// batch bs[r] scales each row past it by 0 in the loss kernels, which scale
+// by 1/bs[r] where they scaled by 1/B (uat's grid spans the bs rows; causal
+// advection takes its plain loss under a mask, as the JAX spec does); a
+// replica past its step budget returns at the entry of each of its blocks;
+// its Adam takes its own lr and, with a trial horizon, its budget as the
+// decay's horizon. The values ride the argument block, so one graph serves
+// every trial; outside the mode its pointers are null and every output is
+// the same bit for bit.
+//
 // Beyond the MLP layout of the first specs (fused_engine.py:797-1016 of the
 // JAX package: VolterraSpec, UATSpec, InverseHeatSpec):
 //   * The const operand (engine_core.py:67-69, :94): one device buffer per
@@ -246,13 +257,15 @@ __device__ __forceinline__ int value_of(int s) {
 
 // What a spec's build and loss read of one batch point: its draws u, its
 // index b in the batch of B (in a folded spec's input kernel, b is the row
-// of the F·B value rows), the call's const operand, and the replica's extra
-// trainable tensors (after the MLP's six).
+// of the F·B value rows), the call's const operand, the replica's extra
+// trainable tensors (after the MLP's six), and in the sweep mode its masked
+// batch.
 struct Point {
   const float* u;
   int b, B;
   const float* cnst;
   const float* extras;
+  int live = 0;  // the masked batch bs (0: unmasked), for uat's grid
 };
 
 // A spec's defaults: no extra trainable tensor, groups not folded. A
@@ -574,13 +587,16 @@ struct Volterra : SpecBase {
 };
 
 // Full-batch fit of sin(freq·x) on the B-point grid x_b = low + (high −
-// low)·b/(B − 1) (the draws are not read). c: low, high − low, freq.
+// low)·b/(B − 1) (the draws are not read); under a batch mask bs the grid
+// spans the bs live rows, b/(bs − 1) (the JAX kernel spans the tile). c:
+// low, high − low, freq.
 struct Uat : SpecBase {
   static constexpr int R = 1, D = 1, U = 1;
   DEDNN_LAYOUT(kValue)
   __device__ static float grid(const Point& pt, const Consts& c) {
     const float i = static_cast<float>(pt.b);
-    return c.c[0] + (c.c[1] * i) / static_cast<float>(max(pt.B - 1, 1));
+    const int n = pt.live > 0 ? pt.live : pt.B;
+    return c.c[0] + (c.c[1] * i) / static_cast<float>(max(n - 1, 1));
   }
   __device__ static void build(const Point& pt, const Consts& c, float* X) {
     X[0] = grid(pt, c);
@@ -942,11 +958,12 @@ struct Rules {
 // w_in enter the product rounded to bf16 (X is written unrounded).
 template <class S, bool kBf16>
 __global__ void __launch_bounds__(kInputBB* kInputBN)
-    input_kernel(const StepArgs* __restrict__ args, int j, Consts c,
-                 long long b_off, int H, int B, int batch,
+    input_kernel(const StepArgs* __restrict__ args, int j, bool sweep,
+                 Consts c, long long b_off, int H, int B, int batch,
                  float* __restrict__ X, float* __restrict__ Z,
                  float* __restrict__ A, size_t ss, size_t ps) {
   constexpr int R = S::R, D = S::D;
+  if (dednn::gated(args, sweep, blockIdx.z, j)) return;
   __shared__ float x_s[kInputBB][R * D];
   const size_t so = blockIdx.z * ss;
   const float* w_in = args->p + blockIdx.z * ps;  // at offset 0
@@ -963,7 +980,9 @@ __global__ void __launch_bounds__(kInputBB* kInputBN)
         args->u + (static_cast<size_t>(args->base + j) * batch + point) *
                       S::U;
     float rows[R * D];
-    S::build(Point{u, b, batch, args->cnst, nullptr}, c, rows);
+    S::build(Point{u, b, batch, args->cnst, nullptr,
+                   dednn::live_batch(args, sweep, blockIdx.z)},
+             c, rows);
 #pragma unroll
     for (int i = 0; i < R * D; ++i)
       x_s[tid][i] = dednn::operand<kBf16>(rows[i]);
@@ -1016,13 +1035,14 @@ __global__ void __launch_bounds__(kInputBB* kInputBN)
 // their operands rounded to bf16.
 template <class S, bool kBf16>
 __global__ void __launch_bounds__(32 * kLossWarps)
-    loss_kernel(const StepArgs* __restrict__ args, int j, Consts c,
-                long long w_off, long long b_off, long long x_off, int H,
-                int B, const float* __restrict__ z,
+    loss_kernel(const StepArgs* __restrict__ args, int j, bool sweep,
+                Consts c, long long w_off, long long b_off, long long x_off,
+                int H, int B, const float* __restrict__ z,
                 const float* __restrict__ a, float* __restrict__ G,
                 float* __restrict__ PL, float* __restrict__ PE,
                 float* __restrict__ dz, size_t ss, size_t ps) {
   constexpr int R = S::R;
+  if (dednn::gated(args, sweep, blockIdx.y, j)) return;
   const int lane = threadIdx.x % 32;
   const int warps = gridDim.x * kLossWarps;
   const size_t so = blockIdx.y * ss;
@@ -1036,9 +1056,14 @@ __global__ void __launch_bounds__(32 * kLossWarps)
   PE = dednn::shift(PE, so);
   dz += so;
   const float* u = args->u + static_cast<size_t>(args->base + j) * B * S::U;
-  const float inv_b = 1.0f / static_cast<float>(B);
+  const int live = dednn::live_batch(args, sweep, blockIdx.y);
+  const float inv_b = 1.0f / static_cast<float>(live > 0 ? live : B);
   for (int b = blockIdx.x * kLossWarps + threadIdx.x / 32; b < B;
        b += warps) {
+    // Under a batch mask a row past bs contributes nothing: its point loss
+    // and cotangents are scaled by 0 (the JAX package's q·mask).
+    const float keep = live > 0 && b >= live ? 0.0f : 1.0f;
+    const float scale = live > 0 ? inv_b * keep : inv_b;
     float out[R], g[R + 1];
 #pragma unroll
     for (int s = 0; s < R; ++s) {
@@ -1054,18 +1079,18 @@ __global__ void __launch_bounds__(32 * kLossWarps)
     }
     // Every lane holds the same outputs (the butterfly's sums commute), so
     // every lane computes the same loss and cotangent.
-    const float point = S::loss(
-        Point{u + static_cast<size_t>(b) * S::U, b, B, args->cnst, extras}, c,
-        out, g);
+    const float point = S::loss(Point{u + static_cast<size_t>(b) * S::U, b, B,
+                                      args->cnst, extras, live},
+                                c, out, g);
     if (lane == 0) {
-      PL[b] = point;
-      if (S::kExtra) PE[b] = g[R];
+      PL[b] = live > 0 ? point * keep : point;
+      if (S::kExtra) PE[b] = live > 0 ? g[R] * keep : g[R];
 #pragma unroll
-      for (int s = 0; s < R; ++s) G[s * B + b] = g[s] * inv_b;
+      for (int s = 0; s < R; ++s) G[s * B + b] = g[s] * scale;
     }
     float gr[R];  // G's entries as the product's operand
 #pragma unroll
-    for (int s = 0; s < R; ++s) gr[s] = dednn::operand<kBf16>(g[s] * inv_b);
+    for (int s = 0; s < R; ++s) gr[s] = dednn::operand<kBf16>(g[s] * scale);
     for (int k = lane; k < H; k += 32) {
       const float w = dednn::operand<kBf16>(w_out[k]);
       float gs[R], prev[R], dzs[R];
@@ -1101,13 +1126,15 @@ __global__ void __launch_bounds__(32 * kLossWarps)
 // Dynamic shared memory: kCausalFloats·B floats. kBf16 as in loss_kernel.
 template <class S, bool kBf16>
 __global__ void __launch_bounds__(kCausalThreads)
-    causal_loss_kernel(const StepArgs* __restrict__ args, int j, Consts c,
-                       long long w_off, long long b_off, int H, int B,
+    causal_loss_kernel(const StepArgs* __restrict__ args, int j, bool sweep,
+                       Consts c, long long w_off, long long b_off, int H,
+                       int B,
                        const float* __restrict__ z,
                        const float* __restrict__ a, float* __restrict__ G,
                        float* __restrict__ PL, float* __restrict__ dz,
                        size_t ss, size_t ps) {
   constexpr int R = S::R, kWarps = kCausalThreads / 32;
+  if (dednn::gated(args, sweep, blockIdx.y, j)) return;
   extern __shared__ float sh[];
   float* e_s = sh;          // [B][3]: the residuals q, r0, rb
   float* t_s = sh + 3 * B;  // [B]: t
@@ -1145,27 +1172,33 @@ __global__ void __launch_bounds__(kCausalThreads)
     }
   }
   __syncthreads();
+  // Under a batch mask the loss is the plain one (weight 1), as the JAX
+  // spec's masked branch: the causal weighting is a single-run protocol.
+  const int live = dednn::live_batch(args, sweep, blockIdx.y);
   const float eps = c.c[4], dt = c.c[5];
   for (int i = threadIdx.x; i < B; i += kCausalThreads) {
     const float ti = t_s[i];
     float cum = 0.0f;
-    for (int k = 0; k < B; ++k)
-      if (t_s[k] < ti) cum += r_s[k];
-    w_s[i] = expf(-eps * (cum * dt));
+    if (live == 0)
+      for (int k = 0; k < B; ++k)
+        if (t_s[k] < ti) cum += r_s[k];
+    w_s[i] = live > 0 ? 1.0f : expf(-eps * (cum * dt));
   }
   __syncthreads();
-  const float inv_b = 1.0f / static_cast<float>(B);
+  const float inv_b = 1.0f / static_cast<float>(live > 0 ? live : B);
   for (int b = warp; b < B; b += kWarps) {
+    const float keep = live > 0 && b >= live ? 0.0f : 1.0f;
+    const float scale = live > 0 ? inv_b * keep : inv_b;
     float g[R];
     const float point = S::weighted_loss(c, e_s + 3 * b, w_s[b], g);
     if (lane == 0) {
-      PL[b] = point;
+      PL[b] = live > 0 ? point * keep : point;
 #pragma unroll
-      for (int s = 0; s < R; ++s) G[s * B + b] = g[s] * inv_b;
+      for (int s = 0; s < R; ++s) G[s * B + b] = g[s] * scale;
     }
     float gr[R];
 #pragma unroll
-    for (int s = 0; s < R; ++s) gr[s] = dednn::operand<kBf16>(g[s] * inv_b);
+    for (int s = 0; s < R; ++s) gr[s] = dednn::operand<kBf16>(g[s] * scale);
     for (int k = lane; k < H; k += 32) {
       const float w = dednn::operand<kBf16>(w_out[k]);
       float gs[R], prev[R], dzs[R];
@@ -1193,15 +1226,20 @@ __global__ void __launch_bounds__(kCausalThreads)
 // loss_kernel.
 template <class S, bool kBf16>
 __global__ void __launch_bounds__(32 * kFoldWarps)
-    fold_loss_kernel(const StepArgs* __restrict__ args, int j, Consts c,
-                     long long w_off, long long b_off, int H, int B, int F,
+    fold_loss_kernel(const StepArgs* __restrict__ args, int j, bool sweep,
+                     Consts c, long long w_off, long long b_off, int H, int B,
+                     int F,
                      const float* __restrict__ a, float* __restrict__ G,
                      float* __restrict__ PL, float* __restrict__ dz,
                      size_t ss, size_t ps) {
+  if (dednn::gated(args, sweep, blockIdx.y, j)) return;
   extern __shared__ float out_s[];  // [F]
   __shared__ float coef_s[2];        // g_0 and q of S::fold_loss
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int b = blockIdx.x;
+  // Under a batch mask a point past bs contributes nothing (scaled by 0).
+  const int live = dednn::live_batch(args, sweep, blockIdx.y);
+  const float keep = live > 0 && b >= live ? 0.0f : 1.0f;
   const size_t so = blockIdx.y * ss;
   const float* w_out = args->p + blockIdx.y * ps + w_off;
   const float bo = args->p[blockIdx.y * ps + b_off];
@@ -1224,15 +1262,19 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
     if (lane == 0) out_s[s] = acc + bo;
   }
   __syncthreads();
-  if (threadIdx.x == 0)
-    PL[b] = S::fold_loss(pt, c, out_s, F, &coef_s[0], &coef_s[1]);
+  if (threadIdx.x == 0) {
+    const float point =
+        S::fold_loss(pt, c, out_s, F, &coef_s[0], &coef_s[1]);
+    PL[b] = live > 0 ? point * keep : point;
+  }
   __syncthreads();
-  const float inv_b = 1.0f / static_cast<float>(B);
+  const float inv_b = 1.0f / static_cast<float>(live > 0 ? live : B);
+  const float scale = live > 0 ? inv_b * keep : inv_b;
   for (int s = warp; s < F; s += kFoldWarps) {
     const float gs = s == 0 ? coef_s[0] : coef_s[1] * S::fold_coef(pt, s);
     const size_t row = static_cast<size_t>(s) * B + b;
-    if (lane == 0) G[row] = gs * inv_b;
-    const float gr = dednn::operand<kBf16>(gs * inv_b);
+    if (lane == 0) G[row] = gs * scale;
+    const float gr = dednn::operand<kBf16>(gs * scale);
     for (int k = lane; k < H; k += 32) {
       const float av = a[row * H + k];
       // act_bwd at a value row: (1 − a²)·g, g through the one output
@@ -1246,17 +1288,20 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
 
 // The step's loss = the batch mean of the point losses, into the replica's
 // slot (blockIdx.x) of call step base + j: lane w sums rows w, w + 32, ...
-// in row order, then lane 0 the 32 sums in lane order. With PE (a spec
+// in row order, then lane 0 the 32 sums in lane order (under a batch mask
+// the rows past bs are zeros and the sum is scaled by 1/bs). With PE (a spec
 // with an extra trainable scalar, at x_off of the replica's parameters),
 // its gradient, the batch mean of PE summed in the same order, then Adam
 // on it at step step0 + base + j + 1 (kAdam), or the gradient to
 // args->grad.
 template <bool kAdam>
 __global__ void loss_sum_kernel(const StepArgs* __restrict__ args, int j,
-                                const float* __restrict__ PL,
+                                bool sweep, const float* __restrict__ PL,
                                 const float* __restrict__ PE, int B,
                                 size_t ss, size_t ps, long long x_off) {
-  const float inv_b = 1.0f / static_cast<float>(B);
+  if (dednn::gated(args, sweep, blockIdx.x, j)) return;
+  const int live = dednn::live_batch(args, sweep, blockIdx.x);
+  const float inv_b = 1.0f / static_cast<float>(live > 0 ? live : B);
   auto batch_sum = [&](const float* v) {
     const int lane = threadIdx.x;
     float sum = 0.0f;
@@ -1274,9 +1319,8 @@ __global__ void loss_sum_kernel(const StepArgs* __restrict__ args, int j,
   if (threadIdx.x != 0) return;
   const size_t at = blockIdx.x * ps + x_off;
   if (kAdam) {
-    const dednn::AdamStep step = dednn::adam_step(
-        args->lr, static_cast<float>(args->step0 + args->base + j + 1),
-        args->sched);
+    const dednn::AdamStep step =
+        dednn::replica_step(args, sweep, blockIdx.x, j);
     float pv = args->p[at], mv = args->m[at], vv = args->v[at];
     dednn::adam_apply(pv, mv, vv, ge, step);
     args->m[at] = mv;
@@ -1358,8 +1402,8 @@ constexpr int wg_groups() {
 // launch's "default" instance.
 template <class S, bool kAdam, bool kBf16>
 cudaError_t enqueue_step(const StepArgs* args, const Consts& c, int j,
-                         float* scratch, int reps, int B, int H, int L, int F,
-                         Streams& st) {
+                         bool sweep, float* scratch, int reps, int B, int H,
+                         int L, int F, Streams& st) {
   constexpr int R = S::R, D = S::D, kWg = wg_groups<S>();
   const int rows = S::kFolded ? F * B : B;
   const Scratch sc(R, rows, D, H, L);
@@ -1384,31 +1428,32 @@ cudaError_t enqueue_step(const StepArgs* args, const Consts& c, int j,
   input_kernel<S, kBf16><<<dim3(dednn::ceil_div(H, kInputBN),
                                 dednn::ceil_div(rows, kInputBB), reps),
                            kInputBB * kInputBN, 0, main>>>(
-      args, j, c, off.b_in, H, rows, B, X, Z, A, ss, n);
+      args, j, sweep, c, off.b_in, H, rows, B, X, Z, A, ss, n);
   for (int l = 1; l <= L; ++l)
-    dednn::layer<Rules<S>, false, kBf16>(at(A, l - 1), args, w_hid(l - 1),
-                                         b_hid(l - 1), H, H, rows, nullptr,
-                                         nullptr, at(Z, l), at(A, l), ss, n,
-                                         reps, main);
+    dednn::layer<Rules<S>, false, kBf16>(at(A, l - 1), args, j, sweep,
+                                         w_hid(l - 1), b_hid(l - 1), H, H,
+                                         rows, nullptr, nullptr, at(Z, l),
+                                         at(A, l), ss, n, reps, main);
   if constexpr (S::kFolded) {
     fold_loss_kernel<S, kBf16><<<dim3(B, reps), 32 * kFoldWarps,
                                  F * sizeof(float), main>>>(
-        args, j, c, off.w_out, off.b_out, H, B, F, at(A, L), G, PL,
+        args, j, sweep, c, off.w_out, off.b_out, H, B, F, at(A, L), G, PL,
         at(DZ, L), ss, n);
   } else if constexpr (S::kCausal) {
     causal_loss_kernel<S, kBf16><<<dim3(1, reps), kCausalThreads,
                                    kCausalFloats * B * sizeof(float), main>>>(
-        args, j, c, off.w_out, off.b_out, H, B, at(Z, L), at(A, L), G, PL,
-        at(DZ, L), ss, n);
+        args, j, sweep, c, off.w_out, off.b_out, H, B, at(Z, L), at(A, L), G,
+        PL, at(DZ, L), ss, n);
   } else {
     loss_kernel<S, kBf16><<<dim3(dednn::ceil_div(B, kLossWarps), reps),
                             32 * kLossWarps, 0, main>>>(
-        args, j, c, off.w_out, off.b_out, off.extras, H, B, at(Z, L),
+        args, j, sweep, c, off.w_out, off.b_out, off.extras, H, B, at(Z, L),
         at(A, L), G, PL, PE, at(DZ, L), ss, n);
   }
   for (int l = L; l >= 1; --l)
-    dednn::layer<Rules<S>, true, kBf16>(at(DZ, l), args, w_hid(l - 1), -1LL,
-                                        H, H, rows, at(Z, l - 1),
+    dednn::layer<Rules<S>, true, kBf16>(at(DZ, l), args, j, sweep,
+                                        w_hid(l - 1), -1LL, H, H, rows,
+                                        at(Z, l - 1),
                                         at(A, l - 1), nullptr, at(DZ, l - 1),
                                         ss, n, reps, main);
 
@@ -1421,23 +1466,25 @@ cudaError_t enqueue_step(const StepArgs* args, const Consts& c, int j,
   for (int l = L; l >= 1; --l) {  // the hidden layers, one lane each in turn
     ++load[(L - l) % 3];
     dednn::weight_grad<kAdam, kWg, kBf16>(at(A, l - 1), H, at(DZ, l), H, lay,
-                                          args, j, w_hid(l - 1), b_hid(l - 1),
-                                          ss, n, reps, lanes[(L - l) % 3]);
+                                          args, j, sweep, w_hid(l - 1),
+                                          b_hid(l - 1), ss, n, reps,
+                                          lanes[(L - l) % 3]);
   }
   loss_sum_kernel<kAdam><<<reps, kLossLanes, 0, lanes[1]>>>(
-      args, j, PL, PE, B, ss, n, off.extras);
+      args, j, sweep, PL, PE, B, ss, n, off.extras);
   ++load[1];
   dednn::weight_grad<kAdam, kWg, kBf16>(at(A, L), H, G, 1, lay, args, j,
-                                        off.w_out, off.b_out, ss, n, reps,
-                                        lanes[1]);
+                                        sweep, off.w_out, off.b_out, ss, n,
+                                        reps, lanes[1]);
   // The input layer's on the least loaded lane, the first of equals (at
   // L = 3 lanes[0], as before; at L = 2 not a third one on lanes[1], which
   // held volterra's step to its three weight gradients in a row).
   int in = 0;
   for (int i = 1; i < 3; ++i)
     if (load[i] < load[in]) in = i;
-  dednn::weight_grad<kAdam, kWg, kBf16>(X, D, DZ, H, lay, args, j, off.w_in,
-                                        off.b_in, ss, n, reps, lanes[in]);
+  dednn::weight_grad<kAdam, kWg, kBf16>(X, D, DZ, H, lay, args, j, sweep,
+                                        off.w_in, off.b_in, ss, n, reps,
+                                        lanes[in]);
   err = st.merge();
   return err != cudaSuccess ? err : cudaGetLastError();
 }
@@ -1516,8 +1563,8 @@ int grad_steps(int spec, const float* consts, const float* cnst,
     if (err == cudaSuccess) err = write_args(dev, a, st);
     if (err != cudaSuccess) return err;
     Streams one{st, {st, st}, nullptr, nullptr};
-    return enqueue_step<S, false, kBf16>(dev, a.c, 0, scratch, 1, B, H, L, F,
-                                         one);
+    return enqueue_step<S, false, kBf16>(dev, a.c, 0, false, scratch, 1, B,
+                                         H, L, F, one);
   });
   return code < 0 ? cudaErrorInvalidValue : code;
 }
@@ -1528,10 +1575,12 @@ int grad_steps(int spec, const float* consts, const float* cnst,
 // groups included) and the spec's numbers (consts, in host memory): it
 // serves every call of that shape and those numbers whose per-call values
 // come through args (engine_train_packed writes them, the const operand's
-// pointer among them).
+// pointer among them); sweep != 0: its launches read the sweep mode's
+// fields, and it serves the calls in that mode alone.
 template <bool kBf16>
 int capture_graph(int spec, const float* consts, int B, int H, int L, int F,
-                  int N, int S, void* args, float* scratch, void** exec) {
+                  int N, int S, int sweep, void* args, float* scratch,
+                  void** exec) {
   *exec = nullptr;
   if (S < 1 || N < 1 || N > dednn::kMaxGridYZ || !fold_ok(F))
     return cudaErrorInvalidValue;
@@ -1547,8 +1596,8 @@ int capture_graph(int spec, const float* consts, int B, int H, int L, int F,
     return dednn::capture_steps(
         dev, S,
         [&](int j, Streams& st) {
-          return enqueue_step<Spec, true, kBf16>(dev, c, j, scratch, N, B, H,
-                                                 L, F, st);
+          return enqueue_step<Spec, true, kBf16>(dev, c, j, sweep != 0,
+                                                 scratch, N, B, H, L, F, st);
         },
         exec);
   });
@@ -1564,14 +1613,20 @@ int capture_graph(int spec, const float* consts, int B, int H, int L, int F,
 // same launches from here, the weight gradients on side0 and side1 (all K,
 // without exec). *step_math_runs (host memory) is set to the number of
 // replica-steps whose step math was enqueued. N above the grid's 65 535 is
-// refused.
+// refused. The sweep mode (StepArgs::lr_vec, bs_vec, steps_vec,
+// trial_horizon; device vectors of N, or nullptr) rides the argument block,
+// so one graph captured in that mode serves every trial; a call is in it
+// when lr_vec and steps_vec are given (bs_vec too, or not: no mask), and
+// exec must then have been captured with sweep != 0.
 template <bool kBf16>
 int train_steps(int spec, const float* consts, const float* cnst, float* p,
                 float* m, float* v, const float* u, float* scratch,
                 float* losses, void* args, void* exec, int S, int N, int K,
                 int B, int H, int L, int F, float lr, int step0, int schedule,
                 float horizon, float decay, float half_span, float log_decay,
-                int* step_math_runs, void* stream, void* side0, void* side1) {
+                const float* lr_vec, const int* bs_vec, const int* steps_vec,
+                int trial_horizon, int* step_math_runs, void* stream,
+                void* side0, void* side1) {
   *step_math_runs = 0;
   if (N < 1 || N > dednn::kMaxGridYZ || !fold_ok(F))
     return cudaErrorInvalidValue;
@@ -1582,6 +1637,14 @@ int train_steps(int spec, const float* consts, const float* cnst, float* p,
   a.step0 = step0;
   a.lr = lr;
   a.sched = Schedule{schedule, horizon, decay, half_span, log_decay};
+  a.lr_vec = lr_vec;
+  a.bs_vec = bs_vec;
+  a.steps_vec = steps_vec;
+  a.trial_horizon = trial_horizon;
+  // The sweep mode takes lr_vec and steps_vec together (bs_vec: a mask).
+  const bool sweep = steps_vec != nullptr;
+  if ((lr_vec != nullptr) != sweep || (bs_vec != nullptr && !sweep))
+    return cudaErrorInvalidValue;
   const int code = dispatch(spec, [&](auto s) -> int {
     using Spec = decltype(s);
     if (!batch_ok<Spec>(B)) return cudaErrorInvalidValue;
@@ -1593,8 +1656,8 @@ int train_steps(int spec, const float* consts, const float* cnst, float* p,
         exec, S, K, N, st, static_cast<cudaStream_t>(side0),
         static_cast<cudaStream_t>(side1),
         [&](int j, Streams& two) {
-          return enqueue_step<Spec, true, kBf16>(dev, a.c, j, scratch, N, B,
-                                                 H, L, F, two);
+          return enqueue_step<Spec, true, kBf16>(dev, a.c, j, sweep, scratch,
+                                                 N, B, H, L, F, two);
         },
         step_math_runs);
   });
@@ -1623,12 +1686,12 @@ extern "C" int engine_grad_bf16(int spec, const float* consts,
 
 extern "C" int engine_graph_build_bf16(int spec, const float* consts, int B,
                                        int H, int L, int F, int N, int S,
-                                       void* args, float* scratch,
+                                       int sweep, void* args, float* scratch,
                                        void** exec)
 #if DEDNN_ENGINE_BF16
 {
-  return capture_graph<true>(spec, consts, B, H, L, F, N, S, args, scratch,
-                             exec);
+  return capture_graph<true>(spec, consts, B, H, L, F, N, S, sweep, args,
+                             scratch, exec);
 }
 #else
     ;
@@ -1639,13 +1702,15 @@ extern "C" int engine_train_packed_bf16(
     float* v, const float* u, float* scratch, float* losses, void* args,
     void* exec, int S, int N, int K, int B, int H, int L, int F, float lr,
     int step0, int schedule, float horizon, float decay, float half_span,
-    float log_decay, int* step_math_runs, void* stream, void* side0,
-    void* side1)
+    float log_decay, const float* lr_vec, const int* bs_vec,
+    const int* steps_vec, int trial_horizon, int* step_math_runs,
+    void* stream, void* side0, void* side1)
 #if DEDNN_ENGINE_BF16
 {
   return train_steps<true>(spec, consts, cnst, p, m, v, u, scratch, losses,
                            args, exec, S, N, K, B, H, L, F, lr, step0,
                            schedule, horizon, decay, half_span, log_decay,
+                           lr_vec, bs_vec, steps_vec, trial_horizon,
                            step_math_runs, stream, side0, side1);
 }
 #else
@@ -1696,11 +1761,12 @@ extern "C" int engine_grad(int spec, const float* consts, const float* cnst,
 // S training steps of N packed replicas as one CUDA graph (capture_graph).
 extern "C" int engine_graph_build(int spec, const float* consts, int B, int H,
                                   int L, int F, int N, int bf16, int S,
-                                  void* args, float* scratch, void** exec) {
-  return bf16 ? engine_graph_build_bf16(spec, consts, B, H, L, F, N, S, args,
-                                        scratch, exec)
-              : capture_graph<false>(spec, consts, B, H, L, F, N, S, args,
-                                     scratch, exec);
+                                  int sweep, void* args, float* scratch,
+                                  void** exec) {
+  return bf16 ? engine_graph_build_bf16(spec, consts, B, H, L, F, N, S, sweep,
+                                        args, scratch, exec)
+              : capture_graph<false>(spec, consts, B, H, L, F, N, S, sweep,
+                                     args, scratch, exec);
 }
 
 extern "C" int engine_graph_free(void* exec) {
@@ -1716,18 +1782,20 @@ extern "C" int engine_train_packed(int spec, const float* consts,
                                    int F, int bf16, float lr, int step0,
                                    int schedule, float horizon, float decay,
                                    float half_span, float log_decay,
+                                   const float* lr_vec, const int* bs_vec,
+                                   const int* steps_vec, int trial_horizon,
                                    int* step_math_runs, void* stream,
                                    void* side0, void* side1) {
   return bf16 ? engine_train_packed_bf16(
                     spec, consts, cnst, p, m, v, u, scratch, losses, args,
                     exec, S, N, K, B, H, L, F, lr, step0, schedule, horizon,
-                    decay, half_span, log_decay, step_math_runs, stream,
-                    side0, side1)
+                    decay, half_span, log_decay, lr_vec, bs_vec, steps_vec,
+                    trial_horizon, step_math_runs, stream, side0, side1)
               : train_steps<false>(
                     spec, consts, cnst, p, m, v, u, scratch, losses, args,
                     exec, S, N, K, B, H, L, F, lr, step0, schedule, horizon,
-                    decay, half_span, log_decay, step_math_runs, stream,
-                    side0, side1);
+                    decay, half_span, log_decay, lr_vec, bs_vec, steps_vec,
+                    trial_horizon, step_math_runs, stream, side0, side1);
 }
 
 // Times what one step is built from (kernels/profile.py --probe-engine):
@@ -1761,32 +1829,34 @@ extern "C" int engine_probe(int kind, int B, int H, int launches,
   for (int i = 0; i < launches; ++i) {
     switch (kind) {
       case 0:
-        dednn::layer<Rules<S>, false>(A, dev, off.w_hid, off.b_hid, H, H, B,
-                                      nullptr, nullptr, Z + layer_floats,
-                                      A + layer_floats, sc.total, n, 1, st);
+        dednn::layer<Rules<S>, false>(A, dev, 0, false, off.w_hid, off.b_hid,
+                                      H, H, B, nullptr, nullptr,
+                                      Z + layer_floats, A + layer_floats,
+                                      sc.total, n, 1, st);
         break;
       case 1:
-        dednn::layer<Rules<S>, true>(DZ + layer_floats, dev, off.w_hid, -1LL,
-                                     H, H, B, Z, A, nullptr, DZ, sc.total, n,
-                                     1, st);
+        dednn::layer<Rules<S>, true>(DZ + layer_floats, dev, 0, false,
+                                     off.w_hid, -1LL, H, H, B, Z, A, nullptr,
+                                     DZ, sc.total, n, 1, st);
         break;
       case 2:
         dednn::weight_grad<false, R>(A, H, DZ + layer_floats, H,
                                      Layout{R, B, S::kValueMask}, dev, 0,
-                                     off.w_hid, off.b_hid, sc.total, n, 1, st);
+                                     false, off.w_hid, off.b_hid, sc.total, n,
+                                     1, st);
         break;
       case 3:
         loss_kernel<S, false><<<dim3(dednn::ceil_div(B, kLossWarps), 1),
                          32 * kLossWarps, 0, st>>>(
-            dev, 0, Consts{}, off.w_out, off.b_out, off.extras, H, B, Z, A,
-            scratch + sc.G, scratch + sc.PL, scratch + sc.PE, DZ, sc.total,
-            n);
+            dev, 0, false, Consts{}, off.w_out, off.b_out, off.extras, H, B,
+            Z, A, scratch + sc.G, scratch + sc.PL, scratch + sc.PE, DZ,
+            sc.total, n);
         break;
       case 4:
         input_kernel<S, false><<<dim3(dednn::ceil_div(H, kInputBN),
                                       dednn::ceil_div(B, kInputBB), 1),
                           kInputBB * kInputBN, 0, st>>>(
-            dev, 0, Consts{}, off.b_in, H, B, B, scratch + sc.X, Z, A,
+            dev, 0, false, Consts{}, off.b_in, H, B, B, scratch + sc.X, Z, A,
             sc.total, n);
         break;
       default:

@@ -61,7 +61,55 @@ struct StepArgs {
   float lr;
   Schedule sched;
   Consts c;
+  // The sweep mode's per-replica values (engine_core.py:60-64, :233-237 of
+  // the JAX package), read only by the launches of a sweep-mode step (the
+  // kernels' `sweep` argument; null outside it, lr_vec and steps_vec both
+  // set in it): replica r's lr; its batch bs[r] (rows b >= bs[r] are out
+  // of its loss, which is scaled by 1/bs[r]; null: no mask); its step
+  // budget (call steps at or past it leave p, m, v and the loss row alone,
+  // and its launches return at entry); with trial_horizon, a decaying
+  // schedule's horizon is max(budget, 1).
+  const float* lr_vec;
+  const int* bs_vec;
+  const int* steps_vec;
+  int trial_horizon;
 };
+
+// Each launch of a step takes `sweep` (a kernel argument, so a step outside
+// the sweep mode reads none of its fields: a load at every kernel's entry
+// cost heat2d's step 5 %) and its call step j. The host sets lr_vec and
+// steps_vec in the mode, yet gated and replica_step test them too: without
+// those tests the loss and weight-gradient kernels compiled differently
+// outside the mode and heat2d's step cost 2.3 % more (kernels/profile.py
+// --steady on the H100).
+
+// True if replica r's step budget ends before call step base + j: each of
+// its launches of that step returns at entry.
+__device__ __forceinline__ bool gated(const StepArgs* args, bool sweep,
+                                      int r, int j) {
+  return sweep && args->steps_vec != nullptr &&
+         args->base + j >= args->steps_vec[r];
+}
+
+// Replica r's masked batch bs[r], or 0 outside the masked mode.
+__device__ __forceinline__ int live_batch(const StepArgs* args, bool sweep,
+                                          int r) {
+  return sweep && args->bs_vec != nullptr ? args->bs_vec[r] : 0;
+}
+
+// Replica r's Adam scalars at call step base + j: in the sweep mode its own
+// lr and, with a trial horizon, its own budget as the decay's horizon.
+__device__ __forceinline__ AdamStep replica_step(const StepArgs* args,
+                                                 bool sweep, int r, int j) {
+  const float t = static_cast<float>(args->step0 + args->base + j + 1);
+  if (!sweep) return adam_step(args->lr, t, args->sched);
+  Schedule sched = args->sched;
+  if (args->trial_horizon != 0 && args->steps_vec != nullptr &&
+      sched.kind != 0)
+    sched.horizon = fmaxf(static_cast<float>(args->steps_vec[r]), 1.0f);
+  return adam_step(args->lr_vec != nullptr ? args->lr_vec[r] : args->lr, t,
+                   sched);
+}
 
 // ---------------------------------------------------------------------------
 // Staging and register tiles
@@ -144,8 +192,9 @@ __device__ __forceinline__ void load_frag(const float* src, float (&dst)[T]) {
 // thread at a time (all loads before any store). Rows are staged 16 bytes
 // per cp.async where the block's operands are aligned, each thread copying
 // the same row slot of every step. kAdam: Adam on p, m,
-// v of the replica (blockIdx.z) at step step0 + base + j + 1; otherwise the
-// gradient to args->grad (one replica). Dynamic shared memory:
+// v of the replica (blockIdx.z) at step step0 + base + j + 1 (its blocks
+// return at entry past its budget: gated); otherwise the gradient to
+// args->grad (one replica). Dynamic shared memory:
 // wg_smem_bytes<...>().
 //
 // kBf16 (the "default" precision): the same staging, rounds and epilogue,
@@ -170,7 +219,7 @@ __global__ void __launch_bounds__(kGroups * (BK / TK) * (BM / TM))
     weight_grad_kernel(const float* __restrict__ A, int KA,
                        const float* __restrict__ x,
                        const float* __restrict__ dz, int M, Layout lay,
-                       const StepArgs* __restrict__ args, int j,
+                       const StepArgs* __restrict__ args, int j, bool sweep,
                        long long w_off, long long u_off, long long b_off,
                        size_t ss, size_t ps) {
   constexpr int kTile = (BK / TK) * (BM / TM);
@@ -183,6 +232,7 @@ __global__ void __launch_bounds__(kGroups * (BK / TK) * (BM / TM))
                              : 16;
   static_assert(kTile >= 2 * BM, "a thread per bias and x-row column");
   static_assert(kGroups * kRows <= kThreads, "a thread per row of x");
+  if (gated(args, sweep, blockIdx.z, j)) return;
   extern __shared__ __align__(16) float smem[];
   using ATile = float[kGroups][kRows][BK + 4];
   using DTile = float[kGroups][kRows][BM + 4];
@@ -396,10 +446,7 @@ __global__ void __launch_bounds__(kGroups * (BK / TK) * (BM / TM))
 
   const size_t po = blockIdx.z * ps;
   AdamStep step{};
-  if (kAdam)
-    step = dednn::adam_step(
-        args->lr,
-        static_cast<float>(args->step0 + args->base + j + 1), args->sched);
+  if (kAdam) step = replica_step(args, sweep, blockIdx.z, j);
   for (int e0 = tid; e0 < kOut; e0 += kBatch * kThreads) {
     long long idx[kBatch];
     float gv[kBatch];

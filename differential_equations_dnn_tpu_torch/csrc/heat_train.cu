@@ -402,7 +402,8 @@ cudaError_t enqueue_step(const StepArgs* args, const HeatConsts& c, int j,
                          int k_out, long long w_off, long long b_off,
                          cudaStream_t stream) {
     dednn::weight_grad<kAdam, kR, kBf16>(a, k_in, dz, k_out, lay, args, j,
-                                         w_off, b_off, 0, 0, 1, stream);
+                                         false, w_off, b_off, 0, 0, 1,
+                                         stream);
   };
 
   input_kernel<kBf16><<<dim3(dednn::ceil_div(H, kInputBN),
@@ -410,10 +411,10 @@ cudaError_t enqueue_step(const StepArgs* args, const HeatConsts& c, int j,
                         kInputBB * kInputBN, 0, main>>>(args, j, c, H, B, X,
                                                         Z, A);
   for (int l = 1; l <= L; ++l)
-    dednn::layer<HeatRules, false, kBf16>(at(A, l - 1), args, w_hid(l - 1),
-                                          b_hid(l - 1), H, H, B, nullptr,
-                                          nullptr, at(Z, l), at(A, l), 0, 0,
-                                          1, main);
+    dednn::layer<HeatRules, false, kBf16>(at(A, l - 1), args, j, false,
+                                          w_hid(l - 1), b_hid(l - 1), H, H, B,
+                                          nullptr, nullptr, at(Z, l),
+                                          at(A, l), 0, 0, 1, main);
   loss_kernel<kBf16><<<dednn::ceil_div(B, kLossWarps), 32 * kLossWarps, 0,
                        main>>>(
       args, j, c, off.w_out, off.b_out, H, B, at(Z, L), at(A, L), G, PL,
@@ -424,10 +425,10 @@ cudaError_t enqueue_step(const StepArgs* args, const HeatConsts& c, int j,
   loss_sum_kernel<<<1, kLossLanes, 0, side>>>(args, j, PL, B);
   weight_grad(at(A, L), H, G, 1, off.w_out, off.b_out, side);
   for (int l = L; l >= 1; --l) {
-    dednn::layer<HeatRules, true, kBf16>(at(DZ, l), args, w_hid(l - 1), -1LL,
-                                         H, H, B, at(Z, l - 1), at(A, l - 1),
-                                         nullptr, at(DZ, l - 1), 0, 0, 1,
-                                         main);
+    dednn::layer<HeatRules, true, kBf16>(at(DZ, l), args, j, false,
+                                         w_hid(l - 1), -1LL, H, H, B,
+                                         at(Z, l - 1), at(A, l - 1), nullptr,
+                                         at(DZ, l - 1), 0, 0, 1, main);
     err = st.branch(&side);
     if (err != cudaSuccess) return err;
     weight_grad(at(A, l - 1), H, at(DZ, l), H, w_hid(l - 1), b_hid(l - 1),

@@ -40,8 +40,10 @@ constexpr size_t layer_smem_bytes() {
 }
 
 // One hidden layer over a tile of BB batch points × all R streams × BN
-// columns, for step j's launch (the weight at w_off, the bias at b_off in
-// the replica's parameters, read through args).
+// columns, for call step base + j (the weight at w_off, the bias at b_off
+// in the replica's parameters, read through args; kGate, the sweep mode's
+// instances: a replica past its step budget returns at entry,
+// fused_step.cuh's gated).
 //   Forward (!kBwd): in [R·B, K] activations, W [K, M]; out = in·W, plus
 //     the bias on value rows, then the tanh rules: z_out = Z, a_out = A.
 //   Backward (kBwd): in = dz [R·B, K] of this layer, W [M, K] (the layer's
@@ -70,15 +72,21 @@ constexpr size_t layer_smem_bytes() {
 // zeros add nothing. The sums then reach the epilogue through shared memory
 // as the fp32 sums do.
 template <class Rules, bool kBwd, int BB, int BN, int TM, int TN, int BK,
-          int kStages, bool kBf16 = false>
+          int kStages, bool kBf16 = false, bool kGate = false>
 __global__ void __launch_bounds__((Rules::R * BB / TM) * (BN / TN))
     layer_kernel(const float* __restrict__ in,
-                 const StepArgs* __restrict__ args, long long w_off,
-                 long long b_off, int K, int M, int B,
+                 const StepArgs* __restrict__ args, int j, long long w_off, long long b_off, int K, int M, int B,
                  const float* __restrict__ z_prev,
                  const float* __restrict__ a_prev, float* __restrict__ z_out,
                  float* __restrict__ a_out, size_t ss, size_t ps) {
   constexpr int R = Rules::R;
+  // The gate keeps a pruned or finished replica's blocks nearly free. It
+  // is an instance of its own: its mere presence changes this kernel's
+  // code generation, which cost a packed step outside the sweep mode up to
+  // 6 % (wave × 8 at the 8 × 64 tile; kernels/profile.py --steady).
+  if constexpr (kGate) {
+    if (gated(args, true, blockIdx.z, j)) return;
+  }
   constexpr int kRowsA = R * BB;
   constexpr int kColThreads = BN / TN;
   constexpr int kThreads = (kRowsA / TM) * kColThreads;
@@ -317,11 +325,12 @@ constexpr LayerConfig layer_config(int C) {
   return R == 1 ? kLayerR1[C] : kLayer[C];
 }
 
-template <class Rules, bool kBwd, int C, bool kBf16 = false>
+template <class Rules, bool kBwd, int C, bool kBf16 = false,
+          bool kGate = false>
 auto layer_instance() {
   constexpr LayerConfig c = layer_config<Rules::R>(C);
   return layer_kernel<Rules, kBwd, c.bb, c.bn, c.tm, c.tn, c.bk, c.stages,
-                      kBf16>;
+                      kBf16, kGate>;
 }
 
 template <int R, int C>
@@ -331,20 +340,24 @@ constexpr size_t layer_config_smem() {
 }
 
 // One hidden layer (layer_kernel; the tile by the blocks it gives), at
-// the "default" precision's bf16 instance where kBf16.
+// the "default" precision's bf16 instance where kBf16, at the gated
+// instance in the sweep mode.
 template <class Rules, bool kBwd, bool kBf16 = false>
-void layer(const float* in, const StepArgs* args, long long w_off,
-           long long b_off, int K, int M, int B, const float* z_prev,
-           const float* a_prev, float* z_out, float* a_out, size_t ss,
-           size_t ps, int reps, cudaStream_t stream) {
+void layer(const float* in, const StepArgs* args, int j, bool sweep,
+           long long w_off, long long b_off, int K, int M, int B,
+           const float* z_prev, const float* a_prev, float* z_out,
+           float* a_out, size_t ss, size_t ps, int reps,
+           cudaStream_t stream) {
   constexpr int R = Rules::R;
   auto go = [&](auto config) {
     constexpr int C = decltype(config)::value;
     constexpr LayerConfig c = layer_config<R>(C);
-    launch(layer_instance<Rules, kBwd, C, kBf16>(),
-           (R * c.bb / c.tm) * (c.bn / c.tn), layer_config_smem<R, C>(), c.bb,
-           c.bn, B, M, reps, stream, in, args, w_off, b_off, K, M, B, z_prev,
-           a_prev, z_out, a_out, ss, ps);
+    auto kernel = sweep ? layer_instance<Rules, kBwd, C, kBf16, true>()
+                        : layer_instance<Rules, kBwd, C, kBf16, false>();
+    launch(kernel, (R * c.bb / c.tm) * (c.bn / c.tn),
+           layer_config_smem<R, C>(), c.bb, c.bn, B, M, reps, stream, in,
+           args, j, w_off, b_off, K, M, B, z_prev, a_prev, z_out, a_out, ss,
+           ps);
   };
   auto fits = [&](int i) {
     const LayerConfig c = layer_config<R>(i);
@@ -383,7 +396,7 @@ constexpr size_t wg_config_smem() {
 // args->grad), at the bf16 instance where kBf16.
 template <bool kAdam, int R, bool kBf16 = false>
 void weight_grad(const float* A, int KA, const float* dz, int M,
-                 const Layout& lay, const StepArgs* args, int j,
+                 const Layout& lay, const StepArgs* args, int j, bool sweep,
                  long long w_off, long long b_off, size_t ss, size_t ps,
                  int reps, cudaStream_t stream) {
   const float* none = nullptr;
@@ -392,7 +405,7 @@ void weight_grad(const float* A, int KA, const float* dz, int M,
     constexpr WgTile t = kWgTile[C];
     launch(wg_instance<kAdam, R, C, kBf16>(), (t.bk / t.tk) * (t.bm / t.tm) * R,
            wg_config_smem<R, C>(), t.bk, t.bm, KA, M, reps, stream, A, KA,
-           none, dz, M, lay, args, j, w_off, -1LL, b_off, ss, ps);
+           none, dz, M, lay, args, j, sweep, w_off, -1LL, b_off, ss, ps);
   };
   if (blocks(KA, M, kWgTile[0].bk, kWgTile[0].bm, reps) >=
       kWgTile[0].min_blocks)
@@ -414,11 +427,13 @@ size_t step_smem_bytes() {
 template <class Rules, int C, bool kBf16>
 cudaError_t allow_layer() {
   constexpr size_t bytes = layer_config_smem<Rules::R, C>();
-  const cudaError_t err =
-      allow_smem(layer_instance<Rules, false, C, kBf16>(), bytes);
-  return err != cudaSuccess
-             ? err
-             : allow_smem(layer_instance<Rules, true, C, kBf16>(), bytes);
+  for (const cudaError_t err :
+       {allow_smem(layer_instance<Rules, false, C, kBf16, false>(), bytes),
+        allow_smem(layer_instance<Rules, true, C, kBf16, false>(), bytes),
+        allow_smem(layer_instance<Rules, false, C, kBf16, true>(), bytes),
+        allow_smem(layer_instance<Rules, true, C, kBf16, true>(), bytes)})
+    if (err != cudaSuccess) return err;
+  return cudaSuccess;
 }
 
 template <int R, int C, bool kBf16>

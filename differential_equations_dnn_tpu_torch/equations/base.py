@@ -65,6 +65,14 @@ class Problem:
         points (JAX base.py:52-58)."""
         return self.sample(n, generator, device)
 
+    @property
+    def max_sample_size(self):
+        """The largest per-step collocation batch ``sample`` can produce, or
+        None if unbounded (JAX base.py:60-66). Fixed-grid problems
+        (FitzHugh–Nagumo's grid, the UAT demo's) override it; the sweeps
+        clamp their batch-size space to it."""
+        return None
+
     def batch_from_uniforms(self, u):
         """The collocation batch built from ``[B, n_uniform]`` draws, as
         the fused engine's spec builds it."""

@@ -72,16 +72,17 @@ _SIGNATURES = {
     # spec, consts, const, p, u, scratch, grad, loss, args, B, H, L, F,
     # bf16, stream
     "engine_grad": [_I, _CONSTS] + [_P] * 7 + [_I] * 5 + [_P],
-    # spec, consts, B, H, L, F, N, bf16, S, args, scratch, exec (out)
-    "engine_graph_build": [_I, _CONSTS] + [_I] * 7
+    # spec, consts, B, H, L, F, N, bf16, S, sweep, args, scratch, exec (out)
+    "engine_graph_build": [_I, _CONSTS] + [_I] * 8
                           + [_P, _P, ctypes.POINTER(ctypes.c_void_p)],
     # exec
     "engine_graph_free": [_P],
     # spec, consts, const, p, m, v, u, scratch, losses, args, exec, S, N, K,
     # B, H, L, F, bf16, lr, step0, schedule, horizon, decay, half_span,
-    # log_decay, step_math_runs, stream, side0, side1
+    # log_decay, lr_vec, bs_vec, steps_vec, trial_horizon, step_math_runs,
+    # stream, side0, side1 (the three vectors: device pointers or None)
     "engine_train_packed": [_I, _CONSTS] + [_P] * 9 + [_I] * 8
-                           + [_F, _I, _I] + [_F] * 4
+                           + [_F, _I, _I] + [_F] * 4 + [_P] * 3 + [_I]
                            + [ctypes.POINTER(_I), _P, _P, _P],
     # kind, B, H, launches, params, scratch, args, stream
     "engine_probe": [_I] * 4 + [_P] * 4,
@@ -92,17 +93,18 @@ _SIGNATURES = {
     # spec, consts, const, p, u, scratch, grad, loss, args, R, B, H, L, O,
     # act, value_mask, bf16, stream
     "dgm_grad": [_I, _CONSTS] + [_P] * 7 + [_I] * 6 + [_U, _I, _P],
-    # spec, R, B, H, L, O, act, value_mask, N, bf16, S, args, scratch, exec
-    # (out)
-    "dgm_graph_build": [_I] * 7 + [_U, _I, _I, _I, _P, _P,
+    # spec, R, B, H, L, O, act, value_mask, N, bf16, S, sweep, args,
+    # scratch, exec (out)
+    "dgm_graph_build": [_I] * 7 + [_U, _I, _I, _I, _I, _P, _P,
                                    ctypes.POINTER(ctypes.c_void_p)],
     # exec
     "dgm_graph_free": [_P],
     # spec, consts, const, p, m, v, u, scratch, losses, args, exec, S, N, K,
     # R, B, H, L, O, act, value_mask, bf16, lr, step0, schedule, horizon,
-    # decay, half_span, log_decay, step_math_runs, stream, side0, side1
+    # decay, half_span, log_decay, lr_vec, bs_vec, steps_vec, trial_horizon,
+    # step_math_runs, stream, side0, side1
     "dgm_train_packed": [_I, _CONSTS] + [_P] * 9 + [_I] * 9
-                        + [_U, _I, _F, _I, _I] + [_F] * 4
+                        + [_U, _I, _F, _I, _I] + [_F] * 4 + [_P] * 3 + [_I]
                         + [ctypes.POINTER(_I), _P, _P, _P],
     # trans, A, W, C, args, rows, K, M, replicas, ss, launches, stream
     "dgm_gemm_probe": [_I] + [_P] * 4 + [_I] * 4

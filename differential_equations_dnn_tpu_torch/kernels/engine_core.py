@@ -17,6 +17,10 @@ through ``fused_engine.fused_engine_chunk`` (one replica) and
   :func:`unstack_replicas`), :func:`run_fused_packed`, the plain twin of
   the packed kernel (#5, ``fused_packed_adam_kernel``), and
   :func:`check_replicas`, the limits of a packed launch;
+* the sweep mode of both loops (the JAX kernels' run-time scalars and
+  per-slot vectors): rows ≥ bs masked out of the loss, steps at or past
+  the budget doing nothing, and the trial's own budget as a decaying
+  schedule's horizon (:func:`sweep_vectors` checks a call's values);
 * :func:`check_const`, the checks of the const operand a step math may
   read (one buffer per call, shared by every replica).
 
@@ -31,6 +35,7 @@ the whole batch and only checks that ``batch_tile`` divides it.
 
 import math
 
+import numpy as np
 import torch
 
 from differential_equations_dnn_tpu_torch.core.precision import (
@@ -78,19 +83,6 @@ def step_plan(R, groups=None):
                       + (G + 1) * (bk * bm + 2 * bm))
                  for bk, bm in WG_TILES)
     return layer, weight
-
-_TODO = {
-    "runtime_bs": "queue 1, item 13: the sweep evaluators' runtime masks",
-    "runtime_steps": "queue 1, item 13: the sweep evaluators' runtime masks",
-    "per_slot": "queue 1, item 13: the packed sweep mode's per-slot lr, "
-                "batch and step vectors",
-}
-
-
-def not_ported(option: str) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not ported yet (ROADMAP.md "
-                               f"{_TODO[option]})")
-
 
 def check_schedule(schedule: str) -> None:
     if schedule not in SCHEDULES:
@@ -173,22 +165,48 @@ def check_batch_tile(B: int, batch_tile: int | None) -> None:
         raise ValueError(f"batch {B} not divisible by batch_tile {batch_tile}")
 
 
+def batch_mask(B, bs, device=None):
+    """The sweep mode's row mask ``[B, 1]`` (rows < bs are 1) and 1/bs,
+    an fp32 division as the kernels take it."""
+    rows = torch.arange(B, device=device)[:, None]
+    mask = (rows < int(bs)).to(torch.float32)
+    return mask, 1.0 / torch.tensor(float(bs), device=device)
+
+
 def run_fused_chunk(step_math, params, m, v, uniforms, step0, lrate, *,
                     schedule="constant", total_steps=1, decay=0.1,
-                    batch_tile=None, precision="highest"):
+                    batch_tile=None, precision="highest", runtime_bs=None,
+                    runtime_steps=None, trial_horizon=True):
     """Run ``K = uniforms.shape[0]`` Adam steps with ``step_math(params,
     u, precision) -> (loss, flat_grad)`` on flat fp32 buffers, every step at
     ``precision`` ("highest" | "default"). The schedule's horizon is
     ``total_steps`` whatever the precision, so the two phases of a "mixed"
     run share one lr curve. Returns new (params, m, v, losses[K]); the
-    inputs are left unchanged."""
+    inputs are left unchanged.
+
+    The sweep mode (JAX ``fused_adam_kernel``'s run-time scalars):
+    ``runtime_bs`` masks rows ≥ bs out of the loss, calling
+    ``step_math(params, u, precision, mask01 [B, 1], inv_bs)``;
+    ``runtime_steps`` makes the chunk's steps k ≥ n_steps leave params, m
+    and v alone with loss 0; with ``trial_horizon`` (and either of the
+    two) a decaying schedule's horizon is max(n_steps, 1), else
+    ``total_steps``."""
     K, B, _ = uniforms.shape
     check_schedule(schedule)
     check_batch_tile(B, batch_tile)
     check_precision(precision, ("highest", "default"))
+    has_runtime = runtime_bs is not None or runtime_steps is not None
+    n_steps = K if runtime_steps is None else int(runtime_steps)
+    if has_runtime and trial_horizon and schedule != "constant":
+        total_steps = max(n_steps, 1)
+    masked = () if runtime_bs is None else batch_mask(B, runtime_bs,
+                                                      params.device)
     losses = []
     for k in range(K):
-        loss, g = step_math(params, uniforms[k], precision)
+        if k >= n_steps:
+            losses.append(params.new_zeros(()))
+            continue
+        loss, g = step_math(params, uniforms[k], precision, *masked)
         t = torch.tensor(step0 + k + 1, dtype=torch.float32,
                          device=params.device)
         lr = scheduled_lr(lrate, t, schedule, total_steps, decay)
@@ -254,19 +272,44 @@ def check_rep_tile(n_replicas, rep_tile):
                          f"rep_tile {rep_tile}")
 
 
-def reject_per_slot(**options):
-    """The packed sweep mode (per-slot lr, batch and step vectors, masked
-    rows) is not ported."""
-    for name, val in options.items():
-        if val is not None and val is not False:
-            raise not_ported("per_slot")
+def sweep_vectors(n_replicas, lrate, B, K, lr_vec=None, bs_vec=None,
+                  steps_vec=None, mask_rows=False):
+    """The packed sweep mode's per-slot values as host numpy vectors of N
+    (JAX ``run_fused_packed``'s defaults: lrate, B and K), or None outside
+    it (all three vectors None and no ``mask_rows``). ``mask_rows`` without
+    ``bs_vec`` masks at B. Each bs must lie in [1, B] and each budget be
+    at least 0 (a budget past K gates no step of the call)."""
+    if (lr_vec is None and bs_vec is None and steps_vec is None
+            and not mask_rows):
+        return None
+
+    def vec(x, default, dtype):
+        if x is None:
+            return np.full(n_replicas, default, dtype)
+        x = x.detach().cpu().numpy() if torch.is_tensor(x) else x
+        x = np.asarray(x).astype(dtype).reshape(-1)
+        if x.shape != (n_replicas,):
+            raise ValueError(f"a per-slot vector holds {x.shape[0]} values "
+                             f"for {n_replicas} replicas")
+        return x
+
+    lrs = vec(lr_vec, lrate, np.float32)
+    bss = vec(bs_vec, B, np.int32)
+    ns = vec(steps_vec, K, np.int32)
+    if mask_rows and (bss.min() < 1 or bss.max() > B):
+        raise ValueError(f"per-slot batch sizes must lie in [1, {B}] "
+                         f"(got {bss.min()} .. {bss.max()})")
+    if ns.min() < 0:
+        raise ValueError(f"per-slot step budgets must be at least 0 "
+                         f"(got {ns.min()})")
+    return lrs, (bss if mask_rows else None), ns
 
 
 def run_fused_packed(step_math, params, m, v, uniforms, step0, lrate,
                      n_replicas, *, rep_tile=None, schedule="constant",
                      total_steps=1, decay=0.1, const=None, lr_vec=None,
                      bs_vec=None, steps_vec=None, mask_rows=False,
-                     precision="highest"):
+                     trial_horizon=True, precision="highest"):
     """Plain twin of the packed kernel (JAX ``run_fused_packed``): ``K =
     uniforms.shape[0]`` Adam steps for each of ``n_replicas`` independent
     runs at ``precision``, with ``step_math(p, u, const, precision) ->
@@ -276,22 +319,36 @@ def run_fused_packed(step_math, params, m, v, uniforms, step0, lrate,
     (params, m, v, losses [N, K]); the inputs are left unchanged.
 
     ``rep_tile`` must divide N; on the H100 every launch covers all N
-    replicas (the TPU tiled them to fit VMEM). The sweep mode (``lr_vec``,
-    ``bs_vec``, ``steps_vec``, ``mask_rows``) is not ported."""
-    reject_per_slot(lr_vec=lr_vec, bs_vec=bs_vec, steps_vec=steps_vec,
-                    mask_rows=mask_rows)
+    replicas (the TPU tiled them to fit VMEM). ``lr_vec``, ``bs_vec`` and
+    ``steps_vec`` ([N] each; :func:`sweep_vectors`) switch on the packed
+    sweep mode: slot r trains at its own lr, masks rows ≥ bs[r] out of its
+    loss (``mask_rows``, with ``step_math(p, u, const, precision, mask01,
+    inv_bs)``) and stops at its own budget (0: a pruned slot, which
+    returns its input state and losses of 0); with ``trial_horizon`` a
+    decaying schedule runs over the slot's own budget."""
     check_rep_tile(n_replicas, rep_tile)
     if params.shape[0] != n_replicas:
         raise ValueError(f"params hold {params.shape[0]} replicas, "
                          f"n_replicas is {n_replicas}")
+    K, B, _ = uniforms.shape
+    sweep = sweep_vectors(n_replicas, lrate, B, K, lr_vec, bs_vec,
+                          steps_vec, mask_rows)
 
-    def one_step_math(p, u, precision):
-        return step_math(p, u, const, precision)
+    def one_step_math(p, u, precision, *masked):
+        return step_math(p, u, const, precision, *masked)
+
+    def run(r):
+        kw = {}
+        lr = lrate
+        if sweep is not None:
+            lrs, bss, ns = sweep
+            lr = torch.tensor(lrs[r], device=params.device)
+            kw = dict(runtime_bs=None if bss is None else int(bss[r]),
+                      runtime_steps=int(ns[r]), trial_horizon=trial_horizon)
+        return run_fused_chunk(one_step_math, params[r], m[r], v[r],
+                               uniforms, step0, lr, schedule=schedule,
+                               total_steps=total_steps, decay=decay,
+                               precision=precision, **kw)
 
     # The replicas are independent: each is the single-replica loop.
-    runs = [run_fused_chunk(one_step_math, params[r], m[r], v[r], uniforms,
-                            step0, lrate, schedule=schedule,
-                            total_steps=total_steps, decay=decay,
-                            precision=precision)
-            for r in range(n_replicas)]
-    return tuple(torch.stack(t) for t in zip(*runs))
+    return tuple(torch.stack(t) for t in zip(*map(run, range(n_replicas))))

@@ -28,8 +28,11 @@ the const operand). Single runs (``fused_dgm_chunk``,
 ``precision`` "highest" (exact fp32) or "default" (the products the JAX
 step math gives ``precision``, x·U and the x-row gradients among them,
 take bf16 operands and accumulate in fp32; the loss's own products stay
-fp32), and the trainers at "mixed" too (core/precision.py); the sweep
-evaluators are not ported (ROADMAP.md).
+fp32), and the trainers at "mixed" too (core/precision.py). The sweep
+mode (a row mask over collocation rows, a step budget, a trial's own lr
+horizon; per-slot values in a packed call) serves the sweep evaluators
+(``make_trial_evaluator``, ``make_sweep_evaluator``,
+``make_packed_rung_evaluator``; sweep/search.py).
 
 On the card a chunk replays a CUDA graph of GRAPH_STEPS training steps,
 captured on the first call of its shape and cached (kernels/graphs.py:
@@ -39,6 +42,7 @@ launches.
 """
 
 import ctypes
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -56,6 +60,7 @@ from differential_equations_dnn_tpu_torch.core.prng import (
 )
 from differential_equations_dnn_tpu_torch.kernels import build
 from differential_equations_dnn_tpu_torch.kernels import engine_core
+from differential_equations_dnn_tpu_torch.kernels import fused_engine
 from differential_equations_dnn_tpu_torch.kernels import graphs
 from differential_equations_dnn_tpu_torch.kernels.graphs import (  # noqa: F401
     GRAPH_STEPS,
@@ -67,6 +72,8 @@ from differential_equations_dnn_tpu_torch.kernels.fused_engine import (
     _bias_mask,
     _n_rows,
     _smean,
+    pad_losses,
+    sweep_args,
 )
 from differential_equations_dnn_tpu_torch.kernels.fused_train import (
     CHUNK_PRECISIONS,
@@ -218,13 +225,15 @@ def _mul_bwd(groups, u, b, B):
 # ---------------------------------------------------------------------------
 
 
-def dgm_step_math(spec, params, u, B, L, const=None, precision="highest"):
+def dgm_step_math(spec, params, u, B, L, const=None, precision="highest",
+                  batch_mask=None, inv_bs=None):
     """One training step's loss ``[1, 1]`` and parameter gradients for a
     DGM stream spec. ``params`` = the ten tensors of :func:`unpack_dgm`;
     ``u`` = [B, spec.n_uniform] U[0,1) draws; ``const`` = the spec's const
     operand (Fredholm's nodes and weights); ``precision`` ("highest" |
-    "default") that of the products the JAX step math gives it. Returns
-    (loss, grads_tuple)."""
+    "default") that of the products the JAX step math gives it;
+    ``batch_mask`` [B, 1] and ``inv_bs`` the sweep mode's row mask (the
+    spec's masked loss). Returns (loss, grads_tuple)."""
     groups = spec.groups
     act = spec.act
     w_in, b_in, Wzgr, Uzgr, bzgr, Wh, Uh, bh, w_out, b_out = params
@@ -233,6 +242,8 @@ def dgm_step_math(spec, params, u, B, L, const=None, precision="highest"):
         return matmul(a, b, precision)
 
     X, ctx = spec.build(u, const)
+    if batch_mask is not None:
+        ctx = {**ctx, "mask": batch_mask, "inv_bs": inv_bs}
     mask = _bias_mask(groups, B, X)
     H = w_in.shape[1]
 
@@ -327,7 +338,14 @@ class FNDGMSpec:
     With ``p.causal_eps > 0`` (the default) collocation is stratified
     (t_i = (i + u_i)·t_max/B, time-sorted) and the residual at t_i is
     weighted by exp(−ε·Δt·Σ_{j<i} ℓ_j), the weights held constant for the
-    gradient (the JAX kernel's strictly-lower-triangular matmul)."""
+    gradient (the JAX kernel's strictly-lower-triangular matmul).
+
+    Under the sweep mode's batch mask (rows ≥ bs out) the loss is the
+    plain one over the bs live rows, Σ r²·mask/bs + Σ (s0 − y_ic)²·mask/
+    (2·bs) (both components summed), which at bs = B is the unmasked loss.
+    The JAX spec's masked branch scales the IC sum by 1/bs
+    (fused_dgm.py:363-364 of the JAX package), twice its unmasked weight;
+    the port trains the intended loss."""
     p: object
     n_uniform: int = 1
     act: str = "tanh"
@@ -353,6 +371,12 @@ class FNDGMSpec:
         f_w = (p.beta * sv - p.alpha - rev) / p.tau       # col 1 (w, y=rev)
         r = dsdt + torch.where(col == 0, f_y, f_w)
         r2 = torch.square(r)
+        mask = ctx.get("mask")
+        if mask is not None:
+            inv_bs = ctx["inv_bs"]
+            return (_ksum(r2 * mask) * inv_bs
+                    + _ksum(torch.square(s0 - p.y_ic) * mask)
+                    * (0.5 * inv_bs))
         ic = _smean(torch.square(s0 - p.y_ic))
         if p.causal_eps <= 0.0:
             # mean(r_y²)+mean(r_w²)+mean((s0−ic)²) = 2·mean_full(r²) + ...
@@ -402,7 +426,9 @@ class FredholmDGMSpec:
             t_j, w_j = const[2 * j], const[2 * j + 1]
             integral = integral + _ksum(w_j * torch.cos(t_j) * outs[1 + j])
         r = y_x - torch.sin(x) * (1.0 + integral)
-        return _smean(torch.square(r))
+        # A batch mask takes collocation rows only: the node groups are
+        # the quadrature's, not the batch's.
+        return _smean(torch.square(r), ctx)
 
 
 def spec_for(problem, batch_size=None):
@@ -531,11 +557,12 @@ def _call_args(spec, model, B, const):
 
 
 def dgm_loss_grad_plain(spec, model, params, u, const=None,
-                        precision="highest"):
-    """Plain version of :func:`dgm_loss_grad`."""
+                        precision="highest", batch_mask=None, inv_bs=None):
+    """Plain version of :func:`dgm_loss_grad` (with the sweep mode's
+    ``batch_mask`` [B, 1] and ``inv_bs``, the masked loss)."""
     loss, grads = dgm_step_math(spec, unpack_dgm(model, params), u,
                                 u.shape[0], model.num_layers, const,
-                                precision)
+                                precision, batch_mask, inv_bs)
     return loss.reshape(()), torch.cat([g.reshape(-1) for g in grads])
 
 
@@ -580,27 +607,32 @@ dgm_loss_grad.bf16_launches = 0
 
 def fused_dgm_chunk_plain(spec, model, params, m, v, uniforms, step0, lrate,
                           *, const=None, schedule="constant", total_steps=1,
-                          decay=0.1, precision="highest"):
+                          decay=0.1, precision="highest", runtime_steps=None,
+                          runtime_bs=None, trial_horizon=True):
     """Plain version of :func:`fused_dgm_chunk`."""
 
-    def step_math(p, u, precision):
-        return dgm_loss_grad_plain(spec, model, p, u, const, precision)
+    def step_math(p, u, precision, *masked):
+        return dgm_loss_grad_plain(spec, model, p, u, const, precision,
+                                   *masked)
 
     return engine_core.run_fused_chunk(
         step_math, params, m, v, uniforms, step0, lrate, schedule=schedule,
-        total_steps=total_steps, decay=decay, precision=precision)
+        total_steps=total_steps, decay=decay, precision=precision,
+        runtime_bs=runtime_bs, runtime_steps=runtime_steps,
+        trial_horizon=trial_horizon)
 
 
 def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
                   n_replicas, const, schedule, total_steps, decay,
-                  precision):
+                  precision, sweep=None, trial_horizon=True):
     """One ``dgm_train_packed`` call on CUDA ``[N, n]`` state, shared by
     both chunk wrappers (a single run is N = 1). The launches run on the
     shape's side stream (graphs.StepGraph.run); a call of at least
     GRAPH_STEPS steps first captures the shape's graph if it is not cached;
     ``precision`` ("highest" | "default") picks the kernels' instances, and
-    each has its own graph. Returns the new (params, m, v, losses [N, K])
-    and the replica-steps whose step math it enqueued."""
+    each has its own graph; ``sweep`` as for ``fused_engine._train_packed``.
+    Returns the new (params, m, v, losses [N, K]) and the replica-steps
+    whose step math it enqueued."""
     lib = build.library()
     _check_inputs(spec, model, {"params": params, "m": m, "v": v,
                                 "uniforms": uniforms}, const, lib, n_replicas)
@@ -610,7 +642,8 @@ def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
     floats = lib.dgm_scratch_floats(a["R"], B, a["H"], a["L"], a["O"])
     bf16 = int(precision == "default")
     key = ("dgm", spec.kernel_id, a["R"], B, a["H"], a["L"], a["O"],
-           n_replicas, a["act"], a["mask"], precision, GRAPH_STEPS, device)
+           n_replicas, a["act"], a["mask"], precision, sweep is not None,
+           GRAPH_STEPS, device)
     if not graphs.cached(key):
         engine_core.check_replicas(n_replicas, a["R"], 4 * floats,
                                    torch.cuda.mem_get_info(device)[0])
@@ -619,28 +652,33 @@ def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
         lib.dgm_graph_free))
     p, m, v = params.clone(), m.clone(), v.clone()
     runs = ctypes.c_int(0)
-    losses = torch.empty((n_replicas, K), device=device)
-    if K >= GRAPH_STEPS and entry.exec is None:
+    entry.sweep, vecs, run = sweep_args(sweep, n_replicas, K, device)
+    losses = (torch.empty if sweep is None else torch.zeros)(
+        (n_replicas, run), device=device)
+    if run >= GRAPH_STEPS and entry.exec is None:
         with torch.cuda.device(device):
             entry.capture(lambda args, scratch, out: lib.dgm_graph_build(
                 spec.kernel_id, a["R"], B, a["H"], a["L"], a["O"], a["act"],
-                a["mask"], n_replicas, bf16, GRAPH_STEPS, args, scratch,
-                out), "dgm_graph_build")
+                a["mask"], n_replicas, bf16, GRAPH_STEPS,
+                int(sweep is not None), args, scratch, out),
+                "dgm_graph_build")
     code = entry.run(lambda stream, side0, side1: lib.dgm_train_packed(
         spec.kernel_id, a["consts"], a["const"], p.data_ptr(), m.data_ptr(),
         v.data_ptr(), uniforms.data_ptr(), entry.scratch.data_ptr(),
         losses.data_ptr(), entry.args.data_ptr(), entry.exec, GRAPH_STEPS,
-        n_replicas, K, a["R"], B, a["H"], a["L"], a["O"], a["act"],
+        n_replicas, run, a["R"], B, a["H"], a["L"], a["O"], a["act"],
         a["mask"], bf16, float(lrate), int(step0),
-        *engine_core.schedule_args(schedule, total_steps, decay),
-        ctypes.byref(runs), stream, side0, side1), device)
+        *engine_core.schedule_args(schedule, total_steps, decay), *vecs,
+        int(trial_horizon), ctypes.byref(runs), stream, side0, side1),
+        device)
     build.check(code, "dgm_train_packed")
-    return (p, m, v, losses), runs.value
+    return (p, m, v, pad_losses(losses, K)), runs.value
 
 
 def fused_dgm_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
                     const=None, schedule="constant", total_steps=1,
-                    decay=0.1, precision="highest"):
+                    decay=0.1, precision="highest", runtime_steps=None,
+                    runtime_bs=None, trial_horizon=True):
     """Run ``K = uniforms.shape[0]`` Adam steps of ``spec``'s equation at
     ``precision`` ("highest" | "default").
     ``params``/``m``/``v`` are flat fp32 buffers (:func:`pack_dgm` order);
@@ -649,6 +687,9 @@ def fused_dgm_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
     chunk's first step. ``schedule`` ("constant" | "cosine" |
     "exponential") sets the learning rate of step t = step0 + k + 1 over
     the horizon ``total_steps``, decaying to ``lrate · decay``.
+    ``runtime_steps``, ``runtime_bs`` and ``trial_horizon``: the sweep mode,
+    as for ``fused_engine.fused_engine_chunk`` (the batch mask takes
+    collocation rows only; FitzHugh–Nagumo's masked loss is the plain one).
 
     Returns new (params, m, v, losses[K]); the inputs are left unchanged.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
@@ -658,16 +699,24 @@ def fused_dgm_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
     check_precision(precision, CHUNK_PRECISIONS)
     _check_model(spec, model)
     engine_core.check_schedule(schedule)
-    _check_const(spec, const, uniforms.shape[1])
+    K, B, _ = uniforms.shape
+    _check_const(spec, const, B)
+    runtime = runtime_bs is not None or runtime_steps is not None
+    sweep = engine_core.sweep_vectors(
+        1, lrate, B, K, None, None if runtime_bs is None else [runtime_bs],
+        [K if runtime_steps is None else runtime_steps] if runtime else None,
+        runtime_bs is not None)
     if uniforms.device.type == "cpu":
         return fused_dgm_chunk_plain(
             spec, model, params, m, v, uniforms, step0, lrate, const=const,
             schedule=schedule, total_steps=total_steps, decay=decay,
-            precision=precision)
+            precision=precision, runtime_steps=runtime_steps,
+            runtime_bs=runtime_bs, trial_horizon=trial_horizon)
     (p, m, v, losses), runs = _train_packed(
         spec, model, params[None], m[None], v[None], uniforms, step0, lrate,
-        1, const, schedule, total_steps, decay, precision)
-    count_launch(fused_dgm_chunk, precision, runs)
+        1, const, schedule, total_steps, decay, precision, sweep,
+        trial_horizon)
+    count_launch(fused_dgm_chunk, precision, runs, sweep is not None, (B, 1))
     return p[0], m[0], v[0], losses[0]
 
 
@@ -675,29 +724,36 @@ fused_dgm_chunk.launches = 0
 fused_dgm_chunk.bf16_launches = 0
 fused_dgm_chunk.step_math_runs = 0
 fused_dgm_chunk.bf16_step_math_runs = 0
+fused_dgm_chunk.sweep_launches = 0
+fused_dgm_chunk.sweep_shapes = {}
 
 
 def fused_dgm_packed_chunk_plain(spec, model, params, m, v, uniforms, step0,
                                  lrate, n_replicas, rep_tile=None, *,
                                  const=None, schedule="constant",
-                                 total_steps=1, decay=0.1,
+                                 total_steps=1, decay=0.1, lr_vec=None,
+                                 bs_vec=None, steps_vec=None,
+                                 mask_rows=False, trial_horizon=True,
                                  precision="highest"):
     """Plain version of :func:`fused_dgm_packed_chunk`."""
 
-    def step_math(p, u, c, precision):
-        return dgm_loss_grad_plain(spec, model, p, u, c, precision)
+    def step_math(p, u, c, precision, *masked):
+        return dgm_loss_grad_plain(spec, model, p, u, c, precision, *masked)
 
     return engine_core.run_fused_packed(
         step_math, params, m, v, uniforms, step0, lrate, n_replicas,
         rep_tile=rep_tile, schedule=schedule, total_steps=total_steps,
-        decay=decay, const=const, precision=precision)
+        decay=decay, const=const, lr_vec=lr_vec, bs_vec=bs_vec,
+        steps_vec=steps_vec, mask_rows=mask_rows,
+        trial_horizon=trial_horizon, precision=precision)
 
 
 def fused_dgm_packed_chunk(spec, model, params, m, v, uniforms, step0, lrate,
                            n_replicas, rep_tile=None, *, const=None,
                            schedule="constant", total_steps=1, decay=0.1,
                            lr_vec=None, bs_vec=None, steps_vec=None,
-                           mask_rows=False, precision="highest"):
+                           mask_rows=False, trial_horizon=True,
+                           precision="highest"):
     """Packed-replica twin of :func:`fused_dgm_chunk` (kernel #5 around
     #7): one call advances ``n_replicas`` independent DGM runs by ``K =
     uniforms.shape[0]`` Adam steps each. ``params``/``m``/``v`` are ``[N,
@@ -706,29 +762,37 @@ def fused_dgm_packed_chunk(spec, model, params, m, v, uniforms, step0, lrate,
     nodes and weights) and lr schedule. ``rep_tile`` must divide N (every
     launch covers all N replicas on the H100).
 
+    The per-slot sweep vectors (``lr_vec``, ``bs_vec``, ``steps_vec``,
+    ``mask_rows``, ``trial_horizon``) as for
+    ``fused_engine.fused_engine_packed_chunk``.
+
     Returns new (params, m, v, losses [N, K]); the inputs are left
     unchanged. ``precision`` is "highest" or "default", as for the single
     chunk. A CPU tensor takes the plain version; a CUDA tensor launches
     ``dgm_train_packed`` once (``.launches``, ``.bf16_launches`` at
     "default"; ``.step_math_runs`` counts the replica-steps whose step math
-    it enqueued). The per-slot sweep vectors are not ported."""
-    engine_core.reject_per_slot(lr_vec=lr_vec, bs_vec=bs_vec,
-                                steps_vec=steps_vec, mask_rows=mask_rows)
+    it enqueued)."""
     check_precision(precision, CHUNK_PRECISIONS)
     _check_model(spec, model)
     engine_core.check_schedule(schedule)
     engine_core.check_rep_tile(n_replicas, rep_tile)
-    _check_const(spec, const, uniforms.shape[1])
+    K, B, _ = uniforms.shape
+    _check_const(spec, const, B)
     engine_core.check_replicas(n_replicas, _layout(spec)[0])
+    sweep = engine_core.sweep_vectors(n_replicas, lrate, B, K, lr_vec,
+                                      bs_vec, steps_vec, mask_rows)
     if uniforms.device.type == "cpu":
         return fused_dgm_packed_chunk_plain(
             spec, model, params, m, v, uniforms, step0, lrate, n_replicas,
             const=const, schedule=schedule, total_steps=total_steps,
-            decay=decay, precision=precision)
+            decay=decay, lr_vec=lr_vec, bs_vec=bs_vec, steps_vec=steps_vec,
+            mask_rows=mask_rows, trial_horizon=trial_horizon,
+            precision=precision)
     out, runs = _train_packed(spec, model, params, m, v, uniforms, step0,
                               lrate, n_replicas, const, schedule, total_steps,
-                              decay, precision)
-    count_launch(fused_dgm_packed_chunk, precision, runs)
+                              decay, precision, sweep, trial_horizon)
+    count_launch(fused_dgm_packed_chunk, precision, runs,
+                 sweep is not None, (B, n_replicas))
     return out
 
 
@@ -736,6 +800,8 @@ fused_dgm_packed_chunk.launches = 0
 fused_dgm_packed_chunk.bf16_launches = 0
 fused_dgm_packed_chunk.step_math_runs = 0
 fused_dgm_packed_chunk.bf16_step_math_runs = 0
+fused_dgm_packed_chunk.sweep_launches = 0
+fused_dgm_packed_chunk.sweep_shapes = {}
 
 
 # ---------------------------------------------------------------------------
@@ -847,3 +913,182 @@ def train_dgm_fused_ensemble_packed(problem, seed, iterations, n_replicas,
     return train_in_chunks(models, run_chunk, draw, p, torch.zeros_like(p),
                            torch.zeros_like(p), iterations, chunk_size,
                            device, load=load, n_default=n_default)
+
+
+# ---------------------------------------------------------------------------
+# The sweep evaluators (sweep/search.py's fused tier)
+# ---------------------------------------------------------------------------
+
+
+def _sweep_spec(problem, model, batch_size):
+    """The spec and model of a DGM sweep evaluator at ``batch_size`` rows
+    (``model`` None: the problem's default architecture), checked."""
+    spec = spec_for(problem, batch_size)
+    if spec is None:
+        raise ValueError(f"no fused DGM spec for {problem.name!r}")
+    arch = model or problem.default_model()
+    _check_model(spec, arch)
+    return spec, arch
+
+
+def _trial_states(problem, model, seed, trial_indices, device):
+    return fused_engine.trial_state(problem, model, seed, trial_indices,
+                                    pack_dgm, device)
+
+
+def make_trial_evaluator(problem, seed, iterations, batch_size=100,
+                         lrate=1e-4, model=None, precision="highest",
+                         schedule=None, decay=0.1, device="cuda"):
+    """``eval_fn(trial_index, lr=None) -> (losses [iterations] numpy, flat
+    params)``: each call trains trial ``trial_index``'s fresh DGM
+    (``fused_engine.trial_state``) for the full budget at ``lr`` (None:
+    ``lrate``) through the same kernels and CUDA graph; the collocation
+    stream ``step_uniforms(seed, 0, iterations, batch_size)`` and
+    Fredholm's nodes are shared by every trial. "mixed" runs its two
+    phases as :func:`train_dgm_fused_result` does."""
+    spec, arch = _sweep_spec(problem, model, batch_size)
+    device = build.resolve_device(device)
+    schedule = schedule or problem.defaults.schedule
+    n_default = default_steps(iterations, precision)
+    uniforms = step_uniforms(seed, 0, iterations, batch_size, device,
+                             spec.n_uniform)
+    kw = dict(const=const_for(spec, problem, batch_size, device),
+              schedule=schedule, total_steps=iterations, decay=decay)
+
+    def eval_fn(trial_index: int, lr: float | None = None):
+        p = _trial_states(problem, model, seed, [trial_index], device)[0]
+        m, v = torch.zeros_like(p), torch.zeros_like(p)
+        losses = []
+        for lo, hi, prec in ((0, n_default, "default"),
+                             (n_default, iterations, "highest")):
+            if hi > lo:
+                p, m, v, part = fused_dgm_chunk(
+                    spec, arch, p, m, v, uniforms[lo:hi], lo,
+                    float(lrate if lr is None else lr), precision=prec, **kw)
+                losses.append(part)
+        return torch.cat(losses).cpu().numpy(), p
+
+    return eval_fn
+
+
+def _sweep_problem(problem, max_batch):
+    """The problem a batch-size sweep trains (``max_batch`` not None), as
+    the JAX evaluators take it: FitzHugh–Nagumo at ``causal_eps=0`` (its
+    causal build sorts the rows by time, so a row prefix would train a
+    short trial on early times only), and Fredholm only if its k nodes fit
+    one tile."""
+    if max_batch is None:
+        return problem
+    if problem.name == "fitzhugh_nagumo" and problem.causal_eps > 0.0:
+        return dataclasses.replace(problem, causal_eps=0.0)
+    if problem.name == "fredholm" and problem.k > max_batch:
+        raise ValueError(f"runtime-batch sweeps need the {problem.k} "
+                         f"quadrature nodes to fit one max_batch tile (got "
+                         f"max_batch={max_batch}); raise max_batch or lower "
+                         f"k")
+    return problem
+
+
+def _sweep_prologue(problem, seed, max_iters, batch_size, model, precision,
+                    schedule, device):
+    """What the DGM sweep evaluators share (JAX ``_sweep_prologue``): the
+    checks, "mixed" refused, the stream padded to a multiple of 1 000
+    steps. Returns (spec, model, schedule, const, user_max, padded_max,
+    uniforms, device)."""
+    spec, arch = _sweep_spec(problem, model, batch_size)
+    fused_engine.check_single_phase(precision)
+    device = build.resolve_device(device)
+    schedule = schedule or problem.defaults.schedule
+    padded = fused_engine.padded_horizon(max_iters)
+    uniforms = step_uniforms(seed, 0, padded, batch_size, device,
+                             spec.n_uniform)
+    return (spec, arch, schedule, const_for(spec, problem, batch_size, device),
+            int(max_iters), padded, uniforms, device)
+
+
+def make_sweep_evaluator(problem, seed, max_iters, batch_size=100,
+                         max_batch=None, model=None, precision="highest",
+                         schedule=None, decay=0.1, horizon="trial",
+                         device="cuda"):
+    """A DGM sweep on one tile. ``max_batch`` None: the {lrate, n_iters}
+    space at ``batch_size`` rows, ``eval_fn(trial_index, lrate, n_iters)``;
+    ``max_batch=M``: the full reference space on an M-row tile,
+    ``eval_fn(trial_index, lrate, batch_size, n_iters)``, collocation rows
+    ≥ batch_size masked out of the loss (Fredholm's nodes never; a
+    FitzHugh–Nagumo sweep trains at ``causal_eps=0``:
+    :func:`_sweep_problem`). Each returns (losses [n_iters] numpy, flat params), the n_iters-step
+    state; ``horizon`` as in ``fused_engine.make_sweep_evaluator``."""
+    fused_engine.check_horizon(horizon)
+    problem = _sweep_problem(problem, max_batch)
+    if max_batch is not None:
+        batch_size = int(max_batch)
+    spec, arch, schedule, const, user_max, padded, uniforms, device = \
+        _sweep_prologue(problem, seed, max_iters, batch_size, model,
+                        precision, schedule, device)
+
+    def run(trial_index, lrate, bs, n_iters):
+        n = max(1, min(int(n_iters), user_max))
+        p = _trial_states(problem, model, seed, [trial_index], device)[0]
+        zeros = torch.zeros_like(p)
+        p, _, _, losses = fused_dgm_chunk(
+            spec, arch, p, zeros, zeros,
+            uniforms[:fused_engine.live_steps(n, padded)], 0, float(lrate),
+            const=const, schedule=schedule, total_steps=user_max,
+            decay=decay, precision=precision, runtime_steps=n,
+            runtime_bs=bs, trial_horizon=horizon == "trial")
+        return losses[:n].cpu().numpy(), p
+
+    if max_batch is None:
+        def eval_fn(trial_index: int, lrate: float, n_iters: int):
+            return run(trial_index, lrate, None, n_iters)
+
+        return eval_fn
+
+    def eval_fn_bs(trial_index: int, lrate: float, bs: int, n_iters: int):
+        return run(trial_index, lrate, max(1, min(int(bs), batch_size)),
+                   n_iters)
+
+    return eval_fn_bs
+
+
+def make_packed_rung_evaluator(problem, seed, max_iters, n_slots,
+                               batch_size=100, max_batch=None, model=None,
+                               precision="highest", schedule=None, decay=0.1,
+                               horizon="fixed", rep_tile=None, device="cuda"):
+    """A vector of ``n_slots`` DGM trials as one packed call (kernel #5
+    around #7 in its sweep mode): ``eval_fn(trial_indices, lrates,
+    batch_sizes, n_iters) -> (final_losses [n_slots] numpy, flat params
+    [n_slots, n])``, slot i at its own lr and budget (0: pruned, +inf) and,
+    with ``max_batch``, its own batch (otherwise batch_sizes are clamped
+    and not used); slot i equals :func:`make_sweep_evaluator`'s trial."""
+    fused_engine.check_horizon(horizon)
+    problem = _sweep_problem(problem, max_batch)
+    mask_rows = max_batch is not None
+    if mask_rows:
+        batch_size = int(max_batch)
+    spec, arch, schedule, const, user_max, padded, uniforms, device = \
+        _sweep_prologue(problem, seed, max_iters, batch_size, model,
+                        precision, schedule, device)
+
+    def eval_fn(trial_indices, lrates, batch_sizes, n_iters):
+        if len(trial_indices) != n_slots:
+            raise ValueError(f"expected {n_slots} slots "
+                             f"(got {len(trial_indices)})")
+        ns = np.clip(np.asarray(n_iters, np.int64), 0, user_max)
+        bss = np.clip(np.asarray(batch_sizes, np.int64), 1, batch_size)
+        p = _trial_states(problem, model, seed, trial_indices, device)
+        zeros = torch.zeros_like(p)
+        p, _, _, losses = fused_dgm_packed_chunk(
+            spec, arch, p, zeros, zeros,
+            uniforms[:fused_engine.live_steps(ns, padded)], 0, 0.0, n_slots,
+            rep_tile, const=const, schedule=schedule, total_steps=user_max,
+            decay=decay, lr_vec=np.asarray(lrates, np.float32),
+            bs_vec=bss if mask_rows else None, steps_vec=ns,
+            mask_rows=mask_rows, trial_horizon=horizon == "trial",
+            precision=precision)
+        losses = losses.cpu().numpy()
+        finals = np.where(ns > 0, losses[np.arange(n_slots),
+                                         np.maximum(ns - 1, 0)], np.inf)
+        return finals, p
+
+    return eval_fn

@@ -44,8 +44,11 @@ each at ``precision`` "highest" (exact fp32) or "default" (the products the
 JAX step math gives ``precision`` take bf16 operands and accumulate in fp32;
 products it pins to HIGHEST or leaves without one, such as volterra's node
 sums, inverse_heat's observation rows and causal advection's ``earlier @
-r``, stay fp32), and the trainers at "mixed" too (core/precision.py). The
-runtime masks and the packed sweep mode are not ported (ROADMAP.md).
+r``, stay fp32), and the trainers at "mixed" too (core/precision.py).
+The sweep mode (``runtime_bs``, ``runtime_steps``, ``trial_horizon``;
+per-slot values in a packed call) serves the sweep evaluators
+(``make_lr_evaluator``, ``make_sweep_evaluator``,
+``make_packed_rung_evaluator``, ``lr_sweep``; sweep/search.py).
 
 On the card a chunk replays a CUDA graph of GRAPH_STEPS training steps,
 captured on the first call of its shape and cached (kernels/graphs.py), as
@@ -68,6 +71,7 @@ from differential_equations_dnn_tpu_torch.core.precision import (
 )
 from differential_equations_dnn_tpu_torch.core.prng import (
     generator,
+    replica_generator,
     step_uniforms,
 )
 from differential_equations_dnn_tpu_torch.equations.inverse_heat import (
@@ -216,14 +220,16 @@ def _act_bwd(groups, z, gr, B):
 
 
 def engine_step_math(spec, params, u, B, L, const=None,
-                     precision="highest"):
+                     precision="highest", batch_mask=None, inv_bs=None):
     """One training step's loss ``[1, 1]`` and parameter gradients for any
     stream spec. ``params`` = (w_in, b_in, w_hid, b_hid, w_out, b_out) and
     the spec's extra tensors; ``u`` = [B, spec.n_uniform] U[0,1) draws;
     ``const`` = the spec's const operand (None: built by ``make_const``);
     ``precision`` ("highest" | "default") that of the layer products, the
     ones the JAX step math gives it (the spec's loss keeps its own fp32
-    products). Returns (loss, grads_tuple), the extras' gradients last."""
+    products); ``batch_mask`` [B, 1] and ``inv_bs`` the sweep mode's row
+    mask (:func:`_smean`). Returns (loss, grads_tuple), the extras'
+    gradients last."""
     groups = spec.groups
     w_in, b_in, w_hid, b_hid, w_out, b_out = params[:6]
     extras = tuple(params[6:])
@@ -233,9 +239,16 @@ def engine_step_math(spec, params, u, B, L, const=None,
 
     if const is None:
         const = spec.make_const(B, u.device)
-    X, ctx = spec.build(u, const) if spec.build_with_const else spec.build(u)
+    if spec.build_with_const:
+        X, ctx = spec.build(u, const)
+    elif spec.masked_build:
+        X, ctx = spec.build(u, batch_mask)
+    else:
+        X, ctx = spec.build(u)
     if const is not None:
         ctx = {**ctx, "const": const}
+    if batch_mask is not None:
+        ctx = {**ctx, "mask": batch_mask, "inv_bs": inv_bs}
     mask = _bias_mask(groups, B, X)
 
     zs = [mm(X, w_in) + mask * b_in]
@@ -292,6 +305,7 @@ class _Spec:
     its groups."""
     extra_shapes = ()
     build_with_const = False
+    masked_build = False  # build(u, batch_mask): uat's grid over bs rows
     causal = False  # a cross-point loss (causal advection's weighting)
     fold = 1  # groups laid out as one value stream (volterra: 1 + k)
     model_text = "a plain tanh MLP {D} → H×L → 1 (L ≥ 1)"
@@ -333,10 +347,19 @@ class _Spec:
                 model.fc_out.w, model.fc_out.b)
 
 
-def _smean(q):
-    """Batch mean of a pointwise [B, 1] quantity as a [1, 1] value."""
-    s = torch.sum(torch.sum(q, 0, keepdim=True), 1, keepdim=True)
-    return s * (1.0 / (q.shape[0] * q.shape[1]))
+def _ksum(q):
+    """[B, C] → [1, 1] sum."""
+    return torch.sum(torch.sum(q, 0, keepdim=True), 1, keepdim=True)
+
+
+def _smean(q, ctx=None):
+    """Batch mean of a pointwise [B, 1] quantity as a [1, 1] value; under
+    the sweep mode's batch mask (``ctx["mask"]`` [B, 1], ``ctx["inv_bs"]``)
+    the masked sum over the bs live rows times 1/bs."""
+    mask = None if ctx is None else ctx.get("mask")
+    if mask is not None:
+        return _ksum(q * mask) * ctx["inv_bs"]
+    return _ksum(q) * (1.0 / (q.shape[0] * q.shape[1]))
 
 
 @dataclass(frozen=True)
@@ -359,7 +382,7 @@ class SimpleODESpec(_Spec):
     def loss(self, outs, ctx):
         y, dydt, y0 = outs
         return _smean(torch.square(dydt + y)
-                      + torch.square(y0 - self.p.y_ic))
+                      + torch.square(y0 - self.p.y_ic), ctx)
 
 
 @dataclass(frozen=True)
@@ -392,7 +415,7 @@ class HeatSpec(_Spec):
         r = u_t - self.p.kappa * u_xx
         r0 = u0 - torch.sin(ctx["x"])
         return _smean(torch.square(r) + torch.square(r0)
-                      + torch.square(ub1) + torch.square(ub2))
+                      + torch.square(ub1) + torch.square(ub2), ctx)
 
 
 @dataclass(frozen=True)
@@ -448,13 +471,15 @@ class AdvectionSpec(_Spec):
         r = torch.square(u_t + self.p.c * u_x)
         icbc = (torch.square(u0 - torch.sin(ctx["x"]))
                 + torch.square(ub - torch.sin(-self.p.c * ctx["t"])))
-        if not self.causal:
-            return _smean(r + icbc)
+        if not self.causal or ctx.get("mask") is not None:
+            # Under a batch mask the plain loss, as the JAX spec's masked
+            # branch: the causal weighting is a single-run protocol.
+            return _smean(r + icbc, ctx)
         t = ctx["t"]                                    # [B, 1]
         earlier = (t.T < t).to(r.dtype)                 # [B, B]
         cum = (earlier @ r.detach()) * (self.p.t_max / r.shape[0])
         wgt = torch.exp(-self.p.causal_eps * cum).detach()
-        return _smean(wgt * r) + _smean(icbc)
+        return _smean(wgt * r, ctx) + _smean(icbc, ctx)
 
 
 @dataclass(frozen=True)
@@ -494,7 +519,7 @@ class BurgersSpec(_Spec):
         r_b0 = ub0 - self.p._exact_fn(zero, t)
         r_b1 = ub1 - self.p._exact_fn(xmax, t)
         return _smean(torch.square(r) + torch.square(r_ic)
-                      + torch.square(r_b0) + torch.square(r_b1))
+                      + torch.square(r_b0) + torch.square(r_b1), ctx)
 
 
 @dataclass(frozen=True)
@@ -533,7 +558,7 @@ class WaveSpec(_Spec):
         r_pos = u0 - torch.sin(ctx["x"])
         return _smean(torch.square(r) + torch.square(r_pos)
                       + self.p.velocity_weight * torch.square(u0_t)
-                      + torch.square(ub1) + torch.square(ub2))
+                      + torch.square(ub1) + torch.square(ub2), ctx)
 
 
 @dataclass(frozen=True)
@@ -568,7 +593,7 @@ class PoissonSpec(_Spec):
         src = 2.0 * torch.sin(ctx["x"]) * torch.sin(ctx["y"])
         r = -(u_xx + u_yy) - src
         return _smean(torch.square(r) + torch.square(b1) + torch.square(b2)
-                      + torch.square(b3) + torch.square(b4))
+                      + torch.square(b3) + torch.square(b4), ctx)
 
 
 @dataclass(frozen=True)
@@ -610,7 +635,7 @@ class Heat2DSpec(_Spec):
         r0 = u0 - torch.sin(ctx["x"]) * torch.sin(ctx["y"])
         return _smean(torch.square(r) + torch.square(r0) + torch.square(b1)
                       + torch.square(b2) + torch.square(b3)
-                      + torch.square(b4))
+                      + torch.square(b4), ctx)
 
 
 @dataclass(frozen=True)
@@ -661,14 +686,17 @@ class VolterraSpec(_Spec):
         acc = torch.sum(torch.cat(outs[1:], 1) * ctx["const"][None, :, 1],
                         1, keepdim=True)
         r = outs[0] - x - (x * x) * acc
-        return _smean(torch.square(r))
+        return _smean(torch.square(r), ctx)
 
 
 @dataclass(frozen=True)
 class UATSpec(_Spec):
     """Universal-approximation demo (equations.uat): full-batch MSE fit of
     sin(freq·x) on the B-point grid x_b = low + (high − low)·b/(B − 1),
-    one value-only group; the draws are read for their shape only. Trains
+    one value-only group; the draws are read for their shape only. Under a
+    batch mask the grid spans the bs live rows, b/(bs − 1), so a trial of
+    batch bs fits the whole interval (the JAX spec's grid spans the tile,
+    fused_engine.py:908-915 of the JAX package). Trains
     the reference's Perceptron 1 → H → 1 as the engine's L = 0 layout, its
     flat state the input and output layers alone (the JAX kernel carries
     zero hidden tensors, which Adam leaves at zero)."""
@@ -677,20 +705,25 @@ class UATSpec(_Spec):
     input_dim = 1
     kernel_id = 8
     groups = (Group(),)
+    masked_build = True
     model_text = "a Perceptron 1 → H → 1"
 
     def kernel_consts(self):
         return (self.p.low, self.p.high - self.p.low, self.p.freq)
 
-    def build(self, u):
+    def build(self, u, batch_mask=None):
         B = u.shape[0]
         i = torch.arange(B, dtype=torch.float32, device=u.device)[:, None]
-        x = self.p.low + (self.p.high - self.p.low) * i / max(B - 1, 1)
+        if batch_mask is None:
+            span = max(B - 1, 1)
+        else:  # the bs live rows, as an fp32 value
+            span = torch.clamp_min(torch.sum(batch_mask) - 1.0, 1.0)
+        x = self.p.low + (self.p.high - self.p.low) * i / span
         return x, {"x": x}
 
     def loss(self, outs, ctx):
         return _smean(torch.square(outs[0]
-                                   - torch.sin(self.p.freq * ctx["x"])))
+                                   - torch.sin(self.p.freq * ctx["x"])), ctx)
 
     def supports_model(self, model):
         return (isinstance(model, Perceptron) and model.input_dim == 1
@@ -751,7 +784,7 @@ class InverseHeatSpec(_Spec):
         r = u_t - kappa * u_xx
         d = y_obs - ctx["obs_u"]
         return _smean(torch.square(r)
-                      + self.p.data_weight * torch.square(d))
+                      + self.p.data_weight * torch.square(d), ctx)
 
     def supports_model(self, model):
         return (isinstance(model, _InverseModel)
@@ -818,7 +851,7 @@ class HardSimpleODESpec(_HardSpec):
         t = ctx["t"]
         y = p.y_ic + (t / p.t_max) * n
         dydt = n / p.t_max + (t / p.t_max) * n_t
-        return _smean(torch.square(dydt + y))
+        return _smean(torch.square(dydt + y), ctx)
 
 
 @dataclass(frozen=True)
@@ -863,7 +896,7 @@ class HardHeatSpec(_HardSpec):
         D_xx = -2.0 * t / scale
         u_t = D_t * n + D * n_t
         u_xx = -torch.sin(x) + D_xx * n + 2.0 * D_x * n_x + D * n_xx
-        return _smean(torch.square(u_t - p.kappa * u_xx))
+        return _smean(torch.square(u_t - p.kappa * u_xx), ctx)
 
 
 @dataclass(frozen=True)
@@ -915,7 +948,7 @@ class HardHeat2DSpec(_HardSpec):
         u_t = D_t * n + D * n_t
         u_xx = -A + D_xx * n + 2.0 * D_x * n_x + D * n_xx
         u_yy = -A + D_yy * n + 2.0 * D_y * n_y + D * n_yy
-        return _smean(torch.square(u_t - p.kappa * (u_xx + u_yy)))
+        return _smean(torch.square(u_t - p.kappa * (u_xx + u_yy)), ctx)
 
 
 @dataclass(frozen=True)
@@ -960,7 +993,7 @@ class HardWaveSpec(_HardSpec):
         D_xx = -2.0 * t * t / scale
         u_tt = D_tt * n + 2.0 * D_t * n_t + D * n_tt
         u_xx = -torch.sin(x) + D_xx * n + 2.0 * D_x * n_x + D * n_xx
-        return _smean(torch.square(u_tt - (p.c ** 2) * u_xx))
+        return _smean(torch.square(u_tt - (p.c ** 2) * u_xx), ctx)
 
 
 @dataclass(frozen=True)
@@ -1006,7 +1039,7 @@ class HardPoissonSpec(_HardSpec):
         u_xx = D_xx * n + 2.0 * D_x * n_x + D * n_xx
         u_yy = D_yy * n + 2.0 * D_y * n_y + D * n_yy
         src = 2.0 * torch.sin(x) * torch.sin(y)
-        return _smean(torch.square(-(u_xx + u_yy) - src))
+        return _smean(torch.square(-(u_xx + u_yy) - src), ctx)
 
 
 SPECS = {
@@ -1182,11 +1215,13 @@ def _consts(spec, B):
 
 
 def engine_loss_grad_plain(spec, model, params, u, const=None,
-                           precision="highest"):
-    """Plain version of :func:`engine_loss_grad`."""
+                           precision="highest", batch_mask=None,
+                           inv_bs=None):
+    """Plain version of :func:`engine_loss_grad` (with the sweep mode's
+    ``batch_mask`` [B, 1] and ``inv_bs``, the masked loss)."""
     loss, grads = engine_step_math(spec, unpack_state(spec, model, params), u,
                                    u.shape[0], spec.dims(model)[2], const,
-                                   precision)
+                                   precision, batch_mask, inv_bs)
     return loss.reshape(()), torch.cat([g.reshape(-1) for g in grads])
 
 
@@ -1238,22 +1273,51 @@ def _ptr(t):
 def fused_engine_chunk_plain(spec, model, params, m, v, uniforms, step0,
                              lrate, *, schedule="constant", total_steps=1,
                              decay=0.1, batch_tile=None, const=None,
-                             precision="highest"):
+                             precision="highest", runtime_bs=None,
+                             runtime_steps=None, trial_horizon=True):
     """Plain version of :func:`fused_engine_chunk`."""
     const = _resolve_const(spec, const, uniforms.shape[1], uniforms.device)
 
-    def step_math(p, u, precision):
-        return engine_loss_grad_plain(spec, model, p, u, const, precision)
+    def step_math(p, u, precision, *masked):
+        return engine_loss_grad_plain(spec, model, p, u, const, precision,
+                                      *masked)
 
     return engine_core.run_fused_chunk(
         step_math, params, m, v, uniforms, step0, lrate, schedule=schedule,
         total_steps=total_steps, decay=decay, batch_tile=batch_tile,
-        precision=precision)
+        precision=precision, runtime_bs=runtime_bs,
+        runtime_steps=runtime_steps, trial_horizon=trial_horizon)
+
+
+def pad_losses(losses, K):
+    """``[N, k]`` losses of a call run to k ≤ K steps as ``[N, K]``, the
+    steps it did not run 0."""
+    if losses.shape[1] == K:
+        return losses
+    return torch.cat([losses, losses.new_zeros((losses.shape[0],
+                                                K - losses.shape[1]))], 1)
+
+
+def sweep_args(sweep, n_replicas, K, device):
+    """The sweep mode's device vectors for a training call (``sweep``:
+    ``engine_core.sweep_vectors``' host (lr, bs or None, n_steps), or None)
+    and the steps the call must run: every budget's step, rounded up to a
+    whole CUDA graph (the steps past the budgets are no-ops). Returns
+    (tensors to keep alive, the C arguments lr_vec, bs_vec, steps_vec,
+    trial_horizon are built from, steps to run)."""
+    if sweep is None:
+        return (), (None, None, None), K
+    lrs, bss, ns = sweep
+    run = min(K, -(-int(ns.max()) // GRAPH_STEPS) * GRAPH_STEPS)
+    tensors = (torch.tensor(lrs, device=device),
+               None if bss is None else torch.tensor(bss, device=device),
+               torch.tensor(ns, device=device))
+    return tensors, tuple(_ptr(t) for t in tensors), run
 
 
 def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
                   n_replicas, schedule, total_steps, decay, const,
-                  precision):
+                  precision, sweep=None, trial_horizon=True):
     """One ``engine_train_packed`` call on CUDA ``[N, n]`` state, shared by
     both chunk wrappers (a single run is N = 1). The launches run on the
     shape's side stream (graphs.StepGraph.run); a call of at least
@@ -1261,9 +1325,12 @@ def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
     The const operand's pointer reaches the kernels through the argument
     block each call writes, so the graph never holds it; ``precision``
     ("highest" | "default") picks the kernels' instances, and each has its
-    own graph. Returns the new
-    (params, m, v, losses [N, K]) and the replica-steps whose step math it
-    enqueued."""
+    own graph. ``sweep`` (``engine_core.sweep_vectors``; None outside the
+    sweep mode) rides the argument block too, read by the launches of a
+    graph of its own: the call then runs only to its largest budget
+    (:func:`sweep_args`) and the losses past a slot's budget are 0.
+    Returns the new (params, m, v, losses [N, K]) and the replica-steps
+    whose step math it enqueued."""
     lib = build.library()
     _check_inputs(spec, model, {"params": params, "m": m, "v": v,
                                 "uniforms": uniforms}, const, lib, n_replicas)
@@ -1274,10 +1341,11 @@ def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
     floats = lib.engine_scratch_floats(spec.kernel_id, B, H, L, F)
     consts = _consts(spec, B)
     bf16 = int(precision == "default")
-    # The spec's numbers are kernel arguments of the captured graph, and the
-    # precision picks its kernel instances.
+    # The spec's numbers are kernel arguments of the captured graph, the
+    # precision picks its kernel instances, and a graph of the sweep mode
+    # reads its fields (a graph outside it does not).
     key = ("engine", spec.kernel_id, tuple(consts), B, H, L, F, n_replicas,
-           precision, GRAPH_STEPS, device)
+           precision, sweep is not None, GRAPH_STEPS, device)
     if not graphs.cached(key):
         engine_core.check_replicas(n_replicas, spec.kernel_streams,
                                    4 * floats,
@@ -1287,27 +1355,31 @@ def _train_packed(spec, model, params, m, v, uniforms, step0, lrate,
         lib.engine_graph_free))
     p, m, v = params.clone(), m.clone(), v.clone()
     runs = ctypes.c_int(0)
-    losses = torch.empty((n_replicas, K), device=device)
-    if K >= GRAPH_STEPS and entry.exec is None:
+    entry.sweep, vecs, run = sweep_args(sweep, n_replicas, K, device)
+    losses = (torch.empty if sweep is None else torch.zeros)(
+        (n_replicas, run), device=device)
+    if run >= GRAPH_STEPS and entry.exec is None:
         with torch.cuda.device(device):
             entry.capture(lambda args, scratch, out: lib.engine_graph_build(
                 spec.kernel_id, consts, B, H, L, F, n_replicas, bf16,
-                GRAPH_STEPS, args, scratch, out), "engine_graph_build")
+                GRAPH_STEPS, int(sweep is not None), args, scratch, out),
+                "engine_graph_build")
     code = entry.run(lambda stream, side0, side1: lib.engine_train_packed(
         spec.kernel_id, consts, _ptr(const), p.data_ptr(), m.data_ptr(),
         v.data_ptr(), uniforms.data_ptr(), entry.scratch.data_ptr(),
         losses.data_ptr(), entry.args.data_ptr(), entry.exec, GRAPH_STEPS,
-        n_replicas, K, B, H, L, F, bf16, float(lrate), int(step0),
-        *engine_core.schedule_args(schedule, total_steps, decay),
-        ctypes.byref(runs), stream, side0, side1), device)
+        n_replicas, run, B, H, L, F, bf16, float(lrate), int(step0),
+        *engine_core.schedule_args(schedule, total_steps, decay), *vecs,
+        int(trial_horizon), ctypes.byref(runs), stream, side0, side1),
+        device)
     build.check(code, "engine_train_packed")
-    return (p, m, v, losses), runs.value
+    return (p, m, v, pad_losses(losses, K)), runs.value
 
 
 def fused_engine_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
                        schedule="constant", total_steps=1, decay=0.1,
                        batch_tile=None, runtime_bs=None, runtime_steps=None,
-                       const=None, precision="highest"):
+                       trial_horizon=True, const=None, precision="highest"):
     """Run ``K = uniforms.shape[0]`` Adam steps of ``spec``'s equation at
     ``precision`` ("highest" | "default").
     ``params``/``m``/``v`` are flat fp32 buffers (:func:`pack_state`);
@@ -1318,29 +1390,40 @@ def fused_engine_chunk(spec, model, params, m, v, uniforms, step0, lrate, *,
     is the spec's const operand (``spec.make_const``; None: the spec's own),
     a ValueError if its shape is not the spec's.
 
+    The sweep mode (JAX ``run_fused_chunk``'s run-time scalars):
+    ``runtime_bs`` masks rows ≥ bs out of the loss (the mean runs over the
+    bs live rows), ``runtime_steps`` makes the steps k ≥ n_steps leave the
+    state alone with loss 0, and with ``trial_horizon`` a decaying
+    schedule runs over max(n_steps, 1) steps, not ``total_steps``.
+
     Returns new (params, m, v, losses[K]); the inputs are left unchanged.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (``fused_engine_chunk.launches`` counts the launches, ``.bf16_launches``
     those at "default", and ``fused_engine_chunk.step_math_runs`` the steps
     whose step math the kernel enqueued, as it reports them)."""
-    for name, val in (("runtime_bs", runtime_bs),
-                      ("runtime_steps", runtime_steps)):
-        if val is not None:
-            raise engine_core.not_ported(name)
     check_precision(precision, CHUNK_PRECISIONS)
     _check_model(spec, model)
     engine_core.check_schedule(schedule)
-    check_batch_tile(uniforms.shape[1], batch_tile)
-    const = _resolve_const(spec, const, uniforms.shape[1], uniforms.device)
+    K, B, _ = uniforms.shape
+    check_batch_tile(B, batch_tile)
+    const = _resolve_const(spec, const, B, uniforms.device)
+    runtime = runtime_bs is not None or runtime_steps is not None
+    sweep = engine_core.sweep_vectors(
+        1, lrate, B, K, None, None if runtime_bs is None else [runtime_bs],
+        [K if runtime_steps is None else runtime_steps] if runtime else None,
+        runtime_bs is not None)
     if uniforms.device.type == "cpu":
         return fused_engine_chunk_plain(
             spec, model, params, m, v, uniforms, step0, lrate,
             schedule=schedule, total_steps=total_steps, decay=decay,
-            const=const, precision=precision)
+            const=const, precision=precision, runtime_bs=runtime_bs,
+            runtime_steps=runtime_steps, trial_horizon=trial_horizon)
     (p, m, v, losses), runs = _train_packed(
         spec, model, params[None], m[None], v[None], uniforms, step0, lrate,
-        1, schedule, total_steps, decay, const, precision)
-    count_launch(fused_engine_chunk, precision, runs)
+        1, schedule, total_steps, decay, const, precision, sweep,
+        trial_horizon)
+    count_launch(fused_engine_chunk, precision, runs, sweep is not None,
+                 (B, 1))
     return p[0], m[0], v[0], losses[0]
 
 
@@ -1348,23 +1431,30 @@ fused_engine_chunk.launches = 0
 fused_engine_chunk.bf16_launches = 0
 fused_engine_chunk.step_math_runs = 0
 fused_engine_chunk.bf16_step_math_runs = 0
+fused_engine_chunk.sweep_launches = 0
+fused_engine_chunk.sweep_shapes = {}
 
 
 def fused_engine_packed_chunk_plain(spec, model, params, m, v, uniforms,
                                     step0, lrate, n_replicas, rep_tile=None,
                                     *, schedule="constant", total_steps=1,
-                                    decay=0.1, const=None,
+                                    decay=0.1, const=None, lr_vec=None,
+                                    bs_vec=None, steps_vec=None,
+                                    mask_rows=False, trial_horizon=True,
                                     precision="highest"):
     """Plain version of :func:`fused_engine_packed_chunk`."""
     const = _resolve_const(spec, const, uniforms.shape[1], uniforms.device)
 
-    def step_math(p, u, const, precision):
-        return engine_loss_grad_plain(spec, model, p, u, const, precision)
+    def step_math(p, u, const, precision, *masked):
+        return engine_loss_grad_plain(spec, model, p, u, const, precision,
+                                      *masked)
 
     return engine_core.run_fused_packed(
         step_math, params, m, v, uniforms, step0, lrate, n_replicas,
         rep_tile=rep_tile, schedule=schedule, total_steps=total_steps,
-        decay=decay, const=const, precision=precision)
+        decay=decay, const=const, lr_vec=lr_vec, bs_vec=bs_vec,
+        steps_vec=steps_vec, mask_rows=mask_rows,
+        trial_horizon=trial_horizon, precision=precision)
 
 
 def fused_engine_packed_chunk(spec, model, params, m, v, uniforms, step0,
@@ -1372,7 +1462,7 @@ def fused_engine_packed_chunk(spec, model, params, m, v, uniforms, step0,
                               schedule="constant", total_steps=1, decay=0.1,
                               const=None, lr_vec=None, bs_vec=None,
                               steps_vec=None, mask_rows=False,
-                              precision="highest"):
+                              trial_horizon=True, precision="highest"):
     """Packed-replica twin of :func:`fused_engine_chunk` (kernel #5 around
     #6): one call advances ``n_replicas`` independent runs by ``K =
     uniforms.shape[0]`` Adam steps each. ``params``/``m``/``v`` are ``[N,
@@ -1380,29 +1470,41 @@ def fused_engine_packed_chunk(spec, model, params, m, v, uniforms, step0,
     ``uniforms [K, B, U]``, const operand and lr schedule. ``rep_tile``
     must divide N (every launch covers all N replicas on the H100).
 
+    ``lr_vec``, ``bs_vec`` and ``steps_vec`` ([N] each, host or device;
+    the JAX package's packed sweep mode) give slot r its own lr, its own
+    batch (rows ≥ bs[r] masked out of its loss, with ``mask_rows``) and its
+    own step budget (0: a pruned slot, returned as it came with losses 0);
+    with ``trial_horizon`` a decaying schedule runs over the slot's own
+    budget. The call then runs only to the largest budget, rounded up to
+    a whole graph of GRAPH_STEPS.
+
     Returns new (params, m, v, losses [N, K]); the inputs are left
     unchanged. ``precision`` is "highest" or "default", as for the single
     chunk. A CPU tensor takes the plain version; a CUDA tensor launches
     ``engine_train_packed`` once (``.launches``, ``.bf16_launches`` at
     "default"; ``.step_math_runs`` counts the replica-steps whose step math
-    it enqueued). The per-slot sweep vectors are not ported."""
-    engine_core.reject_per_slot(lr_vec=lr_vec, bs_vec=bs_vec,
-                                steps_vec=steps_vec, mask_rows=mask_rows)
+    it enqueued)."""
     check_precision(precision, CHUNK_PRECISIONS)
     _check_model(spec, model)
     engine_core.check_schedule(schedule)
     engine_core.check_rep_tile(n_replicas, rep_tile)
     engine_core.check_replicas(n_replicas, spec.kernel_streams)
-    const = _resolve_const(spec, const, uniforms.shape[1], uniforms.device)
+    K, B, _ = uniforms.shape
+    const = _resolve_const(spec, const, B, uniforms.device)
+    sweep = engine_core.sweep_vectors(n_replicas, lrate, B, K, lr_vec,
+                                      bs_vec, steps_vec, mask_rows)
     if uniforms.device.type == "cpu":
         return fused_engine_packed_chunk_plain(
             spec, model, params, m, v, uniforms, step0, lrate, n_replicas,
             schedule=schedule, total_steps=total_steps, decay=decay,
-            const=const, precision=precision)
+            const=const, lr_vec=lr_vec, bs_vec=bs_vec, steps_vec=steps_vec,
+            mask_rows=mask_rows, trial_horizon=trial_horizon,
+            precision=precision)
     out, runs = _train_packed(spec, model, params, m, v, uniforms, step0,
                               lrate, n_replicas, schedule, total_steps, decay,
-                              const, precision)
-    count_launch(fused_engine_packed_chunk, precision, runs)
+                              const, precision, sweep, trial_horizon)
+    count_launch(fused_engine_packed_chunk, precision, runs,
+                 sweep is not None, (B, n_replicas))
     return out
 
 
@@ -1410,6 +1512,8 @@ fused_engine_packed_chunk.launches = 0
 fused_engine_packed_chunk.bf16_launches = 0
 fused_engine_packed_chunk.step_math_runs = 0
 fused_engine_packed_chunk.bf16_step_math_runs = 0
+fused_engine_packed_chunk.sweep_launches = 0
+fused_engine_packed_chunk.sweep_shapes = {}
 
 
 # ---------------------------------------------------------------------------
@@ -1527,3 +1631,212 @@ def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
     return train_in_chunks(models, run_chunk, draw, p, torch.zeros_like(p),
                            torch.zeros_like(p), iterations, chunk_size,
                            device, load=load, n_default=n_default)
+
+
+
+# ---------------------------------------------------------------------------
+# The sweep evaluators (sweep/search.py's fused tier)
+# ---------------------------------------------------------------------------
+
+
+def _sweep_spec(problem, model):
+    """The spec and model of a sweep evaluator (``model`` None: the
+    problem's default architecture), checked."""
+    spec = spec_for(problem)
+    if spec is None:
+        raise ValueError(f"no fused-engine spec for {problem.name!r}")
+    arch = model or problem.default_model()
+    _check_model(spec, arch)
+    return spec, arch
+
+
+def trial_state(problem, model, seed, trial_indices, state, device):
+    """The flat states of trials ``trial_indices`` of a sweep seeded
+    ``seed``, ``[len, n]``: trial t is ``model``'s architecture (None: the
+    problem's) drawn from ``replica_generator(seed, t)``, the JAX
+    evaluators' ``model.init(fold_in(init_key, t))``; ``state(model)`` packs
+    it."""
+    models = [problem.default_model(generator=replica_generator(seed, int(t)),
+                                    device=device) if model is None
+              else model.fresh(generator=replica_generator(seed, int(t)),
+                               device=device)
+              for t in trial_indices]
+    return torch.stack([state(m) for m in models])
+
+
+def check_horizon(horizon):
+    if horizon not in ("trial", "fixed"):
+        raise ValueError(f"horizon must be 'trial' or 'fixed' ({horizon!r})")
+
+
+def check_single_phase(precision):
+    """The sweep evaluators train at one precision, as in the JAX package:
+    a "mixed" run's phase split is fixed per call, a trial's budget is
+    not."""
+    check_precision(precision)
+    if precision == "mixed":
+        raise ValueError("the sweep evaluator is single-phase (the mixed "
+                         "schedule's phase split is compile-time, the trial "
+                         "budget is runtime); use 'highest' or 'default'")
+
+
+def padded_horizon(max_iters):
+    """The evaluators' stream length: ``max_iters`` rounded up to a
+    multiple of 1 000, as the JAX package pads it (the trials clamp to
+    ``max_iters`` itself)."""
+    return -(-int(max_iters) // 1000) * 1000
+
+
+def live_steps(n_iters, max_iters):
+    """The steps a call of budgets ``n_iters`` runs: the largest, rounded
+    up to a whole CUDA graph of GRAPH_STEPS, at most ``max_iters``."""
+    return min(max_iters, -(-int(np.max(n_iters)) // GRAPH_STEPS)
+               * GRAPH_STEPS)
+
+
+def make_lr_evaluator(problem, seed, iterations, batch_size=64, model=None,
+                      precision="highest", schedule=None, decay=0.1,
+                      device="cuda"):
+    """``eval_fn(trial_index, lrate) -> (losses [iterations] numpy, flat
+    state)``: each call trains trial ``trial_index``'s fresh network
+    (:func:`trial_state`) for the full ``iterations`` at ``lrate`` through
+    the same kernels and CUDA graph (the lr rides the argument block). The
+    collocation stream ``step_uniforms(seed, 0, iterations, batch_size)``
+    is shared by every trial. ``precision`` "mixed" runs its two phases as
+    :func:`train_fused_result` does."""
+    spec, arch = _sweep_spec(problem, model)
+    device = build.resolve_device(device)
+    schedule = schedule or problem.defaults.schedule
+    n_default = default_steps(iterations, precision)
+    uniforms = step_uniforms(seed, 0, iterations, batch_size, device,
+                             spec.n_uniform)
+    kw = dict(schedule=schedule, total_steps=iterations, decay=decay,
+              const=spec.make_const(batch_size, device))
+
+    def eval_fn(trial_index: int, lrate: float):
+        p = trial_state(problem, model, seed, [trial_index],
+                        lambda m: pack_state(spec, m), device)[0]
+        m, v = torch.zeros_like(p), torch.zeros_like(p)
+        losses = []
+        for lo, hi, prec in ((0, n_default, "default"),
+                             (n_default, iterations, "highest")):
+            if hi > lo:
+                p, m, v, part = fused_engine_chunk(
+                    spec, arch, p, m, v, uniforms[lo:hi], lo, float(lrate),
+                    precision=prec, **kw)
+                losses.append(part)
+        return torch.cat(losses).cpu().numpy(), p
+
+    return eval_fn
+
+
+def _sweep_prologue(problem, seed, max_iters, max_batch, model, precision,
+                    schedule, device):
+    """What the sweep evaluators share (JAX ``_sweep_prologue``): the spec
+    and model checks, "mixed" refused, the stream padded to a multiple of
+    1 000 steps and drawn at ``max_batch`` rows from ``seed``. Returns
+    (spec, model, schedule, user_max, padded_max, uniforms, const,
+    device)."""
+    spec, arch = _sweep_spec(problem, model)
+    check_single_phase(precision)
+    device = build.resolve_device(device)
+    schedule = schedule or problem.defaults.schedule
+    padded = padded_horizon(max_iters)
+    uniforms = step_uniforms(seed, 0, padded, max_batch, device,
+                             spec.n_uniform)
+    return (spec, arch, schedule, int(max_iters), padded, uniforms,
+            spec.make_const(max_batch, device), device)
+
+
+def make_sweep_evaluator(problem, seed, max_iters, max_batch=512, model=None,
+                         precision="highest", schedule=None, decay=0.1,
+                         horizon="trial", device="cuda"):
+    """The full reference space on one tile of ``max_batch`` rows:
+    ``eval_fn(trial_index, lrate, batch_size, n_iters) -> (losses
+    [n_iters] numpy, flat state)``. The batch masks rows ≥ batch_size out
+    of the loss and the budget stops the trial at n_iters (the kernels'
+    sweep mode), so the result is the n_iters-step state; the call runs
+    only to its budget rounded up to a graph of GRAPH_STEPS. ``horizon``
+    "trial" decays a schedule over the trial's own n_iters, "fixed" over
+    ``max_iters`` for every trial (the halving schedulers': a promoted
+    trial's rerun replays its earlier rung exactly). Trials clamp
+    batch_size to [1, max_batch] and n_iters to [1, max_iters]."""
+    check_horizon(horizon)
+    spec, arch, schedule, user_max, padded, uniforms, const, device = \
+        _sweep_prologue(problem, seed, max_iters, max_batch, model,
+                        precision, schedule, device)
+
+    def eval_fn(trial_index: int, lrate: float, batch_size: int,
+                n_iters: int):
+        bs = max(1, min(int(batch_size), max_batch))
+        n = max(1, min(int(n_iters), user_max))
+        p = trial_state(problem, model, seed, [trial_index],
+                        lambda m: pack_state(spec, m), device)[0]
+        zeros = torch.zeros_like(p)
+        p, _, _, losses = fused_engine_chunk(
+            spec, arch, p, zeros, zeros, uniforms[:live_steps(n, padded)],
+            0, float(lrate), schedule=schedule, total_steps=user_max,
+            decay=decay, runtime_bs=bs, runtime_steps=n,
+            trial_horizon=horizon == "trial", const=const,
+            precision=precision)
+        return losses[:n].cpu().numpy(), p
+
+    return eval_fn
+
+
+def make_packed_rung_evaluator(problem, seed, max_iters, n_slots,
+                               max_batch=512, model=None,
+                               precision="highest", schedule=None, decay=0.1,
+                               horizon="fixed", rep_tile=None, device="cuda"):
+    """A vector of ``n_slots`` trials as one packed call (kernel #5 around
+    #6 in its sweep mode): ``eval_fn(trial_indices, lrates, batch_sizes,
+    n_iters) -> (final_losses [n_slots] numpy, flat states [n_slots, n])``.
+    Slot i trains trial ``trial_indices[i]`` at its own lr, batch and
+    budget (0: pruned, +inf as its final loss, its blocks returning at
+    entry); the trials, the stream and the schedule are
+    :func:`make_sweep_evaluator`'s, so slot i equals that evaluator's
+    trial."""
+    check_horizon(horizon)
+    spec, arch, schedule, user_max, padded, uniforms, const, device = \
+        _sweep_prologue(problem, seed, max_iters, max_batch, model,
+                        precision, schedule, device)
+
+    def eval_fn(trial_indices, lrates, batch_sizes, n_iters):
+        if len(trial_indices) != n_slots:
+            raise ValueError(f"expected {n_slots} slots "
+                             f"(got {len(trial_indices)})")
+        ns = np.clip(np.asarray(n_iters, np.int64), 0, user_max)
+        bss = np.clip(np.asarray(batch_sizes, np.int64), 1, max_batch)
+        p = trial_state(problem, model, seed, trial_indices,
+                        lambda m: pack_state(spec, m), device)
+        zeros = torch.zeros_like(p)
+        p, _, _, losses = fused_engine_packed_chunk(
+            spec, arch, p, zeros, zeros, uniforms[:live_steps(ns, padded)],
+            0, 0.0, n_slots, rep_tile, schedule=schedule,
+            total_steps=user_max, decay=decay, const=const,
+            lr_vec=np.asarray(lrates, np.float32), bs_vec=bss, steps_vec=ns,
+            mask_rows=True, trial_horizon=horizon == "trial",
+            precision=precision)
+        losses = losses.cpu().numpy()
+        finals = np.where(ns > 0, losses[np.arange(n_slots),
+                                         np.maximum(ns - 1, 0)], np.inf)
+        return finals, p
+
+    return eval_fn
+
+
+def lr_sweep(problem, seed, lrates, iterations, batch_size=64, model=None,
+             precision="highest", schedule=None, decay=0.1, device="cuda"):
+    """A full-budget learning-rate sweep through :func:`make_lr_evaluator`:
+    trial t trains at ``lrates[t]``. Returns (final losses [N] numpy, the
+    trained flat states ``[N, n]``)."""
+    eval_fn = make_lr_evaluator(problem, seed, iterations,
+                                batch_size=batch_size, model=model,
+                                precision=precision, schedule=schedule,
+                                decay=decay, device=device)
+    finals, states = [], []
+    for t, lr in enumerate(np.asarray(lrates, np.float64)):
+        losses, p = eval_fn(t, float(lr))
+        finals.append(float(losses[-1]))
+        states.append(p)
+    return np.asarray(finals), torch.stack(states)

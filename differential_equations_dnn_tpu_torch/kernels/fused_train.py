@@ -273,13 +273,20 @@ def heat_loss_grad_plain(model, params, u, x_max=math.pi, t_max=3.0,
     return loss, torch.cat([g.reshape(-1) for g in grads])
 
 
-def count_launch(fn, precision, step_math_runs=None):
+def count_launch(fn, precision, step_math_runs=None, sweep=False,
+                 shape=None):
     """One launch of ``fn``'s kernel: ``fn.launches`` counts every launch,
     ``fn.bf16_launches`` those of its "default" (bf16 tensor-core)
-    instances; a training wrapper also adds the (replica-)steps whose step
-    math the launch enqueued to ``fn.step_math_runs`` (and to
-    ``fn.bf16_step_math_runs`` at "default")."""
+    instances, ``fn.sweep_launches`` those in the sweep mode (a batch mask,
+    a step budget or per-slot vectors), and ``fn.sweep_shapes`` those by
+    ``shape`` (the tile and the replicas, (B, N)); a training wrapper also
+    adds the (replica-)steps whose step math the launch enqueued to
+    ``fn.step_math_runs`` (and to ``fn.bf16_step_math_runs`` at
+    "default")."""
     fn.launches += 1
+    if sweep:
+        fn.sweep_launches += 1
+        fn.sweep_shapes[shape] = fn.sweep_shapes.get(shape, 0) + 1
     if precision == "default":
         fn.bf16_launches += 1
     if step_math_runs is not None:

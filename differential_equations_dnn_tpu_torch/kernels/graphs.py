@@ -29,13 +29,17 @@ from differential_equations_dnn_tpu_torch.kernels import build
 # Training steps of one captured CUDA graph (S): a call of K steps replays
 # it ⌊K/S⌋ times and runs the K mod S steps left over as the same launches.
 GRAPH_STEPS = 50
-# Shapes whose graphs (and scratch) stay cached, over all fused trainers.
-GRAPH_CACHE_SIZE = 8
+# Shapes whose graphs (and scratch) stay cached, over all fused trainers: a
+# sweep's four bucket tiles (sweep/search.py BUCKET_TILES) × {single trial,
+# packed rung} × two precisions.
+GRAPH_CACHE_SIZE = 16
 
 # Graphs captured in this process: their count, the host seconds each
 # capture and instantiation took (kept apart from the chunks' own
-# timings), and the trainer of each ("heat", "engine" or "dgm").
-graph_stats = {"builds": 0, "build_seconds": [], "engines": []}
+# timings), the trainer of each ("heat", "engine" or "dgm"), and the cached
+# shapes freed to make room (a shape used again after that captures anew).
+graph_stats = {"builds": 0, "build_seconds": [], "engines": [],
+               "evictions": 0}
 
 
 def args_block(nbytes, device):
@@ -59,6 +63,7 @@ class StepGraph:
         self.stream = torch.cuda.Stream(device)
         self.branches = [torch.cuda.Stream(device) for _ in range(2)]
         self.exec = None
+        self.sweep = ()  # the last call's sweep vectors, kept alive
         self._free = free
 
     def capture(self, build_graph, what):
@@ -110,6 +115,7 @@ def step_graph(key, make):
         entry = _GRAPHS[key] = make()
         while len(_GRAPHS) > GRAPH_CACHE_SIZE:
             _GRAPHS.popitem(last=False)[1].free()
+            graph_stats["evictions"] += 1
     _GRAPHS.move_to_end(key)
     return entry
 

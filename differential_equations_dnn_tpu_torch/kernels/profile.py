@@ -53,8 +53,11 @@ kernel #3's device time per call instead (B = 64 and 1 000, H = 128, 256
 and 512). ``--mlp`` times kernel #2's device time per call at each shape
 of ``MLP_SHAPES`` (N = 25 to 2^20, H = 32 to 1 024). ``--probe-engine``
 times each kernel of the MLP engine alone (back to back, behind a spin
-kernel) at heat2d's layout: B = 256 and 2 048 at H = 128, B = 256 at H = 512. Needs a
-CUDA device.
+kernel) at heat2d's layout: B = 256 and 2 048 at H = 128, B = 256 at H = 512.
+``--steady`` times 1 000-step chunks of the fused routes outside the sweep
+mode (#1 heat, heat2d, wave × 8, FitzHugh–Nagumo × 1 and × 16; an earlier
+tree's package can run it as the outputs above), ``--rung`` a 27-slot
+heat rung at tile 64 with 27, 9, 3 and 1 live slots. Needs a CUDA device.
 
     python -m differential_equations_dnn_tpu_torch.kernels.profile \
         fitzhugh_nagumo wave --replicas 1 4 8 16
@@ -485,7 +488,8 @@ def probe_engine(device, B=256, H=128, launches=200):
 
 
 def dgm_outputs(device):
-    """The DGM kernels' outputs at fixed inputs, as CPU tensors by name."""
+    """The DGM kernels' outputs at fixed inputs, as CPU tensors by name, at
+    each precision of OUTPUT_PRECISIONS."""
     out = {}
     for name, n_replicas in (("fitzhugh_nagumo", 16), ("fredholm", 4)):
         prob = PROBLEMS[name]()
@@ -499,86 +503,113 @@ def dgm_outputs(device):
         p = engine_core.stack_replicas([fd.pack_dgm(m) for m in models])
         z = torch.zeros_like(p)
         u = step_uniforms(0, 100, 120, B, device, spec.n_uniform)
-        kw = dict(const=const, schedule="cosine", total_steps=300)
-        loss, grad = fd.dgm_loss_grad(spec, models[0], p[0].contiguous(),
-                                      u[0], const)
-        out[f"{name} step loss"] = loss.reshape(1)
-        out[f"{name} step grad"] = grad
-        single = fd.fused_dgm_chunk(spec, models[0], p[0].contiguous(),
-                                    z[0].clone(), z[0].clone(), u, 100,
-                                    d.lrate, **kw)
-        packed = fd.fused_dgm_packed_chunk(spec, models[0], p, z, z, u[:53],
-                                           100, d.lrate, n_replicas, **kw)
-        for what, tensors in (("single", single), ("packed", packed)):
-            for part, t in zip(("p", "m", "v", "losses"), tensors):
-                out[f"{name} {what} {part}"] = t
+        for pr, tag in OUTPUT_PRECISIONS:
+            kw = dict(const=const, schedule="cosine", total_steps=300,
+                      precision=pr)
+            loss, grad = fd.dgm_loss_grad(spec, models[0],
+                                          p[0].contiguous(), u[0], const,
+                                          precision=pr)
+            out[f"{name}{tag} step loss"] = loss.reshape(1)
+            out[f"{name}{tag} step grad"] = grad
+            single = fd.fused_dgm_chunk(spec, models[0], p[0].contiguous(),
+                                        z[0].clone(), z[0].clone(), u, 100,
+                                        d.lrate, **kw)
+            packed = fd.fused_dgm_packed_chunk(spec, models[0], p, z, z,
+                                               u[:53], 100, d.lrate,
+                                               n_replicas, **kw)
+            for what, tensors in (("single", single), ("packed", packed)):
+                for part, t in zip(("p", "m", "v", "losses"), tensors):
+                    out[f"{name}{tag} {what} {part}"] = t
     torch.cuda.synchronize()
     return {k: v.detach().cpu() for k, v in out.items()}
 
 
-# The MLP engine's outputs: (equation, hidden layers) at H = 128.
-ENGINE_OUTPUTS = (("heat2d", 3), ("wave", 3), ("simple_ode", 1),
-                  ("poisson", 3))
+# The MLP engine's outputs: (equation, problem arguments, hidden layers of a
+# tanh MLP at H = 128, or None for the equation's default model). The last
+# four take the loss kernels of their own: volterra's folded groups,
+# inverse_heat's extra tensor, uat's grid, causal advection's cross-point
+# loss.
+ENGINE_OUTPUTS = (("heat2d", {}, 3), ("wave", {}, 3), ("simple_ode", {}, 1),
+                  ("poisson", {}, 3), ("volterra", {}, None),
+                  ("inverse_heat", {}, None), ("uat", {}, None),
+                  ("advection", dict(c=50.0, causal_eps=5.0), None))
+# Each output at both precisions of the kernels: (precision, key suffix).
+OUTPUT_PRECISIONS = (("highest", ""), ("default", " [default]"))
 
 
 def engine_outputs(device):
     """The MLP engine's outputs at fixed inputs, as CPU tensors by name:
-    per equation of ENGINE_OUTPUTS (tanh MLP D → 128×L → 1, replica r drawn
-    from replica_generator(0, r)), one step's loss and gradient, a 120-step
-    single chunk (graph boundaries at 50 and 100) and a 53-step packed
-    chunk of 8 replicas, each from step 100 under a cosine schedule over
-    300 steps; p, m, v and the losses. Only entry points every version of
-    the engine has."""
+    per equation of ENGINE_OUTPUTS (replica r drawn from
+    replica_generator(0, r)) and precision of OUTPUT_PRECISIONS, one step's
+    loss and gradient, a 120-step single chunk (graph boundaries at 50 and
+    100) and a 53-step packed chunk of 8 replicas, each from step 100 under
+    a cosine schedule over 300 steps; p, m, v and the losses. Only entry
+    points every version of the engine with the "default" precision
+    has."""
     from differential_equations_dnn_tpu_torch.models import MLP
 
     out = {}
     n_replicas = 8
-    for name, L in ENGINE_OUTPUTS:
-        prob = PROBLEMS[name]()
+    for name, extra, L in ENGINE_OUTPUTS:
+        prob = PROBLEMS[name](**extra)
         d = prob.defaults
         B = d.batch_size
         spec = fe.spec_for(prob)
         models = [MLP(spec.input_dim, 1, 128, L, "tanh",
                       generator=replica_generator(0, r), device=device)
+                  if L is not None else
+                  prob.default_model(generator=replica_generator(0, r),
+                                     device=device)
                   for r in range(n_replicas)]
-        p = engine_core.stack_replicas([ft.pack_params(m) for m in models])
+        p = engine_core.stack_replicas([fe.pack_state(spec, m)
+                                        for m in models])
         z = torch.zeros_like(p)
         u = step_uniforms(0, 100, 120, B, device, spec.n_uniform)
-        kw = dict(schedule="cosine", total_steps=300)
-        loss, grad = fe.engine_loss_grad(spec, models[0], p[0].contiguous(),
-                                         u[0])
-        out[f"{name} step loss"] = loss.reshape(1)
-        out[f"{name} step grad"] = grad
-        single = fe.fused_engine_chunk(spec, models[0], p[0].contiguous(),
-                                       z[0].clone(), z[0].clone(), u, 100,
-                                       d.lrate, **kw)
-        packed = fe.fused_engine_packed_chunk(spec, models[0], p, z, z,
-                                              u[:53], 100, d.lrate,
-                                              n_replicas, **kw)
-        for what, tensors in (("single", single), ("packed", packed)):
-            for part, t in zip(("p", "m", "v", "losses"), tensors):
-                out[f"{name} {what} {part}"] = t
+        const = spec.make_const(B, device)
+        for pr, tag in OUTPUT_PRECISIONS:
+            kw = dict(schedule="cosine", total_steps=300, const=const,
+                      precision=pr)
+            loss, grad = fe.engine_loss_grad(spec, models[0],
+                                             p[0].contiguous(), u[0], const,
+                                             precision=pr)
+            out[f"{name}{tag} step loss"] = loss.reshape(1)
+            out[f"{name}{tag} step grad"] = grad
+            single = fe.fused_engine_chunk(spec, models[0],
+                                           p[0].contiguous(), z[0].clone(),
+                                           z[0].clone(), u, 100, d.lrate,
+                                           **kw)
+            packed = fe.fused_engine_packed_chunk(spec, models[0], p, z, z,
+                                                  u[:53], 100, d.lrate,
+                                                  n_replicas, **kw)
+            for what, tensors in (("single", single), ("packed", packed)):
+                for part, t in zip(("p", "m", "v", "losses"), tensors):
+                    out[f"{name}{tag} {what} {part}"] = t
     torch.cuda.synchronize()
     return {k: v.detach().cpu() for k, v in out.items()}
 
 
 def heat_outputs(device):
     """Kernel #1's outputs at fixed inputs, as CPU tensors by name: heat's
-    default model (2 → 128×3 → 1 from generator(0)), one step's loss and
-    gradient, and a 120-step chunk from step 100 (graph boundaries at 50 and
-    100; p, m, v and the losses). Only entry points every version of the
-    kernel has."""
+    default model (2 → 128×3 → 1 from generator(0)), at each precision of
+    OUTPUT_PRECISIONS one step's loss and gradient, and a 120-step chunk
+    from step 100 (graph boundaries at 50 and 100; p, m, v and the losses).
+    Only entry points every version of the kernel with the "default"
+    precision has."""
     prob = PROBLEMS["heat"]()
     d = prob.defaults
     model = prob.default_model(generator=generator(0), device=device)
     p = ft.pack_params(model)
     z = torch.zeros_like(p)
     u = step_uniforms(0, 100, 120, d.batch_size, device)
-    loss, grad = ft.heat_loss_grad(model, p, u[0])
-    out = {"heat step loss": loss.reshape(1), "heat step grad": grad}
-    chunk = ft.heat_fused_train_chunk(model, p, z, z, u, 100, d.lrate)
-    for part, t in zip(("p", "m", "v", "losses"), chunk):
-        out[f"heat chunk {part}"] = t
+    out = {}
+    for pr, tag in OUTPUT_PRECISIONS:
+        loss, grad = ft.heat_loss_grad(model, p, u[0], precision=pr)
+        out[f"heat{tag} step loss"] = loss.reshape(1)
+        out[f"heat{tag} step grad"] = grad
+        chunk = ft.heat_fused_train_chunk(model, p, z, z, u, 100, d.lrate,
+                                          precision=pr)
+        for part, t in zip(("p", "m", "v", "losses"), chunk):
+            out[f"heat{tag} chunk {part}"] = t
     torch.cuda.synchronize()
     return {k: v.detach().cpu() for k, v in out.items()}
 
@@ -697,6 +728,98 @@ def mlp_outputs(device):
     return out
 
 
+def _steady_ms(run, reps=3):
+    """Mean milliseconds per call of ``run`` between CUDA events, after a
+    warm-up call."""
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def steady_times(device, K=1000):
+    """µs per step of K-step chunks of the fused routes outside the sweep
+    mode (heat kernel #1; heat2d; wave × 8; FitzHugh–Nagumo single and ×
+    16), each equation's default model and batch; only entry points every
+    version of the kernels has, so an earlier tree's package can run it."""
+    out = {}
+    prob = PROBLEMS["heat"]()
+    model = prob.default_model(generator=generator(0), device=device)
+    p = ft.pack_params(model)
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, 0, K, 64, device)
+    out["heat #1"] = _steady_ms(lambda: ft.heat_fused_train_chunk(
+        model, p, z, z, u, 0, 1e-4))
+    cases = (("heat2d", 1, fe.spec_for, fe.fused_engine_chunk,
+              fe.fused_engine_packed_chunk),
+             ("wave", 8, fe.spec_for, fe.fused_engine_chunk,
+              fe.fused_engine_packed_chunk),
+             ("fitzhugh_nagumo", 1, None, fd.fused_dgm_chunk,
+              fd.fused_dgm_packed_chunk),
+             ("fitzhugh_nagumo", 16, None, fd.fused_dgm_chunk,
+              fd.fused_dgm_packed_chunk))
+    for name, N, spec_of, single, packed in cases:
+        prob = PROBLEMS[name]()
+        B = prob.defaults.batch_size
+        spec = spec_of(prob) if spec_of else fd.spec_for(prob, B)
+        pack = ((lambda m: fe.pack_state(spec, m)) if spec_of
+                else fd.pack_dgm)
+        gens = ([generator(0)] if N == 1 else
+                [replica_generator(0, r) for r in range(N)])
+        models = [prob.default_model(generator=g, device=device)
+                  for g in gens]
+        p = engine_core.stack_replicas([pack(m) for m in models])
+        z = torch.zeros_like(p)
+        u = step_uniforms(0, 0, K, B, device, spec.n_uniform)
+        kw = dict(schedule="cosine", total_steps=2 * K) if spec_of else {}
+        lr = prob.defaults.lrate
+
+        def run():
+            if N == 1:
+                return single(spec, models[0], p[0], z[0], z[0], u, 0, lr,
+                              **kw)
+            return packed(spec, models[0], p, z, z, u, 0, lr, N, **kw)
+
+        out[f"{name} x{N}"] = _steady_ms(run)
+    print("µs per step of 1 000-step chunks: " + "; ".join(
+        f"{k} {v / K * 1e3:.2f}" for k, v in out.items()))
+
+
+def rung_times(device, n_slots=27, K=500, live=(27, 9, 3, 1)):
+    """A halving rung's cost against its live slots: ms of a packed call of
+    ``n_slots`` heat slots at a tile of 64 rows, K steps, with the first k
+    slots live (the rest pruned: budget 0) for each k of ``live``, beside
+    the call outside the sweep mode."""
+    prob = PROBLEMS["heat"]()
+    spec = fe.spec_for(prob)
+    models = [prob.default_model(generator=replica_generator(0, r),
+                                 device=device) for r in range(n_slots)]
+    p = engine_core.stack_replicas([fe.pack_state(spec, m) for m in models])
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, 0, K, 64, device, spec.n_uniform)
+
+    def call(k=None):
+        kw = {} if k is None else dict(
+            lr_vec=np.full(n_slots, 1e-3, np.float32),
+            bs_vec=np.full(n_slots, 64),
+            steps_vec=np.asarray([K] * k + [0] * (n_slots - k)),
+            mask_rows=True)
+        return fe.fused_engine_packed_chunk(spec, models[0], p, z, z, u, 0,
+                                            1e-3, n_slots, **kw)
+
+    out = {"outside the sweep mode": _steady_ms(call)}
+    for k in live:
+        out[f"{k} live"] = _steady_ms(lambda: call(k))
+    print(f"{n_slots}-slot heat rung at tile 64, {K} steps, ms: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in out.items()))
+
+
 def compare_outputs(new, old):
     """Tensor by tensor: bit for bit, or the largest difference; then the
     count of equal tensors."""
@@ -747,6 +870,12 @@ def main():
     parser.add_argument("--compare-to", metavar="OLD",
                         help="with one of the --*-outputs options: "
                         "compare with OLD, saved by an earlier tree")
+    parser.add_argument("--steady", action="store_true",
+                        help="µs per step of 1 000-step chunks of the fused "
+                             "routes outside the sweep mode")
+    parser.add_argument("--rung", action="store_true",
+                        help="a 27-slot heat rung's ms against its live "
+                             "slots")
     parser.add_argument("--probe-engine", action="store_true",
                         help="time each MLP-engine kernel and tile variant "
                         "at heat2d's layout instead")
@@ -788,6 +917,12 @@ def main():
             return
     if args.probe:
         probe(device)
+        return
+    if args.steady or args.rung:
+        if args.steady:
+            steady_times(device)
+        if args.rung:
+            rung_times(device)
         return
     if args.streams:
         streams_times(device)

@@ -1,0 +1,640 @@
+"""Hyperparameter search on the fused tier: every trial trains inside the
+port's hand-written kernels (kernels/fused_engine.py, kernels/fused_dgm.py).
+
+Counterpart of the fused half of the JAX package's sweep/search.py, the
+reference's Ray Tune driver (optimize_heat_ray.py: Optuna's TPE under ASHA
+over ``batch_size ~ randint[1, 512)``, ``n_iters ~ randint[1000, 50 000)``
+and ``lrate ~ loguniform[1e-4, 1e-1]``, at most 5 trials at a time), scored
+by each trial's final training loss (:157):
+
+* :func:`tpe_search_fused` — TPE, one trial after another, or rounds of
+  ``q`` proposals each trained as packed calls (the reference's
+  ``max_concurrent=5``);
+* :func:`halving_search_fused` — successive halving (the ASHA role), each
+  rung one packed call per bucket tile, every slot at its own lr, batch
+  and budget (a pruned slot's blocks return at entry);
+* :func:`tpe_halving_fused` — TPE proposing each halving bracket's
+  configs (the reference's pairing).
+
+The batch is a row mask over a compiled tile and the budget a step gate,
+both values of the kernels' argument block, so one captured CUDA graph per
+tile serves every trial. Trials route to the smallest tile of
+``BUCKET_TILES`` that holds their batch; a trial's collocation stream is
+drawn at its tile's width. The population drivers (``random_search``,
+``successive_halving``, ``tpe_search``, ``tpe_halving``) and the sharded
+rung evaluators are not ported (ROADMAP items 13 and 14).
+"""
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from differential_equations_dnn_tpu_torch.kernels import (
+    fused_dgm,
+    fused_engine,
+)
+
+# ---- search-space primitives (Ray-Tune-style) -------------------------------
+
+
+@dataclass(frozen=True)
+class loguniform:
+    low: float
+    high: float
+
+    def sample(self, rng, n):
+        return np.exp(rng.uniform(np.log(self.low), np.log(self.high), n))
+
+
+@dataclass(frozen=True)
+class uniform:
+    low: float
+    high: float
+
+    def sample(self, rng, n):
+        return rng.uniform(self.low, self.high, n)
+
+
+@dataclass(frozen=True)
+class randint:
+    low: int
+    high: int  # exclusive, like ray.tune.randint
+
+    def sample(self, rng, n):
+        return rng.integers(self.low, self.high, n)
+
+
+@dataclass(frozen=True)
+class choice:
+    values: tuple
+
+    def sample(self, rng, n):
+        return np.asarray(self.values)[rng.integers(0, len(self.values), n)]
+
+
+@dataclass(frozen=True)
+class SearchSpace:
+    """Named distributions; ``sample(seed, n)`` draws a dict of [n] arrays."""
+
+    specs: dict
+
+    def sample(self, seed: int, n: int) -> dict:
+        rng = np.random.default_rng(seed)
+        return {name: spec.sample(rng, n) for name, spec in self.specs.items()}
+
+
+def heat_search_space() -> SearchSpace:
+    """The reference's space (optimize_heat_ray.py:173-176)."""
+    return SearchSpace({
+        "batch_size": randint(1, 512),
+        "n_iters": randint(1000, 50_000),
+        "lrate": loguniform(1e-4, 1e-1),
+    })
+
+
+# ---- results ----------------------------------------------------------------
+
+
+@dataclass
+class SweepResult:
+    configs: list            # per-trial config dicts
+    scores: np.ndarray       # [P] final losses (at each trial's own budget)
+    losses: np.ndarray | None  # [iters, P] loss curves (None: not kept)
+    params: Any              # [len(param_indices), n] trained flat states
+    param_indices: np.ndarray | None = None  # the trials params holds
+    unpack: Any = None       # flat state -> its tensors in flat-state order
+    best_index: int = field(init=False)
+
+    def __post_init__(self):
+        finite = np.where(np.isfinite(self.scores), self.scores, np.inf)
+        if self.param_indices is not None:
+            # Only trials still holding params (halving's survivors) can
+            # win; their scores are also the fully trained ones.
+            eligible = np.full_like(finite, np.inf)
+            eligible[self.param_indices] = finite[self.param_indices]
+            if not np.isfinite(eligible).any():
+                # Every param-holding trial diverged: still point at one
+                # of them, whose params exist.
+                self.best_index = int(self.param_indices[0])
+                return
+            finite = eligible
+        self.best_index = int(np.argmin(finite))
+
+    @property
+    def best_config(self) -> dict:
+        return self.configs[self.best_index]
+
+    @property
+    def best_score(self) -> float:
+        return float(self.scores[self.best_index])
+
+    def best_params(self):
+        """The best trial's trained tensors in flat-state order
+        (``fused_engine.unpack_state`` / ``fused_dgm.unpack_dgm``), each
+        with a leading axis of 1 (the JAX package's ``take_trials``)."""
+        if self.param_indices is None:
+            pos = self.best_index
+        else:
+            pos = int(np.where(self.param_indices == self.best_index)[0][0])
+        return take_trial(self.params, pos, self.unpack)
+
+
+def take_trial(params, pos, unpack=None):
+    """Row ``pos`` of stacked flat states ``[P, n]`` as ``unpack(row)``'s
+    tensors (None: the flat row), each with a leading axis of 1."""
+    row = params[pos]
+    if unpack is None:
+        return row[None]
+    return tuple(t[None] for t in unpack(row))
+
+
+# ---- bucketed tiles of the fused sweep evaluators ---------------------------
+
+#: The row tiles of full-space sweeps: a trial routes to the smallest tile
+#: holding its batch_size, and the row mask covers the rest of the tile.
+#: Each tile's evaluator (its stream, its CUDA graph) is made on first use.
+BUCKET_TILES = (64, 128, 256, 512)
+
+
+def _tiles_for(max_bs: int, bucket_tiles, floor: int = 1) -> list[int]:
+    """The tiles of a sweep capped at ``max_bs``: every bucket in [floor,
+    top) and the top tile itself, max_bs rounded up to a multiple of 64.
+    ``floor`` is the smallest legal tile (Fredholm's nodes must fit)."""
+    top = max(-(-int(max_bs) // 64) * 64, int(floor))
+    return sorted({t for t in bucket_tiles if floor <= t < top} | {top})
+
+
+def _bucketed(tiles: list[int], make):
+    """Lazy per-tile evaluators: ``make(tile)`` on first use; ``get(bs)``
+    returns the evaluator of the smallest tile ≥ bs. The stream is drawn
+    at the tile's width, so a trial's run depends on its bucket (each
+    bucket is the unbucketed evaluator at that tile)."""
+    evs: dict[int, Any] = {}
+
+    def get(bs: int):
+        tile = next((t for t in tiles if t >= bs), tiles[-1])
+        if tile not in evs:
+            evs[tile] = make(tile)
+        return evs[tile]
+
+    return get
+
+
+def _clamp_batch_cap(problem, max_batch_size: int) -> int:
+    """The sweep's batch ceiling clamped to what the problem's sampler can
+    give per step (a fixed grid caps it: FitzHugh–Nagumo's, the UAT
+    demo's)."""
+    cap = problem.max_sample_size
+    return int(min(max_batch_size, cap)) if cap else int(max_batch_size)
+
+
+def _batch_cap(problem, space, max_batch_size):
+    """_clamp_batch_cap, and a randint batch space's largest value."""
+    max_bs = _clamp_batch_cap(problem, max_batch_size)
+    bspec = space.specs.get("batch_size")
+    if isinstance(bspec, randint):
+        max_bs = min(max_bs, bspec.high - 1)
+    return max_bs
+
+
+def _tile_floor(problem):
+    """Fredholm's k nodes must fit one tile; 1 for the others."""
+    return -(-problem.k // 64) * 64 if problem.name == "fredholm" else 1
+
+
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded rung evaluation over a mesh is not ported yet "
+            "(ROADMAP.md queue 1, item 14)")
+
+
+def _unpacker(problem, model, is_dgm):
+    arch = model or problem.default_model()
+    if is_dgm:
+        return lambda row: fused_dgm.unpack_dgm(arch, row)
+    spec = fused_engine.spec_for(problem)
+    return lambda row: fused_engine.unpack_state(spec, arch, row)
+
+
+# ---- TPE on the fused tier --------------------------------------------------
+
+
+def tpe_search_fused(problem, seed: int = 0, num_samples: int = 16,
+                     sampler_seed: int = 0, model=None,
+                     space: SearchSpace | None = None,
+                     max_iters: int | None = None,
+                     batch_size: int | None = None,
+                     max_batch_size: int = 512, gamma: float = 0.25,
+                     schedule: str | None = None, q: int = 1,
+                     bucket_tiles=BUCKET_TILES, precision: str = "highest",
+                     device="cuda") -> SweepResult:
+    """TPE with every proposal trained inside the fused kernels (JAX
+    ``tpe_search_fused``; its ``key`` is ``seed`` here, the sampler's
+    ``seed`` is ``sampler_seed``). lr-only spaces run the fixed-shape
+    evaluators (``fused_engine.make_lr_evaluator``, the DGM's
+    ``make_trial_evaluator``); spaces with n_iters or batch_size run the
+    sweep evaluators, the batch a row mask over the smallest tile of
+    ``bucket_tiles`` that holds it and n_iters a step budget, so a trial's
+    score is its own-budget final loss. ``schedule`` None: an lr-only sweep
+    takes the problem's schedule, any other "constant" (the reference's
+    protocol); a decaying schedule runs over each trial's own n_iters.
+    ``q > 1`` proposes q trials per round and trains each round's trials of
+    one tile as one packed call (:func:`_tpe_fused_batched`). ``mesh`` is
+    not taken: the sharded evaluators are not ported."""
+    from differential_equations_dnn_tpu_torch.sweep.tpe import TPESampler
+
+    space = space or SearchSpace({"lrate": loguniform(1e-4, 1e-1)})
+    names = set(space.specs)
+    if not names <= {"lrate", "batch_size", "n_iters"}:
+        raise ValueError("tpe_search_fused sweeps lrate/batch_size/"
+                         f"n_iters (got {sorted(names)})")
+    bs = int(batch_size if batch_size is not None
+             else problem.defaults.batch_size)
+    lr_only = names == {"lrate"}
+    nspec = space.specs.get("n_iters")
+    budget = int(max_iters if max_iters is not None
+                 else (nspec.high - 1 if isinstance(nspec, randint)
+                       else problem.defaults.iterations))
+    if not lr_only and schedule is None:
+        schedule = "constant"
+    if q < 1:
+        raise ValueError(f"q (concurrent proposals) must be >= 1 (got {q})")
+    common = dict(model=model, schedule=schedule, precision=precision,
+                  device=device)
+    is_dgm = fused_dgm.supports(problem, model, bs)
+    if q > 1:
+        return _tpe_fused_batched(problem, seed, num_samples, sampler_seed,
+                                  model, space, budget, bs, max_batch_size,
+                                  gamma, schedule, q, bucket_tiles,
+                                  precision, device)
+
+    def full(c):
+        return {"lrate": float(c.get("lrate", problem.defaults.lrate)),
+                "batch_size": min(int(c.get("batch_size", bs)), max_bs),
+                "n_iters": min(int(c.get("n_iters", budget)), budget)}
+
+    max_bs = bs
+    if lr_only:
+        make = (fused_dgm.make_trial_evaluator if is_dgm
+                else fused_engine.make_lr_evaluator)
+        _ev = make(problem, seed, budget, batch_size=bs, **common)
+        eval_fn = lambda t, c: _ev(t, c["lrate"])
+        resolve = lambda c: {"lrate": float(c["lrate"]), "n_iters": budget,
+                             "batch_size": bs}
+    elif is_dgm and "batch_size" not in names:
+        _ev = fused_dgm.make_sweep_evaluator(problem, seed, budget,
+                                             batch_size=bs, **common)
+        eval_fn = lambda t, c: _ev(t, c["lrate"], c["n_iters"])
+        resolve = full
+    else:
+        # The full space: trials clamp to max_bs and route to the
+        # smallest tile holding their batch.
+        max_bs = _batch_cap(problem, space, max_batch_size)
+        if is_dgm:
+            tiles = _tiles_for(max_bs, bucket_tiles, _tile_floor(problem))
+            get_ev = _bucketed(tiles, lambda tile:
+                               fused_dgm.make_sweep_evaluator(
+                                   problem, seed, budget, max_batch=tile,
+                                   **common))
+        else:
+            tiles = _tiles_for(max_bs, bucket_tiles)
+            get_ev = _bucketed(tiles, lambda tile:
+                               fused_engine.make_sweep_evaluator(
+                                   problem, seed, budget, max_batch=tile,
+                                   **common))
+        eval_fn = lambda t, c: get_ev(c["batch_size"])(
+            t, c["lrate"], c["batch_size"], c["n_iters"])
+        resolve = full
+
+    sampler = TPESampler(space=space, seed=sampler_seed, gamma=gamma,
+                         n_initial=min(4, num_samples))
+    configs: list[dict] = []
+    scores: list[float] = []
+    best = None
+    for t in range(num_samples):
+        config = resolve(sampler.ask(1)[0])
+        trial_losses, flat = eval_fn(t, config)
+        # The trial's final loss at its own budget (the reference metric).
+        loss = float(trial_losses[-1])
+        sampler.tell([config], [loss])
+        configs.append(config)
+        scores.append(loss)
+        if np.isfinite(loss) and (best is None or loss < best[0]):
+            best = (loss, t, flat)
+    return _tpe_result(problem, model, is_dgm, configs, scores, best)
+
+
+def _tpe_result(problem, model, is_dgm, configs, scores, best):
+    best_idx = int(np.nanargmin(np.where(np.isfinite(scores), scores,
+                                         np.inf)))
+    params = None if best is None else best[2][None]
+    return SweepResult(configs=configs, scores=np.asarray(scores),
+                       losses=None, params=params,
+                       param_indices=np.array([best_idx]),
+                       unpack=_unpacker(problem, model, is_dgm))
+
+
+def _tpe_fused_batched(problem, seed, num_samples, sampler_seed, model,
+                       space, budget, bs, max_batch_size, gamma, schedule,
+                       q, bucket_tiles=BUCKET_TILES, precision="highest",
+                       device="cuda"):
+    """Batched TPE (``tpe_search_fused(q > 1)``): rounds of q proposals
+    that share the surrogate's state, each round's trials grouped by their
+    tile and each group one packed call of q slots (the others pruned:
+    budget 0, its blocks returning at entry). The reference's
+    ``ConcurrencyLimiter(max_concurrent=5)`` role (optimize_heat_ray.py:
+    180)."""
+    from differential_equations_dnn_tpu_torch.sweep.tpe import TPESampler
+
+    q = min(q, num_samples)
+    has_bs = "batch_size" in space.specs
+    max_bs = _batch_cap(problem, space, max_batch_size)
+    cap = max_bs if has_bs else bs
+    is_dgm = fused_dgm.supports(problem, model, bs)
+    common = dict(model=model, schedule=schedule, horizon="trial",
+                  precision=precision, device=device)
+    if is_dgm:
+        if has_bs:
+            tiles = _tiles_for(max_bs, bucket_tiles, _tile_floor(problem))
+            get_ev = _bucketed(tiles, lambda tile:
+                               fused_dgm.make_packed_rung_evaluator(
+                                   problem, seed, budget, q, batch_size=bs,
+                                   max_batch=tile, **common))
+        else:
+            _ev = fused_dgm.make_packed_rung_evaluator(
+                problem, seed, budget, q, batch_size=bs, max_batch=None,
+                **common)
+            get_ev = lambda bs_: _ev
+    else:
+        tiles = _tiles_for(cap, bucket_tiles if has_bs else ())
+        get_ev = _bucketed(tiles, lambda tile:
+                           fused_engine.make_packed_rung_evaluator(
+                               problem, seed, budget, q, max_batch=tile,
+                               **common))
+
+    def resolve(c):
+        return {"lrate": float(c.get("lrate", problem.defaults.lrate)),
+                "batch_size": min(int(c.get("batch_size", bs)), cap),
+                "n_iters": min(int(c.get("n_iters", budget)), budget)}
+
+    sampler = TPESampler(space=space, seed=sampler_seed, gamma=gamma,
+                         n_initial=min(4, num_samples))
+    configs: list[dict] = []
+    scores: list[float] = []
+    best = None
+    t0 = 0
+    while t0 < num_samples:
+        n = min(q, num_samples - t0)
+        batch = [resolve(c) for c in sampler.ask(n)]
+        # This round's proposals by evaluator (tile): one call per tile.
+        groups: dict[int, list[int]] = {}
+        for j, c in enumerate(batch):
+            groups.setdefault(id(get_ev(c["batch_size"])), []).append(j)
+        round_scores = [np.inf] * n
+        round_flats = [None] * n
+        for js in groups.values():
+            ev = get_ev(batch[js[0]]["batch_size"])
+            pad = q - len(js)
+            finals, stacked = ev(
+                [t0 + j for j in js] + [0] * pad,
+                [batch[j]["lrate"] for j in js] + [0.0] * pad,
+                [batch[j]["batch_size"] for j in js] + [1] * pad,
+                [batch[j]["n_iters"] for j in js] + [0] * pad)
+            for pos, j in enumerate(js):
+                round_scores[j] = float(finals[pos])
+                round_flats[j] = stacked[pos]
+        sampler.tell(batch, round_scores)
+        for j, (cfg, loss) in enumerate(zip(batch, round_scores)):
+            configs.append(cfg)
+            scores.append(loss)
+            if np.isfinite(loss) and (best is None or loss < best[0]):
+                best = (loss, t0 + j, round_flats[j])
+        t0 += n
+    return _tpe_result(problem, model, is_dgm, configs, scores, best)
+
+
+# ---- successive halving on the fused tier -----------------------------------
+
+
+def halving_search_fused(problem, seed: int = 0, num_samples: int = 27,
+                         sampler_seed: int = 0,
+                         space: SearchSpace | None = None, model=None,
+                         eta: int = 3, min_budget: int = 500,
+                         max_budget: int | None = None,
+                         batch_size: int | None = None,
+                         max_batch_size: int = 512,
+                         schedule: str | None = None,
+                         draws: dict | None = None, trial_offset: int = 0,
+                         mesh=None, bucket_tiles=BUCKET_TILES,
+                         precision: str = "highest",
+                         device="cuda") -> SweepResult:
+    """Successive halving (the ASHA role) with each rung one packed call per
+    bucket tile (JAX ``halving_search_fused``; ``seed`` is its ``key``,
+    ``sampler_seed`` its ``seed``). Every rung evaluates its survivors
+    afresh: the same init, the same stream and, with the decay horizon
+    fixed at ``max_budget`` (``horizon="fixed"``), the same lr curve, so a
+    survivor's rerun at eta× the budget replays its earlier rung exactly
+    (restart = promotion) and the winner equals a standalone run of
+    ``max_budget`` steps. The space is {lrate, batch_size} (n_iters
+    belongs to the rungs); ``draws`` overrides the random draws
+    (:func:`tpe_halving_fused`'s proposals) and ``trial_offset`` shifts the
+    trials' init indices. ``mesh`` raises: the sharded rung evaluators are
+    not ported (ROADMAP item 14)."""
+    _no_mesh(mesh)
+    bs = int(batch_size if batch_size is not None
+             else problem.defaults.batch_size)
+    max_budget = int(max_budget or problem.defaults.iterations)
+    if eta < 2:
+        raise ValueError(f"halving needs eta >= 2 (got {eta})")
+    min_budget = max(1, min(int(min_budget), max_budget))
+    schedule = schedule or "constant"
+    common = dict(model=model, schedule=schedule, horizon="fixed",
+                  precision=precision, device=device)
+    is_dgm = fused_dgm.supports(problem, model, bs)
+    if is_dgm:
+        space = space or SearchSpace({"lrate": loguniform(1e-4, 1e-1)})
+    else:
+        space = space or SearchSpace({"lrate": loguniform(1e-4, 1e-1),
+                                      "batch_size": randint(1, 512)})
+    if not set(space.specs) <= {"lrate", "batch_size"}:
+        raise ValueError(
+            "halving_search_fused sweeps lrate/batch_size; n_iters is "
+            f"owned by the rung schedule (got {sorted(space.specs)})")
+    has_bs = "batch_size" in space.specs
+    if is_dgm and not has_bs:
+        max_bs = bs
+        _pev = fused_dgm.make_packed_rung_evaluator(
+            problem, seed, max_budget, num_samples, batch_size=bs,
+            max_batch=None, **common)
+        packed_ev = lambda bs_: _pev
+    elif is_dgm:
+        max_bs = _batch_cap(problem, space, max_batch_size)
+        tiles = _tiles_for(max_bs, bucket_tiles, _tile_floor(problem))
+        packed_ev = _bucketed(tiles, lambda tile:
+                              fused_dgm.make_packed_rung_evaluator(
+                                  problem, seed, max_budget, num_samples,
+                                  batch_size=bs, max_batch=tile, **common))
+    else:
+        max_bs = _batch_cap(problem, space, max_batch_size)
+        tiles = _tiles_for(max_bs, bucket_tiles)
+        packed_ev = _bucketed(tiles, lambda tile:
+                              fused_engine.make_packed_rung_evaluator(
+                                  problem, seed, max_budget, num_samples,
+                                  max_batch=tile, **common))
+
+    if draws is None:
+        draws = space.sample(sampler_seed, num_samples)
+    lrates = np.asarray(
+        draws.get("lrate", np.full(num_samples, problem.defaults.lrate)),
+        np.float64)
+    batch_sizes = np.minimum(
+        np.asarray(draws.get("batch_size", np.full(num_samples, bs)),
+                   np.int64), max_bs)
+
+    alive = np.arange(num_samples)
+    # A single trial has nothing to prune against: the full budget at once.
+    budget = max_budget if num_samples == 1 else min_budget
+    last_scores = np.zeros(num_samples)
+    iters_done = np.zeros(num_samples, dtype=np.int64)
+    flats: dict[int, Any] = {}
+
+    def eval_rung(alive, budget):
+        # One packed call per tile: a trial's tile is fixed by its batch
+        # across rungs, so restart = promotion holds within its tile; dead
+        # slots train 0 steps, live ones the rung's budget.
+        groups: dict[int, list[int]] = {}
+        for t in alive:
+            groups.setdefault(id(packed_ev(int(batch_sizes[t]))),
+                              []).append(int(t))
+        for members in groups.values():
+            pev = packed_ev(int(batch_sizes[members[0]]))
+            ns = np.zeros(num_samples, np.int64)
+            ns[members] = budget
+            finals, flat_out = pev(np.arange(num_samples) + trial_offset,
+                                   lrates, batch_sizes, ns)
+            for t in members:
+                last_scores[t] = float(finals[t])
+                flats[int(t)] = flat_out[t]
+
+    while True:
+        eval_rung(alive, budget)
+        iters_done[alive] = budget
+        if budget >= max_budget or len(alive) <= 1:
+            break
+        keep = max(1, len(alive) // eta)
+        rung = last_scores[alive]
+        order = np.argsort(np.where(np.isfinite(rung), rung, np.inf))
+        alive = alive[order[:keep]]
+        budget = min(budget * eta, max_budget)
+        if len(alive) == 1:
+            # The lone survivor takes the whole remaining budget.
+            budget = max_budget
+
+    params = torch.stack([flats[int(t)] for t in alive])
+    configs = [
+        {"batch_size": int(batch_sizes[i]), "lrate": float(lrates[i]),
+         "n_iters": int(iters_done[i])}
+        for i in range(num_samples)
+    ]
+    return SweepResult(configs=configs, scores=np.asarray(last_scores),
+                       losses=None, params=params, param_indices=alive,
+                       unpack=_unpacker(problem, model, is_dgm))
+
+
+# ---- TPE × successive halving (the reference's scheduler pairing) -----------
+
+
+def _tpe_brackets(space, seed: int, gamma: float, brackets: int,
+                  num_samples: int, inner) -> SweepResult:
+    """The TPE × halving bracket driver: ``inner(bracket, per_bracket,
+    draws) -> SweepResult`` runs one halving bracket on the proposed
+    configs; the sampler is told every trial's realised (config, score),
+    a dropped trial's at its last rung, and the best fully trained trial
+    over the brackets wins."""
+    from differential_equations_dnn_tpu_torch.sweep.tpe import TPESampler
+
+    brackets = max(1, min(brackets, num_samples))
+    per_bracket = -(-num_samples // brackets)
+    sampler = TPESampler(space=space, seed=seed, gamma=gamma,
+                         n_initial=per_bracket)
+    all_configs: list[dict] = []
+    all_scores: list[float] = []
+    best_params = None
+    best_flat_idx = -1
+    best_score = np.inf
+    res = None
+    for b in range(brackets):
+        proposals = sampler.ask(per_bracket)
+        draws = {name: np.asarray([c[name] for c in proposals])
+                 for name in space.specs}
+        res = inner(b, per_bracket, draws)
+        sampler.tell(res.configs, res.scores)
+        finite = np.where(np.isfinite(res.scores), res.scores, np.inf)
+        eligible = np.full_like(finite, np.inf)
+        eligible[res.param_indices] = finite[res.param_indices]
+        b_best = int(np.argmin(eligible))
+        if eligible[b_best] < best_score:
+            best_score = float(eligible[b_best])
+            best_flat_idx = len(all_configs) + b_best
+            best_params = _best_row(res)
+        all_configs.extend(res.configs)
+        all_scores.extend(float(s) for s in res.scores)
+    if best_params is None:
+        # Every bracket's survivors diverged: the last bracket's best, so
+        # that the result stays inspectable.
+        best_flat_idx = len(all_configs) - len(res.configs) + res.best_index
+        best_params = _best_row(res)
+    return SweepResult(configs=all_configs, scores=np.asarray(all_scores),
+                       losses=None, params=best_params,
+                       param_indices=np.array([best_flat_idx]),
+                       unpack=res.unpack)
+
+
+def _best_row(res):
+    """A result's best trial's flat state, ``[1, n]``."""
+    return take_trial(res.params, int(np.where(
+        res.param_indices == res.best_index)[0][0]))
+
+
+def tpe_halving_fused(problem, seed: int = 0, num_samples: int = 27,
+                      sampler_seed: int = 0,
+                      space: SearchSpace | None = None, model=None,
+                      eta: int = 3, min_budget: int = 500,
+                      max_budget: int | None = None,
+                      batch_size: int | None = None,
+                      max_batch_size: int = 512,
+                      schedule: str | None = None, brackets: int = 3,
+                      gamma: float = 0.1, mesh=None,
+                      bucket_tiles=BUCKET_TILES, precision: str = "highest",
+                      device="cuda") -> SweepResult:
+    """The reference's pairing (OptunaSearch + ASHA, optimize_heat_ray.py:
+    179-181) on the fused tier (JAX ``tpe_halving_fused``): TPE proposes
+    each bracket's configs, :func:`halving_search_fused` prunes them, and
+    every bracket reuses the same evaluators and graphs (the same seed,
+    hence the same stream; ``trial_offset`` gives each bracket fresh
+    inits). Dropped trials report their last rung's score at their
+    realised budget."""
+    _no_mesh(mesh)
+    if space is None:
+        bs = int(batch_size if batch_size is not None
+                 else problem.defaults.batch_size)
+        if fused_dgm.supports(problem, model, bs):
+            space = SearchSpace({"lrate": loguniform(1e-4, 1e-1)})
+        else:
+            space = SearchSpace({"lrate": loguniform(1e-4, 1e-1),
+                                 "batch_size": randint(1, 512)})
+
+    def inner(b, per_bracket, draws):
+        return halving_search_fused(
+            problem, seed, num_samples=per_bracket,
+            sampler_seed=sampler_seed + b, space=space, model=model,
+            eta=eta, min_budget=min_budget, max_budget=max_budget,
+            batch_size=batch_size, max_batch_size=max_batch_size,
+            schedule=schedule, draws=draws, trial_offset=b * per_bracket,
+            bucket_tiles=bucket_tiles, precision=precision, device=device)
+
+    return _tpe_brackets(space, sampler_seed, gamma, brackets, num_samples,
+                         inner)

@@ -241,10 +241,12 @@ def test_train_fused_result_trains():
     ("runtime_bs", 8), ("runtime_steps", 4), ("const", torch.zeros(2)),
 ])
 def test_unported_chunk_options_raise(option, value):
-    """The sweep evaluators' runtime masks are not ported and raise, naming
-    their ROADMAP item; the const operand is ported, and one of the wrong
-    shape (heat's spec takes none; volterra's is [k, 2]) raises a
-    ValueError before anything runs."""
+    """The sweep evaluators' runtime options run: a batch
+    mask of 8 rows of 16 equals the unmasked chunk on those 8 rows (rtol
+    1e-5 / atol 1e-6), and a budget of 4 of 6 steps equals a 4-step chunk
+    bit for bit with losses 0 after it. The const operand is ported, and one
+    of the wrong shape (heat's spec takes none; volterra's is [k, 2])
+    raises a ValueError before anything runs."""
     _, _, tm = _pair("heat")
     spec = fe.spec_for(PROBLEMS["heat"]())
     p = ft.pack_params(tm)
@@ -260,8 +262,20 @@ def test_unported_chunk_options_raise(option, value):
             fe.fused_engine_chunk(vspec, model, vp, vp, vp,
                                   torch.zeros(2, B, 1), 0, LR, const=value)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fe.fused_engine_chunk(spec, tm, p, p, p, u, 0, LR, **{option: value})
+    u = torch.from_numpy(_uniforms(spec, (6, B), seed=7))
+    z = torch.zeros_like(p)
+    got = fe.fused_engine_chunk(spec, tm, p, z, z, u, 0, LR,
+                                **{option: value})
+    if option == "runtime_bs":
+        want = fe.fused_engine_chunk(spec, tm, p, z, z,
+                                     u[:, :value].contiguous(), 0, LR)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        return
+    want = fe.fused_engine_chunk(spec, tm, p, z, z, u[:value], 0, LR)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[3][:value], want[3]) and not got[3][value:].any()
 
 
 def test_chunk_checks_its_inputs():

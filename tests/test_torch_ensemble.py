@@ -222,20 +222,39 @@ def test_packed_limits():
 
 
 @pytest.mark.parametrize("option, value", [
-    ("lr_vec", torch.ones(N)), ("bs_vec", torch.ones(N)),
-    ("steps_vec", torch.ones(N)), ("mask_rows", True),
+    ("lr_vec", torch.tensor([1e-3, 3e-3, 1e-2])),
+    ("bs_vec", torch.tensor([8, 5, 1])),
+    ("steps_vec", torch.tensor([3, 0, 2])), ("mask_rows", True),
 ])
 def test_packed_sweep_mode_raises(option, value):
-    """The per-slot sweep vectors name their ROADMAP item (queue 1, 13)."""
-    _, _, tms = _dgm_replicas("fn_causal")
-    spec = fd.spec_for(FitzHughNagumo())
+    """The per-slot sweep vectors run: each slot of the packed
+    DGM chunk (FitzHugh–Nagumo at causal_eps = 0: a masked loss is the
+    plain one) equals the single chunk at its own lr and budget bit for bit
+    (a budget of 0: the slot as it went in, losses 0); a batch vector alone
+    masks nothing, and mask_rows alone masks at B (the unmasked loss to
+    rtol 1e-5 / atol 1e-6)."""
+    _, _, tms = _dgm_replicas("fn_eps0")
+    spec = fd.spec_for(FitzHughNagumo(causal_eps=0.0))
     p = engine_core.stack_replicas([fd.pack_dgm(tm) for tm in tms])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
-        fd.fused_dgm_packed_chunk(spec, tms[0], p, p, p, torch.zeros(1, B, 1),
-                                  0, LR, N, **{option: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
-        engine_core.run_fused_packed(None, p, p, p, torch.zeros(1, B, 1), 0,
-                                     LR, N, **{option: value})
+    z = torch.zeros_like(p)
+    u = torch.from_numpy(np.random.default_rng(3).uniform(
+        size=(K, B, 1)).astype(np.float32))
+    got = fd.fused_dgm_packed_chunk(spec, tms[0], p, z, z, u, 0, LR, N,
+                                    **{option: value})
+    for r in range(N):
+        kw = {}
+        lr = float(value[r]) if option == "lr_vec" else LR
+        if option == "steps_vec":
+            kw["runtime_steps"] = int(value[r])
+        want = fd.fused_dgm_chunk(spec, tms[0], p[r], z[r], z[r], u, 0, lr,
+                                  **kw)
+        for a, b in zip(got, want):
+            if option == "mask_rows":
+                torch.testing.assert_close(a[r], b, rtol=1e-5, atol=1e-6)
+            else:
+                assert torch.equal(a[r], b)
+    if option == "steps_vec":
+        assert torch.equal(got[0][1], p[1]) and not got[3][1].any()
 
 
 def test_replica_generators():

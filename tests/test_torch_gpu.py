@@ -1718,3 +1718,202 @@ def test_bf16_mixed_is_default_then_highest(cuda, route):
     np.testing.assert_array_equal(mixed.loss_history[:n1],
                                   default.loss_history[:n1])
     assert torch.equal(pack(model), b[0])
+
+
+# ---------------------------------------------------------------------------
+# The sweep mode: run-time batch mask, step budget and trial horizon
+# of #4, the per-slot vectors of #5, the masked losses of #6 and #7
+# ---------------------------------------------------------------------------
+
+# (route, equation, problem arguments, tile, bs, budget): the masked chunks
+# of chip_smoke.py's phase 3 at its shapes (tile 512: the sweeps' largest,
+# at other kernel instances than tile 64), and uat's grid and causal
+# advection's plain masked loss.
+MASKED_CASES = [
+    ("engine", "heat", {}, 64, 37, 30),
+    ("engine", "heat", {}, 512, 485, 30),
+    ("engine", "inverse_heat", {}, 128, 77, 50),
+    ("engine", "volterra", {}, 64, 41, 40),
+    ("engine", "uat", {}, 50, 30, 50),
+    ("engine", "advection", dict(c=50.0, causal_eps=5.0), 128, 70, 40),
+    ("dgm", "fitzhugh_nagumo", dict(causal_eps=0.0), 256, 150, 30),
+    ("dgm", "fredholm", dict(k=16), 64, 37, 30),
+    ("dgm", "fredholm", dict(k=16), 512, 370, 30),
+]
+
+
+def _case_id(cases):
+    """The cases' test ids: the equation, and the tile after it where an
+    earlier case has the same equation."""
+    def case_id(case):
+        first = next(c for c in cases if c[1] == case[1])
+        return case[1] if case is first else f"{case[1]}-{case[3]}"
+    return case_id
+
+
+def _sweep_case(cuda, route, name, extra, tile, n_replicas=None):
+    """NAME at a tile of TILE rows: N replicas from replica_generator(0, r)
+    (one: generator(1)), 50 uniforms from step 100, a cosine schedule over
+    200; the wrappers (single, single plain, packed, packed plain) and the
+    packing."""
+    prob = PROBLEMS[name](**extra)
+    gens = ([generator(1)] if n_replicas is None else
+            [replica_generator(0, r) for r in range(n_replicas)])
+    models = [prob.default_model(generator=g, device=cuda) for g in gens]
+    if route == "engine":
+        spec = fe.spec_for(prob)
+        const = spec.make_const(tile, cuda)
+        pack = lambda m: fe.pack_state(spec, m)  # noqa: E731
+        fns = (fe.fused_engine_chunk, fe.fused_engine_chunk_plain,
+               fe.fused_engine_packed_chunk,
+               fe.fused_engine_packed_chunk_plain)
+    else:
+        spec = fd.spec_for(prob, tile)
+        const = fd.const_for(spec, prob, tile, cuda)
+        pack = fd.pack_dgm
+        fns = (fd.fused_dgm_chunk, fd.fused_dgm_chunk_plain,
+               fd.fused_dgm_packed_chunk, fd.fused_dgm_packed_chunk_plain)
+    p = engine_core.stack_replicas([pack(m) for m in models])
+    u = step_uniforms(0, 100, 50, tile, cuda, spec.n_uniform)
+    kw = dict(schedule="cosine", total_steps=200, const=const)
+    return spec, models[0], p, u, prob.defaults.lrate, kw, fns
+
+
+@pytest.mark.parametrize("case", MASKED_CASES,
+                         ids=_case_id(MASKED_CASES))
+@pytest.mark.parametrize("horizon", ["trial", "fixed"])
+def test_masked_chunk_matches_plain(cuda, case, horizon):
+    """The masked and gated chunk (bs rows of the tile, budget of 50
+    steps) against its plain version: losses rtol 1e-4 up to the budget
+    and 0 after it in both, parameters rtol 1e-4 plus 2·lr."""
+    route, name, extra, tile, bs, budget = case
+    spec, model, p, u, lr, kw, fns = _sweep_case(cuda, route, name, extra,
+                                                 tile)
+    p, z = p[0], torch.zeros_like(p[0])
+    kw.update(runtime_bs=bs, runtime_steps=budget,
+              trial_horizon=horizon == "trial")
+    pk, _, _, lk = fns[0](spec, model, p, z, z, u, 100, lr, **kw)
+    pp, _, _, lp = fns[1](spec, model, p, z, z, u, 100, lr, **kw)
+    torch.testing.assert_close(lk[:budget], lp[:budget], rtol=1e-4, atol=0)
+    assert not lk[budget:].any() and not lp[budget:].any()
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=2 * lr)
+
+
+@pytest.mark.parametrize("case", [c for c in MASKED_CASES
+                                  if c[1] not in ("advection", "uat")],
+                         ids=_case_id(MASKED_CASES))
+def test_full_mask_and_budget_are_the_plain_mode(cuda, case):
+    """A mask of the whole tile and a budget of every step (constant lr)
+    give the unmasked chunk bit for bit on the card: the sweep mode's
+    scale 1/bs is 1/B and every row's weight 1."""
+    route, name, extra, tile, _, _ = case
+    spec, model, p, u, lr, kw, fns = _sweep_case(cuda, route, name, extra,
+                                                 tile)
+    p, z = p[0], torch.zeros_like(p[0])
+    kw["schedule"] = "constant"
+    plain = fns[0](spec, model, p, z, z, u, 100, lr, **kw)
+    swept = fns[0](spec, model, p, z, z, u, 100, lr, runtime_bs=tile,
+                   runtime_steps=u.shape[0], **kw)
+    for a, b in zip(plain, swept):
+        assert torch.equal(a, b)
+
+
+# (route, equation, problem arguments, tile, lr, bs (None: no mask),
+# budgets): slots of budget 0 pruned. Heat at tile 512 with 5 slots is a
+# q = 5 TPE round's call, FitzHugh–Nagumo at tile 100 with 9 unmasked
+# slots its halving rungs' (chip_smoke.py's phase 3).
+PER_SLOT_CASES = [
+    ("engine", "heat", {}, 64, (1e-3, 3e-3, 1e-2, 1e-4), (64, 37, 1, 20),
+     (50, 30, 0, 7)),
+    ("engine", "heat", {}, 512, (1e-3, 3e-4, 3e-3, 1e-2, 1e-4),
+     (485, 429, 348, 300, 1), (50, 30, 45, 7, 0)),
+    ("dgm", "fitzhugh_nagumo", dict(causal_eps=0.0), 256, (1e-4, 1e-3, 3e-3),
+     (256, 100, 17), (50, 0, 23)),
+    ("dgm", "fitzhugh_nagumo", dict(causal_eps=0.0), 100,
+     (1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 2e-4, 5e-4, 2e-3, 5e-3), None,
+     (50, 0, 0, 50, 0, 0, 30, 0, 0)),
+    ("dgm", "fredholm", dict(k=16), 64, (3e-3, 1e-3, 1e-2), (64, 37, 9),
+     (50, 0, 23)),
+]
+
+
+@pytest.mark.parametrize("case", PER_SLOT_CASES,
+                         ids=_case_id(PER_SLOT_CASES))
+def test_per_slot_packed_matches_single_and_plain(cuda, case):
+    """The packed call's per-slot lr, batch and budget: every slot bit for
+    bit the single chunk of its values, masked unless bs is None (a pruned
+    slot its input, its losses 0), all against the plain version as the
+    masked chunk."""
+    route, name, extra, tile, lrs, bss, ns = case
+    N = len(lrs)
+    spec, model, p, u, _, kw, fns = _sweep_case(cuda, route, name, extra,
+                                                tile, N)
+    z = torch.zeros_like(p)
+    vec = dict(lr_vec=np.asarray(lrs, np.float32),
+               bs_vec=None if bss is None else np.asarray(bss),
+               steps_vec=np.asarray(ns), mask_rows=bss is not None)
+    pk, mk, vk, lk = fns[2](spec, model, p, z, z, u, 100, 0.0, N, **kw,
+                            **vec)
+    pp, _, _, lp = fns[3](spec, model, p, z, z, u, 100, 0.0, N, **kw, **vec)
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=2 * max(lrs))
+    for r in range(N):
+        one = fns[0](spec, model, p[r].contiguous(), z[r].clone(),
+                     z[r].clone(), u, 100, float(np.float32(lrs[r])),
+                     runtime_bs=None if bss is None else bss[r],
+                     runtime_steps=ns[r], **kw)
+        for a, b in zip(one, (pk[r], mk[r], vk[r], lk[r])):
+            assert torch.equal(a, b)
+    for pruned in (r for r in range(N) if ns[r] == 0):
+        assert torch.equal(pk[pruned], p[pruned]) and not lk[pruned].any()
+
+
+def test_sweep_calls_replay_the_shapes_graph(cuda):
+    """The sweep mode captures a graph of its own beside the shape's plain
+    one, once: a later sweep call of other values replays it. A call runs
+    only to its largest budget rounded up to a whole graph of GRAPH_STEPS:
+    budgets of at most 7 of 120 steps enqueue one graph's 50 steps per
+    replica."""
+    spec, model, p, u, lr, kw, fns = _sweep_case(cuda, "engine", "heat", {},
+                                                 64, 3)
+    z = torch.zeros_like(p)
+    u = step_uniforms(0, 100, 120, 64, cuda, 2)
+    fns[2](spec, model, p, z, z, u, 100, lr, 3, **kw)
+    builds = fe.graph_stats["builds"]
+    fns[2](spec, model, p, z, z, u, 100, lr, 3, steps_vec=[60, 60, 60],
+           **kw)
+    assert fe.graph_stats["builds"] == builds + 1
+    runs = fe.fused_engine_packed_chunk.step_math_runs
+    fns[2](spec, model, p, z, z, u, 100, lr, 3, steps_vec=[120, 60, 0],
+           **kw)
+    assert fe.graph_stats["builds"] == builds + 1
+    assert fe.fused_engine_packed_chunk.step_math_runs - runs == 3 * 120
+    fns[2](spec, model, p, z, z, u, 100, lr, 3, steps_vec=[7, 3, 0], **kw)
+    assert (fe.fused_engine_packed_chunk.step_math_runs - runs
+            == 3 * (120 + fe.GRAPH_STEPS))
+
+
+def test_sweep_drivers_on_the_card(cuda):
+    """The three drivers through the card's kernels at a small budget:
+    finite best scores, and halving's winner equal to a standalone run of
+    the full budget bit for bit (restart equals promotion)."""
+    from differential_equations_dnn_tpu_torch import sweep
+
+    heat = PROBLEMS["heat"]()
+    space = sweep.SearchSpace({"batch_size": sweep.randint(1, 200),
+                               "n_iters": sweep.randint(100, 300),
+                               "lrate": sweep.loguniform(1e-4, 1e-2)})
+    res = sweep.tpe_search_fused(heat, num_samples=5, space=space, q=3)
+    assert np.isfinite(res.best_score)
+    res = sweep.halving_search_fused(heat, num_samples=9, min_budget=100,
+                                     max_budget=900)
+    cfg, t = res.best_config, res.best_index
+    tile = next(x for x in sweep.BUCKET_TILES if x >= cfg["batch_size"])
+    ev = fe.make_sweep_evaluator(heat, 0, 900, max_batch=tile,
+                                 schedule="constant", horizon="fixed")
+    losses, p = ev(t, cfg["lrate"], cfg["batch_size"], 900)
+    pos = int(np.where(res.param_indices == t)[0][0])
+    assert losses[-1] == res.best_score and torch.equal(p, res.params[pos])
+    res = sweep.tpe_halving_fused(heat, num_samples=6, min_budget=100,
+                                  max_budget=300, brackets=2)
+    assert np.isfinite(res.best_score)
