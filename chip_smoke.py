@@ -10,7 +10,12 @@ Phases (each raises on failure, so any failure exits non-zero):
 1. device   — the card's name and power limit (nvidia-smi), torch and CUDA
               versions; fails without a CUDA device.
 2. build    — nvcc compiles the package's csrc/*.cu, one compiler per
-              source in parallel (timed); the ptxas report of each kernel.
+              source in parallel (timed), in a thread: since PR 15 the
+              population checks that launch no kernel of the repo ((a),
+              (b), (d), (e), (f) below) run meanwhile, and the library is
+              loaded after them (it must not have been loaded before);
+              the ptxas report of each kernel. Each later phase prints
+              its seconds.
 3. kernels  — each kernel against its plain PyTorch version on the card, on
               the same inputs at the main paths' shapes, with the tolerance
               stated beside each check; both timed with CUDA events. The
@@ -106,6 +111,24 @@ Phases (each raises on failure, so any failure exits non-zero):
               instances (a "mixed" run through both), printed beside the
               same configuration's "highest" run; a "highest" run launches
               no "default" instance.
+   Then the sweep phase (the fused sweep tier, since PR 14) and the rest
+   of the population phase (parallel/population.py on the scan engine,
+   since PR 15). Its checks: (a) the reference's batch-size ablation as
+   one population of 55 trials (a bs 1 024 trial held to its standalone
+   train()), (b) the BatchNorm ablation and a pre-BN train() (its
+   statistics moved, its eval-mode grid its own), (d) FitzHugh–Nagumo's
+   fourier_mlp at 30 000 steps, (e) successive halving, random search
+   and TPE on populations (each winner's score and best_params() read
+   back from its last population, and in each population it trained in,
+   its first steps re-run standalone from the state that population
+   started it from), (f) a ResNet on the scan trainer, all during the
+   build; after the sweep phase the headline population's step timed
+   alone (55 heat trials x 1 024 rows: host draws, an eager step, a
+   graph replay) and (c) solve("heat", engine="scan", ensemble=8); the
+   cuts of depth on an earlier line; peak memory, captures and replays
+   printed. Since PR 15 heat's two scan solves run SCAN_HEAT_STEPS steps
+   (under their MAE bound), the other scan solves run whole scan-graph
+   blocks, and phase 3's bf16 1 000-step timings take one call per turn.
 5. result   — the smoke's total seconds, a JSON line of the kernels,
               then as the last line {"ok": true, "device": {...}}.
 """
@@ -178,8 +201,8 @@ CAUSAL_PACKED = ("advection", 2, 1e-4)
 # bound, and FitzHugh–Nagumo's DGM at 1 000 steps with no MAE bound (None):
 # 1 000 steps cannot reach the reference's 0.0088, so only a finite history
 # and s(0) = y_ic are held.
-HARD_SCAN = [("simple_ode", dict(constraint="hard", iterations=5000), 0.05),
-             ("fitzhugh_nagumo", dict(constraint="hard", iterations=1000),
+HARD_SCAN = [("simple_ode", dict(constraint="hard", iterations=5120), 0.05),
+             ("fitzhugh_nagumo", dict(constraint="hard", iterations=1024),
               None)]
 # inverse_heat's κ̂ error bound, the JAX package's own
 # (tests/test_equations.py:208).
@@ -223,11 +246,22 @@ MLP_SHAPES = [("simple_ode", 1, 32, 1, "tanh"), ("heat", 2, 128, 3, "tanh"),
 HEAT_WIDE = 256
 STREAMS_WIDE = (256, 512)
 # The scan trainer's solves: (equation, solve's extra arguments, MAE bound),
-# the bounds as for the fused solves.
-SCAN_SOLVES = [("heat", {"taps": "pallas"}, 0.05), ("heat", {}, 0.05),
-               ("simple_ode", {}, 0.01),
-               ("volterra", {"quadrature": "montecarlo"}, 0.05),
-               ("fredholm", {"quadrature": "montecarlo"}, 0.05)]
+# the bounds as for the fused solves. Since PR 15 heat's two scan solves
+# run SCAN_HEAT_STEPS of their 15 000 steps, under the same bound (they
+# reached 0.0025 and 0.0028 at that depth: PR 15's call 7), and the other
+# scan solves run whole blocks of the scan graph (simple_ode 5 120 of its
+# 5 000 steps, volterra's and Fredholm's 3 072 of 3 000, the hard
+# simple_ode 5 120 and FitzHugh–Nagumo 1 024 of 5 000 and 1 000): an eager
+# tail step costs a graph's replay many times over.
+SCAN_HEAT_STEPS = 5120
+SCAN_SOLVES = [("heat", {"taps": "pallas", "iterations": SCAN_HEAT_STEPS},
+                0.05),
+               ("heat", {"iterations": SCAN_HEAT_STEPS}, 0.05),
+               ("simple_ode", {"iterations": 5120}, 0.01),
+               ("volterra", {"quadrature": "montecarlo", "iterations": 3072},
+                0.05),
+               ("fredholm", {"quadrature": "montecarlo", "iterations": 3072},
+                0.05)]
 ACTIVATIONS = ("tanh", "sigmoid", "relu")
 # (equation, replicas, rtol of the losses against the plain version) of
 # the packed-kernel checks; the first two give the JSON rows. Fredholm's
@@ -347,6 +381,44 @@ FREDHOLM_TPE = dict(num_samples=4, max_iters=3_000)
 # Check (a): a trial's score against a standalone unmasked chunk of its
 # config on the first bs rows of its tile's stream (the chunk tolerance).
 SWEEP_RTOL = 1e-4
+
+# The population phase (parallel/population.py on the scan engine, since
+# PR 15). (a) the reference's batch-size ablation (batchsize_effect_heat.py:
+# 186-205): heat, 2 -> 128x3 -> 1 tanh, lr 1e-4, batch sizes 2^0..2^10 x 5
+# runs = 55 trials of max_batch_size 1 024, its 15 000 steps cut to
+# POP_STEPS; (b) batchnorm_effect, 3 populations of 5 (relu 2 -> 128x3 ->
+# 1, none/pre/post, B = 64) and one pre-BN train() beside it, cut the same
+# way; (c) solve("heat", engine="scan", ensemble=8) at the reference
+# defaults (15 000 steps, seed 0); (d) solve("fitzhugh_nagumo",
+# arch="fourier_mlp", seed=42, iterations=30 000) on the scan trainer, the
+# JAX TPU smoke's configuration and bound (benchmarks/smoke_tpu.py:31-32);
+# (e) the population sweeps on heat: successive_halving over 27 trials (eta
+# 3, HALVING_MIN -> HALVING_MAX steps: 500 -> 4 500 on whole graph blocks,
+# the 15 000 cut), random_search and
+# tpe_search over 10 trials of POP_STEPS steps; (f) a ResNet on heat for
+# POP_STEPS scan steps. POP_STEPS is a whole number of the population's
+# and the scan trainer's graph blocks (32, 256 steps): no eager tail.
+POP_STEPS = 2048
+POP_SEED = 0
+HALVING_MIN, HALVING_MAX = 512, 4608
+POP_BOUND = 0.05
+# A trial against its standalone train() (the same init, stream, lr and
+# batch; the population's vmapped step and optax-form Adam against the scan
+# trainer's step and torch's fused Adam): fp32 reassociation, carried over
+# the steps: losses to POP_RTOL of each other. A sweep winner trains at lr
+# up to 1e-1 down to losses of 1e-5, where two fp32 trajectories part
+# within a few thousand steps (a first run: the halving winner's last loss
+# 91 % apart after 4 500 steps, its parameters 2.7e-3): in each population
+# it trained in it is re-run over its first POP_REPLAY_STEPS steps from the
+# state that population started it from, and its score and parameters are
+# read back exactly from its last population. A population that started
+# it from its init is re-run over POP_REPLAY_STEPS steps, one that took it
+# on from an earlier rung over POP_CARRIED_STEPS: over 256 steps the
+# halving winner's third rung (lr 9.2e-4, losses near 4e-6) parted by
+# 1.83e-2 while its first two rungs stayed within 4.2e-5.
+POP_RTOL = 1e-3
+POP_REPLAY_STEPS = 256
+POP_CARRIED_STEPS = 64
 
 
 def cuda_ms(fn, reps=REPS):
@@ -487,12 +559,45 @@ def phase_device():
           f"CUDA {torch.version.cuda}")
 
 
-def phase_build():
+def start_build():
+    """nvcc on every kernel source (one process each, all started
+    together), in a thread, so that the population runs that launch no
+    kernel of the repo go on meanwhile. Returns (the thread, its record)."""
+    import threading
+
     from differential_equations_dnn_tpu_torch.kernels import build
 
+    record = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            build.build()
+        except BaseException as err:  # re-raised by phase_build
+            record["error"] = err
+        record["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, record
+
+
+def phase_build(builder):
+    """Wait for the build, then load the library: nothing loaded it while
+    it built (the runs beside it launch no kernel of the repo)."""
+    from differential_equations_dnn_tpu_torch.kernels import build
+
+    thread, record = builder
     t0 = time.perf_counter()
+    thread.join()
+    waited = time.perf_counter() - t0
+    if "error" in record:
+        raise record["error"]
+    if build.library.cache_info().currsize:
+        raise AssertionError("the kernels were loaded while they built")
     build.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> "
+    print(f"build: {record['seconds']:.2f} s (beside the population runs; "
+          f"{waited:.2f} s waited for it after them) -> "
           f"{build.library_path().name}")
     log = build.library_path().with_suffix(".log")
     if log.exists():
@@ -1447,8 +1552,7 @@ def check_bf16_case(route, name, N):
         times = {}
         for pr in ("highest", "default", "default", "highest"):
             times.setdefault(pr, []).append(cuda_ms(
-                lambda: c["chunk"](kernel_fn, pr, STEADY_STEPS),
-                reps=STEADY_REPS))
+                lambda: c["chunk"](kernel_fn, pr, STEADY_STEPS), reps=1))
         for row in rows[-1:]:
             row.update(steady_steps=STEADY_STEPS,
                        steady_ms=times["default"],
@@ -2053,6 +2157,10 @@ def phase_solve():
     """Each main path; returns {(name, schedule or "ensemble"), (name,
     "scan", taps), or (name, "hard" | "hard ensemble" | "hard scan"):
     launches}."""
+    print(f"scan solves: heat's (pallas and jvp taps) cut to "
+          f"{SCAN_HEAT_STEPS} of 15000 steps, under their MAE bound; the "
+          f"other scan solves run whole scan-graph blocks (5120, 3072, 1024 "
+          f"steps); the bf16 1000-step timings one call per turn")
     out = {(name, schedule): solve_once(name, schedule, mae_bound)
            for name, schedule, mae_bound in SOLVES}
     for name, extra, mae_bound in ENSEMBLES:
@@ -2313,16 +2421,365 @@ def phase_sweep():
     return launches, shapes
 
 
+def standalone_trial(prob, model, seed, t, lr, bs, steps, params=None,
+                     opt_state=None):
+    """Trial ``t`` of a population seeded ``seed`` run again as a
+    standalone ``train()`` of ``steps`` steps on its own stream
+    (``trial_seed(seed, t)``) at batch ``bs`` (the first ``bs`` of the
+    population's drawn rows are that batch) and lr ``lr``: from its init
+    (``replica_generator(seed, t)``), or from the stacked ``params`` and
+    ``opt_state`` the population started from (a halving rung's
+    survivors). Returns its loss history."""
+    from differential_equations_dnn_tpu_torch.core.prng import (
+        replica_generator,
+        trial_seed,
+    )
+    from differential_equations_dnn_tpu_torch.parallel import population as pop
+    from differential_equations_dnn_tpu_torch.train import TrainConfig, train
+
+    if params is None:
+        net = model.fresh(generator=replica_generator(seed, t),
+                          device="cuda")
+        opt_state = None
+    else:
+        net = pop.trial_model(model, params, t)
+        opt_state = pop.trial_opt_state(net, opt_state, t)
+    res = train(prob, trial_seed(seed, t),
+                TrainConfig(iterations=steps, batch_size=int(bs),
+                            lrate=float(lr), verbose=False),
+                model=net, opt_state=opt_state)
+    return res.loss_history
+
+
+def check_trial(label, got, want):
+    """A population trial's losses against its standalone run, to
+    POP_RTOL."""
+    import numpy as np
+
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                       1e-30)))
+    print(f"{label}: against its standalone train(), losses max rel diff "
+          f"{rel:.3g} (rtol {POP_RTOL})")
+    if not rel <= POP_RTOL:
+        raise AssertionError(f"{label}: the population trial and its "
+                             f"standalone run differ")
+
+
+def population_run(launches, label, fn):
+    """``fn()`` with the counted wrappers' launches set to 0 just before
+    and read just after (into ``launches[label]``); prints its seconds and
+    the population graphs it captured and replayed. Returns (its result,
+    its seconds)."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.parallel import population as pop
+
+    captures = dict(pop.graph_stats)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches[label] = read_counts()
+    n = pop.graph_stats["captures"] - captures["captures"]
+    r = pop.graph_stats["replays"] - captures["replays"]
+    cap = sum(pop.graph_stats["capture_seconds"][-n:]) if n else 0.0
+    print(f"population {label}: {secs:.2f} s, {n} population graphs "
+          f"captured ({cap:.2f} s), {r} replays; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches[label].items() if v))
+    return out, secs
+
+
+def population_headline():
+    """The headline population's step (55 trials x 1 024 rows, heat
+    2 -> 128x3 -> 1): host draws, an eager step and a graph replay, each
+    timed alone; returns their ms per step."""
+    import numpy as np
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import trial_seed
+    from differential_equations_dnn_tpu_torch.equations import Heat1D
+    from differential_equations_dnn_tpu_torch.parallel import population as pop
+
+    dev = torch.device("cuda")
+    prob = Heat1D()
+    model = prob.default_model(device=dev)
+    bss = np.repeat([2**i for i in range(11)], 5)
+    params, _ = pop.init_trials(model, POP_SEED, len(bss), dev)
+    opt = pop._adam_init(params, len(bss), dev)
+    mask = (torch.arange(1024, device=dev)[None, :]
+            < torch.as_tensor(bss, device=dev)[:, None])
+    lr = torch.full((len(bss),), 1e-4, device=dev)
+    step = pop.make_population_step(prob, model, params, None, opt, lr, mask)
+    seeds = [trial_seed(POP_SEED, t) for t in range(len(bss))]
+    t0 = time.perf_counter()
+    block = pop.draw_trial_batches(prob, seeds, 0, pop.GRAPH_STEPS, 1024, dev)
+    torch.cuda.synchronize()
+    draw = (time.perf_counter() - t0) * 1e3 / pop.GRAPH_STEPS
+    first = {k: v[0] for k, v in block.items()}
+    eager = cuda_ms(lambda: step(first), reps=10)
+    tensors = [*params.values(), opt["count"], *opt["mu"].values(),
+               *opt["nu"].values()]
+    t0 = time.perf_counter()
+    graph = pop._PopulationGraph(step, block, tensors, len(bss), "heat")
+    capture = time.perf_counter() - t0
+    replay = cuda_ms(lambda: graph.replay(block), reps=3) / pop.GRAPH_STEPS
+    print(f"population step at the headline (55 trials x 1 024 rows): graph "
+          f"replay {replay * 1e3:.1f} us, eager {eager * 1e3:.1f} us, host "
+          f"draws {draw * 1e3:.1f} us per step (a share of "
+          f"{draw / (draw + replay):.3f} of draw + replay, overlapped with "
+          f"the replay in the loop); capture of {pop.GRAPH_STEPS} steps "
+          f"{capture:.2f} s")
+    return dict(replay_ms=replay, eager_ms=eager, draw_ms=draw)
+
+
+def phase_population():
+    """The population tier's checks that launch no kernel of the repo,
+    (a), (b), (d), (e) and (f): they run while nvcc builds the kernels
+    (``main``), so their seconds include that contention; each check
+    raises on failure. Returns the launches of the counted wrappers in each
+    run."""
+    import numpy as np
+    import torch
+
+    from differential_equations_dnn_tpu_torch import solve
+    from differential_equations_dnn_tpu_torch.core.prng import generator
+    from differential_equations_dnn_tpu_torch.equations import Heat1D
+    from differential_equations_dnn_tpu_torch.models import MLP, ResNet
+    from differential_equations_dnn_tpu_torch.sweep import (
+        batch_size_effect,
+        batchnorm_effect,
+        search,
+    )
+    from differential_equations_dnn_tpu_torch.train import TrainConfig, train
+
+    dev = torch.device("cuda")
+    heat = Heat1D()
+    print(f"population: iterations cut to {POP_STEPS} (the ablations' "
+          f"15 000, the sweeps' budgets, the ResNet run), halving to "
+          f"{HALVING_MIN} -> {HALVING_MAX} (its 500 -> 15 000); (a), (b), "
+          f"(d), (e) and (f) run while nvcc builds the kernels, so their "
+          f"seconds include its load on the host")
+    launches = {}
+
+    def run(label, fn):
+        return population_run(launches, label, fn)
+
+    # (a) the batch-size ablation at the headline shape.
+    torch.cuda.reset_peak_memory_stats()
+    res, secs = run("(a) batch_size_effect", lambda: batch_size_effect(
+        seed=POP_SEED, iterations=POP_STEPS, device="cuda"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if res.all_losses.shape != (11, 5, POP_STEPS) or not np.all(
+            np.isfinite(res.all_losses)):
+        raise AssertionError("(a) batch_size_effect: curves not finite of "
+                             "shape [11, 5, POP_STEPS]")
+    print(f"(a) batch_size_effect: 55 trials x {POP_STEPS} steps, "
+          f"{POP_STEPS / secs:.1f} population steps/s, peak memory "
+          f"{peak:.2f} GiB; final mean loss by batch size "
+          + ", ".join(f"{b}: {c[-1]:.4g}" for b, c in res.as_dict().items()))
+    t = 10 * 5  # run 0 of bs 1 024: no mask at max_batch_size 1 024
+    want = standalone_trial(heat, heat.default_model(), POP_SEED, t, 1e-4,
+                            1024, POP_STEPS)
+    check_trial("(a) trial 50 (bs 1 024)", res.all_losses[10, 0], want)
+
+    # (b) the BatchNorm ablation, and a pre-BN train() beside it.
+    res, _ = run("(b) batchnorm_effect", lambda: batchnorm_effect(
+        seed=POP_SEED, iterations=POP_STEPS, device="cuda"))
+    if res.all_losses.shape != (3, 5, POP_STEPS) or not np.all(
+            np.isfinite(res.all_losses)):
+        raise AssertionError("(b) batchnorm_effect: curves not finite")
+    print("(b) batchnorm_effect: final mean loss "
+          + ", ".join(f"{k}: {c[-1]:.4g}" for k, c in res.as_dict().items()))
+    m = MLP(2, 1, 128, 3, "relu", "pre", generator=generator(0), device=dev)
+    out, _ = run("(b) pre-BN train()", lambda: train(
+        heat, POP_SEED, TrainConfig(iterations=POP_STEPS, batch_size=64,
+                                    verbose=False), model=m))
+    moved = (float(m.bn.mean.abs().max()), float((m.bn.var - 1).abs().max()))
+    grid = heat.evaluate(m, heat.defaults.nodes)
+    with torch.no_grad():
+        train_grid = m(heat.grid_inputs(heat.defaults.nodes, dev)).cpu()
+    gap = float(np.max(np.abs(grid - train_grid.numpy().reshape(grid.shape))))
+    print(f"(b) pre-BN train(): final loss {out.loss_history[-1]:.4g}, "
+          f"running mean max|.| {moved[0]:.4g}, |var - 1| max {moved[1]:.4g}; "
+          f"eval-mode grid against the train-mode forward max|diff| "
+          f"{gap:.4g}")
+    if not (min(moved) > 1e-3 and np.all(np.isfinite(grid)) and gap > 1e-4
+            and m.training):
+        raise AssertionError("(b) pre-BN train(): statistics did not move "
+                             "or the eval-mode grid is not its own")
+
+    # (d) FitzHugh–Nagumo's Fourier-feature arch on the scan trainer.
+    res, _ = run("(d) fitzhugh_nagumo fourier_mlp", lambda: solve(
+        "fitzhugh_nagumo", arch="fourier_mlp", seed=42, iterations=30_000))
+    print(f"(d) solve('fitzhugh_nagumo', arch='fourier_mlp', seed=42, "
+          f"iterations=30000): MAE {res.mae:.6g} (bound {POP_BOUND}), "
+          f"{res.iters_per_sec:.1f} it/s")
+    if not res.mae < POP_BOUND:
+        raise AssertionError(f"(d) fourier_mlp: MAE {res.mae}")
+
+    # (e) the population sweeps; each winner checked against the
+    # populations it trained in.
+    calls = []
+    real = search.train_population
+
+    def spy(problem, model, seed, lrates, batch_sizes=None, config=None,
+            **kw):
+        out = real(problem, model, seed, lrates, batch_sizes, config, **kw)
+        calls.append(dict(seed=seed, lrs=np.asarray(lrates),
+                          bss=np.asarray(batch_sizes), losses=out[2],
+                          params_in=kw.get("params"),
+                          opt_in=kw.get("opt_state"), params_out=out[0]))
+        return out
+
+    search.train_population = spy
+    results = {}
+    try:
+        for label, fn in (
+                ("successive_halving", lambda: search.successive_halving(
+                    heat, POP_SEED, num_samples=27, eta=3,
+                    min_budget=HALVING_MIN, max_budget=HALVING_MAX)),
+                ("random_search", lambda: search.random_search(
+                    heat, POP_SEED, num_samples=10, max_iters=POP_STEPS)),
+                ("tpe_search", lambda: search.tpe_search(
+                    heat, POP_SEED, num_samples=10, max_iters=POP_STEPS))):
+            calls[:] = []
+            out, secs = run(f"(e) {label}", fn)
+            results[label] = (out, list(calls))
+            n_trials = len(out.configs)
+            print(f"(e) {label}: best {out.best_config}, score "
+                  f"{out.best_score:.9g}; {n_trials} trials in {secs:.2f} s, "
+                  f"{60 * n_trials / secs:.1f} trials per minute")
+            if not math.isfinite(out.best_score):
+                raise AssertionError(f"(e) {label}: no finite winner")
+    finally:
+        search.train_population = real
+    for label, (out, rounds) in results.items():
+        check_winner(label, heat, out, rounds)
+
+    # (f) a ResNet on the scan trainer.
+    net = ResNet(generator=generator(0), device=dev)
+    out, _ = run("(f) ResNet train()", lambda: train(
+        heat, POP_SEED, TrainConfig(iterations=POP_STEPS, batch_size=64,
+                                    verbose=False), model=net))
+    grid = heat.evaluate(net, heat.defaults.nodes)
+    first, last = out.loss_history[:100].mean(), out.loss_history[-100:].mean()
+    print(f"(f) ResNet() on heat: mean loss of the first 100 steps "
+          f"{first:.4g}, of the last 100 {last:.4g}; eval-mode grid "
+          f"max|u| {np.abs(grid).max():.4g}")
+    if not (last < first and np.all(np.isfinite(grid))):
+        raise AssertionError("(f) ResNet: the loss did not fall or the grid "
+                             "is not finite")
+    return launches
+
+
+def check_winner(label, prob, out, rounds):
+    """(e): a sweep's winner against the populations it trained in (a
+    halving rung each; the random search's one; its TPE round), found by
+    its lr and batch: its score is its loss in the last of them at its
+    n_iters, exactly; ``best_params()`` are its parameters at the end of
+    that population, exactly; and in each population its first losses
+    (POP_REPLAY_STEPS from its init, POP_CARRIED_STEPS from a carried
+    state) equal, to POP_RTOL, a standalone train() from the state that
+    population started it from (its init, or the parameters and Adam
+    state ``take_trials`` carried into the rung) on that population's
+    stream for it."""
+    import numpy as np
+    import torch
+
+    cfg = out.best_config
+    found = []
+    for call in rounds:
+        where = np.flatnonzero((call["lrs"] == np.float32(cfg["lrate"]))
+                               & (call["bss"] == cfg["batch_size"]))
+        if len(where):
+            found.append((int(where[0]), call))
+    n = cfg["n_iters"] - sum(c["losses"].shape[0] for _, c in found[:-1])
+    t, last = found[-1]
+    if last["losses"][n - 1, t] != out.best_score:
+        raise AssertionError(f"(e) {label}: the winner's score is not its "
+                             f"population's loss at its n_iters")
+    best = out.best_params()
+    if not all(torch.equal(best[k][0], last["params_out"][k][t])
+               for k in last["params_out"]):
+        raise AssertionError(f"(e) {label}: best_params() are not the "
+                             f"winner's parameters")
+    model, rels = prob.default_model(), []
+    for t, call in found:
+        k = (POP_REPLAY_STEPS if call["params_in"] is None
+             else POP_CARRIED_STEPS)
+        want = standalone_trial(prob, model, call["seed"], t, cfg["lrate"],
+                                cfg["batch_size"], k, call["params_in"],
+                                call["opt_in"])
+        got = call["losses"][:k, t]
+        rels.append((float(np.max(np.abs(got - want) / np.abs(want))), k))
+    print(f"(e) {label}: the score is the winner's loss at its n_iters and "
+          f"best_params() its parameters at the end of its last population, "
+          f"exactly; in each of its {len(found)} population(s), re-run "
+          f"standalone from the state it started from (its init, or the "
+          f"carried parameters and Adam state), its first losses max rel "
+          f"diff " + ", ".join(f"{r:.3g} over {k}" for r, k in rels)
+          + f" steps (rtol {POP_RTOL})")
+    if not max(r for r, _ in rels) <= POP_RTOL:
+        raise AssertionError(f"(e) {label}: the winner's standalone re-run "
+                             f"parts from its population trial")
+
+
+def phase_population_card(launches):
+    """The population checks that need the built kernels or a quiet host,
+    after the build: the headline's step timed alone, and (c), whose
+    picked replica's grid goes through kernel #2. Then every population
+    run's launches: none but (c)'s one of kernel #2."""
+    from differential_equations_dnn_tpu_torch import solve
+    from differential_equations_dnn_tpu_torch.parallel import population as pop
+
+    population_headline()
+    res, _ = population_run(launches, "(c) heat ensemble=8", lambda: solve(
+        "heat", engine="scan", ensemble=8, seed=0))
+    print(f"(c) solve('heat', engine='scan', ensemble=8): MAE {res.mae:.6g} "
+          f"(bound {POP_BOUND}), {res.iters_per_sec:.1f} population steps/s "
+          f"({8 * res.iters_per_sec:.1f} trial-steps/s), wall "
+          f"{res.wall_time:.2f} s, build + warm-up + capture "
+          f"{res.compile_time:.2f} s")
+    if not (res.mae < POP_BOUND and res.loss_history.shape == (15_000,)):
+        raise AssertionError(f"(c) heat ensemble: MAE {res.mae}")
+    if launches["(c) heat ensemble=8"]["mlp_forward"] != 1:
+        raise AssertionError("(c) the picked replica's grid did not go "
+                             "through kernel #2 once")
+    for label, counts in launches.items():
+        allowed = {"mlp_forward"} if "(c)" in label else set()
+        ran = {k for k, v in counts.items() if v and k not in allowed}
+        if ran:
+            raise AssertionError(f"population {label}: launched {ran}")
+    print(f"population: {pop.graph_stats['captures']} population graphs "
+          f"captured, {pop.graph_stats['replays']} replays in all")
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its seconds printed after it."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     t0 = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     phase_device()
     import torch
 
-    phase_build()
-    rows = phase_kernels()
-    launches = phase_solve()
-    launches[("sweep",)], sweep_shapes = phase_sweep()
+    builder = start_build()
+    try:
+        pop_launches = timed(phase_population)
+    finally:
+        builder[0].join()  # no nvcc outlives a failed run
+    phase_build(builder)
+    rows = timed(phase_kernels)
+    launches = timed(phase_solve)
+    launches[("sweep",)], sweep_shapes = timed(phase_sweep)
+    timed(phase_population_card, pop_launches)
     # Launches from each kernel's own path: #2 and #1 from constant-lr
     # heat, #3 from the scan solve of heat with pallas taps, #6 and #4 from
     # heat2d, #7 and #4 at the DGM layout from

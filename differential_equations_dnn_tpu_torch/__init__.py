@@ -2,19 +2,21 @@
 ``differential_equations_dnn_tpu``, for one NVIDIA H100.
 
 It imports ``torch`` and never ``jax``. The JAX package beside it is the
-reference the port is tested against. Ported so far: ``solve(name)`` for
-simple_ode, heat, burgers, wave, advection, poisson, heat2d,
-fitzhugh_nagumo and fredholm on both engines. ``engine="scan"`` (the
-default) is the generic trainer, torch ops per step, with heat's
-``taps="pallas"`` streams from a hand-written kernel; ``engine="fused"``
-trains inside hand-written CUDA kernels (csrc/): the constant-lr heat
-trainer, the generic spec engine with its lr schedules, the DGM engine and
-their packed-replica ensembles. Grid evaluation runs the MLP-forward
-kernel.
+reference the port is tested against. ``solve(name)`` runs all twelve
+equations on both engines. ``engine="scan"`` (the default) is the generic
+trainer, torch ops per step, with heat's ``taps="pallas"`` streams from a
+hand-written kernel, any model (BatchNorm, Fourier-feature and ResNet
+models too); its ensembles are populations of vmapped trials.
+``engine="fused"`` trains inside hand-written CUDA kernels (csrc/): the
+constant-lr heat trainer, the generic spec engine with its lr schedules,
+the DGM engine and their packed-replica ensembles. Grid evaluation of a
+plain MLP runs the MLP-forward kernel.
 
 * ``core``       — fp32 policy, activations, initializers, step-keyed draws
-* ``models``     — the plain MLP and the DGM (``nn.Module``s), JAX
-                   parameter import
+* ``models``     — the MLP (plain, BatchNorm pre/post, Fourier features),
+                   the DGM, the ResNet, the Perceptron, hard-constraint
+                   trial functions (``nn.Module``s), the stateful protocol,
+                   JAX parameter import
 * ``ops``        — forward-mode taps (torch.func.jvp), Taylor streams,
                    Gauss–Legendre quadrature, the grid subsampler
 * ``equations``  — the nine problems (residuals, grids, exact solutions)
@@ -23,8 +25,11 @@ kernel.
                    ``opt_state_from_jax``), the L-BFGS polish, the MAE
                    metric
 * ``kernels``    — the CUDA kernels' wrappers, plain versions and build
+* ``parallel``   — population training: P trials stepped together
 * ``sweep``      — hyperparameter search on the fused tier (TPE, successive
-                   halving, TPE × halving), every trial inside the kernels
+                   halving, TPE × halving, every trial inside the kernels)
+                   and on populations (random, halving, TPE, TPE ×
+                   halving), and the batch-size and BatchNorm ablations
 """
 
 __version__ = "0.1.0"
@@ -35,6 +40,7 @@ from differential_equations_dnn_tpu_torch import (
     kernels,
     models,
     ops,
+    parallel,
     sweep,
     train,
 )
@@ -52,6 +58,7 @@ __all__ = [
     "equations",
     "train",
     "kernels",
+    "parallel",
     "sweep",
     "solve",
     "tpe_search_fused",

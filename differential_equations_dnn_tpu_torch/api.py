@@ -28,9 +28,19 @@ from differential_equations_dnn_tpu_torch.kernels.build import resolve_device
 from differential_equations_dnn_tpu_torch.kernels.fused_train import (
     train_heat_fused_result,
 )
-from differential_equations_dnn_tpu_torch.models import HardConstraint
+from differential_equations_dnn_tpu_torch.models import (
+    HardConstraint,
+    is_stateful,
+    update_state,
+)
+from differential_equations_dnn_tpu_torch.parallel import (
+    PopulationConfig,
+    train_population,
+    trial_model,
+)
 from differential_equations_dnn_tpu_torch.train import (
     TrainConfig,
+    TrainResult,
     finetune_lbfgs,
     mean_absolute_error,
 )
@@ -100,6 +110,42 @@ def _polish_and_select(problem, models, val_losses, seed, steps):
     return best[1:]
 
 
+def _polish(problem, model, loss_history, steps, seed):
+    """A single run's L-BFGS polish on a batch from ``seed + 3``; a
+    stateful model's running statistics are then refreshed on 1 024
+    validation points from ``seed + 2`` (JAX api.py:425-437)."""
+    model, ft_losses = finetune_lbfgs(problem, model, steps,
+                                      generator=generator(seed + 3))
+    if is_stateful(model):
+        device = next(model.parameters()).device
+        refresh = problem.validation_sample(1024, generator(seed + 2), device)
+        update_state(model, problem.domain_inputs(refresh))
+    return model, np.concatenate([loss_history, ft_losses])
+
+
+def _train_scan_population(problem, model, seed, config, n_trials, device):
+    """``ensemble=N`` on the scan engine (JAX api.py:299-321): N trials of
+    ``model``'s architecture as one population at the config's lr and
+    batch. Returns a TrainResult whose
+    params are the N trained models and whose loss history is [N,
+    iterations]; ``iters_per_sec`` counts population steps."""
+    timings = {}
+    pc = PopulationConfig(iterations=config.iterations,
+                          max_batch_size=config.batch_size)
+    stacked, opt_state, losses = train_population(
+        problem, model, seed, np.full(n_trials, config.lrate, np.float32),
+        config=pc, timings=timings, device=device)
+    template = model.to(device).train()
+    models = [trial_model(template, stacked, t, timings["state"])
+              for t in range(n_trials)]
+    wall = timings["run_time"]
+    return TrainResult(params=models, opt_state=opt_state,
+                       loss_history=losses.T, wall_time=wall,
+                       iters_per_sec=(config.iterations / wall if wall
+                                      else float("inf")),
+                       compile_time=timings["compile_time"])
+
+
 def _fused_route(problem, model, schedule="constant", batch_size=None) -> str:
     """Which fused engine trains (problem, model): "heat" (the specialised
     constant-lr heat kernel, kernels.fused_train), "dgm" (the DGM engine,
@@ -136,10 +182,10 @@ def _fused_route(problem, model, schedule="constant", batch_size=None) -> str:
             f"nodes per step); drop quadrature={problem.quadrature!r} or use "
             f"engine='scan'")
     if problem.name == "fitzhugh_nagumo":
-        raise NotImplementedError(
+        raise ValueError(
             "fitzhugh_nagumo's fused path is the DGM engine, which needs "
-            "arch='dgm'; the fourier_mlp arch is not ported yet (ROADMAP.md "
-            "queue 1, item 13: Fourier-feature MLPs)")
+            "arch='dgm' (the fourier_mlp arch trains on the scan engine); "
+            "drop arch= or use engine='scan'")
     spec = fused_engine.spec_for(problem)
     if spec is None:
         taps = getattr(problem, "taps", None)
@@ -151,8 +197,9 @@ def _fused_route(problem, model, schedule="constant", batch_size=None) -> str:
     if not spec.supports_model(model):
         raise ValueError(
             f"{problem.name!r}'s fused path needs "
-            f"{spec.model_text.format(D=spec.input_dim)} (got "
-            f"{type(model).__name__}); use engine='scan'")
+            f"{spec.model_text.format(D=spec.input_dim)}, no BatchNorm, no "
+            f"Fourier features (got {type(model).__name__}); use "
+            f"engine='scan'")
     if problem.name == "heat" and schedule == "constant":
         return "heat"
     return "engine"
@@ -194,21 +241,26 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
     trainer ignores it, as in the JAX package, and runs the port's
     strict-fp32 policy. An unknown precision raises a ValueError.
 
-    ``ensemble=N`` trains N replicas packed into every kernel launch (replica
-    r drawn from ``replica_generator(seed, r)``, all on the collocation
-    stream of ``seed``) and keeps the one with the lowest finite mean
-    residual on an off-grid validation batch from ``seed + 1``;
+    ``ensemble=N`` trains N replicas (replica r drawn from
+    ``replica_generator(seed, r)``): on the fused engine packed into every
+    kernel launch, all on the collocation stream of ``seed``; on the scan
+    engine as one population (parallel/population.py), each on its own
+    stream. It keeps the replica with
+    the lowest finite mean residual on an off-grid validation batch from
+    ``seed + 1`` (a stateful replica on train-mode batch statistics);
     ``iters_per_sec`` is then population steps per second. ``finetune=N``
     polishes with N full-batch L-BFGS steps: a single run on a batch from
     ``seed + 3``; an ensemble polishes its best 3 replicas and keeps the one
     with the lowest residual on a fresh batch from ``seed + 4``. Both
     default to ``None`` = the JAX package's automatic choice:
     FitzHugh–Nagumo with ``causal_eps=0`` trains 16 replicas and polishes
-    for 200 steps, everything else one unpolished run. Ensembles run on the
-    fused engine only: the scan engine's vmapped populations are not
-    ported. ``device`` defaults to "cuda" and raises without a GPU; "cpu"
-    runs the kernels' plain PyTorch versions. ``mesh`` (sharded ensembles)
-    is not ported.
+    for 200 steps, everything else one unpolished run. A stateful
+    population (BatchNorm) is not polished as an ensemble: its pick is
+    polished as a single run, and a polished stateful model's running
+    statistics are refreshed on 1 024 validation points from ``seed + 2``,
+    as in the JAX package. ``device`` defaults to "cuda" and raises
+    without a GPU; "cpu" runs the kernels' plain PyTorch versions.
+    ``mesh`` (sharded ensembles) is not ported.
     """
     check_precision(precision)
     problem = (get_problem(equation, **problem_kwargs)
@@ -223,11 +275,6 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
             "sharded ensembles over several GPUs)")
     if engine not in ("scan", "fused"):
         raise ValueError(f"unknown engine {engine!r} (scan | fused)")
-    if engine == "scan" and ensemble > 1:
-        raise NotImplementedError(
-            "ensembles on engine='scan' are not ported yet (ROADMAP.md "
-            "queue 1, item 13: the vmapped populations, "
-            "parallel/population.py); use engine='fused'")
     device = resolve_device(device)
 
     d = problem.defaults
@@ -247,15 +294,21 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
     common = dict(batch_size=config.batch_size, lrate=config.lrate,
                   chunk_size=config.chunk_size, precision=precision,
                   device=device)
-    if ensemble > 1:
+    if ensemble > 1 and route == "scan":
+        result = _train_scan_population(problem, single, seed, config,
+                                        ensemble, device)
+    elif ensemble > 1:
         train = (fused_dgm.train_dgm_fused_ensemble_packed if route == "dgm"
                  else fused_engine.train_fused_ensemble_packed)
         result = train(problem, seed, config.iterations, ensemble,
                        model=model, schedule=config.schedule, **common)
+    if ensemble > 1:
         val = problem.validation_sample(4096, generator(seed + 1), device)
         val_losses = np.array([_residual(problem, m, val)
                                for m in result.params])
-        if finetune:
+        # A stateful population is not polished as an ensemble (JAX
+        # api.py:340); its pick is polished below as a single run.
+        if finetune and not is_stateful(single):
             pick, trained, ft_losses = _polish_and_select(
                 problem, result.params, val_losses, seed, finetune)
             loss_history = np.concatenate([result.loss_history[pick],
@@ -265,6 +318,9 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
                                           val_losses, np.inf)))
             trained = result.params[pick]
             loss_history = result.loss_history[pick]
+            if finetune:
+                trained, loss_history = _polish(problem, trained,
+                                                loss_history, finetune, seed)
     else:
         if route == "scan":
             result = train_scan(problem, seed, config, model=single,
@@ -280,9 +336,8 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
                            schedule=config.schedule, **common)
         trained, loss_history = result.params, result.loss_history
         if finetune:
-            trained, ft_losses = finetune_lbfgs(
-                problem, trained, finetune, generator=generator(seed + 3))
-            loss_history = np.concatenate([loss_history, ft_losses])
+            trained, loss_history = _polish(problem, trained, loss_history,
+                                            finetune, seed)
     solution = problem.evaluate(trained, nodes)
     exact = problem.exact(nodes)
     return SolveResult(

@@ -20,6 +20,8 @@ _M32 = 0xFFFFFFFF
 _DRAW_DOMAIN = 0x5EED0001  # separates the draw stream from the init stream
 _REPLICA_DOMAIN = 0x5EED0002  # and both from the replicas' init seeds
 _STEP_DOMAIN = 0x5EED0003  # and all three from the scan trainer's steps
+_TRIAL_DOMAIN = 0x5EED0004  # a population trial's stream seed
+_FOLD_DOMAIN = 0x5EED0005  # a seed folded with a number
 
 
 def generator(seed: int) -> torch.Generator:
@@ -51,6 +53,29 @@ def replica_generator(seed: int, r: int) -> torch.Generator:
                               & _M32))
     h = _mix32((key + int(r) * 0x9E3779B9) & _M32)
     return torch.Generator().manual_seed((int(key) << 32) | int(h))
+
+
+def _hash_pair(seed: int, n: int, domain: int) -> int:
+    """The 64-bit counter hash of ``(seed, n)`` in ``domain``."""
+    key = _mix32(((seed ^ (seed >> 32)) ^ domain) & _M32)
+    return (key << 32) | _mix32((key + int(n) * 0x9E3779B9) & _M32)
+
+
+def trial_seed(seed: int, t: int) -> int:
+    """The seed of trial ``t``'s collocation stream in a population seeded
+    ``seed``, the counterpart of the JAX package's ``fold_index(run_key,
+    t)`` (parallel/population.py:99-101): trial t's step i draws from
+    ``step_generator(trial_seed(seed, t), i)``, so its batches depend on
+    ``(seed, t, i)`` alone, never on the population's size or its other
+    trials, and a standalone ``train`` seeded ``trial_seed(seed, t)`` sees
+    the same batches."""
+    return _hash_pair(int(seed), t, _TRIAL_DOMAIN)
+
+
+def fold_seed(seed: int, n: int) -> int:
+    """``seed`` folded with ``n``, the counterpart of ``fold_in(key, n)``
+    (a halving rung's population at ``(seed, spent)``)."""
+    return _hash_pair(int(seed), n, _FOLD_DOMAIN)
 
 
 def _mix32(x):

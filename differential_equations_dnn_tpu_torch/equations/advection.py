@@ -86,12 +86,14 @@ class Advection1D(Problem):
         r, r0, rb = self._residuals(model, batch)
         return (torch.square(r) + torch.square(r0) + torch.square(rb))[:, 0]
 
-    def loss(self, model, batch):
+    def loss(self, model, batch, mask=None):
         """Causal-weighted loss (``causal_eps > 0``): mean_i(w_i·r_i) +
         mean(IC + inflow), w_i = exp(−ε·Δt·Σ_{t_j < t_i} r_j) without
-        gradient, Δt = t_max/B."""
-        if self.causal_eps <= 0.0:
-            return super().loss(model, batch)
+        gradient, Δt = t_max/B. Under a row mask (a population trial) the
+        plain masked loss, as in the JAX package (advection.py:94-101):
+        causal weighting is a single-run protocol."""
+        if self.causal_eps <= 0.0 or mask is not None:
+            return super().loss(model, batch, mask)
         r, r0, rb = self._residuals(model, batch)
         res = torch.square(r)[:, 0]
         icbc = (torch.square(r0) + torch.square(rb))[:, 0]

@@ -6,14 +6,18 @@ A Problem bundles, for one differential equation:
 * ``sample(n)``            — one batch of collocation points, built by
                              ``batch_from_uniforms`` from U[0,1) draws
 * ``point_loss(model, batch)`` — per-point summed squared residuals
+* ``loss(model, batch, mask)`` — their (masked) mean, the training loss
+* ``domain_inputs(batch)`` — the interior points, on which a stateful
+                             model's running statistics are refreshed
 * ``grid_inputs(nodes)``   — flattened evaluation-grid inputs [M, d]
 * ``solution_shape(nodes)``— shape the evaluated grid reshapes to
 * ``exact(nodes)``         — the analytic ground truth (numpy, float64)
 * ``defaults``             — reference iteration budget / batch size / lr
 
 ``evaluate`` runs the whole grid through the MLP-forward kernel
-(kernels.taylor_mlp.mlp_forward), or a DGM's own forward, then a
-hard-constraint model's ansatz; ``mae`` is the reference's acceptance
+(kernels.taylor_mlp.mlp_forward) for a plain MLP, or through the model's
+own forward (a DGM, a Fourier-feature MLP; a stateful model in eval mode),
+then a hard-constraint model's ansatz; ``mae`` is the reference's acceptance
 metric (sklearn.mean_absolute_error, heat.py:232).
 """
 
@@ -78,13 +82,29 @@ class Problem:
         the fused engine's spec builds it."""
         raise NotImplementedError
 
+    def domain_inputs(self, batch):
+        """The interior collocation inputs of a training batch [B, d] (JAX
+        base.py:68-79): where the trainers refresh a stateful model's
+        running statistics. The samplers name them "xt" (PDEs), "t" (ODEs)
+        or "x" (function fits); other layouts override this."""
+        for name in ("xt", "t", "x"):
+            if name in batch:
+                return batch[name]
+        return next(iter(batch.values()))
+
     def point_loss(self, model, batch):
         """Per-collocation-point summed squared residuals, shape [B]."""
         raise NotImplementedError
 
-    def loss(self, model, batch):
-        """Scalar training loss: the mean of ``point_loss``."""
-        return torch.mean(self.point_loss(model, batch))
+    def loss(self, model, batch, mask=None):
+        """Scalar training loss: the mean of ``point_loss``, or under a
+        row ``mask`` [B] (a population trial's batch size within its
+        drawn rows) Σ r·mask / Σ mask (JAX base.py:91-97)."""
+        r = self.point_loss(model, batch)
+        if mask is None:
+            return torch.mean(r)
+        mask = mask.to(r.dtype)
+        return torch.sum(r * mask) / torch.sum(mask)
 
     def grid_inputs(self, nodes, device=None):
         raise NotImplementedError
@@ -97,24 +117,33 @@ class Problem:
 
     def evaluate(self, model, nodes):
         """The trained net on the problem's grid, as a numpy array of
-        ``solution_shape(nodes)``: one kernel launch over the whole grid.
-        A HardConstraint runs its raw net so, then its ansatz as plain
-        tensor ops (the JAX package applies it outside any kernel)."""
+        ``solution_shape(nodes)``. A plain MLP (the Perceptron and the
+        inverse model's net too) runs as one launch of kernel #2 over the
+        whole grid; any other net through its own forward (the JAX
+        package's ``model.apply``, outside any kernel): a DGM, a
+        Fourier-feature MLP, and a stateful model (a BatchNorm MLP, a
+        ResNet) in eval mode, on its running statistics. A HardConstraint
+        runs its raw net so, then its ansatz as plain tensor ops."""
         from differential_equations_dnn_tpu_torch.kernels.taylor_mlp import (
             mlp_forward,
         )
         from differential_equations_dnn_tpu_torch.models import (
             DGM,
             HardConstraint,
+            eval_mode,
+            is_stateful,
         )
 
         device = next(model.parameters()).device
         with torch.no_grad():
             x = self.grid_inputs(nodes, device=device)
             net = model.net if isinstance(model, HardConstraint) else model
-            # A DGM evaluates through its own forward (the JAX package's
-            # model.apply, outside any kernel); kernel #2 is for MLPs.
-            y = net(x) if isinstance(net, DGM) else mlp_forward(net, x)
+            if not (isinstance(net, DGM) or is_stateful(net)
+                    or not getattr(net, "plain", True)):
+                y = mlp_forward(net, x)
+            else:
+                with eval_mode(net):
+                    y = net(x)
             if net is not model:
                 y = model.ansatz(x, y)
         return y.cpu().numpy().reshape(self.solution_shape(nodes))

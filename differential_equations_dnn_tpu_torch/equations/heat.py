@@ -23,6 +23,7 @@ from differential_equations_dnn_tpu_torch.models import (
     MLP,
     HardConstraint,
     heat1d_ansatz,
+    is_stateful,
 )
 from differential_equations_dnn_tpu_torch.ops import (
     coordinate_taps,
@@ -85,9 +86,14 @@ class Heat1D(Problem):
         if self.taps == "jvp":
             _, (u_t,), (u_xx,) = coordinate_taps(model, batch["xt"],
                                                  first=(1,), second=(0,))
-            # The three constraint sets in one forward (rows independent).
-            u0, ub1, ub2 = model(torch.cat([batch["x0"], batch["xb1"],
-                                            batch["xb2"]])).chunk(3)
+            sets = (batch["x0"], batch["xb1"], batch["xb2"])
+            if is_stateful(model):
+                # Batch statistics couple the rows: one forward per set,
+                # as the JAX package (and the reference) call the net.
+                u0, ub1, ub2 = (model(x) for x in sets)
+            else:
+                # The three sets in one forward (rows independent).
+                u0, ub1, ub2 = model(torch.cat(sets)).chunk(3)
         else:
             streams = (taylor_mlp.heat_fused_streams if self.taps == "pallas"
                        else heat_fused_streams)

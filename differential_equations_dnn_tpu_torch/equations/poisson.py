@@ -63,6 +63,9 @@ class Poisson2D(Problem):
             "b_y1": torch.cat([edge, xmax], 1),
         }
 
+    def domain_inputs(self, batch):
+        return batch["xy"]
+
     def point_loss(self, model, batch):
         _, _, (u_xx, u_yy) = coordinate_taps(model, batch["xy"],
                                              second=(0, 1))

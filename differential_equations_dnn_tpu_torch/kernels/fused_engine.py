@@ -333,7 +333,10 @@ class _Spec:
         return ()
 
     def supports_model(self, model):
-        return (isinstance(model, MLP) and model.activation == "tanh"
+        # A plain MLP: BatchNorm and Fourier features are other networks,
+        # which the engine's streams do not compute.
+        return (isinstance(model, MLP) and model.plain
+                and model.activation == "tanh"
                 and model.input_dim == self.input_dim
                 and model.output_dim == 1 and model.num_layers >= 1)
 

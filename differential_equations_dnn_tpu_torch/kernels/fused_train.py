@@ -239,10 +239,12 @@ def _check_model(model, device=None):
     """A plain tanh MLP 2 → H×L → 1; on a CUDA ``device`` also a width the
     kernels' plan holds (checked before the library is loaded, so nothing
     launches). The plain version takes any width."""
-    if not isinstance(model, MLP) or model.activation != "tanh" \
-            or model.input_dim != 2 or model.output_dim != 1:
+    if not isinstance(model, MLP) or not model.plain \
+            or model.activation != "tanh" or model.input_dim != 2 \
+            or model.output_dim != 1:
         raise ValueError("the fused heat kernel trains plain tanh MLPs "
-                         "2 → H×L → 1 only")
+                         "2 → H×L → 1 only (no BatchNorm, no Fourier "
+                         "features)")
     if device is not None and torch.device(device).type == "cuda":
         heat_train_plan(model.hidden_size)
 

@@ -42,7 +42,10 @@ gradient, a 120-step chunk), ``--streams-outputs PATH`` kernel #3's (the 7
 streams for tanh, sigmoid and relu at B = 64 and 1 000, H = 128, L = 3),
 ``--mlp-outputs PATH`` kernel #2's (each shape of ``MLP_SHAPES``, and every
 activation, depth 0, 1, 3, input width 1-3, output width 1-2 and ragged N
-in {1, 25, 77} at H = 50 and 128);
+in {1, 25, 77} at H = 50 and 128), ``--population-outputs PATH`` the
+population tier's (heat populations of 4 run twice by graph and once
+eagerly, and the scores of a TPE population sweep; ``--deterministic``
+runs it under ``torch.use_deterministic_algorithms``);
 with ``--compare-to OLD`` each compares them with a file that an earlier
 tree saved, tensor by tensor, bit for bit. All use only entry points every
 version of the kernels has, so an earlier tree's package can run them:
@@ -74,6 +77,7 @@ import ctypes
 import functools
 import json
 import multiprocessing
+import os
 import re
 import subprocess
 from collections import defaultdict
@@ -728,6 +732,43 @@ def mlp_outputs(device):
     return out
 
 
+def population_outputs(device):
+    """The population tier's outputs at fixed inputs, as CPU tensors by
+    name: heat's default model in a population of 4 at max batch 512
+    (batches 181, 17, 512 and 64), run three times in this process (64
+    steps, two graph replays; the same again; 16 steps, eagerly), then the
+    scores of ``tpe_search(heat, 0, num_samples=10, max_iters=2048)`` (the
+    run of chip_smoke.py's population check (e)). It prints whether the
+    two graph runs, and the eager run against their first 16 steps, agree
+    bit for bit."""
+    from differential_equations_dnn_tpu_torch.parallel import (
+        PopulationConfig,
+        train_population,
+    )
+    from differential_equations_dnn_tpu_torch.sweep import search
+
+    prob = PROBLEMS["heat"]()
+    model = prob.default_model()
+    lrs = np.array([3.2e-3, 1e-3, 2e-4, 1e-4], np.float32)
+    out = {}
+    for tag, iterations in (("graph", 64), ("again", 64), ("eager", 16)):
+        params, _, losses = train_population(
+            prob, model, 0, lrs, [181, 17, 512, 64],
+            PopulationConfig(iterations=iterations, max_batch_size=512),
+            device=device)
+        out[f"{tag} losses"] = torch.as_tensor(losses)
+        out.update({f"{tag} {k}": v.cpu() for k, v in params.items()})
+    again = all(torch.equal(v, out["again" + k[5:]])
+                for k, v in out.items() if k.startswith("graph "))
+    eager = torch.equal(out["eager losses"], out["graph losses"][:16])
+    print(f"population outputs: the two graph runs bit for bit: {again}; "
+          f"the eager run's 16 losses bit for bit the graph's: {eager}")
+    res = search.tpe_search(prob, 0, num_samples=10, max_iters=2048)
+    out["tpe_search scores"] = torch.as_tensor(res.scores)
+    print("tpe_search scores: " + ", ".join(f"{x:.9g}" for x in res.scores))
+    return out
+
+
 def _steady_ms(run, reps=3):
     """Mean milliseconds per call of ``run`` between CUDA events, after a
     warm-up call."""
@@ -867,6 +908,13 @@ def main():
                         help="save kernel #3's outputs at fixed inputs")
     parser.add_argument("--mlp-outputs", metavar="PATH",
                         help="save kernel #2's outputs at fixed inputs")
+    parser.add_argument("--population-outputs", metavar="PATH",
+                        help="save the population tier's outputs at fixed "
+                        "inputs")
+    parser.add_argument("--deterministic", action="store_true",
+                        help="run under torch.use_deterministic_algorithms"
+                        "(True), which raises at an op that has no "
+                        "deterministic version on the card")
     parser.add_argument("--compare-to", metavar="OLD",
                         help="with one of the --*-outputs options: "
                         "compare with OLD, saved by an earlier tree")
@@ -894,6 +942,10 @@ def main():
                         '\'{"iterations": 50000}\' or \'{"engine": '
                         '"scan"}\')')
     args = parser.parse_args()
+    if args.deterministic:
+        # cuBLAS reproducible across streams, as torch asks for this mode.
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
     device = build.resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -907,7 +959,9 @@ def main():
                              (args.streams_outputs, streams_outputs,
                               "heat streams (#3)"),
                              (args.mlp_outputs, mlp_outputs,
-                              "MLP forward (#2)")):
+                              "MLP forward (#2)"),
+                             (args.population_outputs, population_outputs,
+                              "population")):
         if path:
             outs = make(device)
             torch.save(outs, path)

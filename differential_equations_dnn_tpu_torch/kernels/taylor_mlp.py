@@ -91,6 +91,16 @@ def _mlp_view(model):
         ("fc_out.b", net.fc_out.b, (O,))])
 
 
+def _check_plain(net):
+    """A ValueError for a BatchNorm or Fourier-feature MLP: another
+    network than the plain layers the kernels compute (on either device,
+    before any launch)."""
+    if not getattr(net, "plain", True):
+        raise ValueError("the MLP kernels take a plain MLP (no BatchNorm, "
+                         "no Fourier features); evaluate this one through "
+                         "its own forward, as Problem.evaluate does")
+
+
 def mlp_forward(model, x):
     """``model(x)`` for a plain MLP with a tanh, relu or sigmoid activation
     (or a Perceptron, or a model whose ``net`` is such an MLP): ``x [N,
@@ -105,6 +115,7 @@ def mlp_forward(model, x):
                          "HardConstraint's ansatz around one: pass "
                          "model.net and apply model.ansatz to the result, "
                          "as Problem.evaluate does")
+    _check_plain(getattr(model, "net", model))
     if x.device.type == "cpu":
         return mlp_forward_plain(model, x)
     activation, D, H, L, O, weights = _mlp_view(model)
@@ -165,9 +176,10 @@ def _with_weights(model, weights):
 def _check_streams_model(model):
     """The kernel takes a plain MLP 2 → H×L → O with a tanh, sigmoid or
     relu activation, as the TPU kernel does (taylor_mlp.py:33-57, 166)."""
-    if not isinstance(model, MLP):
+    if not isinstance(model, MLP) or not model.plain:
         raise ValueError(f"heat_fused_streams supports plain MLPs only "
-                         f"(got {type(model).__name__})")
+                         f"(no BatchNorm, no Fourier features; got "
+                         f"{type(model).__name__})")
     if model.activation not in _ACT_KIND:
         raise ValueError(f"heat_fused_streams supports {sorted(_ACT_KIND)} "
                          f"activations, not {model.activation!r}")

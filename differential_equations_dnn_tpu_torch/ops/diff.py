@@ -14,9 +14,35 @@ first-order gradient serve every tap of a residual at one set of points.
 
 Every tap builds its graph (``create_graph=True``) so that the training loss
 differentiates through it, and does so even under ``torch.no_grad()``.
+
+``torch.autograd.grad`` cannot run under ``torch.func`` transforms, which
+the population trainer (parallel/population.py) steps its trials with.
+Inside :func:`functional_taps` the same taps come from ``torch.func.vjp``
+with a one-hot column cotangent, nested for the second derivative: Jᵀ·1
+again, so the numbers are today's route's to fp32 reassociation, for
+plain nets (rows independent) and for BatchNorm nets alike, whose rows
+are coupled through the batch statistics. There the taps are the
+reference's ``torch.autograd.grad(u, x, ones)``; the JAX package's batched
+jvp (J·1) differs (ROADMAP queue 3).
 """
 
+import contextlib
+import contextvars
+
 import torch
+
+_FUNCTIONAL = contextvars.ContextVar("functional_taps", default=False)
+
+
+@contextlib.contextmanager
+def functional_taps():
+    """Take every tap in the block through ``torch.func`` (the route that
+    runs under ``torch.func.vmap`` and ``torch.func.grad``)."""
+    token = _FUNCTIONAL.set(True)
+    try:
+        yield
+    finally:
+        _FUNCTIONAL.reset(token)
 
 
 def _grads(y, x):
@@ -41,12 +67,47 @@ def _leaf(x):
 def coordinate_taps(f, x, first=(), second=()):
     """(f(x), [∂f/∂x_a for a in first], [∂²f/∂x_a² for a in second]) along
     coordinate axes of the last dimension, all from one forward."""
+    if _FUNCTIONAL.get():
+        return _func_taps(f, x, first, second)
     with torch.enable_grad():
         x = _leaf(x)
         y = f(x)
         grads = _grads(y, x)
         return (y, [_column(grads, a) for a in first],
                 [_column(_grads(_column(grads, a), x), a) for a in second])
+
+
+def _onehot(y, c):
+    """The cotangent that picks column ``c`` of ``y [B, k]``."""
+    if y.shape[1] == 1:
+        return torch.ones_like(y)
+    lane = torch.arange(y.shape[1], device=y.device)
+    return (lane == c).to(y.dtype).expand_as(y)
+
+
+def _func_taps(f, x, first, second):
+    """:func:`coordinate_taps` through ``torch.func.vjp``: one forward for
+    the value and the first derivatives, and one more per second-derivative
+    axis (the first derivatives' own vjp)."""
+    from torch.func import vjp
+
+    def grads(z):
+        y, pull = vjp(f, z)
+        return y, [pull(_onehot(y, c))[0] for c in range(y.shape[1])]
+
+    if not second:
+        y, gs = grads(x)
+        return y, [_column(gs, a) for a in first], []
+    seconds = []
+    for a in second:
+        def column_a(z, a=a):
+            y, gs = grads(z)
+            return _column(gs, a), (y, gs)
+
+        ca, pull, (y, gs) = vjp(column_a, x, has_aux=True)
+        seconds.append(_column([pull(_onehot(ca, c))[0]
+                                for c in range(ca.shape[1])], a))
+    return y, [_column(gs, a) for a in first], seconds
 
 
 def value_dt(f, x, t_axis=0):

@@ -62,8 +62,13 @@ def mlp_streams(model, x, second_dirs=(), first_dirs=(), constraints=()):
 
     Row layout: [value | (tan_i, sec_i)·len(second) | tan_j·len(first) |
     constraints]. Returns (u, seconds, firsts_of_seconds, firsts,
-    constraint_values), each entry [B, out_dim].
+    constraint_values), each entry [B, out_dim]. A BatchNorm or
+    Fourier-feature MLP raises a ValueError: the streams follow the plain
+    layers only.
     """
+    if not getattr(model, "plain", True):
+        raise ValueError("Taylor streams take a plain MLP (no BatchNorm, "
+                         "no Fourier features); use the jvp taps")
     name = model.activation
     B = x.shape[0]
     ns, nf, nc = len(second_dirs), len(first_dirs), len(constraints)

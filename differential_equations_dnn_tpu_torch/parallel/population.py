@@ -1,0 +1,385 @@
+"""Population training: P independent trials stepped together.
+
+Counterpart of the JAX package's parallel/population.py, the engine under
+``solve(engine="scan", ensemble=N)``, the population sweeps and the
+ablations, and the replacement of the reference's Ray Tune driver
+(optimize_heat_ray.py:160-203):
+
+* every trial has its own init (``replica_generator(seed, t)``), its own
+  collocation stream (``step_generator(trial_seed(seed, t), i)`` at step
+  i, so its batches depend on neither the population's size nor its other
+  trials), its own learning rate and its own batch size;
+* the trials' parameters are stacked along a leading axis of P and one
+  step advances them all: ``torch.func.vmap`` over ``functional_call`` of
+  the problem's loss, its gradient by ``torch.func.grad_and_value`` (the
+  derivative taps through ``torch.func``: ``ops.diff.functional_taps``);
+* Adam is optax's ``scale_by_adam(0.9, 0.999, 1e-8)`` times the trial's
+  lr (JAX :49-52), written on the stacked tensors, its count and lr device
+  tensors;
+* a trial of batch size bs draws ``max_batch_size`` rows and masks its
+  loss to the first bs (``Problem.loss(..., mask)``); a BatchNorm trial's
+  batch statistics, and its running-statistics refresh after each step,
+  span all the drawn rows (JAX :127-145);
+* on a CUDA device a run of at least GRAPH_STEPS steps captures
+  GRAPH_STEPS population steps once as one CUDA graph and replays it for
+  every whole block of draws (the last, partial block eagerly, with the
+  same bits), by the scan trainer's protocol (``trainer.capture_graph``);
+  a shorter run, and every run on the CPU, steps eagerly. The losses stay
+  on the device until the run ends, so ``chunk_size`` (JAX's chunks pace
+  its dispatches and fetches) changes nothing here. A step that cannot be
+  captured raises, naming the cause: there is no eager fallback.
+  Draws are made on the host, one block at a time, while the card replays
+  the previous one (:func:`draw_trial_batches`).
+
+A trial's ``params`` are its module's parameters and its frozen buffers
+(a Fourier-feature matrix: its gradient is 0, so Adam leaves it, as JAX's
+``stop_gradient`` does); a stateful model's running statistics are its
+``state`` (models/stateful.py). Both are dicts of stacked tensors keyed by
+the module's names; ``opt_state`` is ``{"count" [P], "mu", "nu"}``.
+"""
+
+import copy
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+from torch.func import functional_call, grad_and_value, vmap
+
+from differential_equations_dnn_tpu_torch.core.prng import (
+    replica_generator,
+    step_generator,
+    trial_seed,
+)
+from differential_equations_dnn_tpu_torch.equations.base import Problem
+from differential_equations_dnn_tpu_torch.kernels import build
+from differential_equations_dnn_tpu_torch.models.stateful import (
+    is_stateful,
+    state_names,
+)
+from differential_equations_dnn_tpu_torch.ops.diff import functional_taps
+from differential_equations_dnn_tpu_torch.train.trainer import capture_graph
+
+# Population steps per captured CUDA graph, and per block of host draws.
+# A capture runs each step's Python once (tens of ms a step for a
+# BatchNorm population's second-order taps), so the graph is kept short;
+# a replay costs the same whatever its length.
+GRAPH_STEPS = 32
+
+# Graphs of the population step captured in this process, the host seconds
+# each capture took (its warm-up step included), and their replays.
+graph_stats = {"captures": 0, "capture_seconds": [], "replays": 0}
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+@dataclass(frozen=True)
+class PopulationConfig:
+    iterations: int = 1000
+    max_batch_size: int = 64
+    chunk_size: int = 1000  # JAX's dispatch pacing; no effect here
+    pop_axis: str = "pop"  # the mesh axis (mesh= is not ported)
+
+
+class _Functional(nn.Module):
+    """The problem's loss and the model's running statistics as one
+    module, so that ``functional_call`` swaps a trial's tensors into the
+    model for either."""
+
+    def __init__(self, problem, model):
+        super().__init__()
+        self.problem = problem
+        self.model = model
+
+    def forward(self, what, *args):
+        if what == "loss":
+            batch, mask = args
+            with functional_taps():
+                return self.problem.loss(self.model, batch, mask)
+        return self.model.running_stats(args[0])
+
+
+def _split(model):
+    """(params, state) of one module: its parameters and frozen buffers,
+    and its running statistics, as dicts of detached tensors."""
+    names = set(state_names(model))
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    params.update({k: v.detach() for k, v in model.named_buffers()
+                   if k not in names})
+    state = {k: v.detach() for k, v in model.named_buffers() if k in names}
+    return params, state
+
+
+def init_trials(model, seed: int, n_trials: int, device=None):
+    """The stacked (params, state) of ``n_trials`` trials, trial t drawn
+    by ``model.fresh(replica_generator(seed, t))`` (the JAX package's
+    ``vmap(model.init)(key_chain(...))``); ``state`` is None for a
+    stateless model."""
+    trials = [_split(model.fresh(generator=replica_generator(seed, t)))
+              for t in range(n_trials)]
+    params = {k: torch.stack([p[k] for p, _ in trials]).to(device)
+              for k in trials[0][0]}
+    state = ({k: torch.stack([s[k] for _, s in trials]).to(device)
+              for k in trials[0][1]} if is_stateful(model) else None)
+    return params, state
+
+
+def take_trials(stacked, indices):
+    """Trials ``indices`` of a stacked tree (dicts and lists of [P, ...]
+    tensors or arrays): how halving rungs re-enter their survivors."""
+    if isinstance(stacked, dict):
+        return {k: take_trials(v, indices) for k, v in stacked.items()}
+    if isinstance(stacked, (list, tuple)):
+        return type(stacked)(take_trials(v, indices) for v in stacked)
+    if stacked is None:
+        return None
+    if torch.is_tensor(stacked):
+        return stacked[torch.as_tensor(np.asarray(indices),
+                                       device=stacked.device)]
+    return np.asarray(stacked)[np.asarray(indices)]
+
+
+def trial_model(model, params, t, state=None):
+    """A copy of ``model`` holding trial ``t`` of the stacked ``params``
+    (and ``state``)."""
+    net = copy.deepcopy(model)
+    tensors = {**dict(net.named_parameters()), **dict(net.named_buffers())}
+    with torch.no_grad():
+        for tree in (params, state or {}):
+            for k, v in tree.items():
+                tensors[k].copy_(v[t])
+    return net.to(next(iter(params.values())).device)
+
+
+def trial_opt_state(model, opt_state, t) -> dict:
+    """Trial ``t``'s Adam state as the state_dict that ``train(...,
+    opt_state=)`` resumes from (``trainer.load_opt_state``): its count and
+    its moments of ``model``'s parameters (a :func:`trial_model`), so a
+    trial can go on as a standalone run."""
+    names = [name for name, _ in model.named_parameters()]
+    count = float(opt_state["count"][t])
+    state = {i: {"step": torch.tensor(count),
+                 "exp_avg": opt_state["mu"][name][t].clone(),
+                 "exp_avg_sq": opt_state["nu"][name][t].clone()}
+             for i, name in enumerate(names)}
+    return {"state": state,
+            "param_groups": [{"params": list(range(len(names))),
+                              "count": int(count)}]}
+
+
+def _adam_init(params, n_trials, device):
+    return {"count": torch.zeros(n_trials, device=device),
+            "mu": {k: torch.zeros_like(v) for k, v in params.items()},
+            "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
+
+
+def make_population_step(problem, model, params, state, opt_state, lr,
+                         mask):
+    """The population step: ``step(batch) -> losses [P]`` advances every
+    trial by one Adam step on its ``batch`` rows (each [P, rows, ...])
+    under its ``mask`` row, in place on the stacked ``params``,
+    ``state`` and ``opt_state``; ``lr`` [P] is each trial's learning
+    rate. Nothing in it waits for the device."""
+    fmod = _Functional(problem, model)
+    stateful = state is not None
+
+    def call(p, s, *args):
+        tensors = {f"model.{k}": v for k, v in p.items()}
+        tensors.update({f"model.{k}": v for k, v in (s or {}).items()})
+        return functional_call(fmod, tensors, args)
+
+    loss_grad = vmap(grad_and_value(
+        lambda p, s, batch, m: call(p, s, "loss", batch, m)))
+    stats = vmap(lambda p, s, x: call(p, s, "stats", x))
+    count, mu, nu = opt_state["count"], opt_state["mu"], opt_state["nu"]
+
+    def step(batch):
+        grads, losses = loss_grad(params, state or {}, batch, mask)
+        with torch.no_grad():
+            count.add_(1.0)
+            c1 = 1.0 - torch.pow(B1, count)
+            c2 = 1.0 - torch.pow(B2, count)
+            for k, g in grads.items():
+                view = (-1,) + (1,) * (g.dim() - 1)
+                mu[k].mul_(B1).add_(g, alpha=1.0 - B1)
+                nu[k].mul_(B2).addcmul_(g, g, value=1.0 - B2)
+                u = (mu[k] / c1.view(view)) / (torch.sqrt(nu[k]
+                                                          / c2.view(view))
+                                               + EPS)
+                params[k].sub_(lr.view(view) * u)
+            if stateful:
+                new = stats(params, state, problem.domain_inputs(batch))
+                for k, v in new.items():
+                    state[k].copy_(v)
+        return losses.detach()
+
+    return step
+
+
+def draw_trial_batches(problem, seeds, start, n, size, device):
+    """The batches of steps ``start .. start + n − 1`` of every trial, each
+    ``problem.sample(size, step_generator(seeds[t], i))``, stacked as [n,
+    P, size, ...].
+
+    A problem that keeps ``Problem.sample`` (its batch built row by row
+    from ``[size, n_uniform]`` U[0, 1) draws) draws only those uniforms on
+    the host, one ``torch.rand`` per trial and step from the same
+    generators, moves them in one copy (through pinned memory on a CUDA
+    device) and builds the whole block there in one
+    ``batch_from_uniforms``: the same numbers as the calls of ``sample``,
+    which also builds its batch on the device from host draws. Any other
+    problem samples each (trial, step) on the host and the block is copied
+    once per array."""
+    P = len(seeds)
+    if type(problem).sample is Problem.sample:
+        u = torch.stack([
+            torch.stack([torch.rand((size, problem.n_uniform),
+                                    generator=step_generator(s, i))
+                         for s in seeds])
+            for i in range(start, start + n)])
+        if device.type == "cuda":
+            u = u.pin_memory().to(device, non_blocking=True)
+        batch = problem.batch_from_uniforms(u.reshape(-1, problem.n_uniform))
+        return {k: v.reshape(n, P, size, *v.shape[1:])
+                for k, v in batch.items()}
+    steps = [[problem.sample(size, step_generator(s, i)) for s in seeds]
+             for i in range(start, start + n)]
+    block = {k: torch.stack([torch.stack([b[k] for b in row])
+                             for row in steps])
+             for k in steps[0][0]}
+    if device.type == "cuda":
+        block = {k: v.pin_memory().to(device, non_blocking=True)
+                 for k, v in block.items()}
+    return block
+
+
+class _PopulationGraph:
+    """GRAPH_STEPS population steps captured as one CUDA graph
+    (``trainer.capture_graph``, the scan trainer's protocol, the stacked
+    state put back after its warm-up step): the steps read a static block
+    of draws and write their losses to a static ``[GRAPH_STEPS, P]``
+    buffer."""
+
+    def __init__(self, step, block, tensors, n_trials, name):
+        t0 = time.perf_counter()
+        device = next(iter(block.values())).device
+        self.static = {k: v.clone() for k, v in block.items()}
+        self.losses = torch.empty((GRAPH_STEPS, n_trials), device=device)
+        self.graph = capture_graph(step, self.static, self.losses, tensors,
+                                   f"the population step of {name!r}")
+        build.sync(device)
+        graph_stats["captures"] += 1
+        graph_stats["capture_seconds"].append(time.perf_counter() - t0)
+
+    def replay(self, block):
+        for k, v in block.items():
+            self.static[k].copy_(v)
+        self.graph.replay()
+        graph_stats["replays"] += 1
+        return self.losses.clone()
+
+
+def train_population(problem, model, seed: int, lrates, batch_sizes=None,
+                     config: PopulationConfig | None = None, mesh=None,
+                     params=None, opt_state=None, state=None,
+                     timings: dict | None = None, device="cuda"):
+    """Train ``P = len(lrates)`` trials of ``model``'s architecture
+    together (JAX ``train_population``; its ``key`` is ``seed`` here).
+
+    ``batch_sizes`` (≤ ``config.max_batch_size``; None: all at the max)
+    masks each trial's loss to its own batch. ``params`` / ``opt_state`` /
+    ``state`` (stacked, as returned) resume trials, e.g. a halving rung's
+    survivors through :func:`take_trials`; a stateful model's trials get
+    fresh running statistics unless ``state`` is given. ``model`` itself is
+    not trained. ``timings`` receives ``compile_time`` (on the card, the graph's
+    capture, its warm-up step included), ``run_time`` (the steps, ending in a
+    synchronize) and ``state`` (the trained running statistics, or None).
+
+    Returns (params, opt_state, losses ``[iterations, P]`` numpy).
+    ``device`` defaults to "cuda" and raises without a GPU."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet (ROADMAP.md queue 1, item 14: the "
+            "population sharded over several GPUs)")
+    if getattr(problem, "taps", None) == "pallas":
+        raise NotImplementedError(
+            "Heat1D(taps='pallas') cannot train a population: the "
+            "heat-streams kernel (#3) has no trial axis (ROADMAP.md queue "
+            "2, item 7); use taps='jvp' or 'taylor'")
+    config = config or PopulationConfig()
+    device = build.resolve_device(device)
+    lr = torch.as_tensor(np.asarray(lrates, np.float32), device=device)
+    n_trials = lr.shape[0]
+    max_bs = int(config.max_batch_size)
+    bs = (np.full(n_trials, max_bs) if batch_sizes is None
+          else np.asarray(batch_sizes, np.int64))
+    if bs.shape != (n_trials,) or bs.min() < 1 or bs.max() > max_bs:
+        raise ValueError(f"batch_sizes must be {n_trials} sizes in [1, "
+                         f"{max_bs}] (got {bs.tolist()})")
+    mask = (torch.arange(max_bs, device=device)[None, :]
+            < torch.as_tensor(bs, device=device)[:, None])
+
+    template = copy.deepcopy(model).to(device).train()
+    stateful = is_stateful(template)
+    if params is None:
+        params, fresh_state = init_trials(template, seed, n_trials, device)
+    else:
+        params = {k: v.detach().to(device).clone() for k, v in params.items()}
+        fresh_state = init_trials(template, seed, 1, device)[1]
+        fresh_state = fresh_state and {k: v.expand(n_trials, *v.shape[1:])
+                                       .clone()
+                                       for k, v in fresh_state.items()}
+    if stateful:
+        state = ({k: v.detach().to(device).clone() for k, v in state.items()}
+                 if state is not None else fresh_state)
+    else:
+        state = None
+    if opt_state is None:
+        opt_state = _adam_init(params, n_trials, device)
+    else:
+        opt_state = {"count": opt_state["count"].to(device).float().clone(),
+                     "mu": {k: v.to(device).clone()
+                            for k, v in opt_state["mu"].items()},
+                     "nu": {k: v.to(device).clone()
+                            for k, v in opt_state["nu"].items()}}
+
+    step = make_population_step(problem, template, params, state, opt_state,
+                                lr, mask)
+    tensors = [*params.values(), *(state or {}).values(),
+               opt_state["count"], *opt_state["mu"].values(),
+               *opt_state["nu"].values()]
+    seeds = [trial_seed(seed, t) for t in range(n_trials)]
+    graphs = device.type == "cuda" and config.iterations >= GRAPH_STEPS
+    graph = None
+
+    # On the card, the graph's capture (its warm-up step included).
+    t0 = time.perf_counter()
+    if graphs:
+        block = draw_trial_batches(problem, seeds, 0, GRAPH_STEPS, max_bs,
+                                   device)
+        graph = _PopulationGraph(step, block, tensors, n_trials,
+                                 problem.name)
+    build.sync(device)
+    compile_time = time.perf_counter() - t0
+
+    losses = []
+    t0 = time.perf_counter()
+    for b0 in range(0, config.iterations, GRAPH_STEPS):
+        k = min(GRAPH_STEPS, config.iterations - b0)
+        block = draw_trial_batches(problem, seeds, b0, k, max_bs, device)
+        if graphs and k == GRAPH_STEPS:
+            losses.append(graph.replay(block))
+        else:
+            losses.extend(step({key: v[j] for key, v in block.items()})[None]
+                          for j in range(k))
+    build.sync(device)
+    run_time = time.perf_counter() - t0
+
+    if timings is not None:
+        timings["compile_time"] = compile_time
+        timings["run_time"] = run_time
+        timings["state"] = state
+    losses = (torch.cat(losses).cpu().numpy() if losses
+              else np.zeros((0, n_trials), np.float32))
+    return params, opt_state, losses

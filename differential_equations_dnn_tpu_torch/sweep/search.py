@@ -20,9 +20,15 @@ The batch is a row mask over a compiled tile and the budget a step gate,
 both values of the kernels' argument block, so one captured CUDA graph per
 tile serves every trial. Trials route to the smallest tile of
 ``BUCKET_TILES`` that holds their batch; a trial's collocation stream is
-drawn at its tile's width. The population drivers (``random_search``,
-``successive_halving``, ``tpe_search``, ``tpe_halving``) and the sharded
-rung evaluators are not ported (ROADMAP items 13 and 14).
+drawn at its tile's width.
+
+The population drivers train every trial of a round as one population
+(parallel/population.py) on the scan engine's torch ops, any equation and
+model: :func:`random_search`, :func:`successive_halving` (survivors
+re-enter with their optimizer state), :func:`tpe_search` (rounds of TPE
+proposals) and :func:`tpe_halving`. Every trial trains to the round's
+budget and is scored at its own ``n_iters``. The sharded rung evaluators
+are not ported (ROADMAP item 14).
 """
 
 from dataclasses import dataclass, field
@@ -31,9 +37,18 @@ from typing import Any
 import numpy as np
 import torch
 
+from differential_equations_dnn_tpu_torch.core.prng import (
+    fold_seed,
+    generator,
+)
 from differential_equations_dnn_tpu_torch.kernels import (
     fused_dgm,
     fused_engine,
+)
+from differential_equations_dnn_tpu_torch.parallel.population import (
+    PopulationConfig,
+    take_trials,
+    train_population,
 )
 
 # ---- search-space primitives (Ray-Tune-style) -------------------------------
@@ -102,7 +117,8 @@ class SweepResult:
     configs: list            # per-trial config dicts
     scores: np.ndarray       # [P] final losses (at each trial's own budget)
     losses: np.ndarray | None  # [iters, P] loss curves (None: not kept)
-    params: Any              # [len(param_indices), n] trained flat states
+    params: Any              # [len(param_indices), n] trained flat states;
+                             # a population driver's stacked param dicts
     param_indices: np.ndarray | None = None  # the trials params holds
     unpack: Any = None       # flat state -> its tensors in flat-state order
     best_index: int = field(init=False)
@@ -132,8 +148,9 @@ class SweepResult:
 
     def best_params(self):
         """The best trial's trained tensors in flat-state order
-        (``fused_engine.unpack_state`` / ``fused_dgm.unpack_dgm``), each
-        with a leading axis of 1 (the JAX package's ``take_trials``)."""
+        (``fused_engine.unpack_state`` / ``fused_dgm.unpack_dgm``), or of a
+        population driver its stacked parameter dict, each with a leading
+        axis of 1 (the JAX package's ``take_trials``)."""
         if self.param_indices is None:
             pos = self.best_index
         else:
@@ -143,7 +160,11 @@ class SweepResult:
 
 def take_trial(params, pos, unpack=None):
     """Row ``pos`` of stacked flat states ``[P, n]`` as ``unpack(row)``'s
-    tensors (None: the flat row), each with a leading axis of 1."""
+    tensors (None: the flat row), each with a leading axis of 1; of a
+    population's stacked dicts, those dicts at trial ``pos`` with a leading
+    axis of 1 (``take_trials``)."""
+    if isinstance(params, dict):
+        return take_trials(params, np.array([pos]))
     row = params[pos]
     if unpack is None:
         return row[None]
@@ -594,7 +615,8 @@ def _tpe_brackets(space, seed: int, gamma: float, brackets: int,
 
 
 def _best_row(res):
-    """A result's best trial's flat state, ``[1, n]``."""
+    """A result's best trial's flat state, ``[1, n]`` (a population's
+    stacked dicts at that trial)."""
     return take_trial(res.params, int(np.where(
         res.param_indices == res.best_index)[0][0]))
 
@@ -635,6 +657,218 @@ def tpe_halving_fused(problem, seed: int = 0, num_samples: int = 27,
             batch_size=batch_size, max_batch_size=max_batch_size,
             schedule=schedule, draws=draws, trial_offset=b * per_bracket,
             bucket_tiles=bucket_tiles, precision=precision, device=device)
+
+    return _tpe_brackets(space, sampler_seed, gamma, brackets, num_samples,
+                         inner)
+
+
+# ---- the population drivers (the JAX package's sweep/search.py) ------------
+
+
+def _default_model(problem, model):
+    """The population's architecture: ``model``, or the problem's default
+    (its own weights are not trained: every trial draws its init)."""
+    return model if model is not None else \
+        problem.default_model(generator=generator(0))
+
+
+def _draw(draws, name, n, default, dtype):
+    return np.asarray(draws.get(name, np.full(n, default)), dtype=dtype)
+
+
+def random_search(problem, seed: int = 0, num_samples: int = 10,
+                  space: SearchSpace | None = None, model=None,
+                  sampler_seed: int = 0, mesh=None,
+                  max_batch_size: int = 512, max_iters: int | None = None,
+                  chunk_size: int = 1000, device="cuda") -> SweepResult:
+    """Sample ``num_samples`` configs and train them all as one population
+    (JAX ``random_search``; its ``key`` is ``seed`` here, its ``seed`` the
+    space's ``sampler_seed``). Each trial is scored by its final loss at its
+    own budget, minimised: the reference's metric
+    (optimize_heat_ray.py:157,196)."""
+    _no_mesh(mesh)
+    space = space or heat_search_space()
+    model = _default_model(problem, model)
+    max_batch_size = _clamp_batch_cap(problem, max_batch_size)
+    draws = space.sample(sampler_seed, num_samples)
+    d = problem.defaults
+    lrates = _draw(draws, "lrate", num_samples, d.lrate, np.float32)
+    batch_sizes = _draw(draws, "batch_size", num_samples, d.batch_size,
+                        np.int32)
+    n_iters = _draw(draws, "n_iters", num_samples, d.iterations, np.int64)
+    budget = int(max_iters if max_iters is not None else n_iters.max())
+    n_iters = np.minimum(n_iters, budget)
+    batch_sizes = np.minimum(batch_sizes, max_batch_size)
+
+    config = PopulationConfig(iterations=budget,
+                              max_batch_size=max_batch_size,
+                              chunk_size=chunk_size)
+    params, _, losses = train_population(problem, model, seed, lrates,
+                                         batch_sizes, config=config,
+                                         device=device)
+    scores = losses[n_iters - 1, np.arange(num_samples)]
+    configs = [{"batch_size": int(b), "n_iters": int(i), "lrate": float(l)}
+               for b, i, l in zip(batch_sizes, n_iters, lrates)]
+    return SweepResult(configs=configs, scores=scores, losses=losses,
+                       params=params)
+
+
+def successive_halving(problem, seed: int = 0, num_samples: int = 27,
+                       space: SearchSpace | None = None, model=None,
+                       sampler_seed: int = 0, mesh=None, eta: int = 3,
+                       min_budget: int = 500, max_budget: int | None = None,
+                       max_batch_size: int = 512, chunk_size: int = 500,
+                       draws: dict | None = None,
+                       device="cuda") -> SweepResult:
+    """Synchronous successive halving on populations (JAX
+    ``successive_halving``, the ASHA role of optimize_heat_ray.py:181):
+    train the population to the rung's budget, keep the best 1/eta,
+    continue the survivors with their optimizer state (``take_trials``) at
+    eta× the budget, each rung at seed ``fold_seed(seed, spent)`` (JAX's
+    ``fold_in(key, spent)``). The scheduler owns the budget: a config's
+    ``n_iters`` is the steps its trial trained. ``draws`` (a dict of
+    [num_samples] arrays) overrides the space's draws (how
+    :func:`tpe_halving` injects proposals)."""
+    _no_mesh(mesh)
+    space = space or heat_search_space()
+    model = _default_model(problem, model)
+    max_batch_size = _clamp_batch_cap(problem, max_batch_size)
+    if draws is None:
+        draws = space.sample(sampler_seed, num_samples)
+    d = problem.defaults
+    lrates = _draw(draws, "lrate", num_samples, d.lrate, np.float32)
+    batch_sizes = np.minimum(_draw(draws, "batch_size", num_samples,
+                                   d.batch_size, np.int64),
+                             max_batch_size).astype(np.int32)
+    max_budget = int(max_budget or d.iterations)
+    if eta < 2:
+        raise ValueError(f"halving needs eta >= 2 (got {eta})")
+    min_budget = max(1, min(int(min_budget), max_budget))
+
+    alive = np.arange(num_samples)
+    params = opt_state = None
+    # A single trial has nothing to prune against: its full budget at once.
+    budget = max_budget if num_samples == 1 else min_budget
+    spent = 0
+    last_scores = np.zeros(num_samples)
+    iters_done = np.zeros(num_samples, dtype=np.int64)
+    while True:
+        config = PopulationConfig(iterations=budget - spent,
+                                  max_batch_size=max_batch_size,
+                                  chunk_size=chunk_size)
+        params, opt_state, losses = train_population(
+            problem, model, fold_seed(seed, spent), lrates[alive],
+            batch_sizes[alive], config=config, params=params,
+            opt_state=opt_state, device=device)
+        rung_scores = losses[-1]
+        last_scores[alive] = rung_scores
+        spent = budget
+        iters_done[alive] = spent
+        if budget >= max_budget or len(alive) <= 1:
+            break
+        keep = max(1, len(alive) // eta)
+        order = np.argsort(np.where(np.isfinite(rung_scores), rung_scores,
+                                    np.inf))
+        survivors = order[:keep]
+        alive = alive[survivors]
+        params = take_trials(params, survivors)
+        opt_state = take_trials(opt_state, survivors)
+        budget = min(budget * eta, max_budget)
+
+    configs = [{"batch_size": int(batch_sizes[i]), "lrate": float(lrates[i]),
+                "n_iters": int(iters_done[i])} for i in range(num_samples)]
+    # Pruned trials keep their last rung's score, survivors their final.
+    return SweepResult(configs=configs, scores=np.asarray(last_scores),
+                       losses=None, params=params, param_indices=alive)
+
+
+def tpe_search(problem, seed: int = 0, num_samples: int = 10,
+               space: SearchSpace | None = None, model=None,
+               sampler_seed: int = 0, mesh=None, max_batch_size: int = 512,
+               max_iters: int | None = None, chunk_size: int = 1000,
+               rounds: int = 3, gamma: float = 0.25,
+               device="cuda") -> SweepResult:
+    """TPE on populations (JAX ``tpe_search``, the OptunaSearch half of
+    optimize_heat_ray.py:179-181): ``num_samples`` trials in ``rounds``
+    equal populations, the first the sampler's random bootstrap, each later
+    one its proposals given every earlier score; round r trains at seed
+    ``fold_seed(seed, r)``. Every trial trains to the shared budget
+    (``max_iters`` or the problem's) and is scored at its own ``n_iters``;
+    the result holds the globally best trial's parameters."""
+    from differential_equations_dnn_tpu_torch.sweep.tpe import TPESampler
+
+    _no_mesh(mesh)
+    space = space or heat_search_space()
+    model = _default_model(problem, model)
+    max_batch_size = _clamp_batch_cap(problem, max_batch_size)
+    d = problem.defaults
+    budget = int(max_iters if max_iters is not None else d.iterations)
+    rounds = max(1, min(rounds, num_samples))
+    per_round = -(-num_samples // rounds)
+    sampler = TPESampler(space=space, seed=sampler_seed, gamma=gamma,
+                         n_initial=per_round)
+    config = PopulationConfig(iterations=budget,
+                              max_batch_size=max_batch_size,
+                              chunk_size=chunk_size)
+    all_configs: list[dict] = []
+    all_scores: list[float] = []
+    best_params, best_flat_idx, best_score = None, -1, np.inf
+    r = 0
+    while len(all_configs) < num_samples:
+        proposals = sampler.ask(per_round)
+        lrates = np.asarray([float(c.get("lrate", d.lrate))
+                             for c in proposals], np.float32)
+        batch_sizes = np.asarray(
+            [min(int(c.get("batch_size", d.batch_size)), max_batch_size)
+             for c in proposals], np.int32)
+        n_iters = np.asarray([min(int(c.get("n_iters", budget)), budget)
+                              for c in proposals], np.int64)
+        params, _, losses = train_population(
+            problem, model, fold_seed(seed, r), lrates, batch_sizes,
+            config=config, device=device)
+        scores = losses[n_iters - 1, np.arange(per_round)]
+        resolved = [{"batch_size": int(b), "n_iters": int(i),
+                     "lrate": float(l)}
+                    for b, i, l in zip(batch_sizes, n_iters, lrates)]
+        sampler.tell(resolved, scores)
+        finite = np.where(np.isfinite(scores), scores, np.inf)
+        round_best = int(np.argmin(finite))
+        if finite[round_best] < best_score:
+            best_score = float(finite[round_best])
+            best_flat_idx = len(all_configs) + round_best
+            best_params = take_trials(params, np.array([round_best]))
+        all_configs.extend(resolved)
+        all_scores.extend(float(x) for x in scores)
+        r += 1
+    return SweepResult(configs=all_configs, scores=np.asarray(all_scores),
+                       losses=None, params=best_params,
+                       param_indices=np.array([best_flat_idx]))
+
+
+def tpe_halving(problem, seed: int = 0, num_samples: int = 27,
+                space: SearchSpace | None = None, model=None,
+                sampler_seed: int = 0, mesh=None, eta: int = 3,
+                min_budget: int = 500, max_budget: int | None = None,
+                max_batch_size: int = 512, chunk_size: int = 500,
+                brackets: int = 3, gamma: float = 0.1,
+                device="cuda") -> SweepResult:
+    """TPE proposing each halving bracket's configs, on populations (JAX
+    ``tpe_halving``: OptunaSearch with AsyncHyperBandScheduler,
+    optimize_heat_ray.py:179-181). Bracket b runs
+    :func:`successive_halving` at seed ``fold_seed(seed, b)`` on the
+    sampler's proposals; the best fully trained trial wins."""
+    _no_mesh(mesh)
+    space = space or heat_search_space()
+    model = _default_model(problem, model)
+    max_batch_size = _clamp_batch_cap(problem, max_batch_size)
+
+    def inner(b, per_bracket, draws):
+        return successive_halving(
+            problem, fold_seed(seed, b), num_samples=per_bracket,
+            space=space, model=model, sampler_seed=sampler_seed + b,
+            eta=eta, min_budget=min_budget, max_budget=max_budget,
+            max_batch_size=max_batch_size, chunk_size=chunk_size,
+            draws=draws, device=device)
 
     return _tpe_brackets(space, sampler_seed, gamma, brackets, num_samples,
                          inner)

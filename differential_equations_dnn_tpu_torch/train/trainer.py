@@ -4,10 +4,12 @@ Counterpart of the JAX package's train/trainer.py. One trainer serves every
 equation and model: each step draws a collocation batch, takes
 ``problem.loss`` and its gradient with autograd, and applies one optimizer
 update. The JAX package scans the steps of a chunk inside one jit; here, on
-a CUDA device, GRAPH_STEPS steps are captured once per ``train`` call as one
-CUDA graph (:class:`ScanGraph`) and replayed for every whole block of
-draws, the steps left over run eagerly, and on the CPU every step runs
-eagerly. Further:
+a CUDA device, the steps of a block of GRAPH_STEPS draws (a stateful
+model's: CAPTURE_STEPS of them) are captured once per ``train`` call as one
+CUDA graph (:class:`ScanGraph`) and replayed for every whole block, the
+steps left over run eagerly, and on the CPU every step runs eagerly. A
+stateful model (BatchNorm) refreshes its running statistics inside the
+step, so inside the graph too. Further:
 
 * Step ``i`` draws its batch from ``step_generator(seed, i)``, the
   counterpart of ``fold_in(run_key, i)``: a chunked run equals an uncut
@@ -52,11 +54,23 @@ from differential_equations_dnn_tpu_torch.kernels.engine_core import (
     check_schedule,
     scheduled_lr,
 )
+from differential_equations_dnn_tpu_torch.models.stateful import (
+    is_stateful,
+    update_state,
+)
 
 # Steps whose batches are drawn, pinned and copied to the device together,
 # and the steps of one captured CUDA graph of the scan step.
 DRAW_BLOCK = 256
 GRAPH_STEPS = DRAW_BLOCK
+# Steps of a stateful model's CUDA graph, which a block of GRAPH_STEPS
+# replays GRAPH_STEPS // CAPTURE_STEPS times. A capture runs each step's
+# Python once: about 90 ms a step for a BatchNorm MLP's second-order taps,
+# a quarter of a second for a ResNet's, so their graphs are kept short. A
+# plain model captures the whole block: eight replays of a 32-step graph
+# cost plain heat 709.43 µs a step against 658.15 for one 256-step graph
+# (kernels.profile --scan heat; H100 80GB HBM3, 700 W).
+CAPTURE_STEPS = 32
 
 # Graphs of the scan step captured in this process, the host seconds each
 # capture took (its warm-up step and instantiation included), and their
@@ -140,7 +154,8 @@ class TrainConfig:
 @dataclass
 class TrainResult:
     params: Any                 # the trained model (a list of N for packed
-                                # replicas)
+                                # replicas); a stateful model carries its
+                                # trained running statistics
     opt_state: Any              # scan: the optimizer's state_dict; fused:
                                 # {"m": flat tensor, "v": flat tensor}
     loss_history: np.ndarray    # [iterations] ([N, iterations] packed)
@@ -284,8 +299,14 @@ def make_train_step(problem, model, optimizer, batch_size,
     candidates: the step keeps the ``batch_size`` with the largest current
     ``point_loss`` (computed without gradient, as JAX's stop_gradient) and
     trains on those. ``step.draw_size`` is the number of points a batch
-    must hold."""
+    must hold.
+
+    A stateful model (BatchNorm; models/stateful.py) trains on train-mode
+    batch statistics, and after the update its running statistics are
+    refreshed by one train-mode forward on ``problem.domain_inputs(batch)``
+    with the updated parameters (JAX train/trainer.py:203-211)."""
     oversample = adaptive_oversample > 1
+    stateful = is_stateful(model)
 
     def step(batch):
         if oversample:
@@ -301,6 +322,8 @@ def make_train_step(problem, model, optimizer, batch_size,
         loss = problem.loss(model, batch)
         loss.backward()
         optimizer.step()
+        if stateful:
+            update_state(model, problem.domain_inputs(batch))
         return loss.detach()
 
     step.draw_size = batch_size * adaptive_oversample if oversample \
@@ -322,60 +345,81 @@ def draw_batches(problem, seed, start, n, size, device):
     return block
 
 
-class ScanGraph:
-    """GRAPH_STEPS scan steps captured as one CUDA graph: step j reads batch
-    j of a static device block and writes its loss to slot j of a static
-    ``[GRAPH_STEPS]`` buffer. :meth:`replay` copies a block of draws in,
-    replays, and returns the losses.
+def capture_graph(step, static, losses, kept, what, restore=None):
+    """One CUDA graph of ``len(losses)`` steps: step j reads slice j of
+    the static device block ``static`` and writes its loss to
+    ``losses[j]``. First one warm-up step on a side stream (which creates
+    lazy state, such as the optimizer's, as torch.cuda.graphs asks), then
+    the tensors of ``kept`` are put back and ``restore()`` runs; capture
+    runs nothing. A step that cannot be captured raises, naming ``what``
+    and the cause: there is no eager fallback."""
+    device = losses.device
+    saved = [t.detach().clone() for t in kept]
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        step({k: v[0] for k, v in static.items()})
+    torch.cuda.current_stream(device).wait_stream(side)
+    with torch.no_grad():
+        for t, v in zip(kept, saved):
+            t.copy_(v)
+    if restore is not None:
+        restore()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for j in range(losses.shape[0]):
+                losses[j].copy_(step({k: v[j] for k, v in static.items()}))
+    except Exception as err:
+        raise RuntimeError(f"{what} cannot be captured as a CUDA graph "
+                           f"({type(err).__name__}: {err})") from err
+    return graph
 
-    Capture, from ``block`` (the first block of draws): one warm-up step
-    on a side stream (which creates the optimizer's lazy state, as
-    torch.cuda.graphs asks), then the model's parameters, the optimizer's
+
+class ScanGraph:
+    """GRAPH_STEPS scan steps replayed from one CUDA graph of ``steps``
+    steps (GRAPH_STEPS; a stateful model's CAPTURE_STEPS), captured by
+    :func:`capture_graph` from the first ``steps`` draws of ``block``:
+    step j of the graph reads batch j of a static device block and writes
+    its loss to slot j of a static ``[steps]`` buffer. :meth:`replay`
+    copies each ``steps``-step slice of a block of GRAPH_STEPS draws in,
+    replays, and returns the block's losses. After
+    the warm-up step the model's parameters and buffers, the optimizer's
     state (moments zeroed where the warm-up created them) and the device
-    schedule are put back in place, and the steps are captured; capture runs
-    nothing. A step that cannot be captured raises, naming the cause: there
-    is no eager fallback."""
+    schedule are put back."""
 
     def __init__(self, step, block, model, optimizer, schedule, name):
         t0 = time.perf_counter()
         device = next(iter(block.values())).device
-        self.static = {k: v.clone() for k, v in block.items()}
-        self.losses = torch.empty(GRAPH_STEPS, device=device)
+        self.steps = CAPTURE_STEPS if is_stateful(model) else GRAPH_STEPS
+        self.static = {k: v[:self.steps].clone() for k, v in block.items()}
+        self.losses = torch.empty(self.steps, device=device)
         params = list(model.parameters())
-        saved = [t.detach().clone() for t in params + schedule.state()]
         states = {id(p): {k: v.clone() for k, v in optimizer.state[p].items()
                           if torch.is_tensor(v)}
                   for p in params if optimizer.state.get(p)}
-        first = {k: v[0] for k, v in self.static.items()}
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            step(first)
-        torch.cuda.current_stream(device).wait_stream(side)
-        with torch.no_grad():
-            for t, v in zip(params + schedule.state(), saved):
-                t.copy_(v)
-            for p in params:
-                for key, v in optimizer.state[p].items():
-                    if torch.is_tensor(v):
-                        old = states.get(id(p), {}).get(key)
-                        if old is None:
-                            v.zero_()
-                        else:
-                            v.copy_(old)
-        optimizer.zero_grad(set_to_none=True)
-        before = [f.launches for f in _COUNTED]
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph):
-                for j in range(GRAPH_STEPS):
-                    batch = {k: v[j] for k, v in self.static.items()}
-                    self.losses[j].copy_(step(batch))
-        except Exception as err:
-            raise RuntimeError(
-                f"the scan trainer's step of {name!r} cannot be captured as "
-                f"a CUDA graph ({type(err).__name__}: {err}); a chunk_size "
-                f"below {GRAPH_STEPS} runs every step eagerly") from err
+
+        before = []
+
+        def restore():
+            # The warm-up step's launches count; the capture's do not.
+            before[:] = [f.launches for f in _COUNTED]
+            with torch.no_grad():
+                for p in params:
+                    for key, v in optimizer.state[p].items():
+                        if torch.is_tensor(v):
+                            old = states.get(id(p), {}).get(key)
+                            if old is None:
+                                v.zero_()
+                            else:
+                                v.copy_(old)
+            optimizer.zero_grad(set_to_none=True)
+
+        self.graph = capture_graph(
+            step, self.static, self.losses,
+            params + list(model.buffers()) + schedule.state(),
+            f"the scan trainer's step of {name!r} (a chunk_size below "
+            f"{GRAPH_STEPS} runs every step eagerly)", restore)
         self.launches = [f.launches - b for f, b in zip(_COUNTED, before)]
         for f, b in zip(_COUNTED, before):
             f.launches = b  # captured, not launched
@@ -385,25 +429,21 @@ class ScanGraph:
 
     def replay(self, block):
         """The GRAPH_STEPS steps on ``block``'s batches; their losses."""
-        for k, v in block.items():
-            self.static[k].copy_(v)
-        self.graph.replay()
+        out = torch.empty(GRAPH_STEPS, device=self.losses.device)
+        for s in range(0, GRAPH_STEPS, self.steps):
+            for k, v in block.items():
+                self.static[k].copy_(v[s:s + self.steps])
+            self.graph.replay()
+            out[s:s + self.steps].copy_(self.losses)
         for f, n in zip(_COUNTED, self.launches):
-            f.launches += n
+            f.launches += n * (GRAPH_STEPS // self.steps)
         graph_stats["replays"] += 1
-        return self.losses.clone()
+        return out
 
 
 # ---------------------------------------------------------------------------
 # The training loop
 # ---------------------------------------------------------------------------
-
-
-def _check_stateless(model) -> None:
-    if any(True for _ in model.buffers()):
-        raise NotImplementedError(
-            "models with running state (BatchNorm) are not ported yet "
-            "(ROADMAP.md queue 1, item 13: models/stateful.py)")
 
 
 def _snapshot(model, optimizer):
@@ -436,8 +476,9 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
     (:class:`ScanGraph`, captured once per call) and the rest run eagerly,
     with the same bits: a ``chunk_size`` below GRAPH_STEPS runs every step
     eagerly.
-    ``compile_time`` is the kernel build, one warm-up step on copies of the
-    model and optimizer state, and the graph's capture; ``wall_time`` and
+    ``compile_time`` is one warm-up step on copies of the model and
+    optimizer state (with the build of the kernels the step launches, if
+    it launches any) and the graph's capture; ``wall_time`` and
     ``iters_per_sec`` cover the training steps only, ending in
     ``torch.cuda.synchronize()``. ``profile_dir`` writes a
     ``torch.profiler`` trace of the run there. ``device`` defaults to
@@ -454,8 +495,7 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
     device = build.resolve_device(device)
     if model is None:
         model = problem.default_model(generator=generator(seed))
-    _check_stateless(model)
-    model.to(device)
+    model.to(device).train()
     optimizer = make_optimizer(config, model.parameters())
     if opt_state is not None:
         load_opt_state(optimizer, opt_state)
@@ -486,10 +526,9 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
                 schedule.count_steps(k)
         return torch.cat(losses).cpu().numpy()
 
-    # Warm-up: the kernel build and one step on copies of the state.
+    # Warm-up: one step on copies of the state (it builds the kernels the
+    # step launches, if any).
     t0 = time.perf_counter()
-    if device.type == "cuda":
-        build.library()
     warm_model = copy.deepcopy(model)
     warm_opt = make_optimizer(config, warm_model.parameters())
     warm_opt.load_state_dict(copy.deepcopy(optimizer.state_dict()))

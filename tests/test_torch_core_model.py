@@ -120,10 +120,15 @@ def test_init_bounds_match_jax_package():
 
 
 def test_mlp_rejects_unported_variants():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MLP(batch_norm="pre")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MLP(fourier_features=8)
+    """Since item 13 the BatchNorm and Fourier-feature MLPs are ported:
+    they build (no bias but fc_out's under BatchNorm; the Fourier matrix a
+    frozen buffer), and an unknown placement raises the JAX ValueError."""
+    bn = MLP(batch_norm="pre")
+    assert bn.stateful and bn.fc_in.b is None and bn.fc_out.b is not None
+    ff = MLP(fourier_features=8)
+    assert ff.fc_in.w.shape[0] == 16 and not ff.plain
+    with pytest.raises(ValueError, match="batch_norm"):
+        MLP(batch_norm="middle")
     assert MLP(activation="swish").activation == "relu"
 
 

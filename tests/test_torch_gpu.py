@@ -42,7 +42,7 @@ from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
 from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
     taylor_mlp,
 )
-from differential_equations_dnn_tpu_torch.models import MLP  # noqa: E402
+from differential_equations_dnn_tpu_torch.models import MLP, ResNet  # noqa: E402
 from differential_equations_dnn_tpu_torch.ops import (  # noqa: E402
     stride_strata,
 )
@@ -538,7 +538,7 @@ def test_scan_losses_match_cpu(cuda, name, kw):
 
 def test_scan_solve_goes_through_the_streams_kernel(cuda):
     """``solve("heat", taps="pallas")`` on the scan engine launches kernel
-    #3 once per step plus the two warm-ups (the build's and the CUDA graph
+    #3 once per step plus the two warm-ups (train's and the CUDA graph
     capture's: 256 of the 300 steps replay the graph), #2 once, no fused
     trainer, and trains."""
     counters = (taylor_mlp.mlp_forward, taylor_mlp.heat_fused_streams,
@@ -1917,3 +1917,216 @@ def test_sweep_drivers_on_the_card(cuda):
     res = sweep.tpe_halving_fused(heat, num_samples=6, min_budget=100,
                                   max_budget=300, brackets=2)
     assert np.isfinite(res.best_score)
+
+
+# ---------------------------------------------------------------------------
+# The population tier (parallel/population.py; chip_smoke.py's population
+# phase, cases (a)-(f), at smaller sizes)
+# ---------------------------------------------------------------------------
+
+
+def _pop_standalone(prob, model, segments, lr, bs):
+    """A trial run alone as chained ``train()`` calls, one per population
+    it trained in: ``segments`` [(population seed, trial index, steps)],
+    the first also giving its init; each on the trial's stream in that
+    population, at its lr and batch bs, the Adam state carried. Returns
+    (its init, the trained model, the loss history)."""
+    from differential_equations_dnn_tpu_torch.core.prng import trial_seed
+
+    seed0, t0, _ = segments[0]
+    net = model.fresh(generator=replica_generator(seed0, t0), device="cuda")
+    init = {k: v.detach().clone() for k, v in net.named_parameters()}
+    opt_state, losses = None, []
+    for seed, t, steps in segments:
+        res = trainer.train(prob, trial_seed(seed, t), trainer.TrainConfig(
+            iterations=steps, batch_size=bs, lrate=lr, verbose=False),
+            model=net, opt_state=opt_state)
+        opt_state = res.opt_state
+        losses.append(res.loss_history)
+    return init, net, np.concatenate(losses)
+
+
+def _assert_winner_params(params, init, net, rtol=1e-2):
+    """A population winner's parameters (a stack of 1) against its
+    standalone run's: per tensor, the largest gap at most ``rtol`` of the
+    largest distance the standalone run moved the tensor."""
+    for k, v in net.named_parameters():
+        moved = float((v.detach() - init[k]).abs().max())
+        gap = float((params[k][0] - v.detach()).abs().max())
+        assert gap <= rtol * moved, (k, gap, moved)
+
+
+def test_population_graph_equals_eager(cuda, monkeypatch):
+    """A run of whole graph blocks replayed against the same steps run
+    eagerly (GRAPH_STEPS raised above the run's length): bit for bit,
+    losses, parameters, Adam state and BatchNorm statistics, for a plain
+    and a pre-BN MLP."""
+    from differential_equations_dnn_tpu_torch.parallel import (
+        PopulationConfig,
+        population,
+        train_population,
+    )
+
+    G = population.GRAPH_STEPS
+    lrs = np.array([1e-3, 3e-3, 1e-4, 2e-3], np.float32)
+    for bn in (None, "pre"):
+        model = MLP(2, 1, 32, 2, "tanh", bn, generator=generator(0))
+        runs = []
+        for graph_steps in (G, 4 * G):
+            monkeypatch.setattr(population, "GRAPH_STEPS", graph_steps)
+            captures = population.graph_stats["captures"]
+            timings = {}
+            out = train_population(
+                Heat1D(), model, 3, lrs, [64, 17, 5, 40],
+                PopulationConfig(iterations=2 * G, max_batch_size=64),
+                timings=timings)
+            assert (population.graph_stats["captures"] - captures
+                    == (graph_steps == G))
+            runs.append((out, timings["state"]))
+        (pa, oa, la), sa = runs[0]
+        (pb, ob, lb), sb = runs[1]
+        np.testing.assert_array_equal(la, lb)
+        for tree_a, tree_b in ((pa, pb), (oa["mu"], ob["mu"]),
+                               (oa["nu"], ob["nu"]), (sa or {}, sb or {})):
+            for k in tree_a:
+                assert torch.equal(tree_a[k], tree_b[k]), k
+
+
+def test_population_step_that_cannot_be_captured_raises(cuda):
+    """A loss that waits for the card (a synchronize; a host read of a
+    number would already fail under vmap) cannot be captured: the
+    population raises, naming the cause, and does not fall back."""
+    from differential_equations_dnn_tpu_torch.parallel import (
+        PopulationConfig,
+        population,
+        train_population,
+    )
+
+    class Syncing(Heat1D):
+        def loss(self, model, batch, mask=None):
+            torch.cuda.synchronize()  # waits for the card: illegal in capture
+            return super().loss(model, batch, mask)
+
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        train_population(Syncing(), MLP(2, 1, 8, 1, "tanh"), 0,
+                         [1e-3, 1e-3], config=PopulationConfig(
+                             iterations=population.GRAPH_STEPS,
+                             max_batch_size=16,
+                             chunk_size=population.GRAPH_STEPS))
+
+
+def test_population_trial_equals_standalone_train(cuda):
+    """(a) at a smaller size: batch_size_effect's unmasked trial against a
+    standalone train() of its init, stream and lr, to fp32 reassociation
+    (losses rtol 1e-3 over 300 steps)."""
+    from differential_equations_dnn_tpu_torch.sweep import batch_size_effect
+
+    heat = Heat1D()
+    res = batch_size_effect(heat, seed=1, batch_sizes=[1, 8, 64], runs=2,
+                            iterations=300)
+    assert res.all_losses.shape == (3, 2, 300)
+    assert np.all(np.isfinite(res.all_losses))
+    _, _, want = _pop_standalone(heat, heat.default_model(), [(1, 4, 300)],
+                                 1e-4, 64)
+    np.testing.assert_allclose(res.all_losses[2, 0], want, rtol=1e-3)
+
+
+def test_batchnorm_population_and_train(cuda):
+    """(b): the three BatchNorm populations finite; a pre-BN train() moves
+    its statistics, and its eval-mode grid differs from the train-mode
+    forward."""
+    from differential_equations_dnn_tpu_torch.sweep import batchnorm_effect
+
+    heat = Heat1D()
+    res = batchnorm_effect(heat, seed=0, runs=2, iterations=200,
+                           hidden_size=32, num_layers=2)
+    assert res.labels == ["none", "pre", "post"]
+    assert np.all(np.isfinite(res.all_losses))
+    m = MLP(2, 1, 32, 2, "relu", "pre", generator=generator(0), device=cuda)
+    trainer.train(heat, 0, trainer.TrainConfig(iterations=300, batch_size=64,
+                                               verbose=False), model=m)
+    assert float(m.bn.mean.abs().max()) > 1e-3
+    grid = heat.evaluate(m, 10)
+    with torch.no_grad():
+        raw = m(heat.grid_inputs(10, cuda)).cpu().numpy().reshape(10, 10)
+    assert np.all(np.isfinite(grid)) and np.max(np.abs(grid - raw)) > 1e-4
+
+
+def test_scan_ensemble_and_fourier_solves(cuda):
+    """(c), (d) short: a scan-engine ensemble picks a finite replica, its
+    grid through kernel #2 once; FitzHugh–Nagumo's fourier_mlp solves on
+    the scan trainer without a kernel."""
+    taylor_mlp.mlp_forward.launches = 0
+    res = solve("heat", engine="scan", ensemble=4, iterations=600, seed=0)
+    assert np.isfinite(res.mae) and taylor_mlp.mlp_forward.launches == 1
+    assert res.loss_history.shape == (600,)
+    res = solve("fitzhugh_nagumo", arch="fourier_mlp", iterations=600,
+                seed=42)
+    assert np.isfinite(res.mae) and taylor_mlp.mlp_forward.launches == 1
+
+
+def test_population_sweeps_on_the_card(cuda):
+    """(e) short: the winners of random search and of halving (two rungs,
+    the survivors carried by ``take_trials`` at the rung's seed
+    ``fold_seed(seed, spent)``) against their chained standalone runs:
+    the score to rtol 1e-3, the returned ``best_params()`` within 1e-2 of
+    the distance each tensor moved; TPE's winner finite."""
+    from differential_equations_dnn_tpu_torch.core.prng import fold_seed
+    from differential_equations_dnn_tpu_torch.sweep import search
+
+    heat = Heat1D()
+    res = search.random_search(heat, 2, num_samples=4, max_iters=300)
+    t, cfg = res.best_index, res.best_config
+    init, net, want = _pop_standalone(heat, heat.default_model(),
+                                      [(2, t, 300)], cfg["lrate"],
+                                      cfg["batch_size"])
+    n = cfg["n_iters"]
+    np.testing.assert_allclose(res.best_score, want[n - 1], rtol=1e-3)
+    _assert_winner_params(res.best_params(), init, net)
+    res = search.successive_halving(heat, 2, num_samples=4, eta=2,
+                                    min_budget=100, max_budget=200)
+    assert sorted(c["n_iters"] for c in res.configs) == [100, 100, 200, 200]
+    t, cfg = res.best_index, res.best_config
+    j = int(np.flatnonzero(res.param_indices == t)[0])
+    init, net, want = _pop_standalone(
+        heat, heat.default_model(),
+        [(fold_seed(2, 0), t, 100), (fold_seed(2, 100), j, 100)],
+        cfg["lrate"], cfg["batch_size"])
+    np.testing.assert_allclose(res.best_score, want[-1], rtol=1e-3)
+    _assert_winner_params(res.best_params(), init, net)
+    res = search.tpe_search(heat, 2, num_samples=4, rounds=2, max_iters=200)
+    assert np.isfinite(res.best_score)
+    assert res.best_params()["fc_in.w"].shape[0] == 1
+
+
+def test_scan_ensemble_is_reproducible_across_processes(cuda, tmp_path):
+    """``solve("heat", engine="scan", ensemble=8)`` at seed 0 (1 024
+    steps) gives the same loss history and MAE in two fresh processes,
+    bit for bit."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = ("import json, sys; from differential_equations_dnn_tpu_torch "
+            "import solve; r = solve('heat', engine='scan', ensemble=8, "
+            "iterations=1024, seed=0); json.dump({'mae': r.mae, 'losses': "
+            "r.loss_history.tolist()}, open(sys.argv[1], 'w'))")
+    runs = []
+    for i in range(2):
+        out = tmp_path / f"run{i}.json"
+        subprocess.run([sys.executable, "-c", code, str(out)], check=True,
+                       cwd=str(Path(__file__).resolve().parents[1]),
+                       timeout=600)
+        runs.append(json.loads(out.read_text()))
+    assert runs[0] == runs[1]
+
+
+def test_resnet_trains_on_the_scan_engine(cuda):
+    """(f) short: a ResNet's loss falls, its eval-mode grid is finite."""
+    heat = Heat1D()
+    net = ResNet(generator=generator(0), device=cuda)
+    res = trainer.train(heat, 0, trainer.TrainConfig(
+        iterations=512, batch_size=64, verbose=False), model=net)
+    assert res.loss_history[-50:].mean() < res.loss_history[:50].mean()
+    assert np.all(np.isfinite(heat.evaluate(net, 10)))
