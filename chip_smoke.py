@@ -129,6 +129,19 @@ Phases (each raises on failure, so any failure exits non-zero):
    printed. Since PR 15 heat's two scan solves run SCAN_HEAT_STEPS steps
    (under their MAE bound), the other scan solves run whole scan-graph
    blocks, and phase 3's bf16 1 000-step timings take one call per turn.
+   Then the mesh phase (parallel/): a one-rank NCCL group in
+   this process, each sharded driver against its unsharded call: (a)
+   solve("wave", engine="fused", ensemble=8, mesh=make_mesh({"pop": 1}))
+   at wave's reference width, depth and budget, under its bound, its
+   replicas bit for bit the packed ensemble's; (b) FitzHugh–Nagumo's DGM
+   ensemble (kernel #5) bit for bit the sequential runs of mesh=None
+   (kernel #4); (c) fused halving on heat and on Fredholm with a
+   batch-size space, sharded rungs against packed rungs (bit for bit
+   where the tiles match, MESH_TILE_RTOL where they differ); (d)
+   data-parallel train() of heat, jvp and pallas taps (kernel #3), with
+   the NCCL all-reduce inside the captured graph, bit for bit; (e) a
+   population on {"pop": 1}, bit for bit; (f) dryrun_multichip(1). Each
+   check prints its launches.
 5. result   — the smoke's total seconds, a JSON line of the kernels,
               then as the last line {"ok": true, "device": {...}}.
 """
@@ -2756,6 +2769,245 @@ def phase_population_card(launches):
           f"captured, {pop.graph_stats['replays']} replays in all")
 
 
+# The mesh phase (parallel/): one rank of NCCL in this
+# process (the card's machine has one GPU; two NCCL ranks cannot share a
+# card), each sharded driver held to its unsharded call. (a) wave's
+# sharded ensemble of 8 at its reference width, depth and budget through
+# solve(mesh=), under wave's bound; (b) FitzHugh–Nagumo's DGM ensemble of
+# MESH_DGM_REPLICAS over MESH_DGM_STEPS against the sequential whole runs
+# of mesh=None; (c) fused halving on heat (its reference space) and on
+# Fredholm with a batch-size space, MESH_HALVING's rungs; (d) data-parallel
+# train() of heat, jvp and pallas taps (kernel #3), MESH_TRAIN_STEPS steps
+# with the graph; (e) a population of MESH_POP_TRIALS x MESH_POP_STEPS;
+# (f) dryrun_multichip(1).
+MESH_DGM_REPLICAS, MESH_DGM_STEPS = 4, 2000
+MESH_HALVING = dict(num_samples=8, eta=2, min_budget=250, max_budget=1000)
+MESH_TRAIN_STEPS = 1024
+MESH_POP_TRIALS, MESH_POP_STEPS = 8, 256
+# (c) With a mesh the rungs run on one tile, the sweep's largest batch
+# rounded up to 64 rows (the JAX package's design), without one on the
+# smallest bucket tile that holds each trial's batch. A trial whose tiles
+# match is held bit for bit. One whose tiles differ trains on the same
+# rows (a tile's first rows are the narrower tile's: the draws are hashed
+# per lane) with its masked rows adding zeros, so only the order of the
+# loss's and the gradients' sums over the rows differs: fp32
+# reassociation, carried by Adam over at most max_budget steps, as the
+# population phase's POP_RTOL holds a trial against its standalone run.
+MESH_TILE_RTOL = POP_RTOL
+
+
+def phase_mesh():
+    """The sharded drivers at one rank against their unsharded calls (see
+    MESH_* above); each check's kernel launches printed. Returns them."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from differential_equations_dnn_tpu_torch import solve
+    from differential_equations_dnn_tpu_torch.equations import (
+        FitzHughNagumo,
+        Fredholm2,
+        Heat1D,
+        Wave1D,
+    )
+    from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
+    from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
+    from differential_equations_dnn_tpu_torch.parallel import (
+        PopulationConfig,
+        make_mesh,
+        train_population,
+    )
+    from differential_equations_dnn_tpu_torch.parallel.dryrun import (
+        dryrun_multichip,
+    )
+    from differential_equations_dnn_tpu_torch.sweep import (
+        BUCKET_TILES,
+        SearchSpace,
+        halving_search_fused,
+        loguniform,
+        randint,
+    )
+    from differential_equations_dnn_tpu_torch.sweep.search import _tiles_for
+    from differential_equations_dnn_tpu_torch.train import trainer
+    from differential_equations_dnn_tpu_torch.train import (
+        TrainConfig,
+        train,
+    )
+
+    launches = {}
+
+    def run(label, fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[label] = read_counts()
+        print(f"mesh {label}: {time.perf_counter() - t0:.2f} s; launches "
+              + (", ".join(f"{k} {v}" for k, v in launches[label].items()
+                           if v) or "none"))
+        return out
+
+    def flat(models):
+        return torch.stack([torch.cat([p.detach().reshape(-1)
+                                       for p in m.parameters()])
+                            for m in models])
+
+    def same(label, got, want):
+        for i, pair in enumerate(zip(got, want)):
+            a, b = (x.cpu() if torch.is_tensor(x)
+                    else torch.as_tensor(np.asarray(x)) for x in pair)
+            if not torch.equal(a, b):
+                raise AssertionError(f"mesh {label}: output {i} differs from "
+                                     f"the unsharded call (max "
+                                     f"{max_abs(a, b):.3g})")
+
+    pop = make_mesh({"pop": 1})
+    data = make_mesh({"data": 1})
+    print(f"mesh: one-rank NCCL group ({dist.get_backend()}, NCCL "
+          f"{'.'.join(map(str, torch.cuda.nccl.version()))}), meshes "
+          f"{dict(zip(pop.mesh_dim_names, pop.shape))} and "
+          f"{dict(zip(data.mesh_dim_names, data.shape))}")
+    try:
+        # (a) wave x 8 through solve(mesh=): the sharded ensemble's training
+        # outputs, captured as solve receives them, against the packed one.
+        wave = Wave1D()
+        d = wave.defaults
+        caught = {}
+        sharded = fe.train_fused_ensemble
+
+        def catch(*args, **kw):
+            caught["out"] = sharded(*args, **kw)
+            return caught["out"]
+
+        fe.train_fused_ensemble = catch
+        try:
+            res = run("(a) solve wave ensemble=8 pop mesh", lambda: solve(
+                "wave", engine="fused", ensemble=8, mesh=pop, seed=0))
+        finally:
+            fe.train_fused_ensemble = sharded
+        packed = run("(a) wave packed ensemble",
+                     lambda: fe.train_fused_ensemble_packed(
+                         wave, 0, d.iterations, 8, batch_size=d.batch_size,
+                         lrate=d.lrate, schedule=d.schedule))
+        models, losses = caught["out"]
+        same("(a) wave x 8", (losses, flat(models)),
+             (packed.loss_history, flat(packed.params)))
+        bound = dict((e, b) for e, _, b in ENSEMBLES)["wave"]
+        print(f"(a) solve('wave', ensemble=8, mesh={{'pop': 1}}): MAE "
+              f"{res.mae:.6g} (bound {bound}), {res.iters_per_sec:.1f} "
+              f"population steps/s; the 8 replicas' losses and parameters "
+              f"equal the packed ensemble's bit for bit")
+        if not (res.mae < bound and losses.shape == (8, d.iterations)):
+            raise AssertionError(f"(a) wave x 8 on a mesh: MAE {res.mae}")
+
+        # (b) FitzHugh–Nagumo's DGM ensemble: sharded (packed) against the
+        # sequential whole runs of mesh=None.
+        fn = FitzHughNagumo(causal_eps=0.0)
+        kw = dict(batch_size=fn.defaults.batch_size, lrate=fn.defaults.lrate)
+        got = run("(b) fitzhugh_nagumo dgm ensemble pop mesh",
+                  lambda: fd.train_dgm_fused_ensemble(
+                      fn, 0, MESH_DGM_STEPS, MESH_DGM_REPLICAS, mesh=pop,
+                      **kw))
+        want = run("(b) fitzhugh_nagumo dgm ensemble sequential",
+                   lambda: fd.train_dgm_fused_ensemble(
+                       fn, 0, MESH_DGM_STEPS, MESH_DGM_REPLICAS, **kw))
+        same("(b) fitzhugh_nagumo", (got[1], flat(got[0])),
+             (want[1], flat(want[0])))
+        print(f"(b) FitzHugh–Nagumo x {MESH_DGM_REPLICAS}, {MESH_DGM_STEPS} "
+              f"steps: sharded equals sequential bit for bit (final losses "
+              f"{[f'{x:.4g}' for x in got[1][:, -1]]})")
+
+        # (c) fused halving, sharded rungs against packed rungs.
+        fred = Fredholm2(quadrature="gauss", k=16)
+        for label, prob, extra, floor in (
+                ("heat", Heat1D(), {}, 1),
+                ("fredholm", fred, dict(space=SearchSpace({
+                    "lrate": loguniform(1e-4, 1e-1),
+                    "batch_size": randint(16, 512)})), 64)):
+            got = run(f"(c) halving {label} pop mesh",
+                      lambda: halving_search_fused(prob, seed=0, mesh=pop,
+                                                   **MESH_HALVING, **extra))
+            want = run(f"(c) halving {label}", lambda: halving_search_fused(
+                prob, seed=0, **MESH_HALVING, **extra))
+            if (got.best_index != want.best_index or not np.array_equal(
+                    got.param_indices, want.param_indices)
+                    or got.configs != want.configs):
+                raise AssertionError(f"(c) halving {label}: the rungs kept "
+                                     f"other trials on the mesh")
+            tiles = _tiles_for(511, BUCKET_TILES, floor)
+            top = tiles[-1]
+            exact, worst = 0, 0.0
+            for t, cfg in enumerate(got.configs):
+                tile = next(x for x in tiles if x >= cfg["batch_size"])
+                a, b = got.scores[t], want.scores[t]
+                if tile == top:
+                    exact += 1
+                    if a != b:
+                        raise AssertionError(f"(c) halving {label}: trial "
+                                             f"{t} (tile {tile}) differs")
+                else:
+                    worst = max(worst, abs(a - b) / abs(b))
+            if worst > MESH_TILE_RTOL:
+                raise AssertionError(f"(c) halving {label}: a trial on "
+                                     f"another tile parts by {worst:.3g}")
+            pos = int(np.where(got.param_indices == got.best_index)[0][0])
+            if next(x for x in tiles if x >= got.best_config["batch_size"]) \
+                    == top:
+                check_same(f"(c) halving {label}", "the winner's states",
+                           got.params[pos], want.params[pos])
+            print(f"(c) halving {label}: the same winner (trial "
+                  f"{got.best_index}, score {got.best_score:.6g}) and "
+                  f"survivors; {exact} trials on the mesh's tile {top} bit "
+                  f"for bit, the others within {worst:.3g} (rtol "
+                  f"{MESH_TILE_RTOL})")
+
+        # (d) data-parallel train() with the graph, jvp and pallas taps.
+        cfg = TrainConfig(iterations=MESH_TRAIN_STEPS, batch_size=64,
+                          lrate=1e-4, verbose=False)
+        for taps in ("jvp", "pallas"):
+            prob = Heat1D(taps=taps)
+            before = dict(trainer.graph_stats)
+            got = run(f"(d) train heat {taps} data mesh",
+                      lambda: train(prob, 0, cfg, mesh=data))
+            captures = trainer.graph_stats["captures"] - before["captures"]
+            want = run(f"(d) train heat {taps}", lambda: train(prob, 0, cfg))
+            same(f"(d) train heat {taps}",
+                 (got.loss_history, flat([got.params])),
+                 (want.loss_history, flat([want.params])))
+            if captures != 1:
+                raise AssertionError(f"(d) {taps}: {captures} graphs "
+                                     f"captured")
+            print(f"(d) train(Heat1D(taps={taps!r}), mesh={{'data': 1}}): "
+                  f"{MESH_TRAIN_STEPS} steps, the step with its NCCL "
+                  f"all-reduce captured in one CUDA graph; "
+                  f"{got.iters_per_sec:.1f} it/s against "
+                  f"{want.iters_per_sec:.1f} without a mesh; bit for bit")
+        if launches["(d) train heat pallas data mesh"][
+                "heat_fused_streams"] <= 0:
+            raise AssertionError("(d) pallas taps did not launch kernel #3")
+
+        # (e) a population sharded over pop.
+        heat = Heat1D()
+        lrs = np.geomspace(1e-4, 1e-2, MESH_POP_TRIALS)
+        pc = PopulationConfig(iterations=MESH_POP_STEPS, max_batch_size=64)
+        model = heat.default_model()
+        got = run("(e) population pop mesh", lambda: train_population(
+            heat, model, 0, lrs, config=pc, mesh=pop))
+        want = run("(e) population", lambda: train_population(
+            heat, model, 0, lrs, config=pc))
+        same("(e) population", (got[2], *got[0].values()),
+             (want[2], *want[0].values()))
+        print(f"(e) population of {MESH_POP_TRIALS} x {MESH_POP_STEPS} "
+              f"steps on {{'pop': 1}}: bit for bit")
+
+        # (f) the multi-rank dry run at this world's one rank.
+        run("(f) dryrun_multichip(1)", lambda: dryrun_multichip(1))
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def timed(phase, *args):
     """``phase(*args)``, its seconds printed after it."""
     t0 = time.perf_counter()
@@ -2780,6 +3032,7 @@ def main():
     launches = timed(phase_solve)
     launches[("sweep",)], sweep_shapes = timed(phase_sweep)
     timed(phase_population_card, pop_launches)
+    timed(phase_mesh)
     # Launches from each kernel's own path: #2 and #1 from constant-lr
     # heat, #3 from the scan solve of heat with pallas taps, #6 and #4 from
     # heat2d, #7 and #4 at the DGM layout from

@@ -25,7 +25,8 @@ plain MLP runs the MLP-forward kernel.
                    ``opt_state_from_jax``), the L-BFGS polish, the MAE
                    metric
 * ``kernels``    — the CUDA kernels' wrappers, plain versions and build
-* ``parallel``   — population training: P trials stepped together
+* ``parallel``   — population training (P trials stepped together) and
+                   meshes over ``torch.distributed`` ranks (``mesh=``)
 * ``sweep``      — hyperparameter search on the fused tier (TPE, successive
                    halving, TPE × halving, every trial inside the kernels)
                    and on populations (random, halving, TPE, TPE ×

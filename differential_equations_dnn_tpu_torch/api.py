@@ -38,6 +38,10 @@ from differential_equations_dnn_tpu_torch.parallel import (
     train_population,
     trial_model,
 )
+from differential_equations_dnn_tpu_torch.parallel.mesh import (
+    as_mesh,
+    mesh_device,
+)
 from differential_equations_dnn_tpu_torch.train import (
     TrainConfig,
     TrainResult,
@@ -123,10 +127,12 @@ def _polish(problem, model, loss_history, steps, seed):
     return model, np.concatenate([loss_history, ft_losses])
 
 
-def _train_scan_population(problem, model, seed, config, n_trials, device):
+def _train_scan_population(problem, model, seed, config, n_trials, device,
+                           mesh=None):
     """``ensemble=N`` on the scan engine (JAX api.py:299-321): N trials of
     ``model``'s architecture as one population at the config's lr and
-    batch. Returns a TrainResult whose
+    batch, sharded over ``mesh``'s ``pop`` axis if given. Returns a
+    TrainResult whose
     params are the N trained models and whose loss history is [N,
     iterations]; ``iters_per_sec`` counts population steps."""
     timings = {}
@@ -134,8 +140,8 @@ def _train_scan_population(problem, model, seed, config, n_trials, device):
                           max_batch_size=config.batch_size)
     stacked, opt_state, losses = train_population(
         problem, model, seed, np.full(n_trials, config.lrate, np.float32),
-        config=pc, timings=timings, device=device)
-    template = model.to(device).train()
+        config=pc, mesh=mesh, timings=timings, device=device)
+    template = model.to(next(iter(stacked.values())).device).train()
     models = [trial_model(template, stacked, t, timings["state"])
               for t in range(n_trials)]
     wall = timings["run_time"]
@@ -260,7 +266,16 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
     statistics are refreshed on 1 024 validation points from ``seed + 2``,
     as in the JAX package. ``device`` defaults to "cuda" and raises
     without a GPU; "cpu" runs the kernels' plain PyTorch versions.
-    ``mesh`` (sharded ensembles) is not ported.
+
+    ``mesh`` (parallel/mesh.py's mesh, or an ``{axis: size}`` dict made
+    into one on ``device``) spreads the run over the ranks of a process
+    group, each of which calls ``solve`` (JAX api.py:246-372): a fused
+    ensemble shards its replicas over the mesh's ``pop`` axis
+    (``fused_engine.train_fused_ensemble``,
+    ``fused_dgm.train_dgm_fused_ensemble``), a scan ensemble its trials
+    (``train_population``), and a single scan run trains data-parallel
+    over its ``data`` axis (``train``). A single fused run is one kernel
+    and raises. Every rank returns the same result, on its own device.
     """
     check_precision(precision)
     problem = (get_problem(equation, **problem_kwargs)
@@ -269,13 +284,20 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
         auto_ens, auto_ft = _auto_defaults(problem, model)
         ensemble = auto_ens if ensemble is None else ensemble
         finetune = auto_ft if finetune is None else finetune
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP.md queue 1, item 14: the "
-            "sharded ensembles over several GPUs)")
     if engine not in ("scan", "fused"):
         raise ValueError(f"unknown engine {engine!r} (scan | fused)")
+    if mesh is not None and engine == "fused" and ensemble <= 1:
+        raise ValueError(
+            "a SINGLE fused run is one kernel on one GPU and cannot shard "
+            "over a mesh; use ensemble=N with mesh=make_mesh({'pop': K}) "
+            "(sharded fused ensemble — kernels.fused_engine."
+            "train_fused_ensemble), or engine='scan' with "
+            "mesh=make_mesh({'data': K}) for data-parallel single-run "
+            "training")
     device = resolve_device(device)
+    if mesh is not None:
+        mesh = as_mesh(mesh, device)
+        device = mesh_device(mesh)
 
     d = problem.defaults
     config = TrainConfig(
@@ -296,7 +318,21 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
                   device=device)
     if ensemble > 1 and route == "scan":
         result = _train_scan_population(problem, single, seed, config,
-                                        ensemble, device)
+                                        ensemble, device, mesh)
+    elif ensemble > 1 and mesh is not None:
+        train = (fused_dgm.train_dgm_fused_ensemble if route == "dgm"
+                 else fused_engine.train_fused_ensemble)
+        timings = {}
+        models, losses = train(problem, seed, config.iterations, ensemble,
+                               mesh=mesh, model=model,
+                               schedule=config.schedule, timings=timings,
+                               **common)
+        wall = timings["run_time"]
+        result = TrainResult(params=models, opt_state=None,
+                             loss_history=losses, wall_time=wall,
+                             iters_per_sec=(config.iterations / wall if wall
+                                            else float("inf")),
+                             compile_time=timings["compile_time"])
     elif ensemble > 1:
         train = (fused_dgm.train_dgm_fused_ensemble_packed if route == "dgm"
                  else fused_engine.train_fused_ensemble_packed)
@@ -324,7 +360,7 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
     else:
         if route == "scan":
             result = train_scan(problem, seed, config, model=single,
-                                device=device)
+                                device=device, mesh=mesh)
         elif route == "heat":
             result = train_heat_fused_result(problem, seed,
                                              config.iterations, model=single,

@@ -79,6 +79,7 @@ from differential_equations_dnn_tpu_torch.kernels.fused_train import (
     CHUNK_PRECISIONS,
     count_launch,
     replica_models,
+    train_ensemble,
     train_in_chunks,
 )
 from differential_equations_dnn_tpu_torch.kernels.taylor_mlp import _ACT_KIND
@@ -868,7 +869,7 @@ def train_dgm_fused_ensemble_packed(problem, seed, iterations, n_replicas,
                                     precision: str = "highest",
                                     schedule: str | None = None,
                                     decay: float = 0.1, chunk_size=25_000,
-                                    device="cuda"):
+                                    device="cuda", first: int = 0):
     """Train ``n_replicas`` independently initialised DGM replicas, packed:
     every chunk is one :func:`fused_dgm_packed_chunk` call that advances all
     of them. Replica r is ``model``'s architecture (default: the problem's)
@@ -883,14 +884,15 @@ def train_dgm_fused_ensemble_packed(problem, seed, iterations, n_replicas,
     iterations]``; ``compile_time``, ``wall_time`` and ``iters_per_sec``
     (population steps per second) as ``fused_train.train_in_chunks``
     reports them. ``precision`` as for :func:`train_dgm_fused_result`,
-    every replica on the same schedule."""
+    every replica on the same schedule. ``first`` numbers the replicas
+    from ``first`` (a rank's share of a sharded ensemble)."""
     spec = spec_for(problem, batch_size)
     if spec is None:
         raise ValueError(f"no fused DGM spec for equation {problem.name!r} "
                          f"(fitzhugh_nagumo dgm arch | fredholm gauss)")
     n_default = default_steps(iterations, precision)
     device = build.resolve_device(device)
-    models = replica_models(problem, model, seed, n_replicas, device)
+    models = replica_models(problem, model, seed, n_replicas, device, first)
     _check_model(spec, models[0])
     kw = dict(const=const_for(spec, problem, batch_size, device),
               schedule=schedule or problem.defaults.schedule,
@@ -913,6 +915,39 @@ def train_dgm_fused_ensemble_packed(problem, seed, iterations, n_replicas,
     return train_in_chunks(models, run_chunk, draw, p, torch.zeros_like(p),
                            torch.zeros_like(p), iterations, chunk_size,
                            device, load=load, n_default=n_default)
+
+def train_dgm_fused_ensemble(problem, seed, iterations, n_replicas,
+                             mesh=None, batch_size=100, lrate=1e-4,
+                             model=None, precision: str = "highest",
+                             schedule: str | None = None, decay: float = 0.1,
+                             timings: dict | None = None, chunk_size=25_000,
+                             device="cuda"):
+    """DGM counterpart of ``fused_engine.train_fused_ensemble`` (JAX
+    ``train_dgm_fused_ensemble``): the replicas sharded over ``mesh``'s
+    ``pop`` axis, each rank's as one packed run
+    (:func:`train_dgm_fused_ensemble_packed`, kernel #5 around #7), or
+    with ``mesh=None`` one after another on kernel #4
+    (:func:`train_dgm_fused_result`); Fredholm's const operand on every
+    path. Returns (the N trained models, losses ``[N, iterations]``
+    numpy), on every rank; ``timings`` receives ``compile_time`` and
+    ``run_time``."""
+    kw = dict(batch_size=batch_size, lrate=lrate, precision=precision,
+              schedule=schedule, decay=decay, chunk_size=chunk_size)
+
+    def single(replica, device):
+        return train_dgm_fused_result(problem, seed, iterations,
+                                      model=replica, device=device, **kw)
+
+    def packed(n, first, device):
+        return train_dgm_fused_ensemble_packed(problem, seed, iterations, n,
+                                               model=model, device=device,
+                                               first=first, **kw)
+
+    if spec_for(problem, batch_size) is None:
+        raise ValueError(f"no fused DGM spec for equation {problem.name!r} "
+                         f"(fitzhugh_nagumo dgm arch | fredholm gauss)")
+    return train_ensemble(problem, model, seed, n_replicas, mesh, device,
+                          single, packed, pack_dgm, load_dgm, timings)
 
 
 # ---------------------------------------------------------------------------
@@ -1061,6 +1096,23 @@ def make_packed_rung_evaluator(problem, seed, max_iters, n_slots,
     [n_slots, n])``, slot i at its own lr and budget (0: pruned, +inf) and,
     with ``max_batch``, its own batch (otherwise batch_sizes are clamped
     and not used); slot i equals :func:`make_sweep_evaluator`'s trial."""
+    run = _packed_rung(problem, seed, max_iters, batch_size, max_batch,
+                       model, precision, schedule, decay, horizon, rep_tile,
+                       device)
+
+    def eval_fn(trial_indices, lrates, batch_sizes, n_iters):
+        if len(trial_indices) != n_slots:
+            raise ValueError(f"expected {n_slots} slots "
+                             f"(got {len(trial_indices)})")
+        return run(trial_indices, lrates, batch_sizes, n_iters)
+
+    return eval_fn
+
+
+def _packed_rung(problem, seed, max_iters, batch_size, max_batch, model,
+                 precision, schedule, decay, horizon, rep_tile, device):
+    """:func:`make_packed_rung_evaluator`'s call for any number of slots
+    (``len(trial_indices)``), on one stream and const operand."""
     fused_engine.check_horizon(horizon)
     problem = _sweep_problem(problem, max_batch)
     mask_rows = max_batch is not None
@@ -1070,10 +1122,8 @@ def make_packed_rung_evaluator(problem, seed, max_iters, n_slots,
         _sweep_prologue(problem, seed, max_iters, batch_size, model,
                         precision, schedule, device)
 
-    def eval_fn(trial_indices, lrates, batch_sizes, n_iters):
-        if len(trial_indices) != n_slots:
-            raise ValueError(f"expected {n_slots} slots "
-                             f"(got {len(trial_indices)})")
+    def run(trial_indices, lrates, batch_sizes, n_iters):
+        n_slots = len(trial_indices)
         ns = np.clip(np.asarray(n_iters, np.int64), 0, user_max)
         bss = np.clip(np.asarray(batch_sizes, np.int64), 1, batch_size)
         p = _trial_states(problem, model, seed, trial_indices, device)
@@ -1091,4 +1141,24 @@ def make_packed_rung_evaluator(problem, seed, max_iters, n_slots,
                                          np.maximum(ns - 1, 0)], np.inf)
         return finals, p
 
-    return eval_fn
+    return run
+
+
+def make_sharded_rung_evaluator(problem, seed, max_iters, mesh,
+                                batch_size=100, max_batch=None, model=None,
+                                precision="highest", schedule=None,
+                                decay=0.1, horizon="trial", device="cuda"):
+    """DGM counterpart of ``fused_engine.make_sharded_rung_evaluator`` (JAX
+    ``make_sharded_rung_evaluator``): ``eval_fn(trial_indices, lrates,
+    batch_sizes, n_iters) -> (final_losses [P] numpy, flat params [P,
+    n])`` on every rank, each rank's P / n slots as one packed call
+    (kernel #5 around #7 in its sweep mode) with
+    :func:`make_packed_rung_evaluator`'s trials, stream and const operand.
+    ``max_batch`` None: every trial at ``batch_size`` rows (batch_sizes
+    not used); ``max_batch=M``: each masks rows ≥ its own batch size on an
+    M-row tile. P must be a multiple of the ``pop`` axis' size; budgets
+    clamp to [1, max_iters]."""
+    return fused_engine.sharded_rungs(
+        mesh, device, max_iters, lambda dev: _packed_rung(
+            problem, seed, max_iters, batch_size, max_batch, model,
+            precision, schedule, decay, horizon, None, dev))

@@ -93,6 +93,7 @@ from differential_equations_dnn_tpu_torch.kernels.fused_train import (
     CHUNK_PRECISIONS,
     count_launch,
     replica_models,
+    train_ensemble,
     train_in_chunks,
 )
 from differential_equations_dnn_tpu_torch.models import (
@@ -1589,7 +1590,7 @@ def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
                                 precision: str = "highest",
                                 schedule: str | None = None,
                                 decay: float = 0.1, chunk_size=25_000,
-                                device="cuda"):
+                                device="cuda", first: int = 0):
     """Train ``n_replicas`` independently initialised replicas, packed:
     every chunk is one :func:`fused_engine_packed_chunk` call that advances
     all of them. Replica r is ``model``'s architecture (default: the
@@ -1604,14 +1605,15 @@ def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
     iterations]``; ``compile_time``, ``wall_time`` and ``iters_per_sec``
     (population steps per second) as ``fused_train.train_in_chunks``
     reports them. ``precision`` as for :func:`train_fused_result`, every
-    replica on the same schedule."""
+    replica on the same schedule. ``first`` numbers the replicas from
+    ``first`` (a rank's share of a sharded ensemble)."""
     spec = spec_for(problem)
     if spec is None:
         raise ValueError(f"no fused-engine spec for equation "
                          f"{problem.name!r} (available: {sorted(SPECS)})")
     n_default = default_steps(iterations, precision)
     device = build.resolve_device(device)
-    models = replica_models(problem, model, seed, n_replicas, device)
+    models = replica_models(problem, model, seed, n_replicas, device, first)
     _check_model(spec, models[0])
     kw = dict(schedule=schedule or problem.defaults.schedule,
               total_steps=iterations, decay=decay,
@@ -1635,6 +1637,47 @@ def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
                            torch.zeros_like(p), iterations, chunk_size,
                            device, load=load, n_default=n_default)
 
+
+def train_fused_ensemble(problem, seed, iterations, n_replicas, mesh=None,
+                         batch_size=64, lrate=1e-4, model=None,
+                         precision: str = "highest",
+                         schedule: str | None = None, decay: float = 0.1,
+                         timings: dict | None = None, chunk_size=25_000,
+                         device="cuda"):
+    """``n_replicas`` independently initialised replicas (JAX
+    ``train_fused_ensemble``), sharded over ``mesh``'s ``pop`` axis: each
+    rank trains its replicas as one packed run
+    (:func:`train_fused_ensemble_packed`, kernel #5) and the ranks gather
+    them. ``mesh=None`` trains them one after another, each a whole run on
+    kernel #4 (:func:`train_fused_result`). Replica r is drawn from
+    ``replica_generator(seed, r)`` and trains on the shared stream
+    ``step_uniforms(seed, ...)``, so it is the same run on every path and
+    at every rank count (``fused_train.train_ensemble``). A mesh without a
+    ``pop`` axis, or a count the axis does not divide, raises.
+
+    Returns (the N trained models, losses ``[N, iterations]`` numpy), on
+    every rank; ``timings`` receives ``compile_time`` and ``run_time``.
+    ``precision`` as for :func:`train_fused_result` ("mixed" runs its two
+    phases)."""
+    kw = dict(batch_size=batch_size, lrate=lrate, precision=precision,
+              schedule=schedule, decay=decay, chunk_size=chunk_size)
+
+    def single(replica, device):
+        return train_fused_result(problem, seed, iterations, model=replica,
+                                  device=device, **kw)
+
+    def packed(n, first, device):
+        return train_fused_ensemble_packed(problem, seed, iterations, n,
+                                           model=model, device=device,
+                                           first=first, **kw)
+
+    spec = spec_for(problem)
+    if spec is None:
+        raise ValueError(f"no fused-engine spec for equation "
+                         f"{problem.name!r} (available: {sorted(SPECS)})")
+    return train_ensemble(problem, model, seed, n_replicas, mesh, device,
+                          single, packed, lambda m: pack_state(spec, m),
+                          lambda m, row: load_state(spec, m, row), timings)
 
 
 # ---------------------------------------------------------------------------
@@ -1799,15 +1842,29 @@ def make_packed_rung_evaluator(problem, seed, max_iters, n_slots,
     entry); the trials, the stream and the schedule are
     :func:`make_sweep_evaluator`'s, so slot i equals that evaluator's
     trial."""
-    check_horizon(horizon)
-    spec, arch, schedule, user_max, padded, uniforms, const, device = \
-        _sweep_prologue(problem, seed, max_iters, max_batch, model,
-                        precision, schedule, device)
+    run = _packed_rung(problem, seed, max_iters, max_batch, model, precision,
+                       schedule, decay, horizon, rep_tile, device)
 
     def eval_fn(trial_indices, lrates, batch_sizes, n_iters):
         if len(trial_indices) != n_slots:
             raise ValueError(f"expected {n_slots} slots "
                              f"(got {len(trial_indices)})")
+        return run(trial_indices, lrates, batch_sizes, n_iters)
+
+    return eval_fn
+
+
+def _packed_rung(problem, seed, max_iters, max_batch, model, precision,
+                 schedule, decay, horizon, rep_tile, device):
+    """:func:`make_packed_rung_evaluator`'s call for any number of slots
+    (``len(trial_indices)``), on one stream and const operand."""
+    check_horizon(horizon)
+    spec, arch, schedule, user_max, padded, uniforms, const, device = \
+        _sweep_prologue(problem, seed, max_iters, max_batch, model,
+                        precision, schedule, device)
+
+    def run(trial_indices, lrates, batch_sizes, n_iters):
+        n_slots = len(trial_indices)
         ns = np.clip(np.asarray(n_iters, np.int64), 0, user_max)
         bss = np.clip(np.asarray(batch_sizes, np.int64), 1, max_batch)
         p = trial_state(problem, model, seed, trial_indices,
@@ -1825,7 +1882,60 @@ def make_packed_rung_evaluator(problem, seed, max_iters, n_slots,
                                          np.maximum(ns - 1, 0)], np.inf)
         return finals, p
 
+    return run
+
+
+def sharded_rungs(mesh, device, max_iters, make_run):
+    """A sharded rung evaluator (both engines'): ``mesh`` (or an ``{axis:
+    size}`` dict made into one on ``device``) must have a ``pop`` axis;
+    then ``make_run(rank_device)`` gives ``run(trial_indices, lrates,
+    batch_sizes, n_iters) -> (finals, flat states)``, one rank's slots as
+    one packed call. Each rank runs its share of the ``pop`` axis, every
+    budget clamped to [1, max_iters] as JAX clamps it, and the ranks
+    gather the finals and states."""
+    from differential_equations_dnn_tpu_torch.parallel import mesh as pm
+    from differential_equations_dnn_tpu_torch.parallel.sharding import (
+        gather_rows,
+        shard_range,
+    )
+
+    mesh = pm.as_mesh(mesh, device)
+    n_shards = pm.require_axis(mesh, "pop", "sharded rung evaluation")
+    run = make_run(pm.mesh_device(mesh))
+
+    def eval_fn(trial_indices, lrates, batch_sizes, n_iters):
+        P = len(trial_indices)
+        if P % n_shards:
+            raise ValueError(f"{P} trials not divisible by the 'pop' axis "
+                             f"({n_shards} shards) — pad by repeating "
+                             f"trials")
+        lo, hi = shard_range(P, mesh, "pop")
+        ns = np.clip(np.asarray(n_iters, np.int64), 1, int(max_iters))
+        finals, p = run(np.asarray(trial_indices)[lo:hi],
+                        np.asarray(lrates)[lo:hi],
+                        np.asarray(batch_sizes)[lo:hi], ns[lo:hi])
+        return gather_rows((np.asarray(finals, np.float64), p), mesh, "pop")
+
     return eval_fn
+
+
+def make_sharded_rung_evaluator(problem, seed, max_iters, mesh,
+                                max_batch=512, model=None,
+                                precision="highest", schedule=None,
+                                decay=0.1, horizon="trial", device="cuda"):
+    """A rung of P trials sharded over ``mesh``'s ``pop`` axis (JAX
+    ``make_sharded_rung_evaluator``): ``eval_fn(trial_indices, lrates,
+    batch_sizes, n_iters) -> (final_losses [P] numpy, flat states [P,
+    n])``, on every rank. Each rank trains its P / n slots as one packed
+    call in the kernels' sweep mode (kernel #5 around #6, with
+    :func:`make_packed_rung_evaluator`'s trials, stream and schedule), so
+    slot i is the same run at every rank count. P must be a multiple of
+    the axis' size: pad by repeating trials (a duplicate costs its own
+    budget). Budgets clamp to [1, max_iters]; ``horizon`` as in
+    :func:`make_sweep_evaluator`."""
+    return sharded_rungs(mesh, device, max_iters, lambda dev: _packed_rung(
+        problem, seed, max_iters, max_batch, model, precision, schedule,
+        decay, horizon, None, dev))
 
 
 def lr_sweep(problem, seed, lrates, iterations, batch_size=64, model=None,

@@ -30,6 +30,7 @@ width up to MAX_HEAT_WIDTH (:func:`heat_train_plan`).
 import math
 import time
 
+import numpy as np
 import torch
 
 from differential_equations_dnn_tpu_torch.core.precision import (
@@ -413,15 +414,67 @@ heat_fused_train_chunk.bf16_launches = 0
 # ---------------------------------------------------------------------------
 
 
-def replica_models(problem, model, seed, n_replicas, device):
-    """The N replicas of an ensemble: replica r is ``model``'s architecture
-    (default: the problem's) drawn from ``replica_generator(seed, r)``, the
-    JAX package's ``model.init(fold_in(init_key, r))``."""
+def replica_models(problem, model, seed, n_replicas, device, first=0):
+    """The N replicas ``first .. first + N − 1`` of an ensemble: replica r
+    is ``model``'s architecture (default: the problem's) drawn from
+    ``replica_generator(seed, r)``, the JAX package's
+    ``model.init(fold_in(init_key, r))``."""
     return [problem.default_model(generator=replica_generator(seed, r),
                                   device=device) if model is None
             else model.fresh(generator=replica_generator(seed, r),
                              device=device)
+            for r in range(first, first + n_replicas)]
+
+
+def train_ensemble(problem, model, seed, n_replicas, mesh, device,
+                   train_single, train_packed, pack, load, timings=None):
+    """The fused ensembles over a mesh (JAX ``train_fused_ensemble`` and
+    ``train_dgm_fused_ensemble``). ``mesh=None``: the replicas one after
+    another, each a whole run, ``train_single(replica_model, device)``.
+    A mesh (or an ``{axis: size}`` dict made into one on ``device``):
+    each rank trains its replicas ``lo .. hi − 1`` of the ``pop`` axis as
+    one packed run, ``train_packed(hi − lo, lo, device)``, and the ranks
+    gather every replica's flat state (``pack(model)``) and loss history.
+    Both give replica r the init ``replica_generator(seed, r)`` and the
+    shared stream, so replica r is the same run whatever the rank count,
+    and the same as replica r of the packed ensemble.
+
+    Returns (the N trained models, loaded by ``load(model, flat)``, on
+    this rank's device; losses ``[N, iterations]`` numpy); ``timings``
+    receives ``compile_time`` and ``run_time`` (this rank's)."""
+    from differential_equations_dnn_tpu_torch.parallel import mesh as pm
+    from differential_equations_dnn_tpu_torch.parallel.sharding import (
+        gather_rows,
+        shard_range,
+    )
+
+    if mesh is None:
+        device = build.resolve_device(device)
+        results = [train_single(
+            replica_models(problem, model, seed, 1, device, r)[0], device)
             for r in range(n_replicas)]
+        models = [res.params for res in results]
+        losses = np.stack([res.loss_history for res in results])
+    else:
+        mesh = pm.as_mesh(mesh, device)
+        device = pm.mesh_device(mesh)
+        n_shards = pm.require_axis(mesh, "pop", "a fused ensemble (replicas "
+                                   "sharded over 'pop')")
+        if n_replicas % n_shards:
+            raise ValueError(f"n_replicas {n_replicas} not divisible by "
+                             f"'pop' mesh axis ({n_shards} shards)")
+        lo, hi = shard_range(n_replicas, mesh, "pop")
+        res = train_packed(hi - lo, lo, device)
+        results = [res]
+        flat = torch.stack([pack(m) for m in res.params])
+        flat, losses = gather_rows((flat, res.loss_history), mesh, "pop")
+        models = replica_models(problem, model, seed, n_replicas, device)
+        for m, row in zip(models, flat):
+            load(m, row)
+    if timings is not None:
+        timings["compile_time"] = sum(r.compile_time for r in results)
+        timings["run_time"] = sum(r.wall_time for r in results)
+    return models, losses
 
 
 def _warm_steps(phase, chunk, device):

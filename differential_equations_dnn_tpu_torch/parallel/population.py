@@ -29,7 +29,13 @@ ablations, and the replacement of the reference's Ray Tune driver
   its dispatches and fetches) changes nothing here. A step that cannot be
   captured raises, naming the cause: there is no eager fallback.
   Draws are made on the host, one block at a time, while the card replays
-  the previous one (:func:`draw_trial_batches`).
+  the previous one (:func:`draw_trial_batches`);
+* on a mesh (``mesh=``) the trials are sharded over its ``pop`` axis: each
+  rank trains its P / n trials, by their global indices, as one
+  population of its own, then the ranks gather every trial's result, so
+  every rank returns the whole population (the JAX package's sharded
+  population). The ranks of one ``pop`` coordinate (a ``("pop",
+  "data")`` mesh) train the same trials, as JAX replicates ``data``.
 
 A trial's ``params`` are its module's parameters and its frozen buffers
 (a Fourier-feature matrix: its gradient is 0, so Adam leaves it, as JAX's
@@ -59,6 +65,15 @@ from differential_equations_dnn_tpu_torch.models.stateful import (
     state_names,
 )
 from differential_equations_dnn_tpu_torch.ops.diff import functional_taps
+from differential_equations_dnn_tpu_torch.parallel.mesh import (
+    as_mesh,
+    mesh_device,
+    require_axis,
+)
+from differential_equations_dnn_tpu_torch.parallel.sharding import (
+    gather_rows,
+    shard_range,
+)
 from differential_equations_dnn_tpu_torch.train.trainer import capture_graph
 
 # Population steps per captured CUDA graph, and per block of host draws.
@@ -79,7 +94,7 @@ class PopulationConfig:
     iterations: int = 1000
     max_batch_size: int = 64
     chunk_size: int = 1000  # JAX's dispatch pacing; no effect here
-    pop_axis: str = "pop"  # the mesh axis (mesh= is not ported)
+    pop_axis: str = "pop"  # the mesh axis the trials are sharded over
 
 
 class _Functional(nn.Module):
@@ -111,13 +126,15 @@ def _split(model):
     return params, state
 
 
-def init_trials(model, seed: int, n_trials: int, device=None):
-    """The stacked (params, state) of ``n_trials`` trials, trial t drawn
-    by ``model.fresh(replica_generator(seed, t))`` (the JAX package's
+def init_trials(model, seed: int, n_trials: int, device=None,
+                first: int = 0):
+    """The stacked (params, state) of ``n_trials`` trials ``first ..
+    first + n_trials − 1``, trial t drawn by
+    ``model.fresh(replica_generator(seed, t))`` (the JAX package's
     ``vmap(model.init)(key_chain(...))``); ``state`` is None for a
     stateless model."""
     trials = [_split(model.fresh(generator=replica_generator(seed, t)))
-              for t in range(n_trials)]
+              for t in range(first, first + n_trials)]
     params = {k: torch.stack([p[k] for p, _ in trials]).to(device)
               for k in trials[0][0]}
     state = ({k: torch.stack([s[k] for _, s in trials]).to(device)
@@ -297,11 +314,13 @@ def train_population(problem, model, seed: int, lrates, batch_sizes=None,
     synchronize) and ``state`` (the trained running statistics, or None).
 
     Returns (params, opt_state, losses ``[iterations, P]`` numpy).
-    ``device`` defaults to "cuda" and raises without a GPU."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP.md queue 1, item 14: the "
-            "population sharded over several GPUs)")
+    ``device`` defaults to "cuda" and raises without a GPU.
+
+    ``mesh`` (a mesh, or an ``{axis: size}`` dict made into one on
+    ``device``) shards the trials over its ``config.pop_axis``; P must
+    divide evenly over it. Every rank runs this call and returns the whole
+    population, on the mesh's device; resumed ``params`` / ``opt_state``
+    / ``state`` are whole populations too (each rank takes its trials)."""
     if getattr(problem, "taps", None) == "pallas":
         raise NotImplementedError(
             "Heat1D(taps='pallas') cannot train a population: the "
@@ -309,25 +328,41 @@ def train_population(problem, model, seed: int, lrates, batch_sizes=None,
             "2, item 7); use taps='jvp' or 'taylor'")
     config = config or PopulationConfig()
     device = build.resolve_device(device)
-    lr = torch.as_tensor(np.asarray(lrates, np.float32), device=device)
-    n_trials = lr.shape[0]
+    lrates = np.asarray(lrates, np.float32)
+    n_trials = lrates.shape[0]
     max_bs = int(config.max_batch_size)
     bs = (np.full(n_trials, max_bs) if batch_sizes is None
           else np.asarray(batch_sizes, np.int64))
     if bs.shape != (n_trials,) or bs.min() < 1 or bs.max() > max_bs:
         raise ValueError(f"batch_sizes must be {n_trials} sizes in [1, "
                          f"{max_bs}] (got {bs.tolist()})")
+    lo, hi = 0, n_trials
+    if mesh is not None:
+        mesh = as_mesh(mesh, device)
+        device = mesh_device(mesh)
+        n_shards = require_axis(mesh, config.pop_axis, "a sharded population")
+        if n_trials % n_shards:
+            raise ValueError(
+                f"population size {n_trials} must divide evenly over the "
+                f"'{config.pop_axis}' mesh axis ({n_shards} shards)")
+        lo, hi = shard_range(n_trials, mesh, config.pop_axis)
+        local = np.arange(lo, hi)
+        lrates, bs = lrates[lo:hi], bs[lo:hi]
+        params, opt_state, state = (take_trials(t, local) for t in
+                                    (params, opt_state, state))
+    lr = torch.as_tensor(lrates, device=device)
+    n_local = hi - lo
     mask = (torch.arange(max_bs, device=device)[None, :]
             < torch.as_tensor(bs, device=device)[:, None])
 
     template = copy.deepcopy(model).to(device).train()
     stateful = is_stateful(template)
     if params is None:
-        params, fresh_state = init_trials(template, seed, n_trials, device)
+        params, fresh_state = init_trials(template, seed, n_local, device, lo)
     else:
         params = {k: v.detach().to(device).clone() for k, v in params.items()}
         fresh_state = init_trials(template, seed, 1, device)[1]
-        fresh_state = fresh_state and {k: v.expand(n_trials, *v.shape[1:])
+        fresh_state = fresh_state and {k: v.expand(n_local, *v.shape[1:])
                                        .clone()
                                        for k, v in fresh_state.items()}
     if stateful:
@@ -336,7 +371,7 @@ def train_population(problem, model, seed: int, lrates, batch_sizes=None,
     else:
         state = None
     if opt_state is None:
-        opt_state = _adam_init(params, n_trials, device)
+        opt_state = _adam_init(params, n_local, device)
     else:
         opt_state = {"count": opt_state["count"].to(device).float().clone(),
                      "mu": {k: v.to(device).clone()
@@ -349,7 +384,7 @@ def train_population(problem, model, seed: int, lrates, batch_sizes=None,
     tensors = [*params.values(), *(state or {}).values(),
                opt_state["count"], *opt_state["mu"].values(),
                *opt_state["nu"].values()]
-    seeds = [trial_seed(seed, t) for t in range(n_trials)]
+    seeds = [trial_seed(seed, t) for t in range(lo, hi)]
     graphs = device.type == "cuda" and config.iterations >= GRAPH_STEPS
     graph = None
 
@@ -358,7 +393,7 @@ def train_population(problem, model, seed: int, lrates, batch_sizes=None,
     if graphs:
         block = draw_trial_batches(problem, seeds, 0, GRAPH_STEPS, max_bs,
                                    device)
-        graph = _PopulationGraph(step, block, tensors, n_trials,
+        graph = _PopulationGraph(step, block, tensors, n_local,
                                  problem.name)
     build.sync(device)
     compile_time = time.perf_counter() - t0
@@ -376,10 +411,14 @@ def train_population(problem, model, seed: int, lrates, batch_sizes=None,
     build.sync(device)
     run_time = time.perf_counter() - t0
 
+    losses = (torch.cat(losses).cpu().numpy() if losses
+              else np.zeros((0, n_local), np.float32))
+    if mesh is not None:
+        params, opt_state, state = gather_rows((params, opt_state, state),
+                                               mesh, config.pop_axis)
+        losses = gather_rows(losses, mesh, config.pop_axis, dim=1)
     if timings is not None:
         timings["compile_time"] = compile_time
         timings["run_time"] = run_time
         timings["state"] = state
-    losses = (torch.cat(losses).cpu().numpy() if losses
-              else np.zeros((0, n_trials), np.float32))
     return params, opt_state, losses

@@ -27,8 +27,16 @@ The population drivers train every trial of a round as one population
 model: :func:`random_search`, :func:`successive_halving` (survivors
 re-enter with their optimizer state), :func:`tpe_search` (rounds of TPE
 proposals) and :func:`tpe_halving`. Every trial trains to the round's
-budget and is scored at its own ``n_iters``. The sharded rung evaluators
-are not ported (ROADMAP item 14).
+budget and is scored at its own ``n_iters``.
+
+``mesh=`` (parallel/mesh.py's mesh, or an ``{axis: size}`` dict) spreads a
+sweep over the ranks of a process group, each of which runs the driver
+and gets the same result: the population drivers shard every population
+over the mesh's ``pop`` axis (``train_population(mesh=)``), and
+:func:`halving_search_fused` / :func:`tpe_halving_fused` evaluate each
+rung with the sharded rung evaluators, as the JAX package does: one tile
+of the sweep's largest batch, the rung padded with copies of its last
+trial to a multiple of the axis.
 """
 
 from dataclasses import dataclass, field
@@ -44,6 +52,10 @@ from differential_equations_dnn_tpu_torch.core.prng import (
 from differential_equations_dnn_tpu_torch.kernels import (
     fused_dgm,
     fused_engine,
+)
+from differential_equations_dnn_tpu_torch.parallel.mesh import (
+    as_mesh,
+    mesh_shape,
 )
 from differential_equations_dnn_tpu_torch.parallel.population import (
     PopulationConfig,
@@ -225,11 +237,10 @@ def _tile_floor(problem):
     return -(-problem.k // 64) * 64 if problem.name == "fredholm" else 1
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded rung evaluation over a mesh is not ported yet "
-            "(ROADMAP.md queue 1, item 14)")
+def _mesh(mesh, device):
+    """An ``{axis: size}`` dict made into a mesh once per sweep, so that its
+    rounds and rungs share it; a mesh (or None) as it is."""
+    return as_mesh(mesh, device) if isinstance(mesh, dict) else mesh
 
 
 def _unpacker(problem, model, is_dgm):
@@ -462,9 +473,10 @@ def halving_search_fused(problem, seed: int = 0, num_samples: int = 27,
     ``max_budget`` steps. The space is {lrate, batch_size} (n_iters
     belongs to the rungs); ``draws`` overrides the random draws
     (:func:`tpe_halving_fused`'s proposals) and ``trial_offset`` shifts the
-    trials' init indices. ``mesh`` raises: the sharded rung evaluators are
-    not ported (ROADMAP item 14)."""
-    _no_mesh(mesh)
+    trials' init indices. ``mesh`` evaluates each rung with the sharded
+    rung evaluator of its engine, on one tile of the sweep's largest batch
+    (the top bucket), the rung padded with copies of its last trial to a
+    multiple of the ``pop`` axis (JAX search.py:873-880)."""
     bs = int(batch_size if batch_size is not None
              else problem.defaults.batch_size)
     max_budget = int(max_budget or problem.defaults.iterations)
@@ -485,21 +497,35 @@ def halving_search_fused(problem, seed: int = 0, num_samples: int = 27,
             "halving_search_fused sweeps lrate/batch_size; n_iters is "
             f"owned by the rung schedule (got {sorted(space.specs)})")
     has_bs = "batch_size" in space.specs
-    if is_dgm and not has_bs:
-        max_bs = bs
+    # Without a batch space a DGM trains every trial at bs rows.
+    max_bs = (bs if is_dgm and not has_bs
+              else _batch_cap(problem, space, max_batch_size))
+    floor = _tile_floor(problem) if is_dgm else 1
+    mesh = _mesh(mesh, device)
+    sharded_ev = None
+    if mesh is not None:
+        # One tile for every trial, the largest bucket's (JAX's design).
+        top = _tiles_for(max_bs, (), floor)[-1]
+        if is_dgm:
+            sharded_ev = fused_dgm.make_sharded_rung_evaluator(
+                problem, seed, max_budget, mesh, batch_size=bs,
+                max_batch=top if has_bs else None, **common)
+        else:
+            sharded_ev = fused_engine.make_sharded_rung_evaluator(
+                problem, seed, max_budget, mesh, max_batch=top, **common)
+        n_pop = mesh_shape(mesh)["pop"]
+    elif is_dgm and not has_bs:
         _pev = fused_dgm.make_packed_rung_evaluator(
             problem, seed, max_budget, num_samples, batch_size=bs,
             max_batch=None, **common)
         packed_ev = lambda bs_: _pev
     elif is_dgm:
-        max_bs = _batch_cap(problem, space, max_batch_size)
-        tiles = _tiles_for(max_bs, bucket_tiles, _tile_floor(problem))
+        tiles = _tiles_for(max_bs, bucket_tiles, floor)
         packed_ev = _bucketed(tiles, lambda tile:
                               fused_dgm.make_packed_rung_evaluator(
                                   problem, seed, max_budget, num_samples,
                                   batch_size=bs, max_batch=tile, **common))
     else:
-        max_bs = _batch_cap(problem, space, max_batch_size)
         tiles = _tiles_for(max_bs, bucket_tiles)
         packed_ev = _bucketed(tiles, lambda tile:
                               fused_engine.make_packed_rung_evaluator(
@@ -523,6 +549,20 @@ def halving_search_fused(problem, seed: int = 0, num_samples: int = 27,
     flats: dict[int, Any] = {}
 
     def eval_rung(alive, budget):
+        if sharded_ev is not None:
+            # The live trials only, padded with copies of the last (a copy
+            # costs its own budget) to a multiple of the 'pop' axis.
+            idx = [int(t) for t in alive]
+            idx_p = idx + [idx[-1]] * ((-len(idx)) % n_pop)
+            finals, flat_out = sharded_ev(
+                [t + trial_offset for t in idx_p],
+                [float(lrates[t]) for t in idx_p],
+                [int(batch_sizes[t]) for t in idx_p],
+                [int(budget)] * len(idx_p))
+            for pos, t in enumerate(idx):
+                last_scores[t] = float(finals[pos])
+                flats[t] = flat_out[pos]
+            return
         # One packed call per tile: a trial's tile is fixed by its batch
         # across rungs, so restart = promotion holds within its tile; dead
         # slots train 0 steps, live ones the rung's budget.
@@ -638,8 +678,8 @@ def tpe_halving_fused(problem, seed: int = 0, num_samples: int = 27,
     every bracket reuses the same evaluators and graphs (the same seed,
     hence the same stream; ``trial_offset`` gives each bracket fresh
     inits). Dropped trials report their last rung's score at their
-    realised budget."""
-    _no_mesh(mesh)
+    realised budget. ``mesh`` as for :func:`halving_search_fused`."""
+    mesh = _mesh(mesh, device)
     if space is None:
         bs = int(batch_size if batch_size is not None
                  else problem.defaults.batch_size)
@@ -656,7 +696,8 @@ def tpe_halving_fused(problem, seed: int = 0, num_samples: int = 27,
             eta=eta, min_budget=min_budget, max_budget=max_budget,
             batch_size=batch_size, max_batch_size=max_batch_size,
             schedule=schedule, draws=draws, trial_offset=b * per_bracket,
-            bucket_tiles=bucket_tiles, precision=precision, device=device)
+            mesh=mesh, bucket_tiles=bucket_tiles, precision=precision,
+            device=device)
 
     return _tpe_brackets(space, sampler_seed, gamma, brackets, num_samples,
                          inner)
@@ -685,8 +726,8 @@ def random_search(problem, seed: int = 0, num_samples: int = 10,
     (JAX ``random_search``; its ``key`` is ``seed`` here, its ``seed`` the
     space's ``sampler_seed``). Each trial is scored by its final loss at its
     own budget, minimised: the reference's metric
-    (optimize_heat_ray.py:157,196)."""
-    _no_mesh(mesh)
+    (optimize_heat_ray.py:157,196). ``mesh`` shards the population over
+    its ``pop`` axis (``train_population(mesh=)``)."""
     space = space or heat_search_space()
     model = _default_model(problem, model)
     max_batch_size = _clamp_batch_cap(problem, max_batch_size)
@@ -705,7 +746,7 @@ def random_search(problem, seed: int = 0, num_samples: int = 10,
                               chunk_size=chunk_size)
     params, _, losses = train_population(problem, model, seed, lrates,
                                          batch_sizes, config=config,
-                                         device=device)
+                                         mesh=mesh, device=device)
     scores = losses[n_iters - 1, np.arange(num_samples)]
     configs = [{"batch_size": int(b), "n_iters": int(i), "lrate": float(l)}
                for b, i, l in zip(batch_sizes, n_iters, lrates)]
@@ -728,8 +769,9 @@ def successive_halving(problem, seed: int = 0, num_samples: int = 27,
     ``fold_in(key, spent)``). The scheduler owns the budget: a config's
     ``n_iters`` is the steps its trial trained. ``draws`` (a dict of
     [num_samples] arrays) overrides the space's draws (how
-    :func:`tpe_halving` injects proposals)."""
-    _no_mesh(mesh)
+    :func:`tpe_halving` injects proposals). ``mesh`` shards each rung's
+    population over its ``pop`` axis, which must divide it."""
+    mesh = _mesh(mesh, device)
     space = space or heat_search_space()
     model = _default_model(problem, model)
     max_batch_size = _clamp_batch_cap(problem, max_batch_size)
@@ -758,7 +800,7 @@ def successive_halving(problem, seed: int = 0, num_samples: int = 27,
                                   chunk_size=chunk_size)
         params, opt_state, losses = train_population(
             problem, model, fold_seed(seed, spent), lrates[alive],
-            batch_sizes[alive], config=config, params=params,
+            batch_sizes[alive], config=config, mesh=mesh, params=params,
             opt_state=opt_state, device=device)
         rung_scores = losses[-1]
         last_scores[alive] = rung_scores
@@ -794,10 +836,11 @@ def tpe_search(problem, seed: int = 0, num_samples: int = 10,
     one its proposals given every earlier score; round r trains at seed
     ``fold_seed(seed, r)``. Every trial trains to the shared budget
     (``max_iters`` or the problem's) and is scored at its own ``n_iters``;
-    the result holds the globally best trial's parameters."""
+    the result holds the globally best trial's parameters. ``mesh``
+    shards each round's population over its ``pop`` axis."""
     from differential_equations_dnn_tpu_torch.sweep.tpe import TPESampler
 
-    _no_mesh(mesh)
+    mesh = _mesh(mesh, device)
     space = space or heat_search_space()
     model = _default_model(problem, model)
     max_batch_size = _clamp_batch_cap(problem, max_batch_size)
@@ -825,7 +868,7 @@ def tpe_search(problem, seed: int = 0, num_samples: int = 10,
                               for c in proposals], np.int64)
         params, _, losses = train_population(
             problem, model, fold_seed(seed, r), lrates, batch_sizes,
-            config=config, device=device)
+            config=config, mesh=mesh, device=device)
         scores = losses[n_iters - 1, np.arange(per_round)]
         resolved = [{"batch_size": int(b), "n_iters": int(i),
                      "lrate": float(l)}
@@ -856,8 +899,9 @@ def tpe_halving(problem, seed: int = 0, num_samples: int = 27,
     ``tpe_halving``: OptunaSearch with AsyncHyperBandScheduler,
     optimize_heat_ray.py:179-181). Bracket b runs
     :func:`successive_halving` at seed ``fold_seed(seed, b)`` on the
-    sampler's proposals; the best fully trained trial wins."""
-    _no_mesh(mesh)
+    sampler's proposals; the best fully trained trial wins. ``mesh`` as
+    for :func:`successive_halving`."""
+    mesh = _mesh(mesh, device)
     space = space or heat_search_space()
     model = _default_model(problem, model)
     max_batch_size = _clamp_batch_cap(problem, max_batch_size)
@@ -868,7 +912,7 @@ def tpe_halving(problem, seed: int = 0, num_samples: int = 27,
             space=space, model=model, sampler_seed=sampler_seed + b,
             eta=eta, min_budget=min_budget, max_budget=max_budget,
             max_batch_size=max_batch_size, chunk_size=chunk_size,
-            draws=draws, device=device)
+            draws=draws, mesh=mesh, device=device)
 
     return _tpe_brackets(space, sampler_seed, gamma, brackets, num_samples,
                          inner)

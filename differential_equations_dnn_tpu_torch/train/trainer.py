@@ -17,6 +17,13 @@ step, so inside the graph too. Further:
   blocks of steps, pinned, and copied to the device once per block.
 * The loss history stays on the device and is fetched once per chunk, for
   ``log_every`` and ``metrics_file``; no step waits for the device.
+* On a mesh (``mesh=``, parallel/mesh.py) the run is data-parallel over
+  the mesh's ``config.data_axis``: every rank draws the same whole batch,
+  trains on its own rows of it (``parallel.sharding.shard_batch``, after
+  an adaptive selection over the whole batch) and takes the mean of the
+  ranks' gradients and losses (one all-reduce a step, inside the step's
+  CUDA graph), so the loss terms stay the global batch's means and every
+  rank holds the same model (the JAX package's ``constrain_batch``).
 * The learning rate follows ``kernels.engine_core.scheduled_lr`` at the
   optimizer's own update count, as optax's schedules do; the count is part
   of the optimizer state, so a resumed run continues its schedule. On a
@@ -139,7 +146,7 @@ class TrainConfig:
     # batch each step and keep the batch_size points with the largest
     # current residual. 0/1 disables.
     adaptive_oversample: int = 0
-    data_axis: str = "data"     # mesh axis name (mesh= is not ported)
+    data_axis: str = "data"     # the mesh axis of data-parallel training
     verbose: bool = True
     # Optional JSONL metrics stream: one record per chunk (step, loss stats,
     # iters/s).
@@ -288,7 +295,8 @@ class DeviceSchedule:
 
 
 def make_train_step(problem, model, optimizer, batch_size,
-                    adaptive_oversample=0, schedule=None):
+                    adaptive_oversample=0, schedule=None, mesh=None,
+                    data_axis="data"):
     """The per-iteration step: ``step(batch) -> loss`` (a detached 0-d
     tensor on the batch's device) trains ``model`` in place with one update
     of ``optimizer`` on ``problem.loss``. ``schedule`` (a
@@ -304,9 +312,21 @@ def make_train_step(problem, model, optimizer, batch_size,
     A stateful model (BatchNorm; models/stateful.py) trains on train-mode
     batch statistics, and after the update its running statistics are
     refreshed by one train-mode forward on ``problem.domain_inputs(batch)``
-    with the updated parameters (JAX train/trainer.py:203-211)."""
+    with the updated parameters (JAX train/trainer.py:203-211).
+
+    With a ``mesh`` the step trains on this rank's rows of the (selected)
+    batch along ``data_axis`` and replaces its gradients and its loss by
+    their means over that axis before the update: at one rank the same
+    bits as without a mesh."""
+    # parallel/ imports this module: its sharding is imported at call time.
+    from differential_equations_dnn_tpu_torch.parallel.sharding import (
+        mean_over,
+        shard_batch,
+    )
+
     oversample = adaptive_oversample > 1
     stateful = is_stateful(model)
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch):
         if oversample:
@@ -314,6 +334,8 @@ def make_train_step(problem, model, optimizer, batch_size,
                 r = problem.point_loss(model, batch)
             idx = torch.topk(r, batch_size).indices
             batch = {k: v[idx] for k, v in batch.items()}
+        if mesh is not None:
+            batch = shard_batch(batch, mesh, data_axis)
         if schedule is None:
             _set_lr(optimizer)
         else:
@@ -321,6 +343,11 @@ def make_train_step(problem, model, optimizer, batch_size,
         optimizer.zero_grad(set_to_none=True)
         loss = problem.loss(model, batch)
         loss.backward()
+        if mesh is not None:
+            loss = loss.detach().clone().reshape(1)
+            mean_over([p.grad for p in params if p.grad is not None]
+                      + [loss], mesh, data_axis)
+            loss = loss[0]
         optimizer.step()
         if stateful:
             update_state(model, problem.domain_inputs(batch))
@@ -329,6 +356,25 @@ def make_train_step(problem, model, optimizer, batch_size,
     step.draw_size = batch_size * adaptive_oversample if oversample \
         else batch_size
     return step
+
+
+def check_data_parallel(problem, model, data_axis="data") -> None:
+    """Refuse what couples the rows of a batch, on a ``data_axis`` of more
+    than one rank: a stateful model's batch statistics and a causal loss's
+    cross-point weights would be each rank's alone, not the global batch's
+    (ROADMAP.md queue 1, item 14's refusals)."""
+    if is_stateful(model):
+        raise ValueError(
+            f"a BatchNorm model's batch statistics couple the rows of a "
+            f"batch: it cannot train data-parallel over a '{data_axis}' "
+            f"axis of more than one rank (use a 'pop' mesh, or one rank)")
+    if getattr(problem, "causal_eps", 0.0) > 0.0:
+        raise ValueError(
+            f"{problem.name}'s causal loss (causal_eps="
+            f"{problem.causal_eps}) weights each point by the residuals of "
+            f"every earlier point of the batch: it cannot train "
+            f"data-parallel over a '{data_axis}' axis of more than one "
+            f"rank (use causal_eps=0, or one rank)")
 
 
 def draw_batches(problem, seed, start, n, size, device):
@@ -366,8 +412,13 @@ def capture_graph(step, static, losses, kept, what, restore=None):
     if restore is not None:
         restore()
     graph = torch.cuda.CUDAGraph()
+    # Under a process group NCCL's watchdog thread queries its events while
+    # a step with a collective is captured: only this thread's calls must
+    # be capture-safe.
+    mode = ("thread_local" if torch.distributed.is_initialized()
+            else "global")
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode=mode):
             for j in range(losses.shape[0]):
                 losses[j].copy_(step({k: v[j] for k, v in static.items()}))
     except Exception as err:
@@ -482,27 +533,48 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
     ``iters_per_sec`` cover the training steps only, ending in
     ``torch.cuda.synchronize()``. ``profile_dir`` writes a
     ``torch.profiler`` trace of the run there. ``device`` defaults to
-    "cuda" and raises without a GPU."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP.md queue 1, item 14: "
-            "data-parallel training over several GPUs)")
+    "cuda" and raises without a GPU.
+
+    ``mesh`` (a mesh of parallel/mesh.py, or an ``{axis: size}`` dict
+    made into one on ``device``) trains data-parallel over its
+    ``config.data_axis`` (see the module's docstring); every rank runs
+    this call and returns the same model, on the mesh's device. The batch
+    must divide evenly over the axis. A BatchNorm model's batch
+    statistics and a causal loss's weights couple the rows of a batch, so
+    both are refused on a ``data`` axis of more than one rank."""
     config = config or TrainConfig(
         iterations=problem.defaults.iterations,
         batch_size=problem.defaults.batch_size,
         lrate=problem.defaults.lrate,
     )
     device = build.resolve_device(device)
+    if mesh is not None:
+        from differential_equations_dnn_tpu_torch.parallel import mesh as pm
+        from differential_equations_dnn_tpu_torch.parallel import (
+            sharding,
+        )
+
+        mesh = pm.as_mesh(mesh, device)
+        device = pm.mesh_device(mesh)
+        n_data = pm.require_axis(mesh, config.data_axis,
+                                 "data-parallel training")
     if model is None:
         model = problem.default_model(generator=generator(seed))
     model.to(device).train()
+    if mesh is not None:
+        if n_data > 1:
+            check_data_parallel(problem, model, config.data_axis)
+        # Refuses a batch the axis does not divide, before any step.
+        sharding.shard_range(config.batch_size, mesh, config.data_axis)
+        sharding.replicate(model, mesh)
     optimizer = make_optimizer(config, model.parameters())
     if opt_state is not None:
         load_opt_state(optimizer, opt_state)
     cuda = device.type == "cuda"
     schedule = DeviceSchedule(optimizer) if cuda else None
     step = make_train_step(problem, model, optimizer, config.batch_size,
-                           config.adaptive_oversample, schedule)
+                           config.adaptive_oversample, schedule, mesh,
+                           config.data_axis)
     chunk = max(1, min(config.chunk_size, config.iterations))
     graphs = cuda and chunk >= GRAPH_STEPS
     graph = None
@@ -534,7 +606,8 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
     warm_opt.load_state_dict(copy.deepcopy(optimizer.state_dict()))
     warm_step = make_train_step(problem, warm_model, warm_opt,
                                 config.batch_size, config.adaptive_oversample,
-                                DeviceSchedule(warm_opt) if cuda else None)
+                                DeviceSchedule(warm_opt) if cuda else None,
+                                mesh, config.data_axis)
     block = draw_batches(problem, seed, start_step,
                          GRAPH_STEPS if graphs else 1, step.draw_size, device)
     warm_step({key: v[0] for key, v in block.items()})

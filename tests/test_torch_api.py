@@ -92,9 +92,9 @@ def test_solve_is_reproducible_from_its_seed():
 @pytest.mark.parametrize("kwargs, error, match", [
     (dict(engine="fused", taps="pallas"), ValueError, "scan"),
     (dict(engine="fused", precision="mixed", mesh=object()),
-     NotImplementedError, "ROADMAP"),
+     ValueError, "SINGLE fused run"),
     (dict(engine="fused", precision="default", mesh=object()),
-     NotImplementedError, "ROADMAP"),
+     ValueError, "SINGLE fused run"),
     (dict(engine="scan", ensemble=2), None, None),
     (dict(engine="turbo"), ValueError, "unknown engine"),
     (dict(engine="fused", model=MLP(2, 1, 8, 1, "relu")), ValueError,
@@ -103,7 +103,9 @@ def test_solve_is_reproducible_from_its_seed():
 def test_unported_options_raise(kwargs, error, match):
     """(i) What the slice does not run raises, naming the ROADMAP item.
     Since item 13 a scan-engine ensemble (a population) runs (``error``
-    None)."""
+    None). Since item 14 ``mesh=`` is ported: a single fused run (one
+    kernel) refuses it with the JAX package's ValueError, at every
+    precision."""
     if error is None:
         res = solve("heat", device="cpu", iterations=2, batch_size=8,
                     nodes=5, **kwargs)

@@ -48,6 +48,9 @@ from differential_equations_dnn_tpu_torch.ops import (  # noqa: E402
     GridSubsample,
     gauss_legendre_nodes,
 )
+from differential_equations_dnn_tpu_torch.parallel import (  # noqa: E402
+    make_mesh,
+)
 
 H, L, B, K = 8, 2, 8, 3
 LR = 1e-3
@@ -396,10 +399,6 @@ def test_solve_dgm_on_cpu(name):
     assert _fused_route(PROBLEMS[name](), model, "constant", B) == "dgm"
 
 
-def _unported(item):
-    return NotImplementedError, f"ROADMAP.*item {item}"
-
-
 @pytest.mark.parametrize("call, error, match", [
     (lambda: FitzHughNagumo(arch="fourier_mlp"), None, None),
     (lambda: solve("fitzhugh_nagumo", constraint="hard", engine="fused",
@@ -414,7 +413,8 @@ def _unported(item):
     (lambda: solve("fredholm", engine="fused", device="cpu", finetune=5,
                    precision="bf16"), ValueError, "unknown precision"),
     (lambda: solve("fredholm", engine="fused", device="cpu", ensemble=4,
-                   mesh=object()), *_unported("14")),
+                   mesh=make_mesh({"data": 1}, "cpu")), ValueError,
+     "'pop' mesh axis"),
     (lambda: _fused_route(types.SimpleNamespace(name="fitzhugh_nagumo",
                                                 arch="fourier_mlp"),
                           MLP(1, 2, 8, 1, "tanh")), ValueError,
@@ -429,7 +429,8 @@ def test_dgm_unported_routes_raise(call, error, match):
     13 the fourier_mlp arch builds (``error`` None), its fused route
     raises that ValueError, and FitzHugh–Nagumo with causal_eps=0 on the
     scan engine trains its automatic 16-replica population (here 2 steps,
-    one L-BFGS step)."""
+    one L-BFGS step). Since item 14 a fused ensemble takes a mesh: one
+    without a 'pop' axis is refused with the JAX package's ValueError."""
     if error is None:
         out = call()
         if hasattr(out, "loss_history"):

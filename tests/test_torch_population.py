@@ -66,6 +66,7 @@ from differential_equations_dnn_tpu_torch.models import (  # noqa: E402
 )
 from differential_equations_dnn_tpu_torch.parallel import (  # noqa: E402
     PopulationConfig,
+    make_mesh,
     take_trials,
     train_population,
     trial_model,
@@ -423,9 +424,11 @@ def test_population_refuses_what_it_cannot_run():
     with pytest.raises(NotImplementedError, match="queue 2, item 7"):
         train_population(Heat1D(taps="pallas"), _small(), 0, LRS,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train_population(Heat1D(), _small(), 0, LRS, mesh=object(),
-                         device="cpu")
+    # Since item 14 a population takes a mesh; one without a 'pop' axis
+    # is refused (an indivisible one: tests/test_torch_parallel.py).
+    with pytest.raises(ValueError, match="'pop' mesh axis"):
+        train_population(Heat1D(), _small(), 0, LRS,
+                         mesh=make_mesh({"data": 1}, "cpu"), device="cpu")
     with pytest.raises(ValueError, match="batch_sizes"):
         train_population(Heat1D(), _small(), 0, LRS, [1, 2, 99],
                          config=_cfg(2), device="cpu")
@@ -548,10 +551,14 @@ def test_halving_needs_eta_2():
 
 
 def test_population_drivers_refuse_a_mesh():
+    """Since item 14 the drivers take a mesh (tests/test_torch_parallel.py);
+    they refuse one without a 'pop' axis, as train_population does."""
+    mesh = make_mesh({"data": 1}, "cpu")
     for driver in (search.random_search, search.successive_halving,
                    search.tpe_search, search.tpe_halving):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            driver(Heat1D(), 0, mesh=object(), device="cpu")
+        with pytest.raises(ValueError, match="'pop' mesh axis"):
+            driver(Heat1D(), 0, num_samples=2, max_batch_size=4, mesh=mesh,
+                   model=_small(), device="cpu")
 
 
 @pytest.mark.parametrize("which", ["batch_size", "batchnorm"])

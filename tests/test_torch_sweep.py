@@ -39,6 +39,9 @@ from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
     fused_engine as fe,
 )
 from differential_equations_dnn_tpu_torch.models import MLP  # noqa: E402
+from differential_equations_dnn_tpu_torch.parallel import (  # noqa: E402
+    make_mesh,
+)
 from differential_equations_dnn_tpu_torch.sweep import (  # noqa: E402
     search,
 )
@@ -299,11 +302,16 @@ def test_driver_matches_jax(case, monkeypatch):
 
 
 def test_mesh_is_not_ported():
-    """The sharded rung evaluators (ROADMAP item 14) are not ported."""
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sweep.halving_search_fused(PROBLEMS["heat"](), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sweep.tpe_halving_fused(PROBLEMS["heat"](), mesh=object())
+    """Since item 14 the fused halving drivers take a mesh and evaluate
+    their rungs with the sharded rung evaluators
+    (tests/test_torch_parallel.py); a mesh without a 'pop' axis is refused
+    with the JAX package's ValueError, before any trial trains."""
+    mesh = make_mesh({"data": 1}, "cpu")
+    with pytest.raises(ValueError, match="'pop' mesh axis"):
+        sweep.halving_search_fused(PROBLEMS["heat"](), mesh=mesh,
+                                   device="cpu")
+    with pytest.raises(ValueError, match="'pop' mesh axis"):
+        sweep.tpe_halving_fused(PROBLEMS["heat"](), mesh=mesh, device="cpu")
 
 
 # ---------------------------------------------------------------------------

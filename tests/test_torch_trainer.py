@@ -51,6 +51,9 @@ from differential_equations_dnn_tpu_torch.models import (  # noqa: E402
     dgm_params_from_jax,
     params_from_jax,
 )
+from differential_equations_dnn_tpu_torch.parallel import (  # noqa: E402
+    make_mesh,
+)
 from differential_equations_dnn_tpu_torch.train import (  # noqa: E402
     TrainConfig,
     inject_fault,
@@ -462,8 +465,9 @@ class _Stateful(torch.nn.Module):
 @pytest.mark.parametrize("call, match", [
     (lambda: solve("heat", ensemble=2, device="cpu", iterations=3,
                    batch_size=8, nodes=5), None),
-    (lambda: train(SimpleODE(), 0, _cfg(), mesh=object(), device="cpu"),
-     "ROADMAP.*item 14"),
+    (lambda: train(SimpleODE(), 0, _cfg(),
+                   mesh=make_mesh({"pop": 1}, "cpu"), device="cpu"),
+     "'data' mesh axis"),
     (lambda: solve("heat", constraint="hard", taps="taylor", device="cpu"),
      r"Heat1D\(taps='jvp'\)"),
     (lambda: solve("volterra", quadrature="montecarlo", engine="fused",
@@ -480,7 +484,9 @@ def test_unported_scan_routes_raise(call, match):
     engine='scan'. Hard heat takes the jvp taps only (the JAX package's
     ValueError). Since item 13 an ensemble (a population) and a model with
     buffers train on the scan engine (``match`` None): they run, with a
-    finite loss history."""
+    finite loss history. Since item 14 ``train`` takes a mesh
+    (tests/test_torch_parallel.py): one without a 'data' axis is refused
+    with a ValueError."""
     if match is None:
         res = call()
         assert np.all(np.isfinite(res.loss_history))
