@@ -142,6 +142,20 @@ Phases (each raises on failure, so any failure exits non-zero):
    the NCCL all-reduce inside the captured graph, bit for bit; (e) a
    population on {"pop": 1}, bit for bit; (f) dryrun_multichip(1). Each
    check prints its launches.
+   Then the CLI phase (CLI_* above ``phase_cli``): (a) ``heat
+   --solve --engine fused --export`` at heat's CLI defaults (the
+   reference's), MAE under 0.05, #1 and #2 launched; (b) the same cut at
+   7 530 steps (``--checkpoint``) and resumed for 7 470 (``--restore``),
+   bit for bit (a)'s solution and loss tail; (c) the scan engine's 1 000
+   steps against 300 + 700, bit for bit; (d) ``--plot`` on (a)'s arrays
+   prints (a)'s MAE (``--savefig`` writes the figure, or exits naming
+   matplotlib where it is not installed); (e) a ``python -I`` process
+   that cannot import the port loads (a)'s export on cuda and serves the
+   1 600 grid points and n = 1 and 17 within 1e-5 of #2's grid; (f)
+   ``python -m differential_equations_dnn_tpu_torch heat --solve --engine
+   fused --niters 500`` exits 0; (g) Fredholm fused (#4/#7), MAE under
+   0.0134; (h) the tpe-fused and asha-fused sweeps (#4/#5 in the sweep
+   mode), a finite best score. Each run prints its launches.
 5. result   — the smoke's total seconds, a JSON line of the kernels,
               then as the last line {"ok": true, "device": {...}}.
 """
@@ -3008,6 +3022,274 @@ def phase_mesh():
     return launches
 
 
+# The CLI phase (python -m differential_equations_dnn_tpu_torch): heat's
+# fused run at its reference defaults (the CLI's), resumed at a split that
+# is not a multiple of the 50-step graph, and the scan engine at a split
+# that cuts a 256-step graph block.
+CLI_HEAT_STEPS = 15_000   # heat's CLI default
+CLI_SPLIT = (7530, 7470)
+CLI_SCAN = (300, 700)
+CLI_HEAT_BOUND = 0.05
+CLI_FREDHOLM_BOUND = 0.0134
+CLI_SERVE_ATOL = 1e-5   # the exported program (torch ops) against #2
+CLI_MODULE_STEPS = 500
+CLI_SWEEPS = [("tpe-fused", ["--num-samples", "8", "--concurrent", "4"]),
+              ("asha-fused", ["--num-samples", "9"])]
+CLI_SWEEP_ITERS = 1000
+
+# (e) A fresh ``python -I`` in which the port cannot be imported serves the
+# exported heat solution on the card.
+SERVE_CHILD = """
+import json
+import sys
+
+sys.modules["differential_equations_dnn_tpu_torch"] = None
+sys.modules["differential_equations_dnn_tpu"] = None
+sys.modules["jax"] = None
+
+import io
+import numpy as np
+import torch
+from torch.export.passes import move_to_device_pass
+
+program, grid, out = sys.argv[1:4]
+program = torch.export.load(io.BytesIO(open(program, "rb").read()))
+fn = move_to_device_pass(program, "cuda").module()
+x = torch.from_numpy(np.load(grid)).cuda()
+answers = {}
+with torch.no_grad():
+    for n in (x.shape[0], 1, 17):
+        y = fn(x[:n])
+        assert y.device.type == "cuda" and y.shape == (n, 1), y.shape
+        answers[str(n)] = y.cpu().numpy()
+np.savez(out, **answers)
+print(json.dumps({"served": sorted(int(n) for n in answers)}))
+"""
+
+
+def phase_cli():
+    """The command line, in this process and in two child processes; see
+    CLI_* above. Each run's kernel launches are counted (set to 0 just
+    before it, read just after) and printed; returns them."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from differential_equations_dnn_tpu_torch import cli
+    from differential_equations_dnn_tpu_torch.equations import Heat1D
+    from differential_equations_dnn_tpu_torch.train.metrics import (
+        mean_absolute_error,
+    )
+
+    work = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    launches = {}
+
+    def run(label, argv, out):
+        """``cli.main(argv)`` writing to ``work/out``; its printed lines
+        (the scan trainer's per-100-step lines left out) and launches."""
+        reset_counts()
+        torch.cuda.synchronize()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv + ["--results-dir", str(work / out)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[label] = {k: v for k, v in read_counts().items() if v}
+        text = buf.getvalue()
+        for line in text.splitlines():
+            if not line.startswith("Iteration:"):
+                print(f"  {line}")
+        print(f"cli {label}: {seconds:.2f} s; launches "
+              + (", ".join(f"{k} {v}" for k, v in launches[label].items())
+                 or "none"))
+        return text
+
+    def arrays(out, names):
+        return [np.load(work / out / f"{n}.npy") for n in names]
+
+    def manifest(out, name):
+        return json.loads((work / out / f"{name}_run.json").read_text())[
+            "params"]
+
+    sol, loss, exact, fig = cli.ARTIFACTS["heat"]
+    heat = ["heat", "--solve", "--engine", "fused"]
+
+    # (a) heat at its reference defaults on #1, the grid on #2, exported.
+    pt2 = work / "heat.pt2"
+    run("(a) heat --solve --engine fused", heat + ["--export", str(pt2)], "a")
+    u_a, l_a, y = arrays("a", (sol, loss, exact))
+    mae_a = mean_absolute_error(y, u_a)
+    rate_a = manifest("a", "heat")["iters_per_sec"]
+    got = launches["(a) heat --solve --engine fused"]
+    print(f"(a) heat fused, CLI defaults (15 000 steps, batch 64, lr 1e-4, "
+          f"40x40 grid): MAE {mae_a:.6g} (bound {CLI_HEAT_BOUND}), "
+          f"{rate_a} it/s, #1 {got.get('heat_fused_train_chunk', 0)} "
+          f"launches, #2 {got.get('mlp_forward', 0)}")
+    if not (u_a.shape == (40, 40) and l_a.shape == (CLI_HEAT_STEPS,)
+            and np.all(np.isfinite(u_a)) and np.all(np.isfinite(l_a))):
+        raise AssertionError(f"(a) shapes {u_a.shape}, {l_a.shape}")
+    if not mae_a <= CLI_HEAT_BOUND:
+        raise AssertionError(f"(a) MAE {mae_a} above {CLI_HEAT_BOUND}")
+    for kernel in ("heat_fused_train_chunk", "mlp_forward"):
+        if got.get(kernel, 0) <= 0:
+            raise AssertionError(f"(a) {kernel} was not launched")
+
+    # (b) the same run cut at a step that is not a multiple of the graph.
+    first, second = CLI_SPLIT
+    ck = work / "ck_fused"
+    run(f"(b) heat fused --niters {first} --checkpoint",
+        heat + ["--niters", str(first), "--checkpoint", str(ck)], "b")
+    run(f"(b) heat fused --niters {second} --restore",
+        heat + ["--niters", str(second), "--restore", str(ck)], "b")
+    u_b, l_b = arrays("b", (sol, loss))
+    if not (np.array_equal(u_b, u_a) and np.array_equal(l_b, l_a[first:])):
+        raise AssertionError(f"(b) resumed fused run differs from (a): "
+                             f"solution {np.max(np.abs(u_b - u_a)):.3g}")
+    print(f"(b) {first} + {second} steps on #1: the solution and the "
+          f"resumed {second} losses equal (a)'s bit for bit")
+
+    # (c) the scan engine, cut inside a 256-step graph block.
+    first, second = CLI_SCAN
+    scan = ["heat", "--solve"]
+    run(f"(c) heat scan --niters {first + second}",
+        scan + ["--niters", str(first + second)], "c1")
+    ck = work / "ck_scan"
+    run(f"(c) heat scan --niters {first} --checkpoint",
+        scan + ["--niters", str(first), "--checkpoint", str(ck)], "c2")
+    run(f"(c) heat scan --niters {second} --restore",
+        scan + ["--niters", str(second), "--restore", str(ck)], "c2")
+    (u_c1, l_c1), (u_c2, l_c2) = arrays("c1", (sol, loss)), \
+        arrays("c2", (sol, loss))
+    if not (np.array_equal(u_c1, u_c2)
+            and np.array_equal(l_c1[first:], l_c2)):
+        raise AssertionError(f"(c) resumed scan run differs: solution "
+                             f"{np.max(np.abs(u_c1 - u_c2)):.3g}")
+    print(f"(c) scan {first} + {second} steps: bit for bit the "
+          f"{first + second}-step run (MAE "
+          f"{mean_absolute_error(arrays('c1', (exact,))[0], u_c1):.6g})")
+
+    # (d) the plot phase reads (a)'s arrays. The card's machine may have no
+    # matplotlib: then --savefig must exit naming it, and --plot alone
+    # still prints the MAE.
+    try:
+        import matplotlib  # noqa: F401
+        figures = True
+    except ModuleNotFoundError:
+        figures = False
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        if figures:
+            text = run("(d) heat --plot --savefig",
+                       ["heat", "--plot", "--savefig"], "a")
+        else:
+            try:
+                run("(d) heat --plot --savefig",
+                    ["heat", "--plot", "--savefig"], "a")
+            except SystemExit as refusal:
+                if "matplotlib" not in str(refusal.code):
+                    raise
+                print(f"(d) no matplotlib here: --savefig exits "
+                      f"({refusal.code!r})")
+            else:
+                raise AssertionError("(d) --savefig without matplotlib "
+                                     "did not exit")
+            text = run("(d) heat --plot", ["heat", "--plot"], "a")
+    finally:
+        os.chdir(cwd)
+    printed = float(text.split("DGM MAE:")[-1].split()[0])
+    if printed != float(np.round(mae_a, 6)):
+        raise AssertionError(f"(d) plot printed MAE {printed}, (a) {mae_a}")
+    if figures and not (work / fig).exists():
+        raise AssertionError(f"(d) {fig} not written")
+    print(f"(d) printed MAE {printed} = (a)'s; "
+          + (f"{fig} written" if figures else
+             "no figure: matplotlib is not installed on this machine"))
+
+    # (e) serve the export from a process that cannot import the port.
+    grid = work / "grid.npy"
+    np.save(grid, Heat1D().grid_inputs(40).numpy())
+    served = work / "served.npz"
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-I", "-c", SERVE_CHILD, str(pt2), str(grid),
+         str(served)], capture_output=True, text=True, timeout=300,
+        cwd=work)
+    if child.returncode != 0:
+        raise AssertionError(f"(e) serving process failed:\n"
+                             f"{child.stderr[-3000:]}")
+    answers = np.load(served)
+    full = answers["1600"].reshape(-1)
+    err = float(np.max(np.abs(full - u_a.reshape(-1))))
+    sub = max(float(np.max(np.abs(answers[str(n)].reshape(-1)
+                                  - u_a.reshape(-1)[:n]))) for n in (1, 17))
+    print(f"(e) python -I without the port: {pt2.stat().st_size} bytes "
+          f"loaded on cuda, 1 600 grid points and n = 1, 17 served in "
+          f"{time.perf_counter() - t0:.2f} s; max |served - #2's grid| "
+          f"{err:.3g}, at n = 1 and 17 {sub:.3g} (atol {CLI_SERVE_ATOL})")
+    if not (err <= CLI_SERVE_ATOL and sub <= CLI_SERVE_ATOL):
+        raise AssertionError(f"(e) served solution parts from #2's by "
+                             f"{max(err, sub)}")
+
+    # (f) the module entry point, as a user runs it.
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", PKG, *heat, "--niters",
+         str(CLI_MODULE_STEPS), "--results-dir", str(work / "f")],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    if child.returncode != 0:
+        raise AssertionError(f"(f) python -m {PKG} exited "
+                             f"{child.returncode}:\n{child.stderr[-3000:]}")
+    l_f = arrays("f", (loss,))[0]
+    print(f"(f) python -m {PKG} heat --solve --engine fused --niters "
+          f"{CLI_MODULE_STEPS}: exit 0 in {time.perf_counter() - t0:.2f} s, "
+          f"{l_f.shape[0]} losses; its last line: "
+          f"{child.stdout.strip().splitlines()[-1]}")
+    if l_f.shape != (CLI_MODULE_STEPS,):
+        raise AssertionError(f"(f) loss history {l_f.shape}")
+
+    # (g) Fredholm on the DGM engine (#4 with #7) at its defaults.
+    label = "(g) fredholm --solve --engine fused"
+    run(label, ["fredholm", "--solve", "--engine", "fused"], "g")
+    names = cli.ARTIFACTS["fredholm"]
+    u_g, y_g = arrays("g", (names[0], names[2]))
+    mae_g = mean_absolute_error(y_g, u_g)
+    print(f"(g) fredholm fused: MAE {mae_g:.6g} (bound "
+          f"{CLI_FREDHOLM_BOUND}), {manifest('g', 'fredholm')['iters_per_sec']}"
+          f" it/s")
+    if not mae_g <= CLI_FREDHOLM_BOUND:
+        raise AssertionError(f"(g) MAE {mae_g} above {CLI_FREDHOLM_BOUND}")
+    for kernel in ("fused_dgm_chunk", "dgm_step_math"):
+        if launches[label].get(kernel, 0) <= 0:
+            raise AssertionError(f"(g) {kernel} was not launched")
+
+    # (h) the fused sweep tier through the CLI (#4/#5 in the sweep mode).
+    for scheduler, extra in CLI_SWEEPS:
+        label = f"(h) sweep --scheduler {scheduler}"
+        run(label, ["sweep", "--equation", "heat", "--scheduler", scheduler,
+                    "--max-iters", str(CLI_SWEEP_ITERS), *extra],
+            f"h_{scheduler}")
+        data = json.loads((work / f"h_{scheduler}" / "sweep_heat.json")
+                          .read_text())
+        print(f"(h) {scheduler}: {len(data['configs'])} trials, best "
+              f"{data['best_score']:.6g} at {data['best_config']}")
+        if not math.isfinite(data["best_score"]):
+            raise AssertionError(f"(h) {scheduler}: best score "
+                                 f"{data['best_score']}")
+        if not any(v for k, v in launches[label].items()
+                   if k.endswith("[sweep]")):
+            raise AssertionError(f"(h) {scheduler} launched no kernel in "
+                                 f"the sweep mode")
+    return launches
+
+
 def timed(phase, *args):
     """``phase(*args)``, its seconds printed after it."""
     t0 = time.perf_counter()
@@ -3033,6 +3315,7 @@ def main():
     launches[("sweep",)], sweep_shapes = timed(phase_sweep)
     timed(phase_population_card, pop_launches)
     timed(phase_mesh)
+    timed(phase_cli)
     # Launches from each kernel's own path: #2 and #1 from constant-lr
     # heat, #3 from the scan solve of heat with pallas taps, #6 and #4 from
     # heat2d, #7 and #4 at the DGM layout from

@@ -31,6 +31,13 @@ plain MLP runs the MLP-forward kernel.
                    halving, TPE × halving, every trial inside the kernels)
                    and on populations (random, halving, TPE, TPE ×
                    halving), and the batch-size and BatchNorm ablations
+* ``serving``    — ``export_solution`` / ``load_solution``: a trained
+                   solution as a ``torch.export`` program
+* ``utils``      — timing, run manifests, ``temp_results/*.npy`` IO
+* ``viz``, ``cli`` — the reference's figures and the command line
+                   (``python -m differential_equations_dnn_tpu_torch``),
+                   imported on first use, so that importing the package
+                   loads no matplotlib
 """
 
 __version__ = "0.1.0"
@@ -44,8 +51,13 @@ from differential_equations_dnn_tpu_torch import (
     parallel,
     sweep,
     train,
+    utils,
 )
 from differential_equations_dnn_tpu_torch.api import SolveResult, solve
+from differential_equations_dnn_tpu_torch.serving import (
+    export_solution,
+    load_solution,
+)
 from differential_equations_dnn_tpu_torch.sweep import (
     halving_search_fused,
     tpe_halving_fused,
@@ -61,10 +73,22 @@ __all__ = [
     "kernels",
     "parallel",
     "sweep",
+    "utils",
     "solve",
+    "export_solution",
+    "load_solution",
     "tpe_search_fused",
     "halving_search_fused",
     "tpe_halving_fused",
     "SolveResult",
     "__version__",
 ]
+
+
+def __getattr__(name):
+    # viz (matplotlib) and cli load on first use; ``import *`` leaves them.
+    if name in ("viz", "cli"):
+        import importlib
+
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

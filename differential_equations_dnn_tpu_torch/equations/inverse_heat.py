@@ -57,6 +57,10 @@ class _InverseModel(nn.Module):
         return _InverseModel(self.net.fresh(generator, device),
                              self.kappa_init)
 
+    @property
+    def input_dim(self):
+        return self.net.input_dim
+
     def kappa(self):
         return torch.exp(self.log_kappa)
 

@@ -545,17 +545,22 @@ def train_in_chunks(model, run_chunk, draw, p, m, v, iterations, chunk_size,
 
 def train_heat_fused_result(problem, seed, iterations, batch_size=64,
                             lrate=1e-4, chunk_size=25_000, model=None,
+                            params=None, opt_state=None, start_step: int = 0,
                             precision="highest", mixed_split=MIXED_SPLIT,
                             device="cuda"):
     """Train the heat equation with the fused kernel; returns a TrainResult
     (see :func:`train_in_chunks` for its timings).
 
     ``model`` (default: ``problem.default_model()`` initialised from
-    ``seed``) is trained in place and returned as ``params``. Step ``i``
-    draws its collocation points from ``(seed, i)`` alone, so the chunk
-    layout cannot change the run. ``precision`` is "highest", "default" or
-    "mixed" (its first ``int(iterations·mixed_split)`` steps at "default",
-    then "highest"; all "highest" where a phase would be empty)."""
+    ``seed``) is trained in place and returned as ``params``. ``params`` (a
+    flat buffer, :func:`pack_params`) replaces its parameters first;
+    ``opt_state`` ({"m", "v"} of an earlier result) and ``start_step``
+    resume a run. Step ``i`` draws its collocation points from ``(seed,
+    i)`` alone and Adam's bias correction takes the absolute step, so
+    neither the chunk layout nor a resume can change the run.
+    ``precision`` is "highest", "default" or "mixed" (its first
+    ``int(iterations·mixed_split)`` steps at "default", then "highest"; all
+    "highest" where a phase would be empty)."""
     n_default = default_steps(iterations, precision, mixed_split)
     device = build.resolve_device(device)
     if model is None:
@@ -563,7 +568,12 @@ def train_heat_fused_result(problem, seed, iterations, batch_size=64,
     model.to(device)
     _check_model(model, device)
     kw = dict(x_max=problem.x_max, t_max=problem.t_max, kappa=problem.kappa)
-    p = pack_params(model)
+    p = pack_params(model) if params is None else params.to(device).clone()
+    if opt_state is None:
+        m, v = torch.zeros_like(p), torch.zeros_like(p)
+    else:
+        m = opt_state["m"].to(device).clone()
+        v = opt_state["v"].to(device).clone()
 
     def run_chunk(p, m, v, u, step0, precision):
         return heat_fused_train_chunk(model, p, m, v, u, step0, lrate,
@@ -572,6 +582,6 @@ def train_heat_fused_result(problem, seed, iterations, batch_size=64,
     def draw(start, n):
         return step_uniforms(seed, start, n, batch_size, device)
 
-    return train_in_chunks(model, run_chunk, draw, p, torch.zeros_like(p),
-                           torch.zeros_like(p), iterations, chunk_size,
-                           device, n_default=n_default)
+    return train_in_chunks(model, run_chunk, draw, p, m, v, iterations,
+                           chunk_size, device, start_step,
+                           n_default=n_default)

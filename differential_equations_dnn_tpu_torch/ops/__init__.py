@@ -1,5 +1,7 @@
 from differential_equations_dnn_tpu_torch.ops.diff import (
     coordinate_taps,
+    hessian_diag,
+    time_jacobian,
     value_dt,
     value_dx_dxx,
 )
@@ -11,16 +13,20 @@ from differential_equations_dnn_tpu_torch.ops.quad import (
 )
 from differential_equations_dnn_tpu_torch.ops.sampling import (
     GridSubsample,
+    UniformBox,
     coprime_stride,
     stride_strata,
 )
 from differential_equations_dnn_tpu_torch.ops.taylor import (
     heat_fused_streams,
     mlp_streams,
+    mlp_taps,
 )
 
 __all__ = [
     "coordinate_taps",
+    "hessian_diag",
+    "time_jacobian",
     "value_dt",
     "value_dx_dxx",
     "gauss_legendre_nodes",
@@ -28,8 +34,10 @@ __all__ = [
     "integrate",
     "montecarlo_nodes",
     "GridSubsample",
+    "UniformBox",
     "coprime_stride",
     "stride_strata",
     "heat_fused_streams",
     "mlp_streams",
+    "mlp_taps",
 ]

@@ -24,6 +24,10 @@ plain nets (rows independent) and for BatchNorm nets alike, whose rows
 are coupled through the batch statistics. There the taps are the
 reference's ``torch.autograd.grad(u, x, ones)``; the JAX package's batched
 jvp (J·1) differs (ROADMAP queue 3).
+
+``time_jacobian``, ``dirderiv2`` and ``hessian_diag`` are the JAX
+package's general helpers in forward mode (``torch.func.jvp``), which
+compose with ``torch.func.vmap``; no residual of the port uses them.
 """
 
 import contextlib
@@ -121,3 +125,36 @@ def value_dx_dxx(f, x, x_axis=0):
     y, (dy,), (ddy,) = coordinate_taps(f, x, first=(x_axis,),
                                        second=(x_axis,))
     return y, dy, ddy
+
+
+def time_jacobian(f, t):
+    """For systems y: R -> R^k (e.g. FitzHugh–Nagumo): one jvp along t gives
+    the time derivative of every output component at once, replacing the
+    reference's per-component reverse taps (fitzhugh_nagumo.py:74-84).
+
+    Returns (y, dy/dt), each of ``f(t)``'s shape."""
+    from torch.func import jvp
+
+    return jvp(f, (t,), (torch.ones_like(t),))
+
+
+def dirderiv2(f, x, v):
+    """(f(x), ∂f/∂v, ∂²f/∂v²): value and first and second directional
+    derivatives along ``v`` in one jvp over jvp (forward over forward)."""
+    from torch.func import jvp
+
+    def first(z):
+        return jvp(f, (z,), (v,))
+
+    (y, dy), (_, d2y) = jvp(first, (x,), (v,))
+    return y, dy, d2y
+
+
+def hessian_diag(f, x):
+    """Diagonal of the Hessian of a scalar-output ``f`` at ``x`` (shape
+    [d]): :func:`dirderiv2` along each coordinate axis, vmapped over the
+    axes."""
+    from torch.func import vmap
+
+    eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    return vmap(lambda v: dirderiv2(f, x, v)[2])(eye)

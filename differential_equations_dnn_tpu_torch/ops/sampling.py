@@ -1,7 +1,9 @@
 """Collocation samplers.
 
-Counterpart of the JAX package's ops/sampling.py. Only ``GridSubsample``
-is ported: FitzHugh–Nagumo draws from it when its causal weighting is off.
+Counterpart of the JAX package's ops/sampling.py. FitzHugh–Nagumo draws
+from ``GridSubsample`` when its causal weighting is off; ``UniformBox`` is
+the general box sampler (the equations build their batches from the
+step-keyed uniforms of core/prng.py instead).
 ``stride_strata`` is the stratum layout of causal advection's fused spec
 (the JAX package's kernels/fused_engine.py, ``AdvectionSpec.build``).
 """
@@ -10,6 +12,33 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+
+@dataclass(frozen=True)
+class UniformBox:
+    """Uniform sampling over an axis-aligned box ∏ [low_i, high_i).
+
+    Covers the reference's per-equation sampling: t ~ 1.01·U[0,1)
+    (simple_ode.py:92), (x, t) ~ U[0,π)×U[0,3) (heat.py:125-126),
+    t ~ (π/2)·U (fredholm.py:100). The draws come from an explicit
+    ``torch.Generator`` (a CPU one, as ``core.prng.generator`` makes), in
+    the JAX package's argument order ``sample(key, n)``."""
+
+    lows: tuple
+    highs: tuple
+
+    @property
+    def dim(self):
+        return len(self.lows)
+
+    def sample(self, generator, n, device=None):
+        """[n, dim] float32 points, drawn on the CPU, put on ``device``."""
+        lows = torch.tensor(self.lows, dtype=torch.float32)
+        highs = torch.tensor(self.highs, dtype=torch.float32)
+        u = torch.rand((n, self.dim), generator=generator)
+        return (lows + u * (highs - lows)).to(device)
+
+    __call__ = sample
 
 
 @dataclass(frozen=True)

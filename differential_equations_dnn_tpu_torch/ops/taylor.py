@@ -122,6 +122,22 @@ def mlp_streams(model, x, second_dirs=(), first_dirs=(), constraints=()):
     return u, seconds, firsts_of_seconds, firsts, cons
 
 
+def mlp_taps(model, x, v, w):
+    """u, ∂_v u, ∂²_v u and ∂_w u of a plain MLP at a batch of points, from
+    one :func:`mlp_streams` chain (the JAX package's ``mlp_taps``).
+
+    ``x`` is [B, D], ``v`` (the second-order direction, e.g. e_x) and ``w``
+    (an independent first-order one, e.g. e_t) are [D]. Returns (u, du_v,
+    d2u_vv, du_w), each [B, out_dim]. A BatchNorm MLP raises a ValueError,
+    as in the JAX package."""
+    if getattr(model, "batch_norm", None) is not None:
+        raise ValueError("mlp_taps supports plain MLPs only")
+    u, (d2u_vv,), (du_v,), (du_w,), _ = mlp_streams(
+        model, x, second_dirs=([float(c) for c in v],),
+        first_dirs=([float(c) for c in w],))
+    return u, du_v, d2u_vv, du_w
+
+
 def heat_fused_streams(model, xt, x0, xb1, xb2):
     """The heat step's 7 network evaluations in one stacked chain: interior
     value, x-, xx- and t-tangents, and the IC and two boundary forwards.

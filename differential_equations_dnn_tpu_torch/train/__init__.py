@@ -1,3 +1,8 @@
+from differential_equations_dnn_tpu_torch.train.checkpoint import (
+    checkpoint_like,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from differential_equations_dnn_tpu_torch.train.finetune import (
     finetune_lbfgs,
 )
@@ -13,6 +18,7 @@ from differential_equations_dnn_tpu_torch.train.trainer import (
     train,
 )
 
-__all__ = ["finetune_lbfgs", "mean_absolute_error", "TrainConfig",
+__all__ = ["checkpoint_like", "restore_checkpoint", "save_checkpoint",
+           "finetune_lbfgs", "mean_absolute_error", "TrainConfig",
            "TrainResult", "inject_fault", "make_train_step",
            "opt_state_from_jax", "train"]

@@ -152,13 +152,32 @@ def test_mlp_forward_takes_plain_version_on_cpu():
 
 
 def test_package_imports_without_jax():
-    """(h) The port never imports jax."""
+    """(h) The port never imports jax: the package, its periphery (cli,
+    serving, viz, utils, train.checkpoint) and ``python -m
+    differential_equations_dnn_tpu_torch --help``, with jax poisoned."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import differential_equations_dnn_tpu_torch as p; "
+            "assert 'matplotlib' not in sys.modules; "
+            "from differential_equations_dnn_tpu_torch import "
+            "cli, serving, utils, viz; "
+            "from differential_equations_dnn_tpu_torch.train import "
+            "checkpoint; "
             "assert 'differential_equations_dnn_tpu' not in sys.modules; "
-            "print(p.solve.__name__)")
+            "print(p.solve.__name__, cli.main.__name__, "
+            "serving.export_solution.__name__, utils.fn_timer.__name__, "
+            "viz.plot_heat.__name__, checkpoint.save_checkpoint.__name__)")
+    root = Path(__file__).resolve().parents[1]
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, cwd=Path(__file__).resolve().parents[1],
-                         timeout=120)
+                         text=True, cwd=root, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "solve"
+    assert out.stdout.strip() == ("solve main export_solution fn_timer "
+                                  "plot_heat save_checkpoint")
+    code = ("import runpy, sys; sys.modules['jax'] = None; "
+            "sys.argv = ['differential_equations_dnn_tpu_torch', '--help']; "
+            "runpy.run_module('differential_equations_dnn_tpu_torch', "
+            "run_name='__main__', alter_sys=True)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=root, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "ablation-batchnorm" in out.stdout
+    assert "differential_equations_dnn_tpu" not in out.stderr

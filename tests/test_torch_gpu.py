@@ -2130,3 +2130,55 @@ def test_resnet_trains_on_the_scan_engine(cuda):
         iterations=512, batch_size=64, verbose=False), model=net)
     assert res.loss_history[-50:].mean() < res.loss_history[:50].mean()
     assert np.all(np.isfinite(heat.evaluate(net, 10)))
+
+
+# ---------------------------------------------------------------------------
+# The periphery on the card: the CLI's resume and serving
+# ---------------------------------------------------------------------------
+
+
+def test_cli_fused_heat_resume_is_bit_for_bit(cuda, tmp_path):
+    """heat --solve --engine fused on #1, cut at 130 steps (not a multiple
+    of the 50-step graph) and resumed for 170: the uncut run's solution
+    and the tail of its losses, bit for bit."""
+    from differential_equations_dnn_tpu_torch import cli
+
+    base = ["heat", "--solve", "--engine", "fused", "--nnodes", "12",
+            "--seed", "1"]
+    ck = str(tmp_path / "ck")
+    ft.heat_fused_train_chunk.launches = 0
+    cli.main(base + ["--niters", "300", "--results-dir", str(tmp_path / "a")])
+    cli.main(base + ["--niters", "130", "--checkpoint", ck,
+                     "--results-dir", str(tmp_path / "b")])
+    cli.main(base + ["--niters", "170", "--restore", ck,
+                     "--results-dir", str(tmp_path / "b")])
+    assert ft.heat_fused_train_chunk.launches > 0
+    for name, tail in (("heat_sol_1d_dgm", None), ("heat_sol_1d_dgm_loss",
+                                                   170)):
+        a = np.load(tmp_path / "a" / f"{name}.npy")
+        b = np.load(tmp_path / "b" / f"{name}.npy")
+        np.testing.assert_array_equal(a[-tail:] if tail else a, b)
+
+
+def test_exported_heat_solution_serves_on_the_card(cuda, tmp_path):
+    """A trained heat net exported (from a CPU copy) and loaded on cuda
+    answers on the card within 1e-5 of #2's grid, at n = 1, 17 and the
+    whole 1 600-point grid."""
+    from differential_equations_dnn_tpu_torch import (
+        export_solution,
+        load_solution,
+    )
+
+    problem = Heat1D()
+    res = ft.train_heat_fused_result(problem, 0, 200)
+    model = res.params
+    grid = problem.evaluate(model, 40).reshape(-1)  # kernel #2
+    x = problem.grid_inputs(40, device=cuda)
+    fn = load_solution(export_solution(model, 2, path=tmp_path / "h.pt2"),
+                       device="cuda")
+    assert next(model.parameters()).is_cuda
+    for n in (1, 17, x.shape[0]):
+        y = fn(x[:n])
+        assert y.is_cuda and y.shape == (n, 1)
+        np.testing.assert_allclose(y.cpu().numpy().reshape(-1), grid[:n],
+                                   atol=1e-5, rtol=0)
