@@ -52,7 +52,12 @@ Phases (each raises on failure, so any failure exits non-zero):
               poisson: a HardConstraint's raw net, interior streams only)
               get the same #6 and 50-step #4 checks and a 1 000-step
               chunk each, and hard heat a packed N = 4 chunk (every
-              replica bit for bit against the single chunk). Causal
+              replica bit for bit against the single chunk). Then
+              #3's trial axis (STREAM_TRIALS: T nets in one launch under
+              torch.func.vmap, the population's call): each trial bit
+              for bit its own one-trial launch and within #3's tolerance
+              of the plain version, T = 8 at B = 64 timed by device time
+              beside its bound (its JSON row). Causal
               advection (c = 50, ε = 5: the cross-point loss kernel) gets
               the same #6, 50- and 1 000-step checks and a packed N = 2
               chunk (bit for bit per replica). #2's row
@@ -124,7 +129,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    started it from), (f) a ResNet on the scan trainer, all during the
    build; after the sweep phase the headline population's step timed
    alone (55 heat trials x 1 024 rows: host draws, an eager step, a
-   graph replay) and (c) solve("heat", engine="scan", ensemble=8); the
+   graph replay), (c) solve("heat", engine="scan", ensemble=8) and (g)
+   the same with taps="pallas" (kernel #3 with T = 8 once a population
+   step, inside the population graph; its steps/s beside (c)'s); the
    cuts of depth on an earlier line; peak memory, captures and replays
    printed. Since PR 15 heat's two scan solves run SCAN_HEAT_STEPS steps
    (under their MAE bound), the other scan solves run whole scan-graph
@@ -139,7 +146,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    batch-size space, sharded rungs against packed rungs (bit for bit
    where the tiles match, MESH_TILE_RTOL where they differ); (d)
    data-parallel train() of heat, jvp and pallas taps (kernel #3), with
-   the NCCL all-reduce inside the captured graph, bit for bit; (e) a
+   the NCCL all-reduce inside the captured graph, bit for bit, and of a
+   pre-BN heat MLP and causal advection (rows coupled across ranks; at
+   one rank no gather on the path), bit for bit; (e) a
    population on {"pop": 1}, bit for bit; (f) dryrun_multichip(1). Each
    check prints its launches.
    Then the CLI phase (CLI_* above ``phase_cli``): (a) ``heat
@@ -272,6 +281,9 @@ MLP_SHAPES = [("simple_ode", 1, 32, 1, "tanh"), ("heat", 2, 128, 3, "tanh"),
 # Widths past the first designs of kernels #1 (H = 221) and #3 (H = 191).
 HEAT_WIDE = 256
 STREAMS_WIDE = (256, 512)
+# Kernel #3's trial axis (T, B, H): the population's shape (8 trials of
+# heat's 64 rows at H = 128, the JSON row), a large batch, a ragged one.
+STREAM_TRIALS = [(8, 64, 128), (3, 1000, 128), (2, 37, 256)]
 # The scan trainer's solves: (equation, solve's extra arguments, MAE bound),
 # the bounds as for the fused solves. Since PR 15 heat's two scan solves
 # run SCAN_HEAT_STEPS of their 15 000 steps, under the same bound (they
@@ -888,6 +900,100 @@ def check_heat_streams():
                     atol=1e-6)
     print(f"heat pallas-taps gradient vs taylor taps: max|diff| "
           f"{max(max_abs(a, c) for a, c in zip(*grads)):.3g}")
+    return row
+
+
+def trial_streams(model, plain=False):
+    """``fn(stacked, points)``: kernel #3's wrapper (or its plain version)
+    over the trials of ``stacked`` weights of ``model``'s architecture,
+    through ``functional_call`` under ``torch.func.vmap``, as the
+    population trainer calls it."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.kernels import taylor_mlp as tm
+
+    class Streams(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = model
+
+        def forward(self, *points):
+            fn = (tm.heat_fused_streams_plain if plain
+                  else tm.heat_fused_streams)
+            return fn(self.model, *points)
+
+    mod = Streams()
+    return lambda stacked, points: torch.func.vmap(
+        lambda p, *x: torch.func.functional_call(
+            mod, {f"model.{k}": v for k, v in p.items()}, x))(stacked,
+                                                               *points)
+
+
+def check_heat_streams_trials():
+    """Kernel #3 over T trials in one launch (grid y = T), at each
+    STREAM_TRIALS shape: each trial bit for bit its own one-trial launch,
+    and within #3's tolerance of the plain version (vmapped over the
+    trials). The T = 8, B = 64 shape (the population's) timed by device
+    time beside its bound; returns its row."""
+    import torch
+
+    from differential_equations_dnn_tpu_torch.core.prng import generator
+    from differential_equations_dnn_tpu_torch.equations import Heat1D
+    from differential_equations_dnn_tpu_torch.kernels import taylor_mlp as tm
+    from differential_equations_dnn_tpu_torch.models import MLP
+
+    dev = torch.device("cuda")
+    L, O = 3, 1
+    keys = ("xt", "x0", "xb1", "xb2")
+    row = None
+    for T, B, H in STREAM_TRIALS:
+        models = [MLP(2, O, H, L, "tanh", generator=generator(10 + t),
+                      device=dev) for t in range(T)]
+        stacked = {k: torch.stack([dict(m.named_parameters())[k].detach()
+                                   for m in models])
+                   for k, _ in models[0].named_parameters()}
+        batches = [Heat1D().sample(B, generator(20 + t), dev)
+                   for t in range(T)]
+        pts = [torch.stack([b[k] for b in batches]) for k in keys]
+        kernel_fn, plain_fn = (trial_streams(models[0], plain)
+                               for plain in (False, True))
+        with torch.no_grad():
+            before = tm.heat_fused_streams.launches
+            got = kernel_fn(stacked, pts)
+            if tm.heat_fused_streams.launches - before != 1:
+                raise AssertionError(f"heat_fused_streams T={T}: not one "
+                                     f"launch for {T} trials")
+            want = plain_fn(stacked, pts)
+            for t, model in enumerate(models):
+                one = tm.heat_fused_streams(model, *(p[t] for p in pts))
+                for s, (g, o) in enumerate(zip(got, one)):
+                    if not torch.equal(g[t], o):
+                        raise AssertionError(
+                            f"heat_fused_streams T={T} B={B} H={H}: trial "
+                            f"{t} stream {s} differs from its one-trial "
+                            f"launch (max {max_abs(g[t], o):.3g})")
+            # Tolerance: #3's against its plain streams (check_heat_streams).
+            for s, (g, w) in enumerate(zip(got, want)):
+                check_close(f"heat_fused_streams T={T} B={B} H={H} stream "
+                            f"{s}", g, w, rtol=1e-5, atol=1e-5)
+            err = max(max_abs(g, w) for g, w in zip(got, want))
+            ms = device_ms(lambda: kernel_fn(stacked, pts))
+            plain_ms = device_ms(lambda: plain_fn(stacked, pts))
+        flops = 2 * 7 * B * T * (2 * H + L * H * H + H * O)
+        nbytes = 4 * T * (4 * B * 2 + n_params(2, H, L, O) + 7 * B * O)
+        b = bound(flops, nbytes)
+        print(f"heat_fused_streams trial axis [T={T}, B={B}, H={H}, L={L}]: "
+              f"each trial bit for bit its one-trial launch; max|diff| from "
+              f"the plain version {err:.3g}; device time: kernel {ms:.4f} "
+              f"ms, plain (vmapped) {plain_ms:.4f} ms; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        if row is None:
+            row = dict(name="heat_fused_streams[trials]", route="cuda",
+                       source=f"{PKG}/csrc/heat_streams.cu",
+                       replaces=f"{JAX_KERNELS}/taylor_mlp.py:65 "
+                                f"(under jax.vmap, call :134)",
+                       trials=T, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, **b)
     return row
 
 
@@ -1937,7 +2043,7 @@ def phase_kernels():
     model = prob.default_model(generator=generator(1),
                                device=torch.device("cuda"))
     rows = ([check_mlp_forward()] + check_heat_kernels(model)
-            + [check_heat_streams()])
+            + [check_heat_streams(), check_heat_streams_trials()])
     for name in ENGINE:
         engine_rows = check_engine_kernels(name)
     nested = ([check_engine_kernels(name) for name in LAST]
@@ -2753,11 +2859,18 @@ def check_winner(label, prob, out, rounds):
                              f"parts from its population trial")
 
 
+# The population card's pallas-taps run (g): the launches of its kernel #3
+# rows are read from it.
+PALLAS_POP = "(g) heat ensemble=8 pallas"
+
+
 def phase_population_card(launches):
     """The population checks that need the built kernels or a quiet host,
-    after the build: the headline's step timed alone, and (c), whose
-    picked replica's grid goes through kernel #2. Then every population
-    run's launches: none but (c)'s one of kernel #2."""
+    after the build: the headline's step timed alone, (c), whose
+    picked replica's grid goes through kernel #2, and (g), (c) with
+    pallas taps: kernel #3 with T = 8 once a population step. Then every
+    population run's launches: none but (c)'s and (g)'s one of kernel #2
+    and (g)'s of #3."""
     from differential_equations_dnn_tpu_torch import solve
     from differential_equations_dnn_tpu_torch.parallel import population as pop
 
@@ -2774,8 +2887,36 @@ def phase_population_card(launches):
     if launches["(c) heat ensemble=8"]["mlp_forward"] != 1:
         raise AssertionError("(c) the picked replica's grid did not go "
                              "through kernel #2 once")
+    # (g) the slice's path: the reference heat configuration's 8 trials
+    # through kernel #3's trial axis, inside the population graph.
+    res_g, _ = population_run(launches, PALLAS_POP, lambda: solve(
+        "heat", engine="scan", ensemble=8, taps="pallas", seed=0))
+    steps = res_g.loss_history.shape[0]
+    print(f"(g) solve('heat', engine='scan', ensemble=8, taps='pallas'): "
+          f"MAE {res_g.mae:.6g} (bound {POP_BOUND}), "
+          f"{res_g.iters_per_sec:.1f} population steps/s against (c)'s "
+          f"{res.iters_per_sec:.1f} with jvp taps, wall "
+          f"{res_g.wall_time:.2f} s, build + warm-up + capture "
+          f"{res_g.compile_time:.2f} s")
+    if not (res_g.mae < POP_BOUND and steps == 15_000):
+        raise AssertionError(f"(g) heat pallas ensemble: MAE {res_g.mae}")
+    counts = launches[PALLAS_POP]
+    # One T = 8 launch a population step and the graph capture's warm-up
+    # step's, then one T = 1 launch per trial for the pick's validation
+    # residual (api.solve's selection).
+    want = steps + 1 + 8
+    if counts["heat_fused_streams"] != want:
+        raise AssertionError(f"(g) kernel #3 launched "
+                             f"{counts['heat_fused_streams']} times, not "
+                             f"once a step, the warm-up and the pick's 8 "
+                             f"({want})")
+    if counts["mlp_forward"] != 1:
+        raise AssertionError("(g) the picked replica's grid did not go "
+                             "through kernel #2 once")
     for label, counts in launches.items():
-        allowed = {"mlp_forward"} if "(c)" in label else set()
+        allowed = ({"mlp_forward", "heat_fused_streams"}
+                   if label == PALLAS_POP
+                   else {"mlp_forward"} if "(c)" in label else set())
         ran = {k for k, v in counts.items() if v and k not in allowed}
         if ran:
             raise AssertionError(f"population {label}: launched {ran}")
@@ -2792,7 +2933,9 @@ def phase_population_card(launches):
 # of mesh=None; (c) fused halving on heat (its reference space) and on
 # Fredholm with a batch-size space, MESH_HALVING's rungs; (d) data-parallel
 # train() of heat, jvp and pallas taps (kernel #3), MESH_TRAIN_STEPS steps
-# with the graph; (e) a population of MESH_POP_TRIALS x MESH_POP_STEPS;
+# with the graph, and of a pre-BN heat MLP and causal advection (rows
+# coupled across data ranks); (e) a population of MESH_POP_TRIALS x
+# MESH_POP_STEPS;
 # (f) dryrun_multichip(1).
 MESH_DGM_REPLICAS, MESH_DGM_STEPS = 4, 2000
 MESH_HALVING = dict(num_samples=8, eta=2, min_budget=250, max_budget=1000)
@@ -2818,7 +2961,9 @@ def phase_mesh():
     import torch.distributed as dist
 
     from differential_equations_dnn_tpu_torch import solve
+    from differential_equations_dnn_tpu_torch.core.prng import generator
     from differential_equations_dnn_tpu_torch.equations import (
+        Advection1D,
         FitzHughNagumo,
         Fredholm2,
         Heat1D,
@@ -2841,6 +2986,7 @@ def phase_mesh():
         loguniform,
         randint,
     )
+    from differential_equations_dnn_tpu_torch.models import MLP
     from differential_equations_dnn_tpu_torch.sweep.search import _tiles_for
     from differential_equations_dnn_tpu_torch.train import trainer
     from differential_equations_dnn_tpu_torch.train import (
@@ -3000,6 +3146,36 @@ def phase_mesh():
         if launches["(d) train heat pallas data mesh"][
                 "heat_fused_streams"] <= 0:
             raise AssertionError("(d) pallas taps did not launch kernel #3")
+        # Rows coupled across the data axis: a pre-BN heat MLP (heat's
+        # widths, jvp taps) and causal advection (c = 50, eps = 5, its
+        # batch and lr); at one rank no gather is on the path.
+        for label, prob, make, batch, lr in (
+                ("pre-BN heat", Heat1D(), lambda: MLP(
+                    2, 1, 128, 3, "tanh", batch_norm="pre",
+                    generator=generator(0)), 64, 1e-4),
+                ("causal advection", Advection1D(**CAUSAL), lambda: None,
+                 128, 1e-3)):
+            cfg = TrainConfig(iterations=MESH_TRAIN_STEPS, batch_size=batch,
+                              lrate=lr, verbose=False)
+            before = dict(trainer.graph_stats)
+            got = run(f"(d) train {label} data mesh",
+                      lambda: train(prob, 0, cfg, model=make(), mesh=data))
+            captures = trainer.graph_stats["captures"] - before["captures"]
+            want = run(f"(d) train {label}",
+                       lambda: train(prob, 0, cfg, model=make()))
+            same(f"(d) train {label}",
+                 (got.loss_history, flat([got.params]),
+                  *got.params.buffers()),
+                 (want.loss_history, flat([want.params]),
+                  *want.params.buffers()))
+            if captures != 1:
+                raise AssertionError(f"(d) {label}: {captures} graphs "
+                                     f"captured")
+            print(f"(d) train({label}, mesh={{'data': 1}}): "
+                  f"{MESH_TRAIN_STEPS} steps, final loss "
+                  f"{got.loss_history[-1]:.6g}; {got.iters_per_sec:.1f} it/s "
+                  f"against {want.iters_per_sec:.1f} without a mesh; bit "
+                  f"for bit")
 
         # (e) a population sharded over pop.
         heat = Heat1D()
@@ -3314,6 +3490,7 @@ def main():
     launches = timed(phase_solve)
     launches[("sweep",)], sweep_shapes = timed(phase_sweep)
     timed(phase_population_card, pop_launches)
+    launches[("heat", "ensemble", "pallas")] = pop_launches[PALLAS_POP]
     timed(phase_mesh)
     timed(phase_cli)
     # Launches from each kernel's own path: #2 and #1 from constant-lr
@@ -3328,6 +3505,9 @@ def main():
                                          "heat_fused_train_chunk"),
               "heat_fused_streams": (("heat", "scan", "pallas"),
                                      "heat_fused_streams"),
+              # #3's trial axis, from the population card's (g).
+              "heat_fused_streams[trials]": (("heat", "ensemble", "pallas"),
+                                             "heat_fused_streams"),
               "engine_loss_grad": (("heat2d", None), "engine_step_math"),
               "fused_engine_chunk": (("heat2d", None), "fused_engine_chunk"),
               "dgm_loss_grad": (("fitzhugh_nagumo", None), "dgm_step_math"),
@@ -3393,6 +3573,12 @@ def main():
             row["launches_counted_as"] = (
                 f"launches in the sweep mode in the sweep phase at tile "
                 f"{row['tile']} with {row['n_replicas']} replicas")
+        elif row["name"] == "heat_fused_streams[trials]":
+            # (g)'s launches less the pick's 8 one-trial ones.
+            row["launches"] -= 8
+            row["launches_counted_as"] = (
+                "launches with T = 8 in the population card's (g): one a "
+                "population step and the graph capture's warm-up step")
         elif counter != row["name"]:
             row["launches_counted_as"] = (f"step-math runs inside "
                                           f"{inside[counter]}")

@@ -43,6 +43,14 @@
 // the zeros that pad a k-tile add nothing), then the bias: the outputs
 // equal the first design's bit for bit. Products are fp32 FFMA: exact
 // fp32, no tensor cores.
+//
+// A population of T nets (the JAX kernel under jax.vmap, which gives it a
+// leading batch grid axis) is one launch of a grid of ceil(n / P)·C x T
+// CTAs: blockIdx.y picks trial t's points, weights and outputs, each a
+// contiguous [T, ...] tensor, and a CTA computes exactly what a one-trial
+// launch computes for that trial, so a T-trial launch equals T one-trial
+// launches bit for bit. The plan (and the shared memory) is per point and
+// does not depend on T.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -166,6 +174,14 @@ struct Net {
   }
   __device__ int k_in(int li) const { return li == 0 ? kD : h; }
   __device__ int k_out(int li) const { return li <= l ? h : o; }
+  // Trial t's net: each tensor is [T, ...] and contiguous.
+  __device__ Net trial(int t) const {
+    const size_t hh = static_cast<size_t>(h), tt = static_cast<size_t>(t);
+    return Net{w_in + tt * kD * hh,  b_in + tt * hh,
+               w_hid + tt * l * hh * hh, b_hid + tt * l * hh,
+               w_out + tt * hh * o,  b_out + tt * o,
+               h, l, o};
+  }
 };
 
 // The next tile of one CTA's W stream: layer li, pass (CL columns of the
@@ -181,9 +197,18 @@ __global__ void __launch_bounds__(kThreads)
     heat_streams_kernel(const float* __restrict__ xt,
                         const float* __restrict__ x0,
                         const float* __restrict__ xb1,
-                        const float* __restrict__ xb2, Net net,
+                        const float* __restrict__ xb2, Net nets,
                         float* __restrict__ out, int n, int act, int P,
                         int ld) {
+  // This CTA's trial: its points, weights and outputs.
+  const size_t trial = blockIdx.y;
+  const Net net = nets.trial(static_cast<int>(trial));
+  const size_t in_at = trial * n * kD;
+  xt += in_at;
+  x0 += in_at;
+  xb1 += in_at;
+  xb2 += in_at;
+  out += trial * kStreams * n * net.o;
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -405,17 +430,24 @@ extern "C" int heat_streams_plan(int h, int o, int* out) {
   return pl.P == 0 ? cudaErrorInvalidValue : cudaSuccess;
 }
 
-// out [7, n, o]: the streams (u, u_x, u_xx, u_t, u0, ub1, ub2) at the n
-// points of xt, x0, xb1, xb2 (each [n, 2]), for the MLP 2 -> h x l -> o with
+// The most trials of one launch: gridDim.y's limit.
+constexpr int kMaxTrials = 65535;
+
+// out [T, 7, n, o]: for each of T trials, the streams (u, u_x, u_xx, u_t,
+// u0, ub1, ub2) at the n points of xt, x0, xb1, xb2 (each [T, n, 2]), for
+// the trial's MLP 2 -> h x l -> o (w_in [T, 2, h], b_in [T, h], w_hid
+// [T, l, h, h], b_hid [T, l, h], w_out [T, h, o], b_out [T, o]) with
 // activation act (dednn::Activation). w_hid and b_hid are unread at l = 0.
+// cudaErrorInvalidValue past kMaxTrials or where no plan fits.
 extern "C" int heat_streams(const float* xt, const float* x0,
                             const float* xb1, const float* xb2,
                             const float* w_in, const float* b_in,
                             const float* w_hid, const float* b_hid,
                             const float* w_out, const float* b_out,
-                            float* out, int n, int h, int l, int o, int act,
-                            void* stream) {
-  if (n == 0) return cudaSuccess;
+                            float* out, int n_trials, int n, int h, int l,
+                            int o, int act, void* stream) {
+  if (n_trials < 0 || n_trials > kMaxTrials) return cudaErrorInvalidValue;
+  if (n == 0 || n_trials == 0) return cudaSuccess;
   const Plan pl = make_plan(h);
   if (pl.P == 0) return cudaErrorInvalidValue;
   const auto kernel = pl.stages == kDeepStages
@@ -425,7 +457,7 @@ extern "C" int heat_streams(const float* xt, const float* x0,
   if (err != cudaSuccess) return err;
   const Net net{w_in, b_in, w_hid, b_hid, w_out, b_out, h, l, o};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(dednn::ceil_div(n, pl.P) * pl.C);
+  cfg.gridDim = dim3(dednn::ceil_div(n, pl.P) * pl.C, n_trials);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = pl.smem;
   cfg.stream = static_cast<cudaStream_t>(stream);

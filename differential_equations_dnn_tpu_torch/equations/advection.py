@@ -17,6 +17,7 @@ import torch
 from differential_equations_dnn_tpu_torch.equations.base import (
     Problem,
     TrainDefaults,
+    causal_weights,
     grid_2d,
 )
 from differential_equations_dnn_tpu_torch.models import MLP
@@ -89,18 +90,18 @@ class Advection1D(Problem):
     def loss(self, model, batch, mask=None):
         """Causal-weighted loss (``causal_eps > 0``): mean_i(w_i·r_i) +
         mean(IC + inflow), w_i = exp(−ε·Δt·Σ_{t_j < t_i} r_j) without
-        gradient, Δt = t_max/B. Under a row mask (a population trial) the
-        plain masked loss, as in the JAX package (advection.py:94-101):
-        causal weighting is a single-run protocol."""
+        gradient, Δt = t_max/B (``equations.base.causal_weights``; over
+        the global batch on a sharded ``data`` axis). Under a row mask (a
+        population trial) the plain masked loss, as in the JAX package
+        (advection.py:94-101): causal weighting is a single-run
+        protocol."""
         if self.causal_eps <= 0.0 or mask is not None:
             return super().loss(model, batch, mask)
         r, r0, rb = self._residuals(model, batch)
         res = torch.square(r)[:, 0]
         icbc = (torch.square(r0) + torch.square(rb))[:, 0]
-        t = batch["xt"][:, 1]
-        earlier = (t[None, :] < t[:, None]).to(res.dtype)   # [B, B]
-        cum = (earlier @ res.detach()) * (self.t_max / res.shape[0])
-        wgt = torch.exp(-self.causal_eps * cum).detach()
+        wgt = causal_weights(res, batch["xt"][:, 1], self.t_max,
+                             self.causal_eps)
         return torch.mean(wgt * res) + torch.mean(icbc)
 
     def grid_inputs(self, nodes, device=None):

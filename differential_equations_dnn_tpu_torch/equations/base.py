@@ -25,9 +25,23 @@ from dataclasses import dataclass
 
 import torch
 
+from differential_equations_dnn_tpu_torch.core.rows import all_rows
 from differential_equations_dnn_tpu_torch.train.metrics import (
     mean_absolute_error,
 )
+
+
+def causal_weights(res, t, t_max, eps):
+    """The causal weights w_i = exp(−ε·Δt·Σ_{t_j < t_i} ℓ_j) of the rows'
+    residual energies ``res`` [B] at times ``t`` [B], without gradient,
+    Δt = t_max / B (Wang, Sankaran & Perdikaris 2022). On a sharded
+    ``data`` axis (core/rows.py) the sum runs over every rank's rows and B
+    is the global batch's count: ``[B_local, B_global]`` comparisons for
+    this rank's rows."""
+    res_all, t_all = all_rows(res.detach()), all_rows(t)
+    earlier = (t_all[None, :] < t[:, None]).to(res.dtype)   # [B, B]
+    cum = (earlier @ res_all) * (t_max / res_all.shape[0])
+    return torch.exp(-eps * cum).detach()
 
 
 def grid_2d(x_max, t_max, nodes, device=None):

@@ -26,6 +26,7 @@ import torch
 from differential_equations_dnn_tpu_torch.equations.base import (
     Problem,
     TrainDefaults,
+    causal_weights,
 )
 from differential_equations_dnn_tpu_torch.models import (
     DGM,
@@ -134,16 +135,16 @@ class FitzHughNagumo(Problem):
 
     def loss(self, model, batch, mask=None):
         """Causal-weighted residual loss (``causal_eps > 0``): mean_i(w_i·ℓ_i)
-        + mse(IC), w_i = exp(−ε·Δt·Σ_{t_j < t_i} ℓ_j) without gradient.
-        Under a row mask (a population trial) the plain masked loss, as in
-        the JAX package (fitzhugh_nagumo.py:151-161)."""
+        + mse(IC), w_i = exp(−ε·Δt·Σ_{t_j < t_i} ℓ_j) without gradient
+        (``equations.base.causal_weights``; over the global batch on a
+        sharded ``data`` axis). Under a row mask (a population trial) the
+        plain masked loss, as in the JAX package
+        (fitzhugh_nagumo.py:151-161)."""
         if self.causal_eps <= 0.0 or mask is not None:
             return super().loss(model, batch, mask)
         res, ic = self._residuals(model, batch)
-        t = batch["t"][:, 0]
-        earlier = (t[None, :] < t[:, None]).to(res.dtype)   # [B, B]
-        cum = (earlier @ res.detach()) * (self.t_max / res.shape[0])
-        wgt = torch.exp(-self.causal_eps * cum).detach()
+        wgt = causal_weights(res, batch["t"][:, 0], self.t_max,
+                             self.causal_eps)
         return torch.mean(wgt * res) + torch.mean(ic)
 
     def grid_inputs(self, nodes, device=None):

@@ -42,9 +42,9 @@ _SIGNATURES = {
     # n, d, h, o, out[5]: rows per CTA tile, threads per CTA, ring depth,
     # shared memory bytes, CTAs per cluster
     "mlp_forward_plan": [_I] * 4 + [_P],
-    # xt, x0, xb1, xb2, w_in, b_in, w_hid, b_hid, w_out, b_out, out, n, h,
-    # l, o, act, stream
-    "heat_streams": [_P] * 11 + [_I] * 5 + [_P],
+    # xt, x0, xb1, xb2, w_in, b_in, w_hid, b_hid, w_out, b_out, out, trials,
+    # n, h, l, o, act, stream
+    "heat_streams": [_P] * 11 + [_I] * 6 + [_P],
     # h, o, out[6]: cluster size, points per cluster, k-tile, threads,
     # ring depth, shared memory bytes
     "heat_streams_plan": [_I] * 2 + [_P],

@@ -239,71 +239,123 @@ def heat_streams_plan(H, O=1):
     return plan
 
 
-def _launch_heat_streams(model, points, weights):
-    """One launch of csrc/heat_streams.cu: the 7 streams as views of one
-    [7, B, O] tensor."""
-    xt = points[0]
-    B = xt.shape[0]
-    H, L, O = model.hidden_size, model.num_layers, model.output_dim
+# The most trials one launch of csrc/heat_streams.cu takes (gridDim.y).
+MAX_STREAM_TRIALS = 65535
+
+
+def _launch_heat_streams(spec, points, weights):
+    """One launch of csrc/heat_streams.cu over T trials: ``points`` are
+    four [T, B, 2] tensors and ``weights`` the six [T, ...] tensors of T
+    nets of one architecture ``spec``; returns the streams as [T, 7, B,
+    O]. Past MAX_STREAM_TRIALS a ValueError names the limit before
+    anything launches."""
+    activation, H, L, O = spec
+    T, B = points[0].shape[:2]
+    if T > MAX_STREAM_TRIALS:
+        raise ValueError(f"the heat-streams kernel takes at most "
+                         f"{MAX_STREAM_TRIALS} trials a launch (the grid's "
+                         f"y dimension), not {T}")
     heat_streams_plan(H, O)
     shapes = ((2, H), (H,), (L, H, H), (L, H), (H, O), (O,))
     for name, t in zip(("xt", "x0", "xb1", "xb2"), points):
-        build.require_cuda_f32(name, t, (B, 2))
+        build.require_cuda_f32(name, t, (T, B, 2))
     for name, t, shape in zip(_STREAM_WEIGHTS, weights, shapes):
-        build.require_cuda_f32(name, t, shape)
+        build.require_cuda_f32(name, t, (T,) + shape)
+    device = points[0].device
     for name, t in zip(("x0", "xb1", "xb2") + _STREAM_WEIGHTS,
                        points[1:] + weights):
-        if t.device != xt.device:
-            raise ValueError(f"{name} is on {t.device}, xt on {xt.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, xt on {device}")
     lib = build.library()
-    out = torch.empty((7, B, O), dtype=torch.float32, device=xt.device)
-    with torch.cuda.device(xt.device):
+    out = torch.empty((T, 7, B, O), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
         code = lib.heat_streams(*(t.data_ptr() for t in points + weights),
-                                out.data_ptr(), B, H, L, O,
-                                _ACT_KIND[model.activation],
-                                build.stream_ptr(xt.device))
+                                out.data_ptr(), T, B, H, L, O,
+                                _ACT_KIND[activation],
+                                build.stream_ptr(device))
     build.check(code, "heat_streams")
     heat_fused_streams.launches += 1
-    return tuple(out.unbind(0))
+    return out
+
+
+def _plain_streams(spec, points, weights):
+    """The plain version on one net's tensors, as a tuple of 7 [B, O]."""
+    net = _with_weights(types.SimpleNamespace(activation=spec[0],
+                                              num_layers=spec[2]), weights)
+    return heat_fused_streams_plain(net, *points)
+
+
+def _trial_streams(spec, points, weights):
+    """The 7 streams of T nets at once (points [T, B, 2], weights [T, ...]):
+    one kernel launch for CUDA tensors, the plain version vmapped over the
+    trials for CPU tensors. Returns 7 tensors [T, B, O]."""
+    if points[0].device.type == "cpu":
+        return torch.func.vmap(
+            lambda *ts: _plain_streams(spec, ts[:4], ts[4:]))(
+                *points, *weights)
+    return tuple(_launch_heat_streams(
+        spec, tuple(points), tuple(weights)).unbind(1))
 
 
 class _HeatStreams(torch.autograd.Function):
     """Forward: the kernel (CUDA tensors) or the plain version (CPU
-    tensors). Backward, as the JAX package's custom VJP
-    (taylor_mlp.py:171-187): the plain stream math re-run on the saved
-    inputs and weights under autograd, and its VJP taken, torch ops as the
-    JAX backward is XLA outside any Pallas kernel."""
+    tensors), one net at a time. Under ``torch.func.vmap`` (a population's
+    trials, as ``jax.vmap`` gives the TPU kernel a leading grid axis) the
+    :meth:`vmap` rule stacks the trials, expanding any input shared by all
+    of them, and computes them in one launch. Backward, as the JAX
+    package's custom VJP (taylor_mlp.py:171-187): the VJP of the plain
+    stream math on the saved inputs and weights by ``torch.func.vjp``,
+    torch ops as the JAX backward is XLA outside any Pallas kernel; it
+    composes with ``torch.func`` (``grad_and_value`` inside ``vmap``) as
+    with ordinary autograd."""
 
     @staticmethod
-    def forward(ctx, model, xt, x0, xb1, xb2, *weights):
-        ctx.model = model
-        ctx.save_for_backward(xt, x0, xb1, xb2, *weights)
+    def forward(spec, xt, x0, xb1, xb2, *weights):
         points = (xt, x0, xb1, xb2)
         if xt.device.type == "cpu":
-            return heat_fused_streams_plain(_with_weights(model, weights),
-                                            *points)
-        return _launch_heat_streams(model, points, weights)
+            return _plain_streams(spec, points, weights)
+        out = _launch_heat_streams(
+            spec, tuple(t.unsqueeze(0) for t in points),
+            tuple(w.unsqueeze(0) for w in weights))
+        return tuple(out[0].unbind(0))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.spec = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
 
     @staticmethod
     def backward(ctx, *cotangents):
-        needs = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(need)
-                      for t, need in zip(ctx.saved_tensors, needs)]
-            outs = heat_fused_streams_plain(
-                _with_weights(ctx.model, inputs[4:]), *inputs[:4])
-            wrt = [t for t, need in zip(inputs, needs) if need]
-            grads = iter(torch.autograd.grad(outs, wrt, cotangents,
-                                             allow_unused=True))
-        return (None,) + tuple(next(grads) if need else None
-                               for need in needs)
+        saved = ctx.saved_tensors
+        needs = [i for i, need in enumerate(ctx.needs_input_grad[1:])
+                 if need]
+
+        def streams(*chosen):
+            args = list(saved)
+            for i, t in zip(needs, chosen):
+                args[i] = t
+            return _plain_streams(ctx.spec, args[:4], args[4:])
+
+        _, pull = torch.func.vjp(streams, *(saved[i] for i in needs))
+        grads = dict(zip(needs, pull(tuple(cotangents))))
+        return (None,) + tuple(grads.get(i) for i in range(len(saved)))
+
+    @staticmethod
+    def vmap(info, in_dims, spec, *tensors):
+        stacked = [t.movedim(d, 0) if d is not None
+                   else t.expand(info.batch_size, *t.shape)
+                   for t, d in zip(tensors, in_dims[1:])]
+        stacked = [t.contiguous() for t in stacked]
+        return _trial_streams(spec, stacked[:4], stacked[4:]), (0,) * 7
 
 
 def heat_fused_streams(model, xt, x0, xb1, xb2):
     """(u, u_x, u_xx, u_t, u0, ub1, ub2), each [B, O], of a plain MLP 2 →
     H×L → O (tanh, sigmoid or relu) at the interior points ``xt`` and the
     constraint points ``x0``, ``xb1``, ``xb2`` (each [B, 2]): one kernel
-    launch, differentiable in the points and the weights.
+    launch, differentiable in the points and the weights. Under
+    ``torch.func.vmap`` over trials (the population trainer's
+    ``functional_call`` of stacked weights) all trials take one launch.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (``heat_fused_streams.launches`` counts the launches). Raises
@@ -311,7 +363,9 @@ def heat_fused_streams(model, xt, x0, xb1, xb2):
     _check_streams_model(model)
     weights = (model.fc_in.w, model.fc_in.b, model.hidden.w, model.hidden.b,
                model.fc_out.w, model.fc_out.b)
-    return _HeatStreams.apply(model, xt, x0, xb1, xb2, *weights)
+    spec = (model.activation, model.hidden_size, model.num_layers,
+            model.output_dim)
+    return _HeatStreams.apply(spec, xt, x0, xb1, xb2, *weights)
 
 
 heat_fused_streams.launches = 0

@@ -26,6 +26,8 @@ import contextlib
 
 import torch
 
+from differential_equations_dnn_tpu_torch.core.rows import all_rows, row_count
+
 
 def is_stateful(model) -> bool:
     """Whether ``model`` carries running statistics."""
@@ -67,9 +69,13 @@ def eval_mode(model):
 
 def bn_train(x, gamma, beta, eps):
     """Train-mode batch normalisation over the batch axis; returns the
-    normalised activations and the batch's (mean, biased variance)."""
-    mean = torch.mean(x, 0)
-    var = torch.mean(torch.square(x - mean), 0)
+    normalised activations and the batch's (mean, biased variance). On a
+    sharded ``data`` axis (core/rows.py) the moments are the global
+    batch's, taken on every rank's rows, and their gradient reaches every
+    rank's rows."""
+    rows = all_rows(x)
+    mean = torch.mean(rows, 0)
+    var = torch.mean(torch.square(rows - mean), 0)
     return (x - mean) * torch.rsqrt(var + eps) * gamma + beta, (mean, var)
 
 
@@ -78,8 +84,10 @@ def bn_eval(x, gamma, beta, mean, var, eps):
 
 
 def bn_update(mean, var, batch_mean, batch_var, n, momentum):
-    """The running statistics after one batch of ``n`` rows: torch's rule,
-    the running variance updated with the unbiased estimate."""
+    """The running statistics after one batch of ``n`` rows (on a sharded
+    ``data`` axis, ``n`` rows a rank: the global batch's count): torch's
+    rule, the running variance updated with the unbiased estimate."""
+    n = row_count(n)
     unbiased = batch_var * (n / max(n - 1, 1))
     return ((1 - momentum) * mean + momentum * batch_mean,
             (1 - momentum) * var + momentum * unbiased)

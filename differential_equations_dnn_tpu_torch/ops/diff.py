@@ -14,6 +14,15 @@ first-order gradient serve every tap of a residual at one set of points.
 
 Every tap builds its graph (``create_graph=True``) so that the training loss
 differentiates through it, and does so even under ``torch.no_grad()``.
+The taps' backward passes run on the calling thread
+(``torch.autograd.set_multithreading_enabled(False)``), so the nodes of the
+graph they build take their sequence numbers from the caller's counter, as
+the forward's nodes do. On a CUDA device autograd would otherwise run them
+on its device thread, whose counter stands at an offset from the caller's
+that depends on what ran before in the process; the training backward
+orders its nodes by those numbers, so the order in which it sums a
+parameter's gradient contributions, and with it the last bits of a run,
+would depend on the process's history.
 
 ``torch.autograd.grad`` cannot run under ``torch.func`` transforms, which
 the population trainer (parallel/population.py) steps its trials with.
@@ -71,6 +80,11 @@ def _leaf(x):
 def coordinate_taps(f, x, first=(), second=()):
     """(f(x), [∂f/∂x_a for a in first], [∂²f/∂x_a² for a in second]) along
     coordinate axes of the last dimension, all from one forward."""
+    with torch.autograd.set_multithreading_enabled(False):
+        return _coordinate_taps(f, x, first, second)
+
+
+def _coordinate_taps(f, x, first, second):
     if _FUNCTIONAL.get():
         return _func_taps(f, x, first, second)
     with torch.enable_grad():

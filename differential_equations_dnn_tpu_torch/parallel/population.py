@@ -74,7 +74,10 @@ from differential_equations_dnn_tpu_torch.parallel.sharding import (
     gather_rows,
     shard_range,
 )
-from differential_equations_dnn_tpu_torch.train.trainer import capture_graph
+from differential_equations_dnn_tpu_torch.train.trainer import (
+    capture_graph,
+    count_replays,
+)
 
 # Population steps per captured CUDA graph, and per block of host draws.
 # A capture runs each step's Python once (tens of ms a step for a
@@ -276,15 +279,18 @@ class _PopulationGraph:
     (``trainer.capture_graph``, the scan trainer's protocol, the stacked
     state put back after its warm-up step): the steps read a static block
     of draws and write their losses to a static ``[GRAPH_STEPS, P]``
-    buffer."""
+    buffer. As the scan trainer's graph, the warm-up step's kernel launches
+    count, the capture's do not, and each replay adds the launches it
+    holds (a ``taps="pallas"`` population's kernel #3, one a step)."""
 
     def __init__(self, step, block, tensors, n_trials, name):
         t0 = time.perf_counter()
         device = next(iter(block.values())).device
         self.static = {k: v.clone() for k, v in block.items()}
         self.losses = torch.empty((GRAPH_STEPS, n_trials), device=device)
-        self.graph = capture_graph(step, self.static, self.losses, tensors,
-                                   f"the population step of {name!r}")
+        self.graph, self.launches = capture_graph(
+            step, self.static, self.losses, tensors,
+            f"the population step of {name!r}")
         build.sync(device)
         graph_stats["captures"] += 1
         graph_stats["capture_seconds"].append(time.perf_counter() - t0)
@@ -293,6 +299,7 @@ class _PopulationGraph:
         for k, v in block.items():
             self.static[k].copy_(v)
         self.graph.replay()
+        count_replays(self.launches)
         graph_stats["replays"] += 1
         return self.losses.clone()
 
@@ -321,11 +328,6 @@ def train_population(problem, model, seed: int, lrates, batch_sizes=None,
     divide evenly over it. Every rank runs this call and returns the whole
     population, on the mesh's device; resumed ``params`` / ``opt_state``
     / ``state`` are whole populations too (each rank takes its trials)."""
-    if getattr(problem, "taps", None) == "pallas":
-        raise NotImplementedError(
-            "Heat1D(taps='pallas') cannot train a population: the "
-            "heat-streams kernel (#3) has no trial axis (ROADMAP.md queue "
-            "2, item 7); use taps='jvp' or 'taylor'")
     config = config or PopulationConfig()
     device = build.resolve_device(device)
     lrates = np.asarray(lrates, np.float32)

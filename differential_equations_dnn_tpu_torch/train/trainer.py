@@ -23,7 +23,10 @@ step, so inside the graph too. Further:
   an adaptive selection over the whole batch) and takes the mean of the
   ranks' gradients and losses (one all-reduce a step, inside the step's
   CUDA graph), so the loss terms stay the global batch's means and every
-  rank holds the same model (the JAX package's ``constrain_batch``).
+  rank holds the same model (the JAX package's ``constrain_batch``). What
+  couples the rows (a BatchNorm layer's moments, a causal loss's weights)
+  gathers every rank's rows inside the step (``core.rows``), so it is the
+  single run's too.
 * The learning rate follows ``kernels.engine_core.scheduled_lr`` at the
   optimizer's own update count, as optax's schedules do; the count is part
   of the optimizer state, so a resumed run continues its schedule. On a
@@ -56,6 +59,7 @@ from differential_equations_dnn_tpu_torch.core.prng import (
     generator,
     step_generator,
 )
+from differential_equations_dnn_tpu_torch.core.rows import sharded_rows
 from differential_equations_dnn_tpu_torch.kernels import build, taylor_mlp
 from differential_equations_dnn_tpu_torch.kernels.engine_core import (
     check_schedule,
@@ -317,13 +321,28 @@ def make_train_step(problem, model, optimizer, batch_size,
     With a ``mesh`` the step trains on this rank's rows of the (selected)
     batch along ``data_axis`` and replaces its gradients and its loss by
     their means over that axis before the update: at one rank the same
-    bits as without a mesh."""
-    # parallel/ imports this module: its sharding is imported at call time.
+    bits as without a mesh. On more than one rank the loss, its backward
+    and the running-statistics refresh run inside ``core.rows.sharded_rows``,
+    so a BatchNorm layer's moments and a causal loss's weights span every
+    rank's rows, as the single run's span the whole batch."""
+    # parallel/ imports this module: its mesh and sharding are imported at
+    # call time.
+    from differential_equations_dnn_tpu_torch.parallel.mesh import (
+        axis_group,
+        axis_rank,
+        require_axis,
+    )
     from differential_equations_dnn_tpu_torch.parallel.sharding import (
         mean_over,
         shard_batch,
     )
 
+    rows = contextlib.nullcontext
+    if mesh is not None:
+        size = require_axis(mesh, data_axis, "data-parallel training")
+        shards = (axis_group(mesh, data_axis), axis_rank(mesh, data_axis),
+                  size)
+        rows = lambda: sharded_rows(*shards)  # noqa: E731
     oversample = adaptive_oversample > 1
     stateful = is_stateful(model)
     params = [p for p in model.parameters() if p.requires_grad]
@@ -341,8 +360,9 @@ def make_train_step(problem, model, optimizer, batch_size,
         else:
             schedule.advance()
         optimizer.zero_grad(set_to_none=True)
-        loss = problem.loss(model, batch)
-        loss.backward()
+        with rows():
+            loss = problem.loss(model, batch)
+            loss.backward()
         if mesh is not None:
             loss = loss.detach().clone().reshape(1)
             mean_over([p.grad for p in params if p.grad is not None]
@@ -350,31 +370,13 @@ def make_train_step(problem, model, optimizer, batch_size,
             loss = loss[0]
         optimizer.step()
         if stateful:
-            update_state(model, problem.domain_inputs(batch))
+            with rows():
+                update_state(model, problem.domain_inputs(batch))
         return loss.detach()
 
     step.draw_size = batch_size * adaptive_oversample if oversample \
         else batch_size
     return step
-
-
-def check_data_parallel(problem, model, data_axis="data") -> None:
-    """Refuse what couples the rows of a batch, on a ``data_axis`` of more
-    than one rank: a stateful model's batch statistics and a causal loss's
-    cross-point weights would be each rank's alone, not the global batch's
-    (ROADMAP.md queue 1, item 14's refusals)."""
-    if is_stateful(model):
-        raise ValueError(
-            f"a BatchNorm model's batch statistics couple the rows of a "
-            f"batch: it cannot train data-parallel over a '{data_axis}' "
-            f"axis of more than one rank (use a 'pop' mesh, or one rank)")
-    if getattr(problem, "causal_eps", 0.0) > 0.0:
-        raise ValueError(
-            f"{problem.name}'s causal loss (causal_eps="
-            f"{problem.causal_eps}) weights each point by the residuals of "
-            f"every earlier point of the batch: it cannot train "
-            f"data-parallel over a '{data_axis}' axis of more than one "
-            f"rank (use causal_eps=0, or one rank)")
 
 
 def draw_batches(problem, seed, start, n, size, device):
@@ -398,7 +400,10 @@ def capture_graph(step, static, losses, kept, what, restore=None):
     lazy state, such as the optimizer's, as torch.cuda.graphs asks), then
     the tensors of ``kept`` are put back and ``restore()`` runs; capture
     runs nothing. A step that cannot be captured raises, naming ``what``
-    and the cause: there is no eager fallback."""
+    and the cause: there is no eager fallback. Returns (the graph, the
+    launches of each _COUNTED wrapper it holds): the warm-up step's
+    launches count, the capture's do not, and a replay adds the graph's
+    (:func:`count_replays`)."""
     device = losses.device
     saved = [t.detach().clone() for t in kept]
     side = torch.cuda.Stream(device)
@@ -411,6 +416,7 @@ def capture_graph(step, static, losses, kept, what, restore=None):
             t.copy_(v)
     if restore is not None:
         restore()
+    before = [f.launches for f in _COUNTED]
     graph = torch.cuda.CUDAGraph()
     # Under a process group NCCL's watchdog thread queries its events while
     # a step with a collective is captured: only this thread's calls must
@@ -424,7 +430,17 @@ def capture_graph(step, static, losses, kept, what, restore=None):
     except Exception as err:
         raise RuntimeError(f"{what} cannot be captured as a CUDA graph "
                            f"({type(err).__name__}: {err})") from err
-    return graph
+    held = [f.launches - b for f, b in zip(_COUNTED, before)]
+    for f, b in zip(_COUNTED, before):
+        f.launches = b  # captured, not launched
+    return graph, held
+
+
+def count_replays(held, replays=1):
+    """Add ``replays`` replays of a graph that holds ``held`` launches
+    (:func:`capture_graph`) to the _COUNTED wrappers' counts."""
+    for f, n in zip(_COUNTED, held):
+        f.launches += n * replays
 
 
 class ScanGraph:
@@ -450,11 +466,7 @@ class ScanGraph:
                           if torch.is_tensor(v)}
                   for p in params if optimizer.state.get(p)}
 
-        before = []
-
         def restore():
-            # The warm-up step's launches count; the capture's do not.
-            before[:] = [f.launches for f in _COUNTED]
             with torch.no_grad():
                 for p in params:
                     for key, v in optimizer.state[p].items():
@@ -466,14 +478,11 @@ class ScanGraph:
                                 v.copy_(old)
             optimizer.zero_grad(set_to_none=True)
 
-        self.graph = capture_graph(
+        self.graph, self.launches = capture_graph(
             step, self.static, self.losses,
             params + list(model.buffers()) + schedule.state(),
             f"the scan trainer's step of {name!r} (a chunk_size below "
             f"{GRAPH_STEPS} runs every step eagerly)", restore)
-        self.launches = [f.launches - b for f, b in zip(_COUNTED, before)]
-        for f, b in zip(_COUNTED, before):
-            f.launches = b  # captured, not launched
         build.sync(device)
         graph_stats["captures"] += 1
         graph_stats["capture_seconds"].append(time.perf_counter() - t0)
@@ -486,8 +495,7 @@ class ScanGraph:
                 self.static[k].copy_(v[s:s + self.steps])
             self.graph.replay()
             out[s:s + self.steps].copy_(self.losses)
-        for f, n in zip(_COUNTED, self.launches):
-            f.launches += n * (GRAPH_STEPS // self.steps)
+        count_replays(self.launches, GRAPH_STEPS // self.steps)
         graph_stats["replays"] += 1
         return out
 
@@ -540,8 +548,8 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
     ``config.data_axis`` (see the module's docstring); every rank runs
     this call and returns the same model, on the mesh's device. The batch
     must divide evenly over the axis. A BatchNorm model's batch
-    statistics and a causal loss's weights couple the rows of a batch, so
-    both are refused on a ``data`` axis of more than one rank."""
+    statistics and a causal loss's weights couple the rows of a batch:
+    they span the global batch, every rank's rows (``core.rows``)."""
     config = config or TrainConfig(
         iterations=problem.defaults.iterations,
         batch_size=problem.defaults.batch_size,
@@ -556,14 +564,11 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
 
         mesh = pm.as_mesh(mesh, device)
         device = pm.mesh_device(mesh)
-        n_data = pm.require_axis(mesh, config.data_axis,
-                                 "data-parallel training")
+        pm.require_axis(mesh, config.data_axis, "data-parallel training")
     if model is None:
         model = problem.default_model(generator=generator(seed))
     model.to(device).train()
     if mesh is not None:
-        if n_data > 1:
-            check_data_parallel(problem, model, config.data_axis)
         # Refuses a batch the axis does not divide, before any step.
         sharding.shard_range(config.batch_size, mesh, config.data_axis)
         sharding.replicate(model, mesh)

@@ -521,6 +521,122 @@ def test_heat_streams_refuse_past_limit(cuda):
     assert taylor_mlp.heat_fused_streams.launches == 0
 
 
+_POINTS = ("xt", "x0", "xb1", "xb2")
+
+
+class _TrialStreams(torch.nn.Module):
+    """Kernel #3's wrapper as a module, so that functional_call swaps a
+    trial's weights in, as the population trainer does."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *points):
+        return taylor_mlp.heat_fused_streams(self.model, *points)
+
+
+def _trial_streams(models, stacked, points, in_dims=0):
+    """The wrapper vmapped over the trials of ``stacked`` (its vmap rule:
+    one launch for all of them)."""
+    mod = _TrialStreams(models[0])
+    return torch.func.vmap(
+        lambda p, *x: torch.func.functional_call(
+            mod, {f"model.{k}": v for k, v in p.items()}, x),
+        in_dims=(0,) + (in_dims,) * 4)(stacked, *points)
+
+
+def _trial_nets(cuda, T, H, L=3):
+    models = [MLP(2, 1, H, L, "tanh", generator=generator(10 + t),
+                  device=cuda) for t in range(T)]
+    stacked = {k: torch.stack([dict(m.named_parameters())[k].detach()
+                               for m in models])
+               for k, _ in models[0].named_parameters()}
+    return models, stacked
+
+
+@pytest.mark.parametrize("T, B, H", [(8, 64, 128), (3, 1000, 128),
+                                     (2, 37, 256)])
+def test_heat_streams_trial_axis(cuda, T, B, H):
+    """Kernel #3 over T trials in one launch (grid y = T), at heat's
+    population shape (8 × 64 × 128), a large batch and a ragged one at
+    H = 256: each trial bit for bit its own one-trial launch, and within
+    the one-trial tolerance (rtol 1e-5 / atol 1e-5) of the plain version.
+    Points shared by every trial (``in_dims`` None) are expanded."""
+    models, stacked = _trial_nets(cuda, T, H)
+    batches = [Heat1D().sample(B, generator(20 + t), cuda) for t in range(T)]
+    pts = [torch.stack([b[k] for b in batches]) for k in _POINTS]
+    taylor_mlp.heat_fused_streams.launches = 0
+    with torch.no_grad():
+        got = _trial_streams(models, stacked, pts)
+        shared = _trial_streams(models, stacked, [p[0] for p in pts],
+                                in_dims=None)
+        assert taylor_mlp.heat_fused_streams.launches == 2
+        for t, model in enumerate(models):
+            mine = [p[t] for p in pts]
+            one = taylor_mlp.heat_fused_streams(model, *mine)
+            plain = taylor_mlp.heat_fused_streams_plain(model, *mine)
+            first = taylor_mlp.heat_fused_streams(model,
+                                                  *(p[0] for p in pts))
+            for g, o, w, sh, f in zip(got, one, plain, shared, first):
+                assert g.shape == (T, B, 1)
+                assert torch.equal(g[t], o)
+                assert torch.equal(sh[t], f)
+                torch.testing.assert_close(g[t], w, rtol=1e-5, atol=1e-5)
+    assert taylor_mlp.heat_fused_streams.launches == 2 + 2 * T
+
+
+def test_heat_streams_refuse_too_many_trials(cuda):
+    """Past gridDim.y's 65 535 trials the wrapper raises ValueError before
+    launching, with no fallback."""
+    T = taylor_mlp.MAX_STREAM_TRIALS + 1
+    model = MLP(2, 1, 4, 0, "tanh", generator=generator(0), device=cuda)
+    stacked = {k: v.detach().expand(T, *v.shape)
+               for k, v in model.named_parameters()}
+    b = Heat1D().sample(1, generator(1), cuda)
+    taylor_mlp.heat_fused_streams.launches = 0
+    with pytest.raises(ValueError, match="at most 65535 trials"):
+        _trial_streams([model], stacked, [b[k] for k in _POINTS],
+                       in_dims=None)
+    assert taylor_mlp.heat_fused_streams.launches == 0
+
+
+def test_pallas_population_launches_the_kernel_once_a_step(cuda,
+                                                           monkeypatch):
+    """A ``taps="pallas"`` population of 3 trials × (GRAPH_STEPS + 5)
+    steps: kernel #3 once a population step, in the graph's replay and
+    the eager tail, plus the capture's warm-up step; the graph replay bit
+    for bit the same steps eager (GRAPH_STEPS raised past the run); and
+    the losses those of the ``taps="taylor"`` population to rtol 1e-4
+    (the kernel's and the plain streams' fp32 sums, over a few Adam
+    steps)."""
+    from differential_equations_dnn_tpu_torch.parallel import (
+        PopulationConfig,
+        population,
+        train_population,
+    )
+
+    G = population.GRAPH_STEPS
+    lrs = np.array([1e-3, 3e-3, 1e-4], np.float32)
+    model = MLP(2, 1, 32, 2, "tanh", generator=generator(0))
+    cfg = PopulationConfig(iterations=G + 5, max_batch_size=64)
+    runs = []
+    for taps, graph_steps in (("pallas", G), ("pallas", 4 * G),
+                              ("taylor", G)):
+        monkeypatch.setattr(population, "GRAPH_STEPS", graph_steps)
+        taylor_mlp.heat_fused_streams.launches = 0
+        runs.append(train_population(Heat1D(taps=taps), model, 3, lrs,
+                                     [64, 17, 5], cfg))
+        want = {("pallas", G): G + 5 + 1, ("pallas", 4 * G): G + 5,
+                ("taylor", G): 0}[(taps, graph_steps)]
+        assert taylor_mlp.heat_fused_streams.launches == want, taps
+    (pa, _, la), (pb, _, lb), (_, _, lt) = runs
+    np.testing.assert_array_equal(la, lb)
+    for k in pa:
+        assert torch.equal(pa[k], pb[k]), k
+    np.testing.assert_allclose(la, lt, rtol=1e-4)
+
+
 @pytest.mark.parametrize("name, kw", [
     ("heat", {"taps": "pallas"}), ("heat", {}), ("simple_ode", {}),
 ])
@@ -1320,6 +1436,27 @@ def test_scan_graph_equals_eager(cuda, case):
     np.testing.assert_array_equal(graphed.loss_history, eager.loss_history)
     assert all(torch.equal(a, b) for a, b in zip(pg, pe))
     assert graphed.opt_state["param_groups"][0]["count"] == 300
+
+
+def test_scan_bits_do_not_depend_on_what_ran_before(cuda):
+    """After a population, the first simple_ode runs with
+    adaptive_oversample=2 equal the later ones bit for bit, graphed and
+    eager alike: the taps build their graphs on the calling thread
+    (ops/diff.py), so the training backward's order, and with it the
+    order of its sums, does not depend on how far a population moved the
+    autograd threads' sequence counters."""
+    from differential_equations_dnn_tpu_torch.sweep import batch_size_effect
+
+    batch_size_effect(Heat1D(), seed=1, batch_sizes=[1, 8, 64], runs=2,
+                      iterations=300)
+    name, kw, cfg_kw = SCAN_CASES["oversample"]
+    runs = [_scan_run(name, kw, {**cfg_kw, "chunk_size": chunk}, cuda)
+            for chunk in (1000, 100, 1000, 100)]
+    for res, params in runs[:-1]:
+        np.testing.assert_array_equal(res.loss_history,
+                                      runs[-1][0].loss_history)
+        for a, b in zip(params, runs[-1][1]):
+            assert torch.equal(a, b)
 
 
 def test_scan_graph_chunked_and_resumed_equal_uncut(cuda):

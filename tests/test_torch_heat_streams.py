@@ -188,3 +188,123 @@ def test_pallas_taps_point_loss_matches_taylor():
                                Heat1D(taps="taylor").point_loss(model, b),
                                rtol=0, atol=0)
 
+
+
+# ---------------------------------------------------------------------------
+# The trial axis: kernel #3 under torch.func.vmap (a population's trials)
+# ---------------------------------------------------------------------------
+
+T = 3
+
+
+def _trial_nets(activation="tanh", L=2):
+    """T JAX inits of one architecture: (JAX model, stacked JAX tree, the
+    port's models, their stacked tensors by name)."""
+    jm = JaxMLP(input_dim=2, output_dim=1, hidden_size=H, num_layers=L,
+                activation=activation)
+    trees = [jax.tree.map(np.asarray, jm.init(jax.random.key(10 + t)))
+             for t in range(T)]
+    models = [params_from_jax(tr, activation) for tr in trees]
+    stacked = {k: torch.stack([dict(m.named_parameters())[k].detach()
+                               for m in models])
+               for k, _ in models[0].named_parameters()}
+    jstacked = jax.tree.map(lambda *a: np.stack(a), *trees)
+    return jm, jstacked, models, stacked
+
+
+def _trial_batches():
+    """T batches of B points, stacked as [T, B, 2] per set."""
+    batches = [_batch(20 + t) for t in range(T)]
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+class _Streams(torch.nn.Module):
+    """The wrapper as a module, so that functional_call swaps a trial's
+    weights in (as the population trainer does)."""
+
+    def __init__(self, model, what="streams"):
+        super().__init__()
+        self.model, self.what = model, what
+
+    def forward(self, batch):
+        if self.what == "loss":
+            return Heat1D(taps="pallas").loss(self.model, batch)
+        return tm.heat_fused_streams(
+            self.model, *(batch[k] for k in ("xt", "x0", "xb1", "xb2")))
+
+
+def _vmapped(models, stacked, batch, what="streams", in_dims=0):
+    mod = _Streams(models[0], what)
+
+    def one(p, b):
+        return torch.func.functional_call(
+            mod, {f"model.{k}": v for k, v in p.items()}, (b,))
+
+    if what == "loss":
+        one = torch.func.grad_and_value(one)
+    return torch.func.vmap(one, in_dims=(0, in_dims))(stacked, batch)
+
+
+@pytest.mark.parametrize("shared", [False, True],
+                         ids=["per-trial points", "shared points"])
+def test_trial_axis_equals_one_trial_calls(shared):
+    """vmap of the wrapper over T trials (the rule's one call of the plain
+    version over the stacked trials, on the CPU) equals T one-trial calls
+    of each trial's own model: every stream to rtol 1e-6 / atol 1e-6, a
+    few fp32 ulps of streams under 2 (the batched and the single products
+    sum in another order; 2.7e-7 seen). Points
+    shared by all trials (``in_dims`` None) are expanded to each trial."""
+    _, _, models, stacked = _trial_nets()
+    batch = _trial_batches()
+    pts = {k: torch.from_numpy(v[0] if shared else v)
+           for k, v in batch.items()}
+    tm.heat_fused_streams.launches = 0
+    got = _vmapped(models, stacked, pts, in_dims=None if shared else 0)
+    assert tm.heat_fused_streams.launches == 0
+    for t, model in enumerate(models):
+        want = tm.heat_fused_streams(
+            model, *(pts[k] if shared else pts[k][t]
+                     for k in ("xt", "x0", "xb1", "xb2")))
+        for name, g, w in zip(NAMES, got, want):
+            assert g.shape == (T, B, 1)
+            np.testing.assert_allclose(
+                g[t].detach().numpy(), w.detach().numpy(), rtol=1e-6,
+                atol=1e-6, err_msg=f"trial {t} {name}")
+
+
+@pytest.mark.parametrize("activation", ["tanh", "relu"])
+def test_trial_axis_matches_jax_vmap(activation):
+    """All seven streams of T trials against ``jax.vmap`` of the JAX
+    kernel (interpret mode; Pallas gives it a leading batch grid axis):
+    rtol 1e-5 / atol 1e-5, the JAX package's tolerance for its kernel."""
+    jm, jstacked, models, stacked = _trial_nets(activation)
+    batch = _trial_batches()
+    want = jax.vmap(lambda p, *pts: heat_fused_streams_pallas(jm, p, *pts))(
+        jstacked, *(batch[k] for k in ("xt", "x0", "xb1", "xb2")))
+    got = _vmapped(models, stacked,
+                   {k: torch.from_numpy(v) for k, v in batch.items()})
+    for name, g, w in zip(NAMES, got, want):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_trial_axis_gradients_match_jax_vmap():
+    """``vmap(grad_and_value)`` of Heat1D(taps="pallas").loss over T trials
+    (the backward's ``torch.func.vjp`` of the plain stream math, batched)
+    against ``jax.vmap(value_and_grad)`` of the JAX package's pallas-taps
+    loss: losses rtol 1e-5, gradients rtol 1e-3 / atol 1e-5, as the
+    one-net gradient is held (test_pallas_loss_gradient_matches_jax)."""
+    jm, jstacked, models, stacked = _trial_nets("tanh")
+    batch = _trial_batches()
+    jprob = JaxHeat1D(taps="pallas", taps_model=jm)
+    jloss, jgrad = jax.vmap(jax.value_and_grad(
+        lambda p, b: jprob.loss(jm.apply, p, b)))(jstacked, batch)
+    grads, losses = _vmapped(
+        models, stacked, {k: torch.from_numpy(v) for k, v in batch.items()},
+        what="loss")
+    np.testing.assert_allclose(losses.detach().numpy(), np.asarray(jloss),
+                               rtol=1e-5)
+    for name, g in grads.items():
+        layer, leaf = name.split(".")
+        np.testing.assert_allclose(g.numpy(), np.asarray(jgrad[layer][leaf]),
+                                   rtol=1e-3, atol=1e-5, err_msg=name)

@@ -36,6 +36,7 @@ from differential_equations_dnn_tpu.kernels import (  # noqa: E402
 from differential_equations_dnn_tpu.kernels import (  # noqa: E402
     fused_engine as jfe,
 )
+from differential_equations_dnn_tpu.models import DGM as JaxDGM  # noqa: E402
 from differential_equations_dnn_tpu.models import MLP as JaxMLP  # noqa: E402
 from differential_equations_dnn_tpu.parallel import (  # noqa: E402
     make_mesh as jax_make_mesh,
@@ -107,12 +108,35 @@ def _jax_case():
     return jm, jp, u
 
 
+def _causal_jax_case(name):
+    """(JAX model, JAX problem, parameters, JAX_STEPS batches of uniforms)
+    of causal advection (eps = 5, a 2 → 16×2 → 1 MLP) or FitzHugh–Nagumo's
+    default (DGM 1 → 2, H = 8, L = 1, causal eps = 5), 16 rows a batch."""
+    if name == "advection":
+        jm = JaxMLP(input_dim=2, output_dim=1, hidden_size=16, num_layers=2,
+                    activation="tanh")
+        jprob, n_uniform = JAX_PROBLEMS["advection"](causal_eps=5.0), 2
+    else:
+        jm = JaxDGM(input_dim=1, output_dim=2, hidden_size=8, num_layers=1,
+                    activation="tanh")
+        jprob, n_uniform = JAX_PROBLEMS["fitzhugh_nagumo"](), 1
+    jp = jax.tree.map(np.asarray, jm.init(jax.random.key(1)))
+    u = np.random.default_rng(2).uniform(
+        size=(JAX_STEPS, 16, n_uniform)).astype(np.float32)
+    return jm, jprob, jp, u
+
+
+CAUSAL_JAX = ("advection", "fitzhugh_nagumo")
+
+
 @pytest.fixture(scope="module")
 def two():
     """Every 2-rank case, run once on one group of 2 gloo processes; rank
     0's results, after checking that both ranks returned the same."""
     _, jp, u = _jax_case()
-    ranks = spawn_ranks(cases.two_ranks, 2, jp, u, JAX_LR, timeout=240)
+    causal = {name: _causal_jax_case(name)[2:] for name in CAUSAL_JAX}
+    ranks = spawn_ranks(cases.two_ranks, 2, jp, u, JAX_LR, causal,
+                        timeout=240)
     _same_tree(ranks[0], ranks[1])
     return ranks[0]
 
@@ -225,6 +249,37 @@ def test_population_sharded_over_pop(two):
     _same_tree(two["population"], cases.population(None))
 
 
+def test_pallas_population_sharded_over_pop(two):
+    """A ``taps="pallas"`` population (kernel #3's trial axis; its plain
+    version on the CPU) over 2 ranks, bit for bit the unsharded one."""
+    _same_tree(two["population_pallas"], cases.population(None, "pallas"))
+
+
+@pytest.mark.parametrize("ranks", ["two", "four"])
+@pytest.mark.parametrize("case", cases.COUPLED)
+def test_coupled_rows_data_parallel_match_single(request, ranks, case):
+    """A loss that couples the rows of a batch, data-parallel over 2 and 4
+    ranks: BatchNorm moments over the global batch (inside the
+    second-order taps and the running-statistics refresh) and causal
+    weights over every rank's residuals (core/rows.py) give the single
+    run's trajectory. Losses rtol 1e-4 / atol 1e-6, parameters and
+    running statistics atol 1e-5, as the plain data-parallel runs are held
+    (fp32 reassociation of the loss's and the gradient's means)."""
+    losses, params, stats = request.getfixturevalue(ranks)[f"coupled_{case}"]
+    want_losses, want_params, want_stats = cases.coupled_train(case, None)
+    np.testing.assert_allclose(losses, want_losses, **LOSS_TOL)
+    np.testing.assert_allclose(params, want_params, rtol=0, atol=PARAM_ATOL)
+    np.testing.assert_allclose(stats, want_stats, rtol=0, atol=PARAM_ATOL)
+
+
+@pytest.mark.parametrize("case", cases.COUPLED)
+def test_one_rank_coupled_rows_equal_no_mesh(case):
+    """At one rank a coupled-rows run puts no gather on its path: bit for
+    bit the run without a mesh, as the smoke checks on the card."""
+    _same_tree(cases.coupled_train(case, make_mesh({"data": 1}, "cpu")),
+               cases.coupled_train(case, None))
+
+
 def test_population_on_a_pop_data_mesh(four):
     """A 2 × 2 ("pop", "data") mesh: the ranks of a pop coordinate train
     the same trials, as JAX replicates data."""
@@ -298,8 +353,6 @@ REFUSALS = {
     "ensemble without pop": "needs a 'pop' mesh axis",
     "rung indivisible": "3 trials not divisible by the 'pop' axis",
     "batch indivisible": "does not divide evenly over the 'data'",
-    "batchnorm data-parallel": "BatchNorm model's batch statistics",
-    "causal data-parallel": "causal loss",
 }
 
 
@@ -327,13 +380,10 @@ def test_dryrun_multichip():
 # ---------------------------------------------------------------------------
 
 
-def test_data_parallel_step_matches_jax(two):
-    """The port's data-parallel step over 2 ranks against the JAX trainer's
-    step with its batch constrained over a 2-device ``data`` mesh
-    (trainer.py:201), on the same parameters and batches: losses rtol
-    1e-4, parameters atol 1e-5 + 2·lr (test_steps_match_jax's)."""
-    jm, jp, u = _jax_case()
-    jprob = JAX_PROBLEMS["heat"](taps="taylor", taps_model=jm)
+def _jax_data_parallel_steps(jm, jprob, jp, u, prob):
+    """The JAX trainer's step with its batch constrained over a 2-device
+    ``data`` mesh (trainer.py:201) over the port problem's batches of the
+    uniforms ``u``: (losses, final parameters)."""
     config = JaxTrainConfig(iterations=2 * JAX_STEPS, batch_size=16,
                             lrate=JAX_LR)
     opt = jtrainer._make_optimizer(config)
@@ -347,13 +397,24 @@ def test_data_parallel_step_matches_jax(two):
         upd, state = opt.update(g, state, params)
         return optax.apply_updates(params, upd), state, loss
 
-    prob = PROBLEMS["heat"](taps="taylor")
     state, want = opt.init(jp), []
     for uk in u:
         batch = {k: v.numpy() for k, v in
                  prob.batch_from_uniforms(torch.from_numpy(uk)).items()}
         jp, state, loss = step(jp, state, batch)
         want.append(float(loss))
+    return want, jp
+
+
+def test_data_parallel_step_matches_jax(two):
+    """The port's data-parallel step over 2 ranks against the JAX trainer's
+    step with its batch constrained over a 2-device ``data`` mesh
+    (trainer.py:201), on the same parameters and batches: losses rtol
+    1e-4, parameters atol 1e-5 + 2·lr (test_steps_match_jax's)."""
+    jm, jp, u = _jax_case()
+    jprob = JAX_PROBLEMS["heat"](taps="taylor", taps_model=jm)
+    want, jp = _jax_data_parallel_steps(jm, jprob, jp, u,
+                                        PROBLEMS["heat"](taps="taylor"))
     losses, params = two["jax_steps"]
     np.testing.assert_allclose(losses, want, rtol=1e-4)
     for name, value in params.items():
@@ -362,6 +423,26 @@ def test_data_parallel_step_matches_jax(two):
             leaf = leaf[part]
         np.testing.assert_allclose(value, np.asarray(leaf), rtol=0,
                                    atol=1e-5 + 2 * JAX_LR, err_msg=name)
+
+
+@pytest.mark.parametrize("name", CAUSAL_JAX)
+def test_causal_data_parallel_step_matches_jax(two, name):
+    """Causal advection (eps = 5) and FitzHugh–Nagumo's default DGM: the
+    port's data-parallel step over 2 ranks, its causal weights over every
+    rank's rows with Δt = t_max / B_global, against the JAX step on its
+    batch constrained over a 2-device ``data`` mesh, where XLA weighs the
+    global batch: losses rtol 1e-4, parameters atol 1e-5 + 2·lr, as
+    test_data_parallel_step_matches_jax."""
+    jm, jprob, jp, u = _causal_jax_case(name)
+    prob = (PROBLEMS["advection"](causal_eps=5.0) if name == "advection"
+            else PROBLEMS["fitzhugh_nagumo"]())
+    want, jp = _jax_data_parallel_steps(jm, jprob, jp, u, prob)
+    losses, tree = two[f"causal_jax_{name}"]
+    np.testing.assert_allclose(losses, want, rtol=1e-4)
+    assert jax.tree.structure(tree) == jax.tree.structure(jp)
+    for got, ref in zip(jax.tree.leaves(tree), jax.tree.leaves(jp)):
+        np.testing.assert_allclose(got, np.asarray(ref), rtol=0,
+                                   atol=1e-5 + 2 * JAX_LR)
 
 
 def _recording_fake_population(calls):

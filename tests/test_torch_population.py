@@ -140,6 +140,10 @@ def _case(name):
     bn = {"heat_pre": "pre", "heat_post": "post"}.get(name)
     D = 1 if name == "simple_ode" else 2
     jm = JaxMLP(D, 1, 16, 2, "tanh", batch_norm=bn)
+    if name == "heat_pallas":
+        return (JAX_PROBLEMS["heat"](taps="pallas", taps_model=jm), jm,
+                PROBLEMS["heat"](taps="pallas"),
+                lambda tr: params_from_jax(tr, "tanh"), params_to_jax)
     key = "heat" if bn else name
     return (JAX_PROBLEMS[key](), jm, PROBLEMS[key](),
             lambda tr: params_from_jax(tr, "tanh", batch_norm=bn),
@@ -147,10 +151,14 @@ def _case(name):
 
 
 @pytest.mark.parametrize("name", ["simple_ode", "heat", "fitzhugh_nagumo",
-                                  "fredholm", "heat_pre", "heat_post"])
+                                  "fredholm", "heat_pre", "heat_post",
+                                  "heat_pallas"])
 def test_population_steps_match_jax(name, monkeypatch):
     """K steps of P trials, each with its own init, lr and mask (bs 16, 9
-    and 3 of 16 drawn rows). FitzHugh–Nagumo's Fourier MLP trains the
+    and 3 of 16 drawn rows). ``heat_pallas`` takes its streams from kernel
+    #3's wrapper under the population's vmap (its vmap rule; the plain
+    version here) against ``jax.vmap`` of the JAX kernel (interpret mode).
+    FitzHugh–Nagumo's Fourier MLP trains the
     plain masked loss (causal weighting is off under a mask, as in JAX);
     a BatchNorm trial's statistics span all 16 rows and are refreshed after
     each step with the updated parameters. A BatchNorm trial's step starts
@@ -161,12 +169,12 @@ def test_population_steps_match_jax(name, monkeypatch):
     JAX's, and a trial masked to 3 rows averages little of that away), and
     ten free steps carry it into the losses' third digit on both sides
     alike."""
-    if name.startswith("heat_"):
+    stateful = name in ("heat_pre", "heat_post")
+    if stateful:
         _intended_heat_taps(monkeypatch)
     jprob, jm, prob, from_jax, to_jax = _case(name)
     trees = [jax.tree.map(np.asarray, jm.init(jax.random.key(t)))
              for t in range(P)]
-    stateful = name.startswith("heat_")
     u = np.random.default_rng(1).uniform(
         size=(K, P, B, prob.n_uniform)).astype(np.float32)
     batches = [{k: torch.stack([prob.batch_from_uniforms(_t(u[j, t]))[k]
@@ -420,10 +428,34 @@ def test_stateful_and_fourier_populations():
     assert np.all(np.isfinite(losses)) and len(timings["state"]) == 8
 
 
+def test_pallas_taps_population_trains(tmp_path):
+    """Kernel #3 with a trial axis: a ``taps="pallas"`` population trains
+    through each user path, its streams taken through the wrapper's vmap
+    rule. On the CPU that rule
+    runs the plain version, which is the Taylor taps' stream math, so the
+    population equals the ``taps="taylor"`` one bit for bit; then
+    ``solve(engine="scan", ensemble=2, taps="pallas")`` and the CLI's
+    ``heat --solve --taps pallas --ensemble 2`` run to a finite MAE."""
+    from differential_equations_dnn_tpu_torch import cli
+
+    runs = [train_population(Heat1D(taps=taps), _small(), 4, LRS, BSS,
+                             _cfg(5), device="cpu")
+            for taps in ("pallas", "taylor")]
+    np.testing.assert_array_equal(runs[0][2], runs[1][2])
+    for k in runs[0][0]:
+        assert torch.equal(runs[0][0][k], runs[1][0][k]), k
+    res = solve("heat", engine="scan", ensemble=2, taps="pallas",
+                model=_small(), iterations=4, batch_size=B, nodes=5,
+                finetune=0, device="cpu")
+    assert res.loss_history.shape == (4,) and np.isfinite(res.mae)
+    rd = tmp_path / "temp_results"
+    cli.main(["heat", "--solve", "--taps", "pallas", "--ensemble", "2",
+              "--niters", "4", "--batch-size", "8", "--nnodes", "5",
+              "--results-dir", str(rd), "--platform", "cpu"])
+    assert np.all(np.isfinite(np.load(rd / "heat_sol_1d_dgm.npy")))
+
+
 def test_population_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="queue 2, item 7"):
-        train_population(Heat1D(taps="pallas"), _small(), 0, LRS,
-                         device="cpu")
     # Since item 14 a population takes a mesh; one without a 'pop' axis
     # is refused (an indivisible one: tests/test_torch_parallel.py).
     with pytest.raises(ValueError, match="'pop' mesh axis"):

@@ -161,10 +161,25 @@ def test_heat_streams_wrapper_refuses_past_limit():
     loads the library: past the limit it raises and launches nothing (the
     check needs only the widths, so CPU tensors show it here)."""
     model = MLP(2, 1, 3265, 0, "tanh", generator=generator(0))
-    pts = [torch.zeros((4, 2)) for _ in range(4)]
-    weights = (model.fc_in.w, model.fc_in.b, model.hidden.w, model.hidden.b,
-               model.fc_out.w, model.fc_out.b)
+    pts = [torch.zeros((1, 4, 2)) for _ in range(4)]
+    weights = tuple(w[None] for w in (model.fc_in.w, model.fc_in.b,
+                                      model.hidden.w, model.hidden.b,
+                                      model.fc_out.w, model.fc_out.b))
     before = taylor_mlp.heat_fused_streams.launches
     with pytest.raises(ValueError, match="widest it takes is H = 3264"):
-        taylor_mlp._launch_heat_streams(model, pts, weights)
+        taylor_mlp._launch_heat_streams(("tanh", 3265, 0, 1), pts, weights)
+    assert taylor_mlp.heat_fused_streams.launches == before
+
+
+def test_heat_streams_wrapper_refuses_too_many_trials():
+    """Past gridDim.y's 65 535 trials a launch raises a ValueError naming
+    the limit, before it checks the tensors or loads the library."""
+    T = taylor_mlp.MAX_STREAM_TRIALS + 1
+    pts = [torch.zeros((T, 1, 2)) for _ in range(4)]
+    weights = (torch.zeros((T, 2, 4)), torch.zeros((T, 4)),
+               torch.zeros((T, 0, 4, 4)), torch.zeros((T, 0, 4)),
+               torch.zeros((T, 4, 1)), torch.zeros((T, 1)))
+    before = taylor_mlp.heat_fused_streams.launches
+    with pytest.raises(ValueError, match="at most 65535 trials"):
+        taylor_mlp._launch_heat_streams(("tanh", 4, 0, 1), pts, weights)
     assert taylor_mlp.heat_fused_streams.launches == before

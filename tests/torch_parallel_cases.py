@@ -15,7 +15,11 @@ from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
 from differential_equations_dnn_tpu_torch.models import (
     DGM,
     MLP,
+    ResNet,
+    dgm_params_from_jax,
+    dgm_params_to_jax,
     params_from_jax,
+    params_to_jax,
 )
 from differential_equations_dnn_tpu_torch.parallel import (
     PopulationConfig,
@@ -76,6 +80,57 @@ def data_parallel_train(taps, mesh):
     return res.loss_history, flat(res.params)
 
 
+# Data-parallel runs whose loss couples the rows of a batch (core/rows.py):
+# pre- and post-BatchNorm MLPs and a ResNet on heat (jvp taps), causal
+# advection (eps = 5) and FitzHugh–Nagumo's default DGM (causal, eps = 5).
+COUPLED = ("bn_pre", "bn_post", "resnet", "advection_causal",
+           "fitzhugh_nagumo")
+
+
+def coupled_case(case):
+    """(problem, model) of a COUPLED case."""
+    if case in ("bn_pre", "bn_post"):
+        return PROBLEMS["heat"](), MLP(2, 1, 8, 2, "tanh",
+                                       batch_norm=case[3:],
+                                       generator=generator(0))
+    if case == "resnet":
+        return PROBLEMS["heat"](), ResNet(hidden_size=4, n_blocks=1,
+                                          generator=generator(0))
+    if case == "advection_causal":
+        return PROBLEMS["advection"](causal_eps=5.0), small_mlp()
+    return PROBLEMS["fitzhugh_nagumo"](), small_dgm()
+
+
+def coupled_train(case, mesh):
+    """DP_STEPS of ``train`` on a COUPLED case: (losses, parameters,
+    running statistics)."""
+    prob, model = coupled_case(case)
+    res = train(prob, 3, TrainConfig(**DP), model=model, mesh=mesh, **CPU)
+    stats = [b.detach().reshape(-1) for b in res.params.buffers()]
+    return (res.loss_history, flat(res.params),
+            torch.cat(stats).numpy() if stats else np.zeros(0, np.float32))
+
+
+def causal_jax_steps(name, jax_params, uniforms, lr, mesh):
+    """The data-parallel step from the JAX package's parameters of causal
+    advection's MLP (eps = 5) or FitzHugh–Nagumo's DGM over the given
+    uniforms' batches: the losses and the parameters as the JAX tree."""
+    if name == "advection":
+        prob = PROBLEMS["advection"](causal_eps=5.0)
+        model, to_jax = params_from_jax(jax_params, "tanh"), params_to_jax
+    else:
+        prob = PROBLEMS["fitzhugh_nagumo"]()
+        model, to_jax = dgm_params_from_jax(jax_params), dgm_params_to_jax
+    B = uniforms.shape[1]
+    config = TrainConfig(iterations=2 * len(uniforms), batch_size=B,
+                         lrate=lr)
+    opt = trainer_mod.make_optimizer(config, model.parameters())
+    step = make_train_step(prob, model, opt, B, mesh=mesh)
+    losses = [float(step(prob.batch_from_uniforms(torch.from_numpy(u))))
+              for u in uniforms]
+    return np.array(losses), to_jax(model)
+
+
 def jax_parity_steps(jax_params, uniforms, lr, mesh):
     """The data-parallel step (``make_train_step`` on a mesh) from the JAX
     package's parameters over the given uniforms' batches: the losses and
@@ -92,9 +147,9 @@ def jax_parity_steps(jax_params, uniforms, lr, mesh):
                               for k, v in model.named_parameters()}
 
 
-def population(mesh):
+def population(mesh, taps="jvp"):
     params, opt_state, losses = train_population(
-        PROBLEMS["heat"](), small_mlp(), 0, POP_LRS, POP_BSS,
+        PROBLEMS["heat"](taps=taps), small_mlp(), 0, POP_LRS, POP_BSS,
         config=PopulationConfig(**POP), mesh=mesh, **CPU)
     return (losses, {k: v.numpy() for k, v in params.items()},
             opt_state["count"].numpy())
@@ -203,28 +258,25 @@ def refusals(n_ranks):
             heat, 0, TrainConfig(iterations=1, batch_size=4 * n_ranks + 1,
                                  verbose=False), model=small_mlp(),
             mesh={"data": n_ranks}, **CPU),
-        "batchnorm data-parallel": lambda: train(
-            heat, 0, TrainConfig(iterations=1, batch_size=8, verbose=False),
-            model=MLP(2, 1, 8, 1, "tanh", batch_norm="pre",
-                      generator=generator(0)),
-            mesh={"data": n_ranks}, **CPU),
-        "causal data-parallel": lambda: train(
-            PROBLEMS["advection"](causal_eps=5.0), 0,
-            TrainConfig(iterations=1, batch_size=8, verbose=False),
-            model=small_mlp(), mesh={"data": n_ranks}, **CPU),
     }
     return {name: message(fn) for name, fn in cases.items()}
 
 
-def two_ranks(jax_params, uniforms, lr):
-    """Every 2-rank case on one group; numpy results by case."""
+def two_ranks(jax_params, uniforms, lr, causal):
+    """Every 2-rank case on one group; numpy results by case. ``causal``
+    maps "advection" and "fitzhugh_nagumo" to (JAX parameters, uniforms)
+    for :func:`causal_jax_steps`."""
     data = make_mesh({"data": 2}, "cpu")
     pop = make_mesh({"pop": 2}, "cpu")
     return {
         "train_jvp": data_parallel_train("jvp", data),
         "train_taylor": data_parallel_train("taylor", data),
         "jax_steps": jax_parity_steps(jax_params, uniforms, lr, data),
+        **{f"coupled_{case}": coupled_train(case, data) for case in COUPLED},
+        **{f"causal_jax_{name}": causal_jax_steps(name, p, u, lr, data)
+           for name, (p, u) in causal.items()},
         "population": population(pop),
+        "population_pallas": population(pop, "pallas"),
         "mlp_ensemble": mlp_ensemble(pop),
         "dgm_ensemble": dgm_ensemble(pop),
         "mlp_rung": mlp_rung(pop),
@@ -237,12 +289,13 @@ def two_ranks(jax_params, uniforms, lr):
 
 def four_ranks():
     """The 4-rank cases: a population on a 2 × 2 ("pop", "data") mesh and
-    data-parallel training over 4 ranks."""
+    data-parallel training over 4 ranks (the COUPLED cases too)."""
+    data = make_mesh({"data": 4}, "cpu")
     return {
         "population_2x2": population(make_mesh({"pop": 2, "data": 2},
                                                "cpu")),
-        "train_jvp": data_parallel_train("jvp", make_mesh({"data": 4},
-                                                          "cpu")),
+        "train_jvp": data_parallel_train("jvp", data),
+        **{f"coupled_{case}": coupled_train(case, data) for case in COUPLED},
     }
 
 
