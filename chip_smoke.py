@@ -2063,6 +2063,38 @@ def phase_kernels():
             + bf16_rows + masked_rows)
 
 
+def graph_counts(trainer):
+    """(captures, replays) of ``trainer``'s CUDA graphs ("scan",
+    "population", "heat", "engine", "dgm") counted in this process
+    (utils/trace.py; the fused trainers replay inside their kernels'
+    library and count no replay)."""
+    from differential_equations_dnn_tpu_torch.utils import trace
+
+    counts = trace.counters()
+    return (counts.get(f"graph.captures.{trainer}", 0),
+            counts.get(f"graph.replays.{trainer}", 0))
+
+
+def fused_captures():
+    """The fused trainers' graph captures so far, and the cached shapes
+    freed to make room."""
+    from differential_equations_dnn_tpu_torch.utils import trace
+
+    return (sum(graph_counts(t)[0] for t in ("heat", "engine", "dgm")),
+            trace.counters().get("graph.evictions", 0))
+
+
+def capture_seconds(trainer, since_ns=0):
+    """Host seconds of each capture of ``trainer``'s graphs that began at
+    or after ``since_ns`` (``time.perf_counter_ns()``): its
+    ``graph.capture`` spans."""
+    from differential_equations_dnn_tpu_torch.utils import trace
+
+    return [1e-9 * (sp.end_ns - sp.start_ns) for sp in trace.spans()
+            if sp.name == "graph.capture" and sp.start_ns >= since_ns
+            and sp.attrs.get("trainer") == trainer]
+
+
 def report_graphs():
     """The graphs the fused trainers captured so far: their capture and
     instantiation, in host seconds, apart from the chunks' times (each
@@ -2070,11 +2102,9 @@ def report_graphs():
     shape's graph)."""
     from differential_equations_dnn_tpu_torch.kernels import graphs
 
-    stats = graphs.graph_stats
     for engine, what in (("engine", "MLP engine"), ("dgm", "DGM"),
                          ("heat", "heat kernel (#1)")):
-        secs = [t for t, e in zip(stats["build_seconds"], stats["engines"])
-                if e == engine]
+        secs = capture_seconds(engine)
         if not secs:
             raise AssertionError(f"no {what} chunk captured a CUDA graph")
         print(f"{what} CUDA graphs of {graphs.GRAPH_STEPS} steps: "
@@ -2082,25 +2112,17 @@ def report_graphs():
               + ", ".join(f"{t:.4f}" for t in secs) + " s each")
 
 
-def wrappers():
-    from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
-    from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
-    from differential_equations_dnn_tpu_torch.kernels import fused_train as ft
-    from differential_equations_dnn_tpu_torch.kernels import taylor_mlp as tm
-
-    return [tm.mlp_forward, ft.heat_fused_train_chunk, fe.fused_engine_chunk,
-            fe.engine_loss_grad, fd.fused_dgm_chunk, fd.dgm_loss_grad,
-            fe.fused_engine_packed_chunk, fd.fused_dgm_packed_chunk,
-            tm.heat_fused_streams]
-
-
 # The training wrappers that report their step-math runs (#6, #7; inside
-# the packed kernel, replica-steps), by index in wrappers().
-STEP_MATH = {"engine_step_math": 2, "dgm_step_math": 4,
-             "engine_packed_step_math": 6, "dgm_packed_step_math": 7}
+# the packed kernel, replica-steps), by name.
+STEP_MATH = {"engine_step_math": "fused_engine_chunk",
+             "dgm_step_math": "fused_dgm_chunk",
+             "engine_packed_step_math": "fused_engine_packed_chunk",
+             "dgm_packed_step_math": "fused_dgm_packed_chunk"}
 
 
 def reset_counts():
+    from differential_equations_dnn_tpu_torch.utils.trace import wrappers
+
     for fn in wrappers():
         fn.launches = 0
         if hasattr(fn, "bf16_launches"):
@@ -2108,9 +2130,9 @@ def reset_counts():
         if hasattr(fn, "sweep_launches"):
             fn.sweep_launches = 0
             fn.sweep_shapes = {}
-    for index in STEP_MATH.values():
-        wrappers()[index].step_math_runs = 0
-        wrappers()[index].bf16_step_math_runs = 0
+        if fn.__name__ in STEP_MATH.values():
+            fn.step_math_runs = 0
+            fn.bf16_step_math_runs = 0
 
 
 def read_counts():
@@ -2118,17 +2140,22 @@ def read_counts():
     whose step math (#6, #7) ``engine_train_packed`` / ``dgm_train_packed``
     enqueued for each wrapper, as the library reports them; under
     ``name[default]`` those of the "default" precision's instances, under
-    ``name[sweep]`` the launches in the sweep mode."""
-    counts = {fn.__name__: fn.launches for fn in wrappers()}
-    for fn in wrappers():
-        if hasattr(fn, "bf16_launches"):
-            counts[f"{fn.__name__}[default]"] = fn.bf16_launches
-        if hasattr(fn, "sweep_launches"):
-            counts[f"{fn.__name__}[sweep]"] = fn.sweep_launches
-    for counter, index in STEP_MATH.items():
-        counts[counter] = wrappers()[index].step_math_runs
+    ``name[sweep]`` the launches in the sweep mode. Read from
+    ``utils.trace.counters()``."""
+    from differential_equations_dnn_tpu_torch.utils import trace
+
+    counters = trace.counters()
+    names = [fn.__name__ for fn in trace.wrappers()]
+    counts = {name: counters[f"launches.{name}"] for name in names}
+    for name in names:
+        for attr, tag in (("bf16_launches", "default"),
+                          ("sweep_launches", "sweep")):
+            if f"{attr}.{name}" in counters:
+                counts[f"{name}[{tag}]"] = counters[f"{attr}.{name}"]
+    for counter, name in STEP_MATH.items():
+        counts[counter] = counters[f"step_math_runs.{name}"]
         counts[f"{counter}[default]"] = \
-            wrappers()[index].bf16_step_math_runs
+            counters[f"bf16_step_math_runs.{name}"]
     return counts
 
 
@@ -2167,14 +2194,15 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
     from differential_equations_dnn_tpu_torch.api import _auto_defaults
     from differential_equations_dnn_tpu_torch.train import trainer
 
-    graphs = dict(trainer.graph_stats)
+    graphs = graph_counts("scan")
     reset_counts()
     t0 = time.perf_counter()
+    since = time.perf_counter_ns()
     res = solve(name, engine=engine, schedule=schedule, **extra)
     total = time.perf_counter() - t0
     launches = read_counts()
-    captures = trainer.graph_stats["captures"] - graphs["captures"]
-    replays = trainer.graph_stats["replays"] - graphs["replays"]
+    captures, replays = (now - was for now, was
+                         in zip(graph_counts("scan"), graphs))
 
     d = res.problem.defaults
     ensemble, finetune = _auto_defaults(res.problem, None)
@@ -2193,7 +2221,7 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
           f"{finetune} L-BFGS steps, MAE {res.mae:.6g} (bound {mae_bound}), "
           f"final loss {res.loss_history[-1]:.4g}, {rate} (wall "
           f"{res.wall_time:.3f} s), build + warm-up {res.compile_time:.3f} s"
-          + (f" (graph capture {trainer.graph_stats['capture_seconds'][-1]:.3f}"
+          + (f" (graph capture {capture_seconds('scan', since)[-1]:.3f}"
              f" s), {replays} graph replays" if captures else "")
           + f", total {total:.2f} s; launches {launches}")
     if res.loss_history.shape != (steps + finetune,):
@@ -2411,7 +2439,6 @@ def phase_sweep():
     )
     from differential_equations_dnn_tpu_torch.kernels import fused_dgm as fd
     from differential_equations_dnn_tpu_torch.kernels import fused_engine as fe
-    from differential_equations_dnn_tpu_torch.kernels import graphs
     from differential_equations_dnn_tpu_torch.sweep import (
         BUCKET_TILES,
         SearchSpace,
@@ -2432,14 +2459,15 @@ def phase_sweep():
           f"150 000 cut)")
     heat, fn = Heat1D(), FitzHughNagumo(arch="dgm", causal_eps=0.0)
     fred = Fredholm2(quadrature="gauss", k=16)
-    builds, evictions = graphs.graph_stats["builds"], \
-        graphs.graph_stats["evictions"]
+    from differential_equations_dnn_tpu_torch.utils.trace import wrappers
+
+    builds, evictions = fused_captures()
     reset_counts()
     runs = {}
 
     def timed(label, fn_, trials):
         torch.cuda.synchronize()
-        captured = graphs.graph_stats["builds"]
+        captured = fused_captures()[0]
         t0 = time.perf_counter()
         out = fn_()
         torch.cuda.synchronize()
@@ -2448,7 +2476,7 @@ def phase_sweep():
         best = out.best_config
         print(f"sweep {label}: {trials} trials in {secs:.2f} s, "
               f"{60 * trials / secs:.1f} trials per minute, "
-              f"{graphs.graph_stats['builds'] - captured} CUDA graphs "
+              f"{fused_captures()[0] - captured} CUDA graphs "
               f"captured; best {best}, score {out.best_score:.6g}")
         if best is not None and not math.isfinite(out.best_score):
             raise AssertionError(f"sweep {label}: no finite score")
@@ -2475,8 +2503,8 @@ def phase_sweep():
     launches = read_counts()
     shapes = {fn.__name__: dict(fn.sweep_shapes) for fn in wrappers()
               if hasattr(fn, "sweep_shapes")}
-    print(f"sweep: {graphs.graph_stats['builds'] - builds} CUDA graphs "
-          f"captured, {graphs.graph_stats['evictions'] - evictions} cached "
+    print(f"sweep: {fused_captures()[0] - builds} CUDA graphs "
+          f"captured, {fused_captures()[1] - evictions} cached "
           f"shapes freed; launches "
           + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
           + "; in the sweep mode by tile x replicas: "
@@ -2605,19 +2633,18 @@ def population_run(launches, label, fn):
     its seconds)."""
     import torch
 
-    from differential_equations_dnn_tpu_torch.parallel import population as pop
-
-    captures = dict(pop.graph_stats)
+    captures = graph_counts("population")
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    since = time.perf_counter_ns()
     out = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches[label] = read_counts()
-    n = pop.graph_stats["captures"] - captures["captures"]
-    r = pop.graph_stats["replays"] - captures["replays"]
-    cap = sum(pop.graph_stats["capture_seconds"][-n:]) if n else 0.0
+    n, r = (now - was for now, was
+            in zip(graph_counts("population"), captures))
+    cap = sum(capture_seconds("population", since))
     print(f"population {label}: {secs:.2f} s, {n} population graphs "
           f"captured ({cap:.2f} s), {r} replays; launches "
           + ", ".join(f"{k} {v}" for k, v in launches[label].items() if v))
@@ -2872,7 +2899,6 @@ def phase_population_card(launches):
     population run's launches: none but (c)'s and (g)'s one of kernel #2
     and (g)'s of #3."""
     from differential_equations_dnn_tpu_torch import solve
-    from differential_equations_dnn_tpu_torch.parallel import population as pop
 
     population_headline()
     res, _ = population_run(launches, "(c) heat ensemble=8", lambda: solve(
@@ -2920,8 +2946,8 @@ def phase_population_card(launches):
         ran = {k for k, v in counts.items() if v and k not in allowed}
         if ran:
             raise AssertionError(f"population {label}: launched {ran}")
-    print(f"population: {pop.graph_stats['captures']} population graphs "
-          f"captured, {pop.graph_stats['replays']} replays in all")
+    print(f"population: {graph_counts('population')[0]} population graphs "
+          f"captured, {graph_counts('population')[1]} replays in all")
 
 
 # The mesh phase (parallel/): one rank of NCCL in this
@@ -2988,7 +3014,6 @@ def phase_mesh():
     )
     from differential_equations_dnn_tpu_torch.models import MLP
     from differential_equations_dnn_tpu_torch.sweep.search import _tiles_for
-    from differential_equations_dnn_tpu_torch.train import trainer
     from differential_equations_dnn_tpu_torch.train import (
         TrainConfig,
         train,
@@ -3127,10 +3152,10 @@ def phase_mesh():
                           lrate=1e-4, verbose=False)
         for taps in ("jvp", "pallas"):
             prob = Heat1D(taps=taps)
-            before = dict(trainer.graph_stats)
+            before = graph_counts("scan")[0]
             got = run(f"(d) train heat {taps} data mesh",
                       lambda: train(prob, 0, cfg, mesh=data))
-            captures = trainer.graph_stats["captures"] - before["captures"]
+            captures = graph_counts("scan")[0] - before
             want = run(f"(d) train heat {taps}", lambda: train(prob, 0, cfg))
             same(f"(d) train heat {taps}",
                  (got.loss_history, flat([got.params])),
@@ -3157,10 +3182,10 @@ def phase_mesh():
                  128, 1e-3)):
             cfg = TrainConfig(iterations=MESH_TRAIN_STEPS, batch_size=batch,
                               lrate=lr, verbose=False)
-            before = dict(trainer.graph_stats)
+            before = graph_counts("scan")[0]
             got = run(f"(d) train {label} data mesh",
                       lambda: train(prob, 0, cfg, model=make(), mesh=data))
-            captures = trainer.graph_stats["captures"] - before["captures"]
+            captures = graph_counts("scan")[0] - before
             want = run(f"(d) train {label}",
                        lambda: train(prob, 0, cfg, model=make()))
             same(f"(d) train {label}",

@@ -33,7 +33,8 @@ plain MLP runs the MLP-forward kernel.
                    halving), and the batch-size and BatchNorm ablations
 * ``serving``    — ``export_solution`` / ``load_solution``: a trained
                    solution as a ``torch.export`` program
-* ``utils``      — timing, run manifests, ``temp_results/*.npy`` IO
+* ``utils``      — timing, run manifests, ``temp_results/*.npy`` IO, the
+                   spans and counters of the layers (``utils.trace``)
 * ``viz``, ``cli`` — the reference's figures and the command line
                    (``python -m differential_equations_dnn_tpu_torch``),
                    imported on first use, so that importing the package

@@ -49,6 +49,7 @@ from differential_equations_dnn_tpu_torch.train import (
     mean_absolute_error,
 )
 from differential_equations_dnn_tpu_torch.train import train as train_scan
+from differential_equations_dnn_tpu_torch.utils import trace
 
 
 @dataclass
@@ -100,17 +101,19 @@ def _polish_and_select(problem, models, val_losses, seed, steps):
     the one with the lowest residual on a fresh batch from ``seed + 4``:
     which replica polishes best depends on the polish. Returns (picked
     index, polished model, polish losses)."""
-    order = np.argsort(np.where(np.isfinite(val_losses), val_losses, np.inf))
-    device = next(models[0].parameters()).device
-    fresh = problem.validation_sample(4096, generator(seed + 4), device)
-    best = None
-    for i in order[:3]:
-        polished, losses = finetune_lbfgs(problem, models[i], steps,
-                                          batch_size=8192,
-                                          generator=generator(seed + 3))
-        r = _residual(problem, polished, fresh)
-        if best is None or r < best[0]:
-            best = (r, int(i), polished, losses)
+    with trace.span("solve.polish", steps=steps, replicas=3):
+        order = np.argsort(np.where(np.isfinite(val_losses), val_losses,
+                                    np.inf))
+        device = next(models[0].parameters()).device
+        fresh = problem.validation_sample(4096, generator(seed + 4), device)
+        best = None
+        for i in order[:3]:
+            polished, losses = finetune_lbfgs(problem, models[i], steps,
+                                              batch_size=8192,
+                                              generator=generator(seed + 3))
+            r = _residual(problem, polished, fresh)
+            if best is None or r < best[0]:
+                best = (r, int(i), polished, losses)
     return best[1:]
 
 
@@ -118,12 +121,14 @@ def _polish(problem, model, loss_history, steps, seed):
     """A single run's L-BFGS polish on a batch from ``seed + 3``; a
     stateful model's running statistics are then refreshed on 1 024
     validation points from ``seed + 2`` (JAX api.py:425-437)."""
-    model, ft_losses = finetune_lbfgs(problem, model, steps,
-                                      generator=generator(seed + 3))
-    if is_stateful(model):
-        device = next(model.parameters()).device
-        refresh = problem.validation_sample(1024, generator(seed + 2), device)
-        update_state(model, problem.domain_inputs(refresh))
+    with trace.span("solve.polish", steps=steps, replicas=1):
+        model, ft_losses = finetune_lbfgs(problem, model, steps,
+                                          generator=generator(seed + 3))
+        if is_stateful(model):
+            device = next(model.parameters()).device
+            refresh = problem.validation_sample(1024, generator(seed + 2),
+                                                device)
+            update_state(model, problem.domain_inputs(refresh))
     return model, np.concatenate([loss_history, ft_losses])
 
 
@@ -277,115 +282,133 @@ def solve(equation: str | Problem, *, iterations: int | None = None,
     over its ``data`` axis (``train``). A single fused run is one kernel
     and raises. Every rank returns the same result, on its own device.
     """
-    check_precision(precision)
-    problem = (get_problem(equation, **problem_kwargs)
-               if isinstance(equation, str) else equation)
-    if ensemble is None or finetune is None:
-        auto_ens, auto_ft = _auto_defaults(problem, model)
-        ensemble = auto_ens if ensemble is None else ensemble
-        finetune = auto_ft if finetune is None else finetune
-    if engine not in ("scan", "fused"):
-        raise ValueError(f"unknown engine {engine!r} (scan | fused)")
-    if mesh is not None and engine == "fused" and ensemble <= 1:
-        raise ValueError(
-            "a SINGLE fused run is one kernel on one GPU and cannot shard "
-            "over a mesh; use ensemble=N with mesh=make_mesh({'pop': K}) "
-            "(sharded fused ensemble — kernels.fused_engine."
-            "train_fused_ensemble), or engine='scan' with "
-            "mesh=make_mesh({'data': K}) for data-parallel single-run "
-            "training")
-    device = resolve_device(device)
-    if mesh is not None:
-        mesh = as_mesh(mesh, device)
-        device = mesh_device(mesh)
+    with trace.span("solve") as call:
+        check_precision(precision)
+        problem = (get_problem(equation, **problem_kwargs)
+                   if isinstance(equation, str) else equation)
+        if ensemble is None or finetune is None:
+            auto_ens, auto_ft = _auto_defaults(problem, model)
+            ensemble = auto_ens if ensemble is None else ensemble
+            finetune = auto_ft if finetune is None else finetune
+        if engine not in ("scan", "fused"):
+            raise ValueError(f"unknown engine {engine!r} (scan | fused)")
+        if mesh is not None and engine == "fused" and ensemble <= 1:
+            raise ValueError(
+                "a SINGLE fused run is one kernel on one GPU and cannot "
+                "shard over a mesh; use ensemble=N with mesh=make_mesh("
+                "{'pop': K}) (sharded fused ensemble — kernels.fused_engine."
+                "train_fused_ensemble), or engine='scan' with "
+                "mesh=make_mesh({'data': K}) for data-parallel single-run "
+                "training")
+        device = resolve_device(device)
+        if mesh is not None:
+            mesh = as_mesh(mesh, device)
+            device = mesh_device(mesh)
 
-    d = problem.defaults
-    config = TrainConfig(
-        iterations=iterations if iterations is not None else d.iterations,
-        batch_size=batch_size if batch_size is not None else d.batch_size,
-        lrate=lrate if lrate is not None else d.lrate,
-        schedule=schedule if schedule is not None else d.schedule,
-        verbose=False,
-    )
-    nodes = nodes if nodes is not None else d.nodes
-    single = (model if model is not None
-              else problem.default_model(generator=generator(seed)))
-    route = ("scan" if engine == "scan" else
-             _fused_route(problem, single, config.schedule, config.batch_size))
+        d = problem.defaults
+        config = TrainConfig(
+            iterations=iterations if iterations is not None
+            else d.iterations,
+            batch_size=batch_size if batch_size is not None
+            else d.batch_size,
+            lrate=lrate if lrate is not None else d.lrate,
+            schedule=schedule if schedule is not None else d.schedule,
+            verbose=False,
+        )
+        nodes = nodes if nodes is not None else d.nodes
+        with trace.span("solve.setup"):
+            single = (model if model is not None
+                      else problem.default_model(generator=generator(seed)))
+            route = ("scan" if engine == "scan" else
+                     _fused_route(problem, single, config.schedule,
+                                  config.batch_size))
+        call.attrs.update(equation=problem.name, engine=engine, route=route,
+                          ensemble=ensemble)
 
-    common = dict(batch_size=config.batch_size, lrate=config.lrate,
-                  chunk_size=config.chunk_size, precision=precision,
-                  device=device)
-    if ensemble > 1 and route == "scan":
-        result = _train_scan_population(problem, single, seed, config,
-                                        ensemble, device, mesh)
-    elif ensemble > 1 and mesh is not None:
-        train = (fused_dgm.train_dgm_fused_ensemble if route == "dgm"
-                 else fused_engine.train_fused_ensemble)
-        timings = {}
-        models, losses = train(problem, seed, config.iterations, ensemble,
-                               mesh=mesh, model=model,
-                               schedule=config.schedule, timings=timings,
+        common = dict(batch_size=config.batch_size, lrate=config.lrate,
+                      chunk_size=config.chunk_size, precision=precision,
+                      device=device)
+        with trace.span("solve.train"):
+            if ensemble > 1 and route == "scan":
+                result = _train_scan_population(problem, single, seed,
+                                                config, ensemble, device,
+                                                mesh)
+            elif ensemble > 1 and mesh is not None:
+                train = (fused_dgm.train_dgm_fused_ensemble if route == "dgm"
+                         else fused_engine.train_fused_ensemble)
+                timings = {}
+                models, losses = train(problem, seed, config.iterations,
+                                       ensemble, mesh=mesh, model=model,
+                                       schedule=config.schedule,
+                                       timings=timings, **common)
+                wall = timings["run_time"]
+                result = TrainResult(
+                    params=models, opt_state=None, loss_history=losses,
+                    wall_time=wall,
+                    iters_per_sec=(config.iterations / wall if wall
+                                   else float("inf")),
+                    compile_time=timings["compile_time"])
+            elif ensemble > 1:
+                train = (fused_dgm.train_dgm_fused_ensemble_packed
+                         if route == "dgm"
+                         else fused_engine.train_fused_ensemble_packed)
+                result = train(problem, seed, config.iterations, ensemble,
+                               model=model, schedule=config.schedule,
                                **common)
-        wall = timings["run_time"]
-        result = TrainResult(params=models, opt_state=None,
-                             loss_history=losses, wall_time=wall,
-                             iters_per_sec=(config.iterations / wall if wall
-                                            else float("inf")),
-                             compile_time=timings["compile_time"])
-    elif ensemble > 1:
-        train = (fused_dgm.train_dgm_fused_ensemble_packed if route == "dgm"
-                 else fused_engine.train_fused_ensemble_packed)
-        result = train(problem, seed, config.iterations, ensemble,
-                       model=model, schedule=config.schedule, **common)
-    if ensemble > 1:
-        val = problem.validation_sample(4096, generator(seed + 1), device)
-        val_losses = np.array([_residual(problem, m, val)
-                               for m in result.params])
-        # A stateful population is not polished as an ensemble (JAX
-        # api.py:340); its pick is polished below as a single run.
-        if finetune and not is_stateful(single):
-            pick, trained, ft_losses = _polish_and_select(
-                problem, result.params, val_losses, seed, finetune)
-            loss_history = np.concatenate([result.loss_history[pick],
-                                           ft_losses])
+            elif route == "scan":
+                result = train_scan(problem, seed, config, model=single,
+                                    device=device, mesh=mesh)
+            elif route == "heat":
+                result = train_heat_fused_result(problem, seed,
+                                                 config.iterations,
+                                                 model=single, **common)
+            else:
+                train = (fused_dgm.train_dgm_fused_result if route == "dgm"
+                         else fused_engine.train_fused_result)
+                result = train(problem, seed, config.iterations,
+                               model=single, schedule=config.schedule,
+                               **common)
+        if ensemble > 1:
+            with trace.span("solve.select"):
+                val = problem.validation_sample(4096, generator(seed + 1),
+                                                device)
+                val_losses = np.array([_residual(problem, m, val)
+                                       for m in result.params])
+                pick = int(np.argmin(np.where(np.isfinite(val_losses),
+                                              val_losses, np.inf)))
+            # A stateful population is not polished as an ensemble (JAX
+            # api.py:340); its pick is polished below as a single run.
+            if finetune and not is_stateful(single):
+                pick, trained, ft_losses = _polish_and_select(
+                    problem, result.params, val_losses, seed, finetune)
+                loss_history = np.concatenate([result.loss_history[pick],
+                                               ft_losses])
+            else:
+                trained = result.params[pick]
+                loss_history = result.loss_history[pick]
+                if finetune:
+                    trained, loss_history = _polish(
+                        problem, trained, loss_history, finetune, seed)
         else:
-            pick = int(np.argmin(np.where(np.isfinite(val_losses),
-                                          val_losses, np.inf)))
-            trained = result.params[pick]
-            loss_history = result.loss_history[pick]
+            trained, loss_history = result.params, result.loss_history
             if finetune:
                 trained, loss_history = _polish(problem, trained,
                                                 loss_history, finetune, seed)
-    else:
-        if route == "scan":
-            result = train_scan(problem, seed, config, model=single,
-                                device=device, mesh=mesh)
-        elif route == "heat":
-            result = train_heat_fused_result(problem, seed,
-                                             config.iterations, model=single,
-                                             **common)
-        else:
-            train = (fused_dgm.train_dgm_fused_result if route == "dgm"
-                     else fused_engine.train_fused_result)
-            result = train(problem, seed, config.iterations, model=single,
-                           schedule=config.schedule, **common)
-        trained, loss_history = result.params, result.loss_history
-        if finetune:
-            trained, loss_history = _polish(problem, trained, loss_history,
-                                            finetune, seed)
-    solution = problem.evaluate(trained, nodes)
-    exact = problem.exact(nodes)
-    return SolveResult(
-        problem=problem,
-        params=trained,
-        solution=solution,
-        exact=exact,
-        mae=mean_absolute_error(exact, solution),
-        loss_history=loss_history,
-        iters_per_sec=result.iters_per_sec,
-        wall_time=result.wall_time,
-        compile_time=result.compile_time,
-        device=(torch.cuda.get_device_name(device) if device.type == "cuda"
-                else "cpu"),
-    )
+        with trace.span("solve.eval", nodes=nodes):
+            solution = problem.evaluate(trained, nodes)
+            exact = problem.exact(nodes)
+            mae = mean_absolute_error(exact, solution)
+        return SolveResult(
+            problem=problem,
+            params=trained,
+            solution=solution,
+            exact=exact,
+            mae=mae,
+            loss_history=loss_history,
+            iters_per_sec=result.iters_per_sec,
+            wall_time=result.wall_time,
+            compile_time=result.compile_time,
+            device=(torch.cuda.get_device_name(device)
+                    if device.type == "cuda" else "cpu"),
+        )
+

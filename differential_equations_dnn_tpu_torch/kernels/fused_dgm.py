@@ -36,7 +36,7 @@ horizon; per-slot values in a packed call) serves the sweep evaluators
 
 On the card a chunk replays a CUDA graph of GRAPH_STEPS training steps,
 captured on the first call of its shape and cached (kernels/graphs.py:
-``clear_graphs``, ``graph_stats``), on a side stream ordered after and
+``clear_graphs``), on a side stream ordered after and
 before the caller's stream by events; the steps left over run as the same
 launches.
 """
@@ -65,7 +65,6 @@ from differential_equations_dnn_tpu_torch.kernels import graphs
 from differential_equations_dnn_tpu_torch.kernels.graphs import (  # noqa: F401
     GRAPH_STEPS,
     clear_graphs,
-    graph_stats,
 )
 from differential_equations_dnn_tpu_torch.kernels.fused_engine import (
     Group,
@@ -85,6 +84,7 @@ from differential_equations_dnn_tpu_torch.kernels.fused_train import (
 from differential_equations_dnn_tpu_torch.kernels.taylor_mlp import _ACT_KIND
 from differential_equations_dnn_tpu_torch.models import DGM
 from differential_equations_dnn_tpu_torch.ops import gauss_legendre_nodes
+from differential_equations_dnn_tpu_torch.utils import trace
 
 _N_CONSTS = 8  # floats of kernel_consts the CUDA specs read
 
@@ -835,21 +835,22 @@ def train_dgm_fused_result(problem, seed, iterations, batch_size=100,
         raise ValueError(f"no fused DGM spec for equation {problem.name!r} "
                          f"(fitzhugh_nagumo dgm arch | fredholm gauss)")
     n_default = default_steps(iterations, precision)
-    device = build.resolve_device(device)
-    if model is None:
-        model = problem.default_model(generator=generator(seed))
-    model.to(device)
-    _check_model(spec, model)
-    kw = dict(const=const_for(spec, problem, batch_size, device),
-              schedule=schedule or problem.defaults.schedule,
-              total_steps=total_steps or start_step + iterations,
-              decay=decay)
-    p = pack_dgm(model) if params is None else params.to(device).clone()
-    if opt_state is None:
-        m, v = torch.zeros_like(p), torch.zeros_like(p)
-    else:
-        m = opt_state["m"].to(device).clone()
-        v = opt_state["v"].to(device).clone()
+    with trace.span("train.setup", trainer="dgm"):
+        device = build.resolve_device(device)
+        if model is None:
+            model = problem.default_model(generator=generator(seed))
+        model.to(device)
+        _check_model(spec, model)
+        kw = dict(const=const_for(spec, problem, batch_size, device),
+                  schedule=schedule or problem.defaults.schedule,
+                  total_steps=total_steps or start_step + iterations,
+                  decay=decay)
+        p = pack_dgm(model) if params is None else params.to(device).clone()
+        if opt_state is None:
+            m, v = torch.zeros_like(p), torch.zeros_like(p)
+        else:
+            m = opt_state["m"].to(device).clone()
+            v = opt_state["v"].to(device).clone()
 
     def run_chunk(p, m, v, u, step0, precision):
         return fused_dgm_chunk(spec, model, p, m, v, u, step0, lrate,
@@ -861,7 +862,7 @@ def train_dgm_fused_result(problem, seed, iterations, batch_size=100,
 
     return train_in_chunks(model, run_chunk, draw, p, m, v, iterations,
                            chunk_size, device, start_step, load=load_dgm,
-                           n_default=n_default)
+                           n_default=n_default, trainer="dgm")
 
 
 def train_dgm_fused_ensemble_packed(problem, seed, iterations, n_replicas,
@@ -891,13 +892,15 @@ def train_dgm_fused_ensemble_packed(problem, seed, iterations, n_replicas,
         raise ValueError(f"no fused DGM spec for equation {problem.name!r} "
                          f"(fitzhugh_nagumo dgm arch | fredholm gauss)")
     n_default = default_steps(iterations, precision)
-    device = build.resolve_device(device)
-    models = replica_models(problem, model, seed, n_replicas, device, first)
-    _check_model(spec, models[0])
-    kw = dict(const=const_for(spec, problem, batch_size, device),
-              schedule=schedule or problem.defaults.schedule,
-              total_steps=iterations, decay=decay)
-    p = engine_core.stack_replicas([pack_dgm(m) for m in models])
+    with trace.span("train.setup", trainer="dgm"):
+        device = build.resolve_device(device)
+        models = replica_models(problem, model, seed, n_replicas, device,
+                                first)
+        _check_model(spec, models[0])
+        kw = dict(const=const_for(spec, problem, batch_size, device),
+                  schedule=schedule or problem.defaults.schedule,
+                  total_steps=iterations, decay=decay)
+        p = engine_core.stack_replicas([pack_dgm(m) for m in models])
 
     def run_chunk(p, m, v, u, step0, precision):
         return fused_dgm_packed_chunk(spec, models[0], p, m, v, u, step0,
@@ -914,7 +917,8 @@ def train_dgm_fused_ensemble_packed(problem, seed, iterations, n_replicas,
 
     return train_in_chunks(models, run_chunk, draw, p, torch.zeros_like(p),
                            torch.zeros_like(p), iterations, chunk_size,
-                           device, load=load, n_default=n_default)
+                           device, load=load, n_default=n_default,
+                           trainer="dgm")
 
 def train_dgm_fused_ensemble(problem, seed, iterations, n_replicas,
                              mesh=None, batch_size=100, lrate=1e-4,

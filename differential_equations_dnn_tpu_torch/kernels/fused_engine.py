@@ -84,7 +84,6 @@ from differential_equations_dnn_tpu_torch.kernels import graphs
 from differential_equations_dnn_tpu_torch.kernels.graphs import (  # noqa: F401
     GRAPH_STEPS,
     clear_graphs,
-    graph_stats,
 )
 from differential_equations_dnn_tpu_torch.kernels.engine_core import (
     check_batch_tile,
@@ -105,6 +104,7 @@ from differential_equations_dnn_tpu_torch.ops.sampling import (
     coprime_stride as _coprime_stride,
 )
 from differential_equations_dnn_tpu_torch.ops.sampling import stride_strata
+from differential_equations_dnn_tpu_torch.utils import trace
 
 _N_CONSTS = 8  # floats of kernel_consts the CUDA specs read
 # The most groups a spec may fold (csrc/engine_train.cu kMaxFold: a point's
@@ -1553,21 +1553,22 @@ def train_fused_result(problem, seed, iterations, batch_size=64, lrate=1e-4,
         raise ValueError(f"no fused-engine spec for equation "
                          f"{problem.name!r} (available: {sorted(SPECS)})")
     n_default = default_steps(iterations, precision)
-    device = build.resolve_device(device)
-    if model is None:
-        model = problem.default_model(generator=generator(seed))
-    model.to(device)
-    _check_model(spec, model)
-    kw = dict(schedule=schedule or problem.defaults.schedule,
-              total_steps=total_steps or start_step + iterations,
-              decay=decay, const=spec.make_const(batch_size, device))
-    p = (pack_state(spec, model) if params is None
-         else params.to(device).clone())
-    if opt_state is None:
-        m, v = torch.zeros_like(p), torch.zeros_like(p)
-    else:
-        m = opt_state["m"].to(device).clone()
-        v = opt_state["v"].to(device).clone()
+    with trace.span("train.setup", trainer="engine"):
+        device = build.resolve_device(device)
+        if model is None:
+            model = problem.default_model(generator=generator(seed))
+        model.to(device)
+        _check_model(spec, model)
+        kw = dict(schedule=schedule or problem.defaults.schedule,
+                  total_steps=total_steps or start_step + iterations,
+                  decay=decay, const=spec.make_const(batch_size, device))
+        p = (pack_state(spec, model) if params is None
+             else params.to(device).clone())
+        if opt_state is None:
+            m, v = torch.zeros_like(p), torch.zeros_like(p)
+        else:
+            m = opt_state["m"].to(device).clone()
+            v = opt_state["v"].to(device).clone()
 
     def run_chunk(p, m, v, u, step0, precision):
         return fused_engine_chunk(spec, model, p, m, v, u, step0, lrate,
@@ -1582,7 +1583,7 @@ def train_fused_result(problem, seed, iterations, batch_size=64, lrate=1e-4,
 
     return train_in_chunks(model, run_chunk, draw, p, m, v, iterations,
                            chunk_size, device, start_step, load=load,
-                           n_default=n_default)
+                           n_default=n_default, trainer="engine")
 
 
 def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
@@ -1612,13 +1613,15 @@ def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
         raise ValueError(f"no fused-engine spec for equation "
                          f"{problem.name!r} (available: {sorted(SPECS)})")
     n_default = default_steps(iterations, precision)
-    device = build.resolve_device(device)
-    models = replica_models(problem, model, seed, n_replicas, device, first)
-    _check_model(spec, models[0])
-    kw = dict(schedule=schedule or problem.defaults.schedule,
-              total_steps=iterations, decay=decay,
-              const=spec.make_const(batch_size, device))
-    p = engine_core.stack_replicas([pack_state(spec, m) for m in models])
+    with trace.span("train.setup", trainer="engine"):
+        device = build.resolve_device(device)
+        models = replica_models(problem, model, seed, n_replicas, device,
+                                first)
+        _check_model(spec, models[0])
+        kw = dict(schedule=schedule or problem.defaults.schedule,
+                  total_steps=iterations, decay=decay,
+                  const=spec.make_const(batch_size, device))
+        p = engine_core.stack_replicas([pack_state(spec, m) for m in models])
 
     def run_chunk(p, m, v, u, step0, precision):
         return fused_engine_packed_chunk(spec, models[0], p, m, v, u, step0,
@@ -1635,7 +1638,8 @@ def train_fused_ensemble_packed(problem, seed, iterations, n_replicas,
 
     return train_in_chunks(models, run_chunk, draw, p, torch.zeros_like(p),
                            torch.zeros_like(p), iterations, chunk_size,
-                           device, load=load, n_default=n_default)
+                           device, load=load, n_default=n_default,
+                           trainer="engine")
 
 
 def train_fused_ensemble(problem, seed, iterations, n_replicas, mesh=None,

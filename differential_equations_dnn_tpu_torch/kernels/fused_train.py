@@ -55,6 +55,7 @@ from differential_equations_dnn_tpu_torch.kernels.engine_core import (
 )
 from differential_equations_dnn_tpu_torch.models import MLP
 from differential_equations_dnn_tpu_torch.train.trainer import TrainResult
+from differential_equations_dnn_tpu_torch.utils import trace
 
 # The precisions one chunk runs at ("mixed" is a schedule of chunks).
 CHUNK_PRECISIONS = ("highest", "default")
@@ -487,8 +488,8 @@ def _warm_steps(phase, chunk, device):
 
 
 def train_in_chunks(model, run_chunk, draw, p, m, v, iterations, chunk_size,
-                    device, start_step=0, load=None,
-                    n_default=0) -> TrainResult:
+                    device, start_step=0, load=None, n_default=0, *,
+                    trainer) -> TrainResult:
     """The fused trainers' host loop. ``run_chunk(p, m, v, u, step0,
     precision)`` runs the steps of ``u = draw(step0, k)`` at ``precision``
     ("highest" | "default") and returns new (p, m, v, losses); the run's
@@ -505,15 +506,18 @@ def train_in_chunks(model, run_chunk, draw, p, m, v, iterations, chunk_size,
     takes GRAPH_STEPS steps where a chunk of the phase does). ``wall_time``
     and ``iters_per_sec`` cover the training steps only, ending in
     ``torch.cuda.synchronize()``. The trained parameters are loaded into
-    ``model``, which the result returns as ``params``."""
+    ``model``, which the result returns as ``params``. ``trainer`` ("heat",
+    "engine" or "dgm") names the trainer in the spans (utils/trace.py)."""
     chunk = max(1, min(chunk_size, iterations))
     phases = [("default", n_default), ("highest", iterations - n_default)]
     t0 = time.perf_counter()
-    for precision, steps in phases:
-        if steps > 0:
-            k = _warm_steps(steps, chunk, device)
-            run_chunk(p, m, v, draw(start_step, k), start_step, precision)
-    build.sync(device)
+    with trace.span("train.warmup", trainer=trainer):
+        for precision, steps in phases:
+            if steps > 0:
+                k = _warm_steps(steps, chunk, device)
+                run_chunk(p, m, v, draw(start_step, k), start_step,
+                          precision)
+        build.sync(device)
     compile_time = time.perf_counter() - t0
 
     losses = []
@@ -526,17 +530,21 @@ def train_in_chunks(model, run_chunk, draw, p, m, v, iterations, chunk_size,
         else:
             precision = "highest"
         step = start_step + done
-        p, m, v, chunk_losses = run_chunk(p, m, v, draw(step, k), step,
-                                          precision)
+        with trace.span("train.draw", trainer=trainer, steps=k):
+            u = draw(step, k)
+        with trace.span("train.chunk", precision=precision, steps=k):
+            p, m, v, chunk_losses = run_chunk(p, m, v, u, step, precision)
         losses.append(chunk_losses)
         done += k
     build.sync(device)
     wall = time.perf_counter() - t0
     (load or load_params)(model, p)
+    with trace.span("train.fetch"):
+        loss_history = torch.cat(losses, -1).cpu().numpy()
     return TrainResult(
         params=model,
         opt_state={"m": m, "v": v},
-        loss_history=torch.cat(losses, -1).cpu().numpy(),
+        loss_history=loss_history,
         wall_time=wall,
         iters_per_sec=iterations / wall if wall else float("inf"),
         compile_time=compile_time,
@@ -562,18 +570,20 @@ def train_heat_fused_result(problem, seed, iterations, batch_size=64,
     ``int(iterations·mixed_split)`` steps at "default", then "highest"; all
     "highest" where a phase would be empty)."""
     n_default = default_steps(iterations, precision, mixed_split)
-    device = build.resolve_device(device)
-    if model is None:
-        model = problem.default_model(generator=generator(seed))
-    model.to(device)
-    _check_model(model, device)
-    kw = dict(x_max=problem.x_max, t_max=problem.t_max, kappa=problem.kappa)
-    p = pack_params(model) if params is None else params.to(device).clone()
-    if opt_state is None:
-        m, v = torch.zeros_like(p), torch.zeros_like(p)
-    else:
-        m = opt_state["m"].to(device).clone()
-        v = opt_state["v"].to(device).clone()
+    with trace.span("train.setup", trainer="heat"):
+        device = build.resolve_device(device)
+        if model is None:
+            model = problem.default_model(generator=generator(seed))
+        model.to(device)
+        _check_model(model, device)
+        kw = dict(x_max=problem.x_max, t_max=problem.t_max,
+                  kappa=problem.kappa)
+        p = pack_params(model) if params is None else params.to(device).clone()
+        if opt_state is None:
+            m, v = torch.zeros_like(p), torch.zeros_like(p)
+        else:
+            m = opt_state["m"].to(device).clone()
+            v = opt_state["v"].to(device).clone()
 
     def run_chunk(p, m, v, u, step0, precision):
         return heat_fused_train_chunk(model, p, m, v, u, step0, lrate,
@@ -584,4 +594,4 @@ def train_heat_fused_result(problem, seed, iterations, batch_size=64,
 
     return train_in_chunks(model, run_chunk, draw, p, m, v, iterations,
                            chunk_size, device, start_step,
-                           n_default=n_default)
+                           n_default=n_default, trainer="heat")

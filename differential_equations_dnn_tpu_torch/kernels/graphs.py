@@ -9,8 +9,10 @@ with one copy (p, m, v, the uniforms, the losses, lr, the schedule, the
 spec's numbers), the per-replica scratch, and the streams. The graphs are
 cached by shape and precision (a "mixed" run holds two: its "default"
 instances' and its "highest" ones'), least recently used first out
-(``clear_graphs``), and every capture is timed in ``graph_stats``, apart
-from the chunks' own times.
+(``clear_graphs``). Every capture is a ``graph.capture`` span, apart from
+the chunks' own times, and is counted, as is every cached shape freed to
+make room (utils/trace.py: ``graph.captures.<trainer>``,
+``graph.evictions``; a shape used again after that captures anew).
 
 Capture and replay never use the legacy default stream (which
 ``current_stream()`` often is): a call's launches run on its shape's side
@@ -20,11 +22,11 @@ then waits for it.
 
 import collections
 import ctypes
-import time
 
 import torch
 
 from differential_equations_dnn_tpu_torch.kernels import build
+from differential_equations_dnn_tpu_torch.utils import trace
 
 # Training steps of one captured CUDA graph (S): a call of K steps replays
 # it ⌊K/S⌋ times and runs the K mod S steps left over as the same launches.
@@ -33,13 +35,6 @@ GRAPH_STEPS = 50
 # sweep's four bucket tiles (sweep/search.py BUCKET_TILES) × {single trial,
 # packed rung} × two precisions.
 GRAPH_CACHE_SIZE = 16
-
-# Graphs captured in this process: their count, the host seconds each
-# capture and instantiation took (kept apart from the chunks' own
-# timings), the trainer of each ("heat", "engine" or "dgm"), and the cached
-# shapes freed to make room (a shape used again after that captures anew).
-graph_stats = {"builds": 0, "build_seconds": [], "engines": [],
-               "evictions": 0}
 
 
 def args_block(nbytes, device):
@@ -71,13 +66,12 @@ class StepGraph:
         exec_out)`` is the engine's C entry point bound to its shape; raises
         if CUDA refuses either."""
         exec_ = ctypes.c_void_p()
-        t0 = time.perf_counter()
-        build.check(build_graph(self.args.data_ptr(), self.scratch.data_ptr(),
-                                ctypes.byref(exec_)), what)
+        with trace.span("graph.capture", trainer=self.engine):
+            build.check(build_graph(self.args.data_ptr(),
+                                    self.scratch.data_ptr(),
+                                    ctypes.byref(exec_)), what)
         self.exec = exec_.value
-        graph_stats["builds"] += 1
-        graph_stats["build_seconds"].append(time.perf_counter() - t0)
-        graph_stats["engines"].append(self.engine)
+        trace.count(f"graph.captures.{self.engine}")
 
     def free(self):
         self.stream.synchronize()
@@ -115,7 +109,7 @@ def step_graph(key, make):
         entry = _GRAPHS[key] = make()
         while len(_GRAPHS) > GRAPH_CACHE_SIZE:
             _GRAPHS.popitem(last=False)[1].free()
-            graph_stats["evictions"] += 1
+            trace.count("graph.evictions")
     _GRAPHS.move_to_end(key)
     return entry
 

@@ -78,16 +78,13 @@ from differential_equations_dnn_tpu_torch.train.trainer import (
     capture_graph,
     count_replays,
 )
+from differential_equations_dnn_tpu_torch.utils import trace
 
 # Population steps per captured CUDA graph, and per block of host draws.
 # A capture runs each step's Python once (tens of ms a step for a
 # BatchNorm population's second-order taps), so the graph is kept short;
 # a replay costs the same whatever its length.
 GRAPH_STEPS = 32
-
-# Graphs of the population step captured in this process, the host seconds
-# each capture took (its warm-up step included), and their replays.
-graph_stats = {"captures": 0, "capture_seconds": [], "replays": 0}
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -281,27 +278,30 @@ class _PopulationGraph:
     of draws and write their losses to a static ``[GRAPH_STEPS, P]``
     buffer. As the scan trainer's graph, the warm-up step's kernel launches
     count, the capture's do not, and each replay adds the launches it
-    holds (a ``taps="pallas"`` population's kernel #3, one a step)."""
+    holds (a ``taps="pallas"`` population's kernel #3, one a step). The
+    capture and each replay are spans (utils/trace.py), each counted."""
 
     def __init__(self, step, block, tensors, n_trials, name):
-        t0 = time.perf_counter()
-        device = next(iter(block.values())).device
-        self.static = {k: v.clone() for k, v in block.items()}
-        self.losses = torch.empty((GRAPH_STEPS, n_trials), device=device)
-        self.graph, self.launches = capture_graph(
-            step, self.static, self.losses, tensors,
-            f"the population step of {name!r}")
-        build.sync(device)
-        graph_stats["captures"] += 1
-        graph_stats["capture_seconds"].append(time.perf_counter() - t0)
+        with trace.span("graph.capture", trainer="population"):
+            device = next(iter(block.values())).device
+            self.static = {k: v.clone() for k, v in block.items()}
+            self.losses = torch.empty((GRAPH_STEPS, n_trials),
+                                      device=device)
+            self.graph, self.launches = capture_graph(
+                step, self.static, self.losses, tensors,
+                f"the population step of {name!r}")
+            build.sync(device)
+        trace.count("graph.captures.population")
 
     def replay(self, block):
-        for k, v in block.items():
-            self.static[k].copy_(v)
-        self.graph.replay()
+        with trace.span("graph.replay", trainer="population"):
+            for k, v in block.items():
+                self.static[k].copy_(v)
+            self.graph.replay()
+            losses = self.losses.clone()
         count_replays(self.launches)
-        graph_stats["replays"] += 1
-        return self.losses.clone()
+        trace.count("graph.replays.population")
+        return losses
 
 
 def train_population(problem, model, seed: int, lrates, batch_sizes=None,
@@ -404,17 +404,22 @@ def train_population(problem, model, seed: int, lrates, batch_sizes=None,
     t0 = time.perf_counter()
     for b0 in range(0, config.iterations, GRAPH_STEPS):
         k = min(GRAPH_STEPS, config.iterations - b0)
-        block = draw_trial_batches(problem, seeds, b0, k, max_bs, device)
+        with trace.span("train.draw", trainer="population", steps=k):
+            block = draw_trial_batches(problem, seeds, b0, k, max_bs,
+                                       device)
         if graphs and k == GRAPH_STEPS:
             losses.append(graph.replay(block))
         else:
-            losses.extend(step({key: v[j] for key, v in block.items()})[None]
-                          for j in range(k))
+            with trace.span("train.eager", steps=k):
+                losses.extend(step({key: v[j] for key, v
+                                    in block.items()})[None]
+                              for j in range(k))
     build.sync(device)
     run_time = time.perf_counter() - t0
 
-    losses = (torch.cat(losses).cpu().numpy() if losses
-              else np.zeros((0, n_local), np.float32))
+    with trace.span("train.fetch"):
+        losses = (torch.cat(losses).cpu().numpy() if losses
+                  else np.zeros((0, n_local), np.float32))
     if mesh is not None:
         params, opt_state, state = gather_rows((params, opt_state, state),
                                                mesh, config.pop_axis)

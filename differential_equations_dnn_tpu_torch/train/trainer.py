@@ -69,6 +69,7 @@ from differential_equations_dnn_tpu_torch.models.stateful import (
     is_stateful,
     update_state,
 )
+from differential_equations_dnn_tpu_torch.utils import trace
 
 # Steps whose batches are drawn, pinned and copied to the device together,
 # and the steps of one captured CUDA graph of the scan step.
@@ -82,11 +83,6 @@ GRAPH_STEPS = DRAW_BLOCK
 # cost plain heat 709.43 µs a step against 658.15 for one 256-step graph
 # (kernels.profile --scan heat; H100 80GB HBM3, 700 W).
 CAPTURE_STEPS = 32
-
-# Graphs of the scan step captured in this process, the host seconds each
-# capture took (its warm-up step and instantiation included), and their
-# replays.
-graph_stats = {"captures": 0, "capture_seconds": [], "replays": 0}
 
 # The wrappers of hand-written kernels a scan step may launch: a replay
 # adds each one's launches per graph to its count, as eager steps do.
@@ -453,50 +449,54 @@ class ScanGraph:
     replays, and returns the block's losses. After
     the warm-up step the model's parameters and buffers, the optimizer's
     state (moments zeroed where the warm-up created them) and the device
-    schedule are put back."""
+    schedule are put back. The capture is a ``graph.capture`` span and a
+    replay a ``graph.replay`` span (utils/trace.py), each counted."""
 
     def __init__(self, step, block, model, optimizer, schedule, name):
-        t0 = time.perf_counter()
-        device = next(iter(block.values())).device
-        self.steps = CAPTURE_STEPS if is_stateful(model) else GRAPH_STEPS
-        self.static = {k: v[:self.steps].clone() for k, v in block.items()}
-        self.losses = torch.empty(self.steps, device=device)
-        params = list(model.parameters())
-        states = {id(p): {k: v.clone() for k, v in optimizer.state[p].items()
-                          if torch.is_tensor(v)}
-                  for p in params if optimizer.state.get(p)}
+        with trace.span("graph.capture", trainer="scan"):
+            device = next(iter(block.values())).device
+            self.steps = (CAPTURE_STEPS if is_stateful(model)
+                          else GRAPH_STEPS)
+            self.static = {k: v[:self.steps].clone()
+                           for k, v in block.items()}
+            self.losses = torch.empty(self.steps, device=device)
+            params = list(model.parameters())
+            states = {id(p): {k: v.clone()
+                              for k, v in optimizer.state[p].items()
+                              if torch.is_tensor(v)}
+                      for p in params if optimizer.state.get(p)}
 
-        def restore():
-            with torch.no_grad():
-                for p in params:
-                    for key, v in optimizer.state[p].items():
-                        if torch.is_tensor(v):
-                            old = states.get(id(p), {}).get(key)
-                            if old is None:
-                                v.zero_()
-                            else:
-                                v.copy_(old)
-            optimizer.zero_grad(set_to_none=True)
+            def restore():
+                with torch.no_grad():
+                    for p in params:
+                        for key, v in optimizer.state[p].items():
+                            if torch.is_tensor(v):
+                                old = states.get(id(p), {}).get(key)
+                                if old is None:
+                                    v.zero_()
+                                else:
+                                    v.copy_(old)
+                optimizer.zero_grad(set_to_none=True)
 
-        self.graph, self.launches = capture_graph(
-            step, self.static, self.losses,
-            params + list(model.buffers()) + schedule.state(),
-            f"the scan trainer's step of {name!r} (a chunk_size below "
-            f"{GRAPH_STEPS} runs every step eagerly)", restore)
-        build.sync(device)
-        graph_stats["captures"] += 1
-        graph_stats["capture_seconds"].append(time.perf_counter() - t0)
+            self.graph, self.launches = capture_graph(
+                step, self.static, self.losses,
+                params + list(model.buffers()) + schedule.state(),
+                f"the scan trainer's step of {name!r} (a chunk_size "
+                f"below {GRAPH_STEPS} runs every step eagerly)", restore)
+            build.sync(device)
+        trace.count("graph.captures.scan")
 
     def replay(self, block):
         """The GRAPH_STEPS steps on ``block``'s batches; their losses."""
-        out = torch.empty(GRAPH_STEPS, device=self.losses.device)
-        for s in range(0, GRAPH_STEPS, self.steps):
-            for k, v in block.items():
-                self.static[k].copy_(v[s:s + self.steps])
-            self.graph.replay()
-            out[s:s + self.steps].copy_(self.losses)
+        with trace.span("graph.replay", trainer="scan"):
+            out = torch.empty(GRAPH_STEPS, device=self.losses.device)
+            for s in range(0, GRAPH_STEPS, self.steps):
+                for k, v in block.items():
+                    self.static[k].copy_(v[s:s + self.steps])
+                self.graph.replay()
+                out[s:s + self.steps].copy_(self.losses)
         count_replays(self.launches, GRAPH_STEPS // self.steps)
-        graph_stats["replays"] += 1
+        trace.count("graph.replays.scan")
         return out
 
 
@@ -565,21 +565,22 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
         mesh = pm.as_mesh(mesh, device)
         device = pm.mesh_device(mesh)
         pm.require_axis(mesh, config.data_axis, "data-parallel training")
-    if model is None:
-        model = problem.default_model(generator=generator(seed))
-    model.to(device).train()
-    if mesh is not None:
-        # Refuses a batch the axis does not divide, before any step.
-        sharding.shard_range(config.batch_size, mesh, config.data_axis)
-        sharding.replicate(model, mesh)
-    optimizer = make_optimizer(config, model.parameters())
-    if opt_state is not None:
-        load_opt_state(optimizer, opt_state)
-    cuda = device.type == "cuda"
-    schedule = DeviceSchedule(optimizer) if cuda else None
-    step = make_train_step(problem, model, optimizer, config.batch_size,
-                           config.adaptive_oversample, schedule, mesh,
-                           config.data_axis)
+    with trace.span("train.setup", trainer="scan"):
+        if model is None:
+            model = problem.default_model(generator=generator(seed))
+        model.to(device).train()
+        if mesh is not None:
+            # Refuses a batch the axis does not divide, before any step.
+            sharding.shard_range(config.batch_size, mesh, config.data_axis)
+            sharding.replicate(model, mesh)
+        optimizer = make_optimizer(config, model.parameters())
+        if opt_state is not None:
+            load_opt_state(optimizer, opt_state)
+        cuda = device.type == "cuda"
+        schedule = DeviceSchedule(optimizer) if cuda else None
+        step = make_train_step(problem, model, optimizer, config.batch_size,
+                               config.adaptive_oversample, schedule, mesh,
+                               config.data_axis)
     chunk = max(1, min(config.chunk_size, config.iterations))
     graphs = cuda and chunk >= GRAPH_STEPS
     graph = None
@@ -589,38 +590,45 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
         losses = []
         for b0 in range(0, n, DRAW_BLOCK):
             k = min(DRAW_BLOCK, n - b0)
-            block = draw_batches(problem, seed, start + b0, k,
-                                 step.draw_size, device)
+            with trace.span("train.draw", trainer="scan", steps=k):
+                block = draw_batches(problem, seed, start + b0, k,
+                                     step.draw_size, device)
             if graphs and k == GRAPH_STEPS:
                 if graph is None:
                     graph = ScanGraph(step, block, model, optimizer,
                                       schedule, problem.name)
                 losses.append(graph.replay(block))
             else:
-                losses.extend(step({key: v[j] for key, v in block.items()})
-                              [None] for j in range(k))
+                with trace.span("train.eager", steps=k):
+                    losses.extend(step({key: v[j] for key, v
+                                        in block.items()})[None]
+                                  for j in range(k))
             if schedule is not None:
                 schedule.count_steps(k)
-        return torch.cat(losses).cpu().numpy()
+        with trace.span("train.fetch"):
+            return torch.cat(losses).cpu().numpy()
 
     # Warm-up: one step on copies of the state (it builds the kernels the
     # step launches, if any).
     t0 = time.perf_counter()
-    warm_model = copy.deepcopy(model)
-    warm_opt = make_optimizer(config, warm_model.parameters())
-    warm_opt.load_state_dict(copy.deepcopy(optimizer.state_dict()))
-    warm_step = make_train_step(problem, warm_model, warm_opt,
-                                config.batch_size, config.adaptive_oversample,
-                                DeviceSchedule(warm_opt) if cuda else None,
-                                mesh, config.data_axis)
-    block = draw_batches(problem, seed, start_step,
-                         GRAPH_STEPS if graphs else 1, step.draw_size, device)
-    warm_step({key: v[0] for key, v in block.items()})
-    del warm_model, warm_opt, warm_step
-    if graphs:
-        graph = ScanGraph(step, block, model, optimizer, schedule,
-                          problem.name)
-    build.sync(device)
+    with trace.span("train.warmup", trainer="scan"):
+        warm_model = copy.deepcopy(model)
+        warm_opt = make_optimizer(config, warm_model.parameters())
+        warm_opt.load_state_dict(copy.deepcopy(optimizer.state_dict()))
+        warm_step = make_train_step(problem, warm_model, warm_opt,
+                                    config.batch_size,
+                                    config.adaptive_oversample,
+                                    DeviceSchedule(warm_opt) if cuda
+                                    else None, mesh, config.data_axis)
+        block = draw_batches(problem, seed, start_step,
+                             GRAPH_STEPS if graphs else 1, step.draw_size,
+                             device)
+        warm_step({key: v[0] for key, v in block.items()})
+        del warm_model, warm_opt, warm_step
+        if graphs:
+            graph = ScanGraph(step, block, model, optimizer, schedule,
+                              problem.name)
+        build.sync(device)
     compile_time = time.perf_counter() - t0
 
     n_full, rem = divmod(config.iterations, chunk)

@@ -1,5 +1,6 @@
 """Utilities: timing, run manifests, artifact IO (the JAX package's
-utils/, the same functions and file formats)."""
+utils/, the same functions and file formats), and the port's spans and
+counters (``utils.trace``)."""
 
 from differential_equations_dnn_tpu_torch.utils.artifacts import (
     load_array,

@@ -54,6 +54,7 @@ from differential_equations_dnn_tpu_torch.train import (  # noqa: E402
 from differential_equations_dnn_tpu_torch.train import (  # noqa: E402
     trainer,
 )
+from differential_equations_dnn_tpu_torch.utils import trace  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -62,6 +63,21 @@ pytestmark = pytest.mark.gpu
 # replays it once, so that compile_time holds both and iters_per_sec
 # neither).
 RUNS_300 = 300 + fe.GRAPH_STEPS
+
+
+def _graphs(what="captures"):
+    """The graph captures (or replays) counted so far, by trainer."""
+    prefix = f"graph.{what}."
+    return {k[len(prefix):]: v for k, v in trace.counters().items()
+            if k.startswith(prefix)}
+
+
+def _graphs_since(before, what="captures"):
+    """The captures (or replays) by trainer since ``before``
+    (:func:`_graphs`), those that moved."""
+    now = _graphs(what)
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v != before.get(k, 0)}
 
 
 @pytest.fixture
@@ -819,7 +835,7 @@ def test_heat_graph_is_captured_once_per_shape(cuda):
     z = torch.zeros_like(p)
     u = step_uniforms(0, 0, 60, 64, cuda)
     graphs.clear_graphs()
-    builds = graphs.graph_stats["builds"]
+    builds = _graphs()
     for step0, lr in ((0, 1e-4), (500, 3e-4)):
         state, ref = (p, z, z), []
         for k in range(60):
@@ -829,8 +845,7 @@ def test_heat_graph_is_captured_once_per_shape(cuda):
         out = ft.heat_fused_train_chunk(model, p, z, z, u, step0, lr)
         assert torch.equal(out[3], torch.cat(ref))
         assert all(torch.equal(a, b) for a, b in zip(out[:3], state))
-    assert graphs.graph_stats["builds"] == builds + 1
-    assert graphs.graph_stats["engines"][-1] == "heat"
+    assert _graphs_since(builds) == {"heat": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -919,7 +934,7 @@ def test_dgm_graph_is_captured_once_per_shape(cuda):
     step."""
     spec, model, p, u, lr, kw = _dgm_case(cuda, "fitzhugh_nagumo", None, 60)
     fd.clear_graphs()
-    builds = fd.graph_stats["builds"]
+    builds = _graphs()
     fd.fused_dgm_chunk.step_math_runs = 0
     outs = []
     for _ in range(2):
@@ -927,12 +942,12 @@ def test_dgm_graph_is_captured_once_per_shape(cuda):
         z = torch.zeros_like(fresh)
         outs.append(fd.fused_dgm_chunk(spec, model, fresh, z, z.clone(),
                                        u.clone(), 100, lr, **kw))
-    assert fd.graph_stats["builds"] == builds + 1
+    assert _graphs_since(builds) == {"dgm": 1}
     assert fd.fused_dgm_chunk.step_math_runs == 120
     fd.clear_graphs()
     z = torch.zeros_like(p[0])
     outs.append(fd.fused_dgm_chunk(spec, model, p[0], z, z, u, 100, lr, **kw))
-    assert fd.graph_stats["builds"] == builds + 2
+    assert _graphs_since(builds) == {"dgm": 2}
     for out in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
 
@@ -1020,7 +1035,7 @@ def test_engine_graph_replays_each_calls_values(cuda):
     spec, model, p, u, _, _ = _engine_case(cuda, "heat2d", None, 53)
     z = torch.zeros_like(p[0])
     fe.clear_graphs()
-    builds = fe.graph_stats["builds"]
+    builds = _graphs()
     for step0, lr, kw in ((100, 1e-3, dict(schedule="cosine",
                                            total_steps=300)),
                           (7, 3e-4, dict(schedule="exponential",
@@ -1031,7 +1046,7 @@ def test_engine_graph_replays_each_calls_values(cuda):
                                     **kw)
         assert torch.equal(out[3], ref)
         assert all(torch.equal(a, b) for a, b in zip(out[:3], state))
-    assert fe.graph_stats["builds"] == builds + 1
+    assert _graphs_since(builds) == {"engine": 1}
 
 
 @pytest.mark.parametrize("name", ["heat2d", "simple_ode"])
@@ -1058,7 +1073,7 @@ def test_engine_graph_is_captured_once_per_shape(cuda):
     step."""
     spec, model, p, u, lr, kw = _engine_case(cuda, "wave", None, 60)
     fe.clear_graphs()
-    builds = fe.graph_stats["builds"]
+    builds = _graphs()
     fe.fused_engine_chunk.step_math_runs = 0
     outs = []
     for _ in range(2):
@@ -1066,14 +1081,13 @@ def test_engine_graph_is_captured_once_per_shape(cuda):
         z = torch.zeros_like(fresh)
         outs.append(fe.fused_engine_chunk(spec, model, fresh, z, z.clone(),
                                           u.clone(), 100, lr, **kw))
-    assert fe.graph_stats["builds"] == builds + 1
-    assert fe.graph_stats["engines"][-1] == "engine"
+    assert _graphs_since(builds) == {"engine": 1}
     assert fe.fused_engine_chunk.step_math_runs == 120
     fe.clear_graphs()
     z = torch.zeros_like(p[0])
     outs.append(fe.fused_engine_chunk(spec, model, p[0], z, z, u, 100, lr,
                                       **kw))
-    assert fe.graph_stats["builds"] == builds + 2
+    assert _graphs_since(builds) == {"engine": 2}
     for out in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
 
@@ -1427,12 +1441,13 @@ def test_scan_graph_equals_eager(cuda, case):
     than a graph): losses and parameters bit for bit; one capture and one
     replay."""
     name, kw, cfg_kw = SCAN_CASES[case]
-    before = dict(trainer.graph_stats)
+    captures, replays = _graphs(), _graphs("replays")
     graphed, pg = _scan_run(name, kw, cfg_kw, cuda)
-    assert trainer.graph_stats["captures"] == before["captures"] + 1
-    assert trainer.graph_stats["replays"] == before["replays"] + 1
+    assert _graphs_since(captures) == {"scan": 1}
+    assert _graphs_since(replays, "replays") == {"scan": 1}
     eager, pe = _scan_run(name, kw, {**cfg_kw, "chunk_size": 100}, cuda)
-    assert trainer.graph_stats["replays"] == before["replays"] + 1
+    assert _graphs_since(captures) == {"scan": 1}
+    assert _graphs_since(replays, "replays") == {"scan": 1}
     np.testing.assert_array_equal(graphed.loss_history, eager.loss_history)
     assert all(torch.equal(a, b) for a, b in zip(pg, pe))
     assert graphed.opt_state["param_groups"][0]["count"] == 300
@@ -1485,10 +1500,10 @@ def test_scan_graph_recovers_from_a_fault(cuda):
     unbroken run bit for bit."""
     base = dict(iterations=600, chunk_size=300)
     clean, pc = _scan_run("simple_ode", {}, base, cuda)
-    before = trainer.graph_stats["captures"]
+    before = _graphs()
     with inject_fault(1):
         faulty, pf = _scan_run("simple_ode", {}, base, cuda)
-    assert trainer.graph_stats["captures"] == before + 2
+    assert _graphs_since(before) == {"scan": 2}
     np.testing.assert_array_equal(faulty.loss_history, clean.loss_history)
     assert all(torch.equal(a, b) for a, b in zip(pf, pc))
 
@@ -2016,14 +2031,14 @@ def test_sweep_calls_replay_the_shapes_graph(cuda):
     z = torch.zeros_like(p)
     u = step_uniforms(0, 100, 120, 64, cuda, 2)
     fns[2](spec, model, p, z, z, u, 100, lr, 3, **kw)
-    builds = fe.graph_stats["builds"]
+    builds = _graphs()
     fns[2](spec, model, p, z, z, u, 100, lr, 3, steps_vec=[60, 60, 60],
            **kw)
-    assert fe.graph_stats["builds"] == builds + 1
+    assert _graphs_since(builds) == {"engine": 1}
     runs = fe.fused_engine_packed_chunk.step_math_runs
     fns[2](spec, model, p, z, z, u, 100, lr, 3, steps_vec=[120, 60, 0],
            **kw)
-    assert fe.graph_stats["builds"] == builds + 1
+    assert _graphs_since(builds) == {"engine": 1}
     assert fe.fused_engine_packed_chunk.step_math_runs - runs == 3 * 120
     fns[2](spec, model, p, z, z, u, 100, lr, 3, steps_vec=[7, 3, 0], **kw)
     assert (fe.fused_engine_packed_chunk.step_math_runs - runs
@@ -2111,13 +2126,13 @@ def test_population_graph_equals_eager(cuda, monkeypatch):
         runs = []
         for graph_steps in (G, 4 * G):
             monkeypatch.setattr(population, "GRAPH_STEPS", graph_steps)
-            captures = population.graph_stats["captures"]
+            captures = _graphs()
             timings = {}
             out = train_population(
                 Heat1D(), model, 3, lrs, [64, 17, 5, 40],
                 PopulationConfig(iterations=2 * G, max_batch_size=64),
                 timings=timings)
-            assert (population.graph_stats["captures"] - captures
+            assert (_graphs_since(captures).get("population", 0)
                     == (graph_steps == G))
             runs.append((out, timings["state"]))
         (pa, oa, la), sa = runs[0]

@@ -24,6 +24,7 @@ from differential_equations_dnn_tpu_torch.train import (  # noqa: E402
 from differential_equations_dnn_tpu_torch.train import (  # noqa: E402
     trainer,
 )
+from differential_equations_dnn_tpu_torch.utils import trace  # noqa: E402
 
 
 def _optimizer(schedule, optimizer="adam"):
@@ -96,10 +97,17 @@ def test_scheduled_lr_takes_a_tensor_lrate():
         assert torch.equal(a, b), schedule
 
 
+def _scan_graph_counts():
+    counts = trace.counters()
+    return [counts.get(f"graph.{what}.scan", 0)
+            for what in ("captures", "replays")]
+
+
 def test_cpu_runs_capture_no_graph():
     """On the CPU every step is eager: a run with whole graph blocks equals
-    one cut into chunks shorter than a graph, and no graph is captured."""
-    before = dict(trainer.graph_stats)
+    one cut into chunks shorter than a graph, and no graph is captured or
+    replayed."""
+    before = _scan_graph_counts()
     runs = [train(SimpleODE(), 0,
                   TrainConfig(iterations=trainer.GRAPH_STEPS + 3,
                               batch_size=4, chunk_size=chunk, verbose=False),
@@ -108,5 +116,5 @@ def test_cpu_runs_capture_no_graph():
             for chunk in (25_000, 100)]
     np.testing.assert_array_equal(runs[0].loss_history,
                                   runs[1].loss_history)
-    assert trainer.graph_stats == before
+    assert _scan_graph_counts() == before
     assert trainer.GRAPH_STEPS == trainer.DRAW_BLOCK
