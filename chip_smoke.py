@@ -2084,6 +2084,14 @@ def fused_captures():
             trace.counters().get("graph.evictions", 0))
 
 
+def graph_reuses(trainer):
+    """The calls of ``trainer`` ("scan", "population") served by a cached
+    graph in this process (utils/trace.py)."""
+    from differential_equations_dnn_tpu_torch.utils import trace
+
+    return trace.counters().get(f"graph.reuses.{trainer}", 0)
+
+
 def capture_seconds(trainer, since_ns=0):
     """Host seconds of each capture of ``trainer``'s graphs that began at
     or after ``since_ns`` (``time.perf_counter_ns()``): its
@@ -2194,7 +2202,7 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
     from differential_equations_dnn_tpu_torch.api import _auto_defaults
     from differential_equations_dnn_tpu_torch.train import trainer
 
-    graphs = graph_counts("scan")
+    graphs, reuses = graph_counts("scan"), graph_reuses("scan")
     reset_counts()
     t0 = time.perf_counter()
     since = time.perf_counter_ns()
@@ -2203,6 +2211,7 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
     launches = read_counts()
     captures, replays = (now - was for now, was
                          in zip(graph_counts("scan"), graphs))
+    reused = graph_reuses("scan") - reuses
 
     d = res.problem.defaults
     ensemble, finetune = _auto_defaults(res.problem, None)
@@ -2223,6 +2232,7 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
           f"{res.wall_time:.3f} s), build + warm-up {res.compile_time:.3f} s"
           + (f" (graph capture {capture_seconds('scan', since)[-1]:.3f}"
              f" s), {replays} graph replays" if captures else "")
+          + (f" (cached graph), {replays} graph replays" if reused else "")
           + f", total {total:.2f} s; launches {launches}")
     if res.loss_history.shape != (steps + finetune,):
         raise AssertionError(f"{label}: loss history "
@@ -2271,11 +2281,15 @@ def solve_once(name, schedule, mae_bound, engine="fused", **extra):
         want = (n_full * (trainer.TrainConfig.chunk_size
                           // trainer.GRAPH_STEPS)
                 + rem // trainer.GRAPH_STEPS)
-        if (captures, replays) != (1, want):
-            raise AssertionError(f"{label}: {captures} graph captures and "
-                                 f"{replays} replays, not 1 and {want}")
+        # One graph, captured or from the cache; a capture's two warm-up
+        # steps (train's and the capture's) launch #3 too.
+        if (captures + reused, replays) != (1, want):
+            raise AssertionError(f"{label}: {captures} graph captures, "
+                                 f"{reused} cached graphs and {replays} "
+                                 f"replays, not 1 and {want}")
         expected = {"mlp_forward": grid,
-                    "heat_fused_streams": steps + 2 if pallas else 0}
+                    "heat_fused_streams": (steps + 2 * captures if pallas
+                                           else 0)}
         for kernel, n in expected.items():
             if launches[kernel] != n:
                 raise AssertionError(f"{label}: {kernel} launched "
@@ -2629,11 +2643,12 @@ def check_trial(label, got, want):
 def population_run(launches, label, fn):
     """``fn()`` with the counted wrappers' launches set to 0 just before
     and read just after (into ``launches[label]``); prints its seconds and
-    the population graphs it captured and replayed. Returns (its result,
+    the population graphs it captured, took from the cache and replayed.
+    Returns (its result,
     its seconds)."""
     import torch
 
-    captures = graph_counts("population")
+    captures, reuses = graph_counts("population"), graph_reuses("population")
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2646,7 +2661,9 @@ def population_run(launches, label, fn):
             in zip(graph_counts("population"), captures))
     cap = sum(capture_seconds("population", since))
     print(f"population {label}: {secs:.2f} s, {n} population graphs "
-          f"captured ({cap:.2f} s), {r} replays; launches "
+          f"captured ({cap:.2f} s), "
+          f"{graph_reuses('population') - reuses} from the cache, {r} "
+          f"replays; launches "
           + ", ".join(f"{k} {v}" for k, v in launches[label].items() if v))
     return out, secs
 
@@ -2915,8 +2932,10 @@ def phase_population_card(launches):
                              "through kernel #2 once")
     # (g) the slice's path: the reference heat configuration's 8 trials
     # through kernel #3's trial axis, inside the population graph.
+    captured = graph_counts("population")[0]
     res_g, _ = population_run(launches, PALLAS_POP, lambda: solve(
         "heat", engine="scan", ensemble=8, taps="pallas", seed=0))
+    captured = graph_counts("population")[0] - captured
     steps = res_g.loss_history.shape[0]
     print(f"(g) solve('heat', engine='scan', ensemble=8, taps='pallas'): "
           f"MAE {res_g.mae:.6g} (bound {POP_BOUND}), "
@@ -2928,9 +2947,10 @@ def phase_population_card(launches):
         raise AssertionError(f"(g) heat pallas ensemble: MAE {res_g.mae}")
     counts = launches[PALLAS_POP]
     # One T = 8 launch a population step and the graph capture's warm-up
-    # step's, then one T = 1 launch per trial for the pick's validation
-    # residual (api.solve's selection).
-    want = steps + 1 + 8
+    # step's (none where the graph came from the cache), then one T = 1
+    # launch per trial for the pick's validation residual (api.solve's
+    # selection).
+    want = steps + captured + 8
     if counts["heat_fused_streams"] != want:
         raise AssertionError(f"(g) kernel #3 launched "
                              f"{counts['heat_fused_streams']} times, not "

@@ -14,6 +14,12 @@ the chunks' own times, and is counted, as is every cached shape freed to
 make room (utils/trace.py: ``graph.captures.<trainer>``,
 ``graph.evictions``; a shape used again after that captures anew).
 
+The generic trainers' graphs (train/trainer.py's scan step,
+parallel/population.py's population step) are torch CUDA graphs, kept with
+everything each holds pointers to in a :class:`GraphCache` of their own
+(``TRAINER_GRAPHS``) by the keys those modules make, evicted and counted
+the same way. ``clear_graphs`` frees both caches.
+
 Capture and replay never use the legacy default stream (which
 ``current_stream()`` often is): a call's launches run on its shape's side
 stream, which first waits for the caller's stream, and the caller's stream
@@ -35,6 +41,11 @@ GRAPH_STEPS = 50
 # sweep's four bucket tiles (sweep/search.py BUCKET_TILES) × {single trial,
 # packed rung} × two precisions.
 GRAPH_CACHE_SIZE = 16
+# Keys whose generic-trainer graphs stay cached, over both trainers. One:
+# the callers that repeat a key in a process (a loop of solves over seeds,
+# a TPE sweep's rounds, a repeated ablation) repeat the last one, and each
+# entry keeps its graph's memory pool (a population's ~4 GB) between calls.
+TRAINER_CACHE_SIZE = 1
 
 
 def args_block(nbytes, device):
@@ -91,8 +102,49 @@ class StepGraph:
         return code
 
 
-_GRAPHS: "collections.OrderedDict[tuple, StepGraph]" = \
-    collections.OrderedDict()
+class GraphCache:
+    """Entries kept by key, least recently used first out: past ``size``
+    the oldest is freed (its ``free()``) and counted as a
+    ``graph.evictions``. The fused trainers' :class:`StepGraph` s and the
+    generic trainers' entries (train/trainer.py, parallel/population.py)
+    each sit in one."""
+
+    def __init__(self, size):
+        self.size = size
+        self.entries = collections.OrderedDict()
+
+    def __contains__(self, key):
+        return key in self.entries
+
+    def get(self, key):
+        """``key``'s entry, now the most recently used; None if there is
+        none or ``key`` is None."""
+        entry = None if key is None else self.entries.get(key)
+        if entry is not None:
+            self.entries.move_to_end(key)
+        return entry
+
+    def put(self, key, entry):
+        """Keep ``entry`` under ``key``, freeing the least recently used
+        past ``size``; returns ``entry``."""
+        self.entries[key] = entry
+        while len(self.entries) > self.size:
+            self.entries.popitem(last=False)[1].free()
+            trace.count("graph.evictions")
+        return entry
+
+    def pop(self, key):
+        """Forget ``key``'s entry, if kept, without freeing it."""
+        self.entries.pop(key, None)
+
+    def clear(self):
+        while self.entries:
+            self.entries.popitem()[1].free()
+
+
+_GRAPHS = GraphCache(GRAPH_CACHE_SIZE)
+# The generic trainers' entries, by their modules' keys.
+TRAINER_GRAPHS = GraphCache(TRAINER_CACHE_SIZE)
 
 
 def cached(key):
@@ -104,18 +156,11 @@ def step_graph(key, make):
     """The cached :class:`StepGraph` of ``key``, made by ``make()`` on
     first use; the least recently used of more than GRAPH_CACHE_SIZE is
     freed."""
-    entry = _GRAPHS.get(key)
-    if entry is None:
-        entry = _GRAPHS[key] = make()
-        while len(_GRAPHS) > GRAPH_CACHE_SIZE:
-            _GRAPHS.popitem(last=False)[1].free()
-            trace.count("graph.evictions")
-    _GRAPHS.move_to_end(key)
-    return entry
+    return _GRAPHS.get(key) or _GRAPHS.put(key, make())
 
 
 def clear_graphs():
-    """Free every cached graph (the next call of each shape captures
-    anew)."""
-    while _GRAPHS:
-        _GRAPHS.popitem()[1].free()
+    """Free every cached graph, the generic trainers' too (the next call of
+    each shape captures anew)."""
+    _GRAPHS.clear()
+    TRAINER_GRAPHS.clear()

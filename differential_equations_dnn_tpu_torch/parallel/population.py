@@ -20,11 +20,16 @@ ablations, and the replacement of the reference's Ray Tune driver
   loss to the first bs (``Problem.loss(..., mask)``); a BatchNorm trial's
   batch statistics, and its running-statistics refresh after each step,
   span all the drawn rows (JAX :127-145);
-* on a CUDA device a run of at least GRAPH_STEPS steps captures
-  GRAPH_STEPS population steps once as one CUDA graph and replays it for
-  every whole block of draws (the last, partial block eagerly, with the
-  same bits), by the scan trainer's protocol (``trainer.capture_graph``);
-  a shorter run, and every run on the CPU, steps eagerly. The losses stay
+* on a CUDA device a run of at least GRAPH_STEPS steps replays
+  GRAPH_STEPS population steps captured as one CUDA graph for every whole
+  block of draws (the last, partial block eagerly, with the same bits), by
+  the scan trainer's protocol (``trainer.capture_graph``); a shorter run,
+  and every run on the CPU, steps eagerly. The graph is captured once per
+  key (:func:`graph_key`: the problem, the model's structure, the number
+  of trials, the drawn rows, the process's math settings) and kept with
+  the stacked tensors it reads; a later call of the key copies its
+  starting state, lr and mask into them (a call on a mesh captures its
+  own). Every call returns copies of its trained tensors. The losses stay
   on the device until the run ends, so ``chunk_size`` (JAX's chunks pace
   its dispatches and fetches) changes nothing here. A step that cannot be
   captured raises, naming the cause: there is no eager fallback.
@@ -60,6 +65,7 @@ from differential_equations_dnn_tpu_torch.core.prng import (
 )
 from differential_equations_dnn_tpu_torch.equations.base import Problem
 from differential_equations_dnn_tpu_torch.kernels import build
+from differential_equations_dnn_tpu_torch.kernels import graphs as graph_cache
 from differential_equations_dnn_tpu_torch.models.stateful import (
     is_stateful,
     state_names,
@@ -77,6 +83,7 @@ from differential_equations_dnn_tpu_torch.parallel.sharding import (
 from differential_equations_dnn_tpu_torch.train.trainer import (
     capture_graph,
     count_replays,
+    structure_key,
 )
 from differential_equations_dnn_tpu_torch.utils import trace
 
@@ -271,15 +278,69 @@ def draw_trial_batches(problem, seeds, start, n, size, device):
     return block
 
 
+def named_tensors(params, state, opt_state):
+    """The stacked tensors a population step reads and writes, as (name,
+    tensor) pairs: the params, the state, then the Adam count and
+    moments."""
+    return [*params.items(), *(state or {}).items(),
+            ("count", opt_state["count"]),
+            *((f"mu.{k}", v) for k, v in opt_state["mu"].items()),
+            *((f"nu.{k}", v) for k, v in opt_state["nu"].items())]
+
+
+def graph_key(problem, template, named, n_trials, max_batch_size,
+              device, mesh=None):
+    """The key of the population graph of ``n_trials`` trials of
+    ``template`` drawing ``max_batch_size`` rows of ``problem``, over the
+    stacked tensors it reads (``named``, :func:`named_tensors`, in the
+    order a call copies them in): what the captured kernels read as host
+    values or shapes, and the math settings that chose them
+    (``trainer.math_key``). The seed, the
+    starting state, the lr and the batch sizes (the mask) are left out:
+    each call copies them in. None (a graph of the call's own) on a mesh,
+    or where the problem or the model cannot be described."""
+    structure = structure_key(problem, template)
+    if mesh is not None or structure is None:
+        return None
+    layout = tuple((name, tuple(t.shape), t.dtype) for name, t in named)
+    return ("population", structure, is_stateful(template),
+            n_trials, max_batch_size, layout, GRAPH_STEPS, device)
+
+
+class _PopulationEntry:
+    """A cached population graph and what it holds pointers to: the
+    template (through the step closure, with the problem), the stacked
+    params, state and opt_state, the ``lr`` vector and the ``mask``."""
+
+    def __init__(self, step, graph, tensors, lr, mask, trees):
+        self.step, self.graph = step, graph
+        self.tensors, self.lr, self.mask = tensors, lr, mask
+        self.trees = trees  # (params, state, opt_state)
+
+    def free(self):
+        """Release the graph and its memory pool (evicted)."""
+        self.graph.graph.reset()
+
+    def load(self, tensors, lr, mask):
+        """A call's starting state, lr and mask, copied in on the
+        device."""
+        with torch.no_grad():
+            for dst, src in zip(self.tensors + [self.lr, self.mask],
+                                tensors + [lr, mask]):
+                dst.copy_(src)
+
+
 class _PopulationGraph:
     """GRAPH_STEPS population steps captured as one CUDA graph
     (``trainer.capture_graph``, the scan trainer's protocol, the stacked
     state put back after its warm-up step): the steps read a static block
     of draws and write their losses to a static ``[GRAPH_STEPS, P]``
-    buffer. As the scan trainer's graph, the warm-up step's kernel launches
-    count, the capture's do not, and each replay adds the launches it
-    holds (a ``taps="pallas"`` population's kernel #3, one a step). The
-    capture and each replay are spans (utils/trace.py), each counted."""
+    buffer. ``train_population`` keeps the graph across calls of one key
+    (:class:`_PopulationEntry`). As the scan trainer's graph, the warm-up
+    step's kernel launches count, the capture's do not, and each replay
+    adds the launches it holds (a ``taps="pallas"`` population's kernel
+    #3, one a step). The capture and each replay are spans
+    (utils/trace.py), each counted."""
 
     def __init__(self, step, block, tensors, n_trials, name):
         with trace.span("graph.capture", trainer="population"):
@@ -381,22 +442,35 @@ def train_population(problem, model, seed: int, lrates, batch_sizes=None,
                      "nu": {k: v.to(device).clone()
                             for k, v in opt_state["nu"].items()}}
 
-    step = make_population_step(problem, template, params, state, opt_state,
-                                lr, mask)
-    tensors = [*params.values(), *(state or {}).values(),
-               opt_state["count"], *opt_state["mu"].values(),
-               *opt_state["nu"].values()]
+    named = named_tensors(params, state, opt_state)
+    tensors = [t for _, t in named]
     seeds = [trial_seed(seed, t) for t in range(lo, hi)]
     graphs = device.type == "cuda" and config.iterations >= GRAPH_STEPS
+    key = (graph_key(problem, template, named, n_local, max_bs, device,
+                     mesh) if graphs else None)
+    entry = graph_cache.TRAINER_GRAPHS.get(key)
     graph = None
 
-    # On the card, the graph's capture (its warm-up step included).
+    # On the card, the graph's capture (its warm-up step included), or
+    # for a cached key the copies in.
     t0 = time.perf_counter()
-    if graphs:
-        block = draw_trial_batches(problem, seeds, 0, GRAPH_STEPS, max_bs,
-                                   device)
-        graph = _PopulationGraph(step, block, tensors, n_local,
-                                 problem.name)
+    if entry is not None:
+        entry.load(tensors, lr, mask)
+        step, graph = entry.step, entry.graph
+        params, state, opt_state = entry.trees
+        trace.count("graph.reuses.population")
+    else:
+        step = make_population_step(problem, template, params, state,
+                                    opt_state, lr, mask)
+        if graphs:
+            block = draw_trial_batches(problem, seeds, 0, GRAPH_STEPS,
+                                       max_bs, device)
+            graph = _PopulationGraph(step, block, tensors, n_local,
+                                     problem.name)
+            if key is not None:
+                graph_cache.TRAINER_GRAPHS.put(key, _PopulationEntry(
+                    step, graph, tensors, lr, mask,
+                    (params, state, opt_state)))
     build.sync(device)
     compile_time = time.perf_counter() - t0
 
@@ -420,6 +494,9 @@ def train_population(problem, model, seed: int, lrates, batch_sizes=None,
     with trace.span("train.fetch"):
         losses = (torch.cat(losses).cpu().numpy() if losses
                   else np.zeros((0, n_local), np.float32))
+    # Copies: a kept entry's tensors are the next call's.
+    params, opt_state, state = take_trials((params, opt_state, state),
+                                           np.arange(n_local))
     if mesh is not None:
         params, opt_state, state = gather_rows((params, opt_state, state),
                                                mesh, config.pop_axis)

@@ -5,11 +5,21 @@ equation and model: each step draws a collocation batch, takes
 ``problem.loss`` and its gradient with autograd, and applies one optimizer
 update. The JAX package scans the steps of a chunk inside one jit; here, on
 a CUDA device, the steps of a block of GRAPH_STEPS draws (a stateful
-model's: CAPTURE_STEPS of them) are captured once per ``train`` call as one
-CUDA graph (:class:`ScanGraph`) and replayed for every whole block, the
-steps left over run eagerly, and on the CPU every step runs eagerly. A
-stateful model (BatchNorm) refreshes its running statistics inside the
-step, so inside the graph too. Further:
+model's: CAPTURE_STEPS of them) are captured as one CUDA graph
+(:class:`ScanGraph`) and replayed for every whole block, the steps left
+over run eagerly, and on the CPU every step runs eagerly. A stateful model
+(BatchNorm) refreshes its running statistics inside the step, so inside
+the graph too. Further:
+
+* Every call trains a module of its own, copied from the caller's
+  model, and copies the trained parameters and buffers back at its end.
+  A graph is captured once per key (:func:`graph_key`: the problem, the
+  model's structure, the optimizer, the schedule's shape, the batch, the
+  process's math settings), not once per call: it is kept with that
+  module, its optimizer and device schedule (``kernels.graphs.
+  TRAINER_GRAPHS``), and a later call of the same key copies its starting
+  model, optimizer state and lr into them and replays. A call on a mesh,
+  or one the key cannot describe, captures a graph of its own.
 
 * Step ``i`` draws its batch from ``step_generator(seed, i)``, the
   counterpart of ``fold_in(run_key, i)``: a chunked run equals an uncut
@@ -36,8 +46,8 @@ step, so inside the graph too. Further:
   step give the same bits.
 * Host snapshots of the model and optimizer state every ``snapshot_every``
   chunks back the retry of a failed chunk (``inject_fault`` tests it); a
-  retry captures the graph anew, since restoring replaces the tensors the
-  old one read.
+  retry captures the graph anew, and leaves the key uncached, since
+  restoring replaces the tensors the old one read.
 
 The fused trainers (kernels.fused_train, kernels.fused_engine,
 kernels.fused_dgm) fill the same ``TrainResult``.
@@ -45,10 +55,12 @@ kernels.fused_dgm) fill the same ``TrainResult``.
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
 import time
+import types
 from dataclasses import dataclass
 from typing import Any
 
@@ -61,6 +73,7 @@ from differential_equations_dnn_tpu_torch.core.prng import (
 )
 from differential_equations_dnn_tpu_torch.core.rows import sharded_rows
 from differential_equations_dnn_tpu_torch.kernels import build, taylor_mlp
+from differential_equations_dnn_tpu_torch.kernels import graphs as graph_cache
 from differential_equations_dnn_tpu_torch.kernels.engine_core import (
     check_schedule,
     scheduled_lr,
@@ -284,6 +297,15 @@ class DeviceSchedule:
                                                group["decay"]))
             count.add_(1.0)
 
+    def load(self):
+        """Each group's ``lrate`` and ``count`` written into the lr and
+        count tensors :meth:`reset` made, in place: what a graph captured
+        on them reads."""
+        for group, lrate, count in self.rows:
+            lrate.fill_(float(group["lrate"]))
+            group["lr"].copy_(lrate)
+            count.fill_(float(group["count"]))
+
     def state(self):
         """The device lr and count tensors (what a retry restores)."""
         return [t for group, _, count in self.rows
@@ -449,8 +471,9 @@ class ScanGraph:
     replays, and returns the block's losses. After
     the warm-up step the model's parameters and buffers, the optimizer's
     state (moments zeroed where the warm-up created them) and the device
-    schedule are put back. The capture is a ``graph.capture`` span and a
-    replay a ``graph.replay`` span (utils/trace.py), each counted."""
+    schedule are put back. ``train`` keeps the graph across calls of one
+    key (:class:`_ScanEntry`). The capture is a ``graph.capture`` span and
+    a replay a ``graph.replay`` span (utils/trace.py), each counted."""
 
     def __init__(self, step, block, model, optimizer, schedule, name):
         with trace.span("graph.capture", trainer="scan"):
@@ -501,6 +524,191 @@ class ScanGraph:
 
 
 # ---------------------------------------------------------------------------
+# The keys of the cached graphs
+# ---------------------------------------------------------------------------
+
+
+class _NoKey(Exception):
+    """A value that a graph's key cannot describe."""
+
+
+# What every module holds for torch's own bookkeeping (its tensors and
+# submodules are keyed through named_parameters / named_buffers).
+_MODULE_ATTRS = frozenset(vars(torch.nn.Module()))
+_HOOKS = tuple(a for a in _MODULE_ATTRS if "hooks" in a)
+
+
+def value_key(value):
+    """A hashable description of ``value`` that equal settings share:
+    numbers and strings with their type, tuples and lists and frozen
+    dataclasses by their items, a Python function by its code, the
+    values it closes over (an ansatz built twice from the same numbers)
+    and the module globals it reads (:func:`globals_key`), anything else
+    hashable as itself. A tensor, an array or any other unhashable value
+    raises :class:`_NoKey`."""
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return (type(value), value)
+    if isinstance(value, (tuple, list)):
+        return (type(value), tuple(value_key(v) for v in value))
+    if isinstance(value, types.FunctionType):
+        try:
+            cells = tuple(value_key(c.cell_contents)
+                          for c in value.__closure__ or ())
+        except ValueError:  # an empty cell
+            raise _NoKey from None
+        return (value.__code__, value_key(value.__defaults__), cells,
+                globals_key(value))
+    if torch.is_tensor(value) or isinstance(value, np.ndarray):
+        raise _NoKey
+    try:
+        hash(value)  # an unfrozen dataclass can change between calls
+    except TypeError:
+        raise _NoKey from None
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return (type(value), tuple(
+            (f.name, value_key(getattr(value, f.name)))
+            for f in dataclasses.fields(value)))
+    return (type(value), value)
+
+
+def globals_key(fn):
+    """The module globals that ``fn``'s code, and the code nested in it,
+    names: a module, a class or a function as itself (by identity), any
+    other value by :func:`value_key`. Names it does not find there
+    (builtins, attributes) are left out."""
+    names, codes = set(), [fn.__code__]
+    while codes:
+        code = codes.pop()
+        names.update(code.co_names)
+        codes.extend(c for c in code.co_consts
+                     if isinstance(c, types.CodeType))
+    out = []
+    for name in sorted(names):
+        if name not in fn.__globals__:
+            continue
+        value = fn.__globals__[name]
+        out.append((name, value if isinstance(value, (
+            types.ModuleType, type, types.FunctionType,
+            types.BuiltinFunctionType)) else value_key(value)))
+    return tuple(out)
+
+
+def math_key():
+    """The process's settings that choose the library kernels a capture
+    bakes in: TF32 in cuBLAS and cuDNN, the float32 matmul precision,
+    reduced-precision reductions, the preferred BLAS library,
+    deterministic algorithms and cuDNN's switches."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    return (matmul.allow_tf32, cudnn.allow_tf32,
+            torch.get_float32_matmul_precision(),
+            matmul.allow_fp16_reduced_precision_reduction,
+            matmul.allow_bf16_reduced_precision_reduction,
+            torch.backends.cuda.preferred_blas_library(),
+            torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            cudnn.enabled, cudnn.deterministic, cudnn.benchmark)
+
+
+def model_key(model):
+    """What decides ``model``'s step besides its tensors' values: each
+    module's class and settings (widths, activation, an ansatz), and the
+    names, shapes, dtypes and devices (with their index) of its parameters
+    and buffers.
+    Raises :class:`_NoKey` for a module with hooks or a tensor held as a
+    plain attribute."""
+    modules = []
+    for name, m in model.named_modules():
+        if any(getattr(m, h) for h in _HOOKS):
+            raise _NoKey
+        modules.append((name, type(m), tuple(
+            (k, value_key(v)) for k, v in sorted(vars(m).items())
+            if k not in _MODULE_ATTRS), m.training))
+    tensors = tuple(
+        (name, tuple(t.shape), t.dtype, t.device, t.requires_grad)
+        for name, t in (*model.named_parameters(), *model.named_buffers()))
+    return tuple(modules), tensors
+
+
+def structure_key(problem, model):
+    """``problem`` and ``model`` described for a graph's key
+    (:func:`value_key`, :func:`model_key`), with the process's math
+    settings (:func:`math_key`); None where either cannot be described."""
+    try:
+        return value_key(problem), model_key(model), math_key()
+    except _NoKey:
+        return None
+
+
+def graph_key(problem, model, config, device, mesh=None):
+    """The key of the scan graph that trains ``model`` on ``problem``
+    under ``config``: exactly what the captured kernels read as host
+    values or shapes, and the math settings that chose them
+    (:func:`math_key`). The seed, the lr, the starting weights and moments,
+    the draws and, under a constant schedule, the iterations are left out:
+    each call copies them in. None (a graph of the call's own) on a mesh,
+    or where the problem or the model cannot be described (an unhashable
+    problem, a tensor held outside the parameters and buffers)."""
+    structure = structure_key(problem, model)
+    if mesh is not None or structure is None:
+        return None
+    horizon = (None if config.schedule == "constant"
+               else (float(config.iterations), float(config.schedule_decay)))
+    oversample = (config.adaptive_oversample
+                  if config.adaptive_oversample > 1 else 0)
+    return ("scan", structure, is_stateful(model), config.optimizer,
+            config.schedule, horizon, config.batch_size, oversample,
+            GRAPH_STEPS, CAPTURE_STEPS, device)
+
+
+def _tensors(model):
+    return [*model.parameters(), *model.buffers()]
+
+
+class _ScanEntry:
+    """A cached scan graph and what it holds pointers to: a module of its
+    own, its optimizer (the moments and capturable Adam's ``step``
+    tensors), the device schedule, the step closure (and through it the
+    problem) and the :class:`ScanGraph` with its static draws and
+    losses."""
+
+    def __init__(self, model, optimizer, schedule, step, graph):
+        self.model, self.optimizer = model, optimizer
+        self.schedule, self.step, self.graph = schedule, step, graph
+
+    def free(self):
+        """Release the graph and its memory pool (evicted)."""
+        self.graph.graph.reset()
+
+    def load(self, model, opt_state, config):
+        """A call's starting state, copied into the entry's tensors on the
+        device: ``model``'s parameters and buffers; the moments and
+        ``step`` from ``opt_state`` (a state_dict), or zero; the lr and
+        the update count, as ``make_optimizer``, ``load_opt_state`` and
+        :class:`DeviceSchedule` set them for a fresh capture."""
+        saved = opt_state["state"] if opt_state is not None else {}
+        with torch.no_grad():
+            for dst, src in zip(_tensors(self.model), _tensors(model)):
+                dst.copy_(src)
+            params = [p for group in self.optimizer.param_groups
+                      for p in group["params"]]
+            for i, p in enumerate(params):
+                for name, t in self.optimizer.state[p].items():
+                    if torch.is_tensor(t):
+                        src = saved.get(i, {}).get(name)
+                        if src is None:
+                            t.zero_()
+                        else:
+                            t.copy_(src)
+        for j, group in enumerate(self.optimizer.param_groups):
+            count = (int(opt_state["param_groups"][j].get("count", 0))
+                     if opt_state is not None else 0)
+            group.update(lrate=float(config.lrate),
+                         horizon=float(config.iterations),
+                         decay=float(config.schedule_decay), count=count)
+        self.schedule.load()
+
+
+# ---------------------------------------------------------------------------
 # The training loop
 # ---------------------------------------------------------------------------
 
@@ -532,12 +740,17 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
 
     Steps run in chunks of ``config.chunk_size``; on a CUDA device each
     whole block of GRAPH_STEPS steps of a chunk replays one CUDA graph
-    (:class:`ScanGraph`, captured once per call) and the rest run eagerly,
-    with the same bits: a ``chunk_size`` below GRAPH_STEPS runs every step
-    eagerly.
+    (:class:`ScanGraph`) and the rest run eagerly, with the same bits: a
+    ``chunk_size`` below GRAPH_STEPS runs every step eagerly. A call
+    trains a module of its own from copies of ``model``, ``opt_state`` and
+    the lr, copies the trained parameters and buffers back into ``model``
+    and returns ``opt_state`` as a copy of its own. The graph is captured
+    once per :func:`graph_key` and kept with that module: a later call of
+    the key trains it, with the same bits as a fresh capture.
     ``compile_time`` is one warm-up step on copies of the model and
     optimizer state (with the build of the kernels the step launches, if
-    it launches any) and the graph's capture; ``wall_time`` and
+    it launches any) and the graph's capture, or for a cached key the
+    copies in; ``wall_time`` and
     ``iters_per_sec`` cover the training steps only, ending in
     ``torch.cuda.synchronize()``. ``profile_dir`` writes a
     ``torch.profiler`` trace of the run there. ``device`` defaults to
@@ -565,6 +778,10 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
         mesh = pm.as_mesh(mesh, device)
         device = pm.mesh_device(mesh)
         pm.require_axis(mesh, config.data_axis, "data-parallel training")
+    cuda = device.type == "cuda"
+    chunk = max(1, min(config.chunk_size, config.iterations))
+    graphs = cuda and chunk >= GRAPH_STEPS
+    graph = key = entry = None
     with trace.span("train.setup", trainer="scan"):
         if model is None:
             model = problem.default_model(generator=generator(seed))
@@ -573,17 +790,24 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
             # Refuses a batch the axis does not divide, before any step.
             sharding.shard_range(config.batch_size, mesh, config.data_axis)
             sharding.replicate(model, mesh)
-        optimizer = make_optimizer(config, model.parameters())
-        if opt_state is not None:
-            load_opt_state(optimizer, opt_state)
-        cuda = device.type == "cuda"
-        schedule = DeviceSchedule(optimizer) if cuda else None
-        step = make_train_step(problem, model, optimizer, config.batch_size,
-                               config.adaptive_oversample, schedule, mesh,
-                               config.data_axis)
-    chunk = max(1, min(config.chunk_size, config.iterations))
-    graphs = cuda and chunk >= GRAPH_STEPS
-    graph = None
+        if graphs:
+            key = graph_key(problem, model, config, device, mesh)
+            entry = graph_cache.TRAINER_GRAPHS.get(key)
+        if entry is not None:
+            entry.load(model, opt_state, config)
+            net, optimizer, schedule = (entry.model, entry.optimizer,
+                                        entry.schedule)
+            step, graph = entry.step, entry.graph
+        else:
+            net = copy.deepcopy(model)
+            optimizer = make_optimizer(config, net.parameters())
+            if opt_state is not None:
+                load_opt_state(optimizer, opt_state)
+            schedule = DeviceSchedule(optimizer) if cuda else None
+            step = make_train_step(problem, net, optimizer,
+                                   config.batch_size,
+                                   config.adaptive_oversample, schedule,
+                                   mesh, config.data_axis)
 
     def run_chunk(start, n):
         nonlocal graph
@@ -595,7 +819,7 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
                                      step.draw_size, device)
             if graphs and k == GRAPH_STEPS:
                 if graph is None:
-                    graph = ScanGraph(step, block, model, optimizer,
+                    graph = ScanGraph(step, block, net, optimizer,
                                       schedule, problem.name)
                 losses.append(graph.replay(block))
             else:
@@ -609,33 +833,39 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
             return torch.cat(losses).cpu().numpy()
 
     # Warm-up: one step on copies of the state (it builds the kernels the
-    # step launches, if any).
+    # step launches, if any), then the capture; a cached key needs neither.
     t0 = time.perf_counter()
-    with trace.span("train.warmup", trainer="scan"):
-        warm_model = copy.deepcopy(model)
-        warm_opt = make_optimizer(config, warm_model.parameters())
-        warm_opt.load_state_dict(copy.deepcopy(optimizer.state_dict()))
-        warm_step = make_train_step(problem, warm_model, warm_opt,
-                                    config.batch_size,
-                                    config.adaptive_oversample,
-                                    DeviceSchedule(warm_opt) if cuda
-                                    else None, mesh, config.data_axis)
-        block = draw_batches(problem, seed, start_step,
-                             GRAPH_STEPS if graphs else 1, step.draw_size,
-                             device)
-        warm_step({key: v[0] for key, v in block.items()})
-        del warm_model, warm_opt, warm_step
-        if graphs:
-            graph = ScanGraph(step, block, model, optimizer, schedule,
-                              problem.name)
-        build.sync(device)
+    if entry is not None:
+        trace.count("graph.reuses.scan")
+    else:
+        with trace.span("train.warmup", trainer="scan"):
+            warm_model = copy.deepcopy(net)
+            warm_opt = make_optimizer(config, warm_model.parameters())
+            warm_opt.load_state_dict(copy.deepcopy(optimizer.state_dict()))
+            warm_step = make_train_step(problem, warm_model, warm_opt,
+                                        config.batch_size,
+                                        config.adaptive_oversample,
+                                        DeviceSchedule(warm_opt) if cuda
+                                        else None, mesh, config.data_axis)
+            block = draw_batches(problem, seed, start_step,
+                                 GRAPH_STEPS if graphs else 1,
+                                 step.draw_size, device)
+            warm_step({k: v[0] for k, v in block.items()})
+            del warm_model, warm_opt, warm_step
+            if graphs:
+                graph = ScanGraph(step, block, net, optimizer, schedule,
+                                  problem.name)
+                if key is not None:
+                    graph_cache.TRAINER_GRAPHS.put(key, _ScanEntry(
+                        net, optimizer, schedule, step, graph))
+            build.sync(device)
     compile_time = time.perf_counter() - t0
 
     n_full, rem = divmod(config.iterations, chunk)
     chunks = [chunk] * n_full + ([rem] if rem else [])
     metrics_fh = open(config.metrics_file, "a") if config.metrics_file \
         else None
-    snapshot = ((_snapshot(model, optimizer), start_step, 0)
+    snapshot = ((_snapshot(net, optimizer), start_step, 0)
                 if config.snapshot_every else None)
     retries = dispatch_idx = 0
     losses_out = []
@@ -667,13 +897,15 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
                         raise
                     retries += 1
                     (model_state, opt_saved), done, ci = snapshot
-                    model.load_state_dict(model_state)
+                    net.load_state_dict(model_state)
                     optimizer.load_state_dict(copy.deepcopy(opt_saved))
                     if cuda:
                         # The optimizer's tensors were replaced: a new lr
-                        # and count, and a graph captured on them.
+                        # and count, and a graph captured on them, which
+                        # is this call's alone.
                         schedule.reset(optimizer)
                         graph = None
+                        graph_cache.TRAINER_GRAPHS.pop(key)
                     losses_out = losses_out[:ci]
                     print(f"[recovery] device failure "
                           f"({type(err).__name__}); restored snapshot at "
@@ -690,7 +922,7 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
                 done += n
                 ci += 1
                 if config.snapshot_every and ci % config.snapshot_every == 0:
-                    snapshot = (_snapshot(model, optimizer), done, ci)
+                    snapshot = (_snapshot(net, optimizer), done, ci)
                 if metrics_fh:
                     metrics_fh.write(json.dumps({
                         "step": done,
@@ -700,6 +932,9 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
                         "iters_per_sec": round(n / chunk_s, 1),
                     }) + "\n")
                     metrics_fh.flush()
+            with torch.no_grad():
+                for dst, src in zip(_tensors(model), _tensors(net)):
+                    dst.copy_(src)
             build.sync(device)
     finally:
         if metrics_fh:
@@ -713,7 +948,8 @@ def train(problem, seed: int, config: TrainConfig | None = None, model=None,
                     else np.zeros((0,), np.float32))
     return TrainResult(
         params=model,
-        opt_state=optimizer.state_dict(),
+        # A copy: a kept entry's tensors are the next call's.
+        opt_state=copy.deepcopy(optimizer.state_dict()),
         loss_history=loss_history,
         wall_time=wall,
         iters_per_sec=config.iterations / wall if wall else math.inf,

@@ -126,8 +126,10 @@ LAUNCH_COUNTS = ("launches", "bf16_launches", "sweep_launches",
 
 def counters():
     """Every counter's total: those of :func:`count` (``graph.captures.
-    <trainer>``, ``graph.replays.<trainer>``, ``graph.evictions``) and the
-    kernel wrappers' launch counts."""
+    <trainer>``, ``graph.replays.<trainer>``, ``graph.evictions``, and
+    ``graph.reuses.<trainer>``: the calls of the scan and population
+    trainers served by a cached graph) and the kernel wrappers' launch
+    counts."""
     out = dict(_counts)
     for fn in wrappers():
         for attr in LAUNCH_COUNTS:

@@ -34,6 +34,9 @@ from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
     fused_dgm as fd,
 )
 from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
+    graphs as graph_cache,
+)
+from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
     fused_engine as fe,
 )
 from differential_equations_dnn_tpu_torch.kernels import (  # noqa: E402
@@ -637,6 +640,7 @@ def test_pallas_population_launches_the_kernel_once_a_step(cuda,
     model = MLP(2, 1, 32, 2, "tanh", generator=generator(0))
     cfg = PopulationConfig(iterations=G + 5, max_batch_size=64)
     runs = []
+    graph_cache.clear_graphs()  # a cached graph needs no warm-up
     for taps, graph_steps in (("pallas", G), ("pallas", 4 * G),
                               ("taylor", G)):
         monkeypatch.setattr(population, "GRAPH_STEPS", graph_steps)
@@ -677,6 +681,7 @@ def test_scan_solve_goes_through_the_streams_kernel(cuda):
                 ft.heat_fused_train_chunk, fe.fused_engine_chunk)
     for fn in counters:
         fn.launches = 0
+    graph_cache.clear_graphs()  # a cached graph needs no warm-up
     res = solve("heat", taps="pallas", iterations=300, lrate=1e-3)
     assert taylor_mlp.heat_fused_streams.launches == 302
     assert taylor_mlp.mlp_forward.launches == 1
@@ -1441,6 +1446,7 @@ def test_scan_graph_equals_eager(cuda, case):
     than a graph): losses and parameters bit for bit; one capture and one
     replay."""
     name, kw, cfg_kw = SCAN_CASES[case]
+    graph_cache.clear_graphs()  # as in a fresh process
     captures, replays = _graphs(), _graphs("replays")
     graphed, pg = _scan_run(name, kw, cfg_kw, cuda)
     assert _graphs_since(captures) == {"scan": 1}
@@ -1497,15 +1503,165 @@ def test_scan_graph_chunked_and_resumed_equal_uncut(cuda):
 def test_scan_graph_recovers_from_a_fault(cuda):
     """A fault injected at the second chunk of a graphed run restores the
     host snapshot, captures anew and retries: the result equals the
-    unbroken run bit for bit."""
+    unbroken run bit for bit. The faulty run starts on the clean run's
+    cached graph, and its retry's graph is its own: the next run
+    captures."""
     base = dict(iterations=600, chunk_size=300)
+    graph_cache.clear_graphs()
     clean, pc = _scan_run("simple_ode", {}, base, cuda)
-    before = _graphs()
+    before, reused = _graphs(), _graphs("reuses")
     with inject_fault(1):
         faulty, pf = _scan_run("simple_ode", {}, base, cuda)
-    assert _graphs_since(before) == {"scan": 2}
+    assert _graphs_since(before) == {"scan": 1}
+    assert _graphs_since(reused, "reuses") == {"scan": 1}
     np.testing.assert_array_equal(faulty.loss_history, clean.loss_history)
     assert all(torch.equal(a, b) for a, b in zip(pf, pc))
+    again, pa = _scan_run("simple_ode", {}, base, cuda)
+    assert _graphs_since(before) == {"scan": 2}
+    np.testing.assert_array_equal(again.loss_history, clean.loss_history)
+    assert all(torch.equal(a, b) for a, b in zip(pa, pc))
+
+
+def _copies(tree):
+    """Host copies of the tensors of a nest of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _copies(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_copies(v) for v in tree]
+    return tree.detach().cpu().clone() if torch.is_tensor(tree) else tree
+
+
+def _assert_same(a, b):
+    """Two nests of :func:`_copies` equal bit for bit."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _assert_same(a[k], b[k])
+    elif isinstance(a, list):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _assert_same(x, y)
+    elif torch.is_tensor(a):
+        assert torch.equal(a, b)
+    else:
+        assert a == b
+
+
+def test_scan_solves_share_one_cached_graph(cuda):
+    """``solve("heat")`` at seeds 3, 4 and 3 in one process: the first
+    captures the scan graph, the later two replay it from the cache
+    (``graph.reuses.scan``); the third equals the first bit for bit, and
+    so does a fresh capture after ``clear_graphs()``; the first result's
+    model is unchanged by the later calls."""
+    kw = dict(iterations=300, lrate=1e-3)
+    graph_cache.clear_graphs()
+    before, reused = _graphs(), _graphs("reuses")
+    first = solve("heat", seed=3, **kw)
+    assert _graphs_since(before) == {"scan": 1}
+    assert _graphs_since(reused, "reuses") == {}
+    kept = _copies([first.loss_history.tolist(),
+                    list(first.params.parameters())])
+    second = solve("heat", seed=4, **kw)
+    assert _graphs_since(reused, "reuses") == {"scan": 1}
+    third = solve("heat", seed=3, **kw)
+    assert _graphs_since(before) == {"scan": 1}
+    assert _graphs_since(reused, "reuses") == {"scan": 2}
+    graph_cache.clear_graphs()
+    fresh = solve("heat", seed=3, **kw)
+    assert _graphs_since(before) == {"scan": 2}
+    for res in (first, third, fresh):
+        _assert_same(_copies([res.loss_history.tolist(),
+                              list(res.params.parameters())]), kept)
+    assert not np.array_equal(second.loss_history, first.loss_history)
+
+
+def test_scan_cached_graph_returns_independent_state(cuda):
+    """A result's model and ``opt_state`` are the caller's own: a later
+    call of the cached key leaves them as they were; and a run resumed
+    from them on the cached graph equals an unbroken run bit for bit."""
+    graph_cache.clear_graphs()
+    reused = _graphs("reuses")
+    uncut, pu = _scan_run("heat", {}, dict(iterations=600), cuda)
+    first, p1 = _scan_run("heat", {}, {}, cuda)
+    kept = _copies([list(first.params.parameters()), first.opt_state])
+    cfg = TrainConfig(iterations=300, batch_size=64, lrate=3e-3,
+                      verbose=False)
+    train(Heat1D(), 5, cfg, device=cuda)
+    _assert_same(_copies([list(first.params.parameters()),
+                          first.opt_state]), kept)
+    second, ps = _scan_run("heat", {}, {}, cuda, model=first.params,
+                           opt_state=first.opt_state, start_step=300)
+    assert _graphs_since(reused, "reuses") == {"scan": 3}
+    np.testing.assert_array_equal(
+        np.concatenate([first.loss_history, second.loss_history]),
+        uncut.loss_history)
+    assert all(torch.equal(a, b) for a, b in zip(ps, pu))
+
+
+def test_scan_graph_key_holds_the_math_settings(cuda):
+    """TF32 switched on between two calls of one key's problem and seed
+    captures anew, and trains on TF32 matmuls (other losses than the
+    first call's), as a fresh capture under the setting does bit for bit:
+    a changed setting never replays a graph captured under another."""
+    cfg = TrainConfig(iterations=300, batch_size=64, lrate=1e-3,
+                      verbose=False)
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_tf32
+    graph_cache.clear_graphs()
+    before, reused = _graphs(), _graphs("reuses")
+    try:
+        matmul.allow_tf32 = False
+        ieee = train(Heat1D(), 3, cfg, device=cuda)
+        matmul.allow_tf32 = True
+        tf32 = train(Heat1D(), 3, cfg, device=cuda)
+        assert _graphs_since(before) == {"scan": 2}
+        assert _graphs_since(reused, "reuses") == {}
+        graph_cache.clear_graphs()
+        fresh = train(Heat1D(), 3, cfg, device=cuda)
+    finally:
+        matmul.allow_tf32 = old
+    assert not np.array_equal(tf32.loss_history, ieee.loss_history)
+    np.testing.assert_array_equal(fresh.loss_history, tf32.loss_history)
+
+
+def test_population_calls_share_one_cached_graph(cuda):
+    """Two ``batch_size_effect`` calls of one seed around one of another
+    seed: one capture, then ``graph.reuses.population`` of 1 a call; the
+    same curves bit for bit, and the same again from a fresh capture after
+    ``clear_graphs()``. A ``train_population`` result's params and
+    opt_state are unchanged by a later call of its key."""
+    from differential_equations_dnn_tpu_torch.parallel import (
+        PopulationConfig,
+        train_population,
+    )
+    from differential_equations_dnn_tpu_torch.sweep import batch_size_effect
+
+    kw = dict(batch_sizes=[1, 8, 64], runs=2, iterations=101, device=cuda)
+    graph_cache.clear_graphs()
+    before, reused = _graphs(), _graphs("reuses")
+    a = batch_size_effect(Heat1D(), seed=1, **kw)
+    assert _graphs_since(before) == {"population": 1}
+    b = batch_size_effect(Heat1D(), seed=2, **kw)
+    assert _graphs_since(reused, "reuses") == {"population": 1}
+    c = batch_size_effect(Heat1D(), seed=1, **kw)
+    assert _graphs_since(before) == {"population": 1}
+    assert _graphs_since(reused, "reuses") == {"population": 2}
+    graph_cache.clear_graphs()
+    d = batch_size_effect(Heat1D(), seed=1, **kw)
+    assert _graphs_since(before) == {"population": 2}
+    for res in (c, d):
+        np.testing.assert_array_equal(res.all_losses, a.all_losses)
+    assert not np.array_equal(b.all_losses, a.all_losses)
+
+    model = MLP(2, 1, 32, 2, "tanh", generator=generator(0))
+    cfg = PopulationConfig(iterations=70, max_batch_size=64)
+    lrs = np.array([1e-3, 3e-3], np.float32)
+    params, opt_state, _ = train_population(Heat1D(), model, 1, lrs,
+                                            config=cfg, device=cuda)
+    kept = _copies([params, opt_state])
+    train_population(Heat1D(), model, 2, lrs, config=cfg, device=cuda)
+    _assert_same(_copies([params, opt_state]), kept)
+    assert _graphs_since(reused, "reuses") == {"population": 3}
 
 
 def test_scan_graph_refuses_an_uncapturable_step(cuda):
@@ -2126,6 +2282,7 @@ def test_population_graph_equals_eager(cuda, monkeypatch):
         runs = []
         for graph_steps in (G, 4 * G):
             monkeypatch.setattr(population, "GRAPH_STEPS", graph_steps)
+            graph_cache.clear_graphs()  # as in a fresh process
             captures = _graphs()
             timings = {}
             out = train_population(
